@@ -1,0 +1,99 @@
+"""Segment reductions over padded batches.
+
+Counterpart of ``hydragnn_tpu/graphs/segment.py``. ``segment_sum`` of 2-D
+float data goes to the CSR segment-sum kernel wrapper
+(``ops.fused_scatter.fused_segment_sum``); counts, 1-D reductions, max and
+min stay plain PyTorch, as the JAX package leaves them to XLA.
+
+Padding convention: padded elements carry the id of the trailing dummy
+segment, so real segments are unaffected; empty segments give 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.fused_scatter import SegmentIndex, fused_segment_sum
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                index: SegmentIndex | None = None) -> torch.Tensor:
+    """Sum ``data`` rows into ``num_segments`` rows by ``segment_ids``.
+    ``index`` is the ids' cached :class:`SegmentIndex` where the caller has
+    one (``GraphBatch.csr``)."""
+    if data.dim() == 2 and data.is_floating_point():
+        return fused_segment_sum(data, segment_ids, num_segments, index)
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    return out.index_add_(0, segment_ids.long(), data)
+
+
+def segment_count(segment_ids: torch.Tensor, num_segments: int,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Number of (optionally weighted) elements per segment, [num_segments]."""
+    if weights is None:
+        weights = torch.ones(segment_ids.shape[0], dtype=torch.float32,
+                             device=segment_ids.device)
+    out = torch.zeros(num_segments, dtype=weights.dtype, device=weights.device)
+    return out.index_add_(0, segment_ids.long(), weights)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                 eps: float = 1e-12, index: SegmentIndex | None = None) -> torch.Tensor:
+    """Mean per segment; empty segments give zeros."""
+    total = segment_sum(data, segment_ids, num_segments, index)
+    count = segment_count(segment_ids, num_segments)
+    count = torch.clamp(count, min=eps).to(total.dtype)
+    return total / count.reshape((-1,) + (1,) * (total.dim() - 1))
+
+
+def _segment_extreme(data, segment_ids, num_segments, reduce):
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
+                      device=data.device)
+    ids = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    # include_self=False leaves empty segments at their initial 0
+    return out.scatter_reduce_(0, ids, data, reduce=reduce, include_self=False)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                index: SegmentIndex | None = None) -> torch.Tensor:
+    """Max per segment; empty segments give 0."""
+    return _segment_extreme(data, segment_ids, num_segments, "amax")
+
+
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                index: SegmentIndex | None = None) -> torch.Tensor:
+    """Min per segment; empty segments give 0."""
+    return _segment_extreme(data, segment_ids, num_segments, "amin")
+
+
+_POOL_FNS = {
+    "add": segment_sum,
+    "sum": segment_sum,
+    "mean": segment_mean,
+    "max": segment_max,
+    "min": segment_min,
+}
+
+
+def global_pool(kind: str, data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, index: SegmentIndex | None = None) -> torch.Tensor:
+    """Graph-level readout (``global_{mean,add,max,min}_pool``) as one
+    segment reduction."""
+    try:
+        fn = _POOL_FNS[kind]
+    except KeyError:
+        raise ValueError(
+            f"Unknown pooling '{kind}'; expected one of {sorted(_POOL_FNS)}"
+        ) from None
+    return fn(data, segment_ids, num_segments, index=index)
+
+
+__all__ = [
+    "global_pool",
+    "segment_count",
+    "segment_max",
+    "segment_mean",
+    "segment_min",
+    "segment_sum",
+]

@@ -1,0 +1,99 @@
+"""Shared prediction core: predict step, per-head gather, denormalise.
+
+Counterpart of ``hydragnn_tpu/serve/predictor.py``: the one implementation
+of "turn a model and a padded batch into per-head predictions", run by both
+the batch evaluator (``run_prediction``) and the server, so a served answer
+is bit-identical to what the evaluator reports for the same padded batch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.base import head_columns
+from ..train.step import make_predict_step, resolve_precision
+from ..utils import resolve_device
+
+
+class Predictor:
+    """A model (on ``device``) bound to its augmented config.
+
+    - :meth:`outputs` — run the predict step on one padded batch;
+    - :meth:`gather` — per-head (true, pred) numpy arrays of the real rows;
+    - :meth:`split_graphs` — per-graph views of a batch's outputs;
+    - :meth:`denormalize` / :meth:`denormalize_preds` — min-max
+      denormalisation when the config asks for it.
+    """
+
+    def __init__(self, model: torch.nn.Module, config: dict, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.spec = model.spec
+        self.voi = config["NeuralNetwork"]["Variables_of_interest"]
+        self.compute_dtype = resolve_precision(
+            config["NeuralNetwork"]["Training"].get("precision", "fp32"), self.device
+        )
+        self.predict_step = make_predict_step(self.model, self.compute_dtype)
+        self.cols = head_columns(self.spec)
+        self._scales = None
+
+    def outputs(self, batch) -> list[torch.Tensor]:
+        """Per-head fp32 predictions for one padded batch (still padded;
+        callers mask), on the model's device."""
+        if batch.device != self.device:
+            batch = batch.to(self.device)
+        return self.predict_step(batch)
+
+    def gather(self, batch, out=None):
+        """(trues, preds): per-head numpy arrays of the REAL rows of
+        ``batch`` — graph heads masked by ``graph_mask``, node heads by
+        ``node_mask``."""
+        if out is None:
+            out = self.outputs(batch)
+        trues, preds = [], []
+        graph_mask = batch.graph_mask.cpu().numpy() > 0
+        node_mask = batch.node_mask.cpu().numpy() > 0
+        for ihead, (kind, col, dim) in enumerate(self.cols):
+            if kind == "graph":
+                mask, target = graph_mask, batch.graph_y
+            else:
+                mask, target = node_mask, batch.node_y
+            trues.append(target[:, col : col + dim].cpu().numpy()[mask])
+            preds.append(out[ihead].cpu().numpy()[mask])
+        return trues, preds
+
+    def split_graphs(self, out, node_counts):
+        """Per-graph results, in collate order: graph heads give the
+        ``[dim]`` row of the graph, node heads the ``[n_i, dim]`` rows of its
+        nodes (numpy)."""
+        results = [[] for _ in node_counts]
+        offsets = np.concatenate([[0], np.cumsum(node_counts)]).astype(np.int64)
+        for ihead, (kind, _col, _dim) in enumerate(self.cols):
+            arr = out[ihead].cpu().numpy()
+            for g in range(len(node_counts)):
+                if kind == "graph":
+                    results[g].append(arr[g])
+                else:
+                    results[g].append(arr[offsets[g] : offsets[g + 1]])
+        return results
+
+    def denormalize(self, trues, preds):
+        if not self.voi.get("denormalize_output"):
+            return trues, preds
+        from ..postprocess.postprocess import output_denormalize
+
+        return output_denormalize(self.voi, trues, preds, self.spec)
+
+    def denormalize_preds(self, preds):
+        """Preds-only denormalisation for the serving path (scales cached)."""
+        if not self.voi.get("denormalize_output"):
+            return preds
+        if self._scales is None:
+            from ..postprocess.postprocess import head_scales
+
+            self._scales = head_scales(self.voi, self.spec)
+        return [p * rng + lo for p, (lo, rng) in zip(preds, self._scales)]
+
+
+__all__ = ["Predictor"]

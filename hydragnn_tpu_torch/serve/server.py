@@ -1,0 +1,400 @@
+"""Always-hot prediction server: persistent process, models resident on the
+card, kernels built at warm-up.
+
+Counterpart of ``hydragnn_tpu/serve/server.py`` without its compile cache,
+AOT artifacts, fleet, quantisation, telemetry plane and env flags (later
+slices):
+
+- **boot**: register models (architecture + weights + augmented config);
+  each endpoint derives its pad-bucket table (the same
+  ``compute_pad_buckets`` table training uses) and :meth:`warmup` runs one
+  dummy batch per bucket, which builds the CUDA kernels;
+- **steady state**: a bounded request queue with typed load-shedding feeds
+  a per-endpoint micro-batcher (``serve.batcher``) whose batches run
+  through the shared :class:`~hydragnn_tpu_torch.serve.predictor.Predictor`;
+- **routing**: several models serve from one process, each endpoint with
+  its own queue, bucket table and dispatcher thread.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from concurrent.futures import Future
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..graphs.batching import PadSpec, compute_pad_buckets
+from ..graphs.graph import GraphSample
+from ..utils import resolve_device
+from .admission import (
+    DeadlineExceededError,
+    IncompatibleSampleError,
+    Request,
+    RequestQueue,
+    ServerClosedError,
+    UnknownModelError,
+)
+from .batcher import MicroBatcher, serving_collate
+from .predictor import Predictor
+
+
+# Serving keys of the JAX package's block that belong to later slices of
+# the port: accepted at their defaults (a config augmented by the JAX package
+# carries them), refused when they ask for the feature. The in-process
+# server ignores ``fleet`` in the JAX package too.
+_LATER_SLICE_KEYS = ("quantize", "quant_tol", "quant_calib_batches", "fleet")
+
+
+def _without_later_keys(block: dict) -> dict:
+    if block.get("quantize"):
+        raise NotImplementedError(
+            "quantized serving (Serving.quantize) is not ported yet; it comes with the "
+            "quantized-serving slice (kernel 6, ops/quant_matmul.py)"
+        )
+    return {k: v for k, v in block.items() if k not in _LATER_SLICE_KEYS}
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """The ``Serving`` config block; these field defaults are the schema
+    defaults."""
+
+    queue_depth: int = 256     # bounded admission; beyond it requests shed
+    flush_ms: float = 5.0      # max micro-batch coalescing latency
+    warmup: bool = True        # run every bucket once at boot (builds kernels)
+    max_batch_graphs: int = 0  # per-batch request cap (0 = bucket capacity)
+    deadline_ms: float = 0.0   # default per-request deadline (0 = none)
+
+    @staticmethod
+    def from_config(config: dict | None) -> "ServingConfig":
+        """A full config dict (its ``Serving`` block; absent = defaults) or
+        the serving block itself."""
+        from ..config.schema import CONFIG_SECTIONS
+
+        config = config or {}
+        block = config.get("Serving")
+        if block is None and config:
+            if any(k in serving_config_defaults() or k in _LATER_SLICE_KEYS for k in config):
+                block = config
+            elif not any(k in CONFIG_SECTIONS for k in config):
+                raise ValueError(
+                    f"unrecognized serving config keys {sorted(config)}; expected a full "
+                    f"config (sections {sorted(CONFIG_SECTIONS)}) or a Serving block "
+                    f"(fields {sorted(serving_config_defaults())})"
+                )
+        block = _without_later_keys(block or {})
+        unknown = set(block) - set(serving_config_defaults())
+        if unknown:
+            raise ValueError(
+                f"Unknown Serving key(s) {sorted(unknown)}; known: "
+                f"{sorted(serving_config_defaults())}"
+            )
+        return ServingConfig(**block)
+
+    def validate(self) -> "ServingConfig":
+        if int(self.queue_depth) < 1:
+            raise ValueError(f"Serving.queue_depth must be >= 1, got {self.queue_depth}")
+        for fkey in ("flush_ms", "deadline_ms"):
+            if float(getattr(self, fkey)) < 0:
+                raise ValueError(f"Serving.{fkey} must be >= 0, got {getattr(self, fkey)}")
+        if int(self.max_batch_graphs) < 0:
+            raise ValueError(
+                "Serving.max_batch_graphs must be >= 0 (0 = bucket capacity), got "
+                f"{self.max_batch_graphs}"
+            )
+        return self
+
+
+def serving_config_defaults() -> dict:
+    return dataclasses.asdict(ServingConfig())
+
+
+def _dummy_sample(example: GraphSample) -> GraphSample:
+    """A 1-node, 0-edge sample with ``example``'s feature widths."""
+    return GraphSample(
+        x=np.zeros((1, example.x.shape[1]), np.float32),
+        edge_attr=np.zeros((0, example.edge_attr.shape[1]), np.float32),
+        graph_attr=np.zeros_like(example.graph_attr),
+        graph_y=np.zeros_like(example.graph_y),
+        node_y=np.zeros((1, example.node_y.shape[1]), np.float32),
+    )
+
+
+class ModelEndpoint:
+    """One served model: predictor + bucket table + queue + counters."""
+
+    def __init__(self, name: str, predictor: Predictor, buckets: Sequence[PadSpec],
+                 example: GraphSample, cfg: ServingConfig, denormalize: bool = False):
+        self.name = name
+        self.predictor = predictor
+        self.buckets = sorted(buckets, key=lambda p: p.as_tuple())
+        self.example = example
+        self.cfg = cfg
+        self.denormalize = denormalize
+        self.warmed = False
+        self.thread: threading.Thread | None = None
+        self._lock = threading.Lock()
+        self.counters = {  # guarded-by: _lock
+            "submitted": 0, "served": 0, "shed": 0, "shed_deadline": 0,
+            "shed_oversize": 0, "failed": 0, "cancelled": 0,
+            "batches": 0, "real_graph_slots": 0, "graph_slots": 0,
+        }
+        self._want_signature = self._signature(example)
+        self.reset_queue()
+
+    def reset_queue(self) -> None:
+        """Fresh queue + batcher (boot, and re-arm after ``stop()``)."""
+        self.queue = RequestQueue(self.cfg.queue_depth)
+        self.batcher = MicroBatcher(
+            self.queue, self.buckets, flush_s=self.cfg.flush_ms / 1e3,
+            max_graphs=self.cfg.max_batch_graphs, on_shed=self._on_shed,
+        )
+
+    def _on_shed(self, kind: str) -> None:
+        self._count("cancelled" if kind == "cancelled" else f"shed_{kind}")
+
+    def _count(self, key: str, by: int = 1) -> None:
+        with self._lock:
+            self.counters[key] += by
+
+    @staticmethod
+    def _signature(s: GraphSample) -> dict:
+        return {
+            "x_width": s.x.shape[1],
+            "edge_attr_width": s.edge_attr.shape[1],
+            "graph_attr_width": s.graph_attr.shape[0],
+            "graph_y_width": s.graph_y.shape[0],
+            "node_y_width": s.node_y.shape[1],
+        }
+
+    def check_sample(self, s: GraphSample) -> None:
+        """Every request must match the endpoint's feature-width signature."""
+        got = self._signature(s)
+        want = self._want_signature
+        if got != want:
+            mismatch = {k: (got[k], want[k]) for k in got if got[k] != want[k]}
+            raise IncompatibleSampleError(
+                f"sample does not match endpoint {self.name!r}'s signature: "
+                f"(got, want) per field: {mismatch}"
+            )
+
+    def warm(self) -> dict:
+        """One dummy batch through every bucket (the first builds the CUDA
+        kernels); returns seconds per bucket."""
+        report = {}
+        dummy = _dummy_sample(self.example)
+        for pad in self.buckets:
+            t0 = time.perf_counter()
+            self.predictor.outputs(serving_collate([dummy], pad))
+            if self.predictor.device.type == "cuda":
+                torch.cuda.synchronize(self.predictor.device)
+            report[repr(pad)] = time.perf_counter() - t0
+        self.warmed = True
+        return report
+
+    def serve_batch(self, members: list[Request], pad: PadSpec) -> None:
+        # dispatch-time gate: re-check deadlines and claim every future so a
+        # client-side cancel can never break the dispatcher
+        live = []
+        for req in members:
+            if req.expired():
+                if req.reject(DeadlineExceededError("deadline passed while the batch coalesced")):
+                    self._count("shed_deadline")
+                else:
+                    self._count("cancelled")
+            elif req.claim():
+                live.append(req)
+            else:
+                self._count("cancelled")
+        members = live
+        if not members:
+            return
+        try:
+            batch = serving_collate([r.sample for r in members], pad)
+            out = self.predictor.outputs(batch)
+            per_graph = self.predictor.split_graphs(out, [r.sample.num_nodes for r in members])
+            if self.denormalize:
+                per_graph = [self.predictor.denormalize_preds(heads) for heads in per_graph]
+            now = time.monotonic()
+            with self._lock:
+                seq = self.counters["batches"]
+                self.counters["batches"] += 1
+                self.counters["real_graph_slots"] += len(members)
+                self.counters["graph_slots"] += pad.n_graph - 1
+                self.counters["served"] += len(members)
+            for slot, (req, heads) in enumerate(zip(members, per_graph)):
+                req.future.set_result({
+                    "heads": heads,
+                    "latency_s": now - req.enqueued_at,
+                    "bucket": pad.as_tuple(),
+                    "batch_graphs": len(members),
+                    "batch": seq,  # the endpoint's batch sequence number
+                    "slot": slot,  # position in the batch (collate order)
+                })
+        except Exception as exc:  # fail this batch's futures, keep serving
+            self._count("failed", len(members))
+            for req in members:
+                if not req.future.done():
+                    req.future.set_exception(exc)
+
+
+class PredictionServer:
+    """The persistent multi-model prediction process::
+
+        server = PredictionServer(config)              # device="cuda"
+        server.add_model("gin", model, aug_config, samples=train)
+        server.warmup()
+        server.start()
+        fut = server.submit("gin", sample, deadline_ms=50)
+        result = fut.result()["heads"]                 # per-head arrays
+        server.stop()
+    """
+
+    def __init__(self, config: ServingConfig | dict | None = None, device="cuda"):
+        self.device = resolve_device(device)
+        if isinstance(config, ServingConfig):
+            self.cfg = dataclasses.replace(config)
+        else:
+            self.cfg = ServingConfig.from_config(config)
+        self.cfg.validate()
+        self._models: dict[str, ModelEndpoint] = {}
+        self._running = False
+        self._stopping = False
+
+    def add_model(self, name: str, model, config: dict,
+                  samples: Sequence[GraphSample] | None = None,
+                  buckets: Sequence[PadSpec] | None = None,
+                  example: GraphSample | None = None, batch_size: int | None = None,
+                  max_buckets: int = 4, denormalize: bool = False) -> ModelEndpoint:
+        """Register one model (``config`` is its augmented config). The
+        bucket table is ``buckets`` or derived from ``samples``;
+        ``example`` (default ``samples[0]``) fixes the feature-width
+        signature requests are checked against."""
+        if self._running:
+            raise RuntimeError("add_model before start(): registration is a boot-time operation")
+        if name in self._models:
+            raise ValueError(f"model {name!r} already registered")
+        if buckets is None:
+            if not samples:
+                raise ValueError(
+                    "add_model needs `samples` to derive the bucket table "
+                    "(or pass `buckets` plus an `example` sample)"
+                )
+            bs = int(batch_size or config["NeuralNetwork"]["Training"].get("batch_size", 32))
+            buckets = compute_pad_buckets(samples, bs, max_buckets=max_buckets)
+        if example is None and samples:
+            example = samples[0]
+        if example is None:
+            raise ValueError("add_model needs an `example` sample (or `samples`)")
+        predictor = Predictor(model, config, device=self.device)
+        ep = ModelEndpoint(name, predictor, buckets, example, self.cfg, denormalize=denormalize)
+        self._models[name] = ep
+        return ep
+
+    def warmup(self) -> dict:
+        """Run every (model, bucket) once; returns seconds per bucket."""
+        t0 = time.perf_counter()
+        report = {name: ep.warm() for name, ep in self._models.items()}
+        report["total_s"] = time.perf_counter() - t0
+        return report
+
+    def start(self) -> "PredictionServer":
+        if self._running:
+            return self
+        if not self._models:
+            raise RuntimeError("no models registered")
+        if self.cfg.warmup:
+            for ep in self._models.values():
+                if not ep.warmed:
+                    ep.warm()
+        self._stopping = False
+        for ep in self._models.values():
+            if ep.queue.closed:
+                ep.reset_queue()
+            ep.thread = threading.Thread(
+                target=self._dispatch_loop, args=(ep,), name=f"serve-{ep.name}", daemon=True,
+            )
+            ep.thread.start()
+        self._running = True
+        return self
+
+    def stop(self) -> None:
+        if not self._running:
+            return
+        self._stopping = True
+        for ep in self._models.values():
+            for req in ep.queue.close():
+                req.reject(ServerClosedError("server stopped with the request queued"))
+                ep._count("cancelled")
+        for ep in self._models.values():
+            if ep.thread is not None:
+                ep.thread.join(timeout=10.0)
+        self._running = False
+
+    def __enter__(self) -> "PredictionServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def _dispatch_loop(self, ep: ModelEndpoint) -> None:
+        batcher = ep.batcher
+        while True:
+            got = batcher.next_batch(block=False)
+            if got is None:
+                if self._stopping or batcher.queue.closed:
+                    return
+                continue
+            ep.serve_batch(*got)
+
+    def submit(self, model: str, sample: GraphSample,
+               deadline_ms: float | None = None) -> Future:
+        """Admit one request and return its Future; admission failures
+        (unknown model, server not started, schema mismatch, queue full)
+        raise here, typed."""
+        ep = self._models.get(model)
+        if ep is None:
+            raise UnknownModelError(f"no model {model!r}; serving: {sorted(self._models)}")
+        if not self._running:
+            raise ServerClosedError("server not started")
+        if deadline_ms is None and self.cfg.deadline_ms:
+            deadline_ms = self.cfg.deadline_ms
+        deadline = time.monotonic() + deadline_ms / 1e3 if deadline_ms else None
+        req = Request(sample=sample, deadline=deadline)
+        ep._count("submitted")
+        try:
+            ep.check_sample(sample)
+            ep.queue.put(req)
+        except Exception:
+            ep._count("shed")
+            raise
+        return req.future
+
+    def predict(self, model: str, samples: Sequence[GraphSample],
+                deadline_ms: float | None = None, timeout: float = 60.0):
+        """Submit every sample, wait, return the per-request ``heads``."""
+        futures = [self.submit(model, s, deadline_ms=deadline_ms) for s in samples]
+        return [f.result(timeout=timeout)["heads"] for f in futures]
+
+    def stats(self) -> dict:
+        """Per-model counters plus batch occupancy (real graphs per padded
+        graph slot)."""
+        out = {}
+        for name, ep in self._models.items():
+            with ep._lock:
+                c = dict(ep.counters)
+            c["queue_depth"] = len(ep.queue)
+            c["buckets"] = [b.as_tuple() for b in ep.buckets]
+            c["warmed"] = ep.warmed
+            c["occupancy"] = (
+                c["real_graph_slots"] / c["graph_slots"] if c["graph_slots"] else None
+            )
+            out[name] = c
+        return out
+
+
+__all__ = ["ModelEndpoint", "PredictionServer", "ServingConfig", "serving_config_defaults"]
