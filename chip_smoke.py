@@ -9,17 +9,29 @@ device JSON only when every phase passed):
 1. device: name, count, power limit; TF32 off for matmuls and cuDNN;
 2. build: nvcc builds ``hydragnn_tpu_torch/csrc/*.cu`` from this checkout;
 3. kernels: each CUDA kernel's wrapper against its plain PyTorch version at
-   the serving path's shapes (a collated QM9-like batch at the top pad
+   the main paths' shapes (a collated QM9-like batch at the top pad
    bucket), fp32 and bf16, scalar and per-channel weights, unsorted ids and
-   empty rows; device times per call (CUDA-graph replay between CUDA events)
-   beside the plain version, a one-call PyTorch yardstick and the memory
-   bound;
+   empty rows, and the gather-scatter kernel's transposed launch (the
+   backward) over the senders' CSR view; device times per call (CUDA-graph
+   replay between CUDA events) beside the plain version, a one-call PyTorch
+   yardstick and the bound;
 4. serving: the QM9 GIN of ``examples/qm9/qm9.json`` at full width (random
    weights from ``--seed``) behind ``PredictionServer``; at least 256
    concurrent requests; served answers against ``Predictor.outputs`` on the
-   same padded batches; launch counts of both kernels per served batch; the
-   card's answers against the port's CPU route on one batch; one
-   ``run_prediction`` pass over the same samples.
+   same padded batches; launch counts per served batch; the card's answers
+   against the port's CPU route on one batch; one ``run_prediction`` pass;
+5. training: ``run_training`` on the same GIN in bf16 for a few epochs (the
+   only cut of the configuration: ``num_epoch``), with checkpoints in a
+   temporary directory; the train loss falls; launch counts per train step
+   (4 forward + 3 backward gather-scatter, 1 segment sum); one fp32 train
+   step on the card against the CPU route; the final checkpoint reloaded
+   into a fresh model gives the trained model's ``run_prediction``; where
+   a train step's time goes, and the device's busy share under
+   ``torch.profiler``;
+6. canaries: the tier-1 GIN canaries (one head, and four heads) on the
+   deterministic BCC dataset through ``run_training`` and ``run_prediction``
+   on the card, at the reference thresholds (head RMSE < 0.25, sample
+   MAE < 0.20).
 
 The script imports only ``hydragnn_tpu_torch``, torch and numpy, and needs no
 network.
@@ -32,6 +44,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -56,6 +69,46 @@ SERVE_ATOL = 0.0
 # the card's fp32 forward against the port's CPU route on the same batch:
 # float32 sums in another order across four conv layers and the heads
 CPU_PARITY = dict(rtol=1e-4, atol=1e-5)
+# one fp32 train step, the card against the CPU route: gradients are sums in
+# another order through four conv layers, batch norm and the heads (rtol
+# 1e-4, atol 1e-5 of the largest gradient of any parameter: a tensor whose
+# gradient nearly cancels, as a bias before a batch norm's mean subtraction
+# does, carries the rounding of the large terms it cancels); the parameters after
+# the first AdamW step, which moves each by lr * g / (|g| + 1e-8), agree to
+# 1e-3 * lr wherever |g| exceeds ten times the largest card-vs-CPU gradient
+# difference, and elsewhere (gradients at the noise level, which that step
+# follows in sign) to 2 * lr, further than one step moves a parameter
+STEP_GRAD_TOL = dict(rtol=1e-4, atol_of_max=1e-5)
+# epochs of the full-width training run: the one cut of qm9.json's config
+TRAIN_EPOCHS = 6
+# the tier-1 canaries' GIN (tests/test_config.py CI_CONFIG, with the
+# learning rate and epochs of tests/test_training_e2e.py), and their
+# reference thresholds (head RMSE, sample MAE)
+CANARY_CONFIG = {
+    "Verbosity": {"level": 0},
+    "Dataset": {
+        "name": "unit_test_singlehead",
+        "format": "unit_test",
+        "node_features": {"name": ["type", "x", "x2", "x3"], "dim": [1, 1, 1, 1],
+                          "column_index": [0, 1, 2, 3]},
+        "graph_features": {"name": ["sum"], "dim": [1], "column_index": [0]},
+    },
+    "NeuralNetwork": {
+        "Architecture": {
+            "mpnn_type": "GIN", "radius": 2.0, "max_neighbours": 100, "hidden_dim": 8,
+            "num_conv_layers": 2,
+            "output_heads": {"graph": {"num_sharedlayers": 2, "dim_sharedlayers": 4,
+                                       "num_headlayers": 2, "dim_headlayers": [10, 10]}},
+            "task_weights": [1.0],
+        },
+        "Variables_of_interest": {"input_node_features": [0], "output_names": ["sum"],
+                                  "output_index": [0], "type": ["graph"],
+                                  "denormalize_output": False},
+        "Training": {"num_epoch": 100, "perc_train": 0.7, "loss_function_type": "mse",
+                     "batch_size": 16, "Optimizer": {"type": "AdamW", "learning_rate": 0.02}},
+    },
+}
+CANARY_THRESHOLDS = (0.25, 0.20)
 
 
 def log(msg: str) -> None:
@@ -209,11 +262,12 @@ def _compare(torch, name, got, want, rows, dtype_name) -> float:
     return err
 
 
-def kernel_phase(torch, batch, small=None, timing: bool = True) -> list[dict]:
-    """Every kernel of the serving path against its plain version on the
-    card, at ``batch``'s shapes (timed there and, for the log, at the
-    ``small`` batch of the smallest bucket). Returns the kernels' JSON
-    entries."""
+def kernel_phase(torch, batch, small=None, timing: bool = True):
+    """Every kernel of the serving and training paths against its plain
+    version on the card, at ``batch``'s shapes (timed there and, for the
+    log, at the ``small`` batch of the smallest bucket). Returns the
+    kernels' JSON entries and their device times per call (ms), or
+    ``([], {})`` without ``timing``."""
     from hydragnn_tpu_torch.ops import fused_scatter as fs
 
     dev = torch.device("cuda") if timing else torch.device("cpu")
@@ -290,6 +344,25 @@ def kernel_phase(torch, batch, small=None, timing: bool = True) -> list[dict]:
         raise AssertionError("gather_scatter_sum: long rows disagree with the fp64 sum")
     results["gather_scatter_sum"] = max(errs)
 
+    # kernel 1's transposed launch (the backward of conv layers 1-3): dout
+    # gathered by receiver, scaled by the edge mask, summed onto senders over
+    # the senders' CSR view, whose permutation the kernel follows and whose
+    # row N-1 owns every pad edge
+    send_idx = b.csr("senders")
+    log(f"gather_scatter_sum_bwd (replaces the second launch of ops/fused_scatter.py:87 "
+        f"_kernel, from _fused_bwd): senders sorted={b.meta.send_sorted}, "
+        f"permutation {'yes' if send_idx.perm is not None else 'no'}, "
+        f"{int(send_idx.piece_ptr[-1])} pieces")
+    dout = feats(64, torch.float32)
+    dh = fs.gather_scatter_sum_bwd(dout, b.senders, b.receivers, n, mask, send_idx)
+    again = fs.gather_scatter_sum_bwd(dout, b.senders, b.receivers, n, mask, send_idx)
+    want = fs.plain_gather_scatter_sum(dout, b.receivers, b.senders, n, mask)
+    results["gather_scatter_sum_bwd"] = _compare(
+        torch, "fp32 C=64 edge-mask weight, senders' view", dh, want, real_rows, "float32")
+    if not torch.equal(dh, again):
+        raise AssertionError("gather_scatter_sum_bwd: two launches on the same inputs differ")
+    log("  two launches on the same inputs: bit-identical")
+
     # kernel 2: segment sum over the graph CSR (pooling) and the node CSR
     log("segment_sum (replaces ops/fused_scatter.py:378 _scatter_kernel):")
     errs = []
@@ -315,7 +388,8 @@ def kernel_phase(torch, batch, small=None, timing: bool = True) -> list[dict]:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     if not timing:
-        return []
+        return [], {}
+    times = {}
 
     # times at the path's main shapes: conv layers 1-3 (fp32, C=64) for
     # kernel 1, the mean pooling (fp32 [N,64] -> G) for kernel 2
@@ -352,6 +426,28 @@ def kernel_phase(torch, batch, small=None, timing: bool = True) -> list[dict]:
     k2_ops = n * 64
     k2.update(shape=f"data[{n},64] f32 -> G={g}", bytes=k2_bytes, ops=k2_ops)
 
+    # the transposed launch at conv layers 1-3's backward shapes
+    kb = dict(
+        ms=graph_time_ms(torch, lambda: fs.gather_scatter_sum_bwd(
+            dout, b.senders, b.receivers, n, w, send_idx)),
+        plain_ms=graph_time_ms(torch, lambda: fs.plain_gather_scatter_sum(
+            dout, b.receivers, b.senders, n, w)),
+    )
+    # one-call yardsticks: the transposed CSR product A^T @ dout (rows =
+    # senders), and index_add_ of the already gathered, scaled messages
+    perm_l = send_idx.perm.long()
+    at_csr = torch.sparse_csr_tensor(send_idx.ptr.long(), b.receivers.long()[perm_l],
+                                     w.float()[perm_l], size=(n, n))
+    kb["library_ms"] = graph_time_ms(torch, lambda: torch.sparse.mm(at_csr, dout))
+    msgs = dout[b.receivers.long()] * w[:, None]
+    send_long = b.senders.long()
+    kb["index_add_ms"] = graph_time_ms(torch, lambda: torch.zeros(
+        n, 64, device=dev).index_add_(0, send_long, msgs))
+    lib_err = float((torch.sparse.mm(at_csr, dout) - dh)[:real_rows].abs().max())
+    log(f"  yardstick torch.sparse.mm(transposed CSR, dout) max|diff| vs kernel = {lib_err:.3e}; "
+        f"index_add_ of gathered messages {kb['index_add_ms'] * 1e3:.2f} us")
+    kb.update(shape=f"dout[{n},64] f32, E={e}, w[E], senders' view", bytes=k1_bytes, ops=k1_ops)
+
     # conv layer 0 of the bf16 predict step: bf16, C = 1
     h0 = feats(1, torch.bfloat16)
     w0 = mask.to(torch.bfloat16)
@@ -361,6 +457,7 @@ def kernel_phase(torch, batch, small=None, timing: bool = True) -> list[dict]:
         h0, b.senders, b.receivers, n, w0))
     log(f"  gather_scatter_sum @ h[{n},1] bf16 (conv layer 0): kernel {t_k * 1e3:.2f} us, "
         f"plain {t_p * 1e3:.2f} us")
+    times["gather_scatter_sum_layer0_ms"] = t_k
     if small is not None:
         s_b = small.to(dev)
         sn, sg = s_b.num_nodes, s_b.num_graphs
@@ -380,6 +477,7 @@ def kernel_phase(torch, batch, small=None, timing: bool = True) -> list[dict]:
     entries = []
     for name, src_line, k in (
         ("gather_scatter_sum", "hydragnn_tpu/ops/fused_scatter.py:87", k1),
+        ("gather_scatter_sum_bwd", "hydragnn_tpu/ops/fused_scatter.py:87", kb),
         ("segment_sum", "hydragnn_tpu/ops/fused_scatter.py:378", k2),
     ):
         t_bytes = k["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -398,10 +496,14 @@ def kernel_phase(torch, batch, small=None, timing: bool = True) -> list[dict]:
             "library_ms": k["library_ms"],
             "shape": k["shape"],
         })
+        if "index_add_ms" in k:
+            entries[-1]["index_add_ms"] = k["index_add_ms"]
         log(f"  {name} @ {k['shape']}: kernel {k['ms'] * 1e3:.2f} us, plain "
             f"{k['plain_ms'] * 1e3:.2f} us, one-call yardstick {k['library_ms'] * 1e3:.2f} us, "
             f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({k['bytes']} B at 3.35 TB/s)")
-    return entries
+    for e_ in entries:
+        times[e_["name"] + "_ms"] = e_["ms"]
+    return entries, times
 
 
 # -- phase 4: serving --------------------------------------------------------
@@ -468,9 +570,10 @@ def serving_phase(torch, device: str, seed: int, n_clients: int = 4,
     for r in results:
         if not all(np.isfinite(np.asarray(h)).all() for h in r["heads"]):
             raise AssertionError("serving: non-finite answer")
-    want = {"gather_scatter_sum": 4 * n_batches, "segment_sum": n_batches}
+    want = {"gather_scatter_sum": 4 * n_batches, "gather_scatter_sum_bwd": 0,
+            "segment_sum": n_batches}
     log(f"launches during serving: {launches} (expected {want}: 4 conv layers and 1 "
-        f"pooling per batch)")
+        f"pooling per batch, no backward)")
     if device == "cuda" and launches != want:
         raise AssertionError(f"serving: launch counts {launches} != {want}")
 
@@ -564,9 +667,287 @@ def serving_phase(torch, device: str, seed: int, n_clients: int = 4,
     if not np.isfinite(error) or preds[0].shape != trues[0].shape:
         raise AssertionError("run_prediction: bad result")
     if device == "cuda" and rp_launches != {"gather_scatter_sum": 4 * n_rp,
-                                            "segment_sum": n_rp}:
+                                            "gather_scatter_sum_bwd": 0, "segment_sum": n_rp}:
         raise AssertionError(f"run_prediction: launch counts {rp_launches}")
     return {"launches": launches, "batches": n_batches}
+
+
+# -- phase 5: training -----------------------------------------------------------
+
+
+def _sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int) -> None:
+    """One fp32 train step from the same parameters on the same batch, on
+    ``device`` and on the port's CPU route: gradients, updated parameters
+    and running statistics."""
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+
+    opt_cfg = aug["NeuralNetwork"]["Training"]["Optimizer"]
+    lr = float(opt_cfg["learning_rate"])
+    card = create_model_config(aug, device=device, seed=seed)
+    host = copy.deepcopy(card).to("cpu")
+    s_card, s_host = create_train_state(card, opt_cfg), create_train_state(host, opt_cfg)
+    step = make_train_step(torch.float32)
+    step(s_card, host_batch.to(device))
+    step(s_host, host_batch)
+    _sync(torch, device)
+    grads = {n: (p.grad.cpu(), dict(host.named_parameters())[n].grad)
+             for n, p in card.named_parameters()}
+    worst_g = max(float((c - h).abs().max()) for c, h in grads.values())
+    atol = STEP_GRAD_TOL["atol_of_max"] * max(float(h.abs().max()) for _, h in grads.values())
+    for name, (c, h) in grads.items():
+        if not torch.allclose(c, h, rtol=STEP_GRAD_TOL["rtol"], atol=atol):
+            raise AssertionError(f"fp32 train step: gradient of {name} differs from the CPU "
+                                 f"route by {float((c - h).abs().max()):.3e}")
+    floor = 10 * worst_g
+    worst_p = worst_noise = 0.0
+    n_noise = 0
+    for (name, p), q in zip(card.named_parameters(), host.parameters()):
+        g = grads[name][1]
+        diff = (p.detach().cpu() - q.detach()).abs()
+        noise = g.abs() <= floor
+        n_noise += int(noise.sum())
+        worst_p = max(worst_p, float(diff[~noise].max()) if bool((~noise).any()) else 0.0)
+        worst_noise = max(worst_noise, float(diff[noise].max()) if bool(noise.any()) else 0.0)
+    for (name, a), b in zip(card.named_buffers(), host.buffers()):
+        if not torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"fp32 train step: running statistic {name} differs")
+    log(f"fp32 train step, {device} vs the CPU route: max|grad diff| {worst_g:.3e} (rtol "
+        f"{STEP_GRAD_TOL['rtol']}, atol {atol:.3e} = {STEP_GRAD_TOL['atol_of_max']} x the "
+        f"largest gradient); parameters "
+        f"after AdamW max|diff| {worst_p:.3e} (allowed {1e-3 * lr:.1e} = 1e-3 lr) and "
+        f"{worst_noise:.3e} on {n_noise} noise-level gradients (allowed {2 * lr:.1e} = 2 lr)")
+    if worst_p > 1e-3 * lr or worst_noise > 2 * lr:
+        raise AssertionError("fp32 train step: updated parameters differ from the CPU route")
+
+
+def training_phase(torch, device: str, seed: int, kernel_times: dict | None = None,
+                   card: str = "", epochs: int = TRAIN_EPOCHS) -> dict:
+    """``run_training`` on the qm9.json GIN (bf16, its published widths;
+    ``num_epoch`` cut to ``epochs``): falling train loss, launch counts,
+    checkpoint reload, the fp32 step against the CPU route, and where a
+    train step's time goes."""
+    from hydragnn_tpu_torch import run_prediction, run_training
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.train.checkpoint import load_checkpoint
+    from hydragnn_tpu_torch.train.step import cast_forward, create_train_state, make_train_step
+
+    cfg = qm9_config()
+    published = cfg["NeuralNetwork"]["Training"]["num_epoch"]
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    n_layers = int(arch["num_conv_layers"])
+
+    def samples():
+        return qm9_like_samples(512, seed, float(arch["radius"]), int(arch["max_neighbours"]))
+
+    loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=samples())
+    n_train, n_val, n_test = (len(ld) for ld in loaders)
+    log(f"training: run_training on the qm9.json GIN at its published widths, precision "
+        f"{cfg['NeuralNetwork']['Training']['precision']}, num_epoch cut from {published} to "
+        f"{epochs} (the only cut), 512 QM9-like molecules: {n_train} train / {n_val} val / "
+        f"{n_test} test batches per epoch, seed {seed}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        history: list = []
+        train_samples = samples()
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        state, model, aug = run_training(copy.deepcopy(cfg), samples=train_samples,
+                                         device=device, path=tmp, seed=seed, history=history)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        launches = dict(fs.LAUNCHES)
+        losses = [h["train_loss"] for h in history]
+        log(f"[{card}] run_training: {len(history)} epochs, {state.step} train steps in "
+            f"{wall:.3f} s (epochs {[round(h['seconds'], 3) for h in history]} s, each with "
+            f"its evaluations and checkpoint; the rest is set-up and the final save); train "
+            f"loss per epoch {[round(x, 6) for x in losses]}; val loss "
+            f"{[round(h['val_loss'], 6) for h in history]}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"training: the train loss did not fall: {losses}")
+        steps, evals = state.step, len(history) * (n_val + n_test)
+        want = {"gather_scatter_sum": n_layers * (steps + evals),
+                "gather_scatter_sum_bwd": (n_layers - 1) * steps,
+                "segment_sum": steps + evals}
+        log(f"launches during run_training: {launches} (expected {want}: per train step "
+            f"{n_layers} forward + {n_layers - 1} backward gather-scatter and 1 segment sum, per "
+            f"eval batch {n_layers} + 1)")
+        if device == "cuda" and launches != want:
+            raise AssertionError(f"training: launch counts {launches} != {want}")
+
+        # the final checkpoint, reloaded into a fresh model (other random
+        # weights), gives the trained model's run_prediction
+        fresh = create_model_config(aug, device=device, seed=seed + 1)
+        meta = load_checkpoint(create_train_state(fresh, aug["NeuralNetwork"]["Training"]
+                                                  ["Optimizer"]),
+                               get_log_name_config(aug), path=tmp)
+        ref = run_prediction(copy.deepcopy(cfg), state, samples=samples(), device=device)
+        got = run_prediction(copy.deepcopy(cfg), fresh, samples=samples(), device=device)
+        diff = max(float(np.max(np.abs(a - b))) for a, b in zip(ref[3], got[3]))
+        log(f"checkpoint {meta}: reloaded model's run_prediction vs the trained model's: "
+            f"mse {got[0]:.6f} vs {ref[0]:.6f}, max|diff| {diff:.3e} (allowed 0)")
+        if diff != 0.0 or got[0] != ref[0]:
+            raise AssertionError("training: the reloaded checkpoint predicts differently")
+
+    # one train step at the top bucket, alone: its launches
+    train_ld = loaders[0]
+    chunk = train_ld.samples[:64]
+    host = collate(chunk, train_ld.pad)
+    step = make_train_step(torch.bfloat16)
+    fs.reset_launches()
+    step(state, host.to(device))
+    _sync(torch, device)
+    per_step = dict(fs.LAUNCHES)
+    want_step = {"gather_scatter_sum": n_layers, "gather_scatter_sum_bwd": n_layers - 1,
+                 "segment_sum": 1}
+    log(f"launches of one train step: {per_step} (expected {want_step})")
+    if device == "cuda" and per_step != want_step:
+        raise AssertionError(f"training: one step launched {per_step} != {want_step}")
+
+    _step_vs_cpu(torch, aug, host, device, seed)
+
+    # where a bf16 train step's time goes (top bucket, median of 20, host
+    # clock after a synchronise; each step on a fresh device batch, so it
+    # builds the batch's CSR views as a training step does)
+    reps = 20
+    fresh_batches = [host.to(device) for _ in range(reps)]
+    optimizer = state.optimizer
+    parts: dict = {k: [] for k in ("collate", "to_device", "csr_recv_batch", "csr_send",
+                                   "forward", "backward", "optimizer", "step")}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        _sync(torch, device)
+        parts[key].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for b in fresh_batches:
+        timed("collate", lambda: collate(chunk, train_ld.pad))
+        timed("to_device", lambda: host.to(device))
+        timed("csr_recv_batch", lambda: (b.csr("receivers"), b.csr("batch")))
+        timed("csr_send", lambda: b.csr("senders"))
+        tot = timed("forward", lambda: model.loss(
+            cast_forward(model, b, torch.bfloat16, train=True), b)[0])
+        timed("backward", lambda: (optimizer.zero_grad(), tot.backward()))
+        timed("optimizer", optimizer.step)
+    for b in [host.to(device) for _ in range(reps)]:
+        timed("step", lambda: step(state, b))
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    kt = kernel_times or {}
+    kernel_ms = (kt.get("gather_scatter_sum_layer0_ms", 0.0)
+                 + (n_layers - 1) * kt.get("gather_scatter_sum_ms", 0.0)
+                 + (n_layers - 1) * kt.get("gather_scatter_sum_bwd_ms", 0.0)
+                 + kt.get("segment_sum_ms", 0.0))
+    log(f"[{card}] one bf16 train step at the top bucket (median of {reps}, host clock): "
+        f"collate {med['collate']:.3f} ms, to device {med['to_device']:.3f} ms, receiver and "
+        f"graph CSR views {med['csr_recv_batch']:.3f} ms, sender CSR view {med['csr_send']:.3f} "
+        f"ms, forward {med['forward']:.3f} ms, backward {med['backward']:.3f} ms, optimizer "
+        f"{med['optimizer']:.3f} ms; whole train step {med['step']:.3f} ms, of which kernels "
+        f"{kernel_ms * 1e3:.2f} us of device time ({100 * kernel_ms / med['step']:.2f}%)")
+    if device == "cuda":
+        _profile_steps(torch, step, state, host, device, card)
+    return {"launches": launches, "per_step": per_step, "breakdown": med}
+
+
+def _profile_steps(torch, step, state, host, device: str, card: str, n_steps: int = 10) -> None:
+    """The device's busy share of ``n_steps`` bf16 train steps under
+    ``torch.profiler``: the summed time of the device kernels and copies
+    over the window's host-clock wall (the tracing slows the host, so the
+    share is a lower bound), and device operations per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [host.to(device) for _ in range(n_steps)]
+    step(state, batches[0])
+    _sync(torch, device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            step(state, b)
+        _sync(torch, device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log(f"[{card}] profiler: no device events traced; busy share not measured")
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    steps = n_steps - 1
+    log(f"[{card}] profiler over {steps} bf16 train steps: device busy {busy_us / steps:.1f} us "
+        f"per step of {wall_us / steps / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.2f}% busy, "
+        f"{100 - 100 * busy_us / wall_us:.2f}% idle), {len(dev) / steps:.0f} device operations "
+        f"per step")
+
+
+# -- phase 6: the convergence canaries ------------------------------------------
+
+
+def canary_config(name: str, epochs: int = 100) -> dict:
+    """``CANARY_CONFIG`` with one graph head, or the 4-head variant of
+    ``tests/test_training_e2e.py`` (graph sum + nodal x, x2, x3; graph head
+    weighted 20x; node heads 2 x 10; batch 16; lr 0.01)."""
+    cfg = copy.deepcopy(CANARY_CONFIG)
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+    if name == "four_heads":
+        arch = cfg["NeuralNetwork"]["Architecture"]
+        cfg["NeuralNetwork"]["Variables_of_interest"] = {
+            "input_node_features": [0], "output_names": ["sum", "x", "x2", "x3"],
+            "output_index": [0, 1, 2, 3], "type": ["graph", "node", "node", "node"],
+            "denormalize_output": False,
+        }
+        arch["task_weights"] = [20.0, 1.0, 1.0, 1.0]
+        arch["output_heads"]["graph"]["dim_sharedlayers"] = 10
+        arch["output_heads"]["node"] = {"num_headlayers": 2, "dim_headlayers": [10, 10],
+                                        "type": "mlp"}
+        cfg["NeuralNetwork"]["Training"]["Optimizer"]["learning_rate"] = 0.01
+    return cfg
+
+
+def canary_phase(torch, device: str, card: str = "", epochs: int = 100,
+                 n_samples: int = 500, check: bool = True) -> dict:
+    """Both GIN canaries through run_training and run_prediction: 500 BCC
+    samples (seed 7), 100 epochs, every head below the reference
+    thresholds."""
+    from hydragnn_tpu_torch import run_prediction, run_training
+    from hydragnn_tpu_torch.datasets import deterministic_graph_data
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    rmse_max, mae_max = CANARY_THRESHOLDS
+    out = {}
+    for name in ("single_head", "four_heads"):
+        cfg = canary_config(name, epochs)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            fs.reset_launches()
+            t0 = time.perf_counter()
+            state, _, _ = run_training(copy.deepcopy(cfg), device=device, path=tmp,
+                                       samples=deterministic_graph_data(n_samples, seed=7))
+            _, _, trues, preds = run_prediction(
+                copy.deepcopy(cfg), state, device=device,
+                samples=deterministic_graph_data(n_samples, seed=7))
+            _sync(torch, device)
+            wall = time.perf_counter() - t0
+        launches = dict(fs.LAUNCHES)
+        rmse = [float(np.sqrt(np.mean((t - p) ** 2))) for t, p in zip(trues, preds)]
+        mae = [float(np.mean(np.abs(t - p))) for t, p in zip(trues, preds)]
+        log(f"[{card}] canary {name}: {epochs} epochs, {state.step} steps, run_training + "
+            f"run_prediction {wall:.3f} s; head RMSE {[round(x, 4) for x in rmse]} (< "
+            f"{rmse_max}), sample MAE {[round(x, 4) for x in mae]} (< {mae_max}); launches "
+            f"{launches}")
+        if check and (max(rmse) >= rmse_max or max(mae) >= mae_max):
+            raise AssertionError(f"canary {name} missed the reference thresholds")
+        if device == "cuda" and min(launches.values()) <= 0:
+            raise AssertionError(f"canary {name}: a kernel was not launched: {launches}")
+        out[name] = {"seconds": wall, "rmse": rmse, "mae": mae}
+    return out
 
 
 def main(argv=None) -> int:
@@ -584,12 +965,22 @@ def main(argv=None) -> int:
         raise SystemExit(f"chip_smoke: hydragnn_tpu_torch imported from {pkg}, not this checkout")
     build_phase()
     _, _, loaders, samples = prepare(args.seed)
-    entries = kernel_phase(torch, *bucket_batches(loaders, samples))
+    entries, kernel_times = kernel_phase(torch, *bucket_batches(loaders, samples))
     served = serving_phase(torch, "cuda", args.seed, card=dev["smi"])
+    trained = training_phase(torch, "cuda", args.seed, kernel_times, card=dev["smi"])
+    canary_phase(torch, "cuda", card=dev["smi"])
     for e in entries:
-        e["launches"] = served["launches"][e["name"]]
+        name = e["name"]
+        # launches: the training path's run (run_training); the serving
+        # path's counts beside them
+        e["launches"] = trained["launches"][name]
+        e["launches_serving"] = served["launches"][name]
+        e["launches_per_served_batch"] = served["launches"][name] / served["batches"]
+        e["launches_per_train_step"] = trained["per_step"][name]
         if e["launches"] <= 0:
-            raise AssertionError(f"{e['name']} was not launched on the serving path")
+            raise AssertionError(f"{name} was not launched on the training path")
+        if name != "gather_scatter_sum_bwd" and e["launches_serving"] <= 0:
+            raise AssertionError(f"{name} was not launched on the serving path")
     log(dev["smi"])  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],

@@ -9,6 +9,7 @@ at first use. Entry points run on the card unless the caller passes
 from .config import load_config, update_config  # noqa: F401
 from .models import create_model, create_model_config  # noqa: F401
 from .run_prediction import run_prediction  # noqa: F401
+from .run_training import run_training  # noqa: F401
 from .serve import PredictionServer, Predictor, ServingConfig  # noqa: F401
 
 __all__ = [
@@ -19,5 +20,6 @@ __all__ = [
     "create_model_config",
     "load_config",
     "run_prediction",
+    "run_training",
     "update_config",
 ]

@@ -3,7 +3,9 @@
 from .schema import (  # noqa: F401
     HeadBranchSpec,
     ModelSpec,
+    get_log_name_config,
     load_config,
+    save_config,
     update_config,
     update_multibranch_heads,
 )
@@ -11,7 +13,9 @@ from .schema import (  # noqa: F401
 __all__ = [
     "HeadBranchSpec",
     "ModelSpec",
+    "get_log_name_config",
     "load_config",
+    "save_config",
     "update_config",
     "update_multibranch_heads",
 ]

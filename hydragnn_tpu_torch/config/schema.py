@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from copy import deepcopy
 
 CONFIG_SECTIONS = frozenset(
@@ -124,6 +125,9 @@ class ModelSpec:
     task_weights: tuple[float, ...]
     activation: str = "relu"
     graph_pooling: str = "mean"
+    loss_type: str = "mse"
+    freeze_conv_layers: bool = False
+    initial_bias: float | None = None
     # read only to refuse what this slice of the port does not run
     global_attn_engine: str | None = None
     use_graph_attr_conditioning: bool = False
@@ -169,9 +173,39 @@ class ModelSpec:
             task_weights=task_weights,
             activation=arch.get("activation_function", "relu"),
             graph_pooling=arch.get("graph_pooling", "mean"),
+            loss_type=training.get("loss_function_type", "mse"),
+            freeze_conv_layers=bool(arch.get("freeze_conv_layers", False)),
+            initial_bias=arch.get("initial_bias"),
             global_attn_engine=arch.get("global_attn_engine") or None,
             use_graph_attr_conditioning=bool(arch.get("use_graph_attr_conditioning", False)),
             enable_interatomic_potential=bool(arch.get("enable_interatomic_potential", False)),
             var_output=training.get("loss_function_type") == "GaussianNLLLoss",
         )
 
+
+def get_log_name_config(config: dict) -> str:
+    """The run's name, as the JAX package derives it from the config."""
+    arch = config["NeuralNetwork"]["Architecture"]
+    training = config["NeuralNetwork"]["Training"]
+    name = config["Dataset"]["name"]
+    trimmed = name[: name.rfind("_")] if name.rfind("_") > 0 else name
+    weights = arch.get("task_weights") or [1.0] * len(arch["output_dim"])
+    return (
+        f"{arch['mpnn_type']}-r-{arch.get('radius')}-ncl-{arch['num_conv_layers']}"
+        f"-hd-{arch['hidden_dim']}-ne-{training['num_epoch']}"
+        f"-lr-{training['Optimizer']['learning_rate']}-bs-{training['batch_size']}"
+        f"-data-{trimmed}"
+        "-node_ft-"
+        + "".join(str(x) for x in config["NeuralNetwork"]["Variables_of_interest"]
+                  ["input_node_features"])
+        + "-task_weights-"
+        + "".join(f"{w}-" for w in weights)
+    )
+
+
+def save_config(config: dict, log_name: str, path: str = "./logs/") -> None:
+    """Write the augmented config as ``<path>/<log_name>/config.json``."""
+    fname = os.path.join(path, log_name, "config.json")
+    os.makedirs(os.path.dirname(fname), exist_ok=True)
+    with open(fname, "w") as f:
+        json.dump(config, f, indent=4)

@@ -15,7 +15,8 @@ flax (``params`` / ``batch_stats``)   port module
 ====================================  =====================================
 
 Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
-of the flax variables); this module imports no JAX.
+of the flax variables, or of the matching optax moments); this module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -60,32 +61,62 @@ def _port_name(path: tuple) -> str:
     raise KeyError(f"no port module for flax variable {'/'.join(path)}")
 
 
+def port_arrays(tree: dict) -> dict[str, np.ndarray]:
+    """A flax-shaped tree (variables, their gradients or optimizer moments)
+    as ``{port state_dict key: array}``, kernels transposed to ``[out, in]``.
+    ``np.array`` copies: writable, and a 0-d leaf stays 0-d (unlike
+    ``np.ascontiguousarray``)."""
+    return {
+        _port_name(path): np.array(value.T if path[-1] == "kernel" else value)
+        for path, value in _flatten(tree).items()
+    }
+
+
+def _copy_into(targets: dict[str, torch.Tensor], arrays: dict[str, np.ndarray],
+               what: str) -> None:
+    """Copy every array into the tensor of the same key; every target must
+    be covered and shapes must match."""
+    with torch.no_grad():
+        for key, value in arrays.items():
+            if key not in targets:
+                raise KeyError(f"{what} {key}: not in the port model")
+            target = targets[key]
+            if tuple(target.shape) != tuple(value.shape):
+                raise ValueError(f"{what} {key}: shape {value.shape} != {tuple(target.shape)}")
+            target.copy_(torch.from_numpy(value).to(target.dtype))
+    missing = set(targets) - set(arrays)
+    if missing:
+        raise KeyError(f"port model entries without a flax variable: {sorted(missing)}")
+
+
 def load_jax_variables(model: torch.nn.Module, params: dict, batch_stats: dict | None = None):
     """Copy flax ``params`` (and ``batch_stats``) into ``model`` in place.
     Every port parameter and buffer must be covered, shapes must match."""
-    flat = _flatten(params)
-    flat.update(_flatten(batch_stats or {}))
-    state = model.state_dict()
-    seen = set()
-    with torch.no_grad():
-        for path, value in flat.items():
-            key = _port_name(path)
-            if key not in state:
-                raise KeyError(f"flax variable {'/'.join(path)} -> {key}: not in the port model")
-            if path[-1] == "kernel":
-                value = value.T
-            target = state[key]
-            if tuple(target.shape) != tuple(value.shape):
-                raise ValueError(
-                    f"{'/'.join(path)} -> {key}: shape {value.shape} != {tuple(target.shape)}"
-                )
-            # np.array copies (writable, 0-d stays 0-d, unlike ascontiguousarray)
-            target.copy_(torch.from_numpy(np.array(value)).to(target.dtype))
-            seen.add(key)
-    missing = set(state) - seen
-    if missing:
-        raise KeyError(f"port model entries without a flax variable: {sorted(missing)}")
+    arrays = port_arrays(params)
+    arrays.update(port_arrays(batch_stats or {}))
+    _copy_into(model.state_dict(), arrays, "flax variable")
     return model
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                          mu: dict, nu: dict, count: int, learning_rate: float):
+    """Carry an optax Adam/AdamW state across: the first and second moments
+    ``mu``/``nu`` (flax-param-shaped trees), the step ``count`` (optax's
+    bias-correction step) and the injected learning rate, into the
+    ``torch.optim`` Adam/AdamW ``optimizer`` over ``model``'s parameters."""
+    params = dict(model.named_parameters())
+    for name, arrays in (("exp_avg", port_arrays(mu)), ("exp_avg_sq", port_arrays(nu))):
+        targets = {}
+        for key, p in params.items():
+            state = optimizer.state[p]
+            state.setdefault(name, torch.zeros_like(p, memory_format=torch.preserve_format))
+            targets[key] = state[name]
+        _copy_into(targets, arrays, f"optax {name}")
+    for p in params.values():
+        optimizer.state[p]["step"] = torch.tensor(float(count), dtype=torch.float32)
+    for group in optimizer.param_groups:
+        group["lr"] = float(learning_rate)
+    return optimizer
 
 
 def batch_from_numpy(nb) -> GraphBatch:
@@ -102,4 +133,4 @@ def batch_from_numpy(nb) -> GraphBatch:
     return GraphBatch(**{f: torch.from_numpy(a) for f, a in arrays.items()}, meta=meta)
 
 
-__all__ = ["batch_from_numpy", "load_jax_variables"]
+__all__ = ["batch_from_numpy", "load_jax_variables", "load_optax_adam_state", "port_arrays"]

@@ -18,6 +18,8 @@ Padding convention:
 from __future__ import annotations
 
 import math
+import queue
+import threading
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -347,9 +349,74 @@ class GraphLoader:
             yield self.collate_chunk(chunk, pad)
 
 
+class PrefetchLoader:
+    """Runs a loader's collate (and, with ``device``, the host-to-device
+    copy) in one background thread, ``depth`` batches ahead of the consumer,
+    as the JAX package's single-process ``PrefetchLoader`` does. Exceptions
+    of the worker re-raise in the consumer; a consumer that stops early
+    stops the worker at its next put."""
+
+    def __init__(self, loader, depth: int = 2, device=None):
+        self.loader = loader
+        self.depth = max(1, int(depth))
+        self.device = device
+        self.samples = loader.samples
+        self.pad = loader.pad
+
+    @property
+    def seed(self):
+        return self.loader.seed
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if self.device is not None:
+                        batch = batch.to(self.device)
+                    if not put(batch):
+                        return
+                put(done)
+            except BaseException as exc:  # re-raised in the consumer
+                put(exc)
+
+        thread = threading.Thread(target=worker, daemon=True, name="prefetch")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            thread.join(timeout=10)
+
+
 __all__ = [
     "GraphLoader",
     "PadSpec",
+    "PrefetchLoader",
     "batch_from_arrays",
     "batch_meta",
     "collate",

@@ -1,16 +1,17 @@
 """HydraModel — the multi-headed GNN skeleton.
 
-Counterpart of ``hydragnn_tpu/models/base.py`` as far as the serving path
-needs it: the conv stack with per-layer masked batch norm and activation,
-mean/add/max/min graph pooling, and single-branch ``mlp`` graph and node
-heads. Module names follow the flax ones (``graph_convs[i]`` is flax's
+Counterpart of ``hydragnn_tpu/models/base.py`` as far as the GIN serving
+and training paths need it: the conv stack with per-layer masked batch norm
+(train or eval mode) and activation, mean/add/max/min graph pooling,
+single-branch ``mlp`` graph and node heads, the weighted multi-task loss and
+the per-head squared errors. Module names follow the flax ones (``graph_convs[i]`` is flax's
 ``graph_convs_{i}``, ``feature_layers[i]`` is ``feature_norm_{i}``,
 ``graph_shared[b]`` is ``graph_shared_{b}``, ``heads_NN[k][b]`` is
 ``head{k}_{b}``), so ``convert.load_jax_variables`` maps one onto the other.
 
 Not in this slice (they raise ``NotImplementedError``): other conv stacks,
 GPS, variance outputs, graph-attribute conditioning, ``mlp_per_node`` and
-``conv`` node heads, multibranch heads, interatomic potentials, training.
+``conv`` node heads, multibranch heads, interatomic potentials.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from torch import nn
 from ..config.schema import ModelSpec
 from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from .common import MLP, MaskedBatchNorm, get_activation
+from .common import MLP, MaskedBatchNorm, get_activation, get_loss
 from .gin import GINConv
 
 CONV_REGISTRY = {"GIN": GINConv}
@@ -52,7 +53,7 @@ def check_spec(spec: ModelSpec) -> None:
     if spec.global_attn_engine:
         raise _not_in_slice("global attention (GPS)", "a later slice (GPS, kernel 4)")
     if spec.var_output:
-        raise _not_in_slice("variance outputs (GaussianNLLLoss)", "the training slice")
+        raise _not_in_slice("variance outputs (GaussianNLLLoss)", "a later slice")
     if spec.use_graph_attr_conditioning:
         raise _not_in_slice("graph-attribute conditioning", "a later slice")
     if spec.enable_interatomic_potential:
@@ -109,16 +110,18 @@ class HydraModel(nn.Module):
         """Raw node features and positions (each stack's first conv lifts)."""
         return batch.x, batch.pos
 
-    def conv_block(self, i: int, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch):
-        """Conv layer ``i`` + feature norm + activation."""
+    def conv_block(self, i: int, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
+                   train: bool = False):
+        """Conv layer ``i`` + feature norm (batch statistics in train mode)
+        + activation."""
         inv, equiv = self.graph_convs[i](inv, equiv, batch)
-        inv = self.feature_layers[i](inv, batch.node_mask)
+        inv = self.feature_layers[i](inv, batch.node_mask, train)
         return get_activation(self.spec.activation)(inv), equiv
 
-    def encode(self, batch: GraphBatch):
+    def encode(self, batch: GraphBatch, train: bool = False):
         inv, equiv = self.embed(batch)
         for i in range(len(self.graph_convs)):
-            inv, equiv = self.conv_block(i, inv, equiv, batch)
+            inv, equiv = self.conv_block(i, inv, equiv, batch, train)
         return inv, equiv
 
     def pool(self, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
@@ -131,9 +134,9 @@ class HydraModel(nn.Module):
 
     # -- full forward --------------------------------------------------------
     def forward(self, batch: GraphBatch, train: bool = False):
-        if train:
-            raise _not_in_slice("training forward", "the training slice")
-        inv, equiv = self.encode(batch)
+        """Per-head outputs; ``train`` normalises with batch statistics and
+        updates the running ones in place."""
+        inv, equiv = self.encode(batch, train)
         return self.decode(inv, equiv, batch)
 
     def decode(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch):
@@ -149,6 +152,36 @@ class HydraModel(nn.Module):
                 o = head(inv)
             outputs.append(o[:, :dim])
         return outputs
+
+    # -- loss ----------------------------------------------------------------
+    def _targets(self, batch: GraphBatch):
+        """Per head: (target columns, row mask)."""
+        for kind, col, dim in self._head_cols:
+            if kind == "graph":
+                yield batch.graph_y[:, col : col + dim], batch.graph_mask
+            else:
+                yield batch.node_y[:, col : col + dim], batch.node_mask
+
+    def loss(self, pred, batch: GraphBatch):
+        """Weighted multi-task loss: (total, [per-task losses]), the tasks
+        weighted by ``spec.task_weights`` and summed in head order."""
+        loss_fn = get_loss(self.spec.loss_type)
+        tot = 0.0
+        tasks = []
+        for ihead, (target, mask) in enumerate(self._targets(batch)):
+            task_loss = loss_fn(pred[ihead], target, mask)
+            tot = tot + task_loss * self.spec.task_weights[ihead]
+            tasks.append(task_loss)
+        return tot, tasks
+
+    def head_sse(self, pred, batch: GraphBatch):
+        """Per-head (sum of squared errors, element count) over real rows;
+        callers sum these over a split and take one sqrt at the end."""
+        sses, counts = [], []
+        for ihead, (target, mask) in enumerate(self._targets(batch)):
+            sses.append((((pred[ihead] - target) ** 2) * mask[:, None]).sum())
+            counts.append(mask.sum() * target.shape[1])
+        return sses, counts
 
 
 __all__ = ["CONV_REGISTRY", "HydraModel", "check_spec", "head_columns"]

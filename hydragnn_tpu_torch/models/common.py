@@ -1,5 +1,5 @@
-"""Shared model components: activations, flax-style dense layers and MLPs,
-and the padding-aware batch norm.
+"""Shared model components: activations, the masked losses, flax-style
+dense layers and MLPs, and the padding-aware batch norm.
 
 Counterpart of ``hydragnn_tpu/models/common.py``. Two behaviours of flax
 are kept on purpose, because the port has to compute what the JAX package
@@ -103,12 +103,20 @@ class MLP(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over valid rows only, eval mode: normalise with the
-    running statistics. ``scale``/``bias`` are parameters; the running
-    ``mean``/``var`` are fp32 buffers that stay fp32 when the parameters are
-    cast to a compute dtype, as the JAX predict step leaves ``batch_stats``
-    uncast. Train mode (masked statistics, EMA update) comes with the
-    training slice."""
+    """Batch norm over valid rows only (padding excluded from the
+    statistics), with the JAX package's semantics (``models/common.py``
+    ``MaskedBatchNorm``), which ``nn.BatchNorm1d`` does not have:
+
+    * train mode takes count-weighted two-pass statistics over the rows with
+      ``mask = 1`` and normalises with the *biased* variance;
+    * the running statistics move by flax's EMA, ``momentum = 0.9`` being
+      the weight of the old value, and only when the batch has real rows;
+    * a batch without real rows normalises with the running statistics;
+    * eval mode normalises with the running statistics.
+
+    ``scale``/``bias`` are parameters; the running ``mean``/``var`` are fp32
+    buffers, updated in place, that stay fp32 when the parameters are cast
+    to a compute dtype, as the JAX steps leave ``batch_stats`` uncast."""
 
     def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -121,11 +129,95 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError(
-                "MaskedBatchNorm train mode comes with the training slice of the port"
-            )
-        y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
+            m = mask.reshape(-1, 1).to(x.dtype)
+            msum = m.sum()
+            count = torch.clamp(msum, min=1.0)
+            mean = (x * m).sum(dim=0) / count
+            var = (((x - mean) ** 2) * m).sum(dim=0) / count
+            has_rows = msum > 0
+            with torch.no_grad():
+                # the EMA is gated on real rows: a zero-count batch keeps the
+                # running statistics bit-identical
+                alpha = (1.0 - self.momentum) * has_rows.to(torch.float32)
+                self.mean.copy_(self.mean + alpha * (mean.detach() - self.mean))
+                self.var.copy_(self.var + alpha * (var.detach() - self.var))
+            # like jnp.where, this promotes to the running statistics' fp32
+            mean = torch.where(has_rows, mean, self.mean)
+            var = torch.where(has_rows, var, self.var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.scale + self.bias
 
 
-__all__ = ["Dense", "MLP", "MaskedBatchNorm", "get_activation", "lecun_normal_"]
+# -- masked losses -------------------------------------------------------------
+
+
+def _masked_mean(terms: torch.Tensor, mask: torch.Tensor, per_row: int) -> torch.Tensor:
+    """sum(terms) / max(real rows x row width, 1)."""
+    return terms.sum() / torch.clamp(mask.sum() * per_row, min=1.0)
+
+
+def _row_mask(mask: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    return mask.reshape((mask.shape[0],) + (1,) * (pred.dim() - 1))
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean squared error over real (mask = 1) rows only."""
+    m = _row_mask(mask, pred)
+    return _masked_mean((pred - target) ** 2 * m, m, pred.shape[-1])
+
+
+def masked_mae(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    m = _row_mask(mask, pred)
+    return _masked_mean(torch.abs(pred - target) * m, m, pred.shape[-1])
+
+
+def masked_rmse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(masked_mse(pred, target, mask) + 1e-16)
+
+
+def masked_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """torch SmoothL1Loss (beta = 1) over real rows: 0.5 d^2 for |d| < 1,
+    else |d| - 0.5."""
+    m = _row_mask(mask, pred)
+    d = torch.abs(pred - target)
+    huber = torch.where(d < 1.0, 0.5 * d**2, d - 0.5) * m
+    return _masked_mean(huber, m, pred.shape[-1])
+
+
+_LOSSES = {
+    "mse": masked_mse,
+    "mae": masked_mae,
+    "rmse": masked_rmse,
+    "smooth_l1": masked_smooth_l1,
+}
+
+
+def get_loss(name: str):
+    if name == "GaussianNLLLoss":
+        raise NotImplementedError(
+            "GaussianNLLLoss needs variance outputs (var_output), which are not "
+            "ported yet; they come with a later slice"
+        )
+    try:
+        return _LOSSES[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown loss '{name}'; supported: {sorted(_LOSSES)} or GaussianNLLLoss"
+        ) from None
+
+
+__all__ = [
+    "Dense",
+    "MLP",
+    "MaskedBatchNorm",
+    "get_activation",
+    "get_loss",
+    "lecun_normal_",
+    "masked_mae",
+    "masked_mse",
+    "masked_rmse",
+    "masked_smooth_l1",
+]

@@ -3,7 +3,7 @@
 Counterpart of ``hydragnn_tpu/models/gin.py`` (PyG ``GINConv`` with
 ``train_eps=True``): ``MLP((1 + eps) * h_i + sum_j h_j)``, the neighbour sum
 taken by the CSR gather-scatter kernel with the edge mask as the per-edge
-weight. Positions pass through untouched.
+weight. Positions pass through untouched. ``eps`` is trainable.
 """
 
 from __future__ import annotations
@@ -29,10 +29,17 @@ class GINConv(nn.Module):
                       generator=generator)
 
     def forward(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch):
+        # the kernels read the batch's cached CSR views: the receivers' for
+        # the forward, the senders' for the gradient with respect to inv
+        # (built only where that gradient is taken; conv layer 0's input
+        # needs none)
+        on_card = inv.is_cuda
         agg = gather_scatter_sum(
             inv, batch.senders, batch.receivers, batch.num_nodes,
             weight=batch.edge_mask.to(inv.dtype),
-            index=batch.csr("receivers") if inv.is_cuda else None,
+            index=batch.csr("receivers") if on_card else None,
+            send_index=(batch.csr("senders")
+                        if on_card and inv.requires_grad and torch.is_grad_enabled() else None),
         )
         return self.nn((1.0 + self.eps) * inv + agg), equiv
 

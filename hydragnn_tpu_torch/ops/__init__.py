@@ -6,6 +6,7 @@ from .fused_scatter import (  # noqa: F401
     SegmentIndex,
     fused_segment_sum,
     gather_scatter_sum,
+    gather_scatter_sum_bwd,
     plain_gather_scatter_sum,
     plain_segment_sum,
     reset_launches,
@@ -17,6 +18,7 @@ __all__ = [
     "SegmentIndex",
     "fused_segment_sum",
     "gather_scatter_sum",
+    "gather_scatter_sum_bwd",
     "plain_gather_scatter_sum",
     "plain_segment_sum",
     "reset_launches",

@@ -18,8 +18,17 @@ built once per batch and id array and cached on the port's ``GraphBatch``.
 Ids that collate did not certify as sorted get a stable argsort, whose
 permutation the kernel follows.
 
-Forward only: the training slice adds the autograd functions and their
-backward kernels.
+Both are differentiable through ``torch.autograd.Function``s whose forward
+and backward call the same device-routed launches, so on the CPU the
+backward formulas run through the plain versions:
+
+* the gradient of ``gather_scatter_sum`` with respect to ``h`` is the same
+  kernel with senders and receivers swapped, over the senders' CSR view (the
+  Pallas ``_fused_bwd`` launches ``_kernel`` again the same way); the
+  weight's gradient ``dw[e] = <h[s_e], dout[r_e]>`` is plain tensor code,
+  as the JAX package leaves it to XLA;
+* the gradient of ``fused_segment_sum`` is the gather ``dout[ids]``
+  (``index_select``; the JAX package takes it in XLA, with no kernel).
 """
 
 from __future__ import annotations
@@ -30,9 +39,11 @@ import threading
 import torch
 
 # Launches of each kernel since the last reset, counted where the wrapper
-# launches it (the CPU route does not count). Dispatcher threads of several
-# served models may launch at once, so updates hold the lock.
-LAUNCHES = {"gather_scatter_sum": 0, "segment_sum": 0}
+# launches it (the CPU route does not count). ``gather_scatter_sum_bwd``
+# counts the gather-scatter kernel's transposed launches from the backward,
+# which ``gather_scatter_sum`` does not. Dispatcher threads of several served
+# models may launch at once, so updates hold the lock.
+LAUNCHES = {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,11 +146,6 @@ def _check_cuda(name: str, first: torch.Tensor, *tensors: torch.Tensor) -> None:
             raise ValueError(
                 f"{name}: all inputs must be on {first.device}, got one on {t.device}"
             )
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{name}: the CUDA kernel is forward-only; gradients come with "
-                "the training slice of the port"
-            )
 
 
 def _route(name: str, t: torch.Tensor) -> bool:
@@ -174,16 +180,11 @@ def _check_index(name: str, index: SegmentIndex, num_segments: int, num_ids: int
         )
 
 
-def gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
-                       num_nodes: int, weight: torch.Tensor | None = None,
-                       index: SegmentIndex | None = None) -> torch.Tensor:
-    """``segment_sum(weight * h[senders], receivers, num_nodes)``.
-
-    ``index``: the receivers' :class:`SegmentIndex` (``GraphBatch.csr``
-    caches it per batch); built here when not given. ``weight`` is per edge
-    ``[E]`` or per edge and channel ``[E, C]``. Receivers outside
-    ``[0, num_nodes)`` are dropped; senders must index rows of ``h`` (collate
-    guarantees both, and the card does not check senders)."""
+def _gather_scatter(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
+                    num_nodes: int, weight: torch.Tensor | None, index: SegmentIndex | None,
+                    counter: str) -> torch.Tensor:
+    """One device-routed gather-scatter (no autograd): the kernel for CUDA
+    tensors, counted under ``counter``; the plain version for CPU tensors."""
     name = "gather_scatter_sum"
     if not _route(name, h):
         return plain_gather_scatter_sum(h, senders, receivers, num_nodes, weight)
@@ -226,14 +227,13 @@ def gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor, receivers: torch.
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _raise_on(name, status)
-    _count_launch(name)
+    _count_launch(counter)
     return out
 
 
-def fused_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
-                      index: SegmentIndex | None = None) -> torch.Tensor:
-    """Sum the rows of 2-D float ``data`` into ``num_segments`` rows by
-    ``segment_ids`` (fp32 accumulation, output in ``data.dtype``)."""
+def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                 index: SegmentIndex | None) -> torch.Tensor:
+    """One device-routed segment sum (no autograd)."""
     name = "segment_sum"
     if not _route(name, data):
         return plain_segment_sum(data, segment_ids, num_segments)
@@ -264,11 +264,101 @@ def fused_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segment
     return out
 
 
+# -- autograd ----------------------------------------------------------------
+
+
+class _GatherScatterSum(torch.autograd.Function):
+    """``out = gather_scatter_sum(h, ...)`` with the JAX package's VJP
+    (``_fused_bwd``): ``dh`` is the same op over the transposed graph,
+    ``dw[e] = <h[s_e], dout[r_e]>``."""
+
+    @staticmethod
+    def forward(ctx, h, weight, senders, receivers, num_nodes, index, send_index):
+        out = _gather_scatter(h, senders, receivers, num_nodes, weight, index,
+                              "gather_scatter_sum")
+        ctx.num_nodes = num_nodes
+        ctx.send_index = send_index
+        ctx.h_dtype = h.dtype
+        # h is read back only for the weight's gradient
+        need_dw = weight is not None and ctx.needs_input_grad[1]
+        ctx.save_for_backward(h if need_dw else None, weight, senders, receivers)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        h, weight, senders, receivers = ctx.saved_tensors
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            # the JAX package casts dout to h's dtype first (fused_scatter.py:306)
+            dh = gather_scatter_sum_bwd(dout.to(ctx.h_dtype), senders, receivers,
+                                        ctx.num_nodes, weight, ctx.send_index)
+        if h is not None:
+            hs = h.index_select(0, senders.long()).float()
+            dr = dout.index_select(0, receivers.long()).float()
+            dw = hs * dr if weight.dim() == 2 else (hs * dr).sum(dim=-1)
+            dw = dw.to(weight.dtype)
+        return dh, dw, None, None, None, None, None
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``out = fused_segment_sum(data, ...)``; the gradient is ``dout[ids]``."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, index):
+        ctx.save_for_backward(segment_ids)
+        return _segment_sum(data, segment_ids, num_segments, index)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (segment_ids,) = ctx.saved_tensors
+        return dout.index_select(0, segment_ids.long()), None, None, None
+
+
+def gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
+                       num_nodes: int, weight: torch.Tensor | None = None,
+                       index: SegmentIndex | None = None,
+                       send_index: SegmentIndex | None = None) -> torch.Tensor:
+    """``segment_sum(weight * h[senders], receivers, num_nodes)``,
+    differentiable in ``h`` and ``weight``.
+
+    ``index``: the receivers' :class:`SegmentIndex` (``GraphBatch.csr``
+    caches it per batch); ``send_index``: the senders' one, which the
+    gradient with respect to ``h`` runs over. Each is built when needed and
+    not given. ``weight`` is per edge ``[E]`` or per edge and channel
+    ``[E, C]``. Receivers outside ``[0, num_nodes)`` are dropped; senders must
+    index rows of ``h`` (collate guarantees both, and the card does not check
+    senders)."""
+    return _GatherScatterSum.apply(h, weight, senders, receivers, num_nodes, index,
+                                   send_index)
+
+
+def gather_scatter_sum_bwd(dout: torch.Tensor, senders: torch.Tensor,
+                           receivers: torch.Tensor, num_nodes: int,
+                           weight: torch.Tensor | None = None,
+                           send_index: SegmentIndex | None = None) -> torch.Tensor:
+    """The gradient of :func:`gather_scatter_sum` with respect to ``h``:
+    ``segment_sum(weight * dout[receivers], senders, num_nodes)``, the same
+    kernel launched over the transposed graph (the senders' CSR view
+    ``send_index``, built when not given), counted as
+    ``gather_scatter_sum_bwd``."""
+    return _gather_scatter(dout, receivers, senders, num_nodes, weight, send_index,
+                           "gather_scatter_sum_bwd")
+
+
+def fused_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                      index: SegmentIndex | None = None) -> torch.Tensor:
+    """Sum the rows of 2-D float ``data`` into ``num_segments`` rows by
+    ``segment_ids`` (fp32 accumulation, output in ``data.dtype``);
+    differentiable in ``data``."""
+    return _SegmentSum.apply(data, segment_ids, num_segments, index)
+
+
 __all__ = [
     "LAUNCHES",
     "SegmentIndex",
     "fused_segment_sum",
     "gather_scatter_sum",
+    "gather_scatter_sum_bwd",
     "plain_gather_scatter_sum",
     "plain_segment_sum",
     "reset_launches",

@@ -20,9 +20,11 @@ from .utils import resolve_device
 
 
 def run_prediction(config_source, model, samples: Sequence | None = None, device="cuda"):
-    """Evaluate ``model`` (a ``HydraModel`` holding its weights) on the test
-    split of ``samples``. Runs on ``device`` (the card by default)."""
+    """Evaluate ``model`` (a ``HydraModel`` holding its weights, or the
+    ``TrainState`` that ``run_training`` returns) on the test split of
+    ``samples``. Runs on ``device`` (the card by default)."""
     device = resolve_device(device)
+    model = getattr(model, "model", model)
     config = load_config(config_source)
     train_loader, val_loader, test_loader = dataset_loading_and_splitting(
         config, samples=samples

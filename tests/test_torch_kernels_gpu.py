@@ -143,3 +143,98 @@ def test_segment_sum_unsorted_and_wide_on_card(batch, dtype):
     got = fs.fused_segment_sum(data, ids, b.num_nodes)
     want = fs.plain_segment_sum(data, ids, b.num_nodes)
     torch.testing.assert_close(got[:-1].float(), want[:-1].float(), **TOL[dtype])
+
+
+# -- the backward: the transposed launch over the senders' CSR view ------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("wkind", ["edge", "channel"])
+@pytest.mark.parametrize("c", [1, 64])
+@pytest.mark.parametrize("given_index", [True, False], ids=["send_index", "built"])
+def test_gather_scatter_backward_on_card(batch, dtype, wkind, c, given_index):
+    """dh is the kernel launched again with senders and receivers swapped
+    (row N-1 of the senders' view owns every pad edge, so the piece and
+    combine path runs), dw is <h[s_e], dout[r_e]>; both against the plain
+    versions on the card."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(c + 7)
+    b = batch.to(dev)
+    n, e = b.num_nodes, b.num_edges
+    assert not b.meta.send_sorted, "collated senders need the permutation"
+    h = torch.randn(n, c, generator=gen).to(dev, dtype).requires_grad_()
+    w = (torch.rand(e, generator=gen) if wkind == "edge" else torch.rand(e, c, generator=gen))
+    w = (w.to(dev) * (b.edge_mask if wkind == "edge" else b.edge_mask[:, None])).to(dtype)
+    w.requires_grad_()
+    dout = torch.randn(n, c, generator=gen).to(dev, dtype)
+    before = dict(fs.LAUNCHES)
+    out = fs.gather_scatter_sum(h, b.senders, b.receivers, n, weight=w,
+                                index=b.csr("receivers"),
+                                send_index=b.csr("senders") if given_index else None)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["gather_scatter_sum"] == before["gather_scatter_sum"] + 1
+    assert fs.LAUNCHES["gather_scatter_sum_bwd"] == before["gather_scatter_sum_bwd"] + 1
+    want_dh = fs.plain_gather_scatter_sum(dout, b.receivers, b.senders, n, w.detach())
+    torch.testing.assert_close(h.grad[: n - 1].float(), want_dh[: n - 1].float(), **TOL[dtype])
+    hs = h.detach().float()[b.senders.long()]
+    dr = dout.float()[b.receivers.long()]
+    want_dw = (hs * dr if wkind == "channel" else (hs * dr).sum(-1)).to(dtype)
+    torch.testing.assert_close(w.grad.float(), want_dw.float(), **TOL[dtype])
+
+
+def test_gather_scatter_backward_is_bit_stable_on_card(batch):
+    dev = _cuda_or_skip()
+    b = batch.to(dev)
+    n = b.num_nodes
+    dout = torch.randn(n, 64, generator=torch.Generator().manual_seed(3)).to(dev)
+    grads = []
+    for _ in range(2):
+        h = torch.zeros(n, 64, device=dev, requires_grad=True)
+        fs.gather_scatter_sum(h, b.senders, b.receivers, n, weight=b.edge_mask,
+                              index=b.csr("receivers"), send_index=b.csr("senders")
+                              ).backward(dout)
+        grads.append(h.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_segment_sum_backward_on_card(batch):
+    dev = _cuda_or_skip()
+    b = batch.to(dev)
+    x = torch.randn(b.num_nodes, 64, device=dev, requires_grad=True)
+    dout = torch.randn(b.num_graphs, 64, device=dev)
+    fs.fused_segment_sum(x, b.batch, b.num_graphs, index=b.csr("batch")).backward(dout)
+    assert torch.equal(x.grad, dout[b.batch.long()])
+
+
+def test_gin_train_step_launches_on_card(batch):
+    """One train step of a 4-layer GIN: 4 forward and 3 backward
+    gather-scatter launches (conv layer 0's input needs no gradient) and 1
+    segment-sum launch (the pooling), and fp32 gradients for every
+    parameter."""
+    import pathlib
+
+    from hydragnn_tpu_torch.config import load_config, update_config
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+
+    dev = _cuda_or_skip()
+    cfg = load_config(str(pathlib.Path(__file__).resolve().parents[1] / "examples" / "qm9"
+                          / "qm9.json"))
+    cfg["Dataset"] = {"name": "probe", "node_features": cfg["Dataset"]["node_features"],
+                      "graph_features": cfg["Dataset"]["graph_features"]}
+    aug = update_config(cfg, [GraphSample(x=np.ones((3, 1)), graph_y=np.zeros(1))])
+    model = create_model_config(aug, device=dev)
+    state = create_train_state(model, aug["NeuralNetwork"]["Training"]["Optimizer"])
+    step = make_train_step(torch.bfloat16)
+    b = batch.replace(graph_y=torch.randn(batch.num_graphs, 1,
+                                          generator=torch.Generator().manual_seed(0)))
+    step(state, b.to(dev))  # warm-up (builds the kernels)
+    fs.reset_launches()
+    metrics = step(state, b.to(dev))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 3,
+                           "segment_sum": 1}
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters())
