@@ -1,18 +1,20 @@
 """Config system: the reference JSON schema, validated and augmented.
 
-Counterpart of ``hydragnn_tpu/config/schema.py`` as far as the serving path
-needs it: ``load_config``, ``update_config`` (default filling, multibranch
-head normalisation, output dims/types from the ``Dataset`` feature dims,
-input dim) and the typed ``ModelSpec`` view the model factory reads. The
-derivations for other conv stacks (PNA degrees, MACE neighbour counts,
-edge features, GPS widths) and the blocks of subsystems the port does not
-have yet come with their slices.
+Counterpart of ``hydragnn_tpu/config/schema.py`` as far as the ported
+paths need it: ``load_config``, ``update_config`` (default filling,
+multibranch head normalisation, output dims/types from the ``Dataset``
+feature dims, input dim, the GPS defaults and GPS's dense-attention width
+``max_graph_nodes``) and the typed ``ModelSpec`` view the model factory
+reads. The derivations for other conv stacks (PNA degrees, MACE neighbour
+counts, edge features) and the blocks of subsystems the port does not have
+yet come with their slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 from copy import deepcopy
 
@@ -64,6 +66,18 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     ServingConfig.from_config(config).validate()
     for key, val in serving_config_defaults().items():
         serving_cfg.setdefault(key, val)
+
+    # GPS defaults; the dense-attention width (8-aligned) is derived from
+    # the largest training graph unless the user set it
+    arch.setdefault("global_attn_engine", None)
+    arch.setdefault("global_attn_type", None)
+    arch.setdefault("global_attn_heads", 0)
+    arch.setdefault("pe_dim", 0)
+    if arch.get("global_attn_engine") and not arch.get("max_graph_nodes"):
+        max_n = max((s.num_nodes for s in train_samples), default=0)
+        arch["max_graph_nodes"] = int(math.ceil(max(max_n, 1) / 8) * 8)
+    else:
+        arch.setdefault("max_graph_nodes", None)
 
     arch["output_heads"] = update_multibranch_heads(arch.get("output_heads", {}))
 
@@ -128,8 +142,14 @@ class ModelSpec:
     loss_type: str = "mse"
     freeze_conv_layers: bool = False
     initial_bias: float | None = None
+    dropout: float = 0.25  # GAT's attention and GPS's dropout (train mode only)
+    global_attn_engine: str | None = None  # "GPS" or None
+    global_attn_type: str | None = None  # GPS: "multihead" (None) or a later slice's
+    global_attn_heads: int = 0
+    max_graph_nodes: int | None = None  # GPS dense-attention width
+    pe_dim: int = 0  # Laplacian positional encodings per node (GPS)
     # read only to refuse what this slice of the port does not run
-    global_attn_engine: str | None = None
+    edge_dim: int = 0
     use_graph_attr_conditioning: bool = False
     enable_interatomic_potential: bool = False
     var_output: bool = False
@@ -176,7 +196,13 @@ class ModelSpec:
             loss_type=training.get("loss_function_type", "mse"),
             freeze_conv_layers=bool(arch.get("freeze_conv_layers", False)),
             initial_bias=arch.get("initial_bias"),
+            dropout=float(arch.get("dropout", 0.25)),
             global_attn_engine=arch.get("global_attn_engine") or None,
+            global_attn_type=arch.get("global_attn_type") or None,
+            global_attn_heads=int(arch.get("global_attn_heads") or 0),
+            max_graph_nodes=arch.get("max_graph_nodes") or None,
+            pe_dim=int(arch.get("pe_dim") or 0),
+            edge_dim=int(arch.get("edge_dim") or len(arch.get("edge_features") or [])),
             use_graph_attr_conditioning=bool(arch.get("use_graph_attr_conditioning", False)),
             enable_interatomic_potential=bool(arch.get("enable_interatomic_potential", False)),
             var_output=training.get("loss_function_type") == "GaussianNLLLoss",

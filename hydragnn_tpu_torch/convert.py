@@ -6,8 +6,15 @@ becomes ``Linear.weight [out, in]``):
 ====================================  =====================================
 flax (``params`` / ``batch_stats``)   port module
 ====================================  =====================================
-``graph_convs_{i}/eps``               ``graph_convs[i].eps``
-``graph_convs_{i}/nn/dense_{j}``      ``graph_convs[i].nn.dense_{j}``
+``graph_convs_{i}/eps``               ``graph_convs[i].eps`` (GIN)
+``graph_convs_{i}/nn/dense_{j}``      ``graph_convs[i].nn.dense_{j}`` (GIN)
+``graph_convs_{i}/{lin_l,lin_r,att}`` ``graph_convs[i].{lin_l,lin_r,att}`` (GAT)
+``graph_convs_{i}/local/...``         ``graph_convs[i].local...`` (GPS)
+``graph_convs_{i}/attn/{q,k,v,out}``  ``graph_convs[i].attn.{q,k,v,out}`` (GPS)
+``graph_convs_{i}/norm{1,2,3}``       ``graph_convs[i].norm{1,2,3}`` (GPS)
+``graph_convs_{i}/mlp_{0,1}``         ``graph_convs[i].mlp_{0,1}`` (GPS)
+``graph_convs_{i}/local_proj``        ``graph_convs[i].local_proj`` (GPS)
+``{pos_emb,node_emb,node_lin}``       ``{pos_emb,node_emb,node_lin}`` (GPS)
 ``feature_norm_{i}/{scale,bias}``     ``feature_layers[i].{scale,bias}``
 ``feature_norm_{i}/{mean,var}``       ``feature_layers[i].{mean,var}``
 ``graph_shared_{branch}/dense_{j}``   ``graph_shared[branch].dense_{j}``
@@ -46,6 +53,8 @@ def _port_name(path: tuple) -> str:
     leaf = rest[-1]
     if leaf == "kernel":
         rest[-1] = "weight"
+    if top in ("pos_emb", "node_emb", "node_lin"):
+        return ".".join([top, *rest])
     m = re.fullmatch(r"graph_convs_(\d+)", top)
     if m:
         return ".".join([f"graph_convs.{m.group(1)}", *rest])

@@ -35,17 +35,21 @@ def _round_up(value: int, multiple: int) -> int:
 class PadSpec:
     """A static padding bucket: (n_node, n_edge, n_graph[, n_triplet]) with
     n_graph including the trailing dummy padding graph. ``node_cap`` is the
-    dataset-wide per-graph node bound (0 = unknown)."""
+    dataset-wide per-graph node bound (0 = unknown). ``attn_cap`` is GPS's
+    dense-attention width (``max_graph_nodes``) when the user set it below
+    the dataset max (0 = not capped): collate then certifies fitting batches
+    at the cap, so they keep the dense-block path."""
 
-    __slots__ = ("n_node", "n_edge", "n_graph", "n_triplet", "node_cap")
+    __slots__ = ("n_node", "n_edge", "n_graph", "n_triplet", "node_cap", "attn_cap")
 
     def __init__(self, n_node: int, n_edge: int, n_graph: int, n_triplet: int = 0,
-                 node_cap: int = 0):
+                 node_cap: int = 0, attn_cap: int = 0):
         self.n_node = int(n_node)
         self.n_edge = int(n_edge)
         self.n_graph = int(n_graph)
         self.n_triplet = int(n_triplet)
         self.node_cap = int(node_cap)
+        self.attn_cap = int(attn_cap)
 
     def as_tuple(self) -> tuple[int, int, int, int]:
         return (self.n_node, self.n_edge, self.n_graph, self.n_triplet)
@@ -64,7 +68,8 @@ class PadSpec:
 
 
 def compute_pad_spec(samples: Sequence[GraphSample], batch_size: int, node_multiple: int = 8,
-                     edge_multiple: int = 128, slack: float = 1.0) -> PadSpec:
+                     edge_multiple: int = 128, slack: float = 1.0,
+                     attn_cap: int = 0) -> PadSpec:
     """A bucket that fits any ``batch_size`` samples drawn from ``samples``:
     max-per-sample × batch_size, rounded up to the given multiples."""
     max_nodes = max((s.num_nodes for s in samples), default=1)
@@ -79,7 +84,7 @@ def compute_pad_spec(samples: Sequence[GraphSample], batch_size: int, node_multi
     )
     return PadSpec(
         n_node=n_node, n_edge=n_edge, n_graph=batch_size + 1, n_triplet=n_triplet,
-        node_cap=int(max_nodes),
+        node_cap=int(max_nodes), attn_cap=int(attn_cap),
     )
 
 
@@ -184,17 +189,22 @@ def _is_sorted(ids: np.ndarray) -> bool:
     return bool(ids.size < 2 or np.all(ids[1:] >= ids[:-1]))
 
 
-def batch_meta(arrays: dict[str, np.ndarray], node_cap: int = 0) -> BatchMeta:
+def batch_meta(arrays: dict[str, np.ndarray], node_cap: int = 0,
+               attn_cap: int = 0) -> BatchMeta:
     """Certify a collated batch host-side: which id arrays are sorted (the
     CSR kernels then need no sort) and the per-graph node bound — the
-    dataset-wide ``node_cap`` when the batch honours it, else a power of
-    two."""
+    user's dense-attention cap ``attn_cap`` when it is below ``node_cap``
+    and the batch honours it, else the dataset-wide ``node_cap`` when the
+    batch honours that, else a power of two."""
     n_node = arrays["n_node"]
     largest = int(n_node.max()) if n_node.size else 0
-    if node_cap and largest <= node_cap:
+    pow2 = max(1 << max(largest - 1, 0).bit_length(), 8)
+    if attn_cap and 0 < attn_cap < node_cap:
+        bound = attn_cap if largest <= attn_cap else pow2
+    elif node_cap and largest <= node_cap:
         bound = node_cap
     else:
-        bound = max(1 << max(largest - 1, 0).bit_length(), 8)
+        bound = pow2
     return BatchMeta(
         max_n_node=bound,
         recv_sorted=_is_sorted(arrays["receivers"]),
@@ -214,7 +224,7 @@ def collate(samples: Sequence[GraphSample], pad: PadSpec) -> GraphBatch:
     padding is sized by ``compute_pad_spec`` or a bucket table, never
     silently truncated."""
     arrays = collate_numpy(samples, pad)
-    return batch_from_arrays(arrays, batch_meta(arrays, pad.node_cap))
+    return batch_from_arrays(arrays, batch_meta(arrays, pad.node_cap, pad.attn_cap))
 
 
 def compute_pad_buckets(
@@ -226,11 +236,13 @@ def compute_pad_buckets(
     quantiles: Sequence[float] = (0.5, 0.8, 0.95),
     n_sim: int = 512,
     seed: int = 0,
+    attn_cap: int = 0,
 ) -> list[PadSpec]:
     """Up to ``max_buckets`` buckets at quantile levels of simulated random
     batch totals; the top bucket is ``compute_pad_spec``'s worst case, so
     any batch fits."""
-    worst = compute_pad_spec(samples, batch_size, node_multiple, edge_multiple)
+    worst = compute_pad_spec(samples, batch_size, node_multiple, edge_multiple,
+                             attn_cap=attn_cap)
     if len(samples) <= batch_size or max_buckets <= 1:
         return [worst]
     sizes = np.array(
@@ -254,6 +266,7 @@ def compute_pad_buckets(
             n_triplet=min(_round_up(int(t), edge_multiple), worst.n_triplet)
             if worst.n_triplet else 0,
             node_cap=worst.node_cap,
+            attn_cap=worst.attn_cap,
         )
         if spec not in buckets and spec != worst:
             buckets.append(spec)

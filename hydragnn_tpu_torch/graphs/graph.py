@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_scatter import SegmentIndex, segment_index
+from ..ops.fused_softmax import self_loop_pad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +48,8 @@ FIELDS = (
 
 # which BatchMeta flag certifies which id array, and its segment count
 _SORTED_FLAG = {"receivers": "recv_sorted", "senders": "send_sorted", "batch": "batch_sorted"}
+# the CSR views of GAT's extended layout: which of self_loop_edges()
+_LOOP_FIELD = {"loop_senders": 0, "loop_receivers": 1}
 
 
 @dataclasses.dataclass
@@ -79,7 +82,8 @@ class GraphBatch:
     rel_pe: torch.Tensor
     z: torch.Tensor
     meta: BatchMeta | None = None
-    # CSR views of the id arrays, built once per batch on first use
+    # CSR views of the id arrays and GAT's self-loop edge layout, built once
+    # per batch on first use
     _csr: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
                                    compare=False)
 
@@ -119,16 +123,38 @@ class GraphBatch:
         out._csr = self._csr
         return out
 
+    def self_loop_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """GAT's extended edge layout, cached: ``(senders, receivers)`` of the
+        real edges, then ``self_loop_pad(E)`` masked slots wired to the dummy
+        node N-1, then one self loop per node (``arange(N)``), as the JAX
+        GAT builds it (its mask is 1, 0, 1 over the three sections)."""
+        loops = self._csr.get("self_loop_edges")
+        if loops is None:
+            n, dev = self.num_nodes, self.senders.device
+            pad = torch.full((self_loop_pad(self.num_edges),), n - 1, dtype=self.senders.dtype,
+                             device=dev)
+            arange = torch.arange(n, dtype=self.senders.dtype, device=dev)
+            loops = (torch.cat([self.senders, pad, arange]),
+                     torch.cat([self.receivers, pad, arange]))
+            self._csr["self_loop_edges"] = loops
+        return loops
+
     def csr(self, field: str) -> SegmentIndex:
         """Cached row pointer (and sort permutation, unless collate
         certified the ids sorted) of ``receivers`` (N rows), ``senders``
-        (N rows) or ``batch`` (G rows), for the CSR kernels."""
+        (N rows), ``batch`` (G rows), or ``loop_receivers`` /
+        ``loop_senders``, the ids of :meth:`self_loop_edges` (N rows, always
+        argsorted: the self-loop section follows the real edges), for the
+        CSR kernels."""
         idx = self._csr.get(field)
         if idx is None:
-            flag = _SORTED_FLAG[field]
-            is_sorted = getattr(self.meta, flag) if self.meta is not None else None
-            rows = self.num_graphs if field == "batch" else self.num_nodes
-            idx = segment_index(getattr(self, field), rows, is_sorted=is_sorted)
+            if field in _LOOP_FIELD:
+                idx = segment_index(self.self_loop_edges()[_LOOP_FIELD[field]], self.num_nodes)
+            else:
+                flag = _SORTED_FLAG[field]
+                is_sorted = getattr(self.meta, flag) if self.meta is not None else None
+                rows = self.num_graphs if field == "batch" else self.num_nodes
+                idx = segment_index(getattr(self, field), rows, is_sorted=is_sorted)
             self._csr[field] = idx
         return idx
 

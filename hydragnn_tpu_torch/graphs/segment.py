@@ -1,9 +1,11 @@
 """Segment reductions over padded batches.
 
-Counterpart of ``hydragnn_tpu/graphs/segment.py``. ``segment_sum`` of 2-D
-float data goes to the CSR segment-sum kernel wrapper
-(``ops.fused_scatter.fused_segment_sum``); counts, 1-D reductions, max and
-min stay plain PyTorch, as the JAX package leaves them to XLA.
+Counterpart of ``hydragnn_tpu/graphs/segment.py``. ``segment_sum`` of float
+data of two or more dimensions goes to the CSR segment-sum kernel wrapper
+(``ops.fused_scatter.fused_segment_sum``), trailing axes flattened into
+channels; ``segment_softmax`` goes to the segment-softmax kernel wrapper
+(``ops.fused_softmax.segment_softmax``). Counts, 1-D reductions, max and min
+stay plain PyTorch, as the JAX package leaves them to XLA.
 
 Padding convention: padded elements carry the id of the trailing dummy
 segment, so real segments are unaffected; empty segments give 0.
@@ -13,16 +15,24 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import fused_softmax
 from ..ops.fused_scatter import SegmentIndex, fused_segment_sum
+
+
+def _flat_rows(data: torch.Tensor) -> torch.Tensor:
+    """``[E, ...]`` as ``[E, C]``: the trailing axes as one channel axis."""
+    return data.reshape(data.shape[0], -1)
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 index: SegmentIndex | None = None) -> torch.Tensor:
     """Sum ``data`` rows into ``num_segments`` rows by ``segment_ids``.
     ``index`` is the ids' cached :class:`SegmentIndex` where the caller has
-    one (``GraphBatch.csr``)."""
-    if data.dim() == 2 and data.is_floating_point():
-        return fused_segment_sum(data, segment_ids, num_segments, index)
+    one (``GraphBatch.csr``). Float data of more than two dimensions (GAT's
+    ``[E, heads, F]`` messages) reaches the kernel as ``[E, heads * F]``."""
+    if data.dim() >= 2 and data.is_floating_point():
+        out = fused_segment_sum(_flat_rows(data), segment_ids, num_segments, index)
+        return out.reshape((num_segments,) + tuple(data.shape[1:]))
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     return out.index_add_(0, segment_ids.long(), data)
@@ -67,6 +77,15 @@ def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return _segment_extreme(data, segment_ids, num_segments, "amin")
 
 
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                    index: SegmentIndex | None = None) -> torch.Tensor:
+    """Softmax within each segment, per trailing element (GAT's attention
+    weights). Padded entries pointing at the dummy segment get finite values
+    and must be masked by the caller."""
+    out = fused_softmax.segment_softmax(_flat_rows(logits), segment_ids, num_segments, index)
+    return out.reshape(logits.shape)
+
+
 _POOL_FNS = {
     "add": segment_sum,
     "sum": segment_sum,
@@ -95,5 +114,6 @@ __all__ = [
     "segment_max",
     "segment_mean",
     "segment_min",
+    "segment_softmax",
     "segment_sum",
 ]

@@ -1,8 +1,10 @@
 """HydraModel — the multi-headed GNN skeleton.
 
-Counterpart of ``hydragnn_tpu/models/base.py`` as far as the GIN serving
-and training paths need it: the conv stack with per-layer masked batch norm
-(train or eval mode) and activation, mean/add/max/min graph pooling,
+Counterpart of ``hydragnn_tpu/models/base.py`` as far as the GIN, GAT and
+GPS-GIN serving and training paths need it: the conv stack (each layer
+wrapped in ``GPSConv`` under GPS, after the embedding of the node features
+and Laplacian positional encodings) with per-layer masked batch norm (train
+or eval mode) and activation, mean/add/max/min graph pooling,
 single-branch ``mlp`` graph and node heads, the weighted multi-task loss and
 the per-head squared errors. Module names follow the flax ones (``graph_convs[i]`` is flax's
 ``graph_convs_{i}``, ``feature_layers[i]`` is ``feature_norm_{i}``,
@@ -10,8 +12,10 @@ the per-head squared errors. Module names follow the flax ones (``graph_convs[i]
 ``head{k}_{b}``), so ``convert.load_jax_variables`` maps one onto the other.
 
 Not in this slice (they raise ``NotImplementedError``): other conv stacks,
-GPS, variance outputs, graph-attribute conditioning, ``mlp_per_node`` and
-``conv`` node heads, multibranch heads, interatomic potentials.
+GAT's edge features, GPS around another conv than GIN and its ring and
+performer attention, variance outputs, graph-attribute conditioning,
+``mlp_per_node`` and ``conv`` node heads, multibranch heads, interatomic
+potentials.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ from torch import nn
 from ..config.schema import ModelSpec
 from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from .common import MLP, MaskedBatchNorm, get_activation, get_loss
+from .common import MLP, Dense, MaskedBatchNorm, get_activation, get_loss
+from .gat import GATConv
 from .gin import GINConv
 
-CONV_REGISTRY = {"GIN": GINConv}
+CONV_REGISTRY = {"GIN": GINConv, "GAT": GATConv}
 
 
 def head_columns(spec: ModelSpec) -> list[tuple[str, int, int]]:
@@ -50,8 +55,21 @@ def check_spec(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for what this slice of the port lacks."""
     if spec.mpnn_type not in CONV_REGISTRY:
         raise _not_in_slice(f"mpnn_type {spec.mpnn_type!r}", "a later slice (other conv stacks)")
+    if spec.mpnn_type == "GAT" and spec.edge_dim:
+        raise _not_in_slice("GAT with edge features (lin_edge)", "a later slice (edge features)")
     if spec.global_attn_engine:
-        raise _not_in_slice("global attention (GPS)", "a later slice (GPS, kernel 4)")
+        if spec.global_attn_engine != "GPS":
+            raise ValueError(f"unknown global_attn_engine {spec.global_attn_engine!r}")
+        kind = spec.global_attn_type or "multihead"
+        if kind == "ring":
+            raise _not_in_slice("GPS ring attention", "a later slice (parallelism)")
+        if kind == "performer":
+            raise _not_in_slice("GPS performer attention", "a later slice (GPS variants)")
+        if kind != "multihead":
+            raise ValueError(f"unknown global_attn_type {spec.global_attn_type!r}")
+        if spec.mpnn_type != "GIN":
+            raise _not_in_slice(f"GPS around {spec.mpnn_type!r}",
+                                "a later slice (GPS with other local convs)")
     if spec.var_output:
         raise _not_in_slice("variance outputs (GaussianNLLLoss)", "a later slice")
     if spec.use_graph_attr_conditioning:
@@ -74,15 +92,29 @@ class HydraModel(nn.Module):
         check_spec(spec)
         self.spec = spec
         conv_cls = CONV_REGISTRY[spec.mpnn_type]
+        hidden = spec.hidden_dim
+        self.gps = spec.global_attn_engine == "GPS"
+        if self.gps:
+            # every layer is local conv + global attention over hidden-wide
+            # features: the node features and positional encodings are
+            # embedded first
+            from .gps import GPSConv as conv_cls  # noqa: F811
+
+            self.pos_emb = Dense(spec.pe_dim or 1, hidden, generator, use_bias=False)
+            if spec.input_dim:
+                self.node_emb = Dense(spec.input_dim, hidden, generator, use_bias=False)
+                self.node_lin = Dense(2 * hidden, hidden, generator, use_bias=False)
+        widths = [spec.input_dim if not self.gps else hidden]
+        for i in range(spec.num_conv_layers):
+            widths.append(conv_cls.out_features(spec, i))
         self.graph_convs = nn.ModuleList([
-            conv_cls(spec, i, spec.input_dim if i == 0 else spec.hidden_dim,
-                     generator=generator)
+            conv_cls(spec, i, widths[i], generator=generator)
             for i in range(spec.num_conv_layers)
         ])
         self.feature_layers = nn.ModuleList([
-            MaskedBatchNorm(spec.hidden_dim) for _ in range(spec.num_conv_layers)
+            MaskedBatchNorm(widths[i + 1]) for i in range(spec.num_conv_layers)
         ])
-        hidden = spec.hidden_dim
+        hidden = widths[-1]
         self.graph_shared = nn.ModuleDict()
         shared_out = {}
         for b in spec.graph_heads:
@@ -107,21 +139,32 @@ class HydraModel(nn.Module):
 
     # -- encoder ------------------------------------------------------------
     def embed(self, batch: GraphBatch):
-        """Raw node features and positions (each stack's first conv lifts)."""
-        return batch.x, batch.pos
+        """Raw node features and positions (each stack's first conv lifts);
+        under GPS the positional encodings embedded, and fused with the
+        embedded node features."""
+        if not self.gps:
+            return batch.x, batch.pos
+        if batch.pe.shape[1] == 0:
+            raise ValueError("GPS needs Laplacian positional encodings; set pe_dim > 0 and "
+                             "attach them in preprocessing (attach_lap_pe)")
+        x = self.pos_emb(batch.pe)
+        if self.spec.input_dim:
+            x = self.node_lin(torch.cat([self.node_emb(batch.x), x], dim=1))
+        return x, batch.pos
 
     def conv_block(self, i: int, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
-                   train: bool = False):
+                   train: bool = False, generator: torch.Generator | None = None):
         """Conv layer ``i`` + feature norm (batch statistics in train mode)
-        + activation."""
-        inv, equiv = self.graph_convs[i](inv, equiv, batch)
+        + activation. ``generator`` draws the dropout masks in train mode."""
+        inv, equiv = self.graph_convs[i](inv, equiv, batch, train, generator)
         inv = self.feature_layers[i](inv, batch.node_mask, train)
         return get_activation(self.spec.activation)(inv), equiv
 
-    def encode(self, batch: GraphBatch, train: bool = False):
+    def encode(self, batch: GraphBatch, train: bool = False,
+               generator: torch.Generator | None = None):
         inv, equiv = self.embed(batch)
         for i in range(len(self.graph_convs)):
-            inv, equiv = self.conv_block(i, inv, equiv, batch, train)
+            inv, equiv = self.conv_block(i, inv, equiv, batch, train, generator)
         return inv, equiv
 
     def pool(self, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
@@ -133,10 +176,12 @@ class HydraModel(nn.Module):
         )
 
     # -- full forward --------------------------------------------------------
-    def forward(self, batch: GraphBatch, train: bool = False):
-        """Per-head outputs; ``train`` normalises with batch statistics and
-        updates the running ones in place."""
-        inv, equiv = self.encode(batch, train)
+    def forward(self, batch: GraphBatch, train: bool = False,
+                generator: torch.Generator | None = None):
+        """Per-head outputs; ``train`` normalises with batch statistics,
+        updates the running ones in place and applies dropout with masks
+        drawn from ``generator``."""
+        inv, equiv = self.encode(batch, train, generator)
         return self.decode(inv, equiv, batch)
 
     def decode(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch):

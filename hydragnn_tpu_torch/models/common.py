@@ -1,5 +1,5 @@
 """Shared model components: activations, the masked losses, flax-style
-dense layers and MLPs, and the padding-aware batch norm.
+dense layers, MLPs and dropout, and the padding-aware batch norm.
 
 Counterpart of ``hydragnn_tpu/models/common.py``. Two behaviours of flax
 are kept on purpose, because the port has to compute what the JAX package
@@ -50,10 +50,11 @@ def get_activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 _TRUNC_STD = 0.87962566103423978
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None,
+                  fan_in: int | None = None) -> torch.Tensor:
     """flax ``variance_scaling(1.0, "fan_in", "truncated_normal")`` on a
-    ``[out, in]`` weight (fan_in = in)."""
-    fan_in = weight.shape[1]
+    ``[out, in]`` weight (fan_in = in unless given)."""
+    fan_in = weight.shape[1] if fan_in is None else fan_in
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
@@ -62,19 +63,48 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``y = x @ W.T + b`` after promoting ``x``, ``W``
-    and ``b`` to their common dtype. ``weight`` is ``[out, in]``."""
+    and ``b`` to their common dtype. ``weight`` is ``[out, in]``; with
+    ``use_bias=False`` there is no ``bias`` parameter."""
 
     def __init__(self, in_features: int, out_features: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         lecun_normal_(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype),
-                                    self.bias.dtype)
-        return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        if self.bias is not None:
+            dtype = torch.promote_types(dtype, self.bias.dtype)
+        bias = self.bias.to(dtype) if self.bias is not None else None
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in train mode each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else set to
+    0; outside train mode (or at rate 0) the input passes through. The keep
+    mask is drawn from the explicit ``generator`` (on the input's device),
+    which ``F.dropout`` cannot take; the train step passes the one it
+    seeds from the run's seed."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if generator is None:
+            raise ValueError("Dropout in train mode needs a torch.Generator (the train "
+                             "step's), as flax needs a 'dropout' rng")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class MLP(nn.Module):
@@ -211,6 +241,7 @@ def get_loss(name: str):
 
 __all__ = [
     "Dense",
+    "Dropout",
     "MLP",
     "MaskedBatchNorm",
     "get_activation",

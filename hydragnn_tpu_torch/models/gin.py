@@ -28,7 +28,12 @@ class GINConv(nn.Module):
         self.nn = MLP(in_features, (hidden, hidden), activation=spec.activation,
                       generator=generator)
 
-    def forward(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch):
+    @staticmethod
+    def out_features(spec: ModelSpec, layer: int) -> int:
+        return spec.hidden_dim
+
+    def forward(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
+                train: bool = False, generator: torch.Generator | None = None):
         # the kernels read the batch's cached CSR views: the receivers' for
         # the forward, the senders' for the gradient with respect to inv
         # (built only where that gradient is taken; conv layer 0's input

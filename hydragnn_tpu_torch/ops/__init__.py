@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels of the port and the plain PyTorch versions
-beside them (``fused_scatter``), plus their nvcc build (``_build``)."""
+beside them (``fused_scatter``: segment reductions; ``fused_softmax``:
+attention softmaxes), plus their nvcc build (``_build``)."""
 
 from .fused_scatter import (  # noqa: F401
     LAUNCHES,
@@ -12,6 +13,13 @@ from .fused_scatter import (  # noqa: F401
     reset_launches,
     segment_index,
 )
+from .fused_softmax import (  # noqa: F401
+    masked_softmax,
+    plain_masked_softmax,
+    plain_segment_softmax,
+    segment_softmax,
+    self_loop_pad,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -19,8 +27,13 @@ __all__ = [
     "fused_segment_sum",
     "gather_scatter_sum",
     "gather_scatter_sum_bwd",
+    "masked_softmax",
     "plain_gather_scatter_sum",
+    "plain_masked_softmax",
+    "plain_segment_softmax",
     "plain_segment_sum",
     "reset_launches",
     "segment_index",
+    "segment_softmax",
+    "self_loop_pad",
 ]

@@ -38,12 +38,14 @@ import threading
 
 import torch
 
-# Launches of each kernel since the last reset, counted where the wrapper
-# launches it (the CPU route does not count). ``gather_scatter_sum_bwd``
-# counts the gather-scatter kernel's transposed launches from the backward,
-# which ``gather_scatter_sum`` does not. Dispatcher threads of several served
+# Launches of each kernel of the package since the last reset, counted where
+# the wrapper launches it (the CPU route does not count); the softmax kernels
+# of ``ops.fused_softmax`` count here too. ``gather_scatter_sum_bwd`` counts
+# the gather-scatter kernel's transposed launches from the backward, which
+# ``gather_scatter_sum`` does not. Dispatcher threads of several served
 # models may launch at once, so updates hold the lock.
-LAUNCHES = {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 0}
+LAUNCHES = {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 0,
+            "segment_softmax": 0, "masked_softmax": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,25 +115,34 @@ def segment_index(ids: torch.Tensor, num_segments: int,
 # -- plain versions ----------------------------------------------------------
 
 
+def accumulate_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type sums and softmax statistics are taken in: fp32 for fp32 and
+    narrower inputs (the JAX package's and the kernels'), fp64 for fp64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def plain_gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor,
                              receivers: torch.Tensor, num_nodes: int,
                              weight: torch.Tensor | None = None) -> torch.Tensor:
-    """Gather, scale, ``index_add_`` in fp32, cast back to ``h.dtype``."""
-    msgs = h.index_select(0, senders.long()).float()
+    """Gather, scale, ``index_add_`` in fp32 (fp64 for fp64 ``h``), cast
+    back to ``h.dtype``."""
+    acc = accumulate_dtype(h.dtype)
+    msgs = h.index_select(0, senders.long()).to(acc)
     if weight is not None:
         w = weight if weight.dim() == 2 else weight[:, None]
-        msgs = msgs * w.float()
-    out = torch.zeros((num_nodes, h.shape[1]), dtype=torch.float32, device=h.device)
+        msgs = msgs * w.to(acc)
+    out = torch.zeros((num_nodes, h.shape[1]), dtype=acc, device=h.device)
     out.index_add_(0, receivers.long(), msgs)
     return out.to(h.dtype)
 
 
 def plain_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
-    """``index_add_`` of ``data`` rows in fp32, cast back to ``data.dtype``."""
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=torch.float32,
-                      device=data.device)
-    out.index_add_(0, segment_ids.long(), data.float())
+    """``index_add_`` of ``data`` rows in fp32 (fp64 for fp64 ``data``),
+    cast back to ``data.dtype``."""
+    acc = accumulate_dtype(data.dtype)
+    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=acc, device=data.device)
+    out.index_add_(0, segment_ids.long(), data.to(acc))
     return out.to(data.dtype)
 
 
@@ -293,8 +304,9 @@ class _GatherScatterSum(torch.autograd.Function):
             dh = gather_scatter_sum_bwd(dout.to(ctx.h_dtype), senders, receivers,
                                         ctx.num_nodes, weight, ctx.send_index)
         if h is not None:
-            hs = h.index_select(0, senders.long()).float()
-            dr = dout.index_select(0, receivers.long()).float()
+            acc = accumulate_dtype(h.dtype)
+            hs = h.index_select(0, senders.long()).to(acc)
+            dr = dout.index_select(0, receivers.long()).to(acc)
             dw = hs * dr if weight.dim() == 2 else (hs * dr).sum(dim=-1)
             dw = dw.to(weight.dtype)
         return dh, dw, None, None, None, None, None
@@ -312,6 +324,37 @@ class _SegmentSum(torch.autograd.Function):
     def backward(ctx, dout):
         (segment_ids,) = ctx.saved_tensors
         return dout.index_select(0, segment_ids.long()), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``out = x[ids]``; the gradient is ``segment_sum(dout, ids)``, one
+    device-routed segment-sum launch over ``index``."""
+
+    @staticmethod
+    def forward(ctx, x, ids, index):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = x.shape[0]
+        ctx.index = index
+        return x.index_select(0, ids.long())
+
+    @staticmethod
+    def backward(ctx, dout):
+        (ids,) = ctx.saved_tensors
+        rows = dout.reshape(dout.shape[0], -1).contiguous()
+        dx = _segment_sum(rows, ids, ctx.num_rows, ctx.index)
+        return dx.reshape((ctx.num_rows,) + tuple(dout.shape[1:])), None, None
+
+
+def gather_rows(x: torch.Tensor, ids: torch.Tensor,
+                index: SegmentIndex | None = None) -> torch.Tensor:
+    """``x[ids]`` (rows of float ``x``), differentiable in ``x``: the
+    gradient sums ``dout`` rows by ``ids`` with the segment-sum kernel over
+    ``index``, the ids' :class:`SegmentIndex` (built when needed and not
+    given). Autograd's own backward of a gather is an ``index_put_`` or
+    ``index_add_`` that CUDA runs as a sort walking duplicate ids one by one
+    or as atomics whose order varies between runs; GAT gathers ~11.5k
+    entries of the dummy node, and its training is to be reproducible."""
+    return _GatherRows.apply(x, ids, index)
 
 
 def gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Tensor,
@@ -356,7 +399,9 @@ def fused_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segment
 __all__ = [
     "LAUNCHES",
     "SegmentIndex",
+    "accumulate_dtype",
     "fused_segment_sum",
+    "gather_rows",
     "gather_scatter_sum",
     "gather_scatter_sum_bwd",
     "plain_gather_scatter_sum",

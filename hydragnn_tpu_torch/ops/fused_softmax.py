@@ -1,0 +1,240 @@
+"""Segment softmax and masked row softmax: the attention normalisations.
+
+Counterpart of ``hydragnn_tpu/ops/fused_softmax.py``. Two kernels, both in
+``csrc/segment_softmax.cu``, both fp32 inside with the output in the input's
+type, both without atomics:
+
+* :func:`segment_softmax` — per-segment softmax of ``[E, H]`` logits over
+  segment ids (GAT's attention over each receiver's in-edges, self loop
+  included; the Pallas ``_softmax_kernel``). A segment max that is not
+  finite counts as 0 and the denominator is clamped at 1e-12, as in the
+  JAX package's reference chain. The kernel reads the ids' CSR view
+  (:class:`~hydragnn_tpu_torch.ops.fused_scatter.SegmentIndex`), the same
+  32-entry pieces as the segment-reduction kernels.
+* :func:`masked_softmax` — ``softmax(where(mask > 0, x, -1e9))`` over the
+  last axis of ``[G, ..., m]`` logits with a per-graph mask ``[G, m]``
+  (GPS's dense per-graph attention blocks; the Pallas
+  ``_row_softmax_kernel``). Fully masked rows come out uniform.
+
+Routing is by device and nothing else, as in ``ops.fused_scatter``: a CUDA
+tensor launches the kernel (or raises), a CPU tensor takes the plain
+PyTorch version beside it. Launches count in ``fused_scatter.LAUNCHES``.
+
+Both are differentiable through ``torch.autograd.Function``s whose
+backward works from the saved output, as the JAX package's custom VJPs do
+(neither backward is a Pallas kernel there):
+
+* segment softmax: ``ds = s * (dy - segment_sum(s * dy)[ids])``, plain
+  tensor code around one launch of the segment-sum kernel over the same CSR
+  view (counted as ``segment_sum``);
+* masked softmax: ``ds = s * (dy - sum_row(s * dy))``, plain tensor code;
+  masked entries have ``s = 0`` and get no gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .fused_scatter import (
+    PIECE_EDGES,
+    SegmentIndex,
+    _check_cuda,
+    _check_index,
+    _count_launch,
+    _dtype_code,
+    _raise_on,
+    _route,
+    _segment_sum,
+    accumulate_dtype,
+    segment_index,
+)
+
+# GAT's extended edge layout puts this many masked slots between the real
+# edges and the appended self loops, so that the self-loop section starts on
+# a multiple of 256 (the JAX package's softmax certificate block,
+# ``SM_CERT_BLOCK``). The port keeps the same layout so that its arrays
+# compare with the JAX model's index for index.
+SM_CERT_BLOCK = 256
+MASK_FILL = -1e9  # GPS's dense-attention mask fill, matched exactly
+_DENOM_MIN = 1e-12
+
+
+def self_loop_pad(num_edges: int) -> int:
+    """Masked alignment slots GAT inserts after ``num_edges`` real edges."""
+    return -num_edges % SM_CERT_BLOCK
+
+
+# -- plain versions ----------------------------------------------------------
+
+
+def plain_segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    """The JAX package's reference chain (segment max, made 0 where not
+    finite; exp of the shifted logits; segment sum clamped at 1e-12;
+    divide), taken in fp32 (fp64 for fp64 logits) and cast back to
+    ``logits.dtype``."""
+    x = logits.detach().to(accumulate_dtype(logits.dtype))
+    ids = segment_ids.long()
+    shape = (num_segments, x.shape[1])
+    seg_max = torch.zeros(shape, dtype=x.dtype, device=x.device).scatter_reduce_(
+        0, ids[:, None].expand_as(x), x, reduce="amax", include_self=False)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros_like(seg_max))
+    ex = torch.exp(x - seg_max[ids])
+    denom = torch.zeros(shape, dtype=x.dtype, device=x.device).index_add_(0, ids, ex)
+    return (ex / torch.clamp(denom, min=_DENOM_MIN)[ids]).to(logits.dtype)
+
+
+def _graph_mask(mask: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``[G, m]`` mask broadcast over the middle axes of ``[G, ..., m]``."""
+    return mask.reshape((mask.shape[0],) + (1,) * (logits.dim() - 2) + (mask.shape[1],))
+
+
+def plain_masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``softmax(where(mask > 0, logits, -1e9))`` over the last axis, in
+    fp32 (fp64 for fp64 logits), cast back to ``logits.dtype``: max, exp,
+    sum, divide."""
+    x = torch.where(_graph_mask(mask, logits) > 0,
+                    logits.detach().to(accumulate_dtype(logits.dtype)), MASK_FILL)
+    ex = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return (ex / ex.sum(dim=-1, keepdim=True)).to(logits.dtype)
+
+
+# -- wrappers ----------------------------------------------------------------
+
+
+def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                     index: SegmentIndex | None) -> torch.Tensor:
+    """One device-routed segment softmax (no autograd)."""
+    name = "segment_softmax"
+    if not _route(name, logits):
+        return plain_segment_softmax(logits, segment_ids, num_segments)
+    _check_cuda(name, logits, segment_ids)
+    if logits.dim() != 2:
+        raise ValueError(f"{name}: logits must be [E, H], got {tuple(logits.shape)}")
+    code = _dtype_code(name, logits)
+    e, h = logits.shape
+    if segment_ids.shape[0] != e:
+        raise ValueError(f"{name}: {e} rows but {segment_ids.shape[0]} ids")
+    if index is None:
+        index = segment_index(segment_ids, num_segments)
+    _check_index(name, index, num_segments, e)
+    logits = logits.contiguous()
+    out = torch.empty_like(logits)
+    scratch = torch.empty(2 * (index.max_pieces + num_segments) * h, dtype=torch.float32,
+                          device=logits.device)
+    from ._build import load
+
+    status = load().segment_softmax_fwd(
+        code, logits.data_ptr(), index.ptr.data_ptr(), index.piece_ptr.data_ptr(),
+        index.perm.data_ptr() if index.perm is not None else None, out.data_ptr(),
+        scratch.data_ptr(), num_segments, index.max_pieces, PIECE_EDGES, h,
+        torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    _raise_on(name, status)
+    _count_launch(name)
+    return out
+
+
+def _masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One device-routed masked row softmax (no autograd)."""
+    name = "masked_softmax"
+    if not _route(name, logits):
+        return plain_masked_softmax(logits, mask)
+    _check_cuda(name, logits, mask)
+    code = _dtype_code(name, logits)
+    if mask.dim() != 2 or logits.dim() < 2 or mask.shape[0] != logits.shape[0] \
+            or mask.shape[1] != logits.shape[-1]:
+        raise ValueError(
+            f"{name}: mask must be [G, m] for logits [G, ..., m], got {tuple(mask.shape)} "
+            f"for {tuple(logits.shape)}"
+        )
+    logits = logits.contiguous()
+    m = logits.shape[-1]
+    rows = logits.numel() // m if m else 0
+    out = torch.empty_like(logits)
+    # the kernel reads one byte per entry: GPS's validity mask is bool already
+    valid = (mask if mask.dtype == torch.bool else mask > 0).contiguous()
+    from ._build import load
+
+    status = load().masked_softmax_fwd(
+        code, logits.data_ptr(), valid.data_ptr(), out.data_ptr(), rows, m,
+        max(rows // max(logits.shape[0], 1), 1),
+        torch.cuda.current_stream(logits.device).cuda_stream,
+    )
+    _raise_on(name, status)
+    _count_launch(name)
+    return out
+
+
+# -- autograd ----------------------------------------------------------------
+
+
+class _SegmentSoftmax(torch.autograd.Function):
+    """``s = segment_softmax(x)``; ``ds = s * (dy - segment_sum(s * dy)[ids])``
+    in fp32 (fp64 for fp64), cast to the output's type (the JAX
+    ``_fused_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, logits, segment_ids, num_segments, index):
+        out = _segment_softmax(logits, segment_ids, num_segments, index)
+        ctx.num_segments = num_segments
+        ctx.index = index
+        ctx.save_for_backward(out, segment_ids)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        out, segment_ids = ctx.saved_tensors
+        s = out.to(accumulate_dtype(out.dtype))
+        dy = dout.to(s.dtype)
+        t = _segment_sum((s * dy).contiguous(), segment_ids, ctx.num_segments, ctx.index)
+        ds = s * (dy - t.index_select(0, segment_ids.long()))
+        return ds.to(out.dtype), None, None, None
+
+
+class _MaskedSoftmax(torch.autograd.Function):
+    """``s = masked_softmax(x, mask)``; ``ds = s * (dy - sum_row(s * dy))`` in
+    fp32 (fp64 for fp64), cast to the output's type (the JAX
+    ``_fused_rows_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, logits, mask):
+        out = _masked_softmax(logits, mask)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (out,) = ctx.saved_tensors
+        s = out.to(accumulate_dtype(out.dtype))
+        dy = dout.to(s.dtype)
+        ds = s * (dy - (s * dy).sum(dim=-1, keepdim=True))
+        return ds.to(out.dtype), None
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                    index: SegmentIndex | None = None) -> torch.Tensor:
+    """Softmax of 2-D float ``logits`` ``[E, H]`` within each segment of
+    ``segment_ids`` (per column); differentiable in ``logits``. ``index`` is
+    the ids' :class:`SegmentIndex` where the caller caches one (GAT's
+    self-loop receivers, ``GraphBatch.csr("loop_receivers")``); it is built
+    when needed and not given."""
+    return _SegmentSoftmax.apply(logits, segment_ids, num_segments, index)
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``softmax(where(mask > 0, logits, -1e9), axis=-1)`` of ``[G, ..., m]``
+    float logits with the per-graph mask ``[G, m]``; differentiable in
+    ``logits``."""
+    return _MaskedSoftmax.apply(logits, mask)
+
+
+__all__ = [
+    "MASK_FILL",
+    "SM_CERT_BLOCK",
+    "masked_softmax",
+    "plain_masked_softmax",
+    "plain_segment_softmax",
+    "segment_softmax",
+    "self_loop_pad",
+]

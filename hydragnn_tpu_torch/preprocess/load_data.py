@@ -5,9 +5,11 @@ Counterpart of ``hydragnn_tpu/preprocess/load_data.py`` for
 ``dataset_loading_and_splitting(config, samples=...)``: samples given in
 memory, radius graphs attached where missing, inputs and columnar targets
 selected per ``Variables_of_interest``, min-max normalised, split and
-wrapped in loaders over one shared pad-bucket table. Raw-format readers,
-edge descriptors, subsampling and the DimeNet/GPS preprocessing come in
-later slices.
+wrapped in loaders over one shared pad-bucket table; GPS configurations
+get Laplacian positional encodings and, where the user capped GPS's
+dense-attention width, loaders that certify batches at that cap.
+Raw-format readers, edge descriptors, subsampling and the DimeNet
+preprocessing come in later slices.
 """
 
 from __future__ import annotations
@@ -147,17 +149,19 @@ def split_dataset(samples, perc_train: float, stratify_splitting: bool = False, 
 
 
 def create_dataloaders(trainset, valset, testset, batch_size: int,
-                       pad: PadSpec | None = None, seed: int = 0, buckets: int | None = None):
+                       pad: PadSpec | None = None, seed: int = 0, buckets: int | None = None,
+                       attn_cap: int = 0):
     """Three loaders over one shared pad-bucket table; the train loader
-    shuffles and drops the last partial batch."""
+    shuffles and drops the last partial batch. ``attn_cap``: see
+    ``PadSpec``."""
     all_samples = list(trainset) + list(valset) + list(testset)
     # a dataset smaller than the batch still yields one (smaller) batch
     batch_size = max(1, min(batch_size, len(trainset) or 1))
     bucket_list = (
-        compute_pad_buckets(all_samples, batch_size, max_buckets=buckets)
+        compute_pad_buckets(all_samples, batch_size, max_buckets=buckets, attn_cap=attn_cap)
         if buckets and buckets > 1 else None
     )
-    pad = pad or compute_pad_spec(all_samples, batch_size)
+    pad = pad or compute_pad_spec(all_samples, batch_size, attn_cap=attn_cap)
     train_loader = GraphLoader(trainset, batch_size, pad=pad, shuffle=True, seed=seed,
                                buckets=bucket_list)
     val_loader = GraphLoader(valset, batch_size, pad=pad, drop_last=False, buckets=bucket_list)
@@ -186,8 +190,8 @@ def dataset_loading_and_splitting(config: dict, samples=None):
         raise _later("edge-length and geometric descriptors")
     if voi.get("subsample_percentage"):
         raise _later("Variables_of_interest.subsample_percentage")
-    if arch.get("mpnn_type") == "DimeNet" or arch.get("global_attn_engine") == "GPS":
-        raise _later(f"{arch.get('mpnn_type')}/{arch.get('global_attn_engine')} preprocessing")
+    if arch.get("mpnn_type") == "DimeNet":
+        raise _later("DimeNet preprocessing (triplets)")
     radius = arch.get("radius")
     if radius and any(s.num_edges == 0 and s.num_nodes > 1 for s in samples):
         from ..graphs.radius import build_radius_graph
@@ -199,6 +203,14 @@ def dataset_loading_and_splitting(config: dict, samples=None):
                     ensure_connected=bool(arch.get("ensure_connected", True)),
                 )
     samples = apply_variables_of_interest(samples, config)
+    if arch.get("global_attn_engine") == "GPS":
+        # GPS reads Laplacian positional encodings; nothing else does, so
+        # only GPS pays the per-sample eigendecomposition
+        from .encodings import attach_lap_pe
+
+        k = int(arch.get("pe_dim") or 1)
+        for s in samples:
+            attach_lap_pe(s, k)
     if voi.get("denormalize_output") or ds_cfg.get("normalize", True):
         node_minmax, graph_minmax = normalize_features(samples)
         voi["minmax_node_feature"] = node_minmax.tolist()
@@ -211,6 +223,10 @@ def dataset_loading_and_splitting(config: dict, samples=None):
     return create_dataloaders(
         train, val, test, int(training.get("batch_size", 32)),
         buckets=int(training.get("pad_buckets", 0) or 0) or None,
+        # a user-set GPS max_graph_nodes below the dataset max: collate
+        # certifies against it so fitting batches keep the dense path
+        attn_cap=(int(arch.get("max_graph_nodes") or 0)
+                  if arch.get("global_attn_engine") else 0),
     )
 
 

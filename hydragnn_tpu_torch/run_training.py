@@ -54,7 +54,7 @@ def _refuse_later_slices(config: dict) -> None:
 def run_training(config_source, samples: Sequence | None = None, device="cuda",
                  path: str = "./logs/", seed: int = 0, history: list | None = None):
     """Train the configured model on ``samples`` (in memory), its
-    parameters drawn from ``seed``. Returns ``(state, model, augmented
+    parameters and its dropout masks drawn from ``seed``. Returns ``(state, model, augmented
     config)`` as the JAX package does; ``state`` holds the model, its
     optimizer and the step count. ``history``, when given, receives one dict
     per epoch (losses, learning rate)."""
@@ -70,7 +70,7 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
     save_config(config, log_name, path)
 
     model = create_model_config(config, device=device, seed=seed)
-    state = create_train_state(model, training["Optimizer"])
+    state = create_train_state(model, training["Optimizer"], seed=seed)
     if training.get("continue"):
         startfrom = training.get("startfrom", log_name)
         meta = load_checkpoint(state, startfrom, path=path)

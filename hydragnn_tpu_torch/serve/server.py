@@ -114,13 +114,20 @@ def serving_config_defaults() -> dict:
 
 
 def _dummy_sample(example: GraphSample) -> GraphSample:
-    """A 1-node, 0-edge sample with ``example``'s feature widths."""
+    """A 1-node, 0-edge sample with ``example``'s feature widths, positional
+    encodings included (a GPS endpoint's warm-up needs them)."""
+    extras = {}
+    if "pe" in example.extras:
+        k = example.extras["pe"].shape[1]
+        extras["pe"] = np.zeros((1, k), np.float32)
+        extras["rel_pe"] = np.zeros((0, k), np.float32)
     return GraphSample(
         x=np.zeros((1, example.x.shape[1]), np.float32),
         edge_attr=np.zeros((0, example.edge_attr.shape[1]), np.float32),
         graph_attr=np.zeros_like(example.graph_attr),
         graph_y=np.zeros_like(example.graph_y),
         node_y=np.zeros((1, example.node_y.shape[1]), np.float32),
+        extras=extras,
     )
 
 
@@ -169,6 +176,11 @@ class ModelEndpoint:
             "graph_attr_width": s.graph_attr.shape[0],
             "graph_y_width": s.graph_y.shape[0],
             "node_y_width": s.node_y.shape[1],
+            # GPS endpoints: collate takes the pe width of a batch's first
+            # sample and reads rel_pe wherever pe is present, so a request
+            # without them would break its whole micro-batch
+            "pe_width": s.extras["pe"].shape[1] if "pe" in s.extras else 0,
+            "rel_pe_width": s.extras["rel_pe"].shape[1] if "rel_pe" in s.extras else 0,
         }
 
     def check_sample(self, s: GraphSample) -> None:

@@ -3,7 +3,9 @@
 Counterpart of ``hydragnn_tpu/train/checkpoint.py`` with the port's own
 format: one ``torch.save`` file per epoch holding the model's state dict
 (parameters and running statistics), the optimizer's state dict (moments,
-step counts, learning rate) and the step counter, under
+step counts, learning rate), the step counter and the state of the dropout
+masks' generator, so a continued run draws the masks an uninterrupted one
+would, under
 ``<path>/<log_name>/checkpoints/``:
 
 * ``epoch_<N>.pt`` is written to a temporary name and renamed;
@@ -54,11 +56,15 @@ def _atomic_symlink(target: str, link: str) -> None:
 
 
 def _payload(state) -> dict:
-    return {
+    payload = {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "step": int(state.step),
     }
+    if state.generator is not None:
+        payload["generator"] = state.generator.get_state()
+        payload["generator_device"] = state.generator.device.type
+    return payload
 
 
 def _tensors(payload: dict):
@@ -69,6 +75,22 @@ def _tensors(payload: dict):
         for key, t in sorted(per_param.items()):
             if torch.is_tensor(t):
                 yield f"optimizer/{pid}/{key}", t
+    if "generator" in payload:
+        yield "generator", payload["generator"]
+
+
+def _restore_generator(state, payload: dict) -> None:
+    """Continue the dropout masks' sequence where the saved run stopped. A
+    generator of another device type keeps its seeded state: the CPU's and
+    the card's generators hold states of different kinds."""
+    if state.generator is None or "generator" not in payload:
+        return
+    if payload["generator_device"] != state.generator.device.type:
+        warnings.warn(f"checkpoint: the dropout generator was saved on "
+                      f"{payload['generator_device']}, not {state.generator.device.type}; "
+                      f"its masks restart from the run's seed")
+        return
+    state.generator.set_state(payload["generator"].cpu())
 
 
 def _crc(t: torch.Tensor) -> int:
@@ -172,6 +194,7 @@ def load_checkpoint(state, log_name: str, path: str = "./logs/",
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.step = int(payload["step"])
+        _restore_generator(state, payload)
         return meta
     detail = f" (candidates failed: {'; '.join(errors)})" if errors else ""
     raise FileNotFoundError(

@@ -13,6 +13,10 @@ the differentiated function (``torch.func.functional_call`` over the cast
 parameters), so their backward hands fp32 gradients to the fp32 masters; no
 ``torch.autocast``. A static ``loss_scale`` multiplies the loss before the
 backward and divides the fp32 gradients after it; the metrics are unscaled.
+
+Dropout (GAT's attention, GPS) draws its masks from the train state's
+``torch.Generator``, seeded from the run's seed; the eval and predict steps
+draw nothing.
 """
 
 from __future__ import annotations
@@ -58,12 +62,13 @@ def resolve_loss_scale(training_cfg: dict) -> float | None:
 @dataclasses.dataclass
 class TrainState:
     """The model (fp32 master parameters, running statistics), its
-    optimizer, and the number of steps taken. The steps update all three in
-    place."""
+    optimizer, the number of steps taken and the generator of the dropout
+    masks (on the model's device). The steps update them in place."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    generator: torch.Generator | None = None
 
 
 def apply_initial_bias(model: torch.nn.Module) -> torch.nn.Module:
@@ -81,14 +86,18 @@ def apply_initial_bias(model: torch.nn.Module) -> torch.nn.Module:
     return model
 
 
-def create_train_state(model: torch.nn.Module, optimizer_config: dict) -> TrainState:
+def create_train_state(model: torch.nn.Module, optimizer_config: dict,
+                       seed: int = 0) -> TrainState:
     """Initial bias applied, then the ``Training.Optimizer`` optimizer over
-    the model's parameters."""
+    the model's parameters, and the dropout generator seeded from ``seed``
+    on the model's device."""
     from .optimizer import select_optimizer
 
     apply_initial_bias(model)
-    return TrainState(model=model, optimizer=select_optimizer(optimizer_config,
-                                                              model.parameters()))
+    device = next(model.parameters()).device
+    return TrainState(model=model,
+                      optimizer=select_optimizer(optimizer_config, model.parameters()),
+                      generator=torch.Generator(device=device).manual_seed(int(seed)))
 
 
 def freeze_conv_grads(model: torch.nn.Module) -> None:
@@ -102,10 +111,12 @@ def freeze_conv_grads(model: torch.nn.Module) -> None:
             p.grad.zero_()
 
 
-def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, train: bool):
+def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, train: bool,
+                 generator: torch.Generator | None = None):
     """The model's per-head outputs, as fp32, with its parameters and the
     batch's floating fields cast to ``compute_dtype`` and the running
-    statistics left as they are."""
+    statistics left as they are; ``generator`` draws the dropout masks in
+    train mode."""
     params = {
         n: (p.to(compute_dtype) if p.is_floating_point() else p)
         for n, p in model.named_parameters()
@@ -113,7 +124,7 @@ def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, trai
     buffers = dict(model.named_buffers())
     c_batch = batch.map_floats(lambda t: t.to(compute_dtype))
     outputs = torch.func.functional_call(model, {**params, **buffers}, (c_batch,),
-                                         {"train": train})
+                                         {"train": train, "generator": generator})
     return [o.to(torch.float32) for o in outputs]
 
 
@@ -125,7 +136,8 @@ def make_train_step(compute_dtype: torch.dtype = torch.float32, loss_scale: floa
 
     def train_step(state: TrainState, batch) -> dict:
         model, optimizer = state.model, state.optimizer
-        pred = cast_forward(model, batch, compute_dtype, train=True)
+        pred = cast_forward(model, batch, compute_dtype, train=True,
+                            generator=state.generator)
         tot, tasks = model.loss(pred, batch)
         optimizer.zero_grad()
         (tot * loss_scale if loss_scale is not None else tot).backward()

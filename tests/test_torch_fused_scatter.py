@@ -159,6 +159,36 @@ def test_plain_versions_accumulate_in_fp32():
     assert float(seg) == 512.0
 
 
+def test_plain_versions_sum_fp64_input_in_fp64():
+    """fp64 input is summed in fp64, so an fp64 step is a reference for the
+    fp32 one: 1 + 2^-30 survives, which an fp32 sum rounds to 1."""
+    h = torch.tensor([[1.0], [2.0 ** -30]], dtype=torch.float64)
+    s = torch.tensor([0, 1], dtype=torch.int32)
+    r = torch.zeros(2, dtype=torch.int32)
+    out = fs.plain_gather_scatter_sum(h, s, r, 1)
+    assert out.dtype == torch.float64 and float(out) == 1.0 + 2.0 ** -30
+    assert float(fs.plain_segment_sum(h, r, 1)) == 1.0 + 2.0 ** -30
+    assert fs.accumulate_dtype(torch.bfloat16) == torch.float32
+
+
+@pytest.mark.parametrize("op", ["gather_scatter_sum", "gather_rows"])
+def test_backward_passes_gradcheck_in_fp64(op):
+    """The autograd Functions' backwards (B1's transposed launch and the
+    weight's gradient; B2 summing a gather's gradient) against finite
+    differences, in fp64, on ids with repeats and an empty row."""
+    gen = torch.Generator().manual_seed(11)
+    s = torch.tensor([0, 1, 1, 3, 4, 4, 4, 0], dtype=torch.int32)
+    r = torch.tensor([1, 0, 3, 3, 0, 1, 3, 4], dtype=torch.int32)  # row 2 empty
+    if op == "gather_scatter_sum":
+        h = torch.randn(5, 3, generator=gen, dtype=torch.float64, requires_grad=True)
+        w = torch.rand(8, generator=gen, dtype=torch.float64, requires_grad=True)
+        assert torch.autograd.gradcheck(lambda h, w: fs.gather_scatter_sum(h, s, r, 5, weight=w),
+                                        (h, w))
+    else:
+        x = torch.randn(5, 2, 3, generator=gen, dtype=torch.float64, requires_grad=True)
+        assert torch.autograd.gradcheck(lambda x: fs.gather_rows(x, r), (x,))
+
+
 @pytest.mark.parametrize("is_sorted", [True, False, None])
 def test_segment_index_is_the_csr_the_kernels_read(batch, is_sorted):
     """``ptr``/``perm`` describe exactly the rows of each segment, in edge

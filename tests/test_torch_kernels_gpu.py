@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here is ``gpu``-marked and skips without a CUDA device.
+"""The port's CUDA kernels (segment reductions and softmaxes) against their
+plain PyTorch versions, on the card. Every test here is ``gpu``-marked and
+skips without a CUDA device.
 
 The file imports neither JAX nor ``tests/conftest.py``'s helpers, so it
 also runs on a machine that has the card but no JAX:
@@ -21,6 +22,7 @@ from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
 from hydragnn_tpu_torch.graphs.graph import GraphSample
 from hydragnn_tpu_torch.graphs.radius import radius_graph
 from hydragnn_tpu_torch.ops import fused_scatter as fs
+from hydragnn_tpu_torch.ops import fused_softmax as fsm
 
 pytestmark = pytest.mark.gpu
 
@@ -207,6 +209,25 @@ def test_segment_sum_backward_on_card(batch):
     assert torch.equal(x.grad, dout[b.batch.long()])
 
 
+def _qm9_model(dev, **arch):
+    """The qm9.json model (hidden 64, 4 conv layers) with ``arch`` overrides,
+    on ``dev``, and its train state."""
+    import pathlib
+
+    from hydragnn_tpu_torch.config import load_config, update_config
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state
+
+    cfg = load_config(str(pathlib.Path(__file__).resolve().parents[1] / "examples" / "qm9"
+                          / "qm9.json"))
+    cfg["Dataset"] = {"name": "probe", "node_features": cfg["Dataset"]["node_features"],
+                      "graph_features": cfg["Dataset"]["graph_features"]}
+    cfg["NeuralNetwork"]["Architecture"].update(arch)
+    aug = update_config(cfg, [GraphSample(x=np.ones((29, 1)), graph_y=np.zeros(1))])
+    model = create_model_config(aug, device=dev)
+    return model, create_train_state(model, aug["NeuralNetwork"]["Training"]["Optimizer"])
+
+
 def test_gin_train_step_launches_on_card(batch):
     """One train step of a 4-layer GIN: 4 forward and 3 backward
     gather-scatter launches (conv layer 0's input needs no gradient) and 1
@@ -234,7 +255,186 @@ def test_gin_train_step_launches_on_card(batch):
     metrics = step(state, b.to(dev))
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 3,
-                           "segment_sum": 1}
+                           "segment_sum": 1, "segment_softmax": 0, "masked_softmax": 0}
     assert bool(torch.isfinite(metrics["loss"]))
     assert all(p.grad is not None and p.grad.dtype == torch.float32
                for p in model.parameters())
+
+
+# -- the softmax kernels -------------------------------------------------------
+
+
+def _gat_logits(b, heads, dtype, gen):
+    """Logits over the batch's GAT layout (real edges, alignment slots on
+    the dummy node, self loops), masked slots at -1e9, and its receivers."""
+    senders, receivers = b.self_loop_edges()
+    e_mask = torch.cat([b.edge_mask, b.edge_mask.new_zeros(senders.shape[0] - b.num_edges
+                                                           - b.num_nodes),
+                        b.edge_mask.new_ones(b.num_nodes)])
+    x = torch.randn(senders.shape[0], heads, generator=gen).to(b.device) * 3.0
+    x = torch.where(e_mask[:, None] > 0, x, -1e9)
+    return x.to(dtype), receivers
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("layout", ["gat", "unsorted", "hubs", "empty_and_inf"])
+def test_segment_softmax_kernel_matches_plain_on_card(batch, dtype, layout):
+    """GAT's layout (its receivers are not sorted: the self loops come last;
+    the dummy row owns every pad edge and alignment slot, several 32-entry
+    pieces), a shuffled copy, rows of hundreds of entries onto 4 segments,
+    and empty segments beside a segment of -inf logits; every row against
+    the plain version, which the kernel matches on the dummy row too."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(11)
+    b = batch.to(dev)
+    n = b.num_nodes
+    x, ids = _gat_logits(b, 6, dtype, gen)
+    index = b.csr("loop_receivers") if layout == "gat" else None
+    if layout == "gat":
+        assert int(index.piece_ptr[n] - index.piece_ptr[n - 1]) > 1, "dummy row spans pieces"
+    elif layout == "unsorted":
+        p = torch.randperm(ids.shape[0], generator=gen).to(dev)
+        x, ids = x[p], ids[p]
+    elif layout == "hubs":
+        ids = torch.sort(torch.randint(0, 4, ids.shape, generator=gen)).values.to(dev)
+        ids = ids.to(torch.int32)
+    else:
+        ids = (ids // 2) * 2  # odd segments empty
+        x = torch.where((ids == 10)[:, None], float("-inf"), x.float()).to(dtype)
+    before = dict(fs.LAUNCHES)
+    got = fsm.segment_softmax(x, ids, n, index=index)
+    again = fsm.segment_softmax(x, ids, n, index=index)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["segment_softmax"] == before["segment_softmax"] + 2
+    assert torch.equal(got, again), "two launches on the same inputs differ"
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    want = fsm.plain_segment_softmax(x, ids, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if layout == "empty_and_inf":
+        assert not got[ids == 10].any()
+
+
+def test_segment_softmax_backward_on_card(batch):
+    """ds = s * (dy - segment_sum(s * dy)[ids]): one segment-sum launch over
+    the same CSR view, against the CPU route's gradient."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(12)
+    b = batch.to(dev)
+    x, ids = _gat_logits(b, 6, torch.float32, gen)
+    dy = torch.randn(x.shape, generator=gen)
+    x_dev = x.clone().requires_grad_()
+    before = dict(fs.LAUNCHES)
+    fsm.segment_softmax(x_dev, ids, b.num_nodes, index=b.csr("loop_receivers")).backward(
+        dy.to(dev))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["segment_sum"] == before["segment_sum"] + 1
+    x_cpu = x.cpu().requires_grad_()
+    fsm.segment_softmax(x_cpu, ids.cpu(), b.num_nodes).backward(dy)
+    torch.testing.assert_close(x_dev.grad.cpu(), x_cpu.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("field", ["loop_senders", "loop_receivers"])
+def test_gather_rows_backward_on_card(batch, field):
+    """GAT's gathers onto the extended entries: the gradient is one
+    segment-sum launch over the ids' CSR view (the dummy row's many
+    pieces), bit-stable, and matches the CPU route's."""
+    dev = _cuda_or_skip()
+    b = batch.to(dev)
+    ids = b.self_loop_edges()[0 if field == "loop_senders" else 1]
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn(b.num_nodes, 6, 8, generator=gen)
+    dy = torch.randn(ids.shape[0], 6, 8, generator=gen)
+    grads = []
+    for _ in range(2):
+        x_dev = x.to(dev).requires_grad_()
+        before = dict(fs.LAUNCHES)
+        fs.gather_rows(x_dev, ids, b.csr(field)).backward(dy.to(dev))
+        torch.cuda.synchronize()
+        assert fs.LAUNCHES["segment_sum"] == before["segment_sum"] + 1
+        grads.append(x_dev.grad)
+    assert torch.equal(grads[0], grads[1]), "two backward launches differ"
+    x_cpu = x.clone().requires_grad_()
+    fs.gather_rows(x_cpu, ids.cpu()).backward(dy)
+    torch.testing.assert_close(grads[0][:-1].cpu(), x_cpu.grad[:-1], **TOL[torch.float32])
+
+
+def _dense_logits(gen, dtype, g=65, heads=4, n_max=32):
+    """GPS's dense blocks at the qm9.json top bucket's shape: 64 molecules of
+    9-29 atoms and the empty dummy graph (fully masked rows)."""
+    n_node = torch.randint(9, 30, (g,), generator=gen)
+    n_node[-1] = 0
+    valid = torch.arange(n_max)[None, :] < n_node[:, None]
+    return torch.randn(g, heads, n_max, n_max, generator=gen).to(dtype) * 3.0, valid
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_masked_softmax_kernel_matches_plain_on_card(dtype):
+    dev = _cuda_or_skip()
+    x, valid = _dense_logits(torch.Generator().manual_seed(13), dtype)
+    x, valid = x.to(dev), valid.to(dev)
+    before = dict(fs.LAUNCHES)
+    got = fsm.masked_softmax(x, valid)
+    again = fsm.masked_softmax(x, valid)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["masked_softmax"] == before["masked_softmax"] + 2
+    assert torch.equal(got, again) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), fsm.plain_masked_softmax(x, valid).float(),
+                               **TOL[dtype])
+    # the dummy graph's fully masked rows are uniform; masked entries of
+    # real rows are exactly 0
+    torch.testing.assert_close(got[-1].float(), torch.full_like(got[-1].float(), 1 / 32),
+                               **TOL[dtype])
+    masked = (~valid[:-1])[:, None, None, :].expand_as(got[:-1])
+    assert not got[:-1][masked].any()
+    with pytest.raises(ValueError, match="mask must be"):
+        fsm.masked_softmax(x, valid[:, :-1])
+
+
+def test_masked_softmax_backward_on_card():
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(14)
+    x, valid = _dense_logits(gen, torch.float32)
+    dy = torch.randn(x.shape, generator=gen)
+    x_dev = x.to(dev).requires_grad_()
+    fsm.masked_softmax(x_dev, valid.to(dev)).backward(dy.to(dev))
+    x_cpu = x.clone().requires_grad_()
+    fsm.masked_softmax(x_cpu, valid).backward(dy)
+    torch.testing.assert_close(x_dev.grad.cpu(), x_cpu.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch,want", [
+    ({"mpnn_type": "GAT"},
+     {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 17,
+      "segment_softmax": 4, "masked_softmax": 0}),
+    ({"global_attn_engine": "GPS", "global_attn_heads": 4, "pe_dim": 4,
+      "max_graph_nodes": 32},
+     {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 4, "segment_sum": 1,
+      "segment_softmax": 0, "masked_softmax": 4}),
+], ids=["GAT", "GPS-GIN"])
+def test_attention_train_step_launches_on_card(batch, arch, want):
+    """One bf16 train step of the qm9.json GAT (4 softmaxes; 4 aggregations
+    + 1 pooling forward, and 4 softmax backwards and 8 gather backwards, by
+    sender and by receiver, on the segment-sum kernel)
+    and GPS-GIN (4 + 4 gather-scatter: layer 0's input is the learned
+    embedding; 4 masked softmaxes; 1 pooling)."""
+    from hydragnn_tpu_torch.preprocess.encodings import laplacian_pe
+    from hydragnn_tpu_torch.train.step import make_train_step
+
+    dev = _cuda_or_skip()
+    model, state = _qm9_model(dev, **arch)
+    pe = torch.zeros(batch.num_nodes, 4)
+    ns = batch.n_node.tolist()
+    start = 0
+    for k in ns[:-1]:  # per-graph encodings of the path-graph stand-ins
+        ids = np.arange(k - 1)
+        pe[start:start + k] = torch.from_numpy(laplacian_pe(ids, ids + 1, k, 4))
+        start += k
+    b = batch.replace(graph_y=torch.randn(batch.num_graphs, 1,
+                                          generator=torch.Generator().manual_seed(0)), pe=pe)
+    step = make_train_step(torch.bfloat16)
+    step(state, b.to(dev))  # warm-up (builds the kernels)
+    fs.reset_launches()
+    metrics = step(state, b.to(dev))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES == want
+    assert bool(torch.isfinite(metrics["loss"]))

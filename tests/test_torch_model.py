@@ -202,7 +202,8 @@ def test_dense_promotes_like_flax():
 
 @pytest.mark.parametrize("override,what", [
     ({"mpnn_type": "PNA"}, "mpnn_type"),
-    ({"global_attn_engine": "GPS"}, "GPS"),
+    # GPS multihead attention is ported; its performer variant is not
+    ({"global_attn_engine": "GPS", "global_attn_type": "performer"}, "GPS"),
     ({"use_graph_attr_conditioning": True}, "conditioning"),
     ({"enable_interatomic_potential": True}, "interatomic"),
 ])
