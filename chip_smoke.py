@@ -8,7 +8,11 @@ Three configurations of ``examples/qm9/qm9.json`` at its published widths
 pooling, bf16, batch 64, AdamW lr 1e-3), random weights from ``--seed``:
 the GIN itself, its GAT variant (``mpnn_type`` GAT: 6 heads, layers 0-2
 concatenated to 384 features) and its GPS-GIN variant (GPS multihead
-attention, 4 heads, Laplacian positional encodings of width 4).
+attention, 4 heads, Laplacian positional encodings of width 4). Then the
+interatomic potential of ``bench.py``'s ``oc20`` row (EGNN, hidden 64, 3
+conv layers, equivariance on, add pooling, energy + 10 x force loss, fp32,
+batch 64) and molecular dynamics: that EGNN on a 1,000-atom LJ cell, and
+an analytic LJ potential on ``bench.py``'s 8,000-atom MD lattice.
 
 Phases (any failure exits non-zero; the last line of standard output is the
 device JSON only when every phase passed):
@@ -44,7 +48,27 @@ device JSON only when every phase passed):
    dataset through ``run_training`` and ``run_prediction`` on the card, at
    the reference thresholds: GIN with one head and with four heads (head
    RMSE < 0.25, sample MAE < 0.20), GAT (< 0.60 / < 0.70), GPS-GIN (RMSE of
-   the graph head < 0.35).
+   the graph head < 0.35);
+7. the repaired backwards (phase 3, right after the kernels): second
+   derivatives through ``fused_segment_sum``, ``gather_rows``,
+   ``gather_scatter_sum`` and ``segment_softmax``, kernels against plain
+   versions on the card;
+8. MLIP training: ``run_training`` of the oc20 EGNN for a few epochs (the
+   only cut: ``num_epoch``); the train loss falls; exact launch counts per
+   MLIP train step (all ``segment_sum``); one fp32 MLIP step on the card
+   held per tensor against an fp64 CPU step (what a dropped second
+   derivative would miss); where the step's time goes; the busy share;
+9. the cell-list kernel B5 against its plain version at both MD systems'
+   shapes (ids identical, shifts within 1e-6), a slab, an overflowing
+   capacity, two launches bit-identical, the edge set against the dense
+   build, its time, plain time and bound; then MD: the analytic LJ
+   lattice (8,000 atoms, 100 NVE steps) and the trained EGNN on the
+   1,000-atom cell (200 NVE steps): each system's first forces through the
+   kernels against the plain versions at the path's shapes (within 1e-5 of
+   the largest force); finite, no overflow, drift, exact launches per step,
+   ms per step and its parts; the EGNN's first forces, and its velocities
+   and positions after 10 steps from nonzero velocities, against the port's
+   CPU route; two runs bit for bit.
 
 The script imports only ``hydragnn_tpu_torch``, torch and numpy, and needs no
 network.
@@ -96,13 +120,18 @@ CPU_PARITY = dict(rtol=1e-4, atol=1e-5)
 # of the tensor's largest gradient with the kernels or without them, the
 # CPU's by 1e-6; one draw of such rounding is a loose estimate of its size
 # (the card with the kernels misses GAT's layer-2 lin_l.bias gradient by
-# 3.6 x what it misses it by with the plain versions). The
-# parameters after the first AdamW step, which moves each by
+# 3.6 x what it misses it by with the plain versions). The plain versions
+# on the card sum with atomics (index_add_), so their rounding varies from
+# call to call (GAT's layer-2 attention vector: 5.3e-7 in one call, over
+# 1.5e-6 in others, against the kernels' fixed 5.6e-6): the card's plain
+# step is drawn STEP_PLAIN_DRAWS times and each tensor takes the largest
+# of its errors. The parameters after the first AdamW step, which moves each by
 # lr * g / (|g| + 1e-8), agree with the CPU route's to 1e-3 * lr wherever
 # |g| exceeds ten times the largest card-vs-CPU gradient difference, and
 # elsewhere (gradients at the noise level, which that step follows in sign)
 # to 2 * lr, further than one step moves a parameter
 STEP_GRAD_TOL = dict(atol_of_max=1e-5, noise_factor=8.0)
+STEP_PLAIN_DRAWS = 4
 # epochs of the full-width training runs: the one cut of qm9.json's config
 TRAIN_EPOCHS = 6
 # the three configurations of the main paths: qm9.json, its GAT row
@@ -122,7 +151,59 @@ CSR_FORWARD = {"gin": ("receivers", "batch"), "gat": ("loop_receivers", "batch")
                "gps": ("receivers", "batch")}
 CSR_BACKWARD = {"gin": ("senders",), "gat": ("loop_senders",), "gps": ("senders",)}
 KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum", "segment_softmax",
-           "masked_softmax")
+           "masked_softmax", "cell_list")
+# bench.py's oc20 row (bench_oc20: MLIP_CONFIG with radius 5.0 and
+# max_neighbours 40; fp32, since bf16 under a gradient of a gradient loses
+# force accuracy), the north-star workload of BASELINE.json
+MLIP_CONFIG = {
+    "Verbosity": {"level": 0},
+    "Dataset": {
+        "name": "bench_oc20",
+        "format": "unit_test",
+        "node_features": {"name": ["type"], "dim": [1], "column_index": [0]},
+        "graph_features": {"name": ["energy"], "dim": [1], "column_index": [0]},
+    },
+    "NeuralNetwork": {
+        "Architecture": {
+            "mpnn_type": "EGNN", "radius": 5.0, "max_neighbours": 40, "hidden_dim": 64,
+            "num_conv_layers": 3, "equivariance": True, "enable_interatomic_potential": True,
+            "activation_function": "silu", "energy_weight": 1.0, "energy_peratom_weight": 0.0,
+            "force_weight": 10.0, "graph_pooling": "add",
+            "output_heads": {"graph": {"num_sharedlayers": 1, "dim_sharedlayers": 32,
+                                       "num_headlayers": 2, "dim_headlayers": [64, 64]}},
+            "task_weights": [1.0],
+        },
+        "Variables_of_interest": {"input_node_features": [0], "output_index": [0],
+                                  "type": ["graph"], "denormalize_output": False},
+        "Training": {"num_epoch": 1, "batch_size": 64, "loss_function_type": "mse",
+                     "precision": "fp32",
+                     "Optimizer": {"type": "AdamW", "learning_rate": 1e-3}},
+    },
+}
+MLIP_SAMPLES = 256  # bench_oc20: max(batch * 4, 128) configurations, seed 11
+MLIP_EPOCHS = 8  # the one cut of the MLIP run: num_epoch
+# MLIP MD: the trained EGNN on one 1,000-atom LJ cell (box 38 A, the
+# training lattice and density); 16 edge slots per atom (~6 are within 5.0)
+MLIP_MD_CELLS = 10
+MLIP_MD_EDGES_PER_ATOM = 16
+MLIP_MD_STEPS = 200
+MLIP_MD_DT = 1e-3
+MD_CPU_STEPS = 10  # MLIP MD steps held against the port's CPU route
+# MLIP MD starts from velocities 0.1 N(0, 1) (k_B T ~ 0.01 epsilon), from the
+# seed, so that its first steps move the atoms ~1e-3 A: the comparison with
+# the CPU route then sees the forces act
+MLIP_MD_V0 = 0.1
+# forces held against their plain versions and the CPU route, velocities
+# after MD_CPU_STEPS steps against the CPU route: max |difference| within
+# this share of the largest |force| or |velocity|
+MD_RTOL = 1e-5
+MD_POS_TOL = 1e-4  # A, positions after MD_CPU_STEPS steps against the CPU route
+# analytic-LJ MD: bench_md's lattice (8,000 atoms, spacing 2.2, cutoff 3.0,
+# 60 edge slots per atom, the cell list)
+LJ_MD_CUTOFF = 3.0
+LJ_MD_EDGES_PER_ATOM = 60
+LJ_MD_STEPS = 100
+LJ_MD_DT = 1e-3
 # the tier-1 canaries' GIN (tests/test_config.py CI_CONFIG, with the
 # learning rate and epochs of tests/test_training_e2e.py)
 CANARY_CONFIG = {
@@ -999,50 +1080,60 @@ def _plain_versions_on_card():
     from hydragnn_tpu_torch.ops import fused_scatter as fs
     from hydragnn_tpu_torch.ops import fused_softmax as fsm
 
-    saved = fs._route, fsm._route
-    fs._route = fsm._route = lambda name, t: False
+    from hydragnn_tpu_torch.ops import fused_cell_list as fcl
+
+    saved = fs._route, fsm._route, fcl._route
+    fs._route = fsm._route = fcl._route = lambda name, t: False
     try:
         yield
     finally:
-        fs._route, fsm._route = saved
+        fs._route, fsm._route, fcl._route = saved
 
 
-def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int) -> None:
+def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int,
+                 mlip: bool = False) -> None:
     """One fp32 train step from the same parameters on the same batch, on
     ``device`` and on the port's CPU route, each held against an fp64 run of
     the step on the CPU: gradients, then updated parameters and running
     statistics against the CPU route's. Dropout is 0 here: the card's
-    generator and the CPU's draw different masks from the same seed."""
+    generator and the CPU's draw different masks from the same seed.
+    ``mlip``: the MLIP step (energy + force loss, a gradient of the force
+    gradient), where a second derivative the card dropped would show."""
     from hydragnn_tpu_torch.models import create_model_config
-    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+    from hydragnn_tpu_torch.models.mlip import make_mlip_train_step
+    from hydragnn_tpu_torch.train.step import create_train_state
+    from hydragnn_tpu_torch.train.step import make_train_step as plain_train_step
+
+    def make_train_step(dtype, model):
+        return make_mlip_train_step(model, dtype) if mlip else plain_train_step(dtype)
 
     aug = copy.deepcopy(aug)
     aug["NeuralNetwork"]["Architecture"]["dropout"] = 0.0
     opt_cfg = aug["NeuralNetwork"]["Training"]["Optimizer"]
     lr = float(opt_cfg["learning_rate"])
     card = create_model_config(aug, device=device, seed=seed)
-    plain = copy.deepcopy(card)
+    plains = [copy.deepcopy(card) for _ in range(STEP_PLAIN_DRAWS if device == "cuda" else 0)]
     host = copy.deepcopy(card).to("cpu")
     ref = copy.deepcopy(host).double()
     s_card, s_host = create_train_state(card, opt_cfg), create_train_state(host, opt_cfg)
-    step = make_train_step(torch.float32)
-    step(s_card, host_batch.to(device))
-    step(s_host, host_batch)
+    make_train_step(torch.float32, card)(s_card, host_batch.to(device))
+    make_train_step(torch.float32, host)(s_host, host_batch)
     # the same step on the card with every kernel replaced by its plain
-    # version: the rounding of the card's other operations (matrix
-    # products, reductions) on each tensor, which the kernels must not
-    # make worse
-    if device == "cuda":
-        with _plain_versions_on_card():
-            step(create_train_state(plain, opt_cfg), host_batch.to(device))
+    # version, drawn several times: the rounding of the card's other
+    # operations (matrix products, reductions) on each tensor, which the
+    # kernels must not make worse
+    with _plain_versions_on_card():
+        for plain in plains:
+            make_train_step(torch.float32, plain)(create_train_state(plain, opt_cfg),
+                                                  host_batch.to(device))
     # an fp64 run of the same step (the plain versions sum fp64 input in
     # fp64)
-    make_train_step(torch.float64)(create_train_state(ref, opt_cfg),
-                                   host_batch.map_floats(lambda t: t.double()))
+    make_train_step(torch.float64, ref)(create_train_state(ref, opt_cfg),
+                                        host_batch.map_floats(lambda t: t.double()))
     _sync(torch, device)
     grads = {n: (p.grad.cpu(), dict(host.named_parameters())[n].grad)
              for n, p in card.named_parameters()}
-    plain_grads = {n: p.grad for n, p in plain.named_parameters()}
+    plain_grads = [dict(plain.named_parameters()) for plain in plains]
     ref_grads = {n: p.grad for n, p in ref.named_parameters()}
     worst = (-1.0, "", 0.0, 0.0, 0.0, 0.0)  # (error / bound, name, card, cpu, plain, bound)
     # card, cpu and plain errors over the tensor's largest gradient (at
@@ -1055,8 +1146,8 @@ def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int) -> None:
         g_max = float(r64.abs().max())
         card_err = float((c.double() - r64).abs().max())
         cpu_err = float((h.double() - r64).abs().max())
-        plain_err = (float((plain_grads[name].cpu().double() - r64).abs().max())
-                     if device == "cuda" else 0.0)
+        plain_err = max((float((pg[name].grad.cpu().double() - r64).abs().max())
+                         for pg in plain_grads), default=0.0)
         bound = STEP_GRAD_TOL["noise_factor"] * max(
             cpu_err, plain_err, STEP_GRAD_TOL["atol_of_max"] * g_max)
         if card_err > bound:
@@ -1084,10 +1175,12 @@ def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int) -> None:
     for (name, a), b in zip(card.named_buffers(), host.buffers()):
         if not torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-6):
             raise AssertionError(f"fp32 train step: running statistic {name} differs")
-    log(f"fp32 train step (dropout 0), {device} vs the CPU route: max|grad diff| {worst_g:.3e}; "
+    what = "fp32 MLIP train step" if mlip else "fp32 train step (dropout 0)"
+    log(f"{what}, {device} vs the CPU route: max|grad diff| {worst_g:.3e}; "
         f"per tensor against an fp64 step, {device}'s error within "
         f"{STEP_GRAD_TOL['noise_factor']} x the largest of the CPU route's, the {device}'s with "
-        f"the plain versions in place of the kernels and {STEP_GRAD_TOL['atol_of_max']} x the "
+        f"the plain versions in place of the kernels (the largest of {len(plains)} draws) and "
+        f"{STEP_GRAD_TOL['atol_of_max']} x the "
         f"tensor's largest gradient; closest to its bound {worst[1]}: {device} {worst[2]:.3e}, "
         f"CPU {worst[3]:.3e}, plain versions {worst[4]:.3e}, bound {worst[5]:.3e} "
         f"({100 * worst[0]:.1f}% of it); largest error relative to its tensor's largest "
@@ -1234,7 +1327,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
 
 
 def _profile_steps(torch, step, state, host, device: str, tag: str, n_steps: int = 10) -> None:
-    """The device's busy share of ``n_steps`` bf16 train steps under
+    """The device's busy share of ``n_steps`` train steps under
     ``torch.profiler``: the summed time of the device kernels and copies
     over the window's host-clock wall (the tracing slows the host, so the
     share is a lower bound), and device operations per step."""
@@ -1256,7 +1349,7 @@ def _profile_steps(torch, step, state, host, device: str, tag: str, n_steps: int
         return
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
     steps = n_steps - 1
-    log(f"{tag} profiler over {steps} bf16 train steps: device busy {busy_us / steps:.1f} us "
+    log(f"{tag} profiler over {steps} train steps: device busy {busy_us / steps:.1f} us "
         f"per step of {wall_us / steps / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.2f}% busy, "
         f"{100 - 100 * busy_us / wall_us:.2f}% idle), {len(dev) / steps:.0f} device operations "
         f"per step")
@@ -1345,6 +1438,713 @@ def canary_phase(torch, device: str, card: str = "", epochs: int | None = None,
     return out
 
 
+# -- phase 7: kernel B5 and the repaired backwards ------------------------------
+
+
+def second_derivative_phase(torch, batch, device: str = "cuda") -> float:
+    """The repaired backwards on the card: the second derivatives (the
+    gradient of a gradient taken with ``create_graph=True``, in the inputs
+    and in the upstream gradient) of ``fused_segment_sum``,
+    ``gather_rows``, ``gather_scatter_sum`` (in ``h`` and its per-edge
+    weight) and ``segment_softmax``, with the kernels against the plain
+    versions on the same inputs, at the top QM9 bucket's shapes. Pad rows
+    carry zero data, as the models mask them. Returns the largest
+    difference."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.ops import fused_softmax as fsm
+
+    dev = torch.device(device)
+    b = batch.to(dev)
+    n, e = b.num_nodes, b.num_edges
+    gen = torch.Generator(device="cpu").manual_seed(77)
+    mask = b.edge_mask
+    recv_idx, send_idx = b.csr("receivers"), b.csr("senders")
+    loop_send, loop_recv = b.self_loop_edges()
+    loop_idx = b.csr("loop_receivers")
+    e_ext = loop_recv.shape[0]
+    e_mask = torch.cat([mask, mask.new_zeros(e_ext - e - n), mask.new_ones(n)])
+    real_nodes = (torch.arange(n, device=dev) < n - 1).float()
+
+    def rand(*shape, rows=None):
+        x = torch.randn(*shape, generator=gen).to(dev)
+        return x * rows.reshape((-1,) + (1,) * (len(shape) - 1)) if rows is not None else x
+
+    # (function, inputs, the row masks of its inputs and of its output):
+    # the directions v of the second derivative are masked like the inputs
+    cases = {
+        "fused_segment_sum": (lambda x: fs.fused_segment_sum(x, b.receivers, n, index=recv_idx),
+                              [rand(e, 64, rows=mask)], [mask], real_nodes),
+        "gather_rows": (lambda x: fs.gather_rows(x, b.senders, send_idx),
+                        [rand(n, 64, rows=real_nodes)], [real_nodes], mask),
+        "gather_scatter_sum": (
+            lambda h, w: fs.gather_scatter_sum(h, b.senders, b.receivers, n, weight=w,
+                                               index=recv_idx, send_index=send_idx),
+            [rand(n, 64, rows=real_nodes), rand(e, rows=mask).abs()], [real_nodes, mask],
+            real_nodes),
+        "segment_softmax": (lambda x: fsm.segment_softmax(
+            torch.where(e_mask[:, None] > 0, x, -1e9), loop_recv, n, index=loop_idx),
+            [rand(e_ext, 6)], [e_mask], e_mask),
+    }
+
+    def second(fn, inputs, dy, v):
+        xs = [x.clone().requires_grad_(True) for x in inputs]
+        dy = dy.clone().requires_grad_(True)
+        grads = torch.autograd.grad(fn(*xs), xs, dy, create_graph=True)
+        inner = sum((g * vi).sum() for g, vi in zip(grads, v))
+        return torch.autograd.grad(inner, xs + [dy], allow_unused=True)
+
+    worst = 0.0
+    log("repaired backwards: second derivatives, kernels against the plain versions on the "
+        "card (every backward is the port's own Functions; none calls a raw launcher):")
+    for name, (fn, inputs, in_rows, out_rows) in cases.items():
+        dy = rand(*fn(*inputs).shape, rows=out_rows)
+        v = [rand(*x.shape, rows=r) for x, r in zip(inputs, in_rows)]
+        before = dict(fs.LAUNCHES)
+        got = second(fn, inputs, dy, v)
+        _sync(torch, device)
+        launched = {k: fs.LAUNCHES[k] - before[k] for k in KERNELS if fs.LAUNCHES[k] != before[k]}
+        with _plain_versions_on_card():
+            want = second(fn, inputs, dy, v)
+        errs = []
+        for k, (g, w) in enumerate(zip(got, want)):
+            if g is None and w is None:
+                continue
+            g = torch.zeros_like(w) if g is None else g
+            w = torch.zeros_like(g) if w is None else w
+            errs.append(_compare(torch, f"{name} d2[{k}] {tuple(g.shape)}", g, w, g.shape[0],
+                                 "float32"))
+        log(f"    {name}: launches in the double backward {launched}")
+        if device == "cuda" and not launched:
+            raise AssertionError(f"{name}: the double backward launched no kernel")
+        worst = max([worst] + errs)
+    return worst
+
+
+def lj_lattice(k: int = 20, a: float = 2.2, seed: int = 0):
+    """The analytic-LJ MD system of ``bench.py``'s ``bench_md`` and
+    ``md_rollout.py --big``: a ``k**3`` simple-cubic lattice of spacing
+    ``a`` (8,000 atoms at k = 20), jittered 0.05, velocities 0.02, from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    g = np.stack(np.meshgrid(*([np.arange(k)] * 3), indexing="ij"), -1)
+    pos = (g.reshape(-1, 3) * a + a / 2 + 0.05 * rng.normal(size=(k**3, 3))).astype(np.float32)
+    vel = (0.02 * rng.normal(size=(k**3, 3))).astype(np.float32)
+    return pos, vel, np.eye(3, dtype=np.float32) * (k * a)
+
+
+def lj_energy(torch):
+    """``bench_md``'s LJ pair energy (sigma 2.0, epsilon 0.02), each pair
+    counted once over the directed edges. The positions are gathered onto
+    the edges with ``gather_rows``: autograd's own backward of ``p[r]`` on
+    the card would walk the ~420k pad slots, all at one atom, one by one
+    (or sum them with atomics); this one is the segment-sum kernel."""
+    from hydragnn_tpu_torch.ops.fused_scatter import gather_rows
+
+    def lj(p, s, r, sh, em):
+        d = gather_rows(p, r) - gather_rows(p, s) + sh
+        d2 = (d * d).sum(-1) + (1.0 - em)
+        inv6 = (2.0**2 / d2) ** 3
+        return 0.5 * torch.sum(em * 4.0 * 0.02 * (inv6 * inv6 - inv6))
+    return lj
+
+
+def mlip_md_sample(aug: dict, cells_per_dim: int = MLIP_MD_CELLS, seed: int = 0):
+    """The MLIP MD system: one periodic LJ cell of ``cells_per_dim**3``
+    atoms (1,000, box 38 Å) with the training data's lattice and density,
+    its node features min-max normalised as the training set's were."""
+    from hydragnn_tpu_torch.datasets import lennard_jones_data
+    from hydragnn_tpu_torch.preprocess.load_data import apply_variables_of_interest
+
+    arch = aug["NeuralNetwork"]["Architecture"]
+    (sample,) = apply_variables_of_interest(lennard_jones_data(
+        number_configurations=1, cells_per_dim=cells_per_dim, radius=float(arch["radius"]),
+        max_neighbours=int(arch["max_neighbours"]), relative_maximum_atomic_displacement=0.05,
+        seed=seed), copy.deepcopy(aug))
+    lo, hi = (np.asarray(v, np.float32) for v in
+              aug["NeuralNetwork"]["Variables_of_interest"]["minmax_node_feature"])
+    fx = sample.x.shape[1]
+    sample.x = ((sample.x - lo[:fx]) / (hi[:fx] - lo[:fx])).astype(np.float32)
+    return sample
+
+
+def md_systems(aug: dict, seed: int, lj_k: int = 20, mlip_cells: int = MLIP_MD_CELLS) -> dict:
+    """Both MD systems' positions, cells and neighbour plans."""
+    from hydragnn_tpu_torch.md import plan_cell_grid
+
+    sample = mlip_md_sample(aug, cells_per_dim=mlip_cells, seed=seed + 100)
+    cutoff = float(aug["NeuralNetwork"]["Architecture"]["radius"])
+    n = sample.num_nodes
+    pos, vel, cell = lj_lattice(lj_k, seed=seed)
+    mlip_vel = (MLIP_MD_V0 * np.random.default_rng(seed + 200).normal(size=(n, 3))).astype(
+        np.float32)
+    out = {
+        "mlip": dict(pos=sample.pos.astype(np.float32), vel=mlip_vel,
+                     cell=sample.cell.astype(np.float32), pbc=np.ones(3, bool), cutoff=cutoff,
+                     max_edges=MLIP_MD_EDGES_PER_ATOM * n, sample=sample),
+        "lj": dict(pos=pos, vel=vel, cell=cell, pbc=np.ones(3, bool), cutoff=LJ_MD_CUTOFF,
+                   max_edges=LJ_MD_EDGES_PER_ATOM * pos.shape[0]),
+    }
+    for sys_ in out.values():
+        sys_["plan"] = plan_cell_grid(sys_["cell"], sys_["cutoff"], sys_["pos"].shape[0],
+                                      pbc=sys_["pbc"])
+    return out
+
+
+def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = True):
+    """Kernel B5 against its plain version on the card at both MD systems'
+    shapes (ids, masks and ``n_edges`` identical, shifts within 1e-6), a
+    slab with one open axis, an overflowing capacity (``n_edges`` equal),
+    two launches bit-identical, the edge set against the dense build, then
+    its device time beside the plain version's and its bound. Returns the
+    kernel's JSON entry (``launches`` filled in later)."""
+    from hydragnn_tpu_torch.md import dynamic_radius_graph, plan_cell_grid
+    from hydragnn_tpu_torch.ops import fused_cell_list as fcl
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    dev = torch.device(device)
+    log("cell_list (replaces ops/fused_cell_list.py:90 _cell_kernel): kernel vs plain version "
+        "(the XLA build transliterated) on the card")
+
+    def build(sys_, plan=None, pbc=None):
+        grid, cap = plan or sys_["plan"]
+        pos = torch.from_numpy(sys_["pos"]).to(dev)
+        cell = torch.from_numpy(sys_["cell"]).to(dev)
+        pbc_t = torch.from_numpy(np.asarray(sys_["pbc"] if pbc is None else pbc)).to(dev)
+        return lambda: fcl.binned_radius_graph(pos, sys_["cutoff"], sys_["max_edges"],
+                                                     cell, pbc_t, grid, cap,
+                                                     pad_id=sys_["pos"].shape[0] - 1)
+
+    def compare(label, fn, poisoned=False):
+        before = fs.LAUNCHES["cell_list"]
+        got = fn()
+        _sync(torch, device)
+        if device == "cuda" and fs.LAUNCHES["cell_list"] != before + 1:
+            raise AssertionError(f"cell_list {label}: the kernel did not launch once")
+        with _plain_versions_on_card():
+            want = fn()
+        s, r, sh, m, ne = got
+        ws, wr, wsh, wm, wne = want
+        ok = int(ne) == int(wne)
+        err = 0.0
+        if not poisoned:
+            ok = ok and torch.equal(s, ws) and torch.equal(r, wr) and torch.equal(m, wm)
+            err = float((sh - wsh).abs().max())
+            ok = ok and err <= 1e-6
+        log(f"  {label}: n_edges {int(ne)} (plain {int(wne)}), "
+            f"{'n_edges only (poisoned)' if poisoned else 'ids, mask identical'}, "
+            f"max|shift diff| {err:.3e} (allowed 1e-6) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"cell_list {label}: kernel disagrees with the plain version")
+        return got, err
+
+    errs = []
+    outs = {}
+    for key, label in (("mlip", "MLIP MD cell"), ("lj", "analytic-LJ lattice")):
+        sys_ = systems[key]
+        grid, cap = sys_["plan"]
+        outs[key], err = compare(
+            f"{label}: {sys_['pos'].shape[0]} atoms, cutoff {sys_['cutoff']}, grid {grid}, "
+            f"capacity {cap}, max_edges {sys_['max_edges']}", build(sys_))
+        errs.append(err)
+    slab = systems["mlip"]
+    slab_pbc = np.array([True, True, False])
+    slab_plan = plan_cell_grid(slab["cell"], slab["cutoff"], slab["pos"].shape[0], pbc=slab_pbc)
+    errs.append(compare(f"slab (z open): grid {slab_plan[0]}, capacity {slab_plan[1]}",
+                        build(slab, slab_plan, slab_pbc))[1])
+    lj = systems["lj"]
+    tight = plan_cell_grid(lj["cell"], lj["cutoff"], lj["pos"].shape[0], capacity_factor=1.05)
+    (_, _, _, _, ne), _ = compare(f"overflow (capacity_factor 1.05, capacity {tight[1]})",
+                                  build(lj, tight), poisoned=True)
+    if int(ne) <= lj["max_edges"]:
+        raise AssertionError("cell_list: an overflowing cell did not poison n_edges")
+    _bit_stable(torch, "cell_list", lambda: torch.cat(
+        [t.reshape(-1).float() for t in build(systems["lj"])()]))
+    log("  two launches on the same inputs: bit-identical")
+    # the same edges as the dense build on the MLIP MD cell
+    m = systems["mlip"]
+    s, r, sh, em, ne = outs["mlip"]
+    ds, dr, dsh, dem, dne = dynamic_radius_graph(
+        torch.from_numpy(m["pos"]).to(dev), m["cutoff"], m["max_edges"],
+        cell=torch.from_numpy(m["cell"]).to(dev), pbc=torch.from_numpy(m["pbc"]).to(dev))
+    k = int(ne)
+    cell_pairs = {(a, b): i for i, (a, b) in enumerate(zip(s[:k].tolist(), r[:k].tolist()))}
+    dense_pairs = {(a, b): i for i, (a, b) in enumerate(zip(ds[:k].tolist(), dr[:k].tolist()))}
+    same = int(dne) == k and set(cell_pairs) == set(dense_pairs)
+    if same:
+        order = torch.tensor([cell_pairs[p] for p in dense_pairs], device=dev)
+        shift_err = float((sh[order] - dsh[:k]).abs().max())
+        same = shift_err <= 1e-6
+    log(f"  edge set vs the dense build ({m['pos'].shape[0]}-atom MLIP cell): {k} edges, "
+        f"{'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("cell_list: the edge set differs from the dense build's")
+    entry = {"name": "cell_list", "route": "cuda",
+             "source": "hydragnn_tpu_torch/csrc/cell_list.cu",
+             "replaces": "hydragnn_tpu/ops/fused_cell_list.py:90", "launches": 0,
+             "max_abs_err": max(errs), "library_ms": None}
+    if not timing:
+        return entry
+    # device time per call at both systems: the kernel's two launches with
+    # the on-device cumsum between them, against the plain version's
+    # candidate matrix and nonzero (which waits for the host: timed by
+    # events around back-to-back calls); the whole build (prelude, pairs,
+    # epilogue) beside them
+    times = {}
+    for key in ("lj", "mlip"):
+        sys_ = systems[key]
+        grid, cap = sys_["plan"]
+        pos = torch.from_numpy(sys_["pos"]).to(dev)
+        cellm, inv, pbcf = fcl.geometry(torch.from_numpy(sys_["cell"]).to(dev),
+                                        torch.from_numpy(sys_["pbc"]).to(dev), pos.dtype, dev)
+        n_cells = grid[0] * grid[1] * grid[2]
+        idx3, order, cs, start, occ = fcl._prelude(pos, cellm, inv, pbcf, grid, n_cells)
+        args = (pos, sys_["cutoff"], sys_["max_edges"], cellm, inv, pbcf, grid, cap, idx3,
+                order)
+
+        def md_build(pos=pos, sys_=sys_, geo=(cellm, inv, pbcf), grid=grid, cap=cap):
+            # the whole build as an MD loop runs it, the cell's geometry
+            # computed once beforehand
+            return fcl.cell_list_edges(pos, sys_["cutoff"], sys_["max_edges"], geo, grid, cap,
+                                       pad_id=pos.shape[0] - 1)
+        t = dict(
+            ms=graph_time_ms(torch, lambda: fcl._kernel_cell_pairs(*args, start, occ)),
+            plain_ms=event_time_ms(torch, lambda: fcl.plain_cell_pairs(*args, cs),
+                                   iters=10, reps=3),
+            build_ms=graph_time_ms(torch, md_build),
+        )
+        with _plain_versions_on_card():
+            t["plain_build_ms"] = event_time_ms(torch, md_build, iters=10, reps=3)
+        # the work this run's data needs: every candidate pair tested once
+        # (~48 fp32 operations: two 3 x 3 products, three roundings, the
+        # displacement and d^2), each input read once (positions, cell
+        # coordinates, sort order: 28 B per atom; the cell table: 8 B per
+        # cell), each edge written once (8 B)
+        n = pos.shape[0]
+        offs = torch.as_tensor(fcl._CELL_OFFSETS, device=dev)
+        g = torch.tensor(grid, device=dev)
+        nbr = idx3[:, None, :] + offs[None]
+        valid = ((pbcf > 0) | ((nbr >= 0) & (nbr < g))).all(-1)
+        w = torch.remainder(nbr, g)
+        ncid = (w[..., 0] * grid[1] + w[..., 1]) * grid[2] + w[..., 2]
+        candidates = int((torch.clamp(occ[ncid.long()], max=cap) * valid).sum())
+        edges = min(int(outs[key][4]), sys_["max_edges"])
+        t["bytes"] = 28 * n + 8 * n_cells + 8 * edges + 21 * 4
+        t["ops"] = 48 * candidates
+        t["shape"] = (f"{n} atoms, grid {grid}, capacity {cap}, {candidates} candidate pairs, "
+                      f"{edges} edges")
+        times[key] = t
+        log(f"  {key} @ {t['shape']}: kernel (2 launches + cumsum) {t['ms'] * 1e3:.2f} us, "
+            f"plain (candidate matrix + nonzero, host-synchronising) {t['plain_ms'] * 1e3:.2f} "
+            f"us; whole build: kernel route {t['build_ms'] * 1e3:.2f} us (CUDA-graph replay: "
+            f"nothing waits for the host), plain route {t['plain_build_ms'] * 1e3:.2f} us; "
+            f"bound {max(t['bytes'] / HBM_BYTES_PER_S, t['ops'] / FP32_FLOPS) * 1e6:.3f} us "
+            f"({t['bytes']} B, {t['ops']} fp32 operations); one-call PyTorch: none (no single "
+            f"call builds a periodic radius graph)")
+    t = times["lj"]  # the JSON row: the larger system
+    t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = t["ops"] / FP32_FLOPS * 1e3
+    entry.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations", shape=t["shape"],
+                 build_ms=t["build_ms"], plain_build_ms=t["plain_build_ms"],
+                 mlip_system={k: times["mlip"][k] for k in ("ms", "plain_ms", "build_ms",
+                                                            "plain_build_ms", "shape")})
+    return entry
+
+
+# -- phase 8: MLIP training --------------------------------------------------------
+
+
+def mlip_config(epochs: int) -> dict:
+    """``bench.py``'s ``oc20`` row: ``MLIP_CONFIG`` with radius 5.0 and
+    ``max_neighbours`` 40, fp32, batch 64, ``num_epoch`` cut to ``epochs``."""
+    cfg = copy.deepcopy(MLIP_CONFIG)
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+    return cfg
+
+
+def mlip_samples(n: int = MLIP_SAMPLES, seed: int = 11):
+    """``bench_oc20``'s data: periodic 64-atom LJ cells."""
+    from hydragnn_tpu_torch.datasets import lennard_jones_data
+
+    return lennard_jones_data(number_configurations=n, cells_per_dim=4, radius=5.0,
+                              max_neighbours=40, relative_maximum_atomic_displacement=0.05,
+                              seed=seed)
+
+
+def mlip_launches_per_step(layers: int) -> dict:
+    """Kernel launches of one MLIP train step of an EGNN with ``layers``
+    conv layers (the last without coordinate update), all segment sums: the
+    forward's ``2 L`` (L aggregations, L - 1 coordinate updates, the
+    pooling); the force backward's ``4 L - 2`` (the gathers' backward: two
+    of positions per layer, two of features on layers 1..L-1); the loss
+    backward the same two sets again (the forward's gathers, and the
+    gathers that are the force backward's segment sums)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["segment_sum"] = 2 * (2 * layers + 4 * layers - 2)
+    return want
+
+
+def mlip_launches_per_md_step(layers: int) -> dict:
+    """One MLIP MD step: one cell-list build, the energy's ``2 L`` segment
+    sums and the force backward's ``4 L - 2``."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["segment_sum"] = 6 * layers - 2
+    want["cell_list"] = 1
+    return want
+
+
+def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS,
+                        n_samples: int = MLIP_SAMPLES, card: str = "") -> dict:
+    """``run_training`` of the oc20 EGNN MLIP (fp32): falling train loss,
+    launch counts, one fp32 MLIP step against the fp64 CPU step, where a
+    step's time goes and the device's busy share."""
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.models.mlip import (energy_force_loss, graph_energy,
+                                                make_mlip_train_step)
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.train.step import cast_forward, optimizer_step
+
+    cfg = mlip_config(epochs)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    layers = int(arch["num_conv_layers"])
+    loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=mlip_samples(n_samples))
+    n_train, n_val, n_test = (len(ld) for ld in loaders)
+    log(f"[mlip] training: run_training on bench.py's oc20 EGNN MLIP (hidden "
+        f"{arch['hidden_dim']} x {layers} conv layers, equivariance on, silu, add pooling, "
+        f"energy weight 1, force weight 10, fp32, batch 64, AdamW lr 1e-3), num_epoch cut to "
+        f"{epochs} (the only cut), {n_samples} periodic 64-atom LJ cells: {n_train} train / "
+        f"{n_val} val / {n_test} test batches per epoch, seed {seed}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        history: list = []
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        state, model, aug = run_training(copy.deepcopy(cfg), samples=mlip_samples(n_samples),
+                                         device=device, path=tmp, seed=seed, history=history)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+    launches = dict(fs.LAUNCHES)
+    losses = [h["train_loss"] for h in history]
+    log(f"[{card}] [mlip] run_training: {len(history)} epochs, {state.step} train steps in "
+        f"{wall:.3f} s (epochs {[round(h['seconds'], 3) for h in history]} s); train loss per "
+        f"epoch {[round(x, 3) for x in losses]}; val loss "
+        f"{[round(h['val_loss'], 3) for h in history]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MLIP training: the train loss did not fall: {losses}")
+    per_step = mlip_launches_per_step(layers)
+    per_eval = dict(per_step, segment_sum=6 * layers - 2)  # no second derivative
+    want = _added(_scaled(per_step, state.step), _scaled(per_eval, len(history) * (n_val + n_test)))
+    log(f"[mlip] launches during run_training: {launches} (expected {want}: per train step "
+        f"{ {k: v for k, v in per_step.items() if v} }, per eval batch "
+        f"{ {k: v for k, v in per_eval.items() if v} })")
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"MLIP training: launch counts {launches} != {want}")
+
+    train_ld = loaders[0]
+    host = collate(train_ld.samples[:64], train_ld.pad)
+    step = make_mlip_train_step(model, torch.float32)
+    fs.reset_launches()
+    step(state, host.to(device))
+    _sync(torch, device)
+    one_step = dict(fs.LAUNCHES)
+    log(f"[mlip] launches of one MLIP train step: {one_step} (expected {per_step})")
+    if device == "cuda" and one_step != per_step:
+        raise AssertionError(f"MLIP training: one step launched {one_step} != {per_step}")
+
+    _step_vs_cpu(torch, aug, host, device, seed, mlip=True)
+
+    # where an MLIP train step's time goes (median of 10, host clock after a
+    # synchronise, each step on a fresh device batch)
+    reps = 10
+    parts: dict = {k: [] for k in ("to_device", "forward", "force_backward", "loss_backward",
+                                   "step")}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        _sync(torch, device)
+        parts[key].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    spec = model.spec
+    for _ in range(reps):
+        b = timed("to_device", lambda: host.to(device))
+        pos = b.pos.detach().requires_grad_(True)
+        bp = b.replace(pos=pos)
+        ge = timed("forward", lambda: graph_energy(spec, cast_forward(
+            model, bp, torch.float32, train=True)[0], b))
+        (gp,) = timed("force_backward", lambda: torch.autograd.grad(ge.sum(), pos,
+                                                                     create_graph=True))
+        tot, tasks = energy_force_loss(spec, ge, -gp * b.node_mask[:, None], b)
+        timed("loss_backward", lambda: optimizer_step(state, b, tot, tasks))
+    for b in [host.to(device) for _ in range(reps)]:
+        timed("step", lambda: step(state, b))
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    log(f"[{card}] [mlip] one fp32 MLIP train step (64 cells, N={host.num_nodes}, "
+        f"E={host.num_edges}; median of {reps}, host clock): to device {med['to_device']:.3f} ms, "
+        f"forward (energy) {med['forward']:.3f} ms, force backward (create_graph) "
+        f"{med['force_backward']:.3f} ms, loss backward + AdamW {med['loss_backward']:.3f} ms; "
+        f"whole train step {med['step']:.3f} ms")
+    if device == "cuda":
+        _profile_steps(torch, step, state, host, device, f"[{card}] [mlip]")
+    return {"launches": launches, "per_step": one_step, "breakdown": med, "model": model,
+            "aug": aug, "layers": layers}
+
+
+# -- phase 9: molecular dynamics ----------------------------------------------------
+
+
+def _drift(traj, init_state, masses) -> float:
+    from hydragnn_tpu_torch.md import kinetic_energy
+
+    e = [float(init_state.energy) + float(kinetic_energy(init_state.vel, masses))]
+    e += [float(p) + float(kinetic_energy(v, masses)) for p, v in zip(traj.energy, traj.vel)]
+    return abs(e[-1] - e[0]) / max(abs(e[0]), 1e-9)
+
+
+def _md_breakdown(torch, device, potential, energy_fn, state, step, masses, dt, reps=10):
+    """ms of one MD step's parts (median of ``reps``, host clock after a
+    synchronise): the neighbour build, the energy, the force backward and
+    the integration; and of whole steps back to back."""
+    from hydragnn_tpu_torch.md import _wrap_positions
+
+    parts: dict = {k: [] for k in ("build", "energy", "force_backward", "integration")}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        _sync(torch, device)
+        parts[key].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    m = torch.as_tensor(masses, device=state.pos.device).reshape(-1, 1)
+    for _ in range(reps):
+        graph = timed("build", lambda: potential.build(state.pos))
+        p = state.pos.detach().requires_grad_(True)
+        with torch.enable_grad():
+            e = timed("energy", lambda: energy_fn(p, *graph[:4]))
+            timed("force_backward", lambda: torch.autograd.grad(e, p))
+        with torch.no_grad():
+            timed("integration", lambda: _wrap_positions(
+                state.pos + dt * (state.vel + 0.5 * dt * state.forces / m),
+                potential.geometry(state.pos)))
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    s = state
+    for _ in range(reps):
+        s = step(s)
+    _sync(torch, device)
+    med["step"] = (time.perf_counter() - t0) * 1e3 / reps
+    return med
+
+
+def _forces_vs_plain(torch, device: str, potential, init, pos, vel, n_rows: int,
+                     label: str) -> float:
+    """One MD state's forces on ``device`` through the kernels (B5's
+    neighbour build, B2 in the energy and the force backward) against the
+    same state's with every kernel swapped for its plain version, on the
+    same positions at the path's own shapes: ``n_edges`` equal, max |dF|
+    within ``MD_RTOL`` of max |F|. Before that, B2 alone over the build's
+    sender and receiver ids (pad slots included) into ``n_rows`` rows, on
+    random fp32 ``[max_edges, 3]`` rows, against its plain version on the
+    same rows in fp64: the plain version's fp32 sums go through
+    ``index_add_``'s atomics, which over the LJ pad row's ~427k terms miss
+    the exact sum by ~1e-2 of ~650 (more than the fp32 tolerance), from
+    call to call. Returns the forces' ratio."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    s, r = potential.build(pos)[:2]
+    gen = torch.Generator(device=pos.device).manual_seed(0)
+    data = torch.randn((s.shape[0], 3), generator=gen, device=pos.device)
+    for ids_name, ids in (("senders", s), ("receivers", r)):
+        got = fs.fused_segment_sum(data, ids, n_rows)
+        with _plain_versions_on_card():
+            want = fs.fused_segment_sum(data.double(), ids, n_rows)
+        _compare(torch, f"{label}: segment_sum over the build's {ids_name} ({s.shape[0]} ids "
+                 f"into {n_rows} rows)", got, want, n_rows, "float32")
+    before = dict(fs.LAUNCHES)
+    got = init(pos, vel)
+    _sync(torch, device)
+    if device == "cuda" and any(fs.LAUNCHES[k] <= before[k] for k in ("cell_list",
+                                                                        "segment_sum")):
+        raise AssertionError(f"{label}: the forces did not go through B5 and B2")
+    with _plain_versions_on_card():
+        want = init(pos, vel)
+    scale = float(want.forces.abs().max())
+    err = float((got.forces - want.forces).abs().max())
+    ratio = err / scale if scale > 0 else float("inf")
+    same_edges = int(got.n_edges) == int(want.n_edges)
+    log(f"  {label}: forces through the kernels vs the plain versions on the same state: "
+        f"n_edges {int(got.n_edges)} (plain {int(want.n_edges)}), max|dF| {err:.3e} of max|F| "
+        f"{scale:.3e} ({ratio:.2e}; allowed {MD_RTOL:.0e}), |dE| "
+        f"{abs(float(got.energy) - float(want.energy)):.3e} of |E| {abs(float(want.energy)):.3e}")
+    if not same_edges or not ratio <= MD_RTOL:
+        raise AssertionError(f"{label}: the forces through the kernels miss the plain versions'")
+    return ratio
+
+
+def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = "",
+             lj_steps: int = LJ_MD_STEPS, mlip_steps: int = MLIP_MD_STEPS,
+             cpu_steps: int = MD_CPU_STEPS) -> dict:
+    """Both MD systems through ``md.run_md`` (NVE, neighbour list rebuilt
+    every step): the first forces against the plain versions', finite, no
+    overflow, drift, ms per step and its parts, launches per step; MLIP MD
+    also against the port's CPU route (the first forces; velocities and
+    positions after the first steps, which must move the atoms) and
+    bit-identical over two runs."""
+    from hydragnn_tpu_torch import md
+    from hydragnn_tpu_torch.graphs.batching import PadSpec, collate
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    dev = torch.device(device)
+    out = {}
+
+    # analytic LJ, 8,000 atoms, the cell list
+    lj = systems["lj"]
+    n = lj["pos"].shape[0]
+    masses = np.ones(n, np.float32)
+    kw = dict(cell=lj["cell"], pbc=lj["pbc"], neighbor="cell")
+    init, step = md.make_md_step(lj_energy(torch), masses, LJ_MD_DT, lj["cutoff"],
+                                 lj["max_edges"], **kw)
+    pos0, vel0 = torch.from_numpy(lj["pos"]).to(dev), torch.from_numpy(lj["vel"]).to(dev)
+    state0 = init(pos0, vel0)
+    potential, pinit = md._make_potential_and_init(lj_energy(torch), lj["cutoff"],
+                                                   lj["max_edges"], lj["cell"], lj["pbc"], n - 1,
+                                                   neighbor="cell")
+    _forces_vs_plain(torch, device, potential, pinit, pos0, vel0, n,
+                     f"[md] analytic LJ ({n} atoms)")
+    fs.reset_launches()
+    step(state0)
+    _sync(torch, device)
+    per_step = dict(fs.LAUNCHES)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(cell_list=1, segment_sum=2)  # the build; the two gathers' backward
+    if device == "cuda" and per_step != want:
+        raise AssertionError(f"LJ MD: one step launched {per_step} != {want}")
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    final, traj = md.run_md(lj_energy(torch), pos0, vel0, masses, LJ_MD_DT, lj_steps,
+                            lj["cutoff"], lj["max_edges"], record_every=10, **kw)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches_lj = dict(fs.LAUNCHES)
+    finite = bool(torch.isfinite(traj.pos).all()) and bool(torch.isfinite(traj.energy).all())
+    peak = int(final.max_n_edges)
+    drift = _drift(traj, state0, masses)
+    med = _md_breakdown(torch, device, potential, lj_energy(torch), final, step, masses,
+                        LJ_MD_DT)
+    log(f"[{card}] [md] analytic LJ: {n} atoms (spacing 2.2, cutoff {lj['cutoff']}, grid "
+        f"{lj['plan'][0]}, capacity {lj['plan'][1]}, max_edges {lj['max_edges']}), {lj_steps} "
+        f"NVE steps (dt {LJ_MD_DT}) in {wall:.3f} s = {1e3 * wall / lj_steps:.3f} ms per step "
+        f"(run_md, one step per host dispatch, the launch-count step and set-up excluded); "
+        f"finite {finite}, peak neighbours {peak} <= {lj['max_edges']}, relative total-energy "
+        f"drift {drift:.3e}; launches per step {per_step}, in the run {launches_lj}; one step's "
+        f"parts (median of 10, host clock): build {med['build']:.3f} ms, energy "
+        f"{med['energy']:.3f} ms, force backward {med['force_backward']:.3f} ms, integration "
+        f"{med['integration']:.3f} ms; steps back to back {med['step']:.3f} ms each")
+    if not finite or peak > lj["max_edges"]:
+        raise AssertionError("LJ MD: trajectory not finite or the edge buffer overflowed")
+    out["lj"] = {"launches": launches_lj, "ms_per_step": 1e3 * wall / lj_steps, "drift": drift,
+                 "breakdown": med}
+
+    # the trained EGNN on the 1,000-atom cell
+    m = systems["mlip"]
+    n = m["pos"].shape[0]
+    masses = np.ones(n, np.float32)
+    pad = PadSpec(n_node=n + 8, n_edge=m["max_edges"], n_graph=2)
+    host_template = collate([m["sample"]], pad)
+    kw = dict(cell=m["cell"], pbc=m["pbc"], pad_id=pad.n_node - 1)
+
+    def roll(model_, dev_, steps):
+        energy_fn = md.mlip_energy_fn(model_, host_template.to(dev_))
+        init_, _ = md.make_md_step(energy_fn, masses, MLIP_MD_DT, m["cutoff"], m["max_edges"],
+                                   **kw)
+        p0 = torch.from_numpy(m["pos"]).to(dev_)
+        v0 = torch.from_numpy(m["vel"]).to(dev_)
+        s0 = init_(p0, v0)
+        final_, traj_ = md.run_md(energy_fn, p0, v0, masses, MLIP_MD_DT, steps, m["cutoff"],
+                                  m["max_edges"], record_every=10 if steps % 10 == 0 else 1,
+                                  **kw)
+        return s0, final_, traj_, energy_fn
+
+    model.eval()
+    energy_fn = md.mlip_energy_fn(model, host_template.to(dev))
+    init, step = md.make_md_step(energy_fn, masses, MLIP_MD_DT, m["cutoff"], m["max_edges"],
+                                 **kw)
+    pos0, vel0 = torch.from_numpy(m["pos"]).to(dev), torch.from_numpy(m["vel"]).to(dev)
+    state0 = init(pos0, vel0)
+    potential, pinit = md._make_potential_and_init(energy_fn, m["cutoff"], m["max_edges"],
+                                                   m["cell"], m["pbc"], pad.n_node - 1)
+    _forces_vs_plain(torch, device, potential, pinit, pos0, vel0, pad.n_node,
+                     f"[md] MLIP ({n} atoms)")
+    fs.reset_launches()
+    step(state0)
+    _sync(torch, device)
+    per_step = dict(fs.LAUNCHES)
+    want = mlip_launches_per_md_step(layers)
+    if device == "cuda" and per_step != want:
+        raise AssertionError(f"MLIP MD: one step launched {per_step} != {want}")
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    s0, final, traj, _ = roll(model, dev, mlip_steps)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    launches_mlip = dict(fs.LAUNCHES)
+    finite = bool(torch.isfinite(traj.pos).all()) and bool(torch.isfinite(traj.energy).all())
+    peak = int(final.max_n_edges)
+    drift = _drift(traj, s0, masses)
+    # a second run: bit for bit the same trajectory (no atomics anywhere)
+    _, final2, traj2, _ = roll(model, dev, mlip_steps)
+    identical = torch.equal(final.pos, final2.pos) and torch.equal(traj.energy, traj2.energy)
+    # the port's CPU route from the same weights: the first state's forces,
+    # then the velocities and positions after the first steps
+    cpu_s0, cpu_final, _, _ = roll(copy.deepcopy(model).cpu(), torch.device("cpu"), cpu_steps)
+    dev_s0, dev_final, _, _ = roll(model, dev, cpu_steps)
+
+    def rel(a, b):
+        scale = float(b.abs().max())
+        return float((a.cpu() - b).abs().max()) / scale if scale > 0 else float("inf")
+
+    force_rel = rel(dev_s0.forces, cpu_s0.forces)
+    vel_rel = rel(dev_final.vel, cpu_final.vel)
+    cpu_err = float((dev_final.pos.cpu() - cpu_final.pos).abs().max())
+    # how far the atoms moved, by minimum image (the integrator wraps them)
+    step_disp = dev_final.pos.cpu() - torch.from_numpy(m["pos"])
+    box = torch.from_numpy(m["cell"]).diagonal()
+    moved = float((step_disp - box * torch.round(step_disp / box)).abs().max())
+    med = _md_breakdown(torch, device, potential, energy_fn, final, step, masses, MLIP_MD_DT)
+    log(f"[{card}] [md] MLIP: the trained EGNN on {n} atoms (box {m['cell'][0, 0]:.1f} A, "
+        f"cutoff {m['cutoff']}, grid {m['plan'][0]}, capacity {m['plan'][1]}, template "
+        f"{pad!r}), {mlip_steps} NVE steps (dt {MLIP_MD_DT}) in {wall:.3f} s = "
+        f"{1e3 * wall / mlip_steps:.3f} ms per step; finite {finite}, peak neighbours {peak} <= "
+        f"{m['max_edges']}, relative total-energy drift {drift:.3e}; two runs bit-identical "
+        f"{identical}; vs the CPU route: first state's max|dF| {force_rel:.2e} of max|F| "
+        f"(allowed {MD_RTOL:.0e}), after {cpu_steps} steps max|dv| {vel_rel:.2e} of max|v| "
+        f"(allowed {MD_RTOL:.0e}) and max|pos diff| {cpu_err:.3e} A (allowed {MD_POS_TOL:.0e}; "
+        f"the atoms moved up to {moved:.3e} A, at least {10 * MD_POS_TOL:.0e} required); "
+        f"launches per step {per_step} (expected {want}), in the run "
+        f"{launches_mlip}; one step's parts (median of 10, host clock): build "
+        f"{med['build']:.3f} ms, energy {med['energy']:.3f} ms, force backward "
+        f"{med['force_backward']:.3f} ms, integration {med['integration']:.3f} ms; steps back "
+        f"to back {med['step']:.3f} ms each")
+    if not finite or peak > m["max_edges"]:
+        raise AssertionError("MLIP MD: trajectory not finite or the edge buffer overflowed")
+    if not identical:
+        raise AssertionError("MLIP MD: two runs from the same state differ")
+    if not (force_rel <= MD_RTOL and vel_rel <= MD_RTOL and cpu_err <= MD_POS_TOL):
+        raise AssertionError(f"MLIP MD: the card's forces or first {cpu_steps} steps miss the "
+                             f"CPU route's (forces {force_rel:.2e}, velocities {vel_rel:.2e} "
+                             f"relative, positions {cpu_err:.3e} A)")
+    if not moved >= 10 * MD_POS_TOL:
+        raise AssertionError(f"MLIP MD: the atoms moved {moved:.3e} A in {cpu_steps} steps, too "
+                             f"little for the {MD_POS_TOL:.0e} A comparison to see the forces")
+    out["mlip"] = {"launches": launches_mlip, "ms_per_step": 1e3 * wall / mlip_steps,
+                   "drift": drift, "breakdown": med}
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1364,22 +2164,39 @@ def main(argv=None) -> int:
     _, _, loaders, samples = prepare(args.seed)
     n_max = update_config(qm9_config("gps"), loaders[0].samples)[
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
-    entries, kernel_times = kernel_phase(torch, *bucket_batches(loaders, samples), n_max=n_max)
+    top, small = bucket_batches(loaders, samples)
+    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max)
+    second_derivative_phase(torch, top)
     served, trained = {}, {}
     for kind in MODELS:
         served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
         trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
                                        card=dev["smi"])
     canary_phase(torch, "cuda", card=dev["smi"])
+    mlip = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"])
+    systems = md_systems(mlip["aug"], args.seed)
+    entries.append(cell_list_phase(torch, systems))
+    ran_md = md_phase(torch, "cuda", systems, mlip["model"], mlip["layers"], card=dev["smi"])
     for e in entries:
         name = e["name"]
-        # launches: the three training runs (run_training) together; the
-        # serving runs' counts and the per-model rates beside them
-        e["launches"] = sum(trained[k]["launches"][name] for k in MODELS)
+        # launches: the main paths' runs together (the three qm9.json
+        # run_training runs, the MLIP run_training run, the two MD
+        # rollouts); the serving runs' counts and the per-model rates beside
+        # them
+        e["launches"] = (sum(trained[k]["launches"][name] for k in MODELS)
+                         + mlip["launches"][name]
+                         + sum(r["launches"][name] for r in ran_md.values()))
+        e["launches_mlip_run_training"] = mlip["launches"][name]
+        e["launches_md"] = {k: r["launches"][name] for k, r in ran_md.items()}
+        if name == "cell_list":
+            if any(r["launches"][name] <= 0 for r in ran_md.values()):
+                raise AssertionError("cell_list was not launched on an MD path")
+            continue
         e["launches_serving"] = sum(served[k]["launches"][name] for k in MODELS)
         e["launches_per_served_batch"] = {
             k: served[k]["launches"][name] / served[k]["batches"] for k in MODELS}
         e["launches_per_train_step"] = {k: trained[k]["per_step"][name] for k in MODELS}
+        e["launches_per_train_step"]["mlip"] = mlip["per_step"][name]
         for kind in MODELS:
             layers = trained[kind]["layers"]
             if launches_per_train_step(kind, layers)[name] and \

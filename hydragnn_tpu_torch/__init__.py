@@ -3,9 +3,10 @@
 Plain tensor code is PyTorch; every kernel the JAX package wrote in Pallas
 for the TPU is a hand-written CUDA kernel here (``csrc/``), built with nvcc
 at first use. Entry points run on the card unless the caller passes
-``device="cpu"``.
+``device="cpu"``. On-device molecular dynamics is ``hydragnn_tpu_torch.md``.
 """
 
+from . import md  # noqa: F401
 from .config import load_config, update_config  # noqa: F401
 from .models import create_model, create_model_config  # noqa: F401
 from .run_prediction import run_prediction  # noqa: F401
@@ -19,6 +20,7 @@ __all__ = [
     "create_model",
     "create_model_config",
     "load_config",
+    "md",
     "run_prediction",
     "run_training",
     "update_config",

@@ -5,9 +5,10 @@ paths need it: ``load_config``, ``update_config`` (default filling,
 multibranch head normalisation, output dims/types from the ``Dataset``
 feature dims, input dim, the GPS defaults and GPS's dense-attention width
 ``max_graph_nodes``) and the typed ``ModelSpec`` view the model factory
-reads. The derivations for other conv stacks (PNA degrees, MACE neighbour
-counts, edge features) and the blocks of subsystems the port does not have
-yet come with their slices.
+reads, with the interatomic-potential (MLIP) keys and the ``MD`` block
+(validated against ``md.MDConfig``). The derivations for other conv stacks
+(PNA degrees, MACE neighbour counts, edge features) and the blocks of
+subsystems the port does not have yet come with their slices.
 """
 
 from __future__ import annotations
@@ -66,6 +67,21 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     ServingConfig.from_config(config).validate()
     for key, val in serving_config_defaults().items():
         serving_cfg.setdefault(key, val)
+
+    # on-device MD (md.py): the MD block's defaults are the MDConfig field
+    # defaults, and MDConfig validates it
+    md_cfg = config.setdefault("MD", {})
+    if not isinstance(md_cfg, dict):
+        raise ValueError(f"MD must be a dict, got {type(md_cfg).__name__}")
+    from ..md import MDConfig, md_config_defaults
+
+    MDConfig.from_config(config)  # unknown keys and ranges
+    for key, val in md_config_defaults().items():
+        md_cfg.setdefault(key, val)
+
+    arch.setdefault("enable_interatomic_potential", False)
+    if arch.get("edge_features") and arch.get("enable_interatomic_potential"):
+        raise ValueError("Edge features cannot be used with interatomic potentials.")
 
     # GPS defaults; the dense-attention width (8-aligned) is derived from
     # the largest training graph unless the user set it
@@ -148,11 +164,20 @@ class ModelSpec:
     global_attn_heads: int = 0
     max_graph_nodes: int | None = None  # GPS dense-attention width
     pe_dim: int = 0  # Laplacian positional encodings per node (GPS)
+    equivariance: bool | None = None  # EGNN coordinate updates
+    # interatomic potentials: energy head, forces from the position gradient
+    enable_interatomic_potential: bool = False
+    energy_weight: float = 0.0
+    energy_peratom_weight: float = 0.0
+    force_weight: float = 0.0
     # read only to refuse what this slice of the port does not run
     edge_dim: int = 0
     use_graph_attr_conditioning: bool = False
-    enable_interatomic_potential: bool = False
     var_output: bool = False
+
+    @property
+    def num_heads(self) -> int:
+        return len(self.output_dim)
 
     @staticmethod
     def from_config(config: dict) -> "ModelSpec":
@@ -202,9 +227,13 @@ class ModelSpec:
             global_attn_heads=int(arch.get("global_attn_heads") or 0),
             max_graph_nodes=arch.get("max_graph_nodes") or None,
             pe_dim=int(arch.get("pe_dim") or 0),
+            equivariance=arch.get("equivariance"),
+            enable_interatomic_potential=bool(arch.get("enable_interatomic_potential", False)),
+            energy_weight=float(arch.get("energy_weight", 0.0)),
+            energy_peratom_weight=float(arch.get("energy_peratom_weight", 0.0)),
+            force_weight=float(arch.get("force_weight", 0.0)),
             edge_dim=int(arch.get("edge_dim") or len(arch.get("edge_features") or [])),
             use_graph_attr_conditioning=bool(arch.get("use_graph_attr_conditioning", False)),
-            enable_interatomic_potential=bool(arch.get("enable_interatomic_potential", False)),
             var_output=training.get("loss_function_type") == "GaussianNLLLoss",
         )
 

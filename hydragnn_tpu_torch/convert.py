@@ -14,8 +14,12 @@ flax (``params`` / ``batch_stats``)   port module
 ``graph_convs_{i}/norm{1,2,3}``       ``graph_convs[i].norm{1,2,3}`` (GPS)
 ``graph_convs_{i}/mlp_{0,1}``         ``graph_convs[i].mlp_{0,1}`` (GPS)
 ``graph_convs_{i}/local_proj``        ``graph_convs[i].local_proj`` (GPS)
+``graph_convs_{i}/edge_mlp/...``      ``graph_convs[i].edge_mlp...`` (EGNN)
+``graph_convs_{i}/coord_mlp_mlp_0``   ``graph_convs[i].coord_mlp_mlp_0`` (EGNN)
+``graph_convs_{i}/coord_mlp_mlp_out`` ``graph_convs[i].coord_mlp_mlp_out`` (EGNN)
+``graph_convs_{i}/node_mlp/...``      ``graph_convs[i].node_mlp...`` (EGNN)
 ``{pos_emb,node_emb,node_lin}``       ``{pos_emb,node_emb,node_lin}`` (GPS)
-``feature_norm_{i}/{scale,bias}``     ``feature_layers[i].{scale,bias}``
+``feature_norm_{i}/{scale,bias}``     ``feature_layers[i].{scale,bias}`` (none under EGNN)
 ``feature_norm_{i}/{mean,var}``       ``feature_layers[i].{mean,var}``
 ``graph_shared_{branch}/dense_{j}``   ``graph_shared[branch].dense_{j}``
 ``head{k}_{branch}/dense_{j}``        ``heads_NN[k][branch].dense_{j}``

@@ -11,11 +11,14 @@ the per-head squared errors. Module names follow the flax ones (``graph_convs[i]
 ``graph_shared[b]`` is ``graph_shared_{b}``, ``heads_NN[k][b]`` is
 ``head{k}_{b}``), so ``convert.load_jax_variables`` maps one onto the other.
 
+The EGNN stack carries positions through the layers as ``equiv``
+and has no feature norm (a conv class with ``feature_norm = False`` gets no
+norm layer); it is the MLIP path's model (``models/mlip.py``).
+
 Not in this slice (they raise ``NotImplementedError``): other conv stacks,
-GAT's edge features, GPS around another conv than GIN and its ring and
-performer attention, variance outputs, graph-attribute conditioning,
-``mlp_per_node`` and ``conv`` node heads, multibranch heads, interatomic
-potentials.
+GAT's and EGNN's edge features, GPS around another conv than GIN and its
+ring and performer attention, variance outputs, graph-attribute
+conditioning, ``mlp_per_node`` and ``conv`` node heads, multibranch heads.
 """
 
 from __future__ import annotations
@@ -27,10 +30,11 @@ from ..config.schema import ModelSpec
 from ..graphs import segment
 from ..graphs.graph import GraphBatch
 from .common import MLP, Dense, MaskedBatchNorm, get_activation, get_loss
+from .egnn import EGNNConv
 from .gat import GATConv
 from .gin import GINConv
 
-CONV_REGISTRY = {"GIN": GINConv, "GAT": GATConv}
+CONV_REGISTRY = {"GIN": GINConv, "GAT": GATConv, "EGNN": EGNNConv}
 
 
 def head_columns(spec: ModelSpec) -> list[tuple[str, int, int]]:
@@ -55,8 +59,9 @@ def check_spec(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for what this slice of the port lacks."""
     if spec.mpnn_type not in CONV_REGISTRY:
         raise _not_in_slice(f"mpnn_type {spec.mpnn_type!r}", "a later slice (other conv stacks)")
-    if spec.mpnn_type == "GAT" and spec.edge_dim:
-        raise _not_in_slice("GAT with edge features (lin_edge)", "a later slice (edge features)")
+    if spec.mpnn_type in ("GAT", "EGNN") and spec.edge_dim:
+        what = {"GAT": "GAT with edge features (lin_edge)", "EGNN": "EGNN with edge features"}
+        raise _not_in_slice(what[spec.mpnn_type], "a later slice (edge features)")
     if spec.global_attn_engine:
         if spec.global_attn_engine != "GPS":
             raise ValueError(f"unknown global_attn_engine {spec.global_attn_engine!r}")
@@ -74,8 +79,6 @@ def check_spec(spec: ModelSpec) -> None:
         raise _not_in_slice("variance outputs (GaussianNLLLoss)", "a later slice")
     if spec.use_graph_attr_conditioning:
         raise _not_in_slice("graph-attribute conditioning", "a later slice")
-    if spec.enable_interatomic_potential:
-        raise _not_in_slice("interatomic potentials (MLIP)", "a later slice")
     if len(spec.graph_heads) > 1 or len(spec.node_heads) > 1:
         raise _not_in_slice("multibranch heads", "a later slice")
     for b in spec.node_heads:
@@ -111,9 +114,10 @@ class HydraModel(nn.Module):
             conv_cls(spec, i, widths[i], generator=generator)
             for i in range(spec.num_conv_layers)
         ])
+        # flax's feature_norm_{i}; a stack without feature norm (EGNN) has none
         self.feature_layers = nn.ModuleList([
             MaskedBatchNorm(widths[i + 1]) for i in range(spec.num_conv_layers)
-        ])
+        ] if getattr(conv_cls, "feature_norm", True) else [])
         hidden = widths[-1]
         self.graph_shared = nn.ModuleDict()
         shared_out = {}
@@ -157,7 +161,8 @@ class HydraModel(nn.Module):
         """Conv layer ``i`` + feature norm (batch statistics in train mode)
         + activation. ``generator`` draws the dropout masks in train mode."""
         inv, equiv = self.graph_convs[i](inv, equiv, batch, train, generator)
-        inv = self.feature_layers[i](inv, batch.node_mask, train)
+        if len(self.feature_layers):
+            inv = self.feature_layers[i](inv, batch.node_mask, train)
         return get_activation(self.spec.activation)(inv), equiv
 
     def encode(self, batch: GraphBatch, train: bool = False,

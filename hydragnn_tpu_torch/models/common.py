@@ -61,6 +61,16 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
                                      generator=generator)
 
 
+def variance_scaling_uniform_(weight: torch.Tensor, scale: float,
+                              generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``variance_scaling(scale, "fan_avg", "uniform")`` on a ``[out,
+    in]`` weight: uniform in +-sqrt(3 scale / ((in + out) / 2))."""
+    fan_avg = (weight.shape[0] + weight.shape[1]) / 2.0
+    limit = math.sqrt(3.0 * scale / fan_avg)
+    with torch.no_grad():
+        return weight.uniform_(-limit, limit, generator=generator)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``y = x @ W.T + b`` after promoting ``x``, ``W``
     and ``b`` to their common dtype. ``weight`` is ``[out, in]``; with
@@ -180,6 +190,42 @@ class MaskedBatchNorm(nn.Module):
         return y * self.scale + self.bias
 
 
+def coordinate_update_layers(module: nn.Module, hidden: int, prefix: str = "coord",
+                             generator: torch.Generator | None = None) -> None:
+    """Attach the gate MLP of :func:`equivariant_coordinate_update` to
+    ``module`` as ``{prefix}_mlp_0`` (``hidden -> hidden``) and
+    ``{prefix}_mlp_out`` (``hidden -> 1``, no bias, initialised with
+    ``variance_scaling(1e-6, "fan_avg", "uniform")``, the reference's
+    xavier_uniform with gain 0.001), the flax names of the JAX package."""
+    module.add_module(f"{prefix}_mlp_0", Dense(hidden, hidden, generator))
+    out = Dense(hidden, 1, generator, use_bias=False)
+    variance_scaling_uniform_(out.weight, 1e-6, generator)
+    module.add_module(f"{prefix}_mlp_out", out)
+
+
+def equivariant_coordinate_update(module: nn.Module, edge_feat: torch.Tensor,
+                                  coord_diff: torch.Tensor, senders: torch.Tensor,
+                                  edge_mask: torch.Tensor, num_nodes: int, tanh_bound: bool,
+                                  prefix: str = "coord", send_index=None) -> torch.Tensor:
+    """The E(3) coordinate update of EGNN (reference ``E_GCL.coord_model``,
+    JAX ``models/common.py::equivariant_coordinate_update``): a per-edge
+    scalar gate ``{prefix}_mlp_out(relu({prefix}_mlp_0(edge_feat)))``,
+    optionally tanh-bounded, times ``coord_diff``, clipped to +-100, masked,
+    and averaged over each sender's edges (the sum through the segment-sum
+    kernel over the senders' CSR view ``send_index``). Returns the per-node
+    position delta ``[N, 3]``."""
+    from ..graphs import segment
+
+    gate = F.relu(getattr(module, f"{prefix}_mlp_0")(edge_feat))
+    gate = getattr(module, f"{prefix}_mlp_out")(gate)
+    if tanh_bound:
+        gate = torch.tanh(gate)
+    trans = torch.clamp(coord_diff * gate, -100.0, 100.0) * edge_mask[:, None]
+    agg = segment.segment_sum(trans, senders, num_nodes, index=send_index)
+    cnt = segment.segment_count(senders, num_nodes, weights=edge_mask)
+    return agg / torch.clamp(cnt, min=1.0)[:, None]
+
+
 # -- masked losses -------------------------------------------------------------
 
 
@@ -244,6 +290,8 @@ __all__ = [
     "Dropout",
     "MLP",
     "MaskedBatchNorm",
+    "coordinate_update_layers",
+    "equivariant_coordinate_update",
     "get_activation",
     "get_loss",
     "lecun_normal_",
@@ -251,4 +299,5 @@ __all__ = [
     "masked_mse",
     "masked_rmse",
     "masked_smooth_l1",
+    "variance_scaling_uniform_",
 ]

@@ -1,11 +1,14 @@
 """Hand-written CUDA kernels of the port and the plain PyTorch versions
 beside them (``fused_scatter``: segment reductions; ``fused_softmax``:
-attention softmaxes), plus their nvcc build (``_build``)."""
+attention softmaxes; ``fused_cell_list``: the MD cell-list neighbour
+build), plus their nvcc build (``_build``)."""
 
+from .fused_cell_list import binned_radius_graph, plain_cell_pairs  # noqa: F401
 from .fused_scatter import (  # noqa: F401
     LAUNCHES,
     SegmentIndex,
     fused_segment_sum,
+    gather_rows,
     gather_scatter_sum,
     gather_scatter_sum_bwd,
     plain_gather_scatter_sum,
@@ -24,10 +27,13 @@ from .fused_softmax import (  # noqa: F401
 __all__ = [
     "LAUNCHES",
     "SegmentIndex",
+    "binned_radius_graph",
     "fused_segment_sum",
+    "gather_rows",
     "gather_scatter_sum",
     "gather_scatter_sum_bwd",
     "masked_softmax",
+    "plain_cell_pairs",
     "plain_gather_scatter_sum",
     "plain_masked_softmax",
     "plain_segment_softmax",

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+_vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source -> {C function: argtypes}; every function returns a cudaError_t (int)
 SOURCES = {
     "segment_reduce.cu": {
@@ -40,6 +40,10 @@ SOURCES = {
         "segment_softmax_fwd": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,
                                 _vp],
         "masked_softmax_fwd": [_i32, _vp, _vp, _vp, _i32, _i32, _i32, _vp],
+    },
+    "cell_list.cu": {
+        "cell_list_count": [_vp] * 6 + [_i32] * 5 + [_f32, _vp, _vp],
+        "cell_list_write": [_vp] * 6 + [_i32] * 5 + [_f32, _vp, _vp, _vp, _i32, _vp],
     },
 }
 
@@ -108,7 +112,8 @@ def build() -> dict[str, Path]:
 
 def load() -> Kernels:
     """The kernels' C functions (built on first call), with argtypes set:
-    every pointer and the stream as ``c_void_p``, sizes as ``c_int``."""
+    every pointer and the stream as ``c_void_p``, sizes as ``c_int``, a
+    float scalar as ``c_float``."""
     global _lib
     with _lock:
         if _lib is not None:

@@ -18,17 +18,27 @@ built once per batch and id array and cached on the port's ``GraphBatch``.
 Ids that collate did not certify as sorted get a stable argsort, whose
 permutation the kernel follows.
 
-Both are differentiable through ``torch.autograd.Function``s whose forward
-and backward call the same device-routed launches, so on the CPU the
-backward formulas run through the plain versions:
+Both are differentiable to any order through ``torch.autograd.Function``s.
+Every backward is built from these Functions themselves (or plain
+differentiable tensor code), never from a raw launch, so the gradient of a
+gradient (forces trained through their parameter gradient) stays on the
+kernels on the card, without atomics, and on the plain versions on the CPU:
 
-* the gradient of ``gather_scatter_sum`` with respect to ``h`` is the same
-  kernel with senders and receivers swapped, over the senders' CSR view (the
-  Pallas ``_fused_bwd`` launches ``_kernel`` again the same way); the
-  weight's gradient ``dw[e] = <h[s_e], dout[r_e]>`` is plain tensor code,
-  as the JAX package leaves it to XLA;
-* the gradient of ``fused_segment_sum`` is the gather ``dout[ids]``
-  (``index_select``; the JAX package takes it in XLA, with no kernel).
+* the gradient of ``gather_scatter_sum`` with respect to ``h`` is
+  :func:`gather_scatter_sum_bwd`, the same Function with senders and
+  receivers swapped, over the senders' CSR view (the Pallas ``_fused_bwd``
+  launches ``_kernel`` again the same way), and the gradient of that is
+  ``gather_scatter_sum`` again; the weight's gradient ``dw[e] = <h[s_e], dout[r_e]>`` is
+  tensor code over two :func:`gather_rows`, as the JAX package leaves it to
+  XLA;
+* the gradient of ``fused_segment_sum`` is the gather ``dout[ids]``, taken
+  by :func:`gather_rows` (no launch; the JAX package takes it in XLA);
+* the gradient of :func:`gather_rows` is ``fused_segment_sum`` of ``dout``
+  by the ids.
+
+The launches count by entry point: a transposed gather-scatter as
+``gather_scatter_sum_bwd``, a segment sum as ``segment_sum``. First derivatives launch exactly what they launched when
+the backwards called the launchers directly.
 """
 
 from __future__ import annotations
@@ -40,12 +50,14 @@ import torch
 
 # Launches of each kernel of the package since the last reset, counted where
 # the wrapper launches it (the CPU route does not count); the softmax kernels
-# of ``ops.fused_softmax`` count here too. ``gather_scatter_sum_bwd`` counts
-# the gather-scatter kernel's transposed launches from the backward, which
-# ``gather_scatter_sum`` does not. Dispatcher threads of several served
-# models may launch at once, so updates hold the lock.
+# of ``ops.fused_softmax`` and the cell-list kernel of ``ops.fused_cell_list``
+# (once per build, for its count and write launches) count here too.
+# ``gather_scatter_sum_bwd`` counts the gather-scatter kernel's transposed
+# launches from the backward, which ``gather_scatter_sum`` does not.
+# Dispatcher threads of several served models may launch at once, so updates
+# hold the lock.
 LAUNCHES = {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 0,
-            "segment_softmax": 0, "masked_softmax": 0}
+            "segment_softmax": 0, "masked_softmax": 0, "cell_list": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -280,15 +292,18 @@ def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
 
 class _GatherScatterSum(torch.autograd.Function):
     """``out = gather_scatter_sum(h, ...)`` with the JAX package's VJP
-    (``_fused_bwd``): ``dh`` is the same op over the transposed graph,
-    ``dw[e] = <h[s_e], dout[r_e]>``."""
+    (``_fused_bwd``): ``dh`` is the same Function over the transposed graph
+    (so its own gradient is this one again), ``dw[e] = <h[s_e], dout[r_e]>``.
+    ``counter`` names the entry point and its launch count:
+    ``gather_scatter_sum`` or the transposed ``gather_scatter_sum_bwd``."""
 
     @staticmethod
-    def forward(ctx, h, weight, senders, receivers, num_nodes, index, send_index):
-        out = _gather_scatter(h, senders, receivers, num_nodes, weight, index,
-                              "gather_scatter_sum")
+    def forward(ctx, h, weight, senders, receivers, num_nodes, index, send_index, counter):
+        out = _gather_scatter(h, senders, receivers, num_nodes, weight, index, counter)
         ctx.num_nodes = num_nodes
+        ctx.index = index
         ctx.send_index = send_index
+        ctx.counter = counter
         ctx.h_dtype = h.dtype
         # h is read back only for the weight's gradient
         need_dw = weight is not None and ctx.needs_input_grad[1]
@@ -301,34 +316,42 @@ class _GatherScatterSum(torch.autograd.Function):
         dh = dw = None
         if ctx.needs_input_grad[0]:
             # the JAX package casts dout to h's dtype first (fused_scatter.py:306)
-            dh = gather_scatter_sum_bwd(dout.to(ctx.h_dtype), senders, receivers,
-                                        ctx.num_nodes, weight, ctx.send_index)
+            g = dout.to(ctx.h_dtype)
+            if ctx.counter == "gather_scatter_sum":
+                dh = gather_scatter_sum_bwd(g, senders, receivers, ctx.num_nodes, weight,
+                                            send_index=ctx.send_index, index=ctx.index)
+            else:  # the transpose of the transposed application
+                dh = gather_scatter_sum(g, receivers, senders, ctx.num_nodes, weight,
+                                        index=ctx.send_index, send_index=ctx.index)
         if h is not None:
             acc = accumulate_dtype(h.dtype)
-            hs = h.index_select(0, senders.long()).to(acc)
-            dr = dout.index_select(0, receivers.long()).to(acc)
+            hs = gather_rows(h, senders, ctx.send_index).to(acc)
+            dr = gather_rows(dout, receivers, ctx.index).to(acc)
             dw = hs * dr if weight.dim() == 2 else (hs * dr).sum(dim=-1)
             dw = dw.to(weight.dtype)
-        return dh, dw, None, None, None, None, None
+        return dh, dw, None, None, None, None, None, None
 
 
 class _SegmentSum(torch.autograd.Function):
-    """``out = fused_segment_sum(data, ...)``; the gradient is ``dout[ids]``."""
+    """``out = fused_segment_sum(data, ...)``; the gradient is ``dout[ids]``,
+    a :func:`gather_rows` whose own gradient is this Function again."""
 
     @staticmethod
     def forward(ctx, data, segment_ids, num_segments, index):
         ctx.save_for_backward(segment_ids)
+        ctx.index = index
         return _segment_sum(data, segment_ids, num_segments, index)
 
     @staticmethod
     def backward(ctx, dout):
         (segment_ids,) = ctx.saved_tensors
-        return dout.index_select(0, segment_ids.long()), None, None, None
+        return gather_rows(dout, segment_ids, ctx.index), None, None, None
 
 
 class _GatherRows(torch.autograd.Function):
-    """``out = x[ids]``; the gradient is ``segment_sum(dout, ids)``, one
-    device-routed segment-sum launch over ``index``."""
+    """``out = x[ids]``; the gradient is ``fused_segment_sum(dout, ids)``,
+    one device-routed segment-sum launch over ``index``, whose own gradient
+    is this Function again."""
 
     @staticmethod
     def forward(ctx, x, ids, index):
@@ -340,8 +363,8 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         (ids,) = ctx.saved_tensors
-        rows = dout.reshape(dout.shape[0], -1).contiguous()
-        dx = _segment_sum(rows, ids, ctx.num_rows, ctx.index)
+        rows = dout.reshape(dout.shape[0], -1)
+        dx = fused_segment_sum(rows, ids, ctx.num_rows, ctx.index)
         return dx.reshape((ctx.num_rows,) + tuple(dout.shape[1:])), None, None
 
 
@@ -372,20 +395,24 @@ def gather_scatter_sum(h: torch.Tensor, senders: torch.Tensor, receivers: torch.
     index rows of ``h`` (collate guarantees both, and the card does not check
     senders)."""
     return _GatherScatterSum.apply(h, weight, senders, receivers, num_nodes, index,
-                                   send_index)
+                                   send_index, "gather_scatter_sum")
 
 
 def gather_scatter_sum_bwd(dout: torch.Tensor, senders: torch.Tensor,
                            receivers: torch.Tensor, num_nodes: int,
                            weight: torch.Tensor | None = None,
-                           send_index: SegmentIndex | None = None) -> torch.Tensor:
+                           send_index: SegmentIndex | None = None,
+                           index: SegmentIndex | None = None) -> torch.Tensor:
     """The gradient of :func:`gather_scatter_sum` with respect to ``h``:
     ``segment_sum(weight * dout[receivers], senders, num_nodes)``, the same
     kernel launched over the transposed graph (the senders' CSR view
     ``send_index``, built when not given), counted as
-    ``gather_scatter_sum_bwd``."""
-    return _gather_scatter(dout, receivers, senders, num_nodes, weight, send_index,
-                           "gather_scatter_sum_bwd")
+    ``gather_scatter_sum_bwd``. :func:`gather_scatter_sum`'s backward runs
+    this; it is differentiable in ``dout`` and ``weight`` in turn, its
+    gradient with respect to ``dout`` running over ``index``, the
+    receivers' view."""
+    return _GatherScatterSum.apply(dout, weight, receivers, senders, num_nodes, send_index,
+                                   index, "gather_scatter_sum_bwd")
 
 
 def fused_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,

@@ -25,8 +25,10 @@ backward works from the saved output, as the JAX package's custom VJPs do
 (neither backward is a Pallas kernel there):
 
 * segment softmax: ``ds = s * (dy - segment_sum(s * dy)[ids])``, plain
-  tensor code around one launch of the segment-sum kernel over the same CSR
-  view (counted as ``segment_sum``);
+  tensor code around ``fused_segment_sum`` (one launch of the segment-sum
+  kernel over the same CSR view, counted as ``segment_sum``) and
+  ``gather_rows``, both differentiable Functions of the port, so a second
+  derivative stays on the kernels too;
 * masked softmax: ``ds = s * (dy - sum_row(s * dy))``, plain tensor code;
   masked entries have ``s = 0`` and get no gradient.
 """
@@ -44,8 +46,9 @@ from .fused_scatter import (
     _dtype_code,
     _raise_on,
     _route,
-    _segment_sum,
     accumulate_dtype,
+    fused_segment_sum,
+    gather_rows,
     segment_index,
 )
 
@@ -187,8 +190,8 @@ class _SegmentSoftmax(torch.autograd.Function):
         out, segment_ids = ctx.saved_tensors
         s = out.to(accumulate_dtype(out.dtype))
         dy = dout.to(s.dtype)
-        t = _segment_sum((s * dy).contiguous(), segment_ids, ctx.num_segments, ctx.index)
-        ds = s * (dy - t.index_select(0, segment_ids.long()))
+        t = fused_segment_sum(s * dy, segment_ids, ctx.num_segments, ctx.index)
+        ds = s * (dy - gather_rows(t, segment_ids, ctx.index))
         return ds.to(out.dtype), None, None, None
 
 

@@ -27,6 +27,11 @@ class Predictor:
     """
 
     def __init__(self, model: torch.nn.Module, config: dict, device="cuda"):
+        if model.spec.enable_interatomic_potential:
+            raise NotImplementedError(
+                "energy and force prediction of interatomic potentials (MLIP) is not ported "
+                "yet; it comes with a later slice (MLIP serving)"
+            )
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.spec = model.spec

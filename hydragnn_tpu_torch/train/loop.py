@@ -1,7 +1,8 @@
 """The epoch loop: train, validate, test.
 
 Counterpart of ``hydragnn_tpu/train/loop.py`` on one device with one step
-per dispatch (K = 1): per epoch the train loader reshuffles
+per dispatch (K = 1), with the plain or, for interatomic potentials, the
+MLIP train and eval steps: per epoch the train loader reshuffles
 (``set_epoch``), the train metrics are reduced weighted by graph count, the
 validation and test splits are evaluated, the plateau scheduler steps on the
 validation loss, then the best-model checkpoint and early stopping run. A
@@ -84,8 +85,17 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
     losses, LR, and the epoch's wall seconds up to the checkpoint)."""
     training = config_nn["Training"]
     num_epoch = int(training["num_epoch"])
-    train_step = make_train_step(compute_dtype, resolve_loss_scale(training))
-    eval_step = make_eval_step(compute_dtype)
+    if state.model.spec.enable_interatomic_potential:
+        # energy + per-atom energy + force loss, forces from the position
+        # gradient
+        from ..models.mlip import make_mlip_eval_step, make_mlip_train_step
+
+        train_step = make_mlip_train_step(state.model, compute_dtype,
+                                          resolve_loss_scale(training))
+        eval_step = make_mlip_eval_step(state.model, compute_dtype)
+    else:
+        train_step = make_train_step(compute_dtype, resolve_loss_scale(training))
+        eval_step = make_eval_step(compute_dtype)
     scheduler = ReduceLROnPlateau(get_learning_rate(state.optimizer))
     checkpoint = (
         Checkpoint(log_name, warmup=int(training.get("checkpoint_warmup", 0)), path=path)

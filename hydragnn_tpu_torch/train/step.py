@@ -135,27 +135,38 @@ def make_train_step(compute_dtype: torch.dtype = torch.float32, loss_scale: floa
     loss_scale = None if not loss_scale or float(loss_scale) == 1.0 else float(loss_scale)
 
     def train_step(state: TrainState, batch) -> dict:
-        model, optimizer = state.model, state.optimizer
+        model = state.model
         pred = cast_forward(model, batch, compute_dtype, train=True,
                             generator=state.generator)
         tot, tasks = model.loss(pred, batch)
-        optimizer.zero_grad()
-        (tot * loss_scale if loss_scale is not None else tot).backward()
-        for p in model.parameters():
-            if p.grad is None:  # optax steps every parameter
-                p.grad = torch.zeros_like(p)
-            elif loss_scale is not None:
-                p.grad.div_(loss_scale)
-        freeze_conv_grads(model)
-        optimizer.step()
-        state.step += 1
-        return {
-            "loss": tot.detach(),
-            "tasks_loss": torch.stack([t.detach() for t in tasks]),
-            "num_graphs": batch.graph_mask.sum(),
-        }
+        return optimizer_step(state, batch, tot, tasks, loss_scale)
 
     return train_step
+
+
+def optimizer_step(state: TrainState, batch, tot: torch.Tensor, tasks,
+                   loss_scale: float | None = None) -> dict:
+    """The backward of ``tot`` (times ``loss_scale``; the fp32 gradients
+    divided back), zero gradients for parameters that got none (optax steps
+    every parameter), the frozen conv stack, one optimizer step; returns the
+    step's metrics (``loss``, ``tasks_loss``, ``num_graphs``), on the
+    device."""
+    model, optimizer = state.model, state.optimizer
+    optimizer.zero_grad()
+    (tot * loss_scale if loss_scale is not None else tot).backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        elif loss_scale is not None:
+            p.grad.div_(loss_scale)
+    freeze_conv_grads(model)
+    optimizer.step()
+    state.step += 1
+    return {
+        "loss": tot.detach(),
+        "tasks_loss": torch.stack([t.detach() for t in tasks]),
+        "num_graphs": batch.graph_mask.sum(),
+    }
 
 
 def make_eval_step(compute_dtype: torch.dtype = torch.float32):
@@ -201,6 +212,7 @@ __all__ = [
     "make_eval_step",
     "make_predict_step",
     "make_train_step",
+    "optimizer_step",
     "resolve_loss_scale",
     "resolve_precision",
 ]

@@ -255,7 +255,8 @@ def test_gin_train_step_launches_on_card(batch):
     metrics = step(state, b.to(dev))
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 3,
-                           "segment_sum": 1, "segment_softmax": 0, "masked_softmax": 0}
+                           "segment_sum": 1, "segment_softmax": 0, "masked_softmax": 0,
+                           "cell_list": 0}
     assert bool(torch.isfinite(metrics["loss"]))
     assert all(p.grad is not None and p.grad.dtype == torch.float32
                for p in model.parameters())
@@ -405,11 +406,11 @@ def test_masked_softmax_backward_on_card():
 @pytest.mark.parametrize("arch,want", [
     ({"mpnn_type": "GAT"},
      {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 17,
-      "segment_softmax": 4, "masked_softmax": 0}),
+      "segment_softmax": 4, "masked_softmax": 0, "cell_list": 0}),
     ({"global_attn_engine": "GPS", "global_attn_heads": 4, "pe_dim": 4,
       "max_graph_nodes": 32},
      {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 4, "segment_sum": 1,
-      "segment_softmax": 0, "masked_softmax": 4}),
+      "segment_softmax": 0, "masked_softmax": 4, "cell_list": 0}),
 ], ids=["GAT", "GPS-GIN"])
 def test_attention_train_step_launches_on_card(batch, arch, want):
     """One bf16 train step of the qm9.json GAT (4 softmaxes; 4 aggregations
@@ -438,3 +439,146 @@ def test_attention_train_step_launches_on_card(batch, arch, want):
     torch.cuda.synchronize()
     assert fs.LAUNCHES == want
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+# -- kernel B5: the MD cell list --------------------------------------------------
+
+
+def _cell_system(kind, n=1000, box=38.0, seed=21):
+    """Positions in a cubic box (``lattice``: the MLIP MD cell's jittered
+    simple-cubic lattice; else uniform), the pbc of ``kind`` and a plan."""
+    from hydragnn_tpu_torch.md import plan_cell_grid
+
+    rng = np.random.default_rng(seed)
+    if kind == "lattice":
+        k = round(n ** (1 / 3))
+        g = np.stack(np.meshgrid(*([np.arange(k)] * 3), indexing="ij"), -1).reshape(-1, 3)
+        a = box / k
+        pos = g * a + rng.uniform(-0.05 * a, 0.05 * a, size=g.shape)
+    else:
+        pos = rng.uniform(0, box, size=(n, 3))
+    pbc = {"slab": (True, True, False), "open": (False, False, False)}.get(kind, (True,) * 3)
+    pbc = np.asarray(pbc)
+    cell = np.eye(3, dtype=np.float32) * box
+    return pos.astype(np.float32), cell, pbc, plan_cell_grid(cell, 5.0, n, pbc=pbc)
+
+
+def _cell_build(dev, pos, cell, pbc, plan, max_edges, plain=False):
+    from hydragnn_tpu_torch.ops import fused_cell_list as fcl
+
+    args = (torch.from_numpy(pos).to(dev), 5.0, max_edges, torch.from_numpy(cell).to(dev),
+            torch.from_numpy(pbc).to(dev), plan[0], plan[1])
+    if not plain:
+        return fcl.binned_radius_graph(*args, pad_id=pos.shape[0] - 1)
+    saved = fcl._route
+    fcl._route = lambda name, t: False
+    try:
+        return fcl.binned_radius_graph(*args, pad_id=pos.shape[0] - 1)
+    finally:
+        fcl._route = saved
+
+
+@pytest.mark.parametrize("kind", ["lattice", "periodic", "slab", "open", "truncated"])
+def test_cell_list_kernel_matches_plain_on_card(kind):
+    """B5 against the plain version (the XLA build) on the same positions:
+    ids, mask and n_edges identical, shifts within 1e-6; a truncated
+    buffer keeps the same prefix; two launches bit-identical."""
+    dev = _cuda_or_skip()
+    pos, cell, pbc, plan = _cell_system("periodic" if kind == "truncated" else kind)
+    max_edges = 2000 if kind == "truncated" else 16 * pos.shape[0]
+    before = fs.LAUNCHES["cell_list"]
+    got = _cell_build(dev, pos, cell, pbc, plan, max_edges)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["cell_list"] == before + 1
+    want = _cell_build(dev, pos, cell, pbc, plan, max_edges, plain=True)
+    for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+    assert int(got[4]) > (max_edges if kind == "truncated" else 1000)
+    again = _cell_build(dev, pos, cell, pbc, plan, max_edges)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_cell_list_overflow_and_empty_cells_on_card():
+    """A capacity below the densest cell poisons n_edges as the plain
+    version does; a half-empty box (every atom in x < box / 2) leaves
+    cells empty and still matches; float64 positions raise."""
+    from hydragnn_tpu_torch.md import plan_cell_grid
+
+    dev = _cuda_or_skip()
+    pos, cell, pbc, plan = _cell_system("periodic")
+    tight = (plan[0], 2)
+    got = _cell_build(dev, pos, cell, pbc, tight, 16000)
+    want = _cell_build(dev, pos, cell, pbc, tight, 16000, plain=True)
+    assert int(got[4]) == int(want[4]) > 16000
+    half = pos.copy()
+    half[:, 0] *= 0.5
+    plan_h = plan_cell_grid(cell, 5.0, half.shape[0], pbc=pbc)
+    got = _cell_build(dev, half, cell, pbc, plan_h, 32000)
+    want = _cell_build(dev, half, cell, pbc, plan_h, 32000, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(TypeError, match="float32"):
+        _cell_build(dev, pos.astype(np.float64), cell, pbc, plan, 16000)
+
+
+# -- the repaired backwards: second derivatives --------------------------------------
+
+
+def _second_derivative(fn, xs, dy, v):
+    xs = [x.clone().requires_grad_(True) for x in xs]
+    dy = dy.clone().requires_grad_(True)
+    grads = torch.autograd.grad(fn(*xs), xs, dy, create_graph=True)
+    inner = sum((g * vi).sum() for g, vi in zip(grads, v))
+    return torch.autograd.grad(inner, xs + [dy], allow_unused=True)
+
+
+@pytest.mark.parametrize("op", ["fused_segment_sum", "gather_rows", "gather_scatter_sum",
+                                "gather_scatter_sum_bwd", "segment_softmax"])
+def test_second_derivatives_match_plain_on_card(batch, op):
+    """The gradient of a gradient through each repaired Function (in its
+    inputs and in the upstream gradient) on the card, with the kernels,
+    against the CPU route's (the plain versions); the double backward
+    launches kernels (a raw launcher in a backward would have dropped it)."""
+    dev = _cuda_or_skip()
+    b = batch.to(dev)
+    n, e = b.num_nodes, b.num_edges
+    gen = torch.Generator().manual_seed(31)
+    mask = batch.edge_mask[:, None]
+    real = (torch.arange(n) < n - 1).float()[:, None]
+    x_sm, ids_sm = _gat_logits(b, 6, torch.float32, gen)
+    cases = {
+        "fused_segment_sum": (
+            lambda d, x: fs.fused_segment_sum(x, d.receivers, n,
+                                              index=d.csr("receivers") if x.is_cuda else None),
+            [torch.randn(e, 16, generator=gen) * mask]),
+        "gather_rows": (
+            lambda d, x: fs.gather_rows(x, d.senders,
+                                        d.csr("senders") if x.is_cuda else None),
+            [torch.randn(n, 16, generator=gen) * real]),
+        "gather_scatter_sum": (
+            lambda d, h, w: fs.gather_scatter_sum(h, d.senders, d.receivers, n, weight=w),
+            [torch.randn(n, 16, generator=gen) * real,
+             torch.rand(e, generator=gen) * batch.edge_mask]),
+        "gather_scatter_sum_bwd": (
+            lambda d, g, w: fs.gather_scatter_sum_bwd(g, d.senders, d.receivers, n, weight=w),
+            [torch.randn(n, 16, generator=gen) * real,
+             torch.rand(e, generator=gen) * batch.edge_mask]),
+        "segment_softmax": (lambda d, x: fsm.segment_softmax(x, ids_sm.to(x.device), n),
+                            [x_sm.cpu()]),
+    }
+    fn, xs = cases[op]
+    out_shape = fn(batch, *xs).shape
+    dy = torch.randn(out_shape, generator=gen)
+    v = [torch.randn(x.shape, generator=gen) for x in xs]
+    before = sum(fs.LAUNCHES.values())
+    got = _second_derivative(lambda *a: fn(b, *a), [x.to(dev) for x in xs], dy.to(dev),
+                             [t.to(dev) for t in v])
+    torch.cuda.synchronize()
+    assert sum(fs.LAUNCHES.values()) > before
+    want = _second_derivative(lambda *a: fn(batch, *a), xs, dy, v)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None or not bool(g.any())
+            continue
+        rows = slice(None) if g.shape[0] != n else slice(0, n - 1)
+        torch.testing.assert_close(g[rows].cpu(), w[rows], rtol=1e-4, atol=1e-5)

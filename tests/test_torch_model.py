@@ -205,7 +205,9 @@ def test_dense_promotes_like_flax():
     # GPS multihead attention is ported; its performer variant is not
     ({"global_attn_engine": "GPS", "global_attn_type": "performer"}, "GPS"),
     ({"use_graph_attr_conditioning": True}, "conditioning"),
-    ({"enable_interatomic_potential": True}, "interatomic"),
+    # EGNN is ported (the MLIP path); SchNet, another stack that updates
+    # coordinates, is not
+    ({"mpnn_type": "SchNet"}, "SchNet"),
 ])
 def test_outside_the_slice_raises(setup, override, what):
     from hydragnn_tpu_torch.models import create_model_config
