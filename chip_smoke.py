@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``hydragnn_tpu_torch``) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--quant-diagnostics]
 
 Three configurations of ``examples/qm9/qm9.json`` at its published widths
 (hidden 64, 4 conv layers, 2 shared layers of 64, graph head [64, 64], mean
@@ -12,7 +12,9 @@ attention, 4 heads, Laplacian positional encodings of width 4). Then the
 interatomic potential of ``bench.py``'s ``oc20`` row (EGNN, hidden 64, 3
 conv layers, equivariance on, add pooling, energy + 10 x force loss, fp32,
 batch 64) and molecular dynamics: that EGNN on a 1,000-atom LJ cell, and
-an analytic LJ potential on ``bench.py``'s 8,000-atom MD lattice.
+an analytic LJ potential on ``bench.py``'s 8,000-atom MD lattice. Each
+trained qm9 model also serves int8 (``Serving.quantize``), and the trained
+GIN's Dense layers go through the experimental fp8 layer.
 
 Phases (any failure exits non-zero; the last line of standard output is the
 device JSON only when every phase passed):
@@ -31,7 +33,14 @@ device JSON only when every phase passed):
    Device times per call (CUDA-graph replay between CUDA events) beside the
    plain version, a one-call PyTorch yardstick (``torch.sparse.softmax``,
    which synchronises with the host, timed by events around back-to-back
-   calls) and the bound;
+   calls) and the bound; then (3b) the int8 dense kernel B6 against its
+   plain version at every Dense call of the GIN's served forward (fp32 and
+   bf16 inputs, K = 1 and N = 1 layers included), GAT's 384 x 384 lin_l and
+   a ragged row count (codes and int32 sums equal, y within 1 ulp), and the
+   fp8 kernel B7 at the GIN's shapes in e4m3 and e5m2, saturated too (codes
+   bit-equal, y within the summation-order bound); their times beside the
+   plain versions, quantize + ``torch._int_mm`` / ``torch._scaled_mm``
+   yardsticks and the bounds;
 4. serving, per model: ``PredictionServer`` with 512 concurrent requests;
    served answers against ``Predictor.outputs`` on the same padded batches;
    launch counts per served batch; the card's fp32 answers against the
@@ -68,10 +77,31 @@ device JSON only when every phase passed):
    the largest force); finite, no overflow, drift, exact launches per step,
    ms per step and its parts; the EGNN's first forces, and its velocities
    and positions after 10 steps from nonzero velocities, against the port's
-   CPU route; two runs bit for bit.
+   CPU route; two runs bit for bit;
+10. quantized serving, per trained qm9 model (right after its training):
+   the model behind an fp32 server and a ``Serving.quantize: true`` server
+   (default quant_tol 0.1 and 4 calibration batches, calibrated on the
+   training samples), 512 concurrent requests each: the certified per-head
+   bounds within quant_tol (the one known exception, the GIN, must be
+   refused at its pinned bound, ``QUANT_KNOWN_REFUSALS``, and then serves
+   int8 at that bound), served int8 answers equal to
+   ``Predictor.outputs(batch, step=<int8 step>)``, one ``quant_dense``
+   launch per Dense call per batch, batch independence (the calibration
+   samples served among the traffic keep their certified answers), the
+   card's int8 step against the CPU route's with the same tables (no code
+   flips, answers within the fp32 parity tolerance), the fp32 answers
+   unchanged; p50/p99 and throughput of both; the int8 error over the
+   whole traffic against the bounds is logged (the reference's 4-sample
+   certificate does not bound it: an unmet gate, ROADMAP queue C);
+11. fp8: B7 at the oc20 EGNN's first edge-MLP Dense on its training batch,
+   then ``certify_fp8_dense`` on every Dense call of the trained GIN, both
+   formats (max-abs and relative-Frobenius error).
 
 The script imports only ``hydragnn_tpu_torch``, torch and numpy, and needs no
-network.
+network. ``--quant-diagnostics`` adds to phase 10, for every model, the
+certified bound with one Dense quantized at a time and the feature norms'
+running variances, and the int8 step calibrated and certified on the whole
+training split against the whole traffic (measured, not gated).
 """
 
 from __future__ import annotations
@@ -79,6 +109,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -96,6 +127,8 @@ QM9_CONFIG = ROOT / "examples" / "qm9" / "qm9.json"
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# dense int8 TOP/s and fp8 TFLOP/s of the tensor cores (kernels B6 and B7)
+INT8_OPS = 1979e12
 
 # tolerances of the kernel-vs-plain comparison: fp32 sums differ only in
 # the order of additions (the plain version's index_add_ uses atomics on
@@ -107,6 +140,22 @@ SERVE_ATOL = 0.0
 # the card's fp32 forward against the port's CPU route on the same batch:
 # float32 sums in another order across four conv layers and the heads
 CPU_PARITY = dict(rtol=1e-4, atol=1e-5)
+# quantized serving: warm-up certifies per-head bounds on its calibration
+# batches (the largest training samples each bucket admits, one per batch).
+# Batch independence: a sample's answers do not depend on the other graphs
+# of its batch, so the calibration samples, served among the traffic, keep
+# within the bounds; 1e-6 absorbs fp32 rounding of answers of size ~1
+QUANT_CALIB_ATOL = 1e-6
+# a certified bound above the config's quant_tol (0.1) must be refused: no
+# int8 step kept, start() raises. One trained model is refused under the
+# reference's contract (one per-tensor activation scale per Dense, 4
+# single-sample calibration batches; ROADMAP queue C): the qm9 GIN, certified
+# at 0.372717 on an H100 in every run (its training on the card is
+# deterministic). Its refusal is accepted on the card only within
+# QUANT_REFUSAL_RTOL of that bound, and it then serves int8 at quant_tol =
+# that bound x (1 + QUANT_REFUSAL_RTOL). Any other refusal fails the run.
+QUANT_KNOWN_REFUSALS = {"gin": 0.372717}
+QUANT_REFUSAL_RTOL = 0.02
 # one fp32 train step on the card, held tensor by tensor against an fp64 run
 # of the same step on the CPU: each parameter's gradient may miss the fp64
 # one by at most 8 x the fp32 rounding of that tensor, the larger of what
@@ -151,7 +200,7 @@ CSR_FORWARD = {"gin": ("receivers", "batch"), "gat": ("loop_receivers", "batch")
                "gps": ("receivers", "batch")}
 CSR_BACKWARD = {"gin": ("senders",), "gat": ("loop_senders",), "gps": ("senders",)}
 KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum", "segment_softmax",
-           "masked_softmax", "cell_list")
+           "masked_softmax", "cell_list", "quant_dense", "fp8_dense")
 # bench.py's oc20 row (bench_oc20: MLIP_CONFIG with radius 5.0 and
 # max_neighbours 40; fp32, since bf16 under a gradient of a gradient loses
 # force accuracy), the north-star workload of BASELINE.json
@@ -892,7 +941,282 @@ def step_kernel_ms(kind: str, layers: int, kt: dict) -> float:
             + per["masked_softmax"] * kt.get("masked_softmax_ms", 0.0))
 
 
+# -- phase 3b: kernels B6 and B7, the int8 and fp8 dense layers -------------------
+
+
+def dense_inputs(torch, model, batch, dtype):
+    """Every Dense call of one eval forward of ``model`` on ``batch`` with
+    the predict step's casts to ``dtype``: ``[(name, module, x [rows, in])]``
+    in call order (the real activations at the path's shapes)."""
+    from hydragnn_tpu_torch.models.common import intercept_dense
+    from hydragnn_tpu_torch.serve.quant import dense_names
+    from hydragnn_tpu_torch.train.step import cast_forward
+
+    names = dense_names(model)
+    calls = []
+
+    def record(module, x):
+        calls.append((names[module], module, x.reshape(-1, x.shape[-1]).clone()))
+        return None
+
+    with torch.inference_mode(), intercept_dense(record):
+        cast_forward(model, batch.to(next(model.parameters()).device), dtype, train=False)
+    return calls
+
+
+def _ulps(torch, got, want):
+    """|got - want| in units of the last place of |want| (fp32)."""
+    a = want.abs()
+    return (got - want).abs() / (torch.nextafter(a, torch.full_like(a, float("inf"))) - a)
+
+
+def check_quant_dense(torch, label: str, x, w, b) -> float:
+    """Kernel B6 against its plain version on ``x [M, K]`` and the weight
+    ``w [K, N]`` quantized as the serving tier quantizes it: int8 codes and
+    int32 accumulators equal, ``y`` within 1 ulp of ``|y|``, finite, two
+    launches bit-identical. Returns max |kernel - plain|."""
+    from hydragnn_tpu_torch.ops import quant_matmul as qm
+
+    w_q, s_w = qm.quantize_weight(w)
+    s_x = max(float(x.float().abs().max()), 1e-8) / 127.0
+    x_q, acc, y = qm.quant_dense_parts(x, w_q, s_w, s_x, b)
+    p_q, p_acc, p_y = qm.reference_quant_parts(x, w_q, s_w, s_x, b)
+    codes, sums = torch.equal(x_q, p_q), torch.equal(acc, p_acc)
+    ulps = _ulps(torch, y, p_y)
+    n_diff = int((y != p_y).sum())
+    ok = codes and sums and bool((ulps <= 1).all()) and bool(torch.isfinite(y).all())
+    log(f"  {label}: x[{x.shape[0]},{x.shape[1]}] {str(x.dtype).split('.')[1]} x "
+        f"W_q[{w_q.shape[0]},{w_q.shape[1]}]{'' if b is not None else ' (no bias)'}: codes "
+        f"{'equal' if codes else 'DIFFER'}, int32 sums {'equal' if sums else 'DIFFER'}, y "
+        f"{n_diff} of {y.numel()} entries differ, by at most {float(ulps.max()):.0f} ulp "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"quant_dense {label}: the kernel disagrees with the plain version")
+    _bit_stable(torch, "quant_dense", lambda: qm.quant_dense(x, w_q, s_w, s_x, b))
+    return float((y - p_y).abs().max())
+
+
+def check_fp8_dense(torch, label: str, x, w, b, fmt: str, s_x=None) -> float:
+    """Kernel B7 against its plain version: the fp8 codes of ``x`` bit-equal,
+    ``y`` within the summation-order bound ``K 2^-23 sum |x_q| |w_q| s_x
+    s_w`` plus one ulp of ``|y|`` (the products are exact in fp32; only the
+    order of the fp32 sum differs), finite (saturation makes no inf), two
+    launches bit-identical. Returns max |kernel - plain|."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+
+    w_q, s_w = f8.quantize_weight_fp8(w, fmt)
+    s_x = f8.activation_scale_fp8(x, fmt) if s_x is None else s_x
+    x_q, y = f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt, debug=True)
+    p_q, p_y = f8.reference_fp8_parts(x, w_q, s_w, s_x, b, fmt)
+    codes = torch.equal(x_q.view(torch.uint8), p_q.view(torch.uint8))
+    mag = x_q.float().abs().double() @ w_q.float().abs().double()
+    bound = (x.shape[1] * 2.0 ** -23 * mag * s_x.double() * s_w.double()[None, :]
+             + (torch.nextafter(p_y.abs(), torch.full_like(p_y, float("inf"))) - p_y.abs()))
+    d = (y.double() - p_y.double()).abs()
+    ok = codes and bool((d <= bound).all()) and bool(torch.isfinite(y).all())
+    saturated = float((x_q.float().abs() == f8.FP8_MAX[fmt]).float().mean())
+    log(f"  {label} {fmt}: x[{x.shape[0]},{x.shape[1]}] x W[{w.shape[0]},{w.shape[1]}]: codes "
+        f"{'bit-equal' if codes else 'DIFFER'} ({100 * saturated:.1f}% saturated), max|y - "
+        f"plain| {float(d.max()):.3e} = {float((d / bound).max()):.3f} of the summation-order "
+        f"bound {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"fp8_dense {label} {fmt}: the kernel disagrees with the plain "
+                             "version")
+    _bit_stable(torch, "fp8_dense", lambda: f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt)[1])
+    return float(d.max())
+
+
+def _kernel_entry(name: str, source: str, replaces: str, k: dict, err: float,
+                  ops_per_s: float) -> dict:
+    """One entry of the kernels line; the bound is the larger of the bytes
+    at the HBM rate and the operations at ``ops_per_s``."""
+    t_bytes = k["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = k["ops"] / ops_per_s * 1e3
+    lib = "none" if k["library_ms"] is None else f"{k['library_ms'] * 1e3:.2f} us"
+    log(f"  {name} @ {k['shape']}: kernel {k['ms'] * 1e3:.2f} us, plain "
+        f"{k['plain_ms'] * 1e3:.2f} us, one-call yardstick {lib}, bound "
+        f"{max(t_bytes, t_ops) * 1e3:.3f} us ({k['bytes']} B, {k['ops']} operations)")
+    return {"name": name, "route": "cuda", "source": f"hydragnn_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": k["library_ms"], "shape": k["shape"]}
+
+
+def quant_kernel_phase(torch, model, batch, timing: bool = True):
+    """Kernel B6 against its plain version at every Dense call of the qm9
+    GIN's served forward on ``batch`` (the top bucket, with the served bf16
+    casts: conv layer 0 takes bf16, the rest fp32; each also as a copy in
+    the other type), GAT's 384 x 384 ``lin_l`` and a ragged row count; then
+    kernel B7 at the GIN's shapes in both formats, and saturated. With
+    ``timing``, B6 and B7 at a conv layer's hidden Dense ([N, 64] x [64,
+    64], fp32: the most frequent call) beside their plain versions, the
+    library yardsticks and the bounds. Returns the two JSON entries (B7's
+    max error is completed by the fp8 phase) or ``[]``."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+    from hydragnn_tpu_torch.ops import quant_matmul as qm
+
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+    calls = dense_inputs(torch, model, batch, torch.bfloat16)
+    cases = []
+    for name, module, x in calls:
+        w = module.weight.detach().float().t()
+        b = None if module.bias is None else module.bias.detach().float()
+        other = x.float() if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+        cases += [(name, x, w, b), (f"{name} ({str(other.dtype).split('.')[1]} copy)", other,
+                                    w, b)]
+    n = batch.num_nodes
+    cases.append(("GAT lin_l (384 x 384)", torch.randn(n, 384, generator=gen).to(dev),
+                  torch.randn(384, 384, generator=gen).to(dev) / 20,
+                  torch.randn(384, generator=gen).to(dev)))
+    cases.append(("ragged M = 37", torch.randn(37, 64, generator=gen).to(dev),
+                  torch.randn(64, 64, generator=gen).to(dev), None))
+    log(f"quant_dense (replaces ops/quant_matmul.py:80 _quant_kernel): {len(calls)} Dense calls "
+        f"of the GIN's served forward at N={n} rows (conv) and {batch.num_graphs} (heads), "
+        f"each in fp32 and bf16, GAT's lin_l, a ragged M")
+    err6 = max(check_quant_dense(torch, *case) for case in cases)
+    log(f"fp8_dense (replaces ops/fp8_matmul.py:111 _fp8_kernel): the GIN's Dense shapes, "
+        f"e4m3 and e5m2, and an activation scale 1000x too small (saturation)")
+    err7 = 0.0
+    for fmt in ("e4m3", "e5m2"):
+        for name, module, x in calls:
+            w = module.weight.detach().float().t()
+            b = None if module.bias is None else module.bias.detach().float()
+            err7 = max(err7, check_fp8_dense(torch, name, x.float(), w, b, fmt))
+        name, module, x = calls[1]
+        w = module.weight.detach().float().t()
+        err7 = max(err7, check_fp8_dense(torch, f"{name} saturated", x.float(), w, None, fmt,
+                                         s_x=f8.activation_scale_fp8(x, fmt) / 1000))
+    _sync(torch, dev.type)
+    if not timing:
+        return []
+
+    # a conv layer's hidden Dense (fp32 [N, 64] x [64, 64]), as served
+    name, module, x = next(c for c in calls if c[0] == "graph_convs.1.nn.dense_1")
+    m, k = x.shape
+    w = module.weight.detach().float().t()
+    b = module.bias.detach().float()
+    w_q, s_w = qm.quantize_weight(w)
+    s_x = float(x.abs().max()) / 127.0
+    s_x_t = torch.full((), s_x, device=dev)
+    scale = s_x_t * s_w
+    nb = w_q.shape[1]
+
+    def int_mm_dequant():
+        x_q = torch.clamp(torch.round(x / s_x_t), -127, 127).to(torch.int8)
+        return torch.addcmul(b, torch._int_mm(x_q, w_q).float(), scale)
+
+    k6 = dict(ms=graph_time_ms(torch, lambda: qm.quant_dense(x, w_q, s_w, s_x, b)),
+              plain_ms=graph_time_ms(torch, lambda: qm.reference_quant_dense(x, w_q, s_w, s_x,
+                                                                             b)),
+              library_ms=None, bytes=m * k * 4 + k * nb + 2 * nb * 4 + m * nb * 4,
+              ops=2 * m * k * nb, shape=f"x[{m},{k}] f32, W_q[{k},{nb}] int8 ({name})")
+    try:
+        lib_err = float((int_mm_dequant() - qm.quant_dense(x, w_q, s_w, s_x, b)).abs().max())
+        k6["library_ms"] = graph_time_ms(torch, int_mm_dequant)
+        x_q0 = qm.quantize_acts(x, s_x)
+        t_mm = graph_time_ms(torch, lambda: torch._int_mm(x_q0, w_q))
+        log(f"  yardstick: quantize + torch._int_mm + addcmul, max|diff| vs kernel "
+            f"{lib_err:.3e} (addcmul rounds twice); torch._int_mm alone {t_mm * 1e3:.2f} us")
+    except RuntimeError as exc:  # the yardstick only; the port never calls it
+        log(f"  yardstick torch._int_mm refused this shape: {exc}")
+    entries = [_kernel_entry("quant_dense", "quant_matmul.cu",
+                             "hydragnn_tpu/ops/quant_matmul.py:80", k6, err6, INT8_OPS)]
+
+    fmt = "e4m3"
+    w8, s_w8 = f8.quantize_weight_fp8(w, fmt)
+    s_x8 = f8.activation_scale_fp8(x, fmt)
+    scale8 = s_x8 * s_w8
+    k7 = dict(ms=graph_time_ms(torch, lambda: f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b, fmt)[1]),
+              plain_ms=graph_time_ms(torch, lambda: f8.reference_fp8_dense(x, w8, s_w8, s_x8,
+                                                                           b, fmt)),
+              library_ms=None, bytes=m * k * 4 + k * nb + 2 * nb * 4 + 4 + m * nb * 4,
+              ops=2 * m * k * nb, shape=f"x[{m},{k}] f32, W_q[{k},{nb}] e4m3 ({name})")
+    one = torch.ones((), device=dev)
+    w8_cols = w8.t().contiguous().t()  # torch._scaled_mm takes B column-major
+
+    def scaled_mm():
+        xq = torch.clamp(x / s_x8, -448.0, 448.0).to(torch.float8_e4m3fn)
+        acc = torch._scaled_mm(xq, w8_cols, scale_a=one, scale_b=one, out_dtype=torch.float32)
+        return torch.addcmul(b, acc, scale8)
+
+    try:
+        lib_err = float((scaled_mm() - f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b, fmt)[1])
+                        .abs().max())
+        k7["library_ms"] = graph_time_ms(torch, scaled_mm)
+        log(f"  yardstick: quantize + torch._scaled_mm (e4m3, per-tensor scales 1) + addcmul, "
+            f"max|diff| vs kernel {lib_err:.3e}")
+    except RuntimeError as exc:  # the yardstick only; the port never calls it
+        log(f"  yardstick torch._scaled_mm refused this shape: {exc}")
+    entries.append(_kernel_entry("fp8_dense", "fp8_matmul.cu",
+                                 "hydragnn_tpu/ops/fp8_matmul.py:111", k7, err7, INT8_OPS))
+    return entries
+
+
 # -- phase 4: serving --------------------------------------------------------
+
+
+def _serve_burst(torch, server, name: str, samples, n_clients: int, device: str):
+    """Start ``server``, submit every sample to endpoint ``name`` from
+    ``n_clients`` threads, wait for every answer, stop. The launch counts
+    are set to 0 just before the first request and read after the last
+    answer. Returns (results in sample order, wall s, launches, stats)."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    server.start()
+    results: list = [None] * len(samples)
+    try:
+        fs.reset_launches()
+        t_start = time.perf_counter()
+
+        def client(k):
+            futs = [(i, server.submit(name, samples[i]))
+                    for i in range(k, len(samples), n_clients)]
+            for i, f in futs:
+                results[i] = f.result(timeout=300)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serving: client threads did not finish")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = dict(fs.LAUNCHES)
+        stats = server.stats()[name]
+    finally:
+        server.stop()
+    if any(r is None for r in results):
+        raise AssertionError("serving: some requests got no answer")
+    return results, wall, launches, stats
+
+
+def _served_vs_outputs(buckets, predictor, samples, results, step_for=None):
+    """Each served batch recollated as the server collated it and run
+    through ``predictor.outputs`` (with ``step_for(pad)`` as its step, if
+    given): ``(head, sample index, served, recomputed)`` numpy rows per
+    request and head."""
+    from hydragnn_tpu_torch.serve.batcher import serving_collate
+
+    by_batch: dict = {}
+    for i, r in enumerate(results):
+        by_batch.setdefault(r["batch"], []).append((r["slot"], i, r))
+    rows = []
+    for _, members in sorted(by_batch.items()):
+        members.sort(key=lambda m: m[0])
+        pad = next(b for b in buckets if b.as_tuple() == tuple(members[0][2]["bucket"]))
+        chunk = [samples[i] for _, i, _ in members]
+        step = step_for(pad) if step_for is not None else None
+        out = predictor.outputs(serving_collate(chunk, pad), step=step)
+        per_graph = predictor.split_graphs(out, [s.num_nodes for s in chunk])
+        for (_, i, r), heads in zip(members, per_graph):
+            for ihead, (a, b) in enumerate(zip(r["heads"], heads)):
+                rows.append((ihead, i, np.asarray(a), np.asarray(b)))
+    return rows
 
 
 def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: int = 4,
@@ -925,35 +1249,8 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
     t0 = time.perf_counter()
     server.warmup()
     log(f"[{kind}] warm-up: {time.perf_counter() - t0:.3f} s over {len(ep.buckets)} buckets")
-    server.start()
-    results: list = [None] * len(samples)
-    try:
-        fs.reset_launches()
-        t_start = time.perf_counter()
-
-        def client(k):
-            futs = [(i, server.submit(name, samples[i]))
-                    for i in range(k, len(samples), n_clients)]
-            for i, f in futs:
-                results[i] = f.result(timeout=300)
-
-        threads = [threading.Thread(target=client, args=(k,)) for k in range(n_clients)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("serving: client threads did not finish")
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
-        launches = dict(fs.LAUNCHES)
-        stats = server.stats()[name]
-    finally:
-        server.stop()
-
-    if any(r is None for r in results):
-        raise AssertionError("serving: some requests got no answer")
+    results, wall, launches, stats = _serve_burst(torch, server, name, samples, n_clients,
+                                                  device)
     n_batches = stats["batches"]
     log(f"[{kind}] served {stats['served']} requests in {n_batches} batches, failed "
         f"{stats['failed']}, shed {stats['shed']}, occupancy {stats['occupancy']:.3f}")
@@ -970,20 +1267,9 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
         raise AssertionError(f"serving: launch counts {launches} != {want}")
 
     # served answers == Predictor.outputs on the same padded batch
-    by_batch: dict = {}
-    for i, r in enumerate(results):
-        by_batch.setdefault(r["batch"], []).append((r["slot"], i, r))
     predictor = Predictor(model, aug, device=device)
-    worst = 0.0
-    for members in by_batch.values():
-        members.sort(key=lambda m: m[0])
-        pad = next(b for b in ep.buckets if b.as_tuple() == tuple(members[0][2]["bucket"]))
-        chunk = [samples[i] for _, i, _ in members]
-        out = predictor.outputs(serving_collate(chunk, pad))
-        per_graph = predictor.split_graphs(out, [s.num_nodes for s in chunk])
-        for (_, _, r), heads in zip(members, per_graph):
-            for a, b in zip(r["heads"], heads):
-                worst = max(worst, float(np.max(np.abs(np.asarray(a) - np.asarray(b)))))
+    worst = max(np.max(np.abs(a - b)) for _, _, a, b in
+                _served_vs_outputs(ep.buckets, predictor, samples, results))
     log(f"[{kind}] served vs Predictor.outputs on the same padded batches: "
         f"max|diff|={worst:.3e} (allowed {SERVE_ATOL})")
     if worst > SERVE_ATOL:
@@ -1323,7 +1609,8 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         f"~{kernel_ms * 1e3:.2f} us of device time ({100 * kernel_ms / med['step']:.2f}%)")
     if device == "cuda":
         _profile_steps(torch, step, state, host, device, f"[{card}] [{kind}]")
-    return {"launches": launches, "per_step": one_step, "breakdown": med, "layers": n_layers}
+    return {"launches": launches, "per_step": one_step, "breakdown": med, "layers": n_layers,
+            "model": model, "aug": aug}
 
 
 def _profile_steps(torch, step, state, host, device: str, tag: str, n_steps: int = 10) -> None:
@@ -1353,6 +1640,278 @@ def _profile_steps(torch, step, state, host, device: str, tag: str, n_steps: int
         f"per step of {wall_us / steps / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.2f}% busy, "
         f"{100 - 100 * busy_us / wall_us:.2f}% idle), {len(dev) / steps:.0f} device operations "
         f"per step")
+
+
+# -- phase 10: quantized serving ----------------------------------------------------
+
+
+def _count_code_flips(torch, steps, run):
+    """Run ``run(step)`` for each of two quantized steps and count, per
+    Dense call, the int8 codes on which the two differ (the codes are
+    recomputed from each call's input with the plain quantizer)."""
+    from hydragnn_tpu_torch.ops.quant_matmul import quantize_acts
+    from hydragnn_tpu_torch.serve import quant as sq
+
+    codes = [[], []]
+    orig = sq.quant_dense
+    try:
+        for i, step in enumerate(steps):
+            def spy(x, w_q, s_w, s_x, bias, _i=i):
+                codes[_i].append(quantize_acts(x, s_x).cpu())
+                return orig(x, w_q, s_w, s_x, bias)
+
+            sq.quant_dense = spy
+            run(step)
+    finally:
+        sq.quant_dense = orig
+    return [int((a != b).sum()) for a, b in zip(*codes)], sum(a.numel() for a in codes[0])
+
+
+def _whole_split_calibration(torch, kind: str, pred, train, samples, pad) -> None:
+    """Measured, not gated: the int8 step calibrated and certified on the
+    whole training split (collated 64 to a batch at the top bucket; a
+    sample's activations do not depend on its batch), and its error on all
+    requests: the bound a certificate that covers the traffic gives."""
+    from hydragnn_tpu_torch.serve import quant as sq
+    from hydragnn_tpu_torch.serve.batcher import serving_collate
+
+    cal = [serving_collate(train[i:i + 64], pad) for i in range(0, len(train), 64)]
+    scales = sq.collect_activation_scales(pred.model, cal, pred.compute_dtype)
+    step = sq.make_quantized_predict_step(pred.model, scales,
+                                          sq.quantize_dense_weights(pred.model, scales),
+                                          pred.compute_dtype)
+    bounds = sq.certify_quant_error(pred, step, cal)
+    traffic = [serving_collate(samples[i:i + 64], pad) for i in range(0, len(samples), 64)]
+    worst = sq.certify_quant_error(pred, step, traffic)
+    log(f"[{kind}] int8 step calibrated on all {len(train)} training samples (measured, not "
+        f"gated): bounds {[f'{b:.6f}' for b in bounds]}; on all {len(samples)} requests "
+        f"{[f'{w:.6f}' for w in worst]}")
+
+
+def _refusal_attribution(torch, kind: str, pred, train, pad, k: int) -> None:
+    """Measured, not gated (for a refusal outside its pin, and under
+    ``--quant-diagnostics``): the certified bound with one Dense quantized
+    at a time (the warm-up's calibration batches at the top bucket), and
+    the running variances of the feature norms, which scale the
+    quantization noise of the Dense outputs they normalise by
+    ``|scale| / sqrt(var + eps)``."""
+    from hydragnn_tpu_torch.serve import quant as sq
+    from hydragnn_tpu_torch.serve.batcher import serving_collate
+
+    cal = [serving_collate([s], pad) for s in sorted(train, key=lambda s: -s.num_nodes)[:k]]
+    scales = sq.collect_activation_scales(pred.model, cal, pred.compute_dtype)
+    weights = sq.quantize_dense_weights(pred.model, scales)
+    alone = {name: sq.certify_quant_error(pred, sq.make_quantized_predict_step(
+        pred.model, {name: scales[name]}, {name: weights[name]}, pred.compute_dtype), cal)
+        for name in scales}
+    norms = [(float(n.var.min()), float(n.var.max()),
+              float((n.scale.detach().abs() / torch.sqrt(n.var + n.epsilon)).max()))
+             for n in getattr(pred.model, "feature_layers", [])]
+    log(f"[{kind}] the certified bound by layer, one Dense quantized at a time: "
+        + "; ".join(f"{name} {max(b):.4f}" for name, b in alone.items())
+        + "; feature norms (running var min, max, max |scale| / sqrt(var + eps)): "
+        + "; ".join(f"{i}: {lo:.4g}, {hi:.4g}, {g:.3f}" for i, (lo, hi, g) in enumerate(norms)))
+
+
+def _check_refusal(kind: str, device: str, qserver, epq, name: str, cfg,
+                   bounds: list[float]) -> float:
+    """A refused int8 warm-up: no int8 step kept and ``start()`` raises
+    again. Returns the ``quant_tol`` the model then serves at, if its
+    refusal is the known one (``QUANT_KNOWN_REFUSALS``, at its pinned bound
+    on the card); raises otherwise."""
+    from hydragnn_tpu_torch.serve import QuantizationError
+
+    if epq.quant_steps or qserver.stats()[name]["quantized"]:
+        raise AssertionError("quantized serving: a refused endpoint kept an int8 step")
+    try:
+        qserver.start()
+    except QuantizationError:
+        pass
+    else:
+        qserver.stop()
+        raise AssertionError("quantized serving: a refused endpoint started (fp32)")
+    pinned = QUANT_KNOWN_REFUSALS.get(kind)
+    worst = max(bounds)
+    log(f"[{kind}] int8 warm-up REFUSED at quant_tol {cfg.quant_tol}: certified per-head "
+        f"bounds {[round(x, 6) for x in bounds]}; no int8 step kept, start() raises again; "
+        f"known refusal: {pinned} (+-{QUANT_REFUSAL_RTOL:.0%} on the card)")
+    if pinned is None:
+        raise AssertionError(f"quantized serving: {kind} refused at quant_tol {cfg.quant_tol}")
+    # the pin is a card measurement: a CPU rehearsal trains another model
+    if device == "cuda" and abs(worst - pinned) > QUANT_REFUSAL_RTOL * pinned:
+        raise AssertionError(f"quantized serving: {kind} refused at bound {worst:.6f}, not at "
+                             f"its pinned {pinned} +- {QUANT_REFUSAL_RTOL:.0%}")
+    return (pinned if device == "cuda" else worst) * (1 + QUANT_REFUSAL_RTOL)
+
+
+def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: dict,
+                        card: str = "", n_clients: int = 4, diagnostics: bool = False) -> dict:
+    """The model that the training phase just trained, behind two servers
+    in one run: fp32, then ``Serving.quantize: true`` at the config's
+    default ``quant_tol``, calibrated on the training samples; 512
+    concurrent requests each. The certified bounds must lie within
+    ``quant_tol``, but for the known refusal (``_check_refusal``: refused
+    at its pinned bound, then served at that bound). Gates: served int8
+    answers equal ``Predictor.outputs(batch, step=<the bucket's int8
+    step>)`` bit for bit; per served batch one ``quant_dense`` launch per
+    Dense call and the fp32 path's other launches; batch independence (the
+    calibration samples among the served requests keep within their
+    certified bounds of the fp32 answers); the card's int8 step against the
+    CPU route's with the same tables; the fp32 answers unchanged. The
+    whole traffic's int8 error against the bounds is logged: the
+    certificate does not cover it (ROADMAP queue C). ``diagnostics`` adds
+    ``_refusal_attribution`` and ``_whole_split_calibration``."""
+    from hydragnn_tpu_torch.graphs.batching import pick_bucket
+    from hydragnn_tpu_torch.models.common import intercept_dense
+    from hydragnn_tpu_torch.serve import (PredictionServer, Predictor, QuantizationError,
+                                          ServingConfig)
+    from hydragnn_tpu_torch.serve import quant as sq
+    from hydragnn_tpu_torch.serve.batcher import serving_collate
+
+    _, _, loaders, samples = prepare(seed, kind)  # requests carry GPS's encodings
+    train = loaders[0].samples
+    layers = int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"])
+    name = f"qm9_{kind}_trained"
+    fp32 = PredictionServer(ServingConfig(queue_depth=2048, flush_ms=5.0), device=device)
+    ep32 = fp32.add_model(name, model, aug, samples=samples)
+    fp32.warmup()
+    pred = ep32.predictor
+    probe = serving_collate(train[:64], ep32.buckets[-1])
+    before = [t.clone() for t in pred.outputs(probe)]
+    res32, wall32, _, stats32 = _serve_burst(torch, fp32, name, samples, n_clients, device)
+    worst32 = max(np.max(np.abs(a - b)) for _, _, a, b in
+                  _served_vs_outputs(ep32.buckets, pred, samples, res32))
+
+    cfg = ServingConfig(queue_depth=2048, flush_ms=5.0, quantize=True)
+    qserver = PredictionServer(cfg, device=device)
+    epq = qserver.add_model(name, model, aug, samples=train, buckets=ep32.buckets)
+    t0 = time.perf_counter()
+    try:
+        report = qserver.warmup()[name]["quant"]
+        refused = None
+    except QuantizationError as exc:
+        if exc.bounds is None:
+            raise
+        refused = exc.bounds
+        try:
+            tol = _check_refusal(kind, device, qserver, epq, name, cfg, refused)
+        except AssertionError:
+            _refusal_attribution(torch, kind, pred, train, ep32.buckets[-1],
+                                 cfg.quant_calib_batches)
+            raise
+        cfg = dataclasses.replace(cfg, quant_tol=tol)
+        qserver = PredictionServer(cfg, device=device)
+        epq = qserver.add_model(name, model, aug, samples=train, buckets=ep32.buckets)
+        t0 = time.perf_counter()
+        report = qserver.warmup()[name]["quant"]
+    warm_s = time.perf_counter() - t0
+    bounds = epq.quant_bounds
+    n_dense = {b: rep["n_dense_layers"] for b, rep in report["buckets"].items()}
+    log(f"[{kind}] int8 warm-up: {warm_s:.3f} s over {len(epq.buckets)} buckets, "
+        f"{cfg.quant_calib_batches} calibration batches each (the largest training samples "
+        f"each bucket admits), Dense layers per bucket {sorted(set(n_dense.values()))}; "
+        f"certified per-head bounds {[round(x, 6) for x in bounds]} (quant_tol "
+        f"{cfg.quant_tol}); per bucket "
+        f"{ {b: [round(x, 6) for x in r['error_bounds']] for b, r in report['buckets'].items()} }")
+    after = pred.outputs(probe)
+    if not all(torch.equal(a, b) for a, b in zip(before, after)):
+        raise AssertionError("quantized serving: the int8 half changed the fp32 answers")
+
+    calls = []
+    with intercept_dense(lambda m, x: calls.append(m)):
+        pred.outputs(probe)
+    if any(n != len(calls) for n in n_dense.values()):
+        raise AssertionError(f"quantized serving: {n_dense} Dense layers calibrated, "
+                             f"{len(calls)} Dense calls per forward")
+    resq, wallq, launches, statsq = _serve_burst(torch, qserver, name, samples, n_clients,
+                                                 device)
+    n_batches = statsq["batches"]
+    want = _scaled(dict(launches_per_forward(kind, layers), quant_dense=len(calls)), n_batches)
+    log(f"[{kind}] int8 serving: {statsq['served']} requests in {n_batches} batches, "
+        f"quantized buckets {statsq['quantized']}, launches {launches} (expected {want}: "
+        f"{len(calls)} quant_dense per batch, one per Dense call, and the fp32 path's others)")
+    if statsq["served"] != len(samples) or statsq["failed"] or statsq["quantized"] != len(
+            epq.buckets):
+        raise AssertionError(f"quantized serving: {statsq}")
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"quantized serving: launch counts {launches} != {want}")
+
+    rows = _served_vs_outputs(epq.buckets, pred, samples, resq,
+                              step_for=lambda pad: epq.quant_steps[pad.as_tuple()])
+    worst = max(float(np.max(np.abs(a - b))) for _, _, a, b in rows)
+    # against the fp32 answers of the same padded batches: the calibration
+    # samples (what the certificate covers) and the whole traffic
+    calib = set()
+    for pad in epq.buckets:
+        fitting = [s for s in train if pick_bucket([pad], s.num_nodes, s.num_edges, 0, 1)]
+        calib |= {id(s) for s in sorted(fitting, key=lambda s: -s.num_nodes)[
+            :cfg.quant_calib_batches]}
+    dev_cal, dev_all = [0.0] * len(bounds), [0.0] * len(bounds)
+    over = 0  # head answers of the traffic outside their certified bound
+    for (ihead, i, a, _), (_, _, _, f) in zip(
+            rows, _served_vs_outputs(epq.buckets, pred, samples, resq)):
+        d = float(np.max(np.abs(a - f)))
+        dev_all[ihead] = max(dev_all[ihead], d)
+        over += d > bounds[ihead]
+        if id(samples[i]) in calib:
+            dev_cal[ihead] = max(dev_cal[ihead], d)
+    n_cal = sum(id(s) in calib for s in samples)
+    log(f"[{kind}] served int8 vs Predictor.outputs(step=int8 step) on the same padded "
+        f"batches: max|diff| {worst:.3e} (allowed 0); vs the fp32 answers of those batches, "
+        f"per head: batch independence, the {n_cal} calibration samples served among the "
+        f"traffic {[f'{x:.6f}' for x in dev_cal]} (allowed the bounds + {QUANT_CALIB_ATOL}); "
+        f"the issue's traffic gate, all {len(samples)} requests "
+        f"{[f'{x:.6f}' for x in dev_all]} = {[round(d / b, 3) for d, b in zip(dev_all, bounds)]}"
+        f" of the bounds, {over} head answers over their bound "
+        f"({'met' if not over else 'NOT MET: the 4-sample certificate does not bound the traffic, ROADMAP queue C'})")
+    if worst > 0:
+        raise AssertionError("quantized serving: served answers differ from outputs(step=...)")
+    if n_cal == 0 or any(d > b + QUANT_CALIB_ATOL for d, b in zip(dev_cal, bounds)):
+        raise AssertionError("quantized serving: batch independence: a calibration sample "
+                             "served among the traffic is outside its certified bound")
+    if diagnostics:
+        _refusal_attribution(torch, kind, pred, train, epq.buckets[-1], cfg.quant_calib_batches)
+        _whole_split_calibration(torch, kind, pred, train, samples, epq.buckets[-1])
+
+    # the card's int8 step against the CPU route's, with the same tables
+    top = epq.buckets[-1]
+    step = epq.quant_steps[top.as_tuple()]
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_weights = {k: tuple(None if t is None else t.cpu() for t in v)
+                   for k, v in step.weights.items()}
+    cpu_step = sq.make_quantized_predict_step(cpu_model, step.scales, cpu_weights,
+                                              step.compute_dtype)
+    cpu_pred = Predictor(cpu_model, aug, device="cpu")
+    flips, n_codes = _count_code_flips(
+        torch, (step, cpu_step),
+        lambda s: (pred if s is step else cpu_pred).outputs(probe, step=s))
+    _, dev_rows = pred.gather(probe, out=pred.outputs(probe, step=step))
+    _, cpu_rows = cpu_pred.gather(probe, out=cpu_pred.outputs(probe, step=cpu_step))
+    # with the same codes every int8 layer is exact, so the two steps differ
+    # only as their fp32 forwards do (CPU_PARITY); a flipped code would move
+    # the heads by a share of the int8 error, and none flips on the card
+    # (runs so far: 0 flips, answers bit-equal, all three trained models)
+    diffs = [float(np.max(np.abs(a - b) - CPU_PARITY["rtol"] * np.abs(b)))
+             for a, b in zip(dev_rows, cpu_rows)]
+    log(f"[{kind}] int8 step at the top bucket, {device} vs the CPU route with the same scales "
+        f"and weights: int8 codes that differ per Dense call {flips} of {n_codes} (allowed "
+        f"0); per head max(|diff| - {CPU_PARITY['rtol']} |CPU answer|) "
+        f"{[f'{d:.3e}' for d in diffs]} (allowed {CPU_PARITY['atol']})")
+    if sum(flips) or any(d > CPU_PARITY["atol"] for d in diffs):
+        raise AssertionError("quantized serving: the card's int8 step disagrees with the CPU's")
+
+    lat32 = np.array([r["latency_s"] for r in res32]) * 1e3
+    latq = np.array([r["latency_s"] for r in resq]) * 1e3
+    log(f"[{card}] [{kind}] trained model, 512 requests from {n_clients} client threads: fp32 "
+        f"p50 {np.percentile(lat32, 50):.2f} ms, p99 {np.percentile(lat32, 99):.2f} ms, "
+        f"{len(samples) / wall32:.1f} graphs/s ({stats32['batches']} batches; served vs "
+        f"Predictor.outputs {worst32:.1e}); int8 p50 {np.percentile(latq, 50):.2f} ms, p99 "
+        f"{np.percentile(latq, 99):.2f} ms, {len(samples) / wallq:.1f} graphs/s "
+        f"({n_batches} batches)")
+    if worst32 > SERVE_ATOL:
+        raise AssertionError("serving: fp32 served answers differ from Predictor.outputs")
+    return {"launches": launches, "batches": n_batches, "dense_calls": len(calls),
+            "bounds": bounds, "refused": refused, "quant_tol": cfg.quant_tol}
 
 
 # -- phase 6: the convergence canaries ------------------------------------------
@@ -1889,7 +2448,7 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     if device == "cuda":
         _profile_steps(torch, step, state, host, device, f"[{card}] [mlip]")
     return {"launches": launches, "per_step": one_step, "breakdown": med, "model": model,
-            "aug": aug, "layers": layers}
+            "aug": aug, "layers": layers, "batch": host}
 
 
 # -- phase 9: molecular dynamics ----------------------------------------------------
@@ -2145,9 +2704,75 @@ def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = 
     return out
 
 
+# -- phase 11: fp8 ------------------------------------------------------------------
+
+
+def fp8_phase(torch, gin_model, gin_batch, mlip_model, mlip_batch, card: str = "") -> dict:
+    """Kernel B7 against its plain version at the oc20 EGNN's edge-MLP
+    Dense of layers 0 and 1 on the EGNN's training batch (their real
+    inputs), both formats, and its time there; then ``certify_fp8_dense`` (the fp8
+    layer's own entry point, the kernel on the card) on each Dense call of
+    the trained GIN's fp32 forward at the top bucket, both formats:
+    max-abs and relative-Frobenius error against the fp32 product. The
+    launch counts are set to 0 just before the certification and read after
+    it."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    edge = {c[0]: c for c in dense_inputs(torch, mlip_model, mlip_batch, torch.float32)}
+    err, out = 0.0, {}
+    for layer in (0, 1):  # K = 2 F + 1: 3 on layer 0 (one node feature), 129 on layer 1
+        name, module, x = edge[f"graph_convs.{layer}.edge_mlp.dense_0"]
+        w = module.weight.detach().float().t()
+        b = module.bias.detach().float()
+        log(f"fp8_dense at the oc20 EGNN's edge-MLP Dense {name} on its training batch "
+            f"(N={mlip_batch.num_nodes}, E={mlip_batch.num_edges}): x[{x.shape[0]},"
+            f"{x.shape[1]}] x W[{w.shape[0]},{w.shape[1]}]")
+        err = max(err, *(check_fp8_dense(torch, name, x, w, b, fmt) for fmt in ("e4m3", "e5m2")))
+        if not x.is_cuda:
+            continue
+        w8, s_w8 = f8.quantize_weight_fp8(w, "e4m3")
+        s_x8 = f8.activation_scale_fp8(x, "e4m3")
+        ms = graph_time_ms(torch, lambda: f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b, "e4m3")[1])
+        plain_ms = graph_time_ms(torch, lambda: f8.reference_fp8_dense(x, w8, s_w8, s_x8, b,
+                                                                       "e4m3"))
+        m, k = x.shape
+        n = w.shape[1]
+        bound_ms = max((m * k * 4 + k * n + 2 * n * 4 + 4 + m * n * 4) / HBM_BYTES_PER_S,
+                       2 * m * k * n / INT8_OPS) * 1e3
+        log(f"[{card}]   fp8_dense e4m3 @ x[{m},{k}] f32, W_q[{k},{n}]: kernel "
+            f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us")
+        out[layer] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, shape=f"x[{m},{k}]")
+
+    calls = dense_inputs(torch, gin_model, gin_batch, torch.float32)
+    fs.reset_launches()
+    report = {fmt: [(cname, f8.certify_fp8_dense(
+        xc, mod.weight.detach().t(), None if mod.bias is None else mod.bias.detach(), fmt))
+        for cname, mod, xc in calls] for fmt in ("e4m3", "e5m2")}
+    on_card = next(gin_model.parameters()).is_cuda
+    _sync(torch, "cuda" if on_card else "cpu")
+    launches = dict(fs.LAUNCHES)
+    want = dict(dict.fromkeys(KERNELS, 0), fp8_dense=2 * len(calls))
+    log(f"certify_fp8_dense on the trained GIN's {len(calls)} Dense calls at the top bucket "
+        f"(fp32 forward), launches {launches} (expected {want}):")
+    for fmt, rows in report.items():
+        log(f"  {fmt}: " + "; ".join(
+            f"{cname} {r['max_abs_err']:.3e} / {r['rel_fro_err']:.3e}" for cname, r in rows)
+            + " (max-abs / relative-Frobenius error)")
+    if on_card and launches != want:
+        raise AssertionError(f"fp8: launch counts {launches} != {want}")
+    if not all(np.isfinite([r["max_abs_err"], r["rel_fro_err"]]).all()
+               for rows in report.values() for _, r in rows):
+        raise AssertionError("fp8: a certified error is not finite")
+    return {"launches": launches, "max_abs_err": err, "egnn": out, "report": report}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--quant-diagnostics", action="store_true",
+                        help="phase 10 also attributes each model's int8 bound to its Dense "
+                             "layers and calibrates on the whole training split (logged only)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2161,24 +2786,50 @@ def main(argv=None) -> int:
     if pkg.parent != ROOT:
         raise SystemExit(f"chip_smoke: hydragnn_tpu_torch imported from {pkg}, not this checkout")
     build_phase()
-    _, _, loaders, samples = prepare(args.seed)
+    _, aug_gin, loaders, samples = prepare(args.seed)
     n_max = update_config(qm9_config("gps"), loaders[0].samples)[
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
     top, small = bucket_batches(loaders, samples)
     entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max)
+    from hydragnn_tpu_torch.models import create_model_config
+
+    entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda",
+                                                             seed=args.seed), top)
     second_derivative_phase(torch, top)
-    served, trained = {}, {}
+    served, trained, quantized = {}, {}, {}
     for kind in MODELS:
         served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
         trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
                                        card=dev["smi"])
+        quantized[kind] = quant_serving_phase(torch, "cuda", args.seed, kind,
+                                              trained[kind]["model"], trained[kind]["aug"],
+                                              card=dev["smi"],
+                                              diagnostics=args.quant_diagnostics)
     canary_phase(torch, "cuda", card=dev["smi"])
     mlip = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"])
     systems = md_systems(mlip["aug"], args.seed)
     entries.append(cell_list_phase(torch, systems))
     ran_md = md_phase(torch, "cuda", systems, mlip["model"], mlip["layers"], card=dev["smi"])
+    fp8 = fp8_phase(torch, trained["gin"]["model"], top, mlip["model"], mlip["batch"],
+                    card=dev["smi"])
     for e in entries:
         name = e["name"]
+        if name == "quant_dense":
+            # launches: the quantized serving runs of the three trained models
+            e["launches"] = sum(quantized[k]["launches"][name] for k in MODELS)
+            e["launches_per_served_batch"] = {
+                k: quantized[k]["launches"][name] / quantized[k]["batches"] for k in MODELS}
+            if any(quantized[k]["launches"][name] <= 0 for k in MODELS):
+                raise AssertionError("quant_dense was not launched on a quantized serving path")
+            continue
+        if name == "fp8_dense":
+            # launches: certify_fp8_dense over the trained GIN's Dense calls
+            e["launches"] = fp8["launches"][name]
+            e["max_abs_err"] = max(e["max_abs_err"], fp8["max_abs_err"])
+            e["egnn_edge_mlp"] = fp8["egnn"]
+            if e["launches"] <= 0:
+                raise AssertionError("fp8_dense was not launched by certify_fp8_dense")
+            continue
         # launches: the main paths' runs together (the three qm9.json
         # run_training runs, the MLIP run_training run, the two MD
         # rollouts); the serving runs' counts and the per-model rates beside
@@ -2204,6 +2855,10 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name} was not launched on {kind}'s training path")
             if launches_per_forward(kind, layers)[name] and served[kind]["launches"][name] <= 0:
                 raise AssertionError(f"{name} was not launched on {kind}'s serving path")
+    log("quantized serving, certified per-head bounds at the default quant_tol 0.1: " + "; ".join(
+        f"{k} {[round(b, 6) for b in (q['refused'] or q['bounds'])]} "
+        f"({'REFUSED at its pinned bound, served at ' + str(q['quant_tol']) if q['refused'] else 'certified'})"
+        for k, q in quantized.items()))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the result lines")
     log(dev["smi"])  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": entries}), flush=True)

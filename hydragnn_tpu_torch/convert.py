@@ -74,6 +74,13 @@ def _port_name(path: tuple) -> str:
     raise KeyError(f"no port module for flax variable {'/'.join(path)}")
 
 
+def port_module_name(jax_path: str) -> str:
+    """A flax module path as the JAX package's quantized serving keys its
+    tables (``graph_convs_0/nn/dense_0``) -> the port's module name
+    (``graph_convs.0.nn.dense_0``)."""
+    return _port_name(tuple(jax_path.split("/")) + ("bias",)).removesuffix(".bias")
+
+
 def port_arrays(tree: dict) -> dict[str, np.ndarray]:
     """A flax-shaped tree (variables, their gradients or optimizer moments)
     as ``{port state_dict key: array}``, kernels transposed to ``[out, in]``.
@@ -146,4 +153,5 @@ def batch_from_numpy(nb) -> GraphBatch:
     return GraphBatch(**{f: torch.from_numpy(a) for f, a in arrays.items()}, meta=meta)
 
 
-__all__ = ["batch_from_numpy", "load_jax_variables", "load_optax_adam_state", "port_arrays"]
+__all__ = ["batch_from_numpy", "load_jax_variables", "load_optax_adam_state", "port_arrays",
+           "port_module_name"]

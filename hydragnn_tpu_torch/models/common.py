@@ -14,8 +14,10 @@ computes:
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Callable, Sequence
+from typing import Callable, Iterator, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -71,10 +73,35 @@ def variance_scaling_uniform_(weight: torch.Tensor, scale: float,
         return weight.uniform_(-limit, limit, generator=generator)
 
 
+# The one interception point of every Dense call (the counterpart of flax's
+# ``nn.intercept_methods``, which the JAX package's quantized serving relies
+# on): a function ``(module, x) -> y or None`` that ``Dense.forward`` asks
+# first. A context variable, not a module attribute: the quantized serving
+# certification runs the fp32 and int8 steps in turn on one thread, and
+# several endpoints' dispatcher threads run steps at once, each in its own
+# context.
+_DENSE_INTERCEPTOR: contextvars.ContextVar = contextvars.ContextVar(
+    "dense_interceptor", default=None)
+
+
+@contextlib.contextmanager
+def intercept_dense(fn: Callable[[nn.Module, torch.Tensor], torch.Tensor | None]
+                    ) -> Iterator[None]:
+    """Inside, every ``Dense`` call on this thread first calls ``fn(module,
+    x)``: a tensor it returns is the layer's output, ``None`` lets the layer
+    compute as usual. Outside, nothing changes."""
+    token = _DENSE_INTERCEPTOR.set(fn)
+    try:
+        yield
+    finally:
+        _DENSE_INTERCEPTOR.reset(token)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``y = x @ W.T + b`` after promoting ``x``, ``W``
     and ``b`` to their common dtype. ``weight`` is ``[out, in]``; with
-    ``use_bias=False`` there is no ``bias`` parameter."""
+    ``use_bias=False`` there is no ``bias`` parameter. Calls can be
+    intercepted (:func:`intercept_dense`)."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: torch.Generator | None = None, use_bias: bool = True):
@@ -84,6 +111,11 @@ class Dense(nn.Module):
         lecun_normal_(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        interceptor = _DENSE_INTERCEPTOR.get()
+        if interceptor is not None:
+            y = interceptor(self, x)
+            if y is not None:
+                return y
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         if self.bias is not None:
             dtype = torch.promote_types(dtype, self.bias.dtype)
@@ -294,6 +326,7 @@ __all__ = [
     "equivariant_coordinate_update",
     "get_activation",
     "get_loss",
+    "intercept_dense",
     "lecun_normal_",
     "masked_mae",
     "masked_mse",

@@ -3,8 +3,9 @@ with a plain C interface, loaded with ``ctypes``.
 
 Each source of ``hydragnn_tpu_torch/csrc`` is built at first use into its
 own library in ``build/`` at the repository root, all ``nvcc`` processes
-started together, under a name that carries a hash of the source and the
-flags, so an edited source is never served by a stale library. Nothing here
+started together, under a name that carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is never served by a stale library. Nothing here
 runs at import time: the CPU tests import every module of the package on
 machines without ``nvcc``.
 """
@@ -45,6 +46,13 @@ SOURCES = {
         "cell_list_count": [_vp] * 6 + [_i32] * 5 + [_f32, _vp, _vp],
         "cell_list_write": [_vp] * 6 + [_i32] * 5 + [_f32, _vp, _vp, _vp, _i32, _vp],
     },
+    "quant_matmul.cu": {
+        "quant_dense_fwd": [_i32, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _i32, _i32, _i32,
+                            _vp],
+    },
+    "fp8_matmul.cu": {
+        "fp8_dense_fwd": [_i32] + [_vp] * 7 + [_i32] * 3 + [_vp],
+    },
 }
 
 _lock = threading.Lock()
@@ -73,6 +81,8 @@ def find_nvcc() -> str:
 
 def _library_path(source: str) -> Path:
     h = hashlib.sha1((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared headers a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
 

@@ -50,14 +50,16 @@ import torch
 
 # Launches of each kernel of the package since the last reset, counted where
 # the wrapper launches it (the CPU route does not count); the softmax kernels
-# of ``ops.fused_softmax`` and the cell-list kernel of ``ops.fused_cell_list``
-# (once per build, for its count and write launches) count here too.
+# of ``ops.fused_softmax``, the cell-list kernel of ``ops.fused_cell_list``
+# (once per build, for its count and write launches) and the quantized dense
+# kernels of ``ops.quant_matmul`` and ``ops.fp8_matmul`` count here too.
 # ``gather_scatter_sum_bwd`` counts the gather-scatter kernel's transposed
 # launches from the backward, which ``gather_scatter_sum`` does not.
 # Dispatcher threads of several served models may launch at once, so updates
 # hold the lock.
 LAUNCHES = {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 0,
-            "segment_softmax": 0, "masked_softmax": 0, "cell_list": 0}
+            "segment_softmax": 0, "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
+            "fp8_dense": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

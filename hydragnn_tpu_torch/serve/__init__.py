@@ -1,5 +1,6 @@
 """Serving tier: typed admission, bucketed micro-batching, the shared
-predict core and the multi-model prediction server."""
+predict core, int8 quantized serving and the multi-model prediction
+server."""
 
 from .admission import (  # noqa: F401
     AdmissionError,
@@ -14,6 +15,7 @@ from .admission import (  # noqa: F401
 )
 from .batcher import MicroBatcher, canonical_meta, serving_collate  # noqa: F401
 from .predictor import Predictor  # noqa: F401
+from .quant import QuantizationError  # noqa: F401
 from .server import (  # noqa: F401
     ModelEndpoint,
     PredictionServer,
@@ -30,6 +32,7 @@ __all__ = [
     "OversizeError",
     "PredictionServer",
     "Predictor",
+    "QuantizationError",
     "QueueFullError",
     "Request",
     "RequestQueue",

@@ -19,7 +19,8 @@ from ..utils import resolve_device
 class Predictor:
     """A model (on ``device``) bound to its augmented config.
 
-    - :meth:`outputs` — run the predict step on one padded batch;
+    - :meth:`outputs` — run the predict step (or a given one, such as the
+      int8 step of ``serve.quant``) on one padded batch;
     - :meth:`gather` — per-head (true, pred) numpy arrays of the real rows;
     - :meth:`split_graphs` — per-graph views of a batch's outputs;
     - :meth:`denormalize` / :meth:`denormalize_preds` — min-max
@@ -43,12 +44,13 @@ class Predictor:
         self.cols = head_columns(self.spec)
         self._scales = None
 
-    def outputs(self, batch) -> list[torch.Tensor]:
+    def outputs(self, batch, step=None) -> list[torch.Tensor]:
         """Per-head fp32 predictions for one padded batch (still padded;
-        callers mask), on the model's device."""
+        callers mask), on the model's device. ``step`` replaces the fp32
+        predict step (the serving tier passes its int8 step here)."""
         if batch.device != self.device:
             batch = batch.to(self.device)
-        return self.predict_step(batch)
+        return (step or self.predict_step)(batch)
 
     def gather(self, batch, out=None):
         """(trues, preds): per-head numpy arrays of the REAL rows of

@@ -2,13 +2,18 @@
 card, kernels built at warm-up.
 
 Counterpart of ``hydragnn_tpu/serve/server.py`` without its compile cache,
-AOT artifacts, fleet, quantisation, telemetry plane and env flags (later
-slices):
+AOT artifacts, fleet, telemetry plane and env flags (later slices):
 
 - **boot**: register models (architecture + weights + augmented config);
   each endpoint derives its pad-bucket table (the same
   ``compute_pad_buckets`` table training uses) and :meth:`warmup` runs one
   dummy batch per bucket, which builds the CUDA kernels;
+- **int8** (``Serving.quantize``): warm-up also calibrates one int8 step per
+  bucket on the endpoint's calibration samples (``add_model``'s
+  ``samples``) and certifies its per-head error against the fp32 answers
+  (``serve.quant``); a bound above ``Serving.quant_tol`` raises
+  :class:`~hydragnn_tpu_torch.serve.quant.QuantizationError`, and an
+  endpoint with ``quantize`` set never serves fp32;
 - **steady state**: a bounded request queue with typed load-shedding feeds
   a per-endpoint micro-batcher (``serve.batcher``) whose batches run
   through the shared :class:`~hydragnn_tpu_torch.serve.predictor.Predictor`;
@@ -27,7 +32,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..graphs.batching import PadSpec, compute_pad_buckets
+from ..graphs.batching import PadSpec, compute_pad_buckets, pick_bucket
 from ..graphs.graph import GraphSample
 from ..utils import resolve_device
 from .admission import (
@@ -40,21 +45,21 @@ from .admission import (
 )
 from .batcher import MicroBatcher, serving_collate
 from .predictor import Predictor
+from .quant import (
+    QuantizationError,
+    certify_quant_error,
+    collect_activation_scales,
+    make_quantized_predict_step,
+    quantize_dense_weights,
+)
 
-
-# Serving keys of the JAX package's block that belong to later slices of
-# the port: accepted at their defaults (a config augmented by the JAX package
-# carries them), refused when they ask for the feature. The in-process
-# server ignores ``fleet`` in the JAX package too.
-_LATER_SLICE_KEYS = ("quantize", "quant_tol", "quant_calib_batches", "fleet")
+# Serving keys of the JAX package's block that the port does not read: a
+# config augmented by the JAX package carries them. The in-process server
+# ignores ``fleet`` in the JAX package too.
+_LATER_SLICE_KEYS = ("fleet",)
 
 
 def _without_later_keys(block: dict) -> dict:
-    if block.get("quantize"):
-        raise NotImplementedError(
-            "quantized serving (Serving.quantize) is not ported yet; it comes with the "
-            "quantized-serving slice (kernel 6, ops/quant_matmul.py)"
-        )
     return {k: v for k, v in block.items() if k not in _LATER_SLICE_KEYS}
 
 
@@ -68,6 +73,12 @@ class ServingConfig:
     warmup: bool = True        # run every bucket once at boot (builds kernels)
     max_batch_graphs: int = 0  # per-batch request cap (0 = bucket capacity)
     deadline_ms: float = 0.0   # default per-request deadline (0 = none)
+    # int8 inference (serve.quant): calibrate per-(model, bucket) activation
+    # scales at warm-up, serve through the int8 kernel, refuse to serve when
+    # a head's calibrated error against the fp32 answer exceeds quant_tol
+    quantize: bool = False
+    quant_tol: float = 0.1         # per-head max abs error ceiling vs fp32
+    quant_calib_batches: int = 4   # calibration batches per (model, bucket)
 
     @staticmethod
     def from_config(config: dict | None) -> "ServingConfig":
@@ -106,6 +117,18 @@ class ServingConfig:
                 "Serving.max_batch_graphs must be >= 0 (0 = bucket capacity), got "
                 f"{self.max_batch_graphs}"
             )
+        if float(self.quant_tol) <= 0:
+            raise ValueError(f"Serving.quant_tol must be > 0, got {self.quant_tol}")
+        if int(self.quant_calib_batches) < 1:
+            raise ValueError(
+                f"Serving.quant_calib_batches must be >= 1, got {self.quant_calib_batches}"
+            )
+        if self.quantize and not self.warmup:
+            raise ValueError(
+                "Serving.quantize requires Serving.warmup: calibration and the error-bound "
+                "gate run at warm-up; without it the server would serve fp32 despite "
+                "quantize=true"
+            )
         return self
 
 
@@ -135,7 +158,8 @@ class ModelEndpoint:
     """One served model: predictor + bucket table + queue + counters."""
 
     def __init__(self, name: str, predictor: Predictor, buckets: Sequence[PadSpec],
-                 example: GraphSample, cfg: ServingConfig, denormalize: bool = False):
+                 example: GraphSample, cfg: ServingConfig, denormalize: bool = False,
+                 calib_samples: Sequence[GraphSample] | None = None):
         self.name = name
         self.predictor = predictor
         self.buckets = sorted(buckets, key=lambda p: p.as_tuple())
@@ -143,6 +167,11 @@ class ModelEndpoint:
         self.cfg = cfg
         self.denormalize = denormalize
         self.warmed = False
+        # int8 half (cfg.quantize): one quantized step per bucket, filled by
+        # warm_quant only when every head's bound is within quant_tol
+        self.calib_samples = list(calib_samples) if calib_samples else [example]
+        self.quant_steps: dict[tuple, object] = {}
+        self.quant_bounds: list[float] | None = None
         self.thread: threading.Thread | None = None
         self._lock = threading.Lock()
         self.counters = {  # guarded-by: _lock
@@ -196,7 +225,8 @@ class ModelEndpoint:
 
     def warm(self) -> dict:
         """One dummy batch through every bucket (the first builds the CUDA
-        kernels); returns seconds per bucket."""
+        kernels), then, with ``quantize``, the int8 half
+        (:meth:`warm_quant`); returns seconds per bucket."""
         report = {}
         dummy = _dummy_sample(self.example)
         for pad in self.buckets:
@@ -206,7 +236,77 @@ class ModelEndpoint:
                 torch.cuda.synchronize(self.predictor.device)
             report[repr(pad)] = time.perf_counter() - t0
         self.warmed = True
+        if self.cfg.quantize:
+            report["quant"] = self.warm_quant()
         return report
+
+    def warm_quant(self) -> dict:
+        """The int8 half of warm-up (``serve.quant``): per bucket, activation
+        scales calibrated on the largest calibration samples the bucket
+        admits (collated one per batch, as serving collates them), int8
+        weights and the quantized step, and per-head error bounds against
+        the fp32 answers on those batches. A bucket without a calibration
+        sample, or a bound above ``Serving.quant_tol``, raises
+        :class:`QuantizationError` and leaves no int8 step behind. Returns
+        the report (per-bucket layers and bounds, the overall bounds)."""
+        pred = self.predictor
+        self.quant_steps = {}
+        self.quant_bounds = None
+        report: dict = {"buckets": {}}
+        bounds = [0.0] * len(pred.cols)
+        steps = {}
+        k = int(self.cfg.quant_calib_batches)
+        for pad in self.buckets:
+            fitting = [s for s in self.calib_samples
+                       if pick_bucket([pad], s.num_nodes, s.num_edges, 0, 1)]
+            if not fitting:
+                # certifying on a synthetic dummy would give ~0 bounds that
+                # say nothing about real traffic
+                raise QuantizationError(
+                    f"endpoint {self.name!r}: no calibration sample fits bucket {pad!r}; "
+                    "pass `samples` covering every bucket to add_model (or drop the "
+                    "bucket) before enabling Serving.quantize"
+                )
+            batches = [serving_collate([s], pad)
+                       for s in sorted(fitting, key=lambda s: -s.num_nodes)[:k]]
+            t0 = time.perf_counter()
+            scales = collect_activation_scales(pred.model, batches, pred.compute_dtype)
+            weights = quantize_dense_weights(pred.model, scales)
+            step = make_quantized_predict_step(pred.model, scales, weights, pred.compute_dtype)
+            pad_bounds = certify_quant_error(pred, step, batches)
+            bounds = [max(a, b) for a, b in zip(bounds, pad_bounds)]
+            steps[pad.as_tuple()] = step
+            report["buckets"][repr(pad)] = {
+                "seconds": time.perf_counter() - t0,
+                "n_dense_layers": len(weights),
+                "error_bounds": pad_bounds,
+            }
+        report["error_bounds"] = bounds
+        report["quant_tol"] = self.cfg.quant_tol
+        over = [(i, b) for i, b in enumerate(bounds) if b > self.cfg.quant_tol]
+        if over:
+            raise QuantizationError(
+                f"endpoint {self.name!r}: calibrated int8 error exceeds "
+                f"Serving.quant_tol={self.cfg.quant_tol} for head(s) "
+                f"{[(i, round(b, 6)) for i, b in over]}; serve fp32 (quantize=false) or "
+                "raise quant_tol if the error is acceptable for this model",
+                bounds=bounds,
+            )
+        self.quant_steps = steps
+        self.quant_bounds = bounds
+        return report
+
+    def _step_for(self, pad: PadSpec):
+        """The bucket's int8 step with ``quantize``, else the fp32 step."""
+        if not self.cfg.quantize:
+            return None
+        step = self.quant_steps.get(pad.as_tuple())
+        if step is None:
+            raise QuantizationError(
+                f"endpoint {self.name!r}: no certified int8 step for bucket {pad!r} "
+                "(Serving.quantize never serves fp32)"
+            )
+        return step
 
     def serve_batch(self, members: list[Request], pad: PadSpec) -> None:
         # dispatch-time gate: re-check deadlines and claim every future so a
@@ -227,7 +327,7 @@ class ModelEndpoint:
             return
         try:
             batch = serving_collate([r.sample for r in members], pad)
-            out = self.predictor.outputs(batch)
+            out = self.predictor.outputs(batch, step=self._step_for(pad))
             per_graph = self.predictor.split_graphs(out, [r.sample.num_nodes for r in members])
             if self.denormalize:
                 per_graph = [self.predictor.denormalize_preds(heads) for heads in per_graph]
@@ -285,7 +385,9 @@ class PredictionServer:
         """Register one model (``config`` is its augmented config). The
         bucket table is ``buckets`` or derived from ``samples``;
         ``example`` (default ``samples[0]``) fixes the feature-width
-        signature requests are checked against."""
+        signature requests are checked against; with ``Serving.quantize``,
+        ``samples`` (default: ``example``) are also the calibration samples
+        of the int8 warm-up."""
         if self._running:
             raise RuntimeError("add_model before start(): registration is a boot-time operation")
         if name in self._models:
@@ -303,7 +405,8 @@ class PredictionServer:
         if example is None:
             raise ValueError("add_model needs an `example` sample (or `samples`)")
         predictor = Predictor(model, config, device=self.device)
-        ep = ModelEndpoint(name, predictor, buckets, example, self.cfg, denormalize=denormalize)
+        ep = ModelEndpoint(name, predictor, buckets, example, self.cfg, denormalize=denormalize,
+                           calib_samples=samples)
         self._models[name] = ep
         return ep
 
@@ -323,6 +426,11 @@ class PredictionServer:
             for ep in self._models.values():
                 if not ep.warmed:
                     ep.warm()
+                elif ep.cfg.quantize and not ep.quant_steps:
+                    # the fp32 half is warm but the int8 half is missing (a
+                    # caught QuantizationError of an earlier warmup()): run
+                    # it again, so start() serves int8 or raises
+                    ep.warm_quant()
         self._stopping = False
         for ep in self._models.values():
             if ep.queue.closed:
@@ -394,7 +502,8 @@ class PredictionServer:
 
     def stats(self) -> dict:
         """Per-model counters plus batch occupancy (real graphs per padded
-        graph slot)."""
+        graph slot), the number of int8 buckets (``quantized``) and their
+        certified per-head bounds (``quant_bounds``, None without)."""
         out = {}
         for name, ep in self._models.items():
             with ep._lock:
@@ -405,6 +514,8 @@ class PredictionServer:
             c["occupancy"] = (
                 c["real_graph_slots"] / c["graph_slots"] if c["graph_slots"] else None
             )
+            c["quantized"] = len(ep.quant_steps)
+            c["quant_bounds"] = ep.quant_bounds
             out[name] = c
         return out
 

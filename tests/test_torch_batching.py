@@ -228,17 +228,27 @@ def test_update_config_rejects_bad_serving_and_precision():
 
 
 def test_serving_block_of_the_jax_package_is_accepted_until_it_asks_for_more():
-    """A config augmented by the JAX package carries its later-slice Serving
-    keys at their defaults: accepted. Asking for quantized serving raises
-    NotImplementedError naming the slice."""
+    """A config augmented by the JAX package carries its Serving keys: the
+    port reads the quantized-serving ones (``quantize``, ``quant_tol``,
+    ``quant_calib_batches``) with the JAX package's defaults and validation,
+    and accepts ``fleet``, which the in-process server does not read."""
     samples = deterministic_graph_data(number_configurations=4, seed=0)
     jaug = jax_update_config(copy.deepcopy(CI_CONFIG), samples)
     assert "quantize" in jaug["Serving"] and "fleet" in jaug["Serving"]
     aug = port_update_config(jaug, tpu.port_samples(samples))
     assert aug["Serving"]["queue_depth"] == jaug["Serving"]["queue_depth"]
-    jaug["Serving"]["quantize"] = True
-    with pytest.raises(NotImplementedError, match="quantized-serving slice"):
-        port_update_config(jaug, tpu.port_samples(samples))
+    for key in ("quantize", "quant_tol", "quant_calib_batches"):
+        assert aug["Serving"][key] == jaug["Serving"][key]
+    jaug["Serving"].update(quantize=True, quant_tol=0.5)
+    aug = port_update_config(jaug, tpu.port_samples(samples))
+    assert aug["Serving"]["quantize"] is True and aug["Serving"]["quant_tol"] == 0.5
+    for bad, match in (({"quantize": True, "warmup": False}, "quantize requires"),
+                       ({"quant_tol": 0.0}, "quant_tol"),
+                       ({"quant_calib_batches": 0}, "quant_calib_batches")):
+        cfg = copy.deepcopy(jaug)
+        cfg["Serving"].update(bad)
+        with pytest.raises(ValueError, match=match):
+            port_update_config(cfg, tpu.port_samples(samples))
 
 
 def test_batch_to_and_float_cast_share_ids():

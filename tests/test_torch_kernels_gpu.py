@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (segment reductions and softmaxes) against their
-plain PyTorch versions, on the card. Every test here is ``gpu``-marked and
+"""The port's CUDA kernels (segment reductions, softmaxes, the cell list, the
+int8 and fp8 dense layers) against their plain PyTorch versions, on the
+card. Every test here is ``gpu``-marked and
 skips without a CUDA device.
 
 The file imports neither JAX nor ``tests/conftest.py``'s helpers, so it
@@ -256,7 +257,7 @@ def test_gin_train_step_launches_on_card(batch):
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 3,
                            "segment_sum": 1, "segment_softmax": 0, "masked_softmax": 0,
-                           "cell_list": 0}
+                           "cell_list": 0, "quant_dense": 0, "fp8_dense": 0}
     assert bool(torch.isfinite(metrics["loss"]))
     assert all(p.grad is not None and p.grad.dtype == torch.float32
                for p in model.parameters())
@@ -406,11 +407,13 @@ def test_masked_softmax_backward_on_card():
 @pytest.mark.parametrize("arch,want", [
     ({"mpnn_type": "GAT"},
      {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 17,
-      "segment_softmax": 4, "masked_softmax": 0, "cell_list": 0}),
+      "segment_softmax": 4, "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
+      "fp8_dense": 0}),
     ({"global_attn_engine": "GPS", "global_attn_heads": 4, "pe_dim": 4,
       "max_graph_nodes": 32},
      {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 4, "segment_sum": 1,
-      "segment_softmax": 0, "masked_softmax": 4, "cell_list": 0}),
+      "segment_softmax": 0, "masked_softmax": 4, "cell_list": 0, "quant_dense": 0,
+      "fp8_dense": 0}),
 ], ids=["GAT", "GPS-GIN"])
 def test_attention_train_step_launches_on_card(batch, arch, want):
     """One bf16 train step of the qm9.json GAT (4 softmaxes; 4 aggregations
@@ -582,3 +585,109 @@ def test_second_derivatives_match_plain_on_card(batch, op):
             continue
         rows = slice(None) if g.shape[0] != n else slice(0, n - 1)
         torch.testing.assert_close(g[rows].cpu(), w[rows], rtol=1e-4, atol=1e-5)
+
+
+# -- kernels 6 and 7: the int8 and fp8 dense layers --------------------------
+
+
+# (M, K, N): qm9 GIN's conv layer 0 (K = 1) and its 64-wide layers at the top
+# bucket's 1,864 rows, a head's output Dense (N = 1), GAT's 384 x 384
+# lin_l (147 KB of weights in shared memory), a ragged row count, and a K
+# whose weights do not fit one CTA (the N-tiled grid)
+QUANT_SHAPES = [(1864, 1, 64), (1864, 64, 64), (64, 64, 1), (1864, 384, 384), (37, 24, 16),
+                (40, 1200, 300)]
+
+
+def _ulp_close(got, want):
+    """|got - want| <= one ulp of |want|, elementwise (fp32)."""
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    return bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=str)
+def test_quant_dense_kernel_matches_plain_on_card(shape, dtype):
+    """Codes and int32 accumulators equal, ``y`` within 1 ulp, two launches
+    bit-identical, one launch counted per call, bias optional."""
+    from hydragnn_tpu_torch.ops import quant_matmul as qm
+
+    dev = _cuda_or_skip()
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn(m, k, generator=gen) * 2).to(dev, dtype)
+    w_q, s_w = qm.quantize_weight(torch.randn(k, n, generator=gen).to(dev))
+    b = torch.randn(n, generator=gen).to(dev)
+    s_x = float(x.float().abs().max()) / 127.0
+    for bias in (b, None):
+        before = fs.LAUNCHES["quant_dense"]
+        x_q, acc, y = qm.quant_dense_parts(x, w_q, s_w, s_x, bias)
+        torch.cuda.synchronize()
+        assert fs.LAUNCHES["quant_dense"] == before + 1
+        px_q, pacc, py = qm.reference_quant_parts(x, w_q, s_w, s_x, bias)
+        assert torch.equal(x_q, px_q) and torch.equal(acc, pacc)
+        assert _ulp_close(y, py)
+        assert torch.equal(qm.quant_dense(x, w_q, s_w, s_x, bias), y)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        qm.quant_dense(x.half(), w_q, s_w, s_x)
+    with pytest.raises(ValueError, match="all inputs must be on"):
+        qm.quant_dense(x, w_q.cpu(), s_w, s_x)
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("shape", [(1864, 64, 64), (1864, 1, 64), (64, 64, 1), (25472, 129, 64),
+                                   (37, 24, 16), (40, 1200, 300)], ids=str)
+def test_fp8_dense_kernel_matches_plain_on_card(shape, fmt):
+    """``x_q`` bit-equal, ``y`` within the summation-order bound, saturation
+    without inf (an activation scale 1000x too small)."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+
+    dev = _cuda_or_skip()
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(8)
+    x = (torch.randn(m, k, generator=gen) * 3).to(dev)
+    w_q, s_w = f8.quantize_weight_fp8(torch.randn(k, n, generator=gen).to(dev), fmt)
+    b = torch.randn(n, generator=gen).to(dev)
+    for s_x in (f8.activation_scale_fp8(x, fmt), f8.activation_scale_fp8(x, fmt) / 1000):
+        before = fs.LAUNCHES["fp8_dense"]
+        x_q, y = f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt, debug=True)
+        torch.cuda.synchronize()
+        assert fs.LAUNCHES["fp8_dense"] == before + 1
+        px_q, py = f8.reference_fp8_parts(x, w_q, s_w, s_x, b, fmt)
+        assert torch.equal(x_q.view(torch.uint8), px_q.view(torch.uint8))
+        mag = x_q.float().abs().double() @ w_q.float().abs().double()
+        bound = (k * 2.0 ** -23 * mag * float(s_x) * s_w.double()[None, :]
+                 + torch.nextafter(py.abs(), torch.full_like(py, float("inf"))).double()
+                 - py.abs().double())
+        assert bool(((y.double() - py.double()).abs() <= bound).all())
+        assert bool(torch.isfinite(y).all())
+    got = f8.certify_fp8_dense(x, w_q.float() * s_w, b, fmt)
+    assert 0 < got["rel_fro_err"] < 0.2
+
+
+@pytest.mark.parametrize("arch", [{}, {"mpnn_type": "GAT"}], ids=["GIN", "GAT"])
+def test_quantized_predict_step_on_card(batch, arch):
+    """The qm9.json model's int8 predict step on the card: one quant_dense
+    launch per Dense call, and the answers of the CPU route given the same
+    scale and weight tables (the codes flip only where an fp32 activation
+    lies within its last bits of a rounding tie)."""
+    import copy
+
+    from hydragnn_tpu_torch.serve import quant as sq
+
+    dev = _cuda_or_skip()
+    model, _ = _qm9_model(dev, **arch)
+    model.eval()
+    b = batch
+    scales = sq.collect_activation_scales(model, [b], torch.float32)
+    weights = sq.quantize_dense_weights(model, scales)
+    step = sq.make_quantized_predict_step(model, scales, weights)
+    before = fs.LAUNCHES["quant_dense"]
+    got = step(b.to(dev))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["quant_dense"] == before + len(scales)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_weights = {k: tuple(None if t is None else t.cpu() for t in v) for k, v in weights.items()}
+    want = sq.make_quantized_predict_step(cpu_model, scales, cpu_weights)(b)
+    real = b.graph_mask > 0
+    scale = float(want[0][real].abs().max())
+    torch.testing.assert_close(got[0].cpu()[real], want[0][real], rtol=0, atol=1e-3 * scale)
