@@ -29,11 +29,19 @@ device JSON only when every phase passed):
    backward) over the senders' CSR view; the segment sum; the segment
    softmax over GAT's extended edge layout (6 heads; the dummy row's many
    pieces, unsorted ids, empty segments); the masked row softmax over GPS's
-   dense attention blocks (65 graphs, 4 heads, 32 x 32, fully masked rows).
-   Device times per call (CUDA-graph replay between CUDA events) beside the
+   dense attention blocks (65 graphs, 4 heads, 32 x 32, fully masked rows;
+   also m = 1, 5, 31, 33, 64 and a misaligned view, which must give the
+   aligned copy's bits). B1 and B2 bit for bit: every row of at most
+   ``PIECE_EDGES`` entries equal to the plain version on the CPU (one
+   thread), every row equal to a fixed-order emulation of the kernels'
+   pieces and combine chains (``csr_sum_emulation``), at B2's main shapes
+   (pooling, GAT's aggregation and softmax backward, the oc20 MLIP batch's
+   message sum and pooling), fp32 and bf16, sorted and shuffled ids, and
+   at B1's forward and transposed launch. Device times per call (CUDA-graph replay between CUDA events) beside the
    plain version, a one-call PyTorch yardstick (``torch.sparse.softmax``,
    which synchronises with the host, timed by events around back-to-back
-   calls) and the bound; then (3b) the int8 dense kernel B6 against its
+   calls) and the bound (B2 at its four main shapes beside ``index_add_``;
+   B4 in fp32 and bf16 beside ``torch.softmax``); then (3b) the int8 dense kernel B6 against its
    plain version at every Dense call of the GIN's served forward (fp32 and
    bf16 inputs, K = 1 and N = 1 layers included), GAT's 384 x 384 lin_l and
    a ragged row count (codes and int32 sums equal, y within 1 ulp), and the
@@ -520,16 +528,226 @@ def _bit_stable(torch, name, fn) -> None:
         raise AssertionError(f"{name}: two launches on the same inputs differ")
 
 
-def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True):
+# -- the CSR kernels' order of additions (B1, B2) ---------------------------------
+
+# the CSR kernels add a row of several pieces as this many strided chains
+# (chain w: the row's pieces w, w + 8, w + 16, ...), then the chain sums in
+# chain order
+CSR_CHAINS = 8
+
+
+def _bits(torch, t):
+    """The raw bits of a float tensor, so -0.0 and NaN compare exactly."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@contextlib.contextmanager
+def _one_thread(torch):
+    """One CPU thread: the CPU's ``index_add_`` then adds in index order."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def csr_sum_emulation(torch, terms, ids, num_segments: int):
+    """The CSR kernels' sum of the fp32 per-entry ``terms [E, C]`` by ``ids``
+    into ``num_segments`` rows, emulated in fp32 on the CPU in the kernels'
+    fixed order. Each row's entries, in stable-sorted order, are cut into
+    pieces of ``PIECE_EDGES`` counted from the row's first entry; each piece
+    adds its entries left to right from +0. A row of one piece (empty rows
+    included) is that sum; a row of more adds its pieces in ``CSR_CHAINS``
+    strided chains, each left to right from +0, then the chain sums left to
+    right from +0. Zeros added for padding change nothing: a sum that starts
+    at +0 is never -0. Returns fp32 ``[num_segments, C]``."""
+    from hydragnn_tpu_torch.ops.fused_scatter import PIECE_EDGES
+
+    terms, ids = terms.float().cpu(), ids.long().cpu()
+    e, c = terms.shape
+    order = torch.argsort(ids, stable=True)
+    t = terms[order]
+    ptr = torch.searchsorted(ids[order], torch.arange(num_segments + 1))
+    lens = ptr[1:] - ptr[:-1]
+    pieces = torch.clamp((lens + PIECE_EDGES - 1) // PIECE_EDGES, min=1)
+    piece_ptr = torch.cat([torch.zeros(1, dtype=torch.long), torch.cumsum(pieces, 0)])
+    row = torch.repeat_interleave(torch.arange(num_segments), pieces)
+    k = torch.arange(row.shape[0]) - piece_ptr[row]
+    beg = ptr[row] + k * PIECE_EDGES
+    end = torch.minimum(ptr[row + 1], beg + PIECE_EDGES)
+    part = torch.zeros(row.shape[0], c)
+    zero = torch.zeros(())
+    for j in range(PIECE_EDGES):
+        pos = beg + j
+        live = (pos < end)[:, None]
+        part = part + torch.where(live, t[pos.clamp(max=max(e - 1, 0))] if e else zero, zero)
+    out = part[piece_ptr[:-1]].clone()  # rows of one piece: their only piece's sum
+    multi = torch.nonzero(pieces > 1).flatten()
+    if multi.numel():
+        p0, n = piece_ptr[multi], pieces[multi]
+        chains = torch.zeros(multi.shape[0], CSR_CHAINS, c)
+        w = torch.arange(CSR_CHAINS)
+        for step in range(-(-int(n.max()) // CSR_CHAINS)):
+            idx = step * CSR_CHAINS + w[None, :]  # [M, chains]
+            live = (idx < n[:, None])[..., None]
+            src = part[(p0[:, None] + idx).clamp(max=part.shape[0] - 1)]
+            chains = chains + torch.where(live, src, zero)
+        total = torch.zeros(multi.shape[0], c)
+        for k_ in range(CSR_CHAINS):
+            total = total + chains[:, k_]
+        out[multi] = total
+    return out
+
+
+def check_csr_exact(torch, label: str, got, plain, terms, ids, num_segments: int,
+                    failures: list) -> None:
+    """A CSR kernel's output ``got`` (on the card) held bit for bit against
+    ``plain``, the port's plain version on the CPU with one thread, on every
+    row of at most ``PIECE_EDGES`` entries, and against
+    :func:`csr_sum_emulation` of the fp32 ``terms`` on every row. A mismatch
+    is logged and appended to ``failures``."""
+    from hydragnn_tpu_torch.ops.fused_scatter import PIECE_EDGES
+
+    got = got.cpu()
+    counts = torch.bincount(ids.long().cpu(), minlength=num_segments)[:num_segments]
+    single = counts <= PIECE_EDGES
+    emu = csr_sum_emulation(torch, terms, ids, num_segments).to(got.dtype)
+    eq_plain = (_bits(torch, got) == _bits(torch, plain.cpu())).all(dim=-1)
+    eq_emu = (_bits(torch, got) == _bits(torch, emu)).all(dim=-1)
+    ok_single = bool(eq_plain[single].all())
+    ok_multi = bool(eq_emu.all())
+    log(f"  {label}: {int(single.sum())} rows of <= {PIECE_EDGES} entries "
+        f"{'bit-equal' if ok_single else 'DIFFER'} to the CPU plain version "
+        f"({int((~eq_plain[single]).sum())} differ); all {num_segments} rows "
+        f"({int((~single).sum())} of several pieces, longest {int(counts.max())} entries) "
+        f"{'bit-equal' if ok_multi else 'DIFFER'} to the fixed-order emulation "
+        f"({int((~eq_emu).sum())} differ)")
+    if not (ok_single and ok_multi):
+        failures.append(label)
+
+
+def csr_exact_checks(torch, b, mlip_b, gen, failures: list) -> None:
+    """B2 (every shape of its main paths) and B1 (forward and transposed
+    launch), fp32 and bf16, over the path's CSR views and over the same
+    entries shuffled (the wrapper argsorts), bit for bit (:func:`check_csr_exact`)."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    dev = b.x.device
+    n, g = b.num_nodes, b.num_graphs
+    _, loop_recv = b.self_loop_edges()
+    mn, mg = mlip_b.num_nodes, mlip_b.num_graphs
+    shapes = (
+        ("pooling [N,64] -> G", lambda: torch.randn(n, 64, generator=gen), b.batch, g,
+         b.csr("batch")),
+        (f"GAT aggregation [E'={loop_recv.shape[0]},{GAT_HEADS * 64}] -> N",
+         lambda: torch.randn(loop_recv.shape[0], GAT_HEADS * 64, generator=gen), loop_recv, n,
+         b.csr("loop_receivers")),
+        (f"softmax backward [E',{GAT_HEADS}] -> N",
+         lambda: torch.randn(loop_recv.shape[0], GAT_HEADS, generator=gen), loop_recv, n,
+         b.csr("loop_receivers")),
+        (f"MLIP message sum [{mlip_b.num_edges},64] -> {mn}",
+         lambda: torch.randn(mlip_b.num_edges, 64, generator=gen), mlip_b.receivers, mn,
+         mlip_b.csr("receivers")),
+        (f"MLIP pooling [{mn},64] -> {mg}", lambda: torch.randn(mn, 64, generator=gen),
+         mlip_b.batch, mg, mlip_b.csr("batch")),
+    )
+    log(f"segment_sum bit for bit: rows of <= {fs.PIECE_EDGES} entries against the CPU plain "
+        f"version (one thread), every row against the fixed-order emulation:")
+    for label, make, ids, rows, index in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            x = make().to(dtype)
+            got = fs.fused_segment_sum(x.to(dev), ids, rows, index=index)
+            with _one_thread(torch):
+                plain = fs.plain_segment_sum(x, ids.cpu(), rows)
+            check_csr_exact(torch, f"{dname} {label}", got, plain, x.float(), ids, rows,
+                            failures)
+            p = torch.randperm(x.shape[0], generator=gen)
+            xs, ids_s = x[p], ids.cpu()[p]
+            got = fs.fused_segment_sum(xs.to(dev), ids_s.to(dev), rows)
+            with _one_thread(torch):
+                plain = fs.plain_segment_sum(xs, ids_s, rows)
+            check_csr_exact(torch, f"{dname} {label}, shuffled", got, plain, xs.float(), ids_s,
+                            rows, failures)
+
+    log("gather_scatter_sum (forward and transposed launch) bit for bit, the same way:")
+    s_c, r_c = b.senders.cpu(), b.receivers.cpu()
+    m_c = b.edge_mask.cpu()
+    e = s_c.shape[0]
+    for label, c, dtype, wk in (("fp32 C=64 edge-mask weight", 64, torch.float32, "mask"),
+                                ("fp32 C=64 per-channel weight", 64, torch.float32, "chan"),
+                                ("fp32 C=64 no weight", 64, torch.float32, None),
+                                ("bf16 C=1 edge-mask weight", 1, torch.bfloat16, "mask"),
+                                ("bf16 C=64 edge-mask weight", 64, torch.bfloat16, "mask")):
+        h = torch.randn(n, c, generator=gen).to(dtype)
+        w = (m_c.to(dtype) if wk == "mask" else None if wk is None
+             else (torch.rand(e, c, generator=gen) * m_c[:, None]).to(dtype))
+        wf = None if w is None else (w.float() if w.dim() == 2 else w.float()[:, None])
+        for transposed in (False, True):
+            src, dst = (r_c, s_c) if transposed else (s_c, r_c)
+            terms = h.float()[src.long()]
+            if wf is not None:
+                terms = terms * wf
+            w_d = None if w is None else w.to(dev)
+            if transposed:
+                got = fs.gather_scatter_sum_bwd(h.to(dev), b.senders, b.receivers, n, w_d,
+                                                b.csr("senders"))
+            else:
+                got = fs.gather_scatter_sum(h.to(dev), b.senders, b.receivers, n, weight=w_d,
+                                            index=b.csr("receivers"))
+            with _one_thread(torch):
+                plain = fs.plain_gather_scatter_sum(h, src, dst, n, w)
+            check_csr_exact(torch, f"{label}{', transposed (senders view)' if transposed else ''}",
+                            got, plain, terms, dst, n, failures)
+    p = torch.randperm(e, generator=gen)
+    h = torch.randn(n, 64, generator=gen)
+    got = fs.gather_scatter_sum(h.to(dev), b.senders[p.to(dev)], b.receivers[p.to(dev)], n,
+                                weight=b.edge_mask[p.to(dev)])
+    with _one_thread(torch):
+        plain = fs.plain_gather_scatter_sum(h, s_c[p], r_c[p], n, m_c[p])
+    check_csr_exact(torch, "fp32 C=64 edge-mask weight, shuffled", got, plain,
+                    h[s_c[p].long()] * m_c[p][:, None], r_c[p], n, failures)
+
+
+def _check_masked_softmax(torch, label: str, x, valid, errs: list) -> None:
+    """B4 against its plain version on ``x [G, ..., m]`` with the per-graph
+    mask ``valid [G, m]``: within ``TOL``, masked entries of rows with any
+    valid entry exactly 0, the rows of fully masked graphs uniform ``1/m``,
+    two launches bit-identical."""
+    from hydragnn_tpu_torch.ops import fused_softmax as fsm
+
+    dname = str(x.dtype).split(".")[1]
+    m = x.shape[-1]
+    got = fsm.masked_softmax(x, valid)
+    want = fsm.plain_masked_softmax(x, valid)
+    errs.append(_compare(torch, label, got, want, x.shape[0], dname))
+    live = valid.any(dim=1)
+    masked = (~valid)[:, None, None, :].expand_as(got)
+    if bool(got[live][masked[live]].any()):
+        raise AssertionError(f"masked_softmax {label}: a masked entry of a real row is not 0")
+    if not torch.allclose(got[~live].float(), torch.full_like(got[~live].float(), 1 / m),
+                          **TOL[dname]):
+        raise AssertionError(f"masked_softmax {label}: fully masked rows are not uniform")
+    _bit_stable(torch, f"masked_softmax {label}", lambda: fsm.masked_softmax(x, valid))
+
+
+def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
+                 mlip_batch=None):
     """Every kernel of the serving and training paths against its plain
     version on the card, at ``batch``'s shapes (timed there and, for the
     log, at the ``small`` batch of the smallest bucket); ``n_max`` is GPS's
-    dense-attention width. Returns the kernels' JSON entries and their
-    device times per call (ms), or ``([], {})`` without ``timing``."""
+    dense-attention width; ``mlip_batch`` is the oc20 MLIP training batch,
+    whose segment sums the CSR kernels' bit-for-bit checks and times cover
+    too (on the card). Returns the kernels' JSON entries and their device
+    times per call (ms), or ``([], {})`` without ``timing``."""
     from hydragnn_tpu_torch.ops import fused_scatter as fs
     from hydragnn_tpu_torch.ops import fused_softmax as fsm
 
     dev = torch.device("cuda") if timing else torch.device("cpu")
+    # the bit-for-bit checks of B1 and B2 (failures collected, raised after
+    # the times)
+    exact_failures: list = []
     b = batch.to(dev)
     n, e, g = b.num_nodes, b.num_edges, b.num_graphs
     gen = torch.Generator(device="cpu").manual_seed(1234)
@@ -652,6 +870,8 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True)
     errs.append(_compare(torch, f"fp32 [E'={e_ext},{GAT_HEADS}x64] -> N (GAT aggregation, "
                          f"self-loop receivers)", got, want, real_rows, "float32"))
     results["segment_sum"] = max(errs)
+    if dev.type == "cuda" and mlip_batch is not None:
+        csr_exact_checks(torch, b, mlip_batch.to(dev), gen, exact_failures)
 
     # kernel 3: segment softmax over GAT's extended layout: real edges, the
     # alignment slots and the pad edges (logit -1e9, all on the dummy row
@@ -711,17 +931,29 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         x = (torch.randn(g, 4, n_max, n_max, generator=gen) * 3.0).to(dev, dtype)
-        got = fsm.masked_softmax(x, valid)
-        want = fsm.plain_masked_softmax(x, valid)
-        errs.append(_compare(torch, f"{dname} all rows", got, want, g, dname))
-        if bool(got[:-1][(~valid[:-1])[:, None, None, :].expand_as(got[:-1])].any()):
-            raise AssertionError("masked_softmax: a masked entry of a real row is not 0")
-        if not torch.allclose(got[-1].float(), torch.full_like(got[-1].float(), 1 / n_max),
-                              **TOL[dname]):
-            raise AssertionError("masked_softmax: fully masked rows are not uniform")
-        _bit_stable(torch, "masked_softmax", lambda: fsm.masked_softmax(x, valid))
+        _check_masked_softmax(torch, f"{dname} all rows", x, valid, errs)
     log(f"  masked entries of real rows exactly 0; fully masked rows 1/{n_max}; two launches "
         f"on the same inputs bit-identical")
+    # other widths (GPS's max_graph_nodes comes from the data), and a view
+    # that starts 4 bytes past an aligned address
+    for m_ in (1, 5, 31, 33, 64):
+        lens = torch.randint(0, m_ + 1, (g,), generator=gen)
+        lens[0], lens[-1] = m_, 0
+        valid_m = (torch.arange(m_)[None, :] < lens[:, None]).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(g, 4, m_, m_, generator=gen) * 3.0).to(dev, dtype)
+            _check_masked_softmax(torch, f"{str(dtype).split('.')[1]} m={m_}", x, valid_m, errs)
+    # the view takes the kernel's general path, an aligned copy of it the
+    # vectorised one where m allows: both add in one order, so the bits agree
+    for dtype in (torch.float32, torch.bfloat16):
+        flat = (torch.randn(g * 4 * n_max * n_max + 1, generator=gen) * 3.0).to(dev, dtype)
+        view = flat[1:].view(g, 4, n_max, n_max)
+        _check_masked_softmax(torch, f"{str(dtype).split('.')[1]} m={n_max}, view 1 element "
+                              f"past an aligned start", view, valid, errs)
+        if not torch.equal(fsm.masked_softmax(view, valid),
+                           fsm.masked_softmax(view.clone(), valid)):
+            raise AssertionError("masked_softmax: the aligned and the misaligned paths differ")
+    log("  the misaligned view and its aligned copy: bit-identical")
     results["masked_softmax"] = max(errs)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -763,6 +995,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True)
     k2_bytes = (n * 64 * 4) + (n * 4) + (g * 64 * 4)
     k2_ops = n * 64
     k2.update(shape=f"data[{n},64] f32 -> G={g}", bytes=k2_bytes, ops=k2_ops)
+    # the other main shapes' times go beside the pooling row (filled below)
 
     # the transposed launch at conv layers 1-3's backward shapes
     kb = dict(
@@ -835,6 +1068,34 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True)
         f"@ [E',6] (softmax backward): kernel {times['segment_sum_gat_bwd_ms'] * 1e3:.2f} us; "
         f"segment_softmax bf16 (GAT layer 0): {t_sm16 * 1e3:.2f} us")
 
+    # kernel 2 at its four main shapes (fp32), each beside its one-call
+    # yardstick (a zeroed output and index_add_) and its bound (data and ids
+    # read once, the output written once); the pooling shape is the table's
+    b2_cases = [("pooling", pooled_in, b.batch, g, batch_idx),
+                ("GAT aggregation", msgs, loop_recv, n, loop_idx),
+                ("softmax backward", sdy, loop_recv, n, loop_idx)]
+    if mlip_batch is not None:
+        m_b = mlip_batch.to(dev)
+        m_x = torch.randn(m_b.num_edges, 64, generator=gen).to(dev)
+        b2_cases.append(("MLIP message sum", m_x, m_b.receivers, m_b.num_nodes,
+                         m_b.csr("receivers")))
+    b2_shapes = []
+    for label, x, ids, n_rows, index in b2_cases:
+        ids_l = ids.long()
+        t_k = graph_time_ms(torch, lambda: fs.fused_segment_sum(x, ids, n_rows, index=index))
+        t_lib = graph_time_ms(torch, lambda: torch.zeros(
+            n_rows, x.shape[1], device=dev).index_add_(0, ids_l, x))
+        nbytes = x.numel() * 4 + ids.shape[0] * 4 + n_rows * x.shape[1] * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, x.numel() / FP32_FLOPS) * 1e3
+        b2_shapes.append(dict(shape=f"{label} [{x.shape[0]},{x.shape[1]}] f32 -> {n_rows}",
+                              ms=t_k, library_ms=t_lib, bound_ms=bound,
+                              pieces=int(index.piece_ptr[-1]),
+                              longest_row=int((index.ptr[1:] - index.ptr[:-1]).max())))
+        log(f"  segment_sum @ {b2_shapes[-1]['shape']}: kernel {t_k * 1e3:.2f} us, index_add_ "
+            f"{t_lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({nbytes} B); "
+            f"{b2_shapes[-1]['pieces']} pieces, longest row {b2_shapes[-1]['longest_row']} "
+            f"entries")
+
     # kernel 4 at GPS's layers 1-3 (fp32 logits [G, 4, n_max, n_max]); the
     # one-call yardstick is torch.softmax of the already masked logits
     x_ms = (torch.randn(g, 4, n_max, n_max, generator=gen) * 3.0).to(dev)
@@ -852,9 +1113,15 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True)
     lib_err = float((torch.softmax(premasked, dim=-1) - fsm.masked_softmax(x_ms, valid))
                     .abs().max())
     x_ms16 = x_ms.to(torch.bfloat16)
+    premasked16 = premasked.to(torch.bfloat16)
     t_ms16 = graph_time_ms(torch, lambda: fsm.masked_softmax(x_ms16, valid))
+    t_lib16 = graph_time_ms(torch, lambda: torch.softmax(premasked16, dim=-1))
+    k4["bf16"] = dict(ms=t_ms16, library_ms=t_lib16,
+                      bound_ms=(2 * rows * n_max * 2 + g * n_max) / HBM_BYTES_PER_S * 1e3)
     log(f"  yardstick torch.softmax(pre-masked logits) max|diff| vs kernel = {lib_err:.3e}; "
-        f"masked_softmax bf16 (GPS layer 0): {t_ms16 * 1e3:.2f} us")
+        f"masked_softmax bf16 (GPS layer 0): kernel {t_ms16 * 1e3:.2f} us, torch.softmax of "
+        f"the pre-masked bf16 logits {t_lib16 * 1e3:.2f} us, bound "
+        f"{k4['bf16']['bound_ms'] * 1e3:.3f} us")
 
     # conv layer 0 of the bf16 predict step: bf16, C = 1
     h0 = feats(1, torch.bfloat16)
@@ -913,13 +1180,18 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True)
             "library_ms": k["library_ms"],
             "shape": k["shape"],
         })
-        if "index_add_ms" in k:
-            entries[-1]["index_add_ms"] = k["index_add_ms"]
+        for extra in ("index_add_ms", "bf16"):
+            if extra in k:
+                entries[-1][extra] = k[extra]
+        if name == "segment_sum":
+            entries[-1]["shapes"] = b2_shapes
         log(f"  {name} @ {k['shape']}: kernel {k['ms'] * 1e3:.2f} us, plain "
             f"{k['plain_ms'] * 1e3:.2f} us, one-call yardstick {k['library_ms'] * 1e3:.2f} us, "
             f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({k['bytes']} B at 3.35 TB/s)")
     for e_ in entries:
         times[e_["name"] + "_ms"] = e_["ms"]
+    if exact_failures:
+        raise AssertionError(f"CSR kernels not bit for bit: {exact_failures}")
     return entries, times
 
 
@@ -2330,6 +2602,17 @@ def mlip_samples(n: int = MLIP_SAMPLES, seed: int = 11):
                               seed=seed)
 
 
+def mlip_train_batch(n_samples: int = MLIP_SAMPLES):
+    """The first training batch of the oc20 MLIP run (64 cells, the loader's
+    pad bucket), collated on the host: the shapes of its segment sums."""
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+
+    loaders = dataset_loading_and_splitting(mlip_config(MLIP_EPOCHS),
+                                            samples=mlip_samples(n_samples))
+    return collate(loaders[0].samples[:64], loaders[0].pad)
+
+
 def mlip_launches_per_step(layers: int) -> dict:
     """Kernel launches of one MLIP train step of an EGNN with ``layers``
     conv layers (the last without coordinate update), all segment sums: the
@@ -2790,7 +3073,8 @@ def main(argv=None) -> int:
     n_max = update_config(qm9_config("gps"), loaders[0].samples)[
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
     top, small = bucket_batches(loaders, samples)
-    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max)
+    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max,
+                                         mlip_batch=mlip_train_batch())
     from hydragnn_tpu_torch.models import create_model_config
 
     entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda",

@@ -35,11 +35,27 @@
 // No atomics and fixed orders of addition: two launches on the same inputs
 // give the same bits, which the serving tier's bit-equality rests on.
 //
-// masked_softmax: one warp per row; the lanes stride over the row's m
-// entries (m = n_max = 32 for GPS on QM9: one entry per lane) in three
-// passes (max, sum, write) that re-read the row from L1. A fully masked row
-// (a pad slot of a graph) comes out uniform, 1/m, as the -1e9 fill gives;
-// masked entries of a row with any valid entry come out exactly 0.
+// masked_softmax: two paths, chosen by the launcher from the shape and the
+// pointers.
+//   * masked_rows_vec_kernel, where m is 4 L with L a power of two up to 32
+//     (m = n_max = 32 for GPS on QM9: L = 8) and x, out and the mask are
+//     aligned to 4 entries: one row per L lanes, so a warp holds 32 / L rows.
+//     Each lane reads its 4 entries once (one float4, or 8 bytes of bf16)
+//     and their 4 mask bytes as one word (the rows of one graph read the same
+//     words, so they come from L1), keeps them in registers, takes the row
+//     max with a log2(L)-step shuffle tree inside its lane group,
+//     exponentiates each entry once, adds the exps in the general path's
+//     order (its 32-lane butterfly, here shuffles across the group and adds
+//     inside the lane: the two paths give the same bits, so the port's
+//     answers did not move when this path came in), divides by the sum with
+//     IEEE division and writes its 4 results with one store. The chain per
+//     row is one load round, two short shuffle trees, 4 exps and one store.
+//   * masked_row_softmax_kernel for any other m or alignment: one warp per
+//     row, the lanes striding over the row's entries in three passes (max,
+//     sum, write) that re-read the row from L1.
+// Both: a fully masked row (a pad slot of a graph) comes out uniform, 1/m,
+// as the -1e9 fill gives; masked entries of a row with any valid entry come
+// out exactly 0 (their exp underflows).
 //
 // Bound: memory, for both. Each reads its input once and writes its output
 // once and does a few flops and one exp per element, far below the ~20
@@ -266,15 +282,103 @@ masked_row_softmax_kernel(const T* __restrict__ x, const uint8_t* __restrict__ m
   }
 }
 
+// 4 neighbouring entries of a row as one aligned load or store: a float4,
+// or 8 bytes of bf16
+template <typename T>
+struct alignas(4 * sizeof(T)) Quad {
+  T v[4];
+};
+
+// One row per L lanes (m = 4 L), 4 entries per lane; 256 / L rows a block.
+template <typename T, int L>
+__global__ void __launch_bounds__(kThreads)
+masked_rows_vec_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask,
+                       T* __restrict__ out, int rows, int rows_per_graph) {
+  constexpr int m = 4 * L;
+  const long long row = (long long)blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  const int part = (threadIdx.x % L) * 4;  // this lane's first entry of the row
+  // lanes past the last row work on the last row (the shuffles need every
+  // lane) and store nothing
+  const long long r = row < rows ? row : rows - 1;
+  const Quad<T> q = *reinterpret_cast<const Quad<T>*>(x + r * m + part);
+  const uchar4 valid =
+      *reinterpret_cast<const uchar4*>(mask + (r / rows_per_graph) * m + part);
+  float v[4] = {valid.x ? to_float(q.v[0]) : kMaskFill, valid.y ? to_float(q.v[1]) : kMaskFill,
+                valid.z ? to_float(q.v[2]) : kMaskFill, valid.w ? to_float(q.v[3]) : kMaskFill};
+  float mx = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = expf(v[i] - mx);
+  // the sum in masked_row_softmax_kernel's order, so both paths give the
+  // same bits: its lane l (l = 4 l' + k here: entry k of lane l' < 8 of the
+  // group) adds the entries l, l + 32, ... left to right, then its 32 lanes
+  // pair up by xor 16, 8, 4 (lanes l' ^ 4, 2, 1 here), 2 and 1 (entries
+  // k ^ 2 and k ^ 1 of one lane); partners past the row's entries add 0
+  float t[4];
+  const int group = (threadIdx.x & 31) & ~(L - 1);  // the group's first lane in the warp
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    t[k] = v[k];
+    if (L > 8) {
+      const int lane0 = group + (threadIdx.x % L) % 8;
+      t[k] = __shfl_sync(0xffffffffu, v[k], lane0);
+#pragma unroll
+      for (int q = 1; q < L / 8; ++q)
+        t[k] = __fadd_rn(t[k], __shfl_sync(0xffffffffu, v[k], lane0 + 8 * q));
+    }
+#pragma unroll
+    for (int o = (L < 8 ? L : 8) / 2; o > 0; o >>= 1)
+      t[k] = __fadd_rn(t[k], __shfl_xor_sync(0xffffffffu, t[k], o));
+  }
+  const float s = __fadd_rn(__fadd_rn(t[0], t[2]), __fadd_rn(t[1], t[3]));
+  if (row < rows) {
+    Quad<T> y;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y.v[i] = from_float<T>(__fdiv_rn(v[i], s));
+    *reinterpret_cast<Quad<T>*>(out + r * m + part) = y;
+  }
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T, int L>
+void launch_rows_vec(const void* x, const void* mask, void* out, int rows, int rows_per_graph,
+                     cudaStream_t s) {
+  const int blocks = (rows + kThreads / L - 1) / (kThreads / L);
+  masked_rows_vec_kernel<T, L><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(mask), static_cast<T*>(out), rows,
+      rows_per_graph);
+}
+
 template <typename T>
 int launch_masked_softmax(const void* x, const void* mask, void* out, int rows, int m,
                           int rows_per_graph, void* stream) {
-  if (rows > 0 && m > 0) {
-    if (rows_per_graph <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || m <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows_per_graph <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int lanes = m / 4;
+  const bool vec = m % 4 == 0 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
+                   aligned(x, 4 * sizeof(T)) && aligned(out, 4 * sizeof(T)) && aligned(mask, 4);
+  if (!vec) {
     const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    masked_row_softmax_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    masked_row_softmax_kernel<T><<<blocks, kThreads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const uint8_t*>(mask), static_cast<T*>(out), rows,
         m, rows_per_graph);
+  } else if (lanes == 1) {
+    launch_rows_vec<T, 1>(x, mask, out, rows, rows_per_graph, s);
+  } else if (lanes == 2) {
+    launch_rows_vec<T, 2>(x, mask, out, rows, rows_per_graph, s);
+  } else if (lanes == 4) {
+    launch_rows_vec<T, 4>(x, mask, out, rows, rows_per_graph, s);
+  } else if (lanes == 8) {
+    launch_rows_vec<T, 8>(x, mask, out, rows, rows_per_graph, s);
+  } else if (lanes == 16) {
+    launch_rows_vec<T, 16>(x, mask, out, rows, rows_per_graph, s);
+  } else {
+    launch_rows_vec<T, 32>(x, mask, out, rows, rows_per_graph, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,8 @@ channels; ``segment_softmax`` goes to the segment-softmax kernel wrapper
 stay plain PyTorch, as the JAX package leaves them to XLA.
 
 Padding convention: padded elements carry the id of the trailing dummy
-segment, so real segments are unaffected; empty segments give 0.
+segment, so real segments are unaffected; empty segments give 0, and so do
+max and min outputs that are not finite, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,24 +58,34 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     return total / count.reshape((-1,) + (1,) * (total.dim() - 1))
 
 
-def _segment_extreme(data, segment_ids, num_segments, reduce):
+def _segment_extreme(data, segment_ids, num_segments, reduce, identity):
+    """The JAX package's rule (``graphs/segment.py::_zero_empty``): float
+    outputs that are not finite become 0 (empty segments, and segments that
+    met an inf or NaN), int outputs equal to the reduction's identity become
+    0."""
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     ids = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     # include_self=False leaves empty segments at their initial 0
-    return out.scatter_reduce_(0, ids, data, reduce=reduce, include_self=False)
+    out = out.scatter_reduce_(0, ids, data, reduce=reduce, include_self=False)
+    zero = torch.zeros_like(out)
+    if out.is_floating_point():
+        return torch.where(torch.isfinite(out), out, zero)
+    return torch.where(out == identity(out.dtype), zero, out)
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 index: SegmentIndex | None = None) -> torch.Tensor:
-    """Max per segment; empty segments give 0."""
-    return _segment_extreme(data, segment_ids, num_segments, "amax")
+    """Max per segment; empty segments and non-finite maxima give 0."""
+    return _segment_extreme(data, segment_ids, num_segments, "amax",
+                            lambda t: torch.iinfo(t).min)
 
 
 def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 index: SegmentIndex | None = None) -> torch.Tensor:
-    """Min per segment; empty segments give 0."""
-    return _segment_extreme(data, segment_ids, num_segments, "amin")
+    """Min per segment; empty segments and non-finite minima give 0."""
+    return _segment_extreme(data, segment_ids, num_segments, "amin",
+                            lambda t: torch.iinfo(t).max)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,

@@ -33,9 +33,8 @@ _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source -> {C function: argtypes}; every function returns a cudaError_t (int)
 SOURCES = {
     "segment_reduce.cu": {
-        "gather_scatter_sum_fwd": [_i32, _vp, _vp, _vp, _i32, _vp, _vp, _vp, _vp, _vp, _i32,
-                                   _i32, _i32, _i32, _vp],
-        "segment_sum_fwd": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp],
+        "gather_scatter_sum_fwd": [_i32, _vp, _vp, _vp, _i32] + [_vp] * 7 + [_i32] * 4 + [_vp],
+        "segment_sum_fwd": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp],
     },
     "segment_softmax.cu": {
         "segment_softmax_fwd": [_i32, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32,

@@ -1,8 +1,9 @@
 """Gather→scale→scatter-add and segment-sum: the message-passing hot ops.
 
-Counterpart of ``hydragnn_tpu/ops/fused_scatter.py``. Two kernels, both in
-``csrc/segment_reduce.cu``, both a CSR segmented reduction (one warp per
-output row, fp32 accumulation, no atomics):
+Counterpart of ``hydragnn_tpu/ops/fused_scatter.py``. Two kernels, one
+template in ``csrc/segment_reduce.cu``, both a CSR segmented reduction in
+one launch (one warp per 32-edge piece of a row, fp32 accumulation, no
+atomics on data):
 
 * :func:`gather_scatter_sum` — ``out[r] = sum_e w[e] * h[s[e]]`` over the
   edges with receiver ``r`` (the Pallas ``_kernel``);
@@ -91,10 +92,18 @@ class SegmentIndex:
     and the rows are ``ptr[r]..ptr[r+1]`` themselves). Row ``r`` owns the
     kernel pieces ``piece_ptr[r]..piece_ptr[r+1]`` (at least one, so an
     empty row is written too); ``max_pieces`` bounds their total from the
-    shapes alone. int32 throughout."""
+    shapes alone, and ``piece_row[p]`` is piece ``p``'s row
+    (``num_segments`` past the last piece), so a kernel warp finds its row
+    in one load. ``tickets`` is the segment-sum kernel's per-row counter
+    that elects the block combining a row of several pieces: 0 between
+    launches (each launch puts back what it takes), so calls over one index
+    must be ordered on one stream, as every caller's are (a batch belongs to
+    one step or one dispatcher). int32 throughout."""
 
     ptr: torch.Tensor  # [num_segments + 1]
     piece_ptr: torch.Tensor  # [num_segments + 1]
+    piece_row: torch.Tensor  # [max_pieces]
+    tickets: torch.Tensor  # [num_segments]
     perm: torch.Tensor | None  # [E] stable sort permutation, or None
     num_segments: int
     num_ids: int  # E, the length of the id array it was built from
@@ -103,10 +112,11 @@ class SegmentIndex:
 
 def segment_index(ids: torch.Tensor, num_segments: int,
                   is_sorted: bool | None = None) -> SegmentIndex:
-    """Row pointer, piece pointer and (unless ``is_sorted``) the stable sort
-    permutation of ``ids``. ``is_sorted=None`` means unknown: the ids are
-    argsorted, which leaves sorted ids in place. Nothing here waits for the
-    device."""
+    """Row pointer, piece pointer, piece -> row table, zeroed tickets and
+    (unless ``is_sorted``) the stable sort permutation of ``ids``.
+    ``is_sorted=None`` means unknown: the ids are argsorted, which leaves
+    sorted ids in place. Nothing here waits for the device."""
+    num_segments = int(num_segments)
     ids = ids.to(torch.int32).contiguous()
     perm = None
     sorted_ids = ids
@@ -114,16 +124,22 @@ def segment_index(ids: torch.Tensor, num_segments: int,
         perm = torch.argsort(ids, stable=True)
         sorted_ids = ids[perm]
         perm = perm.to(torch.int32)
-    bounds = torch.arange(num_segments + 1, device=ids.device, dtype=torch.int32)
-    ptr = torch.searchsorted(sorted_ids, bounds, out_int32=True)
-    pieces = torch.clamp((ptr[1:] - ptr[:-1] + PIECE_EDGES - 1) // PIECE_EDGES, min=1)
-    piece_ptr = torch.zeros(num_segments + 1, dtype=torch.int32, device=ids.device)
-    piece_ptr[1:] = torch.cumsum(pieces, 0, dtype=torch.int32)
     # sum over rows of max(1, ceil(len / P)) <= num_segments + ceil(E / P)
-    max_pieces = int(num_segments) + -(-ids.shape[0] // PIECE_EDGES)
-    return SegmentIndex(ptr=ptr.contiguous(), piece_ptr=piece_ptr, perm=perm,
-                        num_segments=int(num_segments), num_ids=int(ids.shape[0]),
-                        max_pieces=max_pieces)
+    max_pieces = num_segments + -(-ids.shape[0] // PIECE_EDGES)
+    # one arange serves as the row bounds and the piece ids
+    ar = torch.arange(max(max_pieces, num_segments + 1), device=ids.device, dtype=torch.int32)
+    ptr = torch.searchsorted(sorted_ids, ar[: num_segments + 1], out_int32=True)
+    pieces = torch.clamp((ptr[1:] - ptr[:-1] + PIECE_EDGES - 1) // PIECE_EDGES, min=1)
+    # the piece pointer and the tickets share one zeroed buffer
+    zeros = torch.zeros(2 * num_segments + 1, dtype=torch.int32, device=ids.device)
+    piece_ptr, tickets = zeros[: num_segments + 1], zeros[num_segments + 1:]
+    piece_ptr[1:] = torch.cumsum(pieces, 0, dtype=torch.int32)
+    # the row of piece p: the number of rows whose pieces end at or before p
+    piece_row = torch.searchsorted(piece_ptr[1:], ar[:max_pieces], right=True,
+                                   out_int32=True)
+    return SegmentIndex(ptr=ptr.contiguous(), piece_ptr=piece_ptr, piece_row=piece_row,
+                        tickets=tickets, perm=perm, num_segments=num_segments,
+                        num_ids=int(ids.shape[0]), max_pieces=max_pieces)
 
 
 # -- plain versions ----------------------------------------------------------
@@ -246,10 +262,10 @@ def _gather_scatter(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Ten
     lib = load()
     status = lib.gather_scatter_sum_fwd(
         code, h.data_ptr(), s.data_ptr(), w.data_ptr() if w is not None else None,
-        w_mode, index.ptr.data_ptr(), index.piece_ptr.data_ptr(),
+        w_mode, index.ptr.data_ptr(), index.piece_ptr.data_ptr(), index.piece_row.data_ptr(),
         index.perm.data_ptr() if index.perm is not None else None,
-        out.data_ptr(), partial.data_ptr(), num_nodes, index.max_pieces, PIECE_EDGES, c,
-        torch.cuda.current_stream(h.device).cuda_stream,
+        out.data_ptr(), partial.data_ptr(), index.tickets.data_ptr(), num_nodes,
+        index.max_pieces, PIECE_EDGES, c, torch.cuda.current_stream(h.device).cuda_stream,
     )
     _raise_on(name, status)
     _count_launch(counter)
@@ -280,9 +296,9 @@ def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     lib = load()
     status = lib.segment_sum_fwd(
         code, data.data_ptr(), index.ptr.data_ptr(), index.piece_ptr.data_ptr(),
-        index.perm.data_ptr() if index.perm is not None else None,
-        out.data_ptr(), partial.data_ptr(), num_segments, index.max_pieces, PIECE_EDGES, c,
-        torch.cuda.current_stream(data.device).cuda_stream,
+        index.piece_row.data_ptr(), index.perm.data_ptr() if index.perm is not None else None,
+        out.data_ptr(), partial.data_ptr(), index.tickets.data_ptr(), num_segments,
+        index.max_pieces, PIECE_EDGES, c, torch.cuda.current_stream(data.device).cuda_stream,
     )
     _raise_on(name, status)
     _count_launch(name)

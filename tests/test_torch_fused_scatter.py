@@ -254,3 +254,86 @@ def test_segment_ops_and_pooling_match_jax(batch):
         np.asarray(jseg.segment_count(jnp.asarray(batch.batch), g)))
     with pytest.raises(ValueError, match="Unknown pooling"):
         tseg.global_pool("median", torch.from_numpy(x), torch.from_numpy(batch.batch), g)
+
+
+@pytest.mark.parametrize("kind", ["max", "min"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_segment_extremes_of_non_finite_data_match_jax(batch, kind, dtype):
+    """``segment_max``/``segment_min`` and their pooling where graphs hold
+    +inf, -inf and NaN, and where graphs are empty: the JAX package zeroes
+    every float output that is not finite and every int output equal to the
+    reduction's identity (``hydragnn_tpu/graphs/segment.py::_zero_empty``)."""
+    from hydragnn_tpu.graphs import segment as jseg
+    from hydragnn_tpu_torch.graphs import segment as tseg
+
+    rng = np.random.default_rng(17)
+    n, g = batch.x.shape[0], batch.graph_mask.shape[0]
+    ids = np.array(batch.batch)
+    ids[ids == 3] = 4  # graph 3 becomes empty, beside the dummy graph's pads
+    if dtype == "float32":
+        x = rng.normal(size=(n, 6)).astype(np.float32)
+        first = [int(np.flatnonzero(ids == k)[0]) for k in (0, 1, 2, 5)]
+        x[first[0], 0] = np.inf  # a max of +inf, a min that stays finite
+        x[first[1], 1] = -np.inf  # a min of -inf
+        x[first[2], 2] = np.nan  # a NaN in a real graph
+        x[first[3], :] = np.inf  # a whole row of +inf
+    else:
+        info = np.iinfo(np.int32)
+        x = rng.integers(-50, 50, size=(n, 6)).astype(np.int32)
+        x[int(np.flatnonzero(ids == 0)[0]), 0] = info.min  # the max's identity as data
+        x[int(np.flatnonzero(ids == 1)[0]), 1] = info.max  # the min's identity as data
+    jfn = getattr(jseg, f"segment_{kind}")
+    tfn = getattr(tseg, f"segment_{kind}")
+    want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(ids), g))
+    got = tfn(torch.from_numpy(x), torch.from_numpy(ids), g).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got.astype(np.float64)).all()
+    assert (got[3] == 0).all(), "an empty graph pools to 0"
+    pooled = tseg.global_pool(kind, torch.from_numpy(x), torch.from_numpy(ids), g).numpy()
+    np.testing.assert_array_equal(
+        pooled, np.asarray(jseg.global_pool(kind, jnp.asarray(x), jnp.asarray(ids), g)))
+
+
+@pytest.mark.parametrize("field", ["receivers", "senders", "batch", "loop_receivers"])
+def test_piece_row_table_matches_numpy_on_collated_batches(batch, field):
+    """The segment-sum kernel's host-built lookup: ``piece_row[p]`` is the row
+    of piece ``p`` for every piece, and ``num_segments`` for the spare ids up
+    to ``max_pieces``; the tickets start at 0, one per row. Built from the
+    port's own collated batch (``GraphBatch.csr``, as the models call it)."""
+    from hydragnn_tpu_torch.graphs.batching import collate as tcollate
+    from hydragnn_tpu_torch.graphs.graph import GraphSample
+
+    rng = np.random.default_rng(23)
+    samples = []
+    for k in range(12):
+        na = int(rng.integers(9, 30)) if k else 70  # one graph of 70 atoms: pooled in 3 pieces
+        ne = int(rng.integers(0, 3 * na))
+        samples.append(GraphSample(x=rng.normal(size=(na, 1)), pos=rng.normal(size=(na, 3)),
+                                   senders=rng.integers(0, na, ne),
+                                   receivers=np.sort(rng.integers(0, na, ne))))
+    from hydragnn_tpu_torch.graphs.batching import compute_pad_spec as tpad
+
+    b = tcollate(samples, tpad(samples, 12))
+    idx = b.csr(field)
+    ids = (b.self_loop_edges()[1] if field == "loop_receivers" else getattr(b, field)).numpy()
+    rows = b.num_graphs if field == "batch" else b.num_nodes
+    pieces = np.maximum(1, -(-np.bincount(ids, minlength=rows) // fs.PIECE_EDGES))
+    want = np.full(idx.max_pieces, rows)
+    want[: pieces.sum()] = np.repeat(np.arange(rows), pieces)
+    assert idx.piece_row.dtype == torch.int32
+    np.testing.assert_array_equal(idx.piece_row.numpy(), want)
+    assert idx.tickets.dtype == torch.int32 and idx.tickets.shape == (rows,)
+    assert not idx.tickets.any()
+    assert pieces.max() > 1, "some row spans several pieces"
+
+
+def test_piece_row_table_edge_cases():
+    """No ids (every row one empty piece), trailing empty rows, and a single
+    row of exactly 32 and of 33 ids."""
+    for ids, rows, want in (([], 3, [0, 1, 2]),
+                            ([0, 0, 1], 4, [0, 1, 2, 3, 4]),
+                            ([0] * 32, 1, [0, 1]),
+                            ([0] * 33, 1, [0, 0, 1])):
+        idx = fs.segment_index(torch.tensor(ids, dtype=torch.int32), rows)
+        np.testing.assert_array_equal(idx.piece_row.numpy(), want)
+        assert idx.tickets.shape == (rows,) and not idx.tickets.any()

@@ -691,3 +691,329 @@ def test_quantized_predict_step_on_card(batch, arch):
     real = b.graph_mask > 0
     scale = float(want[0][real].abs().max())
     torch.testing.assert_close(got[0].cpu()[real], want[0][real], rtol=0, atol=1e-3 * scale)
+
+
+# -- the CSR kernels' fixed order, and B4's widths and views ----------------------
+
+
+def _csr_emulation():
+    """``chip_smoke.csr_sum_emulation`` and ``_bits`` (the repository root is
+    on the path when pytest runs as ``python -m pytest`` from it)."""
+    import chip_smoke
+
+    return chip_smoke.csr_sum_emulation, chip_smoke._bits
+
+
+def _ragged_ids(gen, layout):
+    """Segment ids into 40 rows: rows of exactly 1, 31, 32, 33, 64 and 65
+    entries, empty rows, and a dummy last row of 9,605 entries (301
+    pieces); ``unsorted`` shuffles them (the wrapper then argsorts)."""
+    lens = torch.tensor([1, 0, 31, 32, 0, 33, 64, 65] + [int(v) for v in torch.randint(
+        0, 40, (31,), generator=gen)] + [32 * 300 + 5])
+    lens[10] = 0
+    ids = torch.repeat_interleave(torch.arange(lens.shape[0]), lens).int()
+    if layout == "unsorted":
+        ids = ids[torch.randperm(ids.shape[0], generator=gen)]
+    return ids, lens.shape[0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("c", [1, 3, 6, 64, 384])
+@pytest.mark.parametrize("layout", ["sorted", "unsorted"])
+def test_segment_sum_is_bit_for_bit_on_card(dtype, c, layout):
+    """B2 on rows of 32 and 33 entries, empty rows and a dummy row of 301
+    pieces: rows of at most ``PIECE_EDGES`` entries bit-equal to the CPU
+    plain version (one thread: ``index_add_`` adds in index order), every
+    row bit-equal to the fixed-order emulation of pieces and chains; two
+    launches bit-equal; one counted launch per call."""
+    emulate, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(31)
+    ids, rows = _ragged_ids(gen, layout)
+    x = torch.randn(ids.shape[0], c, generator=gen).to(dtype)
+    index = fs.segment_index(ids.to(dev), rows, is_sorted=layout == "sorted")
+    before = fs.LAUNCHES["segment_sum"]
+    got = fs.fused_segment_sum(x.to(dev), ids.to(dev), rows, index=index)
+    again = fs.fused_segment_sum(x.to(dev), ids.to(dev), rows, index=index)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["segment_sum"] == before + 2
+    assert torch.equal(bits(torch, got), bits(torch, again))
+    got = got.cpu()
+    counts = torch.bincount(ids.long(), minlength=rows)
+    single = counts <= fs.PIECE_EDGES
+    plain = fs.plain_segment_sum(x, ids, rows)
+    assert torch.equal(bits(torch, got)[single], bits(torch, plain)[single])
+    emu = emulate(torch, x.float(), ids, rows).to(dtype)
+    assert torch.equal(bits(torch, got), bits(torch, emu))
+    assert not got[counts == 0].any()
+
+
+@pytest.mark.parametrize("wkind", ["none", "edge", "channel"])
+def test_gather_scatter_is_bit_for_bit_on_card(wkind):
+    """B1 over the same ragged rows (senders random), forward and the
+    transposed launch: every row bit-equal to the fixed-order emulation of
+    the fp32 products ``h[s] * w``."""
+    emulate, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(32)
+    recv, n = _ragged_ids(gen, "unsorted")
+    send = torch.randint(0, n, recv.shape, generator=gen).int()
+    h = torch.randn(n, 64, generator=gen)
+    w = (None if wkind == "none" else torch.rand(recv.shape[0], generator=gen)
+         if wkind == "edge" else torch.rand(recv.shape[0], 64, generator=gen))
+    wf = None if w is None else (w if w.dim() == 2 else w[:, None])
+    w_d = None if w is None else w.to(dev)
+    for src, dst, run in (
+            (send, recv, lambda: fs.gather_scatter_sum(h.to(dev), send.to(dev), recv.to(dev),
+                                                       n, weight=w_d)),
+            (recv, send, lambda: fs.gather_scatter_sum_bwd(h.to(dev), send.to(dev),
+                                                           recv.to(dev), n, w_d))):
+        terms = h[src.long()] if wf is None else h[src.long()] * wf
+        got = run().cpu()
+        assert torch.equal(bits(torch, got), bits(torch, emulate(torch, terms, dst, n)))
+
+
+def test_segment_sum_is_one_launch_and_replays_under_a_cuda_graph():
+    """One device kernel per wrapper call, and a CUDA graph of two calls over
+    rows of many pieces replayed twice gives the eager bits each time (the
+    per-row tickets that elect a row's combiner are back at 0 after every
+    launch)."""
+    _, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(33)
+    ids, rows = _ragged_ids(gen, "sorted")
+    ids = ids.to(dev)
+    index = fs.segment_index(ids, rows, is_sorted=True)
+    x = torch.randn(ids.shape[0], 64, generator=gen).to(dev)
+    y = torch.randn(ids.shape[0], 6, generator=gen).to(dev)
+    want = (fs.fused_segment_sum(x, ids, rows, index=index),
+            fs.fused_segment_sum(y, ids, rows, index=index))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fs.fused_segment_sum(x, ids, rows, index=index)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if "csr_" in e.key]
+    assert sum(e.count for e in kernels) == 1, [(e.key, e.count) for e in kernels]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fs.fused_segment_sum(x, ids, rows, index=index)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = fs.LAUNCHES["segment_sum"]
+    with torch.cuda.graph(graph):
+        out = (fs.fused_segment_sum(x, ids, rows, index=index),
+               fs.fused_segment_sum(y, ids, rows, index=index))
+    assert fs.LAUNCHES["segment_sum"] == before + 2
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(bits(torch, o), bits(torch, w)) for o, w in zip(out, want))
+    assert fs.LAUNCHES["segment_sum"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("m", [1, 5, 31, 32, 33, 64])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "view+1"])
+def test_masked_softmax_widths_and_views_on_card(dtype, m, offset):
+    """B4 at widths GPS's ``max_graph_nodes`` can take and on a view that
+    starts one element past an aligned address: within the plain version's
+    tolerance, masked entries of rows with a valid entry exactly 0, fully
+    masked rows uniform, two launches bit-equal, and bit-equal to the same
+    logits copied to an aligned tensor."""
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(40 + m)
+    g, heads = 65, 4
+    lens = torch.randint(0, m + 1, (g,), generator=gen)
+    lens[0], lens[-1] = m, 0
+    valid = (torch.arange(m)[None, :] < lens[:, None]).to(dev)
+    flat = (torch.randn(g * heads * m * m + offset, generator=gen) * 3.0).to(dev, dtype)
+    x = flat[offset:].view(g, heads, m, m)
+    got = fsm.masked_softmax(x, valid)
+    again = fsm.masked_softmax(x, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # the kernel's two paths (vectorised where m and the alignment allow)
+    # add in one order: a misaligned view and its aligned copy agree bit for bit
+    assert torch.equal(got, fsm.masked_softmax(x.clone(), valid))
+    torch.testing.assert_close(got.float(), fsm.plain_masked_softmax(x, valid).float(),
+                               **TOL[dtype])
+    live = valid.any(dim=1)
+    assert not got[live][(~valid[live])[:, None, None, :].expand_as(got[live])].any()
+    torch.testing.assert_close(got[~live].float(),
+                               torch.full_like(got[~live].float(), 1 / m), **TOL[dtype])
+
+
+@pytest.mark.parametrize("where", ["fixture", "qm9_top_bucket"])
+def test_gat_backward_op_by_op_against_fp64_on_card(batch, where):
+    """Bisect the card's fp32 GAT gradients, which miss an fp64 step by far
+    more than the CPU's do (``chip_smoke.py``'s fp32 step check): the qm9.json
+    GAT (dropout 0) runs one fp64 train-mode forward and loss on the CPU;
+    every GATConv layer's input and the loss's gradient at its output are
+    kept. Each op of each layer's forward then gets its fp64 inputs (cast to
+    fp32) and the fp64 chain's gradient of its output, and its fp32 input
+    gradients on the card and on the CPU are held against the same op in
+    fp64. Then the whole model's fp32 parameter gradients, card and CPU,
+    against the fp64 ones. Prints each op's and the worst tensors' errors,
+    max |g32 - g64| / max |g64|, and the worst op; gates that every gradient
+    is finite. ``where``: the 16-molecule fixture batch, or the top pad
+    bucket of ``chip_smoke.py``'s qm9-like data (N = 1864, ~11.5k entries
+    on the dummy node), where its fp32 step check reads the card's largest
+    errors."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from hydragnn_tpu_torch.graphs import segment
+    from hydragnn_tpu_torch.models.gat import GATConv
+    from hydragnn_tpu_torch.train.step import cast_forward
+
+    dev = _cuda_or_skip()
+    model, _ = _qm9_model(dev, mpnn_type="GAT", dropout=0.0)
+    gen = torch.Generator().manual_seed(50)
+    # a copy of the batch: its CSR cache starts empty, not with an earlier
+    # test's inference-mode tensors
+    if where == "fixture":
+        b64 = batch.replace(graph_y=torch.randn(batch.num_graphs, 1, generator=gen))
+    else:
+        import chip_smoke
+
+        b64, _ = chip_smoke.bucket_batches(*chip_smoke.prepare(0)[2:])
+    n, heads = b64.num_nodes, 6
+
+    def grads_of(m, b, dtype):
+        """The model's parameter gradients of one train-mode loss."""
+        m.zero_grad()
+        tot, _ = m.loss(cast_forward(m, b, dtype, train=True), b)
+        tot.backward()
+        return {k: p.grad.double().cpu() for k, p in m.named_parameters()}
+
+    # the fp64 chain: every GATConv's and every feature norm's input and its
+    # output's gradient
+    ref = copy.deepcopy(model).cpu().double()
+    convs = [m for m in ref.modules() if isinstance(m, GATConv)]
+    norms = list(ref.feature_layers)
+    seen = {}
+
+    def keep(mod):
+        def hook(module, args, output):
+            out = output[0] if isinstance(output, tuple) else output
+            seen[mod] = {"inv": args[0].detach()}
+            out.register_hook(lambda g: seen[mod].__setitem__("dout", g.detach()))
+        return hook
+
+    handles = [c.register_forward_hook(keep(c)) for c in convs + norms]
+    g64 = grads_of(ref, b64.map_floats(lambda t: t.double()), torch.float64)
+    for h in handles:
+        h.remove()
+
+    def context(b):
+        senders, receivers = b.self_loop_edges()
+        mask = b.edge_mask
+        sl_pad = senders.shape[0] - b.num_edges - n
+        on_card = senders.is_cuda
+        return dict(s=senders, r=receivers,
+                    e_mask=torch.cat([mask, mask.new_zeros(sl_pad), mask.new_ones(n)]),
+                    index=b.csr("loop_receivers") if on_card else None,
+                    send_index=b.csr("loop_senders") if on_card else None)
+
+    def ops(f, concat):  # (name, inputs, fn(ctx, *inputs), output), GATConv.forward's order
+        return [
+            ("lin_l (F.linear)", ("inv", "W_l", "b_l"),
+             lambda c, x, w, bb: F.linear(x, w, bb).reshape(n, heads, f), "x_l"),
+            ("lin_r (F.linear)", ("inv", "W_r", "b_r"),
+             lambda c, x, w, bb: F.linear(x, w, bb).reshape(n, heads, f), "x_r"),
+            ("gather_rows(x_l, senders)", ("x_l",),
+             lambda c, x: fs.gather_rows(x, c["s"], c["send_index"]), "x_ls"),
+            ("gather_rows(x_r, receivers)", ("x_r",),
+             lambda c, x: fs.gather_rows(x, c["r"], c["index"]), "x_rr"),
+            ("z = x_ls + x_rr", ("x_ls", "x_rr"), lambda c, a, b_: a + b_, "z"),
+            ("leaky ReLU (torch.where)", ("z",),
+             lambda c, z: torch.where(z >= 0, z, 0.05 * z), "z2"),
+            ("einsum('ehf,hf->eh')", ("z2", "att"),
+             lambda c, z, a: torch.einsum("ehf,hf->eh", z, a), "logits"),
+            ("mask (torch.where)", ("logits",),
+             lambda c, x: torch.where(c["e_mask"][:, None] > 0, x, -1e9), "logits_m"),
+            ("segment_softmax", ("logits_m",),
+             lambda c, x: segment.segment_softmax(x, c["r"], n, index=c["index"]), "alpha"),
+            ("alpha * e_mask", ("alpha",), lambda c, a: a * c["e_mask"][:, None], "alpha_m"),
+            ("msg = x_ls * alpha", ("x_ls", "alpha_m"), lambda c, x, a: x * a[:, :, None],
+             "msg"),
+            ("segment_sum(msg)", ("msg",),
+             lambda c, m: segment.segment_sum(m, c["r"], n, index=c["index"]), "agg"),
+            ("heads: concat" if concat else "heads: mean", ("agg",),
+             (lambda c, a: a.reshape(n, heads * f)) if concat else (lambda c, a: a.mean(dim=1)),
+             "out"),
+        ]
+
+    ctx64, ctx_card = context(b64), context(b64.to(dev))
+    report = []
+    for layer, conv in enumerate(convs):
+        chain = ops(conv.hidden, conv.concat)
+        vals = {"inv": seen[conv]["inv"].clone().requires_grad_(),
+                "W_l": conv.lin_l.weight.detach().clone().requires_grad_(),
+                "b_l": conv.lin_l.bias.detach().clone().requires_grad_(),
+                "W_r": conv.lin_r.weight.detach().clone().requires_grad_(),
+                "b_r": conv.lin_r.bias.detach().clone().requires_grad_(),
+                "att": conv.att.detach().clone().requires_grad_()}
+        for _, names, fn, out in chain:
+            vals[out] = fn(ctx64, *(vals[k] for k in names))
+            vals[out].retain_grad()
+        vals["out"].backward(seen[conv]["dout"])
+        upstream = {k: v.grad.detach() for k, v in vals.items() if v.grad is not None}
+
+        def op_grads(c, names, fn, out, device, dtype):
+            xs = [vals[k].detach().to(device, dtype).requires_grad_() for k in names]
+            y = fn(c, *xs)
+            return [g.double().cpu() for g in torch.autograd.grad(
+                y, xs, upstream[out].to(device, dtype))]
+
+        for name, names, fn, out in chain:
+            want = op_grads(ctx64, names, fn, out, "cpu", torch.float64)
+            errs = {}
+            for route, c, device in (("card", ctx_card, dev), ("cpu", ctx64, "cpu")):
+                got = op_grads(c, names, fn, out, device, torch.float32)
+                assert all(bool(torch.isfinite(g).all()) for g in got), (layer, name, route)
+                errs[route] = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-300)
+                                  for g, r in zip(got, want))
+            report.append((f"layer {layer} {name}", errs["card"], errs["cpu"]))
+    # the feature norms (MaskedBatchNorm, train mode: batch statistics over
+    # the real rows) between the conv layers, the same way
+    mask = b64.node_mask
+    for layer, norm in enumerate(norms):
+        x64, dy64 = seen[norm]["inv"], seen[norm]["dout"]
+
+        def norm_grads(device, dtype):
+            m = copy.deepcopy(norm).to(device, dtype)
+            xs = [x64.to(device, dtype).requires_grad_(),
+                  m.scale.detach().clone().requires_grad_(),
+                  m.bias.detach().clone().requires_grad_()]
+            y = torch.func.functional_call(m, {"scale": xs[1], "bias": xs[2]},
+                                           (xs[0], mask.to(device, dtype), True))
+            return [g.double().cpu() for g in torch.autograd.grad(y, xs, dy64.to(device, dtype))]
+
+        want = norm_grads("cpu", torch.float64)
+        errs = {route: max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-300)
+                           for g, r in zip(norm_grads(device, torch.float32), want))
+                for route, device in (("card", dev), ("cpu", "cpu"))}
+        report.append((f"layer {layer} MaskedBatchNorm (train)", errs["card"], errs["cpu"]))
+    print(f"\nqm9.json GAT on the {where} batch (N = {n}), each GATConv op's fp32 input "
+          "gradients against the same op in fp64 (max |g32 - g64| / max |g64|), with the fp64 "
+          "chain's inputs and output gradient:")
+    for name, card, cpu in report:
+        print(f"  {name:40s} card {card:.3e}   cpu {cpu:.3e}")
+    worst = max(report, key=lambda r: r[1])
+    print(f"worst op on the card: {worst[0]} ({worst[1]:.3e}; the CPU's {worst[2]:.3e})")
+
+    # the whole model's fp32 gradients, card and CPU, against fp64
+    g_card = grads_of(model, b64.to(dev), torch.float32)
+    g_cpu = grads_of(copy.deepcopy(model).cpu(), b64, torch.float32)
+    rel = {k: (float((g_card[k] - r).abs().max()) / max(float(r.abs().max()), 1e-300),
+               float((g_cpu[k] - r).abs().max()) / max(float(r.abs().max()), 1e-300))
+           for k, r in g64.items()}
+    assert all(bool(torch.isfinite(g).all()) for g in g_card.values())
+    print("the whole model's fp32 parameter gradients against fp64, the five worst on the "
+          "card:")
+    for k in sorted(rel, key=lambda k: -rel[k][0])[:5]:
+        print(f"  {k:40s} card {rel[k][0]:.3e}   cpu {rel[k][1]:.3e}")
