@@ -48,7 +48,11 @@ device JSON only when every phase passed):
    fp8 kernel B7 at the GIN's shapes in e4m3 and e5m2, saturated too (codes
    bit-equal, y within the summation-order bound); their times beside the
    plain versions, quantize + ``torch._int_mm`` / ``torch._scaled_mm``
-   yardsticks and the bounds;
+   yardsticks and the bounds; B6 also at GAT's 384 x 384, GIN conv layer 0
+   (K = 1) and a head's output Dense (N = 1), fp32 and bf16, at 16, 32 and
+   64 rows per CTA, its device operations under ``torch.profiler``, and
+   ``cuobjdump -sass`` of its library (IMMA instructions, no scalar tile
+   kernel left);
 4. serving, per model: ``PredictionServer`` with 512 concurrent requests;
    served answers against ``Predictor.outputs`` on the same padded batches;
    launch counts per served batch; the card's fp32 answers against the
@@ -78,7 +82,9 @@ device JSON only when every phase passed):
 9. the cell-list kernel B5 against its plain version at both MD systems'
    shapes (ids identical, shifts within 1e-6), a slab, an overflowing
    capacity, two launches bit-identical, the edge set against the dense
-   build, its time, plain time and bound; then MD: the analytic LJ
+   build, whether the shifts are bit-equal, its time, plain time and
+   bound, the whole build's time, and the device operations of the pair
+   test and of the whole build under ``torch.profiler``; then MD: the analytic LJ
    lattice (8,000 atoms, 100 NVE steps) and the trained EGNN on the
    1,000-atom cell (200 NVE steps): each system's first forces through the
    kernels against the plain versions at the path's shapes (within 1e-5 of
@@ -485,6 +491,47 @@ def event_time_ms(torch, fn, iters: int = 50, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return float(np.median(times))
+
+
+def device_ops(torch, fn, reps: int = 100):
+    """The device operations of one ``fn()`` call under ``torch.profiler``
+    (after one warm-up call): ``(operations per call, device-busy µs per
+    call, [(name, calls per fn() call, mean µs), ...] largest total first)``,
+    or ``(None, None, [])`` where the profiler traced no device event. A
+    profiling session after the process's first may drop its first events
+    (seen on the card: up to ~20), so counts per call are rounded over
+    ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None, None, []
+    by_name: dict = {}
+    for e in events:
+        count, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (count + 1, us + e.time_range.elapsed_us())
+    rows = sorted(((name, round(count / reps), us / count) for name, (count, us)
+                   in by_name.items() if round(count / reps)), key=lambda r: -r[1] * r[2])
+    return sum(c for _, c, _ in rows), sum(c * us for _, c, us in rows), rows
+
+
+def log_device_ops(label: str, ops, busy_us, rows, graph_us: float) -> None:
+    """One line per device operation of :func:`device_ops`, beside the
+    call's CUDA-graph replay time (what is not busy there is launch gaps)."""
+    if ops is None:
+        log(f"  {label}: the profiler traced no device event; operations not measured")
+        return
+    log(f"  {label}: {ops:g} device operations per call, device busy {busy_us:.2f} us of the "
+        f"{graph_us:.2f} us CUDA-graph replay time per call")
+    for name, count, us in rows:
+        log(f"    {count:g} x {us:.2f} us  {name[:110]}")
 
 
 def bucket_batches(loaders, samples, batch_size: int = 64):
@@ -1315,6 +1362,85 @@ def _kernel_entry(name: str, source: str, replaces: str, k: dict, err: float,
             "library_ms": k["library_ms"], "shape": k["shape"]}
 
 
+def _time_quant_dense(torch, label: str, x, w, b, plain: bool = False) -> dict:
+    """Kernel B6's device time on ``x [M, K]`` and ``w [K, N]`` quantized as
+    the serving tier quantizes it, beside quantize + ``torch._int_mm`` +
+    ``addcmul`` (the one-call yardstick, None where ``_int_mm`` refuses the
+    shape), the kernel at 16, 32 and 64 rows per CTA and, with ``plain``,
+    the plain version. Logged with the bound."""
+    from hydragnn_tpu_torch.ops import quant_matmul as qm
+
+    w_q, s_w = qm.quantize_weight(w)
+    s_x = max(float(x.float().abs().max()), 1e-8) / 127.0
+    s_x_t = torch.full((), s_x, device=x.device)
+    scale = s_x_t * s_w
+    m, k = x.shape
+    n = w_q.shape[1]
+    dtype = {torch.float32: "f32", torch.bfloat16: "bf16"}[x.dtype]
+
+    def kernel():
+        return qm.quant_dense(x, w_q, s_w, s_x, b)
+
+    w_cols = w_q.t().contiguous().t()  # torch._int_mm (cuBLASLt) takes B column-major
+
+    def int_mm_dequant():
+        x_q = torch.clamp(torch.round(x.float() / s_x_t), -127, 127).to(torch.int8)
+        acc = torch._int_mm(x_q, w_cols).float()
+        return acc * scale if b is None else torch.addcmul(b, acc, scale)
+
+    t = dict(ms=graph_time_ms(torch, kernel), plain_ms=None, library_ms=None,
+             bytes=m * k * x.element_size() + k * n + (1 if b is None else 2) * n * 4 + m * n * 4,
+             ops=2 * m * k * n, shape=f"x[{m},{k}] {dtype}, W_q[{k},{n}] int8 ({label})")
+    if plain:
+        t["plain_ms"] = graph_time_ms(torch, lambda: qm.reference_quant_dense(x, w_q, s_w, s_x,
+                                                                              b))
+    try:
+        lib_err = float((int_mm_dequant() - kernel()).abs().max())
+        t["library_ms"] = graph_time_ms(torch, int_mm_dequant)
+        x_q = qm.quantize_acts(x, s_x)
+        t["int_mm_ms"] = graph_time_ms(torch, lambda: torch._int_mm(x_q, w_cols))
+        note = (f"yardstick max|diff| vs kernel {lib_err:.3e} (addcmul rounds twice); "
+                f"torch._int_mm alone {t['int_mm_ms'] * 1e3:.2f} us")
+    except RuntimeError as exc:  # the yardstick only; the port never calls it
+        note = f"torch._int_mm refused this shape: {str(exc).splitlines()[0][:100]}"
+    if hasattr(qm, "ROWS_PER_CTA"):  # a B6 with a row-block choice (the scalar one had none)
+        t["rows_ms"] = {r: graph_time_ms(torch, lambda r=r: qm._launch(x, w_q, s_w, s_x, b,
+                                                                        False, rows=r)[2])
+                        for r in (16, 32, 64)}
+    t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / INT8_OPS) * 1e3
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
+    rows = "" if "rows_ms" not in t else " (rows per CTA " + ", ".join(
+        f"{r}: {v * 1e3:.2f}" for r, v in t["rows_ms"].items()) + " us)"
+    log(f"    {t['shape']}: kernel {t['ms'] * 1e3:.2f} us{rows}, yardstick {lib}, bound "
+        f"{t['bound_ms'] * 1e3:.3f} us; {note}")
+    return t
+
+
+def check_int8_tensor_cores(torch) -> None:
+    """B6's library runs on the int8 tensor cores: ``cuobjdump -sass`` of the
+    built ``quant_matmul`` library holds IMMA instructions, and no function
+    of the scalar tile kernel (``quant_tile::tile_kernel``) is left in it."""
+    import re
+
+    from hydragnn_tpu_torch.ops import _build
+
+    lib = _build.BUILD_LOG["quant_matmul.cu"]["path"]
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    functions = re.findall(r"Function : (\S+)", sass)
+    imma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines()
+            if " IMMA" in line]
+    scalar = [f for f in functions if "tile_kernel" in f]
+    kinds = sorted({i.split()[0] for i in imma})
+    log(f"  quant_dense SASS (cuobjdump -sass {Path(lib).name}): {len(functions)} functions, "
+        f"{len(imma)} IMMA instructions ({', '.join(kinds) or 'none'}), scalar tile-kernel "
+        f"functions {len(scalar)} {'ok' if imma and not scalar else 'NOT ON THE TENSOR CORES'}")
+    if not imma or scalar:
+        raise AssertionError("quant_dense: the built library does not run on the int8 tensor "
+                             "cores (no IMMA, or the scalar tile kernel is still in it)")
+
+
 def quant_kernel_phase(torch, model, batch, timing: bool = True):
     """Kernel B6 against its plain version at every Dense call of the qm9
     GIN's served forward on ``batch`` (the top bucket, with the served bf16
@@ -1323,8 +1449,10 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True):
     kernel B7 at the GIN's shapes in both formats, and saturated. With
     ``timing``, B6 and B7 at a conv layer's hidden Dense ([N, 64] x [64,
     64], fp32: the most frequent call) beside their plain versions, the
-    library yardsticks and the bounds. Returns the two JSON entries (B7's
-    max error is completed by the fp8 phase) or ``[]``."""
+    library yardsticks and the bounds; B6 also at GAT's lin_l, K = 1 and
+    N = 1, in fp32 and bf16, its device operations, and its SASS, which
+    must hold IMMA (the int8 tensor cores). Returns the two JSON entries
+    (B7's max error is completed by the fp8 phase) or ``[]``."""
     from hydragnn_tpu_torch.ops import fp8_matmul as f8
     from hydragnn_tpu_torch.ops import quant_matmul as qm
 
@@ -1364,37 +1492,43 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True):
     if not timing:
         return []
 
-    # a conv layer's hidden Dense (fp32 [N, 64] x [64, 64]), as served
+    # B6 as served: a conv layer's hidden Dense (fp32 [N, 64] x [64, 64], the
+    # most frequent call; the JSON row), then GAT's 384 x 384 lin_l, GIN conv
+    # layer 0 (K = 1) and a head's output Dense (N = 1), each in fp32 and bf16
     name, module, x = next(c for c in calls if c[0] == "graph_convs.1.nn.dense_1")
     m, k = x.shape
     w = module.weight.detach().float().t()
     b = module.bias.detach().float()
+    nb = w.shape[1]
+    log("  quant_dense device times (CUDA-graph replay; yardstick: quantize + torch._int_mm + "
+        "addcmul; bound: the bytes at 3.35 TB/s or the int8 operations at 1,979 TOP/s):")
+    k6 = _time_quant_dense(torch, name, x, w, b, plain=True)
+    k6["bf16"] = _time_quant_dense(torch, name, x.to(torch.bfloat16), w, b)
+    k_one = next(c for c in calls if c[2].shape[1] == 1)
+    n_one = next(c for c in calls if c[1].weight.shape[0] == 1)
+    gat = (torch.randn(m, 384, generator=gen).to(dev), torch.randn(384, 384, generator=gen).to(dev)
+           / 20, torch.randn(384, generator=gen).to(dev))
+    shapes = []
+    for label, xs, ws, bs in (
+            ("GAT lin_l", *gat),
+            (f"{k_one[0]}, K = 1", k_one[2].float(), k_one[1].weight.detach().float().t(),
+             None if k_one[1].bias is None else k_one[1].bias.detach().float()),
+            (f"{n_one[0]}, N = 1", n_one[2].float(), n_one[1].weight.detach().float().t(),
+             None if n_one[1].bias is None else n_one[1].bias.detach().float())):
+        for dtype in (torch.float32, torch.bfloat16):
+            shapes.append(_time_quant_dense(torch, label, xs.to(dtype), ws, bs))
+    k6["shapes"] = shapes
     w_q, s_w = qm.quantize_weight(w)
     s_x = float(x.abs().max()) / 127.0
-    s_x_t = torch.full((), s_x, device=dev)
-    scale = s_x_t * s_w
-    nb = w_q.shape[1]
-
-    def int_mm_dequant():
-        x_q = torch.clamp(torch.round(x / s_x_t), -127, 127).to(torch.int8)
-        return torch.addcmul(b, torch._int_mm(x_q, w_q).float(), scale)
-
-    k6 = dict(ms=graph_time_ms(torch, lambda: qm.quant_dense(x, w_q, s_w, s_x, b)),
-              plain_ms=graph_time_ms(torch, lambda: qm.reference_quant_dense(x, w_q, s_w, s_x,
-                                                                             b)),
-              library_ms=None, bytes=m * k * 4 + k * nb + 2 * nb * 4 + m * nb * 4,
-              ops=2 * m * k * nb, shape=f"x[{m},{k}] f32, W_q[{k},{nb}] int8 ({name})")
-    try:
-        lib_err = float((int_mm_dequant() - qm.quant_dense(x, w_q, s_w, s_x, b)).abs().max())
-        k6["library_ms"] = graph_time_ms(torch, int_mm_dequant)
-        x_q0 = qm.quantize_acts(x, s_x)
-        t_mm = graph_time_ms(torch, lambda: torch._int_mm(x_q0, w_q))
-        log(f"  yardstick: quantize + torch._int_mm + addcmul, max|diff| vs kernel "
-            f"{lib_err:.3e} (addcmul rounds twice); torch._int_mm alone {t_mm * 1e3:.2f} us")
-    except RuntimeError as exc:  # the yardstick only; the port never calls it
-        log(f"  yardstick torch._int_mm refused this shape: {exc}")
+    ops, busy, rows = device_ops(torch, lambda: qm.quant_dense(x, w_q, s_w, s_x, b))
+    log_device_ops(f"one quant_dense call at x[{m},{k}] f32 x W_q[{k},{nb}] under torch.profiler",
+                   ops, busy, rows, k6["ms"] * 1e3)
+    k6["device_ops"] = ops
     entries = [_kernel_entry("quant_dense", "quant_matmul.cu",
                              "hydragnn_tpu/ops/quant_matmul.py:80", k6, err6, INT8_OPS)]
+    for extra in ("bf16", "shapes", "rows_ms", "device_ops"):
+        if extra in k6:
+            entries[-1][extra] = k6[extra]
 
     fmt = "e4m3"
     w8, s_w8 = f8.quantize_weight_fp8(w, fmt)
@@ -1423,6 +1557,7 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True):
         log(f"  yardstick torch._scaled_mm refused this shape: {exc}")
     entries.append(_kernel_entry("fp8_dense", "fp8_matmul.cu",
                                  "hydragnn_tpu/ops/fp8_matmul.py:111", k7, err7, INT8_OPS))
+    check_int8_tensor_cores(torch)
     return entries
 
 
@@ -2423,11 +2558,13 @@ def md_systems(aug: dict, seed: int, lj_k: int = 20, mlip_cells: int = MLIP_MD_C
 
 def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = True):
     """Kernel B5 against its plain version on the card at both MD systems'
-    shapes (ids, masks and ``n_edges`` identical, shifts within 1e-6), a
-    slab with one open axis, an overflowing capacity (``n_edges`` equal),
-    two launches bit-identical, the edge set against the dense build, then
-    its device time beside the plain version's and its bound. Returns the
-    kernel's JSON entry (``launches`` filled in later)."""
+    shapes (ids, masks and ``n_edges`` identical, shifts within 1e-6 and
+    reported bit-equal or not), a slab with one open axis, an overflowing
+    capacity (``n_edges`` equal), two launches bit-identical, the edge set
+    against the dense build, then its device time beside the plain
+    version's and its bound, the whole build's time, and the device
+    operations of both. Returns the kernel's JSON entry (``launches``
+    filled in later)."""
     from hydragnn_tpu_torch.md import dynamic_radius_graph, plan_cell_grid
     from hydragnn_tpu_torch.ops import fused_cell_list as fcl
     from hydragnn_tpu_torch.ops import fused_scatter as fs
@@ -2461,12 +2598,18 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
             ok = ok and torch.equal(s, ws) and torch.equal(r, wr) and torch.equal(m, wm)
             err = float((sh - wsh).abs().max())
             ok = ok and err <= 1e-6
+            live = m > 0
+            bits.append(torch.equal(sh[live].view(torch.int32), wsh[live].view(torch.int32)))
         log(f"  {label}: n_edges {int(ne)} (plain {int(wne)}), "
             f"{'n_edges only (poisoned)' if poisoned else 'ids, mask identical'}, "
-            f"max|shift diff| {err:.3e} (allowed 1e-6) {'ok' if ok else 'MISMATCH'}")
+            f"max|shift diff| {err:.3e} (allowed 1e-6"
+            f"{'' if poisoned else '; live shifts bit-equal' if bits[-1] else '; bits differ'}) "
+            f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"cell_list {label}: kernel disagrees with the plain version")
         return got, err
+
+    bits: list = []
 
     errs = []
     outs = {}
@@ -2512,14 +2655,14 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
     entry = {"name": "cell_list", "route": "cuda",
              "source": "hydragnn_tpu_torch/csrc/cell_list.cu",
              "replaces": "hydragnn_tpu/ops/fused_cell_list.py:90", "launches": 0,
-             "max_abs_err": max(errs), "library_ms": None}
+             "max_abs_err": max(errs), "library_ms": None, "shifts_bit_equal": all(bits)}
     if not timing:
         return entry
-    # device time per call at both systems: the kernel's two launches with
-    # the on-device cumsum between them, against the plain version's
+    # device time per call at both systems: the pair test (the kernel and
+    # what its wrapper launches around it), against the plain version's
     # candidate matrix and nonzero (which waits for the host: timed by
     # events around back-to-back calls); the whole build (prelude, pairs,
-    # epilogue) beside them
+    # epilogue) beside them; each one's device operations under the profiler
     times = {}
     for key in ("lj", "mlip"):
         sys_ = systems[key]
@@ -2564,21 +2707,34 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
         t["shape"] = (f"{n} atoms, grid {grid}, capacity {cap}, {candidates} candidate pairs, "
                       f"{edges} edges")
         times[key] = t
-        log(f"  {key} @ {t['shape']}: kernel (2 launches + cumsum) {t['ms'] * 1e3:.2f} us, "
+        kernel_ops = device_ops(torch, lambda: fcl._kernel_cell_pairs(*args, start, occ))
+        build_ops = device_ops(torch, md_build)
+        t["pair_test_ops"], t["build_ops"] = kernel_ops[0], build_ops[0]
+        # what a cell-sorted position array (the JAX kernel keeps one resident)
+        # would add to every build: one gather
+        t["sorted_copy_ms"] = graph_time_ms(torch, lambda: pos.index_select(0, order))
+        log(f"  {key} @ {t['shape']}: pair test {t['ms'] * 1e3:.2f} us, "
             f"plain (candidate matrix + nonzero, host-synchronising) {t['plain_ms'] * 1e3:.2f} "
             f"us; whole build: kernel route {t['build_ms'] * 1e3:.2f} us (CUDA-graph replay: "
             f"nothing waits for the host), plain route {t['plain_build_ms'] * 1e3:.2f} us; "
             f"bound {max(t['bytes'] / HBM_BYTES_PER_S, t['ops'] / FP32_FLOPS) * 1e6:.3f} us "
             f"({t['bytes']} B, {t['ops']} fp32 operations); one-call PyTorch: none (no single "
             f"call builds a periodic radius graph)")
+        log_device_ops(f"{key}: the pair test (_kernel_cell_pairs)", *kernel_ops, t["ms"] * 1e3)
+        log_device_ops(f"{key}: the whole build (cell_list_edges)", *build_ops,
+                       t["build_ms"] * 1e3)
+        log(f"  {key}: a cell-sorted copy of the positions (pos[order]) would add one device "
+            f"operation of {t['sorted_copy_ms'] * 1e3:.2f} us to every build")
     t = times["lj"]  # the JSON row: the larger system
     t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = t["ops"] / FP32_FLOPS * 1e3
     entry.update(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations", shape=t["shape"],
                  build_ms=t["build_ms"], plain_build_ms=t["plain_build_ms"],
+                 build_ops=t["build_ops"], pair_test_ops=t["pair_test_ops"],
                  mlip_system={k: times["mlip"][k] for k in ("ms", "plain_ms", "build_ms",
-                                                            "plain_build_ms", "shape")})
+                                                            "plain_build_ms", "build_ops",
+                                                            "pair_test_ops", "shape")})
     return entry
 
 
@@ -3050,12 +3206,46 @@ def fp8_phase(torch, gin_model, gin_batch, mlip_model, mlip_batch, card: str = "
     return {"launches": launches, "max_abs_err": err, "egnn": out, "report": report}
 
 
+def kernels_only(torch, seed: int, dev: dict) -> int:
+    """``--kernels-only``: every kernel against its plain version with its
+    times, at the main paths' shapes: phase 3, the cell-list checks and
+    times (on both MD systems, the MLIP one made from the untrained oc20
+    configuration), then phase 3b (which ends with B6's tensor-core check).
+    Prints the kernels line (launches 0: no main path ran) and returns 3."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+
+    t_start = time.perf_counter()
+    _, aug_gin, loaders, samples = prepare(seed)
+    n_max = update_config(qm9_config("gps"), loaders[0].samples)[
+        "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
+    top, small = bucket_batches(loaders, samples)
+    entries, _ = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_train_batch())
+    cfg = mlip_config(MLIP_EPOCHS)  # augmented as run_training augments it
+    mlip_loaders = dataset_loading_and_splitting(cfg, samples=mlip_samples())
+    aug = update_config(cfg, *(ld.samples for ld in mlip_loaders))
+    entries.append(cell_list_phase(torch, md_systems(aug, seed)))
+    entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda", seed=seed),
+                                  top)
+    log(f"chip_smoke --kernels-only: {time.perf_counter() - t_start:.1f} s; no main path was "
+        f"driven, so no result line")
+    log(dev["smi"])
+    print(json.dumps({"kernels": entries}), flush=True)
+    return 3
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quant-diagnostics", action="store_true",
                         help="phase 10 also attributes each model's int8 bound to its Dense "
                              "layers and calibrates on the whole training split (logged only)")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="only build the kernels and hold each against its plain version "
+                             "with its times (phases 3, 3b and the cell-list checks of 9, on "
+                             "untrained models); prints the kernels line, no result line, and "
+                             "exits 3: no main path is driven")
     args = parser.parse_args(argv)
 
     import torch
@@ -3069,6 +3259,8 @@ def main(argv=None) -> int:
     if pkg.parent != ROOT:
         raise SystemExit(f"chip_smoke: hydragnn_tpu_torch imported from {pkg}, not this checkout")
     build_phase()
+    if args.kernels_only:
+        return kernels_only(torch, args.seed, dev)
     _, aug_gin, loaders, samples = prepare(args.seed)
     n_max = update_config(qm9_config("gps"), loaders[0].samples)[
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]

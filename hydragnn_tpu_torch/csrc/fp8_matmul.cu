@@ -12,8 +12,8 @@
 //   the device: the activation scale is a tensor computed on the card, read
 //   here through its pointer, so no value crosses to the host.
 //
-// The tile kernel and its launcher are quant_tile.cuh's, shared with the
-// int8 layer (quant_matmul.cu); this file is the fp8 quantizer. The
+// The tile kernel and its launcher are quant_tile.cuh's; this file is the
+// fp8 quantizer. The
 // conversion is __nv_cvt_float_to_fp8(v, __NV_SATFINITE, format) after the
 // same clip as the XLA route (max = 448 for e4m3, 57344 for e5m2), both
 // rounding to nearest even, as torch's .to(torch.float8_*) does; x / s_x is

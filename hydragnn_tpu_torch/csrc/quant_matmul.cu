@@ -10,55 +10,322 @@
 //   x [M, K] fp32 or bf16 row-major, W_q [K, N] int8 row-major (the JAX
 //   layout), s_w [N] and b [N] fp32, s_x a host float.
 //
-// The tile kernel and its launcher are quant_tile.cuh's, shared with the fp8
-// layer (fp8_matmul.cu); this file is the int8 quantizer. Its arithmetic is
-// the XLA route's, operation for operation: x / s_x is an IEEE division
-// (__fdiv_rn, never a reciprocal multiply), rintf rounds half to even as
-// jnp.round does, and the int8 products are summed exactly in int32 (any
-// order gives the same bits).
+// Arithmetic, operation for operation the XLA route's: x / s_x is an IEEE
+// division (__fdiv_rn, never a reciprocal multiply), rintf rounds half to
+// even as jnp.round does, the clamp to +-127 is taken in fp32; the int8
+// products are summed exactly in int32, so any order of the sum (here the
+// tensor cores') gives the same bits; s_x * s_w[n] is one fp32 product
+// (__fmul_rn) and the dequantisation and bias one fused multiply-add
+// (__fmaf_rn), the single rounding the XLA CPU route computes.
 //
 // Bound on this card: at the served shapes (M = 1,864 rows, K = N = 64) the
 // layer moves ~0.96 MB (fp32 x in, fp32 y out, 4 KB of weights) and does
-// 15 M int8 operations, so memory bounds it (~0.29 us at 3.35 TB/s) and at
-// these sizes the launch and the weight staging dominate. The scalar int32
-// loop does not use the tensor cores (wgmma / mma.sync int8 tiles are later
-// work).
+// 15 M int8 operations, so memory bounds it (~0.29 us at 3.35 TB/s); at
+// these sizes a call is a launch and one round of load latency.
+//
+// Design: the products on the int8 tensor cores, mma.sync m16n8k32 (s8 x
+// s8 -> s32), one CTA of 8 warps per 16 x MT rows (MT = 1, 2 or 4 m-tiles;
+// the wrapper's choice, measured) and up to NC output columns.
+//   * Staging, all in shared memory: the CTA's x rows quantized once, in
+//     chunks of 8 k (one or two 16-byte loads of x, 8 codes, one 8-byte
+//     store); W_q's [K, NC] slice transposed into the B operand's column
+//     layout s_w[n][k], in blocks of 4 k x 16 columns (four 16-byte loads of
+//     W_q rows, a 4 x 4 byte transpose in registers with __byte_perm, 32-bit
+//     stores; lanes on consecutive k, so no bank conflict); the scales and
+//     the bias. K is zero-padded to a multiple of 32 and NC to one of 8; a
+//     row's stride is an odd multiple of 32 bytes, so the 8-byte fragment
+//     loads of a half-warp hit 16 distinct banks. The three staging loops
+//     start at different threads, so at the served shapes every thread has
+//     one item and all its global loads go out in one round. Above the 48 KB
+//     default the shared memory is opted into once per device (GAT's 384 x
+//     384 lin_l takes 170 KB); NC < N only where the slice does not fit in
+//     227 KB, and then the grid's second axis tiles N.
+//   * The m-tile's warps split its n-tiles (8 columns each) and accumulate
+//     up to 8 at a time in registers: per 32 k, two 8-byte loads give a
+//     lane its A fragment and one its B fragment. The k order inside a
+//     fragment is relabelled (logical k 4t..4t+3 and 16+4t..16+4t+3 of lane
+//     t are the staged k 8t..8t+7) for A and B alike, which leaves every
+//     product where it was, and zero codes pad K.
+//   * The epilogue dequantizes each int32 sum with one __fmaf_rn and stores
+//     pairs of columns (masked to N, which may be 1).
+// Optional debug outputs x_q [M, K] and acc [M, N] let a check hold the
+// codes and the accumulator against the plain version.
 
-#include "quant_tile.cuh"
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTilesPerPass = 8;   // n-tiles a warp accumulates at once
+constexpr int kMaxSmem = 232448;   // 227 KB: the most a block may opt into on sm_90
+
+// bytes of one staged weight column: K padded to a multiple of 32, then to an
+// odd multiple of 32 (bank-conflict-free 8-byte fragment loads)
+inline int row_stride(int kp) { return (kp / 32) % 2 ? kp : kp + 32; }
+
+__device__ __forceinline__ int code_of(float v, float s_x) {
+  return __float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(v, s_x)), -127.0f), 127.0f));
+}
+
+__device__ __forceinline__ uint32_t pack4(const int c[4]) {
+  return (static_cast<uint32_t>(c[0]) & 0xffu) | ((static_cast<uint32_t>(c[1]) & 0xffu) << 8) |
+         ((static_cast<uint32_t>(c[2]) & 0xffu) << 16) | (static_cast<uint32_t>(c[3]) << 24);
+}
+
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // a bf16 is the high half of its fp32
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// The codes of x[row, kb .. kb + 8), zero outside [M, K), packed 4 per word
+// (lowest k in the lowest byte); also stored to xq_out when it is given.
 template <typename T>
-struct Int8 {
-  using In = T;
-  using Raw = int8_t;
-  using Code = int8_t;
-  using Acc = int32_t;
-  using Scale = float;
-  __device__ static float scale(float s) { return s; }
-  __device__ static int8_t quantize(float v, float s_x, int8_t& raw) {
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s_x)), -127.0f), 127.0f);
-    raw = static_cast<int8_t>(__float2int_rn(q));
-    return raw;
+__device__ __forceinline__ uint2 quantize8(const T* __restrict__ x, int row, int kb, int M,
+                                           int K, float s_x, bool vec,
+                                           int8_t* __restrict__ xq_out) {
+  int c[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (row < M) {
+    const size_t at = static_cast<size_t>(row) * K + kb;
+    if (vec && kb + 8 <= K) {
+      float v[8];
+      load8(x + at, v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[j] = code_of(v[j], s_x);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (kb + j < K) c[j] = code_of(load1(x + at + j), s_x);
+    }
+    if (xq_out != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (kb + j < K) xq_out[at + j] = static_cast<int8_t>(c[j]);
+    }
   }
-  __device__ static int8_t weight(int8_t w) { return w; }
-  __device__ static int32_t mac(int32_t acc, int8_t a, int8_t b) {
-    return acc + static_cast<int32_t>(a) * static_cast<int32_t>(b);
+  return make_uint2(pack4(c), pack4(c + 4));
+}
+
+__device__ __forceinline__ void mma_s8(int acc[4], const uint32_t a[4], uint2 b) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(kThreads)
+quant_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
+                 const float* __restrict__ sw, const float* __restrict__ bias, float s_x,
+                 float* __restrict__ out, int8_t* __restrict__ xq_out,
+                 int32_t* __restrict__ acc_out, int M, int K, int N, int NC, int ks, bool vec,
+                 bool wvec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kRows = 16 * MT;
+  const int kp = (K + 31) / 32 * 32;
+  const int m0 = blockIdx.x * kRows;
+  const int n0 = blockIdx.y * NC;
+  const int nc = min(NC, N - n0);
+  const int ncp = (nc + 7) / 8 * 8;
+  float* s_scale = reinterpret_cast<float*>(smem);              // [ncp]: s_x * s_w[n]
+  float* s_bias = s_scale + ncp;                                 // [ncp]
+  int8_t* s_w = reinterpret_cast<int8_t*>(s_bias + ncp);         // [ncp][ks]: W_q^T
+  int8_t* s_xq = s_w + static_cast<size_t>(ncp) * ks;            // [kRows][ks]: x's codes
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // Staging: x's codes in chunks of 8 k, W_q^T in blocks of 4 k x 16
+  // columns, the scales and the bias, each loop started at another thread so
+  // that at the served shapes every thread has one item and all loads go out
+  // in one round.
+  const int x_items = kRows * (kp / 8);
+  int8_t* xq = blockIdx.y == 0 ? xq_out : nullptr;  // the codes, written once
+  for (int i = tid; i < x_items; i += kThreads) {
+    const int r = i / (kp / 8), k8 = (i - r * (kp / 8)) * 8;
+    *reinterpret_cast<uint2*>(s_xq + r * ks + k8) =
+        quantize8(x, m0 + r, k8, M, K, s_x, vec, xq);
   }
-  __device__ static float to_float(int32_t acc) { return __int2float_rn(acc); }
-};
+  for (int i = (tid + kThreads - x_items % kThreads) % kThreads; i < ncp; i += kThreads) {
+    s_scale[i] = i < nc ? __fmul_rn(s_x, sw[n0 + i]) : 0.0f;
+    s_bias[i] = i < nc && bias != nullptr ? bias[n0 + i] : 0.0f;
+  }
+  const int k_quads = kp / 4;
+  for (int i = kThreads - 1 - tid; i < (ncp + 15) / 16 * k_quads; i += kThreads) {
+    const int c = i / k_quads * 16, k4 = (i - i / k_quads * k_quads) * 4;
+    uint32_t rows[4][4];  // 4 k x 16 columns of W_q, as read
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      uint4 v = make_uint4(0, 0, 0, 0);
+      const int k = k4 + h;
+      if (k < K) {
+        const int8_t* src = wq + static_cast<size_t>(k) * N + n0 + c;
+        if (wvec && c + 16 <= nc) {
+          v = *reinterpret_cast<const uint4*>(src);
+        } else {
+          uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            if (c + j < nc) w[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(src[j]))
+                                        << (8 * (j % 4));
+          v = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      rows[h][0] = v.x; rows[h][1] = v.y; rows[h][2] = v.z; rows[h][3] = v.w;
+    }
+    // transposed: column c + 4q + j gets byte j of each row's word q, k4 in
+    // its lowest byte
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t lo01 = __byte_perm(rows[0][q], rows[1][q], 0x5140);
+      const uint32_t lo23 = __byte_perm(rows[2][q], rows[3][q], 0x5140);
+      const uint32_t hi01 = __byte_perm(rows[0][q], rows[1][q], 0x7362);
+      const uint32_t hi23 = __byte_perm(rows[2][q], rows[3][q], 0x7362);
+      const uint32_t col[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+                               __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = c + 4 * q + j;
+        if (n < ncp) *reinterpret_cast<uint32_t*>(s_w + n * ks + k4) = col[j];
+      }
+    }
+  }
+  __syncthreads();
+
+  // this warp: m-tile `tile`, n-tiles part, part + parts, ...
+  constexpr int parts = kWarps / MT;
+  const int tile = warp / parts, part = warp % parts;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = m0 + tile * 16 + g, row1 = row0 + 8;
+  const int8_t* a0 = s_xq + (tile * 16 + g) * ks + 8 * t;  // row g; row g + 8 at 8 ks
+  const int ntiles = ncp / 8;
+  for (int p0 = part; p0 < ntiles; p0 += parts * kTilesPerPass) {
+    int acc[kTilesPerPass][4];
+#pragma unroll
+    for (int u = 0; u < kTilesPerPass; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0;
+    for (int k0 = 0; k0 < kp; k0 += 32) {
+      const uint2 lo = *reinterpret_cast<const uint2*>(a0 + k0);
+      const uint2 hi = *reinterpret_cast<const uint2*>(a0 + 8 * ks + k0);
+      const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+      for (int u = 0; u < kTilesPerPass; ++u) {
+        const int nt = p0 + u * parts;
+        if (nt < ntiles) {
+          const uint2 b = *reinterpret_cast<const uint2*>(s_w + (nt * 8 + g) * ks + k0 + 8 * t);
+          mma_s8(acc[u], a, b);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTilesPerPass; ++u) {
+      const int nt = p0 + u * parts;
+      if (nt >= ntiles) continue;
+      const int c = nt * 8 + 2 * t;  // this lane's first column in the slice
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = h ? row1 : row0;
+        if (row >= M) continue;
+        const size_t o = static_cast<size_t>(row) * N + n0 + c;
+        const float y0 = __fmaf_rn(__int2float_rn(acc[u][2 * h]), s_scale[c], s_bias[c]);
+        const float y1 =
+            __fmaf_rn(__int2float_rn(acc[u][2 * h + 1]), s_scale[c + 1], s_bias[c + 1]);
+        if (c + 1 < nc && N % 2 == 0) {
+          *reinterpret_cast<float2*>(out + o) = make_float2(y0, y1);
+          if (acc_out != nullptr)
+            *reinterpret_cast<int2*>(acc_out + o) = make_int2(acc[u][2 * h], acc[u][2 * h + 1]);
+        } else {
+          if (c < nc) {
+            out[o] = y0;
+            if (acc_out != nullptr) acc_out[o] = acc[u][2 * h];
+          }
+          if (c + 1 < nc) {
+            out[o + 1] = y1;
+            if (acc_out != nullptr) acc_out[o + 1] = acc[u][2 * h + 1];
+          }
+        }
+      }
+    }
+  }
+}
+
+// One launch of quant_mma_kernel<T, MT>. Returns a cudaError_t.
+template <typename T, int MT>
+int launch(const void* x, const void* wq, const void* sw, const void* bias, float s_x,
+           void* out, void* xq_out, void* acc_out, int M, int K, int N, void* stream) {
+  const int ks = row_stride((K + 31) / 32 * 32);
+  // all N columns if their slice fits beside the x tile, else as many
+  // 16-column chunks as fit
+  const long fit = (kMaxSmem - 16L * MT * ks) / (ks + 8L);
+  const int NC = fit >= (N + 7) / 8 * 8 ? N : static_cast<int>(fit / 16 * 16);
+  if (NC < 1) return static_cast<int>(cudaErrorInvalidValue);  // K too large for one chunk
+  const size_t smem = static_cast<size_t>((NC + 7) / 8 * 8) * (ks + 8) + 16 * MT * ks;
+  // the opt-in above 48 KB is a property of the function on one device:
+  // made once per device this process launches on
+  static std::atomic<unsigned long long> opted{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  const unsigned long long bit = 1ull << dev;
+  if (!(opted.load() & bit)) {
+    err = cudaFuncSetAttribute(quant_mma_kernel<T, MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted.fetch_or(bit);
+  }
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (K * sizeof(T)) % 16 == 0;
+  const bool wvec = reinterpret_cast<uintptr_t>(wq) % 16 == 0 && N % 16 == 0 && NC % 16 == 0;
+  const dim3 grid((M + 16 * MT - 1) / (16 * MT), (N + NC - 1) / NC);
+  quant_mma_kernel<T, MT><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(wq), static_cast<const float*>(sw),
+      static_cast<const float*>(bias), s_x, static_cast<float*>(out),
+      static_cast<int8_t*>(xq_out), static_cast<int32_t*>(acc_out), M, K, N, NC, ks, vec, wvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_rows(int rows, const void* x, const void* wq, const void* sw, const void* bias,
+                float s_x, void* out, void* xq_out, void* acc_out, int M, int K, int N,
+                void* stream) {
+  switch (rows) {
+    case 16: return launch<T, 1>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
+    case 32: return launch<T, 2>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
+    case 64: return launch<T, 4>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
-// dtype: 0 = fp32 x, 1 = bf16 x. bias, xq_out and acc_out may be null.
+// dtype: 0 = fp32 x, 1 = bf16 x; rows: rows of x per CTA (16, 32 or 64).
+// bias, xq_out and acc_out may be null.
 extern "C" int quant_dense_fwd(int dtype, const void* x, const void* wq, const void* sw,
                                const void* bias, float s_x, void* out, void* xq_out,
-                               void* acc_out, int M, int K, int N, void* stream) {
+                               void* acc_out, int M, int K, int N, int rows, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return quant_tile::launch<Int8<float>>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K,
-                                           N, stream);
+    return launch_rows<float>(rows, x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N,
+                              stream);
   if (dtype == 1)
-    return quant_tile::launch<Int8<__nv_bfloat16>>(x, wq, sw, bias, s_x, out, xq_out, acc_out,
-                                                   M, K, N, stream);
+    return launch_rows<__nv_bfloat16>(rows, x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K,
+                                      N, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

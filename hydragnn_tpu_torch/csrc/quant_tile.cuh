@@ -1,34 +1,36 @@
-// The tile kernel and launcher shared by the quantized dense layers of
-// hydragnn_tpu_torch: int8 (quant_matmul.cu, kernel B6) and fp8
-// (fp8_matmul.cu, kernel B7). Both compute
+// The tile kernel and launcher of the fp8 dense layer of hydragnn_tpu_torch
+// (fp8_matmul.cu, kernel B7), written as a template over a quantizer policy.
+// The int8 layer (kernel B6) has its own tensor-core kernel in
+// quant_matmul.cu and no longer instantiates this one. A layer here computes
 //
 //   x_q[m, k] = quantize(x[m, k] / s_x)
 //   acc[m, n] = sum_k x_q[m, k] * W_q[k, n]
 //   y[m, n]   = fma(float(acc[m, n]), s_x * s_w[n], b[n])      (fp32)
 //
 // with x [M, K] row-major, W_q [K, N] row-major (the JAX layout), s_w [N] and
-// b [N] fp32. A quantizer policy P supplies what differs between them:
+// b [N] fp32. A quantizer policy P supplies the format (fp8_matmul.cu's
+// Fp8<e4m3 or e5m2>):
 //
-//   P::In     x's element type                 (float, __nv_bfloat16)
-//   P::Raw    the stored code (W_q, x_q debug)  (int8_t, fp8 byte)
-//   P::Code   the code kept in shared memory    (int8_t, decoded float)
-//   P::Acc    the accumulator                   (int32_t, float)
-//   P::Scale  how s_x arrives                   (a float, a device pointer)
+//   P::In     x's element type                 (float)
+//   P::Raw    the stored code (W_q, x_q debug)  (an fp8 byte)
+//   P::Code   the code kept in shared memory    (the decoded float)
+//   P::Acc    the accumulator                   (float)
+//   P::Scale  how s_x arrives                   (a device pointer)
 //   scale(s)            s_x as an fp32 value
 //   quantize(v, s_x, r) the code of v (and its stored byte in r)
 //   weight(w)           a stored weight as a Code
 //   mac(acc, a, b)      acc + a * b
 //   to_float(acc)       the accumulator as fp32
 //
-// Arithmetic that both share is stated with intrinsics, so nothing depends
+// The shared arithmetic is stated with intrinsics, so nothing depends
 // on nvcc's contraction flags: s_x * s_w[n] is one fp32 product (__fmul_rn)
 // and the dequantisation and bias are one fused multiply-add (__fmaf_rn),
 // the single rounding the XLA CPU route computes.
 //
 // Design: one CTA of 256 threads per tile of 16 rows and of up to NC output
 // columns. The CTA stages W_q's [K, NC] slice (as Codes), s_x * s_w and b in
-// dynamic shared memory (above the 48 KB default, opted into once per device:
-// GAT's 384 x 384 lin_l / lin_r is 147 KB of int8), quantizes its rows of x
+// dynamic shared memory (above the 48 KB default, opted into once per
+// device), quantizes its rows of x
 // into shared memory while loading them, and gives each thread outputs
 // (r, n) with consecutive n across a warp: the weights a warp reads are
 // consecutive (no bank conflict) and the x codes are one broadcast. Scalar

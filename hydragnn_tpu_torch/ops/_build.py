@@ -42,12 +42,12 @@ SOURCES = {
         "masked_softmax_fwd": [_i32, _vp, _vp, _vp, _i32, _i32, _i32, _vp],
     },
     "cell_list.cu": {
-        "cell_list_count": [_vp] * 6 + [_i32] * 5 + [_f32, _vp, _vp],
-        "cell_list_write": [_vp] * 6 + [_i32] * 5 + [_f32, _vp, _vp, _vp, _i32, _vp],
+        "cell_list_atoms_per_cta": [],
+        "cell_list_edges": [_vp] * 8 + [_i32] * 5 + [_f32, _i32] + [_vp] * 7,
     },
     "quant_matmul.cu": {
         "quant_dense_fwd": [_i32, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _i32, _i32, _i32,
-                            _vp],
+                            _i32, _vp],
     },
     "fp8_matmul.cu": {
         "fp8_dense_fwd": [_i32] + [_vp] * 7 + [_i32] * 3 + [_vp],

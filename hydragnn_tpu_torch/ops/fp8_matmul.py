@@ -11,7 +11,7 @@ Nothing routes through fp8 implicitly: callers opt in per matmul through
 :func:`fp8_dense` and :func:`certify_fp8_dense`.
 
 One kernel, ``csrc/fp8_matmul.cu`` (the fp8 quantizer of the tile kernel
-in ``csrc/quant_tile.cuh``, which the int8 layer shares): quantize while
+in ``csrc/quant_tile.cuh``): quantize while
 loading, fp32 accumulation of the exact fp8 products, dequantisation and
 bias in the epilogue. The activation scale is a tensor (computed from ``x`` on its
 device unless given) and the kernel reads it through a device pointer, so

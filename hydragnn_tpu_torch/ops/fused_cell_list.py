@@ -15,11 +15,15 @@ the cell's geometry) has three parts:
   (``_CELL_OFFSETS`` order, at most ``capacity`` slots each), minimum-image
   displacement through the cell matrix and its inverse, kept where
   ``d^2 <= cutoff^2`` and not the atom itself. On a CUDA tensor this is the
-  kernel (two launches: count, then write); on a CPU tensor it is the plain
+  kernel: one launch that tests every pair once, scans the atoms' hit
+  counts across CTAs (decoupled look-back), and writes the ids, each edge's
+  shift and the edge count ``n_real``; one fill zeroes the shifts' buffer
+  and the kernel's control words first. On a CPU tensor it is the plain
   version, the XLA build transliterated (the ``[n, 27 * capacity]``
-  candidate matrix and ``torch.nonzero``);
-* **epilogue** (tensor code): the edge mask, pad ids, the per-edge shifts
-  and the overflow poison of ``n_edges``.
+  candidate matrix and ``torch.nonzero``), and the per-edge shifts are
+  tensor code after it, from the same roundings;
+* **epilogue** (tensor code): the edge mask, pad ids and the overflow
+  poison of ``n_edges``.
 
 Both routes emit the XLA build's edge order, array for array: by sender,
 then by neighbour offset, then by rank in the cell. Senders come out
@@ -98,8 +102,8 @@ def _prelude(pos, cellm, inv, pbcf, grid, n_cells):
     idx3 = torch.stack([torch.clamp((fw[:, k] * grid[k]).to(torch.int32), 0, grid[k] - 1)
                         for k in range(3)], dim=1)
     cid = (idx3[:, 0] * gy + idx3[:, 1]) * gz + idx3[:, 2]
-    order = torch.sort(cid, stable=True).indices.to(torch.int32)
-    cs = cid[order.long()].contiguous()
+    cs, order = torch.sort(cid, stable=True)
+    order = order.to(torch.int32)
     ids = torch.arange(n_cells, dtype=torch.int32, device=pos.device)
     start = torch.searchsorted(cs, ids, out_int32=True)
     occ = torch.searchsorted(cs, ids, right=True, out_int32=True) - start
@@ -155,36 +159,39 @@ def plain_cell_pairs(pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, i
 
 def _kernel_cell_pairs(pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity,
                        idx3, order, start, occ):
-    """The same pairs from the B5 kernel: launch 1 counts each atom's
-    edges, an exclusive ``cumsum`` gives each atom its offset, launch 2
-    writes the ids there (writes at or past ``max_edges`` dropped). Counted
-    once as ``cell_list``."""
+    """The same pairs from the B5 kernel, in one launch that also writes
+    each edge's shift: ``(senders, receivers, shifts, n_real)``, the live
+    slots written (those at or past ``max_edges`` dropped), the dead slots'
+    shifts 0 and their ids unwritten. One buffer, zeroed by one fill, holds
+    the kernel's control words (a look-back flag per CTA and the ticket),
+    ``n_real`` and the shifts. Counted once as ``cell_list``."""
     name = "cell_list"
     if pos.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32 positions, got {pos.dtype}")
     n = pos.shape[0]
     dev = pos.device
-    pos = pos.contiguous()
-    # the kernel's geometry block: inverse, cell matrix, periodic axes
-    geo = torch.cat([inv.reshape(-1), cellm.reshape(-1), pbcf.reshape(-1)]).to(
-        torch.float32).contiguous()
-    counts = torch.empty(n, dtype=torch.int32, device=dev)
-    senders = torch.zeros(max_edges, dtype=torch.int32, device=dev)
-    receivers = torch.zeros(max_edges, dtype=torch.int32, device=dev)
     from ._build import load
 
     lib = load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_ctas = -(-n // lib.cell_list_atoms_per_cta())
+    # [flags (2 int32 each) | ticket | n_real | shifts (3 per slot)]
+    control = 2 * n_ctas + 2
+    buf = torch.zeros(control + 3 * max_edges, dtype=torch.int32, device=dev)
+    ids = torch.empty(2, max_edges, dtype=torch.int32, device=dev)
+    senders, receivers = ids[0], ids[1]
+    n_real = buf[control - 1]
+    shifts = buf[control:].view(torch.float32).view(max_edges, 3)
+    pos = pos.contiguous()
+    inv, cellm, pbcf = (t.to(torch.float32).contiguous() for t in (inv, cellm, pbcf))
     c2 = float(np.float32(float(cutoff) * float(cutoff)))
-    args = (pos.data_ptr(), geo.data_ptr(), idx3.data_ptr(), order.data_ptr(),
-            start.data_ptr(), occ.data_ptr(), n, grid[0], grid[1], grid[2], capacity, c2)
-    _raise_on(name, lib.cell_list_count(*args, counts.data_ptr(), stream))
-    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    n_real = counts.sum(dtype=torch.int32)
-    _raise_on(name, lib.cell_list_write(*args, offsets.data_ptr(), senders.data_ptr(),
-                                        receivers.data_ptr(), max_edges, stream))
+    _raise_on(name, lib.cell_list_edges(
+        pos.data_ptr(), inv.data_ptr(), cellm.data_ptr(), pbcf.data_ptr(), idx3.data_ptr(),
+        order.data_ptr(), start.data_ptr(), occ.data_ptr(), n, grid[0], grid[1], grid[2],
+        capacity, c2, max_edges, senders.data_ptr(), receivers.data_ptr(), shifts.data_ptr(),
+        n_real.data_ptr(), buf.data_ptr(), buf[control - 2].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream))
     _count_launch(name)
-    return senders, receivers, n_real
+    return senders, receivers, shifts, n_real
 
 
 def binned_radius_graph(pos: torch.Tensor, cutoff: float, max_edges: int, cell, pbc,
@@ -221,16 +228,18 @@ def cell_list_edges(pos: torch.Tensor, cutoff: float, max_edges: int, geo, grid,
         pos = pos.detach()
         idx3, order, cs, start, occ = _prelude(pos, cellm, inv, pbcf, grid, n_cells)
         if _route("cell_list", pos):
-            senders, receivers, n_real = _kernel_cell_pairs(
+            senders, receivers, shifts, n_real = _kernel_cell_pairs(
                 pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, idx3, order, start,
                 occ)
         else:
             senders, receivers, n_real = plain_cell_pairs(
                 pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, idx3, order, cs)
+            shifts = None
         live = torch.arange(max_edges, device=pos.device) < n_real
         edge_mask = live.to(pos.dtype)
-        disp = pos[receivers.long()] - pos[senders.long()]
-        shifts = -mat3(torch.round(mat3(disp, inv)) * pbcf, cellm) * edge_mask[:, None]
+        if shifts is None:
+            disp = pos[receivers.long()] - pos[senders.long()]
+            shifts = -mat3(torch.round(mat3(disp, inv)) * pbcf, cellm) * edge_mask[:, None]
         senders = torch.where(live, senders, pad_id).to(torch.int32)
         receivers = torch.where(live, receivers, pad_id).to(torch.int32)
         max_occ = occ.max()

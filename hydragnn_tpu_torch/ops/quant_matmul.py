@@ -8,9 +8,9 @@ of the quantized step computes
 with ``W_q`` the weight quantized symmetrically per OUTPUT channel
 (:func:`quantize_weight`), ``s_x`` the layer's calibrated activation scale
 (a Python float) and ``q`` round-half-to-even then clip to ±127. One kernel,
-``csrc/quant_matmul.cu`` (the int8 quantizer of the tile kernel in
-``csrc/quant_tile.cuh``, which the fp8 layer shares): quantize while
-loading, int32 accumulation, dequantisation and bias in the epilogue.
+``csrc/quant_matmul.cu``: x quantized while it is loaded, straight into the
+int8 tensor cores' operand fragments (``mma.sync`` m16n8k32), exact int32
+accumulation, dequantisation and bias in the epilogue.
 
 Routing is by device and nothing else: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain PyTorch version
@@ -36,6 +36,9 @@ import torch
 from .fused_scatter import _check_cuda, _count_launch, _dtype_code, _raise_on, _route
 
 QMAX = 127.0
+# rows of x per CTA of the kernel (16, 32 or 64): 16 gives the served shapes
+# (1,864 rows) the most CTAs; chip_smoke.py times all three
+ROWS_PER_CTA = 16
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -48,7 +51,9 @@ def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``(w_q int8 [K, N], s_w fp32 [N])`` with ``w ≈ w_q · s_w``."""
     w = w.detach().float()
     s_w = _div(torch.clamp(w.abs().amax(dim=0), min=1e-12), QMAX)
-    w_q = torch.clamp(torch.round(w / s_w[None, :]), -QMAX, QMAX).to(torch.int8)
+    # row-major, as the kernel takes it: a transposed weight would be copied
+    # at every call
+    w_q = torch.clamp(torch.round(w / s_w[None, :]), -QMAX, QMAX).to(torch.int8).contiguous()
     return w_q, s_w
 
 
@@ -77,7 +82,7 @@ def reference_quant_dense(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,
     return reference_quant_parts(x, w_q, s_w, s_x, bias)[2]
 
 
-def _launch(x, w_q, s_w, s_x, bias, debug: bool):
+def _launch(x, w_q, s_w, s_x, bias, debug: bool, rows: int = ROWS_PER_CTA):
     name = "quant_dense"
     _check_cuda(name, x, w_q, s_w, bias)
     code = _dtype_code(name, x)
@@ -102,7 +107,7 @@ def _launch(x, w_q, s_w, s_x, bias, debug: bool):
     status = load().quant_dense_fwd(
         code, x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
         bias.data_ptr() if bias is not None else None, float(s_x), out.data_ptr(),
-        x_q.data_ptr() if debug else None, acc.data_ptr() if debug else None, m, k, n,
+        x_q.data_ptr() if debug else None, acc.data_ptr() if debug else None, m, k, n, rows,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(name, status)

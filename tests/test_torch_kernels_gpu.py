@@ -524,6 +524,140 @@ def test_cell_list_overflow_and_empty_cells_on_card():
         _cell_build(dev, pos.astype(np.float64), cell, pbc, plan, 16000)
 
 
+def _device_kernels(fn, reps=100):
+    """``{name: launches per call}`` of the device operations of ``fn()``,
+    traced over ``reps`` calls (a profiling session may drop its first few
+    events, so per-call counts are rounded)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    counts = {n: round(names.count(n) / reps) for n in set(names)}
+    return {n: c for n, c in counts.items() if c}
+
+
+def test_cell_list_is_one_launch_per_build_on_card():
+    """The pair test is one kernel launch after one fill (no count launch,
+    cumsum, subtract or sum between launches), and a whole build launches
+    the cell-list kernel once."""
+    from hydragnn_tpu_torch.ops import fused_cell_list as fcl
+
+    dev = _cuda_or_skip()
+    pos, cell, pbc, plan = _cell_system("lattice")
+    p = torch.from_numpy(pos).to(dev)
+    cellm, inv, pbcf = fcl.geometry(torch.from_numpy(cell).to(dev), torch.from_numpy(pbc).to(dev),
+                                    p.dtype, dev)
+    grid, cap = plan
+    n_cells = grid[0] * grid[1] * grid[2]
+    idx3, order, _, start, occ = fcl._prelude(p, cellm, inv, pbcf, grid, n_cells)
+    ops = _device_kernels(lambda: fcl._kernel_cell_pairs(p, 5.0, 16000, cellm, inv, pbcf, grid,
+                                                         cap, idx3, order, start, occ))
+    assert sum(ops.values()) == 2, ops
+    assert sum(c for n, c in ops.items() if "cell_list_kernel" in n) == 1, ops
+    assert not any(w in n.lower() for n in ops for w in ("scan", "cumsum", "reduce")), ops
+    build = _device_kernels(lambda: _cell_build(dev, pos, cell, pbc, plan, 16000), reps=20)
+    assert sum(c for n, c in build.items() if "cell_list_kernel" in n) == 1, build
+
+
+def test_cell_list_replays_under_a_cuda_graph_on_card():
+    """A whole build captured in a CUDA graph, replayed twice, gives the
+    eager build's ids, shifts, mask and n_edges each time: the look-back
+    flags and the ticket start from zero at every replay."""
+    from hydragnn_tpu_torch.ops import fused_cell_list as fcl
+
+    dev = _cuda_or_skip()
+    pos, cell, pbc, plan = _cell_system("periodic")
+    p = torch.from_numpy(pos).to(dev)
+    geo = fcl.geometry(torch.from_numpy(cell).to(dev), torch.from_numpy(pbc).to(dev), p.dtype, dev)
+
+    def build():
+        return fcl.cell_list_edges(p, 5.0, 16000, geo, plan[0], plan[1], pad_id=pos.shape[0] - 1)
+
+    want = build()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        build()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = build()
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def _cluster_system(n=800, box=30.0, cluster=240, radius=2.0, seed=5):
+    """A periodic box of uniform atoms with a dense cluster at its centre:
+    every cluster atom has more neighbours within 5 A than the kernel's
+    shared-memory hit cache holds, and the densest cell more atoms than a
+    warp has lanes. The capacity is the densest cell's occupancy."""
+    from hydragnn_tpu_torch.md import plan_cell_grid
+
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(cluster, 3))
+    u *= (radius * rng.uniform(0, 1, size=(cluster, 1)) ** (1 / 3)) / np.linalg.norm(u, axis=1,
+                                                                                     keepdims=True)
+    pos = np.concatenate([rng.uniform(0, box, size=(n - cluster, 3)), box / 2 + u]).astype(
+        np.float32)
+    cell = np.eye(3, dtype=np.float32) * box
+    pbc = np.ones(3, bool)
+    grid, _ = plan_cell_grid(cell, 5.0, n, pbc=pbc)
+    g = np.asarray(grid)
+    ids = np.minimum((pos / box * g).astype(int), g - 1)
+    occ = np.bincount((ids[:, 0] * g[1] + ids[:, 1]) * g[2] + ids[:, 2])
+    return pos, cell, pbc, (grid, int(occ.max()))
+
+
+@pytest.mark.parametrize("truncate", [False, True], ids=["whole", "max_edges_below_count"])
+def test_cell_list_hit_cache_overflow_on_card(truncate):
+    """Atoms with more hits than the hit cache take the in-launch recompute
+    path; cells hold more than 32 atoms (capacity above 32 slots); the
+    edges equal the plain version's, whole and truncated below the true
+    count (the prefix kept, n_edges the true count)."""
+    dev = _cuda_or_skip()
+    pos, cell, pbc, plan = _cluster_system()
+    assert plan[1] > 32
+    whole = _cell_build(dev, pos, cell, pbc, plan, 200000, plain=True)
+    n_real = int(whole[4])
+    s = whole[0][:n_real].cpu()
+    assert int(torch.bincount(s).max()) > 64  # the kernel's cache holds 64 hits per atom
+    max_edges = n_real // 2 if truncate else 200000
+    got = _cell_build(dev, pos, cell, pbc, plan, max_edges)
+    want = _cell_build(dev, pos, cell, pbc, plan, max_edges, plain=True)
+    assert int(got[4]) == int(want[4]) == n_real
+    for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["lattice", "periodic", "slab", "open", "cluster"])
+def test_cell_list_shifts_are_bit_equal_on_card(kind):
+    """The shifts the kernel writes are the plain epilogue's bits on every
+    live slot (the same roundings, in the same order) and 0 elsewhere."""
+    dev = _cuda_or_skip()
+    if kind == "cluster":
+        pos, cell, pbc, plan = _cluster_system()
+    else:
+        pos, cell, pbc, plan = _cell_system(kind)
+    max_edges = 200000 if kind == "cluster" else 16 * pos.shape[0]
+    got = _cell_build(dev, pos, cell, pbc, plan, max_edges)
+    want = _cell_build(dev, pos, cell, pbc, plan, max_edges, plain=True)
+    live = got[3] > 0
+    assert int(live.sum()) > 0
+    assert torch.equal(got[2][live].view(torch.int32), want[2][live].view(torch.int32))
+    assert not bool(got[2][~live].any())
+
+
 # -- the repaired backwards: second derivatives --------------------------------------
 
 
@@ -592,10 +726,11 @@ def test_second_derivatives_match_plain_on_card(batch, op):
 
 # (M, K, N): qm9 GIN's conv layer 0 (K = 1) and its 64-wide layers at the top
 # bucket's 1,864 rows, a head's output Dense (N = 1), GAT's 384 x 384
-# lin_l (147 KB of weights in shared memory), a ragged row count, and a K
-# whose weights do not fit one CTA (the N-tiled grid)
+# lin_l (147 KB of weights in shared memory), a ragged row count, a K
+# whose weights do not fit one CTA (the N-tiled grid), and a K not a
+# multiple of 32 with an N not a multiple of 8 at a ragged row count
 QUANT_SHAPES = [(1864, 1, 64), (1864, 64, 64), (64, 64, 1), (1864, 384, 384), (37, 24, 16),
-                (40, 1200, 300)]
+                (40, 1200, 300), (37, 129, 9)]
 
 
 def _ulp_close(got, want):
@@ -631,6 +766,58 @@ def test_quant_dense_kernel_matches_plain_on_card(shape, dtype):
         qm.quant_dense(x.half(), w_q, s_w, s_x)
     with pytest.raises(ValueError, match="all inputs must be on"):
         qm.quant_dense(x, w_q.cpu(), s_w, s_x)
+
+
+def _quant_inputs(shape, dtype, dev, seed=7):
+    from hydragnn_tpu_torch.ops import quant_matmul as qm
+
+    m, k, n = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(m, k, generator=gen) * 2).to(dev, dtype)
+    w_q, s_w = qm.quantize_weight(torch.randn(k, n, generator=gen).to(dev))
+    b = torch.randn(n, generator=gen).to(dev)
+    return x, w_q, s_w, float(x.float().abs().max()) / 127.0, b
+
+
+@pytest.mark.parametrize("rows", [16, 32, 64])
+@pytest.mark.parametrize("shape", [(1864, 64, 64), (37, 129, 9), (40, 1200, 300)], ids=str)
+def test_quant_dense_rows_per_cta_on_card(shape, rows):
+    """Every row block the kernel offers gives the plain version's codes
+    and int32 sums, and the same ``y`` as the wrapper's default."""
+    from hydragnn_tpu_torch.ops import quant_matmul as qm
+
+    dev = _cuda_or_skip()
+    x, w_q, s_w, s_x, b = _quant_inputs(shape, torch.float32, dev)
+    x_q, acc, y = qm._launch(x, w_q, s_w, s_x, b, debug=True, rows=rows)
+    px_q, pacc, py = qm.reference_quant_parts(x, w_q, s_w, s_x, b)
+    assert torch.equal(x_q, px_q) and torch.equal(acc, pacc)
+    assert _ulp_close(y, py)
+    assert torch.equal(y, qm.quant_dense(x, w_q, s_w, s_x, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_quant_dense_is_one_kernel_and_replays_under_a_cuda_graph(dtype):
+    """One device operation per call under ``torch.profiler``, and a call
+    captured in a CUDA graph replays to the eager bits."""
+    from hydragnn_tpu_torch.ops import quant_matmul as qm
+
+    dev = _cuda_or_skip()
+    x, w_q, s_w, s_x, b = _quant_inputs((37, 129, 9), dtype, dev)
+    ops = _device_kernels(lambda: qm.quant_dense(x, w_q, s_w, s_x, b))
+    assert sum(ops.values()) == 1 and all("quant_mma_kernel" in n for n in ops), ops
+    want = qm.quant_dense(x, w_q, s_w, s_x, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qm.quant_dense(x, w_q, s_w, s_x, b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qm.quant_dense(x, w_q, s_w, s_x, b)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
