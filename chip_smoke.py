@@ -49,8 +49,8 @@ device JSON only when every phase passed):
    bit-equal, y within the summation-order bound); their times beside the
    plain versions, quantize + ``torch._int_mm`` / ``torch._scaled_mm``
    yardsticks and the bounds; B6 also at GAT's 384 x 384, GIN conv layer 0
-   (K = 1) and a head's output Dense (N = 1), fp32 and bf16, at 16, 32 and
-   64 rows per CTA, its device operations under ``torch.profiler``, and
+   (K = 1) and a head's output Dense (N = 1), fp32 and bf16, its device
+   operations under ``torch.profiler``, and
    ``cuobjdump -sass`` of its library (IMMA instructions, no scalar tile
    kernel left);
 4. serving, per model: ``PredictionServer`` with 512 concurrent requests;
@@ -1366,8 +1366,7 @@ def _time_quant_dense(torch, label: str, x, w, b, plain: bool = False) -> dict:
     """Kernel B6's device time on ``x [M, K]`` and ``w [K, N]`` quantized as
     the serving tier quantizes it, beside quantize + ``torch._int_mm`` +
     ``addcmul`` (the one-call yardstick, None where ``_int_mm`` refuses the
-    shape), the kernel at 16, 32 and 64 rows per CTA and, with ``plain``,
-    the plain version. Logged with the bound."""
+    shape) and, with ``plain``, the plain version. Logged with the bound."""
     from hydragnn_tpu_torch.ops import quant_matmul as qm
 
     w_q, s_w = qm.quantize_weight(w)
@@ -1403,15 +1402,9 @@ def _time_quant_dense(torch, label: str, x, w, b, plain: bool = False) -> dict:
                 f"torch._int_mm alone {t['int_mm_ms'] * 1e3:.2f} us")
     except RuntimeError as exc:  # the yardstick only; the port never calls it
         note = f"torch._int_mm refused this shape: {str(exc).splitlines()[0][:100]}"
-    if hasattr(qm, "ROWS_PER_CTA"):  # a B6 with a row-block choice (the scalar one had none)
-        t["rows_ms"] = {r: graph_time_ms(torch, lambda r=r: qm._launch(x, w_q, s_w, s_x, b,
-                                                                        False, rows=r)[2])
-                        for r in (16, 32, 64)}
     t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / INT8_OPS) * 1e3
     lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
-    rows = "" if "rows_ms" not in t else " (rows per CTA " + ", ".join(
-        f"{r}: {v * 1e3:.2f}" for r, v in t["rows_ms"].items()) + " us)"
-    log(f"    {t['shape']}: kernel {t['ms'] * 1e3:.2f} us{rows}, yardstick {lib}, bound "
+    log(f"    {t['shape']}: kernel {t['ms'] * 1e3:.2f} us, yardstick {lib}, bound "
         f"{t['bound_ms'] * 1e3:.3f} us; {note}")
     return t
 
@@ -1526,7 +1519,7 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True):
     k6["device_ops"] = ops
     entries = [_kernel_entry("quant_dense", "quant_matmul.cu",
                              "hydragnn_tpu/ops/quant_matmul.py:80", k6, err6, INT8_OPS)]
-    for extra in ("bf16", "shapes", "rows_ms", "device_ops"):
+    for extra in ("bf16", "shapes", "device_ops"):
         if extra in k6:
             entries[-1][extra] = k6[extra]
 
@@ -2710,9 +2703,6 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
         kernel_ops = device_ops(torch, lambda: fcl._kernel_cell_pairs(*args, start, occ))
         build_ops = device_ops(torch, md_build)
         t["pair_test_ops"], t["build_ops"] = kernel_ops[0], build_ops[0]
-        # what a cell-sorted position array (the JAX kernel keeps one resident)
-        # would add to every build: one gather
-        t["sorted_copy_ms"] = graph_time_ms(torch, lambda: pos.index_select(0, order))
         log(f"  {key} @ {t['shape']}: pair test {t['ms'] * 1e3:.2f} us, "
             f"plain (candidate matrix + nonzero, host-synchronising) {t['plain_ms'] * 1e3:.2f} "
             f"us; whole build: kernel route {t['build_ms'] * 1e3:.2f} us (CUDA-graph replay: "
@@ -2723,8 +2713,6 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
         log_device_ops(f"{key}: the pair test (_kernel_cell_pairs)", *kernel_ops, t["ms"] * 1e3)
         log_device_ops(f"{key}: the whole build (cell_list_edges)", *build_ops,
                        t["build_ms"] * 1e3)
-        log(f"  {key}: a cell-sorted copy of the positions (pos[order]) would add one device "
-            f"operation of {t['sorted_copy_ms'] * 1e3:.2f} us to every build")
     t = times["lj"]  # the JSON row: the larger system
     t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = t["ops"] / FP32_FLOPS * 1e3
@@ -3211,7 +3199,9 @@ def kernels_only(torch, seed: int, dev: dict) -> int:
     times, at the main paths' shapes: phase 3, the cell-list checks and
     times (on both MD systems, the MLIP one made from the untrained oc20
     configuration), then phase 3b (which ends with B6's tensor-core check).
-    Prints the kernels line (launches 0: no main path ran) and returns 3."""
+    Prints the entries under ``kernels_only``, not as the kernels line, with
+    ``launches`` null (no main path ran, so nothing counted them), and
+    returns 3."""
     from hydragnn_tpu_torch.config import update_config
     from hydragnn_tpu_torch.models import create_model_config
     from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
@@ -3231,7 +3221,9 @@ def kernels_only(torch, seed: int, dev: dict) -> int:
     log(f"chip_smoke --kernels-only: {time.perf_counter() - t_start:.1f} s; no main path was "
         f"driven, so no result line")
     log(dev["smi"])
-    print(json.dumps({"kernels": entries}), flush=True)
+    for e in entries:
+        e["launches"] = None
+    print(json.dumps({"kernels_only": entries}), flush=True)
     return 3
 
 
@@ -3244,8 +3236,9 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels-only", action="store_true",
                         help="only build the kernels and hold each against its plain version "
                              "with its times (phases 3, 3b and the cell-list checks of 9, on "
-                             "untrained models); prints the kernels line, no result line, and "
-                             "exits 3: no main path is driven")
+                             "untrained models); prints their entries under kernels_only "
+                             "(launches null), no result line, and exits 3: no main path is "
+                             "driven")
     args = parser.parse_args(argv)
 
     import torch

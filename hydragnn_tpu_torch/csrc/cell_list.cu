@@ -29,8 +29,9 @@
 //     in the order of a ticket drawn with atomicAdd (a CTA that waits on a
 //     lower ticket waits on a CTA that is already running: forward
 //     progress). At 32 registers a thread, 4 CTAs fit an SM, so the
-//     8,000-atom MD lattice runs in one wave and draws 500 tickets. Lane j < 27 resolves neighbour cell j: open axes mask cells
-//     outside the grid, periodic ones wrap; its candidates are the first
+//     8,000-atom MD lattice runs in one wave and draws 500 tickets. Lane
+//     j < 27 resolves neighbour cell j: open axes mask cells outside the
+//     grid, periodic ones wrap; its candidates are the first
 //     min(occupancy, capacity) atoms of the cell's sorted run. A warp scan
 //     turns the 27 counts into a prefix in shared memory.
 //   * The warp walks the atom's candidates kUnroll x 32 = 64 at a time:
@@ -39,7 +40,7 @@
 //     then all their position loads, then tests them. So an atom costs two
 //     dependent global loads per 64 candidates, not two per 32. (A
 //     cell-sorted copy of the positions would cut that to one, for one more
-//     device operation per build; chip_smoke.py times that operation.)
+//     device operation per build that costs more than the load it saves.)
 //   * __ballot_sync and __popc give each hit its place among the atom's
 //     hits, in candidate order; the hit (receiver and shift) is kept in
 //     shared memory, kCache per atom. Every pair is tested once.

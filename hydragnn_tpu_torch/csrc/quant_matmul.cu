@@ -24,8 +24,9 @@
 // these sizes a call is a launch and one round of load latency.
 //
 // Design: the products on the int8 tensor cores, mma.sync m16n8k32 (s8 x
-// s8 -> s32), one CTA of 8 warps per 16 x MT rows (MT = 1, 2 or 4 m-tiles;
-// the wrapper's choice, measured) and up to NC output columns.
+// s8 -> s32), one CTA of 8 warps per 16 rows (one m-tile: 117 CTAs on the
+// 132 SMs at 1,864 rows; 32 and 64 rows per CTA were slower at every served
+// shape) and up to NC output columns.
 //   * Staging, all in shared memory: the CTA's x rows quantized once, in
 //     chunks of 8 k (one or two 16-byte loads of x, 8 codes, one 8-byte
 //     store); W_q's [K, NC] slice transposed into the B operand's column
@@ -40,7 +41,7 @@
 //     default the shared memory is opted into once per device (GAT's 384 x
 //     384 lin_l takes 170 KB); NC < N only where the slice does not fit in
 //     227 KB, and then the grid's second axis tiles N.
-//   * The m-tile's warps split its n-tiles (8 columns each) and accumulate
+//   * The CTA's warps split its n-tiles (8 columns each) and accumulate
 //     up to 8 at a time in registers: per 32 k, two 8-byte loads give a
 //     lane its A fragment and one its B fragment. The k order inside a
 //     fragment is relabelled (logical k 4t..4t+3 and 16+4t..16+4t+3 of lane
@@ -61,6 +62,7 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 16;          // rows of x per CTA: one m-tile
 constexpr int kTilesPerPass = 8;   // n-tiles a warp accumulates at once
 constexpr int kMaxSmem = 232448;   // 227 KB: the most a block may opt into on sm_90
 
@@ -133,7 +135,7 @@ __device__ __forceinline__ void mma_s8(int acc[4], const uint32_t a[4], uint2 b)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-template <typename T, int MT>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 quant_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
                  const float* __restrict__ sw, const float* __restrict__ bias, float s_x,
@@ -141,7 +143,6 @@ quant_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
                  int32_t* __restrict__ acc_out, int M, int K, int N, int NC, int ks, bool vec,
                  bool wvec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kRows = 16 * MT;
   const int kp = (K + 31) / 32 * 32;
   const int m0 = blockIdx.x * kRows;
   const int n0 = blockIdx.y * NC;
@@ -210,14 +211,12 @@ quant_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
   }
   __syncthreads();
 
-  // this warp: m-tile `tile`, n-tiles part, part + parts, ...
-  constexpr int parts = kWarps / MT;
-  const int tile = warp / parts, part = warp % parts;
+  // this warp: n-tiles warp, warp + kWarps, ...
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = m0 + tile * 16 + g, row1 = row0 + 8;
-  const int8_t* a0 = s_xq + (tile * 16 + g) * ks + 8 * t;  // row g; row g + 8 at 8 ks
+  const int row0 = m0 + g, row1 = row0 + 8;
+  const int8_t* a0 = s_xq + g * ks + 8 * t;  // row g; row g + 8 at 8 ks
   const int ntiles = ncp / 8;
-  for (int p0 = part; p0 < ntiles; p0 += parts * kTilesPerPass) {
+  for (int p0 = warp; p0 < ntiles; p0 += kWarps * kTilesPerPass) {
     int acc[kTilesPerPass][4];
 #pragma unroll
     for (int u = 0; u < kTilesPerPass; ++u) acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0;
@@ -227,7 +226,7 @@ quant_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
       const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
 #pragma unroll
       for (int u = 0; u < kTilesPerPass; ++u) {
-        const int nt = p0 + u * parts;
+        const int nt = p0 + u * kWarps;
         if (nt < ntiles) {
           const uint2 b = *reinterpret_cast<const uint2*>(s_w + (nt * 8 + g) * ks + k0 + 8 * t);
           mma_s8(acc[u], a, b);
@@ -236,7 +235,7 @@ quant_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
     }
 #pragma unroll
     for (int u = 0; u < kTilesPerPass; ++u) {
-      const int nt = p0 + u * parts;
+      const int nt = p0 + u * kWarps;
       if (nt >= ntiles) continue;
       const int c = nt * 8 + 2 * t;  // this lane's first column in the slice
 #pragma unroll
@@ -266,17 +265,17 @@ quant_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ wq,
   }
 }
 
-// One launch of quant_mma_kernel<T, MT>. Returns a cudaError_t.
-template <typename T, int MT>
+// One launch of quant_mma_kernel<T>. Returns a cudaError_t.
+template <typename T>
 int launch(const void* x, const void* wq, const void* sw, const void* bias, float s_x,
            void* out, void* xq_out, void* acc_out, int M, int K, int N, void* stream) {
   const int ks = row_stride((K + 31) / 32 * 32);
   // all N columns if their slice fits beside the x tile, else as many
   // 16-column chunks as fit
-  const long fit = (kMaxSmem - 16L * MT * ks) / (ks + 8L);
+  const long fit = (kMaxSmem - static_cast<long>(kRows) * ks) / (ks + 8L);
   const int NC = fit >= (N + 7) / 8 * 8 ? N : static_cast<int>(fit / 16 * 16);
   if (NC < 1) return static_cast<int>(cudaErrorInvalidValue);  // K too large for one chunk
-  const size_t smem = static_cast<size_t>((NC + 7) / 8 * 8) * (ks + 8) + 16 * MT * ks;
+  const size_t smem = static_cast<size_t>((NC + 7) / 8 * 8) * (ks + 8) + kRows * ks;
   // the opt-in above 48 KB is a property of the function on one device:
   // made once per device this process launches on
   static std::atomic<unsigned long long> opted{0};
@@ -286,46 +285,31 @@ int launch(const void* x, const void* wq, const void* sw, const void* bias, floa
   if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   const unsigned long long bit = 1ull << dev;
   if (!(opted.load() & bit)) {
-    err = cudaFuncSetAttribute(quant_mma_kernel<T, MT>,
+    err = cudaFuncSetAttribute(quant_mma_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted.fetch_or(bit);
   }
   const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (K * sizeof(T)) % 16 == 0;
   const bool wvec = reinterpret_cast<uintptr_t>(wq) % 16 == 0 && N % 16 == 0 && NC % 16 == 0;
-  const dim3 grid((M + 16 * MT - 1) / (16 * MT), (N + NC - 1) / NC);
-  quant_mma_kernel<T, MT><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((M + kRows - 1) / kRows, (N + NC - 1) / NC);
+  quant_mma_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(wq), static_cast<const float*>(sw),
       static_cast<const float*>(bias), s_x, static_cast<float*>(out),
       static_cast<int8_t*>(xq_out), static_cast<int32_t*>(acc_out), M, K, N, NC, ks, vec, wvec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_rows(int rows, const void* x, const void* wq, const void* sw, const void* bias,
-                float s_x, void* out, void* xq_out, void* acc_out, int M, int K, int N,
-                void* stream) {
-  switch (rows) {
-    case 16: return launch<T, 1>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
-    case 32: return launch<T, 2>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
-    case 64: return launch<T, 4>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
-// dtype: 0 = fp32 x, 1 = bf16 x; rows: rows of x per CTA (16, 32 or 64).
-// bias, xq_out and acc_out may be null.
+// dtype: 0 = fp32 x, 1 = bf16 x. bias, xq_out and acc_out may be null.
 extern "C" int quant_dense_fwd(int dtype, const void* x, const void* wq, const void* sw,
                                const void* bias, float s_x, void* out, void* xq_out,
-                               void* acc_out, int M, int K, int N, int rows, void* stream) {
+                               void* acc_out, int M, int K, int N, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_rows<float>(rows, x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N,
-                              stream);
+    return launch<float>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
   if (dtype == 1)
-    return launch_rows<__nv_bfloat16>(rows, x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K,
-                                      N, stream);
+    return launch<__nv_bfloat16>(x, wq, sw, bias, s_x, out, xq_out, acc_out, M, K, N, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,7 +47,7 @@ SOURCES = {
     },
     "quant_matmul.cu": {
         "quant_dense_fwd": [_i32, _vp, _vp, _vp, _vp, _f32, _vp, _vp, _vp, _i32, _i32, _i32,
-                            _i32, _vp],
+                            _vp],
     },
     "fp8_matmul.cu": {
         "fp8_dense_fwd": [_i32] + [_vp] * 7 + [_i32] * 3 + [_vp],

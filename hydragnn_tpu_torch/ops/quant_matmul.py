@@ -36,9 +36,6 @@ import torch
 from .fused_scatter import _check_cuda, _count_launch, _dtype_code, _raise_on, _route
 
 QMAX = 127.0
-# rows of x per CTA of the kernel (16, 32 or 64): 16 gives the served shapes
-# (1,864 rows) the most CTAs; chip_smoke.py times all three
-ROWS_PER_CTA = 16
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -82,7 +79,7 @@ def reference_quant_dense(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,
     return reference_quant_parts(x, w_q, s_w, s_x, bias)[2]
 
 
-def _launch(x, w_q, s_w, s_x, bias, debug: bool, rows: int = ROWS_PER_CTA):
+def _launch(x, w_q, s_w, s_x, bias, debug: bool):
     name = "quant_dense"
     _check_cuda(name, x, w_q, s_w, bias)
     code = _dtype_code(name, x)
@@ -107,7 +104,7 @@ def _launch(x, w_q, s_w, s_x, bias, debug: bool, rows: int = ROWS_PER_CTA):
     status = load().quant_dense_fwd(
         code, x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
         bias.data_ptr() if bias is not None else None, float(s_x), out.data_ptr(),
-        x_q.data_ptr() if debug else None, acc.data_ptr() if debug else None, m, k, n, rows,
+        x_q.data_ptr() if debug else None, acc.data_ptr() if debug else None, m, k, n,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(name, status)

@@ -525,21 +525,12 @@ def test_cell_list_overflow_and_empty_cells_on_card():
 
 
 def _device_kernels(fn, reps=100):
-    """``{name: launches per call}`` of the device operations of ``fn()``,
-    traced over ``reps`` calls (a profiling session may drop its first few
-    events, so per-call counts are rounded)."""
-    from torch.autograd import DeviceType
+    """``{name: launches per call}`` of the device operations of ``fn()``:
+    ``chip_smoke.device_ops`` (the repository root is on the path when
+    pytest runs as ``python -m pytest`` from it)."""
+    import chip_smoke
 
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    counts = {n: round(names.count(n) / reps) for n in set(names)}
-    return {n: c for n, c in counts.items() if c}
+    return {name: count for name, count, _ in chip_smoke.device_ops(torch, fn, reps)[2]}
 
 
 def test_cell_list_is_one_launch_per_build_on_card():
@@ -777,22 +768,6 @@ def _quant_inputs(shape, dtype, dev, seed=7):
     w_q, s_w = qm.quantize_weight(torch.randn(k, n, generator=gen).to(dev))
     b = torch.randn(n, generator=gen).to(dev)
     return x, w_q, s_w, float(x.float().abs().max()) / 127.0, b
-
-
-@pytest.mark.parametrize("rows", [16, 32, 64])
-@pytest.mark.parametrize("shape", [(1864, 64, 64), (37, 129, 9), (40, 1200, 300)], ids=str)
-def test_quant_dense_rows_per_cta_on_card(shape, rows):
-    """Every row block the kernel offers gives the plain version's codes
-    and int32 sums, and the same ``y`` as the wrapper's default."""
-    from hydragnn_tpu_torch.ops import quant_matmul as qm
-
-    dev = _cuda_or_skip()
-    x, w_q, s_w, s_x, b = _quant_inputs(shape, torch.float32, dev)
-    x_q, acc, y = qm._launch(x, w_q, s_w, s_x, b, debug=True, rows=rows)
-    px_q, pacc, py = qm.reference_quant_parts(x, w_q, s_w, s_x, b)
-    assert torch.equal(x_q, px_q) and torch.equal(acc, pacc)
-    assert _ulp_close(y, py)
-    assert torch.equal(y, qm.quant_dense(x, w_q, s_w, s_x, b))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
