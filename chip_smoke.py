@@ -757,6 +757,151 @@ def csr_exact_checks(torch, b, mlip_b, gen, failures: list) -> None:
                     h[s_c[p].long()] * m_c[p][:, None], r_c[p], n, failures)
 
 
+def _xor_butterfly_sum(t):
+    """A warp's xor butterfly sum (offsets 16, 8, 4, 2, 1) of ``t [..., 32,
+    ...]`` over dim 1, as every lane ends it: lane l adds lane l ^ o to its
+    value at each step, and fp32 addition commutes, so lanes l and l ^ o
+    hold the same bits and the first o lanes carry the sum."""
+    for o in (16, 8, 4, 2, 1):
+        t = t[:, :o] + t[:, o:2 * o]
+    return t[:, 0]
+
+
+def segment_softmax_emulation(torch, logits, ids, num_segments: int):
+    """Kernel B3's segment softmax in its fixed order, emulated with torch
+    on ``logits``' device (the card's ``torch.exp`` must give nvcc's
+    ``expf`` bits for it to match). Each segment's entries, in stable-sorted
+    order, are cut into pieces of ``PIECE_EDGES`` counted from its first
+    entry. A piece takes, per head, its max ``m`` (-inf for an empty
+    piece), ``ex = exp(x - fz(m))`` with ``fz`` the not-finite-to-0 rule,
+    and the xor butterfly sum ``s`` of its ``ex``. A segment of one piece
+    writes ``ex / max(s, 1e-12)``. A longer segment takes ``M = fz(max_p
+    m_p)``; lane l adds ``s_p * exp(fz(m_p) - M)`` (each product rounded,
+    ``s_p > 0`` only) over its pieces l, l + 32, ... left to right from +0,
+    the lanes are summed by the butterfly, and every entry writes ``exp(x -
+    M) / max(S, 1e-12)``. fp32 inside; returns ``logits.dtype``."""
+    from hydragnn_tpu_torch.ops.fused_scatter import PIECE_EDGES
+
+    dev = logits.device
+    x = logits.float()
+    e, h = x.shape
+    ids = ids.long().to(dev)
+    order = torch.argsort(ids, stable=True)
+    ptr = torch.searchsorted(ids[order], torch.arange(num_segments + 1, device=dev))
+    lens = ptr[1:] - ptr[:-1]
+    pieces = torch.clamp((lens + PIECE_EDGES - 1) // PIECE_EDGES, min=1)
+    piece_ptr = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                           torch.cumsum(pieces, 0)])
+    row = torch.repeat_interleave(torch.arange(num_segments, device=dev), pieces)
+    beg = ptr[row] + (torch.arange(row.shape[0], device=dev) - piece_ptr[row]) * PIECE_EDGES
+    pos = beg[:, None] + torch.arange(PIECE_EDGES, device=dev)[None, :]  # [P, 32]
+    live = pos < torch.minimum(ptr[row + 1], beg + PIECE_EDGES)[:, None]
+    entry = order[pos.clamp(max=max(e - 1, 0))]  # [P, 32]
+    inf = torch.tensor(float("inf"), device=dev)
+    zero = torch.zeros((), device=dev)
+
+    def fz(m):
+        return torch.where(m.abs() < inf, m, zero)
+
+    xp = torch.where(live[..., None], x[entry], -inf)  # [P, 32, H]
+    m_p = xp.amax(dim=1)  # [P, H]
+    ex = torch.where(live[..., None], torch.exp(xp - fz(m_p)[:, None]), zero)
+    s_p = _xor_butterfly_sum(ex)
+    out = torch.empty_like(x)
+    single = pieces[row] == 1  # [P]
+    vals = ex / torch.clamp(s_p, min=1e-12)[:, None]
+    out[entry[single][live[single]]] = vals[single][live[single]]
+    multi = torch.nonzero(pieces > 1).flatten()
+    if multi.numel():
+        p0, n = piece_ptr[multi], pieces[multi]
+        row_max = torch.full((num_segments, h), -float("inf"), device=dev).scatter_reduce(
+            0, row[:, None].expand(-1, h), m_p, reduce="amax")
+        shift = fz(row_max[multi])  # [R, H]
+        lanes = torch.zeros(multi.shape[0], 32, h, device=dev)
+        lane = torch.arange(32, device=dev)
+        for step in range(-(-int(n.max()) // 32)):
+            j = step * 32 + lane[None, :]  # [R, 32]: the piece lane l adds now
+            p = (p0[:, None] + j).clamp(max=m_p.shape[0] - 1)
+            term = s_p[p] * torch.exp(fz(m_p[p]) - shift[:, None])
+            keep = (j < n[:, None])[..., None] & (s_p[p] > 0)
+            lanes = lanes + torch.where(keep, term, zero)
+        denom = torch.clamp(_xor_butterfly_sum(lanes), min=1e-12)  # [R, H]
+        slot = torch.full((num_segments,), -1, dtype=torch.long, device=dev)
+        slot[multi] = torch.arange(multi.shape[0], device=dev)
+        sel = torch.nonzero(slot[ids] >= 0).flatten()  # the entries of those segments
+        r = slot[ids[sel]]
+        out[sel] = torch.exp(x[sel] - shift[r]) / denom[r]
+    return out.to(logits.dtype)
+
+
+def segment_softmax_cases(torch, b, gen):
+    """B3's inputs at every shape the kernel phase checks, on ``b``'s
+    device: ``[(label, logits, ids, num_segments, index or None)]``: GAT's
+    self-loop layout in fp32 and bf16 (the dummy row N-1 owns every pad
+    edge and alignment slot, at logit -1e9), the same entries shuffled (the
+    wrapper argsorts), and odd segments folded onto the even ones below them
+    (real segments of two rows, so of several pieces where they are long)
+    beside a segment of only -inf logits."""
+    dev = b.x.device
+    n, e = b.num_nodes, b.num_edges
+    _, loop_recv = b.self_loop_edges()
+    e_ext = loop_recv.shape[0]
+    e_mask = torch.cat([b.edge_mask, b.edge_mask.new_zeros(e_ext - e - n),
+                        b.edge_mask.new_ones(n)])
+
+    def gat_logits(dtype):
+        x = torch.randn(e_ext, GAT_HEADS, generator=gen).to(dev) * 3.0
+        return torch.where(e_mask[:, None] > 0, x, -1e9).to(dtype)
+
+    cases = [(f"{str(dtype).split('.')[1]} GAT layout", gat_logits(dtype), loop_recv, n,
+              b.csr("loop_receivers")) for dtype in (torch.float32, torch.bfloat16)]
+    p = torch.randperm(e_ext, generator=gen).to(dev)
+    cases.append(("float32 shuffled entries", gat_logits(torch.float32)[p], loop_recv[p], n,
+                  None))
+    ids_e = (loop_recv // 2) * 2
+    x_e = torch.where((ids_e == 10)[:, None], float("-inf"), gat_logits(torch.float32))
+    cases.append(("float32 empty odd segments and an all -inf segment", x_e, ids_e, n, None))
+    return cases
+
+
+def segment_softmax_exact_checks(torch, cases, failures: list, save: str | None = None,
+                                 against: str | None = None) -> None:
+    """B3 bit for bit on every entry (the dummy row included) of ``cases``
+    (:func:`segment_softmax_cases`): against :func:`segment_softmax_emulation`
+    on the card and, with ``against``, against the outputs another tree's
+    kernel gave on the same inputs (a file ``save`` wrote). A mismatch is
+    logged and appended to ``failures``."""
+    from hydragnn_tpu_torch.ops import fused_softmax as fsm
+
+    other = torch.load(against) if against else None
+    kept = []
+    log("segment_softmax bit for bit on every entry against its fixed-order emulation (torch "
+        "on the card)" + (f" and against the kernel outputs in {against}" if against else "")
+        + ":")
+    for i, (label, x, ids, n, index) in enumerate(cases):
+        got = fsm.segment_softmax(x, ids, n, index=index)
+        emu = segment_softmax_emulation(torch, x, ids, n)
+        diff = int((_bits(torch, got) != _bits(torch, emu)).sum())
+        note = f"{diff} of {got.numel()} values differ from the emulation"
+        if other is not None:
+            o_label, o_x, o_ids, o_out = other[i]
+            if o_label != label or not torch.equal(_bits(torch, o_x.to(x.device)),
+                                                   _bits(torch, x)) \
+                    or not torch.equal(o_ids.to(ids.device), ids):
+                raise AssertionError(f"segment_softmax: {against} holds other inputs for {label}")
+            d_other = int((_bits(torch, got) != _bits(torch, o_out.to(got.device))).sum())
+            note += f", {d_other} from the other tree's kernel"
+            diff += d_other
+        log(f"  {label} [{x.shape[0]},{x.shape[1]}] -> {n}: {note} "
+            f"{'ok' if diff == 0 else 'MISMATCH'}")
+        if diff:
+            failures.append(f"segment_softmax {label}")
+        kept.append((label, x.cpu(), ids.cpu(), got.cpu()))
+    if save:
+        torch.save(kept, save)
+        log(f"  inputs and outputs saved to {save}")
+
+
 def _check_masked_softmax(torch, label: str, x, valid, errs: list) -> None:
     """B4 against its plain version on ``x [G, ..., m]`` with the per-graph
     mask ``valid [G, m]``: within ``TOL``, masked entries of rows with any
@@ -780,14 +925,16 @@ def _check_masked_softmax(torch, label: str, x, valid, errs: list) -> None:
 
 
 def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
-                 mlip_batch=None):
+                 mlip_batch=None, b3_save: str | None = None, b3_against: str | None = None):
     """Every kernel of the serving and training paths against its plain
     version on the card, at ``batch``'s shapes (timed there and, for the
     log, at the ``small`` batch of the smallest bucket); ``n_max`` is GPS's
     dense-attention width; ``mlip_batch`` is the oc20 MLIP training batch,
     whose segment sums the CSR kernels' bit-for-bit checks and times cover
-    too (on the card). Returns the kernels' JSON entries and their device
-    times per call (ms), or ``([], {})`` without ``timing``."""
+    too (on the card); ``b3_save`` and ``b3_against`` are
+    :func:`segment_softmax_exact_checks`' ``save`` and ``against``. Returns
+    the kernels' JSON entries and their device times per call (ms), or
+    ``([], {})`` without ``timing``."""
     from hydragnn_tpu_torch.ops import fused_scatter as fs
     from hydragnn_tpu_torch.ops import fused_softmax as fsm
 
@@ -966,6 +1113,10 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     if bool(got[ids_e == 10].any()):
         raise AssertionError("segment_softmax: a segment of -inf logits is not 0")
     results["segment_softmax"] = max(errs)
+    if dev.type == "cuda":
+        segment_softmax_exact_checks(
+            torch, segment_softmax_cases(torch, b, torch.Generator(device="cpu").manual_seed(1235)),
+            exact_failures, save=b3_save, against=b3_against)
 
     # kernel 4: masked row softmax over GPS's dense blocks [G, heads, n, m]
     # with the per-graph validity mask [G, m]; the dummy graph (n_node 0)
@@ -1087,6 +1238,11 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     t_k3_events = event_time_ms(torch, lambda: fsm.segment_softmax(x_sm, loop_recv, n,
                                                                    index=loop_idx),
                                 iters=10, reps=3)
+    ops, busy, rows = device_ops(torch, lambda: fsm.segment_softmax(x_sm, loop_recv, n,
+                                                                     index=loop_idx))
+    log_device_ops(f"one segment_softmax call at [{e_ext},{GAT_HEADS}] f32 under torch.profiler",
+                   ops, busy, rows, k3["ms"] * 1e3)
+    k3["device_ops"] = ops
     lib = torch.sparse.softmax(sp, 1)
     lib_rows, lib_entries = lib.indices()
     lib_diff = lib.values() - fsm.segment_softmax(x_sm, loop_recv, n, index=loop_idx)[lib_entries]
@@ -1227,7 +1383,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
             "library_ms": k["library_ms"],
             "shape": k["shape"],
         })
-        for extra in ("index_add_ms", "bf16"):
+        for extra in ("index_add_ms", "bf16", "device_ops"):
             if extra in k:
                 entries[-1][extra] = k[extra]
         if name == "segment_sum":
@@ -1238,7 +1394,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     for e_ in entries:
         times[e_["name"] + "_ms"] = e_["ms"]
     if exact_failures:
-        raise AssertionError(f"CSR kernels not bit for bit: {exact_failures}")
+        raise AssertionError(f"kernels not bit for bit: {exact_failures}")
     return entries, times
 
 
@@ -1315,16 +1471,18 @@ def check_quant_dense(torch, label: str, x, w, b) -> float:
     return float((y - p_y).abs().max())
 
 
-def check_fp8_dense(torch, label: str, x, w, b, fmt: str, s_x=None) -> float:
-    """Kernel B7 against its plain version: the fp8 codes of ``x`` bit-equal,
-    ``y`` within the summation-order bound ``K 2^-23 sum |x_q| |w_q| s_x
-    s_w`` plus one ulp of ``|y|`` (the products are exact in fp32; only the
-    order of the fp32 sum differs), finite (saturation makes no inf), two
-    launches bit-identical. Returns max |kernel - plain|."""
+def fp8_bound_ratio(torch, x, w, b, fmt: str, s_x=None):
+    """Kernel B7 on ``x [M, K]`` and ``w [K, N]`` (quantized as ``fp8_dense``
+    quantizes them; ``s_x`` default from ``x``) against its plain version:
+    ``(codes bit-equal, max |y - plain| / bound, max |y - plain|, saturated
+    share of the codes, y finite)``, the bound being the summation-order
+    bound ``K 2^-23 sum |x_q| |w_q| s_x s_w`` plus one ulp of ``|y|`` (the
+    products are exact in fp32; only the order and rounding of the fp32 sum
+    may differ)."""
     from hydragnn_tpu_torch.ops import fp8_matmul as f8
 
     w_q, s_w = f8.quantize_weight_fp8(w, fmt)
-    s_x = f8.activation_scale_fp8(x, fmt) if s_x is None else s_x
+    s_x = f8.activation_scale_fp8(x, fmt) if s_x is None else f8._scalar(s_x, x.device)
     x_q, y = f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt, debug=True)
     p_q, p_y = f8.reference_fp8_parts(x, w_q, s_w, s_x, b, fmt)
     codes = torch.equal(x_q.view(torch.uint8), p_q.view(torch.uint8))
@@ -1332,17 +1490,59 @@ def check_fp8_dense(torch, label: str, x, w, b, fmt: str, s_x=None) -> float:
     bound = (x.shape[1] * 2.0 ** -23 * mag * s_x.double() * s_w.double()[None, :]
              + (torch.nextafter(p_y.abs(), torch.full_like(p_y, float("inf"))) - p_y.abs()))
     d = (y.double() - p_y.double()).abs()
-    ok = codes and bool((d <= bound).all()) and bool(torch.isfinite(y).all())
     saturated = float((x_q.float().abs() == f8.FP8_MAX[fmt]).float().mean())
+    return (codes, float((d / bound).max()), float(d.max()), saturated,
+            bool(torch.isfinite(y).all()))
+
+
+def check_fp8_dense(torch, label: str, x, w, b, fmt: str, s_x=None) -> float:
+    """Kernel B7 against its plain version (:func:`fp8_bound_ratio`): the
+    fp8 codes of ``x`` bit-equal, ``y`` within the summation-order bound,
+    finite (saturation makes no inf), two launches bit-identical. Returns
+    max |kernel - plain|."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+
+    codes, ratio, err, saturated, finite = fp8_bound_ratio(torch, x, w, b, fmt, s_x)
+    ok = codes and ratio <= 1.0 and finite
     log(f"  {label} {fmt}: x[{x.shape[0]},{x.shape[1]}] x W[{w.shape[0]},{w.shape[1]}]: codes "
         f"{'bit-equal' if codes else 'DIFFER'} ({100 * saturated:.1f}% saturated), max|y - "
-        f"plain| {float(d.max()):.3e} = {float((d / bound).max()):.3f} of the summation-order "
-        f"bound {'ok' if ok else 'MISMATCH'}")
+        f"plain| {err:.3e} = {ratio:.3f} of the summation-order bound "
+        f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"fp8_dense {label} {fmt}: the kernel disagrees with the plain "
                              "version")
+    w_q, s_w = f8.quantize_weight_fp8(w, fmt)
+    s_x = f8.activation_scale_fp8(x, fmt) if s_x is None else s_x
     _bit_stable(torch, "fp8_dense", lambda: f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt)[1])
-    return float(d.max())
+    return err
+
+
+# shapes of B7's adversarial accumulation check: the qm9 Dense depth, the
+# oc20 EGNN's K = 129, and a deep K
+FP8_ADVERSARIAL_SHAPES = ((256, 64, 64), (256, 129, 64), (64, 1200, 300))
+# log2 of the smallest and the largest magnitude of each fp8 format
+FP8_RANGE = {"e4m3": (-9.0, 8.807), "e5m2": (-16.0, 15.807)}
+
+
+def fp8_adversarial_inputs(torch, fmt: str, m: int, k: int, n: int, gen):
+    """``x [m, k]`` and ``w [k, n]`` (fp32, on the CPU) for B7's accumulation
+    at ``s_x = 1``: magnitudes log-uniform over the format's whole range
+    (e4m3 2^-9 .. 448, e5m2 2^-16 .. 57344) with random signs, so the
+    products span 2^35 (e4m3) or 2^63 (e5m2) and one product can dwarf the
+    rest of its sum, and the second half of k repeats the first with w
+    negated, so each sum cancels to (nearly) 0 while its terms stay large."""
+    lo, hi = FP8_RANGE[fmt]
+
+    def draw(*shape):
+        mag = torch.exp2(torch.rand(*shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo)
+        sign = torch.where(torch.rand(*shape, generator=gen) < 0.5, -1.0, 1.0)
+        return (mag * sign).float()
+
+    x, w = draw(m, k), draw(k, n)
+    h = k // 2
+    x[:, h:2 * h] = x[:, :h]
+    w[h:2 * h] = -w[:h]
+    return x, w
 
 
 def _kernel_entry(name: str, source: str, replaces: str, k: dict, err: float,
@@ -1409,32 +1609,93 @@ def _time_quant_dense(torch, label: str, x, w, b, plain: bool = False) -> dict:
     return t
 
 
-def check_int8_tensor_cores(torch) -> None:
-    """B6's library runs on the int8 tensor cores: ``cuobjdump -sass`` of the
-    built ``quant_matmul`` library holds IMMA instructions, and no function
-    of the scalar tile kernel (``quant_tile::tile_kernel``) is left in it."""
+def _time_fp8_dense(torch, label: str, x, w, b, plain: bool = False) -> dict:
+    """Kernel B7's device time (e4m3) on ``x [M, K]`` and ``w [K, N]``
+    quantized as ``fp8_dense`` quantizes them, beside quantize +
+    ``torch._scaled_mm`` + ``addcmul`` (the one-call yardstick, with x's K
+    zero-padded to the multiple of 16 that ``_scaled_mm`` needs; None where
+    it refuses the shape) and, with ``plain``, the plain version. Logged
+    with the bound."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+
+    fmt = "e4m3"
+    w8, s_w8 = f8.quantize_weight_fp8(w, fmt)
+    s_x8 = f8.activation_scale_fp8(x, fmt)
+    scale8 = s_x8 * s_w8
+    m, k = x.shape
+    n = w8.shape[1]
+
+    def kernel():
+        return f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b, fmt)[1]
+
+    t = dict(ms=graph_time_ms(torch, kernel), plain_ms=None, library_ms=None,
+             bytes=m * k * 4 + k * n + (1 if b is None else 2) * n * 4 + 4 + m * n * 4,
+             ops=2 * m * k * n, shape=f"x[{m},{k}] f32, W_q[{k},{n}] e4m3 ({label})")
+    if plain:
+        t["plain_ms"] = graph_time_ms(torch, lambda: f8.reference_fp8_dense(x, w8, s_w8, s_x8,
+                                                                            b, fmt))
+    one = torch.ones((), device=x.device)
+    pad = -k % 16
+    w8_cols = torch.nn.functional.pad(w8.view(torch.uint8), (0, 0, 0, pad)).view(
+        w8.dtype).t().contiguous().t()  # torch._scaled_mm takes B column-major
+
+    def scaled_mm():
+        xp = torch.nn.functional.pad(x, (0, pad)) if pad else x
+        xq = torch.clamp(xp / s_x8, -448.0, 448.0).to(torch.float8_e4m3fn)
+        acc = torch._scaled_mm(xq, w8_cols, scale_a=one, scale_b=one, out_dtype=torch.float32)
+        return acc * scale8 if b is None else torch.addcmul(b, acc, scale8)
+
+    try:
+        lib_err = float((scaled_mm() - kernel()).abs().max())
+        t["library_ms"] = graph_time_ms(torch, scaled_mm)
+        note = (f"yardstick max|diff| vs kernel {lib_err:.3e}"
+                + (f" (K padded {k} -> {k + pad})" if pad else ""))
+    except RuntimeError as exc:  # the yardstick only; the port never calls it
+        note = f"torch._scaled_mm refused this shape: {str(exc).splitlines()[0][:100]}"
+    t["bound_ms"] = max(t["bytes"] / HBM_BYTES_PER_S, t["ops"] / INT8_OPS) * 1e3
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms'] * 1e3:.2f} us"
+    log(f"    {t['shape']}: kernel {t['ms'] * 1e3:.2f} us, yardstick {lib}, bound "
+        f"{t['bound_ms'] * 1e3:.3f} us; {note}")
+    return t
+
+
+# the tensor-core instructions each quantized library must hold: int8
+# mma.sync lowers to IMMA; the fp8 layer's form to HMMA (fp16 or fp8
+# operands) or QMMA (fp8)
+TENSOR_CORE_SASS = {"quant_matmul.cu": ("IMMA",), "fp8_matmul.cu": ("HMMA", "QMMA")}
+
+
+def check_tensor_cores(torch) -> None:
+    """B6's and B7's libraries run on the tensor cores: ``cuobjdump -sass``
+    of each built library holds the tensor-core instructions of
+    ``TENSOR_CORE_SASS``, and no function of the scalar tile kernel
+    (``tile_kernel``) is left in it."""
     import re
 
     from hydragnn_tpu_torch.ops import _build
 
-    lib = _build.BUILD_LOG["quant_matmul.cu"]["path"]
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    functions = re.findall(r"Function : (\S+)", sass)
-    imma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines()
-            if " IMMA" in line]
-    scalar = [f for f in functions if "tile_kernel" in f]
-    kinds = sorted({i.split()[0] for i in imma})
-    log(f"  quant_dense SASS (cuobjdump -sass {Path(lib).name}): {len(functions)} functions, "
-        f"{len(imma)} IMMA instructions ({', '.join(kinds) or 'none'}), scalar tile-kernel "
-        f"functions {len(scalar)} {'ok' if imma and not scalar else 'NOT ON THE TENSOR CORES'}")
-    if not imma or scalar:
-        raise AssertionError("quant_dense: the built library does not run on the int8 tensor "
-                             "cores (no IMMA, or the scalar tile kernel is still in it)")
+    for source, wanted in TENSOR_CORE_SASS.items():
+        lib = _build.BUILD_LOG[source]["path"]
+        sass = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+        functions = re.findall(r"Function : (\S+)", sass)
+        ops = re.findall(r"\b((?:[A-Z]+)MMA(?:\.[A-Z0-9]+)*)\b", sass)
+        kinds = sorted(set(ops))
+        found = [o for o in ops if o.split(".")[0] in wanted]
+        scalar = [f for f in functions if "tile_kernel" in f]
+        ok = bool(found) and not scalar
+        log(f"  {source} SASS (cuobjdump -sass {Path(lib).name}): {len(functions)} functions, "
+            f"{len(found)} {'/'.join(wanted)} instructions ({', '.join(kinds) or 'none'}), "
+            f"scalar tile-kernel functions {len(scalar)} "
+            f"{'ok' if ok else 'NOT ON THE TENSOR CORES'}")
+        if not ok:
+            raise AssertionError(f"{source}: the built library does not run on the tensor cores "
+                                 f"(no {'/'.join(wanted)}, or the scalar tile kernel is in it)")
 
 
-def quant_kernel_phase(torch, model, batch, timing: bool = True):
+def quant_kernel_phase(torch, model, batch, timing: bool = True,
+                       egnn_rows: int | None = None):
     """Kernel B6 against its plain version at every Dense call of the qm9
     GIN's served forward on ``batch`` (the top bucket, with the served bf16
     casts: conv layer 0 takes bf16, the rest fp32; each also as a copy in
@@ -1443,9 +1704,11 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True):
     ``timing``, B6 and B7 at a conv layer's hidden Dense ([N, 64] x [64,
     64], fp32: the most frequent call) beside their plain versions, the
     library yardsticks and the bounds; B6 also at GAT's lin_l, K = 1 and
-    N = 1, in fp32 and bf16, its device operations, and its SASS, which
-    must hold IMMA (the int8 tensor cores). Returns the two JSON entries
-    (B7's max error is completed by the fp8 phase) or ``[]``."""
+    N = 1, in fp32 and bf16, B7 at K = 1, N = 1 and (given ``egnn_rows``)
+    the oc20 EGNN's [egnn_rows, 129] x [129, 64] edge-MLP Dense, both
+    kernels' device operations, and their SASS, which must hold IMMA (the
+    int8 tensor cores). Returns the two JSON entries (B7's max error is
+    completed by the fp8 phase) or ``[]``."""
     from hydragnn_tpu_torch.ops import fp8_matmul as f8
     from hydragnn_tpu_torch.ops import quant_matmul as qm
 
@@ -1481,6 +1744,12 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True):
         w = module.weight.detach().float().t()
         err7 = max(err7, check_fp8_dense(torch, f"{name} saturated", x.float(), w, None, fmt,
                                          s_x=f8.activation_scale_fp8(x, fmt) / 1000))
+    log("fp8_dense accumulation on adversarial inputs (s_x = 1, codes over the format's whole "
+        "range, sums that cancel; not in the entry's max_abs_err):")
+    for fmt in ("e4m3", "e5m2"):
+        for m_, k_, n_ in FP8_ADVERSARIAL_SHAPES:
+            x_a, w_a = fp8_adversarial_inputs(torch, fmt, m_, k_, n_, gen)
+            check_fp8_dense(torch, "adversarial", x_a.to(dev), w_a.to(dev), None, fmt, s_x=1.0)
     _sync(torch, dev.type)
     if not timing:
         return []
@@ -1523,34 +1792,35 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True):
         if extra in k6:
             entries[-1][extra] = k6[extra]
 
-    fmt = "e4m3"
-    w8, s_w8 = f8.quantize_weight_fp8(w, fmt)
-    s_x8 = f8.activation_scale_fp8(x, fmt)
-    scale8 = s_x8 * s_w8
-    k7 = dict(ms=graph_time_ms(torch, lambda: f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b, fmt)[1]),
-              plain_ms=graph_time_ms(torch, lambda: f8.reference_fp8_dense(x, w8, s_w8, s_x8,
-                                                                           b, fmt)),
-              library_ms=None, bytes=m * k * 4 + k * nb + 2 * nb * 4 + 4 + m * nb * 4,
-              ops=2 * m * k * nb, shape=f"x[{m},{k}] f32, W_q[{k},{nb}] e4m3 ({name})")
-    one = torch.ones((), device=dev)
-    w8_cols = w8.t().contiguous().t()  # torch._scaled_mm takes B column-major
-
-    def scaled_mm():
-        xq = torch.clamp(x / s_x8, -448.0, 448.0).to(torch.float8_e4m3fn)
-        acc = torch._scaled_mm(xq, w8_cols, scale_a=one, scale_b=one, out_dtype=torch.float32)
-        return torch.addcmul(b, acc, scale8)
-
-    try:
-        lib_err = float((scaled_mm() - f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b, fmt)[1])
-                        .abs().max())
-        k7["library_ms"] = graph_time_ms(torch, scaled_mm)
-        log(f"  yardstick: quantize + torch._scaled_mm (e4m3, per-tensor scales 1) + addcmul, "
-            f"max|diff| vs kernel {lib_err:.3e}")
-    except RuntimeError as exc:  # the yardstick only; the port never calls it
-        log(f"  yardstick torch._scaled_mm refused this shape: {exc}")
+    # B7 at the same conv Dense (the JSON row), GIN conv layer 0 (K = 1), a
+    # head's output Dense (N = 1) and the oc20 EGNN's edge-MLP Dense of
+    # layer 1 (K = 2 * 64 + 1 = 129 over every edge of its training batch)
+    log("  fp8_dense device times (CUDA-graph replay, e4m3; yardstick: quantize + "
+        "torch._scaled_mm + addcmul; bound: the bytes at 3.35 TB/s or the fp8 operations at "
+        "1,979 TFLOP/s):")
+    k7 = _time_fp8_dense(torch, name, x, w, b, plain=True)
+    shapes = [_time_fp8_dense(torch, label, xs.float(), ws, bs) for label, xs, ws, bs in (
+        (f"{k_one[0]}, K = 1", k_one[2], k_one[1].weight.detach().float().t(),
+         None if k_one[1].bias is None else k_one[1].bias.detach().float()),
+        (f"{n_one[0]}, N = 1", n_one[2], n_one[1].weight.detach().float().t(),
+         None if n_one[1].bias is None else n_one[1].bias.detach().float()))]
+    if egnn_rows:
+        shapes.append(_time_fp8_dense(
+            torch, "EGNN edge MLP, layer 1", torch.randn(egnn_rows, 129, generator=gen).to(dev),
+            torch.randn(129, 64, generator=gen).to(dev) / 11, torch.randn(64, generator=gen)
+            .to(dev)))
+    k7["shapes"] = shapes
+    w8, s_w8 = f8.quantize_weight_fp8(w, "e4m3")
+    s_x8 = f8.activation_scale_fp8(x, "e4m3")
+    ops, busy, rows = device_ops(torch, lambda: f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b)[1])
+    log_device_ops(f"one fp8_dense call at x[{m},{k}] f32 x W_q[{k},{nb}] e4m3 under "
+                   f"torch.profiler", ops, busy, rows, k7["ms"] * 1e3)
+    k7["device_ops"] = ops
     entries.append(_kernel_entry("fp8_dense", "fp8_matmul.cu",
                                  "hydragnn_tpu/ops/fp8_matmul.py:111", k7, err7, INT8_OPS))
-    check_int8_tensor_cores(torch)
+    for extra in ("shapes", "device_ops"):
+        entries[-1][extra] = k7[extra]
+    check_tensor_cores(torch)
     return entries
 
 
@@ -3194,7 +3464,8 @@ def fp8_phase(torch, gin_model, gin_batch, mlip_model, mlip_batch, card: str = "
     return {"launches": launches, "max_abs_err": err, "egnn": out, "report": report}
 
 
-def kernels_only(torch, seed: int, dev: dict) -> int:
+def kernels_only(torch, seed: int, dev: dict, b3_save: str | None = None,
+                 b3_against: str | None = None) -> int:
     """``--kernels-only``: every kernel against its plain version with its
     times, at the main paths' shapes: phase 3, the cell-list checks and
     times (on both MD systems, the MLIP one made from the untrained oc20
@@ -3211,13 +3482,15 @@ def kernels_only(torch, seed: int, dev: dict) -> int:
     n_max = update_config(qm9_config("gps"), loaders[0].samples)[
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
     top, small = bucket_batches(loaders, samples)
-    entries, _ = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_train_batch())
+    mlip_b = mlip_train_batch()
+    entries, _ = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b,
+                              b3_save=b3_save, b3_against=b3_against)
     cfg = mlip_config(MLIP_EPOCHS)  # augmented as run_training augments it
     mlip_loaders = dataset_loading_and_splitting(cfg, samples=mlip_samples())
     aug = update_config(cfg, *(ld.samples for ld in mlip_loaders))
     entries.append(cell_list_phase(torch, md_systems(aug, seed)))
     entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda", seed=seed),
-                                  top)
+                                  top, egnn_rows=mlip_b.num_edges)
     log(f"chip_smoke --kernels-only: {time.perf_counter() - t_start:.1f} s; no main path was "
         f"driven, so no result line")
     log(dev["smi"])
@@ -3239,6 +3512,12 @@ def main(argv=None) -> int:
                              "untrained models); prints their entries under kernels_only "
                              "(launches null), no result line, and exits 3: no main path is "
                              "driven")
+    parser.add_argument("--save-b3", metavar="PATH",
+                        help="save kernel B3's inputs and outputs at every shape its bit-for-bit "
+                             "check covers (torch.save), for --against-b3 in another tree")
+    parser.add_argument("--against-b3", metavar="PATH",
+                        help="hold kernel B3 bit for bit against the outputs --save-b3 wrote "
+                             "(another tree's kernel), on the same inputs")
     args = parser.parse_args(argv)
 
     import torch
@@ -3253,17 +3532,19 @@ def main(argv=None) -> int:
         raise SystemExit(f"chip_smoke: hydragnn_tpu_torch imported from {pkg}, not this checkout")
     build_phase()
     if args.kernels_only:
-        return kernels_only(torch, args.seed, dev)
+        return kernels_only(torch, args.seed, dev, args.save_b3, args.against_b3)
     _, aug_gin, loaders, samples = prepare(args.seed)
     n_max = update_config(qm9_config("gps"), loaders[0].samples)[
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
     top, small = bucket_batches(loaders, samples)
-    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max,
-                                         mlip_batch=mlip_train_batch())
+    mlip_b = mlip_train_batch()
+    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b,
+                                         b3_save=args.save_b3, b3_against=args.against_b3)
     from hydragnn_tpu_torch.models import create_model_config
 
     entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda",
-                                                             seed=args.seed), top)
+                                                             seed=args.seed), top,
+                                  egnn_rows=mlip_b.num_edges)
     second_derivative_phase(torch, top)
     served, trained, quantized = {}, {}, {}
     for kind in MODELS:

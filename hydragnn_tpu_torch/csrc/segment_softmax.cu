@@ -75,6 +75,10 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr float kDenomMin = 1e-12f;  // the reference's denominator clamp
 constexpr float kMaskFill = -1e9f;   // GPS's mask fill, matched exactly
+constexpr int kPiece = 32;           // entries per piece (PIECE_EDGES of ops/fused_scatter.py)
+constexpr int kHeadChunk = 8;        // heads a lane holds at once
+constexpr int kStatUnroll = 4;       // pieces' statistics a lane loads at once when combining
+constexpr int kEntryUnroll = 4;      // entries a thread loads at once when a block normalises
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -106,152 +110,301 @@ __device__ __forceinline__ float warp_sum(float v) {
 // (|m| < inf is false for +-inf and NaN)
 __device__ __forceinline__ float finite_or_zero(float m) { return fabsf(m) < INFINITY ? m : 0.0f; }
 
-// Largest r in [0, num_rows) with piece_ptr[r] <= p (piece_ptr is
-// non-decreasing and every row owns at least one piece, so r owns p).
-__device__ __forceinline__ int row_of_piece(const int* __restrict__ piece_ptr, int num_rows,
-                                            int p) {
-  int lo = 0, hi = num_rows - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (piece_ptr[mid] <= p) lo = mid; else hi = mid - 1;
-  }
-  return lo;
+// kHeadChunk neighbouring heads of one entry, as VEC-wide loads and stores
+// (VEC = 2: H even and the tensors aligned to two elements)
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  a = q.x;
+  b = q.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a, float& b) {
+  const __nv_bfloat162 q = *reinterpret_cast<const __nv_bfloat162*>(p);
+  a = __low2float(q);
+  b = __high2float(q);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);  // each rounded as one
 }
 
-// The piece this warp handles: its row, whether the row is this one piece,
-// and the sorted positions [beg, end) of its entries.
-struct Piece {
-  int row;
-  bool whole_row;
-  int beg;
-  int end;
-};
-
-__device__ __forceinline__ bool find_piece(const int* __restrict__ ptr,
-                                           const int* __restrict__ piece_ptr, int num_rows,
-                                           int max_pieces, int piece, Piece* out) {
-  const int warp = threadIdx.x >> 5;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= max_pieces || p >= piece_ptr[num_rows]) return false;
-  const int r = row_of_piece(piece_ptr, num_rows, p);
-  const int k = p - piece_ptr[r];
-  out->row = r;
-  out->whole_row = piece_ptr[r + 1] - piece_ptr[r] == 1;
-  out->beg = ptr[r] + k * piece;
-  out->end = min(ptr[r + 1], out->beg + piece);
-  return true;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-softmax_piece_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
-                     const int* __restrict__ piece_ptr, const int* __restrict__ perm,
-                     T* __restrict__ out, float* __restrict__ piece_max,
-                     float* __restrict__ piece_sum, int num_rows, int max_pieces, int piece,
-                     int H) {
-  Piece pc;
-  if (!find_piece(ptr, piece_ptr, num_rows, max_pieces, piece, &pc)) return;
-  const int lane = threadIdx.x & 31;
-  const long long p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int j = pc.beg + lane;
-  const bool live = j < pc.end;
-  const long long e = live ? (perm ? perm[j] : j) : 0;
-  for (int h = 0; h < H; ++h) {
-    const float x = live ? to_float(logits[e * H + h]) : -INFINITY;
-    const float m = warp_max(x);
-    const float ex = live ? expf(x - finite_or_zero(m)) : 0.0f;
-    const float s = warp_sum(ex);
-    if (pc.whole_row) {
-      if (live) out[e * H + h] = from_float<T>(ex / fmaxf(s, kDenomMin));
-    } else if (lane == 0) {
-      // s is the sum of exp(x - finite_or_zero(m)) over the piece
-      piece_max[p * H + h] = m;
-      piece_sum[p * H + h] = s;
+template <int VEC, typename T>
+__device__ __forceinline__ void load_heads(const T* __restrict__ p, int hc,
+                                           float (&v)[kHeadChunk]) {
+#pragma unroll
+  for (int i = 0; i < kHeadChunk; i += VEC) {
+    if (i < hc) {
+      if (VEC == 2) load2(p + i, v[i], v[i + 1]);
+      else v[i] = to_float(p[i]);
     }
   }
 }
 
-// One warp per row; rows of a single piece were written by the piece kernel.
-__global__ void __launch_bounds__(kThreads)
-softmax_combine_kernel(const float* __restrict__ piece_max, const float* __restrict__ piece_sum,
-                       const int* __restrict__ piece_ptr, float* __restrict__ row_shift,
-                       float* __restrict__ row_denom, int num_rows, int H) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= num_rows) return;
-  const int p0 = piece_ptr[r];
-  const int p1 = piece_ptr[r + 1];
-  if (p1 - p0 <= 1) return;
-  for (int h = 0; h < H; ++h) {
-    float m = -INFINITY;
-    for (int p = p0 + lane; p < p1; p += 32) m = fmaxf(m, piece_max[(long long)p * H + h]);
-    const float shift = finite_or_zero(warp_max(m));
-    float s = 0.0f;
-    for (int p = p0 + lane; p < p1; p += 32) {
-      const float sp = piece_sum[(long long)p * H + h];
-      // a piece whose entries are all -inf adds nothing (and must not
-      // multiply its zero by an overflowing exp)
-      if (sp > 0.0f) {
-        const float mp = finite_or_zero(piece_max[(long long)p * H + h]);
-        s = __fadd_rn(s, __fmul_rn(sp, expf(mp - shift)));
+template <int VEC, typename T>
+__device__ __forceinline__ void store_heads(T* __restrict__ p, int hc,
+                                            const float (&v)[kHeadChunk]) {
+#pragma unroll
+  for (int i = 0; i < kHeadChunk; i += VEC) {
+    if (i < hc) {
+      if (VEC == 2) store2(p + i, v[i], v[i + 1]);
+      else p[i] = from_float<T>(v[i]);
+    }
+  }
+}
+
+// Row r's statistics for head h from its pieces q0 .. q0 + nq (published by
+// the blocks that took them), in the two-launch design's order: lane l takes
+// the max over pieces l, l + 32, ..., then the butterfly, then the
+// not-finite rule; it adds s_p * exp(m_p - M) over the same pieces left to
+// right (pieces of all -inf entries add nothing), then the butterfly; the
+// denominator is clamped. Lane 0 writes them.
+__device__ __forceinline__ void combine_row_head(const float* __restrict__ piece_max,
+                                                 const float* __restrict__ piece_sum,
+                                                 float* __restrict__ row_shift,
+                                                 float* __restrict__ row_denom, int r, int q0,
+                                                 int nq, int h, int H, int lane) {
+  float m = -INFINITY;
+  for (int j0 = lane; j0 < nq; j0 += 32 * kStatUnroll) {
+    float v[kStatUnroll];
+#pragma unroll
+    for (int u = 0; u < kStatUnroll; ++u) {
+      const int j = j0 + 32 * u;
+      v[u] = j < nq ? __ldcg(piece_max + (long long)(q0 + j) * H + h) : -INFINITY;
+    }
+#pragma unroll
+    for (int u = 0; u < kStatUnroll; ++u) m = fmaxf(m, v[u]);
+  }
+  const float shift = finite_or_zero(warp_max(m));
+  float s = 0.0f;
+  for (int j0 = lane; j0 < nq; j0 += 32 * kStatUnroll) {
+    float sp[kStatUnroll], mp[kStatUnroll];
+#pragma unroll
+    for (int u = 0; u < kStatUnroll; ++u) {
+      const int j = j0 + 32 * u;
+      sp[u] = j < nq ? __ldcg(piece_sum + (long long)(q0 + j) * H + h) : 0.0f;
+      mp[u] = j < nq ? __ldcg(piece_max + (long long)(q0 + j) * H + h) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kStatUnroll; ++u)
+      if (sp[u] > 0.0f) s = __fadd_rn(s, __fmul_rn(sp[u], expf(finite_or_zero(mp[u]) - shift)));
+  }
+  s = warp_sum(s);
+  if (lane == 0) {
+    row_shift[(long long)r * H + h] = shift;
+    row_denom[(long long)r * H + h] = fmaxf(s, kDenomMin);
+  }
+}
+
+// exp(x - M) / S for the entries [beg, end) of one row (sorted positions),
+// each of them by a thread of the block in turn
+template <int VEC, typename T>
+__device__ __forceinline__ void normalise_row(const T* __restrict__ logits,
+                                              const int* __restrict__ perm,
+                                              const float* __restrict__ row_shift,
+                                              const float* __restrict__ row_denom,
+                                              T* __restrict__ out, int r, int beg, int end,
+                                              int H) {
+  for (int h0 = 0; h0 < H; h0 += kHeadChunk) {
+    const int hc = min(kHeadChunk, H - h0);
+    float sh[kHeadChunk], dn[kHeadChunk];
+#pragma unroll
+    for (int i = 0; i < kHeadChunk; ++i) {
+      sh[i] = i < hc ? row_shift[(long long)r * H + h0 + i] : 0.0f;
+      dn[i] = i < hc ? row_denom[(long long)r * H + h0 + i] : 1.0f;
+    }
+    for (int j0 = beg + threadIdx.x; j0 < end; j0 += kThreads * kEntryUnroll) {
+      long long e[kEntryUnroll];
+#pragma unroll
+      for (int u = 0; u < kEntryUnroll; ++u) {
+        const int j = j0 + kThreads * u;
+        e[u] = j < end ? (perm ? perm[j] : j) : -1;
+      }
+      float v[kEntryUnroll][kHeadChunk];
+#pragma unroll
+      for (int u = 0; u < kEntryUnroll; ++u)
+        if (e[u] >= 0) load_heads<VEC>(logits + e[u] * H + h0, hc, v[u]);
+#pragma unroll
+      for (int u = 0; u < kEntryUnroll; ++u) {
+        if (e[u] < 0) continue;
+        float y[kHeadChunk];
+#pragma unroll
+        for (int i = 0; i < kHeadChunk; ++i) y[i] = expf(v[u][i] - sh[i]) / dn[i];
+        store_heads<VEC>(out + e[u] * H + h0, hc, y);
       }
     }
-    s = warp_sum(s);
-    if (lane == 0) {
-      row_shift[(long long)r * H + h] = shift;
-      row_denom[(long long)r * H + h] = fmaxf(s, kDenomMin);
+  }
+}
+
+// One launch: one warp per piece (piece_row gives its row in one load), one
+// lane per entry holding all its heads; rows of several pieces combined by
+// the block that completes them (a ticket per row elects it and is put back
+// to 0). COMBINER_WRITES: that block also normalises the row's entries;
+// otherwise softmax_normalise_kernel does, in a second launch.
+template <typename T, int VEC, bool COMBINER_WRITES>
+__global__ void __launch_bounds__(kThreads)
+segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
+                       const int* __restrict__ piece_ptr, const int* __restrict__ piece_row,
+                       const int* __restrict__ perm, T* __restrict__ out,
+                       float* __restrict__ piece_max, float* __restrict__ piece_sum,
+                       float* __restrict__ row_shift, float* __restrict__ row_denom,
+                       int* __restrict__ tickets, int num_rows, int max_pieces, int H) {
+  __shared__ int s_row[kWarpsPerBlock];  // rows this block combines, or -1
+  __shared__ int s_p0[kWarpsPerBlock];
+  __shared__ int s_np[kWarpsPerBlock];
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.x * kWarpsPerBlock;  // this block's first piece
+  const int p = first + warp;
+  const int r = p < max_pieces ? piece_row[p] : num_rows;
+  int p0 = 0, np = 0;
+  if (r < num_rows) {  // warp-uniform
+    p0 = piece_ptr[r];
+    np = piece_ptr[r + 1] - p0;
+    const int beg = ptr[r] + (p - p0) * kPiece;
+    const bool live = lane < min(ptr[r + 1] - beg, kPiece);
+    const long long e = live ? (perm ? perm[beg + lane] : beg + lane) : 0;
+    for (int h0 = 0; h0 < H; h0 += kHeadChunk) {
+      const int hc = min(kHeadChunk, H - h0);
+      float v[kHeadChunk] = {};
+      if (live) load_heads<VEC>(logits + e * H + h0, hc, v);
+      float y[kHeadChunk];
+#pragma unroll
+      for (int i = 0; i < kHeadChunk; ++i) {
+        if (i >= hc) break;  // warp-uniform
+        const float x = live ? v[i] : -INFINITY;
+        const float m = warp_max(x);
+        const float ex = live ? expf(x - finite_or_zero(m)) : 0.0f;
+        const float s = warp_sum(ex);
+        if (np == 1) {
+          y[i] = ex / fmaxf(s, kDenomMin);
+        } else if (lane == 0) {
+          // s is the sum of exp(x - finite_or_zero(m)) over the piece
+          piece_max[(long long)p * H + h0 + i] = m;
+          piece_sum[(long long)p * H + h0 + i] = s;
+        }
+      }
+      if (np == 1 && live) store_heads<VEC>(out + e * H + h0, hc, y);
+    }
+  }
+
+  // rows of several pieces: the block that adds the last of a row's pieces
+  // combines the row
+  const bool multi = np > 1;
+  if (multi) __threadfence();  // this warp's statistics before its block's ticket
+  if (!__syncthreads_or(multi)) return;
+  if (lane == 0) {
+    int combine = -1;
+    if (multi && (p == p0 || warp == 0)) {  // the row's first piece in this block
+      const int count = min(first + kWarpsPerBlock, p0 + np) - p;
+      const int taken = atomicAdd(&tickets[r], count);
+      if (taken + count == np) {
+        combine = r;
+        __threadfence();  // the other blocks' statistics before this block's reads
+      }
+    }
+    s_row[warp] = combine;
+    s_p0[warp] = p0;
+    s_np[warp] = np;
+  }
+  __syncthreads();
+  for (int k = 0; k < kWarpsPerBlock; ++k) {
+    const int cr = s_row[k];  // block-uniform
+    if (cr < 0) continue;
+    for (int h = warp; h < H; h += kWarpsPerBlock)  // heads to warps
+      combine_row_head(piece_max, piece_sum, row_shift, row_denom, cr, s_p0[k], s_np[k], h, H,
+                       lane);
+    if (threadIdx.x == 0) tickets[cr] = 0;
+    if (COMBINER_WRITES) {
+      __syncthreads();  // the row's statistics before its entries
+      normalise_row<VEC>(logits, perm, row_shift, row_denom, out, cr, ptr[cr], ptr[cr + 1], H);
     }
   }
 }
 
-template <typename T>
+// One warp per piece of a row of several pieces: exp(x - M) / S from the
+// row's statistics (the first launch wrote them).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 softmax_normalise_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
-                         const int* __restrict__ piece_ptr, const int* __restrict__ perm,
-                         const float* __restrict__ row_shift,
+                         const int* __restrict__ piece_ptr, const int* __restrict__ piece_row,
+                         const int* __restrict__ perm, const float* __restrict__ row_shift,
                          const float* __restrict__ row_denom, T* __restrict__ out,
-                         int num_rows, int max_pieces, int piece, int H) {
-  Piece pc;
-  if (!find_piece(ptr, piece_ptr, num_rows, max_pieces, piece, &pc) || pc.whole_row) return;
-  const int j = pc.beg + (threadIdx.x & 31);
-  if (j >= pc.end) return;
-  const long long e = perm ? perm[j] : j;
-  const long long r = pc.row;
-  for (int h = 0; h < H; ++h) {
-    const float x = to_float(logits[e * H + h]);
-    out[e * H + h] = from_float<T>(expf(x - row_shift[r * H + h]) / row_denom[r * H + h]);
+                         int num_rows, int max_pieces, int H) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int r = p < max_pieces ? piece_row[p] : num_rows;
+  if (r >= num_rows) return;
+  const int p0 = piece_ptr[r];
+  if (piece_ptr[r + 1] - p0 == 1) return;
+  const int beg = ptr[r] + (p - p0) * kPiece;
+  if (lane >= min(ptr[r + 1] - beg, kPiece)) return;
+  const long long e = perm ? perm[beg + lane] : beg + lane;
+  for (int h0 = 0; h0 < H; h0 += kHeadChunk) {
+    const int hc = min(kHeadChunk, H - h0);
+    float v[kHeadChunk] = {}, y[kHeadChunk];
+    load_heads<VEC>(logits + e * H + h0, hc, v);
+#pragma unroll
+    for (int i = 0; i < kHeadChunk; ++i) {
+      const long long rh = (long long)r * H + h0 + i;
+      y[i] = i < hc ? expf(v[i] - row_shift[rh]) / row_denom[rh] : 0.0f;
+    }
+    store_heads<VEC>(out + e * H + h0, hc, y);
   }
 }
 
-template <typename T>
-int launch_segment_softmax(const void* logits, const void* ptr, const void* piece_ptr,
-                           const void* perm, void* out, void* scratch, int num_rows,
-                           int max_pieces, int piece, int H, void* stream) {
-  if (piece < 1 || piece > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T, int VEC>
+int launch_segment_softmax_vec(const void* logits, const void* ptr, const void* piece_ptr,
+                               const void* piece_row, const void* perm, void* out,
+                               void* scratch, void* tickets, int num_rows, int max_pieces, int H,
+                               bool combiner_writes, cudaStream_t s) {
   float* piece_max = static_cast<float*>(scratch);
   float* piece_sum = piece_max + (long long)max_pieces * H;
   float* row_shift = piece_sum + (long long)max_pieces * H;
   float* row_denom = row_shift + (long long)num_rows * H;
-  const int piece_blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int row_blocks = (num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const T* x = static_cast<const T*>(logits);
   const int* p = static_cast<const int*>(ptr);
   const int* pp = static_cast<const int*>(piece_ptr);
+  const int* pr = static_cast<const int*>(piece_row);
   const int* pm = static_cast<const int*>(perm);
   T* o = static_cast<T*>(out);
-  softmax_piece_kernel<T><<<piece_blocks, kThreads, 0, s>>>(
-      x, p, pp, pm, o, piece_max, piece_sum, num_rows, max_pieces, piece, H);
+  int* tk = static_cast<int*>(tickets);
+  if (combiner_writes) {
+    segment_softmax_kernel<T, VEC, true><<<blocks, kThreads, 0, s>>>(
+        x, p, pp, pr, pm, o, piece_max, piece_sum, row_shift, row_denom, tk, num_rows,
+        max_pieces, H);
+    return static_cast<int>(cudaGetLastError());
+  }
+  segment_softmax_kernel<T, VEC, false><<<blocks, kThreads, 0, s>>>(
+      x, p, pp, pr, pm, o, piece_max, piece_sum, row_shift, row_denom, tk, num_rows, max_pieces,
+      H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  softmax_combine_kernel<<<row_blocks, kThreads, 0, s>>>(piece_max, piece_sum, pp, row_shift,
-                                                         row_denom, num_rows, H);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  softmax_normalise_kernel<T><<<piece_blocks, kThreads, 0, s>>>(
-      x, p, pp, pm, row_shift, row_denom, o, num_rows, max_pieces, piece, H);
+  softmax_normalise_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+      x, p, pp, pr, pm, row_shift, row_denom, o, num_rows, max_pieces, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_segment_softmax(const void* logits, const void* ptr, const void* piece_ptr,
+                           const void* piece_row, const void* perm, void* out, void* scratch,
+                           void* tickets, int num_rows, int max_pieces, int piece, int H,
+                           bool combiner_writes, void* stream) {
+  if (piece != kPiece) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (H % 2 == 0 && aligned(logits, 2 * sizeof(T)) && aligned(out, 2 * sizeof(T)))
+    return launch_segment_softmax_vec<T, 2>(logits, ptr, piece_ptr, piece_row, perm, out,
+                                            scratch, tickets, num_rows, max_pieces, H,
+                                            combiner_writes, s);
+  return launch_segment_softmax_vec<T, 1>(logits, ptr, piece_ptr, piece_row, perm, out, scratch,
+                                          tickets, num_rows, max_pieces, H, combiner_writes, s);
 }
 
 template <typename T>
@@ -340,10 +493,6 @@ masked_rows_vec_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mask
   }
 }
 
-bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 template <typename T, int L>
 void launch_rows_vec(const void* x, const void* mask, void* out, int rows, int rows_per_graph,
                      cudaStream_t s) {
@@ -385,20 +534,26 @@ int launch_masked_softmax(const void* x, const void* mask, void* out, int rows, 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Every pointer is a device pointer; perm
-// may be null (identity). scratch is fp32 of 2 * (max_pieces + num_rows) * H.
-// Returns cudaGetLastError() after the launches.
+// dtype: 0 = float32, 1 = bfloat16, plus 2 where the combining block writes
+// the rows of several pieces (else a second launch does). Every pointer is a
+// device pointer; perm may be null (identity). scratch is fp32 of 2 *
+// (max_pieces + num_rows) * H; tickets is int32 [num_rows], all 0 between
+// launches (the kernel puts back what it takes). Returns cudaGetLastError()
+// after the launches.
 extern "C" int segment_softmax_fwd(int dtype, const void* logits, const void* ptr,
-                                   const void* piece_ptr, const void* perm, void* out,
-                                   void* scratch, int num_rows, int max_pieces, int piece,
-                                   int H, void* stream) {
+                                   const void* piece_ptr, const void* piece_row,
+                                   const void* perm, void* out, void* scratch, void* tickets,
+                                   int num_rows, int max_pieces, int piece, int H,
+                                   void* stream) {
+  const bool combiner_writes = dtype >= 2;
+  dtype %= 2;
   if (dtype == 0)
-    return launch_segment_softmax<float>(logits, ptr, piece_ptr, perm, out, scratch, num_rows,
-                                         max_pieces, piece, H, stream);
-  if (dtype == 1)
-    return launch_segment_softmax<__nv_bfloat16>(logits, ptr, piece_ptr, perm, out, scratch,
-                                                 num_rows, max_pieces, piece, H, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_segment_softmax<float>(logits, ptr, piece_ptr, piece_row, perm, out, scratch,
+                                         tickets, num_rows, max_pieces, piece, H,
+                                         combiner_writes, stream);
+  return launch_segment_softmax<__nv_bfloat16>(logits, ptr, piece_ptr, piece_row, perm, out,
+                                               scratch, tickets, num_rows, max_pieces, piece, H,
+                                               combiner_writes, stream);
 }
 
 // x and out: rows x m, row-major; mask: [rows / rows_per_graph, m] bytes, an

@@ -65,7 +65,9 @@ def quantize_weight_fp8(w: torch.Tensor, fmt: str = "e4m3") -> tuple[torch.Tenso
     resolve_fp8_format(fmt)
     w = w.detach().float()
     s_w = torch.clamp(w.abs().amax(dim=0), min=1e-12) / _scalar(FP8_MAX[fmt], w.device)
-    return _quantize_fp8(w / s_w[None, :], fmt), s_w
+    # row-major, as the kernel takes it: a transposed weight (the port's
+    # Dense keeps [N, K]) would be copied at every call
+    return _quantize_fp8(w / s_w[None, :], fmt).contiguous(), s_w
 
 
 def activation_scale_fp8(x: torch.Tensor, fmt: str = "e4m3") -> torch.Tensor:
@@ -95,6 +97,9 @@ def reference_fp8_dense(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, s
     return reference_fp8_parts(x, w_q, s_w, s_x, bias, fmt)[1]
 
 
+_FORM = 2
+
+
 def _launch(x, w_q, s_w, s_x, bias, fmt: str, debug: bool):
     name = "fp8_dense"
     _check_cuda(name, x, w_q, s_w, s_x, bias)
@@ -117,7 +122,7 @@ def _launch(x, w_q, s_w, s_x, bias, fmt: str, debug: bool):
     from ._build import load
 
     status = load().fp8_dense_fwd(
-        _FORMAT_CODE[fmt], x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
+        _FORMAT_CODE[fmt] + 2 * _FORM, x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         x_q.data_ptr() if debug else None, m, k, n,
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -105,6 +105,15 @@ def plain_masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tens
 # -- wrappers ----------------------------------------------------------------
 
 
+_COMBINER_WRITES = False
+
+
+def _softmax_scratch_floats(index: SegmentIndex, heads: int) -> int:
+    """fp32 scratch of one segment-softmax launch: each piece's max and sum
+    of exps and each row's shift and denominator, per head."""
+    return 2 * (index.max_pieces + index.num_segments) * heads
+
+
 def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                      index: SegmentIndex | None) -> torch.Tensor:
     """One device-routed segment softmax (no autograd)."""
@@ -123,15 +132,16 @@ def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segmen
     _check_index(name, index, num_segments, e)
     logits = logits.contiguous()
     out = torch.empty_like(logits)
-    scratch = torch.empty(2 * (index.max_pieces + num_segments) * h, dtype=torch.float32,
+    scratch = torch.empty(_softmax_scratch_floats(index, h), dtype=torch.float32,
                           device=logits.device)
     from ._build import load
 
     status = load().segment_softmax_fwd(
-        code, logits.data_ptr(), index.ptr.data_ptr(), index.piece_ptr.data_ptr(),
+        code + 2 * _COMBINER_WRITES, logits.data_ptr(), index.ptr.data_ptr(),
+        index.piece_ptr.data_ptr(), index.piece_row.data_ptr(),
         index.perm.data_ptr() if index.perm is not None else None, out.data_ptr(),
-        scratch.data_ptr(), num_segments, index.max_pieces, PIECE_EDGES, h,
-        torch.cuda.current_stream(logits.device).cuda_stream,
+        scratch.data_ptr(), index.tickets.data_ptr(), num_segments, index.max_pieces,
+        PIECE_EDGES, h, torch.cuda.current_stream(logits.device).cuda_stream,
     )
     _raise_on(name, status)
     _count_launch(name)
