@@ -45,14 +45,18 @@ device JSON only when every phase passed):
    plain version at every Dense call of the GIN's served forward (fp32 and
    bf16 inputs, K = 1 and N = 1 layers included), GAT's 384 x 384 lin_l and
    a ragged row count (codes and int32 sums equal, y within 1 ulp), and the
-   fp8 kernel B7 at the GIN's shapes in e4m3 and e5m2, saturated too (codes
-   bit-equal, y within the summation-order bound); their times beside the
-   plain versions, quantize + ``torch._int_mm`` / ``torch._scaled_mm``
-   yardsticks and the bounds; B6 also at GAT's 384 x 384, GIN conv layer 0
-   (K = 1) and a head's output Dense (N = 1), fp32 and bf16, its device
-   operations under ``torch.profiler``, and
-   ``cuobjdump -sass`` of its library (IMMA instructions, no scalar tile
-   kernel left);
+   fp8 kernel B7 at the GIN's shapes in e4m3 and e5m2, saturated too, and on
+   adversarial inputs (codes over the format's whole range, sums that
+   cancel) (codes bit-equal, y within the summation-order bound); their
+   times beside the plain versions, quantize + ``torch._int_mm`` /
+   ``torch._scaled_mm`` yardsticks and the bounds; B6 also at GAT's 384 x
+   384, GIN conv layer 0 (K = 1) and a head's output Dense (N = 1), fp32
+   and bf16, B7 also at K = 1, N = 1 and the oc20 EGNN's [E, 129] x [129,
+   64], both kernels' device operations under ``torch.profiler``, and
+   ``cuobjdump -sass`` of both libraries (tensor-core instructions, no
+   scalar tile kernel). B3 is also held bit for bit on every entry against
+   its fixed-order emulation (``segment_softmax_emulation``, torch on the
+   card) and, with ``--against-b3``, against another tree's kernel;
 4. serving, per model: ``PredictionServer`` with 512 concurrent requests;
    served answers against ``Predictor.outputs`` on the same padded batches;
    launch counts per served batch; the card's fp32 answers against the
@@ -1706,9 +1710,10 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True,
     library yardsticks and the bounds; B6 also at GAT's lin_l, K = 1 and
     N = 1, in fp32 and bf16, B7 at K = 1, N = 1 and (given ``egnn_rows``)
     the oc20 EGNN's [egnn_rows, 129] x [129, 64] edge-MLP Dense, both
-    kernels' device operations, and their SASS, which must hold IMMA (the
-    int8 tensor cores). Returns the two JSON entries (B7's max error is
-    completed by the fp8 phase) or ``[]``."""
+    kernels' device operations, and their SASS, which must hold
+    tensor-core instructions (:func:`check_tensor_cores`). Returns the two
+    JSON entries (B7's max error is completed by the fp8 phase) or
+    ``[]``."""
     from hydragnn_tpu_torch.ops import fp8_matmul as f8
     from hydragnn_tpu_torch.ops import quant_matmul as qm
 
@@ -3469,7 +3474,8 @@ def kernels_only(torch, seed: int, dev: dict, b3_save: str | None = None,
     """``--kernels-only``: every kernel against its plain version with its
     times, at the main paths' shapes: phase 3, the cell-list checks and
     times (on both MD systems, the MLIP one made from the untrained oc20
-    configuration), then phase 3b (which ends with B6's tensor-core check).
+    configuration), then phase 3b (which ends with B6's and B7's tensor-core
+    check); ``b3_save`` and ``b3_against`` as in :func:`kernel_phase`.
     Prints the entries under ``kernels_only``, not as the kernels line, with
     ``launches`` null (no main path ran, so nothing counted them), and
     returns 3."""

@@ -31,20 +31,13 @@
 // K zero-padded to a multiple of 32) and the same fragments, whose layout
 // for 8-bit floats is the s8 one.
 
-#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
 #include "quant_mma.cuh"
 
 namespace {
 
-// FORM: how the fp8 products reach the fp32 sum (measured in turn):
-//   0: mma.sync m16n8k32 f32.e4m3/e5m2, the fp32 sum carried in C;
-//   1: the same instruction from a zero C at every 32 k, its results added
-//      to fp32 registers with __fadd_rn;
-//   2: the codes decoded exactly to fp16 (every e4m3 and e5m2 value is an
-//      fp16 value), two mma.sync m16n8k16 f32.f16.f16.f32 per 32 k.
-template <__nv_fp8_interpretation_t FMT, int FORM>
+template <__nv_fp8_interpretation_t FMT>
 struct Fp8 {
   using Scale = const float*;  // s_x is read on the device
   using Acc = float;
@@ -54,88 +47,37 @@ struct Fp8 {
     return __nv_cvt_float_to_fp8(fminf(fmaxf(__fdiv_rn(v, s_x), -bound), bound),
                                  __NV_SATFINITE, FMT);
   }
-  __device__ static void mma8(float d[4], const uint32_t a[4], uint2 b, const float c[4]) {
+  __device__ static void mma(float acc[4], const uint32_t a[4], uint2 b) {
     if constexpr (FMT == __NV_E4M3) {
       asm(
           "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-          : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y), "f"(c[0]),
-            "f"(c[1]), "f"(c[2]), "f"(c[3]));
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
     } else {
       asm(
           "mma.sync.aligned.m16n8k32.row.col.f32.e5m2.e5m2.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-          : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y), "f"(c[0]),
-            "f"(c[1]), "f"(c[2]), "f"(c[3]));
-    }
-  }
-  // two fp8 codes (the low 16 bits of w >> shift) as an fp16 pair, exactly
-  __device__ static uint32_t halves(uint32_t w, int shift) {
-    const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>((w >> shift) & 0xffffu), FMT);
-    return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
-  }
-  __device__ static void mma16(float acc[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // a = {row g k 8t..8t+3, row g+8 k 8t..8t+3, row g k 8t+4..8t+7, row g+8
-  // k 8t+4..8t+7} and b = {col g k 8t..8t+3, col g k 8t+4..8t+7} (staged k)
-  __device__ static void mma(float acc[4], const uint32_t a[4], uint2 b) {
-    if constexpr (FORM == 0) {
-      mma8(acc, a, b, acc);
-    } else if constexpr (FORM == 1) {
-      const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float d[4];
-      mma8(d, a, b, zero);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
-    } else {
-      // m16n8k16's lane t holds logical k {2t, 2t+1} in its first register
-      // and {2t+8, 2t+9} in its second (A: rows g, g+8 alternate): the
-      // staged pairs (8t, 8t+1), (8t+2, 8t+3) serve the first step and
-      // (8t+4, 8t+5), (8t+6, 8t+7) the second, for A and B alike
-#pragma unroll
-      for (int step = 0; step < 2; ++step) {
-        const uint32_t lo = a[2 * step], hi = a[2 * step + 1];
-        const uint32_t bw = step ? b.y : b.x;
-        const uint32_t ah[4] = {halves(lo, 0), halves(hi, 0), halves(lo, 16), halves(hi, 16)};
-        mma16(acc, ah, halves(bw, 0), halves(bw, 16));
-      }
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
     }
   }
   __device__ static float to_float(float acc) { return acc; }
 };
 
-template <int FORM>
-int launch_form(int fmt, const void* x, const void* wq, const void* sw, const float* sx,
-                const void* bias, void* out, void* xq_out, int M, int K, int N, void* stream) {
-  if (fmt == 0)
-    return quant_mma::launch<Fp8<__NV_E4M3, FORM>, float>(x, wq, sw, bias, sx, out, xq_out,
-                                                          nullptr, M, K, N, stream);
-  if (fmt == 1)
-    return quant_mma::launch<Fp8<__NV_E5M2, FORM>, float>(x, wq, sw, bias, sx, out, xq_out,
-                                                          nullptr, M, K, N, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
-// fmt: 0 = e4m3 (bound 448), 1 = e5m2 (bound 57344), plus 2 * FORM. bias and
-// xq_out may be null; sx points at one fp32 on the device.
+// fmt: 0 = e4m3 (bound 448), 1 = e5m2 (bound 57344). bias and xq_out may be
+// null; sx points at one fp32 on the device.
 extern "C" int fp8_dense_fwd(int fmt, const void* x, const void* wq, const void* sw,
                              const void* sx, const void* bias, void* out, void* xq_out, int M,
                              int K, int N, void* stream) {
   const float* s = static_cast<const float*>(sx);
-  const int form = fmt / 2;
-  fmt %= 2;
-  if (form == 0) return launch_form<0>(fmt, x, wq, sw, s, bias, out, xq_out, M, K, N, stream);
-  if (form == 1) return launch_form<1>(fmt, x, wq, sw, s, bias, out, xq_out, M, K, N, stream);
-  if (form == 2) return launch_form<2>(fmt, x, wq, sw, s, bias, out, xq_out, M, K, N, stream);
+  if (fmt == 0)
+    return quant_mma::launch<Fp8<__NV_E4M3>, float>(x, wq, sw, bias, s, out, xq_out, nullptr, M,
+                                                    K, N, stream);
+  if (fmt == 1)
+    return quant_mma::launch<Fp8<__NV_E5M2>, float>(x, wq, sw, bias, s, out, xq_out, nullptr, M,
+                                                    K, N, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

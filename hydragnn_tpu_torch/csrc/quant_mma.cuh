@@ -27,7 +27,11 @@
 // columns.
 //   * Staging, all in shared memory: the CTA's x rows quantized once, in
 //     chunks of 8 k (one or two 16-byte loads of x, 8 codes, one 8-byte
-//     store); W_q's [K, NC] slice transposed into the B operand's column
+//     store) where a row is a multiple of 16 bytes, else (the EGNN's K =
+//     129, GIN's K = 1) as one contiguous run of 16-byte vectors across the
+//     threads, each value's code stored at its (row, k) (per-value loads at
+//     a 32-byte lane stride took 27 us at the EGNN's [25472, 129] on an
+//     H100); W_q's [K, NC] slice transposed into the B operand's column
 //     layout s_w[n][k], in blocks of 4 k x 16 columns (four 16-byte loads of
 //     W_q rows, a 4 x 4 byte transpose in registers with __byte_perm, 32-bit
 //     stores; lanes on consecutive k, so no bank conflict); the scales and
@@ -51,11 +55,11 @@
 //   * The epilogue dequantizes each sum with one __fmaf_rn and stores pairs
 //     of columns (masked to N, which may be 1).
 // 16 rows per CTA at every M: 117 CTAs at qm9's 1,864 rows, 1,592 at the
-// oc20 EGNN's 25,472 edges, where 8 CTAs share an SM and every CTA's loads
-// go out in its first round (32 and 64 rows were slower for the int8 layer
-// at every served shape on an H100). Optional debug outputs x_q [M, K] and
-// acc [M, N] let a check hold the codes and the accumulator against the
-// plain version.
+// oc20 EGNN's 25,472 edges (on an H100, 32 and 64 rows were slower for the
+// int8 layer at every served shape, and 64 rows at the EGNN's M, with every
+// thread's x loads issued before any was quantized, slower at both). Optional
+// debug outputs x_q [M, K] and acc [M, N] let a check hold the codes and the
+// accumulator against the plain version.
 
 #pragma once
 
@@ -72,6 +76,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16;          // rows of x per CTA: one m-tile
 constexpr int kTilesPerPass = 8;   // n-tiles a warp accumulates at once
 constexpr int kMaxSmem = 232448;   // 227 KB: the most a block may opt into on sm_90
+constexpr int kFlatUnroll = 4;     // 16-byte vectors a thread loads at once (stage_flat)
 
 // bytes of one staged weight column: K padded to a multiple of 32, then to an
 // odd multiple of 32 (bank-conflict-free 8-byte fragment loads)
@@ -91,6 +96,23 @@ __device__ __forceinline__ void load8(const float* p, float v[8]) {
 
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // a bf16 is the high half of its fp32
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+// a 16-byte vector as its 4 fp32 or 8 bf16 values
+__device__ __forceinline__ void unpack16(uint4 raw, float (&v)[4]) {
+  v[0] = __uint_as_float(raw.x);
+  v[1] = __uint_as_float(raw.y);
+  v[2] = __uint_as_float(raw.z);
+  v[3] = __uint_as_float(raw.w);
+}
+
+__device__ __forceinline__ void unpack16(uint4 raw, float (&v)[8]) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {  // a bf16 is the high half of its fp32
@@ -130,13 +152,72 @@ __device__ __forceinline__ uint2 quantize8(const T* __restrict__ x, int row, int
   return make_uint2(pack4(c), pack4(c + 4));
 }
 
+// The codes of a whole tile whose rows are not 16-byte multiples (the oc20
+// EGNN's K = 129): the tile's rows m0 .. m0 + valid are one contiguous run of
+// valid K values starting on a 16-byte boundary (m0 is a multiple of 16), so
+// it is read as consecutive 16-byte vectors across the threads (kFlatUnroll
+// in flight each) and every value's code is stored at its (row, k). The
+// bytes no value lands on, [K, kp) of each row and the rows past M, are 0.
+template <class F, typename T>
+__device__ __forceinline__ void stage_flat(const T* __restrict__ x, int m0, int M, int K, int kp,
+                                           int ks, float s_x, uint8_t* __restrict__ s_xq,
+                                           uint8_t* __restrict__ xq_out, int tid) {
+  constexpr int V = 16 / sizeof(T);  // values per 16-byte vector
+  const int valid = min(kRows, M - m0);
+  const int pad = kp - K;
+  for (int i = tid; i < kRows * pad; i += kThreads) {
+    const int r = i / pad;
+    s_xq[r * ks + K + (i - r * pad)] = 0;
+  }
+  for (int i = tid; i < (kRows - valid) * K; i += kThreads) {
+    const int r = i / K;
+    s_xq[(valid + r) * ks + (i - r * K)] = 0;
+  }
+  const T* src = x + static_cast<size_t>(m0) * K;
+  uint8_t* dst = xq_out != nullptr ? xq_out + static_cast<size_t>(m0) * K : nullptr;
+  const int n = valid * K;
+  const int nv = n / V;
+  for (int v0 = tid; v0 < nv; v0 += kThreads * kFlatUnroll) {
+    uint4 raw[kFlatUnroll];
+#pragma unroll
+    for (int u = 0; u < kFlatUnroll; ++u) {
+      const int v = v0 + u * kThreads;
+      if (v < nv) raw[u] = reinterpret_cast<const uint4*>(src)[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kFlatUnroll; ++u) {
+      const int v = v0 + u * kThreads;
+      if (v >= nv) continue;
+      float vals[V];
+      unpack16(raw[u], vals);
+      int r = v * V / K, k = v * V - r * K;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int c = F::code(vals[q], s_x);
+        s_xq[r * ks + k] = static_cast<uint8_t>(c);
+        if (dst != nullptr) dst[v * V + q] = static_cast<uint8_t>(c);
+        if (++k == K) {
+          k = 0;
+          ++r;
+        }
+      }
+    }
+  }
+  for (int f = nv * V + tid; f < n; f += kThreads) {  // the tail of a ragged last tile
+    const int r = f / K;
+    const int c = F::code(load1(src + f), s_x);
+    s_xq[r * ks + f - r * K] = static_cast<uint8_t>(c);
+    if (dst != nullptr) dst[f] = static_cast<uint8_t>(c);
+  }
+}
+
 template <class F, typename T>
 __global__ void __launch_bounds__(kThreads)
 quant_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ wq,
                  const float* __restrict__ sw, const float* __restrict__ bias,
                  typename F::Scale s, float* __restrict__ out, uint8_t* __restrict__ xq_out,
                  typename F::Acc* __restrict__ acc_out, int M, int K, int N, int NC, int ks,
-                 bool vec, bool wvec) {
+                 bool vec, bool flat, bool wvec) {
   using Acc = typename F::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   const float s_x = F::scale(s);
@@ -157,10 +238,14 @@ quant_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ wq,
   // in one round.
   const int x_items = kRows * (kp / 8);
   uint8_t* xq = blockIdx.y == 0 ? xq_out : nullptr;  // the codes, written once
-  for (int i = tid; i < x_items; i += kThreads) {
-    const int r = i / (kp / 8), k8 = (i - r * (kp / 8)) * 8;
-    *reinterpret_cast<uint2*>(s_xq + r * ks + k8) =
-        quantize8<F>(x, m0 + r, k8, M, K, s_x, vec, xq);
+  if (flat) {
+    stage_flat<F>(x, m0, M, K, kp, ks, s_x, s_xq, xq, tid);
+  } else {
+    for (int i = tid; i < x_items; i += kThreads) {
+      const int r = i / (kp / 8), k8 = (i - r * (kp / 8)) * 8;
+      *reinterpret_cast<uint2*>(s_xq + r * ks + k8) =
+          quantize8<F>(x, m0 + r, k8, M, K, s_x, vec, xq);
+    }
   }
   for (int i = (tid + kThreads - x_items % kThreads) % kThreads; i < ncp; i += kThreads) {
     s_scale[i] = i < nc ? __fmul_rn(s_x, sw[n0 + i]) : 0.0f;
@@ -290,13 +375,14 @@ int launch(const void* x, const void* wq, const void* sw, const void* bias, type
     if (err != cudaSuccess) return static_cast<int>(err);
     opted.fetch_or(bit);
   }
-  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (K * sizeof(T)) % 16 == 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec = aligned && (K * sizeof(T)) % 16 == 0;
   const bool wvec = reinterpret_cast<uintptr_t>(wq) % 16 == 0 && N % 16 == 0 && NC % 16 == 0;
   const dim3 grid((M + kRows - 1) / kRows, (N + NC - 1) / NC);
   quant_mma_kernel<F, T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(wq), static_cast<const float*>(sw),
       static_cast<const float*>(bias), s, static_cast<float*>(out), static_cast<uint8_t*>(xq_out),
-      static_cast<typename F::Acc*>(acc_out), M, K, N, NC, ks, vec, wvec);
+      static_cast<typename F::Acc*>(acc_out), M, K, N, NC, ks, vec, aligned && !vec, wvec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,21 +18,35 @@
 // grid. Here it is a segmented softmax over the CSR view of the segment ids
 // (ptr over the stable-sorted ids, perm = the sort permutation or null),
 // cut into the same 32-entry pieces as the segment-reduction kernels
-// (segment_reduce.cu): piece_ptr[r] .. piece_ptr[r+1] are row r's pieces.
-//   1. softmax_piece_kernel: one warp per piece, one lane per entry. For
-//      each head the warp takes the piece's max and sum of exp(x - max) with
-//      butterfly shuffles (every lane ends with the same bits). A row of one
-//      piece (every real row of a molecular batch: at most 20 edges plus the
-//      self loop) is normalised and written at once; a longer row writes its
-//      pieces' (max, sum) pairs.
-//   2. softmax_combine_kernel: one warp per row of more than one piece (the
-//      reserved dummy row N-1, which owns every pad edge and every alignment
-//      slot: ~11.5k of ~19.8k entries at the top QM9 bucket). It takes the
-//      row max of the piece maxima and adds sum_p s_p * exp(m_p - M) in a
-//      fixed order (lane-strided, then the butterfly).
-//   3. softmax_normalise_kernel: one warp per piece of those rows writes
-//      exp(x - M) / S.
-// No atomics and fixed orders of addition: two launches on the same inputs
+// (segment_reduce.cu): piece_ptr[r] .. piece_ptr[r+1] are row r's pieces and
+// piece_row[p] is piece p's row (num_rows for the spare ids up to
+// max_pieces). Two launches:
+//   1. segment_softmax_kernel: one warp per piece, its row read from
+//      piece_row in one load, one lane per entry holding all H heads of its
+//      entry (one load round: 8-byte pairs of fp32, 4-byte pairs of bf16,
+//      where H is even and the tensors aligned). For each head the warp takes
+//      the piece's max and sum of exp(x - max) with butterfly shuffles (every
+//      lane ends with the same bits). A row of one piece (every real row of a
+//      molecular batch: at most 20 edges plus the self loop) is normalised
+//      and written at once; a longer row publishes its pieces' (max, sum)
+//      pairs. Rows of several pieces (the reserved dummy row N-1, which owns
+//      every pad edge and alignment slot: 11,475 of 19,784 entries in 359
+//      pieces at the top QM9 bucket) are combined by the block that takes
+//      the last of a row's pieces: after its warps finish, a block takes one
+//      ticket per such row it holds pieces of (atomicAdd of its piece count
+//      on tickets[r], after __threadfence; the ticket elects the combiner and
+//      never touches data), and the completing block combines the row, its
+//      heads on different warps, then puts the ticket back to 0 (so the next
+//      launch, and a CUDA graph's next replay, starts from zero). Lane l of a
+//      head's warp loads the pairs of pieces l, l + 32, ... in one round,
+//      takes the row max M (butterfly, not-finite -> 0) and adds s_p * exp(m_p
+//      - M) over its pieces left to right, then the butterfly: the order of
+//      the three-launch design this one replaced, so the bits are unchanged.
+//   2. softmax_normalise_kernel: one warp per piece of those rows writes
+//      exp(x - M) / S. (The combining block writing the dummy row's ~69k
+//      values itself was 5x slower: one SM's exps and divisions.)
+// No atomics on data and no waiting: every output and every statistic has one
+// writer and each sum one fixed order, so two launches on the same inputs
 // give the same bits, which the serving tier's bit-equality rests on.
 //
 // masked_softmax: two paths, chosen by the launcher from the shape and the
@@ -59,10 +73,12 @@
 //
 // Bound: memory, for both. Each reads its input once and writes its output
 // once and does a few flops and one exp per element, far below the ~20
-// flop/byte at which the card's arithmetic would be the limit. At the served
-// shapes both are far smaller than the 50 MB L2 and are launch- and
-// latency-bound; multiplies and adds are kept separate (__fmul_rn,
-// __fadd_rn) so the sums are the same roundings on every run.
+// flop/byte at which the card's arithmetic would be the limit: at GAT's top
+// QM9 bucket, segment_softmax moves 2 E' H 4 + E' 4 bytes (logits in, out,
+// and the ids), 1.03 MB, 0.307 us at 3.35 TB/s. At the served shapes both
+// are far smaller than the 50 MB L2 and are launch- and latency-bound;
+// multiplies and adds are kept separate (__fmul_rn, __fadd_rn) so the sums
+// are the same roundings on every run.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,8 +93,7 @@ constexpr float kDenomMin = 1e-12f;  // the reference's denominator clamp
 constexpr float kMaskFill = -1e9f;   // GPS's mask fill, matched exactly
 constexpr int kPiece = 32;           // entries per piece (PIECE_EDGES of ops/fused_scatter.py)
 constexpr int kHeadChunk = 8;        // heads a lane holds at once
-constexpr int kStatUnroll = 4;       // pieces' statistics a lane loads at once when combining
-constexpr int kEntryUnroll = 4;      // entries a thread loads at once when a block normalises
+constexpr int kStatLoads = 16;       // pieces' statistics a lane loads at once when combining
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -154,40 +169,41 @@ __device__ __forceinline__ void store_heads(T* __restrict__ p, int hc,
 }
 
 // Row r's statistics for head h from its pieces q0 .. q0 + nq (published by
-// the blocks that took them), in the two-launch design's order: lane l takes
-// the max over pieces l, l + 32, ..., then the butterfly, then the
+// the blocks that took them), in the three-launch design's order: lane l
+// takes the max over pieces l, l + 32, ..., then the butterfly, then the
 // not-finite rule; it adds s_p * exp(m_p - M) over the same pieces left to
 // right (pieces of all -inf entries add nothing), then the butterfly; the
-// denominator is clamped. Lane 0 writes them.
+// denominator is clamped. A lane loads its first kStatLoads pieces' pairs in
+// one round and keeps them for both passes (the dummy row of a qm9 batch
+// has ~360 pieces). Lane 0 writes the statistics.
 __device__ __forceinline__ void combine_row_head(const float* __restrict__ piece_max,
                                                  const float* __restrict__ piece_sum,
                                                  float* __restrict__ row_shift,
                                                  float* __restrict__ row_denom, int r, int q0,
                                                  int nq, int h, int H, int lane) {
-  float m = -INFINITY;
-  for (int j0 = lane; j0 < nq; j0 += 32 * kStatUnroll) {
-    float v[kStatUnroll];
+  const float* pm = piece_max + (long long)q0 * H + h;
+  const float* ps = piece_sum + (long long)q0 * H + h;
+  constexpr int kRound = 32 * kStatLoads;  // pieces a warp loads in one round
+  float mv[kStatLoads], sv[kStatLoads];
 #pragma unroll
-    for (int u = 0; u < kStatUnroll; ++u) {
-      const int j = j0 + 32 * u;
-      v[u] = j < nq ? __ldcg(piece_max + (long long)(q0 + j) * H + h) : -INFINITY;
-    }
-#pragma unroll
-    for (int u = 0; u < kStatUnroll; ++u) m = fmaxf(m, v[u]);
+  for (int u = 0; u < kStatLoads; ++u) {
+    const int j = lane + 32 * u;
+    mv[u] = j < nq ? __ldcg(pm + (long long)j * H) : -INFINITY;
+    sv[u] = j < nq ? __ldcg(ps + (long long)j * H) : 0.0f;
   }
+  float m = -INFINITY;
+#pragma unroll
+  for (int u = 0; u < kStatLoads; ++u) m = fmaxf(m, mv[u]);
+  for (int j = lane + kRound; j < nq; j += 32) m = fmaxf(m, __ldcg(pm + (long long)j * H));
   const float shift = finite_or_zero(warp_max(m));
   float s = 0.0f;
-  for (int j0 = lane; j0 < nq; j0 += 32 * kStatUnroll) {
-    float sp[kStatUnroll], mp[kStatUnroll];
 #pragma unroll
-    for (int u = 0; u < kStatUnroll; ++u) {
-      const int j = j0 + 32 * u;
-      sp[u] = j < nq ? __ldcg(piece_sum + (long long)(q0 + j) * H + h) : 0.0f;
-      mp[u] = j < nq ? __ldcg(piece_max + (long long)(q0 + j) * H + h) : 0.0f;
-    }
-#pragma unroll
-    for (int u = 0; u < kStatUnroll; ++u)
-      if (sp[u] > 0.0f) s = __fadd_rn(s, __fmul_rn(sp[u], expf(finite_or_zero(mp[u]) - shift)));
+  for (int u = 0; u < kStatLoads; ++u)
+    if (sv[u] > 0.0f) s = __fadd_rn(s, __fmul_rn(sv[u], expf(finite_or_zero(mv[u]) - shift)));
+  for (int j = lane + kRound; j < nq; j += 32) {
+    const float sp = __ldcg(ps + (long long)j * H);
+    if (sp > 0.0f)
+      s = __fadd_rn(s, __fmul_rn(sp, expf(finite_or_zero(__ldcg(pm + (long long)j * H)) - shift)));
   }
   s = warp_sum(s);
   if (lane == 0) {
@@ -196,52 +212,11 @@ __device__ __forceinline__ void combine_row_head(const float* __restrict__ piece
   }
 }
 
-// exp(x - M) / S for the entries [beg, end) of one row (sorted positions),
-// each of them by a thread of the block in turn
-template <int VEC, typename T>
-__device__ __forceinline__ void normalise_row(const T* __restrict__ logits,
-                                              const int* __restrict__ perm,
-                                              const float* __restrict__ row_shift,
-                                              const float* __restrict__ row_denom,
-                                              T* __restrict__ out, int r, int beg, int end,
-                                              int H) {
-  for (int h0 = 0; h0 < H; h0 += kHeadChunk) {
-    const int hc = min(kHeadChunk, H - h0);
-    float sh[kHeadChunk], dn[kHeadChunk];
-#pragma unroll
-    for (int i = 0; i < kHeadChunk; ++i) {
-      sh[i] = i < hc ? row_shift[(long long)r * H + h0 + i] : 0.0f;
-      dn[i] = i < hc ? row_denom[(long long)r * H + h0 + i] : 1.0f;
-    }
-    for (int j0 = beg + threadIdx.x; j0 < end; j0 += kThreads * kEntryUnroll) {
-      long long e[kEntryUnroll];
-#pragma unroll
-      for (int u = 0; u < kEntryUnroll; ++u) {
-        const int j = j0 + kThreads * u;
-        e[u] = j < end ? (perm ? perm[j] : j) : -1;
-      }
-      float v[kEntryUnroll][kHeadChunk];
-#pragma unroll
-      for (int u = 0; u < kEntryUnroll; ++u)
-        if (e[u] >= 0) load_heads<VEC>(logits + e[u] * H + h0, hc, v[u]);
-#pragma unroll
-      for (int u = 0; u < kEntryUnroll; ++u) {
-        if (e[u] < 0) continue;
-        float y[kHeadChunk];
-#pragma unroll
-        for (int i = 0; i < kHeadChunk; ++i) y[i] = expf(v[u][i] - sh[i]) / dn[i];
-        store_heads<VEC>(out + e[u] * H + h0, hc, y);
-      }
-    }
-  }
-}
-
-// One launch: one warp per piece (piece_row gives its row in one load), one
-// lane per entry holding all its heads; rows of several pieces combined by
-// the block that completes them (a ticket per row elects it and is put back
-// to 0). COMBINER_WRITES: that block also normalises the row's entries;
-// otherwise softmax_normalise_kernel does, in a second launch.
-template <typename T, int VEC, bool COMBINER_WRITES>
+// The first launch: one warp per piece (piece_row gives its row in one
+// load), one lane per entry holding all its heads; rows of several pieces
+// combined by the block that completes them (a ticket per row elects it and
+// is put back to 0).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
                        const int* __restrict__ piece_ptr, const int* __restrict__ piece_row,
@@ -316,15 +291,11 @@ segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr
       combine_row_head(piece_max, piece_sum, row_shift, row_denom, cr, s_p0[k], s_np[k], h, H,
                        lane);
     if (threadIdx.x == 0) tickets[cr] = 0;
-    if (COMBINER_WRITES) {
-      __syncthreads();  // the row's statistics before its entries
-      normalise_row<VEC>(logits, perm, row_shift, row_denom, out, cr, ptr[cr], ptr[cr + 1], H);
-    }
   }
 }
 
-// One warp per piece of a row of several pieces: exp(x - M) / S from the
-// row's statistics (the first launch wrote them).
+// The second launch: one warp per piece of a row of several pieces, exp(x -
+// M) / S from the row's statistics (the first launch wrote them).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 softmax_normalise_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
@@ -362,7 +333,7 @@ template <typename T, int VEC>
 int launch_segment_softmax_vec(const void* logits, const void* ptr, const void* piece_ptr,
                                const void* piece_row, const void* perm, void* out,
                                void* scratch, void* tickets, int num_rows, int max_pieces, int H,
-                               bool combiner_writes, cudaStream_t s) {
+                               cudaStream_t s) {
   float* piece_max = static_cast<float*>(scratch);
   float* piece_sum = piece_max + (long long)max_pieces * H;
   float* row_shift = piece_sum + (long long)max_pieces * H;
@@ -374,16 +345,9 @@ int launch_segment_softmax_vec(const void* logits, const void* ptr, const void* 
   const int* pr = static_cast<const int*>(piece_row);
   const int* pm = static_cast<const int*>(perm);
   T* o = static_cast<T*>(out);
-  int* tk = static_cast<int*>(tickets);
-  if (combiner_writes) {
-    segment_softmax_kernel<T, VEC, true><<<blocks, kThreads, 0, s>>>(
-        x, p, pp, pr, pm, o, piece_max, piece_sum, row_shift, row_denom, tk, num_rows,
-        max_pieces, H);
-    return static_cast<int>(cudaGetLastError());
-  }
-  segment_softmax_kernel<T, VEC, false><<<blocks, kThreads, 0, s>>>(
-      x, p, pp, pr, pm, o, piece_max, piece_sum, row_shift, row_denom, tk, num_rows, max_pieces,
-      H);
+  segment_softmax_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+      x, p, pp, pr, pm, o, piece_max, piece_sum, row_shift, row_denom,
+      static_cast<int*>(tickets), num_rows, max_pieces, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   softmax_normalise_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
@@ -395,16 +359,15 @@ template <typename T>
 int launch_segment_softmax(const void* logits, const void* ptr, const void* piece_ptr,
                            const void* piece_row, const void* perm, void* out, void* scratch,
                            void* tickets, int num_rows, int max_pieces, int piece, int H,
-                           bool combiner_writes, void* stream) {
+                           void* stream) {
   if (piece != kPiece) return static_cast<int>(cudaErrorInvalidValue);
   if (num_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % 2 == 0 && aligned(logits, 2 * sizeof(T)) && aligned(out, 2 * sizeof(T)))
     return launch_segment_softmax_vec<T, 2>(logits, ptr, piece_ptr, piece_row, perm, out,
-                                            scratch, tickets, num_rows, max_pieces, H,
-                                            combiner_writes, s);
+                                            scratch, tickets, num_rows, max_pieces, H, s);
   return launch_segment_softmax_vec<T, 1>(logits, ptr, piece_ptr, piece_row, perm, out, scratch,
-                                          tickets, num_rows, max_pieces, H, combiner_writes, s);
+                                          tickets, num_rows, max_pieces, H, s);
 }
 
 template <typename T>
@@ -534,26 +497,23 @@ int launch_masked_softmax(const void* x, const void* mask, void* out, int rows, 
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, plus 2 where the combining block writes
-// the rows of several pieces (else a second launch does). Every pointer is a
-// device pointer; perm may be null (identity). scratch is fp32 of 2 *
-// (max_pieces + num_rows) * H; tickets is int32 [num_rows], all 0 between
-// launches (the kernel puts back what it takes). Returns cudaGetLastError()
-// after the launches.
+// dtype: 0 = float32, 1 = bfloat16. Every pointer is a device pointer; perm
+// may be null (identity). scratch is fp32 of 2 * (max_pieces + num_rows) * H;
+// tickets is int32 [num_rows], all 0 between launches (the kernel puts back
+// what it takes). Returns cudaGetLastError() after the launches.
 extern "C" int segment_softmax_fwd(int dtype, const void* logits, const void* ptr,
                                    const void* piece_ptr, const void* piece_row,
                                    const void* perm, void* out, void* scratch, void* tickets,
                                    int num_rows, int max_pieces, int piece, int H,
                                    void* stream) {
-  const bool combiner_writes = dtype >= 2;
-  dtype %= 2;
   if (dtype == 0)
     return launch_segment_softmax<float>(logits, ptr, piece_ptr, piece_row, perm, out, scratch,
-                                         tickets, num_rows, max_pieces, piece, H,
-                                         combiner_writes, stream);
-  return launch_segment_softmax<__nv_bfloat16>(logits, ptr, piece_ptr, piece_row, perm, out,
-                                               scratch, tickets, num_rows, max_pieces, piece, H,
-                                               combiner_writes, stream);
+                                         tickets, num_rows, max_pieces, piece, H, stream);
+  if (dtype == 1)
+    return launch_segment_softmax<__nv_bfloat16>(logits, ptr, piece_ptr, piece_row, perm, out,
+                                                 scratch, tickets, num_rows, max_pieces, piece,
+                                                 H, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x and out: rows x m, row-major; mask: [rows / rows_per_graph, m] bytes, an

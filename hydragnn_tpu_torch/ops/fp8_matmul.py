@@ -97,9 +97,6 @@ def reference_fp8_dense(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, s
     return reference_fp8_parts(x, w_q, s_w, s_x, bias, fmt)[1]
 
 
-_FORM = 2
-
-
 def _launch(x, w_q, s_w, s_x, bias, fmt: str, debug: bool):
     name = "fp8_dense"
     _check_cuda(name, x, w_q, s_w, s_x, bias)
@@ -122,7 +119,7 @@ def _launch(x, w_q, s_w, s_x, bias, fmt: str, debug: bool):
     from ._build import load
 
     status = load().fp8_dense_fwd(
-        _FORMAT_CODE[fmt] + 2 * _FORM, x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
+        _FORMAT_CODE[fmt], x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), s_x.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
         x_q.data_ptr() if debug else None, m, k, n,
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -105,9 +105,6 @@ def plain_masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tens
 # -- wrappers ----------------------------------------------------------------
 
 
-_COMBINER_WRITES = False
-
-
 def _softmax_scratch_floats(index: SegmentIndex, heads: int) -> int:
     """fp32 scratch of one segment-softmax launch: each piece's max and sum
     of exps and each row's shift and denominator, per head."""
@@ -137,7 +134,7 @@ def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segmen
     from ._build import load
 
     status = load().segment_softmax_fwd(
-        code + 2 * _COMBINER_WRITES, logits.data_ptr(), index.ptr.data_ptr(),
+        code, logits.data_ptr(), index.ptr.data_ptr(),
         index.piece_ptr.data_ptr(), index.piece_row.data_ptr(),
         index.perm.data_ptr() if index.perm is not None else None, out.data_ptr(),
         scratch.data_ptr(), index.tickets.data_ptr(), num_segments, index.max_pieces,

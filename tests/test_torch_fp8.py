@@ -131,3 +131,21 @@ def test_certify_fp8_dense_matches_jax(fmt):
 def test_fp8_format_is_checked():
     with pytest.raises(ValueError, match="Unknown fp8 format"):
         pf.fp8_dense(torch.zeros(8, 4), torch.zeros(4, 2), fmt="e3m4")
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_quantize_weight_fp8_is_row_major(fmt):
+    """The port's Dense keeps its weight as ``[N, K]``; quantized from the
+    transposed view, the fp8 weight comes back row-major ``[K, N]`` (the
+    kernel's layout, so the wrapper copies nothing per call) with the codes
+    and scales of the contiguous weight, and JAX's."""
+    _, w, _ = _draw((4, 24, 16), 3)
+    view = torch.from_numpy(np.ascontiguousarray(w.T)).t()
+    assert not view.is_contiguous()
+    w_q, s_w = pf.quantize_weight_fp8(view, fmt)
+    assert w_q.is_contiguous() and w_q.shape == (24, 16)
+    c_q, c_s = pf.quantize_weight_fp8(torch.from_numpy(w), fmt)
+    assert np.array_equal(_bytes(w_q), _bytes(c_q)) and torch.equal(s_w, c_s)
+    jw_q, js_w = jf.quantize_weight_fp8(jnp.asarray(w), fmt)
+    assert np.array_equal(_bytes(w_q), _bytes(jw_q))
+    np.testing.assert_array_equal(s_w.numpy(), np.asarray(js_w))

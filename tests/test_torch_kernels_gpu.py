@@ -719,9 +719,11 @@ def test_second_derivatives_match_plain_on_card(batch, op):
 # bucket's 1,864 rows, a head's output Dense (N = 1), GAT's 384 x 384
 # lin_l (147 KB of weights in shared memory), a ragged row count, a K
 # whose weights do not fit one CTA (the N-tiled grid), and a K not a
-# multiple of 32 with an N not a multiple of 8 at a ragged row count
+# multiple of 32 with an N not a multiple of 8 at a ragged row count, and
+# K = 1 there (rows that are not 16-byte multiples are staged as one
+# contiguous run of 16-byte vectors; a ragged tile ends in single values)
 QUANT_SHAPES = [(1864, 1, 64), (1864, 64, 64), (64, 64, 1), (1864, 384, 384), (37, 24, 16),
-                (40, 1200, 300), (37, 129, 9)]
+                (40, 1200, 300), (37, 129, 9), (37, 1, 5)]
 
 
 def _ulp_close(got, want):
@@ -797,7 +799,7 @@ def test_quant_dense_is_one_kernel_and_replays_under_a_cuda_graph(dtype):
 
 @pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
 @pytest.mark.parametrize("shape", [(1864, 64, 64), (1864, 1, 64), (64, 64, 1), (25472, 129, 64),
-                                   (37, 24, 16), (40, 1200, 300)], ids=str)
+                                   (37, 24, 16), (40, 1200, 300), (8461, 129, 9)], ids=str)
 def test_fp8_dense_kernel_matches_plain_on_card(shape, fmt):
     """``x_q`` bit-equal, ``y`` within the summation-order bound, saturation
     without inf (an activation scale 1000x too small)."""
@@ -824,6 +826,60 @@ def test_fp8_dense_kernel_matches_plain_on_card(shape, fmt):
         assert bool(torch.isfinite(y).all())
     got = f8.certify_fp8_dense(x, w_q.float() * s_w, b, fmt)
     assert 0 < got["rel_fro_err"] < 0.2
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+@pytest.mark.parametrize("shape", [(256, 64, 64), (256, 129, 64), (64, 1200, 300)], ids=str)
+def test_fp8_dense_adversarial_accumulation_on_card(shape, fmt):
+    """B7's fp32 sum on the tensor cores against the exact sum, on codes over
+    the format's whole range whose sums cancel
+    (``chip_smoke.fp8_adversarial_inputs``, ``s_x = 1``): the codes
+    bit-equal and ``y`` within the summation-order bound of
+    ``chip_smoke.fp8_bound_ratio``, the one ``check_fp8_dense`` holds."""
+    import chip_smoke
+
+    _cuda_or_skip()
+    x, w = chip_smoke.fp8_adversarial_inputs(torch, fmt, *shape,
+                                             torch.Generator().manual_seed(9))
+    codes, ratio, _, _, finite = chip_smoke.fp8_bound_ratio(torch, x.cuda(), w.cuda(), None, fmt,
+                                                            s_x=1.0)
+    assert codes and finite
+    assert ratio <= 1.0, ratio
+
+
+@pytest.mark.parametrize("fmt", ["e4m3", "e5m2"])
+def test_fp8_dense_is_one_kernel_and_replays_under_a_cuda_graph(fmt):
+    """One device operation per call under ``torch.profiler`` (the weight is
+    row-major, so nothing is copied), and a call captured in a CUDA graph
+    replays to the eager bits."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(10)
+    x = (torch.randn(37, 129, generator=gen) * 3).to(dev)
+    w_q, s_w = f8.quantize_weight_fp8(torch.randn(9, 129, generator=gen).to(dev).t(), fmt)
+    s_x = f8.activation_scale_fp8(x, fmt)
+    b = torch.randn(9, generator=gen).to(dev)
+
+    def call():
+        return f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt)[1]
+
+    ops = _device_kernels(call)
+    assert sum(ops.values()) == 1 and all("quant_mma_kernel" in n for n in ops), ops
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("arch", [{}, {"mpnn_type": "GAT"}], ids=["GIN", "GAT"])
@@ -973,6 +1029,90 @@ def test_segment_sum_is_one_launch_and_replays_under_a_cuda_graph():
         torch.cuda.synchronize()
         assert all(torch.equal(bits(torch, o), bits(torch, w)) for o, w in zip(out, want))
     assert fs.LAUNCHES["segment_sum"] == before + 2
+
+
+def _softmax_inputs(gen, layout, heads, dtype):
+    """``_ragged_ids``' rows (one piece: 1, 31, 32 entries; several: 33, 64,
+    65 and a dummy row of 301 pieces; empty rows) with random logits, and
+    the rows of 31 and 33 entries all -inf."""
+    ids, rows = _ragged_ids(gen, layout)
+    x = torch.randn(ids.shape[0], heads, generator=gen) * 3.0
+    x[(ids == 2) | (ids == 5)] = float("-inf")
+    return x.to(dtype), ids, rows
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("heads", [1, 6, 11])
+@pytest.mark.parametrize("layout", ["sorted", "unsorted"])
+def test_segment_softmax_is_bit_for_bit_on_card(dtype, heads, layout):
+    """B3 on rows of exactly one piece and of several, empty rows and all
+    -inf rows (one and two pieces), at one head, GAT's 6 (two heads per
+    load) and 11 (two chunks of heads): every entry bit-equal to
+    ``chip_smoke.segment_softmax_emulation``, the -inf rows 0, within the
+    plain version's tolerance, two launches bit-equal, one counted launch
+    per call."""
+    import chip_smoke
+
+    _, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    x, ids, rows = _softmax_inputs(torch.Generator().manual_seed(34), layout, heads, dtype)
+    x, ids = x.to(dev), ids.to(dev)
+    index = fs.segment_index(ids, rows, is_sorted=layout == "sorted")
+    before = fs.LAUNCHES["segment_softmax"]
+    got = fsm.segment_softmax(x, ids, rows, index=index)
+    again = fsm.segment_softmax(x, ids, rows, index=index)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["segment_softmax"] == before + 2
+    assert torch.equal(bits(torch, got), bits(torch, again))
+    emu = chip_smoke.segment_softmax_emulation(torch, x, ids, rows)
+    assert torch.equal(bits(torch, got), bits(torch, emu))
+    assert not got[(ids == 2) | (ids == 5)].any()
+    torch.testing.assert_close(got.float(), fsm.plain_segment_softmax(x, ids, rows).float(),
+                               **TOL[dtype])
+    assert not index.tickets.any()
+
+
+def test_segment_softmax_launches_and_graph_replays_on_card():
+    """A call is two device operations (the piece kernel and the second
+    launch over the rows of several pieces) under ``torch.profiler``; a CUDA
+    graph of an fp32 and a bf16 call over rows of many pieces, replayed
+    twice, gives the eager bits each time, with the per-row tickets back at
+    0 and no launch counted by a replay."""
+    _, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    gen = torch.Generator().manual_seed(35)
+    x, ids, rows = _softmax_inputs(gen, "sorted", 6, torch.float32)
+    x, ids = x.to(dev), ids.to(dev)
+    x16 = x.to(torch.bfloat16)
+    index = fs.segment_index(ids, rows, is_sorted=True)
+
+    def call():
+        return (fsm.segment_softmax(x, ids, rows, index=index),
+                fsm.segment_softmax(x16, ids, rows, index=index))
+
+    ops = _device_kernels(lambda: fsm.segment_softmax(x, ids, rows, index=index))
+    assert sum(ops.values()) == 2, ops
+    assert sum(c for n, c in ops.items() if "segment_softmax_kernel" in n) == 1, ops
+    assert sum(c for n, c in ops.items() if "softmax_normalise_kernel" in n) == 1, ops
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = fs.LAUNCHES["segment_softmax"]
+    with torch.cuda.graph(graph):
+        out = call()
+    assert fs.LAUNCHES["segment_softmax"] == before + 2
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(bits(torch, o), bits(torch, w)) for o, w in zip(out, want))
+        assert not index.tickets.any()
+    assert fs.LAUNCHES["segment_softmax"] == before + 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
