@@ -27,11 +27,13 @@
 // columns.
 //   * Staging, all in shared memory: the CTA's x rows quantized once, in
 //     chunks of 8 k (one or two 16-byte loads of x, 8 codes, one 8-byte
-//     store) where a row is a multiple of 16 bytes, else (the EGNN's K =
-//     129, GIN's K = 1) as one contiguous run of 16-byte vectors across the
-//     threads, each value's code stored at its (row, k) (per-value loads at
-//     a 32-byte lane stride took 27 us at the EGNN's [25472, 129] on an
-//     H100); W_q's [K, NC] slice transposed into the B operand's column
+//     store) where a row is a multiple of 16 bytes, else, where a row holds
+//     a full chunk (the EGNN's K = 129), as one contiguous run of 16-byte
+//     vectors across the threads, each value's code stored at its (row, k)
+//     (on an H100 at the EGNN's [25472, 129]: 23.5 us, against 27 with the
+//     per-value loads at a 32-byte lane stride, which stay for narrower rows
+//     such as GIN's K = 1, where the run of vectors was 0.6 us slower);
+//     W_q's [K, NC] slice transposed into the B operand's column
 //     layout s_w[n][k], in blocks of 4 k x 16 columns (four 16-byte loads of
 //     W_q rows, a 4 x 4 byte transpose in registers with __byte_perm, 32-bit
 //     stores; lanes on consecutive k, so no bank conflict); the scales and
@@ -57,7 +59,8 @@
 // 16 rows per CTA at every M: 117 CTAs at qm9's 1,864 rows, 1,592 at the
 // oc20 EGNN's 25,472 edges (on an H100, 32 and 64 rows were slower for the
 // int8 layer at every served shape, and 64 rows at the EGNN's M, with every
-// thread's x loads issued before any was quantized, slower at both). Optional
+// thread's x loads issued before any was quantized, slower at both; issuing
+// the tile's vectors before the weights' loads changed nothing there). Optional
 // debug outputs x_q [M, K] and acc [M, N] let a check hold the codes and the
 // accumulator against the plain version.
 
@@ -152,12 +155,13 @@ __device__ __forceinline__ uint2 quantize8(const T* __restrict__ x, int row, int
   return make_uint2(pack4(c), pack4(c + 4));
 }
 
-// The codes of a whole tile whose rows are not 16-byte multiples (the oc20
-// EGNN's K = 129): the tile's rows m0 .. m0 + valid are one contiguous run of
-// valid K values starting on a 16-byte boundary (m0 is a multiple of 16), so
-// it is read as consecutive 16-byte vectors across the threads (kFlatUnroll
-// in flight each) and every value's code is stored at its (row, k). The
-// bytes no value lands on, [K, kp) of each row and the rows past M, are 0.
+// The codes of a whole tile whose rows are not 16-byte multiples but hold a
+// full chunk of 8 values (the oc20 EGNN's K = 129): the tile's rows m0 .. m0
+// + valid are one contiguous run of valid K values starting on a 16-byte
+// boundary (m0 is a multiple of 16), so it is read as consecutive 16-byte
+// vectors across the threads (kFlatUnroll in flight each) and every value's
+// code is stored at its (row, k). The bytes no value lands on, [K, kp) of
+// each row and the rows past M, are 0.
 template <class F, typename T>
 __device__ __forceinline__ void stage_flat(const T* __restrict__ x, int m0, int M, int K, int kp,
                                            int ks, float s_x, uint8_t* __restrict__ s_xq,
@@ -377,12 +381,13 @@ int launch(const void* x, const void* wq, const void* sw, const void* bias, type
   }
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool vec = aligned && (K * sizeof(T)) % 16 == 0;
+  const bool flat = aligned && !vec && K >= 8;  // narrower rows: one short chunk each
   const bool wvec = reinterpret_cast<uintptr_t>(wq) % 16 == 0 && N % 16 == 0 && NC % 16 == 0;
   const dim3 grid((M + kRows - 1) / kRows, (N + NC - 1) / NC);
   quant_mma_kernel<F, T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(wq), static_cast<const float*>(sw),
       static_cast<const float*>(bias), s, static_cast<float*>(out), static_cast<uint8_t*>(xq_out),
-      static_cast<typename F::Acc*>(acc_out), M, K, N, NC, ks, vec, aligned && !vec, wvec);
+      static_cast<typename F::Acc*>(acc_out), M, K, N, NC, ks, vec, flat, wvec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,8 +43,11 @@
 //      - M) over its pieces left to right, then the butterfly: the order of
 //      the three-launch design this one replaced, so the bits are unchanged.
 //   2. softmax_normalise_kernel: one warp per piece of those rows writes
-//      exp(x - M) / S. (The combining block writing the dummy row's ~69k
-//      values itself was 5x slower: one SM's exps and divisions.)
+//      exp(x - M) / S. On an H100 the two launches took 11.1 us at the top
+//      QM9 bucket; the combining block writing the dummy row's ~69k values
+//      itself, 63.6 (one SM's exps and divisions); one launch whose later
+//      blocks (by a ticket drawn at their start) normalise after waiting for
+//      the row's statistics, 12.3.
 // No atomics on data and no waiting: every output and every statistic has one
 // writer and each sum one fixed order, so two launches on the same inputs
 // give the same bits, which the serving tier's bit-equality rests on.
@@ -94,7 +97,6 @@ constexpr float kMaskFill = -1e9f;   // GPS's mask fill, matched exactly
 constexpr int kPiece = 32;           // entries per piece (PIECE_EDGES of ops/fused_scatter.py)
 constexpr int kHeadChunk = 8;        // heads a lane holds at once
 constexpr int kStatLoads = 16;       // pieces' statistics a lane loads at once when combining
-constexpr unsigned kSpinNs = 64;     // a normalising warp's pause between looks at its row
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -119,13 +121,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// a flag another block sets, read with acquire semantics at device scope
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
@@ -217,59 +212,13 @@ __device__ __forceinline__ void combine_row_head(const float* __restrict__ piece
   if (lane == 0) {
     row_shift[(long long)r * H + h] = shift;
     row_denom[(long long)r * H + h] = fmaxf(s, kDenomMin);
-    __threadfence();  // before the combining block publishes the row
   }
 }
 
-// The normalising warp of piece p: nothing unless p belongs to a row of
-// several pieces; else it loads its entries' logits, waits until the row's
-// combining block (a piece block, so an earlier ticket) has published the
-// row's statistics by setting the row's ticket to -np, writes exp(x - M) / S
-// and adds 1 to the ticket, so that the row's last normalising warp puts it
-// back to 0.
-template <typename T, int VEC>
-__device__ __forceinline__ void normalise_piece(
-    const T* __restrict__ logits, const int* __restrict__ ptr, const int* __restrict__ piece_ptr,
-    const int* __restrict__ piece_row, const int* __restrict__ perm,
-    const float* __restrict__ row_shift, const float* __restrict__ row_denom,
-    T* __restrict__ out, int* __restrict__ tickets, int num_rows, int max_pieces, int H, int p,
-    int lane) {
-  const int r = p < max_pieces ? piece_row[p] : num_rows;
-  if (r >= num_rows) return;  // warp-uniform, as every exit here
-  const int p0 = piece_ptr[r];
-  if (piece_ptr[r + 1] - p0 == 1) return;
-  const int beg = ptr[r] + (p - p0) * kPiece;
-  const bool live = lane < min(ptr[r + 1] - beg, kPiece);
-  const long long e = live ? (perm ? perm[beg + lane] : beg + lane) : 0;
-  float v[kHeadChunk] = {};
-  if (live) load_heads<VEC>(logits + e * H, min(kHeadChunk, H), v);
-  if (lane == 0) {
-    while (ld_acquire(tickets + r) >= 0) __nanosleep(kSpinNs);
-  }
-  __syncwarp();
-  for (int h0 = 0; h0 < H; h0 += kHeadChunk) {
-    const int hc = min(kHeadChunk, H - h0);
-    if (h0 > 0 && live) load_heads<VEC>(logits + e * H + h0, hc, v);
-    float y[kHeadChunk];
-#pragma unroll
-    for (int i = 0; i < kHeadChunk; ++i) {
-      const long long rh = (long long)r * H + h0 + i;
-      y[i] = i < hc ? expf(v[i] - __ldcg(row_shift + rh)) / __ldcg(row_denom + rh) : 0.0f;
-    }
-    if (live) store_heads<VEC>(out + e * H + h0, hc, y);
-  }
-  __syncwarp();
-  if (lane == 0) atomicAdd(tickets + r, 1);
-}
-
-// One launch of 2 x piece_blocks blocks, their roles by a ticket each draws
-// at its start (block_ticket; the block that draws the last puts it back to
-// 0). The first piece_blocks tickets take the pieces: one warp per piece
-// (piece_row gives its row in one load), one lane per entry holding all its
-// heads; rows of several pieces combined by the block that completes them (a
-// per-row ticket elects it). The later tickets normalise those rows' pieces,
-// one warp each. A block waits only for blocks of earlier tickets, which are
-// running or done, never for one that may not be resident.
+// The first launch: one warp per piece (piece_row gives its row in one
+// load), one lane per entry holding all its heads; rows of several pieces
+// combined by the block that completes them (a ticket per row elects it and
+// is put back to 0).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
@@ -277,29 +226,14 @@ segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr
                        const int* __restrict__ perm, T* __restrict__ out,
                        float* __restrict__ piece_max, float* __restrict__ piece_sum,
                        float* __restrict__ row_shift, float* __restrict__ row_denom,
-                       int* __restrict__ tickets, int* __restrict__ block_ticket,
-                       int num_rows, int max_pieces, int H) {
-  __shared__ int s_ticket;
+                       int* __restrict__ tickets, int num_rows, int max_pieces, int H) {
   __shared__ int s_row[kWarpsPerBlock];  // rows this block combines, or -1
   __shared__ int s_p0[kWarpsPerBlock];
   __shared__ int s_np[kWarpsPerBlock];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    const int t = atomicAdd(block_ticket, 1);
-    if (t == static_cast<int>(gridDim.x) - 1) *block_ticket = 0;  // every block has drawn
-    s_ticket = t;
-  }
-  __syncthreads();
-  const int piece_blocks = gridDim.x / 2;
-  if (s_ticket >= piece_blocks) {
-    normalise_piece<T, VEC>(logits, ptr, piece_ptr, piece_row, perm, row_shift, row_denom, out,
-                            tickets, num_rows, max_pieces, H,
-                            (s_ticket - piece_blocks) * kWarpsPerBlock + warp, lane);
-    return;
-  }
-  const int first = s_ticket * kWarpsPerBlock;  // this block's first piece
+  const int first = blockIdx.x * kWarpsPerBlock;  // this block's first piece
   const int p = first + warp;
   const int r = p < max_pieces ? piece_row[p] : num_rows;
   int p0 = 0, np = 0;
@@ -342,7 +276,7 @@ segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr
     int combine = -1;
     if (multi && (p == p0 || warp == 0)) {  // the row's first piece in this block
       const int count = min(first + kWarpsPerBlock, p0 + np) - p;
-      const int taken = atomicAdd(tickets + r, count);
+      const int taken = atomicAdd(&tickets[r], count);
       if (taken + count == np) {
         combine = r;
         __threadfence();  // the other blocks' statistics before this block's reads
@@ -359,8 +293,38 @@ segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr
     for (int h = warp; h < H; h += kWarpsPerBlock)  // heads to warps
       combine_row_head(piece_max, piece_sum, row_shift, row_denom, cr, s_p0[k], s_np[k], h, H,
                        lane);
-    __syncthreads();  // every head's statistics written and fenced
-    if (threadIdx.x == 0) atomicExch(tickets + cr, -s_np[k]);  // the row's normalisers may go
+    if (threadIdx.x == 0) tickets[cr] = 0;
+  }
+}
+
+// The second launch: one warp per piece of a row of several pieces, exp(x -
+// M) / S from the row's statistics (the first launch wrote them).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+softmax_normalise_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
+                         const int* __restrict__ piece_ptr, const int* __restrict__ piece_row,
+                         const int* __restrict__ perm, const float* __restrict__ row_shift,
+                         const float* __restrict__ row_denom, T* __restrict__ out,
+                         int num_rows, int max_pieces, int H) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int r = p < max_pieces ? piece_row[p] : num_rows;
+  if (r >= num_rows) return;
+  const int p0 = piece_ptr[r];
+  if (piece_ptr[r + 1] - p0 == 1) return;
+  const int beg = ptr[r] + (p - p0) * kPiece;
+  if (lane >= min(ptr[r + 1] - beg, kPiece)) return;
+  const long long e = perm ? perm[beg + lane] : beg + lane;
+  for (int h0 = 0; h0 < H; h0 += kHeadChunk) {
+    const int hc = min(kHeadChunk, H - h0);
+    float v[kHeadChunk] = {}, y[kHeadChunk];
+    load_heads<VEC>(logits + e * H + h0, hc, v);
+#pragma unroll
+    for (int i = 0; i < kHeadChunk; ++i) {
+      const long long rh = (long long)r * H + h0 + i;
+      y[i] = i < hc ? expf(v[i] - row_shift[rh]) / row_denom[rh] : 0.0f;
+    }
+    store_heads<VEC>(out + e * H + h0, hc, y);
   }
 }
 
@@ -371,36 +335,42 @@ bool aligned(const void* p, size_t bytes) {
 template <typename T, int VEC>
 int launch_segment_softmax_vec(const void* logits, const void* ptr, const void* piece_ptr,
                                const void* piece_row, const void* perm, void* out,
-                               void* scratch, void* tickets, void* block_ticket, int num_rows,
-                               int max_pieces, int H, cudaStream_t s) {
+                               void* scratch, void* tickets, int num_rows, int max_pieces, int H,
+                               cudaStream_t s) {
   float* piece_max = static_cast<float*>(scratch);
   float* piece_sum = piece_max + (long long)max_pieces * H;
   float* row_shift = piece_sum + (long long)max_pieces * H;
   float* row_denom = row_shift + (long long)num_rows * H;
-  const int piece_blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  segment_softmax_kernel<T, VEC><<<2 * piece_blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(logits), static_cast<const int*>(ptr),
-      static_cast<const int*>(piece_ptr), static_cast<const int*>(piece_row),
-      static_cast<const int*>(perm), static_cast<T*>(out), piece_max, piece_sum, row_shift,
-      row_denom, static_cast<int*>(tickets), static_cast<int*>(block_ticket), num_rows,
-      max_pieces, H);
+  const int blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const T* x = static_cast<const T*>(logits);
+  const int* p = static_cast<const int*>(ptr);
+  const int* pp = static_cast<const int*>(piece_ptr);
+  const int* pr = static_cast<const int*>(piece_row);
+  const int* pm = static_cast<const int*>(perm);
+  T* o = static_cast<T*>(out);
+  segment_softmax_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+      x, p, pp, pr, pm, o, piece_max, piece_sum, row_shift, row_denom,
+      static_cast<int*>(tickets), num_rows, max_pieces, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  softmax_normalise_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+      x, p, pp, pr, pm, row_shift, row_denom, o, num_rows, max_pieces, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_segment_softmax(const void* logits, const void* ptr, const void* piece_ptr,
                            const void* piece_row, const void* perm, void* out, void* scratch,
-                           void* tickets, void* block_ticket, int num_rows, int max_pieces,
-                           int piece, int H, void* stream) {
+                           void* tickets, int num_rows, int max_pieces, int piece, int H,
+                           void* stream) {
   if (piece != kPiece) return static_cast<int>(cudaErrorInvalidValue);
   if (num_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % 2 == 0 && aligned(logits, 2 * sizeof(T)) && aligned(out, 2 * sizeof(T)))
     return launch_segment_softmax_vec<T, 2>(logits, ptr, piece_ptr, piece_row, perm, out,
-                                            scratch, tickets, block_ticket, num_rows,
-                                            max_pieces, H, s);
+                                            scratch, tickets, num_rows, max_pieces, H, s);
   return launch_segment_softmax_vec<T, 1>(logits, ptr, piece_ptr, piece_row, perm, out, scratch,
-                                          tickets, block_ticket, num_rows, max_pieces, H, s);
+                                          tickets, num_rows, max_pieces, H, s);
 }
 
 template <typename T>
@@ -532,22 +502,20 @@ int launch_masked_softmax(const void* x, const void* mask, void* out, int rows, 
 
 // dtype: 0 = float32, 1 = bfloat16. Every pointer is a device pointer; perm
 // may be null (identity). scratch is fp32 of 2 * (max_pieces + num_rows) * H;
-// tickets is int32 [num_rows] and block_ticket one int32, all 0 between
-// launches (the kernel puts back what it takes). Returns cudaGetLastError()
-// after the launch.
+// tickets is int32 [num_rows], all 0 between launches (the kernel puts back
+// what it takes). Returns cudaGetLastError() after the launches.
 extern "C" int segment_softmax_fwd(int dtype, const void* logits, const void* ptr,
                                    const void* piece_ptr, const void* piece_row,
                                    const void* perm, void* out, void* scratch, void* tickets,
-                                   void* block_ticket, int num_rows, int max_pieces, int piece,
-                                   int H, void* stream) {
+                                   int num_rows, int max_pieces, int piece, int H,
+                                   void* stream) {
   if (dtype == 0)
     return launch_segment_softmax<float>(logits, ptr, piece_ptr, piece_row, perm, out, scratch,
-                                         tickets, block_ticket, num_rows, max_pieces, piece, H,
-                                         stream);
+                                         tickets, num_rows, max_pieces, piece, H, stream);
   if (dtype == 1)
     return launch_segment_softmax<__nv_bfloat16>(logits, ptr, piece_ptr, piece_row, perm, out,
-                                                 scratch, tickets, block_ticket, num_rows,
-                                                 max_pieces, piece, H, stream);
+                                                 scratch, tickets, num_rows, max_pieces, piece,
+                                                 H, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -37,7 +37,7 @@ SOURCES = {
         "segment_sum_fwd": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp],
     },
     "segment_softmax.cu": {
-        "segment_softmax_fwd": [_i32] + [_vp] * 9 + [_i32] * 4 + [_vp],
+        "segment_softmax_fwd": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp],
         "masked_softmax_fwd": [_i32, _vp, _vp, _vp, _i32, _i32, _i32, _vp],
     },
     "cell_list.cu": {

@@ -94,19 +94,16 @@ class SegmentIndex:
     empty row is written too); ``max_pieces`` bounds their total from the
     shapes alone, and ``piece_row[p]`` is piece ``p``'s row
     (``num_segments`` past the last piece), so a kernel warp finds its row
-    in one load. ``tickets`` holds the kernels' per-row counters, which
-    elect the block combining a row of several pieces (and, in the segment
-    softmax, release the row's normalising warps); ``block_ticket`` is the
-    segment softmax's counter that gives each block its role. Both are 0
-    between launches (each launch puts back what it takes), so calls over
-    one index must be ordered on one stream, as every caller's are (a batch
-    belongs to one step or one dispatcher). int32 throughout."""
+    in one load. ``tickets`` is the segment-sum kernel's per-row counter
+    that elects the block combining a row of several pieces: 0 between
+    launches (each launch puts back what it takes), so calls over one index
+    must be ordered on one stream, as every caller's are (a batch belongs to
+    one step or one dispatcher). int32 throughout."""
 
     ptr: torch.Tensor  # [num_segments + 1]
     piece_ptr: torch.Tensor  # [num_segments + 1]
     piece_row: torch.Tensor  # [max_pieces]
     tickets: torch.Tensor  # [num_segments]
-    block_ticket: torch.Tensor  # [1]
     perm: torch.Tensor | None  # [E] stable sort permutation, or None
     num_segments: int
     num_ids: int  # E, the length of the id array it was built from
@@ -115,8 +112,7 @@ class SegmentIndex:
 
 def segment_index(ids: torch.Tensor, num_segments: int,
                   is_sorted: bool | None = None) -> SegmentIndex:
-    """Row pointer, piece pointer, piece -> row table, zeroed tickets (per
-    row and the block ticket) and
+    """Row pointer, piece pointer, piece -> row table, zeroed tickets and
     (unless ``is_sorted``) the stable sort permutation of ``ids``.
     ``is_sorted=None`` means unknown: the ids are argsorted, which leaves
     sorted ids in place. Nothing here waits for the device."""
@@ -135,14 +131,14 @@ def segment_index(ids: torch.Tensor, num_segments: int,
     ptr = torch.searchsorted(sorted_ids, ar[: num_segments + 1], out_int32=True)
     pieces = torch.clamp((ptr[1:] - ptr[:-1] + PIECE_EDGES - 1) // PIECE_EDGES, min=1)
     # the piece pointer and the tickets share one zeroed buffer
-    zeros = torch.zeros(2 * num_segments + 2, dtype=torch.int32, device=ids.device)
-    piece_ptr, tickets = zeros[: num_segments + 1], zeros[num_segments + 1: -1]
+    zeros = torch.zeros(2 * num_segments + 1, dtype=torch.int32, device=ids.device)
+    piece_ptr, tickets = zeros[: num_segments + 1], zeros[num_segments + 1:]
     piece_ptr[1:] = torch.cumsum(pieces, 0, dtype=torch.int32)
     # the row of piece p: the number of rows whose pieces end at or before p
     piece_row = torch.searchsorted(piece_ptr[1:], ar[:max_pieces], right=True,
                                    out_int32=True)
     return SegmentIndex(ptr=ptr.contiguous(), piece_ptr=piece_ptr, piece_row=piece_row,
-                        tickets=tickets, block_ticket=zeros[-1:], perm=perm, num_segments=num_segments,
+                        tickets=tickets, perm=perm, num_segments=num_segments,
                         num_ids=int(ids.shape[0]), max_pieces=max_pieces)
 
 

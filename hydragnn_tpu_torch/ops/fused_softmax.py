@@ -137,8 +137,7 @@ def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segmen
         code, logits.data_ptr(), index.ptr.data_ptr(),
         index.piece_ptr.data_ptr(), index.piece_row.data_ptr(),
         index.perm.data_ptr() if index.perm is not None else None, out.data_ptr(),
-        scratch.data_ptr(), index.tickets.data_ptr(), index.block_ticket.data_ptr(),
-        num_segments, index.max_pieces,
+        scratch.data_ptr(), index.tickets.data_ptr(), num_segments, index.max_pieces,
         PIECE_EDGES, h, torch.cuda.current_stream(logits.device).cuda_stream,
     )
     _raise_on(name, status)

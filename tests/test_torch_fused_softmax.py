@@ -263,7 +263,7 @@ def test_segment_softmax_kernel_arguments_on_cpu(layout, heads):
     CPU: the scratch holds each piece's and each row's two statistics per
     head; ``piece_row`` gives every piece of the CSR view its row in one
     load (``num_segments`` past the last piece); the per-row tickets are
-    int32 zeros, as is the block ticket that gives each block its role."""
+    int32 zeros."""
     recv, _, n = layout
     ids = torch.from_numpy(recv)
     index = fs.segment_index(ids, n)
@@ -277,7 +277,5 @@ def test_segment_softmax_kernel_arguments_on_cpu(layout, heads):
     assert bool((index.piece_row[pieces:] == n).all())
     assert index.tickets.dtype == torch.int32 and index.tickets.shape == (n,)
     assert not index.tickets.any()
-    assert index.block_ticket.dtype == torch.int32 and index.block_ticket.shape == (1,)
-    assert not index.block_ticket.any()
     # the dummy row N-1 spans several pieces: the rows the kernel combines
     assert int(index.piece_ptr[n] - index.piece_ptr[n - 1]) > 1

@@ -1069,14 +1069,15 @@ def test_segment_softmax_is_bit_for_bit_on_card(dtype, heads, layout):
     assert not got[(ids == 2) | (ids == 5)].any()
     torch.testing.assert_close(got.float(), fsm.plain_segment_softmax(x, ids, rows).float(),
                                **TOL[dtype])
-    assert not index.tickets.any() and not index.block_ticket.any()
+    assert not index.tickets.any()
 
 
 def test_segment_softmax_launches_and_graph_replays_on_card():
-    """A call is one device operation under ``torch.profiler``; a CUDA graph
-    of an fp32 and a bf16 call over rows of many pieces, replayed twice,
-    gives the eager bits each time, with the per-row and block tickets back
-    at 0 and no launch counted by a replay."""
+    """A call is two device operations (the piece kernel and the second
+    launch over the rows of several pieces) under ``torch.profiler``; a CUDA
+    graph of an fp32 and a bf16 call over rows of many pieces, replayed
+    twice, gives the eager bits each time, with the per-row tickets back at
+    0 and no launch counted by a replay."""
     _, bits = _csr_emulation()
     dev = _cuda_or_skip()
     gen = torch.Generator().manual_seed(35)
@@ -1090,8 +1091,9 @@ def test_segment_softmax_launches_and_graph_replays_on_card():
                 fsm.segment_softmax(x16, ids, rows, index=index))
 
     ops = _device_kernels(lambda: fsm.segment_softmax(x, ids, rows, index=index))
-    assert sum(ops.values()) == 1, ops
+    assert sum(ops.values()) == 2, ops
     assert sum(c for n, c in ops.items() if "segment_softmax_kernel" in n) == 1, ops
+    assert sum(c for n, c in ops.items() if "softmax_normalise_kernel" in n) == 1, ops
     want = call()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1109,7 +1111,7 @@ def test_segment_softmax_launches_and_graph_replays_on_card():
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(bits(torch, o), bits(torch, w)) for o, w in zip(out, want))
-        assert not index.tickets.any() and not index.block_ticket.any()
+        assert not index.tickets.any()
     assert fs.LAUNCHES["segment_softmax"] == before + 2
 
 
