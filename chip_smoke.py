@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``hydragnn_tpu_torch``) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--quant-diagnostics]
+    python3 chip_smoke.py [--seed N] [--quant-diagnostics] [--kernels-only]
+                          [--save-b3 PATH] [--against-b3 PATH]
 
 Three configurations of ``examples/qm9/qm9.json`` at its published widths
 (hidden 64, 4 conv layers, 2 shared layers of 64, graph head [64, 64], mean

@@ -10,10 +10,11 @@ finite value, weights scaled per OUTPUT channel and activations per tensor.
 Nothing routes through fp8 implicitly: callers opt in per matmul through
 :func:`fp8_dense` and :func:`certify_fp8_dense`.
 
-One kernel, ``csrc/fp8_matmul.cu`` (the fp8 quantizer of the tile kernel
-in ``csrc/quant_tile.cuh``): quantize while
-loading, fp32 accumulation of the exact fp8 products, dequantisation and
-bias in the epilogue. The activation scale is a tensor (computed from ``x`` on its
+One kernel, ``csrc/fp8_matmul.cu`` (the fp8 format policy of the
+tensor-core kernel in ``csrc/quant_mma.cuh``, which the int8 layer shares):
+x's codes staged once per CTA, the fp8 products summed in fp32 by
+``mma.sync`` m16n8k32 (within the summation-order bound of the exact sum,
+on adversarial inputs too), dequantisation and bias in the epilogue. The activation scale is a tensor (computed from ``x`` on its
 device unless given) and the kernel reads it through a device pointer, so
 the call never waits for the host. Routing is by device and nothing else: a
 CUDA tensor launches the kernel (or raises), a CPU tensor takes the plain

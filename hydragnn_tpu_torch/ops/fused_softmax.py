@@ -9,8 +9,9 @@ type, both without atomics:
   included; the Pallas ``_softmax_kernel``). A segment max that is not
   finite counts as 0 and the denominator is clamped at 1e-12, as in the
   JAX package's reference chain. The kernel reads the ids' CSR view
-  (:class:`~hydragnn_tpu_torch.ops.fused_scatter.SegmentIndex`), the same
-  32-entry pieces as the segment-reduction kernels.
+  (:class:`~hydragnn_tpu_torch.ops.fused_scatter.SegmentIndex`: its piece
+  table and per-row tickets), the same 32-entry pieces as the
+  segment-reduction kernels, in two launches per call.
 * :func:`masked_softmax` — ``softmax(where(mask > 0, x, -1e9))`` over the
   last axis of ``[G, ..., m]`` logits with a per-graph mask ``[G, m]``
   (GPS's dense per-graph attention blocks; the Pallas
@@ -105,12 +106,6 @@ def plain_masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tens
 # -- wrappers ----------------------------------------------------------------
 
 
-def _softmax_scratch_floats(index: SegmentIndex, heads: int) -> int:
-    """fp32 scratch of one segment-softmax launch: each piece's max and sum
-    of exps and each row's shift and denominator, per head."""
-    return 2 * (index.max_pieces + index.num_segments) * heads
-
-
 def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                      index: SegmentIndex | None) -> torch.Tensor:
     """One device-routed segment softmax (no autograd)."""
@@ -129,7 +124,7 @@ def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segmen
     _check_index(name, index, num_segments, e)
     logits = logits.contiguous()
     out = torch.empty_like(logits)
-    scratch = torch.empty(_softmax_scratch_floats(index, h), dtype=torch.float32,
+    scratch = torch.empty(2 * (index.max_pieces + num_segments) * h, dtype=torch.float32,
                           device=logits.device)
     from ._build import load
 

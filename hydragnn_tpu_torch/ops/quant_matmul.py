@@ -8,8 +8,9 @@ of the quantized step computes
 with ``W_q`` the weight quantized symmetrically per OUTPUT channel
 (:func:`quantize_weight`), ``s_x`` the layer's calibrated activation scale
 (a Python float) and ``q`` round-half-to-even then clip to ±127. One kernel,
-``csrc/quant_matmul.cu``: x quantized while it is loaded, straight into the
-int8 tensor cores' operand fragments (``mma.sync`` m16n8k32), exact int32
+``csrc/quant_matmul.cu`` (the int8 format policy of the tensor-core kernel
+in ``csrc/quant_mma.cuh``, which the fp8 layer shares): x quantized while it
+is staged for the int8 tensor cores (``mma.sync`` m16n8k32), exact int32
 accumulation, dequantisation and bias in the epilogue.
 
 Routing is by device and nothing else: a CUDA tensor launches the kernel

@@ -257,18 +257,17 @@ def test_backward_passes_gradcheck_in_fp64(op):
         assert torch.autograd.gradcheck(lambda x: fsm.masked_softmax(x, mask), (x,))
 
 
-@pytest.mark.parametrize("heads", [1, 6, 11])
-def test_segment_softmax_kernel_arguments_on_cpu(layout, heads):
-    """What the CUDA route hands the kernel besides the logits, built on the
-    CPU: the scratch holds each piece's and each row's two statistics per
-    head; ``piece_row`` gives every piece of the CSR view its row in one
-    load (``num_segments`` past the last piece); the per-row tickets are
-    int32 zeros."""
+@pytest.mark.parametrize("order", ["collated", "shuffled"])
+def test_segment_softmax_kernel_arguments_on_cpu(layout, order):
+    """What the CUDA route hands the kernel besides the logits and the CSR
+    view, built on the CPU from GAT's extended receivers: ``piece_row``
+    gives every piece its row in one load (``num_segments`` past the last
+    piece) and the per-row tickets are int32 zeros."""
     recv, _, n = layout
     ids = torch.from_numpy(recv)
+    if order == "shuffled":
+        ids = ids[torch.randperm(ids.shape[0], generator=torch.Generator().manual_seed(2))]
     index = fs.segment_index(ids, n)
-    assert fsm._softmax_scratch_floats(index, heads) == \
-        2 * (index.max_pieces + n) * heads
     assert index.piece_row.dtype == torch.int32 and index.piece_row.is_contiguous()
     assert index.piece_row.shape == (index.max_pieces,)
     pieces = int(index.piece_ptr[-1])
