@@ -2,7 +2,6 @@
 """Drive the PyTorch/CUDA port (``hydragnn_tpu_torch``) once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--quant-diagnostics] [--kernels-only]
-                          [--save-b3 PATH] [--against-b3 PATH]
 
 Three configurations of ``examples/qm9/qm9.json`` at its published widths
 (hidden 64, 4 conv layers, 2 shared layers of 64, graph head [64, 64], mean
@@ -57,7 +56,7 @@ device JSON only when every phase passed):
    ``cuobjdump -sass`` of both libraries (tensor-core instructions, no
    scalar tile kernel). B3 is also held bit for bit on every entry against
    its fixed-order emulation (``segment_softmax_emulation``, torch on the
-   card) and, with ``--against-b3``, against another tree's kernel;
+   card);
 4. serving, per model: ``PredictionServer`` with 512 concurrent requests;
    served answers against ``Predictor.outputs`` on the same padded batches;
    launch counts per served batch; the card's fp32 answers against the
@@ -869,42 +868,22 @@ def segment_softmax_cases(torch, b, gen):
     return cases
 
 
-def segment_softmax_exact_checks(torch, cases, failures: list, save: str | None = None,
-                                 against: str | None = None) -> None:
+def segment_softmax_exact_checks(torch, cases, failures: list) -> None:
     """B3 bit for bit on every entry (the dummy row included) of ``cases``
-    (:func:`segment_softmax_cases`): against :func:`segment_softmax_emulation`
-    on the card and, with ``against``, against the outputs another tree's
-    kernel gave on the same inputs (a file ``save`` wrote). A mismatch is
-    logged and appended to ``failures``."""
+    (:func:`segment_softmax_cases`) against :func:`segment_softmax_emulation`
+    on the card. A mismatch is logged and appended to ``failures``."""
     from hydragnn_tpu_torch.ops import fused_softmax as fsm
 
-    other = torch.load(against) if against else None
-    kept = []
     log("segment_softmax bit for bit on every entry against its fixed-order emulation (torch "
-        "on the card)" + (f" and against the kernel outputs in {against}" if against else "")
-        + ":")
-    for i, (label, x, ids, n, index) in enumerate(cases):
+        "on the card):")
+    for label, x, ids, n, index in cases:
         got = fsm.segment_softmax(x, ids, n, index=index)
         emu = segment_softmax_emulation(torch, x, ids, n)
         diff = int((_bits(torch, got) != _bits(torch, emu)).sum())
-        note = f"{diff} of {got.numel()} values differ from the emulation"
-        if other is not None:
-            o_label, o_x, o_ids, o_out = other[i]
-            if o_label != label or not torch.equal(_bits(torch, o_x.to(x.device)),
-                                                   _bits(torch, x)) \
-                    or not torch.equal(o_ids.to(ids.device), ids):
-                raise AssertionError(f"segment_softmax: {against} holds other inputs for {label}")
-            d_other = int((_bits(torch, got) != _bits(torch, o_out.to(got.device))).sum())
-            note += f", {d_other} from the other tree's kernel"
-            diff += d_other
-        log(f"  {label} [{x.shape[0]},{x.shape[1]}] -> {n}: {note} "
-            f"{'ok' if diff == 0 else 'MISMATCH'}")
+        log(f"  {label} [{x.shape[0]},{x.shape[1]}] -> {n}: {diff} of {got.numel()} values "
+            f"differ from the emulation {'ok' if diff == 0 else 'MISMATCH'}")
         if diff:
             failures.append(f"segment_softmax {label}")
-        kept.append((label, x.cpu(), ids.cpu(), got.cpu()))
-    if save:
-        torch.save(kept, save)
-        log(f"  inputs and outputs saved to {save}")
 
 
 def _check_masked_softmax(torch, label: str, x, valid, errs: list) -> None:
@@ -930,14 +909,13 @@ def _check_masked_softmax(torch, label: str, x, valid, errs: list) -> None:
 
 
 def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
-                 mlip_batch=None, b3_save: str | None = None, b3_against: str | None = None):
+                 mlip_batch=None):
     """Every kernel of the serving and training paths against its plain
     version on the card, at ``batch``'s shapes (timed there and, for the
     log, at the ``small`` batch of the smallest bucket); ``n_max`` is GPS's
     dense-attention width; ``mlip_batch`` is the oc20 MLIP training batch,
     whose segment sums the CSR kernels' bit-for-bit checks and times cover
-    too (on the card); ``b3_save`` and ``b3_against`` are
-    :func:`segment_softmax_exact_checks`' ``save`` and ``against``. Returns
+    too (on the card). Returns
     the kernels' JSON entries and their device times per call (ms), or
     ``([], {})`` without ``timing``."""
     from hydragnn_tpu_torch.ops import fused_scatter as fs
@@ -1121,7 +1099,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     if dev.type == "cuda":
         segment_softmax_exact_checks(
             torch, segment_softmax_cases(torch, b, torch.Generator(device="cpu").manual_seed(1235)),
-            exact_failures, save=b3_save, against=b3_against)
+            exact_failures)
 
     # kernel 4: masked row softmax over GPS's dense blocks [G, heads, n, m]
     # with the per-graph validity mask [G, m]; the dummy graph (n_node 0)
@@ -1476,20 +1454,31 @@ def check_quant_dense(torch, label: str, x, w, b) -> float:
     return float((y - p_y).abs().max())
 
 
-def fp8_bound_ratio(torch, x, w, b, fmt: str, s_x=None):
-    """Kernel B7 on ``x [M, K]`` and ``w [K, N]`` (quantized as ``fp8_dense``
-    quantizes them; ``s_x`` default from ``x``) against its plain version:
-    ``(codes bit-equal, max |y - plain| / bound, max |y - plain|, saturated
-    share of the codes, y finite)``, the bound being the summation-order
-    bound ``K 2^-23 sum |x_q| |w_q| s_x s_w`` plus one ulp of ``|y|`` (the
-    products are exact in fp32; only the order and rounding of the fp32 sum
-    may differ)."""
+def fp8_quantized(torch, x, w, fmt: str, s_x=None):
+    """``(w_q, s_w, s_x)``: ``w [K, N]`` quantized as ``fp8_dense`` quantizes
+    it, and the activation scale as an fp32 0-d tensor (default from ``x``)."""
     from hydragnn_tpu_torch.ops import fp8_matmul as f8
 
     w_q, s_w = f8.quantize_weight_fp8(w, fmt)
     s_x = f8.activation_scale_fp8(x, fmt) if s_x is None else f8._scalar(s_x, x.device)
+    return w_q, s_w, s_x
+
+
+def fp8_bound_ratio(torch, x, w_q, s_w, s_x, b, fmt: str, bits: int | None = None,
+                    promote: bool = False):
+    """Kernel B7 on ``x [M, K]`` and the quantized weight (:func:`fp8_quantized`)
+    against its plain version: ``(codes bit-equal, max |y - plain| / bound,
+    max |y - plain|, saturated share of the codes, y finite)``, the bound
+    being the summation-order bound ``K 2^-23 sum |x_q| |w_q| s_x s_w`` plus
+    one ulp of ``|y|`` (the products are exact in fp32; only the order and
+    rounding of the fp32 sum may differ). With ``bits`` (and ``promote``),
+    ``y`` is :func:`fp8_accumulator_emulation`'s instead of the kernel's."""
+    from hydragnn_tpu_torch.ops import fp8_matmul as f8
+
     x_q, y = f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt, debug=True)
     p_q, p_y = f8.reference_fp8_parts(x, w_q, s_w, s_x, b, fmt)
+    if bits is not None:
+        y = fp8_accumulator_emulation(torch, p_q, w_q, s_x, s_w, b, bits, promote)
     codes = torch.equal(x_q.view(torch.uint8), p_q.view(torch.uint8))
     mag = x_q.float().abs().double() @ w_q.float().abs().double()
     bound = (x.shape[1] * 2.0 ** -23 * mag * s_x.double() * s_w.double()[None, :]
@@ -1507,7 +1496,8 @@ def check_fp8_dense(torch, label: str, x, w, b, fmt: str, s_x=None) -> float:
     max |kernel - plain|."""
     from hydragnn_tpu_torch.ops import fp8_matmul as f8
 
-    codes, ratio, err, saturated, finite = fp8_bound_ratio(torch, x, w, b, fmt, s_x)
+    w_q, s_w, s_x = fp8_quantized(torch, x, w, fmt, s_x)
+    codes, ratio, err, saturated, finite = fp8_bound_ratio(torch, x, w_q, s_w, s_x, b, fmt)
     ok = codes and ratio <= 1.0 and finite
     log(f"  {label} {fmt}: x[{x.shape[0]},{x.shape[1]}] x W[{w.shape[0]},{w.shape[1]}]: codes "
         f"{'bit-equal' if codes else 'DIFFER'} ({100 * saturated:.1f}% saturated), max|y - "
@@ -1516,8 +1506,6 @@ def check_fp8_dense(torch, label: str, x, w, b, fmt: str, s_x=None) -> float:
     if not ok:
         raise AssertionError(f"fp8_dense {label} {fmt}: the kernel disagrees with the plain "
                              "version")
-    w_q, s_w = f8.quantize_weight_fp8(w, fmt)
-    s_x = f8.activation_scale_fp8(x, fmt) if s_x is None else s_x
     _bit_stable(torch, "fp8_dense", lambda: f8.fp8_matmul_parts(x, w_q, s_w, s_x, b, fmt)[1])
     return err
 
@@ -1525,6 +1513,10 @@ def check_fp8_dense(torch, label: str, x, w, b, fmt: str, s_x=None) -> float:
 # shapes of B7's adversarial accumulation check: the qm9 Dense depth, the
 # oc20 EGNN's K = 129, and a deep K
 FP8_ADVERSARIAL_SHAPES = ((256, 64, 64), (256, 129, 64), (64, 1200, 300))
+# where a 14-bit accumulator must miss the bound on those inputs, carried
+# through k or promoted to fp32 per 32-wide k step: at deep K the bound
+# K 2^-23 is looser than a promoted 14-bit accumulator's error
+FP8_CONTROL_SHAPES = FP8_ADVERSARIAL_SHAPES[:2]
 # log2 of the smallest and the largest magnitude of each fp8 format
 FP8_RANGE = {"e4m3": (-9.0, 8.807), "e5m2": (-16.0, 15.807)}
 
@@ -1534,8 +1526,10 @@ def fp8_adversarial_inputs(torch, fmt: str, m: int, k: int, n: int, gen):
     at ``s_x = 1``: magnitudes log-uniform over the format's whole range
     (e4m3 2^-9 .. 448, e5m2 2^-16 .. 57344) with random signs, so the
     products span 2^35 (e4m3) or 2^63 (e5m2) and one product can dwarf the
-    rest of its sum, and the second half of k repeats the first with w
-    negated, so each sum cancels to (nearly) 0 while its terms stay large."""
+    rest of its sum, and half of k repeats the other half with w negated, so
+    each sum cancels to (nearly) 0 while its terms stay large. One
+    permutation of k scatters each term's negated copy, so that no 32-wide
+    k step of the tensor cores cancels a whole other step exactly."""
     lo, hi = FP8_RANGE[fmt]
 
     def draw(*shape):
@@ -1547,7 +1541,39 @@ def fp8_adversarial_inputs(torch, fmt: str, m: int, k: int, n: int, gen):
     h = k // 2
     x[:, h:2 * h] = x[:, :h]
     w[h:2 * h] = -w[:h]
-    return x, w
+    p = torch.randperm(k, generator=gen)
+    return x[:, p].contiguous(), w[p].contiguous()
+
+
+def fp8_accumulator_emulation(torch, x_q, w_q, s_x, s_w, b, bits: int,
+                              promote: bool = False):
+    """B7's ``y`` from the codes ``x_q [M, K]`` and ``w_q [K, N]`` as an
+    accumulator of ``bits`` significant bits would give it: the exact
+    products added in k order, each partial sum rounded to nearest at
+    ``bits`` bits (in float64), then the kernel's epilogue ``acc * (s_x *
+    s_w) + b`` rounded once. With ``promote``, each 32-wide k step of the
+    tensor cores starts from 0 and its sum is added to an fp32 accumulator.
+    At 24 bits this is an fp32 accumulator; at 14, the accumulation reported
+    for Hopper's fp8 tensor-core path (DeepSeek-V3 technical report, section
+    3.3.2): the control of B7's adversarial gate."""
+    xs, ws = x_q.float().double(), w_q.float().double()
+    k = xs.shape[1]
+    step = 32 if promote else k
+
+    def rounded(v, keep):
+        mant, exp = torch.frexp(v)
+        return torch.ldexp(torch.round(mant * 2.0 ** keep), exp - keep)
+
+    acc = torch.zeros(xs.shape[0], ws.shape[1], dtype=torch.float64, device=xs.device)
+    for k0 in range(0, k, step):
+        part = torch.zeros_like(acc)
+        for j in range(k0, min(k0 + step, k)):
+            part = rounded(part + xs[:, j, None] * ws[None, j, :], bits)
+        acc = rounded(acc + part, 24)
+    y = acc * (s_x * s_w.float()).double()[None, :]
+    if b is not None:
+        y = y + b.float().double()[None, :]
+    return y.float()
 
 
 def _kernel_entry(name: str, source: str, replaces: str, k: dict, err: float,
@@ -1751,11 +1777,23 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True,
         err7 = max(err7, check_fp8_dense(torch, f"{name} saturated", x.float(), w, None, fmt,
                                          s_x=f8.activation_scale_fp8(x, fmt) / 1000))
     log("fp8_dense accumulation on adversarial inputs (s_x = 1, codes over the format's whole "
-        "range, sums that cancel; not in the entry's max_abs_err):")
+        "range, sums that cancel; not in the entry's max_abs_err), each with the gate's control, "
+        "a 14-bit accumulator (fp8_accumulator_emulation), which must miss the bound at the "
+        "qm9 and EGNN depths, carried and promoted:")
     for fmt in ("e4m3", "e5m2"):
-        for m_, k_, n_ in FP8_ADVERSARIAL_SHAPES:
-            x_a, w_a = fp8_adversarial_inputs(torch, fmt, m_, k_, n_, gen)
-            check_fp8_dense(torch, "adversarial", x_a.to(dev), w_a.to(dev), None, fmt, s_x=1.0)
+        for shape in FP8_ADVERSARIAL_SHAPES:
+            x_a, w_a = (t.to(dev) for t in fp8_adversarial_inputs(torch, fmt, *shape, gen))
+            check_fp8_dense(torch, "adversarial", x_a, w_a, None, fmt, s_x=1.0)
+            q = fp8_quantized(torch, x_a, w_a, fmt, 1.0)
+            control = [fp8_bound_ratio(torch, x_a, *q, None, fmt, bits=14, promote=p)[1]
+                       for p in (False, True)]
+            caught = min(control) > 1.0 or shape not in FP8_CONTROL_SHAPES
+            log(f"    control: a 14-bit accumulator reads {control[0]:.3f} of the bound, "
+                f"{control[1]:.3f} promoted to fp32 per 32-wide k step "
+                f"{'ok' if caught else 'NOT CAUGHT'}")
+            if not caught:
+                raise AssertionError(f"fp8_dense adversarial {fmt} {shape}: the inputs cannot "
+                                     "tell a 14-bit accumulator from an fp32 one")
     _sync(torch, dev.type)
     if not timing:
         return []
@@ -3470,14 +3508,12 @@ def fp8_phase(torch, gin_model, gin_batch, mlip_model, mlip_batch, card: str = "
     return {"launches": launches, "max_abs_err": err, "egnn": out, "report": report}
 
 
-def kernels_only(torch, seed: int, dev: dict, b3_save: str | None = None,
-                 b3_against: str | None = None) -> int:
+def kernels_only(torch, seed: int, dev: dict) -> int:
     """``--kernels-only``: every kernel against its plain version with its
     times, at the main paths' shapes: phase 3, the cell-list checks and
     times (on both MD systems, the MLIP one made from the untrained oc20
     configuration), then phase 3b (which ends with B6's and B7's tensor-core
-    check); ``b3_save`` and ``b3_against`` as in :func:`kernel_phase`.
-    Prints the entries under ``kernels_only``, not as the kernels line, with
+    check). Prints the entries under ``kernels_only``, not as the kernels line, with
     ``launches`` null (no main path ran, so nothing counted them), and
     returns 3."""
     from hydragnn_tpu_torch.config import update_config
@@ -3490,8 +3526,7 @@ def kernels_only(torch, seed: int, dev: dict, b3_save: str | None = None,
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
     top, small = bucket_batches(loaders, samples)
     mlip_b = mlip_train_batch()
-    entries, _ = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b,
-                              b3_save=b3_save, b3_against=b3_against)
+    entries, _ = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b)
     cfg = mlip_config(MLIP_EPOCHS)  # augmented as run_training augments it
     mlip_loaders = dataset_loading_and_splitting(cfg, samples=mlip_samples())
     aug = update_config(cfg, *(ld.samples for ld in mlip_loaders))
@@ -3519,12 +3554,6 @@ def main(argv=None) -> int:
                              "untrained models); prints their entries under kernels_only "
                              "(launches null), no result line, and exits 3: no main path is "
                              "driven")
-    parser.add_argument("--save-b3", metavar="PATH",
-                        help="save kernel B3's inputs and outputs at every shape its bit-for-bit "
-                             "check covers (torch.save), for --against-b3 in another tree")
-    parser.add_argument("--against-b3", metavar="PATH",
-                        help="hold kernel B3 bit for bit against the outputs --save-b3 wrote "
-                             "(another tree's kernel), on the same inputs")
     args = parser.parse_args(argv)
 
     import torch
@@ -3539,14 +3568,13 @@ def main(argv=None) -> int:
         raise SystemExit(f"chip_smoke: hydragnn_tpu_torch imported from {pkg}, not this checkout")
     build_phase()
     if args.kernels_only:
-        return kernels_only(torch, args.seed, dev, args.save_b3, args.against_b3)
+        return kernels_only(torch, args.seed, dev)
     _, aug_gin, loaders, samples = prepare(args.seed)
     n_max = update_config(qm9_config("gps"), loaders[0].samples)[
         "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
     top, small = bucket_batches(loaders, samples)
     mlip_b = mlip_train_batch()
-    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b,
-                                         b3_save=args.save_b3, b3_against=args.against_b3)
+    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b)
     from hydragnn_tpu_torch.models import create_model_config
 
     entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda",

@@ -149,3 +149,29 @@ def test_quantize_weight_fp8_is_row_major(fmt):
     jw_q, js_w = jf.quantize_weight_fp8(jnp.asarray(w), fmt)
     assert np.array_equal(_bytes(w_q), _bytes(jw_q))
     np.testing.assert_array_equal(s_w.numpy(), np.asarray(js_w))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("shape", [(256, 64, 64), (256, 129, 64)], ids=str)
+def test_fp8_adversarial_inputs_tell_a_14_bit_accumulator_from_fp32(shape, fmt):
+    """The control of B7's adversarial gate in ``chip_smoke.py``, at the qm9
+    and EGNN depths (``FP8_CONTROL_SHAPES``): on its inputs
+    (``fp8_adversarial_inputs``, ``s_x = 1``), an fp32 accumulator in k order
+    stays within the summation-order bound (``fp8_bound_ratio``), and a 14-bit
+    one (``fp8_accumulator_emulation``) misses it, whether it carries the sum
+    through k or is promoted to fp32 per 32-wide k step; the plain version
+    (the CPU route) reads 0."""
+    import chip_smoke
+
+    assert shape in chip_smoke.FP8_CONTROL_SHAPES
+    x, w = chip_smoke.fp8_adversarial_inputs(torch, fmt, *shape, torch.Generator().manual_seed(9))
+    q = chip_smoke.fp8_quantized(torch, x, w, fmt, 1.0)
+
+    def ratio(bits=None, promote=False):
+        codes, r, _, _, finite = chip_smoke.fp8_bound_ratio(torch, x, *q, None, fmt, bits, promote)
+        assert codes and finite
+        return r
+
+    assert ratio() == 0.0
+    assert ratio(24) <= 1.0 and ratio(24, promote=True) <= 1.0
+    assert ratio(14) > 1.0 and ratio(14, promote=True) > 1.0

@@ -294,12 +294,15 @@ def test_segment_extremes_of_non_finite_data_match_jax(batch, kind, dtype):
         pooled, np.asarray(jseg.global_pool(kind, jnp.asarray(x), jnp.asarray(ids), g)))
 
 
-@pytest.mark.parametrize("field", ["receivers", "senders", "batch", "loop_receivers"])
+@pytest.mark.parametrize("field", ["receivers", "senders", "batch", "loop_receivers",
+                                   "loop_receivers shuffled"])
 def test_piece_row_table_matches_numpy_on_collated_batches(batch, field):
-    """The segment-sum kernel's host-built lookup: ``piece_row[p]`` is the row
-    of piece ``p`` for every piece, and ``num_segments`` for the spare ids up
-    to ``max_pieces``; the tickets start at 0, one per row. Built from the
-    port's own collated batch (``GraphBatch.csr``, as the models call it)."""
+    """The CSR kernels' host-built lookup (the segment sum's and the segment
+    softmax's): ``piece_row[p]`` is the row of piece ``p`` for every piece,
+    and ``num_segments`` for the spare ids up to ``max_pieces``; the tickets
+    start at 0, one per row. Built from the port's own collated batch
+    (``GraphBatch.csr``, as the models call it), and from GAT's extended
+    receivers in a shuffled order (``segment_index``)."""
     from hydragnn_tpu_torch.graphs.batching import collate as tcollate
     from hydragnn_tpu_torch.graphs.graph import GraphSample
 
@@ -314,8 +317,15 @@ def test_piece_row_table_matches_numpy_on_collated_batches(batch, field):
     from hydragnn_tpu_torch.graphs.batching import compute_pad_spec as tpad
 
     b = tcollate(samples, tpad(samples, 12))
-    idx = b.csr(field)
-    ids = (b.self_loop_edges()[1] if field == "loop_receivers" else getattr(b, field)).numpy()
+    if field.startswith("loop_receivers"):
+        ids = b.self_loop_edges()[1].numpy()
+    else:
+        ids = getattr(b, field).numpy()
+    if field.endswith("shuffled"):
+        ids = ids[rng.permutation(ids.shape[0])]
+        idx = fs.segment_index(torch.from_numpy(ids), b.num_nodes)
+    else:
+        idx = b.csr(field)
     rows = b.num_graphs if field == "batch" else b.num_nodes
     pieces = np.maximum(1, -(-np.bincount(ids, minlength=rows) // fs.PIECE_EDGES))
     want = np.full(idx.max_pieces, rows)

@@ -255,26 +255,3 @@ def test_backward_passes_gradcheck_in_fp64(op):
         mask = torch.tensor([[1, 1, 1, 0], [1, 0, 1, 0]], dtype=torch.float64)
         x = torch.randn(2, 2, 3, 4, generator=gen, dtype=torch.float64, requires_grad=True)
         assert torch.autograd.gradcheck(lambda x: fsm.masked_softmax(x, mask), (x,))
-
-
-@pytest.mark.parametrize("order", ["collated", "shuffled"])
-def test_segment_softmax_kernel_arguments_on_cpu(layout, order):
-    """What the CUDA route hands the kernel besides the logits and the CSR
-    view, built on the CPU from GAT's extended receivers: ``piece_row``
-    gives every piece its row in one load (``num_segments`` past the last
-    piece) and the per-row tickets are int32 zeros."""
-    recv, _, n = layout
-    ids = torch.from_numpy(recv)
-    if order == "shuffled":
-        ids = ids[torch.randperm(ids.shape[0], generator=torch.Generator().manual_seed(2))]
-    index = fs.segment_index(ids, n)
-    assert index.piece_row.dtype == torch.int32 and index.piece_row.is_contiguous()
-    assert index.piece_row.shape == (index.max_pieces,)
-    pieces = int(index.piece_ptr[-1])
-    want = torch.repeat_interleave(torch.arange(n), index.piece_ptr[1:] - index.piece_ptr[:-1])
-    assert torch.equal(index.piece_row[:pieces].long(), want)
-    assert bool((index.piece_row[pieces:] == n).all())
-    assert index.tickets.dtype == torch.int32 and index.tickets.shape == (n,)
-    assert not index.tickets.any()
-    # the dummy row N-1 spans several pieces: the rows the kernel combines
-    assert int(index.piece_ptr[n] - index.piece_ptr[n - 1]) > 1

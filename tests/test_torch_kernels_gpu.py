@@ -841,8 +841,9 @@ def test_fp8_dense_adversarial_accumulation_on_card(shape, fmt):
     _cuda_or_skip()
     x, w = chip_smoke.fp8_adversarial_inputs(torch, fmt, *shape,
                                              torch.Generator().manual_seed(9))
-    codes, ratio, _, _, finite = chip_smoke.fp8_bound_ratio(torch, x.cuda(), w.cuda(), None, fmt,
-                                                            s_x=1.0)
+    x, w = x.cuda(), w.cuda()
+    codes, ratio, _, _, finite = chip_smoke.fp8_bound_ratio(
+        torch, x, *chip_smoke.fp8_quantized(torch, x, w, fmt, 1.0), None, fmt)
     assert codes and finite
     assert ratio <= 1.0, ratio
 
