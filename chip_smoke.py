@@ -57,18 +57,34 @@ device JSON only when every phase passed):
    scalar tile kernel). B3 is also held bit for bit on every entry against
    its fixed-order emulation (``segment_softmax_emulation``, torch on the
    card);
-4. serving, per model: ``PredictionServer`` with 512 concurrent requests;
+Every main path runs the port's CUDA graphs (``capture.py``: the served
+predict steps per bucket, the train and eval steps, supersteps, the MD
+trajectory segments), and each phase also runs the eager step it captures
+as the comparator, in the same call: the answers or states bit-equal, the
+launch records of the graphs equal to the eager counts, and both sides'
+p50/p99, throughput, step times, device busy share and device operations
+logged (the last is a ``capture summary`` line).
+
+4. serving, per model: ``PredictionServer`` (every bucket captured at
+   warm-up) with 512 concurrent requests under ``no_new_captures``;
    served answers against ``Predictor.outputs`` on the same padded batches;
-   launch counts per served batch; the card's fp32 answers against the
-   port's CPU route on one batch; one ``run_prediction`` pass;
+   launch counts per served batch; the same burst through a server whose
+   endpoint answers eagerly (the comparator); the card's fp32 answers
+   against the port's CPU route on one batch; one ``run_prediction`` pass;
 5. training, per model: ``run_training`` in bf16 for a few epochs (the only
    cut of the configuration: ``num_epoch``), with checkpoints in a
    temporary directory; the train loss falls; launch counts per train step;
-   one fp32 train step on the card against the CPU route (dropout 0 for
-   this check only: the two routes draw other masks); the final checkpoint
+   captured train and eval steps against the eager ones on copies of the
+   trained state (four steps, the learning rate halved before the last;
+   every parameter, moment, statistic and the generator bit-equal); one
+   fp32 train step on the card against the CPU route (dropout 0 for this
+   check only: the two routes draw other masks); the final checkpoint
    reloaded into a fresh model gives the trained model's
    ``run_prediction``; where a train step's time goes, and the device's busy
-   share under ``torch.profiler``;
+   share under ``torch.profiler``, eager and captured; then (5b) the GIN
+   with ``Training.steps_per_dispatch: 4``: its losses and final state
+   bit-equal to one step per dispatch over the same bucket-major plan, and
+   a 4-step replay's time per step beside a one-step replay's;
 6. canaries: the tier-1 convergence canaries on the deterministic BCC
    dataset through ``run_training`` and ``run_prediction`` on the card, at
    the reference thresholds: GIN with one head and with four heads (head
@@ -92,14 +108,16 @@ device JSON only when every phase passed):
    lattice (8,000 atoms, 100 NVE steps) and the trained EGNN on the
    1,000-atom cell (200 NVE steps): each system's first forces through the
    kernels against the plain versions at the path's shapes (within 1e-5 of
-   the largest force); finite, no overflow, drift, exact launches per step,
-   ms per step and its parts; the EGNN's first forces, and its velocities
-   and positions after 10 steps from nonzero velocities, against the port's
-   CPU route; two runs bit for bit;
+   the largest force); ``run_md``'s captured trajectory bit-equal to the
+   eager steps one by one; finite, no overflow, drift, exact launches per
+   step, ms per step (captured and eager) and its parts; the EGNN's first
+   forces, and its velocities and positions after 10 steps from nonzero
+   velocities, against the port's CPU route; two runs bit for bit;
 10. quantized serving, per trained qm9 model (right after its training):
    the model behind an fp32 server and a ``Serving.quantize: true`` server
    (default quant_tol 0.1 and 4 calibration batches, calibrated on the
-   training samples), 512 concurrent requests each: the certified per-head
+   training samples), 512 concurrent requests each under
+   ``no_new_captures``, and an eager comparator burst each: the certified per-head
    bounds within quant_tol (the one known exception, the GIN, must be
    refused at its pinned bound, ``QUANT_KNOWN_REFUSALS``, and then serves
    int8 at that bound), served int8 answers equal to
@@ -1909,6 +1927,42 @@ def _serve_burst(torch, server, name: str, samples, n_clients: int, device: str)
     return results, wall, launches, stats
 
 
+@contextlib.contextmanager
+def _eager_answers(server):
+    """Inside, ``server``'s endpoints answer through their eager steps
+    (``Predictor.outputs``), not their graphs: the comparator bursts. The
+    port itself has no such switch."""
+    preds = [ep.predictor for ep in server._models.values()]
+    for pred in preds:
+        pred.answer = pred.outputs
+    try:
+        yield
+    finally:
+        for pred in preds:
+            del pred.answer
+
+
+def _eager_burst(torch, config, model, aug, requests, name: str, n_clients: int, tag: str,
+                 **add_kw):
+    """The comparator of a served burst: the same model behind a server of
+    ``config`` (``add_model`` with ``add_kw``) whose endpoint answers
+    through the eager step, ``requests`` sent as the captured burst sent
+    them; returns (p50, p99, graphs/s, launches, batches)."""
+    from hydragnn_tpu_torch.serve import PredictionServer
+
+    server = PredictionServer(config, device="cuda")
+    server.add_model(name, model, aug, **add_kw)
+    with _eager_answers(server):
+        server.warmup()
+        results, wall, launches, stats = _serve_burst(torch, server, name, requests, n_clients,
+                                                      "cuda")
+    if stats["served"] != len(requests) or stats["failed"] or stats["captures"]:
+        raise AssertionError(f"{tag} eager comparator burst: {stats}")
+    lat = np.array([r["latency_s"] for r in results]) * 1e3
+    return (float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
+            len(requests) / wall, launches, stats["batches"])
+
+
 def _served_vs_outputs(buckets, predictor, samples, results, step_for=None):
     """Each served batch recollated as the server collated it and run
     through ``predictor.outputs`` (with ``step_for(pad)`` as its step, if
@@ -1955,20 +2009,30 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
         f"{n_layers} conv layers {extra or ''}, {n_params} parameters, precision "
         f"{aug['NeuralNetwork']['Training']['precision']}, seed {seed}")
 
+    from hydragnn_tpu_torch import capture
+
     name = f"qm9_{kind}"
-    server = PredictionServer(ServingConfig(queue_depth=2048, flush_ms=5.0), device=device)
+    config = ServingConfig(queue_depth=2048, flush_ms=5.0)
+    server = PredictionServer(config, device=device)
     ep = server.add_model(name, model, aug, samples=samples)
     log(f"[{kind}] buckets (n_node, n_edge, n_graph, n_triplet): "
         f"{[b.as_tuple() for b in ep.buckets]}")
     t0 = time.perf_counter()
     server.warmup()
-    log(f"[{kind}] warm-up: {time.perf_counter() - t0:.3f} s over {len(ep.buckets)} buckets")
-    results, wall, launches, stats = _serve_burst(torch, server, name, samples, n_clients,
-                                                  device)
+    captures = server.stats()[name]["captures"]
+    log(f"[{kind}] warm-up: {time.perf_counter() - t0:.3f} s over {len(ep.buckets)} buckets, "
+        f"{captures} CUDA graphs captured (one per bucket), then every bucket replayed under "
+        f"no_new_captures")
+    if device == "cuda" and captures != len(ep.buckets):
+        raise AssertionError(f"serving: {captures} graphs captured for {len(ep.buckets)} buckets")
+    with capture.no_new_captures(f"[{kind}] serving burst"):
+        results, wall, launches, stats = _serve_burst(torch, server, name, samples, n_clients,
+                                                      device)
     n_batches = stats["batches"]
-    log(f"[{kind}] served {stats['served']} requests in {n_batches} batches, failed "
-        f"{stats['failed']}, shed {stats['shed']}, occupancy {stats['occupancy']:.3f}")
-    if stats["served"] != len(samples) or stats["failed"]:
+    log(f"[{kind}] served {stats['served']} requests in {n_batches} batches under "
+        f"no_new_captures, failed {stats['failed']}, shed {stats['shed']}, occupancy "
+        f"{stats['occupancy']:.3f}, graphs captured {stats['captures']}")
+    if stats["served"] != len(samples) or stats["failed"] or stats["captures"] != captures:
         raise AssertionError(f"serving: {stats}")
     for r in results:
         if not all(np.isfinite(np.asarray(h)).all() for h in r["heads"]):
@@ -1991,9 +2055,19 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
 
     lat = np.array([r["latency_s"] for r in results]) * 1e3
     graphs_per_s = len(samples) / wall
-    log(f"[{card}] [{kind}] serving: {len(samples)} requests from {n_clients} client threads, "
-        f"{n_batches} batches, p50 {np.percentile(lat, 50):.2f} ms, p99 "
+    log(f"[{card}] [{kind}] serving, captured: {len(samples)} requests from {n_clients} client "
+        f"threads, {n_batches} batches, p50 {np.percentile(lat, 50):.2f} ms, p99 "
         f"{np.percentile(lat, 99):.2f} ms, {graphs_per_s:.1f} graphs/s (wall {wall:.3f} s)")
+    summary = {"captured": [float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
+                            graphs_per_s]}
+    if device == "cuda":
+        p50, p99, gps_, e_launches, e_batches = _eager_burst(
+            torch, config, model, aug, samples, name, n_clients, f"[{kind}]", samples=samples)
+        summary["eager"] = [p50, p99, gps_]
+        log(f"[{card}] [{kind}] serving, eager comparator (the endpoint's Predictor.outputs): "
+            f"{e_batches} batches, p50 {p50:.2f} ms, p99 {p99:.2f} ms, {gps_:.1f} graphs/s")
+        if e_launches != _scaled(per_batch, e_batches):
+            raise AssertionError(f"serving: eager comparator launched {e_launches}")
 
     # the card against the port's CPU route (fp32 both), one batch
     fp32_cfg = copy.deepcopy(aug)
@@ -2033,6 +2107,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
     t_collate = wall_ms(lambda: serving_collate(chunk, pad))
     t_h2d = wall_ms(lambda: host_batch.to(device))
     t_fwd = wall_ms(lambda: predictor.outputs(next(fresh)))
+    t_cap = wall_ms(lambda: predictor.answer(host_batch))
 
     def build_csr():
         b = next(fresh_csr)
@@ -2043,9 +2118,18 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
     out = predictor.outputs(host_batch)
     t_split = wall_ms(lambda: predictor.split_graphs(out, [s.num_nodes for s in chunk]))
     log(f"[{card}] [{kind}] one served batch at the top bucket (median of 20, host clock): "
-        f"collate {t_collate:.3f} ms, to device {t_h2d:.3f} ms, predict step {t_fwd:.3f} ms "
-        f"(of which building the CSR views {'+'.join(CSR_FORWARD[kind])} {t_csr:.3f} ms), "
-        f"split to numpy {t_split:.3f} ms")
+        f"collate {t_collate:.3f} ms, to device {t_h2d:.3f} ms, eager predict step "
+        f"{t_fwd:.3f} ms (of which building the CSR views {'+'.join(CSR_FORWARD[kind])} "
+        f"{t_csr:.3f} ms); captured: the host batch copied into the graph's inputs, replay, "
+        f"outputs cloned {t_cap:.3f} ms; split to numpy {t_split:.3f} ms")
+    summary.update(predict_ms={"eager": t_fwd, "captured": t_cap})
+    if device == "cuda":
+        dev_batches = [host_batch.to(device) for _ in range(11)]
+        summary["busy"] = {
+            "eager": busy_share(torch, [lambda b=b: predictor.outputs(b) for b in dev_batches],
+                                f"[{card}] [{kind}] eager:", "predict steps"),
+            "captured": busy_share(torch, [lambda b=b: predictor.answer(b) for b in dev_batches],
+                                   f"[{card}] [{kind}] captured:", "predict replays")}
 
     # the batch evaluator over the same samples
     fs.reset_launches()
@@ -2061,7 +2145,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
         raise AssertionError("run_prediction: bad result")
     if device == "cuda" and rp_launches != _scaled(per_batch, n_rp):
         raise AssertionError(f"run_prediction: launch counts {rp_launches}")
-    return {"launches": launches, "batches": n_batches}
+    return {"launches": launches, "batches": n_batches, "summary": summary}
 
 
 # -- phase 5: training -----------------------------------------------------------
@@ -2228,9 +2312,13 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         f"{arch.get('dropout', 0.25)} (default), num_epoch cut from {published} to {epochs} "
         f"(the only cut), 512 QM9-like molecules: {n_train} train / {n_val} val / {n_test} "
         f"test batches per epoch, seed {seed}")
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.train.step import make_eval_step
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         history: list = []
         fs.reset_launches()
+        captures0 = capture.total_captures()
         t0 = time.perf_counter()
         state, model, aug = run_training(copy.deepcopy(cfg), samples=samples(),
                                          device=device, path=tmp, seed=seed, history=history)
@@ -2240,8 +2328,9 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         losses = [h["train_loss"] for h in history]
         log(f"[{card}] [{kind}] run_training: {len(history)} epochs, {state.step} train steps "
             f"in {wall:.3f} s (epochs {[round(h['seconds'], 3) for h in history]} s, each with "
-            f"its evaluations and checkpoint; the rest is set-up and the final save); train "
-            f"loss per epoch {[round(x, 6) for x in losses]}; val loss "
+            f"its evaluations and checkpoint; the rest is set-up and the final save; "
+            f"{capture.total_captures() - captures0} CUDA graphs captured: train and eval "
+            f"steps per bucket); train loss per epoch {[round(x, 6) for x in losses]}; val loss "
             f"{[round(h['val_loss'], 6) for h in history]}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"training: the train loss did not fall: {losses}")
@@ -2278,9 +2367,14 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
     step(state, host.to(device))
     _sync(torch, device)
     one_step = dict(fs.LAUNCHES)
-    log(f"[{kind}] launches of one train step: {one_step} (expected {per_step})")
+    log(f"[{kind}] launches of one eager train step: {one_step} (expected {per_step})")
     if device == "cuda" and one_step != per_step:
         raise AssertionError(f"training: one step launched {one_step} != {per_step}")
+    captured = None
+    if device == "cuda":
+        hosts = [collate(train_ld.samples[i:i + 64], train_ld.pad) for i in range(0, 256, 64)]
+        captured = captured_vs_eager(torch, state, step, make_eval_step(torch.bfloat16), hosts,
+                                     f"[{card}] [{kind}]", per_step, per_eval)
 
     _step_vs_cpu(torch, aug, host, device, seed)
 
@@ -2314,46 +2408,255 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         timed("step", lambda: step(state, b))
     med = {k: float(np.median(v)) for k, v in parts.items()}
     kernel_ms = step_kernel_ms(kind, n_layers, kernel_times or {})
-    log(f"[{card}] [{kind}] one bf16 train step at the top bucket (median of {reps}, host "
+    log(f"[{card}] [{kind}] one eager bf16 train step at the top bucket (median of {reps}, host "
         f"clock): collate {med['collate']:.3f} ms, to device {med['to_device']:.3f} ms, CSR "
         f"views {'+'.join(CSR_FORWARD[kind])} {med['csr_forward']:.3f} ms, backward CSR views "
         f"{'+'.join(CSR_BACKWARD[kind]) or '(none)'} {med['csr_backward']:.3f} ms, forward "
         f"{med['forward']:.3f} ms, backward {med['backward']:.3f} ms, optimizer "
         f"{med['optimizer']:.3f} ms; whole train step {med['step']:.3f} ms, of which kernels "
         f"~{kernel_ms * 1e3:.2f} us of device time ({100 * kernel_ms / med['step']:.2f}%)")
+    eager_busy = None
     if device == "cuda":
-        _profile_steps(torch, step, state, host, device, f"[{card}] [{kind}]")
+        eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [{kind}] eager:")
     return {"launches": launches, "per_step": one_step, "breakdown": med, "layers": n_layers,
-            "model": model, "aug": aug}
+            "model": model, "aug": aug, "captured": captured, "eager_busy": eager_busy}
 
 
-def _profile_steps(torch, step, state, host, device: str, tag: str, n_steps: int = 10) -> None:
-    """The device's busy share of ``n_steps`` train steps under
-    ``torch.profiler``: the summed time of the device kernels and copies
-    over the window's host-clock wall (the tracing slows the host, so the
-    share is a lower bound), and device operations per step."""
+def busy_share(torch, calls, tag: str, what: str) -> dict | None:
+    """The device's busy share over ``calls`` (functions of no argument,
+    each one step; the first runs untraced) under ``torch.profiler``: the
+    summed time of the device kernels and copies over the window's
+    host-clock wall (the tracing slows the host, so the share is a lower
+    bound), and device operations per call. Logged under ``tag``; None when
+    the profiler traced no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    batches = [host.to(device) for _ in range(n_steps)]
-    step(state, batches[0])
-    _sync(torch, device)
+    calls[0]()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches[1:]:
-            step(state, b)
-        _sync(torch, device)
+        for fn in calls[1:]:
+            fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         log(f"{tag} profiler: no device events traced; busy share not measured")
-        return
+        return None
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
-    steps = n_steps - 1
-    log(f"{tag} profiler over {steps} train steps: device busy {busy_us / steps:.1f} us "
-        f"per step of {wall_us / steps / 1e3:.3f} ms wall ({100 * busy_us / wall_us:.2f}% busy, "
-        f"{100 - 100 * busy_us / wall_us:.2f}% idle), {len(dev) / steps:.0f} device operations "
-        f"per step")
+    n = len(calls) - 1
+    out = {"busy_us": busy_us / n, "wall_ms": wall_us / n / 1e3,
+           "busy_pct": 100 * busy_us / wall_us, "ops": len(dev) / n}
+    log(f"{tag} profiler over {n} {what}: device busy {out['busy_us']:.1f} us per call of "
+        f"{out['wall_ms']:.3f} ms wall ({out['busy_pct']:.2f}% busy, "
+        f"{100 - out['busy_pct']:.2f}% idle), {out['ops']:.0f} device operations per call")
+    return out
+
+
+def superstep_phase(torch, seed: int, card: str = "", epochs: int = 2) -> dict:
+    """``run_training`` of the qm9.json GIN (bf16) with
+    ``Training.steps_per_dispatch: 4`` (``num_epoch`` cut to ``epochs``):
+    its epoch losses and final state bit-equal to one step per dispatch over
+    the same bucket-major plan (the epoch loop with the loader's
+    ``set_superstep(4)``), its launch counts those of its train steps and
+    evaluations; then, at the top bucket, the time per step of a 4-step
+    replay beside a one-step replay's (host clock after a synchronise,
+    median of 10 blocks of 4 fresh device batches)."""
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.train.loop import train_validate_test
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
+                                               resolve_precision)
+    from hydragnn_tpu_torch.train.superstep import make_superstep
+
+    cfg = qm9_config("gin")
+    training = cfg["NeuralNetwork"]["Training"]
+    training.update(num_epoch=epochs, steps_per_dispatch=4)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    layers = int(arch["num_conv_layers"])
+
+    def samples():
+        return qm9_like_samples(512, seed, float(arch["radius"]), int(arch["max_neighbours"]))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        h4: list = []
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        s4, _, aug = run_training(copy.deepcopy(cfg), samples=samples(), device="cuda",
+                                  path=tmp, seed=seed, history=h4)
+        torch.cuda.synchronize()
+        wall4 = time.perf_counter() - t0
+        launches = dict(fs.LAUNCHES)
+        one = copy.deepcopy(cfg)
+        one["NeuralNetwork"]["Training"]["steps_per_dispatch"] = 1
+        # as run_training prepares them (the loading writes into the config)
+        loaders = dataset_loading_and_splitting(one, samples=samples())
+        aug1 = update_config(one, *(ld.samples for ld in loaders))
+        s1 = create_train_state(create_model_config(aug1, device="cuda", seed=seed),
+                                aug1["NeuralNetwork"]["Training"]["Optimizer"], seed)
+        loaders[0].set_superstep(4)
+        h1: list = []
+        t0 = time.perf_counter()
+        train_validate_test(s1, *loaders, aug1["NeuralNetwork"], "k1",
+                            compute_dtype=resolve_precision(str(training["precision"]), "cuda"),
+                            path=tmp, history=h1)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+    keys = ("train_loss", "val_loss", "test_loss")
+    same_losses = [[h[k] for k in keys] for h in h4] == [[h[k] for k in keys] for h in h1]
+    diffs = _state_diffs(torch, s4, s1)
+    n_val, n_test = len(loaders[1]), len(loaders[2])
+    want = _added(_scaled(launches_per_train_step("gin", layers), s4.step),
+                  _scaled(launches_per_forward("gin", layers), epochs * (n_val + n_test)))
+    train = loaders[0]
+    hosts = [collate(train.samples[i:i + 64], train.pad) for i in range(0, 256, 64)]
+    step = make_train_step(torch.bfloat16)
+    superstep = make_superstep(step, 4)
+    twin = _twin(torch, s4)
+    blocks = [[h.to("cuda") for h in hosts] for _ in range(11)]
+    superstep(twin, blocks[0])
+    for b in blocks[0]:
+        superstep(twin, [b])
+    times4, times1 = [], []
+    for block in blocks[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        superstep(twin, block)
+        torch.cuda.synchronize()
+        times4.append((time.perf_counter() - t0) * 1e3 / 4)
+        t0 = time.perf_counter()
+        for b in block:
+            superstep(twin, [b])
+        torch.cuda.synchronize()
+        times1.append((time.perf_counter() - t0) * 1e3 / 4)
+    out = {"k4_ms": float(np.median(times4)), "k1_ms": float(np.median(times1)),
+           "graphs": superstep.dispatch.graphs.stats()}
+    log(f"[{card}] [gin] run_training with steps_per_dispatch 4: {len(h4)} epochs, {s4.step} "
+        f"train steps in {wall4:.3f} s (one step per dispatch over the same bucket-major plan: "
+        f"{wall1:.3f} s); epoch losses {'bit-equal' if same_losses else 'DIFFERENT'} "
+        f"({[round(h['train_loss'], 6) for h in h4]}), final state "
+        f"{'bit-equal' if not diffs else 'DIFFERENT: ' + ', '.join(diffs[:6])}; launches "
+        f"{launches} (expected {want}); at the top bucket a 4-step replay "
+        f"{out['k4_ms']:.3f} ms per step, a one-step replay {out['k1_ms']:.3f} ms per step "
+        f"(median of 10 blocks, host clock)")
+    if not same_losses or diffs:
+        raise AssertionError("supersteps: K = 4 differs from K = 1 over the same plan")
+    if launches != want:
+        raise AssertionError(f"supersteps: launch counts {launches} != {want}")
+    return out
+
+
+def _profile_steps(torch, step, state, host, device: str, tag: str, n_steps: int = 10):
+    """:func:`busy_share` of ``n_steps`` calls of ``step`` (the eager train
+    step, or a captured one) on fresh device copies of ``host``."""
+    batches = [host.to(device) for _ in range(n_steps)]
+    return busy_share(torch, [lambda b=b: step(state, b) for b in batches], tag, "train steps")
+
+
+# -- the captured steps against the eager ones ------------------------------------------
+
+
+def _twin(torch, state):
+    """A copy of a train state: its model and optimizer copied together (the
+    copy's optimizer steps the copy's parameters), its generator at the
+    same state."""
+    from hydragnn_tpu_torch.train.step import TrainState
+
+    model, optimizer = copy.deepcopy((state.model, state.optimizer))
+    gen = None
+    if state.generator is not None:
+        gen = torch.Generator(device=state.generator.device)
+        gen.set_state(state.generator.get_state())
+    return TrainState(model=model, optimizer=optimizer, step=state.step, generator=gen)
+
+
+def _state_diffs(torch, a, b) -> list[str]:
+    """What differs, bit for bit, between two train states: parameters,
+    buffers, optimizer state, learning rate, step count, generator."""
+    out = [name for (name, x), y in zip(a.model.state_dict().items(),
+                                        b.model.state_dict().values()) if not torch.equal(x, y)]
+    for i, (sa, sb) in enumerate(zip(a.optimizer.state.values(), b.optimizer.state.values())):
+        out += [f"optimizer[{i}].{k}" for k in sa if not torch.equal(sa[k], sb[k])]
+    la, lb = a.optimizer.param_groups[0]["lr"], b.optimizer.param_groups[0]["lr"]
+    if not torch.equal(torch.as_tensor(la), torch.as_tensor(lb)):
+        out.append("lr")
+    if a.step != b.step:
+        out.append("step")
+    if a.generator is not None and not torch.equal(a.generator.get_state(),
+                                                    b.generator.get_state()):
+        out.append("generator")
+    return out
+
+
+def _same_tree(torch, x, y) -> bool:
+    if torch.is_tensor(x):
+        return torch.equal(x, y)
+    if isinstance(x, dict):
+        return all(_same_tree(torch, x[k], y[k]) for k in x)
+    return all(_same_tree(torch, u, v) for u, v in zip(x, y, strict=True))
+
+
+def captured_vs_eager(torch, state, step, eval_step, hosts, tag: str, per_step: dict,
+                      per_eval: dict, reps: int = 20) -> dict:
+    """The captured train and eval steps (``capture.Dispatch``, as the epoch
+    loop runs them) against the eager steps they capture, from two copies
+    of ``state``: four train steps on four host batches of one bucket (the
+    learning rate halved before the last), every metric and the whole state
+    (parameters, running statistics, AdamW moments, step counts, dropout
+    generator) bit-equal; two eval batches bit-equal; the launch record of
+    one replay equal to ``per_step`` and ``per_eval``. Then the captured
+    step's time (median of ``reps``, host clock after a synchronise, each
+    on a fresh device batch: copy into the graph's inputs, replay, clone the
+    metrics) and its device busy share. Gates raise; returns the times."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.train.optimizer import get_learning_rate, set_learning_rate
+
+    captured, eager = _twin(torch, state), _twin(torch, state)
+    train = capture.Dispatch(step, "train", train=True)
+    lr = get_learning_rate(eager.optimizer)
+    for i, host in enumerate(hosts[:4]):
+        if i == 3:
+            for s_ in (captured, eager):
+                set_learning_rate(s_.optimizer, lr / 2)
+        b = host.to("cuda")
+        got, want = train(captured, b), step(eager, b)
+        diffs = _state_diffs(torch, captured, eager)
+        if not _same_tree(torch, got, want) or diffs:
+            raise AssertionError(f"{tag} captured train step {i} differs from the eager step: "
+                                 f"metrics equal {_same_tree(torch, got, want)}, state {diffs[:8]}")
+    evals = capture.Dispatch(eval_step, "eval")
+    for host in hosts[:2]:
+        b = host.to("cuda")
+        if not _same_tree(torch, evals(captured, b), eval_step(eager, b)):
+            raise AssertionError(f"{tag} captured eval step differs from the eager step")
+    (g_train,) = train.graphs.graphs.values()
+    (g_eval,) = evals.graphs.graphs.values()
+    want_step, want_eval = dict(per_step), dict(per_eval)
+    if g_train.launches != want_step or g_eval.launches != want_eval:
+        raise AssertionError(f"{tag} launch records per replay: train {g_train.launches} "
+                             f"(eager {want_step}), eval {g_eval.launches} (eager {want_eval})")
+    fresh = [hosts[0].to("cuda") for _ in range(reps)]
+    times = []
+    for b in fresh:
+        t0 = time.perf_counter()
+        train(captured, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    busy = busy_share(torch, [lambda b=b: train(captured, b) for b in fresh[:10]],
+                      f"{tag} captured:", "train-step replays")
+    out = {"step_ms": float(np.median(times)), "busy": busy}
+    log(f"{tag} captured train steps: 4 steps (the learning rate halved before the last) and 2 "
+        f"eval batches bit-equal to the eager steps (parameters, running statistics, AdamW "
+        f"moments, step count, generator, metrics); launches per replay {g_train.launches} "
+        f"train, {g_eval.launches} eval, equal to the eager steps'; one captured train step "
+        f"(copy into the graph's inputs, replay, metrics cloned out; median of {reps}, host "
+        f"clock) {out['step_ms']:.3f} ms")
+    return out
 
 
 # -- phase 10: quantized serving ----------------------------------------------------
@@ -2437,6 +2740,8 @@ def _check_refusal(kind: str, device: str, qserver, epq, name: str, cfg,
 
     if epq.quant_steps or qserver.stats()[name]["quantized"]:
         raise AssertionError("quantized serving: a refused endpoint kept an int8 step")
+    if device == "cuda" and list(epq.predictor.dispatches) != [epq.predictor.predict_step]:
+        raise AssertionError("quantized serving: a refused endpoint kept an int8 graph")
     try:
         qserver.start()
     except QuantizationError:
@@ -2486,13 +2791,19 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     train = loaders[0].samples
     layers = int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"])
     name = f"qm9_{kind}_trained"
-    fp32 = PredictionServer(ServingConfig(queue_depth=2048, flush_ms=5.0), device=device)
+    from hydragnn_tpu_torch import capture
+
+    fp32_cfg = ServingConfig(queue_depth=2048, flush_ms=5.0)
+    fp32 = PredictionServer(fp32_cfg, device=device)
     ep32 = fp32.add_model(name, model, aug, samples=samples)
     fp32.warmup()
     pred = ep32.predictor
     probe = serving_collate(train[:64], ep32.buckets[-1])
     before = [t.clone() for t in pred.outputs(probe)]
-    res32, wall32, _, stats32 = _serve_burst(torch, fp32, name, samples, n_clients, device)
+    with capture.no_new_captures(f"[{kind}] trained fp32 serving burst"):
+        res32, wall32, _, stats32 = _serve_burst(torch, fp32, name, samples, n_clients, device)
+    if stats32["failed"]:
+        raise AssertionError(f"serving: {stats32}")
     worst32 = max(np.max(np.abs(a - b)) for _, _, a, b in
                   _served_vs_outputs(ep32.buckets, pred, samples, res32))
 
@@ -2537,8 +2848,9 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     if any(n != len(calls) for n in n_dense.values()):
         raise AssertionError(f"quantized serving: {n_dense} Dense layers calibrated, "
                              f"{len(calls)} Dense calls per forward")
-    resq, wallq, launches, statsq = _serve_burst(torch, qserver, name, samples, n_clients,
-                                                 device)
+    with capture.no_new_captures(f"[{kind}] int8 serving burst"):
+        resq, wallq, launches, statsq = _serve_burst(torch, qserver, name, samples, n_clients,
+                                                     device)
     n_batches = statsq["batches"]
     want = _scaled(dict(launches_per_forward(kind, layers), quant_dense=len(calls)), n_batches)
     log(f"[{kind}] int8 serving: {statsq['served']} requests in {n_batches} batches, "
@@ -2616,12 +2928,24 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
 
     lat32 = np.array([r["latency_s"] for r in res32]) * 1e3
     latq = np.array([r["latency_s"] for r in resq]) * 1e3
-    log(f"[{card}] [{kind}] trained model, 512 requests from {n_clients} client threads: fp32 "
-        f"p50 {np.percentile(lat32, 50):.2f} ms, p99 {np.percentile(lat32, 99):.2f} ms, "
-        f"{len(samples) / wall32:.1f} graphs/s ({stats32['batches']} batches; served vs "
-        f"Predictor.outputs {worst32:.1e}); int8 p50 {np.percentile(latq, 50):.2f} ms, p99 "
-        f"{np.percentile(latq, 99):.2f} ms, {len(samples) / wallq:.1f} graphs/s "
-        f"({n_batches} batches)")
+    log(f"[{card}] [{kind}] trained model, 512 requests from {n_clients} client threads, "
+        f"captured: fp32 p50 {np.percentile(lat32, 50):.2f} ms, p99 "
+        f"{np.percentile(lat32, 99):.2f} ms, {len(samples) / wall32:.1f} graphs/s "
+        f"({stats32['batches']} batches; served vs Predictor.outputs {worst32:.1e}); int8 p50 "
+        f"{np.percentile(latq, 50):.2f} ms, p99 {np.percentile(latq, 99):.2f} ms, "
+        f"{len(samples) / wallq:.1f} graphs/s ({n_batches} batches); graphs captured fp32 "
+        f"{stats32['captures']}, int8 server {statsq['captures']}")
+    if device == "cuda":
+        e32 = _eager_burst(torch, fp32_cfg, model, aug, samples, name, n_clients, f"[{kind}]",
+                           samples=samples)
+        eq = _eager_burst(torch, cfg, model, aug, samples, name, n_clients, f"[{kind}]",
+                          samples=train, buckets=ep32.buckets)
+        log(f"[{card}] [{kind}] trained model, eager comparators (Predictor.outputs): fp32 p50 "
+            f"{e32[0]:.2f} ms, p99 {e32[1]:.2f} ms, {e32[2]:.1f} graphs/s; int8 p50 "
+            f"{eq[0]:.2f} ms, p99 {eq[1]:.2f} ms, {eq[2]:.1f} graphs/s")
+        if eq[3] != _scaled(dict(launches_per_forward(kind, layers), quant_dense=len(calls)),
+                            eq[4]):
+            raise AssertionError(f"quantized serving: eager comparator launched {eq[3]}")
     if worst32 > SERVE_ATOL:
         raise AssertionError("serving: fp32 served answers differ from Predictor.outputs")
     return {"launches": launches, "batches": n_batches, "dense_calls": len(calls),
@@ -3148,9 +3472,18 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     step(state, host.to(device))
     _sync(torch, device)
     one_step = dict(fs.LAUNCHES)
-    log(f"[mlip] launches of one MLIP train step: {one_step} (expected {per_step})")
+    log(f"[mlip] launches of one eager MLIP train step: {one_step} (expected {per_step})")
     if device == "cuda" and one_step != per_step:
         raise AssertionError(f"MLIP training: one step launched {one_step} != {per_step}")
+    captured = None
+    if device == "cuda":
+        from hydragnn_tpu_torch.models.mlip import make_mlip_eval_step
+
+        # the split holds two batches of 64: each twice
+        hosts = [collate(train_ld.samples[64 * (i % 2):64 * (i % 2) + 64], train_ld.pad)
+                 for i in range(4)]
+        captured = captured_vs_eager(torch, state, step, make_mlip_eval_step(model, torch.float32),
+                                     hosts, f"[{card}] [mlip]", per_step, per_eval)
 
     _step_vs_cpu(torch, aug, host, device, seed, mlip=True)
 
@@ -3181,15 +3514,17 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     for b in [host.to(device) for _ in range(reps)]:
         timed("step", lambda: step(state, b))
     med = {k: float(np.median(v)) for k, v in parts.items()}
-    log(f"[{card}] [mlip] one fp32 MLIP train step (64 cells, N={host.num_nodes}, "
+    log(f"[{card}] [mlip] one eager fp32 MLIP train step (64 cells, N={host.num_nodes}, "
         f"E={host.num_edges}; median of {reps}, host clock): to device {med['to_device']:.3f} ms, "
         f"forward (energy) {med['forward']:.3f} ms, force backward (create_graph) "
         f"{med['force_backward']:.3f} ms, loss backward + AdamW {med['loss_backward']:.3f} ms; "
         f"whole train step {med['step']:.3f} ms")
+    eager_busy = None
     if device == "cuda":
-        _profile_steps(torch, step, state, host, device, f"[{card}] [mlip]")
+        eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [mlip] eager:")
     return {"launches": launches, "per_step": one_step, "breakdown": med, "model": model,
-            "aug": aug, "layers": layers, "batch": host}
+            "aug": aug, "layers": layers, "batch": host, "captured": captured,
+            "eager_busy": eager_busy}
 
 
 # -- phase 9: molecular dynamics ----------------------------------------------------
@@ -3285,6 +3620,58 @@ def _forces_vs_plain(torch, device: str, potential, init, pos, vel, n_rows: int,
     return ratio
 
 
+def _eager_trajectory(torch, step, state, n_steps: int, every: int = 10):
+    """The comparator of a captured ``run_md``: the same steps one by one
+    (``make_md_step``'s eager step), every ``every``-th state recorded;
+    returns (final state, recorded states, ms per step on the host clock)."""
+    _sync(torch, state.pos.device.type)
+    t0 = time.perf_counter()
+    recorded = []
+    for k in range(n_steps):
+        state = step(state)
+        if (k + 1) % every == 0:
+            recorded.append(state)
+    _sync(torch, state.pos.device.type)
+    return state, recorded, (time.perf_counter() - t0) * 1e3 / n_steps
+
+
+def _check_trajectory(torch, label: str, final, traj, eager_final, eager_recorded) -> None:
+    """The captured trajectory (``run_md``'s) bit-equal to the eager one."""
+    from hydragnn_tpu_torch.md import MDState
+
+    bad = [name for name, got, want in zip(MDState._fields, traj,
+                                            (torch.stack(f) for f in zip(*eager_recorded)))
+           if not torch.equal(got, want)]
+    bad += [f"final {name}" for name, a, b in zip(MDState._fields, final, eager_final)
+            if not torch.equal(a, b)]
+    log(f"  {label}: run_md's captured trajectory vs the eager steps: "
+        f"{'bit-equal' if not bad else 'DIFFERENT: ' + ', '.join(bad)}")
+    if bad:
+        raise AssertionError(f"{label}: the captured trajectory differs from the eager one")
+
+
+def _md_captured_times(torch, step, state, tag: str, every: int = 10, reps: int = 5) -> dict:
+    """A trajectory segment of ``every`` steps captured from ``state`` (as
+    ``run_md`` captures it): ms per step over ``reps`` replays (host clock
+    after a synchronise), and the device busy share of the replays beside
+    the eager steps'."""
+    from hydragnn_tpu_torch.capture import SegmentGraph
+
+    segment = SegmentGraph(step, state, every, name="md timing")
+    segment.run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        segment.run()
+    torch.cuda.synchronize()
+    out = {"step_ms": (time.perf_counter() - t0) * 1e3 / (reps * every)}
+    out["busy"] = busy_share(torch, [segment.run] * 4, f"{tag} captured:",
+                             f"replays of {every}-step segments")
+    out["eager_busy"] = busy_share(torch, [lambda: step(state)] * (every + 1), f"{tag} eager:",
+                                   "MD steps")
+    return out
+
+
 def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = "",
              lj_steps: int = LJ_MD_STEPS, mlip_steps: int = MLIP_MD_STEPS,
              cpu_steps: int = MD_CPU_STEPS) -> dict:
@@ -3333,12 +3720,20 @@ def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = 
     finite = bool(torch.isfinite(traj.pos).all()) and bool(torch.isfinite(traj.energy).all())
     peak = int(final.max_n_edges)
     drift = _drift(traj, state0, masses)
+    eager_final, eager_rec, eager_ms = _eager_trajectory(torch, step, state0, lj_steps)
+    _check_trajectory(torch, f"[md] analytic LJ ({n} atoms)", final, traj, eager_final,
+                      eager_rec)
     med = _md_breakdown(torch, device, potential, lj_energy(torch), final, step, masses,
                         LJ_MD_DT)
+    captured = (_md_captured_times(torch, step, final, f"[{card}] [md] LJ")
+                if device == "cuda" else None)
     log(f"[{card}] [md] analytic LJ: {n} atoms (spacing 2.2, cutoff {lj['cutoff']}, grid "
         f"{lj['plan'][0]}, capacity {lj['plan'][1]}, max_edges {lj['max_edges']}), {lj_steps} "
         f"NVE steps (dt {LJ_MD_DT}) in {wall:.3f} s = {1e3 * wall / lj_steps:.3f} ms per step "
-        f"(run_md, one step per host dispatch, the launch-count step and set-up excluded); "
+        f"(run_md: on the card one 10-step segment captured, with its warm-up, and replayed; "
+        f"the launch-count step and set-up excluded); the same steps eager one by one "
+        f"{eager_ms:.3f} ms per step; a replayed segment "
+        f"{captured['step_ms'] if captured else float('nan'):.3f} ms per step; "
         f"finite {finite}, peak neighbours {peak} <= {lj['max_edges']}, relative total-energy "
         f"drift {drift:.3e}; launches per step {per_step}, in the run {launches_lj}; one step's "
         f"parts (median of 10, host clock): build {med['build']:.3f} ms, energy "
@@ -3347,7 +3742,7 @@ def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = 
     if not finite or peak > lj["max_edges"]:
         raise AssertionError("LJ MD: trajectory not finite or the edge buffer overflowed")
     out["lj"] = {"launches": launches_lj, "ms_per_step": 1e3 * wall / lj_steps, "drift": drift,
-                 "breakdown": med}
+                 "breakdown": med, "eager_ms": eager_ms, "captured": captured}
 
     # the trained EGNN on the 1,000-atom cell
     m = systems["mlip"]
@@ -3395,6 +3790,8 @@ def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = 
     finite = bool(torch.isfinite(traj.pos).all()) and bool(torch.isfinite(traj.energy).all())
     peak = int(final.max_n_edges)
     drift = _drift(traj, s0, masses)
+    eager_final, eager_rec, eager_ms = _eager_trajectory(torch, step, state0, mlip_steps)
+    _check_trajectory(torch, f"[md] MLIP ({n} atoms)", final, traj, eager_final, eager_rec)
     # a second run: bit for bit the same trajectory (no atomics anywhere)
     _, final2, traj2, _ = roll(model, dev, mlip_steps)
     identical = torch.equal(final.pos, final2.pos) and torch.equal(traj.energy, traj2.energy)
@@ -3415,10 +3812,15 @@ def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = 
     box = torch.from_numpy(m["cell"]).diagonal()
     moved = float((step_disp - box * torch.round(step_disp / box)).abs().max())
     med = _md_breakdown(torch, device, potential, energy_fn, final, step, masses, MLIP_MD_DT)
+    captured = (_md_captured_times(torch, step, final, f"[{card}] [md] MLIP")
+                if device == "cuda" else None)
     log(f"[{card}] [md] MLIP: the trained EGNN on {n} atoms (box {m['cell'][0, 0]:.1f} A, "
         f"cutoff {m['cutoff']}, grid {m['plan'][0]}, capacity {m['plan'][1]}, template "
         f"{pad!r}), {mlip_steps} NVE steps (dt {MLIP_MD_DT}) in {wall:.3f} s = "
-        f"{1e3 * wall / mlip_steps:.3f} ms per step; finite {finite}, peak neighbours {peak} <= "
+        f"{1e3 * wall / mlip_steps:.3f} ms per step (run_md, captured segments); eager one by "
+        f"one {eager_ms:.3f} ms per step; a replayed segment "
+        f"{captured['step_ms'] if captured else float('nan'):.3f} ms per step; finite {finite}, "
+        f"peak neighbours {peak} <= "
         f"{m['max_edges']}, relative total-energy drift {drift:.3e}; two runs bit-identical "
         f"{identical}; vs the CPU route: first state's max|dF| {force_rel:.2e} of max|F| "
         f"(allowed {MD_RTOL:.0e}), after {cpu_steps} steps max|dv| {vel_rel:.2e} of max|v| "
@@ -3441,7 +3843,7 @@ def md_phase(torch, device: str, systems: dict, model, layers: int, card: str = 
         raise AssertionError(f"MLIP MD: the atoms moved {moved:.3e} A in {cpu_steps} steps, too "
                              f"little for the {MD_POS_TOL:.0e} A comparison to see the forces")
     out["mlip"] = {"launches": launches_mlip, "ms_per_step": 1e3 * wall / mlip_steps,
-                   "drift": drift, "breakdown": med}
+                   "drift": drift, "breakdown": med, "eager_ms": eager_ms, "captured": captured}
     return out
 
 
@@ -3590,6 +3992,7 @@ def main(argv=None) -> int:
                                               trained[kind]["model"], trained[kind]["aug"],
                                               card=dev["smi"],
                                               diagnostics=args.quant_diagnostics)
+    superstep = superstep_phase(torch, args.seed, card=dev["smi"])
     canary_phase(torch, "cuda", card=dev["smi"])
     mlip = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"])
     systems = md_systems(mlip["aug"], args.seed)
@@ -3644,6 +4047,19 @@ def main(argv=None) -> int:
         f"{k} {[round(b, 6) for b in (q['refused'] or q['bounds'])]} "
         f"({'REFUSED at its pinned bound, served at ' + str(q['quant_tol']) if q['refused'] else 'certified'})"
         for k, q in quantized.items()))
+    summary = {
+        "serving": {k: served[k]["summary"] for k in MODELS},
+        "train_step_ms": {k: {"eager": t["breakdown"]["step"],
+                              "captured": t["captured"]["step_ms"],
+                              "busy_eager": t["eager_busy"], "busy_captured": t["captured"]["busy"]}
+                          for k, t in dict(trained, mlip=mlip).items()},
+        "superstep_gin_ms_per_step": superstep,
+        "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
+                               "busy_eager": r["captured"]["eager_busy"],
+                               "busy_captured": r["captured"]["busy"]}
+                           for k, r in ran_md.items()},
+    }
+    log("capture summary (captured against eager, this run): " + json.dumps(summary))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the result lines")
     log(dev["smi"])  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": entries}), flush=True)

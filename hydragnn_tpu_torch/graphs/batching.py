@@ -292,7 +292,8 @@ def pick_bucket(buckets: Sequence[PadSpec], tot_node: int, tot_edge: int,
 class GraphLoader:
     """Host-side loader: shuffles, batches, collates each batch to the
     smallest bucket that fits (one process; the JAX package's per-rank
-    slicing comes with the parallelism slice)."""
+    slicing comes with the parallelism slice). With :meth:`set_superstep`
+    the epoch is planned bucket-major, as the JAX loader plans it."""
 
     def __init__(self, samples: Sequence[GraphSample], batch_size: int,
                  pad: PadSpec | None = None, shuffle: bool = False, seed: int = 0,
@@ -316,9 +317,21 @@ class GraphLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.epoch = 0
+        self.block = 1
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
+
+    def set_superstep(self, k: int) -> None:
+        """Superstep blocks (``train/superstep.py``): the epoch loop runs
+        ``k`` consecutive batches per replay, which must share one bucket.
+        :meth:`batch_plan` then orders the epoch bucket-major: each
+        bucket's batches in runs of ``k``, and the leftover batches (fewer
+        than ``k`` in a bucket) re-collated to the component-wise max of the
+        bucket table and put at the epoch's tail, so no sample is dropped
+        and every block's shape comes from the table. The plan is the JAX
+        loader's (``set_superstep`` with one device), index for index."""
+        self.block = max(1, int(k))
 
     def _epoch_indices(self) -> np.ndarray:
         n = len(self.samples)
@@ -343,8 +356,22 @@ class GraphLoader:
             sum(s.extras["idx_kj"].shape[0] for s in chosen if "idx_kj" in s.extras),
         ) or self.buckets[-1]
 
+    def _max_spec(self, members: Sequence[PadSpec]) -> PadSpec:
+        """Component-wise max over ``members`` (a table bucket when one
+        equals it)."""
+        pad = PadSpec(
+            n_node=max(m.n_node for m in members),
+            n_edge=max(m.n_edge for m in members),
+            n_graph=max(m.n_graph for m in members),
+            n_triplet=max(m.n_triplet for m in members),
+            node_cap=members[0].node_cap,
+            attn_cap=members[0].attn_cap,
+        )
+        return next((b for b in self.buckets or () if b == pad), pad)
+
     def batch_plan(self) -> list[tuple[np.ndarray, PadSpec]]:
-        """This epoch's (sample indices, bucket) per batch."""
+        """This epoch's (sample indices, bucket) per batch, bucket-major
+        under :meth:`set_superstep`."""
         idx = self._epoch_indices()
         plan = []
         for b in range(len(self)):
@@ -352,7 +379,27 @@ class GraphLoader:
             if len(chunk) == 0:
                 break
             plan.append((chunk, self._pick(chunk)))
+        if self.block > 1 and self.buckets and len(plan) > 1:
+            plan = self._bucket_major(plan)
         return plan
+
+    def _bucket_major(self, plan):
+        """Each bucket's batches in runs of ``block`` (buckets in order of
+        first appearance), then the leftovers at the table's max bucket
+        (constant per loader, so the tail's shape never depends on the
+        epoch's mix)."""
+        by_bucket: dict = {}
+        for item in plan:
+            by_bucket.setdefault(item[1].as_tuple(), []).append(item)
+        ordered, leftover = [], []
+        for items in by_bucket.values():
+            full = len(items) // self.block * self.block
+            ordered.extend(items[:full])
+            leftover.extend(items[full:])
+        if leftover:
+            top = self._max_spec(self.buckets)
+            ordered.extend((chunk, top) for chunk, _ in leftover)
+        return ordered
 
     def collate_chunk(self, chunk: np.ndarray, pad: PadSpec) -> GraphBatch:
         return collate([self.samples[i] for i in chunk], pad)
@@ -362,12 +409,56 @@ class GraphLoader:
             yield self.collate_chunk(chunk, pad)
 
 
+def background_iter(iterable, depth: int = 2):
+    """Consume ``iterable`` in a daemon worker thread, up to ``depth``
+    finished items ahead of the consumer: the one producer/consumer
+    machinery of :class:`PrefetchLoader` (collate and host-to-device copy)
+    and ``train.superstep.double_buffer`` (block staging). Exceptions of the
+    worker re-raise in the consumer; a consumer that stops early stops the
+    worker at its next put."""
+    q: queue.Queue = queue.Queue(maxsize=max(1, int(depth)))
+    stop = threading.Event()
+    done = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not put(item):
+                    return
+            put(done)
+        except BaseException as exc:  # re-raised in the consumer
+            put(exc)
+
+    thread = threading.Thread(target=worker, daemon=True, name="background_iter")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+
+
 class PrefetchLoader:
     """Runs a loader's collate (and, with ``device``, the host-to-device
-    copy) in one background thread, ``depth`` batches ahead of the consumer,
-    as the JAX package's single-process ``PrefetchLoader`` does. Exceptions
-    of the worker re-raise in the consumer; a consumer that stops early
-    stops the worker at its next put."""
+    copy) in one background thread, ``depth`` batches ahead of the consumer
+    (at least one superstep block and one batch more under
+    :meth:`set_superstep`), as the JAX package's single-process
+    ``PrefetchLoader`` does."""
 
     def __init__(self, loader, depth: int = 2, device=None):
         self.loader = loader
@@ -375,6 +466,7 @@ class PrefetchLoader:
         self.device = device
         self.samples = loader.samples
         self.pad = loader.pad
+        self.superstep = 1
 
     @property
     def seed(self):
@@ -383,53 +475,26 @@ class PrefetchLoader:
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
 
+    def set_superstep(self, k: int) -> None:
+        """The wrapped loader's bucket-major plan, and a buffer that holds
+        the next block while the current one runs."""
+        self.superstep = max(1, int(k))
+        self.loader.set_superstep(k)
+
     def __len__(self) -> int:
         return len(self.loader)
 
     def __iter__(self):
-        q: queue.Queue = queue.Queue(maxsize=self.depth)
-        stop = threading.Event()
-        done = object()
-
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def worker():
-            try:
-                for batch in self.loader:
-                    if self.device is not None:
-                        batch = batch.to(self.device)
-                    if not put(batch):
-                        return
-                put(done)
-            except BaseException as exc:  # re-raised in the consumer
-                put(exc)
-
-        thread = threading.Thread(target=worker, daemon=True, name="prefetch")
-        thread.start()
-        try:
-            while True:
-                item = q.get()
-                if item is done:
-                    return
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            thread.join(timeout=10)
+        depth = max(self.depth, self.superstep + 1) if self.superstep > 1 else self.depth
+        moved = (b if self.device is None else b.to(self.device) for b in self.loader)
+        return background_iter(moved, depth=depth)
 
 
 __all__ = [
     "GraphLoader",
     "PadSpec",
     "PrefetchLoader",
+    "background_iter",
     "batch_from_arrays",
     "batch_meta",
     "collate",

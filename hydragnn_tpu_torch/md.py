@@ -5,8 +5,9 @@ step on the device:
 
 * :func:`dynamic_radius_graph`: the dense O(N^2) minimum-image build with
   static output shapes (plain tensor code; there is no kernel here in the
-  JAX package either). ``torch.nonzero`` makes it wait for the host once
-  per call;
+  JAX package either). Its pairs are compacted at a static size (a
+  cumulative sum of the pair mask, searched for each edge slot), in
+  ``torch.nonzero``'s order, so nothing waits for the host;
 * :func:`binned_radius_graph` with :func:`plan_cell_grid`: the cell list,
   O(N x 27 x capacity), through ``ops.fused_cell_list``: the hand-written
   kernel B5 on the card (nothing waits for the host), the XLA build
@@ -15,10 +16,12 @@ step on the device:
 The integrators (velocity Verlet NVE, Langevin BAOAB NVT, Berendsen NPT)
 take forces from ``torch.autograd.grad`` of any energy function
 ``energy_fn(pos, senders, receivers, shifts, edge_mask) -> scalar``, such as
-an MLIP model's (:func:`mlip_energy_fn`). Where the JAX package compiles a
-``lax.scan``, :func:`run_md` runs a Python loop and returns the recorded
-states stacked. The states' ``n_edges`` and ``max_n_edges`` stay on the
-device; read them at record points.
+an MLIP model's (:func:`mlip_energy_fn`). Where the JAX package rolls a
+trajectory in one ``lax.scan``, :func:`run_md` on the card captures one
+segment of ``record_every`` steps as a CUDA graph and replays it (the CPU
+runs the steps one by one), and returns the recorded states stacked. The
+states' ``n_edges`` and ``max_n_edges`` stay on the device; read them at
+record points (the running ``max_n_edges`` once after the trajectory).
 """
 
 from __future__ import annotations
@@ -122,11 +125,9 @@ def _dense_edges(pos, cutoff, max_edges, geo, pad_id):
             shift = -mat3(torch.round(mat3(disp, inv)) * pbcf, cellm)
             disp = disp + shift
         d2 = disp[..., 0] * disp[..., 0] + disp[..., 1] * disp[..., 1] + disp[..., 2] * disp[..., 2]
-        c2 = torch.tensor(float(cutoff) * float(cutoff), dtype=pos.dtype, device=dev)
+        c2 = torch.full((), float(cutoff) * float(cutoff), dtype=pos.dtype, device=dev)
         within = (d2 <= c2) & ~torch.eye(n, dtype=torch.bool, device=dev)
-        n_edges = within.sum().to(torch.int32)
-        flat = torch.nonzero(within.reshape(-1)).reshape(-1)[:max_edges]
-        flat = torch.cat([flat, flat.new_zeros(max_edges - flat.shape[0])])
+        flat, n_edges = compact_pairs(within.reshape(-1), max_edges)
         live = torch.arange(max_edges, device=dev) < n_edges
         edge_mask = live.to(pos.dtype)
         senders = (flat // n).to(torch.int32)
@@ -135,6 +136,19 @@ def _dense_edges(pos, cutoff, max_edges, geo, pad_id):
         senders = torch.where(live, senders, pad_id).to(torch.int32)
         receivers = torch.where(live, receivers, pad_id).to(torch.int32)
     return senders, receivers, shifts, edge_mask, n_edges
+
+
+def compact_pairs(mask: torch.Tensor, max_edges: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(the first max_edges indices where the 1-D bool mask holds, in
+    increasing order, zero-padded to max_edges; their count as int32)``:
+    ``torch.nonzero(mask)[:max_edges]`` at a static size. Slot ``k`` holds
+    the first index whose running count of the mask reaches ``k + 1``; no
+    size is read back on the host, so a CUDA graph can hold it."""
+    counts = torch.cumsum(mask, 0)
+    slots = torch.arange(1, max_edges + 1, dtype=counts.dtype, device=mask.device)
+    flat = torch.searchsorted(counts, slots)
+    flat = torch.where(flat < mask.shape[0], flat, 0)
+    return flat, counts[-1].to(torch.int32)
 
 
 def plan_cell_grid(cell, cutoff: float, n_atoms: int, capacity_factor: float = 2.5,
@@ -290,7 +304,10 @@ def run_md(energy_fn: Callable, pos, vel, masses, dt: float, n_steps: int, cutof
     """Roll a trajectory: ``n_steps`` velocity-Verlet steps, every
     ``record_every``-th state recorded. Returns ``(final state, recorded
     states)``, the latter an ``MDState`` of tensors stacked on a leading
-    axis of ``n_steps // record_every``."""
+    axis of ``n_steps // record_every``. On the card one segment of
+    ``record_every`` steps is captured as a CUDA graph
+    (``capture.SegmentGraph``) and replayed once per recorded state; its
+    answers are the eager steps' (``make_md_step``), bit for bit."""
     if n_steps % record_every:
         raise ValueError(
             f"n_steps={n_steps} must be a multiple of record_every={record_every} "
@@ -301,10 +318,20 @@ def run_md(energy_fn: Callable, pos, vel, masses, dt: float, n_steps: int, cutof
                               capacity_factor=capacity_factor)
     state = init(torch.as_tensor(pos), torch.as_tensor(vel))
     recorded = []
-    for k in range(n_steps):
-        state = step(state)
-        if (k + 1) % record_every == 0:
-            recorded.append(state)
+    if state.pos.is_cuda:
+        # the JAX package's scan: one captured segment of record_every
+        # steps, replayed; each replay's end state is the recorded one
+        from .capture import SegmentGraph
+
+        segment = SegmentGraph(step, state, record_every, name="run_md")
+        for _ in range(n_steps // record_every):
+            recorded.append(segment.run())
+        state = recorded[-1] if recorded else state
+    else:
+        for k in range(n_steps):
+            state = step(state)
+            if (k + 1) % record_every == 0:
+                recorded.append(state)
     return state, MDState(*(torch.stack(field) for field in zip(*recorded)))
 
 
@@ -480,7 +507,8 @@ def mlip_energy_fn(model, template) -> Callable:
 
 
 __all__ = [
-    "MDConfig", "MDState", "NPTState", "binned_radius_graph", "dynamic_radius_graph",
+    "MDConfig", "MDState", "NPTState", "binned_radius_graph", "compact_pairs",
+    "dynamic_radius_graph",
     "kinetic_energy", "make_berendsen_npt_step", "make_langevin_step", "make_md_step",
     "md_config_defaults", "mlip_energy_fn", "plan_cell_grid", "run_md", "temperature_of",
 ]

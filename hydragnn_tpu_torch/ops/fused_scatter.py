@@ -44,6 +44,7 @@ the backwards called the launchers directly.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 
@@ -57,11 +58,15 @@ import torch
 # ``gather_scatter_sum_bwd`` counts the gather-scatter kernel's transposed
 # launches from the backward, which ``gather_scatter_sum`` does not.
 # Dispatcher threads of several served models may launch at once, so updates
-# hold the lock.
+# hold the lock. A launch on the stream of a CUDA-graph capture
+# (``capture.py``), from whichever thread (autograd runs backwards on its
+# own), counts into that capture's record instead, which every replay of
+# the graph adds here (:func:`add_launches`).
 LAUNCHES = {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 0,
             "segment_softmax": 0, "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
             "fp8_dense": 0}
 _LAUNCHES_LOCK = threading.Lock()
+_SINKS: dict = {}  # guarded-by: _LAUNCHES_LOCK; CUDA stream handle -> counts
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,8 +78,34 @@ def reset_launches() -> None:
 
 
 def _count_launch(name: str) -> None:
+    """Count one launch on the current stream (called right after it)."""
+    stream = torch.cuda.current_stream().cuda_stream if _SINKS else None
     with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+        _SINKS.get(stream, LAUNCHES)[name] += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (one replay's record of a captured graph) to
+    :data:`LAUNCHES`."""
+    with _LAUNCHES_LOCK:
+        for k, v in counts.items():
+            LAUNCHES[k] += v
+
+
+@contextlib.contextmanager
+def launch_sink(stream):
+    """Inside, launches on the CUDA ``stream`` count into the yielded dict,
+    not into :data:`LAUNCHES`: a graph capture records what one replay
+    launches, and the warm-up runs before it, whose effects the capture
+    undoes, count nowhere."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    with _LAUNCHES_LOCK:
+        _SINKS[stream.cuda_stream] = counts
+    try:
+        yield counts
+    finally:
+        with _LAUNCHES_LOCK:
+            del _SINKS[stream.cuda_stream]
 
 
 # Edges per piece: the kernels cut every row into pieces of this many edges,
@@ -445,10 +476,12 @@ __all__ = [
     "LAUNCHES",
     "SegmentIndex",
     "accumulate_dtype",
+    "add_launches",
     "fused_segment_sum",
     "gather_rows",
     "gather_scatter_sum",
     "gather_scatter_sum_bwd",
+    "launch_sink",
     "plain_gather_scatter_sum",
     "plain_segment_sum",
     "reset_launches",

@@ -4,7 +4,9 @@ Counterpart of ``hydragnn_tpu/run_training.py`` for one process on one
 device: the data prologue, the model and its optimizer, optional resume
 (``Training.continue`` from the run named by ``Training.startfrom``), the
 train loader behind a ``PrefetchLoader`` (``Training.prefetch``, default
-2), the epoch loop, and a final checkpoint. Runs on the card unless the
+2), the epoch loop (``Training.steps_per_dispatch`` train steps per
+dispatch; on the card every step a CUDA-graph replay), and a final
+checkpoint. Runs on the card unless the
 caller passes ``device="cpu"``; checkpoints and the augmented config go
 under ``path`` (``<path>/<run name>/``).
 """
@@ -25,8 +27,6 @@ from .utils import resolve_device
 # config switches of the JAX package's run_training that this slice does not
 # run: (section, key, whether the value asks for it, what and its slice)
 _LATER = (
-    ("Training", "steps_per_dispatch", lambda v: v not in (None, 1),
-     "supersteps (a later slice: run-time extras)"),
     ("Training", "population", bool, "population training (a later slice: run-time extras)"),
     ("Training", "resilience", bool, "the resilience layer: non-finite guard, rollback, "
                                      "preemption (a later slice: run-time extras)"),

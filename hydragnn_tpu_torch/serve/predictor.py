@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..capture import Dispatch
 from ..models.base import head_columns
 from ..train.step import make_predict_step, resolve_precision
 from ..utils import resolve_device
@@ -19,8 +20,13 @@ from ..utils import resolve_device
 class Predictor:
     """A model (on ``device``) bound to its augmented config.
 
-    - :meth:`outputs` — run the predict step (or a given one, such as the
-      int8 step of ``serve.quant``) on one padded batch;
+    - :meth:`outputs` — run the eager predict step (or a given one, such
+      as the int8 step of ``serve.quant``) on one padded batch: the
+      comparator of the captured answers;
+    - :meth:`answer` — the same answer as the server and ``run_prediction``
+      give it: on the card a replay of the step's CUDA graph for the
+      batch's bucket (``capture.py``; :attr:`dispatches` per step), on the
+      CPU :meth:`outputs`;
     - :meth:`gather` — per-head (true, pred) numpy arrays of the real rows;
     - :meth:`split_graphs` — per-graph views of a batch's outputs;
     - :meth:`denormalize` / :meth:`denormalize_preds` — min-max
@@ -43,6 +49,8 @@ class Predictor:
         self.predict_step = make_predict_step(self.model, self.compute_dtype)
         self.cols = head_columns(self.spec)
         self._scales = None
+        # step -> its Dispatch (the fp32 step, one int8 step per bucket)
+        self.dispatches: dict = {}
 
     def outputs(self, batch, step=None) -> list[torch.Tensor]:
         """Per-head fp32 predictions for one padded batch (still padded;
@@ -52,12 +60,36 @@ class Predictor:
             batch = batch.to(self.device)
         return (step or self.predict_step)(batch)
 
+    def dispatch(self, step=None):
+        """The :class:`~hydragnn_tpu_torch.capture.Dispatch` of ``step``
+        (default: the fp32 predict step), made at first use."""
+        step = step or self.predict_step
+        d = self.dispatches.get(step)
+        if d is None:
+            name = "predict" if step is self.predict_step else "predict int8"
+            d = self.dispatches[step] = Dispatch(lambda _state, batch: step(batch), name,
+                                                 device=self.device)
+        return d
+
+    def answer(self, batch, step=None) -> list[torch.Tensor]:
+        """:meth:`outputs` as served: on the card a replay of the step's
+        graph for the batch's bucket (a host batch is copied straight into
+        the graph's inputs), captured at the bucket's first batch; on the
+        CPU the eager step."""
+        if self.device.type != "cuda":
+            return self.outputs(batch, step)
+        return self.dispatch(step)(None, batch)
+
+    def captures(self) -> int:
+        """Graphs this predictor captured, over all its steps."""
+        return sum(d.graphs.captures for d in list(self.dispatches.values()))
+
     def gather(self, batch, out=None):
         """(trues, preds): per-head numpy arrays of the REAL rows of
         ``batch`` — graph heads masked by ``graph_mask``, node heads by
-        ``node_mask``."""
+        ``node_mask``; ``out`` defaults to :meth:`answer`."""
         if out is None:
-            out = self.outputs(batch)
+            out = self.answer(batch)
         trues, preds = [], []
         graph_mask = batch.graph_mask.cpu().numpy() > 0
         node_mask = batch.node_mask.cpu().numpy() > 0

@@ -23,7 +23,11 @@ keyed by the port's module names (``graph_convs.0.nn.dense_0``;
 
 The interception is ``models.common.intercept_dense``, a context variable
 that ``Dense.forward`` reads: the fp32 predict step and every other thread
-see the model unchanged, bit for bit.
+see the model unchanged, bit for bit. The quantized step can be captured in
+a CUDA graph (``capture.py``): the scales are Python floats fixed per step,
+and B6's opt-in to more than 48 KB of dynamic shared memory, which its
+launcher makes at a device's first launch, happens in the eager warm-up
+runs that precede every capture.
 """
 
 from __future__ import annotations
@@ -130,11 +134,14 @@ def make_quantized_predict_step(model: torch.nn.Module, scales: Mapping[str, flo
 
 def certify_quant_error(predictor, quant_step, batches: Sequence) -> list[float]:
     """Per-head max abs deviation |int8 − fp32| over the REAL rows of the
-    calibration ``batches``: the bounds the endpoint certifies."""
+    calibration ``batches``, both answered as served
+    (``Predictor.answer``: on the card the two steps' CUDA graphs, the int8
+    one captured here at its bucket's first batch): the bounds the endpoint
+    certifies."""
     bounds = [0.0] * len(predictor.cols)
     for batch in batches:
-        ref = predictor.outputs(batch)
-        q = predictor.outputs(batch, step=quant_step)
+        ref = predictor.answer(batch)
+        q = predictor.answer(batch, step=quant_step)
         _, ref_rows = predictor.gather(batch, out=ref)
         _, q_rows = predictor.gather(batch, out=q)
         for ihead, (r, p) in enumerate(zip(ref_rows, q_rows)):

@@ -2,21 +2,30 @@
 card, kernels built at warm-up.
 
 Counterpart of ``hydragnn_tpu/serve/server.py`` without its compile cache,
-AOT artifacts, fleet, telemetry plane and env flags (later slices):
+serialized AOT artifacts, fleet, telemetry plane and env flags (later
+slices):
 
 - **boot**: register models (architecture + weights + augmented config);
   each endpoint derives its pad-bucket table (the same
-  ``compute_pad_buckets`` table training uses) and :meth:`warmup` runs one
-  dummy batch per bucket, which builds the CUDA kernels;
+  ``compute_pad_buckets`` table training uses) and :meth:`warmup` captures
+  the predict step of every bucket as a CUDA graph (``capture.py``, the
+  port of the JAX package's AOT executables; the first capture builds the
+  CUDA kernels), then replays every graph once under
+  ``capture.no_new_captures``, the port of ``no_recompile(0)``. With
+  ``Serving.warmup: false`` a bucket is captured at its first batch. On the
+  CPU the eager step runs;
 - **int8** (``Serving.quantize``): warm-up also calibrates one int8 step per
   bucket on the endpoint's calibration samples (``add_model``'s
-  ``samples``) and certifies its per-head error against the fp32 answers
-  (``serve.quant``); a bound above ``Serving.quant_tol`` raises
-  :class:`~hydragnn_tpu_torch.serve.quant.QuantizationError`, and an
-  endpoint with ``quantize`` set never serves fp32;
+  ``samples``), captures it and certifies its per-head error against the
+  fp32 answers (``serve.quant``); a bound above ``Serving.quant_tol``
+  raises :class:`~hydragnn_tpu_torch.serve.quant.QuantizationError` and
+  leaves no int8 graph, and an endpoint with ``quantize`` set never serves
+  fp32;
 - **steady state**: a bounded request queue with typed load-shedding feeds
-  a per-endpoint micro-batcher (``serve.batcher``) whose batches run
-  through the shared :class:`~hydragnn_tpu_torch.serve.predictor.Predictor`;
+  a per-endpoint micro-batcher (``serve.batcher``); each batch is collated
+  on the host, copied into its bucket's graph inputs and replayed through
+  the shared :class:`~hydragnn_tpu_torch.serve.predictor.Predictor`
+  (``answer``), whose outputs are cloned out before the next replay;
 - **routing**: several models serve from one process, each endpoint with
   its own queue, bucket table and dispatcher thread.
 """
@@ -32,6 +41,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..capture import no_new_captures
 from ..graphs.batching import PadSpec, compute_pad_buckets, pick_bucket
 from ..graphs.graph import GraphSample
 from ..utils import resolve_device
@@ -70,7 +80,7 @@ class ServingConfig:
 
     queue_depth: int = 256     # bounded admission; beyond it requests shed
     flush_ms: float = 5.0      # max micro-batch coalescing latency
-    warmup: bool = True        # run every bucket once at boot (builds kernels)
+    warmup: bool = True        # capture every bucket at boot (else at its first batch)
     max_batch_graphs: int = 0  # per-batch request cap (0 = bucket capacity)
     deadline_ms: float = 0.0   # default per-request deadline (0 = none)
     # int8 inference (serve.quant): calibrate per-(model, bucket) activation
@@ -224,32 +234,50 @@ class ModelEndpoint:
             )
 
     def warm(self) -> dict:
-        """One dummy batch through every bucket (the first builds the CUDA
-        kernels), then, with ``quantize``, the int8 half
-        (:meth:`warm_quant`); returns seconds per bucket."""
+        """Capture every bucket's predict step with a dummy batch (the first
+        capture builds the CUDA kernels; the CPU runs the eager step once),
+        then, with ``quantize``, the int8 half (:meth:`warm_quant`), then
+        :meth:`verify`; returns seconds per bucket."""
         report = {}
         dummy = _dummy_sample(self.example)
         for pad in self.buckets:
             t0 = time.perf_counter()
-            self.predictor.outputs(serving_collate([dummy], pad))
+            self.predictor.answer(serving_collate([dummy], pad))
             if self.predictor.device.type == "cuda":
                 torch.cuda.synchronize(self.predictor.device)
             report[repr(pad)] = time.perf_counter() - t0
         self.warmed = True
         if self.cfg.quantize:
             report["quant"] = self.warm_quant()
+        self.verify()
         return report
+
+    def verify(self) -> None:
+        """A dummy batch through every bucket's graphs, fp32 and int8, under
+        ``capture.no_new_captures``: the JAX warm-up's ``no_recompile(0)``
+        pass."""
+        dummy = _dummy_sample(self.example)
+        with no_new_captures(f"serving warm-up verify [{self.name}]"):
+            for pad in self.buckets:
+                self.predictor.answer(serving_collate([dummy], pad))
+                step = self.quant_steps.get(pad.as_tuple())
+                if step is not None:
+                    self.predictor.answer(serving_collate([dummy], pad), step=step)
 
     def warm_quant(self) -> dict:
         """The int8 half of warm-up (``serve.quant``): per bucket, activation
         scales calibrated on the largest calibration samples the bucket
         admits (collated one per batch, as serving collates them), int8
         weights and the quantized step, and per-head error bounds against
-        the fp32 answers on those batches. A bucket without a calibration
-        sample, or a bound above ``Serving.quant_tol``, raises
-        :class:`QuantizationError` and leaves no int8 step behind. Returns
-        the report (per-bucket layers and bounds, the overall bounds)."""
+        the fp32 answers on those batches, both through their captured
+        graphs on the card (the answers the endpoint serves). A bucket
+        without a calibration sample, or a bound above
+        ``Serving.quant_tol``, raises :class:`QuantizationError` and leaves
+        no int8 step or graph behind. Returns the report (per-bucket layers
+        and bounds, the overall bounds)."""
         pred = self.predictor
+        for step in self.quant_steps.values():
+            pred.dispatches.pop(step, None)
         self.quant_steps = {}
         self.quant_bounds = None
         report: dict = {"buckets": {}}
@@ -262,6 +290,7 @@ class ModelEndpoint:
             if not fitting:
                 # certifying on a synthetic dummy would give ~0 bounds that
                 # say nothing about real traffic
+                self._drop(steps)
                 raise QuantizationError(
                     f"endpoint {self.name!r}: no calibration sample fits bucket {pad!r}; "
                     "pass `samples` covering every bucket to add_model (or drop the "
@@ -285,6 +314,7 @@ class ModelEndpoint:
         report["quant_tol"] = self.cfg.quant_tol
         over = [(i, b) for i, b in enumerate(bounds) if b > self.cfg.quant_tol]
         if over:
+            self._drop(steps)
             raise QuantizationError(
                 f"endpoint {self.name!r}: calibrated int8 error exceeds "
                 f"Serving.quant_tol={self.cfg.quant_tol} for head(s) "
@@ -295,6 +325,11 @@ class ModelEndpoint:
         self.quant_steps = steps
         self.quant_bounds = bounds
         return report
+
+    def _drop(self, steps: dict) -> None:
+        """Forget ``steps``' graphs (a refused certification)."""
+        for step in steps.values():
+            self.predictor.dispatches.pop(step, None)
 
     def _step_for(self, pad: PadSpec):
         """The bucket's int8 step with ``quantize``, else the fp32 step."""
@@ -327,7 +362,7 @@ class ModelEndpoint:
             return
         try:
             batch = serving_collate([r.sample for r in members], pad)
-            out = self.predictor.outputs(batch, step=self._step_for(pad))
+            out = self.predictor.answer(batch, step=self._step_for(pad))
             per_graph = self.predictor.split_graphs(out, [r.sample.num_nodes for r in members])
             if self.denormalize:
                 per_graph = [self.predictor.denormalize_preds(heads) for heads in per_graph]
@@ -411,7 +446,7 @@ class PredictionServer:
         return ep
 
     def warmup(self) -> dict:
-        """Run every (model, bucket) once; returns seconds per bucket."""
+        """Capture every (model, bucket); returns seconds per bucket."""
         t0 = time.perf_counter()
         report = {name: ep.warm() for name, ep in self._models.items()}
         report["total_s"] = time.perf_counter() - t0
@@ -502,8 +537,9 @@ class PredictionServer:
 
     def stats(self) -> dict:
         """Per-model counters plus batch occupancy (real graphs per padded
-        graph slot), the number of int8 buckets (``quantized``) and their
-        certified per-head bounds (``quant_bounds``, None without)."""
+        graph slot), the number of int8 buckets (``quantized``), their
+        certified per-head bounds (``quant_bounds``, None without) and the
+        CUDA graphs the endpoint captured (``captures``; 0 on the CPU)."""
         out = {}
         for name, ep in self._models.items():
             with ep._lock:
@@ -516,6 +552,7 @@ class PredictionServer:
             )
             c["quantized"] = len(ep.quant_steps)
             c["quant_bounds"] = ep.quant_bounds
+            c["captures"] = ep.predictor.captures()
             out[name] = c
         return out
 

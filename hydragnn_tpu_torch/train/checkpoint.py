@@ -30,6 +30,8 @@ import zlib
 import numpy as np
 import torch
 
+from .optimizer import load_optimizer_state
+
 
 class CheckpointCorruptError(RuntimeError):
     """A checkpoint whose tensors do not match its manifest (a torn write)."""
@@ -192,7 +194,7 @@ def load_checkpoint(state, log_name: str, path: str = "./logs/",
             warnings.warn(f"checkpoint fallback: restored {os.path.basename(cand)} after "
                           f"newer candidate(s) failed ({'; '.join(errors)})")
         state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
+        load_optimizer_state(state.optimizer, payload["optimizer"])
         state.step = int(payload["step"])
         _restore_generator(state, payload)
         return meta

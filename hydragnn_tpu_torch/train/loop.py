@@ -1,18 +1,24 @@
 """The epoch loop: train, validate, test.
 
-Counterpart of ``hydragnn_tpu/train/loop.py`` on one device with one step
-per dispatch (K = 1), with the plain or, for interatomic potentials, the
-MLIP train and eval steps: per epoch the train loader reshuffles
-(``set_epoch``), the train metrics are reduced weighted by graph count, the
-validation and test splits are evaluated, the plateau scheduler steps on the
-validation loss, then the best-model checkpoint and early stopping run. A
-split's per-head RMSE is one square root of its summed squared errors.
+Counterpart of ``hydragnn_tpu/train/loop.py`` on one device, with the
+plain or, for interatomic potentials, the MLIP train and eval steps: per
+epoch the train loader reshuffles (``set_epoch``), the train metrics are
+reduced weighted by graph count, the validation and test splits are
+evaluated, the plateau scheduler steps on the validation loss, then the
+best-model checkpoint and early stopping run. A split's per-head RMSE is
+one square root of its summed squared errors.
+
+On the card every step is a replay of a CUDA graph (``capture.py``): the
+train step per bucket, or with ``Training.steps_per_dispatch`` = K > 1 a
+K-step superstep per bucket over the loader's bucket-major blocks
+(``train/superstep.py``), and the eval step per bucket. On the CPU the
+same loop runs the eager steps.
 
 The step metrics stay on the device until the epoch ends and come to the
 host in one transfer. Not in this slice (they raise ``NotImplementedError``
-in ``run_training``): supersteps, populations, meshes, halo exchange, edge
-sharding, the resilience layer (non-finite guard, rollback, preemption),
-telemetry and the compile cache.
+in ``run_training``): populations, meshes, halo exchange, edge sharding
+(which pin K = 1 in the JAX package), the resilience layer (non-finite
+guard, rollback, preemption), telemetry and the compile cache.
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ import time
 import numpy as np
 import torch
 
+from ..capture import Dispatch
 from .checkpoint import Checkpoint, EarlyStopping
 from .optimizer import ReduceLROnPlateau, get_learning_rate, set_learning_rate
 from .step import TrainState, make_eval_step, make_train_step, resolve_loss_scale
+from .superstep import Superstep, double_buffer, make_superstep, resolve_steps_per_dispatch
 
 
 def _log(verbosity: int, msg: str) -> None:
@@ -51,16 +59,35 @@ def _batches(loader, device):
         yield batch if batch.device == device else batch.to(device)
 
 
-def train_epoch(train_step, state: TrainState, loader):
-    """One epoch of train steps; returns (mean loss, per-task mean losses)."""
+def _blocks(batches, k: int):
+    """Consecutive runs of ``k`` batches; the last may be shorter."""
+    block = []
+    for batch in batches:
+        block.append(batch)
+        if len(block) == k:
+            yield block
+            block = []
+    if block:
+        yield block
+
+
+def train_epoch(superstep: Superstep, state: TrainState, loader):
+    """One epoch of train steps, ``superstep.k`` per dispatch (the blocks
+    staged one ahead in a worker thread when K > 1); returns (mean loss,
+    per-task mean losses)."""
     device = next(state.model.parameters()).device
-    metrics = [train_step(state, batch) for batch in _batches(loader, device)]
+    blocks = _blocks(_batches(loader, device), superstep.k)
+    if superstep.k > 1:
+        blocks = double_buffer(blocks)
+    metrics = [m for block in blocks for m in superstep(state, block)]
     loss, tasks, _ = accumulate(metrics)
     return loss, tasks
 
 
 def evaluate(eval_step, state: TrainState, loader):
-    """A whole split; returns (loss, per-task losses, per-head RMSE)."""
+    """A whole split through ``eval_step`` (``(state, batch) -> metrics``:
+    on the card the eval ``Dispatch``); returns (loss, per-task losses,
+    per-head RMSE)."""
     device = next(state.model.parameters()).device
     metrics = [eval_step(state, batch) for batch in _batches(loader, device)]
     loss, tasks, extras = accumulate(metrics, extra_keys=("head_sse", "head_count"))
@@ -85,6 +112,9 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
     losses, LR, and the epoch's wall seconds up to the checkpoint)."""
     training = config_nn["Training"]
     num_epoch = int(training["num_epoch"])
+    k = resolve_steps_per_dispatch(training)
+    if k > 1:
+        train_loader.set_superstep(k)
     if state.model.spec.enable_interatomic_potential:
         # energy + per-atom energy + force loss, forces from the position
         # gradient
@@ -96,6 +126,8 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
     else:
         train_step = make_train_step(compute_dtype, resolve_loss_scale(training))
         eval_step = make_eval_step(compute_dtype)
+    superstep = make_superstep(train_step, k)
+    eval_step = Dispatch(eval_step, "eval")
     scheduler = ReduceLROnPlateau(get_learning_rate(state.optimizer))
     checkpoint = (
         Checkpoint(log_name, warmup=int(training.get("checkpoint_warmup", 0)), path=path)
@@ -111,7 +143,7 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
     for epoch in range(start_epoch, num_epoch):
         t_epoch = time.perf_counter()
         train_loader.set_epoch(epoch)
-        train_loss, _ = train_epoch(train_step, state, train_loader)
+        train_loss, _ = train_epoch(superstep, state, train_loader)
         record = {"epoch": epoch, "train_loss": train_loss}
         if skip_valtest:
             _log(verbosity, f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}")

@@ -17,6 +17,14 @@ backward and divides the fp32 gradients after it; the metrics are unscaled.
 Dropout (GAT's attention, GPS) draws its masks from the train state's
 ``torch.Generator``, seeded from the run's seed; the eval and predict steps
 draw nothing.
+
+These are the eager steps. On the card the epoch loop, the server and
+``run_prediction`` replay them as CUDA graphs (``capture.py``), and the
+eager steps stay the comparator the card's tests and ``chip_smoke.py`` call
+directly. Nothing in them waits for the host, so they can be captured: the
+gradients that ``optimizer_step`` creates and fills are fixed by the
+model's structure (the same parameters get none at every step), and the
+optimizers on the card are capturable (``train/optimizer.py``).
 """
 
 from __future__ import annotations

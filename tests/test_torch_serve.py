@@ -30,6 +30,7 @@ from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splittin
 from hydragnn_tpu_torch.serve import (
     DeadlineExceededError,
     IncompatibleSampleError,
+    MicroBatcher,
     OversizeError,
     PredictionServer,
     Predictor,
@@ -229,3 +230,50 @@ def test_entry_points_default_to_the_card(served):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_prediction(copy.deepcopy(cfg), model, samples=tpu.port_samples(samples))
     assert next(model.parameters()).device.type == "cpu"
+
+
+class _ScriptedQueue:
+    """A request queue that hands out its requests and then records each
+    wait the batcher asks for (returning at once, as a timeout would)."""
+
+    def __init__(self, requests):
+        self.requests = list(requests)
+        self.waits = []
+
+    def get(self, timeout=None):
+        if self.requests:
+            return self.requests.pop(0)
+        self.waits.append(timeout)
+        return None
+
+    def push_back(self, req):
+        self.requests.insert(0, req)
+
+
+@pytest.mark.parametrize("deadline_ms", [150.0, None])
+def test_flush_window_clamped_to_deadline(monkeypatch, deadline_ms):
+    """A lone request whose deadline is shorter than the flush window closes
+    its batch at the deadline less the dispatch margin, not at the end of
+    the 2 s window (``serve/batcher.py``); without a deadline the batch
+    waits the whole window. The batcher's clock is pinned and the wait it
+    asks the queue for is read off, so no request is timed against the
+    wall clock (the JAX package's own test times one, and fails when the
+    host is slow)."""
+    import time
+    import types
+
+    from hydragnn_tpu_torch.graphs.batching import PadSpec
+    from hydragnn_tpu_torch.serve import batcher as batcher_mod
+    from hydragnn_tpu_torch.serve.admission import Request
+
+    now = time.monotonic()
+    monkeypatch.setattr(batcher_mod, "time", types.SimpleNamespace(monotonic=lambda: now))
+    sample = GraphSample(x=np.zeros((5, 1), np.float32), graph_y=np.zeros(1, np.float32))
+    deadline = None if deadline_ms is None else now + deadline_ms / 1e3
+    queue = _ScriptedQueue([Request(sample=sample, deadline=deadline)])
+    pad = PadSpec(n_node=64, n_edge=256, n_graph=9, node_cap=16)
+    batcher = MicroBatcher(queue, [pad], flush_s=2.0)
+    members, got_pad = batcher.next_batch(block=False)
+    assert len(members) == 1 and got_pad == pad
+    window = 2.0 if deadline is None else deadline_ms / 1e3 - batcher_mod._DISPATCH_MARGIN_S
+    assert queue.waits == [pytest.approx(window, abs=1e-9)]

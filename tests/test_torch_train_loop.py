@@ -249,7 +249,7 @@ def _plain_state(model, aug):
 
 
 @pytest.mark.parametrize("section,key,value,what", [
-    ("Training", "steps_per_dispatch", 2, "supersteps"),
+    ("Architecture", "halo", {"enabled": True}, "halo exchange"),
     ("Training", "population", {"size": 2}, "population"),
     ("Training", "resilience", {"nonfinite_guard": True}, "resilience"),
     ("Architecture", "edge_sharding", True, "edge sharding"),
