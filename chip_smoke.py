@@ -83,8 +83,7 @@ logged (the last is a ``capture summary`` line).
    ``run_prediction``; where a train step's time goes, and the device's busy
    share under ``torch.profiler``, eager and captured; then (5b) the GIN
    with ``Training.steps_per_dispatch: 4``: its losses and final state
-   bit-equal to one step per dispatch over the same bucket-major plan, and
-   a 4-step replay's time per step beside a one-step replay's;
+   bit-equal to one step per dispatch over the same bucket-major plan;
 6. canaries: the tier-1 convergence canaries on the deterministic BCC
    dataset through ``run_training`` and ``run_prediction`` on the card, at
    the reference thresholds: GIN with one head and with four heads (head
@@ -2130,6 +2129,9 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
                                 f"[{card}] [{kind}] eager:", "predict steps"),
             "captured": busy_share(torch, [lambda b=b: predictor.answer(b) for b in dev_batches],
                                    f"[{card}] [{kind}] captured:", "predict replays")}
+        log_op_diff(f"[{card}] [{kind}] predict step:", summary["busy"]["captured"],
+                    summary["busy"]["eager"])
+        summary["busy"] = {k: _lean(v) for k, v in summary["busy"].items()}
 
     # the batch evaluator over the same samples
     fs.reset_launches()
@@ -2418,6 +2420,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
     eager_busy = None
     if device == "cuda":
         eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [{kind}] eager:")
+        log_op_diff(f"[{card}] [{kind}] train step:", captured["busy"], eager_busy)
     return {"launches": launches, "per_step": one_step, "breakdown": med, "layers": n_layers,
             "model": model, "aug": aug, "captured": captured, "eager_busy": eager_busy}
 
@@ -2446,12 +2449,34 @@ def busy_share(torch, calls, tag: str, what: str) -> dict | None:
         return None
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
     n = len(calls) - 1
+    names: dict = {}
+    for e in dev:
+        names[e.name[:80]] = names.get(e.name[:80], 0) + 1
     out = {"busy_us": busy_us / n, "wall_ms": wall_us / n / 1e3,
-           "busy_pct": 100 * busy_us / wall_us, "ops": len(dev) / n}
+           "busy_pct": 100 * busy_us / wall_us, "ops": len(dev) / n,
+           "by_name": {k: v / n for k, v in names.items()}}
     log(f"{tag} profiler over {n} {what}: device busy {out['busy_us']:.1f} us per call of "
         f"{out['wall_ms']:.3f} ms wall ({out['busy_pct']:.2f}% busy, "
         f"{100 - out['busy_pct']:.2f}% idle), {out['ops']:.0f} device operations per call")
     return out
+
+
+def log_op_diff(tag: str, captured: dict | None, eager: dict | None) -> dict:
+    """Log, and return, the device operations whose count per call differs
+    between a captured path and its eager step (:func:`busy_share`'s
+    ``by_name``): ``{name: [captured, eager]}``."""
+    if not captured or not eager:
+        return {}
+    a, b = captured["by_name"], eager["by_name"]
+    diff = {k: [round(a.get(k, 0), 2), round(b.get(k, 0), 2)] for k in sorted(set(a) | set(b))
+            if round(a.get(k, 0)) != round(b.get(k, 0))}
+    log(f"{tag} device operations per call that differ, [captured, eager]: {json.dumps(diff)}")
+    return diff
+
+
+def _lean(busy: dict | None) -> dict | None:
+    """:func:`busy_share`'s result without its per-name counts."""
+    return None if busy is None else {k: v for k, v in busy.items() if k != "by_name"}
 
 
 def superstep_phase(torch, seed: int, card: str = "", epochs: int = 2) -> dict:
@@ -2460,19 +2485,14 @@ def superstep_phase(torch, seed: int, card: str = "", epochs: int = 2) -> dict:
     its epoch losses and final state bit-equal to one step per dispatch over
     the same bucket-major plan (the epoch loop with the loader's
     ``set_superstep(4)``), its launch counts those of its train steps and
-    evaluations; then, at the top bucket, the time per step of a 4-step
-    replay beside a one-step replay's (host clock after a synchronise,
-    median of 10 blocks of 4 fresh device batches)."""
+    evaluations; returns both runs' seconds."""
     from hydragnn_tpu_torch import run_training
     from hydragnn_tpu_torch.config import update_config
-    from hydragnn_tpu_torch.graphs.batching import collate
     from hydragnn_tpu_torch.models import create_model_config
     from hydragnn_tpu_torch.ops import fused_scatter as fs
     from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
     from hydragnn_tpu_torch.train.loop import train_validate_test
-    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
-                                               resolve_precision)
-    from hydragnn_tpu_torch.train.superstep import make_superstep
+    from hydragnn_tpu_torch.train.step import create_train_state, resolve_precision
 
     cfg = qm9_config("gin")
     training = cfg["NeuralNetwork"]["Training"]
@@ -2513,37 +2533,13 @@ def superstep_phase(torch, seed: int, card: str = "", epochs: int = 2) -> dict:
     n_val, n_test = len(loaders[1]), len(loaders[2])
     want = _added(_scaled(launches_per_train_step("gin", layers), s4.step),
                   _scaled(launches_per_forward("gin", layers), epochs * (n_val + n_test)))
-    train = loaders[0]
-    hosts = [collate(train.samples[i:i + 64], train.pad) for i in range(0, 256, 64)]
-    step = make_train_step(torch.bfloat16)
-    superstep = make_superstep(step, 4)
-    twin = _twin(torch, s4)
-    blocks = [[h.to("cuda") for h in hosts] for _ in range(11)]
-    superstep(twin, blocks[0])
-    for b in blocks[0]:
-        superstep(twin, [b])
-    times4, times1 = [], []
-    for block in blocks[1:]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        superstep(twin, block)
-        torch.cuda.synchronize()
-        times4.append((time.perf_counter() - t0) * 1e3 / 4)
-        t0 = time.perf_counter()
-        for b in block:
-            superstep(twin, [b])
-        torch.cuda.synchronize()
-        times1.append((time.perf_counter() - t0) * 1e3 / 4)
-    out = {"k4_ms": float(np.median(times4)), "k1_ms": float(np.median(times1)),
-           "graphs": superstep.dispatch.graphs.stats()}
+    out = {"k4_s": wall4, "k1_s": wall1}
     log(f"[{card}] [gin] run_training with steps_per_dispatch 4: {len(h4)} epochs, {s4.step} "
         f"train steps in {wall4:.3f} s (one step per dispatch over the same bucket-major plan: "
         f"{wall1:.3f} s); epoch losses {'bit-equal' if same_losses else 'DIFFERENT'} "
         f"({[round(h['train_loss'], 6) for h in h4]}), final state "
         f"{'bit-equal' if not diffs else 'DIFFERENT: ' + ', '.join(diffs[:6])}; launches "
-        f"{launches} (expected {want}); at the top bucket a 4-step replay "
-        f"{out['k4_ms']:.3f} ms per step, a one-step replay {out['k1_ms']:.3f} ms per step "
-        f"(median of 10 blocks, host clock)")
+        f"{launches} (expected {want})")
     if not same_losses or diffs:
         raise AssertionError("supersteps: K = 4 differs from K = 1 over the same plan")
     if launches != want:
@@ -3522,6 +3518,7 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     eager_busy = None
     if device == "cuda":
         eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [mlip] eager:")
+        log_op_diff(f"[{card}] [mlip] train step:", captured["busy"], eager_busy)
     return {"launches": launches, "per_step": one_step, "breakdown": med, "model": model,
             "aug": aug, "layers": layers, "batch": host, "captured": captured,
             "eager_busy": eager_busy}
@@ -4051,12 +4048,13 @@ def main(argv=None) -> int:
         "serving": {k: served[k]["summary"] for k in MODELS},
         "train_step_ms": {k: {"eager": t["breakdown"]["step"],
                               "captured": t["captured"]["step_ms"],
-                              "busy_eager": t["eager_busy"], "busy_captured": t["captured"]["busy"]}
+                              "busy_eager": _lean(t["eager_busy"]),
+                              "busy_captured": _lean(t["captured"]["busy"])}
                           for k, t in dict(trained, mlip=mlip).items()},
-        "superstep_gin_ms_per_step": superstep,
+        "superstep_gin_s": superstep,
         "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
-                               "busy_eager": r["captured"]["eager_busy"],
-                               "busy_captured": r["captured"]["busy"]}
+                               "busy_eager": _lean(r["captured"]["eager_busy"]),
+                               "busy_captured": _lean(r["captured"]["busy"])}
                            for k, r in ran_md.items()},
     }
     log("capture summary (captured against eager, this run): " + json.dumps(summary))

@@ -1,37 +1,37 @@
 """CUDA graphs: the port's device-resident dispatch.
 
 Counterpart of the JAX package's ahead-of-time executables
-(``hydragnn_tpu/utils/compile_cache.py::aot_compile``), its supersteps' one
-dispatch per block and its MD ``lax.scan``, and of its zero-recompile
-sentinel (``hydragnn_tpu/analysis/sentinel.py::no_recompile``). Where the
-JAX package compiles one program per (path, bucket), the port captures the
-eager step once per (path, bucket, steps per replay) into a CUDA graph and
-replays it: a step of 600-2,100 small device operations becomes one launch
+(``hydragnn_tpu/utils/compile_cache.py::aot_compile``), its supersteps'
+dispatch (``train/superstep.py``) and its MD ``lax.scan``, and of its
+zero-recompile sentinel (``hydragnn_tpu/analysis/sentinel.py::no_recompile``).
+Where the JAX package compiles one program per (path, bucket), the port
+captures the eager step once per (path, bucket) into a CUDA graph and
+replays it: a step of 600-2,300 small device operations becomes one launch
 from the host.
 
 A :class:`StepGraphs` holds the graphs of one step function
-``fn(state, batches) -> outputs``:
+``fn(state, batch) -> outputs``:
 
-* the key is the number of batches a replay takes (K, the steps of a
-  superstep) and their signature: every field's shape and dtype (the
-  bucket) and the per-graph node bound of their meta;
-* a capture copies the first batches into static input slots, runs the
-  step :data:`WARMUP` times on a side stream (which builds the kernels and
-  sets up cuBLAS, autograd and the optimizer's state), puts back everything
+* the key is the batch's signature: every field's shape and dtype (the
+  bucket), the per-graph node bound of its meta and its sortedness
+  certificates;
+* a capture copies the first batch into static input slots, runs the step
+  :data:`WARMUP` times on a side stream (which builds the kernels and sets
+  up cuBLAS, autograd and the optimizer's state), puts back everything
   those runs changed (:func:`preserved`), and captures one run on a side
   stream; the kernel launches on that stream, from any thread (autograd
   runs backwards on its own), are the graph's record;
-* :meth:`StepGraphs.run` copies the batches' fields into the slots with
+* :meth:`StepGraphs.run` copies the batch's fields into the slots with
   ``copy_``, replays, adds the record to ``ops.fused_scatter.LAUNCHES`` and
   returns clones of the static outputs, which the next replay overwrites.
 
-The slots keep the batches' per-graph node bound, not their sortedness
-certificates: the CSR views are built inside the graph from the slots' ids
-by a stable argsort, which leaves sorted ids in place, so one graph serves
-every batch of its bucket and sums in the eager step's order. Each run hands
-the step fresh ``GraphBatch`` objects over the slots (an empty CSR cache),
-so the views are built inside the captured region, never taken from a
-warm-up's cache.
+The slots keep the batch's meta: the CSR views skip the argsort of the ids
+it certifies sorted, as the eager step does. A batch of a bucket whose
+graph certifies less (sorts ids the batch certifies sorted) replays that
+graph: a stable argsort leaves sorted ids in place, so it sums in the eager
+step's order. Each run hands the step a fresh ``GraphBatch`` over the slots
+(an empty CSR cache), so the views are built inside the captured region,
+never taken from a warm-up's cache.
 
 :class:`SegmentGraph` captures ``n`` applications of an MD step to a state
 of tensors (``md.run_md``'s trajectory segment).
@@ -51,7 +51,7 @@ import threading
 
 import torch
 
-from .graphs.graph import FIELDS, BatchMeta, GraphBatch
+from .graphs.graph import FIELDS, GraphBatch
 from .ops import fused_scatter as fs
 
 # eager runs of a step on a side stream before its capture
@@ -99,11 +99,25 @@ def _count_capture() -> None:
         _TOTAL["captures"] += 1
 
 
+_CERTIFICATES = ("recv_sorted", "send_sorted", "batch_sorted")
+
+
 def signature(batch: GraphBatch) -> tuple:
-    """What a graph is specialised to: every field's shape and dtype, and
-    the per-graph node bound (GPS's dense attention width)."""
+    """What a graph is specialised to: every field's shape and dtype, the
+    per-graph node bound (GPS's dense attention width) and which id arrays
+    the meta certifies sorted."""
     fields = tuple((tuple(getattr(batch, f).shape), getattr(batch, f).dtype) for f in FIELDS)
-    return fields, None if batch.meta is None else batch.meta.max_n_node
+    meta = batch.meta
+    if meta is None:
+        return fields, None, (False,) * len(_CERTIFICATES)
+    return fields, meta.max_n_node, tuple(bool(getattr(meta, c)) for c in _CERTIFICATES)
+
+
+def _serves(graph_key: tuple, key: tuple) -> bool:
+    """Whether the graph of ``graph_key`` answers a batch of ``key`` as its
+    own graph would: same shapes and node bound, and every id array the
+    graph takes as sorted certified sorted in the batch."""
+    return graph_key[:2] == key[:2] and all(b or not g for g, b in zip(graph_key[2], key[2]))
 
 
 def bucket_of(batch: GraphBatch) -> tuple[int, int, int, int]:
@@ -112,12 +126,8 @@ def bucket_of(batch: GraphBatch) -> tuple[int, int, int, int]:
 
 
 def _static_copy(batch: GraphBatch, device) -> GraphBatch:
-    meta = None if batch.meta is None else BatchMeta(max_n_node=batch.meta.max_n_node)
-    return GraphBatch(**{f: getattr(batch, f).to(device, copy=True) for f in FIELDS}, meta=meta)
-
-
-def _fresh(slots: list[GraphBatch]) -> list[GraphBatch]:
-    return [s.replace() for s in slots]
+    return GraphBatch(**{f: getattr(batch, f).to(device, copy=True) for f in FIELDS},
+                      meta=batch.meta)
 
 
 def clone_tree(x):
@@ -171,14 +181,14 @@ def preserved(state):
 @dataclasses.dataclass
 class Graph:
     """One captured graph: its static input slots, its static outputs, the
-    kernel launches of one replay, and the batches the captured run saw
-    (their CSR views, whose tickets are back at 0 after every replay)."""
+    kernel launches of one replay, and the batch the captured run saw (its
+    CSR views, whose tickets are back at 0 after every replay)."""
 
     graph: "torch.cuda.CUDAGraph"
-    slots: list
+    slots: GraphBatch
     outputs: object
     launches: dict
-    views: list
+    view: GraphBatch
     replays: int = 0
 
 
@@ -207,14 +217,13 @@ def _capture(warm, run, device, generator=None, before=contextlib.nullcontext):
 
 
 class StepGraphs:
-    """The CUDA graphs of ``fn(state, batches) -> outputs``, one per
-    (number of batches, batch signature), captured at first use.
-    ``train``: ``fn`` is a run of train steps, which change ``state`` (a
-    ``TrainState``): the warm-up's changes are undone, the state's dropout
-    generator is registered with the graph, and every replay advances
-    ``state.step`` by the number of batches. ``name`` names the path in
-    errors and reports; ``device``, when given, is the card the graphs run
-    on, and the batches may then lie on the host (they are copied into the
+    """The CUDA graphs of ``fn(state, batch) -> outputs``, one per batch
+    signature, captured at first use. ``train``: ``fn`` is a train step,
+    which changes ``state`` (a ``TrainState``): the warm-up's changes are
+    undone, the state's dropout generator is registered with the graph, and
+    every replay advances ``state.step``. ``name`` names the path in errors
+    and reports; ``device``, when given, is the card the graphs run on, and
+    the batches may then lie on the host (they are copied into the
     slots)."""
 
     def __init__(self, fn, name: str, train: bool = False, device=None):
@@ -226,87 +235,75 @@ class StepGraphs:
         self.captures = 0
         self._state = None
 
-    @staticmethod
-    def _key(batches) -> tuple:
-        sig = signature(batches[0])
-        for b in batches[1:]:
-            if signature(b) != sig:
-                raise ValueError("one replay takes batches of one bucket and node bound")
-        return len(batches), sig
-
-    def capture(self, state, batches) -> Graph:
-        """The graph for ``batches`` (captured now if it is new)."""
-        key = self._key(batches)
+    def capture(self, state, batch) -> Graph:
+        """The graph that answers ``batch`` (captured now if none does)."""
+        key = signature(batch)
         g = self.graphs.get(key)
+        if g is None:
+            g = next((g for k, g in self.graphs.items() if _serves(k, key)), None)
         if g is not None:
             return g
-        device = self.device or batches[0].device
+        device = self.device or batch.device
         if device.type != "cuda":
             raise ValueError(f"{self.name}: CUDA graphs run on the card, not on {device}")
-        _check_guards(f"{self.name}, {len(batches)} batch(es) of bucket "
-                      f"{bucket_of(batches[0])}")
+        _check_guards(f"{self.name}, bucket {bucket_of(batch)}")
         if self._state is None:
             self._state = state
         with _CAPTURE_LOCK:
-            slots = [_static_copy(b, device) for b in batches]
-            views = _fresh(slots)
+            slots = _static_copy(batch, device)
+            view = slots.replace()
             step = state.step if self.train else None
             graph, outputs, launches = _capture(
-                lambda: self.fn(state, _fresh(slots)), lambda: self.fn(state, views), device,
+                lambda: self.fn(state, slots.replace()), lambda: self.fn(state, view), device,
                 generator=state.generator if self.train else None,
                 before=(lambda: preserved(state)) if self.train else contextlib.nullcontext)
             if self.train:
                 state.step = step
-        g = Graph(graph=graph, slots=slots, outputs=outputs, launches=launches, views=views)
+        g = Graph(graph=graph, slots=slots, outputs=outputs, launches=launches, view=view)
         self.graphs[key] = g
         self.captures += 1
         return g
 
-    def run(self, state, batches):
-        """``fn(state, batches)`` by a replay of their graph (captured
-        first if new); returns clones of its outputs."""
+    def run(self, state, batch):
+        """``fn(state, batch)`` by a replay of its graph (captured first if
+        new); returns clones of its outputs."""
         if self._state is not None and state is not self._state:
             raise ValueError(f"{self.name}: these graphs were captured against another state")
-        g = self.capture(state, batches)
+        g = self.capture(state, batch)
         with torch.no_grad():
-            for slot, b in zip(g.slots, batches):
-                for f in FIELDS:
-                    getattr(slot, f).copy_(getattr(b, f))
+            for f in FIELDS:
+                getattr(g.slots, f).copy_(getattr(batch, f))
         g.graph.replay()
         g.replays += 1
         fs.add_launches(g.launches)
         if self.train:
-            state.step += len(batches)
+            state.step += 1
         return clone_tree(g.outputs)
 
     def stats(self) -> dict:
-        """Captures, graphs by bucket and steps per replay, and replays."""
+        """Captures, the buckets of the graphs, and replays."""
         return {
             "captures": self.captures,
-            "graphs": sorted((k[0], bucket_of(g.slots[0])) for k, g in self.graphs.items()),
+            "graphs": sorted(bucket_of(g.slots) for g in self.graphs.values()),
             "replays": sum(g.replays for g in self.graphs.values()),
         }
 
 
 class Dispatch:
     """``step(state, batch)`` routed by device: on the card a replay of the
-    step's graph for the batch's bucket, on the CPU the eager step itself.
-    :meth:`block` runs a step per batch, several in one replay; ``graphs``
-    holds the captures. ``train`` and ``device``: see :class:`StepGraphs`
-    (without ``device`` the batches' own device routes)."""
+    step's graph for the batch's bucket, on the CPU the eager step itself;
+    ``graphs`` holds the captures. ``train`` and ``device``: see
+    :class:`StepGraphs` (without ``device`` the batch's own device
+    routes)."""
 
     def __init__(self, step, name: str, train: bool = False, device=None):
         self.step = step
-        self.graphs = StepGraphs(lambda state, batches: [step(state, b) for b in batches],
-                                 name, train=train, device=device)
+        self.graphs = StepGraphs(step, name, train=train, device=device)
 
     def __call__(self, state, batch):
-        return self.block(state, [batch])[0]
-
-    def block(self, state, batches) -> list:
-        if (self.graphs.device or batches[0].device).type == "cuda":
-            return self.graphs.run(state, batches)
-        return [self.step(state, b) for b in batches]
+        if (self.graphs.device or batch.device).type == "cuda":
+            return self.graphs.run(state, batch)
+        return self.step(state, batch)
 
 
 class SegmentGraph:

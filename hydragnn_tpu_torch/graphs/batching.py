@@ -185,7 +185,8 @@ def collate_numpy(samples: Sequence[GraphSample], pad: PadSpec) -> dict[str, np.
     return a
 
 
-def _is_sorted(ids: np.ndarray) -> bool:
+def is_sorted(ids: np.ndarray) -> bool:
+    """Whether ``ids`` are non-decreasing (a ``BatchMeta`` certificate)."""
     return bool(ids.size < 2 or np.all(ids[1:] >= ids[:-1]))
 
 
@@ -207,9 +208,9 @@ def batch_meta(arrays: dict[str, np.ndarray], node_cap: int = 0,
         bound = pow2
     return BatchMeta(
         max_n_node=bound,
-        recv_sorted=_is_sorted(arrays["receivers"]),
-        send_sorted=_is_sorted(arrays["senders"]),
-        batch_sorted=_is_sorted(arrays["batch"]),
+        recv_sorted=is_sorted(arrays["receivers"]),
+        send_sorted=is_sorted(arrays["senders"]),
+        batch_sorted=is_sorted(arrays["batch"]),
     )
 
 
@@ -323,14 +324,14 @@ class GraphLoader:
         self.epoch = int(epoch)
 
     def set_superstep(self, k: int) -> None:
-        """Superstep blocks (``train/superstep.py``): the epoch loop runs
-        ``k`` consecutive batches per replay, which must share one bucket.
-        :meth:`batch_plan` then orders the epoch bucket-major: each
-        bucket's batches in runs of ``k``, and the leftover batches (fewer
-        than ``k`` in a bucket) re-collated to the component-wise max of the
-        bucket table and put at the epoch's tail, so no sample is dropped
-        and every block's shape comes from the table. The plan is the JAX
-        loader's (``set_superstep`` with one device), index for index."""
+        """Superstep blocks (``train/superstep.py``): runs of ``k``
+        consecutive batches of one bucket. :meth:`batch_plan` then orders
+        the epoch bucket-major: each bucket's batches in runs of ``k``, and
+        the leftover batches (fewer than ``k`` in a bucket) re-collated to
+        the component-wise max of the bucket table and put at the epoch's
+        tail, so no sample is dropped and every block's shape comes from the
+        table. The plan is the JAX loader's (``set_superstep`` with one
+        device), index for index."""
         self.block = max(1, int(k))
 
     def _epoch_indices(self) -> np.ndarray:
@@ -411,11 +412,11 @@ class GraphLoader:
 
 def background_iter(iterable, depth: int = 2):
     """Consume ``iterable`` in a daemon worker thread, up to ``depth``
-    finished items ahead of the consumer: the one producer/consumer
-    machinery of :class:`PrefetchLoader` (collate and host-to-device copy)
-    and ``train.superstep.double_buffer`` (block staging). Exceptions of the
-    worker re-raise in the consumer; a consumer that stops early stops the
-    worker at its next put."""
+    finished items ahead of the consumer (:class:`PrefetchLoader`'s
+    collate and host-to-device copy; the port's counterpart of the JAX
+    package's ``double_buffer`` too, since a block is its batches).
+    Exceptions of the worker re-raise in the consumer; a consumer that stops
+    early stops the worker at its next put."""
     q: queue.Queue = queue.Queue(maxsize=max(1, int(depth)))
     stop = threading.Event()
     done = object()
@@ -501,5 +502,6 @@ __all__ = [
     "collate_numpy",
     "compute_pad_buckets",
     "compute_pad_spec",
+    "is_sorted",
     "pick_bucket",
 ]

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..capture import no_new_captures
-from ..graphs.batching import PadSpec, compute_pad_buckets, pick_bucket
+from ..graphs.batching import PadSpec, compute_pad_buckets, is_sorted, pick_bucket
 from ..graphs.graph import GraphSample
 from ..utils import resolve_device
 from .admission import (
@@ -239,10 +239,9 @@ class ModelEndpoint:
         then, with ``quantize``, the int8 half (:meth:`warm_quant`), then
         :meth:`verify`; returns seconds per bucket."""
         report = {}
-        dummy = _dummy_sample(self.example)
         for pad in self.buckets:
             t0 = time.perf_counter()
-            self.predictor.answer(serving_collate([dummy], pad))
+            self.predictor.answer(self.warm_batch(pad))
             if self.predictor.device.type == "cuda":
                 torch.cuda.synchronize(self.predictor.device)
             report[repr(pad)] = time.perf_counter() - t0
@@ -256,13 +255,23 @@ class ModelEndpoint:
         """A dummy batch through every bucket's graphs, fp32 and int8, under
         ``capture.no_new_captures``: the JAX warm-up's ``no_recompile(0)``
         pass."""
-        dummy = _dummy_sample(self.example)
         with no_new_captures(f"serving warm-up verify [{self.name}]"):
             for pad in self.buckets:
-                self.predictor.answer(serving_collate([dummy], pad))
+                self.predictor.answer(self.warm_batch(pad))
                 step = self.quant_steps.get(pad.as_tuple())
                 if step is not None:
-                    self.predictor.answer(serving_collate([dummy], pad), step=step)
+                    self.predictor.answer(self.warm_batch(pad), step=step)
+
+    def warm_batch(self, pad: PadSpec):
+        """The warm-up's dummy batch of bucket ``pad``, certified as the
+        example's batches are: a batch of samples whose ids are ordered as
+        the example's certifies the same arrays sorted, so the graph
+        captured on the dummy serves them (a one-node dummy would certify
+        every array sorted, and traffic would need graphs of its own)."""
+        batch = serving_collate([_dummy_sample(self.example)], pad)
+        ex = self.example
+        return batch.replace(meta=dataclasses.replace(
+            batch.meta, recv_sorted=is_sorted(ex.receivers), send_sorted=is_sorted(ex.senders)))
 
     def warm_quant(self) -> dict:
         """The int8 half of warm-up (``serve.quant``): per bucket, activation

@@ -9,10 +9,10 @@ best-model checkpoint and early stopping run. A split's per-head RMSE is
 one square root of its summed squared errors.
 
 On the card every step is a replay of a CUDA graph (``capture.py``): the
-train step per bucket, or with ``Training.steps_per_dispatch`` = K > 1 a
-K-step superstep per bucket over the loader's bucket-major blocks
-(``train/superstep.py``), and the eval step per bucket. On the CPU the
-same loop runs the eager steps.
+train step and the eval step per bucket. With
+``Training.steps_per_dispatch`` = K > 1 the loader plans the epoch
+bucket-major, in blocks of K (``train/superstep.py``). On the CPU the same
+loop runs the eager steps.
 
 The step metrics stay on the device until the epoch ends and come to the
 host in one transfer. Not in this slice (they raise ``NotImplementedError``
@@ -32,7 +32,7 @@ from ..capture import Dispatch
 from .checkpoint import Checkpoint, EarlyStopping
 from .optimizer import ReduceLROnPlateau, get_learning_rate, set_learning_rate
 from .step import TrainState, make_eval_step, make_train_step, resolve_loss_scale
-from .superstep import Superstep, double_buffer, make_superstep, resolve_steps_per_dispatch
+from .superstep import Superstep, make_superstep, resolve_steps_per_dispatch
 
 
 def _log(verbosity: int, msg: str) -> None:
@@ -59,28 +59,11 @@ def _batches(loader, device):
         yield batch if batch.device == device else batch.to(device)
 
 
-def _blocks(batches, k: int):
-    """Consecutive runs of ``k`` batches; the last may be shorter."""
-    block = []
-    for batch in batches:
-        block.append(batch)
-        if len(block) == k:
-            yield block
-            block = []
-    if block:
-        yield block
-
-
 def train_epoch(superstep: Superstep, state: TrainState, loader):
-    """One epoch of train steps, ``superstep.k`` per dispatch (the blocks
-    staged one ahead in a worker thread when K > 1); returns (mean loss,
-    per-task mean losses)."""
+    """One epoch of train steps (the loader plans the blocks); returns
+    (mean loss, per-task mean losses)."""
     device = next(state.model.parameters()).device
-    blocks = _blocks(_batches(loader, device), superstep.k)
-    if superstep.k > 1:
-        blocks = double_buffer(blocks)
-    metrics = [m for block in blocks for m in superstep(state, block)]
-    loss, tasks, _ = accumulate(metrics)
+    loss, tasks, _ = accumulate(superstep(state, _batches(loader, device)))
     return loss, tasks
 
 

@@ -52,8 +52,9 @@ class CapturableAdam(torch.optim.Optimizer):
     rounded to float32 where the foreach kernels round them, every
     per-element operation is the same foreach operation, and its last,
     ``p + step_size * (m / d)`` (an ``addcdiv`` by a host scalar there), is
-    the quotient, then ``addcmul_`` by the 0-d step size: the same fused
-    multiply-add. A group's parameters step together (every train step
+    the quotient, then ``_foreach_addcmul_`` by the 0-d step size: the same
+    fused multiply-add, in fewer launches than an ``addcmul_`` per
+    parameter. A group's parameters step together (every train step
     gives each one a gradient), so its first step count serves them all."""
 
     def __init__(self, params, lr: torch.Tensor, betas=(0.9, 0.999), eps: float = 1e-8,
@@ -99,8 +100,8 @@ class CapturableAdam(torch.optim.Optimizer):
             denom = torch._foreach_sqrt(exp_avg_sqs)
             torch._foreach_div_(denom, torch.pow(1 - torch.pow(beta2, t), 0.5).float())
             torch._foreach_add_(denom, group["eps"])
-            for p, q in zip(params, torch._foreach_div(exp_avgs, denom)):
-                p.addcmul_(q, step_size)
+            torch._foreach_addcmul_(params, torch._foreach_div(exp_avgs, denom),
+                                    [step_size] * len(params))
 
 
 class CapturableSGD(torch.optim.Optimizer):
@@ -117,10 +118,10 @@ class CapturableSGD(torch.optim.Optimizer):
         if closure is not None:
             raise ValueError("CapturableSGD takes no closure")
         for group in self.param_groups:
-            rate = (-group["lr"]).float()
-            for p in group["params"]:
-                if p.grad is not None:
-                    p.addcmul_(p.grad, rate)
+            params = [p for p in group["params"] if p.grad is not None]
+            if params:
+                torch._foreach_addcmul_(params, [p.grad for p in params],
+                                        [(-group["lr"]).float()] * len(params))
 
 
 def select_optimizer(optimizer_config: dict, params) -> torch.optim.Optimizer:

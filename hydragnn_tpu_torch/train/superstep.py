@@ -1,28 +1,31 @@
-"""Device-resident supersteps: K train steps per dispatch.
+"""Supersteps: ``Training.steps_per_dispatch`` = K train steps per block.
 
 Counterpart of ``hydragnn_tpu/train/superstep.py``. The JAX package folds K
-train steps into one ``lax.scan`` over a ``[K, ...]`` block; the port
-captures K train steps over K static batch slots as one CUDA graph per
-bucket (``capture.StepGraphs``) and replays it, so the host touches the card
-once per K batches.
+train steps into one ``lax.scan`` over a ``[K, ...]`` block, so the host
+dispatches once per K batches. On the card the port's train step is
+already one launch from the host, a replay of its CUDA graph
+(``capture.py``), so a block replays the bucket's one-step graph once per
+batch. A K-step graph was measured against it on an H100 (``chip_smoke.py``:
+2.415 against 2.157 ms per step at the qm9 top bucket) and dropped: it
+saved no launch worth its copy of K batches before the replay, and it
+doubled the captured train graphs per bucket.
+
+What K keeps is the JAX loader's plan: ``GraphLoader.set_superstep`` orders
+the epoch bucket-major (``PrefetchLoader.set_superstep`` passes it on and
+buffers a block ahead), so a K-step run trains on the batches, in the order,
+of the JAX package's K-step run.
 
 Contracts (``tests/test_torch_superstep.py`` on the CPU,
 ``tests/test_torch_capture_gpu.py`` on the card):
 
-* **Exact parity**: a K-step replay leaves the state (parameters, running
+* **Exact parity**: a block leaves the state (parameters, running
   statistics, optimizer moments and step count, dropout generator) and the
-  metrics bit-identical to K single train steps on the same batches, in
-  fp32: the graph holds the same step K times.
-* **The trailing partial block**: the loader's bucket-major plan
-  (``GraphLoader.set_superstep``) gives every block one bucket, and the
-  epoch's last block may hold fewer than K batches. The JAX package fills
-  it with masked batches and selects the old state back after each fill
-  step. The port replays the bucket's one-step graph once per real batch
-  of the tail: no fill batch, no select over every state leaf, and the
-  state after the tail is the state after training on the real batches
+  metrics bit-identical to its single train steps, in fp32.
+* **The trailing partial block**: the JAX package fills the epoch's last
+  block with masked batches and selects the old state back after each fill
+  step. The port's blocks have no fixed length: the tail is its real
+  batches, and the state after it is the state after training on them
   only, by construction.
-* **Bounded captures**: one K-step graph and one one-step graph at most
-  per bucket of the table.
 
 The JAX package's ``HYDRAGNN_SUPERSTEP`` override lives in its
 ``utils/flags``, which the port has not ported yet: K is
@@ -32,7 +35,6 @@ The JAX package's ``HYDRAGNN_SUPERSTEP`` override lives in its
 from __future__ import annotations
 
 from ..capture import Dispatch
-from ..graphs.batching import background_iter
 
 
 def resolve_steps_per_dispatch(training_cfg: dict) -> int:
@@ -42,34 +44,23 @@ def resolve_steps_per_dispatch(training_cfg: dict) -> int:
 
 
 class Superstep:
-    """``(state, batches) -> per-step metrics``: a block of ``k`` batches of
-    one bucket in one replay of its ``k``-step graph (the CPU runs the
-    eager steps one by one); a shorter block, the epoch's tail, replays the
-    one-step graph once per batch. ``dispatch`` holds the graphs."""
+    """``(state, batches) -> per-step metrics``: a block of batches (any
+    iterable), each through the train step's :class:`~..capture.Dispatch`
+    (on the card a replay of its bucket's graph, on the CPU the eager
+    step). ``k`` is the block length the loader plans for."""
 
     def __init__(self, train_step, k: int):
         self.k = max(1, int(k))
         self.dispatch = Dispatch(train_step, "train", train=True)
 
     def __call__(self, state, batches) -> list[dict]:
-        if len(batches) == self.k:
-            return self.dispatch.block(state, batches)
-        return [m for b in batches for m in self.dispatch.block(state, [b])]
+        return [self.dispatch(state, b) for b in batches]
 
 
 def make_superstep(train_step, k: int) -> Superstep:
     """The superstep of ``train_step`` (``(state, batch) -> metrics``, the
-    eager step) over blocks of ``k`` batches; ``k = 1`` is one step per
-    dispatch, through the same graphs."""
+    eager step) over blocks of ``k`` batches."""
     return Superstep(train_step, k)
 
 
-def double_buffer(iterable, depth: int = 2):
-    """Stage ``iterable``'s blocks in a worker thread, ``depth`` ahead, so
-    the next block's host work overlaps the current replay (the shared
-    ``graphs.batching.background_iter``: order kept, the worker's errors
-    raised in the consumer)."""
-    return background_iter(iterable, depth=depth)
-
-
-__all__ = ["Superstep", "double_buffer", "make_superstep", "resolve_steps_per_dispatch"]
+__all__ = ["Superstep", "make_superstep", "resolve_steps_per_dispatch"]

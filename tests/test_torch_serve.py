@@ -277,3 +277,30 @@ def test_flush_window_clamped_to_deadline(monkeypatch, deadline_ms):
     assert len(members) == 1 and got_pad == pad
     window = 2.0 if deadline is None else deadline_ms / 1e3 - batcher_mod._DISPATCH_MARGIN_S
     assert queue.waits == [pytest.approx(window, abs=1e-9)]
+
+
+def test_warm_batch_certifies_what_traffic_certifies(served):
+    """The warm-up's dummy batch of each bucket carries the sortedness
+    certificates of a batch of real samples in that bucket, so the graph
+    captured on it serves them and skips the argsorts their eager step
+    skips; a one-node dummy alone would certify every id array sorted."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.graphs.batching import pick_bucket
+    from hydragnn_tpu_torch.serve.batcher import serving_collate
+    from hydragnn_tpu_torch.serve.server import _dummy_sample
+
+    server, ps = _boot(served, flush_ms=1.0)
+    ep = server._models["gin"]
+    assert any(not np.all(np.diff(s.senders) >= 0) for s in ps), "need unsorted senders"
+    names = ("recv_sorted", "send_sorted", "batch_sorted")
+    for i, k in enumerate((1, 2, 3, 5, 8)):
+        group = ps[8 * i:8 * i + k]
+        pad = pick_bucket(ep.buckets, sum(s.num_nodes for s in group),
+                          sum(s.num_edges for s in group), n_graphs=len(group))
+        real = serving_collate(group, pad)
+        warm = ep.warm_batch(pad)
+        assert [getattr(warm.meta, n) for n in names] == [getattr(real.meta, n) for n in names]
+        assert capture.signature(warm) == capture.signature(real)
+    dummy = serving_collate([_dummy_sample(ps[0])], ep.buckets[0])
+    assert all(getattr(dummy.meta, n) for n in names)
+    assert not all(getattr(ep.warm_batch(ep.buckets[0]).meta, n) for n in names)

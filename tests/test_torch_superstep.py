@@ -9,10 +9,12 @@ CPU (the graphs themselves run on the card: ``test_torch_capture_gpu.py``).
   (rtol 1e-4, the train-loss tolerance of ``test_torch_train_loop.py``);
 - ``run_training`` takes ``steps_per_dispatch: 4`` and gives the losses of
   K = 1 over the same plan, exactly;
-- ``PrefetchLoader.set_superstep`` and ``double_buffer``;
+- ``PrefetchLoader.set_superstep`` and its one producer thread
+  (``background_iter``, the port's ``double_buffer``);
 - ``capture.preserved`` puts a train state back exactly, the CPU route
-  captures nothing, the optimizers' device learning rate and in-place
-  state load;
+  captures nothing, a graph's key holds the batch's sortedness
+  certificates, the optimizers' device learning rate and in-place state
+  load;
 - the dense MD build's static compaction gives ``torch.nonzero``'s edges.
 """
 
@@ -31,7 +33,7 @@ from hydragnn_tpu.train.loop import train_epoch as jax_train_epoch
 from hydragnn_tpu_torch import capture
 from hydragnn_tpu_torch.config import update_config
 from hydragnn_tpu_torch.datasets import deterministic_graph_data
-from hydragnn_tpu_torch.graphs.batching import GraphLoader, PrefetchLoader
+from hydragnn_tpu_torch.graphs.batching import GraphLoader, PrefetchLoader, background_iter
 from hydragnn_tpu_torch.models import create_model_config
 from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
 from hydragnn_tpu_torch.train.loop import accumulate, train_epoch, train_validate_test
@@ -43,11 +45,7 @@ from hydragnn_tpu_torch.train.optimizer import (
     set_learning_rate,
 )
 from hydragnn_tpu_torch.train.step import TrainState, create_train_state, make_train_step
-from hydragnn_tpu_torch.train.superstep import (
-    double_buffer,
-    make_superstep,
-    resolve_steps_per_dispatch,
-)
+from hydragnn_tpu_torch.train.superstep import make_superstep, resolve_steps_per_dispatch
 from test_torch_train_step import Setup, single_head_config
 
 
@@ -193,13 +191,15 @@ def test_prefetch_loader_passes_set_superstep_on_and_double_buffer_keeps_order()
     want = [b.x for b in loader]
     assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
-    assert list(double_buffer(iter(range(50)), depth=3)) == list(range(50))
+    # the JAX package's double_buffer stages stacked blocks; the port's
+    # blocks are their batches, which the prefetch thread already stages
+    assert list(background_iter(iter(range(50)), depth=3)) == list(range(50))
 
     def broken():
         yield 1
         raise RuntimeError("staging failed")
 
-    it = double_buffer(broken())
+    it = background_iter(broken())
     assert next(it) == 1
     with pytest.raises(RuntimeError, match="staging failed"):
         next(it)
@@ -236,13 +236,42 @@ def test_cpu_route_runs_the_eager_step_and_captures_nothing():
     dispatch = capture.Dispatch(step, "train", train=True)
     before = capture.total_captures()
     with capture.no_new_captures("a CPU epoch"):
-        got = dispatch.block(state, batches)
+        got = [dispatch(state, b) for b in batches]
     want = [step(twin, b) for b in batches]
     assert all(torch.equal(g["loss"], w["loss"]) for g, w in zip(got, want))
     assert dispatch.graphs.captures == 0 and capture.total_captures() == before
     _assert_states_equal(state, twin)
     with pytest.raises(ValueError, match="run on the card"):
-        capture.StepGraphs(lambda s, b: b, "x").capture(state, batches[:1])
+        capture.StepGraphs(lambda s, b: b, "x").capture(state, batches[0])
+
+
+def test_graph_key_holds_the_sortedness_certificates():
+    """A graph is keyed by the batch's sortedness certificates as well as
+    its shapes, and its slots keep them, so the CSR views built inside it
+    skip the argsorts the eager step skips; a graph that argsorts an array
+    also serves a batch that certifies it sorted (a stable argsort leaves
+    sorted ids in place), never the other way round."""
+    import dataclasses
+
+    samples = deterministic_graph_data(number_configurations=40, seed=7)
+    batch = next(iter(GraphLoader(samples, 8, buckets=1)))
+    meta = batch.meta
+    assert meta.recv_sorted and meta.batch_sorted
+    key = capture.signature(batch)
+    assert key[2] == (meta.recv_sorted, meta.send_sorted, meta.batch_sorted)
+    weaker = capture.signature(batch.replace(meta=dataclasses.replace(
+        meta, recv_sorted=False, batch_sorted=False)))
+    stronger = capture.signature(batch.replace(meta=dataclasses.replace(
+        meta, send_sorted=True)))
+    assert weaker != key and stronger != key
+    assert capture._serves(key, key) and capture._serves(weaker, key)
+    assert not capture._serves(key, weaker) and not capture._serves(stronger, key)
+    other = next(iter(GraphLoader(samples[:20], 4, buckets=1)))
+    assert not capture._serves(capture.signature(other), key)
+    slots = capture._static_copy(batch, "cpu")
+    assert slots.meta == meta
+    view = slots.replace()
+    assert view.csr("receivers").perm is None and view.csr("batch").perm is None
 
 
 def test_optimizer_learning_rate_and_state_keep_their_tensors():
