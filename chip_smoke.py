@@ -8,13 +8,18 @@ Three configurations of ``examples/qm9/qm9.json`` at its published widths
 pooling, bf16, batch 64, AdamW lr 1e-3), random weights from ``--seed``:
 the GIN itself, its GAT variant (``mpnn_type`` GAT: 6 heads, layers 0-2
 concatenated to 384 features) and its GPS-GIN variant (GPS multihead
-attention, 4 heads, Laplacian positional encodings of width 4). Then the
+attention, 4 heads, Laplacian positional encodings of width 4); and its
+variants on the six invariant stacks, with the knobs of ``bench.py``'s
+arch sweep: SAGE, MFC (``max_neighbours`` 20), SchNet (20 Gaussians, 64
+filters), PNA, PNAPlus (5 radial functions, envelope exponent 5) and
+CGCNN (its width the input's, 1, as the reference forces it). Then the
 interatomic potential of ``bench.py``'s ``oc20`` row (EGNN, hidden 64, 3
 conv layers, equivariance on, add pooling, energy + 10 x force loss, fp32,
 batch 64) and molecular dynamics: that EGNN on a 1,000-atom LJ cell, and
 an analytic LJ potential on ``bench.py``'s 8,000-atom MD lattice. Each
-trained qm9 model also serves int8 (``Serving.quantize``), and the trained
-GIN's Dense layers go through the experimental fp8 layer.
+of the first three trained qm9 models also serves int8
+(``Serving.quantize``), and the trained GIN's Dense layers go through the
+experimental fp8 layer.
 
 Phases (any failure exits non-zero; the last line of standard output is the
 device JSON only when every phase passed):
@@ -37,11 +42,14 @@ device JSON only when every phase passed):
    pieces and combine chains (``csr_sum_emulation``), at B2's main shapes
    (pooling, GAT's aggregation and softmax backward, the oc20 MLIP batch's
    message sum and pooling), fp32 and bf16, sorted and shuffled ids, and
-   at B1's forward and transposed launch. Device times per call (CUDA-graph replay between CUDA events) beside the
-   plain version, a one-call PyTorch yardstick (``torch.sparse.softmax``,
-   which synchronises with the host, timed by events around back-to-back
-   calls) and the bound (B2 at its four main shapes beside ``index_add_``;
-   B4 in fp32 and bf16 beside ``torch.softmax``); then (3b) the int8 dense kernel B6 against its
+   at B1's forward and transposed launch; B1 at SchNet's sum (a weight per
+   edge and channel, [E, 64]), forward, transposed launch and the filters'
+   gradient through autograd, fp32 and bf16. Device times per call
+   (CUDA-graph replay between CUDA events) beside the plain version, a
+   one-call PyTorch yardstick (``torch.sparse.softmax``, which synchronises
+   with the host, timed by events around back-to-back calls) and the bound
+   (B1 also at SchNet's shape; B2 at its five main shapes beside
+   ``index_add_``; B4 in fp32 and bf16 beside ``torch.softmax``); then (3b) the int8 dense kernel B6 against its
    plain version at every Dense call of the GIN's served forward (fp32 and
    bf16 inputs, K = 1 and N = 1 layers included), GAT's 384 x 384 lin_l and
    a ragged row count (codes and int32 sums equal, y within 1 ulp), and the
@@ -88,7 +96,9 @@ logged (the last is a ``capture summary`` line).
    dataset through ``run_training`` and ``run_prediction`` on the card, at
    the reference thresholds: GIN with one head and with four heads (head
    RMSE < 0.25, sample MAE < 0.20), GAT (< 0.60 / < 0.70), GPS-GIN (RMSE of
-   the graph head < 0.35);
+   the graph head < 0.35), and the six invariant stacks in the 4-head
+   configuration of ``tests/test_training_e2e.py``'s arch sweep
+   (``CANARY_OVERRIDES``) at its ``THRESHOLDS`` on every head;
 7. the repaired backwards (phase 3, right after the kernels): second
    derivatives through ``fused_segment_sum``, ``gather_rows``,
    ``gather_scatter_sum`` and ``segment_softmax``, kernels against plain
@@ -228,12 +238,31 @@ MODELS = {
     "gps": {"global_attn_engine": "GPS", "global_attn_type": "multihead",
             "global_attn_heads": 4, "pe_dim": 4},
 }
+# the six invariant stacks at qm9.json's widths, with the per-stack knobs of
+# bench.py's arch sweep (ARCH_SWEEP_OVERRIDES); CGCNN's width is its input's
+# (update_config, as the reference forces it without GPS). They train and
+# serve like the three above, without the int8 phase
+STACKS = {
+    "sage": {"mpnn_type": "SAGE"},
+    "mfc": {"mpnn_type": "MFC", "max_neighbours": 20},
+    "schnet": {"mpnn_type": "SchNet", "num_gaussians": 20, "num_filters": 64},
+    "pna": {"mpnn_type": "PNA"},
+    "pnaplus": {"mpnn_type": "PNAPlus", "num_radial": 5, "envelope_exponent": 5},
+    "cgcnn": {"mpnn_type": "CGCNN"},
+}
+ARCH_KNOBS = {**MODELS, **STACKS}
+# the stacks that gather node rows onto the edges (gather_rows, backward
+# B2) and sum the messages with B2: their segment sums per layer (the
+# others' neighbour sum is the gather-scatter kernel B1, GAT's aside)
+EDGE_SUM_STACKS = {"pna": 3, "pnaplus": 3, "cgcnn": 1}
 GAT_HEADS = 6  # the reference GAT stack's fixed head count
 # the CSR views a predict step of each model reads (GAT: its extended
 # receivers, self loops included), and the one its backward adds
-CSR_FORWARD = {"gin": ("receivers", "batch"), "gat": ("loop_receivers", "batch"),
-               "gps": ("receivers", "batch")}
-CSR_BACKWARD = {"gin": ("senders",), "gat": ("loop_senders",), "gps": ("senders",)}
+CSR_FORWARD = {"gat": ("loop_receivers", "batch")}
+CSR_BACKWARD = {"gat": ("loop_senders",)}
+for _kind in ARCH_KNOBS:
+    CSR_FORWARD.setdefault(_kind, ("receivers", "batch"))
+    CSR_BACKWARD.setdefault(_kind, ("senders",))
 KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum", "segment_softmax",
            "masked_softmax", "cell_list", "quant_dense", "fp8_dense")
 # bench.py's oc20 row (bench_oc20: MLIP_CONFIG with radius 5.0 and
@@ -323,6 +352,23 @@ CANARIES = {
     "gin_four_heads": (500, 7, 100, 0.25, 0.20, None),
     "gat": (500, 7, 100, 0.60, 0.70, None),
     "gps_gin": (200, 19, 30, 0.35, None, 1),
+    # tests/test_training_e2e.py::test_invariant_arch_convergence: the 4-head
+    # configuration with ARCH_OVERRIDES, at THRESHOLDS on every head
+    "sage": (500, 7, 100, 0.20, 0.20, None),
+    "mfc": (500, 7, 100, 0.20, 0.30, None),
+    "schnet": (500, 7, 100, 0.20, 0.20, None),
+    "pna": (500, 7, 100, 0.20, 0.20, None),
+    "pnaplus": (500, 7, 100, 0.20, 0.20, None),
+    "cgcnn": (500, 7, 100, 0.50, 0.40, None),
+}
+# tests/test_training_e2e.py ARCH_OVERRIDES of those six canaries
+CANARY_OVERRIDES = {
+    "sage": {"mpnn_type": "SAGE"},
+    "mfc": {"mpnn_type": "MFC", "max_neighbours": 20},
+    "schnet": {"mpnn_type": "SchNet", "num_gaussians": 20, "num_filters": 16},
+    "pna": {"mpnn_type": "PNA"},
+    "pnaplus": {"mpnn_type": "PNAPlus", "num_radial": 5, "envelope_exponent": 5},
+    "cgcnn": {"mpnn_type": "CGCNN"},
 }
 
 
@@ -331,12 +377,18 @@ def log(msg: str) -> None:
 
 
 def launches_per_forward(kind: str, layers: int) -> dict:
-    """Kernel launches of one predict step (a served or evaluated batch)."""
+    """Kernel launches of one predict step (a served or evaluated batch):
+    the mean pooling's segment sum, and per conv layer GAT's softmax and
+    aggregation, one gather-scatter (the B1 stacks; GPS adds its masked
+    softmax), or the segment sums of the edge-message stacks (PNA and
+    PNAPlus: the mean and the std's two means; CGCNN: the sum)."""
     want = dict.fromkeys(KERNELS, 0)
     want["segment_sum"] = 1  # the mean pooling
     if kind == "gat":
         want["segment_softmax"] = layers
         want["segment_sum"] += layers  # each layer's [E', 6, F] aggregation
+    elif kind in EDGE_SUM_STACKS:
+        want["segment_sum"] += EDGE_SUM_STACKS[kind] * layers
     else:
         want["gather_scatter_sum"] = layers
         if kind == "gps":
@@ -347,17 +399,22 @@ def launches_per_forward(kind: str, layers: int) -> dict:
 def launches_per_train_step(kind: str, layers: int) -> dict:
     """Kernel launches of one train step: the forward's, plus the backward's
     segment sums (GAT: one per softmax and one per gather of node features
-    onto the entries) or transposed gather-scatter of each conv layer whose
-    input needs a gradient (GIN: not layer 0, which reads the raw features;
-    GPS-GIN: every layer, layer 0 reads the learned embedding). The backward
+    onto the entries; PNA, PNAPlus, CGCNN: one per gather of node rows onto
+    the edges, by receiver and by sender, in each layer whose input needs a
+    gradient) or transposed gather-scatter of each conv layer whose input
+    needs a gradient (GIN, SAGE, MFC: not layer 0, which reads the raw
+    features; GPS-GIN: every layer, layer 0 reads the learned embedding;
+    SchNet: every layer, whose sum reads lin1 of its input). The backward
     of a segment sum is a gather, no launch."""
     want = launches_per_forward(kind, layers)
     if kind == "gat":
         # each softmax's backward sum, and the backward of the two gathers
         # (by sender, by receiver) of each layer
         want["segment_sum"] += 3 * layers
+    elif kind in EDGE_SUM_STACKS:
+        want["segment_sum"] += 2 * (layers - 1)
     else:
-        want["gather_scatter_sum_bwd"] = layers - 1 if kind == "gin" else layers
+        want["gather_scatter_sum_bwd"] = layers if kind in ("gps", "schnet") else layers - 1
     return want
 
 
@@ -404,7 +461,7 @@ def qm9_config(kind: str = "gin") -> dict:
         "node_features": cfg["Dataset"]["node_features"],
         "graph_features": cfg["Dataset"]["graph_features"],
     }
-    cfg["NeuralNetwork"]["Architecture"].update(MODELS[kind])
+    cfg["NeuralNetwork"]["Architecture"].update(ARCH_KNOBS[kind])
     return cfg
 
 
@@ -1032,6 +1089,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     _bit_stable(torch, "gather_scatter_sum_bwd", lambda: fs.gather_scatter_sum_bwd(
         dout, b.senders, b.receivers, n, mask, send_idx))
     log("  two launches on the same inputs: bit-identical")
+    schnet_gather_scatter_checks(torch, b, gen, real_rows)
 
     # kernel 2: segment sum over the graph CSR (pooling), the node CSR and
     # GAT's extended receivers (its [E', 6 * 64] aggregation)
@@ -1217,6 +1275,29 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
         f"index_add_ of gathered messages {kb['index_add_ms'] * 1e3:.2f} us")
     kb.update(shape=f"dout[{n},64] f32, E={e}, w[E], senders' view", bytes=k1_bytes, ops=k1_ops)
 
+    # B1 at SchNet's sum (fp32 h[N,64], weight per edge and channel [E,64]),
+    # forward and its transposed launch; no one PyTorch call computes a sum
+    # weighted per edge and channel
+    w_ch = (torch.rand(e, 64, generator=gen).to(dev) * mask[:, None]).contiguous()
+    ch_bytes = k1_bytes + e * 64 * 4 - e * 4
+    for key, entry, fn, plain in (
+        ("gather_scatter_sum_schnet", k1,
+         lambda: fs.gather_scatter_sum(h, b.senders, b.receivers, n, weight=w_ch,
+                                       index=recv_idx),
+         lambda: fs.plain_gather_scatter_sum(h, b.senders, b.receivers, n, w_ch)),
+        ("gather_scatter_sum_bwd_schnet", kb,
+         lambda: fs.gather_scatter_sum_bwd(dout, b.senders, b.receivers, n, w_ch, send_idx),
+         lambda: fs.plain_gather_scatter_sum(dout, b.receivers, b.senders, n, w_ch)),
+    ):
+        t_b = max(ch_bytes / HBM_BYTES_PER_S, k1_ops / FP32_FLOPS) * 1e3
+        entry["schnet"] = dict(shape=f"[{n},64] f32, w[E={e},64]", ms=graph_time_ms(torch, fn),
+                               plain_ms=graph_time_ms(torch, plain), bound_ms=t_b,
+                               bound_by="bytes", library_ms=None)
+        times[key + "_ms"] = entry["schnet"]["ms"]
+        log(f"  {key} @ {entry['schnet']['shape']}: kernel {entry['schnet']['ms'] * 1e3:.2f} us, "
+            f"plain {entry['schnet']['plain_ms'] * 1e3:.2f} us, bound {t_b * 1e3:.3f} us "
+            f"({ch_bytes} B); no one-call yardstick")
+
     # kernel 3 at GAT's conv layers 1-3 (fp32 logits [E', 6])
     x_sm = gat_logits(torch.float32)
     loop_long = loop_recv.long()
@@ -1276,7 +1357,8 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     # read once, the output written once); the pooling shape is the table's
     b2_cases = [("pooling", pooled_in, b.batch, g, batch_idx),
                 ("GAT aggregation", msgs, loop_recv, n, loop_idx),
-                ("softmax backward", sdy, loop_recv, n, loop_idx)]
+                ("softmax backward", sdy, loop_recv, n, loop_idx),
+                ("edge messages (PNA, PNAPlus, CGCNN)", x_e, b.receivers, n, recv_idx)]
     if mlip_batch is not None:
         m_b = mlip_batch.to(dev)
         m_x = torch.randn(m_b.num_edges, 64, generator=gen).to(dev)
@@ -1294,6 +1376,8 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
                               ms=t_k, library_ms=t_lib, bound_ms=bound,
                               pieces=int(index.piece_ptr[-1]),
                               longest_row=int((index.ptr[1:] - index.ptr[:-1]).max())))
+        if label.startswith("edge messages"):
+            times["segment_sum_edges_ms"] = t_k
         log(f"  segment_sum @ {b2_shapes[-1]['shape']}: kernel {t_k * 1e3:.2f} us, index_add_ "
             f"{t_lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({nbytes} B); "
             f"{b2_shapes[-1]['pieces']} pieces, longest row {b2_shapes[-1]['longest_row']} "
@@ -1383,7 +1467,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
             "library_ms": k["library_ms"],
             "shape": k["shape"],
         })
-        for extra in ("index_add_ms", "bf16", "device_ops"):
+        for extra in ("index_add_ms", "bf16", "device_ops", "schnet"):
             if extra in k:
                 entries[-1][extra] = k[extra]
         if name == "segment_sum":
@@ -1398,6 +1482,52 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     return entries, times
 
 
+def schnet_gather_scatter_checks(torch, b, gen, real_rows: int) -> None:
+    """Kernel B1 at SchNet's sum: lin1 features ``[N, 64]`` times filters
+    per edge and channel ``[E, 64]`` (the filters times the edge mask), fp32
+    and bf16, through autograd: the forward over the receivers' view, the
+    transposed launch over the senders' view (weight mode 2) for ``dh`` and
+    the filters' gradient ``dw = h[s] * dout[r]``. The reference is the
+    plain version's autograd in fp32 on the same (rounded) inputs; the
+    kernel's results are in the input type, so bf16 ones may differ by one
+    bf16 rounding."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    n, e, dev = b.num_nodes, b.num_edges, b.device
+    recv_idx, send_idx = b.csr("receivers"), b.csr("senders")
+    h0 = torch.randn(n, 64, generator=gen).to(dev)
+    w0 = torch.rand(e, 64, generator=gen).to(dev) * b.edge_mask[:, None]
+    g0 = torch.randn(n, 64, generator=gen).to(dev)
+    log("gather_scatter_sum at SchNet's per-channel weight [E, 64], forward and backward "
+        "(dh: the transposed launch; dw = h[s] * dout[r]):")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        results = []
+        before = dict(fs.LAUNCHES)
+        for fn, t in ((lambda h, w: fs.gather_scatter_sum(
+                h, b.senders, b.receivers, n, weight=w, index=recv_idx, send_index=send_idx),
+                dtype), (lambda h, w: fs.plain_gather_scatter_sum(
+                    h, b.senders, b.receivers, n, w), torch.float32)):
+            h = h0.to(dtype).to(t).clone().requires_grad_()
+            w = w0.to(dtype).to(t).clone().requires_grad_()
+            out = fn(h, w)
+            out.backward(g0.to(dtype).to(t))
+            results.append((out.detach(), h.grad, w.grad))
+        (out, dh, dw), (r_out, r_dh, r_dw) = results
+        launched = {k: fs.LAUNCHES[k] - before[k] for k in ("gather_scatter_sum",
+                                                             "gather_scatter_sum_bwd")}
+        if dev.type == "cuda" and launched != {"gather_scatter_sum": 1,
+                                               "gather_scatter_sum_bwd": 1}:
+            raise AssertionError(f"gather_scatter_sum per-channel {dname}: launched {launched}")
+        if (out.dtype, dh.dtype, dw.dtype) != (dtype,) * 3:
+            raise AssertionError(f"gather_scatter_sum per-channel {dname}: result types "
+                                 f"{out.dtype}, {dh.dtype}, {dw.dtype}")
+        _compare(torch, f"{dname} out[N,64]", out, r_out, real_rows, dname)
+        _compare(torch, f"{dname} dh[N,64] (transposed launch, weight per edge and channel)",
+                 dh, r_dh, real_rows, dname)
+        _compare(torch, f"{dname} dw[E,64]", dw, r_dw, e, dname)
+
+
 def step_kernel_ms(kind: str, layers: int, kt: dict) -> float:
     """Device time of one train step's kernel launches from the kernel
     phase's times (fp32 shapes; GIN's conv layer 0 at its bf16 C = 1)."""
@@ -1408,11 +1538,17 @@ def step_kernel_ms(kind: str, layers: int, kt: dict) -> float:
                 + 3 * layers * kt.get("segment_sum_gat_agg_ms", 0.0)
                 + layers * kt.get("segment_sum_gat_bwd_ms", 0.0)
                 + kt.get("segment_sum_ms", 0.0))
-    gs = (kt.get("gather_scatter_sum_layer0_ms", 0.0) + (layers - 1) *
-          kt.get("gather_scatter_sum_ms", 0.0)) if kind == "gin" else \
-        layers * kt.get("gather_scatter_sum_ms", 0.0)
-    return (gs + per["gather_scatter_sum_bwd"] * kt.get("gather_scatter_sum_bwd_ms", 0.0)
-            + kt.get("segment_sum_ms", 0.0)
+    if kind in EDGE_SUM_STACKS:
+        # the edge messages' sums and the gathers' backward sums at [E, F]
+        return ((per["segment_sum"] - 1) * kt.get("segment_sum_edges_ms", 0.0)
+                + kt.get("segment_sum_ms", 0.0))
+    gs_ms = kt.get("gather_scatter_sum_schnet_ms" if kind == "schnet" else
+                   "gather_scatter_sum_ms", 0.0)
+    bwd_ms = kt.get("gather_scatter_sum_bwd_schnet_ms" if kind == "schnet" else
+                    "gather_scatter_sum_bwd_ms", 0.0)
+    gs = (kt.get("gather_scatter_sum_layer0_ms", 0.0) + (layers - 1) * gs_ms
+          if kind == "gin" else layers * gs_ms)
+    return (gs + per["gather_scatter_sum_bwd"] * bwd_ms + kt.get("segment_sum_ms", 0.0)
             + per["masked_softmax"] * kt.get("masked_softmax_ms", 0.0))
 
 
@@ -2001,7 +2137,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
     n_layers = int(spec_arch["num_conv_layers"])
     model = create_model_config(aug, device=device, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
-    extra = {k: spec_arch.get(k) for k in MODELS[kind]}
+    extra = {k: spec_arch.get(k) for k in ARCH_KNOBS[kind]}
     if kind == "gps":
         extra["max_graph_nodes"] = spec_arch["max_graph_nodes"]
     log(f"[{kind}] model: {spec_arch['mpnn_type']} hidden {spec_arch['hidden_dim']} x "
@@ -2955,12 +3091,14 @@ def canary_config(name: str, epochs: int | None = None) -> dict:
     """``CANARY_CONFIG`` for one canary: the GIN with one graph head, or
     the 4-head variant of ``tests/test_training_e2e.py`` (graph sum + nodal
     x, x2, x3; graph head weighted 20x; node heads 2 x 10; batch 16; lr
-    0.01); GAT at hidden 8; GPS-GIN with 2 heads and encodings of width 2
+    0.01), the GIN's or an invariant stack's with its ``CANARY_OVERRIDES``;
+    GAT at hidden 8; GPS-GIN with 2 heads and encodings of width 2
     (``tests/test_gps.py``)."""
     cfg = copy.deepcopy(CANARY_CONFIG)
     cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs or CANARIES[name][2]
     arch = cfg["NeuralNetwork"]["Architecture"]
-    if name == "gin_four_heads":
+    if name == "gin_four_heads" or name in CANARY_OVERRIDES:
+        arch.update(CANARY_OVERRIDES.get(name, {}))
         cfg["NeuralNetwork"]["Variables_of_interest"] = {
             "input_node_features": [0], "output_names": ["sum", "x", "x2", "x3"],
             "output_index": [0, 1, 2, 3], "type": ["graph", "node", "node", "node"],
@@ -2979,11 +3117,13 @@ def canary_config(name: str, epochs: int | None = None) -> dict:
 
 
 def _model_kind(cfg: dict) -> str:
-    """The key of ``MODELS`` whose launch counts a config's model follows."""
+    """The key of ``ARCH_KNOBS`` whose launch counts a config's model
+    follows."""
     arch = cfg["NeuralNetwork"]["Architecture"]
     if arch.get("global_attn_engine"):
         return "gps"
-    return "gat" if arch["mpnn_type"] == "GAT" else "gin"
+    return {v["mpnn_type"]: k for k, v in ARCH_KNOBS.items() if "mpnn_type" in v}.get(
+        arch["mpnn_type"], "gin")
 
 
 def canary_phase(torch, device: str, card: str = "", epochs: int | None = None,
@@ -3989,6 +4129,10 @@ def main(argv=None) -> int:
                                               trained[kind]["model"], trained[kind]["aug"],
                                               card=dev["smi"],
                                               diagnostics=args.quant_diagnostics)
+    for kind in STACKS:
+        served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
+        trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
+                                       card=dev["smi"])
     superstep = superstep_phase(torch, args.seed, card=dev["smi"])
     canary_phase(torch, "cuda", card=dev["smi"])
     mlip = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"])
@@ -4015,11 +4159,11 @@ def main(argv=None) -> int:
             if e["launches"] <= 0:
                 raise AssertionError("fp8_dense was not launched by certify_fp8_dense")
             continue
-        # launches: the main paths' runs together (the three qm9.json
+        # launches: the main paths' runs together (the nine qm9.json
         # run_training runs, the MLIP run_training run, the two MD
         # rollouts); the serving runs' counts and the per-model rates beside
         # them
-        e["launches"] = (sum(trained[k]["launches"][name] for k in MODELS)
+        e["launches"] = (sum(trained[k]["launches"][name] for k in ARCH_KNOBS)
                          + mlip["launches"][name]
                          + sum(r["launches"][name] for r in ran_md.values()))
         e["launches_mlip_run_training"] = mlip["launches"][name]
@@ -4028,12 +4172,12 @@ def main(argv=None) -> int:
             if any(r["launches"][name] <= 0 for r in ran_md.values()):
                 raise AssertionError("cell_list was not launched on an MD path")
             continue
-        e["launches_serving"] = sum(served[k]["launches"][name] for k in MODELS)
+        e["launches_serving"] = sum(served[k]["launches"][name] for k in ARCH_KNOBS)
         e["launches_per_served_batch"] = {
-            k: served[k]["launches"][name] / served[k]["batches"] for k in MODELS}
-        e["launches_per_train_step"] = {k: trained[k]["per_step"][name] for k in MODELS}
+            k: served[k]["launches"][name] / served[k]["batches"] for k in ARCH_KNOBS}
+        e["launches_per_train_step"] = {k: trained[k]["per_step"][name] for k in ARCH_KNOBS}
         e["launches_per_train_step"]["mlip"] = mlip["per_step"][name]
-        for kind in MODELS:
+        for kind in ARCH_KNOBS:
             layers = trained[kind]["layers"]
             if launches_per_train_step(kind, layers)[name] and \
                     trained[kind]["launches"][name] <= 0:
@@ -4045,7 +4189,7 @@ def main(argv=None) -> int:
         f"({'REFUSED at its pinned bound, served at ' + str(q['quant_tol']) if q['refused'] else 'certified'})"
         for k, q in quantized.items()))
     summary = {
-        "serving": {k: served[k]["summary"] for k in MODELS},
+        "serving": {k: served[k]["summary"] for k in ARCH_KNOBS},
         "train_step_ms": {k: {"eager": t["breakdown"]["step"],
                               "captured": t["captured"]["step_ms"],
                               "busy_eager": _lean(t["eager_busy"]),

@@ -6,9 +6,11 @@ multibranch head normalisation, output dims/types from the ``Dataset``
 feature dims, input dim, the GPS defaults and GPS's dense-attention width
 ``max_graph_nodes``) and the typed ``ModelSpec`` view the model factory
 reads, with the interatomic-potential (MLIP) keys and the ``MD`` block
-(validated against ``md.MDConfig``). The derivations for other conv stacks
-(PNA degrees, MACE neighbour counts, edge features) and the blocks of
-subsystems the port does not have yet come with their slices.
+(validated against ``md.MDConfig``), and the derivations of the invariant
+stacks: PNA's in-degree histogram (``pna_deg``, and ``max_neighbours`` from
+its length), CGCNN's hidden width (its input width without GPS) and the
+edge-dimension rules. MACE's neighbour counts and the blocks of subsystems
+the port does not have yet come with their slices.
 """
 
 from __future__ import annotations
@@ -19,9 +21,18 @@ import math
 import os
 from copy import deepcopy
 
+import numpy as np
+
 CONFIG_SECTIONS = frozenset(
     {"Verbosity", "Dataset", "NeuralNetwork", "Visualization", "Serving",
      "MD", "Telemetry", "Screening"}
+)
+
+# architectures grouped by capability, as the JAX package groups them
+PNA_MODELS = ("PNA", "PNAPlus", "PNAEq")
+EDGE_MODELS = (
+    "GAT", "PNA", "PNAPlus", "PAINN", "PNAEq", "CGCNN", "SchNet", "EGNN",
+    "DimeNet", "MACE",
 )
 
 def load_config(source: str | dict) -> dict:
@@ -48,6 +59,22 @@ def update_multibranch_heads(output_heads: dict) -> dict:
         else:
             raise ValueError("Unknown output_heads config!")
     return updated
+
+
+def _degree_histogram(samples) -> list[int]:
+    """In-degree histogram over the training samples: entry ``d`` counts
+    the nodes with ``d`` incoming edges (PNA's ``deg``)."""
+    per_sample = []
+    for s in samples:
+        deg = np.bincount(np.asarray(s.receivers), minlength=s.num_nodes)[: s.num_nodes]
+        per_sample.append(np.bincount(deg))
+    if not per_sample:
+        return [0]
+    width = max(h.shape[0] for h in per_sample)
+    hist = np.zeros(width, np.int64)
+    for h in per_sample:
+        hist[: h.shape[0]] += h
+    return hist.tolist()
 
 
 def update_config(config: dict, train_samples, val_samples=None, test_samples=None) -> dict:
@@ -80,8 +107,6 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
         md_cfg.setdefault(key, val)
 
     arch.setdefault("enable_interatomic_potential", False)
-    if arch.get("edge_features") and arch.get("enable_interatomic_potential"):
-        raise ValueError("Edge features cannot be used with interatomic potentials.")
 
     # GPS defaults; the dense-attention width (8-aligned) is derived from
     # the largest training graph unless the user set it
@@ -113,6 +138,29 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     arch["output_dim"] = dims_list
     arch["output_type"] = output_type
     arch["input_dim"] = len(voi.get("input_node_features", []))
+
+    # PNA's degree histogram, and the neighbour bound it implies
+    if arch.get("mpnn_type") in PNA_MODELS:
+        if arch.get("pna_deg") is None:
+            arch["pna_deg"] = _degree_histogram(train_samples)
+        arch["max_neighbours"] = len(arch["pna_deg"]) - 1
+    else:
+        arch.setdefault("pna_deg", None)
+    # CGCNN's update is residual: without GPS its width is its input's
+    if arch.get("mpnn_type") == "CGCNN" and not arch.get("global_attn_engine"):
+        arch["hidden_dim"] = arch["input_dim"]
+
+    # edge dimension: the edge features' count, for the stacks that read
+    # them; CGCNN's is 0 without them
+    arch["edge_dim"] = None
+    if arch.get("edge_features"):
+        if arch["mpnn_type"] not in EDGE_MODELS:
+            raise ValueError(f"Edge features can only be used with {', '.join(EDGE_MODELS)}.")
+        if arch.get("enable_interatomic_potential"):
+            raise ValueError("Edge features cannot be used with interatomic potentials.")
+        arch["edge_dim"] = len(arch["edge_features"])
+    elif arch.get("mpnn_type") == "CGCNN":
+        arch["edge_dim"] = 0
 
     arch.setdefault("activation_function", "relu")
     training.setdefault("loss_function_type", "mse")
@@ -164,7 +212,15 @@ class ModelSpec:
     global_attn_heads: int = 0
     max_graph_nodes: int | None = None  # GPS dense-attention width
     pe_dim: int = 0  # Laplacian positional encodings per node (GPS)
-    equivariance: bool | None = None  # EGNN coordinate updates
+    equivariance: bool | None = None  # EGNN and SchNet coordinate updates
+    # geometry and radial bases (SchNet, PNAPlus), degree banks (MFC, PNA)
+    radius: float | None = None
+    max_neighbours: int | None = None
+    pna_deg: tuple[int, ...] | None = None
+    num_gaussians: int | None = None
+    num_filters: int | None = None
+    num_radial: int | None = None
+    envelope_exponent: int | None = None
     # interatomic potentials: energy head, forces from the position gradient
     enable_interatomic_potential: bool = False
     energy_weight: float = 0.0
@@ -228,6 +284,13 @@ class ModelSpec:
             max_graph_nodes=arch.get("max_graph_nodes") or None,
             pe_dim=int(arch.get("pe_dim") or 0),
             equivariance=arch.get("equivariance"),
+            radius=arch.get("radius"),
+            max_neighbours=arch.get("max_neighbours"),
+            pna_deg=tuple(arch["pna_deg"]) if arch.get("pna_deg") else None,
+            num_gaussians=arch.get("num_gaussians"),
+            num_filters=arch.get("num_filters"),
+            num_radial=arch.get("num_radial"),
+            envelope_exponent=arch.get("envelope_exponent"),
             enable_interatomic_potential=bool(arch.get("enable_interatomic_potential", False)),
             energy_weight=float(arch.get("energy_weight", 0.0)),
             energy_peratom_weight=float(arch.get("energy_peratom_weight", 0.0)),

@@ -3,27 +3,36 @@
 The flax names map onto the port's modules as follows (``kernel [in, out]``
 becomes ``Linear.weight [out, in]``):
 
-====================================  =====================================
-flax (``params`` / ``batch_stats``)   port module
-====================================  =====================================
-``graph_convs_{i}/eps``               ``graph_convs[i].eps`` (GIN)
-``graph_convs_{i}/nn/dense_{j}``      ``graph_convs[i].nn.dense_{j}`` (GIN)
-``graph_convs_{i}/{lin_l,lin_r,att}`` ``graph_convs[i].{lin_l,lin_r,att}`` (GAT)
-``graph_convs_{i}/local/...``         ``graph_convs[i].local...`` (GPS)
-``graph_convs_{i}/attn/{q,k,v,out}``  ``graph_convs[i].attn.{q,k,v,out}`` (GPS)
-``graph_convs_{i}/norm{1,2,3}``       ``graph_convs[i].norm{1,2,3}`` (GPS)
-``graph_convs_{i}/mlp_{0,1}``         ``graph_convs[i].mlp_{0,1}`` (GPS)
-``graph_convs_{i}/local_proj``        ``graph_convs[i].local_proj`` (GPS)
-``graph_convs_{i}/edge_mlp/...``      ``graph_convs[i].edge_mlp...`` (EGNN)
-``graph_convs_{i}/coord_mlp_mlp_0``   ``graph_convs[i].coord_mlp_mlp_0`` (EGNN)
-``graph_convs_{i}/coord_mlp_mlp_out`` ``graph_convs[i].coord_mlp_mlp_out`` (EGNN)
-``graph_convs_{i}/node_mlp/...``      ``graph_convs[i].node_mlp...`` (EGNN)
-``{pos_emb,node_emb,node_lin}``       ``{pos_emb,node_emb,node_lin}`` (GPS)
-``feature_norm_{i}/{scale,bias}``     ``feature_layers[i].{scale,bias}`` (none under EGNN)
-``feature_norm_{i}/{mean,var}``       ``feature_layers[i].{mean,var}``
-``graph_shared_{branch}/dense_{j}``   ``graph_shared[branch].dense_{j}``
-``head{k}_{branch}/dense_{j}``        ``heads_NN[k][branch].dense_{j}``
-====================================  =====================================
+========================================  ======================================================
+flax (``params`` / ``batch_stats``)       port module
+========================================  ======================================================
+``graph_convs_{i}/eps``                   ``graph_convs[i].eps`` (GIN)
+``graph_convs_{i}/nn/dense_{j}``          ``graph_convs[i].nn.dense_{j}`` (GIN)
+``graph_convs_{i}/{lin_l,lin_r,att}``     ``graph_convs[i].{lin_l,lin_r,att}`` (GAT)
+``graph_convs_{i}/local/...``             ``graph_convs[i].local...`` (GPS)
+``graph_convs_{i}/attn/{q,k,v,out}``      ``graph_convs[i].attn.{q,k,v,out}`` (GPS)
+``graph_convs_{i}/norm{1,2,3}``           ``graph_convs[i].norm{1,2,3}`` (GPS)
+``graph_convs_{i}/mlp_{0,1}``             ``graph_convs[i].mlp_{0,1}`` (GPS)
+``graph_convs_{i}/local_proj``            ``graph_convs[i].local_proj`` (GPS)
+``graph_convs_{i}/edge_mlp/...``          ``graph_convs[i].edge_mlp...`` (EGNN)
+``graph_convs_{i}/coord_mlp_mlp_0``       ``graph_convs[i].coord_mlp_mlp_0`` (EGNN)
+``graph_convs_{i}/coord_mlp_mlp_out``     ``graph_convs[i].coord_mlp_mlp_out`` (EGNN)
+``graph_convs_{i}/node_mlp/...``          ``graph_convs[i].node_mlp...`` (EGNN)
+``graph_convs_{i}/{lin_root,lin_nbr}``    ``graph_convs[i].{lin_root,lin_nbr}`` (SAGE)
+``graph_convs_{i}/{w_root,w_nbr,bias}``   ``graph_convs[i].{w_root,w_nbr,bias}`` (MFC)
+``graph_convs_{i}/{filter1,filter2}``     ``graph_convs[i].{filter1,filter2}`` (SchNet)
+``graph_convs_{i}/{lin1,lin2}``           ``graph_convs[i].{lin1,lin2}`` (SchNet)
+``graph_convs_{i}/coord_mlp_{0,out}``     ``graph_convs[i].coord_mlp_{0,out}`` (SchNet)
+``graph_convs_{i}/{pre_nn,post_nn,lin}``  ``graph_convs[i].{pre_nn,post_nn,lin}`` (PNA, PNAPlus)
+``graph_convs_{i}/rbf/freq``              ``graph_convs[i].rbf.freq`` (PNAPlus)
+``graph_convs_{i}/{rbf_emb,rbf_lin}``     ``graph_convs[i].{rbf_emb,rbf_lin}`` (PNAPlus)
+``graph_convs_{i}/{lin_f,lin_s,proj}``    ``graph_convs[i].{lin_f,lin_s,proj}`` (CGCNN)
+``{pos_emb,node_emb,node_lin}``           ``{pos_emb,node_emb,node_lin}`` (GPS)
+``feature_norm_{i}/{scale,bias}``         ``feature_layers[i].{scale,bias}`` (not EGNN, SchNet)
+``feature_norm_{i}/{mean,var}``           ``feature_layers[i].{mean,var}``
+``graph_shared_{branch}/dense_{j}``       ``graph_shared[branch].dense_{j}``
+``head{k}_{branch}/dense_{j}``            ``heads_NN[k][branch].dense_{j}``
+========================================  ======================================================
 
 Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
 of the flax variables, or of the matching optax moments); this module

@@ -19,7 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.fused_scatter import SegmentIndex, segment_index
+from ..ops.fused_scatter import SegmentIndex, gather_rows, segment_index
 from ..ops.fused_softmax import self_loop_pad
 
 
@@ -122,6 +122,20 @@ class GraphBatch:
         })
         out._csr = self._csr
         return out
+
+    def edge_vectors(self) -> torch.Tensor:
+        """``[E, 3]`` sender-to-receiver position vectors plus the periodic
+        shifts, ``pos[receivers] - pos[senders] + edge_shifts``. The gathers
+        are :func:`gather_rows`, whose backward (forces) is the segment-sum
+        kernel."""
+        return (gather_rows(self.pos, self.receivers) - gather_rows(self.pos, self.senders)
+                + self.edge_shifts)
+
+    def edge_lengths(self, eps: float = 1e-12) -> torch.Tensor:
+        """``[E, 1]`` edge lengths, ``sqrt(|vec|^2 + eps)``: the ``eps`` keeps
+        the gradient of a pad edge's zero vector finite."""
+        vec = self.edge_vectors()
+        return torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True) + eps)
 
     def self_loop_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
         """GAT's extended edge layout, cached: ``(senders, receivers)`` of the

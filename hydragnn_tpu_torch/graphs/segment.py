@@ -14,6 +14,8 @@ max and min outputs that are not finite, as in the JAX package.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..ops import fused_softmax
@@ -58,15 +60,31 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
     return total / count.reshape((-1,) + (1,) * (total.dim() - 1))
 
 
+def segment_std(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                eps: float = 1e-5, index: SegmentIndex | None = None) -> torch.Tensor:
+    """Biased standard deviation per segment, ``sqrt(max(E[x^2] - E[x]^2,
+    0) + eps)`` from two :func:`segment_mean` (two segment-sum launches);
+    PNA's ``std`` aggregator."""
+    mean = segment_mean(data, segment_ids, num_segments, index=index)
+    mean_sq = segment_mean(data * data, segment_ids, num_segments, index=index)
+    v = mean_sq - mean * mean
+    # torch.maximum, not clamp: at a tie (a segment of equal messages
+    # cancels to v = 0) its gradient is 1/2, as jnp.maximum's; clamp's is 1
+    var = torch.maximum(v, torch.zeros_like(v))
+    return torch.sqrt(var + eps)
+
+
 def _segment_extreme(data, segment_ids, num_segments, reduce, identity):
     """The JAX package's rule (``graphs/segment.py::_zero_empty``): float
     outputs that are not finite become 0 (empty segments, and segments that
     met an inf or NaN), int outputs equal to the reduction's identity become
-    0."""
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]), dtype=data.dtype,
-                      device=data.device)
+    0. The reduction starts from the identity, as ``jax.ops.segment_max``'s
+    scatter does, so the gradient of a segment's extreme is split among the
+    tied entries only: from a zeroed output, ``scatter_reduce_`` would count
+    the output's own 0 among the ties of an extreme that is exactly 0."""
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), identity(data.dtype),
+                     dtype=data.dtype, device=data.device)
     ids = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    # include_self=False leaves empty segments at their initial 0
     out = out.scatter_reduce_(0, ids, data, reduce=reduce, include_self=False)
     zero = torch.zeros_like(out)
     if out.is_floating_point():
@@ -78,14 +96,14 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
                 index: SegmentIndex | None = None) -> torch.Tensor:
     """Max per segment; empty segments and non-finite maxima give 0."""
     return _segment_extreme(data, segment_ids, num_segments, "amax",
-                            lambda t: torch.iinfo(t).min)
+                            lambda t: -math.inf if t.is_floating_point else torch.iinfo(t).min)
 
 
 def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 index: SegmentIndex | None = None) -> torch.Tensor:
     """Min per segment; empty segments and non-finite minima give 0."""
     return _segment_extreme(data, segment_ids, num_segments, "amin",
-                            lambda t: torch.iinfo(t).max)
+                            lambda t: math.inf if t.is_floating_point else torch.iinfo(t).max)
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
@@ -126,5 +144,6 @@ __all__ = [
     "segment_mean",
     "segment_min",
     "segment_softmax",
+    "segment_std",
     "segment_sum",
 ]

@@ -15,10 +15,14 @@ The EGNN stack carries positions through the layers as ``equiv``
 and has no feature norm (a conv class with ``feature_norm = False`` gets no
 norm layer); it is the MLIP path's model (``models/mlip.py``).
 
-Not in this slice (they raise ``NotImplementedError``): other conv stacks,
-GAT's and EGNN's edge features, GPS around another conv than GIN and its
-ring and performer attention, variance outputs, graph-attribute
-conditioning, ``mlp_per_node`` and ``conv`` node heads, multibranch heads.
+The invariant stacks SAGE, MFC, SchNet, PNA, PNAPlus and CGCNN run the
+same skeleton (SchNet without feature norm, CGCNN at its input width).
+
+Not in this slice (they raise ``NotImplementedError``): the geometric conv
+stacks (PAINN, PNAEq, DimeNet, MACE), edge features, GPS around another
+conv than GIN and its ring and performer attention, variance outputs,
+graph-attribute conditioning, ``mlp_per_node`` and ``conv`` node heads,
+multibranch heads.
 """
 
 from __future__ import annotations
@@ -26,15 +30,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..config.schema import ModelSpec
+from ..config.schema import EDGE_MODELS, ModelSpec
 from ..graphs import segment
 from ..graphs.graph import GraphBatch
 from .common import MLP, Dense, MaskedBatchNorm, get_activation, get_loss
+from .cgcnn import CGCNNConv
 from .egnn import EGNNConv
 from .gat import GATConv
 from .gin import GINConv
+from .mfc import MFCConv
+from .pna import PNAConv
+from .pnaplus import PNAPlusConv
+from .sage import SAGEConv
+from .schnet import SchNetConv
 
-CONV_REGISTRY = {"GIN": GINConv, "GAT": GATConv, "EGNN": EGNNConv}
+CONV_REGISTRY = {"GIN": GINConv, "GAT": GATConv, "EGNN": EGNNConv, "SAGE": SAGEConv,
+                 "MFC": MFCConv, "SchNet": SchNetConv, "PNA": PNAConv, "PNAPlus": PNAPlusConv,
+                 "CGCNN": CGCNNConv}
 
 
 def head_columns(spec: ModelSpec) -> list[tuple[str, int, int]]:
@@ -58,10 +70,12 @@ def _not_in_slice(what: str, where: str) -> NotImplementedError:
 def check_spec(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for what this slice of the port lacks."""
     if spec.mpnn_type not in CONV_REGISTRY:
-        raise _not_in_slice(f"mpnn_type {spec.mpnn_type!r}", "a later slice (other conv stacks)")
-    if spec.mpnn_type in ("GAT", "EGNN") and spec.edge_dim:
-        what = {"GAT": "GAT with edge features (lin_edge)", "EGNN": "EGNN with edge features"}
-        raise _not_in_slice(what[spec.mpnn_type], "a later slice (edge features)")
+        raise _not_in_slice(f"mpnn_type {spec.mpnn_type!r}",
+                            "a later slice (the geometric stacks)")
+    if spec.edge_dim and spec.mpnn_type in EDGE_MODELS:
+        what = "GAT with edge features (lin_edge)" if spec.mpnn_type == "GAT" else \
+            f"{spec.mpnn_type} with edge features"
+        raise _not_in_slice(what, "a later slice (edge features)")
     if spec.global_attn_engine:
         if spec.global_attn_engine != "GPS":
             raise ValueError(f"unknown global_attn_engine {spec.global_attn_engine!r}")

@@ -222,6 +222,39 @@ class MaskedBatchNorm(nn.Module):
         return y * self.scale + self.bias
 
 
+def neighbour_sum(inv: torch.Tensor, batch) -> torch.Tensor:
+    """``sum_j mask_ij h_j`` over each node's in-edges: the gather-scatter
+    kernel with the edge mask as the per-edge weight, over the batch's
+    cached CSR views, the receivers' for the forward and the senders' for
+    the gradient with respect to ``inv`` (built only where that gradient is
+    taken; conv layer 0's input needs none)."""
+    from ..ops.fused_scatter import gather_scatter_sum
+
+    on_card = inv.is_cuda
+    return gather_scatter_sum(
+        inv, batch.senders, batch.receivers, batch.num_nodes,
+        weight=batch.edge_mask.to(inv.dtype),
+        index=batch.csr("receivers") if on_card else None,
+        send_index=(batch.csr("senders")
+                    if on_card and inv.requires_grad and torch.is_grad_enabled() else None),
+    )
+
+
+def gather_ends(inv: torch.Tensor, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(inv[receivers], inv[senders])`` through ``gather_rows``, whose
+    backward is the segment-sum kernel over the batch's cached receivers'
+    and senders' CSR views (the senders' built only where that gradient is
+    taken), not autograd's ``index_put_``."""
+    from ..ops.fused_scatter import gather_rows
+
+    on_card = inv.is_cuda
+    recv_idx = batch.csr("receivers") if on_card else None
+    send_idx = (batch.csr("senders")
+                if on_card and inv.requires_grad and torch.is_grad_enabled() else None)
+    return (gather_rows(inv, batch.receivers, recv_idx),
+            gather_rows(inv, batch.senders, send_idx))
+
+
 def coordinate_update_layers(module: nn.Module, hidden: int, prefix: str = "coord",
                              generator: torch.Generator | None = None) -> None:
     """Attach the gate MLP of :func:`equivariant_coordinate_update` to
@@ -324,6 +357,7 @@ __all__ = [
     "MaskedBatchNorm",
     "coordinate_update_layers",
     "equivariant_coordinate_update",
+    "gather_ends",
     "get_activation",
     "get_loss",
     "intercept_dense",
@@ -332,5 +366,6 @@ __all__ = [
     "masked_mse",
     "masked_rmse",
     "masked_smooth_l1",
+    "neighbour_sum",
     "variance_scaling_uniform_",
 ]

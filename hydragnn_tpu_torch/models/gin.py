@@ -13,8 +13,7 @@ from torch import nn
 
 from ..config.schema import ModelSpec
 from ..graphs.graph import GraphBatch
-from ..ops.fused_scatter import gather_scatter_sum
-from .common import MLP
+from .common import MLP, neighbour_sum
 
 
 class GINConv(nn.Module):
@@ -34,18 +33,10 @@ class GINConv(nn.Module):
 
     def forward(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
                 train: bool = False, generator: torch.Generator | None = None):
-        # the kernels read the batch's cached CSR views: the receivers' for
-        # the forward, the senders' for the gradient with respect to inv
-        # (built only where that gradient is taken; conv layer 0's input
-        # needs none)
-        on_card = inv.is_cuda
-        agg = gather_scatter_sum(
-            inv, batch.senders, batch.receivers, batch.num_nodes,
-            weight=batch.edge_mask.to(inv.dtype),
-            index=batch.csr("receivers") if on_card else None,
-            send_index=(batch.csr("senders")
-                        if on_card and inv.requires_grad and torch.is_grad_enabled() else None),
-        )
+        # the sum before the other use of inv: the order in which a tensor's
+        # uses are created sets the order in which autograd adds their
+        # gradients, and GPS's trained bits (its int8 gates) depend on it
+        agg = neighbour_sum(inv, batch)
         return self.nn((1.0 + self.eps) * inv + agg), equiv
 
 

@@ -5,8 +5,9 @@ rate), supersteps (a block of four and a shorter tail), the CSR tickets
 after replays, ``no_new_captures``, launch records, and the MD trajectory
 segment on both neighbour routes. Every comparison is bit for bit: a
 replay runs the kernels the eager step launches, in its order. The qm9
-models of ``chip_smoke.py`` (GIN, GAT, GPS-GIN at their published widths,
-random weights from seed 0) at the top pad bucket.
+models of ``chip_smoke.py`` (GIN, GAT, GPS-GIN and the six invariant stacks
+at their published widths, random weights from seed 0) at the top pad
+bucket.
 
 Every test is ``gpu``-marked and skips without a CUDA device. The file
 imports neither JAX nor ``tests/conftest.py``'s helpers:
@@ -146,6 +147,35 @@ def test_captured_train_steps_equal_eager_steps(qm9, dtype):
         assert replayed == launched, f"{kind} step {i} launches"
         _assert_same(captured, eager, f"{kind} step {i}: ")
     assert dispatch.graphs.captures == 1 and captured.step == 4
+
+
+@pytest.mark.parametrize("kind", ["sage", "mfc", "schnet", "pna", "pnaplus", "cgcnn"])
+def test_invariant_stacks_captured_steps_equal_eager_steps(kind):
+    """The six invariant stacks at qm9.json's widths (``chip_smoke.STACKS``):
+    two bf16 train steps, an eval and a predict step, each replayed from its
+    CUDA graph bit-equal to the eager step, with the same launches."""
+    from hydragnn_tpu_torch.serve import Predictor
+    from hydragnn_tpu_torch.train.step import make_eval_step, make_train_step
+
+    _cuda_or_skip()
+    _, aug, batches, _ = _qm9(kind)
+    step, eval_step = make_train_step(torch.bfloat16), make_eval_step(torch.bfloat16)
+    captured, eager = _state(aug), _state(aug)
+    train, evals = capture.Dispatch(step, "train", train=True), capture.Dispatch(eval_step, "eval")
+    for i, host in enumerate(batches[:2]):
+        b = host.to("cuda")
+        got, replayed = _launches(lambda: train(captured, b))
+        want, launched = _launches(lambda: step(eager, b))
+        assert _same_tree(got, want) and replayed == launched, f"{kind} step {i}"
+        _assert_same(captured, eager, f"{kind} step {i}: ")
+    b = batches[2].to("cuda")
+    got, replayed = _launches(lambda: evals(captured, b))
+    want, launched = _launches(lambda: eval_step(eager, b))
+    assert _same_tree(got, want) and replayed == launched, f"{kind} eval"
+    pred = Predictor(captured.model, aug, device="cuda")
+    got, replayed = _launches(lambda: pred.answer(batches[3]))
+    want, launched = _launches(lambda: pred.outputs(batches[3].to("cuda")))
+    assert _same_tree(got, want) and replayed == launched and sum(launched.values()) > 0
 
 
 @pytest.mark.parametrize("kind", ["gat", "gps"])

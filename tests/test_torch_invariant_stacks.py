@@ -1,0 +1,175 @@
+"""The invariant conv stacks SAGE, MFC, SchNet, PNA, PNAPlus and CGCNN of the
+port against the JAX package's, the flax variables (parameters jittered,
+running statistics random) loaded into the port by
+``convert.load_jax_variables``.
+
+Two batches per stack: the 4-head BCC canary of
+``tests/test_training_e2e.py`` (64 graphs, 520 node slots; hidden 8, 2 conv
+layers, the stack's ``ARCH_OVERRIDES``) and 16 QM9-sized molecules (472
+node slots; hidden 16, 3 conv layers). The JAX side runs with its
+fused-scatter flag off (XLA) and on (its Pallas kernels in interpret mode),
+as ``tests/test_torch_model.py`` runs the GIN.
+
+Tolerances, with their reasons:
+
+* fp32 forward: rtol 2e-5 / atol 1e-5, the GIN's: XLA and PyTorch sum in
+  other orders through the stack, the norms and the heads.
+* The bf16 predict step: the GIN's rtol 2e-2 / atol 2e-2. Conv layer 0
+  runs bf16 on both sides (SchNet, which has no feature norm, runs its whole
+  stack, the pooling and the heads bf16), where XLA and PyTorch may round to
+  neighbouring bf16 values; with the flag off the JAX side also sums bf16
+  segments in bf16 (ROADMAP queue C item 1), the port in fp32. Measured,
+  the largest difference is at most 0.77 of that bound (PNA, whose layer 0
+  takes a std, ``sqrt(E[x^2] - E[x]^2)``, in bf16), except for PNAPlus on
+  the molecules: 2.8e-2 absolute, 1.34 of the bound. Its layer 0 evaluates
+  the Bessel basis in bf16 (``sin`` of bf16-rounded frequencies, a
+  polynomial envelope whose terms of up to 48 x^6 cancel towards the
+  cutoff), so PNAPlus's bf16 step compares at rtol 5e-2 / atol 5e-2.
+"""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_port_util as tpu
+from conftest import random_molecule_samples
+from hydragnn_tpu.config import update_config as jax_update_config
+from hydragnn_tpu.datasets import deterministic_graph_data
+from hydragnn_tpu.graphs.batching import collate, compute_pad_spec
+from hydragnn_tpu.models import create_model_config as jax_create_model_config
+from hydragnn_tpu.models.base import head_columns
+from hydragnn_tpu.models.create import init_model
+from hydragnn_tpu.preprocess import apply_variables_of_interest
+from hydragnn_tpu.train.step import TrainState
+from hydragnn_tpu.train.step import make_predict_step as jax_make_predict_step
+from hydragnn_tpu_torch.convert import batch_from_numpy, load_jax_variables
+from hydragnn_tpu_torch.train.step import make_predict_step as port_make_predict_step
+from __graft_entry__ import FLAGSHIP_CONFIG
+from test_training_e2e import ARCH_OVERRIDES
+
+STACKS = ("SAGE", "MFC", "SchNet", "PNA", "PNAPlus", "CGCNN")
+TOL = {"fp32": dict(rtol=2e-5, atol=1e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
+# PNAPlus's bf16 step: its Bessel basis and envelope in bf16 (module docstring)
+BF16_PNAPLUS = dict(rtol=5e-2, atol=5e-2)
+
+
+def _four_heads(stack):
+    cfg = copy.deepcopy(FLAGSHIP_CONFIG)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    cfg["NeuralNetwork"]["Variables_of_interest"] = {
+        "input_node_features": [0],
+        "output_names": ["sum", "x", "x2", "x3"],
+        "output_index": [0, 1, 2, 3],
+        "type": ["graph", "node", "node", "node"],
+        "denormalize_output": False,
+    }
+    arch.update(mpnn_type=stack, hidden_dim=8, num_conv_layers=2,
+                task_weights=[20.0, 1.0, 1.0, 1.0], **ARCH_OVERRIDES[stack])
+    arch["output_heads"]["graph"]["dim_sharedlayers"] = 10
+    arch["output_heads"]["node"] = {"num_headlayers": 2, "dim_headlayers": [10, 10],
+                                    "type": "mlp"}
+    return cfg, deterministic_graph_data(number_configurations=64, seed=7), 64
+
+
+def _molecules(stack):
+    cfg = copy.deepcopy(FLAGSHIP_CONFIG)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch.update(mpnn_type=stack, hidden_dim=16, num_conv_layers=3, **ARCH_OVERRIDES[stack])
+    arch["output_heads"]["graph"].update(dim_sharedlayers=8, dim_headlayers=[16, 16])
+    arch["output_heads"]["node"].update(dim_headlayers=[16, 16])
+    return cfg, random_molecule_samples(16, seed=21), 16
+
+
+DATA = {"four_heads": _four_heads, "molecules": _molecules}
+
+
+class Setup:
+    """Both packages' models of one stack from one JAX init (jittered),
+    and the collated batch."""
+
+    def __init__(self, stack, data, **overrides):
+        from hydragnn_tpu_torch.config import update_config
+
+        cfg, samples, bs = DATA[data](stack)
+        cfg["NeuralNetwork"]["Architecture"].update(overrides)
+        samples = apply_variables_of_interest(samples, cfg)
+        self.stack = stack
+        self.jaug = jax_update_config(copy.deepcopy(cfg), samples)
+        self.aug = update_config(copy.deepcopy(cfg), tpu.port_samples(samples))
+        self.jmodel = jax_create_model_config(self.jaug)
+        self.batch = collate(samples[:bs], compute_pad_spec(samples, bs))
+        assert self.batch.x.shape[0] >= 256, "the JAX kernel path needs >= 256 node slots"
+        variables = tpu.jitter_params(init_model(self.jmodel, self.batch), seed=1)
+        if "batch_stats" in variables:
+            variables = tpu.random_batch_stats(variables, seed=2)
+        self.variables = variables
+        self.port = tpu.port_model_from_jax(self.aug, variables)
+
+
+@pytest.fixture(scope="module", params=[(s, d) for s in STACKS for d in sorted(DATA)],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def setup(request):
+    return Setup(*request.param)
+
+
+def _real_rows(outputs, batch, cols):
+    gm = np.asarray(batch.graph_mask) > 0
+    nm = np.asarray(batch.node_mask) > 0
+    return [np.asarray(o, np.float32)[gm if kind == "graph" else nm]
+            for o, (kind, _, _) in zip(outputs, cols)]
+
+
+def jax_predict(setup, dtype):
+    v = setup.variables
+    state = TrainState(params=v["params"], batch_stats=v.get("batch_stats", {}),
+                       opt_state=None, step=jnp.zeros((), jnp.int32))
+    return jax_make_predict_step(setup.jmodel, dtype)(state, jax.tree.map(jnp.asarray,
+                                                                          setup.batch))
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_forward_matches_jax(setup, monkeypatch, fused, precision):
+    monkeypatch.setenv("HYDRAGNN_FUSED_SCATTER", fused)
+    want = jax_predict(setup, jnp.float32 if precision == "fp32" else jnp.bfloat16)
+    got = port_make_predict_step(setup.port, torch.float32 if precision == "fp32"
+                                 else torch.bfloat16)(batch_from_numpy(setup.batch))
+    tol = TOL[precision]
+    if precision == "bf16" and setup.stack == "PNAPlus":
+        tol = BF16_PNAPLUS
+    cols = head_columns(setup.jmodel.spec)
+    for ihead, (g, w) in enumerate(zip(_real_rows([t.numpy() for t in got], setup.batch, cols),
+                                       _real_rows(want, setup.batch, cols))):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, **tol, err_msg=f"head {ihead}")
+
+
+def test_load_jax_variables_is_complete_and_strict(setup):
+    """Every port parameter and buffer of the state dict has its flax
+    variable (MFC's raw banks, ``rbf.freq``, SchNet's filters); a missing,
+    an extra or a misshapen one raises."""
+    params = tpu.numpy_tree(setup.variables["params"])
+    stats = tpu.numpy_tree(setup.variables.get("batch_stats", {}))
+    conv0 = params["graph_convs_0"]
+    first = sorted(conv0)[0]
+    missing = copy.deepcopy(params)
+    del missing["graph_convs_0"][first]
+    with pytest.raises(KeyError, match="without a flax variable"):
+        load_jax_variables(setup.port, missing, stats)
+    extra = copy.deepcopy(params)
+    extra["graph_convs_0"]["bogus"] = np.zeros(())
+    with pytest.raises(KeyError):
+        load_jax_variables(setup.port, extra, stats)
+    wrong = copy.deepcopy(params)
+    leaf = wrong["graph_convs_0"]
+    while isinstance(leaf[sorted(leaf)[0]], dict):
+        leaf = leaf[sorted(leaf)[0]]
+    key = sorted(leaf)[0]
+    leaf[key] = np.zeros(np.shape(leaf[key]) + (2,), np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        load_jax_variables(setup.port, wrong, stats)
+    load_jax_variables(setup.port, params, stats)  # leave the shared fixture intact

@@ -186,6 +186,23 @@ def test_gather_scatter_backward_on_card(batch, dtype, wkind, c, given_index):
     torch.testing.assert_close(w.grad.float(), want_dw.float(), **TOL[dtype])
 
 
+def test_gather_scatter_at_schnets_shape_on_card():
+    """B1 at SchNet's sum on the qm9 top pad bucket of ``chip_smoke.py``
+    (N = 1,864, E = 17,792): ``[N, 64]`` features, a weight per edge and
+    channel ``[E, 64]``, fp32 and bf16; the forward, the transposed launch
+    and the filters' gradient through autograd, one launch each, against the
+    plain version's autograd (``chip_smoke.schnet_gather_scatter_checks``)."""
+    dev = _cuda_or_skip()
+    import chip_smoke
+
+    _, _, loaders, samples = chip_smoke.prepare(0)
+    top, _ = chip_smoke.bucket_batches(loaders, samples)
+    b = top.to(dev)
+    chip_smoke.schnet_gather_scatter_checks(torch, b, torch.Generator().manual_seed(5),
+                                            b.num_nodes - 1)
+    torch.cuda.synchronize()
+
+
 def test_gather_scatter_backward_is_bit_stable_on_card(batch):
     dev = _cuda_or_skip()
     b = batch.to(dev)

@@ -201,13 +201,14 @@ def test_dense_promotes_like_flax():
 
 
 @pytest.mark.parametrize("override,what", [
-    ({"mpnn_type": "PNA"}, "mpnn_type"),
+    ({"mpnn_type": "PAINN"}, "mpnn_type"),
     # GPS multihead attention is ported; its performer variant is not
     ({"global_attn_engine": "GPS", "global_attn_type": "performer"}, "GPS"),
     ({"use_graph_attr_conditioning": True}, "conditioning"),
-    # EGNN is ported (the MLIP path); SchNet, another stack that updates
-    # coordinates, is not
-    ({"mpnn_type": "SchNet"}, "SchNet"),
+    # EGNN and SchNet are ported; DimeNet, a geometric stack, is not
+    ({"mpnn_type": "DimeNet"}, "DimeNet"),
+    # PNA is ported; its edge features are not
+    ({"mpnn_type": "PNA", "edge_features": ["length"]}, "PNA with edge features"),
 ])
 def test_outside_the_slice_raises(setup, override, what):
     from hydragnn_tpu_torch.models import create_model_config
