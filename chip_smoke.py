@@ -12,10 +12,16 @@ attention, 4 heads, Laplacian positional encodings of width 4); and its
 variants on the six invariant stacks, with the knobs of ``bench.py``'s
 arch sweep: SAGE, MFC (``max_neighbours`` 20), SchNet (20 Gaussians, 64
 filters), PNA, PNAPlus (5 radial functions, envelope exponent 5) and
-CGCNN (its width the input's, 1, as the reference forces it). Then the
-interatomic potential of ``bench.py``'s ``oc20`` row (EGNN, hidden 64, 3
-conv layers, equivariance on, add pooling, energy + 10 x force loss, fp32,
-batch 64) and molecular dynamics: that EGNN on a 1,000-atom LJ cell, and
+CGCNN (its width the input's, 1, as the reference forces it); and on the
+four geometric stacks, the same way: PAINN and PNAEq (hidden 32, 6 radial
+functions), DimeNet (hidden 64, 6 radial x 7 spherical, interaction 64,
+basis 8, output 64; triplets attached in preprocessing) and MACE (hidden
+32, ``max_ell`` 1, correlation 2, Bessel basis). Then the interatomic
+potential of ``bench.py``'s ``oc20`` row (EGNN, hidden 64, 3 conv layers,
+equivariance on, add pooling, energy + 10 x force loss, fp32, batch 64),
+PAINN and MACE on the same data with ``examples/oc20/train.py``'s block
+(hidden 32 x 3, ``max_ell`` 2, energy + 25 x force loss, a node head) and
+molecular dynamics: that EGNN on a 1,000-atom LJ cell, and
 an analytic LJ potential on ``bench.py``'s 8,000-atom MD lattice. Each
 of the first three trained qm9 models also serves int8
 (``Serving.quantize``), and the trained GIN's Dense layers go through the
@@ -44,7 +50,11 @@ device JSON only when every phase passed):
    message sum and pooling), fp32 and bf16, sorted and shuffled ids, and
    at B1's forward and transposed launch; B1 at SchNet's sum (a weight per
    edge and channel, [E, 64]), forward, transposed launch and the filters'
-   gradient through autograd, fp32 and bf16. Device times per call
+   gradient through autograd, fp32 and bf16; B1 in the same mode over
+   DimeNet's triplets (``idx_kj`` gathered onto ``idx_ji``'s E rows, the
+   transposed launch over ``idx_kj``'s view; in fp32 also bit-equal to
+   ``gather_rows`` + B2) and B2 on the geometric stacks' flattened
+   ``[E, 3, 32]`` messages (``geometric_kernel_phase``). Device times per call
    (CUDA-graph replay between CUDA events) beside the plain version, a
    one-call PyTorch yardstick (``torch.sparse.softmax``, which synchronises
    with the host, timed by events around back-to-back calls) and the bound
@@ -96,9 +106,9 @@ logged (the last is a ``capture summary`` line).
    dataset through ``run_training`` and ``run_prediction`` on the card, at
    the reference thresholds: GIN with one head and with four heads (head
    RMSE < 0.25, sample MAE < 0.20), GAT (< 0.60 / < 0.70), GPS-GIN (RMSE of
-   the graph head < 0.35), and the six invariant stacks in the 4-head
-   configuration of ``tests/test_training_e2e.py``'s arch sweep
-   (``CANARY_OVERRIDES``) at its ``THRESHOLDS`` on every head;
+   the graph head < 0.35), and the six invariant and four geometric
+   stacks in the 4-head configuration of ``tests/test_training_e2e.py``'s
+   arch sweep (``CANARY_OVERRIDES``) at its ``THRESHOLDS`` on every head;
 7. the repaired backwards (phase 3, right after the kernels): second
    derivatives through ``fused_segment_sum``, ``gather_rows``,
    ``gather_scatter_sum`` and ``segment_softmax``, kernels against plain
@@ -108,6 +118,9 @@ logged (the last is a ``capture summary`` line).
    MLIP train step (all ``segment_sum``); one fp32 MLIP step on the card
    held per tensor against an fp64 CPU step (what a dropped second
    derivative would miss); where the step's time goes; the busy share;
+   then PAINN and MACE as MLIPs the same way (captured steps bit-equal to
+   eager, exact launches), with their forces through the kernels against
+   the plain versions on the same state;
 9. the cell-list kernel B5 against its plain version at both MD systems'
    shapes (ids identical, shifts within 1e-6), a slab, an overflowing
    capacity, two launches bit-identical, the edge set against the dense
@@ -250,16 +263,33 @@ STACKS = {
     "pnaplus": {"mpnn_type": "PNAPlus", "num_radial": 5, "envelope_exponent": 5},
     "cgcnn": {"mpnn_type": "CGCNN"},
 }
-ARCH_KNOBS = {**MODELS, **STACKS}
+# the four geometric stacks at qm9.json's widths with bench.py's arch-sweep
+# knobs (ARCH_SWEEP_OVERRIDES): PAINN and PNAEq at hidden 32, DimeNet at 64
+# (its samples get their triplets in preprocessing), MACE at hidden 32.
+# They train and serve like the stacks above
+GEOMETRIC = {
+    "painn": {"mpnn_type": "PAINN", "num_radial": 6, "hidden_dim": 32},
+    "pnaeq": {"mpnn_type": "PNAEq", "num_radial": 6, "hidden_dim": 32},
+    "dimenet": {"mpnn_type": "DimeNet", "num_radial": 6, "num_spherical": 7,
+                "int_emb_size": 64, "basis_emb_size": 8, "out_emb_size": 64,
+                "num_before_skip": 1, "num_after_skip": 2, "envelope_exponent": 5},
+    "mace": {"mpnn_type": "MACE", "max_ell": 1, "node_max_ell": 1, "correlation": 2,
+             "num_radial": 6, "radial_type": "bessel", "hidden_dim": 32},
+}
+ARCH_KNOBS = {**MODELS, **STACKS, **GEOMETRIC}
 # the stacks that gather node rows onto the edges (gather_rows, backward
 # B2) and sum the messages with B2: their segment sums per layer (the
 # others' neighbour sum is the gather-scatter kernel B1, GAT's aside)
 EDGE_SUM_STACKS = {"pna": 3, "pnaplus": 3, "cgcnn": 1}
 GAT_HEADS = 6  # the reference GAT stack's fixed head count
 # the CSR views a predict step of each model reads (GAT: its extended
-# receivers, self loops included), and the one its backward adds
-CSR_FORWARD = {"gat": ("loop_receivers", "batch")}
-CSR_BACKWARD = {"gat": ("loop_senders",)}
+# receivers, self loops included), and the ones its backward adds (PAINN
+# and PNAEq sum at the senders; DimeNet mixes triplets over idx_ji, its
+# backward over idx_kj; MACE gathers its element embedding by z)
+CSR_FORWARD = {"gat": ("loop_receivers", "batch"), "painn": ("senders", "batch"),
+               "pnaeq": ("senders", "batch"), "dimenet": ("receivers", "idx_ji", "batch")}
+CSR_BACKWARD = {"gat": ("loop_senders",), "painn": ("receivers",), "pnaeq": ("receivers",),
+                "dimenet": ("senders", "idx_kj"), "mace": ("senders", "elements")}
 for _kind in ARCH_KNOBS:
     CSR_FORWARD.setdefault(_kind, ("receivers", "batch"))
     CSR_BACKWARD.setdefault(_kind, ("senders",))
@@ -293,6 +323,19 @@ MLIP_CONFIG = {
                      "Optimizer": {"type": "AdamW", "learning_rate": 1e-3}},
     },
 }
+# examples/oc20/train.py's Architecture block (--arch PAINN or MACE): the
+# interatomic potentials of the geometric stacks, trained on the oc20 row's
+# data (MLIP_SAMPLES cells, max_neighbours 40, fp32, batch 64)
+OC20_ARCH = {
+    "radius": 5.0, "max_neighbours": 100, "hidden_dim": 32, "num_conv_layers": 3,
+    "equivariance": True, "enable_interatomic_potential": True, "activation_function": "silu",
+    "energy_weight": 1.0, "energy_peratom_weight": 0.0, "force_weight": 25.0,
+    "graph_pooling": "add", "num_gaussians": 32, "num_filters": 32, "num_radial": 6,
+    "max_ell": 2, "node_max_ell": 1, "correlation": 2,
+    "output_heads": {"node": {"num_headlayers": 2, "dim_headlayers": [32, 32], "type": "mlp"}},
+    "task_weights": [1.0],
+}
+MLIP_ARCHS = ("PAINN", "MACE")
 MLIP_SAMPLES = 256  # bench_oc20: max(batch * 4, 128) configurations, seed 11
 MLIP_EPOCHS = 8  # the one cut of the MLIP run: num_epoch
 # MLIP MD: the trained EGNN on one 1,000-atom LJ cell (box 38 A, the
@@ -360,8 +403,13 @@ CANARIES = {
     "pna": (500, 7, 100, 0.20, 0.20, None),
     "pnaplus": (500, 7, 100, 0.20, 0.20, None),
     "cgcnn": (500, 7, 100, 0.50, 0.40, None),
+    # the geometric stacks, the same way
+    "painn": (500, 7, 100, 0.60, 0.60, None),
+    "pnaeq": (500, 7, 100, 0.60, 0.60, None),
+    "dimenet": (500, 7, 100, 0.50, 0.50, None),
+    "mace": (500, 7, 100, 0.60, 0.70, None),
 }
-# tests/test_training_e2e.py ARCH_OVERRIDES of those six canaries
+# tests/test_training_e2e.py ARCH_OVERRIDES of those ten canaries
 CANARY_OVERRIDES = {
     "sage": {"mpnn_type": "SAGE"},
     "mfc": {"mpnn_type": "MFC", "max_neighbours": 20},
@@ -369,11 +417,26 @@ CANARY_OVERRIDES = {
     "pna": {"mpnn_type": "PNA"},
     "pnaplus": {"mpnn_type": "PNAPlus", "num_radial": 5, "envelope_exponent": 5},
     "cgcnn": {"mpnn_type": "CGCNN"},
+    "painn": {"mpnn_type": "PAINN", "num_radial": 6, "hidden_dim": 8},
+    "pnaeq": {"mpnn_type": "PNAEq", "num_radial": 6, "hidden_dim": 8},
+    "dimenet": {"mpnn_type": "DimeNet", "num_radial": 6, "num_spherical": 7, "int_emb_size": 32,
+                "basis_emb_size": 8, "out_emb_size": 16, "num_before_skip": 1,
+                "num_after_skip": 2, "envelope_exponent": 5},
+    "mace": {"mpnn_type": "MACE", "max_ell": 1, "node_max_ell": 1, "correlation": 2,
+             "num_radial": 6, "radial_type": "bessel", "hidden_dim": 8},
 }
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the geometric stacks' segment sums per conv layer of a forward: PAINN's
+# scalar and vector messages at the senders; PNAEq's mean, the std's two
+# means and the vector messages; DimeNet's output sum at the receivers (its
+# triplet mixing is one gather-scatter launch); MACE's l = 0 and l = 1
+# message sums (qm9's node_max_ell 1)
+GEOMETRIC_SUMS = {"painn": 2, "pnaeq": 4, "dimenet": 1, "mace": 2}
 
 
 def launches_per_forward(kind: str, layers: int) -> dict:
@@ -384,7 +447,10 @@ def launches_per_forward(kind: str, layers: int) -> dict:
     PNAPlus: the mean and the std's two means; CGCNN: the sum)."""
     want = dict.fromkeys(KERNELS, 0)
     want["segment_sum"] = 1  # the mean pooling
-    if kind == "gat":
+    if kind in GEOMETRIC_SUMS:
+        want["segment_sum"] += GEOMETRIC_SUMS[kind] * layers
+        want["gather_scatter_sum"] = layers if kind == "dimenet" else 0
+    elif kind == "gat":
         want["segment_softmax"] = layers
         want["segment_sum"] += layers  # each layer's [E', 6, F] aggregation
     elif kind in EDGE_SUM_STACKS:
@@ -407,7 +473,19 @@ def launches_per_train_step(kind: str, layers: int) -> dict:
     SchNet: every layer, whose sum reads lin1 of its input). The backward
     of a segment sum is a gather, no launch."""
     want = launches_per_forward(kind, layers)
-    if kind == "gat":
+    if kind in GEOMETRIC_SUMS:
+        # the gathers' backward sums: PAINN's scalar MLP by receiver (every
+        # layer) and vector channel (not layer 0's, which starts at 0);
+        # PNAEq's features by sender and receiver and its vector channel
+        # (not layer 0's); DimeNet's embedded nodes by sender and receiver
+        # (every layer: lin_node sits in front) and the triplet mixing's
+        # transposed launch; MACE's sender features (one block on layer 0,
+        # l = 0 and 1 later) and element embedding (every layer)
+        want["segment_sum"] += {"painn": 2 * layers - 1, "pnaeq": 3 * (layers - 1),
+                                "dimenet": 2 * layers, "mace": 3 * layers - 1}[kind]
+        if kind == "dimenet":
+            want["gather_scatter_sum_bwd"] = layers
+    elif kind == "gat":
         # each softmax's backward sum, and the backward of the two gathers
         # (by sender, by receiver) of each layer
         want["segment_sum"] += 3 * layers
@@ -428,9 +506,11 @@ def _added(*counts: dict) -> dict:
 
 def qm9_like_samples(n: int, seed: int, radius: float, max_neighbours: int, pe_dim: int = 0):
     """``n`` QM9-sized molecules: 9-29 atoms uniform in a 6 Å box, ``Z`` in
-    1..9 as the one node feature, a random graph target, radius graphs from
-    the port's ``radius_graph``; with ``pe_dim``, the Laplacian positional
-    encodings a GPS request carries."""
+    1..9 as the one node feature (and as the raw atomic numbers collate
+    keeps before the features are normalised: MACE's element embedding), a
+    random graph target, radius graphs from the port's ``radius_graph``;
+    with ``pe_dim``, the Laplacian positional encodings a GPS request
+    carries."""
     from hydragnn_tpu_torch.graphs.graph import GraphSample
     from hydragnn_tpu_torch.graphs.radius import radius_graph
     from hydragnn_tpu_torch.preprocess.encodings import attach_lap_pe
@@ -443,7 +523,8 @@ def qm9_like_samples(n: int, seed: int, radius: float, max_neighbours: int, pe_d
         z = rng.integers(1, 10, size=(na, 1)).astype(np.float32)
         s, r, sh = radius_graph(pos, radius=radius, max_neighbours=max_neighbours)
         sample = GraphSample(x=z, pos=pos, senders=s, receivers=r, edge_shifts=sh,
-                             graph_y=rng.normal(size=(1,)))
+                             graph_y=rng.normal(size=(1,)),
+                             extras={"atomic_numbers": z[:, 0].copy()})
         out.append(attach_lap_pe(sample, pe_dim) if pe_dim else sample)
     return out
 
@@ -1482,6 +1563,136 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     return entries, times
 
 
+def geometric_kernel_phase(torch, seed: int, entries: list, failures: list,
+                           timing: bool = True) -> dict:
+    """B1 and B2 at the geometric stacks' shapes (the qm9 top bucket), fp32
+    and bf16, bit for bit (:func:`check_csr_exact`), with their times:
+
+    * B1 in weight mode 2 over DimeNet's triplets: ``x_kj [E, 64]`` gathered
+      by ``idx_kj``, weighted per triplet and channel, summed onto
+      ``idx_ji``'s E rows over its certified-sorted CSR view, and the
+      transposed launch over ``idx_kj``'s view; in fp32 the forward, ``dh``
+      and ``dw`` through autograd also bit-equal to the plain
+      gather-then-sum (``gather_rows`` and B2 over the same views);
+    * B2 on the flattened 3-D messages: PAINN's and PNAEq's vector channel
+      ``[E, 3, 32]`` at the senders, MACE's ``l = 1`` block ``[E, 3, 32]``
+      at the receivers, and the oc20 MLIPs' ``[E, 3, 32]``, each beside
+      ``index_add_``.
+
+    Appends the times to ``entries`` (B1's and its transposed launch's under
+    ``dimenet``, B2's under ``shapes``) and returns B1's per-call times by
+    name (``gather_scatter_sum_dimenet_ms``, ...)."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    times: dict = {}
+    dev = torch.device("cuda") if timing else torch.device("cpu")
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+    _, _, loaders, samples = prepare(seed, "dimenet")
+    top, _ = bucket_batches(loaders, samples)
+    b = top.to(dev)
+    n, e, t = b.num_nodes, b.num_edges, b.idx_kj.shape[0]
+    real_t = int(b.triplet_mask.sum())
+    ji_idx, kj_idx = b.csr("idx_ji"), b.csr("idx_kj")
+    log(f"DimeNet's triplets at the qm9 top bucket N={n} E={e}: T={t} triplet slots, {real_t} "
+        f"real ({real_t / max(int(b.edge_mask.sum()), 1):.2f} per real edge), idx_ji certified "
+        f"sorted={b.meta.ji_sorted} (permutation {'yes' if ji_idx.perm is not None else 'no'}), "
+        f"idx_kj argsorted")
+    if not b.meta.ji_sorted or ji_idx.perm is not None:
+        raise AssertionError("DimeNet: collate did not certify idx_ji sorted")
+    kj_c, ji_c, tm_c = b.idx_kj.cpu(), b.idx_ji.cpu(), b.triplet_mask.cpu()
+    c = 64  # int_emb_size
+    log("gather_scatter_sum in weight mode 2 over DimeNet's triplets (x_kj [E, 64] by idx_kj, "
+        "w [T, 64], onto idx_ji's E rows) and its transposed launch over idx_kj's view, bit for "
+        "bit:")
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        h = torch.randn(e, c, generator=gen).to(dtype)
+        w = (torch.randn(t, c, generator=gen) * tm_c[:, None]).to(dtype)
+        got = fs.gather_scatter_sum(h.to(dev), b.idx_kj, b.idx_ji, e, weight=w.to(dev),
+                                    index=ji_idx, send_index=kj_idx)
+        with _one_thread(torch):
+            plain = fs.plain_gather_scatter_sum(h, kj_c, ji_c, e, w)
+        check_csr_exact(torch, f"{dname} triplet mixing [T={t},{c}] -> E={e}", got, plain,
+                        h.float()[kj_c.long()] * w.float(), ji_c, e, failures)
+        got = fs.gather_scatter_sum_bwd(h.to(dev), b.idx_kj, b.idx_ji, e, w.to(dev),
+                                        send_index=kj_idx, index=ji_idx)
+        with _one_thread(torch):
+            plain = fs.plain_gather_scatter_sum(h, ji_c, kj_c, e, w)
+        check_csr_exact(torch, f"{dname} its transposed launch over idx_kj's view", got, plain,
+                        h.float()[ji_c.long()] * w.float(), kj_c, e, failures)
+    # fp32: B1 against the gather-then-sum it replaces (gather_rows and B2
+    # over the same views), forward and gradients, bit for bit
+    h = torch.randn(e, c, generator=gen).to(dev).requires_grad_()
+    w = (torch.randn(t, c, generator=gen).to(dev) * b.triplet_mask[:, None]).requires_grad_()
+    dout = torch.randn(e, c, generator=gen).to(dev)
+    out_k = fs.gather_scatter_sum(h, b.idx_kj, b.idx_ji, e, weight=w, index=ji_idx,
+                                  send_index=kj_idx)
+    dh_k, dw_k = torch.autograd.grad(out_k, (h, w), dout)
+    out_g = fs.fused_segment_sum(fs.gather_rows(h, b.idx_kj, kj_idx) * w, b.idx_ji, e,
+                                 index=ji_idx)
+    dh_g, dw_g = torch.autograd.grad(out_g, (h, w), dout)
+    same = [bool(torch.equal(x, y)) for x, y in ((out_k, out_g), (dh_k, dh_g), (dw_k, dw_g))]
+    log(f"  fp32 B1 vs gather_rows + B2 over the same views: forward, dh, dw bit-equal {same}")
+    if not all(same):
+        failures.append("B1 vs gather-then-sum over DimeNet's triplets")
+    if timing:
+        hd, wd = h.detach(), w.detach()
+        nbytes = e * c * 4 + 2 * t * 4 + t * c * 4 + e * c * 4
+        bound = max(nbytes / HBM_BYTES_PER_S, 2 * t * c / FP32_FLOPS) * 1e3
+        for name, fn, plain_fn in (
+            ("gather_scatter_sum",
+             lambda: fs.gather_scatter_sum(hd, b.idx_kj, b.idx_ji, e, weight=wd, index=ji_idx),
+             lambda: fs.plain_gather_scatter_sum(hd, b.idx_kj, b.idx_ji, e, wd)),
+            ("gather_scatter_sum_bwd",
+             lambda: fs.gather_scatter_sum_bwd(dout, b.idx_kj, b.idx_ji, e, wd,
+                                               send_index=kj_idx),
+             lambda: fs.plain_gather_scatter_sum(dout, b.idx_ji, b.idx_kj, e, wd)),
+        ):
+            d = dict(shape=f"[{e},{c}] f32, w[T={t},{c}] (DimeNet's triplet mixing)",
+                     ms=graph_time_ms(torch, fn), plain_ms=graph_time_ms(torch, plain_fn),
+                     bound_ms=bound, bound_by="bytes", library_ms=None, bytes=nbytes)
+            next(x for x in entries if x["name"] == name)["dimenet"] = d
+            times[f"{name}_dimenet_ms"] = d["ms"]
+            log(f"  {name} @ {d['shape']}: kernel {d['ms'] * 1e3:.2f} us, plain "
+                f"{d['plain_ms'] * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({nbytes} B); no "
+                f"one-call yardstick (a weight per triplet and channel)")
+
+    # B2 on the flattened [E, 3, F] messages
+    mlip_b = mlip_train_batch().to(dev)
+    log("segment_sum on the flattened 3-D messages ([E, 3, 32] as [E, 96]), bit for bit:")
+    cases = (("PAINN/PNAEq vector messages at the senders", b.senders, n, b.csr("senders"),
+              e),
+             ("MACE l=1 messages at the receivers", b.receivers, n, b.csr("receivers"), e),
+             ("oc20 MLIP (PAINN/MACE) [E,3,32] at the senders", mlip_b.senders,
+              mlip_b.num_nodes, mlip_b.csr("senders"), mlip_b.num_edges))
+    shapes = []
+    for label, ids, rows, index, n_ids in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n_ids, 3, 32, generator=gen).to(dtype)
+            got = fs.fused_segment_sum(x.reshape(n_ids, 96).to(dev), ids, rows, index=index)
+            with _one_thread(torch):
+                plain = fs.plain_segment_sum(x.reshape(n_ids, 96), ids.cpu(), rows)
+            check_csr_exact(torch, f"{str(dtype).split('.')[1]} {label} [{n_ids},3,32]", got,
+                            plain, x.reshape(n_ids, 96).float(), ids, rows, failures)
+        if timing:
+            xd = torch.randn(n_ids, 96, generator=gen).to(dev)
+            ids_l = ids.long()
+            t_k = graph_time_ms(torch, lambda: fs.fused_segment_sum(xd, ids, rows, index=index))
+            t_lib = graph_time_ms(torch, lambda: torch.zeros(rows, 96, device=dev).index_add_(
+                0, ids_l, xd))
+            nbytes = xd.numel() * 4 + n_ids * 4 + rows * 96 * 4
+            bound = max(nbytes / HBM_BYTES_PER_S, xd.numel() / FP32_FLOPS) * 1e3
+            shapes.append(dict(shape=f"{label} [{n_ids},3*32] f32 -> {rows}", ms=t_k,
+                               library_ms=t_lib, bound_ms=bound,
+                               pieces=int(index.piece_ptr[-1]),
+                               longest_row=int((index.ptr[1:] - index.ptr[:-1]).max())))
+            log(f"  segment_sum @ {shapes[-1]['shape']}: kernel {t_k * 1e3:.2f} us, index_add_ "
+                f"{t_lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({nbytes} B)")
+    if timing:
+        next(x for x in entries if x["name"] == "segment_sum")["shapes"].extend(shapes)
+    return times
+
+
 def schnet_gather_scatter_checks(torch, b, gen, real_rows: int) -> None:
     """Kernel B1 at SchNet's sum: lin1 features ``[N, 64]`` times filters
     per edge and channel ``[E, 64]`` (the filters times the edge mask), fp32
@@ -1532,6 +1743,13 @@ def step_kernel_ms(kind: str, layers: int, kt: dict) -> float:
     """Device time of one train step's kernel launches from the kernel
     phase's times (fp32 shapes; GIN's conv layer 0 at its bf16 C = 1)."""
     per = launches_per_train_step(kind, layers)
+    if kind in GEOMETRIC_SUMS:
+        # segment sums at about the edge messages' shape (PAINN, PNAEq, MACE
+        # sum [E, 32] to [E, 96] rows), DimeNet's B1 at its triplets' shape
+        return (per["segment_sum"] * kt.get("segment_sum_edges_ms", 0.0)
+                + per["gather_scatter_sum"] * kt.get("gather_scatter_sum_dimenet_ms", 0.0)
+                + per["gather_scatter_sum_bwd"] * kt.get("gather_scatter_sum_bwd_dimenet_ms",
+                                                         0.0))
     if kind == "gat":
         # aggregation and the two gathers' backward sums at [E', 6 * 64]
         return (per["segment_softmax"] * kt.get("segment_softmax_ms", 0.0)
@@ -2386,7 +2604,10 @@ def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int,
     worst_g = max(float((c - h).abs().max()) for c, h in grads.values())
     floor = 10 * worst_g
     worst_p = worst_noise = 0.0
+    noise_room = float("-inf")  # largest (diff - 2 lr) / (eps |p|) on noise-level gradients
+    noise_over = False
     n_noise = 0
+    eps32 = torch.finfo(torch.float32).eps
     for (name, p), q in zip(card.named_parameters(), host.parameters()):
         g = grads[name][1]
         diff = (p.detach().cpu() - q.detach()).abs()
@@ -2394,6 +2615,12 @@ def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int,
         n_noise += int(noise.sum())
         worst_p = max(worst_p, float(diff[~noise].max()) if bool((~noise).any()) else 0.0)
         worst_noise = max(worst_noise, float(diff[noise].max()) if bool(noise.any()) else 0.0)
+        # opposite steps of lr each land 2 lr apart, give or take the fp32
+        # rounding of the two parameters they land on
+        noise_over |= bool((diff[noise] > 2 * lr + 2 * eps32 * q.detach().abs()[noise]).any())
+        if bool(noise.any()):
+            ulp = (eps32 * q.detach().abs()[noise]).clamp_min(torch.finfo(torch.float32).tiny)
+            noise_room = max(noise_room, float(((diff[noise] - 2 * lr) / ulp).max()))
     for (name, a), b in zip(card.named_buffers(), host.buffers()):
         if not torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-6):
             raise AssertionError(f"fp32 train step: running statistic {name} differs")
@@ -2410,8 +2637,9 @@ def _step_vs_cpu(torch, aug: dict, host_batch, device: str, seed: int,
         f"{loosest[2]:.2e}, plain versions "
         f"{loosest[3]:.2e}; parameters after AdamW max|diff| {worst_p:.3e} (allowed "
         f"{1e-3 * lr:.1e} = 1e-3 lr) and {worst_noise:.3e} on {n_noise} noise-level gradients "
-        f"(allowed {2 * lr:.1e} = 2 lr)")
-    if worst_p > 1e-3 * lr or worst_noise > 2 * lr:
+        f"(allowed {2 * lr:.1e} = 2 lr, and the fp32 rounding of the parameters: the "
+        f"largest (diff - 2 lr) / (eps |p|) is {noise_room:.3f}, allowed 2)")
+    if worst_p > 1e-3 * lr or noise_over:
         raise AssertionError("fp32 train step: updated parameters differ from the CPU route")
 
 
@@ -3503,11 +3731,16 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
 # -- phase 8: MLIP training --------------------------------------------------------
 
 
-def mlip_config(epochs: int) -> dict:
+def mlip_config(epochs: int, arch: str = "EGNN") -> dict:
     """``bench.py``'s ``oc20`` row: ``MLIP_CONFIG`` with radius 5.0 and
-    ``max_neighbours`` 40, fp32, batch 64, ``num_epoch`` cut to ``epochs``."""
+    ``max_neighbours`` 40, fp32, batch 64, ``num_epoch`` cut to ``epochs``;
+    for ``arch`` PAINN or MACE, its ``Architecture`` block and head are
+    ``examples/oc20/train.py``'s (``OC20_ARCH``) on the same data."""
     cfg = copy.deepcopy(MLIP_CONFIG)
     cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+    if arch != "EGNN":
+        cfg["NeuralNetwork"]["Architecture"] = dict(copy.deepcopy(OC20_ARCH), mpnn_type=arch)
+        cfg["NeuralNetwork"]["Variables_of_interest"].update(type=["node"], output_dim=[1])
     return cfg
 
 
@@ -3531,16 +3764,35 @@ def mlip_train_batch(n_samples: int = MLIP_SAMPLES):
     return collate(loaders[0].samples[:64], loaders[0].pad)
 
 
-def mlip_launches_per_step(layers: int) -> dict:
-    """Kernel launches of one MLIP train step of an EGNN with ``layers``
-    conv layers (the last without coordinate update), all segment sums: the
-    forward's ``2 L`` (L aggregations, L - 1 coordinate updates, the
-    pooling); the force backward's ``4 L - 2`` (the gathers' backward: two
-    of positions per layer, two of features on layers 1..L-1); the loss
-    backward the same two sets again (the forward's gathers, and the
-    gathers that are the force backward's segment sums)."""
+def mlip_launches_per_step(layers: int, arch: str = "EGNN") -> dict:
+    """Kernel launches of one MLIP train step with ``layers`` conv layers,
+    all segment sums: those of the eval step (:func:`mlip_launches_per_eval`)
+    and the loss backward's. The EGNN's loss backward repeats the forward's
+    and the force backward's (the forward's gathers, and the gathers that
+    are the force backward's segment sums): ``2 (2 L + 4 L - 2)`` in all.
+    PAINN's loss backward sums the gathers of the forward that depend on
+    the parameters (positions two per layer, scalar messages one per layer,
+    vector channel on layers 1..L-1: ``4 L - 1``) and differentiates the
+    two message sums per layer once more (``2 L``): ``12 L - 1`` in all.
+    MACE's: positions two per layer, sender features one on layer 0 and two
+    later, the element embedding one per layer (``5 L - 1``), and the two
+    message sums per layer: ``13 L - 1``."""
     want = dict.fromkeys(KERNELS, 0)
-    want["segment_sum"] = 2 * (2 * layers + 4 * layers - 2)
+    want["segment_sum"] = {"EGNN": 2 * (2 * layers + 4 * layers - 2),
+                           "PAINN": 12 * layers - 1, "MACE": 13 * layers - 1}[arch]
+    return want
+
+
+def mlip_launches_per_eval(layers: int, arch: str = "EGNN") -> dict:
+    """One MLIP eval step: the energy forward and the force backward (no
+    second derivative). EGNN: ``2 L + 4 L - 2``. PAINN and MACE: the
+    forward's ``2 L + 2`` (two message sums per layer, the pooling the node
+    head does not read, the node energies' sum per graph) and the force
+    backward's ``4 L - 2``: the position gathers' two per layer and, on
+    layers 1..L-1 (layer 0's features do not depend on the positions),
+    PAINN's scalar and vector gathers, MACE's two sender-feature blocks."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["segment_sum"] = 6 * layers - (2 if arch == "EGNN" else 0)
     return want
 
 
@@ -3554,10 +3806,14 @@ def mlip_launches_per_md_step(layers: int) -> dict:
 
 
 def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS,
-                        n_samples: int = MLIP_SAMPLES, card: str = "") -> dict:
-    """``run_training`` of the oc20 EGNN MLIP (fp32): falling train loss,
-    launch counts, one fp32 MLIP step against the fp64 CPU step, where a
-    step's time goes and the device's busy share."""
+                        n_samples: int = MLIP_SAMPLES, card: str = "",
+                        arch: str = "EGNN") -> dict:
+    """``run_training`` of the oc20 MLIP (fp32; ``arch`` EGNN, or PAINN or
+    MACE with ``examples/oc20/train.py``'s block): falling train loss,
+    launch counts, the captured steps against the eager ones, one fp32 MLIP
+    step against the fp64 CPU step, the forces through the kernels against
+    the plain versions on the same state (PAINN, MACE), where a step's time
+    goes and the device's busy share."""
     from hydragnn_tpu_torch import run_training
     from hydragnn_tpu_torch.graphs.batching import collate
     from hydragnn_tpu_torch.models.mlip import (energy_force_loss, graph_energy,
@@ -3566,16 +3822,19 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
     from hydragnn_tpu_torch.train.step import cast_forward, optimizer_step
 
-    cfg = mlip_config(epochs)
-    arch = cfg["NeuralNetwork"]["Architecture"]
-    layers = int(arch["num_conv_layers"])
+    cfg = mlip_config(epochs, arch)
+    tag = "mlip" if arch == "EGNN" else f"mlip-{arch.lower()}"
+    a_cfg = cfg["NeuralNetwork"]["Architecture"]
+    layers = int(a_cfg["num_conv_layers"])
     loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=mlip_samples(n_samples))
     n_train, n_val, n_test = (len(ld) for ld in loaders)
-    log(f"[mlip] training: run_training on bench.py's oc20 EGNN MLIP (hidden "
-        f"{arch['hidden_dim']} x {layers} conv layers, equivariance on, silu, add pooling, "
-        f"energy weight 1, force weight 10, fp32, batch 64, AdamW lr 1e-3), num_epoch cut to "
-        f"{epochs} (the only cut), {n_samples} periodic 64-atom LJ cells: {n_train} train / "
-        f"{n_val} val / {n_test} test batches per epoch, seed {seed}")
+    source = ("bench.py's oc20 EGNN MLIP" if arch == "EGNN" else
+              f"examples/oc20/train.py's --arch {arch} block")
+    log(f"[{tag}] training: run_training on {source} (hidden {a_cfg['hidden_dim']} x {layers} "
+        f"conv layers, equivariance on, silu, add pooling, energy weight "
+        f"{a_cfg['energy_weight']}, force weight {a_cfg['force_weight']}, fp32, batch 64, AdamW "
+        f"lr 1e-3), num_epoch cut to {epochs} (the only cut), {n_samples} periodic 64-atom LJ "
+        f"cells: {n_train} train / {n_val} val / {n_test} test batches per epoch, seed {seed}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         history: list = []
         fs.reset_launches()
@@ -3586,16 +3845,16 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
         wall = time.perf_counter() - t0
     launches = dict(fs.LAUNCHES)
     losses = [h["train_loss"] for h in history]
-    log(f"[{card}] [mlip] run_training: {len(history)} epochs, {state.step} train steps in "
+    log(f"[{card}] [{tag}] run_training: {len(history)} epochs, {state.step} train steps in "
         f"{wall:.3f} s (epochs {[round(h['seconds'], 3) for h in history]} s); train loss per "
         f"epoch {[round(x, 3) for x in losses]}; val loss "
         f"{[round(h['val_loss'], 3) for h in history]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"MLIP training: the train loss did not fall: {losses}")
-    per_step = mlip_launches_per_step(layers)
-    per_eval = dict(per_step, segment_sum=6 * layers - 2)  # no second derivative
+    per_step = mlip_launches_per_step(layers, arch)
+    per_eval = mlip_launches_per_eval(layers, arch)
     want = _added(_scaled(per_step, state.step), _scaled(per_eval, len(history) * (n_val + n_test)))
-    log(f"[mlip] launches during run_training: {launches} (expected {want}: per train step "
+    log(f"[{tag}] launches during run_training: {launches} (expected {want}: per train step "
         f"{ {k: v for k, v in per_step.items() if v} }, per eval batch "
         f"{ {k: v for k, v in per_eval.items() if v} })")
     if device == "cuda" and launches != want:
@@ -3608,7 +3867,7 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     step(state, host.to(device))
     _sync(torch, device)
     one_step = dict(fs.LAUNCHES)
-    log(f"[mlip] launches of one eager MLIP train step: {one_step} (expected {per_step})")
+    log(f"[{tag}] launches of one eager MLIP train step: {one_step} (expected {per_step})")
     if device == "cuda" and one_step != per_step:
         raise AssertionError(f"MLIP training: one step launched {one_step} != {per_step}")
     captured = None
@@ -3619,9 +3878,11 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
         hosts = [collate(train_ld.samples[64 * (i % 2):64 * (i % 2) + 64], train_ld.pad)
                  for i in range(4)]
         captured = captured_vs_eager(torch, state, step, make_mlip_eval_step(model, torch.float32),
-                                     hosts, f"[{card}] [mlip]", per_step, per_eval)
+                                     hosts, f"[{card}] [{tag}]", per_step, per_eval)
 
     _step_vs_cpu(torch, aug, host, device, seed, mlip=True)
+    if arch != "EGNN":
+        mlip_forces_vs_plain(torch, model, host, device, tag)
 
     # where an MLIP train step's time goes (median of 10, host clock after a
     # synchronise, each step on a fresh device batch)
@@ -3650,18 +3911,47 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     for b in [host.to(device) for _ in range(reps)]:
         timed("step", lambda: step(state, b))
     med = {k: float(np.median(v)) for k, v in parts.items()}
-    log(f"[{card}] [mlip] one eager fp32 MLIP train step (64 cells, N={host.num_nodes}, "
+    log(f"[{card}] [{tag}] one eager fp32 MLIP train step (64 cells, N={host.num_nodes}, "
         f"E={host.num_edges}; median of {reps}, host clock): to device {med['to_device']:.3f} ms, "
         f"forward (energy) {med['forward']:.3f} ms, force backward (create_graph) "
         f"{med['force_backward']:.3f} ms, loss backward + AdamW {med['loss_backward']:.3f} ms; "
         f"whole train step {med['step']:.3f} ms")
     eager_busy = None
     if device == "cuda":
-        eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [mlip] eager:")
-        log_op_diff(f"[{card}] [mlip] train step:", captured["busy"], eager_busy)
+        eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [{tag}] eager:")
+        log_op_diff(f"[{card}] [{tag}] train step:", captured["busy"], eager_busy)
     return {"launches": launches, "per_step": one_step, "breakdown": med, "model": model,
             "aug": aug, "layers": layers, "batch": host, "captured": captured,
             "eager_busy": eager_busy}
+
+
+def mlip_forces_vs_plain(torch, model, host, device: str, tag: str) -> float:
+    """The trained MLIP's energies and forces on one training batch through
+    the kernels (every segment sum of the energy and of the force backward
+    on B2) against the same state's with the plain versions in their place:
+    max |dF| within ``MD_RTOL`` of max |F|, and the kernels launched."""
+    from hydragnn_tpu_torch.models.mlip import make_energy_and_forces
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    ef = make_energy_and_forces(model)
+    b = host.to(device)
+    before = dict(fs.LAUNCHES)
+    e_k, f_k = ef(b)
+    _sync(torch, device)
+    launched = fs.LAUNCHES["segment_sum"] - before["segment_sum"]
+    with _plain_versions_on_card():
+        e_p, f_p = ef(b)
+    scale = float(f_p.abs().max())
+    err = float((f_k - f_p).abs().max())
+    ratio = err / scale if scale > 0 else float("inf")
+    log(f"[{tag}] forces through the kernels ({launched} segment sums) vs the plain versions on "
+        f"the same state and batch: max|dF| {err:.3e} of max|F| {scale:.3e} ({ratio:.2e}; allowed "
+        f"{MD_RTOL:.0e}), max|dE| {float((e_k - e_p).abs().max()):.3e}")
+    if device == "cuda" and launched <= 0:
+        raise AssertionError(f"{tag}: the forces did not go through B2")
+    if not ratio <= MD_RTOL:
+        raise AssertionError(f"{tag}: the forces through the kernels miss the plain versions'")
+    return ratio
 
 
 # -- phase 9: molecular dynamics ----------------------------------------------------
@@ -4066,6 +4356,10 @@ def kernels_only(torch, seed: int, dev: dict) -> int:
     top, small = bucket_batches(loaders, samples)
     mlip_b = mlip_train_batch()
     entries, _ = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b)
+    geometric_failures: list = []
+    geometric_kernel_phase(torch, seed, entries, geometric_failures)
+    if geometric_failures:
+        raise AssertionError(f"kernels not bit for bit: {geometric_failures}")
     cfg = mlip_config(MLIP_EPOCHS)  # augmented as run_training augments it
     mlip_loaders = dataset_loading_and_splitting(cfg, samples=mlip_samples())
     aug = update_config(cfg, *(ld.samples for ld in mlip_loaders))
@@ -4079,6 +4373,16 @@ def kernels_only(torch, seed: int, dev: dict) -> int:
         e["launches"] = None
     print(json.dumps({"kernels_only": entries}), flush=True)
     return 3
+
+
+@contextlib.contextmanager
+def timed_phase(times: dict, name: str):
+    """Adds the block's wall seconds to ``times[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
@@ -4098,6 +4402,7 @@ def main(argv=None) -> int:
     import torch
 
     t_start = time.perf_counter()
+    phase_s: dict[str, float] = {}  # wall seconds per phase, logged before the result lines
     dev = device_phase(torch)
     import hydragnn_tpu_torch
     from hydragnn_tpu_torch.config import update_config
@@ -4105,42 +4410,63 @@ def main(argv=None) -> int:
     pkg = Path(hydragnn_tpu_torch.__file__).resolve().parent
     if pkg.parent != ROOT:
         raise SystemExit(f"chip_smoke: hydragnn_tpu_torch imported from {pkg}, not this checkout")
-    build_phase()
+    with timed_phase(phase_s, "build"):
+        build_phase()
     if args.kernels_only:
         return kernels_only(torch, args.seed, dev)
-    _, aug_gin, loaders, samples = prepare(args.seed)
-    n_max = update_config(qm9_config("gps"), loaders[0].samples)[
-        "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
-    top, small = bucket_batches(loaders, samples)
-    mlip_b = mlip_train_batch()
-    entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b)
-    from hydragnn_tpu_torch.models import create_model_config
+    with timed_phase(phase_s, "data"):
+        _, aug_gin, loaders, samples = prepare(args.seed)
+        n_max = update_config(qm9_config("gps"), loaders[0].samples)[
+            "NeuralNetwork"]["Architecture"]["max_graph_nodes"]
+        top, small = bucket_batches(loaders, samples)
+        mlip_b = mlip_train_batch()
+    with timed_phase(phase_s, "kernels"):
+        entries, kernel_times = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b)
+        geometric_failures: list = []
+        kernel_times.update(geometric_kernel_phase(torch, args.seed, entries,
+                                                   geometric_failures))
+        if geometric_failures:
+            raise AssertionError(f"kernels not bit for bit: {geometric_failures}")
+        from hydragnn_tpu_torch.models import create_model_config
 
-    entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda",
-                                                             seed=args.seed), top,
-                                  egnn_rows=mlip_b.num_edges)
-    second_derivative_phase(torch, top)
+        entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda",
+                                                                 seed=args.seed), top,
+                                      egnn_rows=mlip_b.num_edges)
+        second_derivative_phase(torch, top)
     served, trained, quantized = {}, {}, {}
     for kind in MODELS:
-        served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
-        trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
-                                       card=dev["smi"])
-        quantized[kind] = quant_serving_phase(torch, "cuda", args.seed, kind,
-                                              trained[kind]["model"], trained[kind]["aug"],
-                                              card=dev["smi"],
-                                              diagnostics=args.quant_diagnostics)
-    for kind in STACKS:
-        served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
-        trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
-                                       card=dev["smi"])
-    superstep = superstep_phase(torch, args.seed, card=dev["smi"])
-    canary_phase(torch, "cuda", card=dev["smi"])
-    mlip = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"])
-    systems = md_systems(mlip["aug"], args.seed)
-    entries.append(cell_list_phase(torch, systems))
-    ran_md = md_phase(torch, "cuda", systems, mlip["model"], mlip["layers"], card=dev["smi"])
-    fp8 = fp8_phase(torch, trained["gin"]["model"], top, mlip["model"], mlip["batch"],
-                    card=dev["smi"])
+        with timed_phase(phase_s, kind):
+            served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
+            trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
+                                           card=dev["smi"])
+            quantized[kind] = quant_serving_phase(torch, "cuda", args.seed, kind,
+                                                  trained[kind]["model"], trained[kind]["aug"],
+                                                  card=dev["smi"],
+                                                  diagnostics=args.quant_diagnostics)
+    for kind in {**STACKS, **GEOMETRIC}:
+        with timed_phase(phase_s, kind):
+            served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
+            trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
+                                           card=dev["smi"])
+    with timed_phase(phase_s, "superstep"):
+        superstep = superstep_phase(torch, args.seed, card=dev["smi"])
+    with timed_phase(phase_s, "canaries"):
+        canary_phase(torch, "cuda", card=dev["smi"])
+    with timed_phase(phase_s, "mlip"):
+        mlip = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"])
+    mlips = {}
+    for arch in MLIP_ARCHS:
+        with timed_phase(phase_s, f"mlip-{arch.lower()}"):
+            mlips[arch] = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"],
+                                              arch=arch)
+    with timed_phase(phase_s, "md"):
+        systems = md_systems(mlip["aug"], args.seed)
+        entries.append(cell_list_phase(torch, systems))
+        ran_md = md_phase(torch, "cuda", systems, mlip["model"], mlip["layers"],
+                          card=dev["smi"])
+    with timed_phase(phase_s, "fp8"):
+        fp8 = fp8_phase(torch, trained["gin"]["model"], top, mlip["model"], mlip["batch"],
+                        card=dev["smi"])
     for e in entries:
         name = e["name"]
         if name == "quant_dense":
@@ -4159,14 +4485,17 @@ def main(argv=None) -> int:
             if e["launches"] <= 0:
                 raise AssertionError("fp8_dense was not launched by certify_fp8_dense")
             continue
-        # launches: the main paths' runs together (the nine qm9.json
-        # run_training runs, the MLIP run_training run, the two MD
+        # launches: the main paths' runs together (the thirteen qm9.json
+        # run_training runs, the three MLIP run_training runs, the two MD
         # rollouts); the serving runs' counts and the per-model rates beside
         # them
         e["launches"] = (sum(trained[k]["launches"][name] for k in ARCH_KNOBS)
                          + mlip["launches"][name]
+                         + sum(m["launches"][name] for m in mlips.values())
                          + sum(r["launches"][name] for r in ran_md.values()))
         e["launches_mlip_run_training"] = mlip["launches"][name]
+        e["launches_mlip_run_training_geometric"] = {
+            a: m["launches"][name] for a, m in mlips.items()}
         e["launches_md"] = {k: r["launches"][name] for k, r in ran_md.items()}
         if name == "cell_list":
             if any(r["launches"][name] <= 0 for r in ran_md.values()):
@@ -4177,6 +4506,10 @@ def main(argv=None) -> int:
             k: served[k]["launches"][name] / served[k]["batches"] for k in ARCH_KNOBS}
         e["launches_per_train_step"] = {k: trained[k]["per_step"][name] for k in ARCH_KNOBS}
         e["launches_per_train_step"]["mlip"] = mlip["per_step"][name]
+        for a, m in mlips.items():
+            e["launches_per_train_step"][f"mlip-{a.lower()}"] = m["per_step"][name]
+            if name == "segment_sum" and m["launches"][name] <= 0:
+                raise AssertionError(f"segment_sum was not launched on the {a} MLIP's path")
         for kind in ARCH_KNOBS:
             layers = trained[kind]["layers"]
             if launches_per_train_step(kind, layers)[name] and \
@@ -4194,7 +4527,8 @@ def main(argv=None) -> int:
                               "captured": t["captured"]["step_ms"],
                               "busy_eager": _lean(t["eager_busy"]),
                               "busy_captured": _lean(t["captured"]["busy"])}
-                          for k, t in dict(trained, mlip=mlip).items()},
+                          for k, t in dict(trained, mlip=mlip, **{
+                              f"mlip-{a.lower()}": m for a, m in mlips.items()}).items()},
         "superstep_gin_s": superstep,
         "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
                                "busy_eager": _lean(r["captured"]["eager_busy"]),
@@ -4202,6 +4536,7 @@ def main(argv=None) -> int:
                            for k, r in ran_md.items()},
     }
     log("capture summary (captured against eager, this run): " + json.dumps(summary))
+    log("phase wall times (s): " + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the result lines")
     log(dev["smi"])  # the card's name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": entries}), flush=True)

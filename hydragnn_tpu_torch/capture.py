@@ -99,7 +99,7 @@ def _count_capture() -> None:
         _TOTAL["captures"] += 1
 
 
-_CERTIFICATES = ("recv_sorted", "send_sorted", "batch_sorted")
+_CERTIFICATES = ("recv_sorted", "send_sorted", "batch_sorted", "ji_sorted")
 
 
 def signature(batch: GraphBatch) -> tuple:

@@ -8,9 +8,10 @@ feature dims, input dim, the GPS defaults and GPS's dense-attention width
 reads, with the interatomic-potential (MLIP) keys and the ``MD`` block
 (validated against ``md.MDConfig``), and the derivations of the invariant
 stacks: PNA's in-degree histogram (``pna_deg``, and ``max_neighbours`` from
-its length), CGCNN's hidden width (its input width without GPS) and the
-edge-dimension rules. MACE's neighbour counts and the blocks of subsystems
-the port does not have yet come with their slices.
+its length; PNAEq's too), CGCNN's hidden width (its input width without
+GPS), MACE's mean neighbour count (``avg_num_neighbors``) and the
+edge-dimension rules. The blocks of subsystems the port does not have yet
+come with their slices.
 """
 
 from __future__ import annotations
@@ -75,6 +76,14 @@ def _degree_histogram(samples) -> list[int]:
     for h in per_sample:
         hist[: h.shape[0]] += h
     return hist.tolist()
+
+
+def _avg_num_neighbors(samples) -> float:
+    """Edges per node over the training samples (MACE's message
+    normaliser)."""
+    tot_edges = sum(s.num_edges for s in samples)
+    tot_nodes = sum(s.num_nodes for s in samples)
+    return float(tot_edges) / max(tot_nodes, 1)
 
 
 def update_config(config: dict, train_samples, val_samples=None, test_samples=None) -> dict:
@@ -149,6 +158,12 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     # CGCNN's update is residual: without GPS its width is its input's
     if arch.get("mpnn_type") == "CGCNN" and not arch.get("global_attn_engine"):
         arch["hidden_dim"] = arch["input_dim"]
+    # MACE divides its aggregated messages by the mean neighbour count
+    if arch.get("mpnn_type") == "MACE":
+        if arch.get("avg_num_neighbors") is None:
+            arch["avg_num_neighbors"] = _avg_num_neighbors(train_samples)
+    else:
+        arch.setdefault("avg_num_neighbors", None)
 
     # edge dimension: the edge features' count, for the stacks that read
     # them; CGCNN's is 0 without them
@@ -213,14 +228,28 @@ class ModelSpec:
     max_graph_nodes: int | None = None  # GPS dense-attention width
     pe_dim: int = 0  # Laplacian positional encodings per node (GPS)
     equivariance: bool | None = None  # EGNN and SchNet coordinate updates
-    # geometry and radial bases (SchNet, PNAPlus), degree banks (MFC, PNA)
+    # geometry and radial bases (SchNet, PNAPlus and the geometric stacks),
+    # degree banks (MFC, PNA, PNAEq)
     radius: float | None = None
     max_neighbours: int | None = None
     pna_deg: tuple[int, ...] | None = None
+    radial_type: str | None = None
     num_gaussians: int | None = None
     num_filters: int | None = None
     num_radial: int | None = None
     envelope_exponent: int | None = None
+    # DimeNet's spherical basis and interaction block
+    num_spherical: int | None = None
+    basis_emb_size: int | None = None
+    int_emb_size: int | None = None
+    out_emb_size: int | None = None
+    num_before_skip: int | None = None
+    num_after_skip: int | None = None
+    # MACE's irreps orders, correlation order and message normaliser
+    max_ell: int | None = None
+    node_max_ell: int | None = None
+    correlation: object = None
+    avg_num_neighbors: float | None = None
     # interatomic potentials: energy head, forces from the position gradient
     enable_interatomic_potential: bool = False
     energy_weight: float = 0.0
@@ -287,10 +316,23 @@ class ModelSpec:
             radius=arch.get("radius"),
             max_neighbours=arch.get("max_neighbours"),
             pna_deg=tuple(arch["pna_deg"]) if arch.get("pna_deg") else None,
+            radial_type=arch.get("radial_type"),
             num_gaussians=arch.get("num_gaussians"),
             num_filters=arch.get("num_filters"),
             num_radial=arch.get("num_radial"),
             envelope_exponent=arch.get("envelope_exponent"),
+            num_spherical=arch.get("num_spherical"),
+            basis_emb_size=arch.get("basis_emb_size"),
+            int_emb_size=arch.get("int_emb_size"),
+            out_emb_size=arch.get("out_emb_size"),
+            num_before_skip=arch.get("num_before_skip"),
+            num_after_skip=arch.get("num_after_skip"),
+            max_ell=arch.get("max_ell"),
+            node_max_ell=arch.get("node_max_ell"),
+            correlation=(tuple(arch["correlation"])
+                         if isinstance(arch.get("correlation"), list)
+                         else arch.get("correlation")),
+            avg_num_neighbors=arch.get("avg_num_neighbors"),
             enable_interatomic_potential=bool(arch.get("enable_interatomic_potential", False)),
             energy_weight=float(arch.get("energy_weight", 0.0)),
             energy_peratom_weight=float(arch.get("energy_peratom_weight", 0.0)),

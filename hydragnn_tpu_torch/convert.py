@@ -41,6 +41,7 @@ imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import re
 
 import numpy as np
@@ -157,8 +158,7 @@ def batch_from_numpy(nb) -> GraphBatch:
     meta = batch_meta(arrays)
     node_cap = getattr(jax_meta, "max_n_node", None)
     if node_cap is not None:
-        meta = type(meta)(max_n_node=int(node_cap), recv_sorted=meta.recv_sorted,
-                          send_sorted=meta.send_sorted, batch_sorted=meta.batch_sorted)
+        meta = dataclasses.replace(meta, max_n_node=int(node_cap))
     return GraphBatch(**{f: torch.from_numpy(a) for f, a in arrays.items()}, meta=meta)
 
 

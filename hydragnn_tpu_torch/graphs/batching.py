@@ -211,6 +211,7 @@ def batch_meta(arrays: dict[str, np.ndarray], node_cap: int = 0,
         recv_sorted=is_sorted(arrays["receivers"]),
         send_sorted=is_sorted(arrays["senders"]),
         batch_sorted=is_sorted(arrays["batch"]),
+        ji_sorted=is_sorted(arrays["idx_ji"]),
     )
 
 

@@ -10,6 +10,11 @@ What differs is ``BatchMeta``: the JAX certificates are a TPU VMEM window
 contract that means nothing to the port's CSR kernels. Here collate
 certifies which id arrays are globally sorted, so the kernels' row pointers
 need no sort, and keeps the per-graph node bound.
+
+The CSR views cover the node-row ids (``receivers``, ``senders``), the
+graph-row ids (``batch``), GAT's self-loop layout and, for DimeNet's
+triplet sum, the edge-row ids ``idx_ji`` (sorted by construction, and
+certified so) and ``idx_kj`` (its transpose, argsorted).
 """
 
 from __future__ import annotations
@@ -29,13 +34,15 @@ class BatchMeta:
     unknown (a hand-built batch): consumers then assume nothing.
 
     - ``max_n_node``: upper bound on the node count of any one graph;
-    - ``recv_sorted`` / ``send_sorted`` / ``batch_sorted``: whether
-      ``receivers`` / ``senders`` / ``batch`` are non-decreasing."""
+    - ``recv_sorted`` / ``send_sorted`` / ``batch_sorted`` /
+      ``ji_sorted``: whether ``receivers`` / ``senders`` / ``batch`` /
+      ``idx_ji`` are non-decreasing."""
 
     max_n_node: int | None = None
     recv_sorted: bool | None = None
     send_sorted: bool | None = None
     batch_sorted: bool | None = None
+    ji_sorted: bool | None = None
 
 
 # Batch fields in the JAX ``GraphBatch`` order (``meta`` excluded).
@@ -46,8 +53,12 @@ FIELDS = (
     "triplet_mask", "pe", "rel_pe", "z",
 )
 
-# which BatchMeta flag certifies which id array, and its segment count
-_SORTED_FLAG = {"receivers": "recv_sorted", "senders": "send_sorted", "batch": "batch_sorted"}
+# rows of MACE's element table: atomic numbers 0..118 (``z`` clipped)
+NUM_ELEMENTS = 119
+
+# which BatchMeta flag certifies which id array (``idx_kj`` is never sorted)
+_SORTED_FLAG = {"receivers": "recv_sorted", "senders": "send_sorted", "batch": "batch_sorted",
+                "idx_ji": "ji_sorted", "idx_kj": None}
 # the CSR views of GAT's extended layout: which of self_loop_edges()
 _LOOP_FIELD = {"loop_senders": 0, "loop_receivers": 1}
 
@@ -123,13 +134,15 @@ class GraphBatch:
         out._csr = self._csr
         return out
 
-    def edge_vectors(self) -> torch.Tensor:
+    def edge_vectors(self, recv_index: SegmentIndex | None = None,
+                     send_index: SegmentIndex | None = None) -> torch.Tensor:
         """``[E, 3]`` sender-to-receiver position vectors plus the periodic
         shifts, ``pos[receivers] - pos[senders] + edge_shifts``. The gathers
         are :func:`gather_rows`, whose backward (forces) is the segment-sum
-        kernel."""
-        return (gather_rows(self.pos, self.receivers) - gather_rows(self.pos, self.senders)
-                + self.edge_shifts)
+        kernel over the receivers' and senders' CSR views (built when needed
+        and not given)."""
+        return (gather_rows(self.pos, self.receivers, recv_index)
+                - gather_rows(self.pos, self.senders, send_index) + self.edge_shifts)
 
     def edge_lengths(self, eps: float = 1e-12) -> torch.Tensor:
         """``[E, 1]`` edge lengths, ``sqrt(|vec|^2 + eps)``: the ``eps`` keeps
@@ -156,7 +169,10 @@ class GraphBatch:
     def csr(self, field: str) -> SegmentIndex:
         """Cached row pointer (and sort permutation, unless collate
         certified the ids sorted) of ``receivers`` (N rows), ``senders``
-        (N rows), ``batch`` (G rows), or ``loop_receivers`` /
+        (N rows), ``batch`` (G rows), ``idx_ji`` / ``idx_kj`` (E rows:
+        DimeNet's triplets, by the edge they feed and the edge they read),
+        ``elements`` (``z`` clipped to ``[0, NUM_ELEMENTS)``, NUM_ELEMENTS
+        rows: MACE's element embedding), or ``loop_receivers`` /
         ``loop_senders``, the ids of :meth:`self_loop_edges` (N rows, always
         argsorted: the self-loop section follows the real edges), for the
         CSR kernels."""
@@ -164,13 +180,31 @@ class GraphBatch:
         if idx is None:
             if field in _LOOP_FIELD:
                 idx = segment_index(self.self_loop_edges()[_LOOP_FIELD[field]], self.num_nodes)
+            elif field == "elements":
+                idx = segment_index(torch.clamp(self.z.to(torch.int32), 0, NUM_ELEMENTS - 1),
+                                    NUM_ELEMENTS)
             else:
                 flag = _SORTED_FLAG[field]
-                is_sorted = getattr(self.meta, flag) if self.meta is not None else None
-                rows = self.num_graphs if field == "batch" else self.num_nodes
+                is_sorted = (getattr(self.meta, flag)
+                             if self.meta is not None and flag is not None else None)
+                rows = {"batch": self.num_graphs, "idx_ji": self.num_edges,
+                        "idx_kj": self.num_edges}.get(field, self.num_nodes)
                 idx = segment_index(getattr(self, field), rows, is_sorted=is_sorted)
             self._csr[field] = idx
         return idx
+
+    def views(self, forward: tuple[str, ...], backward: tuple[str, ...] = ()
+              ) -> tuple[SegmentIndex | None, ...]:
+        """The :meth:`csr` views of ``forward`` and then ``backward``, in
+        that order, for a layer on the card: ``None`` each on the CPU, whose
+        sums take none, and ``None`` for the ``backward`` fields outside a
+        gradient (``torch.is_grad_enabled()``), since those carry only the
+        backward of gathers."""
+        if not self.senders.is_cuda:
+            return (None,) * (len(forward) + len(backward))
+        grad = torch.is_grad_enabled()
+        return (tuple(self.csr(f) for f in forward)
+                + tuple(self.csr(f) if grad else None for f in backward))
 
 
 class GraphSample:
@@ -271,4 +305,4 @@ class GraphSample:
         )
 
 
-__all__ = ["FIELDS", "BatchMeta", "GraphBatch", "GraphSample"]
+__all__ = ["FIELDS", "NUM_ELEMENTS", "BatchMeta", "GraphBatch", "GraphSample"]

@@ -16,13 +16,17 @@ and has no feature norm (a conv class with ``feature_norm = False`` gets no
 norm layer); it is the MLIP path's model (``models/mlip.py``).
 
 The invariant stacks SAGE, MFC, SchNet, PNA, PNAPlus and CGCNN run the
-same skeleton (SchNet without feature norm, CGCNN at its input width).
+same skeleton (SchNet without feature norm, CGCNN at its input width), and
+so do the geometric stacks PAINN, PNAEq, DimeNet and MACE, without feature
+norm; PAINN and PNAEq carry a vector channel ``[N, 3, F]`` as ``equiv``,
+MACE its packed irreps. A conv class may set ``stack_activation = False``
+(no activation after the layer) and ``collect_layer_outputs = True`` (the
+heads read every layer's output, concatenated): MACE sets both.
 
-Not in this slice (they raise ``NotImplementedError``): the geometric conv
-stacks (PAINN, PNAEq, DimeNet, MACE), edge features, GPS around another
-conv than GIN and its ring and performer attention, variance outputs,
-graph-attribute conditioning, ``mlp_per_node`` and ``conv`` node heads,
-multibranch heads.
+Not in this slice (they raise ``NotImplementedError``): edge features, GPS
+around another conv than GIN and its ring and performer attention,
+variance outputs, graph-attribute conditioning, ``mlp_per_node`` and
+``conv`` node heads, multibranch heads.
 """
 
 from __future__ import annotations
@@ -35,18 +39,23 @@ from ..graphs import segment
 from ..graphs.graph import GraphBatch
 from .common import MLP, Dense, MaskedBatchNorm, get_activation, get_loss
 from .cgcnn import CGCNNConv
+from .dimenet import DimeNetConv
 from .egnn import EGNNConv
 from .gat import GATConv
 from .gin import GINConv
+from .mace import MACEConv
 from .mfc import MFCConv
+from .painn import PaiNNConv
 from .pna import PNAConv
+from .pnaeq import PNAEqConv
 from .pnaplus import PNAPlusConv
 from .sage import SAGEConv
 from .schnet import SchNetConv
 
 CONV_REGISTRY = {"GIN": GINConv, "GAT": GATConv, "EGNN": EGNNConv, "SAGE": SAGEConv,
                  "MFC": MFCConv, "SchNet": SchNetConv, "PNA": PNAConv, "PNAPlus": PNAPlusConv,
-                 "CGCNN": CGCNNConv}
+                 "CGCNN": CGCNNConv, "PAINN": PaiNNConv, "PNAEq": PNAEqConv,
+                 "DimeNet": DimeNetConv, "MACE": MACEConv}
 
 
 def head_columns(spec: ModelSpec) -> list[tuple[str, int, int]]:
@@ -70,8 +79,8 @@ def _not_in_slice(what: str, where: str) -> NotImplementedError:
 def check_spec(spec: ModelSpec) -> None:
     """Raise ``NotImplementedError`` for what this slice of the port lacks."""
     if spec.mpnn_type not in CONV_REGISTRY:
-        raise _not_in_slice(f"mpnn_type {spec.mpnn_type!r}",
-                            "a later slice (the geometric stacks)")
+        raise ValueError(f"unknown mpnn_type {spec.mpnn_type!r}; supported: "
+                         f"{sorted(CONV_REGISTRY)}")
     if spec.edge_dim and spec.mpnn_type in EDGE_MODELS:
         what = "GAT with edge features (lin_edge)" if spec.mpnn_type == "GAT" else \
             f"{spec.mpnn_type} with edge features"
@@ -132,7 +141,10 @@ class HydraModel(nn.Module):
         self.feature_layers = nn.ModuleList([
             MaskedBatchNorm(widths[i + 1]) for i in range(spec.num_conv_layers)
         ] if getattr(conv_cls, "feature_norm", True) else [])
-        hidden = widths[-1]
+        self.stack_activation = getattr(conv_cls, "stack_activation", True)
+        self.collect_layer_outputs = getattr(conv_cls, "collect_layer_outputs", False)
+        # the heads' input: the last layer's output, or every layer's (MACE)
+        hidden = sum(widths[1:]) if self.collect_layer_outputs else widths[-1]
         self.graph_shared = nn.ModuleDict()
         shared_out = {}
         for b in spec.graph_heads:
@@ -173,17 +185,26 @@ class HydraModel(nn.Module):
     def conv_block(self, i: int, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
                    train: bool = False, generator: torch.Generator | None = None):
         """Conv layer ``i`` + feature norm (batch statistics in train mode)
-        + activation. ``generator`` draws the dropout masks in train mode."""
+        + activation (unless the stack has none). ``generator`` draws the
+        dropout masks in train mode."""
         inv, equiv = self.graph_convs[i](inv, equiv, batch, train, generator)
         if len(self.feature_layers):
             inv = self.feature_layers[i](inv, batch.node_mask, train)
-        return get_activation(self.spec.activation)(inv), equiv
+        if self.stack_activation:
+            inv = get_activation(self.spec.activation)(inv)
+        return inv, equiv
 
     def encode(self, batch: GraphBatch, train: bool = False,
                generator: torch.Generator | None = None):
+        """The conv stack: the last layer's node features, or (MACE) every
+        layer's concatenated, and the equivariant features."""
         inv, equiv = self.embed(batch)
+        outs = []
         for i in range(len(self.graph_convs)):
             inv, equiv = self.conv_block(i, inv, equiv, batch, train, generator)
+            outs.append(inv)
+        if self.collect_layer_outputs:
+            inv = torch.cat(outs, dim=-1)
         return inv, equiv
 
     def pool(self, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:

@@ -28,6 +28,8 @@ from .common import Dense, gather_ends
 
 AGGREGATORS = ("mean", "min", "max", "std")
 SCALERS = ("identity", "amplification", "attenuation", "linear")
+# PNAEq's scalers: PNA's and ``inverse_linear`` (``avg_deg_lin / d``)
+PNAEQ_SCALERS = SCALERS + ("inverse_linear",)
 
 
 def avg_degree_linear(deg_hist) -> float:
@@ -52,16 +54,19 @@ def log_degree_mean(deg_hist) -> float:
 def degree_scaled_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
                             edge_mask: torch.Tensor, num_nodes: int, delta: float,
                             avg_deg_lin: float,
-                            index: SegmentIndex | None = None) -> torch.Tensor:
-    """``[E, F]`` messages -> ``[N, 16 F]``: the ``AGGREGATORS`` (mean, min,
-    max, std), each under the ``SCALERS`` (identity, amplification
-    ``log(d + 1) / delta``, attenuation ``delta / log(d + 1)``, linear ``d /
-    avg_deg_lin``).
+                            index: SegmentIndex | None = None,
+                            scalers: tuple = SCALERS) -> torch.Tensor:
+    """``[E, F]`` messages -> ``[N, 4 S F]``: the ``AGGREGATORS`` (mean,
+    min, max, std), each under the ``S`` ``scalers`` (by default PNA's
+    ``SCALERS``: identity, amplification ``log(d + 1) / delta``, attenuation
+    ``delta / log(d + 1)``, linear ``d / avg_deg_lin``; PNAEq adds
+    inverse_linear ``avg_deg_lin / d``).
 
     Pad edges point at the dummy node, so the real nodes' statistics see
     real edges only; the mean takes the masked messages. The degree is
     clamped at 1 before the scalers (a node without edges would otherwise
-    be attenuated by ``delta / log 1``). ``index``: the receivers' CSR view
+    be attenuated by ``delta / log 1``). ``receivers`` are the ids the
+    messages aggregate by (PNAEq's: the senders); ``index``: their CSR view
     for the segment sums."""
     deg = segment.segment_count(receivers, num_nodes, weights=edge_mask)
     agg = torch.cat([
@@ -72,14 +77,16 @@ def degree_scaled_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
     ], dim=-1)
     deg_c = torch.clamp(deg, min=1.0)
     log_deg = torch.log(deg_c + 1.0)
-    return torch.cat([
-        agg,
-        agg * (log_deg / delta)[:, None],
-        # a python float over a tensor is a multiply by the reciprocal in
-        # torch; jnp divides
-        agg * (torch.full_like(log_deg, delta) / log_deg)[:, None],
-        agg * (deg_c / max(avg_deg_lin, 1e-6))[:, None],
-    ], dim=-1)
+    # a python float over a tensor is a multiply by the reciprocal in torch;
+    # jnp divides
+    scale = {
+        "amplification": lambda: log_deg / delta,
+        "attenuation": lambda: torch.full_like(log_deg, delta) / log_deg,
+        "linear": lambda: deg_c / max(avg_deg_lin, 1e-6),
+        "inverse_linear": lambda: torch.full_like(deg_c, avg_deg_lin) / deg_c,
+    }
+    return torch.cat([agg if s == "identity" else agg * scale[s]()[:, None] for s in scalers],
+                     dim=-1)
 
 
 class PNAConv(nn.Module):
@@ -112,5 +119,5 @@ class PNAConv(nn.Module):
         return self.lin(out), equiv
 
 
-__all__ = ["AGGREGATORS", "PNAConv", "SCALERS", "avg_degree_linear", "degree_scaled_aggregate",
+__all__ = ["AGGREGATORS", "PNAConv", "PNAEQ_SCALERS", "SCALERS", "avg_degree_linear", "degree_scaled_aggregate",
            "log_degree_mean"]

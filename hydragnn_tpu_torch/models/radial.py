@@ -58,6 +58,22 @@ class GaussianSmearing(nn.Module):
         return torch.exp(self.coeff * (d * d))
 
 
+def integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x ** n`` for an integer ``n >= 1`` as ``lax.integer_pow`` computes
+    it (``jnp``'s ``x ** n``): by repeated squaring, each product rounded to
+    ``x``'s dtype. ``torch.pow`` rounds once, which in bf16 moves a term of
+    the envelopes below by an ulp about half the time, and their terms
+    cancel (``48 x^6`` has an ulp of 0.25 near ``x = 1``)."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
 def polynomial_envelope(x: torch.Tensor, exponent: int) -> torch.Tensor:
     """DimeNet's smooth envelope on ``x = d / cutoff``: ``1/x + a x^(p-1) +
     b x^p + c x^(p+1)`` with ``p = exponent + 1`` (zero value, slope and
@@ -66,8 +82,8 @@ def polynomial_envelope(x: torch.Tensor, exponent: int) -> torch.Tensor:
     a = -(p + 1) * (p + 2) / 2.0
     b = p * (p + 2)
     c = -p * (p + 1) / 2.0
-    env = (1.0 / torch.where(x == 0, torch.ones_like(x), x) + a * x ** (p - 1) + b * x**p
-           + c * x ** (p + 1))
+    env = (1.0 / torch.where(x == 0, torch.ones_like(x), x) + a * integer_pow(x, p - 1)
+           + b * integer_pow(x, p) + c * integer_pow(x, p + 1))
     return torch.where(x < 1.0, env, torch.zeros_like(env))
 
 
@@ -100,8 +116,8 @@ def polynomial_cutoff(dist: torch.Tensor, cutoff: float, p: int = 6) -> torch.Te
     """MACE's ``PolynomialCutoff``: smooth to order ``p``, 1 at 0 and 0 from
     the cutoff on."""
     x = dist / cutoff
-    out = (1.0 - ((p + 1.0) * (p + 2.0) / 2.0) * x**p + p * (p + 2.0) * x ** (p + 1)
-           - (p * (p + 1.0) / 2.0) * x ** (p + 2))
+    out = (1.0 - ((p + 1.0) * (p + 2.0) / 2.0) * integer_pow(x, p)
+           + p * (p + 2.0) * integer_pow(x, p + 1) - (p * (p + 1.0) / 2.0) * integer_pow(x, p + 2))
     return torch.where(x < 1.0, out, torch.zeros_like(out))
 
 

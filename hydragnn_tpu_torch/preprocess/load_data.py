@@ -7,9 +7,9 @@ memory, radius graphs attached where missing, inputs and columnar targets
 selected per ``Variables_of_interest``, min-max normalised, split and
 wrapped in loaders over one shared pad-bucket table; GPS configurations
 get Laplacian positional encodings and, where the user capped GPS's
-dense-attention width, loaders that certify batches at that cap.
-Raw-format readers, edge descriptors, subsampling and the DimeNet
-preprocessing come in later slices.
+dense-attention width, loaders that certify batches at that cap; DimeNet
+configurations get their triplet indices (``graphs/triplets.py``).
+Raw-format readers, edge descriptors and subsampling come in later slices.
 """
 
 from __future__ import annotations
@@ -190,8 +190,6 @@ def dataset_loading_and_splitting(config: dict, samples=None):
         raise _later("edge-length and geometric descriptors")
     if voi.get("subsample_percentage"):
         raise _later("Variables_of_interest.subsample_percentage")
-    if arch.get("mpnn_type") == "DimeNet":
-        raise _later("DimeNet preprocessing (triplets)")
     radius = arch.get("radius")
     if radius and any(s.num_edges == 0 and s.num_nodes > 1 for s in samples):
         from ..graphs.radius import build_radius_graph
@@ -203,6 +201,13 @@ def dataset_loading_and_splitting(config: dict, samples=None):
                     ensure_connected=bool(arch.get("ensure_connected", True)),
                 )
     samples = apply_variables_of_interest(samples, config)
+    if arch.get("mpnn_type") == "DimeNet":
+        # DimeNet reads the angle (triplet) indices, computed on the host
+        from ..graphs.triplets import attach_triplets
+
+        for s in samples:
+            if "idx_kj" not in s.extras:
+                attach_triplets(s)
     if arch.get("global_attn_engine") == "GPS":
         # GPS reads Laplacian positional encodings; nothing else does, so
         # only GPS pays the per-sample eigendecomposition

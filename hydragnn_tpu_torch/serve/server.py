@@ -148,12 +148,16 @@ def serving_config_defaults() -> dict:
 
 def _dummy_sample(example: GraphSample) -> GraphSample:
     """A 1-node, 0-edge sample with ``example``'s feature widths, positional
-    encodings included (a GPS endpoint's warm-up needs them)."""
+    encodings (a GPS endpoint's warm-up needs them) and empty triplet
+    indices (a DimeNet endpoint's) included."""
     extras = {}
     if "pe" in example.extras:
         k = example.extras["pe"].shape[1]
         extras["pe"] = np.zeros((1, k), np.float32)
         extras["rel_pe"] = np.zeros((0, k), np.float32)
+    if "idx_kj" in example.extras:
+        extras["idx_kj"] = np.zeros((0,), np.int32)
+        extras["idx_ji"] = np.zeros((0,), np.int32)
     return GraphSample(
         x=np.zeros((1, example.x.shape[1]), np.float32),
         edge_attr=np.zeros((0, example.edge_attr.shape[1]), np.float32),
@@ -220,6 +224,9 @@ class ModelEndpoint:
             # without them would break its whole micro-batch
             "pe_width": s.extras["pe"].shape[1] if "pe" in s.extras else 0,
             "rel_pe_width": s.extras["rel_pe"].shape[1] if "rel_pe" in s.extras else 0,
+            # DimeNet endpoints: a request without triplets would collate
+            # (with none) and be answered blind to its angles
+            "has_triplets": "idx_kj" in s.extras,
         }
 
     def check_sample(self, s: GraphSample) -> None:
@@ -271,7 +278,8 @@ class ModelEndpoint:
         batch = serving_collate([_dummy_sample(self.example)], pad)
         ex = self.example
         return batch.replace(meta=dataclasses.replace(
-            batch.meta, recv_sorted=is_sorted(ex.receivers), send_sorted=is_sorted(ex.senders)))
+            batch.meta, recv_sorted=is_sorted(ex.receivers), send_sorted=is_sorted(ex.senders),
+            ji_sorted=is_sorted(ex.extras.get("idx_ji", np.zeros(0, np.int32)))))
 
     def warm_quant(self) -> dict:
         """The int8 half of warm-up (``serve.quant``): per bucket, activation

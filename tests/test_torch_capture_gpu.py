@@ -5,9 +5,10 @@ rate), supersteps (a block of four and a shorter tail), the CSR tickets
 after replays, ``no_new_captures``, launch records, and the MD trajectory
 segment on both neighbour routes. Every comparison is bit for bit: a
 replay runs the kernels the eager step launches, in its order. The qm9
-models of ``chip_smoke.py`` (GIN, GAT, GPS-GIN and the six invariant stacks
-at their published widths, random weights from seed 0) at the top pad
-bucket.
+models of ``chip_smoke.py`` (GIN, GAT, GPS-GIN, the six invariant and the
+four geometric stacks at their published widths, random weights from seed
+0) at the top pad bucket, and the EGNN, PAINN and MACE interatomic
+potentials.
 
 Every test is ``gpu``-marked and skips without a CUDA device. The file
 imports neither JAX nor ``tests/conftest.py``'s helpers:
@@ -154,6 +155,18 @@ def test_invariant_stacks_captured_steps_equal_eager_steps(kind):
     """The six invariant stacks at qm9.json's widths (``chip_smoke.STACKS``):
     two bf16 train steps, an eval and a predict step, each replayed from its
     CUDA graph bit-equal to the eager step, with the same launches."""
+    _stack_steps_equal_eager(kind)
+
+
+@pytest.mark.parametrize("kind", ["painn", "pnaeq", "dimenet", "mace"])
+def test_geometric_stacks_captured_steps_equal_eager_steps(kind):
+    """The four geometric stacks at qm9.json's widths
+    (``chip_smoke.GEOMETRIC``; DimeNet's batches carry their triplets and
+    its step its CSR views of ``idx_ji`` and ``idx_kj``), the same way."""
+    _stack_steps_equal_eager(kind)
+
+
+def _stack_steps_equal_eager(kind):
     from hydragnn_tpu_torch.serve import Predictor
     from hydragnn_tpu_torch.train.step import make_eval_step, make_train_step
 
@@ -288,6 +301,41 @@ def test_captured_mlip_train_steps_equal_eager_steps():
         want, launched = _launches(lambda: step(eager, b))
         assert _same_tree(got, want) and replayed == launched
         _assert_same(captured, eager, f"mlip step {i}: ")
+
+
+@pytest.mark.parametrize("arch", ["PAINN", "MACE"])
+def test_captured_geometric_mlip_train_steps_equal_eager_steps(arch):
+    """PAINN and MACE as interatomic potentials (``examples/oc20/train.py``'s
+    block on the oc20 row's data, ``chip_smoke.mlip_config``): two fp32 MLIP
+    train steps and an eval step captured against eager."""
+    _cuda_or_skip()
+    import chip_smoke
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models.mlip import make_mlip_eval_step, make_mlip_train_step
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+
+    cfg = chip_smoke.mlip_config(1, arch)
+    loaders = dataset_loading_and_splitting(copy.deepcopy(cfg),
+                                            samples=chip_smoke.mlip_samples(192))
+    aug = update_config(copy.deepcopy(cfg), *(ld.samples for ld in loaders))
+    captured, eager = _state(aug), _state(aug)
+    step = make_mlip_train_step(captured.model, torch.float32)
+    eval_step = make_mlip_eval_step(captured.model, torch.float32)
+    dispatch = capture.Dispatch(step, f"{arch} mlip train", train=True)
+    evals = capture.Dispatch(eval_step, f"{arch} mlip eval")
+    train = loaders[0]
+    for i in range(2):
+        b = collate(train.samples[64 * i:64 * (i + 1)], train.pad).to("cuda")
+        got, replayed = _launches(lambda: dispatch(captured, b))
+        want, launched = _launches(lambda: step(eager, b))
+        assert _same_tree(got, want) and replayed == launched
+        assert launched == chip_smoke.mlip_launches_per_step(
+            int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"]), arch)
+        _assert_same(captured, eager, f"{arch} mlip step {i}: ")
+    b = collate(train.samples[:64], train.pad).to("cuda")
+    got, replayed = _launches(lambda: evals(captured, b))
+    want, launched = _launches(lambda: eval_step(eager, b))
+    assert _same_tree(got, want) and replayed == launched
 
 
 @pytest.mark.parametrize("system", ["lj", "mlip"])

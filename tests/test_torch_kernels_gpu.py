@@ -1,6 +1,7 @@
 """The port's CUDA kernels (segment reductions, softmaxes, the cell list, the
 int8 and fp8 dense layers) against their plain PyTorch versions, on the
-card. Every test here is ``gpu``-marked and
+card, at the main paths' layouts (DimeNet's triplet mixing and the
+geometric stacks' flattened 3-D messages included). Every test here is ``gpu``-marked and
 skips without a CUDA device.
 
 The file imports neither JAX nor ``tests/conftest.py``'s helpers, so it
@@ -1007,6 +1008,88 @@ def test_gather_scatter_is_bit_for_bit_on_card(wkind):
         terms = h[src.long()] if wf is None else h[src.long()] * wf
         got = run().cpu()
         assert torch.equal(bits(torch, got), bits(torch, emulate(torch, terms, dst, n)))
+
+
+@pytest.fixture(scope="module")
+def triplet_batch():
+    """The 16 molecules of ``batch`` with DimeNet's triplets attached (an
+    ``idx_ji`` collate certifies sorted, an ``idx_kj`` it does not)."""
+    from hydragnn_tpu_torch.graphs.triplets import attach_triplets
+
+    rng = np.random.default_rng(3)
+    samples = []
+    for _ in range(16):
+        na = int(rng.integers(9, 30))
+        pos = rng.uniform(0, 6.0, size=(na, 3))
+        s, r, sh = radius_graph(pos, radius=3.0, max_neighbours=20)
+        samples.append(attach_triplets(GraphSample(x=rng.normal(size=(na, 1)), pos=pos,
+                                                   senders=s, receivers=r, edge_shifts=sh)))
+    return collate(samples, compute_pad_spec(samples, 16))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_triplet_mixing_is_bit_for_bit_on_card(triplet_batch, dtype):
+    """B1 in weight mode 2 over DimeNet's triplets (``x_kj [E, 64]`` by
+    ``idx_kj``, a weight per triplet and channel, onto ``idx_ji``'s E rows
+    over its certified view) and the transposed launch over ``idx_kj``'s
+    view: every row bit-equal to the fixed-order emulation; in fp32 the
+    forward, ``dh`` and ``dw`` bit-equal to ``gather_rows`` + B2 over the
+    same views."""
+    emulate, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    b = triplet_batch.to(dev)
+    assert b.meta.ji_sorted and b.csr("idx_ji").perm is None
+    e, t = b.num_edges, b.idx_kj.shape[0]
+    gen = torch.Generator().manual_seed(34)
+    kj, ji = b.idx_kj.cpu(), b.idx_ji.cpu()
+    h = torch.randn(e, 64, generator=gen).to(dtype)
+    w = (torch.randn(t, 64, generator=gen) * b.triplet_mask.cpu()[:, None]).to(dtype)
+    ji_idx, kj_idx = b.csr("idx_ji"), b.csr("idx_kj")
+    got = fs.gather_scatter_sum(h.to(dev), b.idx_kj, b.idx_ji, e, weight=w.to(dev),
+                                index=ji_idx, send_index=kj_idx).cpu()
+    want = emulate(torch, h.float()[kj.long()] * w.float(), ji, e).to(dtype)
+    assert torch.equal(bits(torch, got), bits(torch, want))
+    got = fs.gather_scatter_sum_bwd(h.to(dev), b.idx_kj, b.idx_ji, e, w.to(dev),
+                                    send_index=kj_idx, index=ji_idx).cpu()
+    want = emulate(torch, h.float()[ji.long()] * w.float(), kj, e).to(dtype)
+    assert torch.equal(bits(torch, got), bits(torch, want))
+    if dtype != torch.float32:
+        return
+    hd = h.to(dev).requires_grad_()
+    wd = w.to(dev).requires_grad_()
+    dout = torch.randn(e, 64, generator=gen).to(dev)
+    out_k = fs.gather_scatter_sum(hd, b.idx_kj, b.idx_ji, e, weight=wd, index=ji_idx,
+                                  send_index=kj_idx)
+    grads_k = torch.autograd.grad(out_k, (hd, wd), dout)
+    out_g = fs.fused_segment_sum(fs.gather_rows(hd, b.idx_kj, kj_idx) * wd, b.idx_ji, e,
+                                 index=ji_idx)
+    grads_g = torch.autograd.grad(out_g, (hd, wd), dout)
+    assert torch.equal(out_k, out_g)
+    assert all(torch.equal(x, y) for x, y in zip(grads_k, grads_g))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("ids_name", ["senders", "receivers"])
+def test_flattened_3d_segment_sum_is_bit_for_bit_on_card(batch, dtype, ids_name):
+    """B2 over ``[E, 3, 32]`` vector messages (PAINN's and PNAEq's at the
+    senders, MACE's ``l = 1`` block at the receivers), flattened to ``[E,
+    96]`` by ``graphs.segment.segment_sum``: the ``[N, 3, 32]`` result
+    bit-equal to the fixed-order emulation, one launch."""
+    from hydragnn_tpu_torch.graphs import segment
+
+    emulate, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    b = batch.to(dev)
+    n, e = b.num_nodes, b.num_edges
+    ids = getattr(b, ids_name)
+    x = torch.randn(e, 3, 32, generator=torch.Generator().manual_seed(35)).to(dtype)
+    before = fs.LAUNCHES["segment_sum"]
+    got = segment.segment_sum(x.to(dev), ids, n, index=b.csr(ids_name))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["segment_sum"] == before + 1
+    assert got.shape == (n, 3, 32) and got.dtype == dtype
+    want = emulate(torch, x.reshape(e, 96).float(), ids.cpu(), n).to(dtype).reshape(n, 3, 32)
+    assert torch.equal(bits(torch, got.cpu()), bits(torch, want))
 
 
 def test_segment_sum_is_one_launch_and_replays_under_a_cuda_graph():

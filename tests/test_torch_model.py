@@ -201,12 +201,16 @@ def test_dense_promotes_like_flax():
 
 
 @pytest.mark.parametrize("override,what", [
-    ({"mpnn_type": "PAINN"}, "mpnn_type"),
+    # the geometric stacks are ported; their edge features are not (the ids
+    # are those of the cases these replaced, the stacks themselves)
+    pytest.param({"mpnn_type": "PAINN", "edge_features": ["length"]},
+                 "PAINN with edge features", id="override0-mpnn_type"),
     # GPS multihead attention is ported; its performer variant is not
     ({"global_attn_engine": "GPS", "global_attn_type": "performer"}, "GPS"),
     ({"use_graph_attr_conditioning": True}, "conditioning"),
-    # EGNN and SchNet are ported; DimeNet, a geometric stack, is not
-    ({"mpnn_type": "DimeNet"}, "DimeNet"),
+    # DimeNet is ported; GPS around it is not
+    pytest.param({"mpnn_type": "DimeNet", "global_attn_engine": "GPS"},
+                 "GPS around 'DimeNet'", id="override3-DimeNet"),
     # PNA is ported; its edge features are not
     ({"mpnn_type": "PNA", "edge_features": ["length"]}, "PNA with edge features"),
 ])

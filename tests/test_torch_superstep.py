@@ -258,7 +258,9 @@ def test_graph_key_holds_the_sortedness_certificates():
     meta = batch.meta
     assert meta.recv_sorted and meta.batch_sorted
     key = capture.signature(batch)
-    assert key[2] == (meta.recv_sorted, meta.send_sorted, meta.batch_sorted)
+    # the fourth certificate is DimeNet's idx_ji (empty here: sorted)
+    assert key[2] == (meta.recv_sorted, meta.send_sorted, meta.batch_sorted, meta.ji_sorted)
+    assert meta.ji_sorted
     weaker = capture.signature(batch.replace(meta=dataclasses.replace(
         meta, recv_sorted=False, batch_sorted=False)))
     stronger = capture.signature(batch.replace(meta=dataclasses.replace(

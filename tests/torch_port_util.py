@@ -85,7 +85,21 @@ def jitter_params(variables, seed: int = 0, scale: float = 0.05):
     return {**variables, "params": params}
 
 
+def assert_within_jax_bf16_gap(got, want, want_fp32, rtol: float, atol: float, what: str = ""):
+    """Per entry, ``|got - want| <= atol + rtol |want| + |want - want_fp32|``:
+    a bf16 result of the port against the JAX package's bf16 result, at a
+    bound widened by the JAX package's own bf16 distance from its fp32
+    result on that entry (never by the port's own). Returns the largest
+    share of the bound used."""
+    got, want, want_fp32 = (np.asarray(a, np.float64) for a in (got, want, want_fp32))
+    bound = atol + rtol * np.abs(want) + np.abs(want - want_fp32)
+    excess = np.abs(got - want) - bound
+    assert (excess <= 0).all(), f"{what}: max |port - JAX| beyond its bound by {excess.max():.3e}"
+    return float((np.abs(got - want) / bound).max())
+
+
 __all__ = [
+    "assert_within_jax_bf16_gap",
     "jax_samples_copy",
     "jitter_params",
     "numpy_tree",
