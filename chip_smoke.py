@@ -23,9 +23,10 @@ PAINN and MACE on the same data with ``examples/oc20/train.py``'s block
 (hidden 32 x 3, ``max_ell`` 2, energy + 25 x force loss, a node head) and
 molecular dynamics: that EGNN on a 1,000-atom LJ cell, and
 an analytic LJ potential on ``bench.py``'s 8,000-atom MD lattice. Each
-of the first three trained qm9 models also serves int8
-(``Serving.quantize``), and the trained GIN's Dense layers go through the
-experimental fp8 layer.
+trained qm9 model also serves int8 (``Serving.quantize``), the three
+trained MLIPs serve their head outputs, the trained GIN's Dense layers go
+through the experimental fp8 layer, and the trained GIN is registered from
+its checkpoint and served by the multi-process fleet.
 
 Phases (any failure exits non-zero; the last line of standard output is the
 device JSON only when every phase passed):
@@ -62,7 +63,7 @@ device JSON only when every phase passed):
    ``index_add_``; B4 in fp32 and bf16 beside ``torch.softmax``); then (3b) the int8 dense kernel B6 against its
    plain version at every Dense call of the GIN's served forward (fp32 and
    bf16 inputs, K = 1 and N = 1 layers included), GAT's 384 x 384 lin_l and
-   a ragged row count (codes and int32 sums equal, y within 1 ulp), and the
+   a ragged row count (codes, int32 sums and y bit-equal), and the
    fp8 kernel B7 at the GIN's shapes in e4m3 and e5m2, saturated too, and on
    adversarial inputs (codes over the format's whole range, sums that
    cancel) (codes bit-equal, y within the summation-order bound); their
@@ -84,7 +85,9 @@ p50/p99, throughput, step times, device busy share and device operations
 logged (the last is a ``capture summary`` line).
 
 4. serving, per model: ``PredictionServer`` (every bucket captured at
-   warm-up) with 512 concurrent requests under ``no_new_captures``;
+   warm-up) with 512 requests as one closed burst through
+   ``serve.traffic.run_traffic`` (every serving burst of the script goes
+   through it, so latency is measured one way) under ``no_new_captures``;
    served answers against ``Predictor.outputs`` on the same padded batches;
    launch counts per served batch; the same burst through a server whose
    endpoint answers eagerly (the comparator); the card's fp32 answers
@@ -135,10 +138,12 @@ logged (the last is a ``capture summary`` line).
    step, ms per step (captured and eager) and its parts; the EGNN's first
    forces, and its velocities and positions after 10 steps from nonzero
    velocities, against the port's CPU route; two runs bit for bit;
-10. quantized serving, per trained qm9 model (right after its training):
+10. quantized serving, per trained qm9 model, the ten newer stacks (SAGE
+   to MACE) too (right after its training; those without the eager
+   comparators):
    the model behind an fp32 server and a ``Serving.quantize: true`` server
    (default quant_tol 0.1 and 4 calibration batches, calibrated on the
-   training samples), 512 concurrent requests each under
+   training samples), 512 requests each (one closed burst) under
    ``no_new_captures``, and an eager comparator burst each: the certified per-head
    bounds within quant_tol (the one known exception, the GIN, must be
    refused at its pinned bound, ``QUANT_KNOWN_REFUSALS``, and then serves
@@ -150,10 +155,31 @@ logged (the last is a ``capture summary`` line).
    flips, answers within the fp32 parity tolerance), the fp32 answers
    unchanged; p50/p99 and throughput of both; the int8 error over the
    whole traffic against the bounds is logged (the reference's 4-sample
-   certificate does not bound it: an unmet gate, ROADMAP queue C);
+   certificate does not bound it: an unmet gate, ROADMAP queue C). The
+   pinned refusals: GIN, PAINN, PNAEq, DimeNet; the code-flip gate counts
+   the ten newer stacks' real rows and takes SchNet's and PNAEq's flips
+   from inputs that CUDA and the CPU round apart
+   (``INT8_INPUT_FLIPS``);
 11. fp8: B7 at the oc20 EGNN's first edge-MLP Dense on its training batch,
    then ``certify_fp8_dense`` on every Dense call of the trained GIN, both
-   formats (max-abs and relative-Frobenius error).
+   formats (max-abs and relative-Frobenius error);
+12. (in phase 3) B6 bit for bit at every distinct Dense shape of the ten
+   stacks' and the three MLIPs' served forwards (DimeNet's ``lin_sbf1``
+   over 197,504 triplet slots, ``lin_rbf1`` at K = 6, bias-free layers,
+   N = 1 heads, PAINN's and PNAEq's ``[E, 3, F]`` inputs), timed at the new
+   kinds of shape (``quant_stack_kernel_phase``);
+13. MLIP serving: the trained EGNN, PAINN and MACE potentials behind
+   ``PredictionServer`` (head outputs, no forces), 512 requests each, the
+   captured answers bit-equal to the eager predict step, exact launches;
+14. the trained GIN written as a training run writes it and registered
+   with ``add_model_from_checkpoint``: bit-equal to the live endpoint
+   (``checkpoint_phase``); then the fleet (``fleet_phase``), fp32 and int8:
+   two replica processes on the card booted from that checkpoint behind a
+   ``FleetRouter``, answers bit-equal to one in-process server's, cache
+   hits byte-identical, 0 captures after ready, the canary accepting an
+   identical model and refusing a perturbed one, 512 requests through the
+   router with one replica killed mid-stream and none lost, p50/p99 and
+   graphs/s beside the one server's.
 
 The script imports only ``hydragnn_tpu_torch``, torch and numpy, and needs no
 network. ``--quant-diagnostics`` adds to phase 10, for every model, the
@@ -212,7 +238,18 @@ QUANT_CALIB_ATOL = 1e-6
 # deterministic). Its refusal is accepted on the card only within
 # QUANT_REFUSAL_RTOL of that bound, and it then serves int8 at quant_tol =
 # that bound x (1 + QUANT_REFUSAL_RTOL). Any other refusal fails the run.
-QUANT_KNOWN_REFUSALS = {"gin": 0.372717}
+QUANT_KNOWN_REFUSALS = {"gin": 0.372717, "painn": 0.446247, "pnaeq": 0.439453,
+                        "dimenet": 58111.42}
+# int8 codes card against CPU (quant_serving_phase): the GIN, GAT and
+# GPS-GIN flip none, the ten newer stacks none on real rows, except these,
+# whose Dense inputs pass through functions that CUDA and the CPU round
+# ulps apart before any int8 layer (SchNet's Gaussian exp and shifted
+# softplus, PNAEq's log-degree scalers and std): a code on a rounding
+# boundary moves,
+# and the moved layer's output moves the codes after it. For them the gate
+# is the answers within CPU_PARITY, the fp32 forward's own card-vs-CPU
+# tolerance, and the flips are counted in the log
+INT8_INPUT_FLIPS = {"schnet", "pnaeq"}
 QUANT_REFUSAL_RTOL = 0.02
 # one fp32 train step on the card, held tensor by tensor against an fp64 run
 # of the same step on the CPU: each parameter's gradient may miss the fp64
@@ -293,6 +330,15 @@ CSR_BACKWARD = {"gat": ("loop_senders",), "painn": ("receivers",), "pnaeq": ("re
 for _kind in ARCH_KNOBS:
     CSR_FORWARD.setdefault(_kind, ("receivers", "batch"))
     CSR_BACKWARD.setdefault(_kind, ("senders",))
+# Dense calls per served batch at the configurations above (the GIN, GAT
+# and GPS-GIN, the ten stacks, and the oc20 MLIPs of mlip_config): one B6
+# launch each on an int8 endpoint. MFC's per-degree banks are not Dense
+# (its 5 are the heads'); bias-free, N = 1 and 3-D calls count alike.
+# tests/test_torch_quant_stacks.py holds these against the CPU route's
+# quant_dense calls
+QUANT_DENSE_CALLS = {"gin": 13, "gat": 13, "gps": 40, "sage": 13, "mfc": 5, "schnet": 21,
+                     "pna": 17, "pnaplus": 25, "cgcnn": 13, "painn": 44, "pnaeq": 60,
+                     "dimenet": 93, "mace": 22, "mlip": 20, "mlip-painn": 32, "mlip-mace": 16}
 KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum", "segment_softmax",
            "masked_softmax", "cell_list", "quant_dense", "fp8_dense")
 # bench.py's oc20 row (bench_oc20: MLIP_CONFIG with radius 5.0 and
@@ -1802,7 +1848,8 @@ def _ulps(torch, got, want):
 def check_quant_dense(torch, label: str, x, w, b) -> float:
     """Kernel B6 against its plain version on ``x [M, K]`` and the weight
     ``w [K, N]`` quantized as the serving tier quantizes it: int8 codes and
-    int32 accumulators equal, ``y`` within 1 ulp of ``|y|``, finite, two
+    int32 accumulators equal, ``y`` bit-equal (0 ulp: the kernel's
+    dequantisation is the plain version's fused multiply-add), finite, two
     launches bit-identical. Returns max |kernel - plain|."""
     from hydragnn_tpu_torch.ops import quant_matmul as qm
 
@@ -1813,7 +1860,7 @@ def check_quant_dense(torch, label: str, x, w, b) -> float:
     codes, sums = torch.equal(x_q, p_q), torch.equal(acc, p_acc)
     ulps = _ulps(torch, y, p_y)
     n_diff = int((y != p_y).sum())
-    ok = codes and sums and bool((ulps <= 1).all()) and bool(torch.isfinite(y).all())
+    ok = codes and sums and n_diff == 0 and bool(torch.isfinite(y).all())
     log(f"  {label}: x[{x.shape[0]},{x.shape[1]}] {str(x.dtype).split('.')[1]} x "
         f"W_q[{w_q.shape[0]},{w_q.shape[1]}]{'' if b is not None else ' (no bias)'}: codes "
         f"{'equal' if codes else 'DIFFER'}, int32 sums {'equal' if sums else 'DIFFER'}, y "
@@ -2242,42 +2289,54 @@ def quant_kernel_phase(torch, model, batch, timing: bool = True,
 # -- phase 4: serving --------------------------------------------------------
 
 
-def _serve_burst(torch, server, name: str, samples, n_clients: int, device: str):
-    """Start ``server``, submit every sample to endpoint ``name`` from
-    ``n_clients`` threads, wait for every answer, stop. The launch counts
-    are set to 0 just before the first request and read after the last
-    answer. Returns (results in sample order, wall s, launches, stats)."""
+class _Recorded:
+    """``target`` (a server or a router) whose ``submit`` keeps each
+    admitted request's future in submission order: ``run_traffic`` reports
+    latencies, the phases also hold the answers."""
+
+    def __init__(self, target):
+        self.target = target
+        self.futures: list = []
+
+    def submit(self, model, sample, **kw):
+        fut = self.target.submit(model, sample, **kw)
+        self.futures.append(fut)
+        return fut
+
+
+def _serve_burst(torch, server, name: str, samples, device: str):
+    """Start ``server``, send every sample to endpoint ``name`` in order as
+    a closed burst through ``serve.traffic.run_traffic`` (the one latency
+    measurement of the serving tier: submit to result available, on the
+    client's clock), wait for every answer, stop. The launch counts are set
+    to 0 just before the first request and read after the last answer.
+    Returns (results in sample order, the traffic report, launches,
+    stats)."""
     from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.serve import run_traffic
 
     server.start()
-    results: list = [None] * len(samples)
+    rec = _Recorded(server)
     try:
         fs.reset_launches()
-        t_start = time.perf_counter()
-
-        def client(k):
-            futs = [(i, server.submit(name, samples[i]))
-                    for i in range(k, len(samples), n_clients)]
-            for i, f in futs:
-                results[i] = f.result(timeout=300)
-
-        threads = [threading.Thread(target=client, args=(k,)) for k in range(n_clients)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        if any(t.is_alive() for t in threads):
-            raise AssertionError("serving: client threads did not finish")
+        report = run_traffic(rec, name, samples, len(samples), order=np.arange(len(samples)),
+                             timeout_s=300.0)
         if device == "cuda":
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t_start
         launches = dict(fs.LAUNCHES)
         stats = server.stats()[name]
     finally:
         server.stop()
-    if any(r is None for r in results):
-        raise AssertionError("serving: some requests got no answer")
-    return results, wall, launches, stats
+    if report.n_served != len(samples) or len(rec.futures) != len(samples):
+        raise AssertionError(f"serving: {report.summary()}")
+    return [f.result() for f in rec.futures], report, launches, stats
+
+
+def _traffic_line(report) -> str:
+    """p50, p99 and graphs/s of a traffic report, for the log."""
+    sm = report.summary()
+    return (f"p50 {sm['p50_ms']:.2f} ms, p99 {sm['p99_ms']:.2f} ms, "
+            f"{sm['graphs_per_sec']:.1f} graphs/s")
 
 
 @contextlib.contextmanager
@@ -2295,8 +2354,7 @@ def _eager_answers(server):
             del pred.answer
 
 
-def _eager_burst(torch, config, model, aug, requests, name: str, n_clients: int, tag: str,
-                 **add_kw):
+def _eager_burst(torch, config, model, aug, requests, name: str, tag: str, **add_kw):
     """The comparator of a served burst: the same model behind a server of
     ``config`` (``add_model`` with ``add_kw``) whose endpoint answers
     through the eager step, ``requests`` sent as the captured burst sent
@@ -2307,13 +2365,11 @@ def _eager_burst(torch, config, model, aug, requests, name: str, n_clients: int,
     server.add_model(name, model, aug, **add_kw)
     with _eager_answers(server):
         server.warmup()
-        results, wall, launches, stats = _serve_burst(torch, server, name, requests, n_clients,
-                                                      "cuda")
+        _, report, launches, stats = _serve_burst(torch, server, name, requests, "cuda")
     if stats["served"] != len(requests) or stats["failed"] or stats["captures"]:
         raise AssertionError(f"{tag} eager comparator burst: {stats}")
-    lat = np.array([r["latency_s"] for r in results]) * 1e3
-    return (float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
-            len(requests) / wall, launches, stats["batches"])
+    sm = report.summary()
+    return (sm["p50_ms"], sm["p99_ms"], sm["graphs_per_sec"], launches, stats["batches"])
 
 
 def _served_vs_outputs(buckets, predictor, samples, results, step_for=None):
@@ -2340,9 +2396,8 @@ def _served_vs_outputs(buckets, predictor, samples, results, step_for=None):
     return rows
 
 
-def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: int = 4,
-                  card: str = "") -> dict:
-    """One model behind ``PredictionServer``: warm-up, concurrent requests,
+def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = "") -> dict:
+    """One model behind ``PredictionServer``: warm-up, a closed burst of requests,
     served answers against ``Predictor.outputs``, launch counts."""
     from hydragnn_tpu_torch import run_prediction
     from hydragnn_tpu_torch.models import create_model_config
@@ -2379,8 +2434,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
     if device == "cuda" and captures != len(ep.buckets):
         raise AssertionError(f"serving: {captures} graphs captured for {len(ep.buckets)} buckets")
     with capture.no_new_captures(f"[{kind}] serving burst"):
-        results, wall, launches, stats = _serve_burst(torch, server, name, samples, n_clients,
-                                                      device)
+        results, report, launches, stats = _serve_burst(torch, server, name, samples, device)
     n_batches = stats["batches"]
     log(f"[{kind}] served {stats['served']} requests in {n_batches} batches under "
         f"no_new_captures, failed {stats['failed']}, shed {stats['shed']}, occupancy "
@@ -2406,16 +2460,14 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", n_clients: i
     if worst > SERVE_ATOL:
         raise AssertionError("serving: served answers differ from Predictor.outputs")
 
-    lat = np.array([r["latency_s"] for r in results]) * 1e3
-    graphs_per_s = len(samples) / wall
-    log(f"[{card}] [{kind}] serving, captured: {len(samples)} requests from {n_clients} client "
-        f"threads, {n_batches} batches, p50 {np.percentile(lat, 50):.2f} ms, p99 "
-        f"{np.percentile(lat, 99):.2f} ms, {graphs_per_s:.1f} graphs/s (wall {wall:.3f} s)")
-    summary = {"captured": [float(np.percentile(lat, 50)), float(np.percentile(lat, 99)),
-                            graphs_per_s]}
+    sm = report.summary()
+    log(f"[{card}] [{kind}] serving, captured: {len(samples)} requests as a closed burst "
+        f"(serve.traffic), {n_batches} batches, {_traffic_line(report)} (wall "
+        f"{sm['wall_s']:.3f} s)")
+    summary = {"captured": [sm["p50_ms"], sm["p99_ms"], sm["graphs_per_sec"]]}
     if device == "cuda":
         p50, p99, gps_, e_launches, e_batches = _eager_burst(
-            torch, config, model, aug, samples, name, n_clients, f"[{kind}]", samples=samples)
+            torch, config, model, aug, samples, name, f"[{kind}]", samples=samples)
         summary["eager"] = [p50, p99, gps_]
         log(f"[{card}] [{kind}] serving, eager comparator (the endpoint's Predictor.outputs): "
             f"{e_batches} batches, p50 {p50:.2f} ms, p99 {p99:.2f} ms, {gps_:.1f} graphs/s")
@@ -3022,26 +3074,59 @@ def captured_vs_eager(torch, state, step, eval_step, hosts, tag: str, per_step: 
 # -- phase 10: quantized serving ----------------------------------------------------
 
 
-def _count_code_flips(torch, steps, run):
-    """Run ``run(step)`` for each of two quantized steps and count, per
-    Dense call, the int8 codes on which the two differ (the codes are
-    recomputed from each call's input with the plain quantizer)."""
+def _real_rows(torch, batch, rows: int):
+    """The mask of a Dense input's real rows by its row count: nodes,
+    edges, graphs or triplets of ``batch`` (three rows per node or edge
+    where a ``[N, 3, F]`` vector channel reaches the layer flat); all rows
+    when the count names none of them."""
+    masks = {}
+    for field in ("triplet_mask", "graph_mask", "edge_mask", "node_mask"):
+        m = getattr(batch, field, None)
+        if m is not None and m.numel():
+            m = m.detach().cpu() > 0
+            masks[m.numel()] = m
+            masks.setdefault(3 * m.numel(), m.repeat_interleave(3))
+    return masks.get(rows, torch.ones(rows, dtype=torch.bool))
+
+
+def _count_code_flips(torch, steps, run, batch) -> dict:
+    """Run ``run(step)`` for each of two quantized steps and compare, per
+    Dense call, the int8 codes of the two (recomputed from each call's
+    input with the plain quantizer, so they differ only where the inputs
+    do): ``flips`` (codes that differ), ``real`` (of those, on the real
+    rows of ``batch``: a pad row carries no answer), ``far`` (codes more
+    than one step apart on real rows), ``inputs`` (input entries that
+    differ), ``names`` (the calls' layers) and ``n_codes``."""
     from hydragnn_tpu_torch.ops.quant_matmul import quantize_acts
-    from hydragnn_tpu_torch.serve import quant as sq
 
-    codes = [[], []]
-    orig = sq.quant_dense
-    try:
-        for i, step in enumerate(steps):
-            def spy(x, w_q, s_w, s_x, bias, _i=i):
-                codes[_i].append(quantize_acts(x, s_x).cpu())
-                return orig(x, w_q, s_w, s_x, bias)
+    seen = [[], []]
+    for i, step in enumerate(steps):
+        inner = step._dense
 
-            sq.quant_dense = spy
+        def spy(module, x, _i=i, _step=step, _inner=inner):
+            name = _step._names.get(module)
+            if name in _step.scales:
+                x2 = x.reshape(-1, x.shape[-1])
+                seen[_i].append((name, x2.float().cpu(),
+                                 quantize_acts(x2, _step.scales[name]).cpu()))
+            return _inner(module, x)
+
+        step._dense = spy
+        try:
             run(step)
-    finally:
-        sq.quant_dense = orig
-    return [int((a != b).sum()) for a, b in zip(*codes)], sum(a.numel() for a in codes[0])
+        finally:
+            del step._dense
+    out = {"flips": [], "real": [], "far": [], "inputs": [], "names": [], "n_codes": 0}
+    for (name, xa, ca), (_, xb, cb) in zip(*seen):
+        diff = ca != cb
+        real = _real_rows(torch, batch, ca.shape[0])[:, None]
+        out["names"].append(name)
+        out["flips"].append(int(diff.sum()))
+        out["real"].append(int((diff & real).sum()))
+        out["far"].append(int((((ca.int() - cb.int()).abs() > 1) & real).sum()))
+        out["inputs"].append(int((xa != xb).sum()))
+        out["n_codes"] += ca.numel()
+    return out
 
 
 def _whole_split_calibration(torch, kind: str, pred, train, samples, pad) -> None:
@@ -3124,13 +3209,14 @@ def _check_refusal(kind: str, device: str, qserver, epq, name: str, cfg,
 
 
 def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: dict,
-                        card: str = "", n_clients: int = 4, diagnostics: bool = False) -> dict:
+                        card: str = "", diagnostics: bool = False,
+                        comparators: bool = True) -> dict:
     """The model that the training phase just trained, behind two servers
     in one run: fp32, then ``Serving.quantize: true`` at the config's
     default ``quant_tol``, calibrated on the training samples; 512
-    concurrent requests each. The certified bounds must lie within
-    ``quant_tol``, but for the known refusal (``_check_refusal``: refused
-    at its pinned bound, then served at that bound). Gates: served int8
+    requests each (a closed burst). The certified bounds must lie within
+    ``quant_tol``, but for the known refusals (``_check_refusal``: refused
+    at the pinned bound, then served at that bound). Gates: served int8
     answers equal ``Predictor.outputs(batch, step=<the bucket's int8
     step>)`` bit for bit; per served batch one ``quant_dense`` launch per
     Dense call and the fp32 path's other launches; batch independence (the
@@ -3139,7 +3225,9 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     CPU route's with the same tables; the fp32 answers unchanged. The
     whole traffic's int8 error against the bounds is logged: the
     certificate does not cover it (ROADMAP queue C). ``diagnostics`` adds
-    ``_refusal_attribution`` and ``_whole_split_calibration``."""
+    ``_refusal_attribution`` and ``_whole_split_calibration``;
+    ``comparators`` the eager comparator bursts (the GIN, GAT and GPS-GIN:
+    the ten newer stacks keep their serving phase's)."""
     from hydragnn_tpu_torch.graphs.batching import pick_bucket
     from hydragnn_tpu_torch.models.common import intercept_dense
     from hydragnn_tpu_torch.serve import (PredictionServer, Predictor, QuantizationError,
@@ -3161,7 +3249,7 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     probe = serving_collate(train[:64], ep32.buckets[-1])
     before = [t.clone() for t in pred.outputs(probe)]
     with capture.no_new_captures(f"[{kind}] trained fp32 serving burst"):
-        res32, wall32, _, stats32 = _serve_burst(torch, fp32, name, samples, n_clients, device)
+        res32, rep32, _, stats32 = _serve_burst(torch, fp32, name, samples, device)
     if stats32["failed"]:
         raise AssertionError(f"serving: {stats32}")
     worst32 = max(np.max(np.abs(a - b)) for _, _, a, b in
@@ -3205,12 +3293,12 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     calls = []
     with intercept_dense(lambda m, x: calls.append(m)):
         pred.outputs(probe)
-    if any(n != len(calls) for n in n_dense.values()):
+    if any(n != len(calls) for n in n_dense.values()) or len(calls) != QUANT_DENSE_CALLS[kind]:
         raise AssertionError(f"quantized serving: {n_dense} Dense layers calibrated, "
-                             f"{len(calls)} Dense calls per forward")
+                             f"{len(calls)} Dense calls per forward, "
+                             f"{QUANT_DENSE_CALLS[kind]} derived on the CPU route")
     with capture.no_new_captures(f"[{kind}] int8 serving burst"):
-        resq, wallq, launches, statsq = _serve_burst(torch, qserver, name, samples, n_clients,
-                                                     device)
+        resq, repq, launches, statsq = _serve_burst(torch, qserver, name, samples, device)
     n_batches = statsq["batches"]
     want = _scaled(dict(launches_per_forward(kind, layers), quant_dense=len(calls)), n_batches)
     log(f"[{kind}] int8 serving: {statsq['served']} requests in {n_batches} batches, "
@@ -3247,7 +3335,8 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
         f"per head: batch independence, the {n_cal} calibration samples served among the "
         f"traffic {[f'{x:.6f}' for x in dev_cal]} (allowed the bounds + {QUANT_CALIB_ATOL}); "
         f"the issue's traffic gate, all {len(samples)} requests "
-        f"{[f'{x:.6f}' for x in dev_all]} = {[round(d / b, 3) for d, b in zip(dev_all, bounds)]}"
+        f"{[f'{x:.6f}' for x in dev_all]} = "
+        f"{[round(d / b, 3) if b else None for d, b in zip(dev_all, bounds)]}"
         f" of the bounds, {over} head answers over their bound "
         f"({'met' if not over else 'NOT MET: the 4-sample certificate does not bound the traffic, ROADMAP queue C'})")
     if worst > 0:
@@ -3268,37 +3357,49 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     cpu_step = sq.make_quantized_predict_step(cpu_model, step.scales, cpu_weights,
                                               step.compute_dtype)
     cpu_pred = Predictor(cpu_model, aug, device="cpu")
-    flips, n_codes = _count_code_flips(
-        torch, (step, cpu_step),
-        lambda s: (pred if s is step else cpu_pred).outputs(probe, step=s))
+    cmp = _count_code_flips(torch, (step, cpu_step),
+                            lambda s: (pred if s is step else cpu_pred).outputs(probe, step=s),
+                            probe)
+    flips = cmp["flips"]
     _, dev_rows = pred.gather(probe, out=pred.outputs(probe, step=step))
     _, cpu_rows = cpu_pred.gather(probe, out=cpu_pred.outputs(probe, step=cpu_step))
     # with the same codes every int8 layer is exact, so the two steps differ
     # only as their fp32 forwards do (CPU_PARITY); a flipped code would move
-    # the heads by a share of the int8 error, and none flips on the card
-    # (runs so far: 0 flips, answers bit-equal, all three trained models)
+    # the heads by a share of the int8 error. The GIN, GAT and GPS-GIN flip
+    # none, pad rows included (every run so far). The ten newer stacks
+    # (SAGE to MACE) are held on the real rows (PNA's std over the dummy pad
+    # node's thousands of equal pad messages is fp32 noise that differs
+    # between the two, ROADMAP queue C item 13), but for INT8_INPUT_FLIPS
+    # (ROADMAP queue C item 16)
+    first = next((n for n, k in zip(cmp["names"], cmp["inputs"]) if k), None)
+    if kind in MODELS:
+        bad, allowed = sum(flips), "0, pad rows included"
+    elif kind in INT8_INPUT_FLIPS:
+        bad, allowed = 0, "any: inputs the card and the CPU round apart, INT8_INPUT_FLIPS"
+    else:
+        bad, allowed = sum(cmp["real"]), "0 on real rows"
     diffs = [float(np.max(np.abs(a - b) - CPU_PARITY["rtol"] * np.abs(b)))
              for a, b in zip(dev_rows, cpu_rows)]
     log(f"[{kind}] int8 step at the top bucket, {device} vs the CPU route with the same scales "
-        f"and weights: int8 codes that differ per Dense call {flips} of {n_codes} (allowed "
-        f"0); per head max(|diff| - {CPU_PARITY['rtol']} |CPU answer|) "
+        f"and weights: int8 codes that differ per Dense call {flips} of {cmp['n_codes']}, on "
+        f"real rows {cmp['real']} (allowed {allowed}), more than one step apart on real rows "
+        f"{sum(cmp['far'])}; Dense inputs that differ per call {cmp['inputs']} (first at "
+        f"{first}); per head max(|diff| - {CPU_PARITY['rtol']} |CPU answer|) "
         f"{[f'{d:.3e}' for d in diffs]} (allowed {CPU_PARITY['atol']})")
-    if sum(flips) or any(d > CPU_PARITY["atol"] for d in diffs):
+    if bad or any(d > CPU_PARITY["atol"] for d in diffs):
         raise AssertionError("quantized serving: the card's int8 step disagrees with the CPU's")
 
-    lat32 = np.array([r["latency_s"] for r in res32]) * 1e3
-    latq = np.array([r["latency_s"] for r in resq]) * 1e3
-    log(f"[{card}] [{kind}] trained model, 512 requests from {n_clients} client threads, "
-        f"captured: fp32 p50 {np.percentile(lat32, 50):.2f} ms, p99 "
-        f"{np.percentile(lat32, 99):.2f} ms, {len(samples) / wall32:.1f} graphs/s "
-        f"({stats32['batches']} batches; served vs Predictor.outputs {worst32:.1e}); int8 p50 "
-        f"{np.percentile(latq, 50):.2f} ms, p99 {np.percentile(latq, 99):.2f} ms, "
-        f"{len(samples) / wallq:.1f} graphs/s ({n_batches} batches); graphs captured fp32 "
-        f"{stats32['captures']}, int8 server {statsq['captures']}")
-    if device == "cuda":
-        e32 = _eager_burst(torch, fp32_cfg, model, aug, samples, name, n_clients, f"[{kind}]",
+    log(f"[{card}] [{kind}] trained model, {len(samples)} requests as a closed burst "
+        f"(serve.traffic), captured: fp32 {_traffic_line(rep32)} ({stats32['batches']} "
+        f"batches; served vs Predictor.outputs {worst32:.1e}); int8 {_traffic_line(repq)} "
+        f"({n_batches} batches); graphs captured fp32 {stats32['captures']}, int8 server "
+        f"{statsq['captures']}")
+    summary = {"fp32": [rep32.summary()[k] for k in ("p50_ms", "p99_ms", "graphs_per_sec")],
+               "int8": [repq.summary()[k] for k in ("p50_ms", "p99_ms", "graphs_per_sec")]}
+    if device == "cuda" and comparators:
+        e32 = _eager_burst(torch, fp32_cfg, model, aug, samples, name, f"[{kind}]",
                            samples=samples)
-        eq = _eager_burst(torch, cfg, model, aug, samples, name, n_clients, f"[{kind}]",
+        eq = _eager_burst(torch, cfg, model, aug, samples, name, f"[{kind}]",
                           samples=train, buckets=ep32.buckets)
         log(f"[{card}] [{kind}] trained model, eager comparators (Predictor.outputs): fp32 p50 "
             f"{e32[0]:.2f} ms, p99 {e32[1]:.2f} ms, {e32[2]:.1f} graphs/s; int8 p50 "
@@ -3309,7 +3410,9 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     if worst32 > SERVE_ATOL:
         raise AssertionError("serving: fp32 served answers differ from Predictor.outputs")
     return {"launches": launches, "batches": n_batches, "dense_calls": len(calls),
-            "bounds": bounds, "refused": refused, "quant_tol": cfg.quant_tol}
+            "bounds": bounds, "refused": refused, "quant_tol": cfg.quant_tol,
+            "flips": sum(flips), "real_flips": sum(cmp["real"]), "n_codes": cmp["n_codes"],
+            "summary": summary}
 
 
 # -- phase 6: the convergence canaries ------------------------------------------
@@ -4337,6 +4440,408 @@ def fp8_phase(torch, gin_model, gin_batch, mlip_model, mlip_batch, card: str = "
     return {"launches": launches, "max_abs_err": err, "egnn": out, "report": report}
 
 
+# -- phase 12: B6 at the new int8 stacks' shapes ------------------------------------
+
+
+def _top_batch(kind: str, seed: int):
+    """(model config, top-bucket batch of 64 training samples, dtype) of a
+    qm9 stack (``prepare``) or, for ``mlip`` / ``mlip-painn`` /
+    ``mlip-mace``, of the oc20 MLIP (its loader's pad bucket, fp32)."""
+    import torch
+
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+
+    if kind.startswith("mlip"):
+        arch = "EGNN" if kind == "mlip" else kind.split("-")[1].upper()
+        cfg = mlip_config(MLIP_EPOCHS, arch)
+        loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=mlip_samples())
+        aug = update_config(copy.deepcopy(cfg), *(ld.samples for ld in loaders))
+        return aug, collate(loaders[0].samples[:64], loaders[0].pad), torch.float32
+    _, aug, loaders, samples = prepare(seed, kind)
+    top, _ = bucket_batches(loaders, samples)
+    return aug, top, torch.bfloat16
+
+
+QUANT_STACK_KINDS = tuple(STACKS) + tuple(GEOMETRIC) + ("mlip", "mlip-painn", "mlip-mace")
+
+
+def quant_stack_kernel_phase(torch, seed: int, entry: dict | None,
+                             kinds=QUANT_STACK_KINDS, device: str = "cuda") -> float:
+    """Kernel B6 against its plain version, bit for bit (codes, int32 sums,
+    ``y`` at 0 ulp), at every distinct shape the int8 endpoints of the ten
+    newer stacks (SAGE to MACE) and of the three oc20 MLIPs give it: each
+    Dense call of the served forward (random weights from ``seed``, the
+    top bucket; bf16 qm9 stacks as served, fp32 MLIPs), among them
+    DimeNet's ``lin_sbf1`` over every triplet slot (4/5 of them pads) and
+    ``lin_rbf1`` at K = ``num_radial``, the bias-free layers, N = 1 heads
+    and PAINN's and PNAEq's ``[E, 3, F]`` inputs reshaped to 2-D. With
+    ``entry`` (B6's kernels-line entry), the kernel's device time at the
+    new kinds of shape beside its plain version, the quantize +
+    ``_int_mm`` + ``addcmul`` yardstick and the bound, under
+    ``entry["stack_shapes"]``. Returns the largest |kernel - plain|."""
+    from hydragnn_tpu_torch.models import create_model_config
+
+    err, timed, n_checked = 0.0, [], 0
+    picks = {"dimenet": ("lin_sbf1", "lin_rbf1", "out_lin"), "painn": ("update_U", "vec_embed"),
+             "mace": ("radial_out",), "cgcnn": ("lin_f",), "mlip-painn": ("update_U",)}
+    log("quant_dense (B6) at the int8 stacks' served shapes, bit for bit (0 ulp), each distinct "
+        "(rows, K, N, bias, dtype) once:")
+    for kind in kinds:
+        aug, batch, dtype = _top_batch(kind, seed)
+        model = create_model_config(aug, device=device, seed=seed)
+        seen = set()
+        for name, module, x in dense_inputs(torch, model, batch, dtype):
+            w = module.weight.detach().float().t()
+            b = None if module.bias is None else module.bias.detach().float()
+            key = (x.shape[0], x.shape[1], w.shape[1], b is None, x.dtype)
+            if key in seen:
+                continue
+            seen.add(key)
+            n_checked += 1
+            err = max(err, check_quant_dense(torch, f"[{kind}] {name}", x, w, b))
+            if entry is not None and any(name.endswith(p) for p in picks.get(kind, ())):
+                t = _time_quant_dense(torch, f"{kind} {name}", x, w, b, plain=True)
+                timed.append({k: t[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bytes", "ops")})
+        del model
+    _sync(torch, device)
+    log(f"quant_dense at the int8 stacks' shapes: {n_checked} distinct shapes over "
+        f"{len(kinds)} models, all bit-equal to the plain version (max|diff| {err:.1e})")
+    if entry is not None:
+        entry["stack_shapes"] = timed
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return err
+
+
+# -- phase 13: MLIP serving ----------------------------------------------------------
+
+MLIP_SERVE_REQUESTS = 512
+
+
+def mlip_launches_per_predict(layers: int, arch: str = "EGNN") -> dict:
+    """One served MLIP predict step (head outputs, no forces), all segment
+    sums: the EGNN's (graph head) one message sum per layer, one
+    coordinate sum on layers 0..L-2 and the pooling, ``2 L``; PAINN's and
+    MACE's (node head) two message sums per layer and the pooling the node
+    head does not read, ``2 L + 1``."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["segment_sum"] = 2 * layers + (0 if arch == "EGNN" else 1)
+    return want
+
+
+def mlip_serving_phase(torch, seed: int, m: dict, arch: str = "EGNN", card: str = "",
+                       device: str = "cuda") -> dict:
+    """A trained oc20 MLIP (``mlip_training_phase``'s) behind
+    ``PredictionServer``: its head outputs, no forces, as the JAX
+    ``Predictor`` serves them. Every bucket captured at warm-up, then
+    ``MLIP_SERVE_REQUESTS`` requests (the 256 cells, each twice) as a
+    closed burst (``serve.traffic``) under ``no_new_captures``; each served
+    answer bit-equal to ``Predictor.outputs`` (the eager predict step) on
+    the same padded batch, i.e. the captured step replays the eager one bit
+    for bit; exact launches per batch; finite answers."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.serve import PredictionServer, Predictor, ServingConfig
+
+    tag = "mlip" if arch == "EGNN" else f"mlip-{arch.lower()}"
+    model, aug, layers = m["model"], m["aug"], m["layers"]
+    loaders = dataset_loading_and_splitting(mlip_config(MLIP_EPOCHS, arch),
+                                            samples=mlip_samples())
+    cells = [s for ld in loaders for s in ld.samples]
+    requests = [cells[i % len(cells)] for i in range(MLIP_SERVE_REQUESTS)]
+    server = PredictionServer(ServingConfig(queue_depth=2048, flush_ms=5.0), device=device)
+    ep = server.add_model(tag, model, aug, samples=cells)
+    t0 = time.perf_counter()
+    server.warmup()
+    captures = server.stats()[tag]["captures"]
+    log(f"[{tag}] serving the trained {arch} MLIP (head outputs, no forces): buckets "
+        f"{[b.as_tuple() for b in ep.buckets]}, warm-up {time.perf_counter() - t0:.3f} s, "
+        f"{captures} CUDA graphs captured")
+    if device == "cuda" and captures != len(ep.buckets):
+        raise AssertionError(f"MLIP serving: {captures} graphs for {len(ep.buckets)} buckets")
+    with capture.no_new_captures(f"[{tag}] serving burst"):
+        results, report, launches, stats = _serve_burst(torch, server, tag, requests, device)
+    n_batches = stats["batches"]
+    want = _scaled(mlip_launches_per_predict(layers, arch), n_batches)
+    predictor = Predictor(model, aug, device=device)
+    worst = max(float(np.max(np.abs(a - b))) for _, _, a, b in
+                _served_vs_outputs(ep.buckets, predictor, requests, results))
+    finite = all(np.isfinite(np.asarray(h)).all() for r in results for h in r["heads"])
+    log(f"[{card}] [{tag}] served {stats['served']} requests in {n_batches} batches, "
+        f"{_traffic_line(report)}; launches {launches} (expected {want}); captured answers vs "
+        f"Predictor.outputs (the eager step) on the same padded batches: max|diff| {worst:.3e} "
+        f"(allowed 0); graphs captured {stats['captures']}")
+    if stats["served"] != len(requests) or stats["failed"] or stats["captures"] != captures:
+        raise AssertionError(f"MLIP serving: {stats}")
+    if (device == "cuda" and launches != want) or worst != 0.0 or not finite:
+        raise AssertionError(f"MLIP serving [{tag}]: launches {launches} != {want}, or served "
+                             f"answers differ from the eager step ({worst}), or not finite")
+    sm = report.summary()
+    return {"launches": launches, "batches": n_batches,
+            "summary": [sm["p50_ms"], sm["p99_ms"], sm["graphs_per_sec"]]}
+
+
+# -- phase 14: registration from a checkpoint, and the fleet -------------------------
+
+FLEET_PROBES = 32           # requests sent one at a time (each served alone)
+FLEET_REQUESTS = 512        # the traffic through the router and the one server
+FLEET_KILL_AFTER = 128      # answered requests before one replica is killed
+FLEET_BOOT_S = 300.0
+# a second traffic router's window per replica (logged, not gated): the
+# default, Serving.fleet.inflight_per_replica 2, keeps the replicas' batches
+# at 2 requests; at 32 the router's pool, which keeps 4 idle sockets per
+# replica, opens and closes connections under load
+FLEET_INFLIGHT = 32
+# the fleet's int8 replicas certify at this Serving.quant_tol: the trained
+# GIN refuses the default 0.1 (phase 10 pins its bound), and this phase
+# holds the replicas' int8 answers to the in-process int8 server's bit for
+# bit, not to an error bound
+FLEET_INT8_TOL = 1.0
+
+
+def checkpoint_phase(torch, kind: str, model, aug: dict, samples, tmp: str,
+                     card: str = "", device: str = "cuda") -> dict:
+    """The trained model written as a training run writes it
+    (``config.json`` and a checkpoint under ``tmp``), registered with
+    ``add_model_from_checkpoint`` beside ``add_model`` of the live model:
+    the restored weights bit-equal, and 512 requests to the registered
+    endpoint answered bit-equal to the live model's ``Predictor.outputs``
+    (its eager step) on the same padded batches. Returns the run's
+    ``path`` and ``log_name``."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.config.schema import get_log_name_config, save_config
+    from hydragnn_tpu_torch.serve import PredictionServer, ServingConfig
+    from hydragnn_tpu_torch.train.checkpoint import save_checkpoint
+    from hydragnn_tpu_torch.train.step import create_train_state
+
+    log_name = get_log_name_config(aug)
+    save_config(aug, log_name, tmp)
+    state = create_train_state(copy.deepcopy(model), aug["NeuralNetwork"]["Training"]["Optimizer"])
+    save_checkpoint(state, log_name, epoch=int(aug["NeuralNetwork"]["Training"]["num_epoch"]),
+                    path=tmp)
+    server = PredictionServer(ServingConfig(queue_depth=2048, flush_ms=5.0), device=device)
+    live = server.add_model("live", model, aug, samples=samples)
+    ep = server.add_model_from_checkpoint("ckpt", log_name, path=tmp, samples=samples)
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 ep.predictor.model.state_dict().values()))
+    server.warmup()
+    with capture.no_new_captures(f"[{kind}] checkpoint-registered serving burst"):
+        results, report, _, stats = _serve_burst(torch, server, "ckpt", samples, device)
+    worst = max(float(np.max(np.abs(a - b))) for _, _, a, b in
+                _served_vs_outputs(ep.buckets, live.predictor, samples, results))
+    log(f"[{card}] [{kind}] add_model_from_checkpoint ({tmp}/{log_name}): weights "
+        f"{'bit-equal' if same else 'DIFFER'} to the live model's, buckets "
+        f"{'equal' if ep.buckets == live.buckets else 'DIFFER'}; {stats['served']} requests, "
+        f"{_traffic_line(report)}; answers vs the live model's Predictor.outputs on the same "
+        f"padded batches: max|diff| {worst:.3e} (allowed 0)")
+    if not same or ep.buckets != live.buckets or worst != 0.0 or stats["failed"]:
+        raise AssertionError("checkpoint registration: not bit-equal to the live endpoint")
+    return {"path": tmp, "log_name": log_name}
+
+
+def _spawn_replicas(spec: dict, n: int) -> list:
+    """``n`` replica workers booted at once (each ``spawn_replica`` waits
+    for its ready file); all or none."""
+    from hydragnn_tpu_torch.serve.fleet.replica import spawn_replica
+
+    out, errors = [None] * n, []
+
+    def boot(i):
+        try:
+            out[i] = spawn_replica(spec, timeout_s=FLEET_BOOT_S)
+        except Exception as exc:  # noqa: BLE001 (re-raised below)
+            errors.append(exc)
+
+    threads = [threading.Thread(target=boot, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for w in out:
+            if w is not None:
+                w.terminate()
+        raise errors[0]
+    return out
+
+
+def _heads_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.asarray(x).dtype == np.asarray(y).dtype and np.asarray(x).tobytes()
+        == np.asarray(y).tobytes() for x, y in zip(a, b))
+
+
+def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: str,
+                card: str = "", device: str = "cuda") -> dict:
+    """The multi-process fleet on the card: for fp32, then int8
+    (``Serving.quantize`` at ``FLEET_INT8_TOL``), two replica processes
+    (``python -m hydragnn_tpu_torch.serve.fleet.replica``) booted from the
+    checkpoint paths alone (``add_model_from_checkpoint``; the kernels were
+    built by this process before the spawn) behind a ``FleetRouter``, and
+    one in-process server registered from the same checkpoint. Gates:
+    ``FLEET_PROBES`` requests sent one at a time (each served alone, a
+    batch of one) answered through the router bit-equal to the in-process
+    server, whose answers equal its ``Predictor.outputs`` on that padded
+    batch; the same requests again are cache hits, byte-identical; each
+    replica's ``stats`` reads 0 captures since ready; fp32: the canary
+    accepts an identical model (the in-process server behind a wire host)
+    and refuses a perturbed one (weights + 1e-3); then ``FLEET_REQUESTS``
+    requests (``serve.traffic``) through the one server, through a router
+    without the cache at ``FLEET_INFLIGHT`` requests in flight per replica
+    (logged), and through one at the default window (its interactive
+    budget the whole burst), one replica killed (SIGKILL) in it after
+    ``FLEET_KILL_AFTER`` answers in the fp32 run, every request answered.
+    Logs p50/p99 and graphs/s of each."""
+    from hydragnn_tpu_torch.serve import (CanaryMismatchError, FleetRouter, PredictionServer,
+                                          ReplicaHost, ServingConfig, run_traffic)
+    from hydragnn_tpu_torch.serve.batcher import serving_collate
+    from hydragnn_tpu_torch.serve.fleet.config import RolloutConfig
+    from hydragnn_tpu_torch.serve.fleet.replica import write_samples_file
+    from hydragnn_tpu_torch.serve.fleet.rollout import run_canary
+
+    name = f"qm9_{kind}"
+    samples_file = write_samples_file(samples, str(Path(tmp) / "fleet_samples.wire"))
+    out = {}
+    for mode, extra in (("fp32", {}), ("int8", {"quantize": True, "quant_tol": FLEET_INT8_TOL})):
+        serving = dict(queue_depth=2048, flush_ms=5.0, **extra)
+        spec = {"models": [{"name": name, "log_name": ckpt["log_name"], "path": ckpt["path"],
+                            "samples_file": samples_file}], "serving": serving,
+                "device": device}
+        t0 = time.perf_counter()
+        workers = _spawn_replicas(spec, 2)
+        boot_s = time.perf_counter() - t0
+        local = PredictionServer(ServingConfig(**serving), device=device)
+        ep = local.add_model_from_checkpoint(name, ckpt["log_name"], path=ckpt["path"],
+                                             samples=samples)
+        local.warmup()
+        local.start()
+        router = FleetRouter({"peer_timeout": 60.0, "cache_bytes": 1 << 26})
+        traffic_router = FleetRouter({"peer_timeout": 60.0, "cache_bytes": 0,
+                                      "budget_interactive": FLEET_REQUESTS})
+        wide_router = FleetRouter({"peer_timeout": 60.0, "cache_bytes": 0,
+                                   "budget_interactive": FLEET_REQUESTS,
+                                   "inflight_per_replica": FLEET_INFLIGHT})
+        hosts = []
+        try:
+            for w in workers:
+                for r in (router, traffic_router, wide_router):
+                    r.attach("127.0.0.1", w.port)
+            router.start()
+            probes = samples[:FLEET_PROBES]
+            bad, routed = 0, []
+            for s in probes:
+                got = router.submit(name, s).result(timeout=120)
+                routed.append(got["heads"])
+                ref = local.submit(name, s).result(timeout=120)
+                pad = next(b for b in ep.buckets if b.as_tuple() == tuple(ref["bucket"]))
+                want = ep.predictor.split_graphs(
+                    ep.predictor.outputs(serving_collate([s], pad), step=ep._step_for(pad)),
+                    [s.num_nodes])[0]
+                bad += not (_heads_equal(got["heads"], ref["heads"])
+                            and _heads_equal(ref["heads"], want) and ref["batch_graphs"] == 1)
+            hits = [router.submit(name, s).result(timeout=60) for s in probes]
+            hit_bad = sum(not (h.get("cached") and _heads_equal(h["heads"], r))
+                          for h, r in zip(hits, routed))
+            steady = [router.replica_stats(i)["steady_captures"] for i in range(2)]
+            quant = [router.replica_stats(i)["models"][name]["quantized"] for i in range(2)]
+            log(f"[{card}] [fleet {mode}] 2 replica processes booted from {ckpt['log_name']} in "
+                f"{boot_s:.1f} s (warm-up included, int8 buckets per replica {quant}); "
+                f"{len(probes)} requests one at a time through the router vs the in-process "
+                f"server and its Predictor.outputs: {len(probes) - bad} bit-equal (allowed "
+                f"all); again: {len(hits) - hit_bad} cache hits byte-identical; captures since "
+                f"ready per replica {steady} (allowed 0)")
+            if bad or hit_bad or any(steady) or (mode == "int8") != all(q > 0 for q in quant):
+                raise AssertionError(f"fleet {mode}: {bad} probes differ, {hit_bad} cache hits "
+                                     f"not byte-identical, captures since ready {steady}, "
+                                     f"int8 buckets {quant}")
+            if mode == "fp32":
+                twin = ReplicaHost(local)
+                hosts.append(twin)
+                verdict = run_canary(router, [("127.0.0.1", twin.port)],
+                                     [(name, s) for s in probes[:4]], RolloutConfig())
+                perturbed = copy.deepcopy(ep.predictor.model)
+                with torch.no_grad():
+                    for p in perturbed.parameters():
+                        p.add_(1e-3)
+                other = PredictionServer(ServingConfig(**serving), device=device)
+                other.add_model(name, perturbed, aug, samples=samples)
+                other.warmup()
+                other.start()
+                wrong = ReplicaHost(other)
+                hosts.append(wrong)
+                try:
+                    run_canary(router, [("127.0.0.1", wrong.port)],
+                               [(name, s) for s in probes[:4]], RolloutConfig())
+                    refused = None
+                except CanaryMismatchError as exc:
+                    refused = str(exc).splitlines()[0][:160]
+                finally:
+                    other.stop()
+                log(f"[fleet {mode}] canary: identical model {verdict}; perturbed model "
+                    f"{'refused: ' + refused if refused else 'ACCEPTED'}")
+                if verdict != {0: "ok"} or refused is None:
+                    raise AssertionError("fleet: the canary did not accept the identical model "
+                                         "and refuse the perturbed one")
+            # the traffic: the one in-process server, the router at a window
+            # of FLEET_INFLIGHT (logged), then the router at the default
+            # window (gated; in fp32 a replica dies in it)
+            order = np.arange(FLEET_REQUESTS) % len(samples)
+            local_rep = run_traffic(local, name, samples, FLEET_REQUESTS, order=order)
+            wide_router.start()
+            wide = run_traffic(wide_router, name, samples, FLEET_REQUESTS, order=order,
+                               timeout_s=300.0)
+            wide_router.stop()
+            traffic_router.start()
+            killed = {}
+            if mode == "fp32":
+                def killer():
+                    while traffic_router.stats()["served"] < FLEET_KILL_AFTER:
+                        time.sleep(0.001)
+                    killed["served"] = traffic_router.stats()["served"]
+                    workers[0].kill()
+                    killed["at"] = time.perf_counter()
+
+                kt = threading.Thread(target=killer, daemon=True)
+                kt.start()
+            rec = _Recorded(traffic_router)
+            rep = run_traffic(rec, name, samples, FLEET_REQUESTS, order=order, timeout_s=300.0)
+            st = traffic_router.stats()
+            finite = all(np.isfinite(np.asarray(h)).all() for f in rec.futures
+                         for h in f.result()["heads"])
+            log(f"[{card}] [fleet {mode}] {FLEET_REQUESTS} requests (serve.traffic, closed "
+                f"burst): one in-process server {_traffic_line(local_rep)}; router over 2 "
+                f"replicas at {FLEET_INFLIGHT} in flight per replica {_traffic_line(wide)} "
+                f"(served {wide.n_served}); router over 2 replicas at the default window "
+                f"{_traffic_line(rep)}; served {rep.n_served}, shed {rep.n_shed}, "
+                f"failed {st['failed']}, failovers {st['failovers']}, requeues {st['requeues']}"
+                + (f"; replica 0 killed after {killed.get('served')} answers" if killed else ""))
+            if rep.n_served != FLEET_REQUESTS or st["failed"] or not finite:
+                raise AssertionError(f"fleet {mode}: requests lost or failed: {rep.summary()}, "
+                                     f"{st['failed']} failed")
+            if mode == "fp32" and not (killed.get("served", FLEET_REQUESTS) < FLEET_REQUESTS
+                                       and st["failovers"] >= 1):
+                raise AssertionError(f"fleet: the replica kill did not land mid-stream: {killed}, "
+                                     f"failovers {st['failovers']}")
+            out[mode] = {"local": [local_rep.summary()[k] for k in
+                                   ("p50_ms", "p99_ms", "graphs_per_sec")],
+                         "router": [rep.summary()[k] for k in
+                                    ("p50_ms", "p99_ms", "graphs_per_sec")],
+                         "router_wide": [wide.summary()[k] for k in
+                                         ("p50_ms", "p99_ms", "graphs_per_sec")],
+                         "boot_s": boot_s, "failovers": st["failovers"]}
+        finally:
+            for r in (router, wide_router, traffic_router):
+                r.stop()
+            for h in hosts:
+                h.close()
+            for w in workers:
+                w.terminate()
+            local.stop()
+    return out
+
+
 def kernels_only(torch, seed: int, dev: dict) -> int:
     """``--kernels-only``: every kernel against its plain version with its
     times, at the main paths' shapes: phase 3, the cell-list checks and
@@ -4432,6 +4937,8 @@ def main(argv=None) -> int:
         entries += quant_kernel_phase(torch, create_model_config(aug_gin, device="cuda",
                                                                  seed=args.seed), top,
                                       egnn_rows=mlip_b.num_edges)
+        quant_stack_kernel_phase(torch, args.seed,
+                                 next(e for e in entries if e["name"] == "quant_dense"))
         second_derivative_phase(torch, top)
     served, trained, quantized = {}, {}, {}
     for kind in MODELS:
@@ -4448,17 +4955,25 @@ def main(argv=None) -> int:
             served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
             trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
                                            card=dev["smi"])
+            quantized[kind] = quant_serving_phase(torch, "cuda", args.seed, kind,
+                                                  trained[kind]["model"], trained[kind]["aug"],
+                                                  card=dev["smi"],
+                                                  diagnostics=args.quant_diagnostics,
+                                                  comparators=False)
     with timed_phase(phase_s, "superstep"):
         superstep = superstep_phase(torch, args.seed, card=dev["smi"])
     with timed_phase(phase_s, "canaries"):
         canary_phase(torch, "cuda", card=dev["smi"])
     with timed_phase(phase_s, "mlip"):
         mlip = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"])
-    mlips = {}
+    mlips, mlip_served = {}, {}
     for arch in MLIP_ARCHS:
         with timed_phase(phase_s, f"mlip-{arch.lower()}"):
             mlips[arch] = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"],
                                               arch=arch)
+    with timed_phase(phase_s, "mlip-serving"):
+        for arch, m in dict(EGNN=mlip, **mlips).items():
+            mlip_served[arch] = mlip_serving_phase(torch, args.seed, m, arch, card=dev["smi"])
     with timed_phase(phase_s, "md"):
         systems = md_systems(mlip["aug"], args.seed)
         entries.append(cell_list_phase(torch, systems))
@@ -4467,14 +4982,21 @@ def main(argv=None) -> int:
     with timed_phase(phase_s, "fp8"):
         fp8 = fp8_phase(torch, trained["gin"]["model"], top, mlip["model"], mlip["batch"],
                         card=dev["smi"])
+    with timed_phase(phase_s, "fleet"), tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        gin_samples = [s for ld in prepare(args.seed, "gin")[2] for s in ld.samples]
+        ckpt = checkpoint_phase(torch, "gin", trained["gin"]["model"], trained["gin"]["aug"],
+                                gin_samples, tmp, card=dev["smi"])
+        fleet = fleet_phase(torch, "gin", trained["gin"]["model"], trained["gin"]["aug"],
+                            gin_samples, ckpt, tmp, card=dev["smi"])
     for e in entries:
         name = e["name"]
         if name == "quant_dense":
-            # launches: the quantized serving runs of the three trained models
-            e["launches"] = sum(quantized[k]["launches"][name] for k in MODELS)
+            # launches: the quantized serving runs of the thirteen trained
+            # qm9 models
+            e["launches"] = sum(q["launches"][name] for q in quantized.values())
             e["launches_per_served_batch"] = {
-                k: quantized[k]["launches"][name] / quantized[k]["batches"] for k in MODELS}
-            if any(quantized[k]["launches"][name] <= 0 for k in MODELS):
+                k: q["launches"][name] / q["batches"] for k, q in quantized.items()}
+            if any(q["launches"][name] <= 0 for q in quantized.values()):
                 raise AssertionError("quant_dense was not launched on a quantized serving path")
             continue
         if name == "fp8_dense":
@@ -4501,9 +5023,16 @@ def main(argv=None) -> int:
             if any(r["launches"][name] <= 0 for r in ran_md.values()):
                 raise AssertionError("cell_list was not launched on an MD path")
             continue
-        e["launches_serving"] = sum(served[k]["launches"][name] for k in ARCH_KNOBS)
+        e["launches_serving"] = (sum(served[k]["launches"][name] for k in ARCH_KNOBS)
+                                 + sum(m["launches"][name] for m in mlip_served.values()))
         e["launches_per_served_batch"] = {
             k: served[k]["launches"][name] / served[k]["batches"] for k in ARCH_KNOBS}
+        e["launches_per_served_batch"].update({
+            f"mlip-{a.lower()}": m["launches"][name] / m["batches"]
+            for a, m in mlip_served.items()})
+        if name == "segment_sum" and any(m["launches"][name] <= 0
+                                         for m in mlip_served.values()):
+            raise AssertionError("segment_sum was not launched on an MLIP serving path")
         e["launches_per_train_step"] = {k: trained[k]["per_step"][name] for k in ARCH_KNOBS}
         e["launches_per_train_step"]["mlip"] = mlip["per_step"][name]
         for a, m in mlips.items():
@@ -4517,9 +5046,11 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name} was not launched on {kind}'s training path")
             if launches_per_forward(kind, layers)[name] and served[kind]["launches"][name] <= 0:
                 raise AssertionError(f"{name} was not launched on {kind}'s serving path")
-    log("quantized serving, certified per-head bounds at the default quant_tol 0.1: " + "; ".join(
+    log("quantized serving, certified per-head bounds at the default quant_tol 0.1, and int8 "
+        "code flips card vs CPU: " + "; ".join(
         f"{k} {[round(b, 6) for b in (q['refused'] or q['bounds'])]} "
-        f"({'REFUSED at its pinned bound, served at ' + str(q['quant_tol']) if q['refused'] else 'certified'})"
+        f"({'REFUSED at its pinned bound, served at ' + str(q['quant_tol']) if q['refused'] else 'certified'}"
+        f", {q['flips']} codes flipped, {q['real_flips']} on real rows)"
         for k, q in quantized.items()))
     summary = {
         "serving": {k: served[k]["summary"] for k in ARCH_KNOBS},
@@ -4530,6 +5061,9 @@ def main(argv=None) -> int:
                           for k, t in dict(trained, mlip=mlip, **{
                               f"mlip-{a.lower()}": m for a, m in mlips.items()}).items()},
         "superstep_gin_s": superstep,
+        "int8_serving": {k: q["summary"] for k, q in quantized.items()},
+        "mlip_serving": {a: m["summary"] for a, m in mlip_served.items()},
+        "fleet": fleet,
         "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
                                "busy_eager": _lean(r["captured"]["eager_busy"]),
                                "busy_captured": _lean(r["captured"]["busy"])}

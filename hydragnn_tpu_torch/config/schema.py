@@ -98,11 +98,24 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     serving_cfg = config.setdefault("Serving", {})
     if not isinstance(serving_cfg, dict):
         raise ValueError(f"Serving must be a dict, got {type(serving_cfg).__name__}")
+    from ..serve.fleet.config import fleet_config_defaults
     from ..serve.server import ServingConfig, serving_config_defaults
 
-    ServingConfig.from_config(config).validate()
+    ServingConfig.from_config(config)  # unknown keys
+    # the nested Serving.fleet block: a partial block (and a partial
+    # autoscale or rollout sub-block) keeps the caller's keys and gains the
+    # rest; unknown keys survive the fill and raise in validate()
+    fleet_cfg = serving_cfg.setdefault("fleet", {})
+    if not isinstance(fleet_cfg, dict):
+        raise ValueError(f"Serving.fleet must be a dict, got {type(fleet_cfg).__name__}")
+    for key, val in fleet_config_defaults().items():
+        filled = fleet_cfg.setdefault(key, val)
+        if isinstance(val, dict) and isinstance(filled, dict) and filled is not val:
+            for sub_key, sub_val in val.items():
+                filled.setdefault(sub_key, sub_val)
     for key, val in serving_config_defaults().items():
         serving_cfg.setdefault(key, val)
+    ServingConfig(**serving_cfg).validate()
 
     # on-device MD (md.py): the MD block's defaults are the MDConfig field
     # defaults, and MDConfig validates it

@@ -31,14 +31,14 @@ class Predictor:
     - :meth:`split_graphs` — per-graph views of a batch's outputs;
     - :meth:`denormalize` / :meth:`denormalize_preds` — min-max
       denormalisation when the config asks for it.
+
+    An interatomic potential (``enable_interatomic_potential``) is served
+    as the JAX ``Predictor`` serves it: its head outputs from the eval-mode
+    forward under ``torch.inference_mode``, no forces (the position
+    gradient is the train and MD steps' business, ``models.mlip``).
     """
 
     def __init__(self, model: torch.nn.Module, config: dict, device="cuda"):
-        if model.spec.enable_interatomic_potential:
-            raise NotImplementedError(
-                "energy and force prediction of interatomic potentials (MLIP) is not ported "
-                "yet; it comes with a later slice (MLIP serving)"
-            )
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.spec = model.spec

@@ -2,8 +2,7 @@
 card, kernels built at warm-up.
 
 Counterpart of ``hydragnn_tpu/serve/server.py`` without its compile cache,
-serialized AOT artifacts, fleet, telemetry plane and env flags (later
-slices):
+serialized AOT artifacts, telemetry plane and env flags (later slices):
 
 - **boot**: register models (architecture + weights + augmented config);
   each endpoint derives its pad-bucket table (the same
@@ -27,12 +26,16 @@ slices):
   the shared :class:`~hydragnn_tpu_torch.serve.predictor.Predictor`
   (``answer``), whose outputs are cloned out before the next replay;
 - **routing**: several models serve from one process, each endpoint with
-  its own queue, bucket table and dispatcher thread.
+  its own queue, bucket table and dispatcher thread; a model registers live
+  (``add_model``) or from a training run's checkpoint directory
+  (``add_model_from_checkpoint``). ``Serving.fleet`` configures the
+  multi-process front end (``serve.fleet``), which this server ignores.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from concurrent.futures import Future
@@ -54,6 +57,7 @@ from .admission import (
     UnknownModelError,
 )
 from .batcher import MicroBatcher, serving_collate
+from .fleet.config import FleetConfig, fleet_config_defaults
 from .predictor import Predictor
 from .quant import (
     QuantizationError,
@@ -62,16 +66,6 @@ from .quant import (
     make_quantized_predict_step,
     quantize_dense_weights,
 )
-
-# Serving keys of the JAX package's block that the port does not read: a
-# config augmented by the JAX package carries them. The in-process server
-# ignores ``fleet`` in the JAX package too.
-_LATER_SLICE_KEYS = ("fleet",)
-
-
-def _without_later_keys(block: dict) -> dict:
-    return {k: v for k, v in block.items() if k not in _LATER_SLICE_KEYS}
-
 
 @dataclasses.dataclass
 class ServingConfig:
@@ -89,6 +83,10 @@ class ServingConfig:
     quantize: bool = False
     quant_tol: float = 0.1         # per-head max abs error ceiling vs fp32
     quant_calib_batches: int = 4   # calibration batches per (model, bucket)
+    # the fleet front end (serve.fleet): the nested Serving.fleet block,
+    # single-sourced from FleetConfig and validated through it; the
+    # in-process server ignores it, the FleetRouter reads it
+    fleet: dict = dataclasses.field(default_factory=fleet_config_defaults)
 
     @staticmethod
     def from_config(config: dict | None) -> "ServingConfig":
@@ -99,7 +97,7 @@ class ServingConfig:
         config = config or {}
         block = config.get("Serving")
         if block is None and config:
-            if any(k in serving_config_defaults() or k in _LATER_SLICE_KEYS for k in config):
+            if any(k in serving_config_defaults() for k in config):
                 block = config
             elif not any(k in CONFIG_SECTIONS for k in config):
                 raise ValueError(
@@ -107,7 +105,7 @@ class ServingConfig:
                     f"config (sections {sorted(CONFIG_SECTIONS)}) or a Serving block "
                     f"(fields {sorted(serving_config_defaults())})"
                 )
-        block = _without_later_keys(block or {})
+        block = block or {}
         unknown = set(block) - set(serving_config_defaults())
         if unknown:
             raise ValueError(
@@ -139,6 +137,13 @@ class ServingConfig:
                 "gate run at warm-up; without it the server would serve fp32 despite "
                 "quantize=true"
             )
+        if not isinstance(self.fleet, dict):
+            raise ValueError(f"Serving.fleet must be a dict, got {type(self.fleet).__name__}")
+        unknown = set(self.fleet) - set(fleet_config_defaults())
+        if unknown:
+            raise ValueError(f"Unknown Serving.fleet key(s) {sorted(unknown)}; known: "
+                             f"{sorted(fleet_config_defaults())}")
+        FleetConfig(**self.fleet).validate()
         return self
 
 
@@ -461,6 +466,30 @@ class PredictionServer:
                            calib_samples=samples)
         self._models[name] = ep
         return ep
+
+    def add_model_from_checkpoint(self, name: str, log_name: str, path: str = "./logs/",
+                                  config: dict | None = None,
+                                  samples: Sequence[GraphSample] | None = None,
+                                  epoch: int | None = None, **add_model_kwargs) -> ModelEndpoint:
+        """Register a model from a training run's directory: ``config``
+        defaults to the augmented ``config.json`` that ``run_training``
+        wrote there, the model is built from it on the server's device, and
+        the newest (or the ``epoch``-pinned) checkpoint's weights are
+        restored into it, with ``load_checkpoint``'s fallback through older
+        epochs when the newest is missing or corrupt. ``samples`` give the
+        bucket table and the signature, as in :meth:`add_model`."""
+        from ..config import load_config
+        from ..models import create_model_config
+        from ..train.checkpoint import load_model_checkpoint
+
+        if config is None:
+            config = load_config(os.path.join(path, log_name, "config.json"))
+        if not samples:
+            raise ValueError("add_model_from_checkpoint needs `samples` to derive the bucket "
+                             "table")
+        model = create_model_config(config, device=self.device)
+        load_model_checkpoint(model, log_name, path=path, epoch=epoch)
+        return self.add_model(name, model, config, samples=samples, **add_model_kwargs)
 
     def warmup(self) -> dict:
         """Capture every (model, bucket); returns seconds per bucket."""

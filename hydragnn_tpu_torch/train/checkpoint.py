@@ -162,15 +162,12 @@ def _read_one(ckpt_path: str, device) -> tuple[dict, dict]:
     return payload, meta
 
 
-def load_checkpoint(state, log_name: str, path: str = "./logs/",
-                    epoch: int | None = None) -> dict:
-    """Restore a checkpoint into ``state`` (its model, optimizer and step,
-    on the model's device) and return its metadata.
-
-    ``epoch=None`` reads what ``latest`` names and, when that is missing or
-    corrupt, older epochs, newest first; an explicit ``epoch`` reads exactly
-    that one. Raises ``FileNotFoundError`` naming the run directory when
-    nothing there is loadable."""
+def _restore(log_name: str, path: str, epoch: int | None, device, apply) -> dict:
+    """Read a checkpoint of the run and hand its payload to ``apply``;
+    returns its metadata. ``epoch=None`` reads what ``latest`` names and,
+    when that is missing or corrupt, older epochs, newest first; an explicit
+    ``epoch`` reads exactly that one. Raises ``FileNotFoundError`` naming
+    the run directory when nothing there is loadable."""
     base = checkpoint_dir(log_name, path)
     fallback = epoch is None
     if not fallback:
@@ -180,7 +177,6 @@ def load_checkpoint(state, log_name: str, path: str = "./logs/",
         candidates = [os.path.realpath(latest)] if os.path.islink(latest) else []
         candidates += [c for c in _epoch_candidates(base)
                        if os.path.realpath(c) not in candidates]
-    device = next(state.model.parameters()).device
     errors = []
     for i, cand in enumerate(candidates):
         try:
@@ -193,16 +189,38 @@ def load_checkpoint(state, log_name: str, path: str = "./logs/",
         if i > 0 and errors:
             warnings.warn(f"checkpoint fallback: restored {os.path.basename(cand)} after "
                           f"newer candidate(s) failed ({'; '.join(errors)})")
-        state.model.load_state_dict(payload["model"])
-        load_optimizer_state(state.optimizer, payload["optimizer"])
-        state.step = int(payload["step"])
-        _restore_generator(state, payload)
+        apply(payload)
         return meta
     detail = f" (candidates failed: {'; '.join(errors)})" if errors else ""
     raise FileNotFoundError(
         f"no loadable checkpoint under {os.path.dirname(base)} — expected a 'latest' "
         f"pointer or epoch_<N>.pt files in {base}{detail}"
     )
+
+
+def load_checkpoint(state, log_name: str, path: str = "./logs/",
+                    epoch: int | None = None) -> dict:
+    """Restore a checkpoint into ``state`` (its model, optimizer and step,
+    on the model's device) and return its metadata; which checkpoint, as
+    :func:`_restore` reads."""
+
+    def apply(payload: dict) -> None:
+        state.model.load_state_dict(payload["model"])
+        load_optimizer_state(state.optimizer, payload["optimizer"])
+        state.step = int(payload["step"])
+        _restore_generator(state, payload)
+
+    return _restore(log_name, path, epoch, next(state.model.parameters()).device, apply)
+
+
+def load_model_checkpoint(model, log_name: str, path: str = "./logs/",
+                          epoch: int | None = None) -> dict:
+    """Restore only the model's weights from a checkpoint (the serving
+    tier's restore: no optimizer or train state is built), on the model's
+    device; which checkpoint, and the manifest check, as
+    :func:`load_checkpoint`. Returns its metadata."""
+    return _restore(log_name, path, epoch, next(model.parameters()).device,
+                    lambda payload: model.load_state_dict(payload["model"]))
 
 
 class Checkpoint:
@@ -251,5 +269,6 @@ __all__ = [
     "EarlyStopping",
     "checkpoint_dir",
     "load_checkpoint",
+    "load_model_checkpoint",
     "save_checkpoint",
 ]

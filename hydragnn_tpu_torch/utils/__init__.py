@@ -1,4 +1,6 @@
-"""Device resolution shared by the port's entry points."""
+"""Utilities of the port: device resolution shared by the entry points
+(here), the retry policy (``utils.retry``) and the wire transport of the
+serving fleet (``utils.wire``)."""
 
 from __future__ import annotations
 

@@ -332,8 +332,9 @@ def test_repair_keeps_first_derivatives_and_cpu_launch_counts():
 
 def test_run_training_takes_the_mlip_steps(tmp_path):
     """``run_training`` on an MLIP config trains with the energy+force loss
-    (the train loss falls, the evaluations run the MLIP eval step); energy
-    and force prediction is a later slice and raises."""
+    (the train loss falls, the evaluations run the MLIP eval step), and
+    ``run_prediction`` serves the trained potential's head outputs, as the
+    JAX package's does (no forces)."""
     from hydragnn_tpu_torch import run_prediction, run_training
 
     cfg = _config("graph", layers=2)
@@ -347,7 +348,7 @@ def test_run_training_takes_the_mlip_steps(tmp_path):
     losses = [h["train_loss"] for h in history]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert state.step == 4 * 4 and np.isfinite(history[-1]["val_loss"])
-    with pytest.raises(NotImplementedError, match="MLIP"):
-        run_prediction(copy.deepcopy(cfg), state, samples=tpu.port_samples(
-            lennard_jones_data(number_configurations=8, cells_per_dim=2, seed=5)),
-            device="cpu")
+    error, _, trues, preds = run_prediction(copy.deepcopy(cfg), state, samples=tpu.port_samples(
+        lennard_jones_data(number_configurations=8, cells_per_dim=2, seed=5)), device="cpu")
+    assert np.isfinite(error) and len(preds) == 1 and preds[0].shape == trues[0].shape
+    assert np.isfinite(preds[0]).all()
