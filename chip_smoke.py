@@ -26,7 +26,15 @@ an analytic LJ potential on ``bench.py``'s 8,000-atom MD lattice. Each
 trained qm9 model also serves int8 (``Serving.quantize``), the three
 trained MLIPs serve their head outputs, the trained GIN's Dense layers go
 through the experimental fp8 layer, and the trained GIN is registered from
-its checkpoint and served by the multi-process fleet.
+its checkpoint and served by the multi-process fleet. Three more qm9.json
+configurations train, serve and serve int8 the same way
+(``EDGE_KINDS``): GAT with the edge lengths as edge features
+(``Dataset.compute_edge_lengths``), GPS-PNA with the edge lengths and
+relative-PE edge encodings, and GPS-GIN with performer attention; and
+eighteen more combinations at 2 conv layers (``VARIANTS``: seven edge
+stacks with the edge lengths, GPS around eleven more convs) each take a
+captured train step bit-equal to eager on the card, with the CPU route's
+launches and fp32 answers.
 
 Phases (any failure exits non-zero; the last line of standard output is the
 device JSON only when every phase passed):
@@ -55,7 +63,9 @@ device JSON only when every phase passed):
    DimeNet's triplets (``idx_kj`` gathered onto ``idx_ji``'s E rows, the
    transposed launch over ``idx_kj``'s view; in fp32 also bit-equal to
    ``gather_rows`` + B2) and B2 on the geometric stacks' flattened
-   ``[E, 3, 32]`` messages (``geometric_kernel_phase``). Device times per call
+   ``[E, 3, 32]`` messages (``geometric_kernel_phase``); B2 at the
+   performer's per-graph ``kv`` ``[N, 1024]`` and ``z`` ``[N, 64]`` and at
+   GAT's self-loop mean ``[E, 1]`` (``edge_kernel_phase``). Device times per call
    (CUDA-graph replay between CUDA events) beside the plain version, a
    one-call PyTorch yardstick (``torch.sparse.softmax``, which synchronises
    with the host, timed by events around back-to-back calls) and the bound
@@ -105,6 +115,12 @@ logged (the last is a ``capture summary`` line).
    share under ``torch.profiler``, eager and captured; then (5b) the GIN
    with ``Training.steps_per_dispatch: 4``: its losses and final state
    bit-equal to one step per dispatch over the same bucket-major plan;
+5c. the three ``EDGE_KINDS`` through phases 4, 5 and 10 as the
+   models above (int8 without the eager comparators), and each of the
+   eighteen ``VARIANTS`` through ``variant_phase``: one captured bf16 train
+   step bit-equal to its eager step, the eager step's launches and the
+   graph's launch record equal to the CPU route's launcher calls
+   (``cpu_route_calls``), the fp32 forward against the CPU route;
 6. canaries: the tier-1 convergence canaries on the deterministic BCC
    dataset through ``run_training`` and ``run_prediction`` on the card, at
    the reference thresholds: GIN with one head and with four heads (head
@@ -112,6 +128,8 @@ logged (the last is a ``capture summary`` line).
    the graph head < 0.35), and the six invariant and four geometric
    stacks in the 4-head configuration of ``tests/test_training_e2e.py``'s
    arch sweep (``CANARY_OVERRIDES``) at its ``THRESHOLDS`` on every head;
+   GAT with the edge lengths at GAT's thresholds, GPS-PNA with
+   the edge lengths and the GPS performer at GPS-GIN's;
 7. the repaired backwards (phase 3, right after the kernels): second
    derivatives through ``fused_segment_sum``, ``gather_rows``,
    ``gather_scatter_sum`` and ``segment_softmax``, kernels against plain
@@ -157,14 +175,17 @@ logged (the last is a ``capture summary`` line).
    whole traffic against the bounds is logged (the reference's 4-sample
    certificate does not bound it: an unmet gate, ROADMAP queue C). The
    pinned refusals: GIN, PAINN, PNAEq, DimeNet; the code-flip gate counts
-   the ten newer stacks' real rows and takes SchNet's and PNAEq's flips
-   from inputs that CUDA and the CPU round apart
-   (``INT8_INPUT_FLIPS``);
+   the ten newer stacks' and the three edge kinds' real rows and takes
+   SchNet's and PNAEq's flips from inputs that CUDA and the CPU round
+   apart (``INT8_INPUT_FLIPS``), GPS-PNA's and the performer's likewise but
+   with every flipped code one step from the CPU's and the answers within
+   the certified bounds (``INT8_GPS_INPUT_FLIPS``);
 11. fp8: B7 at the oc20 EGNN's first edge-MLP Dense on its training batch,
    then ``certify_fp8_dense`` on every Dense call of the trained GIN, both
    formats (max-abs and relative-Frobenius error);
 12. (in phase 3) B6 bit for bit at every distinct Dense shape of the ten
-   stacks' and the three MLIPs' served forwards (DimeNet's ``lin_sbf1``
+   stacks', the three MLIPs' and the three edge kinds' served forwards
+   (GAT's ``lin_edge`` at K = 1, GPS's ``edge_lin`` at K = 128; DimeNet's ``lin_sbf1``
    over 197,504 triplet slots, ``lin_rbf1`` at K = 6, bias-free layers,
    N = 1 heads, PAINN's and PNAEq's ``[E, 3, F]`` inputs), timed at the new
    kinds of shape (``quant_stack_kernel_phase``);
@@ -250,6 +271,14 @@ QUANT_KNOWN_REFUSALS = {"gin": 0.372717, "painn": 0.446247, "pnaeq": 0.439453,
 # is the answers within CPU_PARITY, the fp32 forward's own card-vs-CPU
 # tolerance, and the flips are counted in the log
 INT8_INPUT_FLIPS = {"schnet", "pnaeq"}
+# the same cause through GPS's four layers of attention: GPS-PNA's
+# std and log-degree scalers (layer 0's post_nn is the first Dense whose
+# input differs) and the performer's exp features. A moved code there moves
+# the answers by more than CPU_PARITY (GPS-PNA's by 5.1e-3 on an H100), so
+# their gate is every flipped code on real rows one step from
+# the CPU's (a rounding boundary, not a kernel fault) and the answers within
+# the certified per-head int8 bounds; the flips are logged
+INT8_GPS_INPUT_FLIPS = {"gps_pna_edge", "gps_performer"}
 QUANT_REFUSAL_RTOL = 0.02
 # one fp32 train step on the card, held tensor by tensor against an fp64 run
 # of the same step on the CPU: each parameter's gradient may miss the fp64
@@ -313,7 +342,37 @@ GEOMETRIC = {
     "mace": {"mpnn_type": "MACE", "max_ell": 1, "node_max_ell": 1, "correlation": 2,
              "num_radial": 6, "radial_type": "bessel", "hidden_dim": 32},
 }
-ARCH_KNOBS = {**MODELS, **STACKS, **GEOMETRIC}
+# edge features and the GPS variants at qm9.json's widths: GAT with
+# the edge lengths (Dataset.compute_edge_lengths) as its edge feature
+# (lin_edge, the self loops' mean edge feature); GPS-PNA with the edge
+# lengths and relative-PE edge encodings (rel_pos_emb, edge_emb,
+# edge_lin) and GPS-GIN's attention knobs; GPS-GIN with performer
+# attention. They train, serve and serve int8 like the three above
+EDGE_KINDS = {
+    "gat_edge": {"mpnn_type": "GAT", "edge_features": ["length"]},
+    "gps_pna_edge": {"mpnn_type": "PNA", "edge_features": ["length"],
+                     **MODELS["gps"]},
+    "gps_performer": {**MODELS["gps"], "global_attn_type": "performer"},
+}
+ARCH_KNOBS = {**MODELS, **STACKS, **GEOMETRIC, **EDGE_KINDS}
+# the Dataset keys a kind adds to qm9_config's in-memory set
+DATASET_KNOBS = {"gat_edge": {"compute_edge_lengths": True},
+                 "gps_pna_edge": {"compute_edge_lengths": True}}
+# the other new combinations, each at 2 conv layers with its stack's knobs
+# above: the seven other edge stacks with the edge lengths, and GPS
+# (multihead, GPS-GIN's attention knobs) around eleven more convs. Each is
+# checked on the card by variant_phase (a captured train step bit-equal to
+# eager, the fp32 forward against the CPU route, launches equal to the CPU
+# route's launcher calls), not trained
+_STACK_KNOBS = {**STACKS, **GEOMETRIC, "egnn": {"mpnn_type": "EGNN"}, "gat": MODELS["gat"]}
+VARIANTS = {
+    **{f"edge_{k}": ({**_STACK_KNOBS[k], "edge_features": ["length"], "num_conv_layers": 2},
+                     {"compute_edge_lengths": True})
+       for k in ("pnaplus", "cgcnn", "schnet", "egnn", "painn", "pnaeq", "dimenet")},
+    **{f"gps_{k}": ({**_STACK_KNOBS[k], **MODELS["gps"], "num_conv_layers": 2}, {})
+       for k in ("sage", "mfc", "schnet", "pnaplus", "cgcnn", "egnn", "painn", "pnaeq",
+                 "dimenet", "mace", "gat")},
+}
 # the stacks that gather node rows onto the edges (gather_rows, backward
 # B2) and sum the messages with B2: their segment sums per layer (the
 # others' neighbour sum is the gather-scatter kernel B1, GAT's aside)
@@ -324,9 +383,11 @@ GAT_HEADS = 6  # the reference GAT stack's fixed head count
 # and PNAEq sum at the senders; DimeNet mixes triplets over idx_ji, its
 # backward over idx_kj; MACE gathers its element embedding by z)
 CSR_FORWARD = {"gat": ("loop_receivers", "batch"), "painn": ("senders", "batch"),
-               "pnaeq": ("senders", "batch"), "dimenet": ("receivers", "idx_ji", "batch")}
+               "pnaeq": ("senders", "batch"), "dimenet": ("receivers", "idx_ji", "batch"),
+               "gat_edge": ("loop_receivers", "receivers", "batch")}
 CSR_BACKWARD = {"gat": ("loop_senders",), "painn": ("receivers",), "pnaeq": ("receivers",),
-                "dimenet": ("senders", "idx_kj"), "mace": ("senders", "elements")}
+                "dimenet": ("senders", "idx_kj"), "mace": ("senders", "elements"),
+                "gat_edge": ("loop_senders",)}
 for _kind in ARCH_KNOBS:
     CSR_FORWARD.setdefault(_kind, ("receivers", "batch"))
     CSR_BACKWARD.setdefault(_kind, ("senders",))
@@ -338,7 +399,8 @@ for _kind in ARCH_KNOBS:
 # quant_dense calls
 QUANT_DENSE_CALLS = {"gin": 13, "gat": 13, "gps": 40, "sage": 13, "mfc": 5, "schnet": 21,
                      "pna": 17, "pnaplus": 25, "cgcnn": 13, "painn": 44, "pnaeq": 60,
-                     "dimenet": 93, "mace": 22, "mlip": 20, "mlip-painn": 32, "mlip-mace": 16}
+                     "dimenet": 93, "mace": 22, "mlip": 20, "mlip-painn": 32, "mlip-mace": 16,
+                     "gat_edge": 17, "gps_pna_edge": 56, "gps_performer": 40}
 KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum", "segment_softmax",
            "masked_softmax", "cell_list", "quant_dense", "fp8_dense")
 # bench.py's oc20 row (bench_oc20: MLIP_CONFIG with radius 5.0 and
@@ -454,6 +516,11 @@ CANARIES = {
     "pnaeq": (500, 7, 100, 0.60, 0.60, None),
     "dimenet": (500, 7, 100, 0.50, 0.50, None),
     "mace": (500, 7, 100, 0.60, 0.70, None),
+    # GAT with the edge lengths at GAT's thresholds; GPS-PNA with the
+    # edge lengths and the GPS performer in the GPS-GIN canary's form
+    "gat_edge": (500, 7, 100, 0.60, 0.70, None),
+    "gps_pna_edge": (200, 19, 30, 0.35, None, 1),
+    "gps_performer": (200, 19, 30, 0.35, None, 1),
 }
 # tests/test_training_e2e.py ARCH_OVERRIDES of those ten canaries
 CANARY_OVERRIDES = {
@@ -488,17 +555,28 @@ GEOMETRIC_SUMS = {"painn": 2, "pnaeq": 4, "dimenet": 1, "mace": 2}
 def launches_per_forward(kind: str, layers: int) -> dict:
     """Kernel launches of one predict step (a served or evaluated batch):
     the mean pooling's segment sum, and per conv layer GAT's softmax and
-    aggregation, one gather-scatter (the B1 stacks; GPS adds its masked
-    softmax), or the segment sums of the edge-message stacks (PNA and
-    PNAPlus: the mean and the std's two means; CGCNN: the sum)."""
+    aggregation (with edge features also the self loops' mean edge
+    feature), one gather-scatter (the B1 stacks; GPS adds its masked
+    softmax, the performer its two per-graph sums), or the segment sums of
+    the edge-message stacks (PNA and PNAPlus: the mean and the std's two
+    means; CGCNN: the sum)."""
     want = dict.fromkeys(KERNELS, 0)
     want["segment_sum"] = 1  # the mean pooling
     if kind in GEOMETRIC_SUMS:
         want["segment_sum"] += GEOMETRIC_SUMS[kind] * layers
         want["gather_scatter_sum"] = layers if kind == "dimenet" else 0
-    elif kind == "gat":
+    elif kind in ("gat", "gat_edge"):
         want["segment_softmax"] = layers
-        want["segment_sum"] += layers  # each layer's [E', 6, F] aggregation
+        # each layer's [E', 6, F] aggregation; with edge features also the
+        # self loops' mean edge feature: its [E, 1] sum and the degree
+        want["segment_sum"] += layers * (3 if kind == "gat_edge" else 1)
+    elif kind == "gps_pna_edge":
+        want["segment_sum"] += EDGE_SUM_STACKS["pna"] * layers
+        want["masked_softmax"] = layers
+    elif kind == "gps_performer":
+        # the GIN's neighbour sum, and the performer's per-graph kv and z
+        want["gather_scatter_sum"] = layers
+        want["segment_sum"] += 2 * layers
     elif kind in EDGE_SUM_STACKS:
         want["segment_sum"] += EDGE_SUM_STACKS[kind] * layers
     else:
@@ -531,10 +609,20 @@ def launches_per_train_step(kind: str, layers: int) -> dict:
                                 "dimenet": 2 * layers, "mace": 3 * layers - 1}[kind]
         if kind == "dimenet":
             want["gather_scatter_sum_bwd"] = layers
-    elif kind == "gat":
+    elif kind in ("gat", "gat_edge"):
         # each softmax's backward sum, and the backward of the two gathers
-        # (by sender, by receiver) of each layer
+        # (by sender, by receiver) of each layer (the self loops' edge
+        # feature reads the batch: no gradient)
         want["segment_sum"] += 3 * layers
+    elif kind == "gps_pna_edge":
+        # the two gathers of node rows onto the edges, in every layer: GPS's
+        # embedding is learned, so layer 0's input needs a gradient too
+        want["segment_sum"] += 2 * layers
+    elif kind == "gps_performer":
+        # the transposed gather-scatter of every layer, and the backward of
+        # the gathers of kv and z back to the nodes
+        want["gather_scatter_sum_bwd"] = layers
+        want["segment_sum"] += 2 * layers
     elif kind in EDGE_SUM_STACKS:
         want["segment_sum"] += 2 * (layers - 1)
     else:
@@ -577,8 +665,9 @@ def qm9_like_samples(n: int, seed: int, radius: float, max_neighbours: int, pe_d
 
 def qm9_config(kind: str = "gin") -> dict:
     """``examples/qm9/qm9.json`` with the ``kind``'s architecture overrides
-    and its dataset replaced by the in-memory QM9-like set (same node and
-    graph features)."""
+    (``ARCH_KNOBS`` or ``VARIANTS``) and its dataset replaced by the
+    in-memory QM9-like set (same node and graph features), with the kind's
+    ``DATASET_KNOBS`` (the edge lengths)."""
     from hydragnn_tpu_torch.config import load_config
 
     cfg = load_config(str(QM9_CONFIG))
@@ -588,8 +677,21 @@ def qm9_config(kind: str = "gin") -> dict:
         "node_features": cfg["Dataset"]["node_features"],
         "graph_features": cfg["Dataset"]["graph_features"],
     }
-    cfg["NeuralNetwork"]["Architecture"].update(ARCH_KNOBS[kind])
+    if kind in VARIANTS:
+        arch_knobs, dataset_knobs = VARIANTS[kind]
+    else:
+        arch_knobs, dataset_knobs = ARCH_KNOBS[kind], DATASET_KNOBS.get(kind, {})
+    cfg["Dataset"].update(dataset_knobs)
+    cfg["NeuralNetwork"]["Architecture"].update(arch_knobs)
     return cfg
+
+
+def raw_samples(seed: int, kind: str = "gin", n_samples: int = 512):
+    """The kind's molecules as a user hands them over, before preprocessing
+    (with GPS's encodings, which requests carry)."""
+    arch = qm9_config(kind)["NeuralNetwork"]["Architecture"]
+    return qm9_like_samples(n_samples, seed, float(arch["radius"]),
+                            int(arch["max_neighbours"]), int(arch.get("pe_dim") or 0))
 
 
 def prepare(seed: int, kind: str = "gin", n_samples: int = 512):
@@ -598,9 +700,7 @@ def prepare(seed: int, kind: str = "gin", n_samples: int = 512):
     from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
 
     cfg = qm9_config(kind)
-    arch = cfg["NeuralNetwork"]["Architecture"]
-    samples = qm9_like_samples(n_samples, seed, float(arch["radius"]),
-                               int(arch["max_neighbours"]), int(arch.get("pe_dim") or 0))
+    samples = raw_samples(seed, kind, n_samples)
     loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=samples)
     aug = update_config(copy.deepcopy(cfg), *(ld.samples for ld in loaders))
     return cfg, aug, loaders, samples
@@ -1739,6 +1839,67 @@ def geometric_kernel_phase(torch, seed: int, entries: list, failures: list,
     return times
 
 
+def edge_kernel_phase(torch, seed: int, entries: list, failures: list,
+                      timing: bool = True) -> None:
+    """B2 at the shapes edge features and the performer give it (the qm9
+    top bucket), fp32 and bf16, bit for bit (:func:`check_csr_exact`), each
+    timed in fp32 beside ``index_add_`` and its bound: the performer's
+    per-graph ``kv`` (``[N, heads m Dh]`` by graph) and ``z`` (``[N, heads
+    m]``), and GAT's self-loop mean (``[E, 1]`` by receiver, the masked
+    edge lengths; the degree is the same sum of the edge mask). The timed
+    shapes go under B2's ``shapes``."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    dev = torch.device("cuda") if timing else torch.device("cpu")
+    gen = torch.Generator(device="cpu").manual_seed(5678)
+    arch = qm9_config("gps_performer")["NeuralNetwork"]["Architecture"]
+    heads = int(arch["global_attn_heads"])
+    dh = int(arch["hidden_dim"]) // heads
+    m = max(8, (dh + 7) // 8 * 8)
+    _, _, loaders, samples = prepare(seed, "gps_performer")
+    top, _ = bucket_batches(loaders, samples)
+    _, _, e_loaders, e_samples = prepare(seed, "gat_edge")
+    e_top, _ = bucket_batches(e_loaders, e_samples)
+    b, eb = top.to(dev), e_top.to(dev)
+    n, g = b.num_nodes, b.num_graphs
+    cases = (
+        (f"performer kv [N, {heads}*{m}*{dh}] by graph", b.batch, g, b.csr("batch"), n,
+         heads * m * dh),
+        (f"performer z [N, {heads}*{m}] by graph", b.batch, g, b.csr("batch"), n, heads * m),
+        ("GAT self-loop mean edge feature [E, 1] by receiver", eb.receivers, eb.num_nodes,
+         eb.csr("receivers"), eb.num_edges, 1),
+    )
+    log("segment_sum (B2) at the edge-feature and performer shapes, bit for bit:")
+    shapes = []
+    for label, ids, rows, index, n_ids, c in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n_ids, c, generator=gen).to(dtype)
+            got = fs.fused_segment_sum(x.to(dev), ids, rows, index=index)
+            with _one_thread(torch):
+                plain = fs.plain_segment_sum(x, ids.cpu(), rows)
+            check_csr_exact(torch, f"{str(dtype).split('.')[1]} {label} [{n_ids},{c}] -> {rows}",
+                            got, plain, x.float(), ids, rows, failures)
+        if timing:
+            xd = torch.randn(n_ids, c, generator=gen).to(dev)
+            ids_l = ids.long()
+            t_k = graph_time_ms(torch, lambda: fs.fused_segment_sum(xd, ids, rows, index=index))
+            t_p = graph_time_ms(torch, lambda: fs.plain_segment_sum(xd, ids, rows))
+            t_lib = graph_time_ms(torch, lambda: torch.zeros(rows, c, device=dev).index_add_(
+                0, ids_l, xd))
+            nbytes = xd.numel() * 4 + n_ids * 4 + rows * c * 4
+            bound = max(nbytes / HBM_BYTES_PER_S, xd.numel() / FP32_FLOPS) * 1e3
+            shapes.append(dict(shape=f"{label} [{n_ids},{c}] f32 -> {rows}", ms=t_k,
+                               plain_ms=t_p, library_ms=t_lib, bound_ms=bound,
+                               bound_by="bytes", bytes=nbytes,
+                               pieces=int(index.piece_ptr[-1]),
+                               longest_row=int((index.ptr[1:] - index.ptr[:-1]).max())))
+            log(f"  segment_sum @ {shapes[-1]['shape']}: kernel {t_k * 1e3:.2f} us, plain "
+                f"{t_p * 1e3:.2f} us, index_add_ {t_lib * 1e3:.2f} us, bound "
+                f"{bound * 1e3:.3f} us ({nbytes} B)")
+    if timing:
+        next(x for x in entries if x["name"] == "segment_sum")["shapes"].extend(shapes)
+
+
 def schnet_gather_scatter_checks(torch, b, gen, real_rows: int) -> None:
     """Kernel B1 at SchNet's sum: lin1 features ``[N, 64]`` times filters
     per edge and channel ``[E, 64]`` (the filters times the edge mask), fp32
@@ -2411,7 +2572,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
     model = create_model_config(aug, device=device, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
     extra = {k: spec_arch.get(k) for k in ARCH_KNOBS[kind]}
-    if kind == "gps":
+    if spec_arch.get("global_attn_engine"):
         extra["max_graph_nodes"] = spec_arch["max_graph_nodes"]
     log(f"[{kind}] model: {spec_arch['mpnn_type']} hidden {spec_arch['hidden_dim']} x "
         f"{n_layers} conv layers {extra or ''}, {n_params} parameters, precision "
@@ -2539,11 +2700,12 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
                     summary["busy"]["eager"])
         summary["busy"] = {k: _lean(v) for k, v in summary["busy"].items()}
 
-    # the batch evaluator over the same samples
+    # the batch evaluator over the same molecules, which it preprocesses
+    # itself (the edge lengths are appended once)
     fs.reset_launches()
     t0 = time.perf_counter()
-    error, _, trues, preds = run_prediction(copy.deepcopy(cfg), model, samples=samples,
-                                            device=device)
+    error, _, trues, preds = run_prediction(copy.deepcopy(cfg), model,
+                                            samples=raw_samples(seed, kind), device=device)
     rp_s = time.perf_counter() - t0
     rp_launches = dict(fs.LAUNCHES)
     n_rp = len(loaders[2])
@@ -2725,7 +2887,8 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
     loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=samples())
     n_train, n_val, n_test = (len(ld) for ld in loaders)
     log(f"[{kind}] training: run_training on the qm9.json {arch['mpnn_type']}"
-        f"{' + GPS' if kind == 'gps' else ''} at its published widths, precision "
+        f"{' + GPS' if arch.get('global_attn_engine') else ''} at its published widths, "
+        f"edge features {arch.get('edge_features') or 'none'}, precision "
         f"{cfg['NeuralNetwork']['Training']['precision']}, dropout "
         f"{arch.get('dropout', 0.25)} (default), num_epoch cut from {published} to {epochs} "
         f"(the only cut), 512 QM9-like molecules: {n_train} train / {n_val} val / {n_test} "
@@ -3071,6 +3234,126 @@ def captured_vs_eager(torch, state, step, eval_step, hosts, tag: str, per_step: 
     return out
 
 
+# molecules each smaller-depth combination is prepared from: enough for a
+# top-bucket batch of 64 training samples
+VARIANT_SAMPLES = 160
+# graphs of the batch the CPU route runs (fp32 parity, launch counts)
+VARIANT_CPU_GRAPHS = 16
+
+
+@contextlib.contextmanager
+def cpu_route_calls():
+    """Inside, the calls of the kernels' launchers with CPU tensors, where
+    the wrappers take their plain versions, count into the yielded dict by
+    ``fused_scatter.LAUNCHES``'s names: what the card launches on the same
+    step."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.ops import fused_softmax as fsm
+
+    counts = dict.fromkeys(KERNELS, 0)
+    saved = {(fs, "_segment_sum"): fs._segment_sum, (fs, "_gather_scatter"): fs._gather_scatter,
+             (fsm, "_segment_softmax"): fsm._segment_softmax,
+             (fsm, "_masked_softmax"): fsm._masked_softmax}
+
+    def counted(attr, fn):
+        def call(*args, **kwargs):
+            if not args[0].is_cuda:
+                name = args[-1] if attr == "_gather_scatter" else attr.lstrip("_")
+                counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for (module, attr), fn in saved.items():
+        setattr(module, attr, counted(attr, fn))
+    try:
+        yield counts
+    finally:
+        for (module, attr), fn in saved.items():
+            setattr(module, attr, fn)
+
+
+def variant_phase(torch, seed: int, name: str, card: str = "", device: str = "cuda") -> dict:
+    """One smaller-depth combination of ``VARIANTS`` (2 conv layers, random
+    weights from ``seed``, bf16 steps), not trained: one captured train
+    step bit-equal to its eager step (parameters, running statistics, AdamW
+    moments, generator, metrics); the eager step's launches and the
+    captured graph's launch record equal to the CPU route's launcher calls
+    on the same step; the card's fp32 forward against the CPU route
+    (``CPU_PARITY``) with the predict step's launches equal to the CPU
+    route's. Returns the launches."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.serve import Predictor
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    _, aug, loaders, _ = prepare(seed, name, n_samples=VARIANT_SAMPLES)
+    arch = aug["NeuralNetwork"]["Architecture"]
+    train_ld = loaders[0]
+    host = collate(train_ld.samples[:64], train_ld.pad)
+    small = train_ld.samples[:VARIANT_CPU_GRAPHS]
+    model = create_model_config(aug, device=device, seed=seed)
+    state = create_train_state(model, aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    step = make_train_step(torch.bfloat16)
+
+    # the CPU route's launcher calls: one bf16 train step and one fp32
+    # predict step (launch counts depend on the layout, not on the rows)
+    cpu_state = create_train_state(copy.deepcopy(model).to("cpu"),
+                                   aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    with cpu_route_calls() as want_step:
+        step(cpu_state, collate(small, train_ld.pad))
+    fp32_cfg = copy.deepcopy(aug)
+    fp32_cfg["NeuralNetwork"]["Training"]["precision"] = "fp32"
+    test_host = collate(small, train_ld.pad)
+    with cpu_route_calls() as want_fwd:
+        cpu_out = Predictor(copy.deepcopy(model).to("cpu"), fp32_cfg, device="cpu").outputs(
+            test_host)
+
+    # the card: eager and captured train step from the same state
+    captured, eager = _twin(torch, state), _twin(torch, state)
+    train = capture.Dispatch(step, "train", train=True)
+    b = host.to(device)
+    got = train(captured, b)
+    fs.reset_launches()
+    want = step(eager, b)
+    _sync(torch, device)
+    eager_launches = dict(fs.LAUNCHES)
+    diffs = _state_diffs(torch, captured, eager)
+    # the CPU runs the eager step for both and counts no launch: the launch
+    # gates hold on the card
+    record = (next(iter(train.graphs.graphs.values())).launches if device == "cuda"
+              else dict(want_step))
+    loss = float(want["loss"])
+    fs.reset_launches()
+    dev_out = Predictor(model, fp32_cfg, device=device).outputs(test_host)
+    _sync(torch, device)
+    fwd_launches = dict(fs.LAUNCHES)
+    gm = test_host.graph_mask > 0
+    d = float((dev_out[0].cpu()[gm] - cpu_out[0][gm]).abs().max())
+    ok_cpu = torch.allclose(dev_out[0].cpu()[gm], cpu_out[0][gm], **CPU_PARITY)
+    log(f"[{card}] [{name}] {arch['mpnn_type']}{' + GPS' if arch.get('global_attn_engine') else ''}"
+        f" x {arch['num_conv_layers']} layers, edge_dim {arch.get('edge_dim') or 0}: captured bf16 "
+        f"train step vs eager: metrics equal {_same_tree(torch, got, want)}, state differs in "
+        f"{diffs[:6] or 'nothing'} (loss {loss:.6g}); launches: eager step "
+        f"{ {k: v for k, v in eager_launches.items() if v} }, graph record "
+        f"{ {k: v for k, v in record.items() if v} }, CPU route "
+        f"{ {k: v for k, v in want_step.items() if v} }; fp32 forward vs the CPU route "
+        f"max|diff| {d:.3e} ({'ok' if ok_cpu else 'MISMATCH'}), launches "
+        f"{ {k: v for k, v in fwd_launches.items() if v} } (CPU route "
+        f"{ {k: v for k, v in want_fwd.items() if v} }); {time.perf_counter() - t0:.2f} s")
+    if not _same_tree(torch, got, want) or diffs or not np.isfinite(loss):
+        raise AssertionError(f"{name}: the captured train step differs from the eager step")
+    if not ok_cpu:
+        raise AssertionError(f"{name}: the fp32 forward disagrees with the CPU route")
+    if device == "cuda" and (eager_launches != want_step or record != want_step
+                             or fwd_launches != want_fwd or not any(want_step.values())):
+        raise AssertionError(f"{name}: launches: train step {eager_launches} (graph {record}), "
+                             f"forward {fwd_launches}; the CPU route's {want_step}, {want_fwd}")
+    return {"per_step": eager_launches, "per_forward": fwd_launches}
+
+
 # -- phase 10: quantized serving ----------------------------------------------------
 
 
@@ -3372,10 +3655,15 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     # between the two, ROADMAP queue C item 13), but for INT8_INPUT_FLIPS
     # (ROADMAP queue C item 16)
     first = next((n for n, k in zip(cmp["names"], cmp["inputs"]) if k), None)
+    answer_tol = [CPU_PARITY["atol"]] * len(bounds)
     if kind in MODELS:
         bad, allowed = sum(flips), "0, pad rows included"
     elif kind in INT8_INPUT_FLIPS:
         bad, allowed = 0, "any: inputs the card and the CPU round apart, INT8_INPUT_FLIPS"
+    elif kind in INT8_GPS_INPUT_FLIPS:
+        bad, allowed = sum(cmp["far"]), ("one step from the CPU's on real rows, answers within "
+                                         "the certified bounds: INT8_GPS_INPUT_FLIPS")
+        answer_tol = list(bounds)
     else:
         bad, allowed = sum(cmp["real"]), "0 on real rows"
     diffs = [float(np.max(np.abs(a - b) - CPU_PARITY["rtol"] * np.abs(b)))
@@ -3385,8 +3673,8 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
         f"real rows {cmp['real']} (allowed {allowed}), more than one step apart on real rows "
         f"{sum(cmp['far'])}; Dense inputs that differ per call {cmp['inputs']} (first at "
         f"{first}); per head max(|diff| - {CPU_PARITY['rtol']} |CPU answer|) "
-        f"{[f'{d:.3e}' for d in diffs]} (allowed {CPU_PARITY['atol']})")
-    if bad or any(d > CPU_PARITY["atol"] for d in diffs):
+        f"{[f'{d:.3e}' for d in diffs]} (allowed {[f'{t:.3e}' for t in answer_tol]})")
+    if bad or any(d > t for d, t in zip(diffs, answer_tol)):
         raise AssertionError("quantized serving: the card's int8 step disagrees with the CPU's")
 
     log(f"[{card}] [{kind}] trained model, {len(samples)} requests as a closed burst "
@@ -3424,7 +3712,9 @@ def canary_config(name: str, epochs: int | None = None) -> dict:
     x, x2, x3; graph head weighted 20x; node heads 2 x 10; batch 16; lr
     0.01), the GIN's or an invariant stack's with its ``CANARY_OVERRIDES``;
     GAT at hidden 8; GPS-GIN with 2 heads and encodings of width 2
-    (``tests/test_gps.py``)."""
+    (``tests/test_gps.py``); ``gat_edge`` and ``gps_pna_edge``: GAT and
+    GPS-PNA in those forms with the edge lengths as edge features;
+    ``gps_performer``: GPS-GIN with performer attention."""
     cfg = copy.deepcopy(CANARY_CONFIG)
     cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs or CANARIES[name][2]
     arch = cfg["NeuralNetwork"]["Architecture"]
@@ -3440,10 +3730,17 @@ def canary_config(name: str, epochs: int | None = None) -> dict:
         arch["output_heads"]["node"] = {"num_headlayers": 2, "dim_headlayers": [10, 10],
                                         "type": "mlp"}
         cfg["NeuralNetwork"]["Training"]["Optimizer"]["learning_rate"] = 0.01
-    elif name == "gat":
+    elif name in ("gat", "gat_edge"):
         arch.update(mpnn_type="GAT", hidden_dim=8)
-    elif name == "gps_gin":
+    elif name in ("gps_gin", "gps_pna_edge", "gps_performer"):
         arch.update(global_attn_engine="GPS", global_attn_heads=2, pe_dim=2)
+        if name == "gps_pna_edge":
+            arch["mpnn_type"] = "PNA"
+        if name == "gps_performer":
+            arch["global_attn_type"] = "performer"
+    if name in ("gat_edge", "gps_pna_edge"):
+        cfg["Dataset"]["compute_edge_lengths"] = True
+        arch["edge_features"] = ["length"]
     return cfg
 
 
@@ -3452,9 +3749,13 @@ def _model_kind(cfg: dict) -> str:
     follows."""
     arch = cfg["NeuralNetwork"]["Architecture"]
     if arch.get("global_attn_engine"):
-        return "gps"
-    return {v["mpnn_type"]: k for k, v in ARCH_KNOBS.items() if "mpnn_type" in v}.get(
-        arch["mpnn_type"], "gin")
+        if arch.get("global_attn_type") == "performer":
+            return "gps_performer"
+        return "gps_pna_edge" if arch["mpnn_type"] == "PNA" else "gps"
+    if arch.get("edge_features") and arch["mpnn_type"] == "GAT":
+        return "gat_edge"
+    return {v["mpnn_type"]: k for k, v in {**MODELS, **STACKS, **GEOMETRIC}.items()
+            if "mpnn_type" in v}.get(arch["mpnn_type"], "gin")
 
 
 def canary_phase(torch, device: str, card: str = "", epochs: int | None = None,
@@ -4464,14 +4765,18 @@ def _top_batch(kind: str, seed: int):
     return aug, top, torch.bfloat16
 
 
-QUANT_STACK_KINDS = tuple(STACKS) + tuple(GEOMETRIC) + ("mlip", "mlip-painn", "mlip-mace")
+QUANT_STACK_KINDS = (tuple(STACKS) + tuple(GEOMETRIC) + ("mlip", "mlip-painn", "mlip-mace")
+                     + tuple(EDGE_KINDS))
 
 
 def quant_stack_kernel_phase(torch, seed: int, entry: dict | None,
                              kinds=QUANT_STACK_KINDS, device: str = "cuda") -> float:
     """Kernel B6 against its plain version, bit for bit (codes, int32 sums,
     ``y`` at 0 ulp), at every distinct shape the int8 endpoints of the ten
-    newer stacks (SAGE to MACE) and of the three oc20 MLIPs give it: each
+    newer stacks (SAGE to MACE), of the three oc20 MLIPs and of the edge and
+    GPS kinds (``EDGE_KINDS``: GAT's ``lin_edge`` at K = 1, GPS's
+    ``rel_pos_emb``, ``edge_emb`` and ``edge_lin`` at K = 128, the
+    performer's q/k/v/out) give it: each
     Dense call of the served forward (random weights from ``seed``, the
     top bucket; bf16 qm9 stacks as served, fp32 MLIPs), among them
     DimeNet's ``lin_sbf1`` over every triplet slot (4/5 of them pads) and
@@ -4485,7 +4790,9 @@ def quant_stack_kernel_phase(torch, seed: int, entry: dict | None,
 
     err, timed, n_checked = 0.0, [], 0
     picks = {"dimenet": ("lin_sbf1", "lin_rbf1", "out_lin"), "painn": ("update_U", "vec_embed"),
-             "mace": ("radial_out",), "cgcnn": ("lin_f",), "mlip-painn": ("update_U",)}
+             "mace": ("radial_out",), "cgcnn": ("lin_f",), "mlip-painn": ("update_U",),
+             "gat_edge": ("lin_edge",), "gps_pna_edge": ("edge_lin",),
+             "gps_performer": ("attn.q",)}
     log("quant_dense (B6) at the int8 stacks' served shapes, bit for bit (0 ulp), each distinct "
         "(rows, K, N, bias, dtype) once:")
     for kind in kinds:
@@ -4863,6 +5170,7 @@ def kernels_only(torch, seed: int, dev: dict) -> int:
     entries, _ = kernel_phase(torch, top, small, n_max=n_max, mlip_batch=mlip_b)
     geometric_failures: list = []
     geometric_kernel_phase(torch, seed, entries, geometric_failures)
+    edge_kernel_phase(torch, seed, entries, geometric_failures)
     if geometric_failures:
         raise AssertionError(f"kernels not bit for bit: {geometric_failures}")
     cfg = mlip_config(MLIP_EPOCHS)  # augmented as run_training augments it
@@ -4930,6 +5238,7 @@ def main(argv=None) -> int:
         geometric_failures: list = []
         kernel_times.update(geometric_kernel_phase(torch, args.seed, entries,
                                                    geometric_failures))
+        edge_kernel_phase(torch, args.seed, entries, geometric_failures)
         if geometric_failures:
             raise AssertionError(f"kernels not bit for bit: {geometric_failures}")
         from hydragnn_tpu_torch.models import create_model_config
@@ -4960,6 +5269,19 @@ def main(argv=None) -> int:
                                                   card=dev["smi"],
                                                   diagnostics=args.quant_diagnostics,
                                                   comparators=False)
+    for kind in EDGE_KINDS:
+        with timed_phase(phase_s, kind):
+            served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
+            trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
+                                           card=dev["smi"])
+            quantized[kind] = quant_serving_phase(torch, "cuda", args.seed, kind,
+                                                  trained[kind]["model"], trained[kind]["aug"],
+                                                  card=dev["smi"],
+                                                  diagnostics=args.quant_diagnostics,
+                                                  comparators=False)
+    with timed_phase(phase_s, "variants"):
+        variants = {name: variant_phase(torch, args.seed, name, card=dev["smi"])
+                    for name in VARIANTS}
     with timed_phase(phase_s, "superstep"):
         superstep = superstep_phase(torch, args.seed, card=dev["smi"])
     with timed_phase(phase_s, "canaries"):
@@ -4991,7 +5313,7 @@ def main(argv=None) -> int:
     for e in entries:
         name = e["name"]
         if name == "quant_dense":
-            # launches: the quantized serving runs of the thirteen trained
+            # launches: the quantized serving runs of the sixteen trained
             # qm9 models
             e["launches"] = sum(q["launches"][name] for q in quantized.values())
             e["launches_per_served_batch"] = {
@@ -5007,14 +5329,16 @@ def main(argv=None) -> int:
             if e["launches"] <= 0:
                 raise AssertionError("fp8_dense was not launched by certify_fp8_dense")
             continue
-        # launches: the main paths' runs together (the thirteen qm9.json
+        # launches: the main paths' runs together (the sixteen qm9.json
         # run_training runs, the three MLIP run_training runs, the two MD
-        # rollouts); the serving runs' counts and the per-model rates beside
-        # them
+        # rollouts); the serving runs' counts, the per-model rates and the
+        # smaller-depth variants' steps beside them
         e["launches"] = (sum(trained[k]["launches"][name] for k in ARCH_KNOBS)
                          + mlip["launches"][name]
                          + sum(m["launches"][name] for m in mlips.values())
                          + sum(r["launches"][name] for r in ran_md.values()))
+        e["launches_variants"] = sum(v["per_step"][name] + v["per_forward"][name]
+                                     for v in variants.values())
         e["launches_mlip_run_training"] = mlip["launches"][name]
         e["launches_mlip_run_training_geometric"] = {
             a: m["launches"][name] for a, m in mlips.items()}

@@ -9,8 +9,12 @@ flax (``params`` / ``batch_stats``)       port module
 ``graph_convs_{i}/eps``                   ``graph_convs[i].eps`` (GIN)
 ``graph_convs_{i}/nn/dense_{j}``          ``graph_convs[i].nn.dense_{j}`` (GIN)
 ``graph_convs_{i}/{lin_l,lin_r,att}``     ``graph_convs[i].{lin_l,lin_r,att}`` (GAT)
+``graph_convs_{i}/lin_edge``              ``graph_convs[i].lin_edge`` (GAT, edge features)
 ``graph_convs_{i}/local/...``             ``graph_convs[i].local...`` (GPS)
-``graph_convs_{i}/attn/{q,k,v,out}``      ``graph_convs[i].attn.{q,k,v,out}`` (GPS)
+``graph_convs_{i}/attn/{q,k,v,out}``      ``graph_convs[i].attn.{q,k,v,out}`` (GPS, both attentions)
+(``projections``, see below)              ``graph_convs[i].attn.w`` (GPS performer)
+``graph_convs_{i}/rel_pos_emb``           ``graph_convs[i].rel_pos_emb`` (GPS, edge convs)
+``graph_convs_{i}/{edge_emb,edge_lin}``   ``graph_convs[i].{edge_emb,edge_lin}`` (GPS, edge features)
 ``graph_convs_{i}/norm{1,2,3}``           ``graph_convs[i].norm{1,2,3}`` (GPS)
 ``graph_convs_{i}/mlp_{0,1}``             ``graph_convs[i].mlp_{0,1}`` (GPS)
 ``graph_convs_{i}/local_proj``            ``graph_convs[i].local_proj`` (GPS)
@@ -27,6 +31,8 @@ flax (``params`` / ``batch_stats``)       port module
 ``graph_convs_{i}/rbf/freq``              ``graph_convs[i].rbf.freq`` (PNAPlus)
 ``graph_convs_{i}/{rbf_emb,rbf_lin}``     ``graph_convs[i].{rbf_emb,rbf_lin}`` (PNAPlus)
 ``graph_convs_{i}/{lin_f,lin_s,proj}``    ``graph_convs[i].{lin_f,lin_s,proj}`` (CGCNN)
+``graph_convs_{i}/edge_encoder``          ``graph_convs[i].edge_encoder`` (PNAPlus, PNAEq)
+``graph_convs_{i}/message/edge_filter_*`` ``graph_convs[i].message.edge_filter_*`` (PAINN)
 ``{pos_emb,node_emb,node_lin}``           ``{pos_emb,node_emb,node_lin}`` (GPS)
 ``feature_norm_{i}/{scale,bias}``         ``feature_layers[i].{scale,bias}`` (not EGNN, SchNet)
 ``feature_norm_{i}/{mean,var}``           ``feature_layers[i].{mean,var}``
@@ -34,9 +40,13 @@ flax (``params`` / ``batch_stats``)       port module
 ``head{k}_{branch}/dense_{j}``            ``heads_NN[k][branch].dense_{j}``
 ========================================  ======================================================
 
-Inputs are nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
-of the flax variables, or of the matching optax moments); this module
-imports no JAX.
+The other stacks' parameters map the same way, name for name. Inputs are
+nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)`` of the
+flax variables, or of the matching optax moments); this module imports no
+JAX. The GPS performer's fixed projection is no flax variable (the JAX
+package draws it in the forward from a key hashed from the module path):
+it is passed as ``projections``, keyed by that module path
+(``graph_convs_{i}/attn``).
 """
 
 from __future__ import annotations
@@ -119,11 +129,16 @@ def _copy_into(targets: dict[str, torch.Tensor], arrays: dict[str, np.ndarray],
         raise KeyError(f"port model entries without a flax variable: {sorted(missing)}")
 
 
-def load_jax_variables(model: torch.nn.Module, params: dict, batch_stats: dict | None = None):
-    """Copy flax ``params`` (and ``batch_stats``) into ``model`` in place.
-    Every port parameter and buffer must be covered, shapes must match."""
+def load_jax_variables(model: torch.nn.Module, params: dict, batch_stats: dict | None = None,
+                       projections: dict | None = None):
+    """Copy flax ``params`` (and ``batch_stats``, and the GPS performer's
+    ``projections``: ``{"graph_convs_{i}/attn": w [heads, Dh, m]}``) into
+    ``model`` in place. Every port parameter and buffer must be covered,
+    shapes must match."""
     arrays = port_arrays(params)
     arrays.update(port_arrays(batch_stats or {}))
+    for path, w in (projections or {}).items():
+        arrays[_port_name(tuple(path.split("/")) + ("w",))] = np.array(w, np.float32)
     _copy_into(model.state_dict(), arrays, "flax variable")
     return model
 

@@ -134,6 +134,13 @@ class GraphBatch:
         out._csr = self._csr
         return out
 
+    def with_edge_attr(self, edge_attr: torch.Tensor) -> "GraphBatch":
+        """A copy carrying ``edge_attr`` (GPS's edge encodings for its local
+        conv); the id arrays are shared, and so is their CSR cache."""
+        out = self.replace(edge_attr=edge_attr)
+        out._csr = self._csr
+        return out
+
     def edge_vectors(self, recv_index: SegmentIndex | None = None,
                      send_index: SegmentIndex | None = None) -> torch.Tensor:
         """``[E, 3]`` sender-to-receiver position vectors plus the periodic

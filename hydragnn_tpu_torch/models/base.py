@@ -23,8 +23,12 @@ MACE its packed irreps. A conv class may set ``stack_activation = False``
 (no activation after the layer) and ``collect_layer_outputs = True`` (the
 heads read every layer's output, concatenated): MACE sets both.
 
-Not in this slice (they raise ``NotImplementedError``): edge features, GPS
-around another conv than GIN and its ring and performer attention,
+The ten ``EDGE_MODELS`` stacks read edge features (``edge_dim > 0``);
+GPS wraps any conv, with multihead or performer attention
+(``models/gps.py``). The stack's flags (feature norm, activation, collected
+layer outputs) are always the architecture's own conv class's, GPS or not.
+
+Not in this slice (they raise ``NotImplementedError``): GPS ring attention,
 variance outputs, graph-attribute conditioning, ``mlp_per_node`` and
 ``conv`` node heads, multibranch heads.
 """
@@ -34,7 +38,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..config.schema import EDGE_MODELS, ModelSpec
+from ..config.schema import ModelSpec
 from ..graphs import segment
 from ..graphs.graph import GraphBatch
 from .common import MLP, Dense, MaskedBatchNorm, get_activation, get_loss
@@ -81,23 +85,14 @@ def check_spec(spec: ModelSpec) -> None:
     if spec.mpnn_type not in CONV_REGISTRY:
         raise ValueError(f"unknown mpnn_type {spec.mpnn_type!r}; supported: "
                          f"{sorted(CONV_REGISTRY)}")
-    if spec.edge_dim and spec.mpnn_type in EDGE_MODELS:
-        what = "GAT with edge features (lin_edge)" if spec.mpnn_type == "GAT" else \
-            f"{spec.mpnn_type} with edge features"
-        raise _not_in_slice(what, "a later slice (edge features)")
     if spec.global_attn_engine:
         if spec.global_attn_engine != "GPS":
             raise ValueError(f"unknown global_attn_engine {spec.global_attn_engine!r}")
         kind = spec.global_attn_type or "multihead"
         if kind == "ring":
             raise _not_in_slice("GPS ring attention", "a later slice (parallelism)")
-        if kind == "performer":
-            raise _not_in_slice("GPS performer attention", "a later slice (GPS variants)")
-        if kind != "multihead":
+        if kind not in ("multihead", "performer"):
             raise ValueError(f"unknown global_attn_type {spec.global_attn_type!r}")
-        if spec.mpnn_type != "GIN":
-            raise _not_in_slice(f"GPS around {spec.mpnn_type!r}",
-                                "a later slice (GPS with other local convs)")
     if spec.var_output:
         raise _not_in_slice("variance outputs (GaussianNLLLoss)", "a later slice")
     if spec.use_graph_attr_conditioning:
@@ -118,6 +113,12 @@ class HydraModel(nn.Module):
         check_spec(spec)
         self.spec = spec
         conv_cls = CONV_REGISTRY[spec.mpnn_type]
+        # the stack's flags come from the architecture's own conv class,
+        # GPS or not (SchNet, EGNN and the geometric stacks keep no feature
+        # norm under GPS; MACE keeps its collected layer outputs)
+        use_feature_norm = getattr(conv_cls, "feature_norm", True)
+        self.stack_activation = getattr(conv_cls, "stack_activation", True)
+        self.collect_layer_outputs = getattr(conv_cls, "collect_layer_outputs", False)
         hidden = spec.hidden_dim
         self.gps = spec.global_attn_engine == "GPS"
         if self.gps:
@@ -140,9 +141,7 @@ class HydraModel(nn.Module):
         # flax's feature_norm_{i}; a stack without feature norm (EGNN) has none
         self.feature_layers = nn.ModuleList([
             MaskedBatchNorm(widths[i + 1]) for i in range(spec.num_conv_layers)
-        ] if getattr(conv_cls, "feature_norm", True) else [])
-        self.stack_activation = getattr(conv_cls, "stack_activation", True)
-        self.collect_layer_outputs = getattr(conv_cls, "collect_layer_outputs", False)
+        ] if use_feature_norm else [])
         # the heads' input: the last layer's output, or every layer's (MACE)
         hidden = sum(widths[1:]) if self.collect_layer_outputs else widths[-1]
         self.graph_shared = nn.ModuleDict()

@@ -109,8 +109,9 @@ class InteractionPPBlock(nn.Module):
 
 class DimeNetConv(nn.Module):
     """One DimeNet++ layer. Parameters (flax names): ``rbf.freq``,
-    ``lin_node``, ``emb_lin_rbf``, ``emb_lin``, ``interaction`` (its
-    block), ``out_lin_rbf``, ``out_lin_up``, ``out_lin_0`` and ``out_lin``.
+    ``lin_node``, ``emb_lin_rbf``, ``emb_lin`` (which reads the edge
+    features too, where there are any), ``interaction`` (its block),
+    ``out_lin_rbf``, ``out_lin_up``, ``out_lin_0`` and ``out_lin``.
     The spherical Bessel roots and normalisers are float32 buffers outside
     the state dict."""
 
@@ -134,7 +135,8 @@ class DimeNetConv(nn.Module):
         self.rbf = BesselBasis(num_radial, self.cutoff, self.envelope_exponent)
         self.lin_node = Dense(in_features, hidden, generator)
         self.emb_lin_rbf = Dense(num_radial, hidden, generator)
-        self.emb_lin = Dense(3 * hidden, hidden, generator)
+        self.edge_dim = spec.edge_dim
+        self.emb_lin = Dense(3 * hidden + self.edge_dim, hidden, generator)
         self.interaction = InteractionPPBlock(
             hidden, num_radial, num_spherical * num_radial, spec.int_emb_size or 64,
             spec.basis_emb_size or 8, spec.num_before_skip or 1, spec.num_after_skip or 2,
@@ -180,9 +182,11 @@ class DimeNetConv(nn.Module):
                               self.sbf_norms, self.cutoff, self.envelope_exponent)
 
         h = self.lin_node(inv)
-        x_edge = F.silu(self.emb_lin(torch.cat([
-            gather_rows(h, batch.senders, send_idx), gather_rows(h, batch.receivers, recv_idx),
-            F.silu(self.emb_lin_rbf(rbf))], dim=-1)))
+        feats = [gather_rows(h, batch.senders, send_idx), gather_rows(h, batch.receivers, recv_idx),
+                 F.silu(self.emb_lin_rbf(rbf))]
+        if self.edge_dim:
+            feats.append(batch.edge_attr)
+        x_edge = F.silu(self.emb_lin(torch.cat(feats, dim=-1)))
         x_edge = self.interaction(x_edge, rbf, sbf, batch, ji_idx, kj_idx)
 
         x_gated = self.out_lin_rbf(rbf) * x_edge * batch.edge_mask[:, None]

@@ -3,7 +3,7 @@ message passing.
 
 Counterpart of ``hydragnn_tpu/models/egnn.py``. Per layer:
 
-    m_ij = edge_mlp([h_i, h_j, ||d_ij||])
+    m_ij = edge_mlp([h_i, h_j, ||d_ij||, e_ij])   (e_ij: the edge features, if any)
     x_i += mean_j(d_hat_ij * tanh(coord_mlp(m_ij)))   (equivariance on, not the last layer)
     h_i  = node_mlp([h_i, sum_j m_ij])
 
@@ -35,7 +35,7 @@ from .common import MLP, coordinate_update_layers, equivariant_coordinate_update
 
 
 class EGNNConv(nn.Module):
-    """Parameters ``edge_mlp`` (``2 * in + 1 -> hidden -> hidden``, both
+    """Parameters ``edge_mlp`` (``2 * in + 1 + edge_dim -> hidden -> hidden``, both
     activated), ``coord_mlp_mlp_0``/``coord_mlp_mlp_out`` (equivariant
     layers only; the flax names of the JAX package's shared block) and
     ``node_mlp`` (``in + hidden -> hidden -> out``)."""
@@ -49,7 +49,9 @@ class EGNNConv(nn.Module):
         out = out_dim or hidden
         # the reference turns coordinate updates off on the last layer
         self.equivariant = bool(spec.equivariance) and layer < spec.num_conv_layers - 1
-        self.edge_mlp = MLP(2 * in_features + 1, (hidden, hidden), activation=spec.activation,
+        self.edge_dim = spec.edge_dim
+        self.edge_mlp = MLP(2 * in_features + 1 + self.edge_dim, (hidden, hidden),
+                            activation=spec.activation,
                             act_last=True, generator=generator)
         if self.equivariant:
             coordinate_update_layers(self, hidden, "coord_mlp", generator)
@@ -73,8 +75,10 @@ class EGNNConv(nn.Module):
         vec = gather_rows(equiv, r, recv_idx) - gather_rows(equiv, s, send_idx) + batch.edge_shifts
         lengths = torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True) + 1e-18)
         coord_diff = vec / (lengths + 1.0)  # normalize=True, eps=1.0
-        edge_in = torch.cat([gather_rows(inv, s, send_idx), gather_rows(inv, r, recv_idx),
-                             lengths], dim=-1)
+        feats = [gather_rows(inv, s, send_idx), gather_rows(inv, r, recv_idx), lengths]
+        if self.edge_dim:
+            feats.append(batch.edge_attr)
+        edge_in = torch.cat(feats, dim=-1)
         m = self.edge_mlp(edge_in)
         if self.equivariant:
             equiv = equiv + equivariant_coordinate_update(

@@ -16,6 +16,14 @@ backward and the aggregation share. The node features are gathered onto the
 entries with ``gather_rows``, whose backward is the segment-sum kernel over
 the senders' and receivers' views: no atomics, so training on the card is
 reproducible.
+
+With edge features (``edge_dim > 0``) the logit's argument gains
+``lin_edge(e_ij)`` (``in -> 6 * hidden``, with bias). A self loop's edge
+feature is the mean of its node's incoming real edges' (PyG's
+``fill_value='mean'``): the masked features and the edge mask summed by
+receiver with the segment-sum kernel (two launches a layer, as the JAX
+model recomputes them per layer), divided by the degree clamped at 1; the
+``self_loop_pad`` slots get zeros.
 """
 
 from __future__ import annotations
@@ -35,8 +43,9 @@ MASK_FILL = -1e9
 
 
 class GATConv(nn.Module):
-    """Parameters ``lin_l``, ``lin_r`` (``in -> 6 * hidden``) and ``att``
-    ``[6, hidden]`` (flax's lecun-normal over its first axis)."""
+    """Parameters ``lin_l``, ``lin_r`` (``in -> 6 * hidden``), ``att``
+    ``[6, hidden]`` (flax's lecun-normal over its first axis) and, with edge
+    features, ``lin_edge`` (``edge_dim -> 6 * hidden``)."""
 
     def __init__(self, spec: ModelSpec, layer: int, in_features: int,
                  out_dim: int | None = None, generator: torch.Generator | None = None):
@@ -48,6 +57,7 @@ class GATConv(nn.Module):
         self.lin_r = Dense(in_features, width, generator)
         self.att = nn.Parameter(torch.empty(HEADS, self.hidden))
         lecun_normal_(self.att, generator, fan_in=HEADS)
+        self.lin_edge = Dense(spec.edge_dim, width, generator) if spec.edge_dim else None
         self.attn_drop = Dropout(spec.dropout)
 
     @staticmethod
@@ -77,6 +87,8 @@ class GATConv(nn.Module):
         # 93.6 ms on an H100)
         x_ls = gather_rows(x_l, senders, send_index)
         z = x_ls + gather_rows(x_r, receivers, index)
+        if self.lin_edge is not None:
+            z = z + self.lin_edge(self._loop_edge_attr(batch, sl_pad)).reshape(-1, HEADS, f)
         # jax.nn.leaky_relu: where(z >= 0, z, slope * z), whose gradient at
         # z = 0 is 1 (F.leaky_relu's is the slope; z is exactly 0 on every
         # edge between zero-feature nodes while the biases are 0)
@@ -92,6 +104,18 @@ class GATConv(nn.Module):
         out = segment.segment_sum(msg, receivers, n, index=index)  # [N, heads, F]
         out = out.reshape(n, HEADS * f) if self.concat else out.mean(dim=1)
         return out, equiv
+
+    @staticmethod
+    def _loop_edge_attr(batch: GraphBatch, sl_pad: int) -> torch.Tensor:
+        """The extended layout's edge features: the real edges', zeros on
+        the ``sl_pad`` slots, and each node's mean incoming real edge
+        feature on its self loop."""
+        n, ea, mask = batch.num_nodes, batch.edge_attr, batch.edge_mask
+        index = batch.csr("receivers") if ea.is_cuda else None
+        ea_sum = segment.segment_sum(ea * mask[:, None], batch.receivers, n, index=index)
+        deg = segment.segment_sum(mask[:, None], batch.receivers, n, index=index)
+        self_ea = ea_sum / torch.clamp(deg, min=1.0)
+        return torch.cat([ea, ea.new_zeros((sl_pad, ea.shape[1])), self_ea])
 
 
 __all__ = ["GATConv", "HEADS", "NEGATIVE_SLOPE"]

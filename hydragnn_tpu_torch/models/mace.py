@@ -26,7 +26,9 @@ layer:
 
 No feature norm and no activation between layers (``stack_activation =
 False``); the heads read every layer's scalars, concatenated
-(``collect_layer_outputs = True``).
+(``collect_layer_outputs = True``). MACE is among the ``EDGE_MODELS`` but
+reads no edge features, as the JAX package's: ``edge_attr`` (GPS's relative
+encodings included) leaves its outputs unchanged.
 
 On the card each ``l`` block's message sum is one launch of the
 segment-sum kernel over the receivers' CSR view, ``[E, 2l+1, C]``

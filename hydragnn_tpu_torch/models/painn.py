@@ -3,7 +3,8 @@ channel ``s [N, F]`` and a vector channel ``v [N, 3, F]``.
 
 Counterpart of ``hydragnn_tpu/models/painn.py``. Per layer:
 
-* message: a filter ``W(sinc(d)) * cos_cutoff(d)`` gates an MLP of the
+* message: a filter ``W(sinc(d)) * cos_cutoff(d)`` (times
+  ``edge_filter_1(silu(edge_filter_0(e)))`` with edge features) gates an MLP of the
   scalars at the edge's receiver, split into ``(gate_v, gate_edge,
   msg_s)``; ``v_msg = v[receiver] * gate_v + gate_edge * d_hat``; both are
   summed at the edge's *sender* (the reference's ``index_add_(0, edge[:,
@@ -41,22 +42,30 @@ from .radial import cosine_cutoff, sinc_expansion
 
 
 class PainnMessage(nn.Module):
-    """Parameters ``filter_layer`` (``num_radial -> 3 ns``),
-    ``scalar_mlp_0`` (``ns -> ns``) and ``scalar_mlp_1`` (``ns -> 3 ns``)."""
+    """Parameters ``filter_layer`` (``num_radial -> 3 ns``), with edge
+    features ``edge_filter_0`` (``edge_dim -> ns``) and ``edge_filter_1``
+    (``ns -> 3 ns``), ``scalar_mlp_0`` (``ns -> ns``) and ``scalar_mlp_1``
+    (``ns -> 3 ns``)."""
 
     def __init__(self, node_size: int, num_radial: int, cutoff: float,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, edge_dim: int = 0):
         super().__init__()
         self.node_size = node_size
         self.num_radial = num_radial
         self.cutoff = cutoff
+        self.edge_dim = edge_dim
         self.filter_layer = Dense(num_radial, 3 * node_size, generator)
+        if edge_dim:
+            self.edge_filter_0 = Dense(edge_dim, node_size, generator)
+            self.edge_filter_1 = Dense(node_size, 3 * node_size, generator)
         self.scalar_mlp_0 = Dense(node_size, node_size, generator)
         self.scalar_mlp_1 = Dense(node_size, 3 * node_size, generator)
 
     def forward(self, s, v, batch: GraphBatch, dist, unit_vec, recv_idx, send_idx):
         filter_w = self.filter_layer(sinc_expansion(dist, self.num_radial, self.cutoff))
         filter_w = filter_w * cosine_cutoff(dist, self.cutoff)[:, None]
+        if self.edge_dim:
+            filter_w = filter_w * self.edge_filter_1(F.silu(self.edge_filter_0(batch.edge_attr)))
         scalar_out = self.scalar_mlp_1(F.silu(self.scalar_mlp_0(s)))
         filter_out = filter_w * gather_rows(scalar_out, batch.receivers, recv_idx)
         gate_v, gate_edge, msg_s = torch.split(filter_out, self.node_size, dim=-1)
@@ -124,7 +133,7 @@ class PaiNNConv(nn.Module):
         self.last_layer = layer >= spec.num_conv_layers - 1
         self.node_size = in_features
         self.message = PainnMessage(in_features, spec.num_radial or 6,
-                                    float(spec.radius or 5.0), generator)
+                                    float(spec.radius or 5.0), generator, spec.edge_dim)
         self.update = PainnUpdate(in_features, self.last_layer, generator)
         output_embeddings(self, in_features, out_dim or spec.hidden_dim, self.last_layer,
                           generator)

@@ -90,8 +90,9 @@ def degree_scaled_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
 
 
 class PNAConv(nn.Module):
-    """Parameters ``pre_nn`` (``2 in -> in``), ``post_nn`` (``17 in ->
-    hidden``: the input and its 16 scaled aggregates) and ``lin``."""
+    """Parameters ``pre_nn`` (``2 in + edge_dim -> in``: both ends' rows and
+    the edge features), ``post_nn`` (``17 in -> hidden``: the input and its
+    16 scaled aggregates) and ``lin``."""
 
     def __init__(self, spec: ModelSpec, layer: int, in_features: int,
                  out_dim: int | None = None, generator: torch.Generator | None = None):
@@ -100,7 +101,8 @@ class PNAConv(nn.Module):
         f = in_features
         self.delta = log_degree_mean(spec.pna_deg or [0, 1])
         self.avg_deg_lin = avg_degree_linear(spec.pna_deg or [0, 1])
-        self.pre_nn = Dense(2 * f, f, generator)
+        self.edge_dim = spec.edge_dim
+        self.pre_nn = Dense(2 * f + self.edge_dim, f, generator)
         self.post_nn = Dense(f + len(AGGREGATORS) * len(SCALERS) * f, hidden, generator)
         self.lin = Dense(hidden, hidden, generator)
 
@@ -110,7 +112,8 @@ class PNAConv(nn.Module):
 
     def forward(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
                 train: bool = False, generator: torch.Generator | None = None):
-        msg = self.pre_nn(torch.cat(gather_ends(inv, batch), dim=-1))
+        ends = gather_ends(inv, batch)
+        msg = self.pre_nn(torch.cat([*ends, batch.edge_attr] if self.edge_dim else ends, dim=-1))
         agg = degree_scaled_aggregate(
             msg, batch.receivers, batch.edge_mask, batch.num_nodes, self.delta,
             avg_deg_lin=self.avg_deg_lin,

@@ -56,7 +56,8 @@ class PNAEqConv(nn.Module):
         self.rbf = BesselBasis(num_radial, float(spec.radius or 5.0),
                                spec.envelope_exponent or 5)
         self.rbf_emb = Dense(num_radial, ns, generator)
-        self.pre_nn = Dense(3 * ns, ns, generator)
+        self.edge_encoder = Dense(spec.edge_dim, ns, generator) if spec.edge_dim else None
+        self.pre_nn = Dense((4 if spec.edge_dim else 3) * ns, ns, generator)
         self.scalar_mlp_0 = Dense(ns, ns, generator)
         self.scalar_mlp_1 = Dense(ns, ns, generator)
         self.scalar_mlp_2 = Dense(ns, 3 * ns, generator)
@@ -79,9 +80,11 @@ class PNAEqConv(nn.Module):
         unit_vec = vec / (dist[:, None] + 1e-9)
         rbf = self.rbf(dist)
 
-        h = torch.cat([gather_rows(inv, batch.senders, send_idx),
-                       gather_rows(inv, batch.receivers, recv_idx),
-                       torch.tanh(self.rbf_emb(rbf))], dim=-1)
+        feats = [gather_rows(inv, batch.senders, send_idx),
+                 gather_rows(inv, batch.receivers, recv_idx), torch.tanh(self.rbf_emb(rbf))]
+        if self.edge_encoder is not None:
+            feats.append(self.edge_encoder(batch.edge_attr))
+        h = torch.cat(feats, dim=-1)
         m = self.scalar_mlp_0(self.pre_nn(h))
         m = self.scalar_mlp_2(F.silu(self.scalar_mlp_1(torch.tanh(m))))
         m = m * self.rbf_lin(rbf)

@@ -34,8 +34,8 @@ from .radial import GaussianSmearing, cosine_cutoff, shifted_softplus
 
 
 class SchNetConv(nn.Module):
-    """Parameters (the flax names) ``filter1`` (``num_gaussians ->
-    num_filters``), ``filter2`` (``num_filters -> num_filters``), ``lin1``
+    """Parameters (the flax names) ``filter1`` (``num_gaussians + edge_dim
+    -> num_filters``: the Gaussian expansion, then the edge features), ``filter2`` (``num_filters -> num_filters``), ``lin1``
     (``in -> num_filters``, no bias), ``lin2`` (``num_filters -> hidden``)
     and, on equivariant layers, ``coord_mlp_0``/``coord_mlp_out``."""
 
@@ -49,7 +49,8 @@ class SchNetConv(nn.Module):
         self.cutoff = float(spec.radius or 5.0)
         self.equivariant = bool(spec.equivariance) and layer < spec.num_conv_layers - 1
         self.smearing = GaussianSmearing(0.0, self.cutoff, spec.num_gaussians or 50)
-        self.filter1 = Dense(spec.num_gaussians or 50, nf, generator)
+        self.edge_dim = spec.edge_dim
+        self.filter1 = Dense((spec.num_gaussians or 50) + self.edge_dim, nf, generator)
         self.filter2 = Dense(nf, nf, generator)
         self.lin1 = Dense(in_features, nf, generator, use_bias=False)
         self.lin2 = Dense(nf, hidden, generator)
@@ -73,7 +74,10 @@ class SchNetConv(nn.Module):
 
         vec = gather_rows(equiv, r, recv_idx) - gather_rows(equiv, s, send_idx) + batch.edge_shifts
         dist = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-12)
-        w = self.filter2(shifted_softplus(self.filter1(self.smearing(dist))))
+        rbf = self.smearing(dist)
+        if self.edge_dim:
+            rbf = torch.cat([rbf, batch.edge_attr], dim=-1)
+        w = self.filter2(shifted_softplus(self.filter1(rbf)))
         w = w * cosine_cutoff(dist, self.cutoff)[:, None]
 
         x = self.lin1(inv)

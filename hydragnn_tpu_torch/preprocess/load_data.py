@@ -8,8 +8,11 @@ selected per ``Variables_of_interest``, min-max normalised, split and
 wrapped in loaders over one shared pad-bucket table; GPS configurations
 get Laplacian positional encodings and, where the user capped GPS's
 dense-attention width, loaders that certify batches at that cap; DimeNet
-configurations get their triplet indices (``graphs/triplets.py``).
-Raw-format readers, edge descriptors and subsampling come in later slices.
+configurations get their triplet indices (``graphs/triplets.py``). The
+geometric transforms of ``transforms.py`` run in the JAX package's order:
+rotation before the radius graph; edge lengths (globally normalised),
+spherical and point-pair features; then the variables of interest and the
+stratified subsample. Raw-format readers come in a later slice.
 """
 
 from __future__ import annotations
@@ -185,11 +188,11 @@ def dataset_loading_and_splitting(config: dict, samples=None):
     arch = config["NeuralNetwork"].get("Architecture", {})
     voi = config["NeuralNetwork"].get("Variables_of_interest", {})
     if ds_cfg.get("rotational_invariance"):
-        raise _later("Dataset.rotational_invariance")
-    if ds_cfg.get("compute_edge_lengths") or any((ds_cfg.get("Descriptors") or {}).values()):
-        raise _later("edge-length and geometric descriptors")
-    if voi.get("subsample_percentage"):
-        raise _later("Variables_of_interest.subsample_percentage")
+        # before the radius graph, as the reference rotates before it
+        # builds the edges
+        from .transforms import normalize_rotation
+
+        samples = [normalize_rotation(s) for s in samples]
     radius = arch.get("radius")
     if radius and any(s.num_edges == 0 and s.num_nodes > 1 for s in samples):
         from ..graphs.radius import build_radius_graph
@@ -200,7 +203,30 @@ def dataset_loading_and_splitting(config: dict, samples=None):
                     s, float(radius), max_neighbours=arch.get("max_neighbours"),
                     ensure_connected=bool(arch.get("ensure_connected", True)),
                 )
+    # edge_attr columns: the length (normalised by the dataset's largest
+    # entry), then the spherical and point-pair descriptors
+    desc_cfg = ds_cfg.get("Descriptors", {}) or {}
+    if ds_cfg.get("compute_edge_lengths"):
+        from .transforms import attach_edge_lengths, normalize_edge_lengths_global
+
+        for s in samples:
+            attach_edge_lengths(s)
+        normalize_edge_lengths_global(samples)
+    if desc_cfg.get("spherical_coordinates"):
+        from .transforms import spherical_features
+
+        for s in samples:
+            spherical_features(s)
+    if desc_cfg.get("point_pair_features"):
+        from .transforms import point_pair_features
+
+        for s in samples:
+            point_pair_features(s)
     samples = apply_variables_of_interest(samples, config)
+    if voi.get("subsample_percentage"):
+        from .transforms import stratified_subsample
+
+        samples = stratified_subsample(samples, float(voi["subsample_percentage"]))
     if arch.get("mpnn_type") == "DimeNet":
         # DimeNet reads the angle (triplet) indices, computed on the host
         from ..graphs.triplets import attach_triplets

@@ -2,12 +2,16 @@
 the port (on the CPU) for the given conv stacks, one JSON line each:
 
     JAX_PLATFORMS=cpu python tests/canary_readings.py SAGE MFC SchNet PNA PNAPlus CGCNN
+    JAX_PLATFORMS=cpu python tests/canary_readings.py gat_edge gps_pna_edge gps_performer
 
-The configuration is ``tests/test_training_e2e.py::test_invariant_arch_convergence``'s
+A stack's configuration is ``tests/test_training_e2e.py::test_invariant_arch_convergence``'s
 (``run_arch_e2e`` with ``multihead=True`` and the stack's ``ARCH_OVERRIDES``:
 4 heads, batch 16, lr 0.01, 100 epochs, 500 samples of seed 7), and each
 line holds every head's RMSE and sample MAE beside the stack's
-``THRESHOLDS``. The tests gate these numbers; this script only reads them.
+``THRESHOLDS``. A lower-case name is one of ``chip_smoke.CANARIES``
+(``chip_smoke.canary_config``: its samples, data seed, epochs and
+thresholds; GAT with the edge lengths, GPS-PNA with the edge lengths, the
+GPS performer). The tests gate these numbers; this script only reads them.
 """
 
 from __future__ import annotations
@@ -34,27 +38,46 @@ def readings(trues, preds) -> tuple[list, list]:
     return rmse, mae
 
 
-def jax_canary(cfg) -> tuple[list, list]:
+def jax_canary(cfg, n: int = 500, seed: int = 7) -> tuple[list, list]:
     import hydragnn_tpu
     from hydragnn_tpu.datasets import deterministic_graph_data
 
-    samples = deterministic_graph_data(number_configurations=500, seed=7)
-    state, model, _ = hydragnn_tpu.run_training(copy.deepcopy(cfg), samples=samples)
-    _, _, trues, preds = hydragnn_tpu.run_prediction(copy.deepcopy(cfg), state, model,
-                                                     samples=samples)
+    # fresh samples for each call: preprocessing mutates them (the edge
+    # lengths are appended)
+    state, model, _ = hydragnn_tpu.run_training(
+        copy.deepcopy(cfg), samples=deterministic_graph_data(number_configurations=n, seed=seed))
+    _, _, trues, preds = hydragnn_tpu.run_prediction(
+        copy.deepcopy(cfg), state, model,
+        samples=deterministic_graph_data(number_configurations=n, seed=seed))
     return readings(trues, preds)
 
 
-def port_canary(cfg) -> tuple[list, list]:
+def port_canary(cfg, n: int = 500, seed: int = 7) -> tuple[list, list]:
     from hydragnn_tpu_torch import run_prediction, run_training
     from hydragnn_tpu_torch.datasets import deterministic_graph_data
 
     with tempfile.TemporaryDirectory() as tmp:
         state, _, _ = run_training(copy.deepcopy(cfg), device="cpu", path=tmp,
-                                   samples=deterministic_graph_data(500, seed=7))
+                                   samples=deterministic_graph_data(n, seed=seed))
     _, _, trues, preds = run_prediction(copy.deepcopy(cfg), state, device="cpu",
-                                        samples=deterministic_graph_data(500, seed=7))
+                                        samples=deterministic_graph_data(n, seed=seed))
     return readings(trues, preds)
+
+
+def chip_smoke_canary(name: str) -> None:
+    """One of ``chip_smoke.CANARIES`` in both packages, its held heads
+    beside its thresholds."""
+    import chip_smoke
+
+    n, seed, _, rmse_max, mae_max, held = chip_smoke.CANARIES[name]
+    cfg = chip_smoke.canary_config(name)
+    for package, fn in (("hydragnn_tpu", jax_canary), ("hydragnn_tpu_torch (cpu)",
+                                                        port_canary)):
+        t0 = time.perf_counter()
+        rmse, mae = fn(cfg, n, seed)
+        print(json.dumps({"canary": name, "package": package, "rmse": rmse[:held],
+                          "mae": mae[:held], "thresholds": [rmse_max, mae_max],
+                          "seconds": time.perf_counter() - t0}), flush=True)
 
 
 def main(stacks) -> None:
@@ -68,6 +91,9 @@ def main(stacks) -> None:
     from test_training_e2e import THRESHOLDS
 
     for stack in stacks:
+        if stack.islower():
+            chip_smoke_canary(stack)
+            continue
         cfg = stack_config(stack)
         cfg["NeuralNetwork"]["Training"]["num_epoch"] = 100
         for package, fn in (("hydragnn_tpu", jax_canary), ("hydragnn_tpu_torch (cpu)",

@@ -271,10 +271,25 @@ def test_gat_cpu_serving_matches_run_prediction(setup):
         assert np.array_equal(got, want), f"head {ihead}: served != run_prediction"
 
 
-def test_gat_with_edge_features_waits_for_its_slice(setup):
-    from hydragnn_tpu_torch.models import create_model_config
+def test_gat_with_edge_features_waits_for_its_slice():
+    """GAT with edge features is ported (the id is that of the refusal it
+    replaced): on the 4-head configuration with the edge lengths as edge
+    features, ``lin_edge`` and the self loops' mean incoming edge feature
+    give the JAX package's eval-mode forward and every parameter gradient
+    (fp32, at this file's tolerance). ``tests/test_torch_edge_features.py``
+    holds bf16 and the canary configuration."""
+    from test_torch_edge_features import Setup as EdgeSetup
 
-    aug = copy.deepcopy(setup.aug)
-    aug["NeuralNetwork"]["Architecture"]["edge_features"] = ["length"]
-    with pytest.raises(NotImplementedError, match="lin_edge"):
-        create_model_config(aug, device="cpu")
+    cfg = gat_config()
+    cfg["Dataset"]["compute_edge_lengths"] = True
+    cfg["NeuralNetwork"]["Architecture"]["edge_features"] = ["length"]
+    s = EdgeSetup(cfg, n_samples=32)
+    assert s.spec.edge_dim == 1 and len(s.spec.output_type) == 4
+    port, want = s.port("fp32"), s.jax("fp32")
+    kinds = s.spec.output_type
+    for g, w in zip(_real_rows(port["outputs"], s.batch, kinds),
+                    _real_rows(want["outputs"], s.batch, kinds)):
+        np.testing.assert_allclose(g, w, **TOL)
+    for name, g in port["grads"].items():
+        np.testing.assert_allclose(g, want["grads"][name], rtol=1e-4, atol=1e-6, err_msg=name)
+    assert np.abs(port["grads"]["graph_convs.0.lin_edge.weight"]).max() > 0

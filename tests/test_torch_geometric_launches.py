@@ -1,13 +1,15 @@
 """``chip_smoke.py``'s exact launch counts of the geometric stacks, held here
 against what the CPU route calls: on the CPU the wrappers take their plain
-versions and count nothing, so each test wraps the two device-routed
-launchers (``_gather_scatter`` for B1 and its transposed launch,
-``_segment_sum`` for B2) and counts their calls, which are the launches the
-card makes on the same step. The card gates the same counts
+versions and count nothing, so each test counts the calls of the
+device-routed launchers (``_gather_scatter`` for B1 and its transposed
+launch, ``_segment_sum`` for B2, ``_segment_softmax`` and
+``_masked_softmax`` for B3 and B4) through ``chip_smoke.cpu_route_calls``:
+the launches the card makes on the same step. The card gates the same counts
 (``chip_smoke.py`` phases 4, 5 and 8; ``tests/test_torch_capture_gpu.py``).
 
 The qm9 stacks at ``chip_smoke.GEOMETRIC``'s published widths (hidden 32 or
-64, 4 conv layers) on 8 QM9-like molecules, a bf16 predict and train step;
+64, 4 conv layers) and ``chip_smoke.EDGE_KINDS`` (edge features, GPS-PNA,
+the performer) on 8 QM9-like molecules, a bf16 predict and train step;
 the PAINN and MACE MLIPs of ``chip_smoke.mlip_config`` (3 layers) on 4 LJ
 cells, a train and an eval step.
 """
@@ -21,38 +23,25 @@ import chip_smoke as cs
 import torch_port_util  # noqa: F401  (one torch thread)
 from hydragnn_tpu_torch.graphs.batching import collate
 from hydragnn_tpu_torch.models import create_model_config
-from hydragnn_tpu_torch.ops import fused_scatter as fs
 from hydragnn_tpu_torch.train.step import create_train_state
 
 
 @pytest.fixture
-def calls(monkeypatch):
-    """Counts of the launchers' calls by entry point, as ``fs.LAUNCHES``
-    counts the card's launches."""
-    counts = dict.fromkeys(cs.KERNELS, 0)
-    gather_scatter, segment_sum = fs._gather_scatter, fs._segment_sum
+def calls():
+    """Counts of the launchers' calls by entry point
+    (``chip_smoke.cpu_route_calls``), as ``fused_scatter.LAUNCHES`` counts the card's
+    launches; ``take()`` returns them and starts again from 0."""
+    with cs.cpu_route_calls() as counts:
+        def take():
+            out = dict(counts)
+            for k in counts:
+                counts[k] = 0
+            return out
 
-    def counted_gather_scatter(*args, **kwargs):
-        counts[args[-1]] += 1
-        return gather_scatter(*args, **kwargs)
-
-    def counted_segment_sum(*args, **kwargs):
-        counts["segment_sum"] += 1
-        return segment_sum(*args, **kwargs)
-
-    monkeypatch.setattr(fs, "_gather_scatter", counted_gather_scatter)
-    monkeypatch.setattr(fs, "_segment_sum", counted_segment_sum)
-
-    def take():
-        out = dict(counts)
-        for k in counts:
-            counts[k] = 0
-        return out
-
-    return take
+        yield take
 
 
-@pytest.mark.parametrize("kind", sorted(cs.GEOMETRIC))
+@pytest.mark.parametrize("kind", sorted(cs.GEOMETRIC) + sorted(cs.EDGE_KINDS))
 def test_qm9_stack_launches_are_chip_smokes(kind, calls):
     from hydragnn_tpu_torch.train.step import make_predict_step, make_train_step
 
@@ -64,7 +53,8 @@ def test_qm9_stack_launches_are_chip_smokes(kind, calls):
     make_predict_step(model, torch.bfloat16)(batch)
     assert calls() == cs.launches_per_forward(kind, layers)
     state = create_train_state(model, aug["NeuralNetwork"]["Training"]["Optimizer"])
-    make_train_step(torch.bfloat16)(state, batch)
+    # a fresh batch: the layouts the predict step cached are inference tensors
+    make_train_step(torch.bfloat16)(state, collate(loaders[0].samples[:8], loaders[0].pad))
     assert calls() == cs.launches_per_train_step(kind, layers)
 
 

@@ -281,9 +281,15 @@ def test_server_refuses_request_without_positional_encodings(setup):
 
 
 @pytest.mark.parametrize("override,what", [
-    ({"global_attn_type": "performer"}, "performer"),
+    # performer attention and GPS around GAT are ported
+    # (tests/test_torch_gps_performer.py, tests/test_torch_gps_variants.py);
+    # these ids now point at what stays refused around them: ring attention
+    # (parallelism) and graph-attribute conditioning
+    pytest.param({"global_attn_type": "performer", "use_graph_attr_conditioning": True},
+                 "conditioning", id="override0-performer"),
     ({"global_attn_type": "ring"}, "ring"),
-    ({"mpnn_type": "GAT"}, "GPS around 'GAT'"),
+    pytest.param({"mpnn_type": "GAT", "global_attn_type": "ring"}, "ring",
+                 id="override2-GPS around 'GAT'"),
 ])
 def test_gps_variants_wait_for_their_slices(setup, override, what):
     from hydragnn_tpu_torch.models import create_model_config

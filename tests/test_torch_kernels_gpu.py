@@ -1,7 +1,8 @@
 """The port's CUDA kernels (segment reductions, softmaxes, the cell list, the
 int8 and fp8 dense layers) against their plain PyTorch versions, on the
-card, at the main paths' layouts (DimeNet's triplet mixing and the
-geometric stacks' flattened 3-D messages included). Every test here is ``gpu``-marked and
+card, at the main paths' layouts (DimeNet's triplet mixing, the
+geometric stacks' flattened 3-D messages, the performer's per-graph sums,
+GAT's self-loop mean and the edge Dense layers included). Every test here is ``gpu``-marked and
 skips without a CUDA device.
 
 The file imports neither JAX nor ``tests/conftest.py``'s helpers, so it
@@ -432,13 +433,20 @@ def test_masked_softmax_backward_on_card():
      {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 4, "segment_sum": 1,
       "segment_softmax": 0, "masked_softmax": 4, "cell_list": 0, "quant_dense": 0,
       "fp8_dense": 0}),
-], ids=["GAT", "GPS-GIN"])
+    ({"global_attn_engine": "GPS", "global_attn_type": "performer", "global_attn_heads": 4,
+      "pe_dim": 4, "max_graph_nodes": 32},
+     {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 4, "segment_sum": 17,
+      "segment_softmax": 0, "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
+      "fp8_dense": 0}),
+], ids=["GAT", "GPS-GIN", "GPS-performer"])
 def test_attention_train_step_launches_on_card(batch, arch, want):
     """One bf16 train step of the qm9.json GAT (4 softmaxes; 4 aggregations
     + 1 pooling forward, and 4 softmax backwards and 8 gather backwards, by
     sender and by receiver, on the segment-sum kernel)
     and GPS-GIN (4 + 4 gather-scatter: layer 0's input is the learned
-    embedding; 4 masked softmaxes; 1 pooling)."""
+    embedding; 4 masked softmaxes; 1 pooling); GPS-GIN with performer
+    attention (the same gather-scatters; per layer the per-graph kv and z
+    sums and their gathers' backward sums, and 1 pooling)."""
     from hydragnn_tpu_torch.preprocess.encodings import laplacian_pe
     from hydragnn_tpu_torch.train.step import make_train_step
 
@@ -742,6 +750,11 @@ def test_second_derivatives_match_plain_on_card(batch, op):
 # contiguous run of 16-byte vectors; a ragged tile ends in single values)
 QUANT_SHAPES = [(1864, 1, 64), (1864, 64, 64), (64, 64, 1), (1864, 384, 384), (37, 24, 16),
                 (40, 1200, 300), (37, 129, 9), (37, 1, 5)]
+# edge features and GPS at the qm9 top bucket (E = 17,792, N = 1,864): GAT's
+# lin_edge over the extended layout's 19,712 entries (K = 1, N = 384), GPS's
+# rel_pos_emb (K = 4) and edge_lin (K = 128) over the edges; the
+# performer's q/k/v/out are the 64 x 64 layers above
+EDGE_QUANT_SHAPES = [(19712, 1, 384), (17792, 4, 64), (17792, 128, 64)]
 
 
 def _ulp_close(got, want):
@@ -751,7 +764,7 @@ def _ulp_close(got, want):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", QUANT_SHAPES + EDGE_QUANT_SHAPES, ids=str)
 def test_quant_dense_kernel_matches_plain_on_card(shape, dtype):
     """Codes and int32 accumulators equal, ``y`` within 1 ulp, two launches
     bit-identical, one launch counted per call, bias optional."""
@@ -1090,6 +1103,33 @@ def test_flattened_3d_segment_sum_is_bit_for_bit_on_card(batch, dtype, ids_name)
     assert got.shape == (n, 3, 32) and got.dtype == dtype
     want = emulate(torch, x.reshape(e, 96).float(), ids.cpu(), n).to(dtype).reshape(n, 3, 32)
     assert torch.equal(bits(torch, got.cpu()), bits(torch, want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", ["performer_kv", "performer_z", "gat_self_loop_mean"])
+def test_edge_and_performer_sums_are_bit_for_bit_on_card(batch, dtype, case):
+    """B2 at the shapes edge features and the performer give it: the
+    performer's per-graph ``kv`` ``[N, 4 * 16 * 16]`` and ``z`` ``[N, 4 * 16]``
+    by graph, GAT's self-loop mean ``[E, 1]`` by receiver; bit-equal to the
+    fixed-order emulation on every row and to the CPU plain version on rows
+    of at most ``PIECE_EDGES`` entries, one launch each."""
+    emulate, bits = _csr_emulation()
+    dev = _cuda_or_skip()
+    b = batch.to(dev)
+    ids, rows, field, c = {"performer_kv": (b.batch, b.num_graphs, "batch", 1024),
+                           "performer_z": (b.batch, b.num_graphs, "batch", 64),
+                           "gat_self_loop_mean": (b.receivers, b.num_nodes, "receivers", 1)}[case]
+    x = torch.randn(ids.shape[0], c, generator=torch.Generator().manual_seed(37)).to(dtype)
+    before = fs.LAUNCHES["segment_sum"]
+    got = fs.fused_segment_sum(x.to(dev), ids, rows, index=b.csr(field))
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["segment_sum"] == before + 1
+    got = got.cpu()
+    ids = ids.cpu()
+    single = torch.bincount(ids.long(), minlength=rows) <= fs.PIECE_EDGES
+    assert torch.equal(bits(torch, got)[single], bits(torch, fs.plain_segment_sum(x, ids, rows))[
+        single])
+    assert torch.equal(bits(torch, got), bits(torch, emulate(torch, x.float(), ids, rows).to(dtype)))
 
 
 def test_segment_sum_is_one_launch_and_replays_under_a_cuda_graph():

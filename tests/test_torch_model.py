@@ -201,18 +201,22 @@ def test_dense_promotes_like_flax():
 
 
 @pytest.mark.parametrize("override,what", [
-    # the geometric stacks are ported; their edge features are not (the ids
-    # are those of the cases these replaced, the stacks themselves)
-    pytest.param({"mpnn_type": "PAINN", "edge_features": ["length"]},
-                 "PAINN with edge features", id="override0-mpnn_type"),
-    # GPS multihead attention is ported; its performer variant is not
-    ({"global_attn_engine": "GPS", "global_attn_type": "performer"}, "GPS"),
+    # edge features, GPS performer attention and GPS around every conv are
+    # ported (tests/test_torch_edge_features.py, test_torch_gps_variants.py,
+    # test_torch_gps_performer.py); these ids now point at what stays
+    # refused: ring attention (parallelism) and graph-attribute
+    # conditioning, around the stacks the ids name
+    pytest.param({"mpnn_type": "PAINN", "edge_features": ["length"],
+                  "global_attn_engine": "GPS", "global_attn_type": "ring"},
+                 "GPS ring attention", id="override0-mpnn_type"),
+    pytest.param({"global_attn_engine": "GPS", "global_attn_type": "ring"},
+                 "GPS ring attention", id="override1-GPS"),
     ({"use_graph_attr_conditioning": True}, "conditioning"),
-    # DimeNet is ported; GPS around it is not
-    pytest.param({"mpnn_type": "DimeNet", "global_attn_engine": "GPS"},
-                 "GPS around 'DimeNet'", id="override3-DimeNet"),
-    # PNA is ported; its edge features are not
-    ({"mpnn_type": "PNA", "edge_features": ["length"]}, "PNA with edge features"),
+    pytest.param({"mpnn_type": "DimeNet", "global_attn_engine": "GPS",
+                  "global_attn_type": "ring"}, "GPS ring attention", id="override3-DimeNet"),
+    pytest.param({"mpnn_type": "PNA", "edge_features": ["length"],
+                  "use_graph_attr_conditioning": True}, "conditioning",
+                 id="override4-PNA with edge features"),
 ])
 def test_outside_the_slice_raises(setup, override, what):
     from hydragnn_tpu_torch.models import create_model_config

@@ -98,12 +98,173 @@ def assert_within_jax_bf16_gap(got, want, want_fp32, rtol: float, atol: float, w
     return float((np.abs(got - want) / bound).max())
 
 
+def flax_variables_from_port(port_model, jmodel, jbatch, jitter_seed: int | None = None):
+    """The JAX model's ``{"params", "batch_stats"}`` holding the port model's
+    values: the flax tree's structure from ``jax.eval_shape`` of the JAX
+    init (no compile), each leaf from the port's state dict by
+    ``convert``'s name map (kernels transposed). With ``jitter_seed``,
+    every parameter moved by a seeded ``N(0, 0.05)`` and the running
+    statistics drawn as :func:`random_batch_stats` draws them."""
+    import jax
+    import jax.numpy as jnp
+
+    from hydragnn_tpu_torch.convert import _port_name
+
+    shapes = jax.eval_shape(lambda b: jmodel.init(jax.random.PRNGKey(0), b),
+                            jax.tree.map(jnp.asarray, jbatch))
+    state = {k: v.detach().cpu().numpy() for k, v in port_model.state_dict().items()}
+    rng = np.random.default_rng(jitter_seed)
+
+    def fill(path, leaf):
+        keys = tuple(p.key for p in path)
+        a = state[_port_name(keys[1:])]
+        a = np.array(a.T if keys[-1] == "kernel" else a, np.float32)
+        assert a.shape == tuple(leaf.shape), (keys, a.shape, leaf.shape)
+        if jitter_seed is not None:
+            if keys[0] == "params":
+                a = a + rng.normal(scale=0.05, size=a.shape).astype(np.float32)
+            elif keys[-1] == "mean":
+                a = rng.normal(scale=0.1, size=a.shape).astype(np.float32)
+            else:
+                a = rng.uniform(0.5, 2.0, size=a.shape).astype(np.float32)
+        return a
+
+    tree = jax.tree_util.tree_map_with_path(fill, shapes)
+    return {"params": numpy_tree(tree["params"]),
+            "batch_stats": numpy_tree(tree.get("batch_stats", {}))}
+
+
+def performer_projections(jmodel, jbatch, variables, dtype):
+    """The GPS performer's fixed projections as the JAX package draws them
+    in a forward at ``dtype``: ``{"graph_convs_{i}/attn": w}``, each drawn
+    from the key of its module path at the dtype of that layer's features
+    (recorded from an abstract trace of the forward)."""
+    import zlib
+
+    import jax
+    import jax.numpy as jnp
+
+    from hydragnn_tpu.train.step import _cast_floats
+
+    drawn = []
+    real_normal = jax.random.normal
+
+    def spy(key, shape=(), dtype=jnp.float32):
+        drawn.append((tuple(shape), jnp.dtype(dtype)))
+        return real_normal(key, shape, dtype)
+
+    jax.random.normal = spy
+    try:
+        jax.eval_shape(lambda p, b: jmodel.apply(
+            {"params": _cast_floats(p, dtype), "batch_stats": variables["batch_stats"]},
+            _cast_floats(b, dtype)), variables["params"], jax.tree.map(jnp.asarray, jbatch))
+    finally:
+        jax.random.normal = real_normal
+    out = {}
+    for i, (shape, dt) in enumerate(drawn):
+        path = f"graph_convs_{i}/attn"
+        seed = zlib.crc32(path.encode()) & 0x7FFFFFFF
+        out[path] = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape, dt),
+                               np.float32)
+    return out
+
+
+def jax_reference(jmodel, variables, jbatch, dtype, eval_outputs: bool = True):
+    """One jitted JAX evaluation at ``dtype`` (the steps' casts): the
+    train-mode outputs, loss, per-task losses, parameter gradients (port
+    names) and updated running statistics (port names), and with
+    ``eval_outputs`` the eval-mode outputs (``outputs``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from hydragnn_tpu.train.step import _cast_floats
+    from hydragnn_tpu_torch.convert import port_arrays
+
+    def both(params, stats, b):
+        out = (jmodel.apply({"params": _cast_floats(params, dtype), "batch_stats": stats},
+                            _cast_floats(b, dtype)) if eval_outputs else [])
+
+        def loss_fn(p):
+            o, upd = jmodel.apply({"params": _cast_floats(p, dtype), "batch_stats": stats},
+                                  _cast_floats(b, dtype), train=True, mutable=["batch_stats"])
+            o = _cast_floats(o, jnp.float32)
+            tot, tasks = jmodel.loss(o, b)
+            return tot, (o, jnp.stack(tasks), upd["batch_stats"])
+
+        (tot, (train_out, tasks, upd)), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        return _cast_floats(out, jnp.float32), train_out, tot, tasks, g, upd
+
+    out, train_out, tot, tasks, grads, stats = jax.jit(both)(
+        variables["params"], variables["batch_stats"], jax.tree.map(jnp.asarray, jbatch))
+    return {"outputs": [np.asarray(o) for o in out],
+            "train_outputs": [np.asarray(o) for o in train_out], "loss": float(tot),
+            "tasks": np.asarray(tasks), "grads": port_arrays(numpy_tree(grads)),
+            "stats": port_arrays(numpy_tree(stats))}
+
+
+def port_reference(model, jbatch, dtype):
+    """The port's counterpart of :func:`jax_reference` on the same batch:
+    eval-mode outputs, then the train-mode outputs, loss, per-task losses,
+    gradients and running statistics (``model``'s are updated in place)."""
+    from hydragnn_tpu_torch.convert import batch_from_numpy
+    from hydragnn_tpu_torch.train.step import cast_forward, make_predict_step
+
+    out = [o.numpy() for o in make_predict_step(model, dtype)(batch_from_numpy(jbatch))]
+    # a fresh batch: the predict step's cached layouts are inference tensors
+    pb = batch_from_numpy(jbatch)
+    model.zero_grad()
+    pred = cast_forward(model, pb, dtype, train=True)
+    tot, tasks = model.loss(pred, pb)
+    tot.backward()
+    return {"outputs": out, "train_outputs": [o.detach().numpy() for o in pred],
+            "loss": float(tot.detach()),
+            "tasks": torch.stack(tasks).detach().numpy(),
+            "grads": {n: (p.grad.numpy() if p.grad is not None else np.zeros(tuple(p.shape),
+                                                                            np.float32))
+                      for n, p in model.named_parameters()},
+            "stats": {n: b.numpy() for n, b in model.state_dict().items()}}
+
+
+def real_rows(outputs, jbatch, spec):
+    """Per head, the rows of real graphs or nodes."""
+    gm = np.asarray(jbatch.graph_mask) > 0
+    nm = np.asarray(jbatch.node_mask) > 0
+    return [np.asarray(o, np.float32)[gm if kind == "graph" else nm]
+            for o, kind in zip(outputs, spec.output_type)]
+
+
+def gloo_normalise_worker(rank, world, port, maxima, out):
+    """One process of a ``gloo`` group: a one-edge sample whose length is
+    ``maxima[rank]`` through ``normalize_edge_lengths_global``; puts
+    ``(rank, divisor, normalised length)`` on ``out``. Lives here, not in a
+    test module, so that the spawned process imports no JAX."""
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.graphs.graph import GraphSample
+    from hydragnn_tpu_torch.preprocess.transforms import normalize_edge_lengths_global
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        s = GraphSample(x=np.zeros((2, 1)), senders=[0], receivers=[1],
+                        edge_attr=[[maxima[rank]]])
+        out.put((rank, normalize_edge_lengths_global([s]), float(s.edge_attr[0, 0])))
+    finally:
+        dist.destroy_process_group()
+
+
 __all__ = [
     "assert_within_jax_bf16_gap",
+    "flax_variables_from_port",
+    "gloo_normalise_worker",
+    "jax_reference",
     "jax_samples_copy",
     "jitter_params",
     "numpy_tree",
+    "performer_projections",
     "port_model_from_jax",
+    "port_reference",
     "port_samples",
     "random_batch_stats",
+    "real_rows",
 ]
