@@ -34,7 +34,13 @@ relative-PE edge encodings, and GPS-GIN with performer attention; and
 eighteen more combinations at 2 conv layers (``VARIANTS``: seven edge
 stacks with the edge lengths, GPS around eleven more convs) each take a
 captured train step bit-equal to eager on the card, with the CPU route's
-launches and fp32 answers.
+launches and fp32 answers. The skeleton's options (PR 14) the same way:
+qm9.json's GIN with ``GaussianNLLLoss`` and its GAT with
+``conv_checkpointing`` (``QM9_OPTIONS``), ``examples/multidataset/train.py``'s
+two-branch GIN on its two BCC datasets (``MULTIBRANCH_KINDS``) and
+``examples/mptrj/train.py``'s EGNN MLIP with film conditioning on
+(charge, spin), the six optax optimizers on the GIN, eight more
+``VARIANTS`` (conditioning, node branches) and two node-head canaries.
 
 Phases (any failure exits non-zero; the last line of standard output is the
 device JSON only when every phase passed):
@@ -121,6 +127,16 @@ logged (the last is a ``capture summary`` line).
    step bit-equal to its eager step, the eager step's launches and the
    graph's launch record equal to the CPU route's launcher calls
    (``cpu_route_calls``), the fp32 forward against the CPU route;
+5d. the options (PR 14): ``gin_nll``, ``gat_ckpt`` and ``gfm_branches``
+   through phases 4, 5 and 10 (int8 without the eager comparators; the
+   branch kind's requests come from both datasets); the two trained GATs
+   bit-equal, and from one state one captured step with and one without
+   checkpointing bit-equal, their peak memory and step times
+   (``conv_checkpointing_phase``); the MPTrj film MLIP through phases 8
+   and 13, its energies and forces against the CPU route, and int8
+   (refused at its pinned bound); each optax optimizer's ten captured
+   steps bit-equal to eager and one fp32 step against the CPU route
+   (``optimizer_phase``); the new ``VARIANTS`` through ``step_checks``;
 6. canaries: the tier-1 convergence canaries on the deterministic BCC
    dataset through ``run_training`` and ``run_prediction`` on the card, at
    the reference thresholds: GIN with one head and with four heads (head
@@ -129,7 +145,11 @@ logged (the last is a ``capture summary`` line).
    stacks in the 4-head configuration of ``tests/test_training_e2e.py``'s
    arch sweep (``CANARY_OVERRIDES``) at its ``THRESHOLDS`` on every head;
    GAT with the edge lengths at GAT's thresholds, GPS-PNA with
-   the edge lengths and the GPS performer at GPS-GIN's;
+   the edge lengths and the GPS performer at GPS-GIN's; the 4-head GIN
+   with ``mlp_per_node`` node heads (on graphs of one size) at its
+   thresholds and with ``conv`` node heads at 1.25 x the JAX package's CPU
+   readings (which miss the thresholds), both also through
+   ``step_checks``;
 7. the repaired backwards (phase 3, right after the kernels): second
    derivatives through ``fused_segment_sum``, ``gather_rows``,
    ``gather_scatter_sum`` and ``segment_softmax``, kernels against plain
@@ -259,8 +279,10 @@ QUANT_CALIB_ATOL = 1e-6
 # deterministic). Its refusal is accepted on the card only within
 # QUANT_REFUSAL_RTOL of that bound, and it then serves int8 at quant_tol =
 # that bound x (1 + QUANT_REFUSAL_RTOL). Any other refusal fails the run.
+# The others pinned the same way: PAINN, PNAEq, DimeNet (PR 12) and the
+# MPTrj EGNN with film (PR 14, its per-atom energy head)
 QUANT_KNOWN_REFUSALS = {"gin": 0.372717, "painn": 0.446247, "pnaeq": 0.439453,
-                        "dimenet": 58111.42}
+                        "dimenet": 58111.42, "mptrj_film": 0.708577}
 # int8 codes card against CPU (quant_serving_phase): the GIN, GAT and
 # GPS-GIN flip none, the ten newer stacks none on real rows, except these,
 # whose Dense inputs pass through functions that CUDA and the CPU round
@@ -354,7 +376,26 @@ EDGE_KINDS = {
                      **MODELS["gps"]},
     "gps_performer": {**MODELS["gps"], "global_attn_type": "performer"},
 }
-ARCH_KNOBS = {**MODELS, **STACKS, **GEOMETRIC, **EDGE_KINDS}
+# the skeleton's options (PR 14) on qm9.json at its published widths:
+# the GIN with GaussianNLLLoss (variance outputs), the GAT with
+# conv_checkpointing and its dropout. They train, serve and serve int8 like
+# the kinds above (the GAT's checkpointed training must give the GAT's own
+# trained model, bit for bit)
+QM9_OPTIONS = {"gin_nll": {}, "gat_ckpt": {"mpnn_type": "GAT"}}
+TRAINING_KNOBS = {"gin_nll": {"loss_function_type": "GaussianNLLLoss"},
+                  "gat_ckpt": {"conv_checkpointing": True}}
+# two published blocks on their own data (OWN_DATA: config and samples):
+# examples/multidataset/train.py's two-branch GIN, which trains, serves and
+# serves int8 like the qm9 kinds, and examples/mptrj/train.py's EGNN MLIP
+# with film conditioning, which trains and serves as the MLIPs do, and
+# serves int8
+MULTIBRANCH_KINDS = {"gfm_branches": {"mpnn_type": "GIN"}}
+ARCH_KNOBS = {**MODELS, **STACKS, **GEOMETRIC, **EDGE_KINDS, **QM9_OPTIONS,
+              **MULTIBRANCH_KINDS}
+# the kind whose launch counts a kind's forward follows
+BASE_KIND = {"gin_nll": "gin", "gat_ckpt": "gat", "gfm_branches": "gin"}
+# the kinds that recompute each conv layer's forward in the backward
+CHECKPOINTED = {"gat_ckpt"}
 # the Dataset keys a kind adds to qm9_config's in-memory set
 DATASET_KNOBS = {"gat_edge": {"compute_edge_lengths": True},
                  "gps_pna_edge": {"compute_edge_lengths": True}}
@@ -372,7 +413,28 @@ VARIANTS = {
     **{f"gps_{k}": ({**_STACK_KNOBS[k], **MODELS["gps"], "num_conv_layers": 2}, {})
        for k in ("sage", "mfc", "schnet", "pnaplus", "cgcnn", "egnn", "painn", "pnaeq",
                  "dimenet", "mace", "gat")},
+    # PR 14: concat_node and fuse_pool conditioning on the GIN, CGCNN (its
+    # width rule) and MACE (its collected outputs), film under GPS-GIN, on
+    # two graph attributes per molecule; two node-head branches of output
+    # dim 3 on molecules of two datasets
+    **{f"{m}_{k}": ({**_STACK_KNOBS.get(k, {}), "num_conv_layers": 2,
+                     "use_graph_attr_conditioning": True,
+                     "graph_attr_conditioning_mode": m.replace("fuse", "fuse_pool")
+                     .replace("concat", "concat_node")}, {})
+       for m in ("concat", "fuse") for k in ("gin", "cgcnn", "mace")},
+    "film_gps": ({**MODELS["gps"], "num_conv_layers": 2, "use_graph_attr_conditioning": True,
+                  "graph_attr_conditioning_mode": "film"}, {}),
+    "node_branches": ({"num_conv_layers": 2, "task_weights": [1.0], "output_heads": {
+        "node": [{"type": f"branch-{i}", "architecture": {
+            "num_headlayers": 2, "dim_headlayers": [64, 64], "type": "mlp"}}
+                 for i in range(2)]}}, {}),
 }
+# the variants' graph attributes per molecule (conditioning), and the
+# node-branch variant's targets: 3 per node, dataset ids 0 and 1 in turn
+VARIANT_GRAPH_ATTR = 2
+VARIANT_VOI = {"node_branches": {"input_node_features": [0], "output_index": [0],
+                                 "type": ["node"], "output_dim": [3],
+                                 "denormalize_output": False}}
 # the stacks that gather node rows onto the edges (gather_rows, backward
 # B2) and sum the messages with B2: their segment sums per layer (the
 # others' neighbour sum is the gather-scatter kernel B1, GAT's aside)
@@ -389,8 +451,8 @@ CSR_BACKWARD = {"gat": ("loop_senders",), "painn": ("receivers",), "pnaeq": ("re
                 "dimenet": ("senders", "idx_kj"), "mace": ("senders", "elements"),
                 "gat_edge": ("loop_senders",)}
 for _kind in ARCH_KNOBS:
-    CSR_FORWARD.setdefault(_kind, ("receivers", "batch"))
-    CSR_BACKWARD.setdefault(_kind, ("senders",))
+    CSR_FORWARD.setdefault(_kind, CSR_FORWARD.get(BASE_KIND.get(_kind), ("receivers", "batch")))
+    CSR_BACKWARD.setdefault(_kind, CSR_BACKWARD.get(BASE_KIND.get(_kind), ("senders",)))
 # Dense calls per served batch at the configurations above (the GIN, GAT
 # and GPS-GIN, the ten stacks, and the oc20 MLIPs of mlip_config): one B6
 # launch each on an int8 endpoint. MFC's per-degree banks are not Dense
@@ -400,7 +462,8 @@ for _kind in ARCH_KNOBS:
 QUANT_DENSE_CALLS = {"gin": 13, "gat": 13, "gps": 40, "sage": 13, "mfc": 5, "schnet": 21,
                      "pna": 17, "pnaplus": 25, "cgcnn": 13, "painn": 44, "pnaeq": 60,
                      "dimenet": 93, "mace": 22, "mlip": 20, "mlip-painn": 32, "mlip-mace": 16,
-                     "gat_edge": 17, "gps_pna_edge": 56, "gps_performer": 40}
+                     "gat_edge": 17, "gps_pna_edge": 56, "gps_performer": 40,
+                     "gin_nll": 13, "gat_ckpt": 13, "gfm_branches": 14, "mptrj_film": 25}
 KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum", "segment_softmax",
            "masked_softmax", "cell_list", "quant_dense", "fp8_dense")
 # bench.py's oc20 row (bench_oc20: MLIP_CONFIG with radius 5.0 and
@@ -521,7 +584,20 @@ CANARIES = {
     "gat_edge": (500, 7, 100, 0.60, 0.70, None),
     "gps_pna_edge": (200, 19, 30, 0.35, None, 1),
     "gps_performer": (200, 19, 30, 0.35, None, 1),
+    # PR 14: the 4-head GIN with its node heads of type mlp_per_node (on
+    # BCC graphs of one size, 2 x 2 x 1 cells: the type needs one), at
+    # gin_four_heads' thresholds, and of type conv
+    "gin_per_node": (500, 7, 100, 0.25, 0.20, None),
+    # the JAX package misses those thresholds with conv node heads on the
+    # CPU (RMSE up to 0.2892, MAE up to 0.2468; tests/canary_readings.py):
+    # held at 1.25 x its largest CPU readings
+    "gin_conv_heads": (500, 7, 100, 0.36, 0.31, None),
 }
+# deterministic_graph_data's keywords of a canary's data besides the count
+# and seed
+CANARY_DATA = {"gin_per_node": {"unit_cell_x_range": (2, 3), "unit_cell_y_range": (2, 3)}}
+# the node-head type of the 4-head GIN's canaries
+CANARY_NODE_TYPE = {"gin_per_node": "mlp_per_node", "gin_conv_heads": "conv"}
 # tests/test_training_e2e.py ARCH_OVERRIDES of those ten canaries
 CANARY_OVERRIDES = {
     "sage": {"mpnn_type": "SAGE"},
@@ -559,7 +635,12 @@ def launches_per_forward(kind: str, layers: int) -> dict:
     feature), one gather-scatter (the B1 stacks; GPS adds its masked
     softmax, the performer its two per-graph sums), or the segment sums of
     the edge-message stacks (PNA and PNAPlus: the mean and the std's two
-    means; CGCNN: the sum)."""
+    means; CGCNN: the sum). A kind of ``BASE_KIND`` launches as its base:
+    variance outputs, checkpointing and branches add no kernel to a
+    forward."""
+    kind = BASE_KIND.get(kind, kind)
+    if kind == "mptrj_film":
+        return mlip_launches_per_predict(layers, "EGNN")
     want = dict.fromkeys(KERNELS, 0)
     want["segment_sum"] = 1  # the mean pooling
     if kind in GEOMETRIC_SUMS:
@@ -595,7 +676,15 @@ def launches_per_train_step(kind: str, layers: int) -> dict:
     needs a gradient (GIN, SAGE, MFC: not layer 0, which reads the raw
     features; GPS-GIN: every layer, layer 0 reads the learned embedding;
     SchNet: every layer, whose sum reads lin1 of its input). The backward
-    of a segment sum is a gather, no launch."""
+    of a segment sum is a gather, no launch. Under ``conv_checkpointing``
+    (``CHECKPOINTED``) the backward recomputes every conv layer's forward
+    first: its launches once more (all but the pooling's)."""
+    if kind in CHECKPOINTED:
+        base = BASE_KIND[kind]
+        recompute = launches_per_forward(base, layers)
+        recompute["segment_sum"] -= 1  # the pooling is no conv's
+        return _added(launches_per_train_step(base, layers), recompute)
+    kind = BASE_KIND.get(kind, kind)
     want = launches_per_forward(kind, layers)
     if kind in GEOMETRIC_SUMS:
         # the gathers' backward sums: PAINN's scalar MLP by receiver (every
@@ -663,13 +752,141 @@ def qm9_like_samples(n: int, seed: int, radius: float, max_neighbours: int, pe_d
     return out
 
 
+# examples/multidataset/train.py's data: make_synthetic's stores at
+# --configs GFM_CONFIGS (branch b: GFM_CONFIGS // (b + 1) BCC graphs of
+# seed 100 + b, targets times 1 + b); --epochs' default; batch 64 where the
+# example's --batch default is 4 (a CPU dry run's), the batch of the qm9
+# kinds, whose step checks collate 64 graphs
+GFM_CONFIGS = 512
+GFM_EPOCHS = 3
+GFM_BATCH = 64
+# examples/mptrj/train.py's data: make_synthetic at its --configs default
+# (150 periodic LJ crystals of 2 x 2 x 2 cells, displacement 0.05, seed 13,
+# O/Al/Si/Fe-like labels), its --epochs and --batch defaults (no cut); the
+# (charge, spin) graph attributes drawn per structure (charge -1, 0 or 1,
+# spin 1 or 2) where MPTrj's are all (0, 1): a spread gives film something
+# to act on
+MPTRJ_CONFIGS = 150
+MPTRJ_EPOCHS = 10
+MPTRJ_BATCH = 8
+
+
+def gfm_config() -> dict:
+    """``examples/multidataset/train.py``'s block (lines 99-140): GIN,
+    radius 2.0, hidden 32, 3 conv layers, two graph branches of 1 x 16
+    shared and 2 x 32 head layers, mse, AdamW lr 5e-3; fp32."""
+    branch = {"num_sharedlayers": 1, "dim_sharedlayers": 16, "num_headlayers": 2,
+              "dim_headlayers": [32, 32]}
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {"name": "multidataset_gfm", "format": "in_memory",
+                    "node_features": {"name": ["type", "x", "x2", "x3"], "dim": [1, 1, 1, 1],
+                                      "column_index": [0, 1, 2, 3]},
+                    "graph_features": {"name": ["sum"], "dim": [1], "column_index": [0]}},
+        "NeuralNetwork": {
+            "Architecture": {
+                "mpnn_type": "GIN", "radius": 2.0, "hidden_dim": 32, "num_conv_layers": 3,
+                "output_heads": {"graph": [{"type": f"branch-{i}", "architecture": dict(branch)}
+                                           for i in range(2)]},
+                "task_weights": [1.0],
+            },
+            "Variables_of_interest": {"input_node_features": [0], "output_index": [0],
+                                      "type": ["graph"]},
+            "Training": {"num_epoch": GFM_EPOCHS, "batch_size": GFM_BATCH,
+                         "loss_function_type": "mse",
+                         "Optimizer": {"type": "AdamW", "learning_rate": 0.005}},
+        },
+    }
+
+
+def gfm_samples(seed: int = 0):
+    """``make_synthetic``'s two branch datasets, tagged by
+    ``concat_multidataset`` (fixed seeds, as the example's)."""
+    from hydragnn_tpu_torch.datasets import deterministic_graph_data
+    from hydragnn_tpu_torch.train.multibranch import concat_multidataset
+
+    sets = []
+    for b in range(2):
+        ds = deterministic_graph_data(number_configurations=max(4, GFM_CONFIGS // (b + 1)),
+                                      seed=100 + b)
+        for s in ds:
+            s.graph_y = (1.0 + b) * s.graph_y
+            s.extras["graph_table"] = (1.0 + b) * np.asarray(s.extras["graph_table"])
+        sets.append(ds)
+    return concat_multidataset(sets)
+
+
+def mptrj_config() -> dict:
+    """``examples/mptrj/train.py``'s block (lines 119-178, ``--arch EGNN``,
+    energy per atom): EGNN, radius 5.0, 100 neighbours, hidden 32, 3 conv
+    layers, equivariance, silu, add pooling, a node head of 2 x 32, energy
+    per atom weight 1 and force weight 25, film conditioning on the graph
+    attributes, AdamW lr 5e-3, batch 8, fp32."""
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {"name": "mptrj", "format": "in_memory", "normalize": False,
+                    "node_features": {"name": ["atomic_number"], "dim": [1],
+                                      "column_index": [0]},
+                    "graph_features": {"name": ["energy"], "dim": [1], "column_index": [0]}},
+        "NeuralNetwork": {
+            "Architecture": {
+                "mpnn_type": "EGNN", "radius": 5.0, "max_neighbours": 100, "hidden_dim": 32,
+                "num_conv_layers": 3, "equivariance": True,
+                "enable_interatomic_potential": True, "activation_function": "silu",
+                "energy_weight": 0.0, "energy_peratom_weight": 1.0, "force_weight": 25.0,
+                "graph_pooling": "add", "use_graph_attr_conditioning": True,
+                "graph_attr_conditioning_mode": "film", "num_gaussians": 32,
+                "num_filters": 32, "num_radial": 6, "max_ell": 2, "node_max_ell": 1,
+                "correlation": 2,
+                "output_heads": {"node": {"num_headlayers": 2, "dim_headlayers": [32, 32],
+                                          "type": "mlp"}},
+                "task_weights": [1.0],
+            },
+            "Variables_of_interest": {"input_node_features": [0], "output_index": [0],
+                                      "type": ["node"], "output_dim": [1],
+                                      "denormalize_output": False},
+            "Training": {"num_epoch": MPTRJ_EPOCHS, "batch_size": MPTRJ_BATCH,
+                         "perc_train": 0.8, "loss_function_type": "mse", "prefetch": 2,
+                         "Optimizer": {"type": "AdamW", "learning_rate": 0.005}},
+        },
+    }
+
+
+def mptrj_samples(seed: int = 0, n: int = MPTRJ_CONFIGS):
+    """``make_synthetic``'s crystals: LJ geometry and energetics, element
+    labels O/Al/Si/Fe drawn per site (seed 13, as the example), and (charge,
+    spin) graph attributes drawn per structure from ``seed``."""
+    from hydragnn_tpu_torch.datasets import lennard_jones_data
+
+    samples = lennard_jones_data(number_configurations=n, cells_per_dim=2, seed=13,
+                                 relative_maximum_atomic_displacement=0.05)
+    rng = np.random.default_rng(13)
+    elements = np.array([8, 13, 14, 26], np.float32)
+    attrs = np.random.default_rng(seed + 1000)
+    for s in samples:
+        z = rng.choice(elements, size=(s.x.shape[0], 1))
+        s.x = np.concatenate([z, s.x[:, 1:]], axis=1).astype(np.float32)
+        nt = np.asarray(s.extras["node_table"], np.float32)
+        s.extras["node_table"] = np.concatenate([z, nt[:, 1:]], axis=1)
+        s.graph_attr = np.array([attrs.integers(-1, 2), attrs.integers(1, 3)], np.float32)
+    return samples
+
+
+# the kinds on their own data: (config, samples of a seed)
+OWN_DATA = {"gfm_branches": (gfm_config, gfm_samples),
+            "mptrj_film": (mptrj_config, mptrj_samples)}
+
+
 def qm9_config(kind: str = "gin") -> dict:
     """``examples/qm9/qm9.json`` with the ``kind``'s architecture overrides
     (``ARCH_KNOBS`` or ``VARIANTS``) and its dataset replaced by the
     in-memory QM9-like set (same node and graph features), with the kind's
-    ``DATASET_KNOBS`` (the edge lengths)."""
+    ``DATASET_KNOBS`` (the edge lengths) and ``TRAINING_KNOBS``; a kind of
+    ``OWN_DATA`` has its own block."""
     from hydragnn_tpu_torch.config import load_config
 
+    if kind in OWN_DATA:
+        return OWN_DATA[kind][0]()
     cfg = load_config(str(QM9_CONFIG))
     cfg["Dataset"] = {
         "name": f"qm9_like_in_memory_{kind}",
@@ -683,15 +900,31 @@ def qm9_config(kind: str = "gin") -> dict:
         arch_knobs, dataset_knobs = ARCH_KNOBS[kind], DATASET_KNOBS.get(kind, {})
     cfg["Dataset"].update(dataset_knobs)
     cfg["NeuralNetwork"]["Architecture"].update(arch_knobs)
+    cfg["NeuralNetwork"]["Training"].update(TRAINING_KNOBS.get(kind, {}))
+    if kind in VARIANT_VOI:
+        cfg["NeuralNetwork"]["Variables_of_interest"] = copy.deepcopy(VARIANT_VOI[kind])
     return cfg
 
 
 def raw_samples(seed: int, kind: str = "gin", n_samples: int = 512):
     """The kind's molecules as a user hands them over, before preprocessing
-    (with GPS's encodings, which requests carry)."""
+    (with GPS's encodings, which requests carry; with graph attributes
+    where the kind conditions on them; with three targets per node and
+    dataset ids 0 and 1 in turn for the node-branch variant); a kind of
+    ``OWN_DATA``'s own samples."""
+    if kind in OWN_DATA:
+        return OWN_DATA[kind][1](seed)
     arch = qm9_config(kind)["NeuralNetwork"]["Architecture"]
-    return qm9_like_samples(n_samples, seed, float(arch["radius"]),
-                            int(arch["max_neighbours"]), int(arch.get("pe_dim") or 0))
+    samples = qm9_like_samples(n_samples, seed, float(arch["radius"]),
+                               int(arch["max_neighbours"]), int(arch.get("pe_dim") or 0))
+    rng = np.random.default_rng(seed + 2000)
+    for i, s in enumerate(samples):
+        if arch.get("use_graph_attr_conditioning"):
+            s.graph_attr = rng.normal(size=(VARIANT_GRAPH_ATTR,)).astype(np.float32)
+        if kind in VARIANT_VOI:
+            s.node_y = rng.normal(size=(s.num_nodes, 3)).astype(np.float32)
+            s.dataset_id = i % 2
+    return samples
 
 
 def prepare(seed: int, kind: str = "gin", n_samples: int = 512):
@@ -2614,12 +2847,22 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
 
     # served answers == Predictor.outputs on the same padded batch
     predictor = Predictor(model, aug, device=device)
-    worst = max(np.max(np.abs(a - b)) for _, _, a, b in
-                _served_vs_outputs(ep.buckets, predictor, samples, results))
+    rows = _served_vs_outputs(ep.buckets, predictor, samples, results)
+    worst = max(np.max(np.abs(a - b)) for _, _, a, b in rows)
     log(f"[{kind}] served vs Predictor.outputs on the same padded batches: "
         f"max|diff|={worst:.3e} (allowed {SERVE_ATOL})")
     if worst > SERVE_ATOL:
         raise AssertionError("serving: served answers differ from Predictor.outputs")
+    if kind in MULTIBRANCH_KINDS:
+        # each branch's requests, answered by its own heads
+        per_branch: dict = {}
+        for _, i, a, b in rows:
+            n, d = per_branch.get(samples[i].dataset_id, (0, 0.0))
+            per_branch[samples[i].dataset_id] = (n + 1, max(d, float(np.max(np.abs(a - b)))))
+        log(f"[{kind}] served requests per branch (dataset_id: head answers, max|diff| vs "
+            f"Predictor.outputs): {per_branch}")
+        if sorted(per_branch) != [0, 1] or any(d > SERVE_ATOL for _, d in per_branch.values()):
+            raise AssertionError(f"serving: branches {per_branch}")
 
     sm = report.summary()
     log(f"[{card}] [{kind}] serving, captured: {len(samples)} requests as a closed burst "
@@ -2882,17 +3125,23 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
     def samples():
         # no encodings attached here: run_training's preprocessing attaches
         # GPS's, as it does for its users' samples
+        if kind in OWN_DATA:
+            return raw_samples(seed, kind)
         return qm9_like_samples(512, seed, float(arch["radius"]), int(arch["max_neighbours"]))
 
     loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=samples())
     n_train, n_val, n_test = (len(ld) for ld in loaders)
-    log(f"[{kind}] training: run_training on the qm9.json {arch['mpnn_type']}"
+    training = cfg["NeuralNetwork"]["Training"]
+    source = (f"the {cfg['Dataset']['name']} block" if kind in OWN_DATA else "the qm9.json")
+    log(f"[{kind}] training: run_training on {source} {arch['mpnn_type']}"
         f"{' + GPS' if arch.get('global_attn_engine') else ''} at its published widths, "
         f"edge features {arch.get('edge_features') or 'none'}, precision "
-        f"{cfg['NeuralNetwork']['Training']['precision']}, dropout "
-        f"{arch.get('dropout', 0.25)} (default), num_epoch cut from {published} to {epochs} "
-        f"(the only cut), 512 QM9-like molecules: {n_train} train / {n_val} val / {n_test} "
-        f"test batches per epoch, seed {seed}")
+        f"{training.get('precision', 'fp32')}, dropout "
+        f"{arch.get('dropout', 0.25)} (default), loss {training['loss_function_type']}, "
+        f"conv_checkpointing {bool(training.get('conv_checkpointing'))}, num_epoch "
+        f"{'cut from ' + str(published) + ' ' if published != epochs else ''}to {epochs}, "
+        f"{sum(len(ld.samples) for ld in loaders)} samples: {n_train} train / {n_val} val / "
+        f"{n_test} test batches per epoch, seed {seed}")
     from hydragnn_tpu_torch import capture
     from hydragnn_tpu_torch.train.step import make_eval_step
 
@@ -2943,7 +3192,10 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
     train_ld = loaders[0]
     chunk = train_ld.samples[:64]
     host = collate(chunk, train_ld.pad)
-    step = make_train_step(torch.bfloat16)
+    from hydragnn_tpu_torch.train.step import resolve_precision
+
+    dtype = resolve_precision(str(aug["NeuralNetwork"]["Training"]["precision"]), device)
+    step = make_train_step(dtype)
     fs.reset_launches()
     step(state, host.to(device))
     _sync(torch, device)
@@ -2954,7 +3206,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
     captured = None
     if device == "cuda":
         hosts = [collate(train_ld.samples[i:i + 64], train_ld.pad) for i in range(0, 256, 64)]
-        captured = captured_vs_eager(torch, state, step, make_eval_step(torch.bfloat16), hosts,
+        captured = captured_vs_eager(torch, state, step, make_eval_step(dtype), hosts,
                                      f"[{card}] [{kind}]", per_step, per_eval)
 
     _step_vs_cpu(torch, aug, host, device, seed)
@@ -2981,7 +3233,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         timed("csr_forward", lambda: [b.csr(f) for f in CSR_FORWARD[kind]])
         timed("csr_backward", lambda: [b.csr(f) for f in CSR_BACKWARD[kind]])
         tot = timed("forward", lambda: model.loss(
-            cast_forward(model, b, torch.bfloat16, train=True, generator=state.generator),
+            cast_forward(model, b, dtype, train=True, generator=state.generator),
             b)[0])
         timed("backward", lambda: (optimizer.zero_grad(), tot.backward()))
         timed("optimizer", optimizer.step)
@@ -2989,7 +3241,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         timed("step", lambda: step(state, b))
     med = {k: float(np.median(v)) for k, v in parts.items()}
     kernel_ms = step_kernel_ms(kind, n_layers, kernel_times or {})
-    log(f"[{card}] [{kind}] one eager bf16 train step at the top bucket (median of {reps}, host "
+    log(f"[{card}] [{kind}] one eager {str(dtype).split('.')[-1]} train step at the top bucket (median of {reps}, host "
         f"clock): collate {med['collate']:.3f} ms, to device {med['to_device']:.3f} ms, CSR "
         f"views {'+'.join(CSR_FORWARD[kind])} {med['csr_forward']:.3f} ms, backward CSR views "
         f"{'+'.join(CSR_BACKWARD[kind]) or '(none)'} {med['csr_backward']:.3f} ms, forward "
@@ -3274,13 +3526,36 @@ def cpu_route_calls():
 
 def variant_phase(torch, seed: int, name: str, card: str = "", device: str = "cuda") -> dict:
     """One smaller-depth combination of ``VARIANTS`` (2 conv layers, random
-    weights from ``seed``, bf16 steps), not trained: one captured train
-    step bit-equal to its eager step (parameters, running statistics, AdamW
-    moments, generator, metrics); the eager step's launches and the
-    captured graph's launch record equal to the CPU route's launcher calls
-    on the same step; the card's fp32 forward against the CPU route
-    (``CPU_PARITY``) with the predict step's launches equal to the CPU
-    route's. Returns the launches."""
+    weights from ``seed``, bf16 steps), not trained: :func:`step_checks` on
+    a batch of 64 of its training molecules. Returns the launches."""
+    _, aug, loaders, _ = prepare(seed, name, n_samples=VARIANT_SAMPLES)
+    return step_checks(torch, seed, name, aug, loaders[0], card, device)
+
+
+def _heads_close(torch, got, want, batch, cols) -> tuple[float, bool]:
+    """(max |got - want| over every head's real rows, all within
+    ``CPU_PARITY``): graph heads on the real graphs, node heads on the
+    real nodes."""
+    worst, ok = 0.0, True
+    for (kind, _, _), g, w in zip(cols, got, want):
+        rows = (batch.graph_mask if kind == "graph" else batch.node_mask) > 0
+        g, w = g.cpu()[rows], w[rows]
+        worst = max(worst, float((g - w).abs().max()))
+        ok &= bool(torch.allclose(g, w, **CPU_PARITY))
+    return worst, ok
+
+
+def step_checks(torch, seed: int, name: str, aug: dict, train_ld, card: str = "",
+                device: str = "cuda", dtype=None) -> dict:
+    """A model of ``aug`` (random weights from ``seed``) on its training
+    loader ``train_ld``: one captured train step bit-equal to its eager
+    step (parameters, running statistics, optimizer moments, generator,
+    metrics) on a batch of up to 64 samples; the eager step's launches and
+    the captured graph's launch record equal to the CPU route's launcher
+    calls on the same step; the card's fp32 forward against the CPU route
+    on every head's real rows (``CPU_PARITY``), with the predict step's
+    launches equal to the CPU route's. ``dtype``: the train steps'
+    (default bf16). Returns the launches."""
     from hydragnn_tpu_torch import capture
     from hydragnn_tpu_torch.graphs.batching import collate
     from hydragnn_tpu_torch.models import create_model_config
@@ -3289,17 +3564,16 @@ def variant_phase(torch, seed: int, name: str, card: str = "", device: str = "cu
     from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
 
     t0 = time.perf_counter()
-    _, aug, loaders, _ = prepare(seed, name, n_samples=VARIANT_SAMPLES)
     arch = aug["NeuralNetwork"]["Architecture"]
-    train_ld = loaders[0]
-    host = collate(train_ld.samples[:64], train_ld.pad)
-    small = train_ld.samples[:VARIANT_CPU_GRAPHS]
+    chunk = min(64, int(aug["NeuralNetwork"]["Training"]["batch_size"]))
+    host = collate(train_ld.samples[:chunk], train_ld.pad)
+    small = train_ld.samples[:min(VARIANT_CPU_GRAPHS, chunk)]
     model = create_model_config(aug, device=device, seed=seed)
     state = create_train_state(model, aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
-    step = make_train_step(torch.bfloat16)
+    step = make_train_step(dtype or torch.bfloat16)
 
-    # the CPU route's launcher calls: one bf16 train step and one fp32
-    # predict step (launch counts depend on the layout, not on the rows)
+    # the CPU route's launcher calls: one train step and one fp32 predict
+    # step (launch counts depend on the layout, not on the rows)
     cpu_state = create_train_state(copy.deepcopy(model).to("cpu"),
                                    aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
     with cpu_route_calls() as want_step:
@@ -3327,15 +3601,18 @@ def variant_phase(torch, seed: int, name: str, card: str = "", device: str = "cu
               else dict(want_step))
     loss = float(want["loss"])
     fs.reset_launches()
-    dev_out = Predictor(model, fp32_cfg, device=device).outputs(test_host)
+    predictor = Predictor(model, fp32_cfg, device=device)
+    dev_out = predictor.outputs(test_host)
     _sync(torch, device)
     fwd_launches = dict(fs.LAUNCHES)
-    gm = test_host.graph_mask > 0
-    d = float((dev_out[0].cpu()[gm] - cpu_out[0][gm]).abs().max())
-    ok_cpu = torch.allclose(dev_out[0].cpu()[gm], cpu_out[0][gm], **CPU_PARITY)
+    d, ok_cpu = _heads_close(torch, dev_out, cpu_out, test_host, predictor.cols)
+    options = [f"{k} {arch[k]}" for k in ("graph_attr_conditioning_mode",)
+               if arch.get("use_graph_attr_conditioning")]
+    options += [f"{len(v)} {k} branches" for k, v in arch["output_heads"].items() if len(v) > 1]
     log(f"[{card}] [{name}] {arch['mpnn_type']}{' + GPS' if arch.get('global_attn_engine') else ''}"
-        f" x {arch['num_conv_layers']} layers, edge_dim {arch.get('edge_dim') or 0}: captured bf16 "
-        f"train step vs eager: metrics equal {_same_tree(torch, got, want)}, state differs in "
+        f" x {arch['num_conv_layers']} layers, edge_dim {arch.get('edge_dim') or 0}"
+        f"{', ' + ', '.join(options) if options else ''}: captured train step vs eager: metrics "
+        f"equal {_same_tree(torch, got, want)}, state differs in "
         f"{diffs[:6] or 'nothing'} (loss {loss:.6g}); launches: eager step "
         f"{ {k: v for k, v in eager_launches.items() if v} }, graph record "
         f"{ {k: v for k, v in record.items() if v} }, CPU route "
@@ -3352,6 +3629,212 @@ def variant_phase(torch, seed: int, name: str, card: str = "", device: str = "cu
         raise AssertionError(f"{name}: launches: train step {eager_launches} (graph {record}), "
                              f"forward {fwd_launches}; the CPU route's {want_step}, {want_fwd}")
     return {"per_step": eager_launches, "per_forward": fwd_launches}
+
+
+# -- phase 5d: the options of the skeleton (PR 14) ------------------------------
+
+# the six optax optimizers the port computes itself (train/optimizer.py)
+OPTAX_TYPES = ("RMSProp", "Adagrad", "Adadelta", "Adamax", "LAMB", "FusedLAMB")
+OPTIMIZER_STEPS = 10
+
+
+def optimizer_phase(torch, seed: int, card: str = "", device: str = "cuda") -> dict:
+    """Each of ``OPTAX_TYPES`` on the qm9.json GIN at its published widths
+    (random weights from ``seed``, bf16 steps at the top bucket, four
+    batches of 64 in turn): ``OPTIMIZER_STEPS`` captured train steps
+    bit-equal to as many eager steps from copies of one state (parameters,
+    running statistics, the optimizer's state, the learning rate halved
+    before the eighth step on both), the graph's launch record the GIN's per
+    train step; then one fp32 train step on the card against the CPU route
+    from the same parameters (:func:`optimizer_step_vs_cpu`). Returns the
+    captured steps' times."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.optimizer import get_learning_rate, set_learning_rate
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+
+    _, aug, loaders, _ = prepare(seed, "gin")
+    train_ld = loaders[0]
+    hosts = [collate(train_ld.samples[i:i + 64], train_ld.pad) for i in range(0, 256, 64)]
+    layers = int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"])
+    per_step = launches_per_train_step("gin", layers)
+    out = {}
+    for opt_type in OPTAX_TYPES:
+        t0 = time.perf_counter()
+        cfg = copy.deepcopy(aug)
+        opt_cfg = cfg["NeuralNetwork"]["Training"]["Optimizer"]
+        opt_cfg["type"] = opt_type
+        model = create_model_config(cfg, device=device, seed=seed)
+        state = create_train_state(model, opt_cfg, seed=seed)
+        step = make_train_step(torch.bfloat16)
+        captured, eager = _twin(torch, state), _twin(torch, state)
+        train = capture.Dispatch(step, f"train {opt_type}", train=True)
+        lr = get_learning_rate(eager.optimizer)
+        for i in range(OPTIMIZER_STEPS):
+            if i == 7:
+                for s_ in (captured, eager):
+                    set_learning_rate(s_.optimizer, lr / 2)
+            b = hosts[i % len(hosts)].to(device)
+            got, want = train(captured, b), step(eager, b)
+            diffs = _state_diffs(torch, captured, eager)
+            if not _same_tree(torch, got, want) or diffs:
+                raise AssertionError(f"{opt_type}: captured train step {i} differs from the "
+                                     f"eager step: {diffs[:8]}")
+        record = (next(iter(train.graphs.graphs.values())).launches if device == "cuda"
+                  else dict(per_step))
+        if record != per_step:
+            raise AssertionError(f"{opt_type}: launch record {record} != {per_step}")
+        times = []
+        if device == "cuda":
+            fresh = [hosts[0].to(device) for _ in range(10)]
+            for b in fresh:
+                t1 = time.perf_counter()
+                train(captured, b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+        cmp = optimizer_step_vs_cpu(torch, cfg, hosts[0], device, seed)
+        med = float(np.median(times)) if times else float("nan")
+        log(f"[{card}] [optimizer {opt_type}] qm9.json GIN: {OPTIMIZER_STEPS} captured bf16 train "
+            f"steps bit-equal to the eager steps (the learning rate halved before the eighth), "
+            f"launches per replay {record}; one captured step (median of {len(times)}, host "
+            f"clock) {med:.3f} ms; one fp32 step {device} vs the CPU route: {cmp['line']}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        out[opt_type] = {"step_ms": med, "cpu_max_diff": cmp["signal"]}
+    return out
+
+
+def optimizer_step_vs_cpu(torch, cfg: dict, host, device: str, seed: int) -> dict:
+    """One fp32 train step of ``cfg``'s model and optimizer (random weights
+    from ``seed``) on ``device`` and on the port's CPU route from the same
+    parameters. The updated parameters agree within ``CPU_PARITY`` wherever
+    the gradient exceeds ten times the largest card-vs-CPU gradient
+    difference; elsewhere the gradient is fp32 noise (a bias in front of a
+    batch norm: 0 in exact arithmetic), whose sign each side's step
+    follows, and Adamax and LAMB step by up to ~0.1 and ~1e-3 of the rate on
+    it, so there the two differ by at most both steps together (plus
+    ``CPU_PARITY``'s atol). Raises otherwise; returns the largest
+    differences and a log line."""
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+
+    opt_cfg = cfg["NeuralNetwork"]["Training"]["Optimizer"]
+    fp32 = make_train_step(torch.float32)
+    start = create_model_config(cfg, device="cpu", seed=seed)
+    dev = create_train_state(create_model_config(cfg, device=device, seed=seed), opt_cfg)
+    cpu = create_train_state(create_model_config(cfg, device="cpu", seed=seed), opt_cfg)
+    fp32(dev, host.to(device))
+    fp32(cpu, host)
+    params = list(zip(dev.model.named_parameters(), cpu.model.parameters(), start.parameters()))
+    floor = 10 * max(float((p.grad.cpu() - q.grad).abs().max()) for (_, p), q, _ in params)
+    signal = noise = moved = 0.0
+    n_noise, bad = 0, []
+    for (name, p), q, p0 in params:
+        a, c, a0 = p.detach().cpu(), q.detach(), p0.detach()
+        diff = (a - c).abs()
+        is_noise = q.grad.abs() <= floor
+        n_noise += int(is_noise.sum())
+        moved = max(moved, float((c - a0).abs().max()))
+        room = CPU_PARITY["atol"] + CPU_PARITY["rtol"] * c.abs()
+        steps = (a - a0).abs() + (c - a0).abs() + CPU_PARITY["atol"]
+        if bool((~is_noise).any()):
+            signal = max(signal, float(diff[~is_noise].max()))
+        if bool(is_noise.any()):
+            noise = max(noise, float(diff[is_noise].max()))
+        if bool((diff > torch.where(is_noise, steps, room)).any()):
+            bad.append(name)
+    line = (f"parameters max|diff| {signal:.3e} where the gradient is signal (rtol "
+            f"{CPU_PARITY['rtol']}, atol {CPU_PARITY['atol']}), {noise:.3e} on {n_noise} "
+            f"noise-level gradients (|g| <= {floor:.1e}, allowed both steps); the step moved "
+            f"them by up to {moved:.3e}")
+    if bad or moved <= 0.0:
+        raise AssertionError(f"the {device} optimizer step disagrees with the CPU route: {bad}; "
+                             f"{line}")
+    return {"signal": signal, "noise": noise, "line": line}
+
+
+def conv_checkpointing_phase(torch, seed: int, gat: dict, gat_ckpt: dict, card: str = "",
+                             device: str = "cuda") -> dict:
+    """The qm9.json GAT trained with and without ``conv_checkpointing``
+    (``training_phase``, same seed, data and dropout generator): the two
+    trained models bit-equal. Then, from the trained GAT's state and one
+    generator state, one captured bf16 train step of each on the same top
+    bucket batch: gradients, parameters, running statistics, metrics and
+    generator bit-equal, the launch records ``launches_per_train_step``'s
+    (the checkpointed one recomputes each layer's softmax and aggregation);
+    each eager step's peak device memory above the state's
+    (``torch.cuda.max_memory_allocated``) and each captured step's time
+    (median of 20, host clock), logged."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+
+    trained = [n for (n, a), b in zip(gat["model"].state_dict().items(),
+                                      gat_ckpt["model"].state_dict().values())
+               if not torch.equal(a, b)]
+    if trained:
+        raise AssertionError(f"gat_ckpt: the checkpointed training gave another model: {trained}")
+    _, _, loaders, _ = prepare(seed, "gat")
+    host = collate(loaders[0].samples[:64], loaders[0].pad)
+    layers = gat["layers"]
+    states = []
+    for entry in (gat, gat_ckpt):
+        aug = entry["aug"]
+        model = create_model_config(aug, device=device, seed=seed)
+        model.load_state_dict(gat["model"].state_dict())
+        states.append(create_train_state(model, aug["NeuralNetwork"]["Training"]["Optimizer"],
+                                         seed=seed))
+    step = make_train_step(torch.bfloat16)
+    peaks, times, outs, twins, records = [], [], [], [], []
+    for name, st in zip(("plain", "checkpointed"), states):
+        tw = _twin(torch, st)
+        b = host.to(device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        step(tw, b)
+        _sync(torch, device)
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2**20
+                     if device == "cuda" else float("nan"))
+        tw = _twin(torch, st)
+        disp = capture.Dispatch(step, f"train {name}", train=True)
+        outs.append(disp(tw, host.to(device)))
+        # the captured step's gradients and the state after it, before the
+        # timing replays move it on
+        twins.append(([p.grad.clone() for p in tw.model.parameters()], _twin(torch, tw)))
+        records.append(next(iter(disp.graphs.graphs.values())).launches
+                       if device == "cuda" else None)
+        if device == "cuda":
+            ts = []
+            for b in [host.to(device) for _ in range(20)]:
+                t0 = time.perf_counter()
+                disp(tw, b)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times.append(float(np.median(ts)))
+    (g_a, a), (g_c, c) = twins
+    names = [n for n, _ in a.model.named_parameters()]
+    grads = [n for n, p, q in zip(names, g_a, g_c) if not torch.equal(p, q)]
+    diffs = _state_diffs(torch, a, c)
+    want = [launches_per_train_step("gat", layers), launches_per_train_step("gat_ckpt", layers)]
+    log(f"[{card}] [gat_ckpt] the trained GAT with and without conv_checkpointing: models "
+        f"bit-equal; from one state and generator, one captured bf16 train step each at the "
+        f"top bucket (N={host.num_nodes}, E={host.num_edges}): metrics equal "
+        f"{_same_tree(torch, outs[0], outs[1])}, gradients differ in {grads[:6] or 'nothing'}, "
+        f"state in {diffs[:6] or 'nothing'}; launch records plain "
+        f"{ {k: v for k, v in (records[0] or {}).items() if v} }, checkpointed "
+        f"{ {k: v for k, v in (records[1] or {}).items() if v} }; peak device memory of an "
+        f"eager step above the state's: plain {peaks[0]:.1f} MiB, checkpointed "
+        f"{peaks[1]:.1f} MiB; captured step (median of 20, host clock): plain "
+        f"{times[0] if times else float('nan'):.3f} ms, checkpointed "
+        f"{times[1] if times else float('nan'):.3f} ms")
+    if grads or diffs or not _same_tree(torch, outs[0], outs[1]):
+        raise AssertionError("gat_ckpt: the checkpointed step differs from the plain step")
+    if device == "cuda" and records != want:
+        raise AssertionError(f"gat_ckpt: launch records {records} != {want}")
+    return {"peak_mib": peaks, "step_ms": times}
 
 
 # -- phase 10: quantized serving ----------------------------------------------------
@@ -3420,13 +3903,14 @@ def _whole_split_calibration(torch, kind: str, pred, train, samples, pad) -> Non
     from hydragnn_tpu_torch.serve import quant as sq
     from hydragnn_tpu_torch.serve.batcher import serving_collate
 
-    cal = [serving_collate(train[i:i + 64], pad) for i in range(0, len(train), 64)]
+    n = min(64, pad.n_graph - 1)
+    cal = [serving_collate(train[i:i + n], pad) for i in range(0, len(train), n)]
     scales = sq.collect_activation_scales(pred.model, cal, pred.compute_dtype)
     step = sq.make_quantized_predict_step(pred.model, scales,
                                           sq.quantize_dense_weights(pred.model, scales),
                                           pred.compute_dtype)
     bounds = sq.certify_quant_error(pred, step, cal)
-    traffic = [serving_collate(samples[i:i + 64], pad) for i in range(0, len(samples), 64)]
+    traffic = [serving_collate(samples[i:i + n], pad) for i in range(0, len(samples), n)]
     worst = sq.certify_quant_error(pred, step, traffic)
     log(f"[{kind}] int8 step calibrated on all {len(train)} training samples (measured, not "
         f"gated): bounds {[f'{b:.6f}' for b in bounds]}; on all {len(samples)} requests "
@@ -3529,7 +4013,7 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     ep32 = fp32.add_model(name, model, aug, samples=samples)
     fp32.warmup()
     pred = ep32.predictor
-    probe = serving_collate(train[:64], ep32.buckets[-1])
+    probe = serving_collate(train[:min(64, ep32.buckets[-1].n_graph - 1)], ep32.buckets[-1])
     before = [t.clone() for t in pred.outputs(probe)]
     with capture.no_new_captures(f"[{kind}] trained fp32 serving burst"):
         res32, rep32, _, stats32 = _serve_burst(torch, fp32, name, samples, device)
@@ -3576,9 +4060,13 @@ def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: di
     calls = []
     with intercept_dense(lambda m, x: calls.append(m)):
         pred.outputs(probe)
-    if any(n != len(calls) for n in n_dense.values()) or len(calls) != QUANT_DENSE_CALLS[kind]:
+    # a layer called more than once per forward (film's conditioner, once
+    # per conv layer) has one table entry and launches at every call
+    layers_called = len({id(m) for m in calls})
+    if any(n != layers_called for n in n_dense.values()) or \
+            len(calls) != QUANT_DENSE_CALLS[kind]:
         raise AssertionError(f"quantized serving: {n_dense} Dense layers calibrated, "
-                             f"{len(calls)} Dense calls per forward, "
+                             f"{layers_called} called, {len(calls)} Dense calls per forward, "
                              f"{QUANT_DENSE_CALLS[kind]} derived on the CPU route")
     with capture.no_new_captures(f"[{kind}] int8 serving burst"):
         resq, repq, launches, statsq = _serve_burst(torch, qserver, name, samples, device)
@@ -3714,11 +4202,13 @@ def canary_config(name: str, epochs: int | None = None) -> dict:
     GAT at hidden 8; GPS-GIN with 2 heads and encodings of width 2
     (``tests/test_gps.py``); ``gat_edge`` and ``gps_pna_edge``: GAT and
     GPS-PNA in those forms with the edge lengths as edge features;
-    ``gps_performer``: GPS-GIN with performer attention."""
+    ``gps_performer``: GPS-GIN with performer attention; ``gin_per_node``
+    and ``gin_conv_heads``: the 4-head GIN with node heads of type
+    ``mlp_per_node`` and ``conv`` (``CANARY_NODE_TYPE``)."""
     cfg = copy.deepcopy(CANARY_CONFIG)
     cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs or CANARIES[name][2]
     arch = cfg["NeuralNetwork"]["Architecture"]
-    if name == "gin_four_heads" or name in CANARY_OVERRIDES:
+    if name == "gin_four_heads" or name in CANARY_OVERRIDES or name in CANARY_NODE_TYPE:
         arch.update(CANARY_OVERRIDES.get(name, {}))
         cfg["NeuralNetwork"]["Variables_of_interest"] = {
             "input_node_features": [0], "output_names": ["sum", "x", "x2", "x3"],
@@ -3728,7 +4218,7 @@ def canary_config(name: str, epochs: int | None = None) -> dict:
         arch["task_weights"] = [20.0, 1.0, 1.0, 1.0]
         arch["output_heads"]["graph"]["dim_sharedlayers"] = 10
         arch["output_heads"]["node"] = {"num_headlayers": 2, "dim_headlayers": [10, 10],
-                                        "type": "mlp"}
+                                        "type": CANARY_NODE_TYPE.get(name, "mlp")}
         cfg["NeuralNetwork"]["Training"]["Optimizer"]["learning_rate"] = 0.01
     elif name in ("gat", "gat_edge"):
         arch.update(mpnn_type="GAT", hidden_dim=8)
@@ -3762,7 +4252,9 @@ def canary_phase(torch, device: str, card: str = "", epochs: int | None = None,
                  n_samples: int | None = None, check: bool = True,
                  names=tuple(CANARIES)) -> dict:
     """The canaries through run_training and run_prediction on the BCC
-    data, every held head below the reference thresholds."""
+    data, every held head below the reference thresholds; the node-head
+    canaries (``CANARY_NODE_TYPE``) also through :func:`step_checks`
+    (captured against eager, the CPU route)."""
     from hydragnn_tpu_torch import run_prediction, run_training
     from hydragnn_tpu_torch.datasets import deterministic_graph_data
     from hydragnn_tpu_torch.ops import fused_scatter as fs
@@ -3772,14 +4264,17 @@ def canary_phase(torch, device: str, card: str = "", epochs: int | None = None,
         n_default, data_seed, _, rmse_max, mae_max, held = CANARIES[name]
         n = n_samples or n_default
         cfg = canary_config(name, epochs)
+
+        def data():
+            return deterministic_graph_data(n, seed=data_seed, **CANARY_DATA.get(name, {}))
+
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             fs.reset_launches()
             t0 = time.perf_counter()
-            state, _, _ = run_training(copy.deepcopy(cfg), device=device, path=tmp,
-                                       samples=deterministic_graph_data(n, seed=data_seed))
-            _, _, trues, preds = run_prediction(
-                copy.deepcopy(cfg), state, device=device,
-                samples=deterministic_graph_data(n, seed=data_seed))
+            state, _, aug = run_training(copy.deepcopy(cfg), device=device, path=tmp,
+                                         samples=data())
+            _, _, trues, preds = run_prediction(copy.deepcopy(cfg), state, device=device,
+                                                samples=data())
             _sync(torch, device)
             wall = time.perf_counter() - t0
         launches = dict(fs.LAUNCHES)
@@ -3800,6 +4295,12 @@ def canary_phase(torch, device: str, card: str = "", epochs: int | None = None,
         if device == "cuda" and missing:
             raise AssertionError(f"canary {name}: {missing} not launched: {launches}")
         out[name] = {"seconds": wall, "rmse": rmse, "mae": mae}
+        if name in CANARY_NODE_TYPE:
+            from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+
+            loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=data())
+            out[name]["steps"] = step_checks(torch, 0, f"canary {name}", aug, loaders[0], card,
+                                             device, dtype=torch.float32)
     return out
 
 
@@ -4168,7 +4669,7 @@ def mlip_train_batch(n_samples: int = MLIP_SAMPLES):
     return collate(loaders[0].samples[:64], loaders[0].pad)
 
 
-def mlip_launches_per_step(layers: int, arch: str = "EGNN") -> dict:
+def mlip_launches_per_step(layers: int, arch: str = "EGNN", kind: str | None = None) -> dict:
     """Kernel launches of one MLIP train step with ``layers`` conv layers,
     all segment sums: those of the eval step (:func:`mlip_launches_per_eval`)
     and the loss backward's. The EGNN's loss backward repeats the forward's
@@ -4180,23 +4681,33 @@ def mlip_launches_per_step(layers: int, arch: str = "EGNN") -> dict:
     two message sums per layer once more (``2 L``): ``12 L - 1`` in all.
     MACE's: positions two per layer, sender features one on layer 0 and two
     later, the element embedding one per layer (``5 L - 1``), and the two
-    message sums per layer: ``13 L - 1``."""
+    message sums per layer: ``13 L - 1``. ``kind`` ``mptrj_film``: the
+    MPTrj EGNN, node head and film (one more per layer)."""
     want = dict.fromkeys(KERNELS, 0)
     want["segment_sum"] = {"EGNN": 2 * (2 * layers + 4 * layers - 2),
                            "PAINN": 12 * layers - 1, "MACE": 13 * layers - 1}[arch]
+    if kind == "mptrj_film":
+        # film's per-graph scale and shift gathered to the nodes in every
+        # layer: its backward, one segment sum a layer (the node head's
+        # energy sum counts as the graph head's pooling does)
+        want["segment_sum"] += layers
     return want
 
 
-def mlip_launches_per_eval(layers: int, arch: str = "EGNN") -> dict:
+def mlip_launches_per_eval(layers: int, arch: str = "EGNN", kind: str | None = None) -> dict:
     """One MLIP eval step: the energy forward and the force backward (no
     second derivative). EGNN: ``2 L + 4 L - 2``. PAINN and MACE: the
     forward's ``2 L + 2`` (two message sums per layer, the pooling the node
     head does not read, the node energies' sum per graph) and the force
     backward's ``4 L - 2``: the position gathers' two per layer and, on
     layers 1..L-1 (layer 0's features do not depend on the positions),
-    PAINN's scalar and vector gathers, MACE's two sender-feature blocks."""
+    PAINN's scalar and vector gathers, MACE's two sender-feature blocks.
+    ``kind`` ``mptrj_film`` (node head): one more, its energies' sum per
+    graph beside the pooling it does not read."""
     want = dict.fromkeys(KERNELS, 0)
     want["segment_sum"] = 6 * layers - (2 if arch == "EGNN" else 0)
+    if kind == "mptrj_film":
+        want["segment_sum"] += 1  # the node head's energies summed per graph
     return want
 
 
@@ -4211,13 +4722,15 @@ def mlip_launches_per_md_step(layers: int) -> dict:
 
 def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS,
                         n_samples: int = MLIP_SAMPLES, card: str = "",
-                        arch: str = "EGNN") -> dict:
+                        arch: str = "EGNN", kind: str | None = None) -> dict:
     """``run_training`` of the oc20 MLIP (fp32; ``arch`` EGNN, or PAINN or
-    MACE with ``examples/oc20/train.py``'s block): falling train loss,
-    launch counts, the captured steps against the eager ones, one fp32 MLIP
-    step against the fp64 CPU step, the forces through the kernels against
-    the plain versions on the same state (PAINN, MACE), where a step's time
-    goes and the device's busy share."""
+    MACE with ``examples/oc20/train.py``'s block), or of ``kind``'s block
+    on its own data (``OWN_DATA``: ``mptrj_film``, the MPTrj EGNN with film
+    conditioning, its ``num_epoch`` not cut): falling train loss, launch
+    counts, the captured steps against the eager ones, one fp32 MLIP step
+    against the fp64 CPU step, the forces through the kernels against the
+    plain versions on the same state (PAINN, MACE, the MPTrj EGNN), where
+    a step's time goes and the device's busy share."""
     from hydragnn_tpu_torch import run_training
     from hydragnn_tpu_torch.graphs.batching import collate
     from hydragnn_tpu_torch.models.mlip import (energy_force_loss, graph_energy,
@@ -4226,24 +4739,43 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
     from hydragnn_tpu_torch.train.step import cast_forward, optimizer_step
 
-    cfg = mlip_config(epochs, arch)
-    tag = "mlip" if arch == "EGNN" else f"mlip-{arch.lower()}"
+    if kind is None:
+        cfg = mlip_config(epochs, arch)
+        tag = "mlip" if arch == "EGNN" else f"mlip-{arch.lower()}"
+
+        def samples():
+            return mlip_samples(n_samples)
+    else:
+        cfg, tag = qm9_config(kind), kind
+        arch = cfg["NeuralNetwork"]["Architecture"]["mpnn_type"]
+
+        def samples():
+            return raw_samples(seed, kind)
     a_cfg = cfg["NeuralNetwork"]["Architecture"]
+    t_cfg = cfg["NeuralNetwork"]["Training"]
     layers = int(a_cfg["num_conv_layers"])
-    loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=mlip_samples(n_samples))
+    bs = int(t_cfg["batch_size"])
+    loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=samples())
     n_train, n_val, n_test = (len(ld) for ld in loaders)
-    source = ("bench.py's oc20 EGNN MLIP" if arch == "EGNN" else
+    source = (f"the {cfg['Dataset']['name']} block" if kind is not None else
+              "bench.py's oc20 EGNN MLIP" if arch == "EGNN" else
               f"examples/oc20/train.py's --arch {arch} block")
+    conditioning = (f", {a_cfg['graph_attr_conditioning_mode']} conditioning"
+                    if a_cfg.get("use_graph_attr_conditioning") else "")
     log(f"[{tag}] training: run_training on {source} (hidden {a_cfg['hidden_dim']} x {layers} "
         f"conv layers, equivariance on, silu, add pooling, energy weight "
-        f"{a_cfg['energy_weight']}, force weight {a_cfg['force_weight']}, fp32, batch 64, AdamW "
-        f"lr 1e-3), num_epoch cut to {epochs} (the only cut), {n_samples} periodic 64-atom LJ "
-        f"cells: {n_train} train / {n_val} val / {n_test} test batches per epoch, seed {seed}")
+        f"{a_cfg['energy_weight']}, per-atom energy weight {a_cfg['energy_peratom_weight']}, "
+        f"force weight {a_cfg['force_weight']}{conditioning}, fp32, batch {bs}, AdamW lr "
+        f"{t_cfg['Optimizer']['learning_rate']}), num_epoch {t_cfg['num_epoch']}"
+        f"{' (cut: the only cut)' if kind is None else ' (not cut)'}, "
+        f"{sum(len(ld.samples) for ld in loaders)} periodic LJ cells of "
+        f"{loaders[0].samples[0].num_nodes} atoms: {n_train} train / {n_val} val / {n_test} "
+        f"test batches per epoch, seed {seed}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         history: list = []
         fs.reset_launches()
         t0 = time.perf_counter()
-        state, model, aug = run_training(copy.deepcopy(cfg), samples=mlip_samples(n_samples),
+        state, model, aug = run_training(copy.deepcopy(cfg), samples=samples(),
                                          device=device, path=tmp, seed=seed, history=history)
         _sync(torch, device)
         wall = time.perf_counter() - t0
@@ -4255,8 +4787,8 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
         f"{[round(h['val_loss'], 3) for h in history]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"MLIP training: the train loss did not fall: {losses}")
-    per_step = mlip_launches_per_step(layers, arch)
-    per_eval = mlip_launches_per_eval(layers, arch)
+    per_step = mlip_launches_per_step(layers, arch, kind)
+    per_eval = mlip_launches_per_eval(layers, arch, kind)
     want = _added(_scaled(per_step, state.step), _scaled(per_eval, len(history) * (n_val + n_test)))
     log(f"[{tag}] launches during run_training: {launches} (expected {want}: per train step "
         f"{ {k: v for k, v in per_step.items() if v} }, per eval batch "
@@ -4265,7 +4797,7 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
         raise AssertionError(f"MLIP training: launch counts {launches} != {want}")
 
     train_ld = loaders[0]
-    host = collate(train_ld.samples[:64], train_ld.pad)
+    host = collate(train_ld.samples[:bs], train_ld.pad)
     step = make_mlip_train_step(model, torch.float32)
     fs.reset_launches()
     step(state, host.to(device))
@@ -4278,14 +4810,14 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     if device == "cuda":
         from hydragnn_tpu_torch.models.mlip import make_mlip_eval_step
 
-        # the split holds two batches of 64: each twice
-        hosts = [collate(train_ld.samples[64 * (i % 2):64 * (i % 2) + 64], train_ld.pad)
+        # two batches of the split: each twice
+        hosts = [collate(train_ld.samples[bs * (i % 2):bs * (i % 2) + bs], train_ld.pad)
                  for i in range(4)]
         captured = captured_vs_eager(torch, state, step, make_mlip_eval_step(model, torch.float32),
                                      hosts, f"[{card}] [{tag}]", per_step, per_eval)
 
     _step_vs_cpu(torch, aug, host, device, seed, mlip=True)
-    if arch != "EGNN":
+    if arch != "EGNN" or kind is not None:
         mlip_forces_vs_plain(torch, model, host, device, tag)
 
     # where an MLIP train step's time goes (median of 10, host clock after a
@@ -4315,7 +4847,7 @@ def mlip_training_phase(torch, device: str, seed: int, epochs: int = MLIP_EPOCHS
     for b in [host.to(device) for _ in range(reps)]:
         timed("step", lambda: step(state, b))
     med = {k: float(np.median(v)) for k, v in parts.items()}
-    log(f"[{card}] [{tag}] one eager fp32 MLIP train step (64 cells, N={host.num_nodes}, "
+    log(f"[{card}] [{tag}] one eager fp32 MLIP train step ({bs} cells, N={host.num_nodes}, "
         f"E={host.num_edges}; median of {reps}, host clock): to device {med['to_device']:.3f} ms, "
         f"forward (energy) {med['forward']:.3f} ms, force backward (create_graph) "
         f"{med['force_backward']:.3f} ms, loss backward + AdamW {med['loss_backward']:.3f} ms; "
@@ -4839,7 +5371,7 @@ def mlip_launches_per_predict(layers: int, arch: str = "EGNN") -> dict:
 
 
 def mlip_serving_phase(torch, seed: int, m: dict, arch: str = "EGNN", card: str = "",
-                       device: str = "cuda") -> dict:
+                       device: str = "cuda", kind: str | None = None) -> dict:
     """A trained oc20 MLIP (``mlip_training_phase``'s) behind
     ``PredictionServer``: its head outputs, no forces, as the JAX
     ``Predictor`` serves them. Every bucket captured at warm-up, then
@@ -4847,15 +5379,19 @@ def mlip_serving_phase(torch, seed: int, m: dict, arch: str = "EGNN", card: str 
     closed burst (``serve.traffic``) under ``no_new_captures``; each served
     answer bit-equal to ``Predictor.outputs`` (the eager predict step) on
     the same padded batch, i.e. the captured step replays the eager one bit
-    for bit; exact launches per batch; finite answers."""
+    for bit; exact launches per batch; finite answers. ``kind``: a block of
+    ``OWN_DATA`` (the MPTrj EGNN) on its own cells."""
     from hydragnn_tpu_torch import capture
     from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
     from hydragnn_tpu_torch.serve import PredictionServer, Predictor, ServingConfig
 
-    tag = "mlip" if arch == "EGNN" else f"mlip-{arch.lower()}"
+    tag = kind or ("mlip" if arch == "EGNN" else f"mlip-{arch.lower()}")
     model, aug, layers = m["model"], m["aug"], m["layers"]
-    loaders = dataset_loading_and_splitting(mlip_config(MLIP_EPOCHS, arch),
-                                            samples=mlip_samples())
+    if kind is None:
+        loaders = dataset_loading_and_splitting(mlip_config(MLIP_EPOCHS, arch),
+                                                samples=mlip_samples())
+    else:
+        loaders = dataset_loading_and_splitting(qm9_config(kind), samples=raw_samples(seed, kind))
     cells = [s for ld in loaders for s in ld.samples]
     requests = [cells[i % len(cells)] for i in range(MLIP_SERVE_REQUESTS)]
     server = PredictionServer(ServingConfig(queue_depth=2048, flush_ms=5.0), device=device)
@@ -4888,6 +5424,29 @@ def mlip_serving_phase(torch, seed: int, m: dict, arch: str = "EGNN", card: str 
     sm = report.summary()
     return {"launches": launches, "batches": n_batches,
             "summary": [sm["p50_ms"], sm["p99_ms"], sm["graphs_per_sec"]]}
+
+
+def mlip_cpu_parity(torch, model, host, device: str, tag: str) -> None:
+    """A trained MLIP's energies and forces on one batch, on the card
+    against the port's CPU route from the same state: energies within
+    ``CPU_PARITY``, forces within ``MD_RTOL`` x 10 of the largest force
+    (fp32 sums in other orders through the layers, the heads and the
+    position gradient)."""
+    from hydragnn_tpu_torch.models.mlip import make_energy_and_forces
+
+    e_dev, f_dev = make_energy_and_forces(model)(host.to(device))
+    cpu = copy.deepcopy(model).to("cpu")
+    e_cpu, f_cpu = make_energy_and_forces(cpu)(host)
+    gm = host.graph_mask > 0
+    de = float((e_dev.cpu()[gm] - e_cpu[gm]).abs().max())
+    ok_e = torch.allclose(e_dev.cpu()[gm], e_cpu[gm], **CPU_PARITY)
+    f_max = float(f_cpu.abs().max())
+    df = float((f_dev.cpu() - f_cpu).abs().max())
+    log(f"[{tag}] energies and forces, {device} vs the CPU route on one batch: max|dE| "
+        f"{de:.3e} (rtol {CPU_PARITY['rtol']}, atol {CPU_PARITY['atol']}), max|dF| {df:.3e} of "
+        f"max|F| {f_max:.3e} (allowed {10 * MD_RTOL} of it)")
+    if not ok_e or df > 10 * MD_RTOL * f_max:
+        raise AssertionError(f"[{tag}] the card's energies or forces disagree with the CPU route")
 
 
 # -- phase 14: registration from a checkpoint, and the fleet -------------------------
@@ -5279,6 +5838,31 @@ def main(argv=None) -> int:
                                                   card=dev["smi"],
                                                   diagnostics=args.quant_diagnostics,
                                                   comparators=False)
+    for kind in (*QM9_OPTIONS, *MULTIBRANCH_KINDS):
+        with timed_phase(phase_s, kind):
+            served[kind] = serving_phase(torch, "cuda", args.seed, kind, card=dev["smi"])
+            trained[kind] = training_phase(torch, "cuda", args.seed, kind, kernel_times,
+                                           card=dev["smi"],
+                                           epochs=GFM_EPOCHS if kind in OWN_DATA
+                                           else TRAIN_EPOCHS)
+            quantized[kind] = quant_serving_phase(torch, "cuda", args.seed, kind,
+                                                  trained[kind]["model"], trained[kind]["aug"],
+                                                  card=dev["smi"],
+                                                  diagnostics=args.quant_diagnostics,
+                                                  comparators=False)
+    with timed_phase(phase_s, "conv_checkpointing"):
+        ckpt_report = conv_checkpointing_phase(torch, args.seed, trained["gat"],
+                                               trained["gat_ckpt"], card=dev["smi"])
+    with timed_phase(phase_s, "mptrj_film"):
+        film = mlip_training_phase(torch, "cuda", args.seed, card=dev["smi"], kind="mptrj_film")
+        film_served = mlip_serving_phase(torch, args.seed, film, card=dev["smi"],
+                                         kind="mptrj_film")
+        mlip_cpu_parity(torch, film["model"], film["batch"], "cuda", "mptrj_film")
+        quantized["mptrj_film"] = quant_serving_phase(
+            torch, "cuda", args.seed, "mptrj_film", film["model"], film["aug"], card=dev["smi"],
+            diagnostics=args.quant_diagnostics, comparators=False)
+    with timed_phase(phase_s, "optimizers"):
+        optimizers = optimizer_phase(torch, args.seed, card=dev["smi"])
     with timed_phase(phase_s, "variants"):
         variants = {name: variant_phase(torch, args.seed, name, card=dev["smi"])
                     for name in VARIANTS}
@@ -5334,7 +5918,7 @@ def main(argv=None) -> int:
         # rollouts); the serving runs' counts, the per-model rates and the
         # smaller-depth variants' steps beside them
         e["launches"] = (sum(trained[k]["launches"][name] for k in ARCH_KNOBS)
-                         + mlip["launches"][name]
+                         + mlip["launches"][name] + film["launches"][name]
                          + sum(m["launches"][name] for m in mlips.values())
                          + sum(r["launches"][name] for r in ran_md.values()))
         e["launches_variants"] = sum(v["per_step"][name] + v["per_forward"][name]
@@ -5348,7 +5932,8 @@ def main(argv=None) -> int:
                 raise AssertionError("cell_list was not launched on an MD path")
             continue
         e["launches_serving"] = (sum(served[k]["launches"][name] for k in ARCH_KNOBS)
-                                 + sum(m["launches"][name] for m in mlip_served.values()))
+                                 + sum(m["launches"][name] for m in mlip_served.values())
+                                 + film_served["launches"][name])
         e["launches_per_served_batch"] = {
             k: served[k]["launches"][name] / served[k]["batches"] for k in ARCH_KNOBS}
         e["launches_per_served_batch"].update({
@@ -5359,6 +5944,7 @@ def main(argv=None) -> int:
             raise AssertionError("segment_sum was not launched on an MLIP serving path")
         e["launches_per_train_step"] = {k: trained[k]["per_step"][name] for k in ARCH_KNOBS}
         e["launches_per_train_step"]["mlip"] = mlip["per_step"][name]
+        e["launches_per_train_step"]["mptrj_film"] = film["per_step"][name]
         for a, m in mlips.items():
             e["launches_per_train_step"][f"mlip-{a.lower()}"] = m["per_step"][name]
             if name == "segment_sum" and m["launches"][name] <= 0:
@@ -5382,11 +5968,14 @@ def main(argv=None) -> int:
                               "captured": t["captured"]["step_ms"],
                               "busy_eager": _lean(t["eager_busy"]),
                               "busy_captured": _lean(t["captured"]["busy"])}
-                          for k, t in dict(trained, mlip=mlip, **{
+                          for k, t in dict(trained, mlip=mlip, mptrj_film=film, **{
                               f"mlip-{a.lower()}": m for a, m in mlips.items()}).items()},
+        "optimizers": optimizers,
+        "conv_checkpointing": ckpt_report,
         "superstep_gin_s": superstep,
         "int8_serving": {k: q["summary"] for k, q in quantized.items()},
-        "mlip_serving": {a: m["summary"] for a, m in mlip_served.items()},
+        "mlip_serving": {**{a: m["summary"] for a, m in mlip_served.items()},
+                         "mptrj_film": film_served["summary"]},
         "fleet": fleet,
         "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
                                "busy_eager": _lean(r["captured"]["eager_busy"]),

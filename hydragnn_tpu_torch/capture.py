@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import threading
 
@@ -209,9 +210,17 @@ def _capture(warm, run, device, generator=None, before=contextlib.nullcontext):
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
-    with fs.launch_sink(stream) as launches:
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-            outputs = run()
+    # torch.cuda.graph collects garbage before it starts; a collection
+    # during the capture could free an older graph, which a capture forbids
+    gc_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with fs.launch_sink(stream) as launches:
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                outputs = run()
+    finally:
+        if gc_enabled:
+            gc.enable()
     _count_capture()
     return graph, outputs, dict(launches)
 

@@ -10,8 +10,11 @@ reads, with the interatomic-potential (MLIP) keys and the ``MD`` block
 stacks: PNA's in-degree histogram (``pna_deg``, and ``max_neighbours`` from
 its length; PNAEq's too), CGCNN's hidden width (its input width without
 GPS), MACE's mean neighbour count (``avg_num_neighbors``) and the
-edge-dimension rules. The blocks of subsystems the port does not have yet
-come with their slices.
+edge-dimension rules; the graph size (``num_nodes``, ``graph_size_variable``:
+``mlp_per_node`` heads need one size) and the width of the graph
+attributes (``graph_attr_dim``, port-only: the port builds its conditioning
+layers when the model is constructed, flax at its first call). The blocks
+of subsystems the port does not have yet come with their slices.
 """
 
 from __future__ import annotations
@@ -159,6 +162,22 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
             dims_list.append(int(feats["dim"][output_index[ihead]]))
     arch["output_dim"] = dims_list
     arch["output_type"] = output_type
+    # the graph size, from the training samples (the JAX package's
+    # HYDRAGNN_USE_VARIABLE_GRAPH_SIZE override is not ported): a per-node
+    # head keeps one weight bank per node position
+    first = train_samples[0] if len(train_samples) else None
+    arch["num_nodes"] = int(first.num_nodes) if first is not None else None
+    arch["graph_size_variable"] = len({s.num_nodes for s in train_samples}) > 1
+    if arch["graph_size_variable"]:
+        for branch in arch["output_heads"].get("node", []):
+            if branch["architecture"].get("type") == "mlp_per_node":
+                raise ValueError(
+                    '"mlp_per_node" is not allowed for variable graph size; use "mlp" or "conv"'
+                )
+    if first is not None:
+        arch["graph_attr_dim"] = int(first.graph_attr.shape[0])
+    else:
+        arch.setdefault("graph_attr_dim", 0)
     arch["input_dim"] = len(voi.get("input_node_features", []))
 
     # PNA's degree histogram, and the neighbour bound it implies
@@ -201,6 +220,7 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
             f"{sorted(KNOWN_PRECISIONS)}"
         )
     training.setdefault("batch_size", 32)
+    training.setdefault("conv_checkpointing", False)
     training.setdefault("Optimizer", {"type": "AdamW", "learning_rate": 1e-3})
     voi.setdefault("denormalize_output", False)
     return config
@@ -268,10 +288,20 @@ class ModelSpec:
     energy_weight: float = 0.0
     energy_peratom_weight: float = 0.0
     force_weight: float = 0.0
-    # read only to refuse what this slice of the port does not run
     edge_dim: int = 0
+    # graph-attribute conditioning: "film", "concat_node" or "fuse_pool";
+    # graph_attr_dim (port-only) is the attributes' width, 0 for none (then
+    # no conditioning layer exists, as flax creates none it never calls)
     use_graph_attr_conditioning: bool = False
+    graph_attr_conditioning_mode: str = "concat_node"
+    graph_attr_dim: int = 0
+    # GaussianNLLLoss: every head predicts a mean and a variance
     var_output: bool = False
+    # one graph size (mlp_per_node heads), from the training samples
+    num_nodes: int | None = None
+    graph_size_variable: bool = False
+    # recompute each conv layer's activations in the backward
+    conv_checkpointing: bool = False
 
     @property
     def num_heads(self) -> int:
@@ -352,7 +382,12 @@ class ModelSpec:
             force_weight=float(arch.get("force_weight", 0.0)),
             edge_dim=int(arch.get("edge_dim") or len(arch.get("edge_features") or [])),
             use_graph_attr_conditioning=bool(arch.get("use_graph_attr_conditioning", False)),
+            graph_attr_conditioning_mode=arch.get("graph_attr_conditioning_mode", "concat_node"),
+            graph_attr_dim=int(arch.get("graph_attr_dim") or 0),
             var_output=training.get("loss_function_type") == "GaussianNLLLoss",
+            num_nodes=arch.get("num_nodes"),
+            graph_size_variable=bool(arch.get("graph_size_variable", False)),
+            conv_checkpointing=bool(training.get("conv_checkpointing", False)),
         )
 
 

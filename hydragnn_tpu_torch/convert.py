@@ -37,7 +37,13 @@ flax (``params`` / ``batch_stats``)       port module
 ``feature_norm_{i}/{scale,bias}``         ``feature_layers[i].{scale,bias}`` (not EGNN, SchNet)
 ``feature_norm_{i}/{mean,var}``           ``feature_layers[i].{mean,var}``
 ``graph_shared_{branch}/dense_{j}``       ``graph_shared[branch].dense_{j}``
-``head{k}_{branch}/dense_{j}``            ``heads_NN[k][branch].dense_{j}``
+``head{k}_{branch}/dense_{j}``            ``heads_NN[k][branch].dense_{j}`` (every branch)
+``head{k}_{branch}/{w_i,b_i}``            ``heads_NN[k][branch].{w_i,b_i}`` (``mlp_per_node``)
+``head{k}_{branch}_conv{j}/...``          ``heads_NN[k][branch].conv{j}...`` (``conv`` head)
+``head{k}_{branch}_convout/...``          ``heads_NN[k][branch].convout...`` (``conv`` head)
+``graph_conditioner/dense_{j}``           ``graph_conditioner.dense_{j}`` (``film``)
+``graph_concat_projector``                ``graph_concat_projector`` (``concat_node``)
+``graph_pool_projector/dense_{j}``        ``graph_pool_projector.dense_{j}`` (``fuse_pool``)
 ========================================  ======================================================
 
 The other stacks' parameters map the same way, name for name. Inputs are
@@ -77,7 +83,8 @@ def _port_name(path: tuple) -> str:
     leaf = rest[-1]
     if leaf == "kernel":
         rest[-1] = "weight"
-    if top in ("pos_emb", "node_emb", "node_lin"):
+    if top in ("pos_emb", "node_emb", "node_lin", "graph_conditioner",
+               "graph_concat_projector", "graph_pool_projector"):
         return ".".join([top, *rest])
     m = re.fullmatch(r"graph_convs_(\d+)", top)
     if m:
@@ -88,9 +95,12 @@ def _port_name(path: tuple) -> str:
     m = re.fullmatch(r"graph_shared_(.+)", top)
     if m:
         return ".".join([f"graph_shared.{m.group(1)}", *rest])
-    m = re.fullmatch(r"head(\d+)_(.+)", top)
+    # a conv head's layers are head{k}_{branch}_conv{j} / _convout; branch
+    # names ("branch-{n}") hold no underscore
+    m = re.fullmatch(r"head(\d+)_([^_]+)(?:_(conv\d+|convout))?", top)
     if m:
-        return ".".join([f"heads_NN.{m.group(1)}.{m.group(2)}", *rest])
+        return ".".join([f"heads_NN.{m.group(1)}.{m.group(2)}",
+                         *([m.group(3)] if m.group(3) else []), *rest])
     raise KeyError(f"no port module for flax variable {'/'.join(path)}")
 
 

@@ -28,6 +28,8 @@ class CGCNNConv(nn.Module):
     """Parameters ``lin_f`` and ``lin_s`` (``2 in + edge_dim -> in``), and ``proj``
     (``in -> out_dim``) when ``out_dim`` differs from the input width."""
 
+    keeps_width = True  # a conv node head's layers keep the heads' input width
+
     def __init__(self, spec: ModelSpec, layer: int, in_features: int,
                  out_dim: int | None = None, generator: torch.Generator | None = None):
         super().__init__()

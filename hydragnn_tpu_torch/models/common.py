@@ -10,6 +10,11 @@ computes:
 * a dense layer promotes its input and parameters to their common type
   (``F.linear`` refuses mixed types, flax's ``Dense`` promotes), which is
   what makes the "bf16" predict path run fp32 after the first feature norm.
+
+:func:`checkpointed` is the port of flax's ``nn.remat`` around a conv
+layer (``Training.conv_checkpointing``): ``torch.utils.checkpoint`` with
+the dropout masks of the first pass replayed in the recompute and the
+running statistics moved once.
 """
 
 from __future__ import annotations
@@ -83,6 +88,54 @@ def variance_scaling_uniform_(weight: torch.Tensor, scale: float,
 _DENSE_INTERCEPTOR: contextvars.ContextVar = contextvars.ContextVar(
     "dense_interceptor", default=None)
 
+# the pass of a checkpointed region (:func:`checkpointed`) this thread is
+# in: None outside one, ("record", masks) in its first pass, ("replay",
+# iterator over those masks) in a recompute
+_CHECKPOINT_PASS: contextvars.ContextVar = contextvars.ContextVar(
+    "checkpoint_pass", default=None)
+
+
+def _keep_mask(shape, keep_prob: float, generator: torch.Generator,
+               device) -> torch.Tensor:
+    """Dropout's keep mask: drawn from ``generator``, except in the
+    recompute of a checkpointed region, which takes its first pass's masks
+    in their order (the generator does not advance again)."""
+    tape = _CHECKPOINT_PASS.get()
+    if tape is not None and tape[0] == "replay":
+        return next(tape[1])
+    keep = torch.rand(shape, generator=generator, device=device) < keep_prob
+    if tape is not None:
+        tape[1].append(keep)
+    return keep
+
+
+def checkpointed(fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    instead of kept (``torch.utils.checkpoint``, non-reentrant, the whole
+    function recomputed: no early stop, so a kernel inside launches exactly
+    twice per backward). ``preserve_rng_state`` would restore only the
+    default generators, and the port's dropout draws from an explicit one:
+    here the recompute replays the first pass's dropout masks instead, and
+    skips the running-statistics update of any batch norm inside, so the
+    forward, the gradients and the state are bit-equal to ``fn`` without
+    checkpointing."""
+    from torch.utils import checkpoint as ckpt
+
+    masks: list = []
+    passes = {"n": 0}
+
+    def run(*a):
+        first = passes["n"] == 0
+        passes["n"] += 1
+        token = _CHECKPOINT_PASS.set(("record", masks) if first else ("replay", iter(masks)))
+        try:
+            return fn(*a)
+        finally:
+            _CHECKPOINT_PASS.reset(token)
+
+    with ckpt.set_checkpoint_early_stop(False):
+        return ckpt.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
 
 @contextlib.contextmanager
 def intercept_dense(fn: Callable[[nn.Module, torch.Tensor], torch.Tensor | None]
@@ -145,7 +198,7 @@ class Dropout(nn.Module):
             raise ValueError("Dropout in train mode needs a torch.Generator (the train "
                              "step's), as flax needs a 'dropout' rng")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        keep = _keep_mask(x.shape, keep_prob, generator, x.device)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -207,12 +260,15 @@ class MaskedBatchNorm(nn.Module):
             mean = (x * m).sum(dim=0) / count
             var = (((x - mean) ** 2) * m).sum(dim=0) / count
             has_rows = msum > 0
-            with torch.no_grad():
-                # the EMA is gated on real rows: a zero-count batch keeps the
-                # running statistics bit-identical
-                alpha = (1.0 - self.momentum) * has_rows.to(torch.float32)
-                self.mean.copy_(self.mean + alpha * (mean.detach() - self.mean))
-                self.var.copy_(self.var + alpha * (var.detach() - self.var))
+            tape = _CHECKPOINT_PASS.get()
+            # the EMA is gated on real rows: a zero-count batch keeps the
+            # running statistics bit-identical; a checkpointed recompute
+            # leaves them as its first pass moved them
+            if tape is None or tape[0] == "record":
+                with torch.no_grad():
+                    alpha = (1.0 - self.momentum) * has_rows.to(torch.float32)
+                    self.mean.copy_(self.mean + alpha * (mean.detach() - self.mean))
+                    self.var.copy_(self.var + alpha * (var.detach() - self.var))
             # like jnp.where, this promotes to the running statistics' fp32
             mean = torch.where(has_rows, mean, self.mean)
             var = torch.where(has_rows, var, self.var)
@@ -253,6 +309,15 @@ def gather_ends(inv: torch.Tensor, batch) -> tuple[torch.Tensor, torch.Tensor]:
                 if on_card and inv.requires_grad and torch.is_grad_enabled() else None)
     return (gather_rows(inv, batch.receivers, recv_idx),
             gather_rows(inv, batch.senders, send_idx))
+
+
+def local_node_index(batch_ids: torch.Tensor, n_node: torch.Tensor,
+                     num_nodes: int) -> torch.Tensor:
+    """Each node's position within its own graph (collate packs a graph's
+    nodes together), the index of ``mlp_per_node``'s weight banks."""
+    offsets = torch.cumsum(n_node, 0) - n_node
+    return torch.arange(num_nodes, dtype=batch_ids.dtype,
+                        device=batch_ids.device) - offsets[batch_ids].to(batch_ids.dtype)
 
 
 def coordinate_update_layers(module: nn.Module, hidden: int, prefix: str = "coord",
@@ -328,6 +393,19 @@ def masked_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
     return _masked_mean(huber, m, pred.shape[-1])
 
 
+def masked_gaussian_nll(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                        var: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.GaussianNLLLoss`` over real rows: ``0.5 (log var + (pred -
+    target)^2 / var)``, the variance floored at 1e-6, the mean over real
+    rows (the JAX package's ``masked_gaussian_nll``)."""
+    # the floor filled on the variances' device: a captured step copies
+    # nothing from the host
+    var = torch.maximum(var, torch.full_like(var, 1e-6))
+    m = _row_mask(mask, pred)
+    nll = 0.5 * (torch.log(var) + (pred - target) ** 2 / var) * m
+    return _masked_mean(nll, m, pred.shape[-1])
+
+
 _LOSSES = {
     "mse": masked_mse,
     "mae": masked_mae,
@@ -337,11 +415,10 @@ _LOSSES = {
 
 
 def get_loss(name: str):
+    """The masked loss ``(pred, target, mask) -> scalar``; GaussianNLLLoss
+    takes the variances as a fourth argument."""
     if name == "GaussianNLLLoss":
-        raise NotImplementedError(
-            "GaussianNLLLoss needs variance outputs (var_output), which are not "
-            "ported yet; they come with a later slice"
-        )
+        return masked_gaussian_nll
     try:
         return _LOSSES[name]
     except KeyError:
@@ -353,6 +430,7 @@ def get_loss(name: str):
 __all__ = [
     "Dense",
     "Dropout",
+    "checkpointed",
     "MLP",
     "MaskedBatchNorm",
     "coordinate_update_layers",
@@ -362,6 +440,8 @@ __all__ = [
     "get_loss",
     "intercept_dense",
     "lecun_normal_",
+    "local_node_index",
+    "masked_gaussian_nll",
     "masked_mae",
     "masked_mse",
     "masked_rmse",

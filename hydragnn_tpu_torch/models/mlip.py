@@ -15,7 +15,10 @@ Loss (reference ``create.py:626-738``):
 
 with the task losses reported as [energy, energy_per_atom, force].
 Constraints kept from the reference: exactly one output head; a graph head
-needs sum pooling; a node head is summed into a graph energy.
+needs sum pooling; a node head is summed into a graph energy. A
+``var_output`` model's energy is its head's mean; graph-attribute
+conditioning reads the batch's ``graph_attr`` in the forward, as in every
+other model.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ def make_graph_energy_fn(model):
     spec = model.spec
 
     def energy_fn(batch: GraphBatch, train: bool = False) -> torch.Tensor:
-        return graph_energy(spec, model(batch, train=train)[0], batch)
+        out = model(batch, train=train)
+        return graph_energy(spec, (out[0] if spec.var_output else out)[0], batch)
 
     return energy_fn
 
@@ -123,7 +127,7 @@ def make_mlip_train_step(model, compute_dtype: torch.dtype = torch.float32,
     ``create_graph=True``, so the loss's backward reaches the parameters
     through it. ``loss_scale`` scales the outer objective only: the forces
     stay in physical units, as the JAX step keeps them."""
-    from ..train.step import cast_forward, optimizer_step
+    from ..train.step import cast_forward, head_means, optimizer_step
 
     spec = model.spec
     validate_mlip_spec(spec)
@@ -131,8 +135,8 @@ def make_mlip_train_step(model, compute_dtype: torch.dtype = torch.float32,
 
     def train_step(state, batch: GraphBatch) -> dict:
         b, pos = _position_leaf(batch)
-        pred = cast_forward(state.model, b, compute_dtype, train=True,
-                            generator=state.generator)
+        pred = head_means(state.model, cast_forward(state.model, b, compute_dtype, train=True,
+                                                    generator=state.generator))
         graph_e = graph_energy(spec, pred[0], batch).to(torch.float32)
         (grad_pos,) = torch.autograd.grad(graph_e.sum(), pos, create_graph=True)
         forces = (-grad_pos * batch.node_mask[:, None]).to(torch.float32)
@@ -147,14 +151,15 @@ def make_mlip_eval_step(model, compute_dtype: torch.dtype = torch.float32):
     squared errors and element counts of [energy, force] (``head_sse``,
     ``head_count``); eval-mode forward, forces without a graph for a second
     derivative, no update."""
-    from ..train.step import cast_forward
+    from ..train.step import cast_forward, head_means
 
     spec = model.spec
 
     def eval_step(state, batch: GraphBatch) -> dict:
         with torch.enable_grad():
             b, pos = _position_leaf(batch)
-            pred = cast_forward(state.model, b, compute_dtype, train=False)
+            pred = head_means(state.model, cast_forward(state.model, b, compute_dtype,
+                                                        train=False))
             graph_e = graph_energy(spec, pred[0], batch).to(torch.float32)
             (grad_pos,) = torch.autograd.grad(graph_e.sum(), pos)
         with torch.no_grad():

@@ -81,8 +81,9 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
     if depth > 0:
         train_loader = PrefetchLoader(train_loader, depth=depth, device=device)
     if config.get("Visualization", {}).get("create_plots"):
-        print("Visualization.create_plots: plots are not ported yet (a later slice: "
-              "pre/post-processing); training without them", flush=True)
+        print("Visualization.create_plots: plots are not ported yet (a later slice: run-time "
+              "extras; they draw with matplotlib, which the port does not require); training "
+              "without them", flush=True)
 
     train_validate_test(
         state, train_loader, val_loader, test_loader, config["NeuralNetwork"], log_name,

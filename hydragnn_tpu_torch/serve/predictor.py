@@ -13,7 +13,7 @@ import torch
 
 from ..capture import Dispatch
 from ..models.base import head_columns
-from ..train.step import make_predict_step, resolve_precision
+from ..train.step import head_means, make_predict_step, resolve_precision
 from ..utils import resolve_device
 
 
@@ -54,11 +54,12 @@ class Predictor:
 
     def outputs(self, batch, step=None) -> list[torch.Tensor]:
         """Per-head fp32 predictions for one padded batch (still padded;
-        callers mask), on the model's device. ``step`` replaces the fp32
-        predict step (the serving tier passes its int8 step here)."""
+        callers mask), on the model's device; a ``var_output`` model's
+        variances are dropped. ``step`` replaces the fp32 predict step (the
+        serving tier passes its int8 step here)."""
         if batch.device != self.device:
             batch = batch.to(self.device)
-        return (step or self.predict_step)(batch)
+        return head_means(self.model, (step or self.predict_step)(batch))
 
     def dispatch(self, step=None):
         """The :class:`~hydragnn_tpu_torch.capture.Dispatch` of ``step``
@@ -67,8 +68,9 @@ class Predictor:
         d = self.dispatches.get(step)
         if d is None:
             name = "predict" if step is self.predict_step else "predict int8"
-            d = self.dispatches[step] = Dispatch(lambda _state, batch: step(batch), name,
-                                                 device=self.device)
+            d = self.dispatches[step] = Dispatch(
+                lambda _state, batch: head_means(self.model, step(batch)), name,
+                device=self.device)
         return d
 
     def answer(self, batch, step=None) -> list[torch.Tensor]:

@@ -12,12 +12,31 @@ differ:
 * ``Adam``: no weight decay, ``eps`` 1e-8, betas (0.9, 0.999) on both;
 * ``SGD``: plain ``p -= lr * g``, no momentum.
 
-The other optax types of the JAX package (rmsprop, adagrad, adadelta,
-adamax, lamb) raise until each has its own parity test: optax's defaults
-differ from torch's for some of them (rmsprop's ``decay`` 0.9 against
-torch's ``alpha`` 0.99, with ``eps`` inside the square root; adagrad's
-initial accumulator 0.1 and ``eps`` 1e-7), and lamb has no ``torch.optim``
-counterpart.
+The other optax types of the JAX package have no ``torch.optim`` class that
+computes optax's update (torch's RMSprop decays by 0.99 with ``eps``
+outside the root, its Adagrad starts at 0 with ``eps`` outside, its
+Adadelta defaults to ``lr`` 1, and it has no LAMB), so the port computes
+optax's own (``optax`` 0.2.6), one class each, element by element in
+optax's order of operations:
+
+* ``RMSprop`` (:class:`OptaxRMSProp`): ``nu = 0.1 g^2 + 0.9 nu``, ``g
+  rsqrt(nu + 1e-8)``; no centring, no momentum;
+* ``Adagrad`` (:class:`OptaxAdagrad`): ``s = g^2 + s`` from 0.1, ``g
+  rsqrt(s + 1e-7)`` where ``s > 0``;
+* ``Adadelta`` (:class:`OptaxAdadelta`): rho 0.9, eps 1e-6, scaled by the
+  learning rate the JAX package passes;
+* ``Adamax`` (:class:`OptaxAdamax`): ``nu = max(|g| + 1e-8, 0.999 nu)``,
+  the bias-corrected first moment over ``nu``;
+* ``LAMB`` and ``FusedLAMB`` (:class:`OptaxLAMB`): optax's Adam update
+  (eps 1e-6), plus ``weight_decay p`` (0 unless the config gives one), times
+  the trust ratio ``||p|| / ||u||`` (1 where either norm is 0).
+
+Their state is made when they are constructed, at optax's initial values
+(a captured step then finds it; ``capture.preserved`` restores it), their
+bias corrections and trust ratios are computed on the parameters' device,
+and the learning rate is a float or a 0-d float64 tensor alike: the update
+is ``p + (-lr) u`` with ``-lr`` rounded to float32, as optax's injected
+rate is.
 
 The learning rate lives in ``param_groups``, so the host-side plateau
 scheduler changes it between steps. On the CPU the optimizers are the
@@ -124,6 +143,179 @@ class CapturableSGD(torch.optim.Optimizer):
                                         [(-group["lr"]).float()] * len(params))
 
 
+class _OptaxRule(torch.optim.Optimizer):
+    """An optax update rule over ``params``, with its per-parameter state
+    (``MOMENTS``: name -> initial value, and the step count when
+    ``COUNTED``) made at construction. ``lr`` is a float or a 0-d float64
+    tensor on the parameters' device (the card's, which
+    :func:`set_learning_rate` writes in place); the update is computed the
+    same way for both. Subclasses give :meth:`direction`, the update before
+    the learning rate."""
+
+    MOMENTS: dict = {}
+    COUNTED = False
+
+    def __init__(self, params, lr, **hyper):
+        # "capturable" keeps a loaded step count on the parameters' device
+        super().__init__(params, {"lr": lr, **hyper, "capturable": True})
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state[p]
+                if self.COUNTED:
+                    state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                for name, init in self.MOMENTS.items():
+                    state[name] = torch.full_like(p, init, memory_format=torch.preserve_format)
+
+    @staticmethod
+    def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+        """optax's ``1 - decay ** count``, in float32 on the device."""
+        return 1.0 - torch.pow(decay, count)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError(f"{type(self).__name__} takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            state = {k: [self.state[p][k] for p in params]
+                     for k in (*self.MOMENTS, *(("step",) if self.COUNTED else ()))}
+            if self.COUNTED:
+                torch._foreach_add_(state["step"], 1)
+            updates = self.direction(group, params, grads, state)
+            rate = group["lr"]
+            if not torch.is_tensor(rate):
+                rate = torch.tensor(rate, dtype=torch.float64)
+            neg = (-rate).to(device=params[0].device, dtype=torch.float32)
+            torch._foreach_mul_(updates, neg)
+            torch._foreach_add_(params, updates)
+
+    def direction(self, group, params, grads, state) -> list:
+        raise NotImplementedError
+
+
+def _moment(moments, values, decay: float) -> None:
+    """optax's ``update_moment``: ``m = (1 - decay) v + decay m``, in
+    place."""
+    scaled = torch._foreach_mul(values, 1.0 - decay)
+    torch._foreach_mul_(moments, decay)
+    torch._foreach_add_(moments, scaled)
+
+
+class OptaxRMSProp(_OptaxRule):
+    """``optax.rmsprop`` (decay 0.9, eps 1e-8 inside the root, no centring,
+    no momentum)."""
+
+    MOMENTS = {"nu": 0.0}
+
+    def __init__(self, params, lr, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, lr, decay=decay, eps=eps)
+
+    def direction(self, group, params, grads, state):
+        _moment(state["nu"], torch._foreach_mul(grads, grads), group["decay"])
+        scaling = torch._foreach_add(state["nu"], group["eps"])
+        torch._foreach_rsqrt_(scaling)
+        torch._foreach_mul_(scaling, grads)
+        return scaling
+
+
+class OptaxAdagrad(_OptaxRule):
+    """``optax.adagrad`` (initial accumulator 0.1, eps 1e-7 inside the
+    root, 0 where the accumulator is 0)."""
+
+    MOMENTS = {"sum_of_squares": 0.1}
+
+    def __init__(self, params, lr, eps: float = 1e-7):
+        super().__init__(params, lr, eps=eps)
+
+    def direction(self, group, params, grads, state):
+        acc = state["sum_of_squares"]
+        torch._foreach_add_(acc, torch._foreach_mul(grads, grads))
+        inv = torch._foreach_add(acc, group["eps"])
+        torch._foreach_rsqrt_(inv)
+        out = []
+        for a, i, g in zip(acc, inv, grads):
+            out.append(torch.where(a > 0, i, torch.zeros_like(i)) * g)
+        return out
+
+
+class OptaxAdadelta(_OptaxRule):
+    """``optax.adadelta`` (rho 0.9, eps 1e-6, no weight decay), scaled by
+    the learning rate."""
+
+    MOMENTS = {"e_g": 0.0, "e_x": 0.0}
+
+    def __init__(self, params, lr, rho: float = 0.9, eps: float = 1e-6):
+        super().__init__(params, lr, rho=rho, eps=eps)
+
+    def direction(self, group, params, grads, state):
+        rho, eps = group["rho"], group["eps"]
+        _moment(state["e_g"], torch._foreach_mul(grads, grads), rho)
+        num = torch._foreach_add(state["e_x"], eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(state["e_g"], eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(num, den)
+        torch._foreach_mul_(num, grads)
+        _moment(state["e_x"], torch._foreach_mul(num, num), rho)
+        return num
+
+
+class OptaxAdamax(_OptaxRule):
+    """``optax.adamax`` (b1 0.9, b2 0.999, eps 1e-8): ``nu = max(|g| + eps,
+    b2 nu)``, the update ``mu / (1 - b1^t) / nu``."""
+
+    MOMENTS = {"mu": 0.0, "nu": 0.0}
+    COUNTED = True
+
+    def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, lr, b1=b1, b2=b2, eps=eps)
+
+    def direction(self, group, params, grads, state):
+        b1, b2 = group["b1"], group["b2"]
+        _moment(state["mu"], grads, b1)
+        inf = torch._foreach_abs(grads)
+        torch._foreach_add_(inf, group["eps"])
+        torch._foreach_mul_(state["nu"], b2)
+        torch._foreach_maximum_(state["nu"], inf)
+        out = torch._foreach_div(state["mu"], self._bias_correction(b1, state["step"][0]))
+        torch._foreach_div_(out, state["nu"])
+        return out
+
+
+class OptaxLAMB(_OptaxRule):
+    """``optax.lamb`` (b1 0.9, b2 0.999, eps 1e-6, eps_root 0): the Adam
+    direction, plus ``weight_decay p``, times the per-parameter trust ratio
+    ``||p|| / ||u||`` (1 where either norm is 0)."""
+
+    MOMENTS = {"mu": 0.0, "nu": 0.0}
+    COUNTED = True
+
+    def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        super().__init__(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+
+    def direction(self, group, params, grads, state):
+        b1, b2 = group["b1"], group["b2"]
+        _moment(state["mu"], grads, b1)
+        _moment(state["nu"], torch._foreach_mul(grads, grads), b2)
+        count = state["step"][0]
+        mu_hat = torch._foreach_div(state["mu"], self._bias_correction(b1, count))
+        nu_hat = torch._foreach_div(state["nu"], self._bias_correction(b2, count))
+        torch._foreach_sqrt_(nu_hat)
+        torch._foreach_add_(nu_hat, group["eps"])
+        torch._foreach_div_(mu_hat, nu_hat)
+        torch._foreach_add_(mu_hat, torch._foreach_mul(params, group["weight_decay"]))
+        p_norm = torch.stack(torch._foreach_norm(params))
+        u_norm = torch.stack(torch._foreach_norm(mu_hat))
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
+                            p_norm / u_norm)
+        torch._foreach_mul_(mu_hat, list(ratio.unbind()))
+        return mu_hat
+
+
 def select_optimizer(optimizer_config: dict, params) -> torch.optim.Optimizer:
     """The ``Training.Optimizer`` section as a ``torch.optim`` optimizer
     over ``params``: capturable, with a device learning rate, when they lie
@@ -146,12 +338,16 @@ def select_optimizer(optimizer_config: dict, params) -> torch.optim.Optimizer:
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
     if t == "sgd":
         return CapturableSGD(params, lr=rate) if card else torch.optim.SGD(params, lr=lr)
-    if t in ("rmsprop", "adagrad", "adadelta", "adamax", "lamb", "fusedlamb"):
-        raise NotImplementedError(
-            f"optimizer {opt_type!r} is not ported yet: optax's defaults for it differ "
-            "from torch's; it comes with a later slice"
-        )
+    if t in ("lamb", "fusedlamb"):
+        wd = optimizer_config.get("weight_decay")
+        return OptaxLAMB(params, rate, weight_decay=0.0 if wd is None else float(wd))
+    if t in _OPTAX_RULES:
+        return _OPTAX_RULES[t](params, rate)
     raise NameError(f"The string used to identify the optimizer is NOT recognized: {opt_type}")
+
+
+_OPTAX_RULES = {"rmsprop": OptaxRMSProp, "adagrad": OptaxAdagrad, "adadelta": OptaxAdadelta,
+                "adamax": OptaxAdamax}
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
@@ -251,6 +447,11 @@ __all__ = [
     "OPTAX_ADAMW_WEIGHT_DECAY",
     "CapturableAdam",
     "CapturableSGD",
+    "OptaxAdadelta",
+    "OptaxAdagrad",
+    "OptaxAdamax",
+    "OptaxLAMB",
+    "OptaxRMSProp",
     "ReduceLROnPlateau",
     "get_learning_rate",
     "load_optimizer_state",

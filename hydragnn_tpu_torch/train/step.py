@@ -121,10 +121,10 @@ def freeze_conv_grads(model: torch.nn.Module) -> None:
 
 def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, train: bool,
                  generator: torch.Generator | None = None):
-    """The model's per-head outputs, as fp32, with its parameters and the
-    batch's floating fields cast to ``compute_dtype`` and the running
-    statistics left as they are; ``generator`` draws the dropout masks in
-    train mode."""
+    """The model's per-head outputs (with ``var_output``: ``(means,
+    variances)``), as fp32, with its parameters and the batch's floating
+    fields cast to ``compute_dtype`` and the running statistics left as
+    they are; ``generator`` draws the dropout masks in train mode."""
     params = {
         n: (p.to(compute_dtype) if p.is_floating_point() else p)
         for n, p in model.named_parameters()
@@ -133,7 +133,17 @@ def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, trai
     c_batch = batch.map_floats(lambda t: t.to(compute_dtype))
     outputs = torch.func.functional_call(model, {**params, **buffers}, (c_batch,),
                                          {"train": train, "generator": generator})
+    if model.spec.var_output:
+        means, variances = outputs
+        return ([o.to(torch.float32) for o in means],
+                [v.to(torch.float32) for v in variances])
     return [o.to(torch.float32) for o in outputs]
+
+
+def head_means(model: torch.nn.Module, outputs):
+    """The per-head means of :func:`cast_forward`'s outputs (its variances
+    dropped under ``var_output``)."""
+    return outputs[0] if model.spec.var_output else outputs
 
 
 def make_train_step(compute_dtype: torch.dtype = torch.float32, loss_scale: float | None = None):
@@ -199,8 +209,9 @@ def make_eval_step(compute_dtype: torch.dtype = torch.float32):
 
 
 def make_predict_step(model: torch.nn.Module, compute_dtype: torch.dtype = torch.float32):
-    """``batch -> per-head fp32 predictions`` for a batch on the model's
-    device, under ``torch.inference_mode``."""
+    """``batch -> per-head fp32 predictions`` (with ``var_output``:
+    ``(means, variances)``) for a batch on the model's device, under
+    ``torch.inference_mode``."""
 
     def predict_step(batch):
         with torch.inference_mode():
@@ -217,6 +228,7 @@ __all__ = [
     "cast_forward",
     "create_train_state",
     "freeze_conv_grads",
+    "head_means",
     "make_eval_step",
     "make_predict_step",
     "make_train_step",

@@ -3,6 +3,7 @@ the port (on the CPU) for the given conv stacks, one JSON line each:
 
     JAX_PLATFORMS=cpu python tests/canary_readings.py SAGE MFC SchNet PNA PNAPlus CGCNN
     JAX_PLATFORMS=cpu python tests/canary_readings.py gat_edge gps_pna_edge gps_performer
+    JAX_PLATFORMS=cpu python tests/canary_readings.py gin_per_node gin_conv_heads
 
 A stack's configuration is ``tests/test_training_e2e.py::test_invariant_arch_convergence``'s
 (``run_arch_e2e`` with ``multihead=True`` and the stack's ``ARCH_OVERRIDES``:
@@ -11,7 +12,9 @@ line holds every head's RMSE and sample MAE beside the stack's
 ``THRESHOLDS``. A lower-case name is one of ``chip_smoke.CANARIES``
 (``chip_smoke.canary_config``: its samples, data seed, epochs and
 thresholds; GAT with the edge lengths, GPS-PNA with the edge lengths, the
-GPS performer). The tests gate these numbers; this script only reads them.
+GPS performer; the 4-head GIN with ``mlp_per_node`` node heads, on the
+fixed-size graphs of ``chip_smoke.CANARY_DATA``, and with ``conv`` node
+heads). The tests gate these numbers; this script only reads them.
 """
 
 from __future__ import annotations
@@ -38,29 +41,30 @@ def readings(trues, preds) -> tuple[list, list]:
     return rmse, mae
 
 
-def jax_canary(cfg, n: int = 500, seed: int = 7) -> tuple[list, list]:
+def jax_canary(cfg, n: int = 500, seed: int = 7, **data) -> tuple[list, list]:
     import hydragnn_tpu
     from hydragnn_tpu.datasets import deterministic_graph_data
 
     # fresh samples for each call: preprocessing mutates them (the edge
     # lengths are appended)
     state, model, _ = hydragnn_tpu.run_training(
-        copy.deepcopy(cfg), samples=deterministic_graph_data(number_configurations=n, seed=seed))
+        copy.deepcopy(cfg),
+        samples=deterministic_graph_data(number_configurations=n, seed=seed, **data))
     _, _, trues, preds = hydragnn_tpu.run_prediction(
         copy.deepcopy(cfg), state, model,
-        samples=deterministic_graph_data(number_configurations=n, seed=seed))
+        samples=deterministic_graph_data(number_configurations=n, seed=seed, **data))
     return readings(trues, preds)
 
 
-def port_canary(cfg, n: int = 500, seed: int = 7) -> tuple[list, list]:
+def port_canary(cfg, n: int = 500, seed: int = 7, **data) -> tuple[list, list]:
     from hydragnn_tpu_torch import run_prediction, run_training
     from hydragnn_tpu_torch.datasets import deterministic_graph_data
 
     with tempfile.TemporaryDirectory() as tmp:
         state, _, _ = run_training(copy.deepcopy(cfg), device="cpu", path=tmp,
-                                   samples=deterministic_graph_data(n, seed=seed))
+                                   samples=deterministic_graph_data(n, seed=seed, **data))
     _, _, trues, preds = run_prediction(copy.deepcopy(cfg), state, device="cpu",
-                                        samples=deterministic_graph_data(n, seed=seed))
+                                        samples=deterministic_graph_data(n, seed=seed, **data))
     return readings(trues, preds)
 
 
@@ -71,10 +75,11 @@ def chip_smoke_canary(name: str) -> None:
 
     n, seed, _, rmse_max, mae_max, held = chip_smoke.CANARIES[name]
     cfg = chip_smoke.canary_config(name)
+    data = chip_smoke.CANARY_DATA.get(name, {})
     for package, fn in (("hydragnn_tpu", jax_canary), ("hydragnn_tpu_torch (cpu)",
                                                         port_canary)):
         t0 = time.perf_counter()
-        rmse, mae = fn(cfg, n, seed)
+        rmse, mae = fn(cfg, n, seed, **data)
         print(json.dumps({"canary": name, "package": package, "rmse": rmse[:held],
                           "mae": mae[:held], "thresholds": [rmse_max, mae_max],
                           "seconds": time.perf_counter() - t0}), flush=True)

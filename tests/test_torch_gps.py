@@ -282,11 +282,12 @@ def test_server_refuses_request_without_positional_encodings(setup):
 
 @pytest.mark.parametrize("override,what", [
     # performer attention and GPS around GAT are ported
-    # (tests/test_torch_gps_performer.py, tests/test_torch_gps_variants.py);
+    # (tests/test_torch_gps_performer.py, tests/test_torch_gps_variants.py),
+    # and so is graph-attribute conditioning (tests/test_torch_conditioning.py);
     # these ids now point at what stays refused around them: ring attention
-    # (parallelism) and graph-attribute conditioning
-    pytest.param({"global_attn_type": "performer", "use_graph_attr_conditioning": True},
-                 "conditioning", id="override0-performer"),
+    # (parallelism)
+    pytest.param({"global_attn_type": "ring", "use_graph_attr_conditioning": True},
+                 "ring", id="override0-performer"),
     ({"global_attn_type": "ring"}, "ring"),
     pytest.param({"mpnn_type": "GAT", "global_attn_type": "ring"}, "ring",
                  id="override2-GPS around 'GAT'"),

@@ -203,19 +203,23 @@ def test_dense_promotes_like_flax():
 @pytest.mark.parametrize("override,what", [
     # edge features, GPS performer attention and GPS around every conv are
     # ported (tests/test_torch_edge_features.py, test_torch_gps_variants.py,
-    # test_torch_gps_performer.py); these ids now point at what stays
-    # refused: ring attention (parallelism) and graph-attribute
-    # conditioning, around the stacks the ids name
+    # test_torch_gps_performer.py), and so is graph-attribute conditioning
+    # (tests/test_torch_conditioning.py); these ids now point at what stays
+    # refused, ring attention (parallelism), around the stacks and the
+    # conditioning the ids name
     pytest.param({"mpnn_type": "PAINN", "edge_features": ["length"],
                   "global_attn_engine": "GPS", "global_attn_type": "ring"},
                  "GPS ring attention", id="override0-mpnn_type"),
     pytest.param({"global_attn_engine": "GPS", "global_attn_type": "ring"},
                  "GPS ring attention", id="override1-GPS"),
-    ({"use_graph_attr_conditioning": True}, "conditioning"),
+    pytest.param({"use_graph_attr_conditioning": True, "global_attn_engine": "GPS",
+                  "global_attn_type": "ring"}, "GPS ring attention",
+                 id="override2-conditioning"),
     pytest.param({"mpnn_type": "DimeNet", "global_attn_engine": "GPS",
                   "global_attn_type": "ring"}, "GPS ring attention", id="override3-DimeNet"),
     pytest.param({"mpnn_type": "PNA", "edge_features": ["length"],
-                  "use_graph_attr_conditioning": True}, "conditioning",
+                  "use_graph_attr_conditioning": True, "global_attn_engine": "GPS",
+                  "global_attn_type": "ring"}, "GPS ring attention",
                  id="override4-PNA with edge features"),
 ])
 def test_outside_the_slice_raises(setup, override, what):
@@ -228,23 +232,35 @@ def test_outside_the_slice_raises(setup, override, what):
 
 
 def test_other_heads_and_training_raise(setup):
+    """Multibranch heads and variance outputs build and run now
+    (``tests/test_torch_heads.py`` holds them against JAX); what still
+    raises is an unknown node-head type or loss."""
     from hydragnn_tpu_torch.models import create_model_config
 
     aug = copy.deepcopy(setup[0])
     heads = aug["NeuralNetwork"]["Architecture"]["output_heads"]
-    heads["graph"] = heads["graph"] * 2
-    with pytest.raises(NotImplementedError, match="multibranch"):
-        create_model_config(aug, device="cpu")
+    heads["graph"] = [heads["graph"][0], {**heads["graph"][0], "type": "branch-1"}]
+    two = create_model_config(aug, device="cpu")
+    assert set(two.heads_NN[0]) == {"branch-0", "branch-1"}
+    out = two(batch_from_numpy(setup[3]))
+    assert all(bool(torch.isfinite(o).all()) for o in out)
     aug = copy.deepcopy(setup[0])
     aug["NeuralNetwork"]["Training"]["loss_function_type"] = "GaussianNLLLoss"
-    with pytest.raises(NotImplementedError, match="variance"):
+    var_model = create_model_config(aug, device="cpu")
+    means, variances = var_model(batch_from_numpy(setup[3]), train=True)
+    assert all(bool((v >= 0).all()) for v in variances)
+    tot, _ = var_model.loss((means, variances), batch_from_numpy(setup[3]))
+    assert bool(torch.isfinite(tot))
+    aug = copy.deepcopy(setup[0])
+    aug["NeuralNetwork"]["Architecture"]["output_heads"]["node"] = [
+        {"type": "branch-0", "architecture": {"type": "gnn"}}]
+    with pytest.raises(ValueError, match="Unknown node head type"):
         create_model_config(aug, device="cpu")
-    # the train-mode forward is ported now; its Gaussian NLL loss is not
-    # (it needs the variance outputs refused above)
+    # the train-mode forward of the plain model, and an unknown loss
     from hydragnn_tpu_torch.models.common import get_loss
 
     port = copy.deepcopy(setup[4])
     out = port(batch_from_numpy(setup[3]), train=True)
     assert all(bool(torch.isfinite(o).all()) for o in out)
-    with pytest.raises(NotImplementedError, match="var_output"):
-        get_loss("GaussianNLLLoss")
+    with pytest.raises(ValueError, match="Unknown loss"):
+        get_loss("GaussianNLL")

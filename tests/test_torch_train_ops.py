@@ -250,9 +250,19 @@ def test_masked_losses_match_jax(name):
 
 
 def test_gaussian_nll_waits_for_variance_outputs():
+    """GaussianNLLLoss came with the variance outputs: ``get_loss`` gives
+    the masked Gaussian NLL, equal to the JAX package's on the same arrays
+    (``tests/test_torch_heads.py`` holds its gradients); an unknown loss
+    still raises."""
+    from hydragnn_tpu.models.common import masked_gaussian_nll as jax_nll
     from hydragnn_tpu_torch.models.common import get_loss
 
-    with pytest.raises(NotImplementedError, match="var_output"):
-        get_loss("GaussianNLLLoss")
+    rng = np.random.default_rng(0)
+    pred, target, var = rng.normal(size=(3, 12, 2)).astype(np.float32)
+    var = var * var
+    mask = (np.arange(12) < 9).astype(np.float32)
+    got = get_loss("GaussianNLLLoss")(*(torch.from_numpy(a) for a in (pred, target, mask, var)))
+    want = jax_nll(*(jnp.asarray(a) for a in (pred, target, mask, var)))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
     with pytest.raises(ValueError, match="Unknown loss"):
         get_loss("huber")

@@ -291,10 +291,15 @@ def test_unported_optimizers_raise_and_plateau_schedule_matches_jax():
         set_learning_rate,
     )
 
+    from hydragnn_tpu_torch.train import optimizer as opt_mod
+
+    # the five other optax types are ported (tests/test_torch_optimizers.py
+    # holds them against optax); an unknown type still raises
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for t in ("RMSprop", "Adagrad", "Adadelta", "Adamax", "FusedLAMB"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            select_optimizer({"type": t, "learning_rate": 0.1}, p)
+    for t, cls in (("RMSprop", opt_mod.OptaxRMSProp), ("Adagrad", opt_mod.OptaxAdagrad),
+                   ("Adadelta", opt_mod.OptaxAdadelta), ("Adamax", opt_mod.OptaxAdamax),
+                   ("FusedLAMB", opt_mod.OptaxLAMB)):
+        assert isinstance(select_optimizer({"type": t, "learning_rate": 0.1}, p), cls)
     with pytest.raises(NameError):
         select_optimizer({"type": "Nope", "learning_rate": 0.1}, p)
     opt = select_optimizer({"type": "AdamW", "learning_rate": 0.1}, p)

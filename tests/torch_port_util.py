@@ -196,10 +196,20 @@ def jax_reference(jmodel, variables, jbatch, dtype, eval_outputs: bool = True):
 
     out, train_out, tot, tasks, grads, stats = jax.jit(both)(
         variables["params"], variables["batch_stats"], jax.tree.map(jnp.asarray, jbatch))
-    return {"outputs": [np.asarray(o) for o in out],
-            "train_outputs": [np.asarray(o) for o in train_out], "loss": float(tot),
+    # a var_output model's (means, variances): the means, then the variances
+    return {"outputs": [np.asarray(o) for o in jax.tree.leaves(out)],
+            "train_outputs": [np.asarray(o) for o in jax.tree.leaves(train_out)],
+            "loss": float(tot),
             "tasks": np.asarray(tasks), "grads": port_arrays(numpy_tree(grads)),
             "stats": port_arrays(numpy_tree(stats))}
+
+
+def flat_outputs(out) -> list:
+    """Per-head outputs as one list: a ``var_output`` model's ``(means,
+    variances)`` as the means, then the variances."""
+    if isinstance(out, tuple):
+        return [*out[0], *out[1]]
+    return list(out)
 
 
 def port_reference(model, jbatch, dtype):
@@ -209,14 +219,16 @@ def port_reference(model, jbatch, dtype):
     from hydragnn_tpu_torch.convert import batch_from_numpy
     from hydragnn_tpu_torch.train.step import cast_forward, make_predict_step
 
-    out = [o.numpy() for o in make_predict_step(model, dtype)(batch_from_numpy(jbatch))]
+    out = [o.numpy() for o in flat_outputs(make_predict_step(model, dtype)(
+        batch_from_numpy(jbatch)))]
     # a fresh batch: the predict step's cached layouts are inference tensors
     pb = batch_from_numpy(jbatch)
     model.zero_grad()
     pred = cast_forward(model, pb, dtype, train=True)
     tot, tasks = model.loss(pred, pb)
     tot.backward()
-    return {"outputs": out, "train_outputs": [o.detach().numpy() for o in pred],
+    return {"outputs": out,
+            "train_outputs": [o.detach().numpy() for o in flat_outputs(pred)],
             "loss": float(tot.detach()),
             "tasks": torch.stack(tasks).detach().numpy(),
             "grads": {n: (p.grad.numpy() if p.grad is not None else np.zeros(tuple(p.shape),
@@ -268,3 +280,109 @@ __all__ = [
     "random_batch_stats",
     "real_rows",
 ]
+
+
+class PairSetup:
+    """One configuration in both packages on copies of the same JAX
+    ``samples``: each package's loaders, augmented config and model, the
+    shared variables (the port's draw, jittered, written into the JAX
+    model's tree by :func:`flax_variables_from_port`; running statistics
+    drawn) and the JAX loader's first train batch. :meth:`port_model`
+    carries the variables into a fresh port model with
+    ``convert.load_jax_variables``; :meth:`jax` and :meth:`port` give each
+    package's reference (:func:`jax_reference`, :func:`port_reference`) at
+    ``"fp32"`` or ``"bf16"``, once each. ``raw_batch``: the samples are
+    used as they are (no loading pass, every sample a training one) and the
+    batch is the first ``raw_batch`` of them, collated by the JAX package.
+    """
+
+    DTYPES = {"fp32": ("float32", torch.float32), "bf16": ("bfloat16", torch.bfloat16)}
+
+    def __init__(self, cfg: dict, samples, jitter_seed: int = 1, raw_batch: int = 0):
+        from hydragnn_tpu.config import update_config as jax_update_config
+        from hydragnn_tpu.graphs.batching import collate as jax_collate
+        from hydragnn_tpu.graphs.batching import compute_pad_spec as jax_pad_spec
+        from hydragnn_tpu.models import create_model_config as jax_create_model_config
+        from hydragnn_tpu.preprocess.load_data import dataset_loading_and_splitting as jl
+        from hydragnn_tpu_torch.config import update_config
+        from hydragnn_tpu_torch.models import create_model_config
+        from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+
+        self.cfg = cfg
+        if raw_batch:
+            jtrain, train = jax_samples_copy(samples), port_samples(samples)
+            self.jaug = jax_update_config(copy.deepcopy(cfg), jtrain)
+            self.aug = update_config(copy.deepcopy(cfg), train)
+            self.batch = jax_collate(jtrain[:raw_batch], jax_pad_spec(jtrain, raw_batch))
+        else:
+            self.jloaders = jl(copy.deepcopy(cfg), samples=jax_samples_copy(samples))
+            self.loaders = dataset_loading_and_splitting(copy.deepcopy(cfg),
+                                                         samples=port_samples(samples))
+            self.jaug = jax_update_config(copy.deepcopy(cfg),
+                                          *(ld.samples for ld in self.jloaders))
+            self.aug = update_config(copy.deepcopy(cfg), *(ld.samples for ld in self.loaders))
+            self.batch = next(iter(self.jloaders[0]))
+        self.jmodel = jax_create_model_config(self.jaug)
+        first = create_model_config(copy.deepcopy(self.aug), device="cpu", seed=0)
+        self.spec = first.spec
+        self.variables = flax_variables_from_port(first, self.jmodel, self.batch,
+                                                  jitter_seed=jitter_seed)
+        self._refs: dict = {}
+
+    def port_model(self):
+        from hydragnn_tpu_torch.convert import load_jax_variables
+        from hydragnn_tpu_torch.models import create_model_config
+
+        model = create_model_config(copy.deepcopy(self.aug), device="cpu", seed=1)
+        return load_jax_variables(model, self.variables["params"], self.variables["batch_stats"])
+
+    def jax(self, precision: str = "fp32") -> dict:
+        import jax.numpy as jnp
+
+        key = ("jax", precision)
+        if key not in self._refs:
+            self._refs[key] = jax_reference(self.jmodel, self.variables, self.batch,
+                                            jnp.dtype(self.DTYPES[precision][0]))
+        return self._refs[key]
+
+    def port(self, precision: str = "fp32") -> dict:
+        key = ("port", precision)
+        if key not in self._refs:
+            self._refs[key] = port_reference(self.port_model(), self.batch,
+                                             self.DTYPES[precision][1])
+        return self._refs[key]
+
+    def head_rows(self, outputs) -> list:
+        """Per flattened output (the means, then any variances), its real
+        rows."""
+        kinds = list(self.spec.output_type) * (2 if self.spec.var_output else 1)
+        gm = np.asarray(self.batch.graph_mask) > 0
+        nm = np.asarray(self.batch.node_mask) > 0
+        assert len(outputs) == len(kinds)
+        return [np.asarray(o, np.float32)[gm if k == "graph" else nm]
+                for o, k in zip(outputs, kinds)]
+
+    def assert_matches(self, precision: str = "fp32", fwd=None, grad=None, what: str = "",
+                       grad_scale: float = 0.0):
+        """Eval and train outputs on real rows, loss, per-task losses and
+        every parameter gradient, port against JAX, at ``fwd`` and
+        ``grad`` (``np.testing.assert_allclose`` keyword dicts); the
+        gradients' ``atol`` grows by ``grad_scale`` times the model's
+        largest JAX gradient (a gradient that cancels, such as a bias's in
+        front of a batch norm, carries the rounding of the largest
+        terms)."""
+        want, got = self.jax(precision), self.port(precision)
+        g_max = max(float(np.abs(w).max()) for w in want["grads"].values() if w.size)
+        grad = dict(grad, atol=grad["atol"] + grad_scale * g_max)
+        for key in ("outputs", "train_outputs"):
+            for i, (g, w) in enumerate(zip(self.head_rows(got[key]),
+                                           self.head_rows(want[key]))):
+                np.testing.assert_allclose(g, w, **fwd, err_msg=f"{what} {key}[{i}]")
+        np.testing.assert_allclose(got["loss"], want["loss"], **fwd, err_msg=f"{what} loss")
+        np.testing.assert_allclose(got["tasks"], want["tasks"], **fwd, err_msg=f"{what} tasks")
+        assert set(got["grads"]) == set(want["grads"]), what
+        for name, w in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][name], w, **grad,
+                                       err_msg=f"{what} gradient {name}")
+        for name, w in want["stats"].items():
+            np.testing.assert_allclose(got["stats"][name], w, **fwd, err_msg=f"{what} {name}")
