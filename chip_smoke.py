@@ -220,7 +220,26 @@ logged (the last is a ``capture summary`` line).
    hits byte-identical, 0 captures after ready, the canary accepting an
    identical model and refusing a perturbed one, 512 requests through the
    router with one replica killed mid-stream and none lost, p50/p99 and
-   graphs/s beside the one server's.
+   graphs/s beside the one server's;
+15. the data plane (``data_plane_phase``), all data written to a temporary
+   directory from ``--seed``: (a) ``examples/qm9/qm9.json`` as published
+   (U0 of the QM9 properties selected, as ``examples/qm9/qm9.py`` does)
+   through ``run_training(config)`` and ``run_prediction(config, model)``
+   with no samples, from 512 QM9-raw-format ``.xyz`` files (``*^``
+   exponents among the numbers), which read back as written; the loss
+   falls, the GIN's launches, the captured train step bit-equal to eager;
+   (b) ``examples/oc20/train.py``'s block (EGNN, node head, ``num_workers``
+   2) through ``run_training`` from a ``PackedWriter`` store of its
+   ``make_synthetic`` data at 256 configurations; then from one state an
+   epoch of captured steps from a store of that run's train split under 2
+   and under 1 collate workers against the same samples in memory: every
+   batch and the final states bit-equal; collate ms per batch and epoch
+   seconds logged; (c) that store as two shards and a mirror behind three
+   ``ShardServer``s on 127.0.0.1 (``ShardedStore``, replication 2), one
+   server of the mirrored range stopped halfway through the epoch: every
+   batch equal to the store's, at least one failover, none lost, the final
+   state bit-equal, ``close()`` leaving no server or prober thread; fetch
+   ms per batch logged.
 
 The script imports only ``hydragnn_tpu_torch``, torch and numpy, and needs no
 network. ``--quant-diagnostics`` adds to phase 10, for every model, the
@@ -241,6 +260,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -750,6 +770,66 @@ def qm9_like_samples(n: int, seed: int, radius: float, max_neighbours: int, pe_d
                              extras={"atomic_numbers": z[:, 0].copy()})
         out.append(attach_lap_pe(sample, pe_dim) if pe_dim else sample)
     return out
+
+
+# QM9-raw-format files: elements H/C/N/O/F and a per-element energy (Hartree,
+# near QM9's atomic reference energies), so that U0 depends on the atoms
+QM9_ELEMENTS = (("H", 1, -0.500), ("C", 6, -37.846), ("N", 7, -54.584),
+                ("O", 8, -75.065), ("F", 9, -99.719))
+
+
+def _qm9_number(v: float, mathematica: bool) -> str:
+    """``v`` as QM9's raw files print it: a plain decimal, or (``mathematica``)
+    Mathematica's ``m*^e`` exponent form."""
+    if not mathematica or v == 0.0:
+        return f"{v:.10f}"
+    e = int(np.floor(np.log10(abs(v))))
+    return f"{v / 10.0 ** e:.6f}*^{e}"
+
+
+def write_qm9_xyz_dir(directory, n: int, seed: int) -> list[dict]:
+    """``n`` QM9-like molecules written as QM9 raw-format ``.xyz`` files, one
+    per file (``dsgdb9nsd_<id>.xyz``): the atom count, the ``gdb <id>`` line
+    with its 15 properties (``datasets.xyz._QM9_PROPS`` order), one row per
+    atom (symbol, x, y, z, Mulliken charge), then the frequencies, SMILES
+    and InChI lines the reader skips. 9-29 atoms of H/C/N/O/F uniform in a
+    6 Å box, as ``qm9_like_samples``; U0 the sum of the elements' energies
+    plus N(0, 0.1); every third number written in the ``*^`` form. Returns
+    per molecule the atomic numbers and the values the printed strings
+    parse to (positions ``[n, 3]`` float64 and the 15 properties)."""
+    from hydragnn_tpu_torch.datasets.xyz import _QM9_PROPS
+
+    rng = np.random.default_rng(seed)
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    written = []
+    count = 0
+
+    def number(v: float) -> str:
+        nonlocal count
+        count += 1
+        return _qm9_number(float(v), count % 3 == 0)
+
+    for i in range(n):
+        na = int(rng.integers(9, 30))
+        kinds = rng.integers(0, len(QM9_ELEMENTS), size=na)
+        pos = rng.uniform(0.0, 6.0, size=(na, 3))
+        props = rng.uniform(0.1, 300.0, size=len(_QM9_PROPS))
+        props[_QM9_PROPS.index("U0")] = (sum(QM9_ELEMENTS[k][2] for k in kinds)
+                                         + 0.1 * rng.normal())
+        prop_s = [number(v) for v in props]
+        pos_s = [[number(v) for v in row] for row in pos]
+        lines = [str(na), "\t".join([f"gdb {i + 1}", *prop_s])]
+        lines += ["\t".join([QM9_ELEMENTS[k][0], *row, f"{rng.normal(scale=0.3):.6f}"])
+                  for k, row in zip(kinds, pos_s)]
+        lines += ["\t".join(f"{v:.4f}" for v in rng.uniform(100, 4000, size=3 * na - 6)),
+                  "C\tC", "InChI=1S/synthetic\tInChI=1S/synthetic"]
+        (directory / f"dsgdb9nsd_{i + 1:06d}.xyz").write_text("\n".join(lines) + "\n")
+        parse = [[float(s.replace("*^", "e")) for s in row] for row in pos_s]
+        written.append({"z": np.array([QM9_ELEMENTS[k][1] for k in kinds], np.float64),
+                        "pos": np.array(parse, np.float64),
+                        "props": np.array([float(s.replace("*^", "e")) for s in prop_s])})
+    return written
 
 
 # examples/multidataset/train.py's data: make_synthetic's stores at
@@ -5708,6 +5788,362 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
     return out
 
 
+# -- the data plane: files on disk, the packed store, the sharded store ------
+
+# (a) qm9.json as published, from QM9-raw-format files: 512 molecules, the
+# one cut num_epoch 30 -> 2
+QM9_FILES = 512
+QM9_FILE_EPOCHS = 2
+# (b) examples/oc20/train.py's block (lines 83-134) on its make_synthetic
+# data (LJ cells of 2 x 2 x 2, displacement 0.05, seed 7) at 256
+# configurations (the example's default is 100); the one cut num_epoch 10 ->
+# 3; then epochs of captured steps from a store of the run's train split
+OC20_CONFIGS = 256
+OC20_EPOCHS = 3
+OC20_BATCH = 8
+# (c) the sharded store: peer timeout and prober cadence of the replicated
+# range, short so a stopped server is found fast
+SHARD_PEER_TIMEOUT = 2.0
+SHARD_PROBE_INTERVAL = 0.5
+
+
+def qm9_files_config(path, epochs: int = QM9_FILE_EPOCHS) -> dict:
+    """``examples/qm9/qm9.json`` as published, ``Dataset.path`` pointed at
+    QM9-format files and the graph features the files' 15 properties with U0
+    selected, as ``examples/qm9/qm9.py`` selects a target; ``num_epoch`` cut
+    to ``epochs``."""
+    from hydragnn_tpu_torch.config import load_config
+    from hydragnn_tpu_torch.datasets.xyz import _QM9_PROPS
+
+    cfg = load_config(str(QM9_CONFIG))
+    cfg["Dataset"]["path"] = {"total": str(path)}
+    cfg["Dataset"]["graph_features"] = {"name": list(_QM9_PROPS), "dim": [1] * len(_QM9_PROPS),
+                                        "column_index": list(range(len(_QM9_PROPS)))}
+    voi = cfg["NeuralNetwork"]["Variables_of_interest"]
+    voi.update(output_names=["U0"], output_index=[_QM9_PROPS.index("U0")])
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+    return cfg
+
+
+def oc20_block_config(epochs: int = OC20_EPOCHS) -> dict:
+    """``examples/oc20/train.py``'s config (lines 83-134, ``--arch EGNN``):
+    EGNN, radius 5.0, 100 neighbours, hidden 32 x 3 conv layers,
+    equivariance, silu, add pooling, a node head of 2 x 32, energy weight 1
+    and force weight 25, AdamW 5e-3, batch 8, fp32, ``prefetch`` 2,
+    ``num_workers`` 2; ``num_epoch`` cut to ``epochs``."""
+    arch = dict(copy.deepcopy(OC20_ARCH), mpnn_type="EGNN")
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {"name": "oc20_s2ef", "format": "packed", "normalize": False,
+                    "node_features": {"name": ["type"], "dim": [1], "column_index": [0]},
+                    "graph_features": {"name": ["energy"], "dim": [1], "column_index": [0]}},
+        "NeuralNetwork": {
+            "Architecture": arch,
+            "Variables_of_interest": {"input_node_features": [0], "output_index": [0],
+                                      "type": ["node"], "output_dim": [1],
+                                      "denormalize_output": False},
+            "Training": {"num_epoch": epochs, "batch_size": OC20_BATCH, "perc_train": 0.8,
+                         "loss_function_type": "mse", "prefetch": 2, "num_workers": 2,
+                         "Optimizer": {"type": "AdamW", "learning_rate": 0.005}},
+        },
+    }
+
+
+def oc20_synthetic_store(path, n: int = OC20_CONFIGS) -> str:
+    """``examples/oc20/train.py``'s ``make_synthetic``: periodic LJ cells
+    written with ``PackedWriter``."""
+    from hydragnn_tpu_torch.datasets import lennard_jones_data
+    from hydragnn_tpu_torch.datasets.packed import PackedWriter
+
+    samples = lennard_jones_data(number_configurations=n, cells_per_dim=2, seed=7,
+                                 relative_maximum_atomic_displacement=0.05)
+    PackedWriter(samples, str(path), attrs={"dataset_name": "synthetic-lj-s2ef"})
+    return str(path)
+
+
+def oc20_launches(layers: int) -> tuple[dict, dict]:
+    """Launches of one train step and one eval batch of the oc20 block's
+    EGNN (node head): the train step's ``2 (6 L - 2)`` segment sums, as the
+    graph head's; the eval batch's ``6 L - 2`` and the node energies' sum
+    per graph beside the pooling it does not read."""
+    step = mlip_launches_per_step(layers, "EGNN")
+    evals = mlip_launches_per_eval(layers, "EGNN", kind="mptrj_film")
+    return step, evals
+
+
+def _batches_equal(torch, a, b) -> list[str]:
+    from hydragnn_tpu_torch.graphs.graph import FIELDS
+
+    return [f for f in FIELDS if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def _store_epoch(torch, device: str, loader, state, train, ref=None, tag: str = "") -> dict:
+    """One epoch of captured train steps over ``loader`` (batches on the
+    card); with ``ref``, a list of batches each must equal. Returns the
+    epoch's wall seconds, the batches and the last metrics."""
+    batches, metrics = [], None
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for i, b in enumerate(loader):
+        if ref is not None:
+            diff = _batches_equal(torch, b, ref[i]) if i < len(ref) else ["(extra batch)"]
+            if diff:
+                raise AssertionError(f"{tag} batch {i} differs from the reference: {diff}")
+        batches.append(b)
+        metrics = train(state, b)
+    _sync(torch, device)
+    if ref is not None and len(batches) != len(ref):
+        raise AssertionError(f"{tag}: {len(batches)} batches, the reference has {len(ref)}")
+    return {"seconds": time.perf_counter() - t0, "batches": batches, "metrics": metrics}
+
+
+def data_plane_phase(torch, device: str, seed: int, card: str = "", n_qm9: int = QM9_FILES,
+                     n_oc20: int = OC20_CONFIGS) -> dict:
+    """The data plane on the card, all data made in a temporary directory
+    from ``seed``: (a) ``examples/qm9/qm9.json`` as published through
+    ``run_training(config)`` and ``run_prediction(config, model)`` with no
+    samples, from 512 QM9-raw-format ``.xyz`` files; (b) the oc20 block
+    through ``run_training`` from a packed store's ``load_all()`` with 2
+    collate workers, then from one state one epoch of captured steps from a
+    store of the run's train split (``GlobalShuffleStore.loader`` under 2
+    workers, and under 1) against the same samples in memory under 1; (c)
+    that store split into two shards and a mirror served by three
+    ``ShardServer``s on 127.0.0.1, one of the mirrored range's servers
+    stopped halfway through the epoch. Gates raise; returns the launches
+    and the numbers logged."""
+    from hydragnn_tpu_torch import capture, run_prediction, run_training
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.datasets import load_raw_dataset
+    from hydragnn_tpu_torch.datasets.packed import GlobalShuffleStore, PackedWriter
+    from hydragnn_tpu_torch.datasets.sharded import ShardedStore, ShardServer
+    from hydragnn_tpu_torch.graphs.batching import GraphLoader, PrefetchLoader, collate
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.models.mlip import make_mlip_train_step
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_eval_step,
+                                               make_train_step, resolve_precision)
+
+    launches = dict.fromkeys(KERNELS, 0)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        tmp = Path(tmp)
+        # (a) qm9.json from .xyz files
+        t0 = time.perf_counter()
+        written = write_qm9_xyz_dir(tmp / "qm9_xyz", n_qm9, seed)
+        cfg = qm9_files_config(tmp / "qm9_xyz")
+        raw = load_raw_dataset(cfg)
+        u0 = cfg["NeuralNetwork"]["Variables_of_interest"]["output_index"][0]
+        for i, (s, w) in enumerate(zip(raw, written, strict=True)):
+            if not (np.array_equal(s.x[:, 0], w["z"])
+                    and np.array_equal(s.pos, w["pos"].astype(np.float32))
+                    and s.extras["graph_table"][u0] == w["props"][u0]
+                    and np.array_equal(s.extras["graph_table"], w["props"])):
+                raise AssertionError(f"data plane: molecule {i} reads back otherwise than "
+                                     "written")
+        t_write = time.perf_counter() - t0
+        loaders = dataset_loading_and_splitting(copy.deepcopy(cfg))
+        n_train, n_val, n_test = (len(ld) for ld in loaders)
+        layers = int(cfg["NeuralNetwork"]["Architecture"]["num_conv_layers"])
+        history: list = []
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        state, model, aug = run_training(copy.deepcopy(cfg), device=device,
+                                         path=str(tmp / "logs"), seed=seed, history=history)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        got = dict(fs.LAUNCHES)
+        launches = _added(launches, got)
+        losses = [h["train_loss"] for h in history]
+        per_step = launches_per_train_step("gin", layers)
+        per_eval = launches_per_forward("gin", layers)
+        want = _added(_scaled(per_step, state.step),
+                      _scaled(per_eval, len(history) * (n_val + n_test)))
+        log(f"[{card}] [data-plane qm9.json] {n_qm9} QM9-raw-format .xyz files written and "
+            f"read back (positions, atomic numbers and the 15 properties, U0 among them, equal "
+            f"to the printed values) in {t_write:.3f} s; run_training(config) with no samples: "
+            f"GIN hidden 64 x {layers} bf16 batch 64, num_epoch cut from 30 to "
+            f"{QM9_FILE_EPOCHS}, {n_train} / {n_val} / {n_test} batches per epoch, "
+            f"{state.step} train steps in {wall:.3f} s; train loss per epoch "
+            f"{[round(x, 6) for x in losses]}; launches {got} (expected {want})")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"data plane: qm9.json's train loss did not fall: {losses}")
+        if device == "cuda" and got != want:
+            raise AssertionError(f"data plane: qm9.json launches {got} != {want}")
+        dtype = resolve_precision(str(aug["NeuralNetwork"]["Training"]["precision"]), device)
+        if device == "cuda":
+            train_ld = loaders[0]
+            hosts = [collate(train_ld.samples[i:i + 64], train_ld.pad)
+                     for i in range(0, 256, 64)]
+            fs.reset_launches()
+            captured_vs_eager(torch, state, make_train_step(dtype), make_eval_step(dtype),
+                              hosts, f"[{card}] [data-plane qm9.json]", per_step, per_eval)
+            launches = _added(launches, dict(fs.LAUNCHES))
+        err, _, trues, preds = run_prediction(copy.deepcopy(cfg), model, device=device)
+        if not (np.isfinite(err) and trues[0].shape == preds[0].shape
+                and np.isfinite(preds[0]).all()):
+            raise AssertionError("data plane: run_prediction(config, model) did not answer")
+        log(f"[data-plane qm9.json] run_prediction(config, model) with no samples: mse "
+            f"{err:.6f} over {len(preds[0])} test molecules")
+
+        # (b) the oc20 block from a packed store
+        path = oc20_synthetic_store(tmp / "s2ef.gpk", n_oc20)
+        store = GlobalShuffleStore(path)
+        ocfg = oc20_block_config()
+        olayers = int(ocfg["NeuralNetwork"]["Architecture"]["num_conv_layers"])
+        oloaders = dataset_loading_and_splitting(copy.deepcopy(ocfg),
+                                                 samples=store.ds.load_all())
+        history = []
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        ostate, omodel, oaug = run_training(copy.deepcopy(ocfg), samples=store.ds.load_all(),
+                                            device=device, path=str(tmp / "logs"), seed=seed,
+                                            history=history)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        got = dict(fs.LAUNCHES)
+        launches = _added(launches, got)
+        losses = [h["train_loss"] for h in history]
+        o_step, o_eval = oc20_launches(olayers)
+        want = _added(_scaled(o_step, ostate.step),
+                      _scaled(o_eval, len(history) * (len(oloaders[1]) + len(oloaders[2]))))
+        log(f"[{card}] [data-plane oc20] {len(store)} LJ cells written with PackedWriter; "
+            f"run_training(config, samples=store.ds.load_all()): EGNN hidden 32 x {olayers} "
+            f"fp32, node head, batch {OC20_BATCH}, num_workers 2, num_epoch cut from 10 to "
+            f"{OC20_EPOCHS}; {ostate.step} train steps in {wall:.3f} s; train loss per epoch "
+            f"{[round(x, 4) for x in losses]}; launches {got} (expected {want})")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"data plane: the oc20 block's train loss did not fall: {losses}")
+        if device == "cuda" and got != want:
+            raise AssertionError(f"data plane: oc20 launches {got} != {want}")
+
+        # a store of the train split as dataset_loading_and_splitting left it
+        train_samples = oloaders[0].samples
+        split_path = str(tmp / "train_split.gpk")
+        PackedWriter(train_samples, split_path)
+        split = GlobalShuffleStore(split_path)
+        pad = split.pad_spec(OC20_BATCH)
+        epoch_seed = seed + 5
+        mem_ld = GraphLoader(list(train_samples), OC20_BATCH, pad=pad, shuffle=True,
+                             seed=epoch_seed)
+        plan = mem_ld.batch_plan()
+        store_ld = split.loader(OC20_BATCH, seed=epoch_seed)
+        if [c.tolist() for c, _ in store_ld.batch_plan()] != [c.tolist() for c, _ in plan]:
+            raise AssertionError("data plane: the store's plan is not the in-memory plan")
+        collate_ms = {}
+        for name, ld in (("memory", mem_ld), ("store", store_ld)):
+            times = []
+            for chunk, p in plan:
+                t = time.perf_counter()
+                ld.collate_chunk(chunk, p)
+                times.append((time.perf_counter() - t) * 1e3)
+            collate_ms[name] = float(np.median(times))
+        init = create_train_state(create_model_config(oaug, device=device, seed=seed + 1),
+                                  oaug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+        step = make_mlip_train_step(init.model, torch.float32)
+        states = {k: _twin(torch, init) for k in ("memory", "store2", "store1", "sharded")}
+        fs.reset_launches()
+        mem = _store_epoch(torch, device,
+                           PrefetchLoader(mem_ld, depth=2, device=device, workers=1),
+                           states["memory"], capture.Dispatch(step, "train", train=True))
+        ref = mem["batches"]
+        epochs = {"memory": mem["seconds"]}
+        for name, workers in (("store2", 2), ("store1", 1)):
+            run = _store_epoch(torch, device,
+                               PrefetchLoader(split.loader(OC20_BATCH, seed=epoch_seed),
+                                                     depth=2, device=device, workers=workers),
+                               states[name], capture.Dispatch(step, "train", train=True), ref,
+                               f"[data-plane store, {workers} worker(s)]")
+            epochs[name] = run["seconds"]
+            if not _same_tree(torch, run["metrics"], mem["metrics"]):
+                raise AssertionError(f"data plane: {name}'s last metrics differ")
+            diffs = _state_diffs(torch, states[name], states["memory"])
+            if diffs:
+                raise AssertionError(f"data plane: {name}'s final state differs from the "
+                                     f"in-memory epoch's: {diffs[:8]}")
+        log(f"[{card}] [data-plane store] one epoch of {len(ref)} captured MLIP train steps "
+            f"from {split_path.split('/')[-1]} ({len(split)} samples of the run's train "
+            f"split): every batch bit-equal to the in-memory batch, in order, and the final "
+            f"states bit-equal, under 2 collate workers and under 1; collate per batch "
+            f"(host clock, median of {len(plan)}) in memory {collate_ms['memory']:.3f} ms, "
+            f"from the store {collate_ms['store']:.3f} ms; epoch seconds (prefetch depth 2, "
+            f"host clock) in memory 1 worker {epochs['memory']:.3f}, store 1 worker "
+            f"{epochs['store1']:.3f}, store 2 workers {epochs['store2']:.3f}")
+
+        # (c) the same data through ShardedStore, one replica stopped halfway
+        split_samples = split.ds.load_all()
+        n, half = len(split_samples), len(split_samples) // 2
+        shard0, shard1 = str(tmp / "shard0.gpk"), str(tmp / "shard1.gpk")
+        PackedWriter(split_samples[:half], shard0)
+        PackedWriter(split_samples[half:], shard1)
+        mirror = str(tmp / "shard1_mirror.gpk")
+        PackedWriter(split_samples[half:], mirror)
+        from hydragnn_tpu_torch.datasets.packed import PackedDataset
+
+        servers = [ShardServer(PackedDataset(p), half, n, host="127.0.0.1")
+                   for p in (shard1, mirror)]
+        sharded = ShardedStore(
+            shard0, 0, half, bind_host="127.0.0.1", replication_factor=2,
+            peer_timeout=SHARD_PEER_TIMEOUT, probe_interval=SHARD_PROBE_INTERVAL,
+            peers=[("127.0.0.1", 0, 0, half)] + [("127.0.0.1", s.port, half, n)
+                                                 for s in servers])
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                first = sharded._health_table.order(sharded._owners(half), rot=sharded._rot)[0]
+                victim = next(s for s in servers if s.port == sharded.peers[first][1])
+                loader = PrefetchLoader(sharded.loader(OC20_BATCH, seed=epoch_seed, pad=pad),
+                                        depth=2, device=device, workers=2)
+                train = capture.Dispatch(step, "train", train=True)
+                t0 = time.perf_counter()
+                for i, b in enumerate(loader):
+                    if i == len(ref) // 2:
+                        victim.close()  # one server of the mirrored range stops
+                    diff = _batches_equal(torch, b, ref[i]) if i < len(ref) else ["extra"]
+                    if diff:
+                        raise AssertionError(f"data plane: sharded batch {i} differs: {diff}")
+                    train(states["sharded"], b)
+                _sync(torch, device)
+                epochs["sharded"] = time.perf_counter() - t0
+            if i + 1 != len(ref):
+                raise AssertionError(f"data plane: the sharded epoch gave {i + 1} batches, "
+                                     f"the store {len(ref)}")
+            st = sharded.stats()
+            diffs = _state_diffs(torch, states["sharded"], states["memory"])
+            if diffs:
+                raise AssertionError(f"data plane: the sharded epoch's state differs: {diffs[:8]}")
+            if st["failover_fetches"] < 1 or st["quarantine_events"] != 1:
+                raise AssertionError(f"data plane: no failover after a server stopped: {st}")
+            fetch_ms = []
+            for chunk, _ in plan:
+                t = time.perf_counter()
+                sharded.fetch_many(chunk)
+                fetch_ms.append((time.perf_counter() - t) * 1e3)
+        finally:
+            sharded.close()
+            for s in servers:
+                s.close()
+        threads = [sharded.server._thread] + [s._thread for s in servers]
+        for t in threads:
+            t.join(5.0)
+        alive = [t.name for t in threading.enumerate()
+                 if t in threads or t.name == "hydragnn-shard-prober"]
+        if alive:
+            raise AssertionError(f"data plane: live threads after close(): {alive}")
+        launches = _added(launches, dict(fs.LAUNCHES))
+        warned = sorted({str(w.message).split(":")[0] for w in caught})
+        log(f"[{card}] [data-plane sharded] {n} samples in shards [0, {half}) local and "
+            f"[{half}, {n}) on two ShardServers (replication 2, peer timeout "
+            f"{SHARD_PEER_TIMEOUT} s), one stopped after batch {len(ref) // 2}: every batch "
+            f"bit-equal to the store's, 0 lost, the final state bit-equal; stats {st}; "
+            f"warnings {warned}; epoch {epochs['sharded']:.3f} s (2 workers); fetch per batch "
+            f"(fetch_many, host clock, median of {len(fetch_ms)}) {np.median(fetch_ms):.3f} ms; "
+            f"close() left no server or prober thread")
+        out.update(launches=launches, collate_ms=collate_ms, epoch_s=epochs,
+                   fetch_ms=float(np.median(fetch_ms)), store_stats=st)
+    return out
+
+
 def kernels_only(torch, seed: int, dev: dict) -> int:
     """``--kernels-only``: every kernel against its plain version with its
     times, at the main paths' shapes: phase 3, the cell-list checks and
@@ -5894,6 +6330,8 @@ def main(argv=None) -> int:
                                 gin_samples, tmp, card=dev["smi"])
         fleet = fleet_phase(torch, "gin", trained["gin"]["model"], trained["gin"]["aug"],
                             gin_samples, ckpt, tmp, card=dev["smi"])
+    with timed_phase(phase_s, "data_plane"):
+        data_plane = data_plane_phase(torch, "cuda", args.seed, card=dev["smi"])
     for e in entries:
         name = e["name"]
         if name == "quant_dense":
@@ -5915,12 +6353,18 @@ def main(argv=None) -> int:
             continue
         # launches: the main paths' runs together (the sixteen qm9.json
         # run_training runs, the three MLIP run_training runs, the two MD
-        # rollouts); the serving runs' counts, the per-model rates and the
-        # smaller-depth variants' steps beside them
+        # rollouts, the data plane's runs and epochs); the serving runs'
+        # counts, the per-model rates and the smaller-depth variants' steps
+        # beside them
         e["launches"] = (sum(trained[k]["launches"][name] for k in ARCH_KNOBS)
                          + mlip["launches"][name] + film["launches"][name]
                          + sum(m["launches"][name] for m in mlips.values())
-                         + sum(r["launches"][name] for r in ran_md.values()))
+                         + sum(r["launches"][name] for r in ran_md.values())
+                         + data_plane["launches"][name])
+        e["launches_data_plane"] = data_plane["launches"][name]
+        if name in ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum") and \
+                data_plane["launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the data plane's paths")
         e["launches_variants"] = sum(v["per_step"][name] + v["per_forward"][name]
                                      for v in variants.values())
         e["launches_mlip_run_training"] = mlip["launches"][name]
@@ -5977,6 +6421,7 @@ def main(argv=None) -> int:
         "mlip_serving": {**{a: m["summary"] for a, m in mlip_served.items()},
                          "mptrj_film": film_served["summary"]},
         "fleet": fleet,
+        "data_plane": {k: v for k, v in data_plane.items() if k != "launches"},
         "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
                                "busy_eager": _lean(r["captured"]["eager_busy"]),
                                "busy_captured": _lean(r["captured"]["busy"])}

@@ -13,7 +13,8 @@ GPS), MACE's mean neighbour count (``avg_num_neighbors``) and the
 edge-dimension rules; the graph size (``num_nodes``, ``graph_size_variable``:
 ``mlp_per_node`` heads need one size) and the width of the graph
 attributes (``graph_attr_dim``, port-only: the port builds its conditioning
-layers when the model is constructed, flax at its first call). The blocks
+layers when the model is constructed, flax at its first call), and the
+``Dataset.store`` block of the sharded store. The blocks
 of subsystems the port does not have yet come with their slices.
 """
 
@@ -97,6 +98,17 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     arch = nn.setdefault("Architecture", {})
     voi = nn.setdefault("Variables_of_interest", {})
     training = nn.setdefault("Training", {})
+
+    # the sharded store's Dataset.store block: its defaults are the
+    # StoreConfig field defaults; run_training applies the block to a
+    # ShardedStore passed as the samples
+    store_cfg = config.setdefault("Dataset", {}).setdefault("store", {})
+    if not isinstance(store_cfg, dict):
+        raise ValueError(f"Dataset.store must be a dict, got {type(store_cfg).__name__}")
+    from ..datasets.sharded import store_config_defaults
+
+    for key, val in store_config_defaults().items():
+        store_cfg.setdefault(key, val)
 
     serving_cfg = config.setdefault("Serving", {})
     if not isinstance(serving_cfg, dict):

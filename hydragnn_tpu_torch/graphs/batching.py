@@ -17,9 +17,12 @@ Padding convention:
 
 from __future__ import annotations
 
+import itertools
 import math
 import queue
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -293,15 +296,31 @@ def pick_bucket(buckets: Sequence[PadSpec], tot_node: int, tot_edge: int,
 
 class GraphLoader:
     """Host-side loader: shuffles, batches, collates each batch to the
-    smallest bucket that fits (one process; the JAX package's per-rank
-    slicing comes with the parallelism slice). With :meth:`set_superstep`
-    the epoch is planned bucket-major, as the JAX loader plans it."""
+    smallest bucket that fits. With :meth:`set_superstep` the epoch is
+    planned bucket-major, as the JAX loader plans it.
+
+    ``samples`` is a list of ``GraphSample``s or a lazy store (anything with
+    ``__getitem__`` and ``__len__`` that is not a list or tuple: a
+    ``PackedDataset``, ``GlobalShuffleStore`` or ``ShardedStore``), which is
+    kept by reference so samples load on access; a store's
+    ``sample_sizes`` answers the bucket choice from its count index, and
+    its batched ``fetch`` (``ShardedStore``) reads a batch with one request
+    per owner. ``rank``/``world`` give the DistributedSampler semantics of
+    the reference: each process takes the stride ``rank::world`` of one
+    epoch permutation shared by every process (wrapped to a multiple of
+    ``world``), and with buckets every process picks the bucket that fits
+    every process's batch at that step."""
 
     def __init__(self, samples: Sequence[GraphSample], batch_size: int,
                  pad: PadSpec | None = None, shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = True, buckets: int | Sequence[PadSpec] | None = None):
-        self.samples = list(samples)
-        if not self.samples and pad is None:
+                 drop_last: bool = True, buckets: int | Sequence[PadSpec] | None = None,
+                 rank: int = 0, world: int = 1):
+        if isinstance(samples, (list, tuple)) or not (
+            hasattr(samples, "__getitem__") and hasattr(samples, "__len__")
+        ):
+            samples = list(samples)
+        self.samples = samples
+        if not len(self.samples) and pad is None:
             raise ValueError("empty dataset needs an explicit pad spec")
         self.batch_size = int(batch_size)
         if isinstance(buckets, int):
@@ -318,6 +337,8 @@ class GraphLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.rank = int(rank)
+        self.world = max(1, int(world))
         self.epoch = 0
         self.block = 1
 
@@ -335,11 +356,23 @@ class GraphLoader:
         device), index for index."""
         self.block = max(1, int(k))
 
-    def _epoch_indices(self) -> np.ndarray:
+    def _full_permutation(self) -> np.ndarray:
+        """The epoch permutation every process shares, wrapped to a multiple
+        of ``world``."""
         n = len(self.samples)
-        if self.shuffle:
-            return np.random.default_rng(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+        if n == 0:
+            return np.zeros((0,), np.int64)
+        idx = (np.random.default_rng(self.seed + self.epoch).permutation(n)
+               if self.shuffle else np.arange(n))
+        if self.world > 1:
+            total = int(math.ceil(n / self.world) * self.world)
+            if total > n:
+                idx = np.concatenate([idx, idx[: total - n]])
+        return idx
+
+    def _epoch_indices(self) -> np.ndarray:
+        idx = self._full_permutation()
+        return idx[self.rank :: self.world] if self.world > 1 else idx
 
     def __len__(self) -> int:
         n = len(self._epoch_indices())
@@ -348,15 +381,19 @@ class GraphLoader:
         return int(math.ceil(n / self.batch_size))
 
     def _pick(self, chunk) -> PadSpec:
+        """The smallest bucket that fits the batch of sample indices
+        ``chunk``; a store with ``sample_sizes`` answers from its count
+        index, without reading sample content."""
         if not self.buckets:
             return self.pad
-        chosen = [self.samples[i] for i in chunk]
-        return pick_bucket(
-            self.buckets,
-            sum(s.num_nodes for s in chosen),
-            sum(s.num_edges for s in chosen),
-            sum(s.extras["idx_kj"].shape[0] for s in chosen if "idx_kj" in s.extras),
-        ) or self.buckets[-1]
+        if hasattr(self.samples, "sample_sizes"):
+            sz = self.samples.sample_sizes(chunk)
+            totals = (int(sz[:, 0].sum()), int(sz[:, 1].sum()), 0)
+        else:
+            chosen = [self.samples[i] for i in chunk]
+            totals = (sum(s.num_nodes for s in chosen), sum(s.num_edges for s in chosen),
+                      sum(s.extras["idx_kj"].shape[0] for s in chosen if "idx_kj" in s.extras))
+        return pick_bucket(self.buckets, *totals) or self.buckets[-1]
 
     def _max_spec(self, members: Sequence[PadSpec]) -> PadSpec:
         """Component-wise max over ``members`` (a table bucket when one
@@ -373,14 +410,25 @@ class GraphLoader:
 
     def batch_plan(self) -> list[tuple[np.ndarray, PadSpec]]:
         """This epoch's (sample indices, bucket) per batch, bucket-major
-        under :meth:`set_superstep`."""
+        under :meth:`set_superstep`: the unit of work the pooled collate of
+        :class:`PrefetchLoader` runs in parallel. A loader of one bucket
+        never touches sample content here (over a remote store that would be
+        one fetch per sample per epoch)."""
         idx = self._epoch_indices()
+        perm = self._full_permutation() if self.buckets and self.world > 1 else None
         plan = []
         for b in range(len(self)):
-            chunk = idx[b * self.batch_size : (b + 1) * self.batch_size]
+            window = slice(b * self.batch_size, (b + 1) * self.batch_size)
+            chunk = idx[window]
             if len(chunk) == 0:
                 break
-            plan.append((chunk, self._pick(chunk)))
+            if perm is None:
+                pad = self._pick(chunk)
+            else:
+                # every process's batch at this step fits the chosen bucket
+                pad = self._max_spec([self._pick(perm[r :: self.world][window])
+                                      for r in range(self.world)])
+            plan.append((chunk, pad))
         if self.block > 1 and self.buckets and len(plan) > 1:
             plan = self._bucket_major(plan)
         return plan
@@ -404,6 +452,9 @@ class GraphLoader:
         return ordered
 
     def collate_chunk(self, chunk: np.ndarray, pad: PadSpec) -> GraphBatch:
+        if hasattr(self.samples, "fetch"):
+            # batched store read: one request per owning host
+            return collate(self.samples.fetch(chunk), pad)
         return collate([self.samples[i] for i in chunk], pad)
 
     def __iter__(self) -> Iterable[GraphBatch]:
@@ -457,15 +508,19 @@ def background_iter(iterable, depth: int = 2):
 
 class PrefetchLoader:
     """Runs a loader's collate (and, with ``device``, the host-to-device
-    copy) in one background thread, ``depth`` batches ahead of the consumer
-    (at least one superstep block and one batch more under
-    :meth:`set_superstep`), as the JAX package's single-process
-    ``PrefetchLoader`` does."""
+    copy) ``depth`` batches ahead of the consumer (at least one superstep
+    block and one batch more under :meth:`set_superstep`), as the JAX
+    package's ``PrefetchLoader`` does. ``workers`` ≤ 1: one background
+    thread. ``workers`` > 1 and a loader with ``batch_plan``: that many
+    threads collate batches of the epoch's plan at once and the consumer
+    gets them in the plan's order (the numpy copies of collate release the
+    GIL), the batch sequence of one worker."""
 
-    def __init__(self, loader, depth: int = 2, device=None):
+    def __init__(self, loader, depth: int = 2, device=None, workers: int = 1):
         self.loader = loader
         self.depth = max(1, int(depth))
         self.device = device
+        self.workers = max(1, int(workers))
         self.samples = loader.samples
         self.pad = loader.pad
         self.superstep = 1
@@ -486,10 +541,40 @@ class PrefetchLoader:
     def __len__(self) -> int:
         return len(self.loader)
 
+    def _depth(self) -> int:
+        return max(self.depth, self.superstep + 1) if self.superstep > 1 else self.depth
+
+    def _moved(self, batch: GraphBatch) -> GraphBatch:
+        return batch if self.device is None else batch.to(self.device)
+
+    def _collate_moved(self, chunk, pad) -> GraphBatch:
+        return self._moved(self.loader.collate_chunk(chunk, pad))
+
+    def _iter_pooled(self):
+        """Order-preserving multi-worker collate over the epoch's batch plan:
+        batches are submitted in plan order and handed over in that order,
+        at most ``depth`` finished ahead of the consumer."""
+        plan = iter(self.loader.batch_plan())
+        with ThreadPoolExecutor(max_workers=self.workers,
+                                thread_name_prefix="prefetch_collate") as ex:
+            pending: deque = deque()
+            try:
+                for chunk_pad in itertools.islice(plan, self._depth() + self.workers - 1):
+                    pending.append(ex.submit(self._collate_moved, *chunk_pad))
+                while pending:
+                    batch = pending.popleft().result()
+                    chunk_pad = next(plan, None)
+                    if chunk_pad is not None:
+                        pending.append(ex.submit(self._collate_moved, *chunk_pad))
+                    yield batch
+            finally:
+                for f in pending:
+                    f.cancel()
+
     def __iter__(self):
-        depth = max(self.depth, self.superstep + 1) if self.superstep > 1 else self.depth
-        moved = (b if self.device is None else b.to(self.device) for b in self.loader)
-        return background_iter(moved, depth=depth)
+        if self.workers > 1 and hasattr(self.loader, "batch_plan"):
+            return self._iter_pooled()
+        return background_iter((self._moved(b) for b in self.loader), depth=self._depth())
 
 
 __all__ = [

@@ -1,8 +1,13 @@
 """Radius-graph construction with periodic boundary conditions (host-side numpy).
 
-Counterpart of ``hydragnn_tpu/graphs/radius.py``, numpy path only (the
-native multithreaded cell list comes in a later slice). Graph construction
-is host-side preprocessing, done once per sample.
+Counterpart of ``hydragnn_tpu/graphs/radius.py``. Graph construction is
+host-side preprocessing, done once per sample: point sets of more than
+``_BRUTE_FORCE_LIMIT ** 2`` candidate pairs take the native
+multithreaded cell list (``native.pairs_within_native``, built with ``g++``
+at first use), as the JAX package does; the numpy cell list
+(``_pairs_within_numpy``) stays as its plain version. The pairs are sorted
+by (receiver, sender) afterwards, so both routes give the same edges in
+the same order.
 
 Semantics mirrored from the reference:
 * edges are *directed* pairs (i, j) with ``dist(i, j) <= r`` (strictly positive
@@ -50,15 +55,25 @@ def _pairs_within(
 ) -> tuple[np.ndarray, np.ndarray]:
     """All (qi, pj) index pairs with ``||points[pj] - query[qi]|| <= radius``.
 
-    Dense O(nm) for small inputs, grid-binned cell list otherwise (near-linear).
+    Dense O(nm) for small inputs, the native cell list otherwise (near-linear).
     """
     n, m = query.shape[0], points.shape[0]
-    r2 = radius * radius
     if n * m <= _BRUTE_FORCE_LIMIT * _BRUTE_FORCE_LIMIT:
         d2 = np.sum((points[None, :, :] - query[:, None, :]) ** 2, axis=-1)
-        qi, pj = np.nonzero(d2 <= r2)
+        qi, pj = np.nonzero(d2 <= radius * radius)
         return qi, pj
+    from ..native import pairs_within_native
 
+    return pairs_within_native(query, points, radius)
+
+
+def _pairs_within_numpy(
+    query: np.ndarray, points: np.ndarray, radius: float
+) -> tuple[np.ndarray, np.ndarray]:
+    """The plain version of the native cell list: the same pairs, grouped
+    by the query's grid cell."""
+    n, m = query.shape[0], points.shape[0]
+    r2 = radius * radius
     mins = np.minimum(query.min(axis=0), points.min(axis=0))
     qbins = np.floor((query - mins) / radius).astype(np.int64)
     pbins = np.floor((points - mins) / radius).astype(np.int64)

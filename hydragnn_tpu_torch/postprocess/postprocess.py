@@ -41,4 +41,32 @@ def output_denormalize(voi: dict, true_values, predicted_values, spec):
     return out_t, out_p
 
 
-__all__ = ["head_scales", "output_denormalize"]
+def unscale_features_by_num_nodes(datasets_list, scaled_index_list, nodes_num_list):
+    """Undo per-num-nodes scaling of extensive targets (reference
+    ``postprocess.py:29-39``): multiply each sample's values for the listed
+    heads by that sample's node count. ``datasets_list`` is e.g.
+    ``[true_values, predicted_values]`` with layout [head][sample][...]."""
+    counts = [float(n) for n in nodes_num_list]
+    for dataset in datasets_list:
+        for idx in scaled_index_list:
+            dataset[idx] = [np.asarray(sample) * counts[i]
+                            for i, sample in enumerate(dataset[idx])]
+    return datasets_list
+
+
+def unscale_features_by_num_nodes_config(config, datasets_list, nodes_num_list):
+    """Config-driven variant (reference ``postprocess.py:42-54``): heads whose
+    output name carries ``_scaled_num_nodes`` are unscaled; requires
+    ``denormalize_output``, so that values are in physical units first."""
+    var_config = config["NeuralNetwork"]["Variables_of_interest"]
+    output_names = var_config.get("output_names", [])
+    scaled = [i for i, n in enumerate(output_names) if "_scaled_num_nodes" in n]
+    if scaled:
+        assert var_config.get("denormalize_output"), \
+            "Cannot unscale features without 'denormalize_output'"
+        datasets_list = unscale_features_by_num_nodes(datasets_list, scaled, nodes_num_list)
+    return datasets_list
+
+
+__all__ = ["head_scales", "output_denormalize", "unscale_features_by_num_nodes",
+           "unscale_features_by_num_nodes_config"]

@@ -1,18 +1,22 @@
-"""Data pipeline, in-memory path: feature/target selection, normalisation,
+"""Data pipeline: raw datasets, feature/target selection, normalisation,
 splits, loaders.
 
-Counterpart of ``hydragnn_tpu/preprocess/load_data.py`` for
-``dataset_loading_and_splitting(config, samples=...)``: samples given in
-memory, radius graphs attached where missing, inputs and columnar targets
-selected per ``Variables_of_interest``, min-max normalised, split and
-wrapped in loaders over one shared pad-bucket table; GPS configurations
-get Laplacian positional encodings and, where the user capped GPS's
-dense-attention width, loaders that certify batches at that cap; DimeNet
-configurations get their triplet indices (``graphs/triplets.py``). The
-geometric transforms of ``transforms.py`` run in the JAX package's order:
-rotation before the radius graph; edge lengths (globally normalised),
-spherical and point-pair features; then the variables of interest and the
-stratified subsample. Raw-format readers come in a later slice.
+Counterpart of ``hydragnn_tpu/preprocess/load_data.py``:
+``dataset_loading_and_splitting(config, samples=None)`` reads
+``Dataset.path`` by ``Dataset.format`` (``datasets.load_raw_dataset``) when
+no samples are given, or takes the samples in memory (a list, or a store,
+which is read whole by the selection step, as in the JAX package); radius
+graphs are attached where missing, inputs and columnar targets selected per
+``Variables_of_interest``, min-max normalised, split and wrapped in loaders
+over one shared pad-bucket table; GPS configurations get Laplacian positional
+encodings and, where the user capped GPS's dense-attention width, loaders
+that certify batches at that cap; DimeNet configurations get their triplet
+indices (``graphs/triplets.py``). The geometric transforms of
+``transforms.py`` run in the JAX package's order: rotation before the
+radius graph; edge lengths (globally normalised), spherical and point-pair
+features; then the variables of interest and the stratified subsample.
+Samples read from a packed store hold read-only arrays: every step here
+assigns new arrays, none writes into a sample's.
 """
 
 from __future__ import annotations
@@ -173,16 +177,14 @@ def create_dataloaders(trainset, valset, testset, batch_size: int,
     return train_loader, val_loader, test_loader
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; it comes with a later slice")
-
-
 def dataset_loading_and_splitting(config: dict, samples=None):
-    """samples -> selected/normalised -> split -> loaders. ``samples`` must
-    be given (in memory). Mutates the samples and records the min-max tables
-    in ``config``, as the JAX package does."""
+    """raw -> selected/normalised -> split -> loaders. Without ``samples``,
+    ``Dataset.path`` is read by ``Dataset.format``. Mutates the samples and
+    records the min-max tables in ``config``, as the JAX package does."""
     if samples is None:
-        raise _later("reading raw datasets from Dataset.path")
+        from ..datasets import load_raw_dataset
+
+        samples = load_raw_dataset(config)
     ds_cfg = config["Dataset"]
     training = config.setdefault("NeuralNetwork", {}).setdefault("Training", {})
     arch = config["NeuralNetwork"].get("Architecture", {})

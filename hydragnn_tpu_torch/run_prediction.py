@@ -1,10 +1,10 @@
 """``run_prediction`` — the batch evaluator.
 
-Counterpart of ``hydragnn_tpu/run_prediction.py`` for one process and
-in-memory samples: the same data prologue, one pass of the shared
-:class:`~hydragnn_tpu_torch.serve.predictor.Predictor` over the test split,
-and ``(error, per-task losses, true values, predictions)`` with optional
-min-max denormalisation.
+Counterpart of ``hydragnn_tpu/run_prediction.py`` for one process: the
+same data prologue (the samples given, or the files of ``Dataset.path``),
+one pass of the shared :class:`~hydragnn_tpu_torch.serve.predictor.Predictor`
+over the test split, and ``(error, per-task losses, true values,
+predictions)`` with optional min-max denormalisation.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from .utils import resolve_device
 def run_prediction(config_source, model, samples: Sequence | None = None, device="cuda"):
     """Evaluate ``model`` (a ``HydraModel`` holding its weights, or the
     ``TrainState`` that ``run_training`` returns) on the test split of
-    ``samples``. Runs on ``device`` (the card by default)."""
+    ``samples`` (without them, of the files of ``Dataset.path``). Runs on
+    ``device`` (the card by default)."""
     device = resolve_device(device)
     model = getattr(model, "model", model)
     config = load_config(config_source)

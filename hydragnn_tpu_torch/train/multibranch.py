@@ -41,16 +41,19 @@ def concat_multidataset(datasets: dict[str, list] | list[list]) -> list[GraphSam
 
 class OversamplingLoader(GraphLoader):
     """A shuffling loader whose epoch draws ``num_samples`` indices with
-    replacement from the seed ``seed + epoch`` (the JAX loader's draw on
-    one process)."""
+    replacement from the seed ``seed + epoch``, the draw every process
+    shares (a multiple of ``world`` long), as the JAX loader draws it."""
 
     def __init__(self, samples, batch_size: int, num_samples: int, **kw):
         super().__init__(samples, batch_size, shuffle=True, **kw)
         self.num_samples = int(num_samples)
 
-    def _epoch_indices(self) -> np.ndarray:
+    def _full_permutation(self) -> np.ndarray:
         rng = np.random.default_rng(self.seed + self.epoch)
-        return rng.choice(len(self.samples), size=self.num_samples, replace=True)
+        total = self.num_samples
+        if self.world > 1:
+            total = int(np.ceil(total / self.world) * self.world)
+        return rng.choice(len(self.samples), size=total, replace=True)
 
 
 def make_branch_loaders(datasets: dict[str, list] | list[list], batch_size: int,

@@ -1,4 +1,4 @@
-"""The wire transport of the serving fleet.
+"""The wire transport of the serving fleet and the sharded sample store.
 
 Counterpart of ``hydragnn_tpu/utils/wire.py``, byte for byte in what goes
 over a socket, so a frame of the port and a frame of the JAX package for
@@ -9,7 +9,8 @@ the same sample are the same bytes:
   refused on both ends; zero-copy ``np.frombuffer`` decode, every length
   validated before slicing);
 * **sample codec** — ``GraphSample`` <-> flat array dict (the fleet's
-  predict request payload);
+  predict request payload and the sharded store's fetch payload), and
+  ``copy_sample``;
 * **auth** — ``token_field``/``token_ok``: a shared-secret
   misconfiguration guard (plaintext and replayable), compared with
   ``hmac.compare_digest``;
@@ -20,10 +21,11 @@ the same sample are the same bytes:
   socket timeout forever) is severed and surfaces as a connection error;
 * **WireServer** — the threaded TCP server shell (connection registry,
   instant dead-host ``close()``, malformed-frame drop, auth check, ping
-  answer, server-error records) that the fleet's ``ReplicaHost``
-  subclasses;
+  answer, server-error records) that the fleet's ``ReplicaHost`` and the
+  sharded store's ``ShardServer`` subclass;
 * **HealthTable** — the quarantine clock (doubling re-probe backoff,
-  healthy-first rotated replica ordering) of replica failover.
+  healthy-first rotated replica ordering) of replica failover, in the
+  fleet's router and the sharded store.
 
 The JAX module's telemetry hooks (a frame's optional trace-context field
 and the per-serve journal record) are not ported: with its telemetry off
@@ -204,6 +206,21 @@ def sample_from_arrays(d: dict[str, np.ndarray]) -> GraphSample:
         if "extra_" + f in d:
             s.extras[f] = np.array(d["extra_" + f])
     return s
+
+
+def copy_sample(s: GraphSample) -> GraphSample:
+    """An independent copy: fresh array buffers, a fresh extras dict. A
+    cache hands these out, never its own instances, since the pipeline may
+    replace or write a sample's arrays."""
+    out = GraphSample.__new__(GraphSample)
+    for f in GraphSample.__slots__:
+        v = getattr(s, f)
+        if isinstance(v, np.ndarray):
+            v = v.copy()
+        elif f == "extras":
+            v = {k: (x.copy() if isinstance(x, np.ndarray) else x) for k, x in v.items()}
+        setattr(out, f, v)
+    return out
 
 
 def encode_samples(samples: list[GraphSample]) -> bytes:
@@ -675,6 +692,7 @@ __all__ = [
     "RoundTripper",
     "WireServer",
     "check_pong",
+    "copy_sample",
     "encode_samples",
     "error_frame",
     "field_text",

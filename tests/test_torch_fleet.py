@@ -159,6 +159,19 @@ def test_wire_frames_equal_jax(warm_server):
         wire.unpack_arrays(wire.encode_samples(samples)[:40])
 
 
+def _close_listener(srv: socket.socket, thread: threading.Thread) -> None:
+    """Close a helper peer's listening socket and wait for its accept loop:
+    closing alone does not wake an ``accept`` blocked in another thread,
+    a shutdown does."""
+    try:
+        srv.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        pass
+    srv.close()
+    thread.join(5.0)
+    assert not thread.is_alive(), "helper peer's accept loop did not stop"
+
+
 class _Recorder:
     """A raw TCP peer that records every request frame's bytes and answers
     each with a pong."""
@@ -169,7 +182,8 @@ class _Recorder:
         self._srv.bind(("127.0.0.1", 0))
         self._srv.listen(4)
         self.port = self._srv.getsockname()[1]
-        threading.Thread(target=self._loop, daemon=True).start()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
 
     def _loop(self):
         while True:
@@ -188,7 +202,7 @@ class _Recorder:
             conn.close()
 
     def close(self):
-        self._srv.close()
+        _close_listener(self._srv, self._thread)
 
 
 def test_round_tripper_request_bytes_equal_jax(warm_server):
@@ -478,7 +492,8 @@ class _Dribbler:
         self._srv.bind(("127.0.0.1", 0))
         self._srv.listen(8)
         self.port = self._srv.getsockname()[1]
-        threading.Thread(target=self._accept_loop, daemon=True).start()
+        self._thread = threading.Thread(target=self._accept_loop, daemon=True)
+        self._thread.start()
 
     def _accept_loop(self):
         while True:
@@ -509,7 +524,7 @@ class _Dribbler:
                 pass
 
     def close(self):
-        self._srv.close()
+        _close_listener(self._srv, self._thread)
 
 
 def test_dribbling_replica_severed_and_failed_over(warm_server):

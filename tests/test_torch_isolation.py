@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: ``hydragnn_tpu_torch`` and ``chip_smoke.py``
 import neither JAX (nor flax/optax) nor anything of the JAX package, and a
-CPU forward pass leaves both out of ``sys.modules``."""
+CPU forward pass and the data plane's modules (a packed store written and
+loaded) leave both out of ``sys.modules``."""
 
 import ast
 import json
@@ -59,6 +60,17 @@ cfg["Dataset"] = {"name": "probe", "node_features": cfg["Dataset"]["node_feature
 aug = update_config(cfg, samples)
 model = h.create_model_config(aug, device="cpu")
 out = Predictor(model, aug, device="cpu").outputs(collate(samples, compute_pad_spec(samples, 4)))
+# the data plane: readers, the packed store, the sharded store, the native
+# helpers and the pre/post-processing modules
+import tempfile
+from hydragnn_tpu_torch import native, postprocess  # noqa: F401
+from hydragnn_tpu_torch.datasets import convert, hdf5, sharded  # noqa: F401
+from hydragnn_tpu_torch.datasets.packed import GlobalShuffleStore, PackedWriter
+from hydragnn_tpu_torch.preprocess import descriptors, energy_linear_regression  # noqa: F401
+from hydragnn_tpu_torch.preprocess import molgraph  # noqa: F401
+with tempfile.TemporaryDirectory() as d:
+    PackedWriter(samples, d + "/s.gpk")
+    assert len(list(GlobalShuffleStore(d + "/s.gpk").loader(2))) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "hydragnn_tpu"))
 print(json.dumps({"bad": bad, "shape": list(out[0].shape),

@@ -33,6 +33,29 @@ def port_samples(jax_samples):
     return out
 
 
+def assert_samples_equal(got, want, what: str = ""):
+    """Two ``GraphSample`` sequences (either package's) equal field by field:
+    every array bit-equal with its dtype, the scalars, and the extras (the
+    readers' ``node_table`` / ``graph_table``) key by key."""
+    from hydragnn_tpu_torch.graphs.graph import GraphSample
+
+    got, want = list(got), list(want)
+    assert len(got) == len(want), f"{what}: {len(got)} samples, want {len(want)}"
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f in GraphSample.__slots__:
+            u, v = getattr(a, f), getattr(b, f)
+            if f == "extras":
+                assert sorted(u) == sorted(v), f"{what}[{i}] extras {sorted(u)} {sorted(v)}"
+                for k in u:
+                    x, y = np.asarray(u[k]), np.asarray(v[k])
+                    assert x.dtype == y.dtype and np.array_equal(x, y), f"{what}[{i}] {k}"
+            elif isinstance(u, np.ndarray) or isinstance(v, np.ndarray):
+                assert isinstance(u, np.ndarray) and isinstance(v, np.ndarray), f"{what}[{i}] {f}"
+                assert u.dtype == v.dtype and np.array_equal(u, v), f"{what}[{i}] {f}"
+            else:
+                assert u == v, f"{what}[{i}] {f}: {u} != {v}"
+
+
 def jax_samples_copy(jax_samples):
     return [copy.deepcopy(s) for s in jax_samples]
 
