@@ -349,6 +349,16 @@ STEP_GRAD_TOL = dict(atol_of_max=1e-5, noise_factor=8.0)
 STEP_PLAIN_DRAWS = 4
 # epochs of the full-width training runs: the one cut of qm9.json's config
 TRAIN_EPOCHS = 6
+# the eager steps each stack phase profiles (one untraced first): 4 train
+# steps and 5 served batches, cut from 10 and 11 to pay for the parallel
+# phase (the profiler's event processing was the stack phases' largest
+# part: 144 s of eager train-step profiling over the 20 kinds)
+PROFILE_TRAIN_STEPS = 4
+PROFILE_SERVED_BATCHES = 5
+# the eager train steps the trained state takes there all the same, the
+# profiled ones and then the rest untraced: the int8 bounds pinned in
+# QUANT_KNOWN_REFUSALS and the code-flip gates read the model they train
+TRAINED_EAGER_STEPS = 10
 # the three configurations of the main paths: qm9.json, its GAT row
 # (bench.py ARCH_SWEEP_OVERRIDES "GAT", no override at hidden 64) and the
 # GPS knobs of bench.py's gps_gin_dense; max_graph_nodes is derived from
@@ -634,6 +644,18 @@ CANARY_OVERRIDES = {
     "mace": {"mpnn_type": "MACE", "max_ell": 1, "node_max_ell": 1, "correlation": 2,
              "num_radial": 6, "radial_type": "bessel", "hidden_dim": 8},
 }
+
+
+# wall seconds of the parts of the stack phases (serving, training, int8),
+# summed over the kinds; logged before the result lines
+PARTS: dict[str, float] = {}
+
+
+def _part(name: str, t0: float) -> float:
+    """Adds the seconds since ``t0`` to ``PARTS[name]``; returns now."""
+    now = time.perf_counter()
+    PARTS[name] = PARTS.get(name, 0.0) + now - t0
+    return now
 
 
 def log(msg: str) -> None:
@@ -2879,6 +2901,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
     from hydragnn_tpu_torch.serve import PredictionServer, Predictor, ServingConfig
     from hydragnn_tpu_torch.serve.batcher import serving_collate
 
+    t_part = time.perf_counter()
     cfg, aug, loaders, samples = prepare(seed, kind)
     spec_arch = aug["NeuralNetwork"]["Architecture"]
     n_layers = int(spec_arch["num_conv_layers"])
@@ -2925,6 +2948,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
     if device == "cuda" and launches != want:
         raise AssertionError(f"serving: launch counts {launches} != {want}")
 
+    t_part = _part("serving: data, warm-up, captured burst", t_part)
     # served answers == Predictor.outputs on the same padded batch
     predictor = Predictor(model, aug, device=device)
     rows = _served_vs_outputs(ep.buckets, predictor, samples, results)
@@ -2949,6 +2973,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
         f"(serve.traffic), {n_batches} batches, {_traffic_line(report)} (wall "
         f"{sm['wall_s']:.3f} s)")
     summary = {"captured": [sm["p50_ms"], sm["p99_ms"], sm["graphs_per_sec"]]}
+    t_part = _part("serving: answers vs Predictor.outputs", t_part)
     if device == "cuda":
         p50, p99, gps_, e_launches, e_batches = _eager_burst(
             torch, config, model, aug, samples, name, f"[{kind}]", samples=samples)
@@ -2958,6 +2983,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
         if e_launches != _scaled(per_batch, e_batches):
             raise AssertionError(f"serving: eager comparator launched {e_launches}")
 
+    t_part = _part("serving: eager comparator burst", t_part)
     # the card against the port's CPU route (fp32 both), one batch
     fp32_cfg = copy.deepcopy(aug)
     fp32_cfg["NeuralNetwork"]["Training"]["precision"] = "fp32"
@@ -2973,6 +2999,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
     if not ok:
         raise AssertionError("the card's forward disagrees with the CPU route")
 
+    t_part = _part("serving: CPU-route forward", t_part)
     # where a served batch's time goes (top bucket, as served: bf16 step;
     # each predict step gets a fresh device batch, so it builds the batch's
     # CSR views as a served batch does)
@@ -3013,7 +3040,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
         f"outputs cloned {t_cap:.3f} ms; split to numpy {t_split:.3f} ms")
     summary.update(predict_ms={"eager": t_fwd, "captured": t_cap})
     if device == "cuda":
-        dev_batches = [host_batch.to(device) for _ in range(11)]
+        dev_batches = [host_batch.to(device) for _ in range(PROFILE_SERVED_BATCHES)]
         summary["busy"] = {
             "eager": busy_share(torch, [lambda b=b: predictor.outputs(b) for b in dev_batches],
                                 f"[{card}] [{kind}] eager:", "predict steps"),
@@ -3023,6 +3050,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
                     summary["busy"]["eager"])
         summary["busy"] = {k: _lean(v) for k, v in summary["busy"].items()}
 
+    t_part = _part("serving: breakdown and profiler", t_part)
     # the batch evaluator over the same molecules, which it preprocesses
     # itself (the edge lengths are appended once)
     fs.reset_launches()
@@ -3038,6 +3066,7 @@ def serving_phase(torch, device: str, seed: int, kind: str = "gin", card: str = 
         raise AssertionError("run_prediction: bad result")
     if device == "cuda" and rp_launches != _scaled(per_batch, n_rp):
         raise AssertionError(f"run_prediction: launch counts {rp_launches}")
+    _part("serving: run_prediction", t_part)
     return {"launches": launches, "batches": n_batches, "summary": summary}
 
 
@@ -3196,6 +3225,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
     from hydragnn_tpu_torch.train.checkpoint import load_checkpoint
     from hydragnn_tpu_torch.train.step import cast_forward, create_train_state, make_train_step
 
+    t_part = time.perf_counter()
     cfg = qm9_config(kind)
     published = cfg["NeuralNetwork"]["Training"]["num_epoch"]
     cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
@@ -3254,6 +3284,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         if device == "cuda" and launches != want:
             raise AssertionError(f"training: launch counts {launches} != {want}")
 
+        t_part = _part("training: data and run_training", t_part)
         # the final checkpoint, reloaded into a fresh model (other random
         # weights), gives the trained model's run_prediction
         fresh = create_model_config(aug, device=device, seed=seed + 1)
@@ -3268,6 +3299,7 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         if diff != 0.0 or got[0] != ref[0]:
             raise AssertionError("training: the reloaded checkpoint predicts differently")
 
+    t_part = _part("training: checkpoint reload and run_prediction", t_part)
     # one train step at the top bucket, alone: its launches
     train_ld = loaders[0]
     chunk = train_ld.samples[:64]
@@ -3289,7 +3321,9 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         captured = captured_vs_eager(torch, state, step, make_eval_step(dtype), hosts,
                                      f"[{card}] [{kind}]", per_step, per_eval)
 
+    t_part = _part("training: captured vs eager", t_part)
     _step_vs_cpu(torch, aug, host, device, seed)
+    t_part = _part("training: fp32 step vs the CPU route", t_part)
 
     # where a bf16 train step's time goes (top bucket, median of 20, host
     # clock after a synchronise; each step on a fresh device batch, so it
@@ -3329,9 +3363,14 @@ def training_phase(torch, device: str, seed: int, kind: str = "gin",
         f"{med['optimizer']:.3f} ms; whole train step {med['step']:.3f} ms, of which kernels "
         f"~{kernel_ms * 1e3:.2f} us of device time ({100 * kernel_ms / med['step']:.2f}%)")
     eager_busy = None
+    t_part = _part("training: step breakdown", t_part)
     if device == "cuda":
-        eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [{kind}] eager:")
+        eager_busy = _profile_steps(torch, step, state, host, device, f"[{card}] [{kind}] eager:",
+                                    n_steps=PROFILE_TRAIN_STEPS)
+        for _ in range(TRAINED_EAGER_STEPS - PROFILE_TRAIN_STEPS):
+            step(state, host.to(device))
         log_op_diff(f"[{card}] [{kind}] train step:", captured["busy"], eager_busy)
+    _part("training: eager profiler", t_part)
     return {"launches": launches, "per_step": one_step, "breakdown": med, "layers": n_layers,
             "model": model, "aug": aug, "captured": captured, "eager_busy": eager_busy}
 
@@ -4055,7 +4094,17 @@ def _check_refusal(kind: str, device: str, qserver, epq, name: str, cfg,
     return (pinned if device == "cuda" else worst) * (1 + QUANT_REFUSAL_RTOL)
 
 
-def quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: dict,
+def quant_serving_phase(*args, **kwargs) -> dict:
+    """:func:`_quant_serving_phase`, its wall seconds added to
+    ``PARTS["int8 serving"]``."""
+    t0 = time.perf_counter()
+    try:
+        return _quant_serving_phase(*args, **kwargs)
+    finally:
+        _part("int8 serving", t0)
+
+
+def _quant_serving_phase(torch, device: str, seed: int, kind: str, model, aug: dict,
                         card: str = "", diagnostics: bool = False,
                         comparators: bool = True) -> dict:
     """The model that the training phase just trained, behind two servers
@@ -6144,6 +6193,732 @@ def data_plane_phase(torch, device: str, seed: int, card: str = "", n_qm9: int =
     return out
 
 
+# -- phase 12: parallel training over torch.distributed ---------------------------
+
+# The supercells of the large-graph routes: BCC at a = 2.87 A, periodic, a
+# radius graph of 3.0 A (8 neighbours at a sqrt(3)/2, 6 at a: 14 per atom)
+PARALLEL_CELLS = 20           # cells per axis: 16,000 atoms, 224,000 edges
+PARALLEL_LATTICE = 2.87
+PARALLEL_GRAPHS = 5           # supercells per run_training: 4 train, 1 val or test
+PARALLEL_STEPS = 3            # steps of each route held against its one-rank run
+PARALLEL_GROUPS = 3           # data-parallel groups held against the one-rank run
+# losses of a route on D ranks against its one-rank run, per step: the ranks'
+# partial sums (the union's norms, pooling and loss, the gradients' sum) add
+# in other orders than one device's, and AdamW's first steps (lr 1e-3) turn
+# that rounding, on gradients that cancel, into whole steps
+PARALLEL_TOL = dict(rtol=5e-3, atol=1e-6)
+# seconds the ranks of --parallel may take together before they are killed
+PARALLEL_RANK_S = 200
+# FSDP's width: qm9.json's GIN at hidden 128, the narrowest width whose
+# conv weights (128 x 128) reach the FSDP rule's 2**14 entries and shard
+# (at qm9.json's 64 nothing does, and FSDP would be the replicated step)
+FSDP_HIDDEN = 128
+# the large-graph routes' kinds: qm9.json's widths, fp32, one graph per step
+LARGE_KINDS = {
+    "gin": {},
+    # dropout 0: the halo route visits the edges in its own order, so a
+    # mask drawn over them would not be the one-device step's
+    "gat": {"mpnn_type": "GAT", "dropout": 0.0},
+    "gps_ring": {"global_attn_engine": "GPS", "global_attn_type": "ring",
+                 "global_attn_heads": 4, "pe_dim": 4},
+}
+
+
+def supercell_samples(n: int, seed: int, cells: int | None = None, pe_dim: int = 0):
+    """``n`` periodic BCC supercells of ``2 cells**3`` atoms: ``Z`` in 1..9
+    as the one node feature, a random graph target, the 3.0 A radius graph;
+    with ``pe_dim``, positional encodings from the fractional coordinates
+    (cos and sin of 2 pi x, y, ...: a 16,000-node graph's Laplacian would
+    be a dense 16,000 x 16,000 eigendecomposition on the host, which the
+    port's preprocessing skips for samples that carry their ``pe``)."""
+    from hydragnn_tpu_torch.graphs.graph import GraphSample
+    from hydragnn_tpu_torch.graphs.radius import build_radius_graph
+
+    a, cells = PARALLEL_LATTICE, cells or PARALLEL_CELLS
+    grid = np.stack(np.meshgrid(*(np.arange(cells),) * 3, indexing="ij"), -1).reshape(-1, 3)
+    pos = np.concatenate([grid, grid + 0.5]).astype(np.float64) * a
+    cell = np.eye(3) * a * cells
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        z = rng.integers(1, 10, size=(pos.shape[0], 1)).astype(np.float32)
+        s = GraphSample(x=z, pos=pos.copy(), cell=cell, pbc=np.ones(3, bool),
+                        graph_y=rng.normal(size=(1,)),
+                        extras={"atomic_numbers": z[:, 0].copy()})
+        build_radius_graph(s, 3.0, max_neighbours=20)
+        if pe_dim:
+            frac = 2 * np.pi * pos / (a * cells)
+            feats = np.concatenate([np.cos(frac), np.sin(frac)], axis=1)[:, :pe_dim]
+            s.extras["pe"] = feats.astype(np.float32)
+            s.extras["rel_pe"] = np.abs(feats[s.senders] - feats[s.receivers]).astype(np.float32)
+        out.append(s)
+    return out
+
+
+def large_graph_config(route: str, kind: str = "gin", epochs: int = 1) -> dict:
+    """qm9.json's ``kind`` (``LARGE_KINDS``) on supercells: fp32, one graph
+    per batch, ``num_epoch`` cut to ``epochs``; ``route`` "halo" or
+    "edge" (``Architecture.halo`` / ``edge_sharding``)."""
+    cfg = qm9_config("gin")
+    cfg["Dataset"]["name"] = f"bcc_supercell_{route}_{kind}"
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch.update(LARGE_KINDS[kind])
+    if route == "halo":
+        arch["halo"] = {"enabled": True}
+    else:
+        arch["edge_sharding"] = True
+    training = cfg["NeuralNetwork"]["Training"]
+    training.update(num_epoch=epochs, batch_size=1, precision="fp32", Checkpoint=False,
+                    EarlyStopping=False)
+    return cfg
+
+
+def _param_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _digests_agree(digest: str) -> list:
+    """Every rank's digest (all-gathered); raises unless they are equal."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, digest)
+    if len(set(every)) != 1:
+        raise AssertionError(f"the ranks' parameters differ: {every}")
+    return every
+
+
+def _event_ms(torch, fn, n: int) -> float:
+    """Mean ms of ``n`` calls of ``fn`` between CUDA events (after one
+    call), the host's work included; on a host without a card, the host
+    clock."""
+    fn()
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def data_route_run(torch, kind: str, seed: int, card: str, epochs: int = 1,
+                   device: str = "cuda", hidden: int | None = None) -> dict:
+    """(a) ``run_training`` on qm9.json's ``kind`` (at ``hidden`` when
+    given) through the live group (``parallelism: "data"``,
+    HYDRAGNN_USE_FSDP as set; under FSDP the parameters must shard): every
+    rank's slot of each group, the captured parallel steps, launches
+    counted; then ``PARALLEL_GROUPS`` explicit captured steps on this rank's
+    slot of the first group of epochs 0, 1, ... (the ranks' parameters
+    compared after each), the captured step's ms and the gradients'
+    all-reduce ms."""
+    from hydragnn_tpu_torch import capture, run_training
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.parallel import comm
+    from hydragnn_tpu_torch.parallel.step import (bind_sync_batch_norm,
+                                                  make_parallel_train_step, shard_state)
+    from hydragnn_tpu_torch.train.step import create_train_state, resolve_precision
+    from hydragnn_tpu_torch.utils import flags
+
+    world, rank = comm.world_of(), comm.rank_of()
+    cfg = qm9_config(kind)
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+    cfg["NeuralNetwork"]["Architecture"]["parallelism"] = "data"
+    if hidden:
+        cfg["NeuralNetwork"]["Architecture"]["hidden_dim"] = hidden
+    fsdp = flags.fsdp_mode() == "fsdp"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fs.reset_launches()
+        history: list = []
+        t0 = time.perf_counter()
+        state, model, aug = run_training(copy.deepcopy(cfg), samples=raw_samples(seed, kind),
+                                         device=device, path=tmp, seed=seed, history=history)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+    launches = dict(fs.LAUNCHES)
+    if fsdp and not state.layout.shards:
+        raise AssertionError(f"parallel {kind}: FSDP sharded no parameter")
+    log(f"[{card}] [parallel {kind} x{world}] run_training data-parallel "
+        f"({state.layout.mode}, {len(state.layout.shards)} sharded parameters): {state.step} "
+        f"steps in {wall:.3f} s, train loss "
+        f"{[round(h['train_loss'], 6) for h in history]}, launches {launches}")
+    _digests_agree(_param_digest(model))
+    # explicit steps, group g the first ``world`` batches of epoch g's plan
+    # (an epoch of 512 molecules has 6 batches of 64: one group of 4)
+    _, aug, loaders, _ = prepare(seed, kind)
+    if hidden:
+        aug["NeuralNetwork"]["Architecture"]["hidden_dim"] = hidden
+    # each rank evaluates its slot of every group of the validation and
+    # test batches once per epoch
+    evals = epochs * sum(-(-len(ld) // world) for ld in loaders[1:])
+    batches = []
+    for g in range(PARALLEL_GROUPS):
+        loaders[0].set_epoch(g)
+        batches += list(loaders[0])[:world]
+    dtype = resolve_precision(str(aug["NeuralNetwork"]["Training"]["precision"]), device)
+    m = create_model_config(aug, device=device, seed=seed)
+    st = create_train_state(m, aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    shard_state(st, aug["NeuralNetwork"]["Training"]["Optimizer"], param_mode=flags.fsdp_mode(),
+                seed=seed)
+    if fsdp and not st.layout.shards:
+        raise AssertionError(f"parallel {kind}: FSDP sharded no parameter")
+    bind_sync_batch_norm(m)
+    step = capture.Dispatch(make_parallel_train_step(m, dtype), f"parallel {kind}", train=True,
+                            collective=world > 1)
+    losses = []
+    for g in range(PARALLEL_GROUPS):
+        metrics = step(st, batches[g * world + rank].to(device))
+        losses.append(float(metrics["loss"]))
+        _digests_agree(_param_digest(m))
+    mine = batches[rank].to(device)
+    step_ms = _event_ms(torch, lambda: step(st, mine), 20)
+    grads = [p.grad for p in m.parameters()]
+    allreduce_ms = _event_ms(torch, lambda: comm.sum_tensors(grads), 20)
+    n_grad = sum(g.numel() for g in grads)
+    log(f"[{card}] [parallel {kind} x{world}] {PARALLEL_GROUPS} captured steps on slot {rank}: "
+        f"losses {losses}, parameters equal on every rank after each; captured step "
+        f"{step_ms:.3f} ms, the gradients' all-reduce ({n_grad} fp32) {allreduce_ms:.3f} ms")
+    return {"launches": launches, "losses": losses, "history": history, "step_ms": step_ms,
+            "allreduce_ms": allreduce_ms, "steps": state.step, "evals": evals, "kind": kind,
+            "layers": int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"]),
+            "shards": len(st.layout.shards), "batches": [b for b in batches], "aug": aug}
+
+
+def large_route_run(torch, route: str, kind: str, seed: int, card: str,
+                    device: str = "cuda") -> dict:
+    """(b), (c) ``run_training`` on ``PARALLEL_GRAPHS`` supercells through
+    the live group's ``route`` (one epoch), then ``PARALLEL_STEPS`` eager
+    steps on one supercell (the ranks' parameters compared after each), the
+    step's ms and, for the halo route, the bytes on the wire."""
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.parallel import comm, halo
+    from hydragnn_tpu_torch.parallel import large_graph as lg
+    from hydragnn_tpu_torch.train.step import create_train_state
+
+    world = comm.world_of()
+    cfg = large_graph_config(route, kind)
+    pe_dim = int(cfg["NeuralNetwork"]["Architecture"].get("pe_dim") or 0)
+    tag = f"[{card}] [parallel {route} {kind} x{world}]"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fs.reset_launches()
+        history: list = []
+        t0 = time.perf_counter()
+        state, model, aug = run_training(copy.deepcopy(cfg),
+                                         samples=supercell_samples(PARALLEL_GRAPHS, seed,
+                                                                   pe_dim=pe_dim),
+                                         device=device, path=tmp, seed=seed, history=history)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+    launches = dict(fs.LAUNCHES)
+    log(f"{tag} run_training: {state.step} steps in {wall:.3f} s, train loss "
+        f"{[round(h['train_loss'], 6) for h in history]}, launches {launches}")
+    if "val_loss" in history[-1]:
+        # the launch gate counts no eval step: PARALLEL_GRAPHS leaves the
+        # validation or the test split empty, and the loop then skips both
+        raise AssertionError(f"{tag}: validation and test ran; the launch gate counts none")
+    _digests_agree(_param_digest(model))
+    sample = supercell_samples(1, seed + 1, pe_dim=pe_dim)
+    aug = update_config(copy.deepcopy(cfg), sample)
+    host = collate(sample, compute_pad_spec(sample, 1))
+    m = create_model_config(aug, device=device, seed=seed)
+    st = create_train_state(m, aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    if route == "halo":
+        share = halo.put_halo_batch(host, cutoff=3.0, device=device)
+        step = halo.make_halo_train_step(m)
+        extra = {"halo_bytes": halo.halo_boundary_bytes(share.frame.plan, m.spec.hidden_dim),
+                 "replicated_bytes": halo.replicated_allreduce_bytes(
+                     host.num_nodes, m.spec.hidden_dim, world),
+                 "local_nodes": share.batch.num_nodes, "local_edges": share.batch.num_edges}
+    else:
+        share = lg.put_large_batch(host, device=device)
+        step = lg.make_edge_sharded_train_step(m)
+        extra = {"local_edges": share.num_edges}
+    losses = []
+    for _ in range(PARALLEL_STEPS):
+        losses.append(float(step(st, share)["loss"]))
+        _digests_agree(_param_digest(m))
+    step_ms = _event_ms(torch, lambda: step(st, share), 5)
+    log(f"{tag} {PARALLEL_STEPS} eager steps on one supercell ({host.num_nodes} node slots, "
+        f"{host.num_edges} edge slots): losses {losses}, parameters equal on every rank after "
+        f"each; step {step_ms:.3f} ms; {extra}")
+    return {"launches": launches, "losses": losses, "step_ms": step_ms, "history": history,
+            "steps": state.step, "evals": 0, "kind": kind,
+            "layers": int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"]), **extra}
+
+
+# the kernels the parallel routes run: B1 and its backward, B2 (GIN),
+# B3 (GAT under halo), B4 (GPS-GIN, data-parallel)
+PARALLEL_KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum",
+                    "segment_softmax", "masked_softmax")
+
+PARALLEL_ROUTES = (("data", "gin"), ("data", "gps"), ("halo", "gin"), ("halo", "gat"),
+                   ("edge", "gin"), ("edge", "gps_ring"))
+
+
+def parallel_launches(run: dict) -> dict:
+    """The launches one rank's run of a parallel route must count: its
+    train steps times a train step's and its eval steps times a forward's
+    (``launches_per_train_step``/``launches_per_forward``: the routes run
+    the one-device layers on each rank's piece). GPS ``ring`` attention
+    replaces GPS's dense blocks, so it launches no masked softmax."""
+    kind = run["kind"]
+    base = "gps" if kind == "gps_ring" else kind
+    step = launches_per_train_step(base, run["layers"])
+    fwd = launches_per_forward(base, run["layers"])
+    want = {k: run["steps"] * step[k] + run["evals"] * fwd[k] for k in step}
+    if kind == "gps_ring":
+        want["masked_softmax"] = 0
+    return want
+
+
+def check_parallel_launches(runs: dict) -> None:
+    """Every run's launches against :func:`parallel_launches`, exactly."""
+    for name, r in runs.items():
+        want = parallel_launches(r)
+        if r["launches"] != want:
+            raise AssertionError(f"parallel {name}: launches {r['launches']}, expected {want} "
+                                 f"({r['steps']} train steps, {r['evals']} eval steps)")
+    log("parallel launches per run equal steps x a train step's + evals x a forward's: "
+        + "; ".join(f"{n} {r['steps']} + {r['evals']}" for n, r in runs.items()))
+
+
+def parallel_kernel_checks(torch, seed: int, world: int = 4, device: str = "cuda") -> dict:
+    """B1, its backward, B2 and B3 against their plain versions (``TOL``, as
+    in phase 3; the pooling's one long segment against fp64, as phase 3's
+    long rows) at the large routes' shapes, at qm9.json's width 64 in
+    fp32: the whole supercell (N = 16,008, E = 224,128: one card's piece),
+    rank 0's edge shard of ``world`` (every node, E / world edges) and rank
+    0's halo local view of ``world`` partitions (its own N_loc and E_loc).
+    Returns each kernel's largest error."""
+    from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.ops import fused_softmax as fsm
+    from hydragnn_tpu_torch.parallel import halo
+    from hydragnn_tpu_torch.parallel import large_graph as lg
+
+    sample = supercell_samples(1, seed + 1)
+    host = collate(sample, compute_pad_spec(sample, 1))
+    frame = halo.partition_graph_batch(host, world, cutoff=3.0)
+    views = {"supercell": host.to(device),
+             f"edge shard 0 of {world}": lg.edge_share(host, world, 0, device),
+             f"halo view 0 of {world}": halo.local_view(frame, 0, device).batch}
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+    errs = dict.fromkeys(("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum",
+                          "segment_softmax"), 0.0)
+
+    def check(name, label, got, want, rows):
+        errs[name] = max(errs[name], _compare(torch, f"{name} {label}", got, want, rows,
+                                              "float32"))
+
+    for label, b in views.items():
+        n, e, g = b.num_nodes, b.num_edges, b.num_graphs
+        mask, rows = b.edge_mask, n - 1  # every pad edge lands on row N-1
+        log(f"kernels at the parallel routes' {label}: N={n} E={e} G={g}, "
+            f"{int(mask.sum())} real edges")
+        h = torch.randn(n, 64, generator=gen).to(device)
+        check("gather_scatter_sum", f"{label} fp32 C=64 edge-mask weight",
+              fs.gather_scatter_sum(h, b.senders, b.receivers, n, weight=mask,
+                                    index=b.csr("receivers")),
+              fs.plain_gather_scatter_sum(h, b.senders, b.receivers, n, mask), rows)
+        check("gather_scatter_sum_bwd", f"{label} fp32 C=64, senders' view",
+              fs.gather_scatter_sum_bwd(h, b.senders, b.receivers, n, mask, b.csr("senders")),
+              fs.plain_gather_scatter_sum(h, b.receivers, b.senders, n, mask), rows)
+        x_e = torch.randn(e, 64, generator=gen).to(device)
+        check("segment_sum", f"{label} fp32 [E,64] -> N",
+              fs.fused_segment_sum(x_e, b.receivers, n, index=b.csr("receivers")),
+              fs.plain_segment_sum(x_e, b.receivers, n), rows)
+        # the pooling: one segment of thousands of rows, whose fp32 sums in
+        # two orders differ by more than TOL allows (1.3e-3 of ~1e2 on the
+        # supercell), so the kernel is held to an fp64 sum as phase 3 holds
+        # its long rows: within 1e-5 of the segment's sum of |terms|
+        x = h * b.node_mask[:, None]
+        got = fs.fused_segment_sum(x, b.batch, g, index=b.csr("batch"))
+        ref = torch.zeros(g, 64, dtype=torch.float64, device=x.device).index_add_(
+            0, b.batch.long(), x.double())
+        scale = torch.zeros_like(ref).index_add_(0, b.batch.long(), x.double().abs())
+        diff = (got.double() - ref).abs()
+        ok = bool((diff <= 1e-5 * scale + 1e-6).all())
+        log(f"  segment_sum {label} fp32 [N,64] -> G vs fp64: max|err|={float(diff.max()):.3e} "
+            f"(bound 1e-5 * sum|terms| + 1e-6) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"segment_sum {label}: the pooling disagrees with the fp64 sum")
+        # GAT's extended layout: edges, alignment slots, one self loop per node
+        _, loop_recv = b.self_loop_edges()
+        e_ext = loop_recv.shape[0]
+        valid = torch.cat([mask, mask.new_zeros(e_ext - e - n), mask.new_ones(n)])
+        logits = torch.randn(e_ext, GAT_HEADS, generator=gen).to(device) * 3.0
+        logits = torch.where(valid[:, None] > 0, logits, -1e9)
+        check("segment_softmax", f"{label} fp32 GAT layout ({e_ext} x {GAT_HEADS})",
+              fsm.segment_softmax(logits, loop_recv, n, index=b.csr("loop_receivers")),
+              fsm.plain_segment_softmax(logits, loop_recv, n), loop_recv != n - 1)
+    return errs
+
+
+def parallel_paths(torch, seed: int, card: str, device: str = "cuda") -> dict:
+    """Every route of ``PARALLEL_ROUTES`` through the live group, on this
+    rank; FSDP (HYDRAGNN_USE_FSDP) for the data route's GIN."""
+    import os
+
+    out = {}
+    for route, kind in PARALLEL_ROUTES:
+        if route == "data":
+            if kind == "gin":
+                os.environ["HYDRAGNN_USE_FSDP"] = "1"
+                try:
+                    out["fsdp gin"] = data_route_run(torch, kind, seed, card, device=device,
+                                                     hidden=FSDP_HIDDEN)
+                finally:
+                    os.environ.pop("HYDRAGNN_USE_FSDP")
+            out[f"data {kind}"] = data_route_run(torch, kind, seed, card, device=device)
+        else:
+            out[f"{route} {kind}"] = large_route_run(torch, route, kind, seed, card,
+                                                      device=device)
+    return out
+
+
+def _one_device_large_losses(torch, route: str, kind: str, seed: int,
+                             device: str = "cuda") -> tuple[list, float]:
+    """The one-device eager step's losses over ``PARALLEL_STEPS`` steps on
+    the large routes' supercell, and its ms."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_step
+
+    cfg = large_graph_config(route, kind)
+    pe_dim = int(cfg["NeuralNetwork"]["Architecture"].get("pe_dim") or 0)
+    sample = supercell_samples(1, seed + 1, pe_dim=pe_dim)
+    aug = update_config(copy.deepcopy(cfg), sample)
+    batch = collate(sample, compute_pad_spec(sample, 1)).to(device)
+    m = create_model_config(aug, device=device, seed=seed)
+    st = create_train_state(m, aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    step = make_train_step()
+    losses = [float(step(st, batch)["loss"]) for _ in range(PARALLEL_STEPS)]
+    return losses, _event_ms(torch, lambda: step(st, batch), 5)
+
+
+def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
+                     device: str = "cuda", hidden: int | None = None) -> tuple[list, float]:
+    """The data route's ``PARALLEL_GROUPS`` steps on one device: each
+    group's ``world`` batches through the model in turn from the same
+    running statistics, their losses and gradients weighted by graph count,
+    the statistics merged over the batches with real nodes, one optimizer
+    step (what the ranks compute together); and the one-device captured
+    step's ms on one batch."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.models.common import MaskedBatchNorm
+    from hydragnn_tpu_torch.train.step import (create_train_state, freeze_conv_grads,
+                                               make_train_loss, make_train_step,
+                                               resolve_precision)
+
+    _, aug, _, _ = prepare(seed, kind)
+    if hidden:
+        aug["NeuralNetwork"]["Architecture"]["hidden_dim"] = hidden
+    dtype = resolve_precision(str(aug["NeuralNetwork"]["Training"]["precision"]), device)
+    m = create_model_config(aug, device=device, seed=seed)
+    st = create_train_state(m, aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    loss_fn = make_train_loss(dtype)
+    norms = [n for n in m.modules() if isinstance(n, MaskedBatchNorm)]
+    # rank r's dropout masks come from its generator, seeded seed + r
+    gens = [torch.Generator(device=device).manual_seed(seed + r) for r in range(world)]
+    losses = []
+    for g in range(PARALLEL_GROUPS):
+        group = [b.to(device) for b in batches[g * world:(g + 1) * world]]
+        start = [(n.mean.clone(), n.var.clone()) for n in norms]
+        ngs = [b.graph_mask.sum() for b in group]
+        denom = torch.clamp(sum(ngs), min=1.0)
+        st.optimizer.zero_grad()
+        merged = [(torch.zeros_like(a), torch.zeros_like(b)) for a, b in start]
+        real, total = 0.0, 0.0
+        for r, (b, ng) in enumerate(zip(group, ngs)):
+            st.generator = gens[r]
+            with torch.no_grad():
+                for n, (a, v) in zip(norms, start):
+                    n.mean.copy_(a)
+                    n.var.copy_(v)
+            tot, _ = loss_fn(st, b)
+            (tot * (ng / denom)).backward()
+            total += float(tot.detach() * (ng / denom))
+            r = float(b.node_mask.sum() > 0)
+            real += r
+            for (sa, sv), n in zip(merged, norms):
+                sa += n.mean * r
+                sv += n.var * r
+        with torch.no_grad():
+            for (sa, sv), n in zip(merged, norms):
+                n.mean.copy_(sa / max(real, 1.0))
+                n.var.copy_(sv / max(real, 1.0))
+        for p in m.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        freeze_conv_grads(m)
+        st.optimizer.step()
+        st.step += 1
+        losses.append(total)
+    # the one-device captured step's time, on a fresh state: autograd
+    # accumulated the emulated state's gradients on the default stream,
+    # which a capture on its side stream may not depend on
+    fresh = create_train_state(create_model_config(aug, device=device, seed=seed),
+                               aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    one = capture.Dispatch(make_train_step(dtype), f"one device {kind}", train=True)
+    b0 = batches[0].to(device)
+    return losses, _event_ms(torch, lambda: one(fresh, b0), 20)
+
+
+def _init_group(torch, world: int, rank: int, port: int) -> None:
+    import torch.distributed as dist
+
+    import datetime
+
+    torch.cuda.set_device(rank)
+    # a collective that waits 2 minutes aborts the rank rather than hang
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, device_id=torch.device("cuda", rank),
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(torch, seed: int, card: str) -> dict:
+    """The default run's pass over the parallel routes on one card: an in-process NCCL
+    group of world 1, each route through ``run_training`` (launches
+    counted), and each route's steps held against the one-device step: bit
+    for bit where the route is the one-device code with identity
+    collectives (the data route's captured step, replicated and FSDP, and
+    the edge-sharded steps, GPS ring included), within ``PARALLEL_TOL`` for
+    the halo route (its Morton order reorders the sums); FSDP at
+    ``FSDP_HIDDEN``, where its parameters shard (one shard each at world 1,
+    through NCCL's reduce-scatter and all-gather). First, the kernels
+    against their plain versions at the large routes' shapes
+    (:func:`parallel_kernel_checks`); last, every run's launches against
+    their per-step formula. The group is destroyed at the end: the later
+    phases train alone."""
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.parallel import halo
+    from hydragnn_tpu_torch.parallel import large_graph as lg
+    from hydragnn_tpu_torch.parallel.step import make_parallel_train_step, shard_state
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
+                                               resolve_precision)
+
+    kernel_errs = parallel_kernel_checks(torch, seed)
+    _init_group(torch, 1, 0, _free_port())
+    try:
+        runs = parallel_paths(torch, seed, card)
+        # the data route's captured steps against the one-device captured step
+        for kind in ("gin", "gps"):
+            _, aug, loaders, _ = prepare(seed, kind)
+            dtype = resolve_precision(str(aug["NeuralNetwork"]["Training"]["precision"]),
+                                      "cuda")
+            opt = aug["NeuralNetwork"]["Training"]["Optimizer"]
+            hosts = list(loaders[0])[:4]
+            for mode in ("replicated", "fsdp"):
+                if mode == "fsdp":
+                    aug = copy.deepcopy(aug)
+                    aug["NeuralNetwork"]["Architecture"]["hidden_dim"] = FSDP_HIDDEN
+                m = create_model_config(aug, device="cuda", seed=seed)
+                a = create_train_state(m, opt, seed=seed)
+                b = _twin(torch, a)
+                shard_state(a, opt, param_mode=mode, seed=seed)
+                if mode == "fsdp" and not a.layout.shards:
+                    raise AssertionError(f"parallel {kind} fsdp x1: no parameter sharded")
+                par = capture.Dispatch(make_parallel_train_step(m, dtype), f"data {kind} x1",
+                                       train=True)
+                one = capture.Dispatch(make_train_step(dtype), f"one device {kind}", train=True)
+                for h in hosts:
+                    ma, mb = par(a, h.to("cuda")), one(b, h.to("cuda"))
+                    if not _same_tree(torch, ma, mb) or _state_diffs(torch, a, b):
+                        raise AssertionError(f"parallel {kind} {mode} x1: the captured step is "
+                                             f"not the one-device step: {_state_diffs(torch, a, b)}")
+                log(f"[{card}] [parallel data {kind} {mode} x1] {len(hosts)} captured steps "
+                    f"bit-equal to the one-device captured step (metrics, parameters, "
+                    f"statistics, moments; hidden "
+                    f"{aug['NeuralNetwork']['Architecture']['hidden_dim']}, "
+                    f"{len(a.layout.shards)} sharded parameters)")
+        # the large routes' steps against the one-device eager step
+        for route, kind in PARALLEL_ROUTES[2:]:
+            cfg = large_graph_config(route, kind)
+            pe_dim = int(cfg["NeuralNetwork"]["Architecture"].get("pe_dim") or 0)
+            sample = supercell_samples(1, seed + 1, pe_dim=pe_dim)
+            aug = update_config(copy.deepcopy(cfg), sample)
+            host = collate(sample, compute_pad_spec(sample, 1))
+            opt = aug["NeuralNetwork"]["Training"]["Optimizer"]
+            m = create_model_config(aug, device="cuda", seed=seed)
+            a = create_train_state(m, opt, seed=seed)
+            b = _twin(torch, a)
+            one = make_train_step()
+            if route == "halo":
+                share, step = halo.put_halo_batch(host, cutoff=3.0, device="cuda"), \
+                    halo.make_halo_train_step(m)
+            else:
+                share, step = lg.put_large_batch(host, device="cuda"), \
+                    lg.make_edge_sharded_train_step(m)
+            dev = host.to("cuda")
+            for i in range(PARALLEL_STEPS):
+                la, lb = step(a, share), one(b, dev)
+                if route == "edge":
+                    if not _same_tree(torch, la, lb) or _state_diffs(torch, a, b):
+                        raise AssertionError(f"parallel edge {kind} x1: not the one-device "
+                                             f"step: {_state_diffs(torch, a, b)}")
+                elif not np.isclose(float(la["loss"]), float(lb["loss"]), **PARALLEL_TOL):
+                    raise AssertionError(f"parallel halo {kind} x1 step {i}: loss "
+                                         f"{float(la['loss'])} vs {float(lb['loss'])}")
+            log(f"[{card}] [parallel {route} {kind} x1] {PARALLEL_STEPS} steps against the "
+                f"one-device step on the supercell: "
+                f"{'bit-equal' if route == 'edge' else 'losses within ' + str(PARALLEL_TOL)}")
+    finally:
+        dist.destroy_process_group()
+    check_parallel_launches(runs)
+    launches: dict = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"runs": runs, "launches": launches, "kernel_errs": kernel_errs}
+
+
+def parallel_rank_main(torch, seed: int, world: int, rank: int, port: int, out: str) -> int:
+    """One rank of ``--parallel``: ``parallel_paths`` in the group, its
+    results written to ``out``."""
+    import faulthandler
+    import os
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.ops import _build
+
+    # a rank that waits on the others for too long prints every thread's
+    # stack and exits
+    faulthandler.dump_traceback_later(PARALLEL_RANK_S - 30, exit=True)
+    torch.cuda.set_device(rank)
+    _build.load()
+    _init_group(torch, world, rank, port)
+    try:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader", f"--id={rank}"], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+        runs = parallel_paths(torch, seed, card)
+    except BaseException:
+        # the other ranks may wait in a collective this rank will not join:
+        # report and leave without tearing the group down
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
+    for r in runs.values():
+        r.pop("aug", None)
+        r["batches"] = [b.to("cpu") for b in r.get("batches", [])]
+    with open(out, "wb") as f:
+        pickle.dump(runs, f)
+    return 0
+
+
+def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
+    """``--parallel``: ``world`` ranks, one GPU each, run every route
+    (``parallel_paths``); the gates: the ranks' parameters equal after every
+    step (checked in the ranks), each route's losses within
+    ``PARALLEL_TOL`` of its one-rank run over the same groups or graph, the
+    halo route's bytes on the wire below the replicated all-reduce's; the
+    step ms at ``world`` ranks and at one, the all-reduce ms. No result
+    line."""
+    import os
+    import pickle
+
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"chip_smoke --parallel: {world} GPUs needed, "
+                         f"{torch.cuda.device_count()} present")
+    t0 = time.perf_counter()
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                   "--seed", str(seed), "--parallel-rank", str(r),
+                                   "--parallel-world", str(world), "--parallel-port", str(port),
+                                   "--parallel-out", os.path.join(tmp, f"rank{r}.pkl")])
+                 for r in range(world)]
+        try:
+            deadline = time.monotonic() + PARALLEL_RANK_S
+            codes = [p.wait(timeout=max(deadline - time.monotonic(), 1.0)) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            raise AssertionError(f"--parallel: rank exit codes {codes}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    log(f"--parallel: {world} ranks ran in {time.perf_counter() - t0:.1f} s")
+    for r in ranks:
+        check_parallel_launches(r)
+    parallel_kernel_checks(torch, seed, world)
+    report = {}
+    for name, r0 in ranks[0].items():
+        route, kind = name.split(" ")
+        for r in ranks[1:]:
+            if not np.allclose(r[name]["losses"], r0["losses"], rtol=0, atol=0):
+                raise AssertionError(f"{name}: the ranks' losses differ")
+        if route in ("data", "fsdp"):
+            ref, ref_ms = _emulated_groups(torch, kind, seed, world, r0["batches"],
+                                           hidden=FSDP_HIDDEN if route == "fsdp" else None)
+        else:
+            ref, ref_ms = _one_device_large_losses(torch, route, kind, seed)
+        ok = np.allclose(r0["losses"], ref, **PARALLEL_TOL)
+        entry = {"losses": r0["losses"], "one_rank_losses": ref, "step_ms": r0["step_ms"],
+                 "one_rank_step_ms": ref_ms, "steps": r0["steps"],
+                 "launches_rank0": r0["launches"]}
+        if route == "fsdp":
+            entry["sharded_parameters"] = r0["shards"]
+        if "allreduce_ms" in r0:
+            entry["allreduce_ms"] = r0["allreduce_ms"]
+        if route == "halo":
+            entry.update(halo_bytes=r0["halo_bytes"], replicated_bytes=r0["replicated_bytes"])
+            if not r0["halo_bytes"] < r0["replicated_bytes"]:
+                raise AssertionError(f"{name}: halo bytes {r0['halo_bytes']} not below the "
+                                     f"replicated all-reduce's {r0['replicated_bytes']}")
+        log(f"[{dev['smi']}] [parallel {name}] x{world} against one rank: losses "
+            f"{r0['losses']} vs {ref} ({'within' if ok else 'BEYOND'} {PARALLEL_TOL}); step "
+            f"{r0['step_ms']:.3f} ms at {world} ranks, {ref_ms:.3f} ms at one"
+            + (f"; all-reduce {r0['allreduce_ms']:.3f} ms per step" if "allreduce_ms" in r0
+               else ""))
+        if not ok:
+            raise AssertionError(f"{name}: losses beyond {PARALLEL_TOL} of the one-rank run")
+        report[name] = entry
+    log(f"chip_smoke --parallel: {time.perf_counter() - t0:.1f} s; no result line")
+    log(dev["smi"])
+    print(json.dumps({"parallel": report}), flush=True)
+    return 0
+
+
 def kernels_only(torch, seed: int, dev: dict) -> int:
     """``--kernels-only``: every kernel against its plain version with its
     times, at the main paths' shapes: phase 3, the cell-list checks and
@@ -6205,10 +6980,21 @@ def main(argv=None) -> int:
                              "untrained models); prints their entries under kernels_only "
                              "(launches null), no result line, and exits 3: no main path is "
                              "driven")
+    parser.add_argument("--parallel", action="store_true",
+                        help="the parallel routes on 4 GPUs of one machine, one rank each: "
+                             "the ranks' parameters equal after every step, each route's "
+                             "losses against its one-rank run, the halo bytes against the "
+                             "replicated all-reduce's, step and all-reduce ms; no result line")
+    for name in ("--parallel-rank", "--parallel-world", "--parallel-port"):
+        parser.add_argument(name, type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-out", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
 
+    if args.parallel_rank is not None:
+        return parallel_rank_main(torch, args.seed, args.parallel_world, args.parallel_rank,
+                                  args.parallel_port, args.parallel_out)
     t_start = time.perf_counter()
     phase_s: dict[str, float] = {}  # wall seconds per phase, logged before the result lines
     dev = device_phase(torch)
@@ -6222,6 +7008,8 @@ def main(argv=None) -> int:
         build_phase()
     if args.kernels_only:
         return kernels_only(torch, args.seed, dev)
+    if args.parallel:
+        return parallel_mode(torch, args.seed, dev)
     with timed_phase(phase_s, "data"):
         _, aug_gin, loaders, samples = prepare(args.seed)
         n_max = update_config(qm9_config("gps"), loaders[0].samples)[
@@ -6332,6 +7120,10 @@ def main(argv=None) -> int:
                             gin_samples, ckpt, tmp, card=dev["smi"])
     with timed_phase(phase_s, "data_plane"):
         data_plane = data_plane_phase(torch, "cuda", args.seed, card=dev["smi"])
+    log("stack phase parts (s, summed over the qm9.json kinds): "
+        + json.dumps({k: round(v, 3) for k, v in sorted(PARTS.items())}))
+    with timed_phase(phase_s, "parallel"):
+        parallel = parallel_phase(torch, args.seed, dev["smi"])
     for e in entries:
         name = e["name"]
         if name == "quant_dense":
@@ -6360,8 +7152,14 @@ def main(argv=None) -> int:
                          + mlip["launches"][name] + film["launches"][name]
                          + sum(m["launches"][name] for m in mlips.values())
                          + sum(r["launches"][name] for r in ran_md.values())
-                         + data_plane["launches"][name])
+                         + data_plane["launches"][name] + parallel["launches"][name])
         e["launches_data_plane"] = data_plane["launches"][name]
+        e["launches_parallel"] = {k: r["launches"][name] for k, r in parallel["runs"].items()}
+        if name in PARALLEL_KERNELS and parallel["launches"][name] <= 0:
+            raise AssertionError(f"{name} was not launched on the parallel routes")
+        if name in parallel["kernel_errs"]:
+            e["max_abs_err_parallel_shapes"] = parallel["kernel_errs"][name]
+            e["max_abs_err"] = max(e["max_abs_err"], parallel["kernel_errs"][name])
         if name in ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum") and \
                 data_plane["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the data plane's paths")
@@ -6422,6 +7220,10 @@ def main(argv=None) -> int:
                          "mptrj_film": film_served["summary"]},
         "fleet": fleet,
         "data_plane": {k: v for k, v in data_plane.items() if k != "launches"},
+        "parallel_x1": {k: {"step_ms": r["step_ms"], "losses": r["losses"],
+                            **({"allreduce_ms": r["allreduce_ms"]} if "allreduce_ms" in r
+                               else {})}
+                        for k, r in parallel["runs"].items()},
         "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
                                "busy_eager": _lean(r["captured"]["eager_busy"]),
                                "busy_captured": _lean(r["captured"]["busy"])}

@@ -40,6 +40,18 @@ Callers capture for CUDA tensors and run the eager step for CPU tensors,
 as the kernels route; a capture that fails raises. A graph holds the
 addresses of the state it was captured against: :meth:`StepGraphs.run`
 refuses another state object.
+
+A step with collectives inside (the data-parallel steps of
+``parallel/step.py``, whose NCCL all-reduces are captured in the graph)
+must be captured on every rank of its group at the same step: a capture
+runs the step :data:`WARMUP` + 1 times, a replay once, and ranks that
+disagree would wait on each other's collectives for ever. A
+``collective`` :class:`Dispatch` keys its graphs by the batch's shapes
+and node bound only (:func:`uncertified`: its sortedness certificates
+are dropped, so its CSR views sort the ids, which leaves sorted ids in
+place and sums in the certified order): the data-parallel loaders give
+every rank of a group one bucket, so every rank captures at the same
+steps.
 """
 
 from __future__ import annotations
@@ -121,6 +133,16 @@ def _serves(graph_key: tuple, key: tuple) -> bool:
     return graph_key[:2] == key[:2] and all(b or not g for g, b in zip(graph_key[2], key[2]))
 
 
+def uncertified(batch: GraphBatch) -> GraphBatch:
+    """``batch`` with none of its id arrays certified sorted (its node
+    bound kept): a graph key every rank of a group computes alike."""
+    meta = batch.meta
+    if meta is None:
+        return batch
+    return batch.replace(meta=dataclasses.replace(
+        meta, **{c: False for c in _CERTIFICATES}))
+
+
 def bucket_of(batch: GraphBatch) -> tuple[int, int, int, int]:
     """The batch's ``PadSpec.as_tuple()``."""
     return batch.num_nodes, batch.num_edges, batch.num_graphs, int(batch.idx_kj.shape[0])
@@ -148,7 +170,8 @@ def clone_tree(x):
 @contextlib.contextmanager
 def preserved(state):
     """Puts back, on exit, everything a train step changes in ``state`` (a
-    ``TrainState``): parameters and buffers, the optimizer's state tensors
+    ``TrainState``): parameters and buffers (and the optimizer's parameters
+    where they are not the model's), the optimizer's state tensors
     (those created inside are zeroed: every optimizer of the port starts its
     state at zero), the host step count; inside, the steps draw from a
     throwaway generator, so the state's own does not advance. Ordered on the
@@ -156,6 +179,10 @@ def preserved(state):
     the exit."""
     model, optimizer = state.model, state.optimizer
     tensors = list(itertools.chain(model.parameters(), model.buffers()))
+    # the optimizer's own parameters where they are not the model's (the
+    # FSDP shards of ``parallel/step.py``)
+    known = {id(t) for t in tensors}
+    tensors += [p for g in optimizer.param_groups for p in g["params"] if id(p) not in known]
     with torch.no_grad():
         saved = [t.detach().clone() for t in tensors]
         before = {id(p): {k: v.clone() for k, v in s.items() if torch.is_tensor(v)}
@@ -303,15 +330,19 @@ class Dispatch:
     step's graph for the batch's bucket, on the CPU the eager step itself;
     ``graphs`` holds the captures. ``train`` and ``device``: see
     :class:`StepGraphs` (without ``device`` the batch's own device
-    routes)."""
+    routes). ``collective``: the step runs collectives over a process
+    group of more than one rank, and its graphs are keyed by shapes only
+    (:func:`uncertified`)."""
 
-    def __init__(self, step, name: str, train: bool = False, device=None):
+    def __init__(self, step, name: str, train: bool = False, device=None,
+                 collective: bool = False):
         self.step = step
+        self.collective = collective
         self.graphs = StepGraphs(step, name, train=train, device=device)
 
     def __call__(self, state, batch):
         if (self.graphs.device or batch.device).type == "cuda":
-            return self.graphs.run(state, batch)
+            return self.graphs.run(state, uncertified(batch) if self.collective else batch)
         return self.step(state, batch)
 
 
@@ -364,4 +395,5 @@ __all__ = [
     "preserved",
     "signature",
     "total_captures",
+    "uncertified",
 ]

@@ -266,9 +266,12 @@ class ModelSpec:
     loss_type: str = "mse"
     freeze_conv_layers: bool = False
     initial_bias: float | None = None
+    # SyncBatchNorm (``Architecture.SyncBatchNorm``): the data-parallel step
+    # sums the feature norms' statistics over the data ranks
+    sync_batch_norm: bool = False
     dropout: float = 0.25  # GAT's attention and GPS's dropout (train mode only)
     global_attn_engine: str | None = None  # "GPS" or None
-    global_attn_type: str | None = None  # GPS: "multihead" (None) or a later slice's
+    global_attn_type: str | None = None  # GPS: "multihead" (None), "performer" or "ring"
     global_attn_heads: int = 0
     max_graph_nodes: int | None = None  # GPS dense-attention width
     pe_dim: int = 0  # Laplacian positional encodings per node (GPS)
@@ -361,6 +364,7 @@ class ModelSpec:
             loss_type=training.get("loss_function_type", "mse"),
             freeze_conv_layers=bool(arch.get("freeze_conv_layers", False)),
             initial_bias=arch.get("initial_bias"),
+            sync_batch_norm=bool(arch.get("SyncBatchNorm", False)),
             dropout=float(arch.get("dropout", 0.25)),
             global_attn_engine=arch.get("global_attn_engine") or None,
             global_attn_type=arch.get("global_attn_type") or None,

@@ -16,8 +16,9 @@ packed file. When each host instead holds only its own shard on local disk,
 * a per-host ``ShardServer`` thread answers batched index fetches over TCP
   (one request per owner per batch);
 * the address book (host, port, index range) is passed explicitly
-  (``peers=``); its exchange over ``torch.distributed`` comes with the
-  parallelism slice;
+  (``peers=``) or, without it, exchanged among the processes of the
+  ``torch.distributed`` group (``all_gather_object``, the JAX package's
+  ``process_allgather``); a process without a group is its own only peer;
 * reads of any global index then work from every host: local → zero-copy
   mmap, remote → fetch + bounded LRU cache.
 
@@ -50,6 +51,7 @@ yet; their knobs here are the constructor's and ``Dataset.store``'s.
 from __future__ import annotations
 
 import dataclasses
+import socket
 import threading
 import time
 import warnings
@@ -168,29 +170,32 @@ class ShardedStore:
         probe_interval: float | None = None,
         quarantine_base_s: float | None = None,
         quarantine_cap_s: float | None = None,
+        advertise_host: str | None = None,
     ):
-        if peers is None:
-            raise ValueError(
-                "ShardedStore needs peers=[(host, port, start, stop), ...]: the address "
-                "exchange over torch.distributed is not ported yet (a later slice: "
-                "parallelism)")
         self.ds = PackedDataset(shard_path)
         if len(self.ds.subset) != stop - start:
             raise ValueError(f"shard {shard_path} holds {len(self.ds.subset)} samples but "
                              f"claims global range [{start}, {stop})")
         self.start, self.stop = int(start), int(stop)
-        self.peers = sorted(peers, key=lambda p: (p[2], p[3]))
-        self.total = max(p[3] for p in self.peers)
-        # the union of the peer spans must cover [0, total) with no gap:
-        # overlaps (replicas) are the feature, gaps are fatal
-        cursor = 0
-        spans = sorted({(p[2], p[3]) for p in self.peers})
-        for s0, s1 in spans:
-            if s0 > cursor:
-                raise ValueError(f"shard ranges leave [{cursor}, {s0}) unserved: {spans}")
-            cursor = max(cursor, s1)
+        server = None
+        if peers is None:
+            # the exchange advertises this store's server: it starts first
+            server = ShardServer(self.ds, start, stop, host=bind_host, auth_token=auth_token)
+            try:
+                peers = self._allgather_peers(server.port, advertise_host)
+            except BaseException:
+                _stop(server)
+                raise
+        try:
+            self._set_peers(peers)
+        except BaseException:
+            if server is not None:
+                _stop(server)
+            raise
         # started once the ranges are valid: a refused store leaves no server
-        self.server = ShardServer(self.ds, start, stop, host=bind_host, auth_token=auth_token)
+        self.server = server or ShardServer(self.ds, start, stop, host=bind_host,
+                                            auth_token=auth_token)
+
         # knobs: constructor-explicit arg > Dataset.store block
         # (apply_config) > StoreConfig default; explicit args are
         # remembered, so a later schema-filled block cannot clobber them
@@ -221,6 +226,32 @@ class ShardedStore:
         self._health_table = HealthTable(self.quarantine_base_s, self.quarantine_cap_s)
         self._probe_stop = threading.Event()
         self._probe_thread: threading.Thread | None = None
+
+    def _set_peers(self, peers) -> None:
+        """Sorted peers; the union of their spans must cover [0, total)
+        with no gap (overlaps, replicas, are the feature; gaps are fatal)."""
+        self.peers = sorted(peers, key=lambda p: (p[2], p[3]))
+        self.total = max(p[3] for p in self.peers)
+        cursor = 0
+        spans = sorted({(p[2], p[3]) for p in self.peers})
+        for s0, s1 in spans:
+            if s0 > cursor:
+                raise ValueError(f"shard ranges leave [{cursor}, {s0}) unserved: {spans}")
+            cursor = max(cursor, s1)
+
+    def _allgather_peers(self, port: int, advertise_host: str | None):
+        """Every process's (host, port, start, stop), exchanged over the
+        ``torch.distributed`` group (this process's own entry alone without
+        one)."""
+        import torch.distributed as dist
+
+        host = advertise_host or socket.gethostbyname(socket.gethostname())
+        mine = (host, int(port), self.start, self.stop)
+        if not (dist.is_available() and dist.is_initialized()):
+            return [mine]
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, mine)
+        return out
 
     @property
     def _pool(self):
@@ -561,9 +592,20 @@ class ShardedStore:
         return self._ordered(indices, out)
 
     def pad_spec(self, batch_size: int, node_multiple: int = 8, edge_multiple: int = 128):
-        """PadSpec from this shard's writer stats (one process: the stats'
-        maximum across hosts comes with the address exchange)."""
-        return pad_spec_from_stats(self.attrs, batch_size, node_multiple, edge_multiple)
+        """PadSpec from the shard's writer stats, their maxima taken across
+        the processes of the ``torch.distributed`` group (the stats are
+        per shard; every process must pad to one shape)."""
+        import torch.distributed as dist
+
+        attrs = dict(self.attrs)
+        if "max_nodes" not in attrs:
+            raise ValueError("packed shard lacks size stats; re-write with PackedWriter")
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            out = [None] * dist.get_world_size()
+            dist.all_gather_object(out, (int(attrs["max_nodes"]), int(attrs["max_edges"])))
+            attrs["max_nodes"] = max(o[0] for o in out)
+            attrs["max_edges"] = max(o[1] for o in out)
+        return pad_spec_from_stats(attrs, batch_size, node_multiple, edge_multiple)
 
     def loader(self, batch_size: int, rank: int = 0, world: int = 1, seed: int = 0,
                shuffle: bool = True, pad=None, **kw):
@@ -576,13 +618,21 @@ class ShardedStore:
         """Stop the prober, the shard server, the fan-out pool and the pooled
         sockets; waits up to ``timeout`` seconds for the prober thread."""
         self._probe_stop.set()
-        self.server.close()
+        _stop(self.server, timeout)
         if self._executor is not None:
             self._executor.shutdown(wait=False)
         self._pool.close()
         thread = self._probe_thread
         if thread is not None:
             thread.join(timeout)
+
+
+def _stop(server, timeout: float = 5.0) -> None:
+    """Close a shard server and wait for its accept thread."""
+    server.close()
+    thread = getattr(server, "_thread", None)
+    if thread is not None:
+        thread.join(timeout)
 
 
 __all__ = ["STORE_POLICY", "ShardServer", "ShardedStore", "StoreConfig",

@@ -294,6 +294,24 @@ def pick_bucket(buckets: Sequence[PadSpec], tot_node: int, tot_edge: int,
     return None
 
 
+class FillChunk(np.ndarray):
+    """The sample indices of a fill batch's donor in a batch plan
+    (``GraphLoader.set_group``): collated, then masked out."""
+
+
+# the fields a fill batch zeroes: masks, node counts and targets
+_FILL_ZEROED = ("node_mask", "edge_mask", "graph_mask", "triplet_mask", "n_node", "graph_y",
+                "node_y", "energy_y", "forces_y")
+
+
+def empty_like(batch: GraphBatch) -> GraphBatch:
+    """``batch`` with every mask, node count and target zeroed: the same
+    bucket and layout (its meta kept), contributing nothing to any
+    graph-count-weighted loss, gradient or statistic (the JAX loop's
+    ``_empty_like``)."""
+    return batch.replace(**{f: torch.zeros_like(getattr(batch, f)) for f in _FILL_ZEROED})
+
+
 class GraphLoader:
     """Host-side loader: shuffles, batches, collates each batch to the
     smallest bucket that fits. With :meth:`set_superstep` the epoch is
@@ -309,7 +327,13 @@ class GraphLoader:
     the reference: each process takes the stride ``rank::world`` of one
     epoch permutation shared by every process (wrapped to a multiple of
     ``world``), and with buckets every process picks the bucket that fits
-    every process's batch at that step."""
+    every process's batch at that step.
+
+    :meth:`set_group` is the data-parallel layout of one process per GPU:
+    every rank plans the same epoch, each group of ``n`` consecutive batches
+    shares one bucket, and rank ``slot`` takes its group's batch ``slot``
+    (an all-masked fill batch where the epoch's last group is short), as
+    the JAX package's loop stacks a group onto its ``n`` devices."""
 
     def __init__(self, samples: Sequence[GraphSample], batch_size: int,
                  pad: PadSpec | None = None, shuffle: bool = False, seed: int = 0,
@@ -341,9 +365,24 @@ class GraphLoader:
         self.world = max(1, int(world))
         self.epoch = 0
         self.block = 1
+        self.group = 1
+        self.slot = None
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
+
+    def set_group(self, n: int, slot: int | None = None) -> None:
+        """Groups of ``n`` consecutive batches: with buckets, each group
+        collates to the component-wise max bucket of its members (the JAX
+        loader's ``set_group``); with ``slot`` (0 <= slot < n), this loader
+        yields only batch ``slot`` of every group, and a masked fill batch
+        (the group's first batch with every mask, count and target zeroed:
+        ``empty_like``) where the epoch's last group has no batch ``slot``,
+        so every rank takes the same number of steps."""
+        self.group = max(1, int(n))
+        if slot is not None and not 0 <= int(slot) < self.group:
+            raise ValueError(f"slot {slot} outside a group of {self.group}")
+        self.slot = None if slot is None else int(slot)
 
     def set_superstep(self, k: int) -> None:
         """Superstep blocks (``train/superstep.py``): runs of ``k``
@@ -374,11 +413,17 @@ class GraphLoader:
         idx = self._full_permutation()
         return idx[self.rank :: self.world] if self.world > 1 else idx
 
-    def __len__(self) -> int:
+    def _num_batches(self) -> int:
         n = len(self._epoch_indices())
         if self.drop_last:
             return n // self.batch_size
         return int(math.ceil(n / self.batch_size))
+
+    def __len__(self) -> int:
+        n = self._num_batches()
+        if self.slot is not None:
+            return int(math.ceil(n / self.group))
+        return n
 
     def _pick(self, chunk) -> PadSpec:
         """The smallest bucket that fits the batch of sample indices
@@ -417,7 +462,7 @@ class GraphLoader:
         idx = self._epoch_indices()
         perm = self._full_permutation() if self.buckets and self.world > 1 else None
         plan = []
-        for b in range(len(self)):
+        for b in range(self._num_batches()):
             window = slice(b * self.batch_size, (b + 1) * self.batch_size)
             chunk = idx[window]
             if len(chunk) == 0:
@@ -429,8 +474,25 @@ class GraphLoader:
                 pad = self._max_spec([self._pick(perm[r :: self.world][window])
                                       for r in range(self.world)])
             plan.append((chunk, pad))
+        if self.group > 1 and self.block > 1:
+            raise NotImplementedError("supersteps over groups of data-parallel batches are not "
+                                      "ported (a later slice: parallelism)")
+        if self.group > 1 and self.buckets:
+            for i in range(0, len(plan), self.group):
+                members = plan[i:i + self.group]
+                pad = self._max_spec([p for _, p in members])
+                plan[i:i + self.group] = [(chunk, pad) for chunk, _ in members]
         if self.block > 1 and self.buckets and len(plan) > 1:
             plan = self._bucket_major(plan)
+        if self.slot is not None:
+            picked = []
+            for i in range(0, len(plan), self.group):
+                members = plan[i:i + self.group]
+                if self.slot < len(members):
+                    picked.append(members[self.slot])
+                else:
+                    picked.append((members[0][0].view(FillChunk), members[0][1]))
+            plan = picked
         return plan
 
     def _bucket_major(self, plan):
@@ -452,6 +514,8 @@ class GraphLoader:
         return ordered
 
     def collate_chunk(self, chunk: np.ndarray, pad: PadSpec) -> GraphBatch:
+        if isinstance(chunk, FillChunk):
+            return empty_like(self.collate_chunk(np.asarray(chunk), pad))
         if hasattr(self.samples, "fetch"):
             # batched store read: one request per owning host
             return collate(self.samples.fetch(chunk), pad)
@@ -532,6 +596,10 @@ class PrefetchLoader:
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
 
+    def set_group(self, n: int, slot: int | None = None) -> None:
+        """The wrapped loader's :meth:`GraphLoader.set_group`."""
+        self.loader.set_group(n, slot)
+
     def set_superstep(self, k: int) -> None:
         """The wrapped loader's bucket-major plan, and a buffer that holds
         the next block while the current one runs."""
@@ -578,6 +646,7 @@ class PrefetchLoader:
 
 
 __all__ = [
+    "FillChunk",
     "GraphLoader",
     "PadSpec",
     "PrefetchLoader",
@@ -588,6 +657,7 @@ __all__ = [
     "collate_numpy",
     "compute_pad_buckets",
     "compute_pad_spec",
+    "empty_like",
     "is_sorted",
     "pick_bucket",
 ]

@@ -52,7 +52,12 @@ The options of the skeleton:
 * ``conv_checkpointing``: each conv layer alone under
   ``common.checkpointed`` (flax's ``nn.remat`` of the conv class).
 
-Not ported (raises ``NotImplementedError``): GPS ring attention.
+The halo route (``parallel/halo.py``) runs the same forward over one
+rank's partition of a giant graph, through two hooks: ``layer_hook`` before
+every conv layer after the first (the halo rows' refresh) and
+``pool_reduce`` on the pooled vector (the ranks' partial readouts merged);
+its loss sums the masked means' parts over the ranks (``loss(...,
+group=)``).
 """
 
 from __future__ import annotations
@@ -63,8 +68,8 @@ from torch import nn
 from ..config.schema import ModelSpec
 from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from .common import (MLP, Dense, MaskedBatchNorm, checkpointed, get_activation, get_loss,
-                     lecun_normal_, local_node_index)
+from .common import (_NO_GROUP, MLP, Dense, MaskedBatchNorm, checkpointed, get_activation,
+                     get_loss, lecun_normal_, local_node_index)
 from .cgcnn import CGCNNConv
 from .dimenet import DimeNetConv
 from .egnn import EGNNConv
@@ -104,8 +109,7 @@ def head_columns(spec: ModelSpec) -> list[tuple[str, int, int]]:
 
 def check_spec(spec: ModelSpec) -> None:
     """Raise ``ValueError`` for an unknown architecture, attention type,
-    conditioning mode or node-head type, and ``NotImplementedError`` for
-    what the port lacks (GPS ring attention)."""
+    conditioning mode or node-head type."""
     if spec.mpnn_type not in CONV_REGISTRY:
         raise ValueError(f"unknown mpnn_type {spec.mpnn_type!r}; supported: "
                          f"{sorted(CONV_REGISTRY)}")
@@ -113,10 +117,7 @@ def check_spec(spec: ModelSpec) -> None:
         if spec.global_attn_engine != "GPS":
             raise ValueError(f"unknown global_attn_engine {spec.global_attn_engine!r}")
         kind = spec.global_attn_type or "multihead"
-        if kind == "ring":
-            raise NotImplementedError("GPS ring attention is not ported yet; it comes with "
-                                      "a later slice (parallelism)")
-        if kind not in ("multihead", "performer"):
+        if kind not in ("multihead", "performer", "ring"):
             raise ValueError(f"unknown global_attn_type {spec.global_attn_type!r}")
     if (spec.use_graph_attr_conditioning
             and spec.graph_attr_conditioning_mode not in CONDITIONING_MODES):
@@ -362,48 +363,59 @@ class HydraModel(nn.Module):
         return inv
 
     def encode(self, batch: GraphBatch, train: bool = False,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, layer_hook=None):
         """The conv stack: the last layer's node features, or (MACE) every
-        layer's concatenated, and the equivariant features."""
+        layer's concatenated, and the equivariant features.
+        ``layer_hook(inv, equiv) -> (inv, equiv)`` runs before every layer
+        after the first (the halo route's refresh of its halo rows)."""
         inv, equiv = self.embed(batch)
         outs = []
         for i in range(len(self.graph_convs)):
+            if layer_hook is not None and i > 0:
+                inv, equiv = layer_hook(inv, equiv)
             inv, equiv = self.conv_block(i, inv, equiv, batch, train, generator)
             outs.append(inv)
         if self.collect_layer_outputs:
             inv = torch.cat(outs, dim=-1)
         return inv, equiv
 
-    def pool(self, x: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
+    def pool(self, x: torch.Tensor, batch: GraphBatch, pool_reduce=None) -> torch.Tensor:
         """The graph pooling (``fuse_pool``: fused with the graph
-        attributes)."""
+        attributes); ``pool_reduce`` merges the ranks' partial readouts of a
+        partitioned node set before anything reads them (the halo
+        route)."""
         data = x * batch.node_mask[:, None]
         use_kernel = data.is_cuda and self.spec.graph_pooling in ("add", "sum", "mean")
         pooled = segment.global_pool(
             self.spec.graph_pooling, data, batch.batch, batch.num_graphs,
             index=batch.csr("batch") if use_kernel else None,
         )
+        if pool_reduce is not None:
+            pooled = pool_reduce(pooled)
         if self.conditioning == "fuse_pool":
             pooled = self.graph_pool_projector(torch.cat([pooled, batch.graph_attr], dim=-1))
         return pooled
 
     # -- full forward --------------------------------------------------------
     def forward(self, batch: GraphBatch, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, layer_hook=None, pool_reduce=None):
         """Per-head outputs (with ``var_output``: ``(means, variances)``);
         ``train`` normalises with batch statistics, updates the running ones
-        in place and applies dropout with masks drawn from ``generator``."""
-        inv, equiv = self.encode(batch, train, generator)
-        return self.decode(inv, equiv, batch, train, generator)
+        in place and applies dropout with masks drawn from ``generator``.
+        ``layer_hook`` and ``pool_reduce``: see :meth:`encode` and
+        :meth:`pool`."""
+        inv, equiv = self.encode(batch, train, generator, layer_hook=layer_hook)
+        return self.decode(inv, equiv, batch, train, generator, pool_reduce=pool_reduce)
 
     def decode(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
-               train: bool = False, generator: torch.Generator | None = None):
+               train: bool = False, generator: torch.Generator | None = None,
+               pool_reduce=None):
         """Pooling + per-head decoders; one tensor per head (with
         ``var_output``: the means and the variances). With several branches
         each head's rows come from the branch of their graph's
         ``dataset_id``."""
         spec = self.spec
-        x_graph = self.pool(inv, batch)
+        x_graph = self.pool(inv, batch, pool_reduce)
         local_idx = (local_node_index(batch.batch, batch.n_node, batch.num_nodes)
                      if self._node_local_needed else None)
         outputs, variances = [], []
@@ -450,10 +462,12 @@ class HydraModel(nn.Module):
             else:
                 yield batch.node_y[:, col : col + dim], batch.node_mask
 
-    def loss(self, pred, batch: GraphBatch):
+    def loss(self, pred, batch: GraphBatch, group=_NO_GROUP):
         """Weighted multi-task loss: (total, [per-task losses]), the tasks
         weighted by ``spec.task_weights`` and summed in head order; with
-        ``var_output`` ``pred`` is ``(means, variances)``."""
+        ``var_output`` ``pred`` is ``(means, variances)``. ``group``: the
+        process group whose ranks hold partitions of the node rows (the
+        halo route), over which each masked mean sums its parts."""
         var = None
         if self.spec.var_output:
             pred, var = pred
@@ -462,9 +476,9 @@ class HydraModel(nn.Module):
         tasks = []
         for ihead, (target, mask) in enumerate(self._targets(batch)):
             if var is not None:
-                task_loss = loss_fn(pred[ihead], target, mask, var[ihead])
+                task_loss = loss_fn(pred[ihead], target, mask, var[ihead], group=group)
             else:
-                task_loss = loss_fn(pred[ihead], target, mask)
+                task_loss = loss_fn(pred[ihead], target, mask, group=group)
             tot = tot + task_loss * self.spec.task_weights[ihead]
             tasks.append(task_loss)
         return tot, tasks

@@ -88,6 +88,15 @@ def variance_scaling_uniform_(weight: torch.Tensor, scale: float,
 _DENSE_INTERCEPTOR: contextvars.ContextVar = contextvars.ContextVar(
     "dense_interceptor", default=None)
 
+# "no process group" for the losses and norms (``None`` is the default group)
+_NO_GROUP = object()
+
+# the edge-sharded route's process group while its forward runs
+# (``parallel/large_graph.py``): each rank holds a shard of the edges and
+# every node, so :func:`neighbour_sum` sums its shard and then the ranks'
+# partial sums; unset, the batch's edges are all the edges
+_EDGE_GROUP: contextvars.ContextVar = contextvars.ContextVar("edge_group", default=_NO_GROUP)
+
 # the pass of a checkpointed region (:func:`checkpointed`) this thread is
 # in: None outside one, ("record", masks) in its first pass, ("replay",
 # iterator over those masks) in a recompute
@@ -241,7 +250,15 @@ class MaskedBatchNorm(nn.Module):
 
     ``scale``/``bias`` are parameters; the running ``mean``/``var`` are fp32
     buffers, updated in place, that stay fp32 when the parameters are cast
-    to a compute dtype, as the JAX steps leave ``batch_stats`` uncast."""
+    to a compute dtype, as the JAX steps leave ``batch_stats`` uncast.
+
+    ``sync_group`` (set by the parallel layouts, absent by default): the
+    process group whose ranks' count-weighted sums are summed before the
+    ratios, in train mode: SyncBatchNorm over the data ranks, and the halo
+    route's partitioned node set. The sums are exact union statistics, and
+    an all-masked rank (a fill batch) adds nothing to them."""
+
+    sync_group = _NO_GROUP
 
     def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -256,9 +273,17 @@ class MaskedBatchNorm(nn.Module):
         if train:
             m = mask.reshape(-1, 1).to(x.dtype)
             msum = m.sum()
+            s1 = (x * m).sum(dim=0)
+            if self.sync_group is not _NO_GROUP:
+                from ..parallel.comm import all_reduce_sum
+
+                msum, s1 = all_reduce_sum(msum, self.sync_group), all_reduce_sum(s1, self.sync_group)
             count = torch.clamp(msum, min=1.0)
-            mean = (x * m).sum(dim=0) / count
-            var = (((x - mean) ** 2) * m).sum(dim=0) / count
+            mean = s1 / count
+            cv = (((x - mean) ** 2) * m).sum(dim=0)
+            if self.sync_group is not _NO_GROUP:
+                cv = all_reduce_sum(cv, self.sync_group)
+            var = cv / count
             has_rows = msum > 0
             tape = _CHECKPOINT_PASS.get()
             # the EMA is gated on real rows: a zero-count batch keeps the
@@ -278,6 +303,17 @@ class MaskedBatchNorm(nn.Module):
         return y * self.scale + self.bias
 
 
+@contextlib.contextmanager
+def edge_sharded(group) -> Iterator[None]:
+    """Inside, :func:`neighbour_sum` treats the batch's edges as this
+    rank's shard of ``group``'s edges (the edge-sharded route)."""
+    token = _EDGE_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _EDGE_GROUP.reset(token)
+
+
 def neighbour_sum(inv: torch.Tensor, batch) -> torch.Tensor:
     """``sum_j mask_ij h_j`` over each node's in-edges: the gather-scatter
     kernel with the edge mask as the per-edge weight, over the batch's
@@ -286,14 +322,24 @@ def neighbour_sum(inv: torch.Tensor, batch) -> torch.Tensor:
     taken; conv layer 0's input needs none)."""
     from ..ops.fused_scatter import gather_scatter_sum
 
+    group = _EDGE_GROUP.get()
+    if group is not _NO_GROUP:
+        from ..parallel.comm import enter_replicated
+
+        inv = enter_replicated(inv, group)
     on_card = inv.is_cuda
-    return gather_scatter_sum(
+    agg = gather_scatter_sum(
         inv, batch.senders, batch.receivers, batch.num_nodes,
         weight=batch.edge_mask.to(inv.dtype),
         index=batch.csr("receivers") if on_card else None,
         send_index=(batch.csr("senders")
                     if on_card and inv.requires_grad and torch.is_grad_enabled() else None),
     )
+    if group is not _NO_GROUP:
+        from ..parallel.comm import exit_sum
+
+        agg = exit_sum(agg, group)
+    return agg
 
 
 def gather_ends(inv: torch.Tensor, batch) -> tuple[torch.Tensor, torch.Tensor]:
@@ -359,42 +405,53 @@ def equivariant_coordinate_update(module: nn.Module, edge_feat: torch.Tensor,
 # -- masked losses -------------------------------------------------------------
 
 
-def _masked_mean(terms: torch.Tensor, mask: torch.Tensor, per_row: int) -> torch.Tensor:
-    """sum(terms) / max(real rows x row width, 1)."""
-    return terms.sum() / torch.clamp(mask.sum() * per_row, min=1.0)
+def _masked_mean(terms: torch.Tensor, mask: torch.Tensor, per_row: int,
+                 group=_NO_GROUP) -> torch.Tensor:
+    """sum(terms) / max(real rows x row width, 1); with ``group`` (the halo
+    route's data ranks, whose node rows are partitioned) both sums are
+    summed over the ranks first, so every rank holds the union's mean."""
+    s, n = terms.sum(), mask.sum() * per_row
+    if group is not _NO_GROUP:
+        from ..parallel.comm import all_reduce_sum
+
+        s, n = all_reduce_sum(s, group), all_reduce_sum(n, group)
+    return s / torch.clamp(n, min=1.0)
 
 
 def _row_mask(mask: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     return mask.reshape((mask.shape[0],) + (1,) * (pred.dim() - 1))
 
 
-def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+               group=_NO_GROUP) -> torch.Tensor:
     """Mean squared error over real (mask = 1) rows only."""
     m = _row_mask(mask, pred)
-    return _masked_mean((pred - target) ** 2 * m, m, pred.shape[-1])
+    return _masked_mean((pred - target) ** 2 * m, m, pred.shape[-1], group)
 
 
-def masked_mae(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mae(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+               group=_NO_GROUP) -> torch.Tensor:
     m = _row_mask(mask, pred)
-    return _masked_mean(torch.abs(pred - target) * m, m, pred.shape[-1])
+    return _masked_mean(torch.abs(pred - target) * m, m, pred.shape[-1], group)
 
 
-def masked_rmse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(masked_mse(pred, target, mask) + 1e-16)
+def masked_rmse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+                group=_NO_GROUP) -> torch.Tensor:
+    return torch.sqrt(masked_mse(pred, target, mask, group) + 1e-16)
 
 
 def masked_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
+                     mask: torch.Tensor, group=_NO_GROUP) -> torch.Tensor:
     """torch SmoothL1Loss (beta = 1) over real rows: 0.5 d^2 for |d| < 1,
     else |d| - 0.5."""
     m = _row_mask(mask, pred)
     d = torch.abs(pred - target)
     huber = torch.where(d < 1.0, 0.5 * d**2, d - 0.5) * m
-    return _masked_mean(huber, m, pred.shape[-1])
+    return _masked_mean(huber, m, pred.shape[-1], group)
 
 
 def masked_gaussian_nll(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
-                        var: torch.Tensor) -> torch.Tensor:
+                        var: torch.Tensor, group=_NO_GROUP) -> torch.Tensor:
     """``torch.nn.GaussianNLLLoss`` over real rows: ``0.5 (log var + (pred -
     target)^2 / var)``, the variance floored at 1e-6, the mean over real
     rows (the JAX package's ``masked_gaussian_nll``)."""
@@ -403,7 +460,7 @@ def masked_gaussian_nll(pred: torch.Tensor, target: torch.Tensor, mask: torch.Te
     var = torch.maximum(var, torch.full_like(var, 1e-6))
     m = _row_mask(mask, pred)
     nll = 0.5 * (torch.log(var) + (pred - target) ** 2 / var) * m
-    return _masked_mean(nll, m, pred.shape[-1])
+    return _masked_mean(nll, m, pred.shape[-1], group)
 
 
 _LOSSES = {
@@ -416,7 +473,9 @@ _LOSSES = {
 
 def get_loss(name: str):
     """The masked loss ``(pred, target, mask) -> scalar``; GaussianNLLLoss
-    takes the variances as a fourth argument."""
+    takes the variances as a fourth argument. Each takes ``group=``: the
+    process group whose ranks hold partitions of the rows (the halo
+    route); absent, the loss is this process's alone."""
     if name == "GaussianNLLLoss":
         return masked_gaussian_nll
     try:
@@ -431,6 +490,7 @@ __all__ = [
     "Dense",
     "Dropout",
     "checkpointed",
+    "edge_sharded",
     "MLP",
     "MaskedBatchNorm",
     "coordinate_update_layers",

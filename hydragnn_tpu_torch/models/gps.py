@@ -26,7 +26,11 @@ Counterpart of ``hydragnn_tpu/models/gps.py``:
   decides it at construction.
 
 The query-key and attention-value products are plain ``einsum``s, as in the
-JAX package. ``ring`` attention is not ported.
+JAX package. ``global_attn_type: "ring"`` runs the same attention as a ring
+over the node rows of a process group (``parallel/ring_attention.py``):
+the edge-sharded route hands its model the group of its data ranks
+(``ring_group``); with none, the ring has one block and the same exact
+attention runs on this process alone.
 """
 
 from __future__ import annotations
@@ -59,9 +63,14 @@ class GraphMultiheadAttention(nn.Module):
     """Self-attention among the nodes of each graph. ``n_max > 0`` enables
     the dense-block path."""
 
+    # the process group of the ring's row blocks (``ring``): set by the
+    # edge-sharded route; None is the default group
+    ring_group = None
+
     def __init__(self, channels: int, heads: int, n_max: int = 0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, ring: bool = False):
         super().__init__()
+        self.ring = bool(ring)
         if channels % heads:
             raise ValueError(f"hidden_dim {channels} must divide by global_attn_heads {heads}")
         self.channels = channels
@@ -110,7 +119,11 @@ class GraphMultiheadAttention(nn.Module):
         q = self.q(h).reshape(n, self.heads, dh)
         k = self.k(h).reshape(n, self.heads, dh)
         v = self.v(h).reshape(n, self.heads, dh)
-        if self.n_max and self.n_max < n and self._dense_fits(batch):
+        if self.ring:
+            from ..parallel.ring_attention import ring_attention
+
+            out = ring_attention(q, k, v, batch.batch, batch.node_mask, self.ring_group)
+        elif self.n_max and self.n_max < n and self._dense_fits(batch):
             out = self._dense_attention(q, k, v, batch)
         else:
             out = self._flat_attention(q, k, v, batch)
@@ -220,11 +233,12 @@ class GPSConv(nn.Module):
         self.residual_local = local_width == in_features
         self.norm1 = MaskedBatchNorm(local_width)
         heads = max(spec.global_attn_heads, 1)
-        if (spec.global_attn_type or "multihead") == "performer":
+        attn_type = spec.global_attn_type or "multihead"
+        if attn_type == "performer":
             self.attn = PerformerAttention(in_features, heads, generator)
         else:
             self.attn = GraphMultiheadAttention(in_features, heads, spec.max_graph_nodes or 0,
-                                                generator)
+                                                generator, ring=attn_type == "ring")
         self.norm2 = MaskedBatchNorm(in_features)
         self.local_proj = (Dense(local_width, in_features, generator)
                            if local_width != in_features else None)

@@ -127,23 +127,36 @@ def make_mlip_train_step(model, compute_dtype: torch.dtype = torch.float32,
     ``create_graph=True``, so the loss's backward reaches the parameters
     through it. ``loss_scale`` scales the outer objective only: the forces
     stay in physical units, as the JAX step keeps them."""
-    from ..train.step import cast_forward, head_means, optimizer_step
+    from ..train.step import optimizer_step
+
+    loss_scale = None if not loss_scale or float(loss_scale) == 1.0 else float(loss_scale)
+    loss = make_mlip_train_loss(model, compute_dtype)
+
+    def train_step(state, batch: GraphBatch) -> dict:
+        tot, tasks = loss(state, batch)
+        return optimizer_step(state, batch, tot, tasks, loss_scale)
+
+    return train_step
+
+
+def make_mlip_train_loss(model, compute_dtype: torch.dtype = torch.float32):
+    """``(state, batch) -> (total loss, [task losses])``: the MLIP train
+    step's forward, forces and energy+force loss, before its backward."""
+    from ..train.step import cast_forward, head_means
 
     spec = model.spec
     validate_mlip_spec(spec)
-    loss_scale = None if not loss_scale or float(loss_scale) == 1.0 else float(loss_scale)
 
-    def train_step(state, batch: GraphBatch) -> dict:
+    def train_loss(state, batch: GraphBatch):
         b, pos = _position_leaf(batch)
         pred = head_means(state.model, cast_forward(state.model, b, compute_dtype, train=True,
                                                     generator=state.generator))
         graph_e = graph_energy(spec, pred[0], batch).to(torch.float32)
         (grad_pos,) = torch.autograd.grad(graph_e.sum(), pos, create_graph=True)
         forces = (-grad_pos * batch.node_mask[:, None]).to(torch.float32)
-        tot, tasks = energy_force_loss(spec, graph_e, forces, batch)
-        return optimizer_step(state, batch, tot, tasks, loss_scale)
+        return energy_force_loss(spec, graph_e, forces, batch)
 
-    return train_step
+    return train_loss
 
 
 def make_mlip_eval_step(model, compute_dtype: torch.dtype = torch.float32):
@@ -186,6 +199,7 @@ __all__ = [
     "make_energy_and_forces",
     "make_graph_energy_fn",
     "make_mlip_eval_step",
+    "make_mlip_train_loss",
     "make_mlip_train_step",
     "validate_mlip_spec",
 ]

@@ -1,0 +1,156 @@
+"""The collectives of the parallel layouts, with the gradients XLA gives
+their counterparts in the JAX package.
+
+Every function takes a ``torch.distributed`` process group (``None``: the
+default group) and is the identity when no group has been formed, so a
+single process runs the same code as one rank. A formed group of one rank
+still runs its collectives (each the identity on the values), so a
+one-card run goes through the same NCCL calls as four.
+Each one is NCCL on the card and gloo on the CPU; none is a kernel.
+
+* :func:`all_reduce_sum` is ``lax.psum`` under ``vmap``/``shard_map``:
+  the sum over ranks forward, the sum of the cotangents backward (SyncBN's
+  moments, the halo route's loss and pooled readouts);
+* :func:`enter_replicated` and :func:`exit_sum` are the pair that bounds a
+  rank-local region inside a replicated computation (the edge-sharded
+  route's edge shards, ring attention's row blocks): the entry is the
+  identity forward and sums the rank-local cotangents backward, so the
+  replicated tensor's gradient is whole on every rank; the exit sums the
+  partial results forward and passes the (replicated) cotangent through;
+* :func:`gather_rows` all-gathers equal row blocks and hands each rank its
+  block of the (replicated) cotangent back.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def live() -> bool:
+    """Whether a process group has been formed."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_of(group=None) -> int:
+    """The group's size; 1 when no group has been formed."""
+    return dist.get_world_size(group) if live() else 1
+
+
+def rank_of(group=None) -> int:
+    """This process's rank in the group; 0 when no group has been formed."""
+    return dist.get_rank(group) if live() else 0
+
+
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous().clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _EnterReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ExitSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        world = dist.get_world_size(group)
+        ctx.rank, ctx.rows = dist.get_rank(group), x.shape[0]
+        out = x.new_empty((world * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+class _AllReduceExtreme(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, op):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=op, group=group)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g * (x == out).to(g.dtype), None, None
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum over the group's ranks; backward, the sum of the cotangents."""
+    return _AllReduceSum.apply(x, group) if live() else x
+
+
+def all_reduce_extreme(x: torch.Tensor, group=None, kind: str = "max") -> torch.Tensor:
+    """Element-wise max (``kind="max"``) or min over the ranks; the
+    cotangent goes to the ranks that hold the extreme."""
+    if not live():
+        return x
+    op = dist.ReduceOp.MAX if kind == "max" else dist.ReduceOp.MIN
+    return _AllReduceExtreme.apply(x, group, op)
+
+
+def enter_replicated(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Identity; backward, the sum of the ranks' cotangents."""
+    return _EnterReplicated.apply(x, group) if live() else x
+
+
+def exit_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of the ranks' partial results; backward, the identity."""
+    return _ExitSum.apply(x, group) if live() else x
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' equal row blocks concatenated in rank order; backward,
+    this rank's block of the cotangent."""
+    return _GatherRows.apply(x, group) if live() else x
+
+
+def sum_tensors(tensors: list[torch.Tensor], group=None) -> None:
+    """Sum every tensor of ``tensors`` over the group in place, as one
+    collective over their concatenation (no autograd)."""
+    if not live() or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    offset = 0
+    for t in tensors:
+        n = t.numel()
+        t.copy_(flat[offset:offset + n].view_as(t))
+        offset += n
+
+
+__all__ = ["all_reduce_extreme", "all_reduce_sum", "enter_replicated", "exit_sum",
+           "gather_rows", "live", "rank_of", "sum_tensors", "world_of"]

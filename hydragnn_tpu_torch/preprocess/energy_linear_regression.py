@@ -4,12 +4,12 @@ Parity target: ``hydragnn/preprocess/energy_linear_regression.py`` — fit
 per-element reference energies by least squares over composition histograms
 (118-bin periodic table), subtract the linear baseline from every sample's
 energy target, and record the coefficients with the dataset. The reference
-runs this MPI-distributed over ADIOS files; here the normal equations are
-accumulated in one process and the solve is the same SVD pseudo-inverse.
+runs this MPI-distributed over ADIOS files; here each process accumulates
+the normal equations of its samples, the processes of a
+``torch.distributed`` group sum them (as the JAX package sums them, from
+float32 copies), and the solve is the same SVD pseudo-inverse.
 
-Counterpart of ``hydragnn_tpu/preprocess/energy_linear_regression.py``
-(the sum of the normal equations across processes comes with the
-parallelism slice).
+Counterpart of ``hydragnn_tpu/preprocess/energy_linear_regression.py``.
 """
 
 from __future__ import annotations
@@ -44,13 +44,23 @@ def _sample_energy(s) -> float:
 
 def fit_energy_linear_regression(samples, z_column: int = 0) -> np.ndarray:
     """Fit the per-element baseline x from  sum_i ||hist_i . x - E_i||^2 via
-    normal equations (A = X^T X, b = X^T e; the reference's ``:131-144``)."""
+    normal equations (A = X^T X, b = X^T e; the reference's ``:131-144``),
+    summed over the processes of the ``torch.distributed`` group."""
     A = np.zeros((N_ELEMENTS, N_ELEMENTS))
     b = np.zeros(N_ELEMENTS)
     for s in samples:
         h = composition_histogram(np.asarray(s.x)[:, z_column])
         A += np.outer(h, h)
         b += h * _sample_energy(s)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        mine = np.concatenate([A.reshape(-1), b]).astype(np.float32)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        summed = np.stack(every).sum(axis=0).astype(np.float64)
+        A = summed[: N_ELEMENTS * N_ELEMENTS].reshape(N_ELEMENTS, N_ELEMENTS)
+        b = summed[N_ELEMENTS * N_ELEMENTS:]
     return solve_least_squares_svd(A, b)
 
 

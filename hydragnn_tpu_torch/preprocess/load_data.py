@@ -157,10 +157,12 @@ def split_dataset(samples, perc_train: float, stratify_splitting: bool = False, 
 
 def create_dataloaders(trainset, valset, testset, batch_size: int,
                        pad: PadSpec | None = None, seed: int = 0, buckets: int | None = None,
-                       attn_cap: int = 0):
+                       attn_cap: int = 0, rank: int = 0, world: int = 1):
     """Three loaders over one shared pad-bucket table; the train loader
     shuffles and drops the last partial batch. ``attn_cap``: see
-    ``PadSpec``."""
+    ``PadSpec``. With ``world`` > 1 (one process per GPU of a data-parallel
+    run), every loader yields rank ``rank``'s slot of each group of
+    ``world`` consecutive batches (``GraphLoader.set_group``)."""
     all_samples = list(trainset) + list(valset) + list(testset)
     # a dataset smaller than the batch still yields one (smaller) batch
     batch_size = max(1, min(batch_size, len(trainset) or 1))
@@ -174,13 +176,19 @@ def create_dataloaders(trainset, valset, testset, batch_size: int,
     val_loader = GraphLoader(valset, batch_size, pad=pad, drop_last=False, buckets=bucket_list)
     test_loader = GraphLoader(testset, batch_size, pad=pad, drop_last=False,
                               buckets=bucket_list)
+    if world > 1:
+        for ld in (train_loader, val_loader, test_loader):
+            ld.set_group(world, rank)
     return train_loader, val_loader, test_loader
 
 
-def dataset_loading_and_splitting(config: dict, samples=None):
+def dataset_loading_and_splitting(config: dict, samples=None, rank: int = 0, world: int = 1):
     """raw -> selected/normalised -> split -> loaders. Without ``samples``,
     ``Dataset.path`` is read by ``Dataset.format``. Mutates the samples and
-    records the min-max tables in ``config``, as the JAX package does."""
+    records the min-max tables in ``config``, as the JAX package does.
+    ``rank``/``world``: the loaders of one rank of a data-parallel run (see
+    :func:`create_dataloaders`); every rank reads and splits every
+    sample."""
     if samples is None:
         from ..datasets import load_raw_dataset
 
@@ -260,6 +268,7 @@ def dataset_loading_and_splitting(config: dict, samples=None):
         # certifies against it so fitting batches keep the dense path
         attn_cap=(int(arch.get("max_graph_nodes") or 0)
                   if arch.get("global_attn_engine") else 0),
+        rank=rank, world=world,
     )
 
 

@@ -18,6 +18,12 @@ would, under
 ``load_checkpoint`` restores what ``latest`` names and, when that is missing
 or fails its manifest, falls back through older epochs, newest first.
 Loading the JAX package's orbax checkpoints is not part of this format.
+
+Under a process group every rank calls ``save_checkpoint`` and rank 0
+writes: a checkpoint always holds the one-device layout, so an FSDP run's
+optimizer state is all-gathered from the shards first
+(``parallel/step.py``), and a resumed run cuts it again when it shards;
+it also holds every rank's dropout generator.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.comm import rank_of, world_of
 from .optimizer import load_optimizer_state
 
 
@@ -58,14 +66,21 @@ def _atomic_symlink(target: str, link: str) -> None:
 
 
 def _payload(state) -> dict:
+    layout = getattr(state, "layout", None)
     payload = {
         "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
+        "optimizer": (layout.full_optimizer_state(state.optimizer) if layout is not None
+                      and layout.shards else state.optimizer.state_dict()),
         "step": int(state.step),
     }
     if state.generator is not None:
         payload["generator"] = state.generator.get_state()
         payload["generator_device"] = state.generator.device.type
+        if world_of() > 1:
+            # every rank's dropout masks continue where they stopped
+            every = [None] * world_of()
+            dist.all_gather_object(every, payload["generator"])
+            payload["generators"] = every
     return payload
 
 
@@ -79,12 +94,16 @@ def _tensors(payload: dict):
                 yield f"optimizer/{pid}/{key}", t
     if "generator" in payload:
         yield "generator", payload["generator"]
+    for r, g in enumerate(payload.get("generators", ())):
+        yield f"generators/{r}", g
 
 
 def _restore_generator(state, payload: dict) -> None:
-    """Continue the dropout masks' sequence where the saved run stopped. A
-    generator of another device type keeps its seeded state: the CPU's and
-    the card's generators hold states of different kinds."""
+    """Continue the dropout masks' sequence where the saved run stopped:
+    this rank's, when the checkpoint holds one per rank of a group of this
+    size, else rank 0's. A generator of another device type keeps its
+    seeded state: the CPU's and the card's generators hold states of
+    different kinds."""
     if state.generator is None or "generator" not in payload:
         return
     if payload["generator_device"] != state.generator.device.type:
@@ -92,7 +111,10 @@ def _restore_generator(state, payload: dict) -> None:
                       f"{payload['generator_device']}, not {state.generator.device.type}; "
                       f"its masks restart from the run's seed")
         return
-    state.generator.set_state(payload["generator"].cpu())
+    every = payload.get("generators")
+    saved = every[rank_of()] if every is not None and len(every) == world_of() else \
+        payload["generator"]
+    state.generator.set_state(saved.cpu())
 
 
 def _crc(t: torch.Tensor) -> int:
@@ -114,12 +136,15 @@ def save_checkpoint(state, log_name: str, epoch: int, path: str = "./logs/",
                     meta: dict | None = None) -> str:
     """Write ``epoch_<epoch>.pt`` with its manifest and metadata, then point
     ``latest`` at it. Write order is the recovery order: a crash at any
-    point leaves the previous ``latest`` loadable."""
+    point leaves the previous ``latest`` loadable. Under a process group
+    every rank calls this and only rank 0 writes."""
     base = checkpoint_dir(log_name, path)
-    os.makedirs(base, exist_ok=True)
     name = f"epoch_{epoch}.pt"
     ckpt_path = os.path.join(base, name)
     payload = _payload(state)
+    if rank_of() != 0:
+        return ckpt_path
+    os.makedirs(base, exist_ok=True)
     tmp = f"{ckpt_path}.tmp{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, ckpt_path)

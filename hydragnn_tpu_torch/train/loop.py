@@ -15,10 +15,16 @@ bucket-major, in blocks of K (``train/superstep.py``). On the CPU the same
 loop runs the eager steps.
 
 The step metrics stay on the device until the epoch ends and come to the
-host in one transfer. Not in this slice (they raise ``NotImplementedError``
-in ``run_training``): populations, meshes, halo exchange, edge sharding
-(which pin K = 1 in the JAX package), the resilience layer (non-finite
-guard, rollback, preemption), telemetry and the compile cache.
+host in one transfer. ``run_training`` hands the loop the parallel layouts'
+steps (``parallel/``): the data-parallel steps replay their CUDA graphs as
+the one-device steps do; the halo and edge-sharded steps take a ``put``
+that turns each collated batch into this rank's share, and run eager (one
+step per dispatch, as the JAX package pins them). Under a process group
+only rank 0 logs; every rank takes the checkpoint decisions (on the ranks'
+summed losses) and calls ``save_checkpoint``, and rank 0 writes. Not in
+this slice (they raise ``NotImplementedError`` in ``run_training``): populations, tensor and
+pipeline parallelism, the resilience layer (non-finite guard, rollback,
+preemption), telemetry and the compile cache.
 """
 
 from __future__ import annotations
@@ -54,25 +60,29 @@ def accumulate(step_metrics: list[dict], extra_keys: tuple = ()):
     return loss, tasks, {k: host[k].sum(axis=0) for k in extra_keys}
 
 
-def _batches(loader, device):
+def _batches(loader, device, put=None):
     for batch in loader:
-        yield batch if batch.device == device else batch.to(device)
+        if put is not None:
+            yield put(batch)
+        else:
+            yield batch if batch.device == device else batch.to(device)
 
 
-def train_epoch(superstep: Superstep, state: TrainState, loader):
+def train_epoch(superstep: Superstep, state: TrainState, loader, put=None):
     """One epoch of train steps (the loader plans the blocks); returns
-    (mean loss, per-task mean losses)."""
+    (mean loss, per-task mean losses). ``put`` turns each batch into the
+    step's input (a parallel route's share of it)."""
     device = next(state.model.parameters()).device
-    loss, tasks, _ = accumulate(superstep(state, _batches(loader, device)))
+    loss, tasks, _ = accumulate(superstep(state, _batches(loader, device, put)))
     return loss, tasks
 
 
-def evaluate(eval_step, state: TrainState, loader):
+def evaluate(eval_step, state: TrainState, loader, put=None):
     """A whole split through ``eval_step`` (``(state, batch) -> metrics``:
     on the card the eval ``Dispatch``); returns (loss, per-task losses,
     per-head RMSE)."""
     device = next(state.model.parameters()).device
-    metrics = [eval_step(state, batch) for batch in _batches(loader, device)]
+    metrics = [eval_step(state, batch) for batch in _batches(loader, device, put)]
     loss, tasks, extras = accumulate(metrics, extra_keys=("head_sse", "head_count"))
     sse, count = extras["head_sse"], extras["head_count"]
     rmse = np.sqrt(sse / np.maximum(count, 1.0)) if sse is not None else np.zeros(0)
@@ -84,21 +94,41 @@ def test(eval_step, state: TrainState, loader):
     return evaluate(eval_step, state, loader)
 
 
+def _eager(train_step):
+    def superstep(state, batches):
+        return [train_step(state, b) for b in batches]
+
+    return superstep
+
+
 def train_validate_test(state: TrainState, train_loader, val_loader, test_loader,
                         config_nn: dict, log_name: str, verbosity: int = 0,
                         compute_dtype: torch.dtype = torch.float32, path: str = "./logs/",
-                        start_epoch: int = 0, history: list | None = None) -> TrainState:
+                        start_epoch: int = 0, history: list | None = None,
+                        steps=None, put=None, capture: bool = True,
+                        collective: bool = False) -> TrainState:
     """The epoch loop over epochs ``start_epoch .. Training.num_epoch - 1``
     (a resumed run passes the first epoch it has not trained; the plateau
     schedule and the best-model and early-stopping records start afresh).
     ``history``, when given, receives one dict per epoch (train/val/test
-    losses, LR, and the epoch's wall seconds up to the checkpoint)."""
+    losses, LR, and the epoch's wall seconds up to the checkpoint).
+    ``steps``: the ``(train_step, eval_step)`` of a parallel route in place
+    of the one-device steps; ``put``: each batch to the route's input;
+    ``capture=False``: the steps run eager on the card too;
+    ``collective``: the steps' graphs are captured on every rank of a
+    process group alike (``capture.Dispatch``)."""
+    from ..parallel.comm import rank_of
+
     training = config_nn["Training"]
     num_epoch = int(training["num_epoch"])
+    main = rank_of() == 0
+    verbosity = verbosity if main else 0
     k = resolve_steps_per_dispatch(training)
     if k > 1:
         train_loader.set_superstep(k)
-    if state.model.spec.enable_interatomic_potential:
+    if steps is not None:
+        train_step, eval_step = steps
+    elif state.model.spec.enable_interatomic_potential:
         # energy + per-atom energy + force loss, forces from the position
         # gradient
         from ..models.mlip import make_mlip_eval_step, make_mlip_train_step
@@ -109,8 +139,11 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
     else:
         train_step = make_train_step(compute_dtype, resolve_loss_scale(training))
         eval_step = make_eval_step(compute_dtype)
-    superstep = make_superstep(train_step, k)
-    eval_step = Dispatch(eval_step, "eval")
+    if capture:
+        superstep = make_superstep(train_step, k, collective)
+        eval_step = Dispatch(eval_step, "eval", collective=collective)
+    else:
+        superstep = _eager(train_step)
     scheduler = ReduceLROnPlateau(get_learning_rate(state.optimizer))
     checkpoint = (
         Checkpoint(log_name, warmup=int(training.get("checkpoint_warmup", 0)), path=path)
@@ -126,7 +159,7 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
     for epoch in range(start_epoch, num_epoch):
         t_epoch = time.perf_counter()
         train_loader.set_epoch(epoch)
-        train_loss, _ = train_epoch(superstep, state, train_loader)
+        train_loss, _ = train_epoch(superstep, state, train_loader, put)
         record = {"epoch": epoch, "train_loss": train_loss}
         if skip_valtest:
             _log(verbosity, f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}")
@@ -136,8 +169,8 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
             if history is not None:
                 history.append(record)
             continue
-        val_loss, _, _ = evaluate(eval_step, state, val_loader)
-        test_loss, _, _ = evaluate(eval_step, state, test_loader)
+        val_loss, _, _ = evaluate(eval_step, state, val_loader, put)
+        test_loss, _, _ = evaluate(eval_step, state, test_loader, put)
         new_lr = scheduler.step(val_loss)
         if new_lr != get_learning_rate(state.optimizer):
             set_learning_rate(state.optimizer, new_lr)

@@ -12,10 +12,13 @@ mixed batches through ``run_training``, as the JAX package can.
   to a fixed size (the reference's ``RandomSampler(replacement=True)``);
 * :func:`make_branch_loaders` gives one such loader per branch, sized to
   the largest branch and sharing one pad bucket;
-* :func:`interleave_branch_batches` yields one batch per branch per step.
-
-The JAX package's ``branch_device_batches`` feeds a (branch, data) mesh:
-it comes with the parallelism slice.
+* :func:`interleave_branch_batches` yields one batch per branch per step;
+* :func:`branch_device_batches` yields, per step, ``n_data`` distinct
+  batches of each branch in row-major (branch, data) order, the layout of a
+  ``parallel.mesh.RankGrid``; :func:`rank_batches` keeps one rank's. All
+  ranks train one data-parallel step over the whole grid (the gradient
+  all-reduce spans every rank, as the JAX package's mesh all-reduce does),
+  and a branch's decoder gets gradients only from its own graphs.
 """
 
 from __future__ import annotations
@@ -81,5 +84,26 @@ def interleave_branch_batches(loaders: list[GraphLoader], epoch: int):
         yield [next(it) for it in iters]
 
 
-__all__ = ["OversamplingLoader", "concat_multidataset", "interleave_branch_batches",
-           "make_branch_loaders"]
+def branch_device_batches(loaders: list[GraphLoader], epoch: int, n_data: int):
+    """Per step, ``n_data`` distinct batches of each branch in row-major
+    order (branch 0's, then branch 1's, ...) for a (branch, data) grid, for
+    as many whole steps as the shortest loader gives."""
+    for ld in loaders:
+        ld.set_epoch(epoch)
+    iters = [iter(ld) for ld in loaders]
+    for _ in range(min(len(ld) for ld in loaders) // n_data):
+        step = []
+        for it in iters:
+            step.extend(next(it) for _ in range(n_data))
+        yield step
+
+
+def rank_batches(loaders: list[GraphLoader], epoch: int, grid):
+    """The batches of :func:`branch_device_batches` that rank ``grid.rank``
+    of a ``parallel.mesh.RankGrid`` trains, one per step."""
+    for step in branch_device_batches(loaders, epoch, grid.n_data):
+        yield step[grid.rank]
+
+
+__all__ = ["OversamplingLoader", "branch_device_batches", "concat_multidataset",
+           "interleave_branch_batches", "make_branch_loaders", "rank_batches"]

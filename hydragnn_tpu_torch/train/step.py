@@ -77,6 +77,10 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     generator: torch.Generator | None = None
+    # the parallel layout of a data-parallel run (``parallel/step.py``'s
+    # ``Layout``): its ranks and, under FSDP, the parameter shards the
+    # optimizer steps; None on one device
+    layout: object = None
 
 
 def apply_initial_bias(model: torch.nn.Module) -> torch.nn.Module:
@@ -120,11 +124,13 @@ def freeze_conv_grads(model: torch.nn.Module) -> None:
 
 
 def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, train: bool,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, **hooks):
     """The model's per-head outputs (with ``var_output``: ``(means,
     variances)``), as fp32, with its parameters and the batch's floating
     fields cast to ``compute_dtype`` and the running statistics left as
-    they are; ``generator`` draws the dropout masks in train mode."""
+    they are; ``generator`` draws the dropout masks in train mode.
+    ``hooks`` go to the model's forward (the halo route's ``layer_hook``
+    and ``pool_reduce``)."""
     params = {
         n: (p.to(compute_dtype) if p.is_floating_point() else p)
         for n, p in model.named_parameters()
@@ -132,7 +138,7 @@ def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, trai
     buffers = dict(model.named_buffers())
     c_batch = batch.map_floats(lambda t: t.to(compute_dtype))
     outputs = torch.func.functional_call(model, {**params, **buffers}, (c_batch,),
-                                         {"train": train, "generator": generator})
+                                         {"train": train, "generator": generator, **hooks})
     if model.spec.var_output:
         means, variances = outputs
         return ([o.to(torch.float32) for o in means],
@@ -151,15 +157,26 @@ def make_train_step(compute_dtype: torch.dtype = torch.float32, loss_scale: floa
     model's device. The metrics (``loss``, ``tasks_loss``, ``num_graphs``)
     stay on the device."""
     loss_scale = None if not loss_scale or float(loss_scale) == 1.0 else float(loss_scale)
+    loss = make_train_loss(compute_dtype)
 
     def train_step(state: TrainState, batch) -> dict:
-        model = state.model
-        pred = cast_forward(model, batch, compute_dtype, train=True,
-                            generator=state.generator)
-        tot, tasks = model.loss(pred, batch)
+        tot, tasks = loss(state, batch)
         return optimizer_step(state, batch, tot, tasks, loss_scale)
 
     return train_step
+
+
+def make_train_loss(compute_dtype: torch.dtype = torch.float32):
+    """``(state, batch) -> (total loss, [task losses])``: the train step's
+    train-mode forward and loss, before its backward."""
+
+    def train_loss(state: TrainState, batch):
+        model = state.model
+        pred = cast_forward(model, batch, compute_dtype, train=True,
+                            generator=state.generator)
+        return model.loss(pred, batch)
+
+    return train_loss
 
 
 def optimizer_step(state: TrainState, batch, tot: torch.Tensor, tasks,
@@ -231,6 +248,7 @@ __all__ = [
     "head_means",
     "make_eval_step",
     "make_predict_step",
+    "make_train_loss",
     "make_train_step",
     "optimizer_step",
     "resolve_loss_scale",

@@ -49,18 +49,19 @@ class Superstep:
     (on the card a replay of its bucket's graph, on the CPU the eager
     step). ``k`` is the block length the loader plans for."""
 
-    def __init__(self, train_step, k: int):
+    def __init__(self, train_step, k: int, collective: bool = False):
         self.k = max(1, int(k))
-        self.dispatch = Dispatch(train_step, "train", train=True)
+        self.dispatch = Dispatch(train_step, "train", train=True, collective=collective)
 
     def __call__(self, state, batches) -> list[dict]:
         return [self.dispatch(state, b) for b in batches]
 
 
-def make_superstep(train_step, k: int) -> Superstep:
+def make_superstep(train_step, k: int, collective: bool = False) -> Superstep:
     """The superstep of ``train_step`` (``(state, batch) -> metrics``, the
-    eager step) over blocks of ``k`` batches."""
-    return Superstep(train_step, k)
+    eager step) over blocks of ``k`` batches; ``collective``: see
+    :class:`~..capture.Dispatch`."""
+    return Superstep(train_step, k, collective)
 
 
 __all__ = ["Superstep", "make_superstep", "resolve_steps_per_dispatch"]

@@ -281,11 +281,12 @@ def test_server_refuses_request_without_positional_encodings(setup):
 
 
 @pytest.mark.parametrize("override,what", [
-    # performer attention and GPS around GAT are ported
-    # (tests/test_torch_gps_performer.py, tests/test_torch_gps_variants.py),
-    # and so is graph-attribute conditioning (tests/test_torch_conditioning.py);
-    # these ids now point at what stays refused around them: ring attention
-    # (parallelism)
+    # performer attention, GPS around GAT, graph-attribute conditioning
+    # (tests/test_torch_gps_performer.py, tests/test_torch_gps_variants.py,
+    # tests/test_torch_conditioning.py) and now ring attention
+    # (tests/test_torch_ring_attention.py) are ported; without a process
+    # group the ring is one block of the exact same-graph attention, so each
+    # ring configuration answers what its multihead twin answers
     pytest.param({"global_attn_type": "ring", "use_graph_attr_conditioning": True},
                  "ring", id="override0-performer"),
     ({"global_attn_type": "ring"}, "ring"),
@@ -297,5 +298,14 @@ def test_gps_variants_wait_for_their_slices(setup, override, what):
 
     aug = copy.deepcopy(setup.aug)
     aug["NeuralNetwork"]["Architecture"].update(override)
-    with pytest.raises(NotImplementedError, match=what):
-        create_model_config(aug, device="cpu")
+    assert aug["NeuralNetwork"]["Architecture"]["global_attn_type"] == what
+    ring = create_model_config(copy.deepcopy(aug), device="cpu", seed=0)
+    assert all(m.ring for m in ring.modules() if hasattr(m, "ring"))
+    aug["NeuralNetwork"]["Architecture"]["global_attn_type"] = "multihead"
+    twin = create_model_config(aug, device="cpu", seed=0)
+    jb = setup.batches[0]
+    got = make_predict_step(ring)(batch_from_numpy(jb))
+    want = make_predict_step(twin)(batch_from_numpy(jb))
+    for g, w in zip(tpu.real_rows(got, jb, ring.spec), tpu.real_rows(want, jb, twin.spec)):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, **TOL)

@@ -203,10 +203,11 @@ def test_dense_promotes_like_flax():
 @pytest.mark.parametrize("override,what", [
     # edge features, GPS performer attention and GPS around every conv are
     # ported (tests/test_torch_edge_features.py, test_torch_gps_variants.py,
-    # test_torch_gps_performer.py), and so is graph-attribute conditioning
-    # (tests/test_torch_conditioning.py); these ids now point at what stays
-    # refused, ring attention (parallelism), around the stacks and the
-    # conditioning the ids name
+    # test_torch_gps_performer.py), and so are graph-attribute conditioning
+    # (tests/test_torch_conditioning.py) and ring attention
+    # (tests/test_torch_ring_attention.py); these ids now check that ring
+    # attention builds around the stacks and the conditioning the ids name,
+    # with the parameters of its multihead twin
     pytest.param({"mpnn_type": "PAINN", "edge_features": ["length"],
                   "global_attn_engine": "GPS", "global_attn_type": "ring"},
                  "GPS ring attention", id="override0-mpnn_type"),
@@ -224,11 +225,18 @@ def test_dense_promotes_like_flax():
 ])
 def test_outside_the_slice_raises(setup, override, what):
     from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.models.gps import GraphMultiheadAttention
 
+    assert what == "GPS ring attention"
     aug = copy.deepcopy(setup[0])
     aug["NeuralNetwork"]["Architecture"].update(override)
-    with pytest.raises(NotImplementedError, match=what):
-        create_model_config(aug, device="cpu")
+    ring = create_model_config(copy.deepcopy(aug), device="cpu")
+    attns = [m for m in ring.modules() if isinstance(m, GraphMultiheadAttention)]
+    assert attns and all(m.ring for m in attns)
+    aug["NeuralNetwork"]["Architecture"]["global_attn_type"] = "multihead"
+    twin = create_model_config(aug, device="cpu")
+    assert {k: v.shape for k, v in ring.state_dict().items()} == \
+        {k: v.shape for k, v in twin.state_dict().items()}
 
 
 def test_other_heads_and_training_raise(setup):

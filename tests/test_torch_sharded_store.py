@@ -267,14 +267,22 @@ def test_concurrent_fetches_lose_no_count_and_no_sample(tmp_path):
 
 
 def test_configuration_and_refusals(tmp_path):
-    """No ``peers``: a ``ValueError`` (the address exchange is not ported);
-    a gap in the ranges, a shard of the wrong size; ``apply_config`` takes
-    the ``Dataset.store`` block but keeps explicit arguments; an
-    under-replicated range warns; a refused store leaves no server running."""
+    """No ``peers`` and no process group: the store is its own only peer
+    (the address exchange over ``torch.distributed``,
+    ``tests/test_torch_parallel.py``, gives it the others), and a range it
+    does not cover refuses the store; a gap in the ranges, a shard of the
+    wrong size; ``apply_config`` takes the ``Dataset.store`` block but keeps
+    explicit arguments; an under-replicated range warns; a refused store
+    leaves no server running."""
     _, (p0, p1), _ = _shards(tmp_path, 12, [6], seed=1)
     before = set(threading.enumerate())
-    with pytest.raises(ValueError, match="peers"):
-        ShardedStore(p0, 0, 6)
+    alone = ShardedStore(p0, 0, 6, bind_host=HOST, advertise_host=HOST)
+    try:
+        assert alone.peers == [(HOST, alone.server.port, 0, 6)] and alone.total == 6
+    finally:
+        alone.close()
+    with pytest.raises(ValueError, match="unserved"):
+        ShardedStore(p1, 6, 12, bind_host=HOST, advertise_host=HOST)
     with pytest.raises(ValueError, match="holds 6 samples"):
         _store(p0, 0, 5, [(HOST, 0, 0, 5)])
     with pytest.raises(ValueError, match="unserved"):

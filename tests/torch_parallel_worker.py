@@ -1,0 +1,282 @@
+"""One rank of the port's 2-process ``gloo`` workers (not a test module).
+
+``python tests/torch_parallel_worker.py RANK WORLD PORT`` joins a ``gloo``
+group at ``tcp://127.0.0.1:PORT`` and then runs tasks read from stdin, one
+JSON line each (``{"task": name, "in": path, "out": path}``): it loads the
+inputs with ``torch.load``, runs the task on this rank, saves the outputs to
+``out`` with its rank appended and answers ``DONE`` (or ``FAIL`` and the
+traceback on one line). ``{"task": "quit"}`` ends it. It imports torch,
+numpy and the port only, never JAX: the test modules compute the JAX
+package's references in the pytest process (``torch_parallel_pool.py``).
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import os
+import sys
+import traceback
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+def _batch(arrays: dict):
+    from hydragnn_tpu_torch.graphs.batching import batch_from_arrays, batch_meta
+    from hydragnn_tpu_torch.graphs.graph import FIELDS
+
+    arrays = {f: np.ascontiguousarray(arrays[f]) for f in FIELDS}
+    return batch_from_arrays(arrays, batch_meta(arrays))
+
+
+def _model(inp: dict):
+    from hydragnn_tpu_torch.models import create_model_config
+
+    model = create_model_config(copy.deepcopy(inp["aug"]), device="cpu", seed=0)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in inp["state"].items()})
+    return model
+
+
+def _state(inp: dict, model):
+    from hydragnn_tpu_torch.train.step import create_train_state
+
+    return create_train_state(model, inp["opt"], seed=0)
+
+
+def _numpy_state(model) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+
+
+def _metrics(m: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in m.items()}
+
+
+def task_data_step(inp: dict, rank: int) -> dict:
+    """The parallel eval step on this rank's first batch, then data-parallel
+    train steps on this rank's batches (``batches[rank]``, one per step),
+    replicated or FSDP, with or without SyncBatchNorm."""
+    from hydragnn_tpu_torch.parallel.mesh import host_gather
+    from hydragnn_tpu_torch.parallel.step import (bind_sync_batch_norm,
+                                                  make_parallel_eval_step,
+                                                  make_parallel_train_step, shard_state)
+
+    model = _model(inp)
+    state = _state(inp, model)
+    shard_state(state, inp["opt"], param_mode=inp.get("mode", "replicated"),
+                min_size_to_shard=inp.get("min_size", 2 ** 14))
+    bind_sync_batch_norm(model)
+    step = make_parallel_train_step(model)
+    evals = _metrics(make_parallel_eval_step(model)(state, _batch(inp["batches"][rank][0])))
+    batches = [_batch(b) for b in inp["batches"][rank]]
+    steps = [_metrics(step(state, b)) for b in batches]
+    return {"steps": steps, "eval": evals, "state": {k: v.numpy() for k, v in
+                                                      host_gather(state).items()},
+            "shards": [(tuple(s.param.shape), s.dim, tuple(s.shard.shape))
+                       for s in state.layout.shards],
+            "optimizer_params": sum(p.numel() for g in state.optimizer.param_groups
+                                    for p in g["params"])}
+
+
+def task_fsdp_resume(inp: dict, rank: int) -> dict:
+    """FSDP steps on this rank's batches, uninterrupted and interrupted
+    after ``split`` steps by a checkpoint (every rank saves, rank 0 writes
+    under ``path``) that a fresh state loads before it shards, as
+    ``run_training`` resumes; the replicated run's checkpoint at the split
+    for comparison."""
+    import torch.distributed as dist
+
+    from hydragnn_tpu_torch.parallel.mesh import host_gather
+    from hydragnn_tpu_torch.parallel.step import make_parallel_train_step, shard_state
+    from hydragnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    batches = [_batch(b) for b in inp["batches"][rank]]
+    split = inp["split"]
+
+    def fresh(mode, name=None):
+        model = _model(inp)
+        state = _state(inp, model)
+        if name is not None:
+            load_checkpoint(state, name, path=inp["path"])
+        shard_state(state, inp["opt"], param_mode=mode)
+        return state, make_parallel_train_step(model)
+
+    whole, step = fresh("fsdp")
+    losses = [float(step(whole, b)["loss"]) for b in batches]
+    out = {"losses": losses, "state": {k: v.numpy() for k, v in host_gather(whole).items()}}
+    for mode in ("fsdp", "replicated"):
+        first, step = fresh(mode)
+        for b in batches[:split]:
+            step(first, b)
+        # each rank's dropout generator at a state of its own (the GIN
+        # draws no mask)
+        torch.rand(rank + 3, generator=first.generator)
+        generator = first.generator.get_state()
+        save_checkpoint(first, mode, split, path=inp["path"])
+        dist.barrier()
+    saved = {m: torch.load(os.path.join(inp["path"], m, "checkpoints", f"epoch_{split}.pt"),
+                           weights_only=False)["optimizer"] for m in ("fsdp", "replicated")}
+    out["saved"] = {m: {i: {k: v.numpy() for k, v in per.items() if torch.is_tensor(v)}
+                        for i, per in sd["state"].items()} for m, sd in saved.items()}
+    resumed, step = fresh("fsdp", "fsdp")
+    out["resumed_losses"] = [float(step(resumed, b)["loss"]) for b in batches[split:]]
+    out["resumed_state"] = {k: v.numpy() for k, v in host_gather(resumed).items()}
+    out["shards"] = len(resumed.layout.shards)
+    out["generator_resumed"] = bool(torch.equal(resumed.generator.get_state(), generator))
+    return out
+
+
+def task_halo(inp: dict, rank: int) -> dict:
+    """The halo route on one giant-graph batch: eval metrics, outputs and one
+    train step."""
+    from hydragnn_tpu_torch.parallel import halo
+
+    model = _model(inp)
+    state = _state(inp, model)
+    hb = halo.put_halo_batch(_batch(inp["batch"]), cutoff=inp.get("cutoff"))
+    ev = _metrics(halo.make_halo_eval_step(model)(state, hb))
+    out = [o.numpy() for o in halo.make_halo_apply(model)(hb)]
+    m = _metrics(halo.make_halo_train_step(model)(state, hb))
+    from hydragnn_tpu_torch.parallel.halo import halo_boundary_bytes
+
+    return {"eval": ev, "outputs": out, "step": m, "state": _numpy_state(model),
+            "node_global": hb.frame.node_global, "n_owned": hb.frame.n_owned,
+            "halo_bytes": halo_boundary_bytes(hb.frame.plan, model.spec.hidden_dim)}
+
+
+def task_refresh(inp: dict, rank: int) -> dict:
+    """The halo refresh of ``h[rank]`` and its gradient against ``w[rank]``."""
+    from hydragnn_tpu_torch.parallel.halo import make_refresh, put_halo_batch
+
+    hb = put_halo_batch(_batch(inp["batch"]), cutoff=inp["cutoff"])
+    h = torch.tensor(inp["h"][rank], requires_grad=True)
+    out, _ = make_refresh(hb.send, hb.recv)(h, None)
+    (out * torch.tensor(inp["w"][rank])).sum().backward()
+    return {"out": out.detach().numpy(), "grad": h.grad.numpy()}
+
+
+def task_edge(inp: dict, rank: int) -> dict:
+    """The edge-sharded route on one batch: outputs, eval metrics and one
+    train step."""
+    from hydragnn_tpu_torch.parallel import large_graph as lg
+
+    model = _model(inp)
+    state = _state(inp, model)
+    share = lg.put_large_batch(_batch(inp["batch"]))
+    out = [o.numpy() for o in lg.make_edge_sharded_apply(model)(share)]
+    ev = _metrics(lg.make_edge_sharded_eval_step(model)(state, share))
+    m = _metrics(lg.make_edge_sharded_train_step(model)(state, share))
+    grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
+    return {"outputs": out, "eval": ev, "step": m, "state": _numpy_state(model),
+            "grads": grads, "n_edges": int(share.num_edges)}
+
+
+def task_edge_primitives(inp: dict, rank: int) -> dict:
+    """The edge-sharded neighbour sum (``models.common.neighbour_sum`` under
+    ``edge_sharded``) over this rank's contiguous half of the edges: as a
+    scatter-add of message rows (edge ``e`` reads row ``e``), and inside one
+    GIN-style layer; the replicated input's gradient."""
+    from types import SimpleNamespace
+
+    from hydragnn_tpu_torch.models.common import edge_sharded, neighbour_sum
+
+    e = inp["snd"].shape[0] // 2
+    mine = slice(rank * e, (rank + 1) * e)
+    n = inp["h"].shape[0]
+    rcv = torch.tensor(inp["rcv"][mine]).long()
+    msg = torch.tensor(inp["msg"])
+    rows = max(n, msg.shape[0])
+    h = torch.tensor(inp["h"], requires_grad=True)
+    with edge_sharded(None):
+        seg = neighbour_sum(torch.cat([msg, msg.new_zeros(rows - msg.shape[0], msg.shape[1])]),
+                            SimpleNamespace(senders=torch.arange(2 * e)[mine], receivers=rcv,
+                                            num_nodes=rows, edge_mask=torch.ones(e)))[:n]
+        conv = neighbour_sum(h, SimpleNamespace(
+            senders=torch.tensor(inp["snd"][mine]).long(), receivers=rcv, num_nodes=n,
+            edge_mask=torch.tensor(inp["mask"][mine]))) @ torch.tensor(inp["w"])
+    conv.sum().backward()
+    return {"segment_sum": seg.numpy(), "conv": conv.detach().numpy(), "dh": h.grad.numpy()}
+
+
+def task_ring(inp: dict, rank: int) -> dict:
+    """Ring attention of replicated projections and its gradients against
+    the cotangent ``g``."""
+    from hydragnn_tpu_torch.parallel.ring_attention import ring_attention
+
+    q, k, v = (torch.tensor(inp[n], requires_grad=True) for n in ("q", "k", "v"))
+    out = ring_attention(q, k, v, torch.tensor(inp["bid"]), torch.tensor(inp["mask"]))
+    (out * torch.tensor(inp["g"])).sum().backward()
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+            "dv": v.grad.numpy()}
+
+
+def task_store(inp: dict, rank: int) -> dict:
+    """A ``ShardedStore`` over this rank's shard with the peers exchanged,
+    read whole; its pad spec; the energy regression over this rank's half of
+    the samples."""
+    from hydragnn_tpu_torch.datasets.sharded import ShardedStore
+    from hydragnn_tpu_torch.preprocess.energy_linear_regression import (
+        fit_energy_linear_regression)
+
+    path, start, stop = inp["shards"][rank]
+    store = ShardedStore(path, start, stop, bind_host=inp["host"], advertise_host=inp["host"])
+    try:
+        xs = [store[i].x for i in range(store.total)]
+        pad = store.pad_spec(4).as_tuple()
+        peers = list(store.peers)
+    finally:
+        store.close()
+    samples = torch.load(inp["regression"], weights_only=False)[rank]
+    return {"x": xs, "pad": pad, "peers": peers,
+            "coeff": fit_energy_linear_regression(samples)}
+
+
+def task_run_training(inp: dict, rank: int) -> dict:
+    """``run_training`` in the group, the flags of ``env`` set; the trained
+    parameters and the history."""
+    from hydragnn_tpu_torch import run_training
+
+    os.environ.update(inp.get("env", {}))
+    try:
+        history = []
+        state, model, _ = run_training(copy.deepcopy(inp["config"]), samples=inp["samples"],
+                                       device="cpu", path=os.path.join(inp["path"], str(rank)),
+                                       history=history)
+        return {"state": _numpy_state(model), "history": history,
+                "layout": getattr(state.layout, "mode", None)}
+    finally:
+        for k in inp.get("env", {}):
+            os.environ.pop(k, None)
+
+
+TASKS = {name[5:]: fn for name, fn in globals().items() if name.startswith("task_")}
+
+
+def main() -> None:
+    import torch.distributed as dist
+
+    rank, world, port = (int(a) for a in sys.argv[1:4])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        for line in sys.stdin:
+            req = json.loads(line)
+            if req["task"] == "quit":
+                break
+            try:
+                inp = torch.load(req["in"], weights_only=False)
+                out = TASKS[req["task"]](inp, rank)
+                torch.save(out, f"{req['out']}.{rank}")
+                print("DONE", flush=True)
+            except Exception:
+                print("FAIL " + traceback.format_exc().replace("\n", " | "), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
