@@ -239,7 +239,27 @@ logged (the last is a ``capture summary`` line).
    server of the mirrored range stopped halfway through the epoch: every
    batch equal to the store's, at least one failover, none lost, the final
    state bit-equal, ``close()`` leaving no server or prober thread; fetch
-   ms per batch logged.
+   ms per batch logged;
+16. the resilience layer on the qm9.json GIN (``resilience_phase``): the
+   non-finite guard inside the captured bf16 step (guarded steps bit-equal
+   to unguarded ones, a ``nan_batch`` skipped with the state bit-unchanged
+   and no recapture, the guard's ms per step), a rollback with the learning
+   rate halved in the captured step's device rate, SIGTERM with its
+   mid-epoch checkpoint resumed in a fresh process bit-equal to the
+   uninterrupted run, ``corrupt_latest`` and the fallback, the dispatch
+   watchdog on a ``hang``; B1, its backward and B2 at the tensor-parallel
+   channel shard (C = 16), a pipeline microbatch (16 graphs) and a
+   superstep block; and, in the last phase's world-1 group, the
+   tensor-parallel and pipelined steps of the 9-layer GIN through the
+   modules, each bit-equal to the one-device step.
+
+``--parallel`` (four cards, one rank each) runs the parallel routes: DDP,
+FSDP, halo, edge sharding, and this slice's tensor parallel (1 x 4 and
+2 x 2 grids) and 4-stage GPipe pipeline of the 9-layer GIN, K = 4
+supersteps over the data-parallel group, then a 4 -> 3 rank ``device_loss``
+drill (the survivors re-form in process; the campaign's invariants against
+the uninterrupted run); every rank's parameters equal after every step,
+each route against its one-rank computation, exact launch gates.
 
 The script imports only ``hydragnn_tpu_torch``, torch and numpy, and needs no
 network. ``--quant-diagnostics`` adds to phase 10, for every model, the
@@ -6208,7 +6228,9 @@ PARALLEL_GROUPS = 3           # data-parallel groups held against the one-rank r
 # that rounding, on gradients that cancel, into whole steps
 PARALLEL_TOL = dict(rtol=5e-3, atol=1e-6)
 # seconds the ranks of --parallel may take together before they are killed
-PARALLEL_RANK_S = 200
+# (the data-parallel and large-graph routes take ~100 s; the tensor,
+# pipeline, superstep and elastic runs about as much again)
+PARALLEL_RANK_S = 480
 # FSDP's width: qm9.json's GIN at hidden 128, the narrowest width whose
 # conv weights (128 x 128) reach the FSDP rule's 2**14 entries and shard
 # (at qm9.json's 64 nothing does, and FSDP would be the replicated step)
@@ -6487,9 +6509,9 @@ def parallel_launches(run: dict) -> dict:
 
 
 def check_parallel_launches(runs: dict) -> None:
-    """Every run's launches against :func:`parallel_launches`, exactly."""
+    """Every run's launches against :func:`route_launches`, exactly."""
     for name, r in runs.items():
-        want = parallel_launches(r)
+        want = route_launches(r)
         if r["launches"] != want:
             raise AssertionError(f"parallel {name}: launches {r['launches']}, expected {want} "
                                  f"({r['steps']} train steps, {r['evals']} eval steps)")
@@ -6588,6 +6610,17 @@ def parallel_paths(torch, seed: int, card: str, device: str = "cuda") -> dict:
         else:
             out[f"{route} {kind}"] = large_route_run(torch, route, kind, seed, card,
                                                       device=device)
+    from hydragnn_tpu_torch.parallel import comm
+
+    if comm.world_of() > 1:
+        # this slice's routes; run_training refuses tensor and pipeline on
+        # one rank (the default run drives them through the modules)
+        for n_model in TP_SIZES:
+            out[f"tensor{comm.world_of() // n_model}x{n_model} gin{DEEP_LAYERS}"] = route_run(
+                torch, "tensor", seed, card, device=device, n_model=n_model)
+        out[f"pipeline gin{DEEP_LAYERS}"] = route_run(torch, "pipeline", seed, card,
+                                                      device=device)
+        out[f"superstep{SUPERSTEP_K} gin"] = superstep_route_run(torch, seed, card, device)
     return out
 
 
@@ -6613,13 +6646,17 @@ def _one_device_large_losses(torch, route: str, kind: str, seed: int,
 
 
 def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
-                     device: str = "cuda", hidden: int | None = None) -> tuple[list, float]:
+                     device: str = "cuda", hidden: int | None = None,
+                     aug: dict | None = None, states=None) -> tuple[list, float]:
     """The data route's ``PARALLEL_GROUPS`` steps on one device: each
     group's ``world`` batches through the model in turn from the same
     running statistics, their losses and gradients weighted by graph count,
     the statistics merged over the batches with real nodes, one optimizer
-    step (what the ranks compute together); and the one-device captured
-    step's ms on one batch."""
+    step (what the ranks compute together, and what a pipeline stage ring
+    computes over ``world`` microbatches); and the one-device captured
+    step's ms on one batch. ``aug``: the model's augmented config in place
+    of ``kind``'s; ``states``: each group's step starts from that state
+    (parameters and statistics) instead of the previous step's."""
     from hydragnn_tpu_torch import capture
     from hydragnn_tpu_torch.models import create_model_config
     from hydragnn_tpu_torch.models.common import MaskedBatchNorm
@@ -6627,7 +6664,8 @@ def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
                                                make_train_loss, make_train_step,
                                                resolve_precision)
 
-    _, aug, _, _ = prepare(seed, kind)
+    if aug is None:
+        _, aug, _, _ = prepare(seed, kind)
     if hidden:
         aug["NeuralNetwork"]["Architecture"]["hidden_dim"] = hidden
     dtype = resolve_precision(str(aug["NeuralNetwork"]["Training"]["precision"]), device)
@@ -6639,6 +6677,8 @@ def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
     gens = [torch.Generator(device=device).manual_seed(seed + r) for r in range(world)]
     losses = []
     for g in range(PARALLEL_GROUPS):
+        if states is not None:
+            m.load_state_dict(states[g])
         group = [b.to(device) for b in batches[g * world:(g + 1) * world]]
         start = [(n.mean.clone(), n.var.clone()) for n in norms]
         ngs = [b.graph_mask.sum() for b in group]
@@ -6681,6 +6721,21 @@ def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
     return losses, _event_ms(torch, lambda: one(fresh, b0), 20)
 
 
+def _eager_group_ms(torch, aug: dict, seed: int, group, device: str = "cuda") -> float:
+    """The one-device eager train step's ms over ``group``'s batches in
+    turn (one batch each), the comparator of an eager route's step."""
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
+                                               resolve_precision)
+
+    training = aug["NeuralNetwork"]["Training"]
+    st = create_train_state(create_model_config(aug, device=device, seed=seed),
+                            training["Optimizer"], seed=seed)
+    step = make_train_step(resolve_precision(str(training["precision"]), device))
+    batches = [b.to(device) for b in group]
+    return _event_ms(torch, lambda: [step(st, b) for b in batches], 5)
+
+
 def _init_group(torch, world: int, rank: int, port: int) -> None:
     import torch.distributed as dist
 
@@ -6701,6 +6756,649 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+# -- tensor and pipeline parallelism, supersteps at world > 1, resilience ----------
+
+# the tensor and pipeline routes' model: qm9.json's GIN at 9 conv layers, the
+# JAX package's own choice for these modes (tests/test_parallelism_config.py):
+# the pipeline's 8 homogeneous blocks, 2 per stage on 4 stages
+DEEP_LAYERS = 9
+# the pipeline's microbatches, each a batch of 64 / M graphs: one step trains
+# qm9.json's 64 graphs
+PIPE_MICRO = 4
+PIPE_BATCH = 16
+SUPERSTEP_K = 4
+# the tensor-parallel widths of --parallel: 1 x 4 and 2 x 2 rank grids
+TP_SIZES = (4, 2)
+# the resilience drills' data: a quarter of the qm9 set (3 train batches of
+# 64 per epoch) and two epochs
+DRILL_SAMPLES = 256
+# --parallel's supersteps and elastic drill: 2,048 molecules, 25 train
+# batches of 64 per epoch (7 groups of 4 ranks: one full K = 4 block, and a
+# drain mid-epoch)
+WIDE_SAMPLES = 2048
+DRILL_EPOCHS = 2
+GUARD_TIMING_STEPS = 50
+
+
+def deep_config(route: str = "data", epochs: int = 1, **training) -> dict:
+    """qm9.json's GIN at ``DEEP_LAYERS`` conv layers under ``route``
+    (``Architecture.parallelism``), ``num_epoch`` cut to ``epochs``."""
+    cfg = qm9_config("gin")
+    cfg["Dataset"]["name"] = f"qm9_like_in_memory_gin{DEEP_LAYERS}_{route}"
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch.update(num_conv_layers=DEEP_LAYERS, parallelism=route)
+    if route == "pipeline":
+        arch["pipeline_microbatches"] = PIPE_MICRO
+    cfg["NeuralNetwork"]["Training"].update(num_epoch=epochs, **training)
+    if route == "pipeline":
+        cfg["NeuralNetwork"]["Training"]["batch_size"] = PIPE_BATCH
+    return cfg
+
+
+def prepare_deep(seed: int, route: str = "data", batch_size: int | None = None):
+    """(augmented config, loaders) of :func:`deep_config`."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+
+    cfg = deep_config(route)
+    if batch_size:
+        cfg["NeuralNetwork"]["Training"]["batch_size"] = batch_size
+    loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=raw_samples(seed))
+    return update_config(copy.deepcopy(cfg), *(ld.samples for ld in loaders)), loaders
+
+
+def pipeline_launches(layers: int, n_stage: int, n_micro: int, steps: int, evals: int) -> dict:
+    """One stage's launches: per train step, every microbatch's prologue
+    (block 0's gather-scatter), its ``k`` blocks forward and backward, and
+    its pooling; per eval step, the same forward."""
+    k = (layers - 1) // n_stage
+    want = dict.fromkeys(KERNELS, 0)
+    want["gather_scatter_sum"] = (steps + evals) * n_micro * (1 + k)
+    want["gather_scatter_sum_bwd"] = steps * n_micro * k
+    want["segment_sum"] = (steps + evals) * n_micro
+    return want
+
+
+def route_launches(run: dict) -> dict:
+    """The launches one rank's run must count: the pipeline's per stage
+    (:func:`pipeline_launches`), any other route's steps x a train step's +
+    evals x a forward's (:func:`parallel_launches`)."""
+    if run.get("route") == "pipeline":
+        return pipeline_launches(run["layers"], run["n_stage"], run["n_micro"], run["steps"],
+                                 run["evals"])
+    return parallel_launches(run)
+
+
+def new_shape_kernel_checks(torch, seed: int, device: str = "cuda") -> dict:
+    """B1, its backward and B2 against their plain versions (``TOL``) at this
+    slice's shapes: the tensor-parallel channel shard (``C = 64 / 4 = 16``)
+    of the qm9 top bucket, a pipeline microbatch (``PIPE_BATCH`` graphs at
+    ``C = 64``) and the first batch of a ``SUPERSTEP_K``-block (the
+    bucket-major plan's, ``C = 64``), in fp32 and bf16. Returns each
+    kernel's largest error."""
+    from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+
+    _, _, loaders, samples = prepare(seed)
+    top, _ = bucket_batches(loaders, samples)
+    micro_samples = loaders[0].samples[:PIPE_BATCH]
+    micro = collate(micro_samples, compute_pad_spec(micro_samples, PIPE_BATCH))
+    train = loaders[0]
+    train.set_superstep(SUPERSTEP_K)
+    train.set_epoch(0)
+    chunk, pad = train.batch_plan()[0]
+    block = train.collate_chunk(chunk, pad)
+    train.set_superstep(1)
+    gen = torch.Generator(device="cpu").manual_seed(1717)
+    errs = dict.fromkeys(("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum"), 0.0)
+    for label, b, c in ((f"TP channel shard C={64 // 4}", top, 64 // 4),
+                        (f"pipeline microbatch ({PIPE_BATCH} graphs)", micro, 64),
+                        (f"superstep block of {SUPERSTEP_K}, first batch", block, 64)):
+        b = b.to(device)
+        n, e, g, mask = b.num_nodes, b.num_edges, b.num_graphs, b.edge_mask
+        log(f"kernels at this slice's {label}: N={n} E={e} G={g} C={c}")
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            h = torch.randn(n, c, generator=gen).to(device, dtype)
+            w = mask.to(dtype)
+            got = fs.gather_scatter_sum(h, b.senders, b.receivers, n, weight=w,
+                                        index=b.csr("receivers"))
+            errs["gather_scatter_sum"] = max(errs["gather_scatter_sum"], _compare(
+                torch, f"gather_scatter_sum {label} {name}", got,
+                fs.plain_gather_scatter_sum(h, b.senders, b.receivers, n, w), n - 1, name))
+            got = fs.gather_scatter_sum_bwd(h, b.senders, b.receivers, n, w, b.csr("senders"))
+            errs["gather_scatter_sum_bwd"] = max(errs["gather_scatter_sum_bwd"], _compare(
+                torch, f"gather_scatter_sum_bwd {label} {name}", got,
+                fs.plain_gather_scatter_sum(h, b.receivers, b.senders, n, w), n - 1, name))
+            x = (h * b.node_mask[:, None].to(dtype))
+            got = fs.fused_segment_sum(x, b.batch, g, index=b.csr("batch"))
+            errs["segment_sum"] = max(errs["segment_sum"], _compare(
+                torch, f"segment_sum (pooling) {label} {name}", got,
+                fs.plain_segment_sum(x, b.batch, g), g - 1, name))
+    return errs
+
+
+def _guarded_vs_plain(torch, seed: int, card: str, device: str = "cuda") -> dict:
+    """The guard inside the captured qm9.json GIN step (bf16, as
+    ``nonfinite_guard: "auto"`` arms it): four guarded captured steps
+    bit-equal to four unguarded ones from a copy of the state (metrics and
+    the whole state); a ``nan_batch`` skipped inside the captured step with
+    no new capture and the state bit-unchanged; the guard's cost, the
+    guarded and unguarded replays' ms on one batch."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.resilience import wrap_step_with_guard
+    from hydragnn_tpu_torch.resilience.chaos import poison_batch
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
+                                               resolve_precision)
+
+    _, aug, loaders, _ = prepare(seed)
+    training = aug["NeuralNetwork"]["Training"]
+    dtype = resolve_precision(str(training["precision"]), device)
+    plan = loaders[0].batch_plan()
+    first = plan[0][1]
+    hosts = [loaders[0].collate_chunk(c, p) for c, p in plan if p == first][:4]
+    m = create_model_config(aug, device=device, seed=seed)
+    a = create_train_state(m, training["Optimizer"], seed=seed)
+    b = _twin(torch, a)
+    guarded = capture.Dispatch(wrap_step_with_guard(make_train_step(dtype)), "guarded gin",
+                               train=True)
+    plain = capture.Dispatch(make_train_step(dtype), "unguarded gin", train=True)
+    for h in hosts:
+        ma, mb = guarded(a, h.to(device)), plain(b, h.to(device))
+        if int(ma["skipped"]) or not all(torch.equal(ma[k], mb[k]) for k in mb):
+            raise AssertionError("guard: a finite guarded step's metrics are not the "
+                                 "unguarded step's")
+        diffs = _state_diffs(torch, a, b)
+        if diffs:
+            raise AssertionError(f"guard: a finite guarded step is not the unguarded step: "
+                                 f"{diffs}")
+    before = _twin(torch, a)
+    n_captures = capture.total_captures()
+    with capture.no_new_captures("nan_batch in the captured step"):
+        mp = guarded(a, poison_batch(hosts[0].to(device)))
+    a.step -= int(mp["skipped"])  # as the epoch loop takes a skip back
+    diffs = _state_diffs(torch, a, before)
+    if int(mp["skipped"]) != 1 or float(mp["num_graphs"]) != 0.0 or diffs:
+        raise AssertionError(f"guard: nan_batch not skipped cleanly (skipped "
+                             f"{int(mp['skipped'])}, differs in {diffs})")
+    dev = hosts[0].to(device)
+    guard_ms = _event_ms(torch, lambda: guarded(a, dev), GUARD_TIMING_STEPS)
+    plain_ms = _event_ms(torch, lambda: plain(b, dev), GUARD_TIMING_STEPS)
+    log(f"[{card}] [resilience gin] {len(hosts)} guarded captured steps bit-equal to the "
+        f"unguarded ones (metrics, parameters, statistics, moments); nan_batch skipped inside "
+        f"the captured step, state bit-unchanged, {capture.total_captures() - n_captures} new "
+        f"captures; captured step {guard_ms:.4f} ms guarded, {plain_ms:.4f} ms unguarded "
+        f"(guard {guard_ms - plain_ms:+.4f} ms per step, {GUARD_TIMING_STEPS} replays each, "
+        f"bf16, bucket {capture.bucket_of(dev)})")
+    return {"guarded_ms": guard_ms, "plain_ms": plain_ms, "guard_ms": guard_ms - plain_ms}
+
+
+def drill_config(name: str, **resilience) -> dict:
+    """qm9.json's GIN for a resilience drill: ``DRILL_EPOCHS`` epochs, no
+    early stop, the ``Training.resilience`` keys given."""
+    cfg = qm9_config("gin")
+    cfg["Dataset"]["name"] = f"qm9_like_in_memory_{name}"
+    cfg["NeuralNetwork"]["Training"].update(num_epoch=DRILL_EPOCHS, EarlyStopping=False,
+                                            Checkpoint=False)
+    if resilience:
+        cfg["NeuralNetwork"]["Training"]["resilience"] = dict(resilience)
+    return cfg
+
+
+@contextlib.contextmanager
+def fault_plan(plan):
+    """``HYDRAGNN_FAULT_PLAN`` set to ``plan`` (a list of events) inside."""
+    import os
+
+    os.environ["HYDRAGNN_FAULT_PLAN"] = json.dumps(plan)
+    try:
+        yield
+    finally:
+        os.environ.pop("HYDRAGNN_FAULT_PLAN", None)
+
+
+def resume_child(cfg_json: str, path: str, seed: int, out: str, device: str = "cuda") -> None:
+    """The resume drill's fresh process: ``run_training`` continued from the
+    preemption checkpoint under ``path``; the final state saved to
+    ``out``."""
+    import torch
+
+    from hydragnn_tpu_torch import run_training
+
+    state, _, _ = run_training(json.loads(cfg_json), samples=raw_samples(seed, "gin",
+                                                                          DRILL_SAMPLES),
+                               device=device, path=path, seed=seed)
+    torch.save({"step": state.step, "model": {k: v.cpu() for k, v in
+                                              state.model.state_dict().items()}}, out)
+
+
+def resilience_phase(torch, seed: int, card: str, device: str = "cuda") -> dict:
+    """The resilience layer on the qm9.json GIN on one card: the guard in
+    the captured step (:func:`_guarded_vs_plain`); a rollback (a
+    ``nan_batch`` streak in epoch 1 restores epoch 0's checkpoint with the
+    learning rate halved, in the captured step's device rate); SIGTERM at
+    epoch 0 dispatch 1, the mid-epoch checkpoint, and its resume in a fresh
+    process bit-equal to the uninterrupted run (qm9.json's bf16);
+    ``corrupt_latest`` and the fallback; the dispatch watchdog on a
+    ``hang``. Returns the measured ms."""
+    import glob
+    import os
+
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.resilience import FaultPlan, Resilience
+    from hydragnn_tpu_torch.train.checkpoint import checkpoint_dir, load_checkpoint, \
+        save_checkpoint
+    from hydragnn_tpu_torch.train.loop import train_epoch
+    from hydragnn_tpu_torch.train.optimizer import get_learning_rate
+    from hydragnn_tpu_torch.train.superstep import make_superstep
+    from hydragnn_tpu_torch.train.step import make_train_step
+
+    out = _guarded_vs_plain(torch, seed, card, device)
+
+    def samples():
+        return raw_samples(seed, "gin", DRILL_SAMPLES)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drill_") as tmp:
+        # rollback
+        cfg = drill_config("rollback", max_consecutive_skips=2, checkpoint_every_epoch=True)
+        cfg["NeuralNetwork"]["Training"]["num_epoch"] = 3
+        t0 = time.perf_counter()
+        with fault_plan([{"fault": "nan_batch", "epoch": 1, "times": 3}]):
+            st, _, _ = run_training(copy.deepcopy(cfg), samples=samples(), device=device,
+                                    path=tmp, seed=seed)
+        rb_s = time.perf_counter() - t0
+        res = st.resilience
+        lr = get_learning_rate(st.optimizer)
+        base = float(cfg["NeuralNetwork"]["Training"]["Optimizer"]["learning_rate"])
+        finite = all(bool(torch.isfinite(t).all()) for t in st.model.state_dict().values())
+        if res.rollbacks != 1 or not np.isclose(lr, base * res.rollback_lr_factor) or not finite:
+            raise AssertionError(f"rollback: {res.rollbacks} rollbacks, LR {lr}, finite {finite}")
+        log(f"[{card}] [resilience gin] rollback: a nan_batch streak in epoch 1 (3 skipped "
+            f"steps, limit 2) restored epoch 0's checkpoint with LR {base} -> {lr} in the "
+            f"captured step's device rate, the epoch retrained, {st.step} steps, state finite "
+            f"({rb_s:.3f} s for 3 epochs)")
+        # SIGTERM, the mid-epoch checkpoint, and the resume in a fresh process
+        cfg = drill_config("preempt")
+        whole, _, _ = run_training(copy.deepcopy(cfg), samples=samples(), device=device,
+                                   path=os.path.join(tmp, "whole"), seed=seed)
+        cut_path = os.path.join(tmp, "cut")
+        t0 = time.perf_counter()
+        with fault_plan([{"fault": "sigterm", "epoch": 0, "dispatch": 1}]):
+            cut, _, aug = run_training(copy.deepcopy(cfg), samples=samples(), device=device,
+                                       path=cut_path, seed=seed)
+        ck_s = time.perf_counter() - t0
+        base_dir = checkpoint_dir(get_log_name_config(aug), cut_path)
+        metas = glob.glob(os.path.join(base_dir, "*.meta.json"))
+        meta = json.load(open(metas[0])) if len(metas) == 1 else {}
+        if not (cut.resilience.preempted and meta.get("mid_epoch")
+                and meta.get("raw_batches_done") == 2 and cut.step == 2):
+            raise AssertionError(f"preemption: {len(metas)} checkpoints, meta {meta}, "
+                                 f"{cut.step} steps")
+        cfg2 = copy.deepcopy(cfg)
+        cfg2["NeuralNetwork"]["Training"]["continue"] = 1
+        child_out = os.path.join(tmp, "resumed.pt")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c",
+                               "import sys, chip_smoke as c; c.resume_child(*sys.argv[1:3], "
+                               "int(sys.argv[3]), *sys.argv[4:6])",
+                               json.dumps(cfg2), cut_path, str(seed), child_out, device],
+                              cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+        resume_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"resume child failed: {proc.stderr[-3000:]}")
+        got = torch.load(child_out, weights_only=False)
+        diffs = [k for k, v in whole.model.state_dict().items()
+                 if not torch.equal(got["model"][k], v.cpu())]
+        if got["step"] != whole.step or diffs:
+            raise AssertionError(f"resume: {got['step']} vs {whole.step} steps, differs in "
+                                 f"{diffs[:6]}")
+        log(f"[{card}] [resilience gin] SIGTERM at epoch 0 dispatch 1: mid-epoch checkpoint "
+            f"at raw batch {meta['raw_batches_done']} ({ck_s:.3f} s), no final checkpoint over "
+            f"it; the resume in a fresh process ({resume_s:.3f} s, process start included) "
+            f"ends bit-equal to the uninterrupted run ({whole.step} steps, bf16, every "
+            f"parameter and statistic)")
+        # corrupt_latest and the fallback
+        save_checkpoint(whole, "corrupt", 0, path=tmp)
+        saved = {k: v.clone() for k, v in whole.model.state_dict().items()}
+        with torch.no_grad():
+            next(whole.model.parameters()).add_(1.0)
+        save_checkpoint(whole, "corrupt", 1, path=tmp)
+        plan = FaultPlan.parse('[{"fault": "corrupt_latest", "epoch": 1}]')
+        plan.on_epoch_end(1, "corrupt", tmp)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            meta = load_checkpoint(whole, "corrupt", path=tmp)
+        fell_back = any("fallback" in str(w.message) for w in caught)
+        same = all(torch.equal(v, saved[k]) for k, v in whole.model.state_dict().items())
+        if meta.get("epoch") != 0 or not fell_back or not same:
+            raise AssertionError(f"corrupt_latest: restored {meta}, fallback {fell_back}, "
+                                 f"state equal {same}")
+        log(f"[{card}] [resilience gin] corrupt_latest truncated epoch_1.pt; the restore fell "
+            "back to epoch 0, bit-equal to what was saved")
+    # the dispatch watchdog on a hang
+    _, aug, loaders, _ = prepare(seed)
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state
+
+    st = create_train_state(create_model_config(aug, device=device, seed=seed),
+                            aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+    res = Resilience.from_config({"resilience": {"watchdog_dispatch_s": 0.5}})
+    res.chaos = FaultPlan.parse('[{"fault": "hang", "epoch": 0, "dispatch": 2, '
+                                '"seconds": 1.0}]')
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        train_epoch(make_superstep(make_train_step(), 1), st, loaders[0], resilience=res)
+    _sync(torch, device)
+    if res.dispatch_watchdog.fired != 1 or res.dispatch_watchdog.events != ["dispatch 2"]:
+        raise AssertionError(f"watchdog: fired {res.dispatch_watchdog.fired} "
+                             f"({res.dispatch_watchdog.events})")
+    log(f"[{card}] [resilience gin] a 1.0 s hang at dispatch 2 fired the 0.5 s dispatch "
+        f"watchdog once ({res.dispatch_watchdog.events}); the epoch finished")
+    out.update(rollback_s=rb_s, preempt_checkpoint_s=ck_s, resume_s=resume_s)
+    return out
+
+
+def _route_steps(torch, route: str, seed: int, card: str, device: str = "cuda",
+                 n_model: int | None = None) -> dict:
+    """Through the modules on the live group: ``PARALLEL_GROUPS`` eager
+    steps of the 9-layer GIN under ``route`` ("tensor": the layout of
+    ``tensor_parallel_size`` from the world, this rank's data group's batch;
+    "pipeline": ``PIPE_MICRO`` microbatches of ``PIPE_BATCH`` graphs), the
+    ranks' parameters compared after each, and the step's ms; the batches
+    and the whole state before each step, for the parent's one-rank step
+    from the same state."""
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.parallel import comm
+    from hydragnn_tpu_torch.parallel.mesh import host_gather
+    from hydragnn_tpu_torch.parallel.pipeline import make_pipelined_train_step, place_pipeline
+    from hydragnn_tpu_torch.parallel.step import make_parallel_train_step, shard_state
+    from hydragnn_tpu_torch.parallel.tensor import default_tensor_parallel_size
+    from hydragnn_tpu_torch.train.step import create_train_state, resolve_precision
+
+    world = comm.world_of()
+    aug, loaders = prepare_deep(seed, route, PIPE_BATCH if route == "pipeline" else None)
+    training = aug["NeuralNetwork"]["Training"]
+    dtype = resolve_precision(str(training["precision"]), device)
+    m = create_model_config(aug, device=device, seed=seed)
+    st = create_train_state(m, training["Optimizer"], seed=seed)
+    if route == "tensor":
+        n_model = n_model or default_tensor_parallel_size(world,
+                                                          aug["NeuralNetwork"]["Architecture"])
+        shard_state(st, training["Optimizer"], param_mode="tp", n_model=n_model, seed=seed)
+        grid = st.layout.grid
+        per, mine = grid.n_data, grid.data_index
+        step = make_parallel_train_step(m, dtype)
+    else:
+        place_pipeline(st)
+        per, mine = PIPE_MICRO, None
+        step = make_pipelined_train_step(m, dtype, PIPE_MICRO)
+    batches = []
+    for g in range(PARALLEL_GROUPS):
+        loaders[0].set_epoch(g)
+        plan = loaders[0].batch_plan()[:per]
+        if len(plan) < per:
+            raise AssertionError(f"{route}: epoch {g} has fewer than {per} batches")
+        # one bucket per group, as the grouped loader gives it
+        pad = loaders[0]._max_spec([p for _, p in plan])
+        batches += [loaders[0].collate_chunk(c, pad) for c, _ in plan]
+    losses, states = [], []
+    for g in range(PARALLEL_GROUPS):
+        group = [b.to(device) for b in batches[g * per:(g + 1) * per]]
+        arg = group[mine] if mine is not None else tuple(group)
+        # the whole state before the step, for the parent's one-rank step
+        # from the same parameters
+        states.append({k: v.cpu() for k, v in host_gather(st).items()})
+        losses.append(float(step(st, arg)["loss"]))
+        if comm.live():
+            _digests_agree(_param_digest(m))
+    group = [b.to(device) for b in batches[:per]]
+    arg = group[mine] if mine is not None else tuple(group)
+    step_ms = _event_ms(torch, lambda: step(st, arg), 5)
+    tag = (f"tensor {st.layout.grid.n_data}x{st.layout.grid.n_model}" if route == "tensor"
+           else f"pipeline {world} stages x {PIPE_MICRO} microbatches")
+    log(f"[{card}] [parallel {tag} gin{DEEP_LAYERS} x{world}] {PARALLEL_GROUPS} eager steps "
+        f"through the modules: losses {losses}, parameters equal on every rank after each; "
+        f"step {step_ms:.3f} ms")
+    return {"losses": losses, "step_ms": step_ms, "batches": batches, "per": per,
+            "states": states}
+
+
+def route_run(torch, route: str, seed: int, card: str, device: str = "cuda",
+              n_model: int | None = None) -> dict:
+    """``run_training`` of the 9-layer GIN under ``route`` ("tensor" with
+    ``tensor_parallel_size`` ``n_model``, "pipeline") through the live group
+    (one epoch, launches counted), then :func:`_route_steps`."""
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.parallel import comm
+
+    world = comm.world_of()
+    cfg = deep_config(route)
+    if n_model:
+        cfg["NeuralNetwork"]["Architecture"]["tensor_parallel_size"] = n_model
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fs.reset_launches()
+        history: list = []
+        t0 = time.perf_counter()
+        state, model, aug = run_training(copy.deepcopy(cfg), samples=raw_samples(seed),
+                                         device=device, path=tmp, seed=seed, history=history)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+    launches = dict(fs.LAUNCHES)
+    _digests_agree(_param_digest(model))
+    _, loaders = prepare_deep(seed, route, PIPE_BATCH if route == "pipeline" else None)
+    run = {"launches": launches, "steps": state.step, "kind": "gin", "route": route,
+           "layers": DEEP_LAYERS, "history": history}
+    if route == "pipeline":
+        run.update(n_stage=world, n_micro=PIPE_MICRO,
+                   evals=sum(-(-len(ld) // PIPE_MICRO) for ld in loaders[1:]))
+    else:
+        n_data = state.layout.grid.n_data
+        run.update(evals=sum(-(-len(ld) // n_data) for ld in loaders[1:]), n_data=n_data)
+    log(f"[{card}] [parallel {route} gin{DEEP_LAYERS} x{world}] run_training: {state.step} "
+        f"steps in {wall:.3f} s, train loss {[round(h['train_loss'], 6) for h in history]}, "
+        f"launches {launches}")
+    steps = _route_steps(torch, route, seed, card, device, n_model)
+    run.update(losses=steps["losses"], step_ms=steps["step_ms"], batches=steps["batches"],
+               per=steps["per"], states=steps["states"])
+    return run
+
+
+def superstep_route_run(torch, seed: int, card: str, device: str = "cuda") -> dict:
+    """``run_training`` of the qm9.json GIN with ``steps_per_dispatch``
+    ``SUPERSTEP_K`` over the live group (captured data-parallel steps, NCCL
+    inside each), its epoch losses and final state bit-equal to one step
+    per dispatch over the same plan on the same ranks."""
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.parallel import comm
+    from hydragnn_tpu_torch.parallel.step import (bind_sync_batch_norm, make_parallel_eval_step,
+                                                  make_parallel_train_step, shard_state)
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.train.loop import train_validate_test
+    from hydragnn_tpu_torch.train.step import create_train_state, resolve_precision
+
+    world, rank = comm.world_of(), comm.rank_of()
+    cfg = qm9_config("gin")
+    cfg["NeuralNetwork"]["Training"].update(num_epoch=2, steps_per_dispatch=SUPERSTEP_K)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fs.reset_launches()
+        h4: list = []
+        t0 = time.perf_counter()
+        s4, m4, aug = run_training(copy.deepcopy(cfg),
+                                   samples=raw_samples(seed, "gin", WIDE_SAMPLES),
+                                   device=device, path=tmp, seed=seed, history=h4)
+        _sync(torch, device)
+        wall4 = time.perf_counter() - t0
+        launches = dict(fs.LAUNCHES)
+        # K = 1 over the K-block plan: the loop as run_training drives it,
+        # the train loader planning the blocks
+        one = copy.deepcopy(cfg)
+        one["NeuralNetwork"]["Training"]["steps_per_dispatch"] = 1
+        loaders = dataset_loading_and_splitting(
+            one, samples=raw_samples(seed, "gin", WIDE_SAMPLES), rank=rank, world=world)
+        aug1 = update_config(one, *(ld.samples for ld in loaders))
+        training = aug1["NeuralNetwork"]["Training"]
+        dtype = resolve_precision(str(training["precision"]), device)
+        m1 = create_model_config(aug1, device=device, seed=seed)
+        s1 = create_train_state(m1, training["Optimizer"], seed=seed)
+        shard_state(s1, training["Optimizer"], seed=seed)
+        bind_sync_batch_norm(m1)
+        loaders[0].set_superstep(SUPERSTEP_K)
+        h1: list = []
+        train_validate_test(s1, *loaders, aug1["NeuralNetwork"], "k1", compute_dtype=dtype,
+                            path=tmp, history=h1,
+                            steps=(make_parallel_train_step(m1, dtype),
+                                   make_parallel_eval_step(m1, dtype)),
+                            collective=world > 1, n_dev=world, route="data")
+    keys = ("train_loss", "val_loss", "test_loss")
+    same = [[h[k] for k in keys] for h in h4] == [[h[k] for k in keys] for h in h1]
+    diffs = [k for (k, a), b in zip(m4.state_dict().items(), m1.state_dict().values())
+             if not torch.equal(a, b)]
+    _digests_agree(_param_digest(m4))
+    log(f"[{card}] [parallel superstep K={SUPERSTEP_K} gin x{world}] run_training: {s4.step} "
+        f"steps in {wall4:.3f} s, epoch losses {[round(h['train_loss'], 6) for h in h4]} "
+        f"{'bit-equal' if same else 'DIFFERENT'} to K=1 over the same plan, final state "
+        f"{'bit-equal' if not diffs else 'DIFFERENT ' + str(diffs[:4])}; launches {launches}")
+    if not same or diffs or s4.step != s1.step:
+        raise AssertionError(f"superstep x{world}: K={SUPERSTEP_K} differs from K=1")
+    # the K = 1 run's loaders hold this rank's slot of every group
+    evals = 2 * sum(len(ld) for ld in loaders[1:])
+    return {"launches": launches, "steps": s4.step, "evals": evals, "kind": "gin",
+            "layers": int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"]),
+            "losses": [h["train_loss"] for h in h4], "step_ms": wall4 * 1e3 / max(s4.step, 1),
+            "route": "superstep"}
+
+
+def elastic_drill(torch, seed: int, card: str, device: str = "cuda") -> dict:
+    """A ``device_loss`` of the last rank at epoch 1 dispatch 1 of a
+    data-parallel run of the qm9.json GIN (elastic on, 2 epochs): every rank
+    drains at one boundary and checkpoints, the lost rank leaves, the
+    survivors form a group of world - 1 in process and finish the epoch on
+    the saved update grid; held to the campaign's invariants against the
+    uninterrupted run on all ranks (zero samples lost: equal update
+    counts; the state within lr x the updates after the shrink). Runs last:
+    afterwards the group is the survivors'."""
+    import os
+
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.parallel import comm
+    from hydragnn_tpu_torch.resilience.campaign import ScheduleOutcome, check_invariants
+
+    world, rank = comm.world_of(), comm.rank_of()
+    cfg = qm9_config("gin")
+    cfg["NeuralNetwork"]["Training"].update(num_epoch=2, EarlyStopping=False, Checkpoint=False)
+    cfg["NeuralNetwork"]["Training"]["resilience"] = {"elastic": True}
+    base = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    # every rank's path is rank 0's directory: the survivors read rank 0's
+    # checkpoint, as the ranks of one job share a file system
+    shared = [None] * world
+    import torch.distributed as dist
+
+    dist.all_gather_object(shared, base)
+
+    def snapshot(st, model):
+        full = {f"model/{k}": v.cpu().numpy().copy() for k, v in model.state_dict().items()}
+        for i, per in st.optimizer.state_dict()["state"].items():
+            full.update({f"opt/{i}/{k}": v.cpu().numpy().copy() for k, v in per.items()})
+        return full
+
+    import shutil
+
+    whole, wm, _ = run_training(copy.deepcopy(cfg),
+                                samples=raw_samples(seed, "gin", WIDE_SAMPLES),
+                                device=device, path=os.path.join(shared[0], "whole"), seed=seed)
+    ref, ref_step = snapshot(whole, wm), whole.step
+    t0 = time.perf_counter()
+    with fault_plan([{"fault": "device_loss", "epoch": 1, "dispatch": 1,
+                      "device": world - 1}]):
+        cut, cm, _ = run_training(copy.deepcopy(cfg),
+                                  samples=raw_samples(seed, "gin", WIDE_SAMPLES),
+                                  device=device, path=os.path.join(shared[0], "cut"), seed=seed)
+    wall = time.perf_counter() - t0
+    ctl = cut.resilience.controller
+    if rank != 0:
+        shutil.rmtree(base, ignore_errors=True)
+    if rank == world - 1:
+        if ctl.state != "lost":
+            raise AssertionError(f"elastic: the lost rank ended {ctl.state}")
+        log(f"[{card}] [elastic x{world}] rank {rank} lost at epoch 1 dispatch 1; it left")
+        return {"lost": True}
+    entry = ctl.recovery_log[0] if ctl.recovery_log else {}
+    lr = float(cfg["NeuralNetwork"]["Training"]["Optimizer"]["learning_rate"])
+    per_epoch = ref_step // 2
+    violations = check_invariants(ScheduleOutcome(
+        seed=seed, events=[], ref_state=ref, state=snapshot(cut, cm), ref_step=ref_step,
+        step=cut.step, controller=ctl, lr=lr, mesh_changed=True, approx_updates=per_epoch))
+    if ctl.state != "done" or entry.get("mode") != "remesh" or violations:
+        raise AssertionError(f"elastic: controller {ctl.state}, {entry}, {violations}")
+    _digests_agree(_param_digest(cm))
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"[{card}] [elastic x{world} -> {comm.world_of()}] rank {world - 1} lost at epoch 1 "
+        f"dispatch 1: drained at raw batch {entry['raw_batches_done']} on the "
+        f"{entry['logical_n_dev']}-wide grid, survivors re-formed in process; recovery "
+        f"{entry['recovery_ms']:.1f} ms; {cut.step} updates as the uninterrupted run's "
+        f"{ref_step}, state within lr x updates (campaign invariants); run {wall:.3f} s")
+    return {"lost": False, "recovery_ms": entry["recovery_ms"], "steps": cut.step,
+            "ref_steps": ref_step, "run_s": wall}
+
+
+def world_one_routes(torch, seed: int, card: str, device: str = "cuda") -> dict:
+    """In the default run's world-1 NCCL group: the tensor-parallel (one
+    model rank: every column-parallel weight one shard) and pipelined (one
+    stage, one microbatch) steps of the 9-layer GIN through the modules,
+    each bit-equal to the one-device eager step over ``PARALLEL_STEPS``
+    steps (metrics and the whole state), launches counted."""
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.parallel.pipeline import make_pipelined_train_step, place_pipeline
+    from hydragnn_tpu_torch.parallel.step import make_parallel_train_step, shard_state
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
+                                               resolve_precision)
+
+    aug, loaders = prepare_deep(seed)
+    training = aug["NeuralNetwork"]["Training"]
+    dtype = resolve_precision(str(training["precision"]), device)
+    hosts = list(loaders[0])[:PARALLEL_STEPS]
+    runs = {}
+    for route in ("tensor", "pipeline"):
+        m = create_model_config(aug, device=device, seed=seed)
+        a = create_train_state(m, training["Optimizer"], seed=seed)
+        b = _twin(torch, a)
+        if route == "tensor":
+            shard_state(a, training["Optimizer"], param_mode="tp", n_model=1, seed=seed)
+            step = make_parallel_train_step(m, dtype)
+        else:
+            place_pipeline(a)
+            step = make_pipelined_train_step(m, dtype, 1)
+        one = make_train_step(dtype)
+        launches = dict.fromkeys(fs.LAUNCHES, 0)
+        for h in hosts:
+            d = h.to(device)
+            before = dict(fs.LAUNCHES)
+            ma = step(a, d if route == "tensor" else (d,))
+            for k, v in fs.LAUNCHES.items():
+                launches[k] += v - before[k]
+            mb = one(b, d)
+            diffs = _state_diffs(torch, a, b)
+            if not all(torch.equal(ma[k], mb[k]) for k in mb) or diffs:
+                raise AssertionError(f"{route} x1: not the one-device step: {diffs}")
+        runs[f"{route} gin{DEEP_LAYERS} x1"] = {
+            "launches": launches, "steps": len(hosts), "evals": 0, "kind": "gin",
+            "layers": DEEP_LAYERS, "route": route, "n_stage": 1, "n_micro": 1}
+        shards = f", {len(a.layout.shards)} sharded weights" if route == "tensor" else ""
+        log(f"[{card}] [parallel {route} gin{DEEP_LAYERS} x1] {len(hosts)} eager steps through "
+            f"the modules bit-equal to the one-device step (metrics, parameters, statistics, "
+            f"moments{shards}); launches {launches}")
+    return runs
+
+
 def parallel_phase(torch, seed: int, card: str) -> dict:
     """The default run's pass over the parallel routes on one card: an in-process NCCL
     group of world 1, each route through ``run_training`` (launches
@@ -6712,9 +7410,10 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
     ``FSDP_HIDDEN``, where its parameters shard (one shard each at world 1,
     through NCCL's reduce-scatter and all-gather). First, the kernels
     against their plain versions at the large routes' shapes
-    (:func:`parallel_kernel_checks`); last, every run's launches against
-    their per-step formula. The group is destroyed at the end: the later
-    phases train alone."""
+    (:func:`parallel_kernel_checks`); then the tensor-parallel and pipelined
+    steps at world 1 through the modules (:func:`world_one_routes`); last,
+    every run's launches against their per-step formula. The group is
+    destroyed at the end: the later phases train alone."""
     import torch.distributed as dist
 
     from hydragnn_tpu_torch import capture
@@ -6731,6 +7430,7 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
     _init_group(torch, 1, 0, _free_port())
     try:
         runs = parallel_paths(torch, seed, card)
+        runs.update(world_one_routes(torch, seed, card))
         # the data route's captured steps against the one-device captured step
         for kind in ("gin", "gps"):
             _, aug, loaders, _ = prepare(seed, kind)
@@ -6803,8 +7503,9 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
 
 
 def parallel_rank_main(torch, seed: int, world: int, rank: int, port: int, out: str) -> int:
-    """One rank of ``--parallel``: ``parallel_paths`` in the group, its
-    results written to ``out``."""
+    """One rank of ``--parallel``: ``parallel_paths`` in the group, then the
+    elastic drill (:func:`elastic_drill`), its results written to
+    ``out``."""
     import faulthandler
     import os
     import pickle
@@ -6825,13 +7526,16 @@ def parallel_rank_main(torch, seed: int, world: int, rank: int, port: int, out: 
                                "--format=csv,noheader", f"--id={rank}"], capture_output=True,
                               text=True, timeout=60).stdout.strip()
         runs = parallel_paths(torch, seed, card)
+        # last: afterwards the group is the survivors'
+        runs["elastic"] = elastic_drill(torch, seed, card)
     except BaseException:
         # the other ranks may wait in a collective this rank will not join:
         # report and leave without tearing the group down
         traceback.print_exc()
         sys.stderr.flush()
         os._exit(1)
-    dist.destroy_process_group()
+    if dist.is_initialized():  # the rank the drill lost has left its group
+        dist.destroy_process_group()
     faulthandler.cancel_dump_traceback_later()
     for r in runs.values():
         r.pop("aug", None)
@@ -6878,16 +7582,38 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 ranks.append(pickle.load(f))
     log(f"--parallel: {world} ranks ran in {time.perf_counter() - t0:.1f} s")
+    elastic = [r.pop("elastic") for r in ranks]
     for r in ranks:
         check_parallel_launches(r)
     parallel_kernel_checks(torch, seed, world)
+    new_shape_errs = new_shape_kernel_checks(torch, seed)
     report = {}
     for name, r0 in ranks[0].items():
         route, kind = name.split(" ")
         for r in ranks[1:]:
+            # the tensor route's metrics are its data group's sums, alike on
+            # every rank, as every other route's
             if not np.allclose(r[name]["losses"], r0["losses"], rtol=0, atol=0):
                 raise AssertionError(f"{name}: the ranks' losses differ")
-        if route in ("data", "fsdp"):
+        if route.startswith("superstep"):
+            report[name] = {"losses": r0["losses"], "steps": r0["steps"],
+                            "ms_per_step_wall": r0["step_ms"],
+                            "launches_rank0": r0["launches"]}
+            log(f"[{dev['smi']}] [parallel {name}] x{world}: epoch losses {r0['losses']}, "
+                f"bit-equal to K=1 over the same plan in every rank")
+            continue
+        eager_ms = None
+        if route.startswith(("tensor", "pipeline")):
+            aug, _ = prepare_deep(seed, "pipeline" if route == "pipeline" else "tensor",
+                                  PIPE_BATCH if route == "pipeline" else None)
+            # each step from the ranks' own state before it: nine layers of
+            # batch norm turn any difference of rounding (the model group's
+            # reassociated sums) into a different trajectory within a step or
+            # two, so a trajectory is no gate here
+            ref, ref_ms = _emulated_groups(torch, kind, seed, r0["per"], r0["batches"],
+                                           aug=aug, states=r0["states"])
+            eager_ms = _eager_group_ms(torch, aug, seed, r0["batches"][:r0["per"]])
+        elif route in ("data", "fsdp"):
             ref, ref_ms = _emulated_groups(torch, kind, seed, world, r0["batches"],
                                            hidden=FSDP_HIDDEN if route == "fsdp" else None)
         else:
@@ -6896,6 +7622,8 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
         entry = {"losses": r0["losses"], "one_rank_losses": ref, "step_ms": r0["step_ms"],
                  "one_rank_step_ms": ref_ms, "steps": r0["steps"],
                  "launches_rank0": r0["launches"]}
+        if eager_ms is not None:
+            entry["one_rank_eager_ms"] = eager_ms
         if route == "fsdp":
             entry["sharded_parameters"] = r0["shards"]
         if "allreduce_ms" in r0:
@@ -6908,15 +7636,134 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
         log(f"[{dev['smi']}] [parallel {name}] x{world} against one rank: losses "
             f"{r0['losses']} vs {ref} ({'within' if ok else 'BEYOND'} {PARALLEL_TOL}); step "
             f"{r0['step_ms']:.3f} ms at {world} ranks, {ref_ms:.3f} ms at one"
+            + (f" captured, {eager_ms:.3f} ms at one eager over the same batches"
+               if eager_ms is not None else "")
             + (f"; all-reduce {r0['allreduce_ms']:.3f} ms per step" if "allreduce_ms" in r0
                else ""))
         if not ok:
             raise AssertionError(f"{name}: losses beyond {PARALLEL_TOL} of the one-rank run")
         report[name] = entry
+    drill = next(e for e in elastic if not e["lost"])
+    report["elastic"] = {"recovery_ms": [e["recovery_ms"] for e in elastic if not e["lost"]],
+                         "steps": drill["steps"], "ref_steps": drill["ref_steps"],
+                         "run_s": drill["run_s"], "lost_ranks": sum(e["lost"] for e in elastic)}
+    report["kernel_errs_slice_shapes"] = new_shape_errs
+    log(f"[{dev['smi']}] [elastic] {world} -> {world - 1} ranks: recovery ms per survivor "
+        f"{report['elastic']['recovery_ms']}, {drill['steps']} updates as the uninterrupted "
+        f"run's {drill['ref_steps']}")
     log(f"chip_smoke --parallel: {time.perf_counter() - t0:.1f} s; no result line")
     log(dev["smi"])
     print(json.dumps({"parallel": report}), flush=True)
     return 0
+
+
+FIRST_STEP_REPS = 4
+
+
+def _digest(torch, t) -> tuple | None:
+    """(shape, dtype, sum, sum of squares, their float64 bits' sum): equal
+    for equal tensors, and any flipped bit almost surely changes it."""
+    if t is None or not torch.is_tensor(t):
+        return None
+    x = t.detach()
+    bits = (x.contiguous().view(torch.int16 if x.element_size() == 2 else torch.int32)
+            .to(torch.int64).sum() if x.is_floating_point() and x.numel() else 0)
+    xd = x.double()
+    return (tuple(x.shape), str(x.dtype), float(xd.sum()), float((xd * xd).sum()), int(bits))
+
+
+def _hook_autograd_graph(roots, log: list, seen: set) -> list:
+    """A post-hook on every autograd node reachable from ``roots`` (not in
+    ``seen``): each call appends ``(node name, digests of its gradients)``
+    to ``log`` in execution order. Returns the handles."""
+    import torch
+
+    handles, stack = [], list(roots)
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        handles.append(node.register_hook(
+            lambda gi, go, name=node.name(): log.append(
+                (name, [_digest(torch, g) for g in gi]))))
+        stack.extend(n for n, _ in node.next_functions)
+    return handles
+
+
+def first_steps_probe(torch, seed: int, dev: dict, device: str = "cuda") -> int:
+    """``--first-steps``: ROADMAP queue C item 17. In this fresh process,
+    ``FIRST_STEP_REPS`` eager train-step computations of the oc20 EGNN MLIP
+    (fp32), each from a copy of one initial state on a fresh device copy of
+    its first training batch: every module's forward output, every autograd
+    node's gradients in the force backward (``create_graph``) and in the
+    loss backward, in execution order, and the parameters' gradients,
+    digested; each repeat against the last, the first thing that differs
+    named. Prints the report under ``first_steps``, no result line, and
+    returns 3."""
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.graphs.batching import collate
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.models.mlip import (_position_leaf, energy_force_loss,
+                                                graph_energy)
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.train.step import cast_forward, create_train_state, head_means
+
+    cfg = mlip_config(MLIP_EPOCHS)
+    loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=mlip_samples())
+    aug = update_config(copy.deepcopy(cfg), *(ld.samples for ld in loaders))
+    spec_model = create_model_config(aug, device=device, seed=seed)
+    base = create_train_state(spec_model, aug["NeuralNetwork"]["Training"]["Optimizer"],
+                              seed=seed)
+    host = collate(loaders[0].samples[:64], loaders[0].pad)
+    spec = spec_model.spec
+    reps = []
+    for _ in range(FIRST_STEP_REPS):
+        st = _twin(torch, base)
+        batch = host.to(device)
+        fwd, bwd1, bwd2, seen = [], [], [], set()
+        handles = [m.register_forward_hook(
+            lambda mod, inp, out, name=name: fwd.append(
+                (name, [_digest(torch, o) for o in (out if isinstance(out, (tuple, list))
+                                                    else (out,))])))
+            for name, m in st.model.named_modules() if name]
+        b, pos = _position_leaf(batch)
+        pred = head_means(st.model, cast_forward(st.model, b, torch.float32, train=True,
+                                                 generator=st.generator))
+        graph_e = graph_energy(spec, pred[0], batch).to(torch.float32)
+        for h in handles:
+            h.remove()
+        handles = _hook_autograd_graph([graph_e.grad_fn], bwd1, seen)
+        (grad_pos,) = torch.autograd.grad(graph_e.sum(), pos, create_graph=True)
+        forces = (-grad_pos * batch.node_mask[:, None]).to(torch.float32)
+        tot, _ = energy_force_loss(spec, graph_e, forces, batch)
+        handles += _hook_autograd_graph([tot.grad_fn], bwd2, set())
+        tot.backward()
+        for h in handles:
+            h.remove()
+        _sync(torch, device)
+        reps.append({"forward": fwd, "force backward": bwd1, "loss backward": bwd2,
+                     "forces": _digest(torch, forces), "loss": float(tot),
+                     "grads": [(n, _digest(torch, p.grad))
+                               for n, p in st.model.named_parameters()]})
+    ref = reps[-1]
+    report = []
+    for i, r in enumerate(reps[:-1]):
+        entry = {"repeat": i, "loss": r["loss"], "loss_last": ref["loss"],
+                 "forces_equal": r["forces"] == ref["forces"],
+                 "grads_differing": [n for (n, a), (_, b) in zip(r["grads"], ref["grads"])
+                                     if a != b]}
+        for part in ("forward", "force backward", "loss backward"):
+            first = next(((k, a[0]) for k, (a, b) in enumerate(zip(r[part], ref[part]))
+                          if a != b), None)
+            entry[part] = (None if first is None else
+                           {"index": first[0], "of": len(ref[part]), "op": first[1]})
+        report.append(entry)
+        log(f"[{dev['smi']}] [first steps] repeat {i} against repeat {len(reps) - 1}: "
+            + json.dumps(entry))
+    log(dev["smi"])
+    print(json.dumps({"first_steps": report}), flush=True)
+    return 3
 
 
 def kernels_only(torch, seed: int, dev: dict) -> int:
@@ -6980,6 +7827,11 @@ def main(argv=None) -> int:
                              "untrained models); prints their entries under kernels_only "
                              "(launches null), no result line, and exits 3: no main path is "
                              "driven")
+    parser.add_argument("--first-steps", action="store_true",
+                        help="ROADMAP queue C item 17: the first eager MLIP train steps of "
+                             "this process against a later one, op by op (digests of every "
+                             "forward output and backward node's gradients); prints them "
+                             "under first_steps, no result line, and exits 3")
     parser.add_argument("--parallel", action="store_true",
                         help="the parallel routes on 4 GPUs of one machine, one rank each: "
                              "the ranks' parameters equal after every step, each route's "
@@ -7008,6 +7860,8 @@ def main(argv=None) -> int:
         build_phase()
     if args.kernels_only:
         return kernels_only(torch, args.seed, dev)
+    if args.first_steps:
+        return first_steps_probe(torch, args.seed, dev)
     if args.parallel:
         return parallel_mode(torch, args.seed, dev)
     with timed_phase(phase_s, "data"):
@@ -7092,6 +7946,9 @@ def main(argv=None) -> int:
                     for name in VARIANTS}
     with timed_phase(phase_s, "superstep"):
         superstep = superstep_phase(torch, args.seed, card=dev["smi"])
+    with timed_phase(phase_s, "resilience"):
+        resilience = resilience_phase(torch, args.seed, card=dev["smi"])
+        slice_errs = new_shape_kernel_checks(torch, args.seed)
     with timed_phase(phase_s, "canaries"):
         canary_phase(torch, "cuda", card=dev["smi"])
     with timed_phase(phase_s, "mlip"):
@@ -7160,6 +8017,10 @@ def main(argv=None) -> int:
         if name in parallel["kernel_errs"]:
             e["max_abs_err_parallel_shapes"] = parallel["kernel_errs"][name]
             e["max_abs_err"] = max(e["max_abs_err"], parallel["kernel_errs"][name])
+        if name in slice_errs:
+            # the TP channel shard, the pipeline microbatch, the superstep
+            # block (fp32 and bf16)
+            e["max_abs_err_tp_pipeline_superstep_shapes"] = slice_errs[name]
         if name in ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum") and \
                 data_plane["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the data plane's paths")
@@ -7215,6 +8076,7 @@ def main(argv=None) -> int:
         "optimizers": optimizers,
         "conv_checkpointing": ckpt_report,
         "superstep_gin_s": superstep,
+        "resilience_gin": resilience,
         "int8_serving": {k: q["summary"] for k, q in quantized.items()},
         "mlip_serving": {**{a: m["summary"] for a, m in mlip_served.items()},
                          "mptrj_film": film_served["summary"]},
@@ -7223,7 +8085,7 @@ def main(argv=None) -> int:
         "parallel_x1": {k: {"step_ms": r["step_ms"], "losses": r["losses"],
                             **({"allreduce_ms": r["allreduce_ms"]} if "allreduce_ms" in r
                                else {})}
-                        for k, r in parallel["runs"].items()},
+                        for k, r in parallel["runs"].items() if "step_ms" in r},
         "md_ms_per_step": {k: {"eager": r["eager_ms"], "captured": r["captured"]["step_ms"],
                                "busy_eager": _lean(r["captured"]["eager_busy"]),
                                "busy_captured": _lean(r["captured"]["busy"])}

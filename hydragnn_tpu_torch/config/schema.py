@@ -110,6 +110,18 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     for key, val in store_config_defaults().items():
         store_cfg.setdefault(key, val)
 
+    # the resilience block (hydragnn_tpu_torch.resilience): its defaults
+    # are the Resilience field defaults, "auto" arming the non-finite guard
+    # for bf16/fp16 training only
+    res_cfg = training.setdefault("resilience", {})
+    if not isinstance(res_cfg, dict):
+        raise ValueError(f"Training.resilience must be a dict, got {type(res_cfg).__name__}")
+    res_cfg.setdefault("nonfinite_guard", "auto")
+    from ..resilience import config_defaults
+
+    for key, val in config_defaults().items():
+        res_cfg.setdefault(key, val)
+
     serving_cfg = config.setdefault("Serving", {})
     if not isinstance(serving_cfg, dict):
         raise ValueError(f"Serving must be a dict, got {type(serving_cfg).__name__}")

@@ -42,10 +42,17 @@ optional ``auth_token`` and bindable listen interface protect against
 MISCONFIGURATION (two jobs sharing a fabric, a peer dialing the wrong
 port), not against a network attacker: the token travels plaintext.
 
+The round-trips' deadlines are the resilience layer's ``Watchdog``
+(``resilience/watchdog.py``, through ``utils/wire.py``): one monitor thread,
+a table of concurrent guards, and a per-guard ``on_expire`` that severs the
+wedged socket. Every live ``ShardServer`` of the process is in a registry
+(:func:`live_servers`, creation order) that the fault plan's ``dead_shard``
+and ``slow_peer`` drills address (``resilience/chaos.py``).
+
 The JAX module's ``HYDRAGNN_REPLICATION`` / ``HYDRAGNN_PEER_TIMEOUT`` /
-``HYDRAGNN_STORE_RETRIES`` overrides, its telemetry counters and records,
-and the live-server registry of its fault-injection harness are not ported
-yet; their knobs here are the constructor's and ``Dataset.store``'s.
+``HYDRAGNN_STORE_RETRIES`` overrides and its telemetry counters and records
+are not ported yet; their knobs here are the constructor's and
+``Dataset.store``'s.
 """
 
 from __future__ import annotations
@@ -109,6 +116,17 @@ def store_config_defaults() -> dict:
     return {f.name: f.default for f in dataclasses.fields(StoreConfig)}
 
 
+_LIVE_LOCK = threading.Lock()
+_LIVE: list = []  # guarded-by: _LIVE_LOCK
+
+
+def live_servers() -> "list[ShardServer]":
+    """This process's live ``ShardServer``s, in creation order (the chaos
+    drills' ``peer`` index)."""
+    with _LIVE_LOCK:
+        return list(_LIVE)
+
+
 class ShardServer(WireServer):
     """Threaded TCP server answering batched sample fetches from the local
     shard. Request: a ``pack_arrays`` frame {"idx": int64[k] LOCAL indices,
@@ -128,6 +146,14 @@ class ShardServer(WireServer):
         self.ds = ds
         self.start, self.stop = int(start), int(stop)
         super().__init__(host=host, port=port, auth_token=auth_token, name="ShardServer")
+        with _LIVE_LOCK:
+            _LIVE.append(self)
+
+    def close(self) -> None:
+        with _LIVE_LOCK:
+            if self in _LIVE:
+                _LIVE.remove(self)
+        super().close()
 
     def pong_fields(self) -> dict:
         # the prober checks it is talking to the peer it thinks it is
@@ -635,5 +661,5 @@ def _stop(server, timeout: float = 5.0) -> None:
         thread.join(timeout)
 
 
-__all__ = ["STORE_POLICY", "ShardServer", "ShardedStore", "StoreConfig",
+__all__ = ["STORE_POLICY", "ShardServer", "ShardedStore", "StoreConfig", "live_servers",
            "store_config_defaults"]

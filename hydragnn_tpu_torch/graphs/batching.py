@@ -21,6 +21,7 @@ import itertools
 import math
 import queue
 import threading
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Sequence
@@ -333,7 +334,11 @@ class GraphLoader:
     every rank plans the same epoch, each group of ``n`` consecutive batches
     shares one bucket, and rank ``slot`` takes its group's batch ``slot``
     (an all-masked fill batch where the epoch's last group is short), as
-    the JAX package's loop stacks a group onto its ``n`` devices."""
+    the JAX package's loop stacks a group onto its ``n`` devices; with
+    ``slots`` a rank takes several batches of every group (the pipeline's
+    microbatches, an elastic survivor's share of the saved grid).
+    :meth:`set_resume_point` drops the first batches of the next epoch's
+    plan (an exact mid-epoch resume)."""
 
     def __init__(self, samples: Sequence[GraphSample], batch_size: int,
                  pad: PadSpec | None = None, shuffle: bool = False, seed: int = 0,
@@ -366,23 +371,49 @@ class GraphLoader:
         self.epoch = 0
         self.block = 1
         self.group = 1
-        self.slot = None
+        self.slots = None
+        self._resume_skip = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
 
-    def set_group(self, n: int, slot: int | None = None) -> None:
+    def set_group(self, n: int, slot: int | None = None, slots=None) -> None:
         """Groups of ``n`` consecutive batches: with buckets, each group
         collates to the component-wise max bucket of its members (the JAX
         loader's ``set_group``); with ``slot`` (0 <= slot < n), this loader
         yields only batch ``slot`` of every group, and a masked fill batch
         (the group's first batch with every mask, count and target zeroed:
         ``empty_like``) where the epoch's last group has no batch ``slot``,
-        so every rank takes the same number of steps."""
+        so every rank takes the same number of steps. ``slots`` (in place
+        of ``slot``): the batches of those slots of every group, in that
+        order, a fill batch for a slot the group lacks (a slot may lie
+        beyond ``n``: always a fill batch)."""
         self.group = max(1, int(n))
-        if slot is not None and not 0 <= int(slot) < self.group:
-            raise ValueError(f"slot {slot} outside a group of {self.group}")
-        self.slot = None if slot is None else int(slot)
+        if slot is not None and slots is not None:
+            raise ValueError("set_group takes slot or slots, not both")
+        if slot is not None:
+            if not 0 <= int(slot) < self.group:
+                raise ValueError(f"slot {slot} outside a group of {self.group}")
+            slots = (int(slot),)
+        self.slots = None if slots is None else tuple(int(s) for s in slots)
+
+    def grouping(self) -> tuple:
+        """``(n, None, slots)``: what :meth:`set_group` was given (to put it
+        back with ``set_group(*grouping)``)."""
+        return self.group, None, self.slots
+
+    def set_resume_point(self, raw_batches: int) -> None:
+        """Exact mid-epoch resume: the next :meth:`batch_plan` drops the first
+        ``raw_batches`` batches of the epoch's whole plan (every rank's, in
+        the final order: after the group and block reorder), so a run
+        stopped after n dispatches resumes on exactly the batches it had not
+        trained. One-shot: later epochs run in full (the JAX loader's
+        ``set_resume_point``)."""
+        self._resume_skip = max(0, int(raw_batches))
+
+    def raw_len(self) -> int:
+        """Batches in the epoch's whole plan (every slot of every group)."""
+        return self._num_batches()
 
     def set_superstep(self, k: int) -> None:
         """Superstep blocks (``train/superstep.py``): runs of ``k``
@@ -421,8 +452,8 @@ class GraphLoader:
 
     def __len__(self) -> int:
         n = self._num_batches()
-        if self.slot is not None:
-            return int(math.ceil(n / self.group))
+        if self.slots is not None:
+            return int(math.ceil(n / self.group)) * len(self.slots)
         return n
 
     def _pick(self, chunk) -> PadSpec:
@@ -474,9 +505,6 @@ class GraphLoader:
                 pad = self._max_spec([self._pick(perm[r :: self.world][window])
                                       for r in range(self.world)])
             plan.append((chunk, pad))
-        if self.group > 1 and self.block > 1:
-            raise NotImplementedError("supersteps over groups of data-parallel batches are not "
-                                      "ported (a later slice: parallelism)")
         if self.group > 1 and self.buckets:
             for i in range(0, len(plan), self.group):
                 members = plan[i:i + self.group]
@@ -484,34 +512,50 @@ class GraphLoader:
                 plan[i:i + self.group] = [(chunk, pad) for chunk, _ in members]
         if self.block > 1 and self.buckets and len(plan) > 1:
             plan = self._bucket_major(plan)
-        if self.slot is not None:
+        if self._resume_skip:
+            if self._resume_skip >= len(plan):
+                warnings.warn(f"set_resume_point({self._resume_skip}) >= epoch length "
+                              f"{len(plan)}: the interrupted epoch is already trained; yielding "
+                              "an empty epoch (resume into the next epoch instead)")
+            plan = plan[self._resume_skip:]
+            self._resume_skip = 0
+        if self.slots is not None:
             picked = []
             for i in range(0, len(plan), self.group):
                 members = plan[i:i + self.group]
-                if self.slot < len(members):
-                    picked.append(members[self.slot])
-                else:
-                    picked.append((members[0][0].view(FillChunk), members[0][1]))
+                for slot in self.slots:
+                    if slot < len(members):
+                        picked.append(members[slot])
+                    else:
+                        picked.append((members[0][0].view(FillChunk), members[0][1]))
             plan = picked
         return plan
 
     def _bucket_major(self, plan):
-        """Each bucket's batches in runs of ``block`` (buckets in order of
-        first appearance), then the leftovers at the table's max bucket
-        (constant per loader, so the tail's shape never depends on the
-        epoch's mix)."""
+        """The JAX loader's bucket-major block order over groups: the
+        epoch's groups of ``group`` batches (one bucket each) in runs of
+        ``block`` groups of one bucket (buckets in order of first
+        appearance), then the leftover groups and a short last group at the
+        table's max bucket (constant per loader, so the tail's shape never
+        depends on the epoch's mix), the short group last so that a fill
+        stays a suffix."""
+        unit = self.group
+        units = [plan[i:i + unit] for i in range(0, len(plan), unit)]
+        partial = units.pop() if units and len(units[-1]) < unit else None
         by_bucket: dict = {}
-        for item in plan:
-            by_bucket.setdefault(item[1].as_tuple(), []).append(item)
+        for u in units:
+            by_bucket.setdefault(u[0][1].as_tuple(), []).append(u)
         ordered, leftover = [], []
-        for items in by_bucket.values():
-            full = len(items) // self.block * self.block
-            ordered.extend(items[:full])
-            leftover.extend(items[full:])
+        for us in by_bucket.values():
+            full = len(us) // self.block * self.block
+            ordered.extend(us[:full])
+            leftover.extend(us[full:])
+        if partial is not None:
+            leftover.append(partial)
         if leftover:
             top = self._max_spec(self.buckets)
-            ordered.extend((chunk, top) for chunk, _ in leftover)
-        return ordered
+            ordered.extend([(chunk, top) for chunk, _ in u] for u in leftover)
+        return [b for u in ordered for b in u]
 
     def collate_chunk(self, chunk: np.ndarray, pad: PadSpec) -> GraphBatch:
         if isinstance(chunk, FillChunk):
@@ -596,9 +640,19 @@ class PrefetchLoader:
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
 
-    def set_group(self, n: int, slot: int | None = None) -> None:
+    def set_group(self, n: int, slot: int | None = None, slots=None) -> None:
         """The wrapped loader's :meth:`GraphLoader.set_group`."""
-        self.loader.set_group(n, slot)
+        self.loader.set_group(n, slot, slots)
+
+    def grouping(self) -> tuple:
+        return self.loader.grouping()
+
+    def set_resume_point(self, raw_batches: int) -> None:
+        """The wrapped loader's :meth:`GraphLoader.set_resume_point`."""
+        self.loader.set_resume_point(raw_batches)
+
+    def raw_len(self) -> int:
+        return self.loader.raw_len()
 
     def set_superstep(self, k: int) -> None:
         """The wrapped loader's bucket-major plan, and a buffer that holds

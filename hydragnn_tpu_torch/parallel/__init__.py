@@ -3,15 +3,16 @@
 Counterpart of ``hydragnn_tpu/parallel/``:
 
 * ``distributed``: rank and world discovery, ``setup_ddp`` (NCCL on the
-  card, gloo on the CPU);
-* ``mesh``: the ``(branch, data)`` grid of ranks and the FSDP rule;
-* ``step``: data-parallel train and eval steps, replicated or FSDP, with
-  SyncBatchNorm and the graph-count-weighted loss;
+  card, gloo on the CPU), ``reform_group`` (the elastic re-mesh);
+* ``mesh``: the ``(branch, data)`` and ``(data x model)`` grids of ranks,
+  the FSDP rule and the tensor-parallel column rule;
+* ``step``: data-parallel train and eval steps, replicated, FSDP or
+  tensor-parallel, with SyncBatchNorm and the graph-count-weighted loss;
+* ``tensor``: column-parallel dense layers and feature-sharded activations;
+* ``pipeline``: the GPipe stage ring over the ranks;
 * ``halo`` (with ``graphs/partition.py``), ``large_graph`` (edge
   sharding) and ``ring_attention``: the three large-graph routes;
 * ``comm``: the collectives, with their gradients.
-
-Tensor parallelism and the GPipe pipeline are the next slice.
 """
 
 from .comm import live, rank_of, world_of  # noqa: F401

@@ -18,7 +18,14 @@ Each one is NCCL on the card and gloo on the CPU; none is a kernel.
   replicated tensor's gradient is whole on every rank; the exit sums the
   partial results forward and passes the (replicated) cotangent through;
 * :func:`gather_rows` all-gathers equal row blocks and hands each rank its
-  block of the (replicated) cotangent back.
+  block of the (replicated) cotangent back;
+* :func:`enter_replicated` and :func:`gather_columns` are also Megatron's
+  f/g pair around a column-parallel dense layer (the tensor-parallel route,
+  ``parallel/tensor.py``): f, the identity forward and the all-reduce of
+  the partial input gradients backward; g, the all-gather of the ranks'
+  column blocks forward and this rank's block of the cotangent backward;
+* :func:`send_recv` exchanges tensors with pipeline neighbours
+  (``batch_isend_irecv``; ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -94,6 +101,21 @@ class _GatherRows(torch.autograd.Function):
         return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
 
 
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        world = dist.get_world_size(group)
+        ctx.rank, ctx.cols = dist.get_rank(group), x.shape[-1]
+        parts = x.movedim(-1, 0).contiguous()
+        out = parts.new_empty((world * parts.shape[0],) + tuple(parts.shape[1:]))
+        dist.all_gather_into_tensor(out, parts, group=group)
+        return out.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.rank * ctx.cols, ctx.cols).contiguous(), None
+
+
 class _AllReduceExtreme(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, op):
@@ -138,6 +160,23 @@ def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     return _GatherRows.apply(x, group) if live() else x
 
 
+def gather_columns(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' equal column blocks (last axis) concatenated in rank
+    order; backward, this rank's block of the (replicated) cotangent."""
+    return _GatherColumns.apply(x, group) if live() else x
+
+
+def send_recv(sends: list, recvs: list, group=None) -> None:
+    """Post every ``(tensor, peer)`` of ``sends`` and ``recvs`` (peers are
+    ranks of the default group) as one ``batch_isend_irecv`` and wait for
+    them all; the received tensors are filled in place."""
+    ops = [dist.P2POp(dist.isend, t.contiguous(), peer, group) for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, t, peer, group) for t, peer in recvs]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+
 def sum_tensors(tensors: list[torch.Tensor], group=None) -> None:
     """Sum every tensor of ``tensors`` over the group in place, as one
     collective over their concatenation (no autograd)."""
@@ -153,4 +192,5 @@ def sum_tensors(tensors: list[torch.Tensor], group=None) -> None:
 
 
 __all__ = ["all_reduce_extreme", "all_reduce_sum", "enter_replicated", "exit_sum",
-           "gather_rows", "live", "rank_of", "sum_tensors", "world_of"]
+           "gather_columns", "gather_rows", "live", "rank_of", "send_recv", "sum_tensors",
+           "world_of"]

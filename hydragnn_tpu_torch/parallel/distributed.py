@@ -133,6 +133,37 @@ def setup_ddp(device="cuda", verbosity: int = 0, init_method: str | None = None
     return dist.get_world_size(), dist.get_rank()
 
 
+_STORES: list = []  # the rendezvous stores kept alive across re-formed groups
+
+
+def reform_group(survivors, generation: int, device="cuda") -> int | None:
+    """Leave the default group and, on a rank of ``survivors`` (ranks of
+    the group being left), join a new one of ``len(survivors)`` ranks, this
+    rank the survivors' index of it: the elastic re-mesh
+    (``resilience/elastic.py``). Every rank of the old group calls this at
+    the same point; the card is drained and a barrier passed before the
+    group is destroyed, so no collective is in flight. The new group forms
+    over the old one's rendezvous store under the prefix ``elastic/<generation>``
+    (rank 0, which serves the store, must survive). Returns the new rank,
+    or None on a rank that left."""
+    import torch.distributed as dist
+
+    store = dist.distributed_c10d._get_default_store()
+    _STORES.append(store)  # keeps the store's server (in rank 0) alive
+    backend, rank = dist.get_backend(), dist.get_rank()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+    dist.destroy_process_group()
+    survivors = list(survivors)
+    if rank not in survivors:
+        return None
+    new_rank = survivors.index(rank)
+    dist.init_process_group(backend, store=dist.PrefixStore(f"elastic/{generation}", store),
+                            rank=new_rank, world_size=len(survivors))
+    return new_rank
+
+
 def get_comm_size_and_rank() -> tuple[int, int]:
     """(world size, rank) of the live group, else of the env cascade."""
     import torch.distributed as dist
@@ -142,4 +173,5 @@ def get_comm_size_and_rank() -> tuple[int, int]:
     return init_comm_size_and_rank()
 
 
-__all__ = ["get_comm_size_and_rank", "init_comm_size_and_rank", "local_rank", "setup_ddp"]
+__all__ = ["get_comm_size_and_rank", "init_comm_size_and_rank", "local_rank", "reform_group",
+           "setup_ddp"]

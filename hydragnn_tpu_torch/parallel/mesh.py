@@ -15,8 +15,14 @@ A data width of 1 shards too, into one shard, as a mesh axis of size 1
 does. :func:`host_gather` is the layout-neutral state: the full
 parameters gathered from the shards.
 
-Tensor parallelism (``tp_param_specs``, ``Architecture.parallelism:
-"tensor"``) is not ported: ``run_training`` refuses it.
+Tensor parallelism (``make_mesh(n_model)``, ``Architecture.parallelism:
+"tensor"``) is a ``(data x model)`` grid of ranks (:class:`TPGrid`): the
+model groups are runs of ``n_model`` consecutive ranks (the JAX package
+keeps its ``model`` axis innermost, on the fastest links; on one host the
+consecutive cards), the data groups stride across them. :func:`tp_shard_dim`
+is ``tp_param_specs``' column rule: a parameter with at least ``2**10``
+entries whose feature (flax's last) axis the model width divides shards
+along that axis.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ from .comm import rank_of, world_of
 
 DATA_AXIS = "data"
 BRANCH_AXIS = "branch"
+MODEL_AXIS = "model"
 
 FSDP_MIN_SIZE = 2 ** 14
+TP_MIN_SIZE = 2 ** 10
 
 
 @dataclasses.dataclass
@@ -71,6 +79,73 @@ def make_rank_grid(n_data: int | None = None, n_branch: int = 1) -> RankGrid:
     return RankGrid(n_branch=n_branch, n_data=n_data, rank=rank_of())
 
 
+@dataclasses.dataclass
+class TPGrid:
+    """This process's place in the ``(data x model)`` grid of the
+    tensor-parallel route, and its two process groups (None when no group
+    is formed)."""
+
+    n_data: int
+    n_model: int
+    rank: int
+    model_group: object = None
+    data_group: object = None
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def shape(self) -> dict:
+        return {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
+
+
+def make_tp_grid(n_model: int) -> TPGrid:
+    """The ``(world / n_model) x n_model`` grid over the default group
+    (``make_mesh(n_data, n_model)``): model groups of consecutive ranks,
+    data groups strided. Every rank forms every group, in one order, as
+    ``torch.distributed.new_group`` asks."""
+    import torch.distributed as dist
+
+    from .comm import live
+
+    world, rank = world_of(), rank_of()
+    n_model = int(n_model)
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"tensor_parallel_size={n_model} does not divide the {world} ranks")
+    grid = TPGrid(n_data=world // n_model, n_model=n_model, rank=rank)
+    if live():
+        for d in range(grid.n_data):
+            g = dist.new_group(list(range(d * n_model, (d + 1) * n_model)))
+            if d == grid.data_index:
+                grid.model_group = g
+        for m in range(n_model):
+            g = dist.new_group(list(range(m, world, n_model)))
+            if m == grid.model_index:
+                grid.data_group = g
+    return grid
+
+
+def tp_shard_dim(shape, n_model: int, min_size: int = TP_MIN_SIZE) -> int | None:
+    """The axis ``tp_param_specs`` shards a parameter of ``shape`` along over
+    ``n_model`` ranks, or None (replicated): its feature axis, when it has
+    at least ``min_size`` entries and ``n_model`` divides that axis. flax's
+    feature axis is its last; the port's dense weights are ``[out, in]``,
+    so for a matrix it is axis 0 (a vector's is its only axis)."""
+    shape = tuple(int(s) for s in shape)
+    size = 1
+    for s in shape:
+        size *= s
+    if not shape or size < min_size:
+        return None
+    dim = 0 if len(shape) <= 2 else len(shape) - 1
+    return dim if shape[dim] % n_model == 0 else None
+
+
 def fsdp_shard_dim(shape, n_data: int, min_size: int = FSDP_MIN_SIZE) -> int | None:
     """The axis a parameter of ``shape`` shards along over ``n_data``
     ranks, or None (replicated): ``fsdp_param_specs``' rule. The port's
@@ -100,5 +175,6 @@ def host_gather(state) -> dict[str, torch.Tensor]:
     return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
 
-__all__ = ["BRANCH_AXIS", "DATA_AXIS", "FSDP_MIN_SIZE", "RankGrid", "fsdp_shard_dim",
-           "host_gather", "make_rank_grid"]
+__all__ = ["BRANCH_AXIS", "DATA_AXIS", "FSDP_MIN_SIZE", "MODEL_AXIS", "RankGrid",
+           "TPGrid", "TP_MIN_SIZE", "fsdp_shard_dim", "host_gather", "make_rank_grid",
+           "make_tp_grid", "tp_shard_dim"]

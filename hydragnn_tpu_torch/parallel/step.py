@@ -1,5 +1,5 @@
-"""Data-parallel train and eval steps over ``torch.distributed``: DDP and
-FSDP.
+"""Data-parallel train and eval steps over ``torch.distributed``: DDP, FSDP
+and, over a ``(data x model)`` grid, tensor parallelism (``tensor.py``).
 
 Counterpart of ``hydragnn_tpu/parallel/step.py``. The JAX package runs one
 SPMD program over a ``[D, ...]`` stack of batches; the port runs one
@@ -41,6 +41,16 @@ shards' optimizer state is all-gathered before rank 0 writes it, and a
 resumed run's state (loaded before the layout is placed) is cut into the
 shards, so a continued FSDP run steps as an uninterrupted one.
 
+**Tensor parallelism** (``param_mode="tp"``, ``tensor.py``) keeps the
+layout's shape: its ``Layout`` is the model group's (shards gathered over
+it), its gradients and graph counts are summed over its data group
+(``Layout.data_group``), and its forward runs under the layout's hooks
+(``Layout.forward_context``: column-parallel dense layers, feature-shard
+norms).
+
+A step given a tuple of batches (an elastic survivor's slots of a wider
+saved group) takes them in one update (``parallel_optimizer_step_many``).
+
 The steps keep the one-device contracts (``(state, batch) -> metrics``,
 metrics on the device), so the epoch loop and, on the card, the CUDA
 graphs of ``capture.py`` run them unchanged: NCCL collectives are captured
@@ -49,6 +59,7 @@ inside the train step's graph.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -89,6 +100,16 @@ class Layout:
 
     def sharded_ids(self) -> set:
         return {id(s.param) for s in self.shards}
+
+    @property
+    def data_group(self):
+        """The group the gradients, graph counts and metrics are summed
+        over (the tensor-parallel layout's data group)."""
+        return self.group
+
+    def forward_context(self):
+        """Hooks the layout's forward runs under (none here)."""
+        return contextlib.nullcontext()
 
     def _gather(self, part: torch.Tensor, dim: int) -> torch.Tensor:
         """The full tensor of every rank's ``part`` along ``dim``, in rank
@@ -140,6 +161,17 @@ class Layout:
                             for k, v in state[i].items()}
         return {**sd, "state": state}
 
+    def place_loaded(self, optimizer, full: dict) -> None:
+        """After a one-device layout's parameters were loaded into the full
+        parameters: cut every shard from its parameter and load ``full``
+        (a one-device optimizer state dict) into ``optimizer``'s shards."""
+        from ..train.optimizer import load_optimizer_state
+
+        with torch.no_grad():
+            for s in self.shards:
+                s.shard.data.copy_(s.param.detach().chunk(self.world, dim=s.dim)[self.rank])
+        load_optimizer_state(optimizer, self.shard_optimizer_state(full, optimizer))
+
     def shard_optimizer_state(self, full: dict, optimizer) -> dict:
         """A one-device layout's optimizer state dict (``full``) cut to this
         rank's shards for ``optimizer``, which steps them."""
@@ -159,19 +191,26 @@ def _per_element(v, p: torch.Tensor) -> bool:
 
 def shard_state(state: TrainState, optimizer_config: dict, group=None,
                 param_mode: str = "replicated", min_size_to_shard: int = FSDP_MIN_SIZE,
-                seed: int = 0) -> TrainState:
+                seed: int = 0, n_model: int | None = None) -> TrainState:
     """Place a train state on the data ranks of ``group``: every rank's
     parameters and buffers made rank 0's, a fresh state's dropout generator
     seeded ``seed + rank`` on every rank but 0 (rank 0 keeps a one-device
-    run's draws; a resumed state keeps what its checkpoint restored), and with ``param_mode="fsdp"`` the
+    run's draws; a resumed state keeps what its checkpoint restored), with
+    ``param_mode="tp"`` the tensor-parallel layout over ``n_model`` ranks
+    per model group (``tensor.py``), and with ``param_mode="fsdp"`` the
     large parameters sharded and the optimizer rebuilt
     (``Training.Optimizer``) over the shards and the replicated parameters,
     its state (a resumed run's moments, step counts and learning rate) cut
     from the one-device optimizer's. Returns the state (its ``layout``
     set)."""
+    if param_mode == "tp":
+        from .tensor import default_tensor_parallel_size, place_tensor_parallel
+
+        return place_tensor_parallel(state, optimizer_config,
+                                     n_model or default_tensor_parallel_size(world_of()), seed)
     if param_mode not in ("replicated", "fsdp"):
-        raise ValueError(f"unknown param_mode {param_mode!r}; expected 'replicated' or 'fsdp' "
-                         "(tensor parallelism is a later slice)")
+        raise ValueError(f"unknown param_mode {param_mode!r}; expected 'replicated', 'fsdp' or "
+                         "'tp'")
     model = state.model
     world, rank = world_of(group), rank_of(group)
     if live():
@@ -239,7 +278,7 @@ def parallel_optimizer_step(state: TrainState, batch, tot: torch.Tensor, tasks,
     reduce-scatter, the shards' update and their all-gather), the merged
     running statistics; the metrics are the ranks' weighted totals."""
     layout = state.layout
-    group = layout.group if layout is not None else None
+    group = layout.data_group if layout is not None else None
     model, optimizer = state.model, state.optimizer
     ng = batch.graph_mask.sum()
     ng_all = all_reduce_sum(ng.detach(), group)
@@ -249,22 +288,96 @@ def parallel_optimizer_step(state: TrainState, batch, tot: torch.Tensor, tasks,
         model.zero_grad()  # the sharded parameters are not the optimizer's
     obj = tot * w
     (obj * loss_scale if loss_scale is not None else obj).backward()
+    _update(state, loss_scale,
+            lambda: merge_replica_stats(model, (batch.node_mask.sum() > 0).to(torch.float32),
+                                        group))
+    tasks = torch.stack([t.detach() for t in tasks])
+    sums = all_reduce_sum(torch.cat([(tot.detach() * w).reshape(1), tasks * w]), group)
+    return {"loss": sums[0], "tasks_loss": sums[1:], "num_graphs": ng_all}
+
+
+def _update(state: TrainState, loss_scale, merge_stats) -> None:
+    """After the backward: zero gradients for parameters that got none, the
+    loss scale divided back out, the running statistics merged
+    (``merge_stats()``), the frozen conv stack, the gradients summed over
+    the ranks, one optimizer step, the shards gathered."""
+    layout, model = state.layout, state.model
     params = list(model.parameters())
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         elif loss_scale is not None:
             p.grad.div_(loss_scale)
-    merge_replica_stats(model, (batch.node_mask.sum() > 0).to(torch.float32), group)
+    merge_stats()
     freeze_conv_grads(model)
     if layout is not None:
         layout.reduce_grads(params)
-    optimizer.step()
+    state.optimizer.step()
     if layout is not None:
         layout.gather_params()
     state.step += 1
-    tasks = torch.stack([t.detach() for t in tasks])
-    sums = all_reduce_sum(torch.cat([(tot.detach() * w).reshape(1), tasks * w]), group)
+
+
+def _forward_context(state: TrainState):
+    layout = state.layout
+    return layout.forward_context() if layout is not None else contextlib.nullcontext()
+
+
+def parallel_optimizer_step_many(state: TrainState, batches, loss, loss_scale=None) -> dict:
+    """One data-parallel update over several batches of this rank (an
+    elastic survivor's slots of a wider saved group, its fill batches
+    included): each batch's loss weighted by its graph count over every
+    rank's batches, the gradients accumulated over them and summed over the
+    ranks; each batch's running statistics moved from the same old ones,
+    then merged with binary weights over every rank's batches, as if each
+    batch had its own rank. The update is the wider group's, to the order
+    of its sums."""
+    layout = state.layout
+    group = layout.data_group if layout is not None else None
+    model, optimizer = state.model, state.optimizer
+    ngs = [b.graph_mask.sum() for b in batches]
+    ng_all = all_reduce_sum(torch.stack(ngs).sum().detach(), group)
+    optimizer.zero_grad()
+    if layout is not None and layout.shards:
+        model.zero_grad()
+    norms = [m for m in model.modules() if isinstance(m, MaskedBatchNorm)]
+    old = [(m.mean.clone(), m.var.clone()) for m in norms]
+    acc = [torch.zeros_like(t) for pair in old for t in pair]
+    reals = torch.zeros((), device=ng_all.device)
+    tots, tasks_w = [], []
+    for b, ng in zip(batches, ngs):
+        with torch.no_grad():
+            for m, (mean, var) in zip(norms, old):
+                m.mean.copy_(mean)
+                m.var.copy_(var)
+        with _forward_context(state):
+            tot, tasks = loss(state, b)
+        w = ng / torch.clamp(ng_all, min=1.0)
+        obj = tot * w
+        (obj * loss_scale if loss_scale is not None else obj).backward()
+        real = (b.node_mask.sum() > 0).to(torch.float32)
+        with torch.no_grad():
+            stats = [t for m in norms for t in (m.mean, m.var)]
+            for a, t in zip(acc, stats):
+                a.add_(t * real)
+        reals = reals + real
+        tots.append(tot.detach() * w)
+        tasks_w.append(torch.stack([t.detach() for t in tasks]) * w)
+    def merge_stats():
+        if not norms:
+            return
+        with torch.no_grad():
+            flat = all_reduce_sum(torch.cat([a.reshape(-1) for a in acc] + [reals.reshape(1)]),
+                                  group)
+            total = torch.clamp(flat[-1], min=1.0)
+            offset = 0
+            for t in (t for m in norms for t in (m.mean, m.var)):
+                t.copy_((flat[offset:offset + t.numel()] / total).view_as(t))
+                offset += t.numel()
+
+    _update(state, loss_scale, merge_stats)
+    sums = all_reduce_sum(torch.cat([torch.stack(tots).sum().reshape(1),
+                                     torch.stack(tasks_w).sum(0)]), group)
     return {"loss": sums[0], "tasks_loss": sums[1:], "num_graphs": ng_all}
 
 
@@ -272,7 +385,8 @@ def make_parallel_train_step(model: torch.nn.Module, compute_dtype: torch.dtype 
                              loss_scale: float | None = None):
     """``(state, batch) -> metrics``: one data-parallel step of this rank's
     batch, the plain or (interatomic potentials) the MLIP loss, over the
-    ranks of ``state.layout``."""
+    ranks of ``state.layout``. A tuple of batches takes
+    :func:`parallel_optimizer_step_many` (one update over all of them)."""
     loss_scale = None if not loss_scale or float(loss_scale) == 1.0 else float(loss_scale)
     if model.spec.enable_interatomic_potential:
         from ..models.mlip import make_mlip_train_loss
@@ -284,7 +398,10 @@ def make_parallel_train_step(model: torch.nn.Module, compute_dtype: torch.dtype 
         loss = make_train_loss(compute_dtype)
 
     def train_step(state: TrainState, batch) -> dict:
-        tot, tasks = loss(state, batch)
+        if isinstance(batch, tuple):
+            return parallel_optimizer_step_many(state, batch, loss, loss_scale)
+        with _forward_context(state):
+            tot, tasks = loss(state, batch)
         return parallel_optimizer_step(state, batch, tot, tasks, loss_scale)
 
     return train_step
@@ -306,8 +423,9 @@ def make_parallel_eval_step(model: torch.nn.Module, compute_dtype: torch.dtype =
         inner = make_eval_step(compute_dtype)
 
     def eval_step(state: TrainState, batch) -> dict:
-        m = inner(state, batch)
-        grp = state.layout.group if state.layout is not None else group
+        with _forward_context(state):
+            m = inner(state, batch)
+        grp = state.layout.data_group if state.layout is not None else group
         ng_all = all_reduce_sum(m["num_graphs"], grp)
         w = m["num_graphs"] / torch.clamp(ng_all, min=1.0)
         k, h = m["tasks_loss"].numel(), m["head_sse"].numel()

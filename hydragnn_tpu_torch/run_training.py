@@ -18,11 +18,24 @@ with ``device="cpu"``), or trains in the group its caller formed. Under a
 group the route follows the config, as in the JAX package:
 ``Architecture.halo`` (or ``HYDRAGNN_HALO``) partitions one giant graph
 over the ranks, ``Architecture.edge_sharding`` splits its edges, and
-otherwise every rank trains on its slot of each group of batches
-(``parallelism: "data"``), its parameters replicated or, under
-``HYDRAGNN_USE_FSDP``, sharded. ``HYDRAGNN_AUTO_PARALLEL=0`` keeps a
-process alone unless its caller formed a group. No downgrade: a world above 1 whose group cannot be formed
-raises, and so does a failed collective.
+otherwise ``Architecture.parallelism`` picks the layout: ``"data"`` (every
+rank trains on its slot of each group of batches, its parameters replicated
+or, under ``HYDRAGNN_USE_FSDP``, sharded), ``"tensor"`` (a ``(data x
+model)`` rank grid, ``tensor_parallel_size`` ranks per model group,
+``parallel/tensor.py``) or ``"pipeline"`` (a GPipe ring of one stage per
+rank over ``pipeline_microbatches`` microbatches, ``parallel/pipeline.py``);
+``"tensor"`` and ``"pipeline"`` need more than one rank, as in the JAX
+package. ``HYDRAGNN_AUTO_PARALLEL=0`` keeps a process alone unless its
+caller formed a group. No downgrade: a world above 1 whose group cannot be
+formed raises, and so does a failed collective.
+
+The resilience layer (``Training.resilience``, ``HYDRAGNN_FAULT_PLAN``;
+``resilience/``) runs through the loop: the non-finite guard, rollback, and
+preemption, whose mid-epoch checkpoint a run with ``Training.continue``
+resumes exactly (no final checkpoint is written over it);
+``resilience.elastic`` (``HYDRAGNN_ELASTIC``) runs the loop inside the
+elastic driver, which re-forms a data-parallel group from the survivors of
+a lost rank.
 """
 
 from __future__ import annotations
@@ -44,11 +57,6 @@ from .utils import flags, resolve_device
 # run: (section, key, whether the value asks for it, what and its slice)
 _LATER = (
     ("Training", "population", bool, "population training (a later slice: run-time extras)"),
-    ("Training", "resilience", bool, "the resilience layer: non-finite guard, rollback, "
-                                     "preemption (a later slice: run-time extras)"),
-    ("Architecture", "parallelism", lambda v: str(v or "data").lower() != "data",
-     "mesh parallelism beyond data parallel: tensor and pipeline (the next slice: "
-     "parallelism)"),
 )
 
 
@@ -79,8 +87,8 @@ def _parallel_request(config: dict) -> dict:
     edge = bool(arch.get("edge_sharding"))
     if edge and str(arch.get("edge_sharding")).lower() in ("full", "nodes"):
         raise NotImplementedError("edge_sharding: 'full' (node fields sharded at rest) is not "
-                                  "ported (the next slice: parallelism)")
-    return {"halo": halo, "edge": edge, "fsdp": fsdp}
+                                  "ported (a later slice: parallelism)")
+    return {"halo": halo, "edge": edge, "fsdp": fsdp, "mode": par_mode}
 
 
 def _refuse_later_slices(config: dict) -> None:
@@ -88,6 +96,13 @@ def _refuse_later_slices(config: dict) -> None:
     for section, key, asks, what in _LATER:
         if asks(nn_cfg.get(section, {}).get(key)):
             raise NotImplementedError(f"{section}.{key}: {what} is not ported yet")
+    # the resilience block and the fault plan fail before any data is read
+    res_cfg = nn_cfg.get("Training", {}).get("resilience")
+    if res_cfg is not None and not isinstance(res_cfg, dict):
+        raise ValueError(f"Training.resilience must be a dict, got {type(res_cfg).__name__}")
+    from .resilience import FaultPlan
+
+    FaultPlan.from_env()
     if config.get("Telemetry"):
         raise NotImplementedError(
             "Telemetry: the telemetry plane is not ported yet (a later slice: run-time extras)"
@@ -129,11 +144,10 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
     grouped = _setup_group(torch.device(device), verbosity)
     device = resolve_device(device)
     world, rank = world_of(), rank_of()
-    training_cfg = config.get("NeuralNetwork", {}).get("Training", {})
-    if grouped and int(training_cfg.get("steps_per_dispatch", 1) or 1) > 1:
-        raise NotImplementedError("Training.steps_per_dispatch > 1 under a process group: "
-                                  "supersteps over data-parallel groups are not ported (the "
-                                  "next slice: parallelism)")
+    if request["mode"] != "data" and world <= 1:
+        # hydragnn_tpu/run_training.py:415-423: no downgrade to one device
+        raise ValueError(f"Architecture.parallelism={request['mode']!r} requested but no "
+                         f"multi-rank process group is formed ({world} rank(s))")
     arch_cfg = config.get("NeuralNetwork", {}).get("Architecture", {})
     if request["halo"] and not grouped:
         from .parallel.halo import halo_config
@@ -141,7 +155,8 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
         if halo_config(arch_cfg).fallback == "error":
             raise ValueError("Architecture.halo requested but no process group is formed "
                              "(world 1; form one or run under a scheduler)")
-    data_route = grouped and not request["halo"] and not request["edge"]
+    data_route = (grouped and not request["halo"] and not request["edge"]
+                  and request["mode"] == "data")
     # a ShardedStore passed as the samples takes the Dataset.store block
     # (replication, peer timeout, quarantine and probe cadence) before any
     # loader touches the network
@@ -160,19 +175,23 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
 
     model = create_model_config(config, device=device, seed=seed)
     state = create_train_state(model, training["Optimizer"], seed=seed)
+    resume_meta = None
     if training.get("continue"):
         startfrom = training.get("startfrom", log_name)
         meta = load_checkpoint(state, startfrom, path=path)
+        if meta.get("mid_epoch"):
+            # a preemption checkpoint: the loop resumes at its sidecar's
+            # position
+            resume_meta = meta
         if verbosity > 0:
-            print(f"resumed from {startfrom} (epoch {meta.get('epoch')})", flush=True)
+            print(f"resumed from {startfrom} (epoch {meta.get('epoch')}"
+                  + (f", {meta.get('raw_batches_done')} batches already trained"
+                     if resume_meta else "") + ")", flush=True)
 
     route = {}
     if grouped:
         route = _parallel_route(state, config, request, device, seed, verbosity and rank == 0)
-        if route.pop("data", False) and not data_route:
-            # halo.fallback "data": the loaders take their slots now
-            for ld in (train_loader, val_loader, test_loader):
-                ld.set_group(world, rank)
+        _group_loaders(route, (train_loader, val_loader, test_loader))
 
     depth = int(training.get("prefetch", 2))
     workers = int(training.get("num_workers", 1) or 1)
@@ -187,17 +206,76 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
               "extras; they draw with matplotlib, which the port does not require); training "
               "without them", flush=True)
 
-    train_validate_test(
-        state, train_loader, val_loader, test_loader, config["NeuralNetwork"], log_name,
-        verbosity, compute_dtype=route.get("dtype", resolve_precision(str(training["precision"]),
-                                                                      device)),
-        path=path, history=history, steps=route.get("steps"), put=route.get("put"),
-        capture=route.get("capture", True), collective=route.get("collective", False),
-    )
+    from .resilience import Resilience
+
+    from .utils.walltime import make_walltime_check
+
+    res = Resilience.from_config(training, device)
+    state.resilience = res
+    loaders = (train_loader, val_loader, test_loader)
+    # on SLURM, stop before the scheduler kills the job (reference
+    # distributed.py:614-639)
+    walltime_check = make_walltime_check()
+
+    def run_segment(resume):
+        return train_validate_test(
+            state, *loaders, config["NeuralNetwork"], log_name, verbosity,
+            compute_dtype=route.get("dtype", resolve_precision(str(training["precision"]),
+                                                               device)),
+            path=path, history=history, steps=route.get("steps"), put=route.get("put"),
+            capture=route.get("capture", True), collective=route.get("collective", False),
+            resilience=res, resume_meta=resume, per_step=route.get("per_step", 1),
+            n_dev=route.get("n_dev", 1), route=route.get("route", "single"),
+            logical_step=route.get("logical_step"), walltime_check=walltime_check)
+
+    if res.elastic:
+        from .resilience import train_elastic
+
+        def reform(survivors, generation, mode):
+            """Restore the mid-epoch checkpoint: in place when no rank was
+            lost; else leave the group and, on a survivor, form the new one
+            and re-place the state on it."""
+            from .parallel.distributed import reform_group
+            from .train.optimizer import select_optimizer
+
+            if mode == "resume":
+                return load_checkpoint(state, log_name, path=path)
+            if reform_group(survivors, generation, device) is None:
+                return None
+            state.layout = None
+            state.optimizer = select_optimizer(training["Optimizer"], model.parameters())
+            meta = load_checkpoint(state, log_name, path=path)
+            route.clear()
+            route.update(_parallel_route(state, config, request, device, seed,
+                                         verbosity and rank_of() == 0))
+            _group_loaders(route, loaders)
+            return meta
+
+        _, ctl = train_elastic(run_segment, reform, res, route=route.get("route", "single"),
+                               world=world, log=lambda m: verbosity > 0 and rank_of() == 0
+                               and print(m, flush=True))
+        if ctl.state == "lost":
+            return state, model, config
+    else:
+        run_segment(resume_meta)
+    if res.preempted:
+        # the mid-epoch checkpoint stays the one "latest" names
+        return state, model, config
     # every rank calls it (an FSDP state is gathered); rank 0 writes
     save_checkpoint(state, log_name, epoch=int(training.get("num_epoch", 0)), path=path,
                     meta={"final": True})
     return state, model, config
+
+
+def _group_loaders(route: dict, loaders) -> None:
+    """The loaders' share of every group of batches, as the route asks
+    (``route["loader_group"]``: ``(n, slot, slots)``)."""
+    spec = route.pop("loader_group", None)
+    if spec is None:
+        return
+    n, slot, slots = spec
+    for ld in loaders:
+        ld.set_group(n, slot, slots)
 
 
 def _parallel_route(state, config: dict, request: dict, device, seed: int,
@@ -206,7 +284,7 @@ def _parallel_route(state, config: dict, request: dict, device, seed: int,
     ``{"steps": (train, eval), "put": ..., "capture": ..., "data": ...}``."""
     from functools import partial
 
-    from .parallel.comm import world_of
+    from .parallel.comm import rank_of, world_of
     from .train.step import resolve_loss_scale
 
     nn_cfg = config["NeuralNetwork"]
@@ -235,7 +313,7 @@ def _parallel_route(state, config: dict, request: dict, device, seed: int,
                               halo.make_halo_eval_step(model, dtype)),
                     "put": partial(halo.put_halo_batch, cfg=cfg, cutoff=arch.get("radius"),
                                    device=device),
-                    "capture": False, "dtype": dtype}
+                    "capture": False, "dtype": dtype, "route": "halo"}
     elif request["edge"]:
         from .parallel import large_graph as lg
 
@@ -245,17 +323,51 @@ def _parallel_route(state, config: dict, request: dict, device, seed: int,
                               model, dtype, loss_scale=resolve_loss_scale(training)),
                           lg.make_edge_sharded_eval_step(model, dtype)),
                 "put": partial(lg.put_large_batch, device=device), "capture": False,
-                "dtype": dtype}
+                "dtype": dtype, "route": "edge"}
+    if request["mode"] == "pipeline":
+        from .parallel.pipeline import (make_pipelined_eval_step, make_pipelined_train_step,
+                                        place_pipeline)
+
+        n_micro = int(arch.get("pipeline_microbatches") or world)
+        train_step = make_pipelined_train_step(model, dtype, n_micro,
+                                               loss_scale=resolve_loss_scale(training))
+        place_pipeline(state)
+        if verbosity > 0:
+            print(f"pipeline-parallel: {world}-stage GPipe ring, {n_micro} microbatches",
+                  flush=True)
+        return {"steps": (train_step, make_pipelined_eval_step(model, dtype, n_micro)),
+                "capture": False, "dtype": dtype, "per_step": n_micro, "n_dev": n_micro,
+                "route": "pipeline", "loader_group": (n_micro, None, tuple(range(n_micro)))}
     from .parallel.step import (bind_sync_batch_norm, make_parallel_eval_step,
                                 make_parallel_train_step, shard_state)
 
+    if request["mode"] == "tensor":
+        from .parallel.tensor import default_tensor_parallel_size
+
+        tp = default_tensor_parallel_size(world, arch)
+        if world % tp:
+            raise ValueError(f"tensor_parallel_size={tp} does not divide the {world} ranks")
+        shard_state(state, training["Optimizer"], param_mode="tp", n_model=tp, seed=seed)
+        grid = state.layout.grid
+        bind_sync_batch_norm(model, grid.data_group)
+        if verbosity > 0:
+            print(f"tensor-parallel: ({grid.n_data} data x {tp} model) rank grid", flush=True)
+        return {"steps": (make_parallel_train_step(model, dtype, resolve_loss_scale(training)),
+                          make_parallel_eval_step(model, dtype)),
+                "capture": False, "dtype": dtype, "n_dev": grid.n_data, "route": "tensor",
+                "loader_group": ((grid.n_data, grid.data_index, None) if grid.n_data > 1
+                                 else None)}
     shard_state(state, training["Optimizer"], param_mode=request["fsdp"], seed=seed)
     bind_sync_batch_norm(model)
     if verbosity > 0:
         print(f"data-parallel over {world} ranks ({request['fsdp']})", flush=True)
-    return {"steps": (make_parallel_train_step(model, dtype, resolve_loss_scale(training)),
-                      make_parallel_eval_step(model, dtype)),
-            "capture": True, "collective": world > 1, "dtype": dtype, "data": True}
+    train_step = make_parallel_train_step(model, dtype, resolve_loss_scale(training))
+    return {"steps": (train_step, make_parallel_eval_step(model, dtype)),
+            "capture": True, "collective": world > 1, "dtype": dtype, "n_dev": world,
+            "route": "data", "logical_step": train_step,
+            # the loaders take their slots here when they did not at their
+            # making (halo.fallback "data", a re-formed group)
+            "loader_group": (world, rank_of(), None) if world > 1 else None}
 
 
 __all__ = ["run_training"]

@@ -15,6 +15,14 @@ would, under
 * ``latest`` is a symlink swapped in atomically (symlink to a temporary
   name, then ``os.replace``).
 
+A preemption checkpoint's metadata is its mid-epoch sidecar
+(``train/loop.py::preempt_meta``): ``mid_epoch``, the epoch, the raw
+batches done, K, the group width, the shuffle seed and the host-side
+schedule and early-stop records, from which ``run_training`` resumes
+exactly (``Training.continue``). ``load_checkpoint`` restores into the live
+tensors in place (a captured step's graphs keep them), and into a placed
+FSDP or tensor-parallel state's shards.
+
 ``load_checkpoint`` restores what ``latest`` names and, when that is missing
 or fails its manifest, falls back through older epochs, newest first.
 Loading the JAX package's orbax checkpoints is not part of this format.
@@ -231,7 +239,14 @@ def load_checkpoint(state, log_name: str, path: str = "./logs/",
 
     def apply(payload: dict) -> None:
         state.model.load_state_dict(payload["model"])
-        load_optimizer_state(state.optimizer, payload["optimizer"])
+        layout = getattr(state, "layout", None)
+        if layout is not None and layout.shards:
+            # a placed FSDP or tensor-parallel state (a rollback, an
+            # elastic restore): its shards and their optimizer state are cut
+            # from the one-device layout the checkpoint holds
+            layout.place_loaded(state.optimizer, payload["optimizer"])
+        else:
+            load_optimizer_state(state.optimizer, payload["optimizer"])
         state.step = int(payload["step"])
         _restore_generator(state, payload)
 

@@ -81,6 +81,10 @@ class TrainState:
     # ``Layout``): its ranks and, under FSDP, the parameter shards the
     # optimizer steps; None on one device
     layout: object = None
+    # the run's resilience context (``resilience.Resilience``), which
+    # ``run_training`` leaves here: its skips, rollbacks, preemption and the
+    # elastic controller's log
+    resilience: object = None
 
 
 def apply_initial_bias(model: torch.nn.Module) -> torch.nn.Module:

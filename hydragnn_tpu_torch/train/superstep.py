@@ -13,7 +13,12 @@ doubled the captured train graphs per bucket.
 What K keeps is the JAX loader's plan: ``GraphLoader.set_superstep`` orders
 the epoch bucket-major (``PrefetchLoader.set_superstep`` passes it on and
 buffers a block ahead), so a K-step run trains on the batches, in the order,
-of the JAX package's K-step run.
+of the JAX package's K-step run. Under a process group the plan is the JAX
+grouped loader's: blocks of K groups of ``world`` batches, each group one
+bucket, and every rank replays its slot's captured data-parallel step, the
+NCCL all-reduce inside each. A block is the epoch loop's unit of dispatch:
+the resilience layer polls stop requests and fires faults per block, and a
+mid-epoch checkpoint records whole blocks.
 
 Contracts (``tests/test_torch_superstep.py`` on the CPU,
 ``tests/test_torch_capture_gpu.py`` on the card):

@@ -2,11 +2,14 @@
 
 Counterpart of ``hydragnn_tpu/utils/flags.py``: one ``Flag`` per variable,
 one typed accessor (:func:`get`), and the table (:func:`describe`). The
-port registers only the flags it reads so far, those of the parallel
-layouts: ``HYDRAGNN_AUTO_PARALLEL``, ``HYDRAGNN_USE_FSDP``,
-``HYDRAGNN_FSDP_STRATEGY``, ``HYDRAGNN_HALO``, ``HYDRAGNN_MASTER_ADDR`` and
-``HYDRAGNN_MASTER_PORT``. The JAX package's other overrides (prefetch,
-workers, supersteps, serving, the store) are not read by the port yet.
+port registers only the flags it reads so far: those of the parallel
+layouts (``HYDRAGNN_AUTO_PARALLEL``, ``HYDRAGNN_USE_FSDP``,
+``HYDRAGNN_FSDP_STRATEGY``, ``HYDRAGNN_HALO``, ``HYDRAGNN_MASTER_ADDR``,
+``HYDRAGNN_MASTER_PORT``) and of the resilience layer
+(``HYDRAGNN_NONFINITE_GUARD``, ``HYDRAGNN_FAULT_PLAN``,
+``HYDRAGNN_ELASTIC``, ``HYDRAGNN_WATCHDOG_DISPATCH_S``). The JAX package's
+other overrides (prefetch, workers, supersteps, serving, the store) are not
+read by the port yet.
 """
 
 from __future__ import annotations
@@ -56,6 +59,37 @@ MASTER_PORT = _register(Flag(
     "HYDRAGNN_MASTER_PORT", "int", None,
     "Rendezvous port; default derived from the job id (reference :171-219)."))
 
+NONFINITE_GUARD = _register(Flag(
+    "HYDRAGNN_NONFINITE_GUARD", "bool", None,
+    "Force the non-finite step guard on/off (overrides "
+    "Training.resilience.nonfinite_guard). The guard keeps the incoming "
+    "state of a step whose loss, parameters, running statistics or "
+    "optimizer state is not finite, on the device (resilience/guard.py), and "
+    "escalates to rollback with an LR cut after N consecutive skips."))
+FAULT_PLAN = _register(Flag(
+    "HYDRAGNN_FAULT_PLAN", "str", None,
+    "Deterministic fault-injection plan (resilience/chaos.py): a JSON list "
+    "of events or @/path/to/plan.json. Faults: nan_batch, sigterm, hang, "
+    "corrupt_latest, dead_shard, slow_peer, device_loss, mesh_shrink, "
+    "double_fault; the serving fleet's replica_kill, replica_slow and "
+    "rollout_during_load are parsed and refused. resilience/campaign.py "
+    "composes them into seeded multi-fault schedules."))
+ELASTIC = _register(Flag(
+    "HYDRAGNN_ELASTIC", "bool", None,
+    "In-process elastic recovery (resilience/elastic.py; overrides "
+    "Training.resilience.elastic, default off). On device_loss/mesh_shrink, "
+    "SIGTERM or a hung-dispatch expiry every rank drains at one dispatch "
+    "boundary and checkpoints; the survivors form a smaller process group "
+    "and finish the epoch on the saved update grid. Pipeline, tensor, halo "
+    "and edge-sharded layouts take the restart-fallback policy."))
+WATCHDOG_DISPATCH_S = _register(Flag(
+    "HYDRAGNN_WATCHDOG_DISPATCH_S", "float", None,
+    "Per-dispatch hang deadline in seconds (overrides "
+    "Training.resilience.watchdog_dispatch_s; unset/0 disables), armed "
+    "around every train dispatch but a segment's first (which captures its "
+    "graphs). Expiry warns, and under elastic recovery becomes a "
+    "recoverable fault."))
+
 FSDP_STRATEGIES = frozenset({"FULL_SHARD", "SHARD_GRAD_OP", "HYBRID_SHARD", "NO_SHARD"})
 
 
@@ -99,5 +133,6 @@ def describe() -> str:
                      for name, f in sorted(_REGISTRY.items()))
 
 
-__all__ = ["AUTO_PARALLEL", "FSDP_STRATEGIES", "FSDP_STRATEGY", "Flag", "HALO", "MASTER_ADDR",
-           "MASTER_PORT", "USE_FSDP", "describe", "fsdp_mode", "get"]
+__all__ = ["AUTO_PARALLEL", "ELASTIC", "FAULT_PLAN", "FSDP_STRATEGIES", "FSDP_STRATEGY", "Flag",
+           "HALO", "MASTER_ADDR", "MASTER_PORT", "NONFINITE_GUARD", "USE_FSDP",
+           "WATCHDOG_DISPATCH_S", "describe", "fsdp_mode", "get"]

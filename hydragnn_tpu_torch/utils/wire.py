@@ -35,15 +35,13 @@ they add no field to a frame, which is the frame this module sends.
 from __future__ import annotations
 
 import hmac
-import itertools
 import socket
 import socketserver
 import struct
 import sys
 import threading
 import time
-import warnings
-from contextlib import contextmanager, nullcontext
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -471,59 +469,6 @@ class ConnPool:
             self._idle.clear()
 
 
-class _Watchdog:
-    """Deadlines around regions of code: a region that outlives
-    ``timeout_s`` has its ``on_expire`` run once from a monitor thread (the
-    JAX package's ``resilience.watchdog.Watchdog``, as far as the wire
-    needs it)."""
-
-    def __init__(self, timeout_s: float):
-        self.timeout_s = float(timeout_s)
-        self._cond = threading.Condition()
-        self._token = itertools.count()
-        self._armed: dict[int, tuple[float, str, object]] = {}  # guarded-by: _cond
-        self._thread: threading.Thread | None = None  # guarded-by: _cond
-
-    @contextmanager
-    def guard(self, what: str, on_expire=None):
-        with self._cond:
-            if self._thread is None or not self._thread.is_alive():
-                self._thread = threading.Thread(target=self._monitor, name="wire-watchdog",
-                                                daemon=True)
-                self._thread.start()
-            tok = next(self._token)
-            self._armed[tok] = (time.monotonic() + self.timeout_s, what, on_expire)
-            self._cond.notify()
-        try:
-            yield
-        finally:
-            with self._cond:
-                self._armed.pop(tok, None)
-                self._cond.notify()
-
-    def _monitor(self) -> None:  # daemon thread: dies with the process
-        while True:
-            with self._cond:
-                if not self._armed:
-                    self._cond.wait()
-                    continue
-                now = time.monotonic()
-                expired = [(tok, what, cb) for tok, (t, what, cb) in self._armed.items()
-                           if t <= now]
-                if not expired:
-                    self._cond.wait(min(t for t, _, _ in self._armed.values()) - now)
-                    continue
-                for tok, _, _ in expired:
-                    self._armed.pop(tok, None)
-            for _, what, cb in expired:
-                warnings.warn(f"watchdog: {what} exceeded {self.timeout_s:.1f}s; severed")
-                if cb is not None:
-                    try:
-                        cb()
-                    except Exception:
-                        pass  # a broken callback must not kill the monitor
-
-
 class RoundTripper:
     """Pooled, token-stamped, watchdog-bracketed request/reply round-trips:
     the client half of the wire protocol.
@@ -592,7 +537,9 @@ class RoundTripper:
         if not (timeout and np.isfinite(timeout)):
             return nullcontext()
         if self._watchdog is None:
-            self._watchdog = _Watchdog(timeout * self._watchdog_factor)
+            from ..resilience.watchdog import Watchdog
+
+            self._watchdog = Watchdog(timeout * self._watchdog_factor)
 
         def sever() -> None:
             # flag before closing: the blocked recv wakes the instant the

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: ``hydragnn_tpu_torch`` and ``chip_smoke.py``
 import neither JAX (nor flax/optax) nor anything of the JAX package, and a
-CPU forward pass and the data plane's modules (a packed store written and
-loaded) leave both out of ``sys.modules``."""
+CPU forward pass, the data plane's modules (a packed store written and
+loaded), the tensor-parallel and pipeline modules and the resilience layer
+leave both out of ``sys.modules``."""
 
 import ast
 import json
@@ -71,6 +72,11 @@ from hydragnn_tpu_torch.preprocess import molgraph  # noqa: F401
 with tempfile.TemporaryDirectory() as d:
     PackedWriter(samples, d + "/s.gpk")
     assert len(list(GlobalShuffleStore(d + "/s.gpk").loader(2))) == 2
+# tensor and pipeline parallelism, the resilience layer and the walltime guard
+from hydragnn_tpu_torch.parallel import pipeline, tensor  # noqa: F401
+from hydragnn_tpu_torch.resilience import campaign, chaos, elastic, guard  # noqa: F401
+from hydragnn_tpu_torch.resilience import preempt, watchdog  # noqa: F401
+from hydragnn_tpu_torch.utils import walltime  # noqa: F401
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "hydragnn_tpu"))
 print(json.dumps({"bad": bad, "shape": list(out[0].shape),

@@ -407,8 +407,9 @@ def test_run_training_trains_data_parallel(pool, tmp_path, fsdp):
 
 def test_run_training_validates_and_never_downgrades(monkeypatch):
     """The JAX package's refusals of impossible combinations; tensor and
-    pipeline parallelism and supersteps under a group wait for the next
-    slice; a world above 1 whose group cannot be formed raises."""
+    pipeline parallelism need more than one rank; supersteps under a group
+    run (no refusal); a world above 1 whose group cannot be formed
+    raises."""
     import torch.distributed as dist
 
     from hydragnn_tpu_torch import run_training
@@ -420,7 +421,7 @@ def test_run_training_validates_and_never_downgrades(monkeypatch):
 
     cfg = _small_run_config()
     cfg["NeuralNetwork"]["Architecture"]["parallelism"] = "tensor"
-    with pytest.raises(NotImplementedError, match="tensor and pipeline"):
+    with pytest.raises(ValueError, match="'tensor' requested but no multi-rank"):
         run(cfg)
     cfg["NeuralNetwork"]["Architecture"]["parallelism"] = "sequence"
     with pytest.raises(ValueError, match="not one of"):
@@ -464,8 +465,10 @@ def test_run_training_validates_and_never_downgrades(monkeypatch):
     monkeypatch.setattr(comm, "rank_of", lambda group=None: 0)
     cfg = _small_run_config()
     cfg["NeuralNetwork"]["Training"]["steps_per_dispatch"] = 2
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        run(cfg)
+    with pytest.raises(Exception) as grouped:
+        run(cfg)  # supersteps under a group: on to the (empty) data
+    assert "steps_per_dispatch" not in str(grouped.value)
+    assert not isinstance(grouped.value, NotImplementedError)
 
 
 def test_distributed_env_cascade_and_rank_grid(monkeypatch):

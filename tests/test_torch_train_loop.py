@@ -257,12 +257,16 @@ def _plain_state(model, aug):
                  id="Architecture-halo-value0-halo exchange"),
     pytest.param("Training", "population", {"size": 2}, "population", NotImplementedError,
                  id="Training-population-value1-population"),
-    pytest.param("Training", "resilience", {"nonfinite_guard": True}, "resilience",
-                 NotImplementedError, id="Training-resilience-value2-resilience"),
+    # the resilience layer is ported (tests/test_torch_resilience.py): what
+    # stays refused is a block that is no dict, before any data is read
+    pytest.param("Training", "resilience", "yes please", "Training.resilience must be a dict",
+                 ValueError, id="Training-resilience-value2-resilience"),
     pytest.param("Architecture", "edge_sharding", "full", "edge_sharding: 'full'",
                  NotImplementedError, id="Architecture-edge_sharding-True-edge sharding"),
-    pytest.param("Architecture", "parallelism", "pipeline", "mesh", NotImplementedError,
-                 id="Architecture-parallelism-pipeline-mesh"),
+    # the pipeline is ported (tests/test_torch_pipeline.py): it needs more
+    # than one rank, as the JAX package's needs a multi-device mesh
+    pytest.param("Architecture", "parallelism", "pipeline", "multi-rank process group",
+                 ValueError, id="Architecture-parallelism-pipeline-mesh"),
 ])
 def test_run_training_refuses_later_slices(section, key, value, what, error):
     from hydragnn_tpu_torch import run_training

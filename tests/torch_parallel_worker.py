@@ -237,20 +237,143 @@ def task_store(inp: dict, rank: int) -> dict:
 
 def task_run_training(inp: dict, rank: int) -> dict:
     """``run_training`` in the group, the flags of ``env`` set; the trained
-    parameters and the history."""
+    parameters, the history and the resilience context's record."""
     from hydragnn_tpu_torch import run_training
 
     os.environ.update(inp.get("env", {}))
     try:
         history = []
+        # a run that reads rank 0's checkpoints back (an elastic one) shares
+        # its path, as the ranks of one job share a file system
+        path = inp["path"] if inp.get("shared_path") else os.path.join(inp["path"], str(rank))
         state, model, _ = run_training(copy.deepcopy(inp["config"]), samples=inp["samples"],
-                                       device="cpu", path=os.path.join(inp["path"], str(rank)),
-                                       history=history)
+                                       device="cpu", path=path, history=history)
+        res = state.resilience
+        ctl = getattr(res, "controller", None)
         return {"state": _numpy_state(model), "history": history,
-                "layout": getattr(state.layout, "mode", None)}
+                "layout": getattr(state.layout, "mode", None), "step": int(state.step),
+                "optimizer": {i: {k: v.numpy() for k, v in per.items() if torch.is_tensor(v)}
+                              for i, per in state.optimizer.state_dict()["state"].items()},
+                "controller": None if ctl is None else {
+                    "state": ctl.state, "log": ctl.recovery_log, "recoveries": ctl.recoveries},
+                "preempted": bool(getattr(res, "preempted", False)),
+                "resume_mode": getattr(res, "resume_mode", None)}
     finally:
         for k in inp.get("env", {}):
             os.environ.pop(k, None)
+
+
+def task_tp_step(inp: dict, rank: int) -> dict:
+    """The tensor-parallel layout over model groups of ``n_model`` ranks:
+    the eval step on the data group's batch, then one train step on it;
+    the gathered state, the gradients' shapes taken by the shards, and
+    the kernels' input widths."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.parallel.mesh import host_gather
+    from hydragnn_tpu_torch.parallel.step import (make_parallel_eval_step,
+                                                  make_parallel_train_step, shard_state)
+
+    model = _model(inp)
+    state = _state(inp, model)
+    shard_state(state, inp["opt"], param_mode="tp", n_model=inp["n_model"])
+    layout = state.layout
+    batch = _batch(inp["batches"][layout.data_index])
+    widths = []
+    real = fs.gather_scatter_sum
+
+    def spy(h, *a, **k):
+        widths.append(int(h.shape[-1]))
+        return real(h, *a, **k)
+
+    fs.gather_scatter_sum = spy
+    try:
+        ev = _metrics(make_parallel_eval_step(model)(state, batch))
+        m = _metrics(make_parallel_train_step(model)(state, batch))
+    finally:
+        fs.gather_scatter_sum = real
+    return {"eval": ev, "step": m, "state": {k: v.numpy() for k, v in host_gather(state).items()},
+            "shards": [(tuple(s.param.shape), s.dim, tuple(s.shard.shape)) for s in layout.shards],
+            "grid": (layout.grid.n_data, layout.grid.n_model, layout.data_index,
+                     layout.grid.model_index),
+            "widths": widths}
+
+
+def task_pipeline(inp: dict, rank: int) -> dict:
+    """The pipelined eval forward (``norm="running"``) and the one-device
+    forward of every microbatch, then ``steps`` pipelined train steps
+    (``norm="batch"``) on the same microbatches."""
+    from hydragnn_tpu_torch.parallel.mesh import host_gather
+    from hydragnn_tpu_torch.parallel.pipeline import (Pipeline, make_pipelined_train_step,
+                                                      pipelined_forward, place_pipeline)
+    from hydragnn_tpu_torch.train.step import cast_forward
+
+    model = _model(inp)
+    state = _state(inp, model)
+    place_pipeline(state)
+    batches = [_batch(b) for b in inp["batches"]]
+    m = len(batches)
+    with torch.no_grad():
+        pipe = pipelined_forward(Pipeline(model, m, "running"), batches, train=False)
+        seq = [cast_forward(model, b, torch.float32, train=False) for b in batches]
+    step = make_pipelined_train_step(model, n_micro=m)
+    metrics = [_metrics(step(state, tuple(batches))) for _ in range(inp.get("steps", 1))]
+    return {"pipelined": [[o.numpy() for o in p] for p in pipe],
+            "sequential": [[o.numpy() for o in p] for p in seq], "steps": metrics,
+            "state": {k: v.numpy() for k, v in host_gather(state).items()},
+            "blocks": step.pipeline.blocks}
+
+
+def task_pipeline_refusals(inp: dict, rank: int) -> dict:
+    """What the pipeline refuses on this group: the support checks' and a
+    step given the wrong number of microbatches."""
+    from hydragnn_tpu_torch.parallel.pipeline import (Pipeline, pipelined_forward,
+                                                      validate_pipeline_support)
+
+    out = {}
+    model = _model(inp)
+    try:
+        out["k"] = validate_pipeline_support(model, inp["n_stage"])
+    except ValueError as e:
+        out["k"] = str(e)
+    try:
+        pipelined_forward(Pipeline(model, inp["n_micro"], "running"),
+                          [_batch(b) for b in inp["batches"]], train=False)
+        out["micro"] = "ran"
+    except ValueError as e:
+        out["micro"] = str(e)
+    return out
+
+
+def task_train_loop(inp: dict, rank: int) -> dict:
+    """``train_validate_test`` on this rank's slots of the shared loaders
+    (``set_group(world, rank)``), K from the config, the data-parallel
+    steps; the K = 1 comparison sets the K-block plan itself."""
+    from hydragnn_tpu_torch.graphs.batching import GraphLoader
+    from hydragnn_tpu_torch.parallel.comm import world_of
+    from hydragnn_tpu_torch.parallel.mesh import host_gather
+    from hydragnn_tpu_torch.parallel.step import (make_parallel_eval_step,
+                                                  make_parallel_train_step, shard_state)
+    from hydragnn_tpu_torch.train.loop import train_validate_test
+
+    model = _model(inp)
+    state = _state(inp, model)
+    shard_state(state, inp["opt"])
+    samples = inp["samples"]
+    train = GraphLoader(samples["train"], inp["batch_size"], shuffle=True, seed=0,
+                        buckets=inp["buckets"])
+    loaders = [train] + [GraphLoader(samples[k], inp["batch_size"], drop_last=False,
+                                     buckets=train.buckets) for k in ("val", "test")]
+    for ld in loaders:
+        ld.set_group(world_of(), rank)
+    if inp.get("plan_k"):
+        train.set_superstep(inp["plan_k"])
+    history: list = []
+    train_validate_test(state, *loaders, inp["config_nn"], "loop", path=inp["path"],
+                        history=history,
+                        steps=(make_parallel_train_step(model), make_parallel_eval_step(model)),
+                        n_dev=world_of(), route="data")
+    return {"state": {k: v.numpy() for k, v in host_gather(state).items()}, "history": history,
+            "step": state.step}
 
 
 TASKS = {name[5:]: fn for name, fn in globals().items() if name.startswith("task_")}
@@ -275,7 +398,8 @@ def main() -> None:
             except Exception:
                 print("FAIL " + traceback.format_exc().replace("\n", " | "), flush=True)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # an elastic task may have left it
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
