@@ -6227,6 +6227,27 @@ PARALLEL_GROUPS = 3           # data-parallel groups held against the one-rank r
 # in other orders than one device's, and AdamW's first steps (lr 1e-3) turn
 # that rounding, on gradients that cancel, into whole steps
 PARALLEL_TOL = dict(rtol=5e-3, atol=1e-6)
+# the deep routes' update gate (:func:`update_check`): their model at fp32
+# under plain SGD at qm9.json's rate, so that a step's update is the rate
+# times the gradient, and no normalisation of Adam's hides a wrong one
+UPDATE_CHECK = {"precision": "fp32", "Optimizer": {"type": "SGD", "learning_rate": 1e-3}}
+# the ranks' new state against the one-rank fp64 step's: within this many
+# times the one-rank fp32 step's distance from it, or within this share of
+# the tensor's largest update (a pre-activation on the other side of a
+# ReLU's kink in one of the two fp32 steps moves a weight's entry by ~3% of
+# the tensor's largest update, PERF.md)
+UPDATE_RATIO = 4.0
+UPDATE_SLACK = 0.05
+# and within the rate times this gradient: below it a gradient is rounding
+# noise at these widths (a dense bias in front of a batch norm, whose mean
+# cancels it exactly, gets fp32 gradients of ~2e-6 on either route)
+UPDATE_NOISE_GRAD = 1e-5
+# or within UPDATE_RATIO times the largest change of the fp64 step's update
+# when its state moves by one fp32 rounding (each entry times 1 + 2**-24 x
+# a normal draw), over this many draws: where the state is ill-conditioned
+# (a batch norm's low-variance feature amplifies its gradient ~280 times),
+# rounding alone moves the update that far (PERF.md, PR 17)
+UPDATE_DRAWS = 3
 # seconds the ranks of --parallel may take together before they are killed
 # (the data-parallel and large-graph routes take ~100 s; the tensor,
 # pipeline, superstep and elastic runs about as much again)
@@ -6645,24 +6666,65 @@ def _one_device_large_losses(torch, route: str, kind: str, seed: int,
     return losses, _event_ms(torch, lambda: step(st, batch), 5)
 
 
+def _group_step(torch, st, loss_fn, gens, group) -> float:
+    """One update of the data route's group on one device: each of the
+    group's batches through the model in turn from the same running
+    statistics, their losses and gradients weighted by graph count, the
+    statistics merged over the batches with real nodes, one optimizer step
+    (what the ranks compute together, and what a pipeline stage ring
+    computes over its microbatches); batch ``r`` draws its dropout masks
+    from ``gens[r]``. Returns the weighted loss."""
+    from hydragnn_tpu_torch.models.common import MaskedBatchNorm
+    from hydragnn_tpu_torch.train.step import freeze_conv_grads
+
+    m = st.model
+    norms = [n for n in m.modules() if isinstance(n, MaskedBatchNorm)]
+    start = [(n.mean.clone(), n.var.clone()) for n in norms]
+    ngs = [b.graph_mask.sum() for b in group]
+    denom = torch.clamp(sum(ngs), min=1.0)
+    st.optimizer.zero_grad()
+    merged = [(torch.zeros_like(a), torch.zeros_like(b)) for a, b in start]
+    real, total = 0.0, 0.0
+    for r, (b, ng) in enumerate(zip(group, ngs)):
+        st.generator = gens[r]
+        with torch.no_grad():
+            for n, (a, v) in zip(norms, start):
+                n.mean.copy_(a)
+                n.var.copy_(v)
+        tot, _ = loss_fn(st, b)
+        (tot * (ng / denom)).backward()
+        total += float(tot.detach() * (ng / denom))
+        r = float(b.node_mask.sum() > 0)
+        real += r
+        for (sa, sv), n in zip(merged, norms):
+            sa += n.mean * r
+            sv += n.var * r
+    with torch.no_grad():
+        for (sa, sv), n in zip(merged, norms):
+            n.mean.copy_(sa / max(real, 1.0))
+            n.var.copy_(sv / max(real, 1.0))
+    for p in m.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    freeze_conv_grads(m)
+    st.optimizer.step()
+    st.step += 1
+    return total
+
+
 def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
                      device: str = "cuda", hidden: int | None = None,
                      aug: dict | None = None, states=None) -> tuple[list, float]:
-    """The data route's ``PARALLEL_GROUPS`` steps on one device: each
-    group's ``world`` batches through the model in turn from the same
-    running statistics, their losses and gradients weighted by graph count,
-    the statistics merged over the batches with real nodes, one optimizer
-    step (what the ranks compute together, and what a pipeline stage ring
-    computes over ``world`` microbatches); and the one-device captured
-    step's ms on one batch. ``aug``: the model's augmented config in place
-    of ``kind``'s; ``states``: each group's step starts from that state
-    (parameters and statistics) instead of the previous step's."""
+    """The data route's ``PARALLEL_GROUPS`` steps on one device, each a
+    :func:`_group_step` over a group of ``world`` batches; and the
+    one-device captured step's ms on one batch. ``aug``: the model's
+    augmented config in place of ``kind``'s; ``states``: each group's step
+    starts from that state (parameters and statistics) instead of the
+    previous step's."""
     from hydragnn_tpu_torch import capture
     from hydragnn_tpu_torch.models import create_model_config
-    from hydragnn_tpu_torch.models.common import MaskedBatchNorm
-    from hydragnn_tpu_torch.train.step import (create_train_state, freeze_conv_grads,
-                                               make_train_loss, make_train_step,
-                                               resolve_precision)
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_loss,
+                                               make_train_step, resolve_precision)
 
     if aug is None:
         _, aug, _, _ = prepare(seed, kind)
@@ -6672,7 +6734,6 @@ def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
     m = create_model_config(aug, device=device, seed=seed)
     st = create_train_state(m, aug["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
     loss_fn = make_train_loss(dtype)
-    norms = [n for n in m.modules() if isinstance(n, MaskedBatchNorm)]
     # rank r's dropout masks come from its generator, seeded seed + r
     gens = [torch.Generator(device=device).manual_seed(seed + r) for r in range(world)]
     losses = []
@@ -6680,37 +6741,7 @@ def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
         if states is not None:
             m.load_state_dict(states[g])
         group = [b.to(device) for b in batches[g * world:(g + 1) * world]]
-        start = [(n.mean.clone(), n.var.clone()) for n in norms]
-        ngs = [b.graph_mask.sum() for b in group]
-        denom = torch.clamp(sum(ngs), min=1.0)
-        st.optimizer.zero_grad()
-        merged = [(torch.zeros_like(a), torch.zeros_like(b)) for a, b in start]
-        real, total = 0.0, 0.0
-        for r, (b, ng) in enumerate(zip(group, ngs)):
-            st.generator = gens[r]
-            with torch.no_grad():
-                for n, (a, v) in zip(norms, start):
-                    n.mean.copy_(a)
-                    n.var.copy_(v)
-            tot, _ = loss_fn(st, b)
-            (tot * (ng / denom)).backward()
-            total += float(tot.detach() * (ng / denom))
-            r = float(b.node_mask.sum() > 0)
-            real += r
-            for (sa, sv), n in zip(merged, norms):
-                sa += n.mean * r
-                sv += n.var * r
-        with torch.no_grad():
-            for (sa, sv), n in zip(merged, norms):
-                n.mean.copy_(sa / max(real, 1.0))
-                n.var.copy_(sv / max(real, 1.0))
-        for p in m.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        freeze_conv_grads(m)
-        st.optimizer.step()
-        st.step += 1
-        losses.append(total)
+        losses.append(_group_step(torch, st, loss_fn, gens, group))
     # the one-device captured step's time, on a fresh state: autograd
     # accumulated the emulated state's gradients on the default stream,
     # which a capture on its side stream may not depend on
@@ -6719,6 +6750,107 @@ def _emulated_groups(torch, kind: str, seed: int, world: int, batches,
     one = capture.Dispatch(make_train_step(dtype), f"one device {kind}", train=True)
     b0 = batches[0].to(device)
     return losses, _event_ms(torch, lambda: one(fresh, b0), 20)
+
+
+def update_check(torch, name: str, run: dict, aug: dict, seed: int,
+                 device: str = "cuda") -> dict:
+    """The update gate of the deep routes: ``run`` is the ranks' steps
+    under ``UPDATE_CHECK`` (their whole state before each step and after the
+    last, ``states``). From each state, the one-rank group step
+    (:func:`_group_step` over the ranks' batches) runs in fp32 on ``device``
+    and in fp64 on the host, and the fp64 step again from the state moved
+    by one fp32 rounding (``UPDATE_DRAWS`` draws: the spread). The ranks'
+    update of every parameter and running statistic must lie within
+    ``UPDATE_RATIO`` times the fp32 step's or the spread's largest distance
+    from the fp64 update, or within ``UPDATE_SLACK`` of the tensor's largest
+    fp64 update; its median distance within ``UPDATE_RATIO`` times the
+    larger median of the two; each bound plus the rate times
+    ``UPDATE_NOISE_GRAD`` and a unit in the last place. A wrong update that
+    every rank makes alike (the data-group sum, the graph-count weights,
+    the shards' or statistics' all-gather, the pipeline's stage-local sum
+    or ring statistics) moves the median entry of whole tensors and fails
+    it. Also reports the one-rank fp32 trajectory over the same batches
+    (no gate: one ill-conditioned step sets two fp32 runs apart)."""
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.train.step import create_train_state, make_train_loss
+
+    per, batches, states = run["per"], run["batches"], run["states"]
+    optimizer = aug["NeuralNetwork"]["Training"]["Optimizer"]
+    lr = float(optimizer["learning_rate"])
+
+    def one_rank(dev, dtype):
+        m = create_model_config(aug, device=dev, seed=seed).to(dtype)
+        return (create_train_state(m, optimizer, seed=seed), make_train_loss(dtype),
+                [torch.Generator(device=dev).manual_seed(seed + r) for r in range(per)])
+
+    fp32, fp64 = one_rank(device, torch.float32), one_rank("cpu", torch.float64)
+    trajectory = one_rank(device, torch.float32)
+    trajectory[0].model.load_state_dict(states[0])
+    worst, rows, traj, spreads = (0.0, ""), [], [], []
+
+    def step_from(which, state, dev, dtype, group):
+        st, loss_fn, gens = which
+        st.model.load_state_dict({k: v.to(dtype) if v.is_floating_point() else v
+                                  for k, v in state.items()})
+        _group_step(torch, st, loss_fn, gens,
+                    [b.to(dev).map_floats(lambda t: t.to(dtype)) for b in group])
+        # the update, entry by entry
+        return {k: v.detach().cpu().double() - state[k].double()
+                for k, v in st.model.state_dict().items() if v.is_floating_point()}
+
+    def beyond(g, d32, d64, spread) -> list:
+        """(ratio, where, text) of every bound the ranks' update of step
+        ``g`` meets or passes."""
+        out = []
+        for k, ref in d64.items():
+            got = states[g + 1][k].double() - states[g][k].double()
+            err, err32 = (got - ref).abs(), (d32[k] - ref).abs()
+            sp = spread.get(k, torch.zeros(()))
+            floor = lr * UPDATE_NOISE_GRAD + 2.0 ** -23 * float(states[g + 1][k].abs().max())
+            # the largest deviation, and the median one (which a handful of
+            # entries past a kink do not move, and a wrong update does)
+            for what, e, bound in (
+                    ("max", float(err.max()),
+                     max(UPDATE_RATIO * float(err32.max()), UPDATE_RATIO * float(sp.max()),
+                         UPDATE_SLACK * float(ref.abs().max())) + floor),
+                    ("median", float(err.median()),
+                     UPDATE_RATIO * max(float(err32.median()), float(sp.median())) + floor)):
+                out.append((e / bound, f"step {g} {k} ({what})",
+                            f"step {g} {k}: {what} {e:.3e} beyond {bound:.3e}"))
+        return out
+
+    for g in range(len(states) - 1):
+        group = batches[g * per:(g + 1) * per]
+        traj.append(_group_step(torch, *trajectory[:2], trajectory[2],
+                                [b.to(device) for b in group]))
+        d32 = step_from(fp32, states[g], device, torch.float32, group)
+        d64 = step_from(fp64, states[g], "cpu", torch.float64, group)
+        checked = beyond(g, d32, d64, {})
+        if any(r > 1.0 for r, _, _ in checked):
+            # the spread widens the bound only: it is drawn where needed
+            noise = torch.Generator().manual_seed(seed + g)
+            spread = {k: torch.zeros_like(v) for k, v in d64.items()}
+            for _ in range(UPDATE_DRAWS):
+                moved = {k: v.double() * (1.0 + 2.0 ** -24 * torch.randn(
+                    v.shape, generator=noise, dtype=torch.float64))
+                    if v.is_floating_point() else v for k, v in states[g].items()}
+                for k, v in step_from(fp64, moved, "cpu", torch.float64, group).items():
+                    spread[k] = torch.maximum(spread[k], (v - d64[k]).abs())
+            checked = beyond(g, d32, d64, spread)
+            spreads.append(g)
+        for ratio, where, text in checked:
+            if ratio > worst[0]:
+                worst = (ratio, where)
+            if ratio > 1.0:
+                rows.append(text)
+    ok = not rows
+    log(f"[parallel {name}] update gate ({UPDATE_CHECK}): every parameter and statistic after "
+        f"each of {len(states) - 1} steps {'within' if ok else 'BEYOND'} the bound, worst "
+        f"{worst[0]:.3f} of it ({worst[1]}; the fp64 spread drawn at steps {spreads})"
+        f"{'; ' + '; '.join(rows[:8]) if rows else ''}; losses {run['losses']}, the one-rank "
+        f"fp32 trajectory's {traj}")
+    return {"ok": ok, "worst_ratio": worst[0], "worst_at": worst[1], "losses": run["losses"],
+            "one_rank_trajectory": traj, "spread_steps": spreads}
 
 
 def _eager_group_ms(torch, aug: dict, seed: int, group, device: str = "cuda") -> float:
@@ -7101,14 +7233,15 @@ def resilience_phase(torch, seed: int, card: str, device: str = "cuda") -> dict:
 
 
 def _route_steps(torch, route: str, seed: int, card: str, device: str = "cuda",
-                 n_model: int | None = None) -> dict:
+                 n_model: int | None = None, training: dict | None = None) -> dict:
     """Through the modules on the live group: ``PARALLEL_GROUPS`` eager
     steps of the 9-layer GIN under ``route`` ("tensor": the layout of
     ``tensor_parallel_size`` from the world, this rank's data group's batch;
     "pipeline": ``PIPE_MICRO`` microbatches of ``PIPE_BATCH`` graphs), the
-    ranks' parameters compared after each, and the step's ms; the batches
-    and the whole state before each step, for the parent's one-rank step
-    from the same state."""
+    ranks' parameters compared after each; the batches and the whole state
+    before each step and after the last, for the parent's one-rank steps
+    from the same states. ``training`` overrides keys of
+    ``Training`` (the update gate's); without it, also the step's ms."""
     from hydragnn_tpu_torch.models import create_model_config
     from hydragnn_tpu_torch.parallel import comm
     from hydragnn_tpu_torch.parallel.mesh import host_gather
@@ -7119,6 +7252,8 @@ def _route_steps(torch, route: str, seed: int, card: str, device: str = "cuda",
 
     world = comm.world_of()
     aug, loaders = prepare_deep(seed, route, PIPE_BATCH if route == "pipeline" else None)
+    timed = training is None
+    aug["NeuralNetwork"]["Training"].update(copy.deepcopy(training or {}))
     training = aug["NeuralNetwork"]["Training"]
     dtype = resolve_precision(str(training["precision"]), device)
     m = create_model_config(aug, device=device, seed=seed)
@@ -7131,7 +7266,7 @@ def _route_steps(torch, route: str, seed: int, card: str, device: str = "cuda",
         per, mine = grid.n_data, grid.data_index
         step = make_parallel_train_step(m, dtype)
     else:
-        place_pipeline(st)
+        place_pipeline(st, training["Optimizer"])
         per, mine = PIPE_MICRO, None
         step = make_pipelined_train_step(m, dtype, PIPE_MICRO)
     batches = []
@@ -7143,24 +7278,28 @@ def _route_steps(torch, route: str, seed: int, card: str, device: str = "cuda",
         # one bucket per group, as the grouped loader gives it
         pad = loaders[0]._max_spec([p for _, p in plan])
         batches += [loaders[0].collate_chunk(c, pad) for c, _ in plan]
-    losses, states = [], []
+    # the whole state before each step and after the last (a pipeline
+    # stage's other blocks gathered from their owners), for the parent's
+    # one-rank steps from the same states
+    losses, states = [], [{k: v.cpu() for k, v in host_gather(st).items()}]
     for g in range(PARALLEL_GROUPS):
         group = [b.to(device) for b in batches[g * per:(g + 1) * per]]
         arg = group[mine] if mine is not None else tuple(group)
-        # the whole state before the step, for the parent's one-rank step
-        # from the same parameters
-        states.append({k: v.cpu() for k, v in host_gather(st).items()})
         losses.append(float(step(st, arg)["loss"]))
+        states.append({k: v.cpu() for k, v in host_gather(st).items()})
         if comm.live():
             _digests_agree(_param_digest(m))
-    group = [b.to(device) for b in batches[:per]]
-    arg = group[mine] if mine is not None else tuple(group)
-    step_ms = _event_ms(torch, lambda: step(st, arg), 5)
     tag = (f"tensor {st.layout.grid.n_data}x{st.layout.grid.n_model}" if route == "tensor"
            else f"pipeline {world} stages x {PIPE_MICRO} microbatches")
+    step_ms = None
+    if timed:
+        group = [b.to(device) for b in batches[:per]]
+        arg = group[mine] if mine is not None else tuple(group)
+        step_ms = _event_ms(torch, lambda: step(st, arg), 5)
     log(f"[{card}] [parallel {tag} gin{DEEP_LAYERS} x{world}] {PARALLEL_GROUPS} eager steps "
-        f"through the modules: losses {losses}, parameters equal on every rank after each; "
-        f"step {step_ms:.3f} ms")
+        f"through the modules{'' if timed else ' under ' + str(UPDATE_CHECK)}: losses "
+        f"{losses}, parameters equal on every rank after each"
+        + (f"; step {step_ms:.3f} ms" if timed else ""))
     return {"losses": losses, "step_ms": step_ms, "batches": batches, "per": per,
             "states": states}
 
@@ -7202,7 +7341,10 @@ def route_run(torch, route: str, seed: int, card: str, device: str = "cuda",
         f"launches {launches}")
     steps = _route_steps(torch, route, seed, card, device, n_model)
     run.update(losses=steps["losses"], step_ms=steps["step_ms"], batches=steps["batches"],
-               per=steps["per"], states=steps["states"])
+               per=steps["per"], states=steps["states"][:-1])
+    # the update gate's steps (the parent's update_check), on the same batches
+    check = _route_steps(torch, route, seed, card, device, n_model, training=UPDATE_CHECK)
+    run["update_check"] = {"losses": check["losses"], "states": check["states"]}
     return run
 
 
@@ -7272,6 +7414,75 @@ def superstep_route_run(torch, seed: int, card: str, device: str = "cuda") -> di
             "layers": int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"]),
             "losses": [h["train_loss"] for h in h4], "step_ms": wall4 * 1e3 / max(s4.step, 1),
             "route": "superstep"}
+
+
+# the stop poll's cost: qm9.json's GIN, captured data-parallel steps over an
+# epoch of this many molecules (102 train batches of 64: 26 dispatches per
+# rank at 4 ranks), epochs per setting after a warm-up, in turn
+POLL_SAMPLES = 8192
+POLL_EPOCHS = 4
+POLL_CALLS = 200
+
+
+def poll_cost(torch, seed: int, card: str, device: str = "cuda") -> dict:
+    """What the resilience layer's stop poll (a gloo all-reduce on the
+    host, ``Resilience.stop_requested``) costs a captured data-parallel
+    epoch: ``train_epoch`` of qm9.json's GIN over the live group without a
+    resilience context, under the default one (a poll at the epoch's first
+    dispatch and then about every ``POLL_S`` seconds) and under one polling every
+    dispatch (an elastic run, a fault plan), each ``POLL_EPOCHS`` times in
+    turn after a warm-up epoch; and one poll's mean us over ``POLL_CALLS``
+    calls."""
+    import dataclasses
+
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.config import update_config
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.parallel import comm
+    from hydragnn_tpu_torch.parallel.step import make_parallel_train_step, shard_state
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.resilience import Resilience
+    from hydragnn_tpu_torch.train.loop import train_epoch
+    from hydragnn_tpu_torch.train.step import create_train_state, resolve_precision
+
+    world, rank = comm.world_of(), comm.rank_of()
+    cfg = qm9_config("gin")
+    loaders = dataset_loading_and_splitting(
+        cfg, samples=raw_samples(seed, "gin", POLL_SAMPLES), rank=rank, world=world)
+    aug = update_config(cfg, *(ld.samples for ld in loaders))
+    training = aug["NeuralNetwork"]["Training"]
+    dtype = resolve_precision(str(training["precision"]), device)
+    st = create_train_state(create_model_config(aug, device=device, seed=seed),
+                            training["Optimizer"], seed=seed)
+    shard_state(st, training["Optimizer"], seed=seed)
+    step = capture.Dispatch(make_parallel_train_step(st.model, dtype), "poll cost", train=True,
+                            collective=world > 1)
+    default = Resilience.from_config(training, device)
+    default.bind_group()
+    settings = {"none": None, "default": default,
+                "every dispatch": dataclasses.replace(default, poll_every=1)}
+    times = {k: [] for k in settings}
+    train_epoch(step, st, loaders[0])  # captures
+    for _ in range(POLL_EPOCHS):
+        for name, res in settings.items():
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            train_epoch(step, st, loaders[0], resilience=res)
+            _sync(torch, device)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(POLL_CALLS):
+        default.agree(False)
+    agree_us = (time.perf_counter() - t0) * 1e6 / POLL_CALLS
+    dispatches = len(loaders[0])
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[{card}] [poll cost x{world}] captured data-parallel epoch of {dispatches} dispatches, "
+        f"ms (median of {POLL_EPOCHS}): no poll {med['none']:.3f}, the default (first dispatch, "
+        f"then every ~{default.POLL_S} s: {default._poll_stride} dispatches) "
+        f"{med['default']:.3f}, every dispatch {med['every dispatch']:.3f}; one poll "
+        f"{agree_us:.1f} us; epochs {times}")
+    return {"epoch_ms": times, "median_ms": med, "dispatches": dispatches,
+            "agree_us": agree_us, "stride": default._poll_stride}
 
 
 def elastic_drill(torch, seed: int, card: str, device: str = "cuda") -> dict:
@@ -7375,7 +7586,7 @@ def world_one_routes(torch, seed: int, card: str, device: str = "cuda") -> dict:
             shard_state(a, training["Optimizer"], param_mode="tp", n_model=1, seed=seed)
             step = make_parallel_train_step(m, dtype)
         else:
-            place_pipeline(a)
+            place_pipeline(a, training["Optimizer"])
             step = make_pipelined_train_step(m, dtype, 1)
         one = make_train_step(dtype)
         launches = dict.fromkeys(fs.LAUNCHES, 0)
@@ -7526,6 +7737,7 @@ def parallel_rank_main(torch, seed: int, world: int, rank: int, port: int, out: 
                                "--format=csv,noheader", f"--id={rank}"], capture_output=True,
                               text=True, timeout=60).stdout.strip()
         runs = parallel_paths(torch, seed, card)
+        runs["poll"] = poll_cost(torch, seed, card)
         # last: afterwards the group is the survivors'
         runs["elastic"] = elastic_drill(torch, seed, card)
     except BaseException:
@@ -7550,9 +7762,10 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
     (``parallel_paths``); the gates: the ranks' parameters equal after every
     step (checked in the ranks), each route's losses within
     ``PARALLEL_TOL`` of its one-rank run over the same groups or graph, the
+    tensor and pipeline routes' updates held by :func:`update_check`, the
     halo route's bytes on the wire below the replicated all-reduce's; the
-    step ms at ``world`` ranks and at one, the all-reduce ms. No result
-    line."""
+    step ms at ``world`` ranks and at one, the all-reduce ms, the stop
+    poll's cost (:func:`poll_cost`). No result line."""
     import os
     import pickle
 
@@ -7583,11 +7796,12 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
                 ranks.append(pickle.load(f))
     log(f"--parallel: {world} ranks ran in {time.perf_counter() - t0:.1f} s")
     elastic = [r.pop("elastic") for r in ranks]
+    polls = [r.pop("poll") for r in ranks]
     for r in ranks:
         check_parallel_launches(r)
     parallel_kernel_checks(torch, seed, world)
     new_shape_errs = new_shape_kernel_checks(torch, seed)
-    report = {}
+    report, failures = {}, []
     for name, r0 in ranks[0].items():
         route, kind = name.split(" ")
         for r in ranks[1:]:
@@ -7602,17 +7816,22 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
             log(f"[{dev['smi']}] [parallel {name}] x{world}: epoch losses {r0['losses']}, "
                 f"bit-equal to K=1 over the same plan in every rank")
             continue
-        eager_ms = None
+        eager_ms = gate = None
         if route.startswith(("tensor", "pipeline")):
             aug, _ = prepare_deep(seed, "pipeline" if route == "pipeline" else "tensor",
                                   PIPE_BATCH if route == "pipeline" else None)
-            # each step from the ranks' own state before it: nine layers of
-            # batch norm turn any difference of rounding (the model group's
-            # reassociated sums) into a different trajectory within a step or
-            # two, so a trajectory is no gate here
+            # qm9.json's bf16 AdamW steps: each step's loss (the forward)
+            # from the ranks' own state before it, as Adam's first steps
+            # move gradients that are rounding noise by a whole rate; the
+            # update itself is held by the fp32 SGD gate below
             ref, ref_ms = _emulated_groups(torch, kind, seed, r0["per"], r0["batches"],
                                            aug=aug, states=r0["states"])
             eager_ms = _eager_group_ms(torch, aug, seed, r0["batches"][:r0["per"]])
+            aug_check = copy.deepcopy(aug)
+            aug_check["NeuralNetwork"]["Training"].update(copy.deepcopy(UPDATE_CHECK))
+            gate = update_check(torch, name, {**r0["update_check"], "per": r0["per"],
+                                              "batches": r0["batches"]}, aug_check, seed)
+            failures += [] if gate["ok"] else [f"{name}: the update gate failed"]
         elif route in ("data", "fsdp"):
             ref, ref_ms = _emulated_groups(torch, kind, seed, world, r0["batches"],
                                            hidden=FSDP_HIDDEN if route == "fsdp" else None)
@@ -7624,6 +7843,8 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
                  "launches_rank0": r0["launches"]}
         if eager_ms is not None:
             entry["one_rank_eager_ms"] = eager_ms
+        if gate is not None:
+            entry["update_gate"] = gate
         if route == "fsdp":
             entry["sharded_parameters"] = r0["shards"]
         if "allreduce_ms" in r0:
@@ -7641,13 +7862,18 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
             + (f"; all-reduce {r0['allreduce_ms']:.3f} ms per step" if "allreduce_ms" in r0
                else ""))
         if not ok:
-            raise AssertionError(f"{name}: losses beyond {PARALLEL_TOL} of the one-rank run")
+            failures.append(f"{name}: losses beyond {PARALLEL_TOL} of the one-rank run")
         report[name] = entry
+    if failures:
+        raise AssertionError("; ".join(failures))
     drill = next(e for e in elastic if not e["lost"])
     report["elastic"] = {"recovery_ms": [e["recovery_ms"] for e in elastic if not e["lost"]],
                          "steps": drill["steps"], "ref_steps": drill["ref_steps"],
                          "run_s": drill["run_s"], "lost_ranks": sum(e["lost"] for e in elastic)}
     report["kernel_errs_slice_shapes"] = new_shape_errs
+    report["poll"] = {"median_ms_rank0": polls[0]["median_ms"],
+                      "agree_us": [p["agree_us"] for p in polls],
+                      "dispatches": polls[0]["dispatches"], "stride": polls[0]["stride"]}
     log(f"[{dev['smi']}] [elastic] {world} -> {world - 1} ranks: recovery ms per survivor "
         f"{report['elastic']['recovery_ms']}, {drill['steps']} updates as the uninterrupted "
         f"run's {drill['ref_steps']}")

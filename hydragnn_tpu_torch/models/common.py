@@ -97,11 +97,6 @@ _NO_GROUP = object()
 # partial sums; unset, the batch's edges are all the edges
 _EDGE_GROUP: contextvars.ContextVar = contextvars.ContextVar("edge_group", default=_NO_GROUP)
 
-# the tensor-parallel route's model group while its forward runs
-# (``parallel/tensor.py``): ``(group, rank, n)``; an activation whose last
-# axis is 1/n of its layer's width is this rank's shard of its features
-_FEATURE_SHARD: contextvars.ContextVar = contextvars.ContextVar("feature_shard", default=None)
-
 # the pass of a checkpointed region (:func:`checkpointed`) this thread is
 # in: None outside one, ("record", masks) in its first pass, ("replay",
 # iterator over those masks) in a recompute
@@ -275,22 +270,6 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
-        width, full = x.shape[-1], self.scale.shape[0]
-        if width != full:
-            # a tensor-parallel shard of the features: this rank's slice of
-            # the statistics and parameters (the running ones updated in
-            # place in their slice)
-            return self._forward(x, mask, train, *self._shard(width, full))
-        return self._forward(x, mask, train, self.mean, self.var, self.scale, self.bias)
-
-    def _shard(self, width: int, full: int):
-        scale = local_features(self.scale, width, full)
-        bias = local_features(self.bias, width, full)
-        rank = _FEATURE_SHARD.get()[1]
-        sl = slice(rank * width, (rank + 1) * width)
-        return self.mean[sl], self.var[sl], scale, bias
-
-    def _forward(self, x, mask, train, running_mean, running_var, scale, bias):
         if train:
             m = mask.reshape(-1, 1).to(x.dtype)
             msum = m.sum()
@@ -313,47 +292,15 @@ class MaskedBatchNorm(nn.Module):
             if tape is None or tape[0] == "record":
                 with torch.no_grad():
                     alpha = (1.0 - self.momentum) * has_rows.to(torch.float32)
-                    running_mean.copy_(running_mean + alpha * (mean.detach() - running_mean))
-                    running_var.copy_(running_var + alpha * (var.detach() - running_var))
+                    self.mean.copy_(self.mean + alpha * (mean.detach() - self.mean))
+                    self.var.copy_(self.var + alpha * (var.detach() - self.var))
             # like jnp.where, this promotes to the running statistics' fp32
-            mean = torch.where(has_rows, mean, running_mean)
-            var = torch.where(has_rows, var, running_var)
+            mean = torch.where(has_rows, mean, self.mean)
+            var = torch.where(has_rows, var, self.var)
         else:
-            mean, var = running_mean, running_var
+            mean, var = self.mean, self.var
         y = (x - mean) * torch.rsqrt(var + self.epsilon)
-        return y * scale + bias
-
-
-@contextlib.contextmanager
-def feature_sharded(group, rank: int, n: int) -> Iterator[None]:
-    """Inside, activations may hold this rank's shard of their features
-    (the tensor-parallel route): the per-feature parameters of the layers
-    that see one are sliced to it (:func:`local_features`)."""
-    token = _FEATURE_SHARD.set((group, int(rank), int(n)))
-    try:
-        yield
-    finally:
-        _FEATURE_SHARD.reset(token)
-
-
-def local_features(p: torch.Tensor, width: int, full: int) -> torch.Tensor:
-    """A replicated per-feature parameter ``p`` (last axis ``full`` wide;
-    0-d: one scalar for every feature) as an activation ``width`` wide
-    sees it: ``p`` itself, or, when the activation is this rank's shard of
-    the features under :func:`feature_sharded`, this rank's slice of ``p``
-    entered into the model group, whose backward sums the ranks' partial
-    gradients, so every rank holds ``p``'s whole gradient."""
-    shard = _FEATURE_SHARD.get()
-    if shard is None or width == full:
-        return p
-    group, rank, n = shard
-    if width * n != full:
-        raise ValueError(f"a {width}-wide activation is no shard of {full} features over "
-                         f"{n} ranks")
-    from ..parallel.comm import enter_replicated
-
-    p = enter_replicated(p, group)
-    return p if p.dim() == 0 else p.narrow(-1, rank * width, width)
+        return y * self.scale + self.bias
 
 
 @contextlib.contextmanager

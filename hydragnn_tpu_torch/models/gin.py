@@ -13,7 +13,7 @@ from torch import nn
 
 from ..config.schema import ModelSpec
 from ..graphs.graph import GraphBatch
-from .common import MLP, local_features, neighbour_sum
+from .common import MLP, neighbour_sum
 
 
 class GINConv(nn.Module):
@@ -37,9 +37,7 @@ class GINConv(nn.Module):
         # uses are created sets the order in which autograd adds their
         # gradients, and GPS's trained bits (its int8 gates) depend on it
         agg = neighbour_sum(inv, batch)
-        # eps as a tensor-parallel feature shard sees it (itself otherwise)
-        eps = local_features(self.eps, inv.shape[-1], self.nn.dense_0.weight.shape[1])
-        return self.nn((1.0 + eps) * inv + agg), equiv
+        return self.nn((1.0 + self.eps) * inv + agg), equiv
 
 
 __all__ = ["GINConv"]

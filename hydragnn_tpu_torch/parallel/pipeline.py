@@ -5,12 +5,18 @@ Counterpart of ``hydragnn_tpu/parallel/pipeline.py`` (``:73-444``), for deep
 stacks whose weights or activations outgrow one card but whose widths do
 not call for tensor sharding.
 
-Layout. Every rank is a stage (S = the world). The input embedding with conv
-block 0 (the prologue, the one block that lifts ``input_dim`` to
-``hidden_dim``) and the decode epilogue (pooling and heads) run replicated
-on every stage. Conv blocks ``1..L-1`` must be parameter-homogeneous; stage
-``s`` applies blocks ``1 + s k .. (s + 1) k`` (``k = (L - 1) / S``). Every
-rank holds the whole model; a stage computes with its own blocks only.
+Layout (:class:`PipelineLayout`). Every rank is a stage (S = the world).
+The input embedding with conv block 0 (the prologue, the one block that
+lifts ``input_dim`` to ``hidden_dim``) and the decode epilogue (pooling and
+heads) run replicated on every stage. Conv blocks ``1..L-1`` must be
+parameter-homogeneous; stage ``s`` owns blocks ``1 + s k .. (s + 1) k``
+(``k = (L - 1) / S``): it computes with them alone, its optimizer steps
+them, the prologue and the epilogue, and holds the optimizer state of
+those only. The other stages' blocks stay allocated in the model but are
+not kept current: :meth:`PipelineLayout.gather_params` (a checkpoint,
+``host_gather``) brings every block's parameters and running statistics
+from its owner, and a checkpoint's optimizer state is gathered from the
+owners into the one-device layout, as FSDP's is.
 
 Schedule (GPipe, ``T = M + S - 1`` ticks; M microbatches, each a loader
 batch of one bucket). The tick order, which the ranks must keep alike or
@@ -33,11 +39,11 @@ then one exchange sends the input's gradient to ``s - 1`` and receives the
 next cotangent from ``s + 1``. Stage 0's input gradients flow into the
 prologue. The JAX package derives this by differentiating ``scan`` and
 ``ppermute``; here it is written out. A stage's gradients of the blocks it
-does not own and of the prologue (stage 0 alone backpropagates into it) are
-zero, so one all-reduce sum of those parameters' gradients gives every
-stage the whole gradient; the epilogue's are alike on every stage already.
-Every stage then takes the same optimizer step: the parameters stay equal
-on every rank.
+does not own are zero and not stepped; its own blocks' gradients are
+whole; the prologue's (stage 0 alone backpropagates into it) are summed
+over the stages in one all-reduce; the epilogue's are alike on every stage
+already. So every stage steps the prologue and the epilogue alike, and
+each block on its owner.
 
 Norms (``norm``):
 
@@ -45,8 +51,7 @@ Norms (``norm``):
   microbatch's statistics; the running statistics take one EMA step per
   microbatch from the same old values, averaged (the prologue's over the
   microbatches with real nodes, as the data-parallel step merges its
-  replicas; a ring block's over the M microbatches its stage saw), and the
-  owners' ring statistics are summed into every stage;
+  replicas; a ring block's, on its owner, over the M microbatches);
 * ``"running"`` (the eval step's): the running statistics, and the
   pipelined forward equals the sequential one bit for bit.
 
@@ -60,11 +65,14 @@ point-to-point exchanges are not captured).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.distributed as dist
 
 from ..train.step import TrainState, freeze_conv_grads
 from .comm import live, rank_of, send_recv, sum_tensors, world_of
+from .step import Layout
 
 
 def validate_pipeline_support(model, n_stage: int) -> int:
@@ -242,38 +250,6 @@ class Pipeline:
                     norm.mean.copy_(acc_m / self.n_micro)
                     norm.var.copy_(acc_v / self.n_micro)
 
-    def sync_ring_stats(self) -> None:
-        """Every ring norm's statistics from its owner (a sum in which the
-        other stages add zeros)."""
-        if not live() or self.n_stage == 1:
-            return
-        owned = set(self.blocks)
-        norms = [(i, _norm(self.model, i)) for i in range(1, self.model.spec.num_conv_layers)]
-        stats = [t if i in owned else torch.zeros_like(t)
-                 for i, n in norms if n is not None for t in (n.mean, n.var)]
-        if not stats:
-            return
-        with torch.no_grad():
-            flat = torch.cat([t.reshape(-1) for t in stats])
-            dist.all_reduce(flat)
-            offset = 0
-            for i, n in norms:
-                if n is None:
-                    continue
-                for t in (n.mean, n.var):
-                    t.copy_(flat[offset:offset + t.numel()].view_as(t))
-                    offset += t.numel()
-
-    def stage_local_params(self) -> list:
-        """The parameters whose gradients are stage-local (every one but
-        the epilogue's), in a fixed order."""
-        skip = set()
-        for name in _EPILOGUE:
-            mod = getattr(self.model, name, None)
-            if mod is not None:
-                skip.update(id(p) for p in mod.parameters())
-        return [p for p in self.model.parameters() if id(p) not in skip]
-
 
 class _Ring(torch.autograd.Function):
     """The pipelined blocks ``1..L-1`` over the microbatches: the forward
@@ -408,7 +384,6 @@ def make_pipelined_train_step(model, compute_dtype=torch.float32, n_micro: int |
     graph-count-weighted mean, as the data-parallel step's."""
     pipe = Pipeline(model, n_micro, norm)
     loss_scale = None if not loss_scale or float(loss_scale) == 1.0 else float(loss_scale)
-    local = pipe.stage_local_params()
 
     def train_step(state: TrainState, batches) -> dict:
         optimizer = state.optimizer
@@ -426,14 +401,14 @@ def make_pipelined_train_step(model, compute_dtype=torch.float32, n_micro: int |
         loss = torch.stack(tots).sum()
         optimizer.zero_grad()
         (loss * loss_scale if loss_scale is not None else loss).backward()
-        for p in model.parameters():
+        params = list(model.parameters())
+        for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             elif loss_scale is not None:
                 p.grad.div_(loss_scale)
-        sum_tensors([p.grad for p in local])
-        if norm == "batch":
-            pipe.sync_ring_stats()
+        if state.layout is not None:
+            state.layout.reduce_grads(params)
         freeze_conv_grads(model)
         optimizer.step()
         state.step += 1
@@ -471,14 +446,112 @@ def make_pipelined_eval_step(model, compute_dtype=torch.float32, n_micro: int | 
     return eval_step
 
 
-def place_pipeline(state: TrainState) -> TrainState:
-    """Every stage's parameters and buffers made rank 0's."""
+@dataclasses.dataclass
+class PipelineLayout(Layout):
+    """The pipeline's layout over the default group (the module docstring):
+    ``held``, the positions in ``model.parameters()`` of what this stage's
+    optimizer steps (the prologue, its own blocks, the epilogue), in order;
+    ``owner``, the stage of every block parameter's position; ``prologue``,
+    the prologue parameters' positions; ``norms``, ``(norm, owner)`` of
+    every block's feature norm."""
+
+    model: torch.nn.Module | None = None
+    held: list = dataclasses.field(default_factory=list)
+    owner: dict = dataclasses.field(default_factory=dict)
+    prologue: list = dataclasses.field(default_factory=list)
+    norms: list = dataclasses.field(default_factory=list)
+
+    def reduce_grads(self, params) -> None:
+        """The prologue's gradients summed over the stages (stage 0's, the
+        others' zeros); a block's are whole on its owner, the epilogue's
+        alike on every stage."""
+        sum_tensors([params[i].grad for i in self.prologue])
+
+    def gather_params(self) -> None:
+        """Every block's parameters and running statistics from its owner,
+        one broadcast per stage."""
+        if not live() or self.world == 1:
+            return
+        params = list(self.model.parameters())
+        with torch.no_grad():
+            for s in range(self.world):
+                ts = ([params[i] for i, o in sorted(self.owner.items()) if o == s]
+                      + [t for n, o in self.norms if o == s for t in (n.mean, n.var)])
+                if not ts:
+                    continue
+                flat = torch.cat([t.detach().reshape(-1).float() for t in ts])
+                dist.broadcast(flat, s)
+                if s != self.rank:
+                    for t, v in zip(ts, flat.split([t.numel() for t in ts])):
+                        t.copy_(v.view_as(t))
+
+    def full_optimizer_state(self, optimizer) -> dict:
+        """The one-device layout's optimizer state dict: the entries of the
+        parameters this stage holds by their position in the model, every
+        block's from its owner (all-gathered). Every stage must call this."""
+        sd = optimizer.state_dict()
+        state = {self.held[i]: v for i, v in sd["state"].items()}
+        if live() and self.world > 1:
+            mine = {pos: {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in st.items()}
+                    for pos, st in state.items() if self.owner.get(pos) == self.rank}
+            every = [None] * self.world
+            dist.all_gather_object(every, mine)
+            for r, theirs in enumerate(every):
+                if r != self.rank:
+                    state.update(theirs)
+        (group,) = sd["param_groups"]
+        n = len(list(self.model.parameters()))
+        return {"state": dict(sorted(state.items())),
+                "param_groups": [{**group, "params": list(range(n))}]}
+
+    def shard_optimizer_state(self, full: dict, optimizer) -> dict:
+        """A one-device layout's optimizer state dict cut to what this
+        stage's optimizer holds, in its order."""
+        (group,) = full["param_groups"]
+        return {"state": {i: full["state"][pos] for i, pos in enumerate(self.held)
+                          if pos in full["state"]},
+                "param_groups": [{**group, "params": list(range(len(self.held)))}]}
+
+    def place_loaded(self, optimizer, full: dict) -> None:
+        from ..train.optimizer import load_optimizer_state
+
+        load_optimizer_state(optimizer, self.shard_optimizer_state(full, optimizer))
+
+
+def place_pipeline(state: TrainState, optimizer_config: dict) -> TrainState:
+    """Every stage's parameters and buffers made rank 0's, and the
+    :class:`PipelineLayout`: the optimizer rebuilt (``Training.Optimizer``)
+    over what this stage steps, its state (a resumed run's) cut from the
+    one-device optimizer's. Returns the state (its ``layout`` set)."""
+    from ..train.optimizer import load_optimizer_state, select_optimizer
+
+    model = state.model
     if live():
         with torch.no_grad():
-            for t in list(state.model.parameters()) + list(state.model.buffers()):
+            for t in list(model.parameters()) + list(model.buffers()):
                 dist.broadcast(t.data, 0)
+    n_stage, stage = world_of(), rank_of()
+    k = validate_pipeline_support(model, n_stage)
+    pos = {id(p): i for i, p in enumerate(model.parameters())}
+    layout = PipelineLayout(mode="pipeline", model=model)
+    for i in range(1, model.spec.num_conv_layers):
+        owner = (i - 1) // k
+        layout.owner.update({pos[id(p)]: owner for p in _block_params(model, i)})
+        if _norm(model, i) is not None:
+            layout.norms.append((_norm(model, i), owner))
+    epilogue = {id(p) for name in _EPILOGUE if getattr(model, name, None) is not None
+                for p in getattr(model, name).parameters()}
+    params = list(model.parameters())
+    layout.prologue = [i for i, p in enumerate(params)
+                       if i not in layout.owner and id(p) not in epilogue]
+    layout.held = [i for i in range(len(params)) if layout.owner.get(i, stage) == stage]
+    full = state.optimizer.state_dict()
+    state.optimizer = select_optimizer(optimizer_config, [params[i] for i in layout.held])
+    load_optimizer_state(state.optimizer, layout.shard_optimizer_state(full, state.optimizer))
+    state.layout = layout
     return state
 
 
-__all__ = ["Pipeline", "make_pipelined_eval_step", "make_pipelined_train_step",
-           "pipelined_forward", "place_pipeline", "validate_pipeline_support"]
+__all__ = ["Pipeline", "PipelineLayout", "make_pipelined_eval_step",
+           "make_pipelined_train_step", "pipelined_forward", "place_pipeline",
+           "validate_pipeline_support"]

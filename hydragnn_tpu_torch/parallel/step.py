@@ -111,6 +111,17 @@ class Layout:
         """Hooks the layout's forward runs under (none here)."""
         return contextlib.nullcontext()
 
+    def agree_finite(self, ok: torch.Tensor) -> torch.Tensor:
+        """The non-finite guard's verdict, the same on every rank: a layout
+        whose ranks hold state of their own (shards, a pipeline stage's
+        blocks) takes the minimum over the ranks, on the device; a
+        replicated one's ranks decide alike already."""
+        if self.mode == "replicated" or not live() or world_of() == 1:
+            return ok
+        flag = ok.to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return flag[0] > 0
+
     def _gather(self, part: torch.Tensor, dim: int) -> torch.Tensor:
         """The full tensor of every rank's ``part`` along ``dim``, in rank
         order (all-gathered; a copy when no group is formed)."""

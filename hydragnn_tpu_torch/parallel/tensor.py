@@ -18,7 +18,10 @@ writes the collectives by hand, Megatron's way:
   norm with its slice of the statistics and parameters, GIN's ``eps`` and
   neighbour sum, the graph pooling), so the gather-scatter kernels (B1 and
   its backward) and the segment sums (B2) run on ``[E, C / n]`` and
-  ``[N, C / n]``;
+  ``[N, C / n]``. The norm and GIN's conv learn of the shard here, not in
+  the model code: inside the layout's forward they run as
+  :class:`_ShardedNorm` and :class:`_ShardedGIN`, which call the model's
+  own forward with their per-feature tensors sliced (``functional_call``);
 * the next dense layer gathers the shard through g (``comm.
   gather_columns``: the all-gather of the ranks' column blocks forward,
   this rank's block of the replicated cotangent backward) before it
@@ -46,17 +49,78 @@ loudly, ROADMAP item 9).
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 
 import torch
 import torch.nn.functional as F
 
-from ..models.common import (Dense, MaskedBatchNorm, feature_sharded, intercept_dense)
+from ..models.common import Dense, MaskedBatchNorm, intercept_dense
+from ..models.gin import GINConv
 from .comm import enter_replicated, gather_columns, live, sum_tensors
 from .mesh import TP_MIN_SIZE, TPGrid, make_tp_grid, tp_shard_dim
 from .step import Layout, Shard
 
 TP_STACKS = ("GIN",)
+
+# the model group of the forward running under TPLayout.forward_context,
+# (group, rank, n), and the sharded module whose own forward is running
+_SHARD: contextvars.ContextVar = contextvars.ContextVar("tp_shard", default=None)
+_INSIDE: contextvars.ContextVar = contextvars.ContextVar("tp_inside", default=None)
+
+
+def _entered(p: torch.Tensor, width: int, full: int) -> torch.Tensor:
+    """A replicated per-feature parameter (last axis ``full`` wide; 0-d:
+    one scalar for every feature) as a ``width``-wide shard of the features
+    sees it: entered into the model group through f, whose backward sums
+    the ranks' partial gradients, and cut to this rank's slice."""
+    group, rank, n = _SHARD.get()
+    if width * n != full:
+        raise ValueError(f"a {width}-wide activation is no shard of {full} features over "
+                         f"{n} ranks")
+    p = enter_replicated(p, group)
+    return p if p.dim() == 0 else p.narrow(-1, rank * width, width)
+
+
+def _own_forward(module, swap: dict, *args):
+    """``module``'s own forward with ``swap``'s tensors in place of its
+    own."""
+    token = _INSIDE.set(module)
+    try:
+        return torch.func.functional_call(module, swap, args)
+    finally:
+        _INSIDE.reset(token)
+
+
+class _ShardedNorm(MaskedBatchNorm):
+    """The masked batch norm on a feature shard: its slice of the scale and
+    bias, and views of its slice of the running statistics (the EMA writes
+    through them)."""
+
+    def forward(self, x, mask, train=False):
+        width, full = x.shape[-1], self.scale.shape[0]
+        if width == full or _INSIDE.get() is self:
+            return super().forward(x, mask, train)
+        rank = _SHARD.get()[1]
+        sl = slice(rank * width, (rank + 1) * width)
+        return _own_forward(self, {"scale": _entered(self.scale, width, full),
+                                   "bias": _entered(self.bias, width, full),
+                                   "mean": self.mean[sl], "var": self.var[sl]}, x, mask, train)
+
+
+class _ShardedGIN(GINConv):
+    """GIN's conv on a feature shard: ``eps`` entered, so every rank holds
+    its whole gradient."""
+
+    def forward(self, inv, equiv, batch, train=False, generator=None):
+        full = self.nn.dense_0.weight.shape[1]
+        if inv.shape[-1] == full or _INSIDE.get() is self:
+            return super().forward(inv, equiv, batch, train, generator)
+        return _own_forward(self, {"eps": _entered(self.eps, inv.shape[-1], full)}, inv, equiv,
+                            batch, train, generator)
+
+
+_SHARDED = {MaskedBatchNorm: _ShardedNorm, GINConv: _ShardedGIN}
 
 
 def default_tensor_parallel_size(world: int, arch: dict | None = None) -> int:
@@ -97,6 +161,7 @@ class TPLayout(Layout):
     are column-parallel (``id(module) -> (weight sharded, bias sharded)``)."""
 
     grid: TPGrid | None = None
+    model: torch.nn.Module | None = None
     dense: dict = dataclasses.field(default_factory=dict)
     norms: list = dataclasses.field(default_factory=list)
 
@@ -112,13 +177,22 @@ class TPLayout(Layout):
     def data_index(self) -> int:
         return self.grid.data_index
 
+    @contextlib.contextmanager
     def forward_context(self):
-        """The forward's hooks: activations may be feature shards, and the
-        dense layers run column-parallel."""
-        stack = contextlib.ExitStack()
-        stack.enter_context(feature_sharded(self.group, self.rank, self.world))
-        stack.enter_context(intercept_dense(self._dense))
-        return stack
+        """The forward's hooks: the dense layers run column-parallel, and
+        the norms and GIN's convs take feature shards (their classes
+        swapped for the sharded ones while it runs)."""
+        swapped = [(m, type(m)) for m in self.model.modules() if type(m) in _SHARDED]
+        token = _SHARD.set((self.group, self.rank, self.world))
+        try:
+            for m, cls in swapped:
+                m.__class__ = _SHARDED[cls]
+            with intercept_dense(self._dense):
+                yield
+        finally:
+            for m, cls in swapped:
+                m.__class__ = cls
+            _SHARD.reset(token)
 
     def _dense(self, module, x: torch.Tensor):
         plan = self.dense.get(id(module))
@@ -192,7 +266,7 @@ def place_tensor_parallel(state, optimizer_config: dict, n_model: int, seed: int
     if state.generator is not None and grid.data_index != 0 and int(state.step) == 0:
         state.generator = torch.Generator(device=state.generator.device).manual_seed(
             int(seed) + grid.data_index)
-    layout = TPLayout(group=grid.model_group, mode="tp", grid=grid)
+    layout = TPLayout(group=grid.model_group, mode="tp", grid=grid, model=model)
     world, rank = layout.world, layout.rank
     dense_params = {}
     for m in model.modules():

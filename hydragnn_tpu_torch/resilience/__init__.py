@@ -15,8 +15,8 @@ loop (``train/loop.py``), the checkpoints and the data plane:
   rollbacks raise ``TrainingDivergedError``;
 * **preemption** (``preempt.py``): SIGTERM/SIGUSR1 ask for a checkpoint at
   the next dispatch boundary; the ranks of a process group agree on it (a
-  gloo poll every ``poll_every`` dispatches, so the card's stream is never
-  waited on);
+  gloo poll on the host about every ``POLL_S`` seconds, so the card's
+  stream is never waited on);
 * **exact mid-epoch resume**: the preemption checkpoint's sidecar holds the
   epoch, the raw batches done, the shuffle seed, K and the group width; a
   resumed run trains exactly the batches not yet seen, so a run killed at
@@ -65,10 +65,12 @@ class Resilience:
     elastic: bool = False
     max_recoveries: int = 4
     watchdog_dispatch_s: float = 0.0
-    # under a process group the ranks agree on a stop request every this
-    # many dispatches (a gloo all-reduce of one flag): every dispatch in an
-    # elastic run or under a fault plan, every 8th otherwise
-    poll_every: int = 8
+    # under a process group the ranks agree on a stop request (a gloo
+    # all-reduce on the host, ~1.5 ms on four H100s' host, PERF.md) at an
+    # epoch's first dispatch, at its end, and between about every POLL_S
+    # seconds; poll_every 1 (an elastic run, a fault plan): every dispatch
+    POLL_S = 1.0
+    poll_every: int = 0
 
     preempt: PreemptionHandler | None = None
     chaos: FaultPlan | None = None
@@ -93,6 +95,11 @@ class Resilience:
     resume_mode: str | None = None
     resume_reason: str | None = None
     _agree: object = None  # (default group, its gloo twin)
+    # the time-based poll's schedule: the next poll's dispatch, the ranks'
+    # agreed dispatches per POLL_S, and the last poll's (dispatch, time)
+    _next_poll: int = 0
+    _poll_stride: int = 8
+    _last_poll: tuple = (0, 0.0)
 
     @staticmethod
     def from_config(training_cfg: dict, device="cpu") -> "Resilience":
@@ -177,31 +184,46 @@ class Resilience:
         if world_of() > 1:
             self._agree_group()
 
-    def agree(self, flag: bool) -> bool:
-        """``flag`` of any rank, the same on every rank of a process group
-        (every rank calls this at the same point)."""
+    def agree(self, flag: bool, value: float = 0.0) -> tuple[bool, float]:
+        """``flag`` of any rank and the largest ``value``, the same on every
+        rank of a process group (every rank calls this at the same
+        point)."""
         import torch.distributed as dist
 
         from ..parallel.comm import world_of
 
         if world_of() <= 1:
-            return bool(flag)
-        t = torch.tensor([1.0 if flag else 0.0])
+            return bool(flag), float(value)
+        t = torch.tensor([1.0 if flag else 0.0, float(value)], dtype=torch.float64)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._agree_group())
-        return bool(t.item())
+        return bool(t[0].item()), float(t[1].item())
 
     def stop_requested(self, dispatch: int | None = None) -> bool:
         """Whether the run stops at this boundary. Alone: this process's
         request. Under a process group: any rank's request, agreed by all
-        at every ``poll_every``-th dispatch and at every epoch boundary
-        (``dispatch=None``), the same answer on every rank."""
+        at an epoch's first dispatch and its end (``dispatch=None``) and in
+        between at the dispatches the last poll scheduled (every one under
+        ``poll_every`` 1), the same answer on every rank. Each poll also
+        agrees on the slowest rank's seconds per dispatch since the last,
+        and schedules the next ``POLL_S`` of them ahead."""
+        import time
+
         from ..parallel.comm import world_of
 
         if world_of() <= 1:
             return self.preempt_requested()
-        if dispatch is not None and dispatch % max(1, self.poll_every):
+        if dispatch is not None and dispatch > 0 and self.poll_every != 1 \
+                and dispatch < self._next_poll:
             return False
-        stop = self.agree(self.preempt_requested())
+        now = time.perf_counter()
+        last, then = self._last_poll
+        pace = (now - then) / (dispatch - last) if dispatch and dispatch > last else 0.0
+        stop, pace = self.agree(self.preempt_requested(), pace)
+        if pace > 0.0:
+            self._poll_stride = max(1, min(4096, int(self.POLL_S / pace)))
+        if dispatch is not None:
+            self._next_poll = dispatch + self._poll_stride
+            self._last_poll = (dispatch, now)
         if stop:
             self.request_checkpoint()
         return stop

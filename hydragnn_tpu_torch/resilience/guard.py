@@ -97,6 +97,8 @@ def wrap_step_with_guard(train_step):
             ok = torch.isfinite(metrics["loss"]).all()
             for t in news + born:
                 ok = ok & torch.isfinite(t).all()
+            if getattr(state, "layout", None) is not None:
+                ok = state.layout.agree_finite(ok)
             for ts, snap, new in zip(groups.values(), snaps, news):
                 kept = torch.where(ok, new, snap)
                 torch._foreach_copy_(ts, [v.view_as(t) for t, v in

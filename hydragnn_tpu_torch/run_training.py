@@ -331,7 +331,7 @@ def _parallel_route(state, config: dict, request: dict, device, seed: int,
         n_micro = int(arch.get("pipeline_microbatches") or world)
         train_step = make_pipelined_train_step(model, dtype, n_micro,
                                                loss_scale=resolve_loss_scale(training))
-        place_pipeline(state)
+        place_pipeline(state, training["Optimizer"])
         if verbosity > 0:
             print(f"pipeline-parallel: {world}-stage GPipe ring, {n_micro} microbatches",
                   flush=True)

@@ -28,10 +28,12 @@ or fails its manifest, falls back through older epochs, newest first.
 Loading the JAX package's orbax checkpoints is not part of this format.
 
 Under a process group every rank calls ``save_checkpoint`` and rank 0
-writes: a checkpoint always holds the one-device layout, so an FSDP run's
-optimizer state is all-gathered from the shards first
-(``parallel/step.py``), and a resumed run cuts it again when it shards;
-it also holds every rank's dropout generator.
+writes: a checkpoint always holds the one-device layout, so an FSDP or
+tensor-parallel run's optimizer state is all-gathered from the shards
+first (``parallel/step.py``), a pipeline's parameters and optimizer state
+from the stages that own them (``parallel/pipeline.py``), and a resumed
+run cuts it again when it places its layout; it also holds every rank's
+dropout generator.
 """
 
 from __future__ import annotations
@@ -75,10 +77,12 @@ def _atomic_symlink(target: str, link: str) -> None:
 
 def _payload(state) -> dict:
     layout = getattr(state, "layout", None)
+    if layout is not None:
+        layout.gather_params()  # a pipeline stage holds only its blocks current
     payload = {
         "model": state.model.state_dict(),
         "optimizer": (layout.full_optimizer_state(state.optimizer) if layout is not None
-                      and layout.shards else state.optimizer.state_dict()),
+                      else state.optimizer.state_dict()),
         "step": int(state.step),
     }
     if state.generator is not None:
@@ -240,10 +244,10 @@ def load_checkpoint(state, log_name: str, path: str = "./logs/",
     def apply(payload: dict) -> None:
         state.model.load_state_dict(payload["model"])
         layout = getattr(state, "layout", None)
-        if layout is not None and layout.shards:
-            # a placed FSDP or tensor-parallel state (a rollback, an
-            # elastic restore): its shards and their optimizer state are cut
-            # from the one-device layout the checkpoint holds
+        if layout is not None:
+            # a placed state (a rollback, an elastic restore): FSDP's and
+            # tensor parallelism's shards and a pipeline stage's optimizer
+            # state are cut from the one-device layout the checkpoint holds
             layout.place_loaded(state.optimizer, payload["optimizer"])
         else:
             load_optimizer_state(state.optimizer, payload["optimizer"])

@@ -406,7 +406,7 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
         stops."""
         epoch_checkpoints(epoch, metric, saved)
         # the ranks of a group stop together
-        if walltime_check is not None and res.agree(walltime_check()):
+        if walltime_check is not None and res.agree(walltime_check())[0]:
             _log(verbosity, f"Walltime guard tripped at epoch {epoch}")
             return True
         return preempt_boundary(epoch)

@@ -16,7 +16,12 @@ Tolerances, with their reasons:
 * parameters after one pipelined SGD step (lr 0.1, ``norm="batch"``):
   rtol 1e-5, atol 1e-6, and the running statistics rtol 1e-5, atol 1e-6
   (SGD keeps the parameter deltas proportional to the gradients);
-* every stage holds the same state, bit for bit.
+* every stage holds the same state, bit for bit;
+* a stage's optimizer steps the prologue, its own blocks and the
+  epilogue only; two stages' AdamW steps, gathered, and a checkpoint's
+  optimizer state equal the one-stage pipeline's bit for bit (the same
+  operations per microbatch, the prologue's gradient summed with zeros),
+  and so does a run resumed from that checkpoint.
 """
 
 import copy
@@ -138,6 +143,48 @@ def test_pipelined_step_matches_jax(pools, n_stage):
     for name in outs[0]["state"]:
         for out in outs[1:]:
             np.testing.assert_array_equal(out["state"][name], outs[0]["state"][name])
+
+
+def test_each_stage_holds_its_blocks_and_checkpoints_hold_them_all(pools, tmp_path):
+    """2 stages, AdamW, 3 steps with a checkpoint after the first: each
+    stage's optimizer holds its own blocks (with the prologue and the
+    epilogue) and no other; the gathered state and the checkpoint layout's
+    optimizer state equal the one-stage pipeline's, and the run resumed from
+    the checkpoint ends where the uninterrupted one does."""
+    import torch
+
+    from hydragnn_tpu_torch.convert import batch_from_numpy
+    from hydragnn_tpu_torch.parallel.pipeline import make_pipelined_train_step, place_pipeline
+    from hydragnn_tpu_torch.train.step import create_train_state
+
+    s = _setup()
+    adam = s.opt_cfg
+    outs = pools(2).run("pipeline_layout", _inputs(s, opt=adam, steps=3, save_after=1,
+                                                   path=str(tmp_path)))
+    model = s.port_model()
+    state = place_pipeline(create_train_state(model, adam, seed=0), adam)
+    step = make_pipelined_train_step(model, n_micro=N_MICRO)
+    batches = tuple(batch_from_numpy(b) for b in s.batches[:N_MICRO])
+    for _ in range(3):
+        step(state, batches)
+    names = [n for n, _ in model.named_parameters()]
+    ring = {r: [n for i in (1 + 2 * r, 2 + 2 * r) for n in names
+                if n.startswith((f"graph_convs.{i}.", f"feature_layers.{i}."))] for r in range(2)}
+    for r, out in enumerate(outs):
+        others = set(ring[1 - r])
+        assert out["held"] == [n for n in names if n not in others], r
+        for name, want in model.state_dict().items():
+            np.testing.assert_array_equal(out["state"][name], want.numpy(), err_msg=name)
+            np.testing.assert_array_equal(out["resumed_state"][name], want.numpy(),
+                                          err_msg=f"resumed {name}")
+        want = state.optimizer.state_dict()["state"]
+        for got in (out["optimizer"], out["resumed_optimizer"]):
+            assert sorted(got) == sorted(want)
+            for i, per in want.items():
+                for k, v in per.items():
+                    if torch.is_tensor(v):
+                        np.testing.assert_array_equal(got[i][k], v.numpy(),
+                                                      err_msg=f"{names[i]} {k}")
 
 
 def test_pipeline_refusals_match_jax():

@@ -419,6 +419,51 @@ def test_a_corrupted_latest_falls_back_to_the_previous_epoch(tmp_path):
 # -- the watchdog and the fault plan ----------------------------------------
 
 
+def test_the_stop_poll_is_scheduled_by_time_under_a_group(monkeypatch):
+    """Under a process group the ranks poll at an epoch's first dispatch,
+    then ``POLL_S`` ahead at the slowest rank's pace (the agreed maximum),
+    at every epoch end, and at every dispatch with ``poll_every`` 1; a
+    request seen at a poll stops the run (the group faked: world 2, the
+    all-reduce the identity on this rank's values)."""
+    import hydragnn_tpu_torch.parallel.comm as comm
+
+    monkeypatch.setattr(comm, "world_of", lambda group=None: 2)
+    polls = []
+
+    def agree(flag, value=0.0):
+        polls.append(value)
+        return bool(flag), float(value)
+
+    now = {"t": 0.0}
+    monkeypatch.setattr(time, "perf_counter", lambda: now["t"])
+    res = Resilience()
+    res.POLL_S = 0.05
+    monkeypatch.setattr(res, "agree", agree)
+    polled = []
+    for d in range(40):
+        n = len(polls)
+        now["t"] = d * 0.01  # a dispatch every 10 ms
+        assert not res.stop_requested(d)
+        if len(polls) > n:
+            polled.append(d)
+    # the first dispatch, the default stride (8), then 0.05 s at 10 ms per
+    # dispatch: every 5th
+    assert polled[:4] == [0, 8, 13, 18], polled
+    assert not res.stop_requested(None) and len(polls) == len(polled) + 1
+    every = Resilience(poll_every=1)
+    monkeypatch.setattr(every, "agree", agree)
+    n = len(polls)
+    for d in range(6):
+        every.stop_requested(d)
+    assert len(polls) == n + 6
+    from hydragnn_tpu_torch.resilience import PreemptionHandler
+
+    res.preempt = PreemptionHandler()
+    res.preempt.request()
+    assert not res.stop_requested(polled[-1] + 1)  # between polls
+    assert res.stop_requested(res._next_poll)
+
+
 def test_the_watchdog_fires_once_on_a_hang_and_stays_quiet_otherwise():
     fired = []
     wd = Watchdog(0.05, on_hang=fired.append)

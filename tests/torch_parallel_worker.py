@@ -309,7 +309,7 @@ def task_pipeline(inp: dict, rank: int) -> dict:
 
     model = _model(inp)
     state = _state(inp, model)
-    place_pipeline(state)
+    place_pipeline(state, inp["opt"])
     batches = [_batch(b) for b in inp["batches"]]
     m = len(batches)
     with torch.no_grad():
@@ -321,6 +321,45 @@ def task_pipeline(inp: dict, rank: int) -> dict:
             "sequential": [[o.numpy() for o in p] for p in seq], "steps": metrics,
             "state": {k: v.numpy() for k, v in host_gather(state).items()},
             "blocks": step.pipeline.blocks}
+
+
+def task_pipeline_layout(inp: dict, rank: int) -> dict:
+    """The pipeline's layout: the parameters this stage's optimizer steps,
+    ``steps`` pipelined train steps with a checkpoint after the first
+    ``save_after``, the gathered state and the checkpoint's (one-device)
+    optimizer state; then a fresh state placed, the checkpoint loaded and
+    the remaining steps taken again."""
+    from hydragnn_tpu_torch.parallel.mesh import host_gather
+    from hydragnn_tpu_torch.parallel.pipeline import make_pipelined_train_step, place_pipeline
+    from hydragnn_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    batches = tuple(_batch(b) for b in inp["batches"])
+    names = [n for n, _ in _model(inp).named_parameters()]
+
+    def placed():
+        model = _model(inp)
+        state = place_pipeline(_state(inp, model), inp["opt"])
+        return state, make_pipelined_train_step(model, n_micro=len(batches))
+
+    def opt_numpy(sd):
+        return {i: {k: v.numpy() for k, v in per.items() if torch.is_tensor(v)}
+                for i, per in sd["state"].items()}
+
+    state, step = placed()
+    held = [names[i] for i in state.layout.held]
+    for i in range(inp["steps"]):
+        if i == inp["save_after"]:
+            save_checkpoint(state, "pipe", i, path=inp["path"])
+        step(state, batches)
+    full = opt_numpy(state.layout.full_optimizer_state(state.optimizer))
+    gathered = {k: v.numpy() for k, v in host_gather(state).items()}
+    again, step2 = placed()
+    load_checkpoint(again, "pipe", path=inp["path"])
+    for _ in range(inp["steps"] - inp["save_after"]):
+        step2(again, batches)
+    return {"held": held, "state": gathered, "optimizer": full,
+            "resumed_state": {k: v.numpy() for k, v in host_gather(again).items()},
+            "resumed_optimizer": opt_numpy(again.layout.full_optimizer_state(again.optimizer))}
 
 
 def task_pipeline_refusals(inp: dict, rank: int) -> dict:
