@@ -251,7 +251,27 @@ logged (the last is a ``capture summary`` line).
    channel shard (C = 16), a pipeline microbatch (16 graphs) and a
    superstep block; and, in the last phase's world-1 group, the
    tensor-parallel and pipelined steps of the 9-layer GIN through the
-   modules, each bit-equal to the one-device step.
+   modules, each bit-equal to the one-device step;
+17. the telemetry plane (``telemetry_phase``, on by default in every other
+   phase too): the qm9.json GIN at its published widths on 256 molecules,
+   2 epochs of ``run_training`` with ``Telemetry`` fully on (journal,
+   trace events, ledger, ``HYDRAGNN_LEDGER`` naming a path,
+   ``HYDRAGNN_COMPILE_SENTINEL=strict``) and again with
+   ``HYDRAGNN_TELEMETRY=0``: trained parameters bit-equal, the journal's
+   ``run_start``, one ``epoch`` per epoch and ``run_end`` in ``seq`` order,
+   a loadable ``trace.json`` with the ``train`` and ``dataload`` spans, one
+   ledger entry per captured train and eval graph whose ``flops`` equal the
+   CPU route's for the same signature and whose ``peak_bytes`` are above 0,
+   the same count of host synchronisations
+   (``torch.cuda.set_sync_debug_mode("warn")``) over an epoch's dispatch
+   loop with the plane on and off, the strict sentinel tripped by a forced
+   new bucket, and the captured train step's ms with the plane on and off
+   (ABBA); the fleet (phase 14) runs its replicas with the plane on, a
+   traced predict's ``request_id`` in the router's and a replica's
+   journals, ``FleetRouter.metrics()`` over both replicas
+   (``steady_captures`` 0), the per-request time between ``fleet_admit``,
+   ``fleet_dispatch`` and ``fleet_reply`` of its burst, and the served and
+   routed bursts' p50 with the plane on and off (ABBA).
 
 ``--parallel`` (four cards, one rank each) runs the parallel routes: DDP,
 FSDP, halo, edge sharding, and this slice's tensor parallel (1 x 4 and
@@ -1817,8 +1837,10 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     lib_err = float((torch.sparse.mm(a_csr, h) - fs.gather_scatter_sum(
         h, b.senders, b.receivers, n, weight=w, index=recv_idx))[:real_rows].abs().max())
     log(f"  yardstick torch.sparse.mm(CSR, h) max|diff| vs kernel = {lib_err:.3e}")
-    k1_bytes = (n * 64 * 4) + (2 * e * 4) + (e * 4) + (n * 64 * 4)
-    k1_ops = 2 * e * 64
+    # the bound's counts are the kernels' own cost(...), the one count the
+    # cost ledger reads too
+    k1_ops, k1_bytes = fs.cost("gather_scatter_sum", rows=n, cols=64, ids=e, out_rows=n,
+                               weight="edge")
     k1.update(shape=f"h[{n},64] f32, E={e}, w[E]", bytes=k1_bytes, ops=k1_ops)
 
     pooled_in = (feats(64, torch.float32) * nmask).contiguous()
@@ -1830,8 +1852,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
         library_ms=graph_time_ms(torch, lambda: torch.zeros(
             g, 64, device=dev).index_add_(0, ids_long, pooled_in)),
     )
-    k2_bytes = (n * 64 * 4) + (n * 4) + (g * 64 * 4)
-    k2_ops = n * 64
+    k2_ops, k2_bytes = fs.cost("segment_sum", rows=n, cols=64, ids=n, out_rows=g)
     k2.update(shape=f"data[{n},64] f32 -> G={g}", bytes=k2_bytes, ops=k2_ops)
     # the other main shapes' times go beside the pooling row (filled below)
 
@@ -1861,7 +1882,8 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
     # forward and its transposed launch; no one PyTorch call computes a sum
     # weighted per edge and channel
     w_ch = (torch.rand(e, 64, generator=gen).to(dev) * mask[:, None]).contiguous()
-    ch_bytes = k1_bytes + e * 64 * 4 - e * 4
+    ch_bytes = fs.cost("gather_scatter_sum", rows=n, cols=64, ids=e, out_rows=n,
+                       weight="channel")[1]
     for key, entry, fn, plain in (
         ("gather_scatter_sum_schnet", k1,
          lambda: fs.gather_scatter_sum(h, b.senders, b.receivers, n, weight=w_ch,
@@ -1913,8 +1935,8 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
         f"on the entries of rows 0..N-2 = {float(lib_diff[lib_rows != n - 1].abs().max()):.3e}; "
         f"timed by events around back-to-back calls: {k3['library_ms'] * 1e3:.2f} us, the "
         f"kernel's wrapper {t_k3_events * 1e3:.2f} us")
-    k3_bytes = 2 * e_ext * GAT_HEADS * 4 + e_ext * 4
-    k3_ops = 5 * e_ext * GAT_HEADS  # max, subtract, exp, add, divide per entry
+    # max, subtract, exp, add, divide per entry
+    k3_ops, k3_bytes = fsm.cost("segment_softmax", rows=e_ext, cols=GAT_HEADS)
     k3.update(shape=f"logits[{e_ext},{GAT_HEADS}] f32, N={n} segments (GAT self-loop layout)",
               bytes=k3_bytes, ops=k3_ops)
     # the segment sums around it: the [E', 6, 64] aggregation and the
@@ -1952,8 +1974,9 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
         t_k = graph_time_ms(torch, lambda: fs.fused_segment_sum(x, ids, n_rows, index=index))
         t_lib = graph_time_ms(torch, lambda: torch.zeros(
             n_rows, x.shape[1], device=dev).index_add_(0, ids_l, x))
-        nbytes = x.numel() * 4 + ids.shape[0] * 4 + n_rows * x.shape[1] * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, x.numel() / FP32_FLOPS) * 1e3
+        ops, nbytes = fs.cost("segment_sum", rows=x.shape[0], cols=x.shape[1],
+                              ids=ids.shape[0], out_rows=n_rows)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
         b2_shapes.append(dict(shape=f"{label} [{x.shape[0]},{x.shape[1]}] f32 -> {n_rows}",
                               ms=t_k, library_ms=t_lib, bound_ms=bound,
                               pieces=int(index.piece_ptr[-1]),
@@ -1975,8 +1998,7 @@ def kernel_phase(torch, batch, small=None, n_max: int = 32, timing: bool = True,
         library_ms=graph_time_ms(torch, lambda: torch.softmax(premasked, dim=-1)),
     )
     rows = g * 4 * n_max
-    k4_bytes = 2 * rows * n_max * 4 + g * n_max
-    k4_ops = 5 * rows * n_max
+    k4_ops, k4_bytes = fsm.cost("masked_softmax", rows=rows, cols=n_max, mask_bytes=g * n_max)
     k4.update(shape=f"logits[{g},4,{n_max},{n_max}] f32, mask[{g},{n_max}]", bytes=k4_bytes,
               ops=k4_ops)
     lib_err = float((torch.softmax(premasked, dim=-1) - fsm.masked_softmax(x_ms, valid))
@@ -2138,8 +2160,9 @@ def geometric_kernel_phase(torch, seed: int, entries: list, failures: list,
         failures.append("B1 vs gather-then-sum over DimeNet's triplets")
     if timing:
         hd, wd = h.detach(), w.detach()
-        nbytes = e * c * 4 + 2 * t * 4 + t * c * 4 + e * c * 4
-        bound = max(nbytes / HBM_BYTES_PER_S, 2 * t * c / FP32_FLOPS) * 1e3
+        ops, nbytes = fs.cost("gather_scatter_sum", rows=e, cols=c, ids=t, out_rows=e,
+                              weight="channel")
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
         for name, fn, plain_fn in (
             ("gather_scatter_sum",
              lambda: fs.gather_scatter_sum(hd, b.idx_kj, b.idx_ji, e, weight=wd, index=ji_idx),
@@ -2181,8 +2204,8 @@ def geometric_kernel_phase(torch, seed: int, entries: list, failures: list,
             t_k = graph_time_ms(torch, lambda: fs.fused_segment_sum(xd, ids, rows, index=index))
             t_lib = graph_time_ms(torch, lambda: torch.zeros(rows, 96, device=dev).index_add_(
                 0, ids_l, xd))
-            nbytes = xd.numel() * 4 + n_ids * 4 + rows * 96 * 4
-            bound = max(nbytes / HBM_BYTES_PER_S, xd.numel() / FP32_FLOPS) * 1e3
+            ops, nbytes = fs.cost("segment_sum", rows=n_ids, cols=96, ids=n_ids, out_rows=rows)
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
             shapes.append(dict(shape=f"{label} [{n_ids},3*32] f32 -> {rows}", ms=t_k,
                                library_ms=t_lib, bound_ms=bound,
                                pieces=int(index.piece_ptr[-1]),
@@ -2241,8 +2264,8 @@ def edge_kernel_phase(torch, seed: int, entries: list, failures: list,
             t_p = graph_time_ms(torch, lambda: fs.plain_segment_sum(xd, ids, rows))
             t_lib = graph_time_ms(torch, lambda: torch.zeros(rows, c, device=dev).index_add_(
                 0, ids_l, xd))
-            nbytes = xd.numel() * 4 + n_ids * 4 + rows * c * 4
-            bound = max(nbytes / HBM_BYTES_PER_S, xd.numel() / FP32_FLOPS) * 1e3
+            ops, nbytes = fs.cost("segment_sum", rows=n_ids, cols=c, ids=n_ids, out_rows=rows)
+            bound = max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS) * 1e3
             shapes.append(dict(shape=f"{label} [{n_ids},{c}] f32 -> {rows}", ms=t_k,
                                plain_ms=t_p, library_ms=t_lib, bound_ms=bound,
                                bound_by="bytes", bytes=nbytes,
@@ -2552,9 +2575,9 @@ def _time_quant_dense(torch, label: str, x, w, b, plain: bool = False) -> dict:
         acc = torch._int_mm(x_q, w_cols).float()
         return acc * scale if b is None else torch.addcmul(b, acc, scale)
 
+    ops, nbytes = qm.cost(m, k, n, x.element_size(), bias=b is not None)
     t = dict(ms=graph_time_ms(torch, kernel), plain_ms=None, library_ms=None,
-             bytes=m * k * x.element_size() + k * n + (1 if b is None else 2) * n * 4 + m * n * 4,
-             ops=2 * m * k * n, shape=f"x[{m},{k}] {dtype}, W_q[{k},{n}] int8 ({label})")
+             bytes=nbytes, ops=ops, shape=f"x[{m},{k}] {dtype}, W_q[{k},{n}] int8 ({label})")
     if plain:
         t["plain_ms"] = graph_time_ms(torch, lambda: qm.reference_quant_dense(x, w_q, s_w, s_x,
                                                                               b))
@@ -2593,9 +2616,9 @@ def _time_fp8_dense(torch, label: str, x, w, b, plain: bool = False) -> dict:
     def kernel():
         return f8.fp8_matmul_parts(x, w8, s_w8, s_x8, b, fmt)[1]
 
+    ops, nbytes = f8.cost(m, k, n, bias=b is not None)
     t = dict(ms=graph_time_ms(torch, kernel), plain_ms=None, library_ms=None,
-             bytes=m * k * 4 + k * n + (1 if b is None else 2) * n * 4 + 4 + m * n * 4,
-             ops=2 * m * k * n, shape=f"x[{m},{k}] f32, W_q[{k},{n}] e4m3 ({label})")
+             bytes=nbytes, ops=ops, shape=f"x[{m},{k}] f32, W_q[{k},{n}] e4m3 ({label})")
     if plain:
         t["plain_ms"] = graph_time_ms(torch, lambda: f8.reference_fp8_dense(x, w8, s_w8, s_x8,
                                                                             b, fmt))
@@ -4737,11 +4760,9 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
         )
         with _plain_versions_on_card():
             t["plain_build_ms"] = event_time_ms(torch, md_build, iters=10, reps=3)
-        # the work this run's data needs: every candidate pair tested once
-        # (~48 fp32 operations: two 3 x 3 products, three roundings, the
-        # displacement and d^2), each input read once (positions, cell
-        # coordinates, sort order: 28 B per atom; the cell table: 8 B per
-        # cell), each edge written once (8 B)
+        # the work this run's data needs (fused_cell_list.cost: every
+        # candidate pair tested once, each input read and each edge written
+        # once)
         n = pos.shape[0]
         offs = torch.as_tensor(fcl._CELL_OFFSETS, device=dev)
         g = torch.tensor(grid, device=dev)
@@ -4751,8 +4772,7 @@ def cell_list_phase(torch, systems: dict, device: str = "cuda", timing: bool = T
         ncid = (w[..., 0] * grid[1] + w[..., 1]) * grid[2] + w[..., 2]
         candidates = int((torch.clamp(occ[ncid.long()], max=cap) * valid).sum())
         edges = min(int(outs[key][4]), sys_["max_edges"])
-        t["bytes"] = 28 * n + 8 * n_cells + 8 * edges + 21 * 4
-        t["ops"] = 48 * candidates
+        t["ops"], t["bytes"] = fcl.cost(n, n_cells, edges, candidates)
         t["shape"] = (f"{n} atoms, grid {grid}, capacity {cap}, {candidates} candidate pairs, "
                       f"{edges} edges")
         times[key] = t
@@ -5603,6 +5623,7 @@ def mlip_cpu_parity(torch, model, host, device: str, tag: str) -> None:
 FLEET_PROBES = 32           # requests sent one at a time (each served alone)
 FLEET_REQUESTS = 512        # the traffic through the router and the one server
 FLEET_KILL_AFTER = 128      # answered requests before one replica is killed
+FLEET_ABBA_REQUESTS = 128   # each burst of the telemetry plane's on/off arms (fp32)
 FLEET_BOOT_S = 300.0
 # a second traffic router's window per replica (logged, not gated): the
 # default, Serving.fleet.inflight_per_replica 2, keeps the replicas' batches
@@ -5708,7 +5729,18 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
     (logged), and through one at the default window (its interactive
     budget the whole burst), one replica killed (SIGKILL) in it after
     ``FLEET_KILL_AFTER`` answers in the fp32 run, every request answered.
-    Logs p50/p99 and graphs/s of each."""
+    Logs p50/p99 and graphs/s of each.
+
+    With the telemetry plane (on in the replicas, as by default, and in
+    this process, whose router journal is open for the phase): a probe's
+    ``request_id`` must appear in the router's journal and in a replica's;
+    ``FleetRouter.metrics()`` must aggregate both replicas' registries with
+    ``steady_captures`` 0. Logged: each stage of the default-window burst
+    (``fleet_admit`` to ``fleet_dispatch`` to ``fleet_reply`` per request,
+    the replicas' ``replica_execute`` and ``wire_serve`` times) and, in
+    fp32, the one server's and the router's p50 with this process's plane
+    on and off (``HYDRAGNN_TELEMETRY=0``), ABBA."""
+    from hydragnn_tpu_torch import telemetry as tel
     from hydragnn_tpu_torch.serve import (CanaryMismatchError, FleetRouter, PredictionServer,
                                           ReplicaHost, ServingConfig, run_traffic)
     from hydragnn_tpu_torch.serve.batcher import serving_collate
@@ -5732,6 +5764,8 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
                                              samples=samples)
         local.warmup()
         local.start()
+        router_log = Path(tmp) / f"fleet_{mode}" / "router" / "events.jsonl"
+        tel.open_journal(file=str(router_log), run_id=f"router-{mode}")
         router = FleetRouter({"peer_timeout": 60.0, "cache_bytes": 1 << 26})
         traffic_router = FleetRouter({"peer_timeout": 60.0, "cache_bytes": 0,
                                       "budget_interactive": FLEET_REQUESTS})
@@ -5761,6 +5795,20 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
                           for h, r in zip(hits, routed))
             steady = [router.replica_stats(i)["steady_captures"] for i in range(2)]
             quant = [router.replica_stats(i)["models"][name]["quantized"] for i in range(2)]
+            fleet_metrics = router.metrics()
+            agg = fleet_metrics["aggregate"]
+            registries = [sorted(fleet_metrics["replicas"].get(str(i), {}).get("registry", {})
+                                 .get("counters", {})) for i in range(2)]
+            log(f"[{card}] [fleet {mode}] FleetRouter.metrics(): {agg['replicas_reporting']} of "
+                f"{agg['replicas_total']} replicas reporting, served {agg['served']}, shed "
+                f"{agg['shed']}, steady_captures {agg['steady_captures']} (allowed 0); the "
+                f"replicas' registry counters {registries}")
+            if agg["replicas_reporting"] != 2 or agg["steady_captures"] != 0 or \
+                    not all("serve_requests" in r for r in registries):
+                raise AssertionError(f"fleet {mode}: metrics() did not aggregate both replicas "
+                                     f"with 0 captures: {agg}, {registries}")
+            probe_rids = {r["request_id"] for r in tel.read_journal(str(router_log))
+                          if r["kind"] == "fleet_admit"} if _flush_journal() else set()
             log(f"[{card}] [fleet {mode}] 2 replica processes booted from {ckpt['log_name']} in "
                 f"{boot_s:.1f} s (warm-up included, int8 buckets per replica {quant}); "
                 f"{len(probes)} requests one at a time through the router vs the in-process "
@@ -5804,17 +5852,41 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
             # window (gated; in fp32 a replica dies in it)
             order = np.arange(FLEET_REQUESTS) % len(samples)
             local_rep = run_traffic(local, name, samples, FLEET_REQUESTS, order=order)
+            if mode == "fp32":
+                # the plane's cost in this process, ABBA: the one server's
+                # burst, then the router's (the replicas keep theirs on)
+                abba = {"server": {"on": [], "off": []}, "router": {"on": [], "off": []}}
+                traffic_router.start()
+                for what, target in (("server", local), ("router", traffic_router)):
+                    for arm in ABBA * 2:
+                        with _env(HYDRAGNN_TELEMETRY=None if arm == "on" else "0"):
+                            r_ = run_traffic(target, name, samples, FLEET_ABBA_REQUESTS,
+                                             order=order[:FLEET_ABBA_REQUESTS],
+                                             timeout_s=300.0)
+                        abba[what][arm].append(r_.summary()["p50_ms"])
+                out["abba_p50_ms"] = abba
+                med = {w: {a: float(np.median(v)) for a, v in arms.items()}
+                       for w, arms in abba.items()}
+                log(f"[{card}] [fleet {mode}] p50 ms of {FLEET_ABBA_REQUESTS}-request bursts "
+                    f"with this process's telemetry plane on and off (ABBA twice): one server "
+                    f"on {abba['server']['on']} off {abba['server']['off']} (medians "
+                    f"{med['server']['on']:.3f} / {med['server']['off']:.3f}); router over 2 "
+                    f"replicas at the default window on {abba['router']['on']} off "
+                    f"{abba['router']['off']} (medians {med['router']['on']:.3f} / "
+                    f"{med['router']['off']:.3f})")
             wide_router.start()
             wide = run_traffic(wide_router, name, samples, FLEET_REQUESTS, order=order,
                                timeout_s=300.0)
             wide_router.stop()
             traffic_router.start()
             killed = {}
+            served0 = traffic_router.stats()["served"]
+            t_burst = time.time()
             if mode == "fp32":
                 def killer():
-                    while traffic_router.stats()["served"] < FLEET_KILL_AFTER:
+                    while traffic_router.stats()["served"] - served0 < FLEET_KILL_AFTER:
                         time.sleep(0.001)
-                    killed["served"] = traffic_router.stats()["served"]
+                    killed["served"] = traffic_router.stats()["served"] - served0
                     workers[0].kill()
                     killed["at"] = time.perf_counter()
 
@@ -5839,6 +5911,8 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
                                        and st["failovers"] >= 1):
                 raise AssertionError(f"fleet: the replica kill did not land mid-stream: {killed}, "
                                      f"failovers {st['failovers']}")
+            _flush_journal()
+            stages = _request_stages(tel.read_journal(str(router_log)), t_burst)
             out[mode] = {"local": [local_rep.summary()[k] for k in
                                    ("p50_ms", "p99_ms", "graphs_per_sec")],
                          "router": [rep.summary()[k] for k in
@@ -5854,7 +5928,80 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
             for w in workers:
                 w.terminate()
             local.stop()
+            tel.close_journal()
+        # the replicas' journals, complete after their SIGTERM (a killed
+        # replica's loses its last flush window)
+        rep_recs = [r for w in workers for r in tel.read_journal(
+            str(Path(w.spec_path).parent / "events.jsonl"))
+            if (Path(w.spec_path).parent / "events.jsonl").exists()]
+        shared = probe_rids & {r.get("request_id") for r in rep_recs
+                               if r["kind"] == "replica_execute"}
+        stages.update(_replica_stages(rep_recs, stages.pop("rids")))
+        out[mode]["stages_ms"] = stages
+        log(f"[{card}] [fleet {mode}] the default-window burst per request, p50 ms (router "
+            f"journal: fleet_admit -> first fleet_dispatch -> fleet_reply; replicas' journals: "
+            f"replica_execute latency, wire_serve handler time): {stages}; probe request ids in "
+            f"the router's and a replica's journal: {len(shared)} of {len(probe_rids)} "
+            f"(allowed at least 1)")
+        if not shared:
+            raise AssertionError(f"fleet {mode}: no traced request_id in both the router's and "
+                                 "a replica's journal")
     return out
+
+
+def _flush_journal() -> bool:
+    """Push the process journal's buffered records to its file."""
+    from hydragnn_tpu_torch import telemetry as tel
+
+    journal = tel.active_journal()
+    if journal is not None:
+        journal.flush()
+    return True
+
+
+def _request_stages(records: list, since: float) -> dict:
+    """p50 ms of each router stage of the requests admitted at or after
+    ``since`` (wall clock): admission to first dispatch, first dispatch to
+    reply, admission to reply; ``rids`` the request ids."""
+    by: dict = {}
+    for r in records:
+        rid = r.get("request_id")
+        if rid is not None:
+            by.setdefault(rid, []).append(r)
+    waits, trips, totals, rids = [], [], [], set()
+    for rid, recs in by.items():
+        t = {}
+        for r in recs:
+            t.setdefault(r["kind"], r["t_wall"])
+        if not {"fleet_admit", "fleet_dispatch", "fleet_reply"} <= set(t) or \
+                t["fleet_admit"] < since:
+            continue
+        rids.add(rid)
+        waits.append(t["fleet_dispatch"] - t["fleet_admit"])
+        trips.append(t["fleet_reply"] - t["fleet_dispatch"])
+        totals.append(t["fleet_reply"] - t["fleet_admit"])
+
+    def p50(v):
+        return round(float(np.percentile(v, 50)) * 1e3, 3) if v else None
+
+    return {"requests": len(rids), "admit_to_dispatch": p50(waits),
+            "dispatch_to_reply": p50(trips), "admit_to_reply": p50(totals), "rids": rids}
+
+
+def _replica_stages(records: list, rids: set) -> dict:
+    """p50 ms of the replicas' ``replica_execute`` latency (the in-process
+    server's queue, batch and replay) and ``wire_serve`` handler time of
+    the requests ``rids``."""
+    execute = [r["latency_s"] for r in records
+               if r["kind"] == "replica_execute" and r.get("request_id") in rids
+               and "latency_s" in r]
+    serve = [r["dur_s"] for r in records
+             if r["kind"] == "wire_serve" and r.get("request_id") in rids]
+
+    def p50(v):
+        return round(float(np.percentile(v, 50)) * 1e3, 3) if v else None
+
+    return {"replica_execute": p50(execute), "wire_serve": p50(serve)}
 
 
 # -- the data plane: files on disk, the packed store, the sharded store ------
@@ -7105,6 +7252,295 @@ def resume_child(cfg_json: str, path: str, seed: int, out: str, device: str = "c
                                               state.model.state_dict().items()}}, out)
 
 
+# -- the telemetry plane ----------------------------------------------------------------------
+
+TELEMETRY_SAMPLES = 256  # qm9-like molecules of the telemetry phase's two runs
+TELEMETRY_EPOCHS = 2     # the one cut of the published num_epoch 30
+TELEMETRY_ABBA_EPOCHS = 8  # epochs of captured train steps per ABBA arm
+TELEMETRY_KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum")
+ABBA = ("on", "off", "off", "on")  # the order of the plane's on and off arms
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set (None: removed) inside, put back after."""
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _cpu_route_counts(torch, aug: dict, buckets: dict, seed: int) -> dict:
+    """The CPU route's ledger counts (``telemetry.ledger.count``) of the
+    train and eval steps, one per ``(kind, bucket)`` of ``buckets`` (a
+    host batch each), on a CPU model of ``aug`` whose state the counted
+    steps leave as they found it (``capture.preserved``)."""
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.resilience import Resilience, wrap_step_with_guard
+    from hydragnn_tpu_torch.telemetry import ledger
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_eval_step,
+                                               make_train_step, resolve_loss_scale,
+                                               resolve_precision)
+
+    training = aug["NeuralNetwork"]["Training"]
+    cpu = torch.device("cpu")
+    state = create_train_state(create_model_config(aug, device="cpu", seed=seed),
+                               training["Optimizer"], seed=seed)
+    dtype = resolve_precision(str(training["precision"]), cpu)
+    train = make_train_step(dtype, resolve_loss_scale(training))
+    if Resilience.from_config(training, cpu).guard_enabled:
+        train = wrap_step_with_guard(train)
+    steps = {"train_step": train, "eval_step": make_eval_step(dtype)}
+    out = {}
+    for (kind, bucket), batch in buckets.items():
+        with capture.preserved(state):
+            out[(kind, bucket)] = ledger.count(steps[kind], state, batch)[1]
+    return out
+
+
+class _SwitchingLoader:
+    """A train loader that plans epoch 0 from ``first`` and later epochs
+    from ``later`` (the same samples under a larger pad): a new bucket
+    after the warm-up epoch, for the capture sentinel."""
+
+    def __init__(self, first, later):
+        self._loaders, self._cur = (first, later), first
+
+    def set_epoch(self, epoch: int) -> None:
+        self._cur = self._loaders[min(epoch, 1)]
+        self._cur.set_epoch(epoch)
+
+    def __iter__(self):
+        return iter(self._cur)
+
+    def __len__(self) -> int:
+        return len(self._cur)
+
+    def __getattr__(self, name):
+        return getattr(self._cur, name)
+
+
+def _count_syncs(torch, fn) -> list[str]:
+    """The host synchronisations ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: the Python
+    ``file:line`` of each. The garbage collector runs before and not
+    during: freeing an earlier phase's CUDA graphs synchronises, whenever a
+    collection happens to land."""
+    import gc
+
+    gc.collect()
+    gc.disable()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            gc.enable()
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def telemetry_phase(torch, seed: int, loaders, card: str = "", device: str = "cuda") -> dict:
+    """The telemetry plane on the qm9.json GIN (module docstring, phase
+    17). ``loaders``: the GIN's (train, val, test) loaders of ``prepare``,
+    over which the ABBA epochs and the sentinel's forced bucket run."""
+    from hydragnn_tpu_torch import capture, run_training
+    from hydragnn_tpu_torch import telemetry as tel
+    from hydragnn_tpu_torch.analysis import RecompileError
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.graphs.batching import GraphLoader, PadSpec
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
+    from hydragnn_tpu_torch.telemetry import ledger
+    from hydragnn_tpu_torch.train.loop import train_epoch, train_validate_test
+    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
+                                               resolve_loss_scale)
+    from hydragnn_tpu_torch.train.superstep import make_superstep
+
+    t_part = time.perf_counter()
+    cfg = qm9_config("gin")
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = TELEMETRY_EPOCHS
+    cfg["Telemetry"] = {"enabled": True, "journal": True, "trace_events": True,
+                        "trace_propagate": True, "ledger": True}
+    arch = cfg["NeuralNetwork"]["Architecture"]
+
+    def samples():
+        return qm9_like_samples(TELEMETRY_SAMPLES, seed, float(arch["radius"]),
+                                int(arch["max_neighbours"]))
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tel_") as tmp:
+        runs = {}
+        for arm, env in (("on", {"HYDRAGNN_LEDGER": f"{tmp}/ledger.json",
+                                 "HYDRAGNN_COMPILE_SENTINEL": "strict"}),
+                         ("off", {"HYDRAGNN_TELEMETRY": "0"})):
+            with _env(**env), tel.isolate():
+                fs.reset_launches()
+                c0 = capture.total_captures()
+                t0 = time.perf_counter()
+                state, model, aug = run_training(copy.deepcopy(cfg), samples=samples(),
+                                                 device=device, path=f"{tmp}/{arm}", seed=seed)
+                _sync(torch, device)
+                runs[arm] = dict(state=state, aug=aug, wall=time.perf_counter() - t0,
+                                 captures=capture.total_captures() - c0,
+                                 launches=dict(fs.LAUNCHES), entries=ledger.entries(),
+                                 snapshot=tel.snapshot())
+            tel.configure(None)  # run_training applied the block process-wide
+        on, off = runs["on"], runs["off"]
+        out["launches"] = on["launches"]
+        missing = [k for k in TELEMETRY_KERNELS if on["launches"][k] <= 0]
+        # (1) the plane changes no trained bit
+        diff = [k for (k, a), b in zip(on["state"].model.state_dict().items(),
+                                       off["state"].model.state_dict().values())
+                if not torch.equal(a, b)]
+        # (2) the journal, the trace, the ledger files
+        run_dir = Path(tmp) / "on" / get_log_name_config(on["aug"])
+        recs = tel.read_journal(str(run_dir / "events.jsonl"))
+        kinds = [r["kind"] for r in recs]
+        epochs = [r["epoch"] for r in recs if r["kind"] == "epoch"]
+        with open(run_dir / "trace.json") as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"]}
+        saved = ledger.load(f"{tmp}/ledger.json")
+        off_files = sorted(p.name for p in (Path(tmp) / "off").rglob("*")
+                           if p.name in ("events.jsonl", "trace.json", "ledger.json"))
+        log(f"[{card}] [telemetry] run_training of the qm9.json GIN ({TELEMETRY_SAMPLES} "
+            f"molecules, {TELEMETRY_EPOCHS} epochs, bf16) with the plane on in {on['wall']:.3f} "
+            f"s and with HYDRAGNN_TELEMETRY=0 in {off['wall']:.3f} s; trained tensors that "
+            f"differ: {diff or 'none'} (allowed none); journal kinds {kinds}, seq "
+            f"{[r['seq'] for r in recs]}; trace spans {sorted(spans)}; the off run wrote "
+            f"{off_files or 'no telemetry file'}; registry counters "
+            f"{sorted(on['snapshot']['counters'])}; launches {on['launches']}")
+        bad = []
+        if diff:
+            bad.append(f"trained tensors differ with the plane on and off: {diff}")
+        if missing:
+            bad.append(f"kernels not launched in the telemetry run: {missing}")
+        if kinds[:1] != ["run_start"] or kinds[-1:] != ["run_end"] or                 epochs != list(range(TELEMETRY_EPOCHS)) or                 [r["seq"] for r in recs] != list(range(len(recs))):
+            bad.append(f"journal: kinds {kinds}, epochs {epochs}")
+        if not {"train", "dataload"} <= spans:
+            bad.append(f"trace.json spans {sorted(spans)}")
+        if off_files:
+            bad.append(f"the plane-off run wrote {off_files}")
+        # (3) one ledger entry per captured graph, its flops the CPU route's
+        entries = [e for e in on["entries"] if e["kind"] in ("train_step", "eval_step")]
+        cpu_loaders = dataset_loading_and_splitting(copy.deepcopy(cfg), samples=samples())
+        buckets = {}
+        for kind, ld in zip(("train_step", "eval_step", "eval_step"), cpu_loaders):
+            for epoch in range(TELEMETRY_EPOCHS):
+                ld.set_epoch(epoch)
+                for b in ld:
+                    buckets.setdefault((kind, capture.bucket_of(b)), b)
+        cpu = _cpu_route_counts(torch, on["aug"], {
+            (e["kind"], tuple(e["bucket"])): buckets[(e["kind"], tuple(e["bucket"]))]
+            for e in entries if (e["kind"], tuple(e["bucket"])) in buckets}, seed)
+        rows = []
+        for e in entries:
+            want = cpu.get((e["kind"], tuple(e["bucket"])), {})
+            rows.append((e["kind"], e["bucket"], e["flops"], want.get("flops"),
+                         e.get("peak_bytes"), e["bytes_accessed"], want.get("bytes_accessed"),
+                         e.get("capture_s")))
+        log(f"[{card}] [telemetry] cost ledger: {len(entries)} train/eval entries for "
+            f"{on['captures']} captured graphs, {len(saved['entries'])} saved at "
+            f"HYDRAGNN_LEDGER; per entry (kind, bucket, flops card, flops CPU route, peak "
+            f"bytes, bytes card, bytes CPU route, capture s): {rows}")
+        # one entry per (kind, bucket) the run captured (graphs of one bucket
+        # that differ only in sortedness certificates share the JAX key)
+        if {(e["kind"], tuple(e["bucket"])) for e in entries} != set(buckets) or \
+                not 0 < len(entries) <= on["captures"] or len(saved["entries"]) < len(entries):
+            bad.append(f"ledger: {len(entries)} entries for {on['captures']} captures of "
+                       f"{sorted(buckets)}")
+        if any(r[2] != r[3] or not (r[4] or 0) > 0 for r in rows):
+            bad.append(f"ledger: flops differ from the CPU route's, or peak_bytes 0: {rows}")
+        out["ledger"] = [{"kind": r[0], "bucket": r[1], "flops": r[2], "peak_bytes": r[4],
+                          "bytes_accessed": r[5], "capture_s": r[7]} for r in rows]
+
+        # (4) host syncs over one epoch's dispatch loop, and the captured
+        # train step's ms, plane on and off (ABBA), on a twin of the trained
+        # state over the GIN's 512-molecule train split
+        train = on["aug"]["NeuralNetwork"]["Training"]
+        twin = _twin(torch, on["state"])
+        step = make_superstep(make_train_step(torch.bfloat16, resolve_loss_scale(train)), 1)
+        host = list(loaders[0])
+        batches = [b.to(device) for b in host]
+        for _ in range(2):  # the first captures its bucket, the second replays it
+            train_epoch(step, twin, batches)
+        # a first counted epoch, plane on, is logged and not compared: on
+        # the card it met one synchronisation inside torch that the epochs
+        # after it, plane on or off, did not (chip runs of this phase)
+        first = _count_syncs(torch, lambda: train_epoch(step, twin, batches))
+        syncs = {"on": [], "off": []}
+        for arm in ABBA:
+            with _env(HYDRAGNN_TELEMETRY=None if arm == "on" else "0"):
+                syncs[arm].append(_count_syncs(torch, lambda: train_epoch(step, twin, batches)))
+        where = sorted({x for runs_ in syncs.values() for r in runs_ for x in r})
+        syncs = {arm: [len(r) for r in runs_] for arm, runs_ in syncs.items()}
+        step_ms = {"on": [], "off": []}
+        for arm in ABBA * 2:
+            with _env(HYDRAGNN_TELEMETRY=None if arm == "on" else "0"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TELEMETRY_ABBA_EPOCHS):
+                    train_epoch(step, twin, batches)  # ends on its metrics transfer
+                step_ms[arm].append((time.perf_counter() - t0) * 1e3
+                                    / (TELEMETRY_ABBA_EPOCHS * len(batches)))
+        out["syncs"], out["step_ms"] = syncs, step_ms
+        cost = (np.median(step_ms["on"]) / np.median(step_ms["off"]) - 1.0) * 100.0
+        log(f"[{card}] [telemetry] one epoch's dispatch loop ({len(batches)} captured bf16 "
+            f"train steps): host synchronisations (ABBA) {syncs['on']} with the plane on, "
+            f"{syncs['off']} off (allowed all equal), at {where}; the first counted epoch before "
+            f"them {first}; captured train step ms per "
+            f"step, ABBA twice over "
+            f"{TELEMETRY_ABBA_EPOCHS} epochs an arm (host clock, the epoch's last transfer "
+            f"included): on {[round(x, 4) for x in step_ms['on']]}, off "
+            f"{[round(x, 4) for x in step_ms['off']]}: the plane costs {cost:+.2f}% (medians)")
+        if len(set(syncs["on"] + syncs["off"])) != 1:
+            bad.append(f"host syncs: {syncs}")
+
+        # (5) the capture sentinel: strict passed the on run (no capture after
+        # its warm-up epoch); a forced new bucket after warm-up trips it
+        tr_loader = loaders[0]
+        pad = tr_loader.pad
+        bigger = PadSpec(n_node=pad.n_node + 8, n_edge=pad.n_edge + 128, n_graph=pad.n_graph,
+                         node_cap=pad.node_cap, attn_cap=pad.attn_cap)
+        later = GraphLoader(tr_loader.samples, tr_loader.batch_size, pad=bigger, shuffle=True,
+                            seed=0)
+        fresh = create_train_state(copy.deepcopy(twin.model), train["Optimizer"], seed=seed)
+        nn = copy.deepcopy(on["aug"]["NeuralNetwork"])
+        nn["Training"].update(num_epoch=2, Checkpoint=False, EarlyStopping=False)
+        tripped = None
+        with _env(HYDRAGNN_COMPILE_SENTINEL="strict"):
+            try:
+                train_validate_test(fresh, _SwitchingLoader(tr_loader, later), loaders[1],
+                                    loaders[2], nn, "sentinel", compute_dtype=torch.bfloat16,
+                                    path=f"{tmp}/sentinel")
+            except RecompileError as exc:
+                tripped = str(exc).splitlines()[0][:160]
+        log(f"[{card}] [telemetry] HYDRAGNN_COMPILE_SENTINEL=strict: the run above passed (no "
+            f"capture after its warm-up epoch); a new bucket {bigger.as_tuple()} in epoch 1 "
+            f"{'tripped it: ' + tripped if tripped else 'did NOT trip it'}")
+        if tripped is None:
+            bad.append("the strict sentinel did not trip on a new bucket after warm-up")
+    PARTS["telemetry"] = PARTS.get("telemetry", 0.0) + time.perf_counter() - t_part
+    if bad:
+        raise AssertionError("telemetry: " + "; ".join(bad))
+    return out
+
+
 def resilience_phase(torch, seed: int, card: str, device: str = "cuda") -> dict:
     """The resilience layer on the qm9.json GIN on one card: the guard in
     the captured step (:func:`_guarded_vs_plain`); a rollback (a
@@ -8175,6 +8611,8 @@ def main(argv=None) -> int:
     with timed_phase(phase_s, "resilience"):
         resilience = resilience_phase(torch, args.seed, card=dev["smi"])
         slice_errs = new_shape_kernel_checks(torch, args.seed)
+    with timed_phase(phase_s, "telemetry"):
+        telemetry = telemetry_phase(torch, args.seed, loaders, card=dev["smi"])
     with timed_phase(phase_s, "canaries"):
         canary_phase(torch, "cuda", card=dev["smi"])
     with timed_phase(phase_s, "mlip"):
@@ -8235,8 +8673,10 @@ def main(argv=None) -> int:
                          + mlip["launches"][name] + film["launches"][name]
                          + sum(m["launches"][name] for m in mlips.values())
                          + sum(r["launches"][name] for r in ran_md.values())
-                         + data_plane["launches"][name] + parallel["launches"][name])
+                         + data_plane["launches"][name] + parallel["launches"][name]
+                         + telemetry["launches"][name])
         e["launches_data_plane"] = data_plane["launches"][name]
+        e["launches_telemetry"] = telemetry["launches"][name]
         e["launches_parallel"] = {k: r["launches"][name] for k, r in parallel["runs"].items()}
         if name in PARALLEL_KERNELS and parallel["launches"][name] <= 0:
             raise AssertionError(f"{name} was not launched on the parallel routes")
@@ -8307,6 +8747,7 @@ def main(argv=None) -> int:
         "mlip_serving": {**{a: m["summary"] for a, m in mlip_served.items()},
                          "mptrj_film": film_served["summary"]},
         "fleet": fleet,
+        "telemetry": {k: v for k, v in telemetry.items() if k != "launches"},
         "data_plane": {k: v for k, v in data_plane.items() if k != "launches"},
         "parallel_x1": {k: {"step_ms": r["step_ms"], "losses": r["losses"],
                             **({"allreduce_ms": r["allreduce_ms"]} if "allreduce_ms" in r

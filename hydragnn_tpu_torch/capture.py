@@ -52,6 +52,14 @@ are dropped, so its CSR views sort the ids, which leaves sorted ids in
 place and sums in the certified order): the data-parallel loaders give
 every rank of a group one bucket, so every rank captures at the same
 steps.
+
+Every capture records one entry in the telemetry plane's cost ledger
+(``telemetry/ledger.py``), keyed by the ``ledger`` fields a
+:class:`StepGraphs` is given (model, kind, precision) and the bucket: the
+first warm-up run is counted (FLOPs and bytes, no extra run), and the
+peak memory and seconds are those of the whole capture. Nothing of the
+plane runs inside the captured region: a Python counter there would count
+once, at capture, and never at replay.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ import torch
 
 from .graphs.graph import FIELDS, GraphBatch
 from .ops import fused_scatter as fs
+from .telemetry import ledger
 
 # eager runs of a step on a side stream before its capture
 WARMUP = 2
@@ -262,11 +271,14 @@ class StepGraphs:
     the batches may then lie on the host (they are copied into the
     slots)."""
 
-    def __init__(self, fn, name: str, train: bool = False, device=None):
+    def __init__(self, fn, name: str, train: bool = False, device=None,
+                 ledger: dict | None = None):
         self.fn = fn
         self.name = name
         self.train = train
         self.device = None if device is None else torch.device(device)
+        # the cost ledger's key fields of this step's captures
+        self.ledger = {"model": name, "kind": name, **(ledger or {})}
         self.graphs: dict[tuple, Graph] = {}
         self.captures = 0
         self._state = None
@@ -285,12 +297,22 @@ class StepGraphs:
         _check_guards(f"{self.name}, bucket {bucket_of(batch)}")
         if self._state is None:
             self._state = state
-        with _CAPTURE_LOCK:
+        with _CAPTURE_LOCK, ledger.measured_capture(device, bucket=bucket_of(batch),
+                                                    **self.ledger) as cost:
             slots = _static_copy(batch, device)
             view = slots.replace()
             step = state.step if self.train else None
+            warm_runs = itertools.count()
+
+            def warm():
+                if cost is not None and next(warm_runs) == 0:
+                    # the ledger counts the first warm-up run
+                    _, cost["counts"] = ledger.count(self.fn, state, slots.replace())
+                else:
+                    self.fn(state, slots.replace())
+
             graph, outputs, launches = _capture(
-                lambda: self.fn(state, slots.replace()), lambda: self.fn(state, view), device,
+                warm, lambda: self.fn(state, view), device,
                 generator=state.generator if self.train else None,
                 before=(lambda: preserved(state)) if self.train else contextlib.nullcontext)
             if self.train:
@@ -332,13 +354,14 @@ class Dispatch:
     :class:`StepGraphs` (without ``device`` the batch's own device
     routes). ``collective``: the step runs collectives over a process
     group of more than one rank, and its graphs are keyed by shapes only
-    (:func:`uncertified`)."""
+    (:func:`uncertified`). ``ledger``: the cost ledger's key fields of its
+    captures (``model``, ``kind``, ``precision``)."""
 
     def __init__(self, step, name: str, train: bool = False, device=None,
-                 collective: bool = False):
+                 collective: bool = False, ledger: dict | None = None):
         self.step = step
         self.collective = collective
-        self.graphs = StepGraphs(step, name, train=train, device=device)
+        self.graphs = StepGraphs(step, name, train=train, device=device, ledger=ledger)
 
     def __call__(self, state, batch):
         if (self.graphs.device or batch.device).type == "cuda":

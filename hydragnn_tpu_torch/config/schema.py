@@ -14,7 +14,8 @@ edge-dimension rules; the graph size (``num_nodes``, ``graph_size_variable``:
 ``mlp_per_node`` heads need one size) and the width of the graph
 attributes (``graph_attr_dim``, port-only: the port builds its conditioning
 layers when the model is constructed, flax at its first call), and the
-``Dataset.store`` block of the sharded store. The blocks
+``Dataset.store`` block of the sharded store, and the ``Telemetry`` block
+(validated against ``telemetry.TelemetryConfig``). The blocks
 of subsystems the port does not have yet come with their slices.
 """
 
@@ -154,6 +155,23 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     MDConfig.from_config(config)  # unknown keys and ranges
     for key, val in md_config_defaults().items():
         md_cfg.setdefault(key, val)
+
+    # the telemetry plane: the Telemetry block's defaults are the
+    # TelemetryConfig field defaults, unknown keys raise; the env flags win
+    # when run_training applies it (TelemetryConfig.apply_env)
+    tel_cfg = config.setdefault("Telemetry", {})
+    if not isinstance(tel_cfg, dict):
+        raise ValueError(f"Telemetry must be a dict, got {type(tel_cfg).__name__}")
+    from ..telemetry.config import TelemetryConfig, telemetry_config_defaults
+
+    tel_defaults = telemetry_config_defaults()
+    unknown_tel = set(tel_cfg) - set(tel_defaults)
+    if unknown_tel:
+        raise ValueError(f"Unknown Telemetry key(s) {sorted(unknown_tel)}; known: "
+                         f"{sorted(tel_defaults)}")
+    for key, val in tel_defaults.items():
+        tel_cfg.setdefault(key, val)
+    TelemetryConfig(**tel_cfg).validate()
 
     arch.setdefault("enable_interatomic_potential", False)
 

@@ -49,10 +49,18 @@ wedged socket. Every live ``ShardServer`` of the process is in a registry
 (:func:`live_servers`, creation order) that the fault plan's ``dead_shard``
 and ``slow_peer`` drills address (``resilience/chaos.py``).
 
+Telemetry, as in the JAX module: ``store_remote_fetches_total``,
+``store_failover_fetches_total`` and ``store_quarantine_events_total``
+count beside :meth:`ShardedStore.stats` (whose numbers are published as
+``sharded_store_*`` gauges), a peer going down is a ``failover`` record,
+and with trace propagation on each replicated request runs under one
+``request_id`` (the ambient one or a fresh one), each hop a ``store_hop``
+child record (and, with trace events on, a ``store_hop:<peer>`` span)
+naming the peer it tried, which sees the same id in its own journal.
+
 The JAX module's ``HYDRAGNN_REPLICATION`` / ``HYDRAGNN_PEER_TIMEOUT`` /
-``HYDRAGNN_STORE_RETRIES`` overrides and its telemetry counters and records
-are not ported yet; their knobs here are the constructor's and
-``Dataset.store``'s.
+``HYDRAGNN_STORE_RETRIES`` overrides are not ported yet; their knobs here
+are the constructor's and ``Dataset.store``'s.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .. import telemetry as tel
 from ..graphs.graph import GraphSample
 from ..utils.retry import RetryPolicy
 from ..utils.wire import (
@@ -350,6 +359,9 @@ class ShardedStore:
         if announce:
             with self._lock:
                 self.quarantine_events += 1
+            tel.counter("store_quarantine_events_total").inc()
+            tel.emit("failover", peer=rank, host=host, port=port, error=type(err).__name__,
+                     has_replica=bool(failover))
             warnings.warn(
                 f"shard peer {host}:{port} (range [{s0}, {s1})) is down "
                 f"({type(err).__name__}: {err}): quarantined"
@@ -375,6 +387,7 @@ class ShardedStore:
         with self._health_table.lock:
             out["quarantined_peers"] = len(self._health)
         out["peers"] = len(self.peers)
+        tel.publish("sharded_store", out)
         return out
 
     def _ensure_prober(self) -> None:
@@ -419,8 +432,27 @@ class ShardedStore:
         sleeping per ``STORE_POLICY`` before the next. Protocol errors
         raise at once. Returns ``(decoded frame, rank, s0, s1)`` of the
         replica that answered; ``fields_for(s0, s1)`` builds the request for
-        an owner advertising ``[s0, s1)``."""
+        an owner advertising ``[s0, s1)``. With trace propagation on, the
+        walk runs under one ``request_id`` and journals a ``store_hop``
+        record per peer tried."""
+        if not tel.propagate_enabled():
+            return self._failover_walk(owner_ranks, fields_for, what, False)
+        rid = tel.get_context().get("request_id") or tel.new_request_id()
+        with tel.scoped_context(request_id=rid):
+            return self._failover_walk(owner_ranks, fields_for, what, True)
+
+    def _hop(self, hop: int, rank: int, t0_wall: float, outcome: str, **fields) -> None:
+        """One traced hop's ``store_hop`` record (and span)."""
+        host, port = self.peers[rank][:2]
+        tel.emit("store_hop", hop=hop, peer=rank, host=host, port=port, outcome=outcome,
+                 **fields)
+        if tel.trace_enabled():
+            tel.add_span(f"store_hop:{rank}", t0_wall, time.time() - t0_wall,
+                         args={"peer": rank, "outcome": outcome})
+
+    def _failover_walk(self, owner_ranks, fields_for, what: str, traced: bool):
         policy = STORE_POLICY
+        hop = 0
         last_err: BaseException | None = None
         failed_over = False
         for rnd in range(policy.attempts):
@@ -433,6 +465,7 @@ class ShardedStore:
             order = self._health_table.order(owner_ranks, rot=self._rot)
             for rank in order:
                 host, port, s0, s1 = self.peers[rank]
+                t0_wall = time.time()
                 try:
                     z = self._rt.round_trip(rank, host, port, policy=RetryPolicy(attempts=1),
                                             what=f"shard round-trip to {host}:{port}",
@@ -440,13 +473,21 @@ class ShardedStore:
                 except (ConnectionError, OSError) as e:
                     last_err = e
                     failed_over = True
+                    if traced:
+                        self._hop(hop, rank, t0_wall, "quarantined", error=type(e).__name__)
+                    hop += 1
                     self._mark_peer_down(rank, e, failover=len(order) > 1)
                     continue
                 self._check_status(z, host, port, s0, s1)
                 self._mark_peer_up(rank)
+                if traced:
+                    self._hop(hop, rank, t0_wall, "served", failed_over=bool(failed_over),
+                              dur_s=round(time.time() - t0_wall, 6))
                 if failed_over:
+                    n = max(int(z.get("n", np.asarray(0))), 0)
                     with self._lock:
-                        self.failover_fetches += max(int(z.get("n", np.asarray(0))), 0)
+                        self.failover_fetches += n
+                    tel.counter("store_failover_fetches_total").inc(n)
                 return z, rank, s0, s1
         raise ConnectionError(
             f"{what}: all {len(owner_ranks)} replica(s) failed after {policy.attempts} "
@@ -586,6 +627,7 @@ class ShardedStore:
                 out[i] = copy_sample(s)
         for idxs, samples in self._fan_out(self._owner_fetch("fetch"), by_owner):
             cache_copies = [copy_sample(s) for s in samples]
+            tel.counter("store_remote_fetches_total").inc(len(samples))
             with self._lock:
                 self.remote_fetches += len(samples)
                 for i, s, c in zip(idxs, samples, cache_copies):
@@ -613,6 +655,7 @@ class ShardedStore:
             n_remote += len(samples)
             out.update(zip(idxs, samples))
         if n_remote:
+            tel.counter("store_remote_fetches_total").inc(n_remote)
             with self._lock:
                 self.remote_fetches += n_remote
         return self._ordered(indices, out)

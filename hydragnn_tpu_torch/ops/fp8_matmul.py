@@ -24,12 +24,17 @@ version (:func:`reference_fp8_dense`). Launches count in
 Weights are ``[K, N]``, the JAX package's layout at these functions.
 Divisions are IEEE fp32 divisions by tensors on the operand's device, as in
 ``ops.quant_matmul``.
+
+:func:`cost` gives the kernel's operations and bytes from its shapes,
+reported to a counting cost ledger on either route and read by
+``chip_smoke.py`` for the kernel table's bound.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..telemetry.ledger import kernel_region
 from .fused_scatter import _check_cuda, _count_launch, _raise_on, _route
 
 FP8_FORMATS = {
@@ -98,6 +103,14 @@ def reference_fp8_dense(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, s
     return reference_fp8_parts(x, w_q, s_w, s_x, bias, fmt)[1]
 
 
+def cost(m: int, k: int, n: int, bias: bool = False) -> tuple[int, int]:
+    """``(operations, bytes)`` of one call ``x [M, K] · W_q [K, N]``: a
+    multiply and an add per product term, ``x`` read once as fp32 (the
+    kernel stages fp32 rows), ``W_q`` (one byte an entry), the fp32 weight
+    scales, bias and activation scale read, the fp32 output written."""
+    return 2 * m * k * n, m * k * 4 + k * n + (2 if bias else 1) * n * 4 + 4 + m * n * 4
+
+
 def _launch(x, w_q, s_w, s_x, bias, fmt: str, debug: bool):
     name = "fp8_dense"
     _check_cuda(name, x, w_q, s_w, s_x, bias)
@@ -136,10 +149,12 @@ def fp8_matmul_parts(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, s_x,
     (``debug`` also writes its fp8 codes of ``x``), the plain version for
     CPU ones. Returns ``(x_q or None, y)``."""
     resolve_fp8_format(fmt)
-    if not _route("fp8_dense", x):
-        x_q, y = reference_fp8_parts(x, w_q, s_w, s_x, bias, fmt)
-        return (x_q if debug else None), y
-    return _launch(x, w_q, s_w, _scalar(s_x, x.device), bias, fmt, debug)
+    with kernel_region("fp8_dense", lambda: cost(x.shape[0], x.shape[-1], w_q.shape[-1],
+                                                 bias is not None)):
+        if not _route("fp8_dense", x):
+            x_q, y = reference_fp8_parts(x, w_q, s_w, s_x, bias, fmt)
+            return (x_q if debug else None), y
+        return _launch(x, w_q, s_w, _scalar(s_x, x.device), bias, fmt, debug)
 
 
 def fp8_dense(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
@@ -180,6 +195,7 @@ __all__ = [
     "FP8_MAX",
     "activation_scale_fp8",
     "certify_fp8_dense",
+    "cost",
     "fp8_dense",
     "fp8_matmul_parts",
     "quantize_weight_fp8",

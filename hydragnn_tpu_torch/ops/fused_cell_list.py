@@ -54,6 +54,7 @@ import itertools
 import numpy as np
 import torch
 
+from ..telemetry.ledger import kernel_region
 from .fused_scatter import _count_launch, _raise_on, _route
 
 # the 27 neighbour-cell offsets, in the JAX package's order (dz fastest)
@@ -157,6 +158,16 @@ def plain_cell_pairs(pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, i
     return senders, receivers, within.sum().to(torch.int32)
 
 
+def cost(atoms: int, cells: int, edges: int, candidates: int) -> tuple[int, int]:
+    """``(operations, bytes)`` of one pair test: every candidate pair tested
+    once (~48 fp32 operations: two 3 x 3 products, three roundings, the
+    displacement and d^2), each input read once (positions, cell
+    coordinates, sort order: 28 B per atom; the cell table: 8 B per cell;
+    the cell and its inverse, the periodic axes: 84 B), each edge written
+    once (8 B)."""
+    return 48 * candidates, 28 * atoms + 8 * cells + 8 * edges + 21 * 4
+
+
 def _kernel_cell_pairs(pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity,
                        idx3, order, start, occ):
     """The same pairs from the B5 kernel, in one launch that also writes
@@ -227,14 +238,18 @@ def cell_list_edges(pos: torch.Tensor, cutoff: float, max_edges: int, geo, grid,
     with torch.no_grad():
         pos = pos.detach()
         idx3, order, cs, start, occ = _prelude(pos, cellm, inv, pbcf, grid, n_cells)
-        if _route("cell_list", pos):
-            senders, receivers, shifts, n_real = _kernel_cell_pairs(
-                pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, idx3, order, start,
-                occ)
-        else:
-            senders, receivers, n_real = plain_cell_pairs(
-                pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, idx3, order, cs)
-            shifts = None
+        # a counting ledger takes the shapes' most (every cell full, every
+        # slot an edge): the data's counts would wait for the card
+        with kernel_region("cell_list", lambda: cost(n, n_cells, max_edges,
+                                                     n * 27 * capacity)):
+            if _route("cell_list", pos):
+                senders, receivers, shifts, n_real = _kernel_cell_pairs(
+                    pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, idx3, order,
+                    start, occ)
+            else:
+                senders, receivers, n_real = plain_cell_pairs(
+                    pos, cutoff, max_edges, cellm, inv, pbcf, grid, capacity, idx3, order, cs)
+                shifts = None
         live = torch.arange(max_edges, device=pos.device) < n_real
         edge_mask = live.to(pos.dtype)
         if shifts is None:
@@ -247,5 +262,5 @@ def cell_list_edges(pos: torch.Tensor, cutoff: float, max_edges: int, geo, grid,
     return senders, receivers, shifts, edge_mask, n_edges
 
 
-__all__ = ["binned_radius_graph", "cell_list_edges", "geometry", "inverse3", "mat3",
+__all__ = ["binned_radius_graph", "cell_list_edges", "cost", "geometry", "inverse3", "mat3",
            "plain_cell_pairs"]

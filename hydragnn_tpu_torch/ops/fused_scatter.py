@@ -40,6 +40,12 @@ kernels on the card, without atomics, and on the plain versions on the CPU:
 The launches count by entry point: a transposed gather-scatter as
 ``gather_scatter_sum_bwd``, a segment sum as ``segment_sum``. First derivatives launch exactly what they launched when
 the backwards called the launchers directly.
+
+:func:`cost` gives each kernel's FLOPs and bytes from its shapes. Every
+call reports it, on either route, to the telemetry plane's cost ledger
+when one counts the step (``telemetry.ledger.kernel_region``), and
+``chip_smoke.py`` computes the kernel table's bound from it: one count,
+two readers.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ import dataclasses
 import threading
 
 import torch
+
+from ..telemetry.ledger import kernel_region
 
 # Launches of each kernel of the package since the last reset, counted where
 # the wrapper launches it (the CPU route does not count); the softmax kernels
@@ -207,6 +215,28 @@ def plain_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.to(data.dtype)
 
 
+# -- cost ----------------------------------------------------------------------
+
+
+def cost(kernel: str, *, rows: int, cols: int, ids: int, out_rows: int, itemsize: int = 4,
+         weight: str | None = None) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: each input read once, each output
+    written once. ``gather_scatter_sum`` (either direction): ``h [rows,
+    cols]`` read, the sender and receiver ids (int32) of the ``ids`` edges,
+    the weight (``"edge"``: fp32 ``[E]``, ``"channel"``: fp32 ``[E, cols]``),
+    ``out [out_rows, cols]`` written; a multiply and an add per edge and
+    channel (an add without a weight). ``segment_sum``: ``data [rows, cols]``
+    and its ``rows`` ids read, ``out [out_rows, cols]`` written; an add per
+    entry. ``itemsize``: the bytes of one feature (4 fp32, 2 bf16)."""
+    feats = (rows + out_rows) * cols * itemsize
+    if kernel == "segment_sum":
+        return rows * cols, feats + rows * 4
+    if kernel not in ("gather_scatter_sum", "gather_scatter_sum_bwd"):
+        raise ValueError(f"cost: unknown kernel {kernel!r}")
+    w_bytes = {None: 0, "edge": ids * 4, "channel": ids * cols * 4}[weight]
+    return (2 if weight else 1) * ids * cols, feats + 2 * ids * 4 + w_bytes
+
+
 # -- wrappers ----------------------------------------------------------------
 
 
@@ -256,7 +286,18 @@ def _gather_scatter(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Ten
                     num_nodes: int, weight: torch.Tensor | None, index: SegmentIndex | None,
                     counter: str) -> torch.Tensor:
     """One device-routed gather-scatter (no autograd): the kernel for CUDA
-    tensors, counted under ``counter``; the plain version for CPU tensors."""
+    tensors, counted under ``counter``; the plain version for CPU tensors.
+    Its :func:`cost` goes to a counting ledger under ``counter``."""
+    def shapes():
+        w = None if weight is None else ("channel" if weight.dim() == 2 else "edge")
+        return cost(counter, rows=h.shape[0], cols=h.shape[-1], ids=senders.shape[0],
+                    out_rows=num_nodes, itemsize=h.element_size(), weight=w)
+
+    with kernel_region(counter, shapes):
+        return _gather_scatter_routed(h, senders, receivers, num_nodes, weight, index, counter)
+
+
+def _gather_scatter_routed(h, senders, receivers, num_nodes, weight, index, counter):
     name = "gather_scatter_sum"
     if not _route(name, h):
         return plain_gather_scatter_sum(h, senders, receivers, num_nodes, weight)
@@ -305,7 +346,18 @@ def _gather_scatter(h: torch.Tensor, senders: torch.Tensor, receivers: torch.Ten
 
 def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                  index: SegmentIndex | None) -> torch.Tensor:
-    """One device-routed segment sum (no autograd)."""
+    """One device-routed segment sum (no autograd); its :func:`cost` goes to
+    a counting ledger."""
+    def shapes():
+        cols = data.shape[1] if data.dim() == 2 else 1
+        return cost("segment_sum", rows=data.shape[0], cols=cols, ids=data.shape[0],
+                    out_rows=num_segments, itemsize=data.element_size())
+
+    with kernel_region("segment_sum", shapes):
+        return _segment_sum_routed(data, segment_ids, num_segments, index)
+
+
+def _segment_sum_routed(data, segment_ids, num_segments, index):
     name = "segment_sum"
     if not _route(name, data):
         return plain_segment_sum(data, segment_ids, num_segments)
@@ -477,6 +529,7 @@ __all__ = [
     "SegmentIndex",
     "accumulate_dtype",
     "add_launches",
+    "cost",
     "fused_segment_sum",
     "gather_rows",
     "gather_scatter_sum",

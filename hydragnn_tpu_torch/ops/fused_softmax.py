@@ -32,12 +32,17 @@ backward works from the saved output, as the JAX package's custom VJPs do
   derivative stays on the kernels too;
 * masked softmax: ``ds = s * (dy - sum_row(s * dy))``, plain tensor code;
   masked entries have ``s = 0`` and get no gradient.
+
+:func:`cost` gives each kernel's FLOPs and bytes from its shapes, reported
+to a counting cost ledger on either route and read by ``chip_smoke.py``
+for the kernel table's bound.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..telemetry.ledger import kernel_region
 from .fused_scatter import (
     PIECE_EDGES,
     SegmentIndex,
@@ -103,12 +108,42 @@ def plain_masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tens
     return (ex / ex.sum(dim=-1, keepdim=True)).to(logits.dtype)
 
 
+# -- cost ----------------------------------------------------------------------
+
+
+def cost(kernel: str, *, rows: int, cols: int, itemsize: int = 4,
+         mask_bytes: int = 0) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call: the logits ``[rows, cols]`` read and
+    the output written once (``itemsize`` bytes an entry), and a max,
+    subtract, exp, add and divide per entry. ``segment_softmax``: ``rows``
+    entries of ``cols`` heads and their int32 segment ids; ``masked_softmax``:
+    ``rows`` rows of ``cols`` entries and the ``mask_bytes`` of the
+    one-byte-per-entry mask."""
+    flops, logits = 5 * rows * cols, 2 * rows * cols * itemsize
+    if kernel == "segment_softmax":
+        return flops, logits + rows * 4
+    if kernel == "masked_softmax":
+        return flops, logits + mask_bytes
+    raise ValueError(f"cost: unknown kernel {kernel!r}")
+
+
 # -- wrappers ----------------------------------------------------------------
 
 
 def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                      index: SegmentIndex | None) -> torch.Tensor:
-    """One device-routed segment softmax (no autograd)."""
+    """One device-routed segment softmax (no autograd); its :func:`cost`
+    goes to a counting ledger."""
+    def shapes():
+        return cost("segment_softmax", rows=logits.shape[0],
+                    cols=logits.shape[1] if logits.dim() == 2 else 1,
+                    itemsize=logits.element_size())
+
+    with kernel_region("segment_softmax", shapes):
+        return _segment_softmax_routed(logits, segment_ids, num_segments, index)
+
+
+def _segment_softmax_routed(logits, segment_ids, num_segments, index):
     name = "segment_softmax"
     if not _route(name, logits):
         return plain_segment_softmax(logits, segment_ids, num_segments)
@@ -141,7 +176,18 @@ def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segmen
 
 
 def _masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """One device-routed masked row softmax (no autograd)."""
+    """One device-routed masked row softmax (no autograd); its :func:`cost`
+    goes to a counting ledger."""
+    def shapes():
+        m = logits.shape[-1]
+        return cost("masked_softmax", rows=logits.numel() // m if m else 0, cols=m,
+                    itemsize=logits.element_size(), mask_bytes=mask.numel())
+
+    with kernel_region("masked_softmax", shapes):
+        return _masked_softmax_routed(logits, mask)
+
+
+def _masked_softmax_routed(logits, mask):
     name = "masked_softmax"
     if not _route(name, logits):
         return plain_masked_softmax(logits, mask)
@@ -237,6 +283,7 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "MASK_FILL",
     "SM_CERT_BLOCK",
+    "cost",
     "masked_softmax",
     "plain_masked_softmax",
     "plain_segment_softmax",

@@ -28,12 +28,17 @@ by a Python scalar as a multiply by its reciprocal), exact int32 sums, the
 fp32 product ``s_x * s_w`` and one rounding of ``acc * scale + b``, the FMA
 the XLA CPU route fuses the dequantisation into (the plain version takes it
 in float64 and rounds once).
+
+:func:`cost` gives the kernel's operations and bytes from its shapes,
+reported to a counting cost ledger on either route and read by
+``chip_smoke.py`` for the kernel table's bound.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..telemetry.ledger import kernel_region
 from .fused_scatter import _check_cuda, _count_launch, _dtype_code, _raise_on, _route
 
 QMAX = 127.0
@@ -80,6 +85,19 @@ def reference_quant_dense(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,
     return reference_quant_parts(x, w_q, s_w, s_x, bias)[2]
 
 
+def cost(m: int, k: int, n: int, itemsize: int = 4, bias: bool = False) -> tuple[int, int]:
+    """``(operations, bytes)`` of one call ``x [M, K] · W_q [K, N]``: a
+    multiply and an add per product term (int8), ``x`` read once
+    (``itemsize`` bytes an entry), ``W_q`` (one byte an entry), the fp32
+    scales and bias read, the fp32 output written."""
+    return 2 * m * k * n, m * k * itemsize + k * n + (2 if bias else 1) * n * 4 + m * n * 4
+
+
+def _region(x, w_q, bias):
+    return kernel_region("quant_dense", lambda: cost(
+        x.shape[0], x.shape[-1], w_q.shape[-1], x.element_size(), bias is not None))
+
+
 def _launch(x, w_q, s_w, s_x, bias, debug: bool):
     name = "quant_dense"
     _check_cuda(name, x, w_q, s_w, bias)
@@ -117,9 +135,10 @@ def quant_dense(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, s_x: floa
                 bias: torch.Tensor | None = None) -> torch.Tensor:
     """Quantized dense layer ``[M, K] (fp32 or bf16) × int8 [K, N] → fp32
     [M, N]``: the kernel for CUDA tensors, the plain version for CPU ones."""
-    if not _route("quant_dense", x):
-        return reference_quant_dense(x, w_q, s_w, s_x, bias)
-    return _launch(x, w_q, s_w, s_x, bias, debug=False)[2]
+    with _region(x, w_q, bias):
+        if not _route("quant_dense", x):
+            return reference_quant_dense(x, w_q, s_w, s_x, bias)
+        return _launch(x, w_q, s_w, s_x, bias, debug=False)[2]
 
 
 def quant_dense_parts(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, s_x: float,
@@ -128,12 +147,14 @@ def quant_dense_parts(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, s_x
     CUDA tensor one launch that also writes the kernel's int8 codes and
     int32 accumulators, for holding them against
     :func:`reference_quant_parts`."""
-    if not _route("quant_dense", x):
-        return reference_quant_parts(x, w_q, s_w, s_x, bias)
-    return _launch(x, w_q, s_w, s_x, bias, debug=True)
+    with _region(x, w_q, bias):
+        if not _route("quant_dense", x):
+            return reference_quant_parts(x, w_q, s_w, s_x, bias)
+        return _launch(x, w_q, s_w, s_x, bias, debug=True)
 
 
 __all__ = [
+    "cost",
     "quant_dense",
     "quant_dense_parts",
     "quantize_acts",

@@ -1,8 +1,7 @@
 """Seeded multi-fault chaos campaigns and their invariants.
 
 Counterpart of the training half of ``hydragnn_tpu/resilience/campaign.py``
-(the serving fleet's half comes with the fleet's telemetry, ROADMAP item
-10). One fault proves one recovery path; production failures are
+(the serving fleet's half comes with a later slice, ROADMAP item 10). One fault proves one recovery path; production failures are
 compositions: a NaN blow-up before a preemption, a rank lost while a peer
 is quarantined, a second fault during a recovery. A seeded scheduler
 composes the chaos vocabulary into ``HYDRAGNN_FAULT_PLAN`` schedules, and

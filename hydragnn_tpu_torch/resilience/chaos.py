@@ -43,8 +43,8 @@ Every rank of a process group reads the same plan and fires each event at
 the same coordinates. ``dispatch`` omitted or null matches every dispatch of
 the epoch; ``times`` caps the firings (default 1; -1: unlimited). The
 serving fleet's faults (``replica_kill``, ``replica_slow``,
-``rollout_during_load``) are parsed and refused: they come with the fleet's
-telemetry (ROADMAP item 10).
+``rollout_during_load``) are parsed and refused: they come with a later
+slice (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -114,8 +114,7 @@ class FaultPlan:
             if fault in FLEET_FAULTS:
                 raise NotImplementedError(
                     f"HYDRAGNN_FAULT_PLAN event {i}: the serving fleet's fault {fault!r} is not "
-                    "ported (it comes with the fleet's telemetry, ROADMAP item 10: run-time "
-                    "extras)")
+                    "ported (a later slice: the fleet's chaos drills, ROADMAP item 10)")
             inner = e.get("inner")
             if fault == "double_fault":
                 inner = dict(inner or {"fault": "device_loss"})

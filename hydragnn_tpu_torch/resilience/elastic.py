@@ -35,6 +35,12 @@ ranks are processes, so a recovery re-forms the process group::
   group to re-form, and the rendezvous store lives in rank 0: their
   recovery returns the preempted state with the mid-epoch checkpoint on
   disk as the resume point of a restarted job, a recorded policy decision.
+
+Every recovery is journalled under one ``recovery_id`` (set in the journal
+context when the fault is signalled, cleared when the run is healthy): the
+``fault``, each ``recovery_phase`` and the closing ``recovery`` record,
+which ``python -m hydragnn_tpu_torch.telemetry`` reconstructs phase by
+phase.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import sys
 import threading
 import time
 import warnings
+
+from .. import telemetry as tel
 
 
 class ElasticRecoveryError(RuntimeError):
@@ -87,6 +95,8 @@ class ElasticController:
         self._pending: list[Fault] = []  # guarded-by: _lock
         self.state = "running"  # guarded-by: _lock
         self.events: list[tuple] = []  # guarded-by: _lock
+        # the journal's correlation id of the recovery under way
+        self.recovery_id: str | None = None  # guarded-by: _lock
         self.recoveries = 0  # training thread only
         self.recovery_log: list[dict] = []  # training thread only
         self.max_recoveries = int(max_recoveries)
@@ -119,6 +129,16 @@ class ElasticController:
             self._pending.append(fault)
             self.state = "draining"
             self.events.append((fault.t_signal, "fault", fault.kind))
+            if self.recovery_id is None:
+                self.recovery_id = f"rec{self.recoveries + 1}"
+            # set under the same lock as the id: a concurrent
+            # set_state("running") cannot wipe a new recovery's id. Every
+            # record from here through the resume carries it
+            tel.set_context(recovery_id=self.recovery_id)
+        tel.emit("fault", fault=fault.kind, device=fault.device, count=fault.count,
+                 to=fault.to, detail=fault.detail or None)
+        tel.emit("recovery_phase", phase="draining", detail=fault.kind)
+        tel.counter("elastic_faults_total", kind=fault.kind).inc()
         if self.resilience is not None:
             self.resilience.request_checkpoint()
 
@@ -132,6 +152,11 @@ class ElasticController:
         with self._lock:
             self.state = state
             self.events.append((time.monotonic(), state, detail))
+            if state == "running":
+                # healthy again: later records belong to no recovery
+                self.recovery_id = None
+                tel.set_context(recovery_id=None)
+        tel.emit("recovery_phase", phase=state, detail=detail or None)
 
     def survivors(self) -> list:
         with self._lock:
@@ -213,11 +238,16 @@ class ElasticController:
 
     def note_recovery(self, faults, mode: str, recovery_ms: float, meta: dict) -> None:
         over = recovery_ms > 1e3 * self.recovery_budget_s
-        self.recovery_log.append({
+        entry = {
             "faults": [f.kind for f in faults], "mode": mode, "recovery_ms": float(recovery_ms),
             "over_budget": over, "lost_indices": list(self.lost_indices()),
             "resumed_epoch": meta.get("epoch"), "raw_batches_done": meta.get("raw_batches_done"),
-            "logical_n_dev": meta.get("n_dev")})
+            "logical_n_dev": meta.get("n_dev")}
+        self.recovery_log.append(entry)
+        # the same fields as a journal record, under the recovery's id
+        tel.emit("recovery", **entry)
+        tel.counter("elastic_recoveries_total", mode=mode).inc()
+        tel.gauge("elastic_recovery_ms").set(float(recovery_ms))
         self.recoveries += 1
         if over:
             warnings.warn(f"elastic recovery #{self.recoveries} took {recovery_ms:.0f} ms, over "

@@ -139,17 +139,29 @@ class SkipTracker:
             self._drain_one()
 
     def _drain_one(self) -> None:
+        from .. import telemetry as tel
+
         v = self._pending.popleft()
         values = torch.as_tensor(v).reshape(-1).tolist()
+        drained_skips = 0
         for s in values:
             self.steps += 1
             if s:
                 self.total += 1
                 self.consecutive += 1
+                drained_skips += 1
             else:
                 self.consecutive = 0
+        if drained_skips:
+            # one journal record per drained dispatch with skips (the JAX
+            # guard's): a post-mortem sees which steps the guard dropped
+            tel.emit("guard_skip", step=self.steps, skipped=drained_skips,
+                     consecutive=self.consecutive, total=self.total)
+            tel.counter("guard_skipped_steps_total").inc(drained_skips)
         if 0 < self.max_consecutive <= self.consecutive:
             self._pending.clear()
+            tel.emit("divergence", consecutive=self.consecutive, total=self.total,
+                     steps=self.steps)
             raise DivergenceDetected(
                 f"{self.consecutive} consecutive non-finite training steps were skipped "
                 f"({self.total} of {self.steps} steps skipped so far this run) — the run is "

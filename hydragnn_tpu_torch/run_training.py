@@ -51,6 +51,7 @@ from .preprocess.load_data import dataset_loading_and_splitting
 from .train.checkpoint import load_checkpoint, save_checkpoint
 from .train.loop import train_validate_test
 from .train.step import create_train_state, resolve_precision
+from . import telemetry
 from .utils import flags, resolve_device
 
 # config switches of the JAX package's run_training that this slice does not
@@ -103,10 +104,6 @@ def _refuse_later_slices(config: dict) -> None:
     from .resilience import FaultPlan
 
     FaultPlan.from_env()
-    if config.get("Telemetry"):
-        raise NotImplementedError(
-            "Telemetry: the telemetry plane is not ported yet (a later slice: run-time extras)"
-        )
 
 
 def _setup_group(device, verbosity: int) -> bool:
@@ -173,6 +170,55 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
     if rank == 0:
         save_config(config, log_name, path)
 
+    # the telemetry plane: the validated Telemetry block (env flags folded
+    # in) arms the registry, journal and trace process-wide; rank 0's
+    # journal opens next to the run's checkpoints, so every subsystem's
+    # records land in one events.jsonl
+    tel_cfg = telemetry.configure(config)
+    if tel_cfg.enabled and tel_cfg.journal and rank == 0:
+        telemetry.open_journal(log_name, path=path)
+        telemetry.emit("run_start", log_name=log_name, world=world)
+    # try/finally: a crashed run still records run_end, saves trace.json
+    # and closes the journal (the post-mortem CLI's whole point)
+    try:
+        return _train(config, training, log_name, path, device, seed, verbosity, grouped,
+                      request, world, rank, (train_loader, val_loader, test_loader), history)
+    finally:
+        _finish_telemetry(tel_cfg, log_name, path, rank, verbosity)
+
+
+def _finish_telemetry(tel_cfg, log_name: str, path: str, rank: int, verbosity: int) -> None:
+    """``run_end``, then on rank 0 ``trace.json`` (with trace events on)
+    and ``ledger.json`` (the captured graphs' costs; a path-valued
+    ``HYDRAGNN_LEDGER`` redirects it) next to the journal, which closes."""
+    import os
+
+    from .utils import tracer
+
+    telemetry.emit("run_end", log_name=log_name)
+    tracer.stop_profiler()
+    if rank == 0:
+        run_dir = os.path.join(path, log_name)
+        try:
+            if tel_cfg.enabled and tel_cfg.trace_events:
+                telemetry.save_trace(os.path.join(run_dir, "trace.json"))
+            telemetry.ledger.maybe_save(os.path.join(run_dir, "ledger.json"))
+        except OSError as e:
+            if verbosity > 0:
+                print(f"telemetry save failed: {e}", flush=True)
+        if verbosity > 0:
+            tracer.print_timers(verbosity)
+    telemetry.close_journal()
+
+
+def _train(config: dict, training: dict, log_name: str, path: str, device, seed: int,
+           verbosity: int, grouped: bool, request: dict, world: int, rank: int, loaders,
+           history):
+    """The model, its optimizer and the epoch loop of :func:`run_training`
+    (after the data prologue); returns ``(state, model, config)``."""
+    from .parallel.comm import rank_of
+
+    train_loader, val_loader, test_loader = loaders
     model = create_model_config(config, device=device, seed=seed)
     state = create_train_state(model, training["Optimizer"], seed=seed)
     resume_meta = None

@@ -19,8 +19,10 @@ signals:
 
 The decision core (:func:`decide`) is a pure function of
 ``(AutoscalerConfig, AutoscalerState, Signals, now)``, testable with a
-pinned clock. Every decision lands in :attr:`Autoscaler.actions`; the JAX
-package's ``autoscale`` journal records wait for the port's telemetry.
+pinned clock. Every decision lands in :attr:`Autoscaler.actions`, and
+every action (a decision other than hold, a spawn, a retirement, a failed
+poll) in the telemetry journal as an ``autoscale`` record, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import time
 
 import warnings
 
+from ... import telemetry as tel
 from .config import AutoscalerConfig
 
 #: decide() return values
@@ -215,6 +218,7 @@ class Autoscaler:
             try:
                 self.step()
             except Exception as e:  # a poll failure must not kill the loop
+                tel.emit("autoscale", action="error", error=f"{type(e).__name__}: {e}")
                 warnings.warn(f"autoscaler poll failed: {type(e).__name__}: {e}")
 
     def step(self, now: float | None = None) -> tuple[str, str]:
@@ -234,6 +238,8 @@ class Autoscaler:
         }
         with self._lock:
             self.actions.append(record)
+        if action != HOLD:
+            tel.emit("autoscale", **record)
         return action, reason
 
     def _scale_up(self, reason: str, sig: Signals, now: float) -> None:
@@ -244,6 +250,7 @@ class Autoscaler:
             self._owned[rank] = handle
         self.state.last_action_at = now
         self.state.breach_streak = 0
+        tel.emit("autoscale", action="spawned", replica=rank, reason=reason)
 
     def _scale_down(self, reason: str, sig: Signals, now: float) -> None:
         active = set(self.router.active_ranks())
@@ -261,6 +268,8 @@ class Autoscaler:
             handle.terminate()
         self.state.last_action_at = now
         self.state.calm_streak = 0
+        tel.emit("autoscale", action="retired", replica=rank, drained=bool(drained),
+                 reason=reason)
 
     @staticmethod
     def _address(handle) -> tuple:

@@ -125,6 +125,11 @@ class AnswerCache:
                 "evictions": self.evictions,
                 "oversize_skips": self.oversize_skips,
             }
+        # the registry's gauges, outside the lock (the telemetry locks are
+        # not nested under ours)
+        from ... import telemetry as tel
+
+        tel.publish("fleet_cache", out)
         return out
 
 

@@ -1,7 +1,7 @@
 """One fleet replica: a ``PredictionServer`` behind the wire transport.
 
 Counterpart of ``hydragnn_tpu/serve/fleet/replica.py``. :class:`ReplicaHost`
-is the wire front end, a ``utils.wire.WireServer`` with three ops:
+is the wire front end, a ``utils.wire.WireServer`` with four ops:
 
 * ``predict`` — one graph in (wire sample codec), per-head arrays out;
   typed admission errors (queue full, oversize, deadline, incompatible
@@ -13,18 +13,25 @@ is the wire front end, a ``utils.wire.WireServer`` with three ops:
 * ``stats`` — per-endpoint counters, queue depth, sheds, and
   ``steady_captures``: the CUDA graphs captured since the replica
   advertised ready. A warm replica keeps it at 0, the port's counterpart
-  of the JAX replica's steady-lowering count.
+  of the JAX replica's steady-lowering count;
+* ``metrics`` — ``{"stats", "registry"}``: the stats dict above and the
+  replica process's whole telemetry registry (``telemetry.snapshot()``),
+  JSON over the wire, which ``FleetRouter.replica_metrics`` decodes.
 
-The JAX replica's ``metrics`` op (its telemetry registry) waits for the
-port's telemetry; this replica does not answer it.
+A predict that arrives with a trace context (``telemetry.propagation``: the
+router's ``request_id``) journals one ``replica_execute`` record under that
+id; untraced traffic adds no record.
 
 ``worker_main`` is the subprocess entry (``python -m
 hydragnn_tpu_torch.serve.fleet.replica spec.json``): it boots a
 ``PredictionServer`` from checkpoint paths alone
 (``add_model_from_checkpoint``), on the card unless the spec names
-``"device": "cpu"``, completes the warm-up (every bucket's CUDA graph, and
-with ``Serving.quantize`` the int8 calibration, certification and graphs),
-and only then binds its port and writes the ready file. ``spawn_replica``
+``"device": "cpu"``, opens its own journal (``<log_dir>/events.jsonl``,
+default beside the spec, which the ``telemetry fleet`` CLI merges with the
+router's), completes the warm-up (every bucket's CUDA graph, and with
+``Serving.quantize`` the int8 calibration, certification and graphs), saves
+the cost ledger of those captures beside the journal, and only then binds
+its port and writes the ready file. ``spawn_replica``
 starts one and waits for it. Build the CUDA kernels in the parent before
 spawning (``ops._build.build``), so no replica pays for ``nvcc``.
 """
@@ -62,12 +69,13 @@ class ReplicaHost(wire.WireServer):
 
     def __init__(self, server, host: str = "127.0.0.1", port: int = 0,
                  auth_token: str | None = None,
-                 predict_timeout_s: float = _PREDICT_TIMEOUT_S):
+                 predict_timeout_s: float = _PREDICT_TIMEOUT_S, journal=None):
         self.server = server
         self._predict_timeout_s = float(predict_timeout_s)
         # graphs captured at ready: stats() reports the captures since
         self._ready_captures = self._captures()
-        super().__init__(host=host, port=port, auth_token=auth_token, name="ReplicaHost")
+        super().__init__(host=host, port=port, auth_token=auth_token, name="ReplicaHost",
+                         journal=journal)
 
     def _captures(self) -> int:
         return sum(m["captures"] for m in self.server.stats().values())
@@ -84,20 +92,33 @@ class ReplicaHost(wire.WireServer):
         if "stats" in z:
             return {"n": np.asarray(0, np.int64),
                     "stats": wire.text_field(json.dumps(self.stats()))}
+        if "metrics" in z:
+            return {"n": np.asarray(0, np.int64),
+                    "metrics": wire.text_field(json.dumps(self.metrics()))}
         if "predict" in z:
             return self._handle_predict(z)
         raise ValueError(f"unknown fleet op in frame keys {sorted(z)}")
 
     def _handle_predict(self, z: dict) -> dict:
+        from ... import telemetry as tel
+
         model = wire.field_text(z.get("model"))
         sample = wire.samples_from_frame(z)[0]
+        # the handler thread's scope (the frame's trace context, entered by
+        # WireServer) decides whether this predict is journalled
+        traced = bool(tel.get_context().get("request_id"))
         try:
             result = self.server.submit(model, sample).result(timeout=self._predict_timeout_s)
         except AdmissionError as e:
             # a shed is an answer about the request: the router raises the
             # same admission class, never a transport fault to fail over
+            if traced:
+                self.emit_event("replica_execute", model=model, shed=type(e).__name__)
             return {"n": np.asarray(-4, np.int64), "etype": wire.text_field(type(e).__name__),
                     "detail": wire.text_field(str(e)[:512])}
+        if traced:
+            self.emit_event("replica_execute", model=model,
+                            latency_s=round(float(result["latency_s"]), 6))
         out = {"n": np.asarray(1, np.int64), "nheads": np.asarray(len(result["heads"]), np.int64),
                "latency_s": np.asarray(result["latency_s"], np.float64)}
         for i, head in enumerate(result["heads"]):
@@ -115,6 +136,15 @@ class ReplicaHost(wire.WireServer):
             "steady_captures": sum(m["captures"] for m in per_model.values())
             - self._ready_captures,
         }
+
+    def metrics(self) -> dict:
+        """The ``metrics`` op's payload: :meth:`stats` (first, so the
+        ``serve_*`` gauges it publishes are fresh) and the process's whole
+        telemetry registry."""
+        from ... import telemetry as tel
+
+        stats = self.stats()
+        return {"stats": stats, "registry": tel.snapshot()}
 
 
 # -- subprocess worker --------------------------------------------------------
@@ -156,16 +186,29 @@ def worker_main(argv=None) -> int:
             json.dump(payload, f)
         os.replace(tmp, ready)  # atomic: the parent never reads a torn file
 
+    from ... import telemetry as tel
+
     try:
+        # the worker's own journal and ledger, in its log dir (default:
+        # beside the spec)
+        log_dir = spec.get("log_dir") or os.path.dirname(
+            os.path.abspath(spec.get("ready_file", argv[0])))
+        journal = None
+        if tel.enabled():
+            journal = tel.open_journal(file=os.path.join(log_dir, "events.jsonl"),
+                                       run_id=f"replica-{os.getpid()}")
         server = _build_server(spec)
         server.warmup()
+        tel.ledger.maybe_save(os.path.join(log_dir, "ledger.json"))
         server.start()
         host = ReplicaHost(server, host=spec.get("bind_host", "127.0.0.1"),
-                           port=int(spec.get("port", 0)), auth_token=spec.get("auth"))
+                           port=int(spec.get("port", 0)), auth_token=spec.get("auth"),
+                           journal=journal)
     except Exception:
         import traceback
 
         _write_ready({"error": traceback.format_exc(limit=8)})
+        tel.close_journal()
         return 1
 
     stop = {"flag": False}
@@ -180,6 +223,7 @@ def worker_main(argv=None) -> int:
         time.sleep(0.1)
     host.close()
     server.stop()
+    tel.close_journal()
     return 0
 
 

@@ -16,14 +16,16 @@ Counterpart of ``hydragnn_tpu/serve/fleet/rollout.py``.
    during the swap is served once, by whichever generation dispatch gives
    it to, which the canary's proof makes safe.
 
-The JAX package's ``rollout`` journal records wait for the port's
-telemetry.
+Every stage (begin, each green replica's canary verdict, cutover,
+complete) lands in the telemetry journal as a ``rollout`` record, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ... import telemetry as tel
 from ...utils import wire
 from ...utils.retry import RetryPolicy
 from .config import RolloutConfig
@@ -131,6 +133,8 @@ def run_canary(router, green: list, probes: list,
                             "rollout refused, live set untouched"
                         )
             verdicts[g_i] = "ok"
+            tel.emit("rollout", stage="canary", green=f"{host}:{port}", verdict="ok",
+                     probes=len(probes))
     finally:
         if own_rt:
             rt.close()
@@ -165,14 +169,18 @@ def blue_green_rollout(router, green, probes=None,
     blue = router.active_ranks()
     if not blue:
         raise RuntimeError("rollout: no active replicas to cut over from")
+    tel.emit("rollout", stage="begin", blue=list(blue), green=[f"{h}:{p}" for h, p in addrs],
+             canary=bool(cfg.canary))
     if cfg.canary:
         canary = run_canary(router, addrs, probes or [], cfg)
     else:
         canary = "skipped"
+        tel.emit("rollout", stage="canary", verdict="skipped")
     # attach green FIRST: from this instant both generations are
     # dispatchable (bit-identical by the canary's proof), so the served-
     # model set never blinks and no queued request waits on the drain
     green_ranks = [router.attach(h, p) for h, p in addrs]
+    tel.emit("rollout", stage="cutover", green_ranks=list(green_ranks))
     drained = {}
     for rank in blue:
         drained[rank] = router.retire(rank, timeout_s=cfg.drain_timeout_s)
@@ -182,6 +190,8 @@ def blue_green_rollout(router, green, probes=None,
         "drained": drained,
         "canary": canary,
     }
+    tel.emit("rollout", stage="complete", green_ranks=list(green_ranks), blue_ranks=list(blue),
+             drained_clean=all(drained.values()))
     return report
 
 

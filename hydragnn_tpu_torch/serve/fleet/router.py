@@ -24,9 +24,15 @@ transport (``utils.wire``):
   flag; a hit resolves at admission with arrays byte-identical to replica
   compute.
 
-The JAX router's telemetry (its ``tel.emit`` records, registry counters and
-the fleet-wide ``metrics()`` view over the replicas' ``metrics`` op) waits
-for the port's telemetry.
+Telemetry, as the JAX router's: every counter of :meth:`FleetRouter.stats`
+is also the registry's ``fleet_requests{event}``; with trace propagation on
+each request gets a ``request_id`` (the caller's ambient one, or a fresh
+one) that its ``fleet_admit``, ``fleet_dispatch``, ``fleet_cache_hit`` /
+``fleet_cache_fill`` and ``fleet_reply`` records carry and that the
+predict frame takes to the replica (``replica_execute`` there);
+``failover``, ``shed``, ``fleet_drain_begin``, ``fleet_retire`` and
+``quarantine_lifted`` are journalled; :meth:`FleetRouter.metrics` is the
+fleet-wide view over every replica's ``metrics`` op.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 
+from ... import telemetry as tel
 from ...utils import wire
 from ...utils.retry import RetryPolicy
 from .. import admission
@@ -67,6 +74,9 @@ class RoutedRequest(Request):
     priority: str = "interactive"
     digest: str | None = None  # answer-cache key (None = cache disabled)
     attempts: int = 0          # replica round-trips consumed (failover cap)
+    # the fleet-wide trace id every stage of this request journals under
+    # (None: propagation off)
+    request_id: str | None = None
 
 
 @dataclasses.dataclass
@@ -205,6 +215,7 @@ class FleetRouter:
         with self._work:
             self._replicas[rank].draining = True
             self._work.notify_all()
+        tel.emit("fleet_drain_begin", replica=rank)
 
     def retire(self, rank: int, timeout_s: float = 30.0) -> bool:
         """Drain ``rank`` and remove it from every routing surface. Blocks
@@ -229,6 +240,7 @@ class FleetRouter:
             self._work.notify_all()
         self._health.lift(rank)  # no point probing a retired replica
         self._rt.evict((r.host, r.port))
+        tel.emit("fleet_retire", replica=rank, drained=bool(drained))
         if not drained:
             warnings.warn(
                 f"fleet replica {rank} retired with {left} round-trips "
@@ -341,6 +353,13 @@ class FleetRouter:
         req = RoutedRequest(
             sample=sample, deadline=deadline, model=model, priority=priority
         )
+        if tel.propagate_enabled():
+            # the caller's ambient request_id (an upstream tier may have
+            # minted one) or a fresh one: every stage of this request's
+            # timeline shares it
+            req.request_id = tel.get_context().get("request_id") or tel.new_request_id()
+            tel.emit("fleet_admit", request_id=req.request_id, model=model,
+                     **{"class": priority})
         if self.cfg.cache_bytes > 0:
             quant = any(
                 r.quantized.get(model, False) for r in self._replicas
@@ -350,6 +369,8 @@ class FleetRouter:
             if hit is not None:
                 self._count("cache_hits")
                 self._count("served")
+                if req.request_id is not None:
+                    tel.emit("fleet_cache_hit", request_id=req.request_id, model=model)
                 if req.claim():
                     req.future.set_result({
                         "heads": hit,
@@ -368,6 +389,9 @@ class FleetRouter:
                 q.append(req)
                 self._work.notify_all()
         if shed_full:
+            tel.counter("fleet_requests", event=f"shed_{priority}").inc()
+            tel.counter("fleet_requests", event="shed").inc()
+            tel.emit("shed", **{"class": priority, "reason": "queue_full"})
             raise QueueFullError(
                 f"{priority} class at budget "
                 f"({self.cfg.budget(priority)}); request shed"
@@ -386,6 +410,8 @@ class FleetRouter:
     def _count(self, key: str, by: int = 1) -> None:
         with self._work:
             self.counters[key] += by
+        # the registry's series beside the stats() dict (metrics() reads it)
+        tel.counter("fleet_requests", event=key).inc(by)
 
     # -- dispatch -----------------------------------------------------------
 
@@ -453,6 +479,7 @@ class FleetRouter:
             )):
                 self._count("shed_deadline")
                 self._count("shed")
+                tel.emit("shed", **{"class": req.priority}, model=req.model, reason="deadline")
             else:
                 self._count("cancelled")
 
@@ -516,12 +543,22 @@ class FleetRouter:
     # -- replica round-trip -------------------------------------------------
 
     def _serve_one(self, req: RoutedRequest, replica: _Replica) -> None:
+        # the request's trace id becomes this dispatcher thread's journal
+        # scope: every record below carries it, and RoundTripper.request
+        # ships it to the replica inside the frame
+        with tel.scoped_context(request_id=req.request_id):
+            self._serve_one_scoped(req, replica)
+
+    def _serve_one_scoped(self, req: RoutedRequest, replica: _Replica) -> None:
         try:
             fields = {
                 "predict": np.asarray(1, np.int64),
                 "model": wire.text_field(req.model),
                 **wire.sample_fields([req.sample]),
             }
+            if req.request_id is not None:
+                tel.emit("fleet_dispatch", model=req.model, replica=replica.rank,
+                         attempt=req.attempts)
             try:
                 z = self._rt.round_trip(
                     (replica.host, replica.port), replica.host, replica.port,
@@ -619,9 +656,14 @@ class FleetRouter:
             # the same graph the instant its result lands must find the
             # cache populated, not race the insert
             self.cache.put(req.digest, heads)
+            if req.request_id is not None:
+                tel.emit("fleet_cache_fill", model=req.model)
         if not req.claim():
             self._count("cancelled")
             return
+        if req.request_id is not None:
+            tel.emit("fleet_reply", model=req.model, replica=replica.rank,
+                     latency_s=round(latency_s, 6))
         req.future.set_result({
             "heads": heads,
             "latency_s": latency_s,
@@ -663,6 +705,7 @@ class FleetRouter:
                 self._work.notify_all()
                 requeued = True
         if requeued:
+            tel.counter("fleet_requests", event="requeues").inc()
             return
         if req.reject(ServerClosedError(
             "router stopped while the request was failing over"
@@ -670,7 +713,8 @@ class FleetRouter:
             self._count("cancelled")
 
     def _count_locked(self, key: str, by: int = 1) -> None:
-        # caller holds _work
+        # caller holds _work; the registry's series is written by the
+        # caller after the release (no telemetry lock under _work)
         self.counters[key] += by
 
     def _mark_replica_down(self, replica: _Replica, err: BaseException) -> None:
@@ -679,6 +723,9 @@ class FleetRouter:
         with self._work:
             replica.failures += 1
             self.counters["failovers"] += 1
+        tel.counter("fleet_requests", event="failovers").inc()
+        tel.emit("failover", replica=replica.rank, host=replica.host, port=replica.port,
+                 error=type(err).__name__, fresh_quarantine=bool(fresh))
         if fresh:
             warnings.warn(
                 f"fleet replica {replica.rank} ({replica.host}:"
@@ -740,6 +787,7 @@ class FleetRouter:
                     self._health.bump(rank)
                     continue
                 if self._health.lift(rank) is not None:
+                    tel.emit("quarantine_lifted", replica=rank)
                     warnings.warn(
                         f"fleet replica {rank} ({replica.host}:"
                         f"{replica.port}) answers again: quarantine lifted"
@@ -807,7 +855,54 @@ class FleetRouter:
         c["replicas"] = replicas
         c["active_replicas"] = active
         c["cache"] = self.cache.stats()
+        # the derived values as gauges (the counters are dual-written where
+        # they count)
+        tel.publish("fleet", c)
+        for cls, depth in depths.items():
+            tel.gauge("fleet_queue_depth", **{"class": cls}).set(depth)
         return c
+
+    def replica_metrics(self, rank: int) -> dict:
+        """One replica's ``metrics`` wire op, decoded: ``{"stats",
+        "registry"}``, its stats dict and its whole telemetry registry."""
+        r = self._replicas[rank]
+        z = self._rt.round_trip(
+            (r.host, r.port), r.host, r.port, policy=_ONE_ATTEMPT,
+            what=f"fleet metrics of replica {rank}",
+            metrics=np.asarray(1, np.int64),
+        )
+        self._check_protocol(z, r.host, r.port)
+        return json.loads(wire.field_text(z["metrics"]))
+
+    def metrics(self) -> dict:
+        """The fleet-wide telemetry view: the router's stats and registry,
+        every reachable replica's ``metrics`` answer, and an aggregate row
+        (replicas reporting, total queue depth, sheds, served,
+        ``steady_captures``, the cache hit rate). A quarantined or
+        unreachable replica reports an ``error`` entry instead of hanging
+        the aggregation."""
+        out: dict = {"router": self.stats(), "registry": tel.snapshot(), "replicas": {}}
+        live = [r for r in list(self._replicas) if not r.retired]
+        agg = {"replicas_total": len(live), "replicas_reporting": 0, "queue_depth": 0,
+               "shed": 0, "served": 0, "steady_captures": 0}
+        for r in live:
+            if self._health.quarantined(r.rank):
+                out["replicas"][str(r.rank)] = {"error": "quarantined"}
+                continue
+            try:
+                m = self.replica_metrics(r.rank)
+            except (ConnectionError, OSError, RuntimeError) as e:
+                out["replicas"][str(r.rank)] = {"error": f"{type(e).__name__}: {e}"}
+                continue
+            out["replicas"][str(r.rank)] = m
+            stats = m.get("stats", {})
+            agg["replicas_reporting"] += 1
+            for key in ("queue_depth", "shed", "served", "steady_captures"):
+                agg[key] += int(stats.get(key, 0) or 0)
+        agg["cache_hit_rate"] = out["router"]["cache"].get("hit_rate")
+        out["aggregate"] = agg
+        tel.publish("fleet_aggregate", agg)
+        return out
 
 
 __all__ = ["FleetRouter", "RoutedRequest"]

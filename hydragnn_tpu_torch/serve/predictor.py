@@ -51,6 +51,7 @@ class Predictor:
         self._scales = None
         # step -> its Dispatch (the fp32 step, one int8 step per bucket)
         self.dispatches: dict = {}
+        self.ledger_model = "predict"  # the cost ledger's model key (the endpoint's name)
 
     def outputs(self, batch, step=None) -> list[torch.Tensor]:
         """Per-head fp32 predictions for one padded batch (still padded;
@@ -67,10 +68,13 @@ class Predictor:
         step = step or self.predict_step
         d = self.dispatches.get(step)
         if d is None:
-            name = "predict" if step is self.predict_step else "predict int8"
+            fp32 = step is self.predict_step
+            name = "predict" if fp32 else "predict int8"
+            ledger = {"model": self.ledger_model, "kind": "predict" if fp32 else "quant_predict",
+                      "precision": str(self.compute_dtype) if fp32 else "int8"}
             d = self.dispatches[step] = Dispatch(
                 lambda _state, batch: head_means(self.model, step(batch)), name,
-                device=self.device)
+                device=self.device, ledger=ledger)
         return d
 
     def answer(self, batch, step=None) -> list[torch.Tensor]:

@@ -2,7 +2,7 @@
 card, kernels built at warm-up.
 
 Counterpart of ``hydragnn_tpu/serve/server.py`` without its compile cache,
-serialized AOT artifacts, telemetry plane and env flags (later slices):
+serialized AOT artifacts and env flags (later slices):
 
 - **boot**: register models (architecture + weights + augmented config);
   each endpoint derives its pad-bucket table (the same
@@ -29,7 +29,16 @@ serialized AOT artifacts, telemetry plane and env flags (later slices):
   its own queue, bucket table and dispatcher thread; a model registers live
   (``add_model``) or from a training run's checkpoint directory
   (``add_model_from_checkpoint``). ``Serving.fleet`` configures the
-  multi-process front end (``serve.fleet``), which this server ignores.
+  multi-process front end (``serve.fleet``), which this server ignores;
+- **telemetry** (``telemetry/``), as the JAX server's: every counter of
+  :meth:`stats` is also the registry's ``serve_requests{model, event}``
+  (incremented on the host by the batcher and ``submit``, never inside a
+  captured step), each shed a ``shed`` record, the warm-up a
+  ``serve_warmup`` record, int8 certification a ``quant_cert`` record;
+  each warm-up capture a cost-ledger entry (kind ``predict`` or
+  ``quant_predict``; on the CPU the warm-up's eager run is counted), saved
+  where ``HYDRAGNN_LEDGER`` names a path; :meth:`PredictionServer.stats`
+  mirrors its numbers into ``serve_*`` gauges.
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..capture import no_new_captures
+from .. import telemetry as tel
+from ..capture import bucket_of, no_new_captures
 from ..graphs.batching import PadSpec, compute_pad_buckets, is_sorted, pick_bucket
 from ..graphs.graph import GraphSample
 from ..utils import resolve_device
@@ -186,6 +196,7 @@ class ModelEndpoint:
         self.cfg = cfg
         self.denormalize = denormalize
         self.warmed = False
+        predictor.ledger_model = name  # the cost ledger's key of its captures
         # int8 half (cfg.quantize): one quantized step per bucket, filled by
         # warm_quant only when every head's bound is within quant_tol
         self.calib_samples = list(calib_samples) if calib_samples else [example]
@@ -211,10 +222,15 @@ class ModelEndpoint:
 
     def _on_shed(self, kind: str) -> None:
         self._count("cancelled" if kind == "cancelled" else f"shed_{kind}")
+        if kind != "cancelled":
+            tel.emit("shed", model=self.name, reason=kind)
 
     def _count(self, key: str, by: int = 1) -> None:
         with self._lock:
             self.counters[key] += by
+        # the registry's series beside the stats() dict (the fleet's
+        # metrics op and the CLI read it)
+        tel.counter("serve_requests", model=self.name, event=key).inc(by)
 
     @staticmethod
     def _signature(s: GraphSample) -> dict:
@@ -253,7 +269,7 @@ class ModelEndpoint:
         report = {}
         for pad in self.buckets:
             t0 = time.perf_counter()
-            self.predictor.answer(self.warm_batch(pad))
+            self._warm_answer(self.warm_batch(pad))
             if self.predictor.device.type == "cuda":
                 torch.cuda.synchronize(self.predictor.device)
             report[repr(pad)] = time.perf_counter() - t0
@@ -262,6 +278,18 @@ class ModelEndpoint:
             report["quant"] = self.warm_quant()
         self.verify()
         return report
+
+    def _warm_answer(self, batch, step=None, kind: str = "predict", precision=None):
+        """One warm-up answer. On the card its capture records the cost
+        ledger's entry; on the CPU, which captures nothing, the eager run
+        is counted into the ledger here."""
+        pred = self.predictor
+        if pred.device.type == "cuda" or not tel.ledger.capture_enabled():
+            return pred.answer(batch, step=step)
+        out, counts = tel.ledger.count(pred.answer, batch, step=step)
+        tel.ledger.record(counts, model=self.name, bucket=bucket_of(batch), kind=kind,
+                          precision=precision or str(pred.compute_dtype), backend="cpu")
+        return out
 
     def verify(self) -> None:
         """A dummy batch through every bucket's graphs, fp32 and int8, under
@@ -324,6 +352,11 @@ class ModelEndpoint:
             scales = collect_activation_scales(pred.model, batches, pred.compute_dtype)
             weights = quantize_dense_weights(pred.model, scales)
             step = make_quantized_predict_step(pred.model, scales, weights, pred.compute_dtype)
+            if pred.device.type != "cuda":
+                # the card's capture of this step (in the certification)
+                # records its ledger entry; the CPU counts one eager run
+                self._warm_answer(batches[0], step=step, kind="quant_predict",
+                                  precision="int8")
             pad_bounds = certify_quant_error(pred, step, batches)
             bounds = [max(a, b) for a, b in zip(bounds, pad_bounds)]
             steps[pad.as_tuple()] = step
@@ -346,6 +379,8 @@ class ModelEndpoint:
             )
         self.quant_steps = steps
         self.quant_bounds = bounds
+        tel.emit("quant_cert", model=self.name, bounds=[round(b, 6) for b in bounds],
+                 quant_tol=self.cfg.quant_tol, buckets=len(self.buckets))
         return report
 
     def _drop(self, steps: dict) -> None:
@@ -395,6 +430,9 @@ class ModelEndpoint:
                 self.counters["real_graph_slots"] += len(members)
                 self.counters["graph_slots"] += pad.n_graph - 1
                 self.counters["served"] += len(members)
+            for key, by in (("batches", 1), ("real_graph_slots", len(members)),
+                            ("graph_slots", pad.n_graph - 1), ("served", len(members))):
+                tel.counter("serve_requests", model=self.name, event=key).inc(by)
             for slot, (req, heads) in enumerate(zip(members, per_graph)):
                 req.future.set_result({
                     "heads": heads,
@@ -492,10 +530,14 @@ class PredictionServer:
         return self.add_model(name, model, config, samples=samples, **add_model_kwargs)
 
     def warmup(self) -> dict:
-        """Capture every (model, bucket); returns seconds per bucket."""
+        """Capture every (model, bucket); returns seconds per bucket. Every
+        capture fed the cost ledger, which a path-valued
+        ``HYDRAGNN_LEDGER`` saves here."""
         t0 = time.perf_counter()
         report = {name: ep.warm() for name, ep in self._models.items()}
         report["total_s"] = time.perf_counter() - t0
+        tel.emit("serve_warmup", models=sorted(self._models), total_s=round(report["total_s"], 4))
+        tel.ledger.maybe_save()
         return report
 
     def start(self) -> "PredictionServer":
@@ -570,8 +612,9 @@ class PredictionServer:
         try:
             ep.check_sample(sample)
             ep.queue.put(req)
-        except Exception:
+        except Exception as exc:
             ep._count("shed")
+            tel.emit("shed", model=model, reason=type(exc).__name__)
             raise
         return req.future
 
@@ -599,6 +642,9 @@ class PredictionServer:
             c["quantized"] = len(ep.quant_steps)
             c["quant_bounds"] = ep.quant_bounds
             c["captures"] = ep.predictor.captures()
+            # the derived values as gauges (the counters are dual-written
+            # where they count)
+            tel.publish("serve", c, model=name)
             out[name] = c
         return out
 

@@ -35,12 +35,24 @@ request (SIGTERM, the elastic controller), agreed by the ranks at a
 dispatch boundary, saves a mid-epoch checkpoint whose sidecar lets a fresh
 process resume on exactly the batches not yet trained; chaos faults fire
 at their (epoch, dispatch); the watchdog brackets the blocking reads.
-Populations, telemetry and the compile cache are not in this slice.
+
+The telemetry plane (``telemetry/``) runs through it as through the JAX
+loop: host-clock spans (``train``, ``dataload``, ``validate``, ``test``,
+and the superstep's ``stage_block``), the journal's ``epoch`` record per
+epoch (``dispatch_block`` per block at K > 1), ``rollback``,
+``preempt_checkpoint``, the capture sentinel
+(``HYDRAGNN_COMPILE_SENTINEL``, ``analysis/sentinel.py``), a
+``torch.profiler`` trace of the first epoch at ``HYDRAGNN_TRACE_LEVEL`` >=
+1, and the one-shot ledger probe of an eager route. Nothing of it reads a
+tensor inside the dispatch loop: the records take the host's counts and
+the epoch's metrics after their one transfer. Populations and the compile
+cache are not in this slice.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from contextlib import nullcontext
 from types import SimpleNamespace
@@ -48,7 +60,10 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .. import telemetry as tel
 from ..capture import Dispatch
+from ..utils import flags
+from ..utils import tracer as tr
 from .checkpoint import Checkpoint, EarlyStopping, load_checkpoint, save_checkpoint
 from .optimizer import ReduceLROnPlateau, get_learning_rate, set_learning_rate
 from .step import TrainState, make_eval_step, make_train_step, resolve_loss_scale
@@ -127,33 +142,47 @@ def train_epoch(superstep, state: TrainState, loader, put=None, resilience=None,
     tracker = res.new_tracker(MAX_IN_FLIGHT) if res is not None else None
     epoch_no = res.current_epoch if res is not None else 0
     interrupted, dispatches, metrics = False, 0, []
-    blocks = _chunks(_batches(loader, device, put, per_step), k)
-    for ib, block in enumerate(blocks):
-        if res is not None and res.stop_requested(ib):
-            interrupted = True
-            break
-        # a segment's first dispatch captures its graphs: no deadline
-        guard = (dwd.guard(f"dispatch {ib}", on_expire=res.note_hung_dispatch)
-                 if dwd is not None and ib > 0 else nullcontext())
-        with guard:
-            if chaos is not None:
-                block = chaos.on_dispatch(epoch_no, ib, list(block))
-            for b in block:
-                m = step(state, b)
-                metrics.append(m)
-                if tracker is not None and "skipped" in m:
-                    with wd("skip read (in-flight window)"):
-                        tracker.push(m["skipped"])
-        dispatches += 1
-    if res is not None:
-        res.interrupted = interrupted
-        res.epoch_raw_done = dispatches * k * n_dev
-    if tracker is not None:
-        with wd("epoch-end skip drain"):
-            tracker.finish()  # may raise DivergenceDetected
-    has_skip = bool(metrics) and "skipped" in metrics[0]
-    with wd("epoch-end metrics transfer"):
-        loss, tasks, extras = accumulate(metrics, ("skipped", "num_graphs") if has_skip else ())
+    # host-clock spans: each batch's wait in "dataload", each block's
+    # staging (K batches) in the superstep's "stage_block"
+    blocks = _chunks(tr.timed_iter(_batches(loader, device, put, per_step)), k)
+    if k > 1:
+        blocks = tr.timed_iter(blocks, "stage_block")
+    tr.start("train")
+    try:
+        for ib, block in enumerate(blocks):
+            if res is not None and res.stop_requested(ib):
+                interrupted = True
+                break
+            # a segment's first dispatch captures its graphs: no deadline
+            guard = (dwd.guard(f"dispatch {ib}", on_expire=res.note_hung_dispatch)
+                     if dwd is not None and ib > 0 else nullcontext())
+            with guard:
+                if chaos is not None:
+                    block = chaos.on_dispatch(epoch_no, ib, list(block))
+                for b in block:
+                    m = step(state, b)
+                    metrics.append(m)
+                    if tracker is not None and "skipped" in m:
+                        with wd("skip read (in-flight window)"):
+                            tracker.push(m["skipped"])
+            dispatches += 1
+            if k > 1:
+                # one record per block (the unit of dispatch); K = 1 epochs
+                # summarize in the epoch record
+                tel.emit("dispatch_block", block=ib, step=ib * k * n_dev, k=k, n_dev=n_dev)
+        if res is not None:
+            res.interrupted = interrupted
+            res.epoch_raw_done = dispatches * k * n_dev
+        if tracker is not None:
+            with wd("epoch-end skip drain"):
+                tracker.finish()  # may raise DivergenceDetected
+        has_skip = bool(metrics) and "skipped" in metrics[0]
+        # the one transfer waits for the last step: inside the train span
+        with wd("epoch-end metrics transfer"):
+            loss, tasks, extras = accumulate(metrics,
+                                             ("skipped", "num_graphs") if has_skip else ())
+    finally:
+        tr.stop("train")
     if has_skip:
         n_skipped = int(extras["skipped"].sum())
         state.step -= n_skipped  # a skipped step reverts its count
@@ -165,13 +194,15 @@ def train_epoch(superstep, state: TrainState, loader, put=None, resilience=None,
     return loss, tasks
 
 
-def evaluate(eval_step, state: TrainState, loader, put=None, per_step: int = 1):
+def evaluate(eval_step, state: TrainState, loader, put=None, per_step: int = 1,
+             span: str = "validate"):
     """A whole split through ``eval_step`` (``(state, batch) -> metrics``:
-    on the card the eval ``Dispatch``); returns (loss, per-task losses,
-    per-head RMSE)."""
+    on the card the eval ``Dispatch``), in a ``span`` host span; returns
+    (loss, per-task losses, per-head RMSE)."""
     device = next(state.model.parameters()).device
-    metrics = [eval_step(state, batch) for batch in _batches(loader, device, put, per_step)]
-    loss, tasks, extras = accumulate(metrics, extra_keys=("head_sse", "head_count"))
+    with tr.span(span):
+        metrics = [eval_step(state, batch) for batch in _batches(loader, device, put, per_step)]
+        loss, tasks, extras = accumulate(metrics, extra_keys=("head_sse", "head_count"))
     sse, count = extras["head_sse"], extras["head_count"]
     rmse = np.sqrt(sse / np.maximum(count, 1.0)) if sse is not None else np.zeros(0)
     return loss, tasks, rmse
@@ -179,7 +210,7 @@ def evaluate(eval_step, state: TrainState, loader, put=None, per_step: int = 1):
 
 def test(eval_step, state: TrainState, loader):
     """(total error, per-task losses, per-head RMSE) of the test split."""
-    return evaluate(eval_step, state, loader)
+    return evaluate(eval_step, state, loader, span="test")
 
 
 def _eager(train_step, k: int = 1):
@@ -253,6 +284,9 @@ def _rollback_state(state: TrainState, log_name: str, path: str, res, rollbacks:
     old_lr = get_learning_rate(state.optimizer)
     new_lr = old_lr * res.rollback_lr_factor ** rollbacks
     set_learning_rate(state.optimizer, new_lr)
+    tel.emit("rollback", restored_epoch=meta.get("epoch"), consecutive=rollbacks,
+             lr_old=float(old_lr), lr_new=float(new_lr), cause=str(err)[:256])
+    tel.counter("divergence_rollbacks_total").inc()
     _log(verbosity, f"divergence rollback #{rollbacks}: restored the checkpoint of epoch "
                     f"{meta.get('epoch')}, LR {old_lr:.2e} -> {new_lr:.2e}")
 
@@ -317,11 +351,18 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
         train_step = wrap_step_with_guard(train_step)
         if logical_step is not None:
             logical_step = wrap_step_with_guard(logical_step)
+    precision = str(compute_dtype)
     if capture:
-        superstep = make_superstep(train_step, k, collective)
-        eval_step = Dispatch(eval_step, "eval", collective=collective)
+        superstep = make_superstep(train_step, k, collective, ledger={
+            "model": log_name, "kind": "train_step", "precision": precision})
+        eval_step = Dispatch(eval_step, "eval", collective=collective, ledger={
+            "model": log_name, "kind": "eval_step", "precision": precision})
     else:
         superstep = _eager(train_step, k)
+    if not (capture and device.type == "cuda"):
+        # an eager route captures nothing: the one-shot probe counts its
+        # first train step instead (HYDRAGNN_LEDGER naming a path arms it)
+        superstep = _ledger_probe(superstep, log_name, precision)
     scheduler = ReduceLROnPlateau(get_learning_rate(state.optimizer))
     checkpoint = (
         Checkpoint(log_name, warmup=int(training.get("checkpoint_warmup", 0)), path=path)
@@ -381,14 +422,38 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
                 early_stopping.best = float(es["best"])
             early_stopping.count = int(es.get("count", 0))
 
+    # the sentinel's warm-up: the first epoch this process runs captures
+    # every graph; after a partial resume the first full epoch may capture
+    # the buckets the resumed tail skipped
+    sentinel = _Sentinel(start_epoch + (1 if resume_skip else 0), verbosity)
+
     def epoch_checkpoints(epoch: int, metric: float, saved_best: bool) -> None:
         """The rolling last-good checkpoint (the rollback's target) unless
-        the best-model one was written, then the epoch's chaos faults."""
+        the best-model one was written, the epoch's chaos faults, then the
+        capture sentinel (after the checkpoints: a strict abort keeps the
+        epoch's work)."""
         if res.checkpoint_every_epoch and not saved_best:
             save_checkpoint(state, log_name, epoch, path=path,
                             meta={"rolling": True, "metric": _finite_or_none(metric)})
         if res.chaos is not None:
             res.chaos.on_epoch_end(epoch, log_name, path)
+        sentinel.epoch_end(epoch)
+
+    def journal_epoch(epoch: int, t0: float, train_loss, val_loss=None,
+                      test_loss=None) -> None:
+        """The epoch's journal record and registry gauges (the JAX loop's
+        ``_journal_epoch``), from the host's values only."""
+        record = {"train_loss": _finite_or_none(train_loss),
+                  "duration_s": round(time.monotonic() - t0, 4),
+                  "raw_batches": int(res.epoch_raw_done), "skipped": int(res.skipped_total),
+                  "lr": float(get_learning_rate(state.optimizer))}
+        if val_loss is not None:
+            record["val_loss"] = _finite_or_none(val_loss)
+        if test_loss is not None:
+            record["test_loss"] = _finite_or_none(test_loss)
+        tel.emit("epoch", epoch=epoch, **record)
+        tel.counter("train_epochs_total").inc()
+        tel.publish("train", record)
 
     def preempt_boundary(epoch: int) -> bool:
         """A stop request at the epoch's end: the resume point is (epoch +
@@ -398,6 +463,7 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
         save_checkpoint(state, log_name, epoch, path=path, meta=preempt_meta(
             epoch + 1, 0, k, n_dev, train_loader, scheduler, checkpoint, early_stopping))
         res.preempted = True
+        tel.emit("preempt_checkpoint", epoch=epoch + 1, raw_done=0, mid_epoch=False)
         _log(verbosity, f"Preemption requested: checkpointed after epoch {epoch}")
         return True
 
@@ -415,9 +481,15 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
     res.install()  # SIGTERM/SIGUSR1 -> a checkpoint request (restored below)
     rollbacks = 0
     epoch = start_epoch
+    # HYDRAGNN_TRACE_LEVEL >= 1: a torch.profiler trace of the first epoch
+    profiling = int(flags.get(flags.TRACE_LEVEL)) >= 1 and tr.initialize(
+        os.path.join(path, log_name, "profile"), enable_profiler=True)
     try:
         while epoch < num_epoch:
+            tel.set_context(epoch=epoch)  # the correlation id of every record
             t_epoch = time.perf_counter()
+            t_journal = time.monotonic()
+            sentinel.epoch_start()
             train_loader.set_epoch(epoch)
             res.current_epoch = epoch
             skip = resume_skip if epoch == start_epoch else 0
@@ -449,6 +521,9 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
                 # later epochs (and a retried one) take this group's own grid
                 train_loader.set_group(*native)
             rollbacks = 0
+            if profiling:
+                tr.stop_profiler()
+                profiling = False
             if res.skipped_total:
                 _log(verbosity, f"non-finite guard: {res.skipped_total} step(s) skipped so far "
                                 "this run")
@@ -459,12 +534,15 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
                     epoch, raw_done, k, ep_ndev, train_loader, scheduler, checkpoint,
                     early_stopping))
                 res.preempted = True
+                tel.emit("preempt_checkpoint", epoch=epoch, raw_done=raw_done,
+                         raw_total=raw_total, mid_epoch=True)
                 _log(verbosity, f"Preemption requested: checkpointed mid-epoch at epoch "
                                 f"{epoch}, batch {raw_done}/{raw_total}")
                 break
             record = {"epoch": epoch, "train_loss": train_loss}
             if skip_valtest:
                 _log(verbosity, f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}")
+                journal_epoch(epoch, t_journal, train_loss)
                 saved = bool(checkpoint(state, epoch, train_loss)) if checkpoint else False
                 record["seconds"] = time.perf_counter() - t_epoch
                 if history is not None:
@@ -473,13 +551,14 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
                     break
                 epoch += 1
                 continue
-            val_loss, _, _ = evaluate(eval_step, state, val_loader, put, per_step)
-            test_loss, _, _ = evaluate(eval_step, state, test_loader, put, per_step)
+            val_loss, _, _ = evaluate(eval_step, state, val_loader, put, per_step, "validate")
+            test_loss, _, _ = evaluate(eval_step, state, test_loader, put, per_step, "test")
             new_lr = scheduler.step(val_loss)
             if new_lr != get_learning_rate(state.optimizer):
                 set_learning_rate(state.optimizer, new_lr)
             _log(verbosity, f"Epoch: {epoch:04d}, Train Loss: {train_loss:.8f}, Val Loss: "
                             f"{val_loss:.8f}, Test Loss: {test_loss:.8f}, LR: {new_lr:.2e}")
+            journal_epoch(epoch, t_journal, train_loss, val_loss, test_loss)
             record.update(val_loss=val_loss, test_loss=test_loss, lr=new_lr)
             saved = bool(checkpoint(state, epoch, val_loss)) if checkpoint else False
             record["seconds"] = time.perf_counter() - t_epoch
@@ -494,7 +573,86 @@ def train_validate_test(state: TrainState, train_loader, val_loader, test_loader
             epoch += 1
     finally:
         res.uninstall()  # the previous SIGTERM/SIGUSR1 handlers come back
+        if profiling:  # no epoch finished
+            tr.stop_profiler()
     return state
+
+
+class _Sentinel:
+    """``HYDRAGNN_COMPILE_SENTINEL`` (``warn`` | ``strict``; unset or 0:
+    off) over the epochs: the CUDA graphs each epoch captured
+    (``analysis.sentinel.compile_counts``), journalled as
+    ``compile_sentinel`` with the JAX field name ``new_lowerings``; after
+    the warm-up epoch ``warmup_through`` a capture warns or, ``strict``,
+    raises ``RecompileError``. A typo raises rather than turn a gate
+    off."""
+
+    def __init__(self, warmup_through: int, verbosity: int):
+        mode = str(flags.get(flags.COMPILE_SENTINEL) or "").strip().lower()
+        if mode in ("", "0", "false", "off"):
+            mode = None
+        elif mode not in ("warn", "strict"):
+            raise ValueError(f"HYDRAGNN_COMPILE_SENTINEL={mode!r}: expected 'warn', 'strict', "
+                             "or unset/0")
+        self.mode = mode
+        self.warmup_through = warmup_through
+        self.verbosity = verbosity
+        self.at_start = 0
+
+    def epoch_start(self) -> None:
+        if self.mode is not None:
+            from ..analysis.sentinel import compile_counts
+
+            self.at_start = compile_counts()["captures"]
+
+    def epoch_end(self, epoch: int) -> None:
+        if self.mode is None:
+            return
+        from ..analysis.sentinel import RecompileError, compile_counts
+
+        delta = compile_counts()["captures"] - self.at_start
+        if delta:
+            tel.emit("compile_sentinel", epoch=epoch, new_lowerings=int(delta),
+                     warmup=epoch <= self.warmup_through)
+            tel.gauge("compile_lowerings_delta").set(int(delta))
+        if epoch <= self.warmup_through or delta == 0:
+            return
+        msg = (f"compile sentinel: epoch {epoch} captured {delta} new CUDA graph(s) after the "
+               "warm-up epoch: a batch signature (bucket, dtype, sortedness certificate) the "
+               f"warm-up did not see (HYDRAGNN_COMPILE_SENTINEL={self.mode})")
+        if self.mode == "strict":
+            raise RecompileError(msg)
+        _log(self.verbosity, msg)
+
+
+_LEDGER_PROBED = False  # one-shot latch (a single flip)
+
+
+def _ledger_probe(superstep, model: str, precision: str):
+    """``superstep`` whose first train step in the process is counted into
+    the cost ledger (``telemetry.ledger.count``: the step itself, no extra
+    run) when ``HYDRAGNN_LEDGER`` names a save path and capture is on; the
+    JAX loop's ``_maybe_ledger_probe`` for a route that captures no graph.
+    Otherwise ``superstep`` itself."""
+    from ..capture import bucket_of
+    from ..telemetry import ledger
+
+    if _LEDGER_PROBED or ledger.save_path() is None or not ledger.capture_enabled():
+        return superstep
+    step = _step_of(superstep)
+
+    def probed(state, batch):
+        global _LEDGER_PROBED
+        if _LEDGER_PROBED:
+            return step(state, batch)
+        _LEDGER_PROBED = True
+        out, counts = ledger.count(step, state, batch)
+        one = batch[0] if isinstance(batch, tuple) else batch
+        ledger.record(counts, model=model, bucket=bucket_of(one), kind="train_step",
+                      precision=precision, backend=one.device.type)
+        return out
+
+    return SimpleNamespace(k=getattr(superstep, "k", 1), dispatch=probed)
 
 
 __all__ = ["MAX_IN_FLIGHT", "accumulate", "evaluate", "preempt_meta", "reshard_resume_reason",

@@ -32,9 +32,14 @@ Contracts (``tests/test_torch_superstep.py`` on the CPU,
   batches, and the state after it is the state after training on them
   only, by construction.
 
-The JAX package's ``HYDRAGNN_SUPERSTEP`` override lives in its
-``utils/flags``, which the port has not ported yet: K is
+The JAX package's ``HYDRAGNN_SUPERSTEP`` override is not ported: K is
 ``Training.steps_per_dispatch`` alone.
+
+Telemetry (``train/loop.py``): each block's host staging (its K batches
+from the prefetcher) is a ``stage_block`` span, each batch's wait a
+``dataload`` span inside it, and each block a ``dispatch_block`` journal
+record, as in the JAX package; a span closes on the host clock and waits
+for nothing on the card.
 """
 
 from __future__ import annotations
@@ -54,19 +59,21 @@ class Superstep:
     (on the card a replay of its bucket's graph, on the CPU the eager
     step). ``k`` is the block length the loader plans for."""
 
-    def __init__(self, train_step, k: int, collective: bool = False):
+    def __init__(self, train_step, k: int, collective: bool = False, ledger: dict | None = None):
         self.k = max(1, int(k))
-        self.dispatch = Dispatch(train_step, "train", train=True, collective=collective)
+        self.dispatch = Dispatch(train_step, "train", train=True, collective=collective,
+                                 ledger=ledger)
 
     def __call__(self, state, batches) -> list[dict]:
         return [self.dispatch(state, b) for b in batches]
 
 
-def make_superstep(train_step, k: int, collective: bool = False) -> Superstep:
+def make_superstep(train_step, k: int, collective: bool = False,
+                   ledger: dict | None = None) -> Superstep:
     """The superstep of ``train_step`` (``(state, batch) -> metrics``, the
-    eager step) over blocks of ``k`` batches; ``collective``: see
-    :class:`~..capture.Dispatch`."""
-    return Superstep(train_step, k, collective)
+    eager step) over blocks of ``k`` batches; ``collective`` and ``ledger``:
+    see :class:`~..capture.Dispatch`."""
+    return Superstep(train_step, k, collective, ledger)
 
 
 __all__ = ["Superstep", "make_superstep", "resolve_steps_per_dispatch"]

@@ -7,9 +7,12 @@ layouts (``HYDRAGNN_AUTO_PARALLEL``, ``HYDRAGNN_USE_FSDP``,
 ``HYDRAGNN_FSDP_STRATEGY``, ``HYDRAGNN_HALO``, ``HYDRAGNN_MASTER_ADDR``,
 ``HYDRAGNN_MASTER_PORT``) and of the resilience layer
 (``HYDRAGNN_NONFINITE_GUARD``, ``HYDRAGNN_FAULT_PLAN``,
-``HYDRAGNN_ELASTIC``, ``HYDRAGNN_WATCHDOG_DISPATCH_S``). The JAX package's
-other overrides (prefetch, workers, supersteps, serving, the store) are not
-read by the port yet.
+``HYDRAGNN_ELASTIC``, ``HYDRAGNN_WATCHDOG_DISPATCH_S``) and of the
+telemetry plane (``HYDRAGNN_TELEMETRY``, ``HYDRAGNN_TRACE_EVENTS``,
+``HYDRAGNN_TRACE_PROPAGATE``, ``HYDRAGNN_LEDGER``, ``HYDRAGNN_TRACE_LEVEL``,
+``HYDRAGNN_COMPILE_SENTINEL``, with the JAX package's defaults). The JAX
+package's other overrides (prefetch, workers, supersteps, serving, the
+store) are not read by the port yet.
 """
 
 from __future__ import annotations
@@ -90,6 +93,49 @@ WATCHDOG_DISPATCH_S = _register(Flag(
     "graphs). Expiry warns, and under elastic recovery becomes a "
     "recoverable fault."))
 
+# -- observability (telemetry/) ---------------------------------------------
+TELEMETRY = _register(Flag(
+    "HYDRAGNN_TELEMETRY", "bool", True,
+    "The telemetry plane (hydragnn_tpu_torch.telemetry): typed metrics "
+    "registry, structured event journal (logs/<run>/events.jsonl), "
+    "correlated trace export and the cost ledger. =0 turns the whole plane "
+    "into no-ops (accessors hand out a shared no-op instrument; journal "
+    "emits return at once). Overrides Telemetry.enabled."))
+TRACE_EVENTS = _register(Flag(
+    "HYDRAGNN_TRACE_EVENTS", "bool", False,
+    "Record every tracer span (host clock) as a Chrome trace event and let "
+    "runs write a perfetto-loadable logs/<run>/trace.json tagged with the "
+    "journal's correlation ids. The aggregate span timers (utils/tracer.py) "
+    "always run. Overrides Telemetry.trace_events; requires "
+    "HYDRAGNN_TELEMETRY on."))
+TRACE_PROPAGATE = _register(Flag(
+    "HYDRAGNN_TRACE_PROPAGATE", "bool", True,
+    "Propagate the ambient trace context (request_id / parent span / "
+    "journal correlation ids) across the wire: RoundTripper.request stamps "
+    "one optional frame field (_trace_ctx), WireServer extracts it into the "
+    "handler's journal scope. =0 sends no field: the frame is byte for "
+    "byte the frame without telemetry. Overrides Telemetry.trace_propagate; "
+    "requires HYDRAGNN_TELEMETRY on."))
+LEDGER = _register(Flag(
+    "HYDRAGNN_LEDGER", "str", None,
+    "Cost ledger over captured graphs (telemetry/ledger.py). Unset: every "
+    "CUDA-graph capture records its FLOPs, bytes and peak memory in memory, "
+    "and runs that open a journal persist logs/<run>/ledger.json. "
+    "'0'/'false': disable. A path: also save the ledger there after the "
+    "serving warm-up, and arm the one-shot train-step probe of an eager "
+    "route (diff two ledgers with `python -m hydragnn_tpu_torch.telemetry "
+    "ledger`)."))
+TRACE_LEVEL = _register(Flag(
+    "HYDRAGNN_TRACE_LEVEL", "int", 0,
+    "Tracer verbosity: 0 span timers only, >=1 also records a "
+    "torch.profiler trace of the first epoch under logs/<run>/profile."))
+COMPILE_SENTINEL = _register(Flag(
+    "HYDRAGNN_COMPILE_SENTINEL", "str", None,
+    "Guard steady-state epochs against new CUDA-graph captures "
+    "(analysis/sentinel.py): 'warn' prints the per-epoch capture count "
+    "after the warm-up epoch, 'strict' raises RecompileError; unset/0 "
+    "disables."))
+
 FSDP_STRATEGIES = frozenset({"FULL_SHARD", "SHARD_GRAD_OP", "HYBRID_SHARD", "NO_SHARD"})
 
 
@@ -133,6 +179,7 @@ def describe() -> str:
                      for name, f in sorted(_REGISTRY.items()))
 
 
-__all__ = ["AUTO_PARALLEL", "ELASTIC", "FAULT_PLAN", "FSDP_STRATEGIES", "FSDP_STRATEGY", "Flag",
-           "HALO", "MASTER_ADDR", "MASTER_PORT", "NONFINITE_GUARD", "USE_FSDP",
-           "WATCHDOG_DISPATCH_S", "describe", "fsdp_mode", "get"]
+__all__ = ["AUTO_PARALLEL", "COMPILE_SENTINEL", "ELASTIC", "FAULT_PLAN", "FSDP_STRATEGIES",
+           "FSDP_STRATEGY", "Flag", "HALO", "LEDGER", "MASTER_ADDR", "MASTER_PORT",
+           "NONFINITE_GUARD", "TELEMETRY", "TRACE_EVENTS", "TRACE_LEVEL", "TRACE_PROPAGATE",
+           "USE_FSDP", "WATCHDOG_DISPATCH_S", "describe", "fsdp_mode", "get"]

@@ -27,9 +27,16 @@ the same sample are the same bytes:
   healthy-first rotated replica ordering) of replica failover, in the
   fleet's router and the sharded store.
 
-The JAX module's telemetry hooks (a frame's optional trace-context field
-and the per-serve journal record) are not ported: with its telemetry off
-they add no field to a frame, which is the frame this module sends.
+Trace propagation (``telemetry.propagation``), as in the JAX module:
+``RoundTripper.request`` adds the optional ``_trace_ctx`` field when
+propagation is armed and the ambient journal context holds a
+``request_id``; ``WireServer`` enters a frame's context into the handler
+thread's journal scope and journals one ``wire_serve`` record per traced
+frame. The field and its JSON blob are the JAX package's, so a port peer
+and a JAX peer carry one ``request_id`` both ways; with propagation off
+(``HYDRAGNN_TRACE_PROPAGATE=0``, ``Telemetry.trace_propagate: false``) or
+no ``request_id`` in scope a frame carries no field, byte for byte the
+frame without telemetry.
 """
 
 from __future__ import annotations
@@ -46,10 +53,22 @@ from contextlib import nullcontext
 import numpy as np
 
 from ..graphs.graph import GraphSample
+from ..telemetry import journal as _journal, propagation as _propagation
 from .retry import RetryPolicy, call_with_retries
 
 HDR = struct.Struct("<q")  # payload byte length
 MAGIC = b"GSX1"
+
+# known op keys, most specific first: the label of a served frame's journal
+# record ("frame" for an op this module has not met)
+_OP_KEYS = ("predict", "stats", "metrics", "sizes", "idx")
+
+
+def frame_op(z: dict) -> str:
+    for key in _OP_KEYS:
+        if key in z:
+            return key
+    return "frame"
 
 
 # -- framing + array codec ----------------------------------------------------
@@ -296,10 +315,16 @@ class WireServer:
 
     ``close()`` stops serving like a dead host: at once, the listening
     socket and every established connection severed, so pooled client
-    sockets error on reuse. ``port=0`` picks an ephemeral port."""
+    sockets error on reuse. ``port=0`` picks an ephemeral port.
+
+    A frame carrying the trace-context field has its ids entered into the
+    handler thread's journal scope around :meth:`handle_frame` and the
+    serve journalled as ``wire_serve``; ``journal=`` routes this server's
+    records to a private ``EventJournal`` (a replica's own log dir)."""
 
     def __init__(self, host: str = "0.0.0.0", port: int = 0, auth_token: str | None = None,
-                 name: str | None = None, _test_delay_s: float = 0.0):
+                 name: str | None = None, journal: "_journal.EventJournal | None" = None,
+                 _test_delay_s: float = 0.0):
         outer = self
         tok = None if auth_token is None else auth_token.encode()
 
@@ -334,12 +359,22 @@ class WireServer:
                         if "ping" in z:
                             send_msg(self.request, pong_frame(**outer.pong_fields()))
                             continue
-                        try:
-                            resp = outer.handle_frame(z)
-                            if isinstance(resp, dict):
-                                resp = pack_arrays(resp)
-                        except Exception as e:
-                            resp = error_frame(-3, f"{type(e).__name__}: {e}")
+                        ctx = _propagation.extract(z)
+                        t0 = time.time()
+                        with _propagation.scope(ctx):
+                            try:
+                                resp = outer.handle_frame(z)
+                                if isinstance(resp, dict):
+                                    resp = pack_arrays(resp)
+                                if ctx:
+                                    outer.emit_event("wire_serve", op=frame_op(z), ok=1,
+                                                     dur_s=round(time.time() - t0, 6))
+                            except Exception as e:
+                                resp = error_frame(-3, f"{type(e).__name__}: {e}")
+                                if ctx:
+                                    outer.emit_event("wire_serve", op=frame_op(z), ok=0,
+                                                     error=type(e).__name__,
+                                                     dur_s=round(time.time() - t0, 6))
                         send_msg(self.request, resp)
                 except (ConnectionError, OSError):
                     return
@@ -349,6 +384,7 @@ class WireServer:
             allow_reuse_address = True
 
         self._name = name or type(self).__name__
+        self._journal = journal  # private journal (None: the process's)
         self._test_delay_s = float(_test_delay_s)
         self._conns: set[socket.socket] = set()  # guarded-by: _conns_lock
         self._conns_lock = threading.Lock()
@@ -375,6 +411,19 @@ class WireServer:
 
     def handle_frame(self, z: dict[str, np.ndarray]) -> "bytes | dict":
         raise NotImplementedError
+
+    def emit_event(self, kind: str, **fields) -> None:
+        """Journal one record: to this server's private journal when one is
+        attached, else to the process's (a no-op with the plane off; a
+        telemetry failure never fails a serve)."""
+        try:
+            if self._journal is not None:
+                if _journal.metrics.enabled():
+                    self._journal.emit(kind, **fields)
+            else:
+                _journal.emit(kind, **fields)
+        except Exception:
+            pass
 
     def _log_name(self) -> str:
         return f"{self._name}:{self.port}"
@@ -503,6 +552,9 @@ class RoundTripper:
         exposes the in-flight socket to the watchdog."""
         if self._auth_token is not None:
             fields["token"] = token_field(self._auth_token)
+        # the trace context rides along when armed and a request_id is in
+        # scope; otherwise nothing is added
+        _propagation.inject(fields)
         req = pack_arrays(fields)
 
         def attempt_once() -> bytes:

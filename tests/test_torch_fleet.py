@@ -207,8 +207,8 @@ class _Recorder:
 
 def test_round_tripper_request_bytes_equal_jax(warm_server):
     """A predict request with an auth token, as each package's
-    ``RoundTripper`` puts it on the socket (the JAX package's telemetry is
-    off, so its trace-context hook adds no field): the same bytes."""
+    ``RoundTripper`` puts it on the socket (no request_id is in scope, so
+    neither package's trace-context hook adds a field): the same bytes."""
     jsample = warm_server["jsamples"][3]
     sample = tpu.port_samples([jsample])[0]
     peer = _Recorder()
@@ -314,15 +314,16 @@ def test_fleet_single_replica_cache_canary(warm_server):
 
 
 def test_replica_answers_unknown_ops_and_sheds_typed(warm_server):
-    """An op the replica does not serve (the JAX replica's ``metrics``, which
-    waits for the port's telemetry) is an ``n=-3`` record naming it; an
-    incompatible sample is a typed ``n=-4`` shed."""
+    """An op the replica does not serve (the sharded store's ``sizes``) is an
+    ``n=-3`` record naming it; an incompatible sample is a typed ``n=-4``
+    shed. (The JAX replica's ``metrics`` op is served since the telemetry
+    plane is ported: ``tests/test_torch_telemetry.py``.)"""
     server, samples = warm_server["server"], warm_server["samples"]
     host = ReplicaHost(server)
     rt = wire.RoundTripper(5.0)
     try:
         z = rt.round_trip("r", "127.0.0.1", host.port, policy=RetryPolicy(attempts=1),
-                          metrics=np.asarray(1, np.int64))
+                          sizes=np.asarray(1, np.int64))
         assert int(z["n"]) == -3 and "unknown fleet op" in wire.frame_detail(z)
         bad = copy.deepcopy(samples[0])
         bad.x = np.concatenate([bad.x, bad.x], axis=1)

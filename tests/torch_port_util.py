@@ -12,9 +12,41 @@ from __future__ import annotations
 import copy
 
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture
+def joined_threads():
+    """Every thread a test starts is finished when it ends (joined with a
+    timeout, then asserted): under ``--dist loadfile`` a JAX test on the
+    same worker counts leaked threads."""
+    import threading
+
+    before = set(threading.enumerate())
+    yield
+    # a RoundTripper's watchdog monitor (resilience/watchdog.py) is a daemon
+    # that parks for the life of the process
+    left = [t for t in threading.enumerate()
+            if t not in before and t.name != "hydragnn-watchdog"]
+    for t in left:
+        t.join(timeout=10.0)
+    alive = [t.name for t in left if t.is_alive()]
+    assert not alive, alive
+
+
+@pytest.fixture
+def port_telemetry():
+    """The port's telemetry plane, isolated (``telemetry.isolate``: a fresh
+    registry, trace buffer, tracer timers, ledger, journal and context, and
+    the config overrides put back after); yields the package. The port's
+    counterpart of ``tests/conftest.py``'s ``telemetry_isolate``."""
+    import hydragnn_tpu_torch.telemetry as tel
+
+    with tel.isolate():
+        yield tel
 
 _SAMPLE_FIELDS = (
     "x", "pos", "senders", "receivers", "edge_attr", "edge_shifts", "graph_attr",
