@@ -262,16 +262,21 @@ logged (the last is a ``capture summary`` line).
    a loadable ``trace.json`` with the ``train`` and ``dataload`` spans, one
    ledger entry per captured train and eval graph whose ``flops`` equal the
    CPU route's for the same signature and whose ``peak_bytes`` are above 0,
-   the same count of host synchronisations
-   (``torch.cuda.set_sync_debug_mode("warn")``) over an epoch's dispatch
-   loop with the plane on and off, the strict sentinel tripped by a forced
-   new bucket, and the captured train step's ms with the plane on and off
-   (ABBA); the fleet (phase 14) runs its replicas with the plane on, a
-   traced predict's ``request_id`` in the router's and a replica's
-   journals, ``FleetRouter.metrics()`` over both replicas
-   (``steady_captures`` 0), the per-request time between ``fleet_admit``,
-   ``fleet_dispatch`` and ``fleet_reply`` of its burst, and the served and
-   routed bursts' p50 with the plane on and off (ABBA).
+   and the strict sentinel tripped by a forced new bucket; then ABBA arms
+   of ``train_validate_test`` from the trained state, behind the prefetch
+   loaders and over batches already on the card, with the plane fully on
+   (journal open, trace events, ledger at a path, strict sentinel) and
+   with ``HYDRAGNN_TELEMETRY=0``: the same host synchronisations
+   (``torch.cuda.set_sync_debug_mode("warn")``) in every epoch after the
+   capturing one, the same trained state, each arm's records proving
+   what it ran, and the train step's and the epoch's ms (logged); the
+   fleet (phase 14) runs its replicas with the plane on, a traced
+   predict's ``request_id`` in the router's and a replica's journals,
+   ``FleetRouter.metrics()`` over both replicas (``steady_captures`` 0),
+   the per-request time between ``fleet_admit``, ``fleet_dispatch`` and
+   ``fleet_reply`` of its burst, and the served and routed bursts' p50
+   with this process's plane on and off (ABBA; registry counts in the on
+   arms, none in the off arms).
 
 ``--parallel`` (four cards, one rank each) runs the parallel routes: DDP,
 FSDP, halo, edge sharding, and this slice's tensor parallel (1 x 4 and
@@ -5739,7 +5744,9 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
     (``fleet_admit`` to ``fleet_dispatch`` to ``fleet_reply`` per request,
     the replicas' ``replica_execute`` and ``wire_serve`` times) and, in
     fp32, the one server's and the router's p50 with this process's plane
-    on and off (``HYDRAGNN_TELEMETRY=0``), ABBA."""
+    on and off (``HYDRAGNN_TELEMETRY=0``, :func:`_plane`), ABBA twice; each
+    on arm must add to this process's registry counters and each off arm
+    nothing."""
     from hydragnn_tpu_torch import telemetry as tel
     from hydragnn_tpu_torch.serve import (CanaryMismatchError, FleetRouter, PredictionServer,
                                           ReplicaHost, ServingConfig, run_traffic)
@@ -5854,26 +5861,37 @@ def fleet_phase(torch, kind: str, model, aug: dict, samples, ckpt: dict, tmp: st
             local_rep = run_traffic(local, name, samples, FLEET_REQUESTS, order=order)
             if mode == "fp32":
                 # the plane's cost in this process, ABBA: the one server's
-                # burst, then the router's (the replicas keep theirs on)
+                # burst, then the router's (the replicas keep theirs on);
+                # each arm's registry counters show which code it ran
+                t_abba = time.perf_counter()
                 abba = {"server": {"on": [], "off": []}, "router": {"on": [], "off": []}}
+                counted = {"server": {"on": [], "off": []}, "router": {"on": [], "off": []}}
                 traffic_router.start()
                 for what, target in (("server", local), ("router", traffic_router)):
                     for arm in ABBA * 2:
-                        with _env(HYDRAGNN_TELEMETRY=None if arm == "on" else "0"):
+                        with _plane(arm):
+                            c0 = _counters_total()
                             r_ = run_traffic(target, name, samples, FLEET_ABBA_REQUESTS,
                                              order=order[:FLEET_ABBA_REQUESTS],
                                              timeout_s=300.0)
+                            counted[what][arm].append(_counters_total() - c0)
                         abba[what][arm].append(r_.summary()["p50_ms"])
+                _part("fleet plane ABBA", t_abba)
                 out["abba_p50_ms"] = abba
                 med = {w: {a: float(np.median(v)) for a, v in arms.items()}
                        for w, arms in abba.items()}
                 log(f"[{card}] [fleet {mode}] p50 ms of {FLEET_ABBA_REQUESTS}-request bursts "
-                    f"with this process's telemetry plane on and off (ABBA twice): one server "
-                    f"on {abba['server']['on']} off {abba['server']['off']} (medians "
-                    f"{med['server']['on']:.3f} / {med['server']['off']:.3f}); router over 2 "
-                    f"replicas at the default window on {abba['router']['on']} off "
+                    f"with this process's telemetry plane on and off (HYDRAGNN_TELEMETRY=0; "
+                    f"ABBA twice): one server on {abba['server']['on']} off {abba['server']['off']} "
+                    f"(medians {med['server']['on']:.3f} / {med['server']['off']:.3f}); router "
+                    f"over 2 replicas at the default window on {abba['router']['on']} off "
                     f"{abba['router']['off']} (medians {med['router']['on']:.3f} / "
-                    f"{med['router']['off']:.3f})")
+                    f"{med['router']['off']:.3f}); registry counts each arm added {counted} "
+                    f"(allowed: > 0 on, 0 off); {PARTS['fleet plane ABBA']:.3f} s")
+                if any(not all(c > 0 for c in arms["on"]) or any(arms["off"])
+                       for arms in counted.values()):
+                    raise AssertionError(f"fleet ABBA: an arm did not run what it is named for: "
+                                         f"{counted}")
             wide_router.start()
             wide = run_traffic(wide_router, name, samples, FLEET_REQUESTS, order=order,
                                timeout_s=300.0)
@@ -7256,7 +7274,7 @@ def resume_child(cfg_json: str, path: str, seed: int, out: str, device: str = "c
 
 TELEMETRY_SAMPLES = 256  # qm9-like molecules of the telemetry phase's two runs
 TELEMETRY_EPOCHS = 2     # the one cut of the published num_epoch 30
-TELEMETRY_ABBA_EPOCHS = 8  # epochs of captured train steps per ABBA arm
+TELEMETRY_ABBA_EPOCHS = 6  # counted epochs per ABBA arm, after its capturing one
 TELEMETRY_KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum")
 ABBA = ("on", "off", "off", "on")  # the order of the plane's on and off arms
 
@@ -7333,32 +7351,228 @@ class _SwitchingLoader:
         return getattr(self._cur, name)
 
 
-def _count_syncs(torch, fn) -> list[str]:
-    """The host synchronisations ``fn()`` makes, as
-    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: the Python
-    ``file:line`` of each. The garbage collector runs before and not
-    during: freeing an earlier phase's CUDA graphs synchronises, whenever a
-    collection happens to land."""
-    import gc
+class _SyncRecorder:
+    """The host synchronisations ``torch.cuda.set_sync_debug_mode("warn")``
+    reports while it records, from any thread: each as its innermost frame
+    and the innermost frame of the repo that led to it (``"loop.py:88"``,
+    or ``"__init__.py:1270 < capture.py:312"``). The garbage collector is
+    run before and kept off while recording: freeing an earlier phase's
+    CUDA graphs synchronises, whenever a collection happens to land."""
 
-    gc.collect()
-    gc.disable()
-    with warnings.catch_warnings(record=True) as caught:
+    def __init__(self, torch):
+        self.torch, self.seen, self._lock = torch, [], threading.Lock()
+        self.own: list[str] = []  # met by this recorder's own enabling
+        self._warnings = None
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        import traceback
+
+        if "synchroniz" not in str(message):
+            return
+        where = f"{Path(filename).name}:{lineno}"
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "hydragnn_tpu_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+        if ours and (ours[-1].filename, ours[-1].lineno) != (filename, lineno):
+            where += f" < {Path(ours[-1].filename).name}:{ours[-1].lineno}"
+        with self._lock:
+            # the process's first set_sync_debug_mode("warn") reports one
+            # synchronisation inside torch (chip runs): the recorder's, not
+            # the recorded code's
+            mine = bool(ours) and ours[-1].name == "start" and \
+                ours[-1].filename.endswith("chip_smoke.py")
+            (self.own if mine else self.seen).append(where)
+
+    def start(self) -> None:
+        import gc
+
+        gc.collect()
+        gc.disable()
+        self._warnings = warnings.catch_warnings()
+        self._warnings.__enter__()
         warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = self._show
+        self.torch.cuda.set_sync_debug_mode("warn")
+
+    def take(self) -> list[str]:
+        with self._lock:
+            out, self.seen = self.seen, []
+        return out
+
+    def stop(self) -> None:
+        import gc
+
+        if self._warnings is None:
+            return
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._warnings.__exit__(None, None, None)
+        self._warnings = None
+        gc.enable()
+
+
+class _EpochProbe:
+    """A ``walltime_check`` for ``train_validate_test`` that never stops the
+    run: called at every epoch's end, it records, for every epoch after the
+    first (which captures the graphs), the host synchronisations
+    (:class:`_SyncRecorder`) and the seconds of the tracer's ``train``
+    span (the epoch's dispatch loop and its metrics transfer)."""
+
+    def __init__(self, torch, epochs: int):
+        from hydragnn_tpu_torch.utils import tracer
+
+        self.tracer, self.epochs = tracer, epochs
+        self.recorder = _SyncRecorder(torch)
+        self.syncs, self.train_s, self.calls, self.last = [], [], 0, 0.0
+
+    def __call__(self) -> bool:
+        now = self.tracer.get("train").total
+        if self.calls:
+            self.syncs.append(self.recorder.take())
+            self.train_s.append(now - self.last)
+        self.last, self.calls = now, self.calls + 1
+        if self.calls == 1:
+            self.recorder.start()
+        if self.calls == self.epochs:
+            self.recorder.stop()
+        return False
+
+    def close(self) -> None:
+        self.recorder.stop()
+
+
+@contextlib.contextmanager
+def _plane(arm: str):
+    """This process's telemetry plane in one ABBA arm, ``"on"`` (the
+    defaults) or ``"off"`` (``HYDRAGNN_TELEMETRY=0``): inside, the env flag
+    decides, over whatever a ``run_training``'s ``Telemetry`` block left
+    applied process-wide; the overrides come back after. Yields whether the
+    plane is on."""
+    from hydragnn_tpu_torch import telemetry as tel
+    from hydragnn_tpu_torch.telemetry import metrics, propagation, trace
+
+    prev = (metrics._ENABLED_OVERRIDE, trace._TRACE_OVERRIDE,
+            propagation._PROPAGATE_OVERRIDE)
+    tel.configure(None)
+    try:
+        with _env(HYDRAGNN_TELEMETRY=None if arm == "on" else "0"):
+            if tel.enabled() != (arm == "on"):
+                raise AssertionError(f"the telemetry plane's {arm} arm: enabled() is "
+                                     f"{tel.enabled()}")
+            yield arm == "on"
+    finally:
+        metrics.set_enabled(prev[0])
+        trace.set_trace_enabled(prev[1])
+        propagation.set_propagate_enabled(prev[2])
+
+
+def _counters_total() -> float:
+    """The sum of every counter of this process's telemetry registry."""
+    from hydragnn_tpu_torch import telemetry as tel
+
+    return float(sum(v for series in tel.snapshot()["counters"].values()
+                     for v in series.values()))
+
+
+class _Resident:
+    """A loader whose batches of each of ``epochs`` epochs are collated and
+    put on ``device`` beforehand: the train loop then dispatches captured
+    steps back to back, with no collation or host-to-device copy in
+    between (the captured step's own time). Everything else is
+    ``loader``'s."""
+
+    def __init__(self, loader, device: str, epochs: int):
+        self._loader, self._epoch, self._batches = loader, 0, []
+        for epoch in range(epochs):
+            loader.set_epoch(epoch)
+            self._batches.append([b.to(device) for b in loader])
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def __iter__(self):
+        return iter(self._batches[self._epoch])
+
+    def __len__(self) -> int:
+        return len(self._batches[self._epoch])
+
+    def __getattr__(self, name):
+        return getattr(self._loader, name)
+
+
+def _training_arm(torch, arm: str, trained, cfg: dict, loaders, root: str, device: str):
+    """One ABBA arm of the plane's cost on the training path:
+    ``train_validate_test`` over ``loaders`` (behind ``run_training``'s
+    prefetch loaders; :class:`_Resident` loaders as they are), from a twin
+    of ``trained``, for 1 +
+    ``TELEMETRY_ABBA_EPOCHS`` epochs (the first captures the graphs).
+    ``on``: ``cfg``'s ``Telemetry`` block applied as ``run_training``
+    applies it, fully on (the journal open under ``root``, trace events,
+    the ledger at a path, the strict sentinel); ``off``:
+    ``HYDRAGNN_TELEMETRY=0``, whose env flag wins over the block. Returns
+    the trained state, each counted epoch's host synchronisations and
+    ``train`` span seconds, the epochs' wall seconds, and what the plane
+    left (journal kinds, trace span names, ledger entries)."""
+    from hydragnn_tpu_torch import telemetry as tel
+    from hydragnn_tpu_torch.graphs.batching import PrefetchLoader
+    from hydragnn_tpu_torch.telemetry import ledger
+    from hydragnn_tpu_torch.train.loop import train_validate_test
+
+    env = ({"HYDRAGNN_LEDGER": f"{root}/ledger.json", "HYDRAGNN_COMPILE_SENTINEL": "strict"}
+           if arm == "on" else {"HYDRAGNN_TELEMETRY": "0"})
+    nn = copy.deepcopy(cfg["NeuralNetwork"])
+    nn["Training"].update(num_epoch=1 + TELEMETRY_ABBA_EPOCHS, Checkpoint=False,
+                          EarlyStopping=False)
+    training = nn["Training"]
+    twin = _twin(torch, trained)
+    probe = _EpochProbe(torch, 1 + TELEMETRY_ABBA_EPOCHS)
+    history: list = []
+    journal = None
+    with _env(**env), tel.isolate():
+        applied = tel.configure(cfg)  # the env flag wins, as in run_training
+        if applied.enabled and applied.journal:
+            journal = tel.open_journal("abba", path=root)
+        prefetched = [ld if isinstance(ld, _Resident) else
+                      PrefetchLoader(ld, depth=int(training.get("prefetch", 2)), device=device,
+                                     workers=int(training.get("num_workers", 1) or 1))
+                      for ld in loaders]
         try:
-            fn()
+            train_validate_test(twin, *prefetched, nn, "abba", compute_dtype=torch.bfloat16,
+                                path=root, history=history, walltime_check=probe)
         finally:
-            torch.cuda.set_sync_debug_mode("default")
-            gc.enable()
-    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
-            if "synchroniz" in str(w.message)]
+            probe.close()
+            tel.close_journal()
+        spans = sorted({e["name"] for e in tel.trace_events()})
+        entries = len(ledger.entries())
+        enabled = tel.enabled()
+    kinds = [r["kind"] for r in tel.read_journal(journal.path)] if journal is not None else []
+    return dict(state=twin, syncs=probe.syncs, own=probe.recorder.own, train_s=probe.train_s,
+                epoch_s=[h["seconds"] for h in history[1:]], kinds=kinds, spans=spans,
+                entries=entries, enabled=enabled)
+
+
+def _span_pair_us(n: int = 20_000) -> dict:
+    """Host microseconds of one tracer ``start``/``stop`` pair (the
+    aggregate timers, which run whether the plane is on or off, as in the
+    JAX package) with trace events off and on (the plane's timeline)."""
+    from hydragnn_tpu_torch import telemetry as tel
+    from hydragnn_tpu_torch.utils import tracer
+
+    out = {}
+    for name, events in (("timers", False), ("timers_and_trace_events", True)):
+        with tel.isolate():
+            tel.set_trace_enabled(events)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                tracer.start("dataload")
+                tracer.stop("dataload")
+            out[name] = (time.perf_counter() - t0) / n * 1e6
+    return out
 
 
 def telemetry_phase(torch, seed: int, loaders, card: str = "", device: str = "cuda") -> dict:
     """The telemetry plane on the qm9.json GIN (module docstring, phase
     17). ``loaders``: the GIN's (train, val, test) loaders of ``prepare``,
-    over which the ABBA epochs and the sentinel's forced bucket run."""
+    over which the ABBA arms (:func:`_training_arm`) and the sentinel's
+    forced bucket run."""
     from hydragnn_tpu_torch import capture, run_training
     from hydragnn_tpu_torch import telemetry as tel
     from hydragnn_tpu_torch.analysis import RecompileError
@@ -7367,10 +7581,8 @@ def telemetry_phase(torch, seed: int, loaders, card: str = "", device: str = "cu
     from hydragnn_tpu_torch.ops import fused_scatter as fs
     from hydragnn_tpu_torch.preprocess.load_data import dataset_loading_and_splitting
     from hydragnn_tpu_torch.telemetry import ledger
-    from hydragnn_tpu_torch.train.loop import train_epoch, train_validate_test
-    from hydragnn_tpu_torch.train.step import (create_train_state, make_train_step,
-                                               resolve_loss_scale)
-    from hydragnn_tpu_torch.train.superstep import make_superstep
+    from hydragnn_tpu_torch.train.loop import train_validate_test
+    from hydragnn_tpu_torch.train.step import create_train_state
 
     t_part = time.perf_counter()
     cfg = qm9_config("gin")
@@ -7469,47 +7681,73 @@ def telemetry_phase(torch, seed: int, loaders, card: str = "", device: str = "cu
         out["ledger"] = [{"kind": r[0], "bucket": r[1], "flops": r[2], "peak_bytes": r[4],
                           "bytes_accessed": r[5], "capture_s": r[7]} for r in rows]
 
-        # (4) host syncs over one epoch's dispatch loop, and the captured
-        # train step's ms, plane on and off (ABBA), on a twin of the trained
-        # state over the GIN's 512-molecule train split
+        # (4) the plane's cost on the training path, ABBA: train_validate_test
+        # arms from twins of the trained state over the GIN's 512-molecule
+        # split (_training_arm), behind the prefetch loaders as in
+        # run_training, then over batches already on the card (the captured
+        # step's own time); every epoch after the capturing one counts
         train = on["aug"]["NeuralNetwork"]["Training"]
         twin = _twin(torch, on["state"])
-        step = make_superstep(make_train_step(torch.bfloat16, resolve_loss_scale(train)), 1)
-        host = list(loaders[0])
-        batches = [b.to(device) for b in host]
-        for _ in range(2):  # the first captures its bucket, the second replays it
-            train_epoch(step, twin, batches)
-        # a first counted epoch, plane on, is logged and not compared: on
-        # the card it met one synchronisation inside torch that the epochs
-        # after it, plane on or off, did not (chip runs of this phase)
-        first = _count_syncs(torch, lambda: train_epoch(step, twin, batches))
-        syncs = {"on": [], "off": []}
-        for arm in ABBA:
-            with _env(HYDRAGNN_TELEMETRY=None if arm == "on" else "0"):
-                syncs[arm].append(_count_syncs(torch, lambda: train_epoch(step, twin, batches)))
-        where = sorted({x for runs_ in syncs.values() for r in runs_ for x in r})
-        syncs = {arm: [len(r) for r in runs_] for arm, runs_ in syncs.items()}
-        step_ms = {"on": [], "off": []}
-        for arm in ABBA * 2:
-            with _env(HYDRAGNN_TELEMETRY=None if arm == "on" else "0"):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(TELEMETRY_ABBA_EPOCHS):
-                    train_epoch(step, twin, batches)  # ends on its metrics transfer
-                step_ms[arm].append((time.perf_counter() - t0) * 1e3
-                                    / (TELEMETRY_ABBA_EPOCHS * len(batches)))
-        out["syncs"], out["step_ms"] = syncs, step_ms
-        cost = (np.median(step_ms["on"]) / np.median(step_ms["off"]) - 1.0) * 100.0
-        log(f"[{card}] [telemetry] one epoch's dispatch loop ({len(batches)} captured bf16 "
-            f"train steps): host synchronisations (ABBA) {syncs['on']} with the plane on, "
-            f"{syncs['off']} off (allowed all equal), at {where}; the first counted epoch before "
-            f"them {first}; captured train step ms per "
-            f"step, ABBA twice over "
-            f"{TELEMETRY_ABBA_EPOCHS} epochs an arm (host clock, the epoch's last transfer "
-            f"included): on {[round(x, 4) for x in step_ms['on']]}, off "
-            f"{[round(x, 4) for x in step_ms['off']]}: the plane costs {cost:+.2f}% (medians)")
-        if len(set(syncs["on"] + syncs["off"])) != 1:
-            bad.append(f"host syncs: {syncs}")
+        n_train = len(loaders[0])
+        resident = [_Resident(ld, device, 1 + TELEMETRY_ABBA_EPOCHS) for ld in loaders]
+        out["abba"] = {}
+        for route, lds in (("prefetch", loaders), ("resident", resident)):
+            t_route = time.perf_counter()
+            arms = [(arm, _training_arm(torch, arm, on["state"], cfg, lds,
+                                        f"{tmp}/abba_{route}_{i}", device))
+                    for i, arm in enumerate(ABBA)]
+            _part(f"telemetry: training ABBA, {route}", t_route)
+            syncs = {"on": [], "off": []}
+            step_ms = {"on": [], "off": []}
+            epoch_ms = {"on": [], "off": []}
+            where, own = {}, [x for _, r in arms for x in r["own"]]
+            for arm, r in arms:
+                syncs[arm].append([len(x) for x in r["syncs"]])
+                step_ms[arm] += [t * 1e3 / n_train for t in r["train_s"]]
+                epoch_ms[arm] += [t * 1e3 for t in r["epoch_s"]]
+                for x in (w for ep in r["syncs"] for w in ep):
+                    where[x] = where.get(x, 0) + 1
+            med = {k: {a: float(np.median(v[a])) for a in ("on", "off")}
+                   for k, v in (("step", step_ms), ("epoch", epoch_ms))}
+            cost = {k: (m["on"] / m["off"] - 1.0) * 100.0 for k, m in med.items()}
+            out["abba"][route] = dict(syncs=syncs, step_ms=step_ms, epoch_ms=epoch_ms,
+                                      cost_pct=cost)
+            left = [(arm, r["enabled"], r["kinds"].count("epoch"), r["spans"], r["entries"])
+                    for arm, r in arms]
+            diffs = [_state_diffs(torch, arms[0][1]["state"], r["state"]) for _, r in arms[1:]]
+            log(f"[{card}] [telemetry] the plane's cost on the training path ({route}): "
+                f"{len(ABBA)} arms {list(ABBA)} of train_validate_test "
+                f"({1 + TELEMETRY_ABBA_EPOCHS} epochs each, the first capturing; {n_train} "
+                f"captured bf16 train steps an epoch), on = journal open, trace events, ledger "
+                f"at a path, strict sentinel; off = HYDRAGNN_TELEMETRY=0. Host synchronisations "
+                f"per counted epoch, per arm: on {syncs['on']}, off {syncs['off']} (allowed: the "
+                f"same lists), at {where}; met by the recorder's own enabling (not counted): "
+                f"{own}; what each arm left (arm, enabled, epoch records, trace spans, ledger "
+                f"entries): {left}; trained states that differ from the first arm's: {diffs} "
+                f"(allowed none). Train span ms per step (host clock, the epoch's metrics "
+                f"transfer included): on {[round(x, 4) for x in step_ms['on']]}, off "
+                f"{[round(x, 4) for x in step_ms['off']]}, medians {med['step']['on']:.4f} / "
+                f"{med['step']['off']:.4f}: the plane costs {cost['step']:+.2f}%; epoch ms "
+                f"(train, validate, test, journal): medians {med['epoch']['on']:.3f} / "
+                f"{med['epoch']['off']:.3f}: {cost['epoch']:+.2f}%; the arms took "
+                f"{PARTS[f'telemetry: training ABBA, {route}']:.3f} s")
+            if len({tuple(x) for runs_ in syncs.values() for x in runs_}) != 1:
+                bad.append(f"host syncs ({route}) differ between the arms: {syncs}")
+            if any(diffs):
+                bad.append(f"the ABBA arms ({route}) trained different states: {diffs}")
+            for arm, r in arms:
+                if arm == "on" and not (r["enabled"] and r["entries"] > 0 and
+                                        r["kinds"].count("epoch") == 1 + TELEMETRY_ABBA_EPOCHS
+                                        and {"train", "dataload", "validate"} <= set(r["spans"])):
+                    bad.append(f"an on arm ({route}) did not run the plane: {left}")
+                if arm == "off" and (r["enabled"] or r["kinds"] or r["spans"] or r["entries"]):
+                    bad.append(f"an off arm ({route}) ran the plane: {left}")
+        pair_us = _span_pair_us()
+        out["span_pair_us"] = pair_us
+        log(f"[{card}] [telemetry] the tracer's aggregate timers run in both arms (as in the "
+            f"JAX package), so the ABBA does not see them: a start/stop pair costs "
+            f"{pair_us['timers']:.3f} us, {pair_us['timers_and_trace_events']:.3f} us with "
+            f"trace events (host clock), {n_train + 2} pairs in a train epoch")
 
         # (5) the capture sentinel: strict passed the on run (no capture after
         # its warm-up epoch); a forced new bucket after warm-up trips it
@@ -8759,6 +8997,12 @@ def main(argv=None) -> int:
                            for k, r in ran_md.items()},
     }
     log("capture summary (captured against eager, this run): " + json.dumps(summary))
+    from hydragnn_tpu_torch.telemetry import ledger
+
+    counted = ledger.counted_totals()
+    log(f"the cost ledger's counted runs in this process: {counted['runs']} runs, "
+        f"{counted['seconds']:.3f} s (host clock; each took the place of one warm-up run of a "
+        f"capture, or of a CPU-route step)")
     log("phase wall times (s): " + json.dumps({k: round(v, 3) for k, v in phase_s.items()}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the result lines")
     log(dev["smi"])  # the card's name and power limit, as nvidia-smi gives them

@@ -12,45 +12,22 @@ The epoch loop's ``HYDRAGNN_COMPILE_SENTINEL=warn|strict``
 (``train/loop.py``) reads :func:`compile_counts` per epoch and journals a
 ``compile_sentinel`` record whose field keeps the JAX name
 ``new_lowerings`` (the CLI reads it); its value is the epoch's new
-captures. On the CPU no step is captured and the count stays 0.
+captures. On the CPU no step is captured and the count stays 0. The JAX
+package's ``no_recompile(0)`` region guard is ``capture.no_new_captures``.
 """
 
 from __future__ import annotations
 
-from contextlib import contextmanager
-
 
 class RecompileError(RuntimeError):
-    """A region captured more CUDA graphs than it declared."""
+    """The strict sentinel saw a capture after the warm-up epoch."""
 
 
 def compile_counts() -> dict[str, int]:
-    """Process-lifetime counts: ``captures`` (CUDA graphs captured), also
-    under the JAX package's key ``lowerings``."""
+    """Process-lifetime counts: ``captures`` (CUDA graphs captured)."""
     from ..capture import total_captures
 
-    n = total_captures()
-    return {"captures": n, "lowerings": n}
+    return {"captures": total_captures()}
 
 
-@contextmanager
-def no_recompile(max_compiles: int = 0, what: str = "region"):
-    """Raise :class:`RecompileError` after the region if it captured more
-    than ``max_compiles`` new CUDA graphs (0: everything must already be
-    captured). ``capture.no_new_captures`` refuses the first capture
-    inside instead; this counts and reports after the region. Yields the
-    entry counts."""
-    before = compile_counts()
-    yield before
-    new = compile_counts()["captures"] - before["captures"]
-    if new > max_compiles:
-        raise RecompileError(
-            f"{what!r} captured {new} new CUDA graph(s), declared at most {max_compiles}. "
-            "A capture in a hot loop runs the step's warm-up on the critical path: "
-            "warm every batch signature (bucket, dtype, sortedness certificate) "
-            "before entering the region, or raise max_compiles if the new graph is "
-            "intended."
-        )
-
-
-__all__ = ["RecompileError", "compile_counts", "no_recompile"]
+__all__ = ["RecompileError", "compile_counts"]

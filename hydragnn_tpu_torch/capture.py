@@ -57,7 +57,10 @@ Every capture records one entry in the telemetry plane's cost ledger
 (``telemetry/ledger.py``), keyed by the ``ledger`` fields a
 :class:`StepGraphs` is given (model, kind, precision) and the bucket: the
 first warm-up run is counted (FLOPs and bytes, no extra run), and the
-peak memory and seconds are those of the whole capture. Nothing of the
+seconds are those of the whole capture. With ``HYDRAGNN_LEDGER`` naming a
+path the entry also holds the capture's peak memory, for which each
+capture resets the process's ``torch.cuda`` peak-memory statistic (see
+``ledger.measured_capture``). Nothing of the
 plane runs inside the captured region: a Python counter there would count
 once, at capture, and never at replay.
 """

@@ -21,10 +21,14 @@ its own, so the ledger counts one eager run of the captured step:
   ``TorchDispatchMode`` sees (views excluded), plus the kernels' own
   bytes. The card's step also builds the CSR views the kernels read, which
   the CPU's plain versions do not need, so its bytes run above the CPU's;
-* ``peak_bytes`` — on the card, the rise of
-  ``torch.cuda.max_memory_allocated`` over the allocation at the start of
-  the capture (the peak statistic is reset there); absent on the CPU, and
-  :func:`diff` skips absent keys;
+* ``peak_bytes`` — on the card and only when ``HYDRAGNN_LEDGER`` names a
+  save path, the rise of ``torch.cuda.max_memory_allocated`` over the
+  allocation at the start of the capture. Measuring it resets the
+  process's peak statistic there (``torch.cuda.reset_peak_memory_stats``),
+  so a caller that reads ``max_memory_allocated`` across a capture reads
+  the peak since that capture; without the path the statistic is left
+  alone and the key is absent, as on the CPU. :func:`diff` skips absent
+  keys;
 * ``capture_s`` where the JAX entry has ``compile_s``, and
   ``captures_at_capture`` (``capture.total_captures()``) where it has
   ``lowerings_at_capture``.
@@ -218,12 +222,29 @@ def kernel_region(name: str, cost):
         yield
 
 
+_COUNTED_LOCK = threading.Lock()
+_COUNTED = {"runs": 0, "seconds": 0.0}  # guarded-by: _COUNTED_LOCK
+
+
 def count(fn, *args, **kwargs) -> tuple[object, dict]:
     """``fn(*args, **kwargs)`` run once under a :class:`CostCounter`;
-    returns ``(its output, the counts)``."""
+    returns ``(its output, the counts)``. The run's host seconds add to
+    :func:`counted_totals`."""
+    t0 = time.perf_counter()
     with CostCounter() as counter:
         out = fn(*args, **kwargs)
+    with _COUNTED_LOCK:
+        _COUNTED["runs"] += 1
+        _COUNTED["seconds"] += time.perf_counter() - t0
     return out, counter.result()
+
+
+def counted_totals() -> dict:
+    """The process's counted runs so far (:func:`count`): ``runs`` and
+    their host ``seconds``, the run included (a capture's counted run takes
+    the place of one of its warm-up runs)."""
+    with _COUNTED_LOCK:
+        return dict(_COUNTED)
 
 
 # -- the ledger ---------------------------------------------------------------
@@ -410,15 +431,16 @@ def measured_capture(device, **key):
     """Around one capture on ``device``: yields a dict whose ``"counts"``
     the capture fills from its counted run (:func:`count`); on exit the
     entry is recorded under ``key`` (``model``, ``bucket``, ``kind``,
-    ``precision``) with the capture's seconds and, on the card, its peak
-    bytes. Without capture (the plane or the ledger off) it yields None
-    and does nothing."""
+    ``precision``) with the capture's seconds and, on the card with
+    ``HYDRAGNN_LEDGER`` naming a path, its peak bytes (the process's peak
+    statistic is reset for that). Without capture (the plane or the ledger
+    off) it yields None and does nothing."""
     if not capture_enabled():
         yield None
         return
     slot: dict = {}
     base = None
-    if device.type == "cuda":
+    if device.type == "cuda" and save_path() is not None:
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -438,6 +460,7 @@ __all__ = [
     "SCHEMA_VERSION",
     "capture_enabled",
     "count",
+    "counted_totals",
     "diff",
     "entries",
     "entry_key",
