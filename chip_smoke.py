@@ -277,6 +277,25 @@ logged (the last is a ``capture summary`` line).
    ``fleet_reply`` of its burst, and the served and routed bursts' p50
    with this process's plane on and off (ABBA; registry counts in the on
    arms, none in the off arms).
+18. populations, HPO and bulk screening (after the superstep phase; the
+   folded kernel checks in phase 3): B1, B1 bwd, B2, B3 and B4 under
+   ``torch.func.vmap`` at 4 members folded into the channels, one launch
+   per call, each member's slice bit-equal to its own call, the folded
+   output against the plain version, times beside the plain versions,
+   the one-call yardsticks and the bounds (``population_kernel_checks``);
+   the qm9.json GIN as a 4-member population (lr 1e-3, 5e-4, 2e-4, 1e30;
+   seeds 0-3) captured at K = 1 and K = 4, every member bit-equal to its
+   captured single run, the diverged member frozen and ``"diverged"``,
+   launches and captures as one member's, the step's ms against 4 x one
+   member's (and, logged only, with the dense products and norms batched
+   over the members), and ``run_training`` with ``Training.population``
+   writing ``population.json`` (``population_phase``); ``run_hpo(backend=
+   "vmap")`` over four learning rates (``hpo_phase``); ``BulkScreener``
+   over a packed store of the qm9 samples with the surviving members'
+   ensemble: no capture after ``warm()``, the top-k bit-equal to
+   ``run_prediction``'s core, the variances the members' own, an
+   interrupted screen resumed to the same top-k, graphs/s with prefetch 2
+   and 0 (``screen_phase``).
 
 ``--parallel`` (four cards, one rank each) runs the parallel routes: DDP,
 FSDP, halo, edge sharding, and this slice's tensor parallel (1 x 4 and
@@ -299,6 +318,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -8557,6 +8577,580 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
     return 0
 
 
+# -- population training, HPO and bulk screening ------------------------------
+
+POP_MEMBERS = 4
+POP_LRS = (1e-3, 5e-4, 2e-4, 1e30)  # member 3 diverges after its first update
+POP_SEEDS = (0, 1, 2, 3)
+POP_K = 4
+POP_STEPS = 8  # batches of the gate runs: up to two blocks of K = 4 of the bucket-major plan
+POP_MAX_SKIPS = 4  # the skip streak that reports a member "diverged" in these runs
+POP_TIMING_STEPS = 20
+POP_RUN_EPOCHS = 1  # the population's run_training: num_epoch cut from 30
+POP_KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum")
+HPO_LRS = [1e-3, 5e-4, 2e-4, 1e-4]
+SCREEN_TOPK = 16
+SCREEN_STOP_AFTER = 3  # blocks the interrupted screen scores before it stops
+
+
+def _fold(t):
+    """``[M, rows, ...]`` member-major as the batching rules fold it: ``[rows,
+    M * ...]``."""
+    return t.movedim(0, 1).reshape(t.shape[1], -1)
+
+
+def population_kernel_checks(torch, batch, n_max: int, members: int = POP_MEMBERS,
+                             timing: bool = True) -> tuple[dict, list]:
+    """B1 (and its transposed launch), B2, B3 and B4 at the population's
+    folded shapes (``members`` x the single model's channels), each called
+    under ``torch.func.vmap`` as the population step calls it: one launch for
+    all members (counted), every member's slice bit-equal to that member's
+    own call, the folded output against the plain version at ``TOL``; then,
+    with ``timing``, the kernel, its plain version, its one-call PyTorch
+    yardstick and its bound (``cost(...)``) at the folded shapes, and what
+    the rule's fold (a permute and a copy of the input) costs. Returns
+    ``({kernel: max |err|}, table sub-rows)``."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.ops import fused_softmax as fsm
+
+    dev = torch.device("cuda" if timing else "cpu")
+    b = batch.to(dev)
+    n, e, g = b.num_nodes, b.num_edges, b.num_graphs
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+    recv_idx, send_idx, batch_idx = b.csr("receivers"), b.csr("senders"), b.csr("batch")
+    mask = b.edge_mask
+    real_rows = n - 1
+    m, c = members, 64
+    errs: dict = {}
+    rows: list = []
+
+    def one_launch(name, fn):
+        before = dict(fs.LAUNCHES)
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            got = fs.LAUNCHES[name] - before[name]
+            if got != 1:
+                raise AssertionError(f"{name} at the folded shape: {got} launches, want 1")
+        return out
+
+    def members_alone(name, got, alone):
+        for i in range(m):
+            if not torch.equal(got[i], alone(i)):
+                raise AssertionError(f"{name}: member {i} under vmap differs from its own call")
+
+    log(f"population kernels ({m} members folded into the channels) at N={n} E={e} G={g}:")
+    # B1: conv layers 1-3 of the GIN population, fp32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        h = torch.randn(m, n, c, generator=gen).to(dev, dtype)
+        w = mask.to(dtype)
+
+        def b1(x, w=w):
+            return fs.gather_scatter_sum(x, b.senders, b.receivers, n, weight=w, index=recv_idx)
+
+        got = one_launch("gather_scatter_sum", lambda: torch.func.vmap(b1)(h))
+        members_alone("gather_scatter_sum", got, lambda i: b1(h[i]))
+        want = fs.plain_gather_scatter_sum(_fold(h), b.senders, b.receivers, n, w)
+        errs["gather_scatter_sum"] = max(errs.get("gather_scatter_sum", 0.0), _compare(
+            torch, f"gather_scatter_sum {dname} h[{m}x{n},{c}] folded [{n},{m * c}]",
+            _fold(got), want, real_rows, dname))
+    # B1's transposed launch: the backward of the vmapped forward
+    h = torch.randn(m, n, c, generator=gen).to(dev).requires_grad_(True)
+    dout = torch.randn(m, n, c, generator=gen).to(dev)
+
+    def b1g(x):
+        return fs.gather_scatter_sum(x, b.senders, b.receivers, n, weight=mask, index=recv_idx,
+                                     send_index=send_idx)
+
+    out = torch.func.vmap(b1g)(h)
+    dh = one_launch("gather_scatter_sum_bwd",
+                    lambda: torch.autograd.grad(out, h, dout)[0])
+    for i in range(m):
+        hi = h.detach()[i].clone().requires_grad_(True)
+        if not torch.equal(dh[i], torch.autograd.grad(b1g(hi), hi, dout[i])[0]):
+            raise AssertionError(f"gather_scatter_sum_bwd: member {i} differs from its own")
+    want = fs.plain_gather_scatter_sum(_fold(dout), b.receivers, b.senders, n, mask)
+    errs["gather_scatter_sum_bwd"] = _compare(
+        torch, f"gather_scatter_sum_bwd fp32 dout folded [{n},{m * c}]", _fold(dh), want,
+        real_rows, "float32")
+    # B2: the mean pooling
+    pooled = (torch.randn(m, n, c, generator=gen).to(dev) * b.node_mask[None, :, None])
+
+    def b2(x):
+        return fs.fused_segment_sum(x, b.batch, g, index=batch_idx)
+
+    got = one_launch("segment_sum", lambda: torch.func.vmap(b2)(pooled))
+    members_alone("segment_sum", got, lambda i: b2(pooled[i]))
+    errs["segment_sum"] = _compare(torch, f"segment_sum fp32 [{n},{m * c}] -> G={g}",
+                                   _fold(got), fs.plain_segment_sum(_fold(pooled), b.batch, g),
+                                   g - 1, "float32")
+    # B3: GAT's layout, 6 heads per member
+    _, loop_recv = b.self_loop_edges()
+    loop_idx = b.csr("loop_receivers")
+    e_ext = loop_recv.shape[0]
+    sl_pad = e_ext - e - n
+    e_mask = torch.cat([mask, mask.new_zeros(sl_pad), mask.new_ones(n)])
+    x3 = torch.where(e_mask[None, :, None] > 0,
+                     torch.randn(m, e_ext, GAT_HEADS, generator=gen).to(dev) * 3.0, -1e9)
+
+    def b3(x):
+        return fsm.segment_softmax(x, loop_recv, n, index=loop_idx)
+
+    got = one_launch("segment_softmax", lambda: torch.func.vmap(b3)(x3))
+    members_alone("segment_softmax", got, lambda i: b3(x3[i]))
+    errs["segment_softmax"] = _compare(
+        torch, f"segment_softmax fp32 [{e_ext},{m * GAT_HEADS}] (GAT layout), rows 0..N-2",
+        _fold(got), fsm.plain_segment_softmax(_fold(x3), loop_recv, n), loop_recv != n - 1,
+        "float32")
+    # B4: GPS's dense blocks, 4 heads per member
+    valid = torch.arange(n_max, device=dev)[None, :] < b.n_node[:, None]
+    x4 = (torch.randn(m, g, 4, n_max, n_max, generator=gen) * 3.0).to(dev)
+
+    def b4(x):
+        return fsm.masked_softmax(x, valid)
+
+    got = one_launch("masked_softmax", lambda: torch.func.vmap(b4)(x4))
+    members_alone("masked_softmax", got, lambda i: b4(x4[i]))
+    folded4 = x4.movedim(0, 1).contiguous()  # [G, M, 4, m, m], the rule's layout
+    errs["masked_softmax"] = _compare(
+        torch, f"masked_softmax fp32 [{g},{m},4,{n_max},{n_max}]", got.movedim(0, 1),
+        fsm.plain_masked_softmax(folded4, valid), g, "float32")
+    if not timing:
+        return errs, rows
+
+    # the folded shapes' times, each beside its plain version, its one-call
+    # yardstick and its bound (the kernels' own cost(...))
+    hf = _fold(torch.randn(m, n, c, generator=gen).to(dev))
+    df = _fold(torch.randn(m, n, c, generator=gen).to(dev))
+    pf = _fold(pooled)
+    xf3 = _fold(x3)
+    a_csr = torch.sparse_csr_tensor(recv_idx.ptr.long(), b.senders.long(), mask.float(),
+                                    size=(n, n))
+    perm_l = send_idx.perm.long()
+    at_csr = torch.sparse_csr_tensor(send_idx.ptr.long(), b.receivers.long()[perm_l],
+                                     mask.float()[perm_l], size=(n, n))
+    sp = torch.sparse_coo_tensor(torch.stack([loop_recv.long(), torch.arange(e_ext, device=dev)]),
+                                 xf3, (n, e_ext, m * GAT_HEADS)).coalesce()
+    premasked = torch.where(valid[:, None, None, None, :], folded4, -1e9)
+    ids_long = b.batch.long()
+    for name, shape, fn, plain, lib, cost in (
+        ("gather_scatter_sum", f"h[{n},{m}x{c}] f32, E={e}, w[E]",
+         lambda: fs.gather_scatter_sum(hf, b.senders, b.receivers, n, weight=mask,
+                                       index=recv_idx),
+         lambda: fs.plain_gather_scatter_sum(hf, b.senders, b.receivers, n, mask),
+         lambda: torch.sparse.mm(a_csr, hf),
+         fs.cost("gather_scatter_sum", rows=n, cols=m * c, ids=e, out_rows=n, weight="edge")),
+        ("gather_scatter_sum_bwd", f"dout[{n},{m}x{c}] f32, E={e}, w[E], senders' view",
+         lambda: fs.gather_scatter_sum_bwd(df, b.senders, b.receivers, n, mask, send_idx),
+         lambda: fs.plain_gather_scatter_sum(df, b.receivers, b.senders, n, mask),
+         lambda: torch.sparse.mm(at_csr, df),
+         fs.cost("gather_scatter_sum_bwd", rows=n, cols=m * c, ids=e, out_rows=n,
+                 weight="edge")),
+        ("segment_sum", f"data[{n},{m}x{c}] f32 -> G={g}",
+         lambda: fs.fused_segment_sum(pf, b.batch, g, index=batch_idx),
+         lambda: fs.plain_segment_sum(pf, b.batch, g),
+         lambda: torch.zeros(g, m * c, device=dev).index_add_(0, ids_long, pf),
+         fs.cost("segment_sum", rows=n, cols=m * c, ids=n, out_rows=g)),
+        ("segment_softmax", f"logits[{e_ext},{m}x{GAT_HEADS}] f32 (GAT layout)",
+         lambda: fsm.segment_softmax(xf3, loop_recv, n, index=loop_idx),
+         lambda: fsm.plain_segment_softmax(xf3, loop_recv, n), None,
+         fsm.cost("segment_softmax", rows=e_ext, cols=m * GAT_HEADS)),
+        ("masked_softmax", f"logits[{g},{m}x4,{n_max},{n_max}] f32",
+         lambda: fsm.masked_softmax(folded4, valid),
+         lambda: fsm.plain_masked_softmax(folded4, valid),
+         lambda: torch.softmax(premasked, dim=-1),
+         fsm.cost("masked_softmax", rows=g * m * 4 * n_max, cols=n_max,
+                  mask_bytes=g * n_max)),
+    ):
+        ops, nbytes = cost
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        row = {"name": name, "shape": shape, "members": m, "ms": graph_time_ms(torch, fn),
+               "plain_ms": graph_time_ms(torch, plain), "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               # torch.sparse.softmax syncs with the host (~0.14 s a call here)
+               "library_ms": (graph_time_ms(torch, lib) if lib is not None else event_time_ms(
+                   torch, lambda: torch.sparse.softmax(sp, 1), iters=2, reps=2)),
+               "max_abs_err": errs[name]}
+        rows.append(row)
+        log(f"  {name} @ {shape}: kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, one-call yardstick {row['library_ms'] * 1e3:.2f} "
+            f"us, bound {row['bound_ms'] * 1e3:.3f} us ({nbytes} B, {ops} operations)")
+    hm = torch.randn(m, n, c, generator=gen).to(dev)
+    t_fold = graph_time_ms(torch, lambda: _fold(hm))
+    t_member = graph_time_ms(torch, lambda: [hf.reshape(n, m, c)[:, i].contiguous()
+                                             for i in range(m)])
+    log(f"  the rule's fold of h [{m},{n},{c}] -> [{n},{m * c}] (permute + copy): "
+        f"{t_fold * 1e3:.2f} us; the next Dense's per-member copies of the folded output "
+        f"({m} x [{n},{c}]): {t_member * 1e3:.2f} us")
+    rows.append({"name": "fold", "fold_ms": t_fold, "member_copies_ms": t_member})
+    return errs, rows
+
+
+def _member_diffs(torch, pstate, i: int, state) -> list[str]:
+    """The tensors in which population member ``i`` differs from ``state``
+    (parameters, running statistics, optimizer state), bit for bit."""
+    from hydragnn_tpu_torch.train.population import member_state
+
+    mem = member_state(pstate, i)
+    out = [k for (k, a), b in zip(state.model.state_dict().items(),
+                                  mem.model.state_dict().values()) if not torch.equal(a, b)]
+    for (name, p), q in zip(state.model.named_parameters(), mem.model.parameters()):
+        for key, v in state.optimizer.state[p].items():
+            if torch.is_tensor(v) and not torch.equal(v.to(q.device), mem.optimizer.state[q][key]):
+                out.append(f"{name}:{key}")
+    return out
+
+
+def population_phase(torch, seed: int, device: str = "cuda", card: str = "",
+                     steps: int = POP_STEPS, timing_steps: int = POP_TIMING_STEPS) -> dict:
+    """qm9.json's GIN at full width (hidden 64, 4 conv layers, bf16, batch
+    64, AdamW) as a ``POP_MEMBERS``-member population: learning rates
+    ``POP_LRS`` (member 3 diverges after its first update), seeds
+    ``POP_SEEDS``, over the first ``steps`` batches of the bucket-major plan
+    of K = ``POP_K``, captured at K = 1 (the population step's ``Dispatch``)
+    and at K = 4 (``make_superstep``). Gates: every member of both runs
+    bit-equal to a captured single run with its hyperparameters over the
+    same batches (member 3's single run guarded: frozen at its first update,
+    ``skipped`` after it, status ``"diverged"`` from ``MemberTracker``); the
+    population step's B1, B1 bwd and B2 launches equal one member's step's
+    (and ``launches_per_train_step``); each run's captures equal the buckets
+    it met. Then one population step's ms against ``POP_MEMBERS`` x one
+    member's step, and ``run_training`` with ``Training.population.size``
+    4 (``POP_RUN_EPOCHS`` epoch): ``population.json`` written, member 3
+    diverged, the others finite, its launches as counted. Returns the
+    launches, the trained population and the numbers logged."""
+    from hydragnn_tpu_torch import capture, run_training
+    from hydragnn_tpu_torch.capture import Dispatch
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.resilience import wrap_step_with_guard
+    from hydragnn_tpu_torch.train import population as P
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.step import (TrainState, apply_initial_bias, make_train_step,
+                                               resolve_precision)
+    from hydragnn_tpu_torch.train.superstep import make_superstep
+
+    cfg, aug, loaders, _ = prepare(seed)
+    training = aug["NeuralNetwork"]["Training"]
+    layers = int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"])
+    dtype = resolve_precision(str(training["precision"]), device)
+    opt_cfg = training["Optimizer"]
+    loaders[0].set_superstep(POP_K)
+    loaders[0].set_epoch(0)
+    hosts = list(itertools.islice(iter(loaders[0]), steps))
+    steps = len(hosts)  # the epoch may hold fewer
+    batches = [b.to(device) for b in hosts]
+    buckets = {capture.bucket_of(b) for b in hosts}
+    card_only = device == "cuda"
+    out: dict = {"launches": dict.fromkeys(KERNELS, 0)}
+
+    def population():
+        return P.create_population_state(aug, POP_MEMBERS, seeds=list(POP_SEEDS),
+                                         learning_rates=list(POP_LRS), device=device)
+
+    pstep = P.make_population_step(dtype)
+    t0 = time.perf_counter()
+    pop1 = population()
+    d1 = Dispatch(pstep, "population", train=True,
+                  ledger={"model": "population", "kind": "population_step"})
+    fs.reset_launches()
+    m1 = [d1(pop1, b) for b in batches]
+    _sync(torch, device)
+    pop_launches = dict(fs.LAUNCHES)
+    pop4 = population()
+    sup = make_superstep(pstep, POP_K, ledger={"model": "population", "kind": "population_k4"})
+    fs.reset_launches()
+    m4 = [m for i in range(0, steps, POP_K) for m in sup(pop4, batches[i:i + POP_K])]
+    _sync(torch, device)
+    k4_launches = dict(fs.LAUNCHES)
+    t_pop = time.perf_counter() - t0
+    singles, single_launches, single_caps = [], [], []
+    for i, lr in enumerate(POP_LRS):
+        model = apply_initial_bias(create_model_config(aug, device=device, seed=POP_SEEDS[i]))
+        state = TrainState(model, select_optimizer(dict(opt_cfg, learning_rate=lr),
+                                                   model.parameters(), capturable=True))
+        step = make_train_step(dtype)
+        d = Dispatch(wrap_step_with_guard(step) if i == 3 else step, f"member {i} alone",
+                     train=True, ledger={"model": "population", "kind": "member_step"})
+        fs.reset_launches()
+        ms = [d(state, b) for b in batches]
+        _sync(torch, device)
+        single_launches.append(dict(fs.LAUNCHES))
+        single_caps.append(d.graphs.captures)
+        singles.append((state, ms))
+    # the gates
+    failures = []
+    for run, mets, pst in (("K=1", m1, pop1), ("K=4", m4, pop4)):
+        skips = torch.stack([m["skipped"] for m in mets]).cpu()
+        for i, (state, ms) in enumerate(singles):
+            diff = _member_diffs(torch, pst, i, state)
+            if diff:
+                failures.append(f"{run} member {i}: {diff[:4]}")
+            for t, (got, want) in enumerate(zip(mets, ms)):
+                for key in ("loss", "tasks_loss", "num_graphs"):
+                    if not torch.equal(got[key][i], want[key]):
+                        failures.append(f"{run} member {i} step {t} {key}")
+        if skips[:, 3].tolist() != [0] + [1] * (steps - 1) or int(skips[:, :3].sum()):
+            failures.append(f"{run} skip streams {skips.T.tolist()}")
+    tracker = P.MemberTracker(POP_MEMBERS, POP_MAX_SKIPS, lag=2)
+    for m in m1:
+        tracker.push(m["skipped"])
+    tracker.finish()
+    statuses = tracker.statuses()
+    if statuses != ["ok", "ok", "ok", "diverged"]:
+        failures.append(f"statuses {statuses}")
+    per_step = launches_per_train_step("gin", layers)
+    if card_only:
+        for name in POP_KERNELS:
+            if not (pop_launches[name] == k4_launches[name] == single_launches[0][name]
+                    == per_step[name] * steps):
+                failures.append(f"{name} launches: population {pop_launches[name]}, K=4 "
+                                f"{k4_launches[name]}, one member alone "
+                                f"{single_launches[0][name]}, want {per_step[name] * steps}")
+        caps = (d1.graphs.captures, sup.dispatch.graphs.captures)
+        if caps != (len(buckets), len(buckets)) or single_caps[0] != len(buckets):
+            failures.append(f"captures {caps} (one member alone {single_caps[0]}), want "
+                            f"{len(buckets)}, the buckets met")
+    if failures:
+        raise AssertionError(f"population: {failures}")
+    out["launches"] = _added(pop_launches, k4_launches)
+    log(f"[{card}] [population] qm9.json GIN x {POP_MEMBERS} members (lr {list(POP_LRS)}, "
+        f"seeds {list(POP_SEEDS)}), {steps} batches of {len(buckets)} bucket(s) at K=1 and "
+        f"K={POP_K}: every member bit-equal to its captured single run (member 3 frozen at its "
+        f"first update, skips {[int(m['skipped'][3]) for m in m1]}, statuses {statuses}); "
+        f"launches per population step {({k: pop_launches[k] // steps for k in POP_KERNELS})} "
+        f"= one member's step; captures K=1 {d1.graphs.captures}, K=4 "
+        f"{sup.dispatch.graphs.captures}, one member alone {single_caps[0]} "
+        f"({t_pop:.3f} s for both population runs)")
+    # one population step against N x one member's step (captured replays);
+    # not gated, the same population with the dense products and the norms
+    # batched over the members (member_exact off): its step time, and how
+    # far its healthy members land from their single runs (before the
+    # timing replays move those)
+    if card_only:
+        from hydragnn_tpu_torch.models import common
+
+        b0 = batches[0]
+        exact = common.member_exact
+        common.member_exact = lambda fn, *args: fn(*args)
+        try:
+            popb = population()
+            db = Dispatch(pstep, "population batched", train=True)
+            mb = [db(popb, b) for b in batches]
+            dev_lr, dev_loss = [], []
+            for i, (state, ms) in enumerate(singles[:3]):
+                mem = P.member_state(popb, i)
+                with torch.no_grad():
+                    dev_lr.append(max(float((a - q).abs().max()) for a, q in zip(
+                        state.model.parameters(), mem.model.parameters())) / POP_LRS[i])
+                dev_loss.append(max(abs(float(w["loss"]) - float(g["loss"][i]))
+                                    / abs(float(w["loss"])) for w, g in zip(ms, mb)))
+            t_batched = _event_ms(torch, lambda: db(popb, b0), timing_steps)
+        finally:
+            common.member_exact = exact
+        t_one = _event_ms(torch, lambda: d1(pop1, b0), timing_steps)
+        state0, _ = singles[0]
+        d0 = Dispatch(make_train_step(dtype), "member 0 timing", train=True)
+        t_member = _event_ms(torch, lambda: d0(state0, b0), timing_steps)
+        out["step_ms"] = {"population": t_one, "member": t_member,
+                          "members_x_member": POP_MEMBERS * t_member, "batched": t_batched,
+                          "batched_max_param_diff_over_lr": max(dev_lr),
+                          "batched_max_rel_loss_diff": max(dev_loss)}
+        log(f"[{card}] [population] captured step at bucket {capture.bucket_of(hosts[0])}: "
+            f"population of {POP_MEMBERS} {t_one:.4f} ms, one member {t_member:.4f} ms, "
+            f"{POP_MEMBERS} x one member {POP_MEMBERS * t_member:.4f} ms (CUDA events around "
+            f"{timing_steps} replays each); not gated, the dense products and norms batched "
+            f"over the members: {t_batched:.4f} ms, healthy members after {steps} steps off "
+            f"their single runs by up to {max(dev_lr):.3f} lr in a parameter and "
+            f"{max(dev_loss):.3e} in a loss (relative)")
+    # run_training with Training.population
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pop_") as tmp:
+        rcfg = copy.deepcopy(cfg)
+        tr = rcfg["NeuralNetwork"]["Training"]
+        tr["num_epoch"] = POP_RUN_EPOCHS
+        tr["population"] = {"size": POP_MEMBERS, "learning_rates": list(POP_LRS),
+                            "seeds": list(POP_SEEDS)}
+        tr["resilience"] = {"max_consecutive_skips": POP_MAX_SKIPS}
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        pstate, _, raug = run_training(rcfg, samples=raw_samples(seed), device=device, path=tmp,
+                                       seed=seed)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        got = dict(fs.LAUNCHES)
+        summary = json.load(open(Path(tmp) / get_log_name_config(raug) / "population.json"))
+    n_eval = POP_RUN_EPOCHS * len(loaders[1]) + len(loaders[2])
+    want = _added(_scaled(per_step, pstate.step),
+                  _scaled(launches_per_forward("gin", layers), n_eval))
+    st = [m["status"] for m in summary["members"]]
+    objectives = [m["objective"] for m in summary["members"]]
+    log(f"[{card}] [population] run_training with Training.population.size {POP_MEMBERS}: "
+        f"{pstate.step} population steps, {n_eval} eval batches in {wall:.3f} s; statuses {st}, "
+        f"objectives {objectives}, ensemble {summary['ensemble']}; launches {got} (expected "
+        f"{want})")
+    if st != ["ok", "ok", "ok", "diverged"] or not all(np.isfinite(objectives[:3])):
+        raise AssertionError(f"population run_training: statuses {st}, objectives {objectives}")
+    if card_only and got != want:
+        raise AssertionError(f"population run_training launches {got} != {want}")
+    out["launches"] = _added(out["launches"], got)
+    out.update(pstate=pstate, aug=raug, loaders=loaders, summary=summary, wall_s=wall)
+    return out
+
+
+def hpo_phase(torch, seed: int, device: str = "cuda", card: str = "") -> dict:
+    """``run_hpo(backend="vmap")`` of qm9.json's GIN over ``HPO_LRS`` (one
+    epoch): one population of the four trials on ``device``, every trial a
+    finite ``"ok"`` in ``"vmap"`` mode, the best its least objective."""
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.train.population import make_population_objective
+    from hydragnn_tpu_torch.utils.hpo import run_hpo
+
+    base = qm9_config("gin")
+    base["NeuralNetwork"]["Training"]["num_epoch"] = POP_RUN_EPOCHS
+    objective = make_population_objective(samples=raw_samples(seed), device=device)
+    calls = []
+
+    def counted(cfg_static, members):
+        calls.append(len(members))
+        return objective(cfg_static, members)
+
+    def never(_cfg):
+        raise AssertionError("a learning-rate space has no per-trial fallback")
+
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    best_cfg, best, hist = run_hpo(
+        base, {"NeuralNetwork.Training.Optimizer.learning_rate": HPO_LRS}, never,
+        n_trials=len(HPO_LRS), seed=seed, backend="vmap", population_objective=counted)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    lrs = sorted(h["assignment"]["NeuralNetwork.Training.Optimizer.learning_rate"] for h in hist)
+    log(f"[{card}] [hpo] run_hpo(backend='vmap') over lr {HPO_LRS}: population calls {calls}, "
+        f"trials {[(h['assignment'], round(h['value'], 6), h['status'], h['mode']) for h in hist]}"
+        f", best {best:.6f} at lr "
+        f"{best_cfg['NeuralNetwork']['Training']['Optimizer']['learning_rate']} in {wall:.3f} s")
+    if calls != [len(HPO_LRS)] or lrs != sorted(HPO_LRS) or not all(
+            h["status"] == "ok" and h["mode"] == "vmap" and np.isfinite(h["value"])
+            for h in hist) or best != min(h["value"] for h in hist):
+        raise AssertionError(f"hpo: calls {calls}, history {hist}")
+    return {"launches": {k: int(v) for k, v in fs.LAUNCHES.items()}, "best": best,
+            "wall_s": wall}
+
+
+def screen_phase(torch, seed: int, pop: dict, device: str = "cuda", card: str = "") -> dict:
+    """``BulkScreener`` over a ``PackedWriter`` store of the qm9 samples
+    (every split, preprocessed), scoring with member 0 of the trained
+    population and reading the variance of its surviving members (0-2; the
+    diverged member 3 is left out of the ensemble). Gates: nothing captured
+    after ``warm()`` (``capture.no_new_captures`` and the sentinel's
+    ``compile_counts``); the top-k equals the top-k of ``run_prediction``'s
+    core (``Predictor.gather`` on a fresh predictor of the same model, which
+    captures its own graphs) over the same blocks, bit for bit; each
+    entry's variance equals ``np.var`` (float32) of the members' own
+    predictions; a screen interrupted after ``SCREEN_STOP_AFTER`` blocks
+    and resumed from its sidecar gives the identical top-k, every graph
+    scored once; the staging thread is gone after each screen. Logs
+    graphs/s with prefetch 2 against 0."""
+    import dataclasses as dc
+
+    from hydragnn_tpu_torch import capture
+    from hydragnn_tpu_torch.analysis.sentinel import compile_counts
+    from hydragnn_tpu_torch.datasets.packed import PackedDataset, PackedWriter
+    from hydragnn_tpu_torch.graphs.batching import compute_pad_buckets
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
+    from hydragnn_tpu_torch.screen import BulkScreener, ScreeningConfig, plan_screen
+    from hydragnn_tpu_torch.serve.batcher import serving_collate
+    from hydragnn_tpu_torch.serve.predictor import Predictor
+    from hydragnn_tpu_torch.train.population import member_state, stack_states
+
+    pstate, aug = pop["pstate"], pop["aug"]
+    samples = [s for ld in pop["loaders"] for s in ld.samples]
+    members = [member_state(pstate, i) for i in range(3)]
+    ensemble = stack_states(members, aug["NeuralNetwork"]["Training"]["Optimizer"])
+    scfg = ScreeningConfig(topk=SCREEN_TOPK, prefetch=2)
+    buckets = compute_pad_buckets(samples, scfg.batch_size, max_buckets=scfg.max_buckets)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_screen_") as tmp:
+        PackedWriter(samples, str(Path(tmp) / "qm9.gpk"))
+        store = PackedDataset(str(Path(tmp) / "qm9.gpk"))
+        predictor = Predictor(members[0].model, aug, device=device)
+        scr = BulkScreener(predictor, buckets, samples[0], scfg, pop_state=ensemble)
+        t0 = time.perf_counter()
+        scr.warm()
+        t_warm = time.perf_counter() - t0
+        warm_caps = scr.captures()
+        before = (capture.total_captures(), compile_counts()["captures"])
+        fs.reset_launches()
+        with capture.no_new_captures("bulk screen after warm()"):
+            res = scr.screen(store)
+            meta = str(Path(tmp) / "screen_meta.json")
+
+            class StopAfter:
+                calls = 0
+
+                @property
+                def requested(self):
+                    StopAfter.calls += 1
+                    return StopAfter.calls >= SCREEN_STOP_AFTER
+
+            cut = scr.screen(store, meta_path=meta, preempt=StopAfter())
+            resumed = scr.screen(store, meta_path=meta, resume=True)
+            scr.cfg = dc.replace(scr.cfg, prefetch=0)
+            sync = scr.screen(store)
+        _sync(torch, device)
+        launches = dict(fs.LAUNCHES)
+        after = (capture.total_captures(), compile_counts()["captures"])
+        plan = plan_screen(store, range(len(store)), buckets)
+        # the references: run_prediction's core on a fresh predictor, and the
+        # members' own predictions, on the same blocks
+        ref = Predictor(members[0].model, aug, device=device)
+        own = [Predictor(m.model, aug, device=device) for m in members]
+        scores, variances = {}, {}
+        for blk in plan.blocks:
+            batch = serving_collate([store[int(i)] for i in blk.indices], blk.pad)
+            _, preds = ref.gather(batch)
+            mask = batch.graph_mask.numpy() > 0
+            per = np.stack([p.outputs(batch)[0].cpu().numpy()[mask][:, 0] for p in own])
+            var = per.var(axis=0).astype(np.float32)  # as the engine takes it
+            for j, i in enumerate(blk.indices):
+                scores[int(i)] = np.float32(preds[0][j, 0])
+                variances[int(i)] = var[j]
+    want = sorted(scores.items(), key=lambda t: (-t[1], t[0]))[:SCREEN_TOPK]
+    got = [(e.index, np.float32(e.score)) for e in res.topk]
+    failures = []
+    if got != [(i, s) for i, s in want]:
+        failures.append(f"top-k {got[:4]} != run_prediction's {want[:4]}")
+    if any(np.float32(e.variance) != variances[e.index] for e in res.topk):
+        failures.append("ensemble variance != the members' variance")
+    if after != before:
+        failures.append(f"captures after warm(): {before} -> {after}")
+    if not (not cut.completed and cut.blocks_done == SCREEN_STOP_AFTER and resumed.completed
+            and resumed.resumed_from == SCREEN_STOP_AFTER and resumed.graphs_done == len(store)
+            and resumed.topk == res.topk == sync.topk):
+        failures.append(f"resume: cut {cut.blocks_done}/{cut.completed}, resumed from "
+                        f"{resumed.resumed_from}, {resumed.graphs_done} graphs")
+    left = [t.name for t in threading.enumerate() if t.name == "background_iter"]
+    if left:
+        failures.append(f"staging threads left: {left}")
+    if device == "cuda" and warm_caps != 2 * len(buckets):
+        failures.append(f"warm() captured {warm_caps}, want {2 * len(buckets)}")
+    if failures:
+        raise AssertionError(f"screen: {failures}")
+    out.update(launches=launches, graphs_per_s={"prefetch_2": res.graphs_per_sec,
+                                                "prefetch_0": sync.graphs_per_sec},
+               warm_s=t_warm, blocks=len(plan.blocks), graphs=len(store))
+    log(f"[{card}] [screen] {len(store)} qm9 graphs from a packed store in {len(plan.blocks)} "
+        f"blocks of {len(buckets)} buckets, ensemble of members 0-2: warm() {t_warm:.3f} s "
+        f"({warm_caps} captures), 0 captures after it; top-{SCREEN_TOPK} = run_prediction's "
+        f"core bit for bit, variances = the members' np.var; interrupted after "
+        f"{SCREEN_STOP_AFTER} blocks, resumed to the same top-k; graphs/s prefetch 2 "
+        f"{res.graphs_per_sec}, prefetch 0 {sync.graphs_per_sec}; launches over the four "
+        f"screens {launches}; top-3 {[(e.index, e.score, e.variance) for e in res.topk[:3]]}")
+    return out
+
+
 FIRST_STEP_REPS = 4
 
 
@@ -8786,6 +9380,12 @@ def main(argv=None) -> int:
         quant_stack_kernel_phase(torch, args.seed,
                                  next(e for e in entries if e["name"] == "quant_dense"))
         second_derivative_phase(torch, top)
+        pop_errs, pop_rows = population_kernel_checks(torch, top, n_max)
+        for e in entries:
+            if e["name"] in pop_errs:
+                e["population_folded"] = next(r for r in pop_rows if r["name"] == e["name"])
+                e["max_abs_err"] = max(e["max_abs_err"], pop_errs[e["name"]])
+        fold_cost = next(r for r in pop_rows if r["name"] == "fold")
     served, trained, quantized = {}, {}, {}
     for kind in MODELS:
         with timed_phase(phase_s, kind):
@@ -8846,6 +9446,12 @@ def main(argv=None) -> int:
                     for name in VARIANTS}
     with timed_phase(phase_s, "superstep"):
         superstep = superstep_phase(torch, args.seed, card=dev["smi"])
+    with timed_phase(phase_s, "population"):
+        population = population_phase(torch, args.seed, card=dev["smi"])
+    with timed_phase(phase_s, "hpo"):
+        hpo_run = hpo_phase(torch, args.seed, card=dev["smi"])
+    with timed_phase(phase_s, "screen"):
+        screen = screen_phase(torch, args.seed, population, card=dev["smi"])
     with timed_phase(phase_s, "resilience"):
         resilience = resilience_phase(torch, args.seed, card=dev["smi"])
         slice_errs = new_shape_kernel_checks(torch, args.seed)
@@ -8912,7 +9518,15 @@ def main(argv=None) -> int:
                          + sum(m["launches"][name] for m in mlips.values())
                          + sum(r["launches"][name] for r in ran_md.values())
                          + data_plane["launches"][name] + parallel["launches"][name]
-                         + telemetry["launches"][name])
+                         + telemetry["launches"][name] + population["launches"][name]
+                         + hpo_run["launches"][name] + screen["launches"][name])
+        e["launches_population"] = {"population": population["launches"][name],
+                                    "hpo": hpo_run["launches"][name],
+                                    "screen": screen["launches"][name]}
+        # the screen predicts: no backward
+        paths = ("population", "hpo") + (("screen",) if name != "gather_scatter_sum_bwd" else ())
+        if name in POP_KERNELS and min(e["launches_population"][p] for p in paths) <= 0:
+            raise AssertionError(f"{name} was not launched on the {', '.join(paths)} paths")
         e["launches_data_plane"] = data_plane["launches"][name]
         e["launches_telemetry"] = telemetry["launches"][name]
         e["launches_parallel"] = {k: r["launches"][name] for k, r in parallel["runs"].items()}
@@ -8985,6 +9599,10 @@ def main(argv=None) -> int:
         "mlip_serving": {**{a: m["summary"] for a, m in mlip_served.items()},
                          "mptrj_film": film_served["summary"]},
         "fleet": fleet,
+        "population": {"step_ms": population.get("step_ms"), "run_s": population["wall_s"],
+                       "ensemble": population["summary"]["ensemble"], "fold": fold_cost,
+                       "hpo_s": hpo_run["wall_s"]},
+        "screen": {k: v for k, v in screen.items() if k != "launches"},
         "telemetry": {k: v for k, v in telemetry.items() if k != "launches"},
         "data_plane": {k: v for k, v in data_plane.items() if k != "launches"},
         "parallel_x1": {k: {"step_ms": r["step_ms"], "losses": r["losses"],

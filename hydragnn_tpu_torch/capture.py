@@ -36,6 +36,11 @@ never taken from a warm-up's cache.
 :class:`SegmentGraph` captures ``n`` applications of an MD step to a state
 of tensors (``md.run_md``'s trajectory segment).
 
+A population (``train/population.py``) is one state to a capture: its
+stacked model and per-member optimizer, so its train step is one graph per
+bucket for all members (and per K: a superstep replays it), and
+:func:`preserved` undoes its warm-up as it undoes one model's.
+
 Callers capture for CUDA tensors and run the eager step for CPU tensors,
 as the kernels route; a capture that fails raises. A graph holds the
 addresses of the state it was captured against: :meth:`StepGraphs.run`

@@ -14,9 +14,12 @@ edge-dimension rules; the graph size (``num_nodes``, ``graph_size_variable``:
 ``mlp_per_node`` heads need one size) and the width of the graph
 attributes (``graph_attr_dim``, port-only: the port builds its conditioning
 layers when the model is constructed, flax at its first call), and the
-``Dataset.store`` block of the sharded store, and the ``Telemetry`` block
-(validated against ``telemetry.TelemetryConfig``). The blocks
-of subsystems the port does not have yet come with their slices.
+``Dataset.store`` block of the sharded store, the ``Telemetry`` block
+(validated against ``telemetry.TelemetryConfig``), the ``Screening`` block
+(validated against ``screen.ScreeningConfig``) and ``Training.population``
+(its per-member lists the length of its size, and an explicit weight decay
+filled in when per-member decays ask for one). The blocks of subsystems
+the port does not have yet come with their slices.
 """
 
 from __future__ import annotations
@@ -89,6 +92,23 @@ def _avg_num_neighbors(samples) -> float:
     tot_edges = sum(s.num_edges for s in samples)
     tot_nodes = sum(s.num_nodes for s in samples)
     return float(tot_edges) / max(tot_nodes, 1)
+
+
+POPULATION_LISTS = ("seeds", "learning_rates", "weight_decays", "task_weights")
+
+
+def check_population_block(pop_cfg) -> dict:
+    """``Training.population``: a dict whose per-member lists, when given,
+    hold one entry per member (``size``). Returns it."""
+    if not isinstance(pop_cfg, dict):
+        raise ValueError(f"Training.population must be a dict, got {type(pop_cfg).__name__}")
+    size = int(pop_cfg.get("size", 0) or 0)
+    for key in POPULATION_LISTS:
+        vals = pop_cfg.get(key)
+        if vals is not None and len(vals) != size:
+            raise ValueError(f"Training.population.{key} has {len(vals)} entries for "
+                             f"size={size}")
+    return pop_cfg
 
 
 def update_config(config: dict, train_samples, val_samples=None, test_samples=None) -> dict:
@@ -172,6 +192,33 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     for key, val in tel_defaults.items():
         tel_cfg.setdefault(key, val)
     TelemetryConfig(**tel_cfg).validate()
+
+    # bulk screening (screen/): the Screening block's defaults are the
+    # ScreeningConfig field defaults, unknown keys raise; the env flags win
+    # when a screener is built (ScreeningConfig.apply_env)
+    screen_cfg = config.setdefault("Screening", {})
+    if not isinstance(screen_cfg, dict):
+        raise ValueError(f"Screening must be a dict, got {type(screen_cfg).__name__}")
+    from ..screen.config import ScreeningConfig, screening_config_defaults
+
+    screen_defaults = screening_config_defaults()
+    unknown_screen = set(screen_cfg) - set(screen_defaults)
+    if unknown_screen:
+        raise ValueError(f"Unknown Screening key(s) {sorted(unknown_screen)}; known: "
+                         f"{sorted(screen_defaults)}")
+    for key, val in screen_defaults.items():
+        screen_cfg.setdefault(key, val)
+    ScreeningConfig(**screen_cfg).validate()
+
+    # population training (train/population.py): size 0/1 disables
+    # (HYDRAGNN_POPULATION wins); each per-member list, when given, holds
+    # one entry per member (seeds default to the run's seed + range(size),
+    # the rest to the shared Optimizer/Architecture values)
+    pop_cfg = check_population_block(training.setdefault("population", {}))
+    pop_cfg.setdefault("size", 0)
+    for key in POPULATION_LISTS:
+        pop_cfg.setdefault(key, None)
+    training.setdefault("steps_per_dispatch", 1)
 
     arch.setdefault("enable_interatomic_potential", False)
 
@@ -264,6 +311,16 @@ def update_config(config: dict, train_samples, val_samples=None, test_samples=No
     training.setdefault("batch_size", 32)
     training.setdefault("conv_checkpointing", False)
     training.setdefault("Optimizer", {"type": "AdamW", "learning_rate": 1e-3})
+    # per-member weight decays step with an explicit decay: the optimizer's
+    # optax default filled in, as the JAX package does, when the RESOLVED
+    # size (the env flag wins) makes this a population
+    if pop_cfg.get("weight_decays") is not None:
+        from ..train.population import resolve_population_size
+
+        if resolve_population_size(training) > 1:
+            from ..train.optimizer import ensure_injected_weight_decay
+
+            ensure_injected_weight_decay(training["Optimizer"])
     voi.setdefault("denormalize_output", False)
     return config
 

@@ -174,6 +174,32 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, model: torch.nn.Modu
     return optimizer
 
 
+def _member(tree, i: int):
+    """Member ``i``'s slice of a tree of ``[N, ...]`` arrays."""
+    if isinstance(tree, dict):
+        return {k: _member(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def load_jax_population(pstate, params: dict, batch_stats: dict | None = None,
+                        projections: dict | None = None):
+    """Copy a JAX ``PopulationState``'s stacked flax variables (the numpy
+    arrays of ``pstate.state.params`` and ``batch_stats``, every leaf ``[N,
+    ...]``; the GPS performer's ``projections`` shared) into the port's
+    population (``train/population.py``) in place, member by member: each
+    member's slice is carried as :func:`load_jax_variables` carries one
+    model's. Every stacked parameter and buffer must be covered."""
+    targets = pstate.model.state_dict()
+    n = pstate.n_members
+    for i in range(n):
+        arrays = port_arrays(_member(params, i))
+        arrays.update(port_arrays(_member(batch_stats or {}, i)))
+        for path, w in (projections or {}).items():
+            arrays[_port_name(tuple(path.split("/")) + ("w",))] = np.array(w, np.float32)
+        _copy_into({k: t[i] for k, t in targets.items()}, arrays, f"member {i} flax variable")
+    return pstate
+
+
 def batch_from_numpy(nb) -> GraphBatch:
     """A port ``GraphBatch`` (CPU tensors) from a batch of numpy arrays with
     the ``GraphBatch`` fields (e.g. the JAX package's collate output), field
@@ -187,5 +213,5 @@ def batch_from_numpy(nb) -> GraphBatch:
     return GraphBatch(**{f: torch.from_numpy(a) for f, a in arrays.items()}, meta=meta)
 
 
-__all__ = ["batch_from_numpy", "load_jax_variables", "load_optax_adam_state", "port_arrays",
-           "port_module_name"]
+__all__ = ["batch_from_numpy", "load_jax_population", "load_jax_variables",
+           "load_optax_adam_state", "port_arrays", "port_module_name"]

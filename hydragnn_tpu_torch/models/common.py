@@ -159,11 +159,61 @@ def intercept_dense(fn: Callable[[nn.Module, torch.Tensor], torch.Tensor | None]
         _DENSE_INTERCEPTOR.reset(token)
 
 
+class _PerMember(torch.autograd.Function):
+    """``fn(*args)`` whose batching rule calls ``fn`` once per member: under
+    ``torch.func.vmap`` over a population's members
+    (``train/population.py``) a batched product rounds otherwise than the
+    one product of a single model, in the forward and in autograd's
+    backward; called per member, each product and its backward are the
+    single model's, bit for bit. Outside ``vmap`` the backward recomputes
+    ``fn`` (:func:`member_exact` calls this Function only under ``vmap``)."""
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.is_tensor = [torch.is_tensor(a) for a in inputs[1:]]
+        ctx.others = [None if t else a for t, a in zip(ctx.is_tensor, inputs[1:])]
+        ctx.save_for_backward(*[a for a in inputs[1:] if torch.is_tensor(a)])
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = iter(ctx.saved_tensors)
+        args = [next(saved).detach().requires_grad_(need) if t else a
+                for t, a, need in zip(ctx.is_tensor, ctx.others, ctx.needs_input_grad[1:])]
+        wanted = [a for a, need in zip(args, ctx.needs_input_grad[1:]) if need]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(ctx.fn(*args), wanted, dout, allow_unused=True))
+        return (None, *[next(grads) if need else None for need in ctx.needs_input_grad[1:]])
+
+    @staticmethod
+    def vmap(info, in_dims, fn, *args):
+        def member(a, dim, i):
+            return a if dim is None else a.select(dim, i).contiguous()
+
+        return torch.stack([fn(*[member(a, d, i) for a, d in zip(args, in_dims[1:])])
+                            for i in range(info.batch_size)]), 0
+
+
+def member_exact(fn: Callable, *args):
+    """``fn(*args)``; under ``torch.func.vmap`` with a batched tensor among
+    ``args``, one call of ``fn`` per member (:class:`_PerMember`), so each
+    member computes what it computes alone. ``fn`` returns one tensor."""
+    if any(torch.is_tensor(a) and torch._C._functorch.is_batchedtensor(a) for a in args):
+        return _PerMember.apply(fn, *args)
+    return fn(*args)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``y = x @ W.T + b`` after promoting ``x``, ``W``
     and ``b`` to their common dtype. ``weight`` is ``[out, in]``; with
     ``use_bias=False`` there is no ``bias`` parameter. Calls can be
-    intercepted (:func:`intercept_dense`)."""
+    intercepted (:func:`intercept_dense`). Under ``torch.func.vmap`` (a
+    population's members) the product is one ``F.linear`` per member
+    (:func:`member_exact`)."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: torch.Generator | None = None, use_bias: bool = True):
@@ -182,7 +232,7 @@ class Dense(nn.Module):
         if self.bias is not None:
             dtype = torch.promote_types(dtype, self.bias.dtype)
         bias = self.bias.to(dtype) if self.bias is not None else None
-        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+        return member_exact(F.linear, x.to(dtype), self.weight.to(dtype), bias)
 
 
 class Dropout(nn.Module):
@@ -271,36 +321,45 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            m = mask.reshape(-1, 1).to(x.dtype)
-            msum = m.sum()
-            s1 = (x * m).sum(dim=0)
-            if self.sync_group is not _NO_GROUP:
-                from ..parallel.comm import all_reduce_sum
-
-                msum, s1 = all_reduce_sum(msum, self.sync_group), all_reduce_sum(s1, self.sync_group)
-            count = torch.clamp(msum, min=1.0)
-            mean = s1 / count
-            cv = (((x - mean) ** 2) * m).sum(dim=0)
-            if self.sync_group is not _NO_GROUP:
-                cv = all_reduce_sum(cv, self.sync_group)
-            var = cv / count
-            has_rows = msum > 0
-            tape = _CHECKPOINT_PASS.get()
-            # the EMA is gated on real rows: a zero-count batch keeps the
-            # running statistics bit-identical; a checkpointed recompute
-            # leaves them as its first pass moved them
-            if tape is None or tape[0] == "record":
-                with torch.no_grad():
-                    alpha = (1.0 - self.momentum) * has_rows.to(torch.float32)
-                    self.mean.copy_(self.mean + alpha * (mean.detach() - self.mean))
-                    self.var.copy_(self.var + alpha * (var.detach() - self.var))
-            # like jnp.where, this promotes to the running statistics' fp32
-            mean = torch.where(has_rows, mean, self.mean)
-            var = torch.where(has_rows, var, self.var)
-        else:
-            mean, var = self.mean, self.var
-        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+            # under vmap (a population) one member at a time: the batched
+            # column sums of the statistics and of their backward would
+            # add the rows in another order than the single model does
+            return member_exact(self._train_norm, x, mask, self.scale, self.bias, self.mean,
+                                self.var)
+        y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
         return y * self.scale + self.bias
+
+    def _train_norm(self, x, mask, scale, bias, run_mean, run_var) -> torch.Tensor:
+        """The train-mode normalisation with the given parameters and
+        running statistics (``run_mean``/``run_var`` updated in place)."""
+        m = mask.reshape(-1, 1).to(x.dtype)
+        msum = m.sum()
+        s1 = (x * m).sum(dim=0)
+        if self.sync_group is not _NO_GROUP:
+            from ..parallel.comm import all_reduce_sum
+
+            msum, s1 = all_reduce_sum(msum, self.sync_group), all_reduce_sum(s1, self.sync_group)
+        count = torch.clamp(msum, min=1.0)
+        mean = s1 / count
+        cv = (((x - mean) ** 2) * m).sum(dim=0)
+        if self.sync_group is not _NO_GROUP:
+            cv = all_reduce_sum(cv, self.sync_group)
+        var = cv / count
+        has_rows = msum > 0
+        tape = _CHECKPOINT_PASS.get()
+        # the EMA is gated on real rows: a zero-count batch keeps the
+        # running statistics bit-identical; a checkpointed recompute
+        # leaves them as its first pass moved them
+        if tape is None or tape[0] == "record":
+            with torch.no_grad():
+                alpha = (1.0 - self.momentum) * has_rows.to(torch.float32)
+                run_mean.copy_(run_mean + alpha * (mean.detach() - run_mean))
+                run_var.copy_(run_var + alpha * (var.detach() - run_var))
+        # like jnp.where, this promotes to the running statistics' fp32
+        mean = torch.where(has_rows, mean, run_mean)
+        var = torch.where(has_rows, var, run_var)
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        return y * scale + bias
 
 
 @contextlib.contextmanager

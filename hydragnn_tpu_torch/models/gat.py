@@ -28,6 +28,8 @@ model recomputes them per layer), divided by the degree clamped at 1; the
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -35,7 +37,7 @@ from ..config.schema import ModelSpec
 from ..graphs import segment
 from ..graphs.graph import GraphBatch
 from ..ops.fused_scatter import gather_rows
-from .common import Dense, Dropout, lecun_normal_
+from .common import Dense, Dropout, lecun_normal_, member_exact
 
 HEADS = 6  # the reference GAT stack hard-codes 6 attention heads
 NEGATIVE_SLOPE = 0.05
@@ -94,7 +96,8 @@ class GATConv(nn.Module):
         # edge between zero-feature nodes while the biases are 0)
         z = torch.where(z >= 0, z, NEGATIVE_SLOPE * z)
         dtype = torch.promote_types(z.dtype, self.att.dtype)  # as jnp.einsum promotes
-        logits = torch.einsum("ehf,hf->eh", z.to(dtype), self.att.to(dtype))
+        logits = member_exact(functools.partial(torch.einsum, "ehf,hf->eh"), z.to(dtype),
+                              self.att.to(dtype))
         logits = torch.where(e_mask[:, None] > 0, logits, MASK_FILL)
         alpha = segment.segment_softmax(logits, receivers, n, index=index)
         alpha = alpha * e_mask[:, None]

@@ -116,13 +116,24 @@ def _spherical_jn_primal(l_max: int, x: torch.Tensor) -> list:
 
 class _SphericalJn(torch.autograd.Function):
     """``[l_max + 1, *x.shape]``: ``j_0 .. j_lmax`` of ``x``, with the
-    analytic derivative (module docstring), 0 where ``x < 0.05``."""
+    analytic derivative (module docstring), 0 where ``x < 0.05``; under
+    ``torch.func.vmap`` one call for all members."""
 
     @staticmethod
-    def forward(ctx, x, l_max):
+    def forward(x, l_max):
+        return torch.stack(_spherical_jn_primal(l_max, x))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, l_max = inputs
         ctx.save_for_backward(x)
         ctx.l_max = l_max
-        return torch.stack(_spherical_jn_primal(l_max, x))
+
+    @staticmethod
+    def vmap(info, in_dims, x, l_max):
+        """Elementwise: the members' ``x`` in one call, the member axis one
+        further along behind the stacked orders."""
+        return _SphericalJn.apply(x, l_max), in_dims[0] + 1
 
     @staticmethod
     def backward(ctx, dout):

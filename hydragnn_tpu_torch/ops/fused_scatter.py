@@ -41,6 +41,13 @@ The launches count by entry point: a transposed gather-scatter as
 ``gather_scatter_sum_bwd``, a segment sum as ``segment_sum``. First derivatives launch exactly what they launched when
 the backwards called the launchers directly.
 
+Under ``torch.func.vmap`` (a population's members, ``train/population.py``)
+each Function's batching rule folds the member axis into the channels and
+makes one call for all members, whose backward is again one call: a
+population step launches each kernel as often as one member's step. The
+ids (senders, receivers, segment ids) are shared; a batched id array
+raises.
+
 :func:`cost` gives each kernel's FLOPs and bytes from its shapes. Every
 call reports it, on either route, to the telemetry plane's cost ledger
 when one counts the step (``telemetry.ledger.kernel_region``), and
@@ -391,16 +398,45 @@ def _segment_sum_routed(data, segment_ids, num_segments, index):
 # -- autograd ----------------------------------------------------------------
 
 
+def _unbatched(name: str, in_dims, *which: int) -> None:
+    """A batching rule's refusal of a batched index input: a population
+    shares its batch (``train/population.py``), so senders, receivers and
+    segment ids never carry the member axis."""
+    if any(in_dims[i] is not None for i in which):
+        raise ValueError(f"{name}: a batched index input (senders, receivers or segment ids) "
+                         "has no batching rule; members must share the batch")
+
+
+def _members_last(x: torch.Tensor | None, dim, size: int) -> torch.Tensor | None:
+    """``x`` with the member axis (at ``dim``, or broadcast when None) moved
+    after the row axis: ``[rows, M, ...]``."""
+    if x is None:
+        return None
+    if dim is None:
+        return x.unsqueeze(1).expand(x.shape[0], size, *x.shape[1:])
+    return x.movedim(dim, 1)
+
+
 class _GatherScatterSum(torch.autograd.Function):
     """``out = gather_scatter_sum(h, ...)`` with the JAX package's VJP
     (``_fused_bwd``): ``dh`` is the same Function over the transposed graph
     (so its own gradient is this one again), ``dw[e] = <h[s_e], dout[r_e]>``.
     ``counter`` names the entry point and its launch count:
-    ``gather_scatter_sum`` or the transposed ``gather_scatter_sum_bwd``."""
+    ``gather_scatter_sum`` or the transposed ``gather_scatter_sum_bwd``.
+
+    Under ``torch.func.vmap`` (a population's members, ``h [M, n, C]``) the
+    batching rule folds the member axis into the channels, ``[n, M*C]``,
+    and makes one call for all members; a weight batched per edge takes
+    the per-channel ``[E, M*C]`` form. Every channel sums its edges in the
+    order it does alone, so a member's output is the one it gets alone."""
 
     @staticmethod
-    def forward(ctx, h, weight, senders, receivers, num_nodes, index, send_index, counter):
-        out = _gather_scatter(h, senders, receivers, num_nodes, weight, index, counter)
+    def forward(h, weight, senders, receivers, num_nodes, index, send_index, counter):
+        return _gather_scatter(h, senders, receivers, num_nodes, weight, index, counter)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, weight, senders, receivers, num_nodes, index, send_index, counter = inputs
         ctx.num_nodes = num_nodes
         ctx.index = index
         ctx.send_index = send_index
@@ -409,7 +445,23 @@ class _GatherScatterSum(torch.autograd.Function):
         # h is read back only for the weight's gradient
         need_dw = weight is not None and ctx.needs_input_grad[1]
         ctx.save_for_backward(h if need_dw else None, weight, senders, receivers)
-        return out
+
+    @staticmethod
+    def vmap(info, in_dims, h, weight, senders, receivers, num_nodes, index, send_index,
+             counter):
+        _unbatched(counter, in_dims, 2, 3)
+        m = info.batch_size
+        h_dim, w_dim = in_dims[0], in_dims[1]
+        hm = _members_last(h, h_dim, m)  # [n, M, C]
+        c = hm.shape[-1]
+        if weight is not None and (w_dim is not None or weight.dim() == 2):
+            w = _members_last(weight, w_dim, m)  # [E, M] or [E, M, C]
+            if w.dim() == 2:
+                w = w.unsqueeze(-1).expand(*w.shape, c)
+            weight = w.reshape(w.shape[0], m * c)
+        out = _GatherScatterSum.apply(hm.reshape(hm.shape[0], m * c), weight, senders,
+                                      receivers, num_nodes, index, send_index, counter)
+        return out.reshape(out.shape[0], m, c), 1
 
     @staticmethod
     def backward(ctx, dout):
@@ -435,13 +487,27 @@ class _GatherScatterSum(torch.autograd.Function):
 
 class _SegmentSum(torch.autograd.Function):
     """``out = fused_segment_sum(data, ...)``; the gradient is ``dout[ids]``,
-    a :func:`gather_rows` whose own gradient is this Function again."""
+    a :func:`gather_rows` whose own gradient is this Function again. Under
+    ``torch.func.vmap`` the member axis folds into the columns: one call
+    for all members."""
 
     @staticmethod
-    def forward(ctx, data, segment_ids, num_segments, index):
+    def forward(data, segment_ids, num_segments, index):
+        return _segment_sum(data, segment_ids, num_segments, index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        data, segment_ids, num_segments, index = inputs
         ctx.save_for_backward(segment_ids)
         ctx.index = index
-        return _segment_sum(data, segment_ids, num_segments, index)
+
+    @staticmethod
+    def vmap(info, in_dims, data, segment_ids, num_segments, index):
+        _unbatched("segment_sum", in_dims, 1)
+        m = info.batch_size
+        dm = _members_last(data, in_dims[0], m)  # [E, M, C]
+        out = _SegmentSum.apply(dm.reshape(dm.shape[0], -1), segment_ids, num_segments, index)
+        return out.reshape(out.shape[0], m, *dm.shape[2:]), 1
 
     @staticmethod
     def backward(ctx, dout):
@@ -452,14 +518,25 @@ class _SegmentSum(torch.autograd.Function):
 class _GatherRows(torch.autograd.Function):
     """``out = x[ids]``; the gradient is ``fused_segment_sum(dout, ids)``,
     one device-routed segment-sum launch over ``index``, whose own gradient
-    is this Function again."""
+    is this Function again. Under ``torch.func.vmap`` the rows of all
+    members are gathered at once (``x [rows, M, ...]``), and the gradient
+    is one segment sum over their folded columns."""
 
     @staticmethod
-    def forward(ctx, x, ids, index):
+    def forward(x, ids, index):
+        return x.index_select(0, ids.long())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ids, index = inputs
         ctx.save_for_backward(ids)
         ctx.num_rows = x.shape[0]
         ctx.index = index
-        return x.index_select(0, ids.long())
+
+    @staticmethod
+    def vmap(info, in_dims, x, ids, index):
+        _unbatched("gather_rows", in_dims, 1)
+        return _GatherRows.apply(_members_last(x, in_dims[0], info.batch_size), ids, index), 1
 
     @staticmethod
     def backward(ctx, dout):

@@ -33,6 +33,10 @@ backward works from the saved output, as the JAX package's custom VJPs do
 * masked softmax: ``ds = s * (dy - sum_row(s * dy))``, plain tensor code;
   masked entries have ``s = 0`` and get no gradient.
 
+Under ``torch.func.vmap`` both fold a population's members into one call
+(the segment softmax into its heads, the masked softmax into the rows of
+each graph), as ``ops.fused_scatter``'s Functions do.
+
 :func:`cost` gives each kernel's FLOPs and bytes from its shapes, reported
 to a counting cost ledger on either route and read by ``chip_smoke.py``
 for the kernel table's bound.
@@ -50,8 +54,10 @@ from .fused_scatter import (
     _check_index,
     _count_launch,
     _dtype_code,
+    _members_last,
     _raise_on,
     _route,
+    _unbatched,
     accumulate_dtype,
     fused_segment_sum,
     gather_rows,
@@ -223,15 +229,29 @@ def _masked_softmax_routed(logits, mask):
 class _SegmentSoftmax(torch.autograd.Function):
     """``s = segment_softmax(x)``; ``ds = s * (dy - segment_sum(s * dy)[ids])``
     in fp32 (fp64 for fp64), cast to the output's type (the JAX
-    ``_fused_bwd``)."""
+    ``_fused_bwd``). Under ``torch.func.vmap`` the member axis folds into
+    the heads, ``[E, M*H]``: one call for all members, each column
+    normalised as it is alone."""
 
     @staticmethod
-    def forward(ctx, logits, segment_ids, num_segments, index):
-        out = _segment_softmax(logits, segment_ids, num_segments, index)
+    def forward(logits, segment_ids, num_segments, index):
+        return _segment_softmax(logits, segment_ids, num_segments, index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, segment_ids, num_segments, index = inputs
         ctx.num_segments = num_segments
         ctx.index = index
-        ctx.save_for_backward(out, segment_ids)
-        return out
+        ctx.save_for_backward(output, segment_ids)
+
+    @staticmethod
+    def vmap(info, in_dims, logits, segment_ids, num_segments, index):
+        _unbatched("segment_softmax", in_dims, 1)
+        m = info.batch_size
+        lm = _members_last(logits, in_dims[0], m)  # [E, M, H]
+        out = _SegmentSoftmax.apply(lm.reshape(lm.shape[0], -1), segment_ids, num_segments,
+                                    index)
+        return out.reshape(lm.shape), 1
 
     @staticmethod
     def backward(ctx, dout):
@@ -246,13 +266,23 @@ class _SegmentSoftmax(torch.autograd.Function):
 class _MaskedSoftmax(torch.autograd.Function):
     """``s = masked_softmax(x, mask)``; ``ds = s * (dy - sum_row(s * dy))`` in
     fp32 (fp64 for fp64), cast to the output's type (the JAX
-    ``_fused_rows_bwd``)."""
+    ``_fused_rows_bwd``). Under ``torch.func.vmap`` the member axis becomes
+    the second axis of ``[G, M, ..., m]``, whose rows the per-graph mask
+    covers as it covers the heads: one call for all members."""
 
     @staticmethod
-    def forward(ctx, logits, mask):
-        out = _masked_softmax(logits, mask)
-        ctx.save_for_backward(out)
-        return out
+    def forward(logits, mask):
+        return _masked_softmax(logits, mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def vmap(info, in_dims, logits, mask):
+        _unbatched("masked_softmax", in_dims, 1)
+        return _MaskedSoftmax.apply(_members_last(logits, in_dims[0], info.batch_size),
+                                    mask), 1
 
     @staticmethod
     def backward(ctx, dout):

@@ -29,6 +29,14 @@ package. ``HYDRAGNN_AUTO_PARALLEL=0`` keeps a process alone unless its
 caller formed a group. No downgrade: a world above 1 whose group cannot be
 formed raises, and so does a failed collective.
 
+``Training.population.size`` (or ``HYDRAGNN_POPULATION``) above 1 trains a
+population instead (``train/population.py``): N members in one captured
+step, one process on one device (a process group, a parallel layout or an
+interatomic potential is refused), ``population.json`` beside the
+checkpoints, and ``Training.continue`` resuming the stacked state from the
+checkpoint sidecar's ``population_meta``; it returns ``(PopulationState,
+its stacked model, config)``.
+
 The resilience layer (``Training.resilience``, ``HYDRAGNN_FAULT_PLAN``;
 ``resilience/``) runs through the loop: the non-finite guard, rollback, and
 preemption, whose mid-epoch checkpoint a run with ``Training.continue``
@@ -53,13 +61,6 @@ from .train.loop import train_validate_test
 from .train.step import create_train_state, resolve_precision
 from . import telemetry
 from .utils import flags, resolve_device
-
-# config switches of the JAX package's run_training that this slice does not
-# run: (section, key, whether the value asks for it, what and its slice)
-_LATER = (
-    ("Training", "population", bool, "population training (a later slice: run-time extras)"),
-)
-
 
 def _parallel_request(config: dict) -> dict:
     """The JAX package's validation of the parallel switches
@@ -92,12 +93,14 @@ def _parallel_request(config: dict) -> dict:
     return {"halo": halo, "edge": edge, "fsdp": fsdp, "mode": par_mode}
 
 
-def _refuse_later_slices(config: dict) -> None:
+def _check_run_switches(config: dict) -> None:
+    """The population and resilience blocks and the fault plan fail before
+    any data is read."""
+    from .config.schema import check_population_block
+
     nn_cfg = config.get("NeuralNetwork", {})
-    for section, key, asks, what in _LATER:
-        if asks(nn_cfg.get(section, {}).get(key)):
-            raise NotImplementedError(f"{section}.{key}: {what} is not ported yet")
-    # the resilience block and the fault plan fail before any data is read
+    if "population" in nn_cfg.get("Training", {}):
+        check_population_block(nn_cfg["Training"]["population"])
     res_cfg = nn_cfg.get("Training", {}).get("resilience")
     if res_cfg is not None and not isinstance(res_cfg, dict):
         raise ValueError(f"Training.resilience must be a dict, got {type(res_cfg).__name__}")
@@ -136,7 +139,7 @@ def run_training(config_source, samples: Sequence | None = None, device="cuda",
 
     config = load_config(config_source)
     request = _parallel_request(config)
-    _refuse_later_slices(config)
+    _check_run_switches(config)
     verbosity = int(config.get("Verbosity", {}).get("level", 0))
     grouped = _setup_group(torch.device(device), verbosity)
     device = resolve_device(device)
@@ -218,6 +221,11 @@ def _train(config: dict, training: dict, log_name: str, path: str, device, seed:
     (after the data prologue); returns ``(state, model, config)``."""
     from .parallel.comm import rank_of
 
+    from .train.population import resolve_population_size
+
+    if resolve_population_size(training) > 1:
+        return _train_population(config, training, log_name, path, device, seed, verbosity,
+                                 grouped, request, world, loaders)
     train_loader, val_loader, test_loader = loaders
     model = create_model_config(config, device=device, seed=seed)
     state = create_train_state(model, training["Optimizer"], seed=seed)
@@ -311,6 +319,69 @@ def _train(config: dict, training: dict, log_name: str, path: str, device, seed:
     save_checkpoint(state, log_name, epoch=int(training.get("num_epoch", 0)), path=path,
                     meta={"final": True})
     return state, model, config
+
+
+def _train_population(config: dict, training: dict, log_name: str, path: str, device,
+                      seed: int, verbosity: int, grouped: bool, request: dict, world: int,
+                      loaders):
+    """The population route of :func:`run_training`
+    (``hydragnn_tpu/run_training.py:121-256``): refusals, the continue
+    resume, the prefetching loaders, :func:`train_population` and the final
+    save; returns ``(pstate, pstate.model, config)``."""
+    from .train.population import (population_meta, population_template,
+                                   resolve_population_size, train_population)
+    from .utils.walltime import make_walltime_check
+
+    n = resolve_population_size(training)
+    if request["mode"] != "data" or request["edge"] or request["halo"]:
+        raise ValueError(f"Training.population.size={n} cannot combine with "
+                         f"Architecture.parallelism={request['mode']!r}/edge_sharding/halo: the "
+                         "population's member axis is the step's parallelism")
+    if grouped or world > 1:
+        raise ValueError(f"Training.population.size={n} trains in one process, but this job "
+                         f"runs {world} ranks: launch one process, or run the trials as "
+                         "subprocesses")
+    if config["NeuralNetwork"]["Architecture"].get("enable_interatomic_potential"):
+        raise ValueError(f"Training.population.size={n}: interatomic potentials (forces from "
+                         "the position gradient) have no population step")
+    train_loader, val_loader, test_loader = loaders
+    resume = None  # (PopulationState, start epoch, tracker state)
+    if training.get("continue"):
+        from .train.checkpoint import load_checkpoint
+
+        startfrom = training.get("startfrom", log_name)
+        template = population_template(config, n, device=device)
+        meta = load_checkpoint(template, startfrom, path=path)
+        saved_n = int(meta.get("population", 0) or 0)
+        if saved_n and saved_n != n:
+            raise ValueError(f"the checkpoint of {startfrom} holds a {saved_n}-member "
+                             f"population but the config asks for {n}")
+        resume = (template, int(meta.get("population_epochs_done", meta.get("epoch", 0))),
+                  meta.get("member_tracker"))
+        if verbosity > 0:
+            print(f"resumed a {n}-member population from {startfrom} ({resume[1]} epoch(s) "
+                  "already trained)", flush=True)
+    depth = int(training.get("prefetch", 2))
+    workers = int(training.get("num_workers", 1) or 1)
+    if depth > 0:
+        train_loader, val_loader, test_loader = (
+            PrefetchLoader(ld, depth=depth, device=device, workers=workers)
+            for ld in (train_loader, val_loader, test_loader))
+    pstate, summary = train_population(
+        config, train_loader, val_loader, test_loader, log_name, verbosity,
+        walltime_check=make_walltime_check(),
+        initial_state=None if resume is None else resume[0],
+        start_epoch=0 if resume is None else resume[1],
+        tracker_state=None if resume is None else resume[2], path=path, device=device,
+        seed=seed)
+    # epochs trained = the resume point + this run's epochs (the walltime
+    # guard may have stopped early: a later continue trains the rest)
+    epochs_done = int(summary.get("start_epoch", 0)) + len(summary.get("history", []))
+    meta = {"final": True, **population_meta(n, epochs_done),
+            "member_tracker": summary.get("member_tracker"),
+            "member_status": [m["status"] for m in summary["members"]]}
+    save_checkpoint(pstate, log_name, epoch=epochs_done, path=path, meta=meta)
+    return pstate, pstate.model, config
 
 
 def _group_loaders(route: dict, loaders) -> None:

@@ -45,8 +45,12 @@ epoch (``dispatch_block`` per block at K > 1), ``rollback``,
 ``torch.profiler`` trace of the first epoch at ``HYDRAGNN_TRACE_LEVEL`` >=
 1, and the one-shot ledger probe of an eager route. Nothing of it reads a
 tensor inside the dispatch loop: the records take the host's counts and
-the epoch's metrics after their one transfer. Populations and the compile
-cache are not in this slice.
+the epoch's metrics after their one transfer. The compile cache is not
+in this slice.
+
+A population (``train/population.py``) runs through :func:`train_epoch` and
+:func:`evaluate` with its own ``accumulate`` (the member axis kept) and
+resilience hooks (per-member skip tracking that never rolls back).
 """
 
 from __future__ import annotations
@@ -93,6 +97,9 @@ def accumulate(step_metrics: list[dict], extra_keys: tuple = ()):
     return loss, tasks, {k: host[k].sum(axis=0) for k in extra_keys}
 
 
+_accumulate = accumulate  # the default reduction, where a parameter shadows the name
+
+
 def _chunks(iterable, n: int):
     """Consecutive ``n``-tuples of ``iterable`` (the last one may be
     shorter)."""
@@ -121,7 +128,7 @@ def _step_of(superstep):
 
 
 def train_epoch(superstep, state: TrainState, loader, put=None, resilience=None,
-                per_step: int = 1, n_dev: int = 1):
+                per_step: int = 1, n_dev: int = 1, accumulate=None):
     """One epoch of train steps (the loader plans the blocks); returns
     (mean loss, per-task mean losses). ``superstep``: a ``Superstep`` (its
     ``k`` steps per dispatch) or a ``(state, batch) -> metrics`` step.
@@ -131,7 +138,10 @@ def train_epoch(superstep, state: TrainState, loader, put=None, resilience=None,
     faults at dispatch boundaries, tracks the guard's skips and records the
     progress (``interrupted``, ``epoch_raw_done``: ``n_dev`` raw batches per
     step); a guarded step's skips come back off ``state.step`` here, and an
-    epoch whose every step was skipped reports a NaN loss."""
+    epoch whose every step was skipped reports a NaN loss. ``accumulate``
+    replaces the epoch's reduction (a population's, whose metrics carry the
+    member axis) and then owns the skip reporting: the host step count and
+    the all-skipped NaN are the one state's."""
     device = next(state.model.parameters()).device
     step = _step_of(superstep)
     k = max(1, int(getattr(superstep, "k", 1)))
@@ -179,15 +189,17 @@ def train_epoch(superstep, state: TrainState, loader, put=None, resilience=None,
         has_skip = bool(metrics) and "skipped" in metrics[0]
         # the one transfer waits for the last step: inside the train span
         with wd("epoch-end metrics transfer"):
-            loss, tasks, extras = accumulate(metrics,
-                                             ("skipped", "num_graphs") if has_skip else ())
+            loss, tasks, extras = (accumulate or _accumulate)(
+                metrics, ("skipped", "num_graphs") if has_skip else ())
     finally:
         tr.stop("train")
     if has_skip:
         n_skipped = int(extras["skipped"].sum())
-        state.step -= n_skipped  # a skipped step reverts its count
         if res is not None:
             res.skipped_total += n_skipped
+        if accumulate is not None:
+            return loss, tasks
+        state.step -= n_skipped  # a skipped step reverts its count
         if n_skipped and float(extras["num_graphs"].sum()) == 0.0:
             # nothing trained: 0.0 is not a loss, and NaN never beats one
             loss, tasks = float("nan"), np.full_like(np.asarray(tasks, np.float64), np.nan)
@@ -195,14 +207,16 @@ def train_epoch(superstep, state: TrainState, loader, put=None, resilience=None,
 
 
 def evaluate(eval_step, state: TrainState, loader, put=None, per_step: int = 1,
-             span: str = "validate"):
+             span: str = "validate", accumulate=None):
     """A whole split through ``eval_step`` (``(state, batch) -> metrics``:
     on the card the eval ``Dispatch``), in a ``span`` host span; returns
-    (loss, per-task losses, per-head RMSE)."""
+    (loss, per-task losses, per-head RMSE). ``accumulate``: a population's
+    reduction, every return value then per member."""
     device = next(state.model.parameters()).device
     with tr.span(span):
         metrics = [eval_step(state, batch) for batch in _batches(loader, device, put, per_step)]
-        loss, tasks, extras = accumulate(metrics, extra_keys=("head_sse", "head_count"))
+        loss, tasks, extras = (accumulate or _accumulate)(
+            metrics, extra_keys=("head_sse", "head_count"))
     sse, count = extras["head_sse"], extras["head_count"]
     rmse = np.sqrt(sse / np.maximum(count, 1.0)) if sse is not None else np.zeros(0)
     return loss, tasks, rmse

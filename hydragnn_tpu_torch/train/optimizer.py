@@ -50,6 +50,17 @@ foreach route), so a captured run trains the model an eager run of
 ``torch.optim`` trains; ``torch.optim.AdamW(capturable=True)`` does not (it
 takes the bias corrections in float32 on the card, where the foreach route
 takes them in double precision on the host).
+
+A population (``train/population.py``) steps ``[N, ...]`` stacked
+parameters with the same classes, the JAX package's injected
+hyperparameters (``inject_hyperparams``) made per member: the learning
+rate and the weight decay are ``[N]`` float64 tensors, the step count of
+every parameter is ``[N]`` (a reverted member does not advance, so its bias
+correction stays its own), and each per-member scalar is computed as the
+single state computes its 0-d one and broadcast over its member's slice, so
+member ``i``'s update is, element for element, that of a single state with
+member ``i``'s hyperparameters. LAMB's trust ratio takes each member's
+norms over its own slice.
 """
 
 from __future__ import annotations
@@ -58,6 +69,24 @@ import torch
 
 # optax.adamw's signature default
 OPTAX_ADAMW_WEIGHT_DECAY = 1e-4
+# the decoupled-decay optimizers and their optax signature defaults (the
+# JAX package's ``_DECOUPLED_DECAY``)
+DECOUPLED_DECAY_DEFAULTS = {"adamw": OPTAX_ADAMW_WEIGHT_DECAY, "lamb": 0.0, "fusedlamb": 0.0}
+
+
+def _per_member(x, params):
+    """``x`` against each of ``params``: a per-member ``[N]`` tensor as one
+    ``[N, 1, ...]`` view per stacked parameter (a list, for the foreach
+    operations); a float or a 0-d tensor as it is."""
+    if torch.is_tensor(x) and x.dim() == 1:
+        return [x.view(-1, *([1] * (p.dim() - 1))) for p in params]
+    return x
+
+
+def _step_count(members: int | None, device) -> torch.Tensor:
+    """A parameter's float32 step count: 0-d, or ``[N]`` for a population."""
+    return torch.zeros(() if members is None else (int(members),), dtype=torch.float32,
+                       device=device)
 
 
 class CapturableAdam(torch.optim.Optimizer):
@@ -77,12 +106,28 @@ class CapturableAdam(torch.optim.Optimizer):
     gives each one a gradient), so its first step count serves them all."""
 
     def __init__(self, params, lr: torch.Tensor, betas=(0.9, 0.999), eps: float = 1e-8,
-                 weight_decay: float = 0.0, decoupled: bool = False):
+                 weight_decay: float | torch.Tensor = 0.0, decoupled: bool = False,
+                 members: int | None = None):
         # "capturable" tells torch's load_state_dict to keep the step count
-        # on the parameters' device as float32
+        # on the parameters' device as float32; ``members``: a population's
+        # N (``lr`` and a tensor ``weight_decay`` are then [N])
         super().__init__(params, {"lr": lr, "betas": betas, "eps": eps,
                                   "weight_decay": weight_decay, "decoupled": decoupled,
-                                  "capturable": True})
+                                  "capturable": True, "members": members})
+
+    def _init(self, group, p) -> None:
+        state = self.state[p]
+        if not state:
+            state["step"] = _step_count(group["members"], p.device)
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    def init_state(self) -> None:
+        """Make every parameter's state now (it is made at its first step
+        otherwise): a population's revert and a capture then find it."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._init(group, p)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -93,12 +138,7 @@ class CapturableAdam(torch.optim.Optimizer):
             if not params:
                 continue
             for p in params:
-                state = self.state[p]
-                if not state:
-                    state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
-                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    state["exp_avg_sq"] = torch.zeros_like(p,
-                                                           memory_format=torch.preserve_format)
+                self._init(group, p)
             grads = [p.grad for p in params]
             steps = [self.state[p]["step"] for p in params]
             exp_avgs = [self.state[p]["exp_avg"] for p in params]
@@ -106,9 +146,9 @@ class CapturableAdam(torch.optim.Optimizer):
             beta1, beta2 = group["betas"]
             lr, wd = group["lr"], group["weight_decay"]
             torch._foreach_add_(steps, 1)
-            if wd != 0:
+            if torch.is_tensor(wd) or wd != 0:
                 if group["decoupled"]:
-                    torch._foreach_mul_(params, (1 - lr * wd).float())
+                    torch._foreach_mul_(params, _per_member((1 - lr * wd).float(), params))
                 else:
                     grads = torch._foreach_add(grads, params, alpha=wd)
             torch._foreach_lerp_(exp_avgs, grads, 1 - beta1)
@@ -117,10 +157,12 @@ class CapturableAdam(torch.optim.Optimizer):
             t = steps[0].double()
             step_size = (-(lr / (1 - torch.pow(beta1, t)))).float()
             denom = torch._foreach_sqrt(exp_avg_sqs)
-            torch._foreach_div_(denom, torch.pow(1 - torch.pow(beta2, t), 0.5).float())
+            torch._foreach_div_(denom, _per_member(
+                torch.pow(1 - torch.pow(beta2, t), 0.5).float(), params))
             torch._foreach_add_(denom, group["eps"])
+            sizes = _per_member(step_size, params)
             torch._foreach_addcmul_(params, torch._foreach_div(exp_avgs, denom),
-                                    [step_size] * len(params))
+                                    sizes if isinstance(sizes, list) else [sizes] * len(params))
 
 
 class CapturableSGD(torch.optim.Optimizer):
@@ -129,8 +171,8 @@ class CapturableSGD(torch.optim.Optimizer):
     back on the host): ``torch.optim.SGD``'s foreach update (``p +
     (-lr) g``, one fused multiply-add) bit for bit."""
 
-    def __init__(self, params, lr: torch.Tensor):
-        super().__init__(params, {"lr": lr})
+    def __init__(self, params, lr: torch.Tensor, members: int | None = None):
+        super().__init__(params, {"lr": lr, "members": members})
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -139,8 +181,9 @@ class CapturableSGD(torch.optim.Optimizer):
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if params:
+                rate = _per_member((-group["lr"]).float(), params)
                 torch._foreach_addcmul_(params, [p.grad for p in params],
-                                        [(-group["lr"]).float()] * len(params))
+                                        rate if isinstance(rate, list) else [rate] * len(params))
 
 
 class _OptaxRule(torch.optim.Optimizer):
@@ -155,14 +198,14 @@ class _OptaxRule(torch.optim.Optimizer):
     MOMENTS: dict = {}
     COUNTED = False
 
-    def __init__(self, params, lr, **hyper):
+    def __init__(self, params, lr, members: int | None = None, **hyper):
         # "capturable" keeps a loaded step count on the parameters' device
-        super().__init__(params, {"lr": lr, **hyper, "capturable": True})
+        super().__init__(params, {"lr": lr, **hyper, "capturable": True, "members": members})
         for group in self.param_groups:
             for p in group["params"]:
                 state = self.state[p]
                 if self.COUNTED:
-                    state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    state["step"] = _step_count(members, p.device)
                 for name, init in self.MOMENTS.items():
                     state[name] = torch.full_like(p, init, memory_format=torch.preserve_format)
 
@@ -189,7 +232,7 @@ class _OptaxRule(torch.optim.Optimizer):
             if not torch.is_tensor(rate):
                 rate = torch.tensor(rate, dtype=torch.float64)
             neg = (-rate).to(device=params[0].device, dtype=torch.float32)
-            torch._foreach_mul_(updates, neg)
+            torch._foreach_mul_(updates, _per_member(neg, params))
             torch._foreach_add_(params, updates)
 
     def direction(self, group, params, grads, state) -> list:
@@ -210,8 +253,9 @@ class OptaxRMSProp(_OptaxRule):
 
     MOMENTS = {"nu": 0.0}
 
-    def __init__(self, params, lr, decay: float = 0.9, eps: float = 1e-8):
-        super().__init__(params, lr, decay=decay, eps=eps)
+    def __init__(self, params, lr, decay: float = 0.9, eps: float = 1e-8,
+                 members: int | None = None):
+        super().__init__(params, lr, members, decay=decay, eps=eps)
 
     def direction(self, group, params, grads, state):
         _moment(state["nu"], torch._foreach_mul(grads, grads), group["decay"])
@@ -227,8 +271,8 @@ class OptaxAdagrad(_OptaxRule):
 
     MOMENTS = {"sum_of_squares": 0.1}
 
-    def __init__(self, params, lr, eps: float = 1e-7):
-        super().__init__(params, lr, eps=eps)
+    def __init__(self, params, lr, eps: float = 1e-7, members: int | None = None):
+        super().__init__(params, lr, members, eps=eps)
 
     def direction(self, group, params, grads, state):
         acc = state["sum_of_squares"]
@@ -247,8 +291,9 @@ class OptaxAdadelta(_OptaxRule):
 
     MOMENTS = {"e_g": 0.0, "e_x": 0.0}
 
-    def __init__(self, params, lr, rho: float = 0.9, eps: float = 1e-6):
-        super().__init__(params, lr, rho=rho, eps=eps)
+    def __init__(self, params, lr, rho: float = 0.9, eps: float = 1e-6,
+                 members: int | None = None):
+        super().__init__(params, lr, members, rho=rho, eps=eps)
 
     def direction(self, group, params, grads, state):
         rho, eps = group["rho"], group["eps"]
@@ -270,8 +315,9 @@ class OptaxAdamax(_OptaxRule):
     MOMENTS = {"mu": 0.0, "nu": 0.0}
     COUNTED = True
 
-    def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-        super().__init__(params, lr, b1=b1, b2=b2, eps=eps)
+    def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 members: int | None = None):
+        super().__init__(params, lr, members, b1=b1, b2=b2, eps=eps)
 
     def direction(self, group, params, grads, state):
         b1, b2 = group["b1"], group["b2"]
@@ -280,7 +326,8 @@ class OptaxAdamax(_OptaxRule):
         torch._foreach_add_(inf, group["eps"])
         torch._foreach_mul_(state["nu"], b2)
         torch._foreach_maximum_(state["nu"], inf)
-        out = torch._foreach_div(state["mu"], self._bias_correction(b1, state["step"][0]))
+        out = torch._foreach_div(state["mu"], _per_member(
+            self._bias_correction(b1, state["step"][0]), params))
         torch._foreach_div_(out, state["nu"])
         return out
 
@@ -294,55 +341,111 @@ class OptaxLAMB(_OptaxRule):
     COUNTED = True
 
     def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-6,
-                 weight_decay: float = 0.0):
-        super().__init__(params, lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+                 weight_decay: float | torch.Tensor = 0.0, members: int | None = None):
+        super().__init__(params, lr, members, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
 
     def direction(self, group, params, grads, state):
         b1, b2 = group["b1"], group["b2"]
         _moment(state["mu"], grads, b1)
         _moment(state["nu"], torch._foreach_mul(grads, grads), b2)
         count = state["step"][0]
-        mu_hat = torch._foreach_div(state["mu"], self._bias_correction(b1, count))
-        nu_hat = torch._foreach_div(state["nu"], self._bias_correction(b2, count))
+        mu_hat = torch._foreach_div(state["mu"],
+                                    _per_member(self._bias_correction(b1, count), params))
+        nu_hat = torch._foreach_div(state["nu"],
+                                    _per_member(self._bias_correction(b2, count), params))
         torch._foreach_sqrt_(nu_hat)
         torch._foreach_add_(nu_hat, group["eps"])
         torch._foreach_div_(mu_hat, nu_hat)
-        torch._foreach_add_(mu_hat, torch._foreach_mul(params, group["weight_decay"]))
-        p_norm = torch.stack(torch._foreach_norm(params))
-        u_norm = torch.stack(torch._foreach_norm(mu_hat))
+        wd = group["weight_decay"]
+        if torch.is_tensor(wd):
+            wd = wd.to(device=params[0].device, dtype=torch.float32)
+        torch._foreach_add_(mu_hat, torch._foreach_mul(params, _per_member(wd, params)))
+        n = group["members"]
+        if n is None:
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(mu_hat))
+        else:
+            # each member's norms over its own slice, as its single state's
+            p_norm = torch.stack(torch._foreach_norm([p[i] for p in params for i in range(n)]))
+            u_norm = torch.stack(torch._foreach_norm([u[i] for u in mu_hat for i in range(n)]))
+            p_norm, u_norm = p_norm.view(len(params), n), u_norm.view(len(params), n)
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                             p_norm / u_norm)
-        torch._foreach_mul_(mu_hat, list(ratio.unbind()))
+        if n is None:
+            torch._foreach_mul_(mu_hat, list(ratio.unbind()))
+        else:
+            torch._foreach_mul_(mu_hat, [r.view(-1, *([1] * (u.dim() - 1)))
+                                         for r, u in zip(ratio.unbind(), mu_hat)])
         return mu_hat
 
 
-def select_optimizer(optimizer_config: dict, params) -> torch.optim.Optimizer:
+def ensure_injected_weight_decay(optimizer_config: dict) -> dict:
+    """Fill an explicit ``weight_decay`` (the optimizer's optax default) when
+    the config leaves it implicit: what per-member population decays need,
+    as in the JAX package. Raises for an optimizer without a decoupled-decay
+    term. Mutates and returns ``optimizer_config``."""
+    if optimizer_config.get("weight_decay") is None:
+        t = str(optimizer_config.get("type", "AdamW")).lower()
+        if t not in DECOUPLED_DECAY_DEFAULTS:
+            raise ValueError("per-member weight decays require a decoupled-decay optimizer "
+                             f"(one of {sorted(DECOUPLED_DECAY_DEFAULTS)}), got "
+                             f"{optimizer_config.get('type')!r}")
+        optimizer_config["weight_decay"] = DECOUPLED_DECAY_DEFAULTS[t]
+    return optimizer_config
+
+
+def select_optimizer(optimizer_config: dict, params, capturable: bool | None = None,
+                     learning_rates=None, weight_decays=None) -> torch.optim.Optimizer:
     """The ``Training.Optimizer`` section as a ``torch.optim`` optimizer
     over ``params``: capturable, with a device learning rate, when they lie
-    on the card."""
+    on the card (``capturable`` True: on the CPU too, the card's update
+    computed there).
+
+    ``learning_rates`` (and optionally ``weight_decays``): one value per
+    member of a population whose ``params`` are ``[N, ...]`` stacks; the
+    optimizer is then the capturable class on any device, with ``[N]``
+    float64 rates and decays on the parameters' device."""
     params = list(params)
     lr = float(optimizer_config["learning_rate"])
     opt_type = str(optimizer_config.get("type", "AdamW"))
     t = opt_type.lower()
-    card = bool(params) and params[0].is_cuda
-    rate = torch.full((), lr, dtype=torch.float64, device=params[0].device) if card else lr
+    device = params[0].device
+    members = None if learning_rates is None else len(learning_rates)
+    card = (bool(params) and params[0].is_cuda) if capturable is None else bool(capturable)
+    card = card or members is not None
+    if members is not None:
+        rate = torch.tensor([float(x) for x in learning_rates], dtype=torch.float64,
+                            device=device)
+    else:
+        rate = torch.full((), lr, dtype=torch.float64, device=device) if card else lr
+    wd = optimizer_config.get("weight_decay")
+    if weight_decays is not None:
+        if t not in DECOUPLED_DECAY_DEFAULTS:
+            raise ValueError(f"per-member weight decays need a decoupled-decay optimizer, not "
+                             f"{opt_type!r}")
+        if len(weight_decays) != members:
+            raise ValueError(f"got {len(weight_decays)} weight decays for {members} members")
+        wd = torch.tensor([float(x) for x in weight_decays], dtype=torch.float64, device=device)
     if t == "adamw":
-        wd = optimizer_config.get("weight_decay")
-        wd = OPTAX_ADAMW_WEIGHT_DECAY if wd is None else float(wd)
+        wd = OPTAX_ADAMW_WEIGHT_DECAY if wd is None else wd
+        wd = wd if torch.is_tensor(wd) else float(wd)
         if card:
-            return CapturableAdam(params, rate, weight_decay=wd, decoupled=True)
+            return CapturableAdam(params, rate, weight_decay=wd, decoupled=True,
+                                  members=members)
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
     if t == "adam":
         if card:
-            return CapturableAdam(params, rate)
+            return CapturableAdam(params, rate, members=members)
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
     if t == "sgd":
-        return CapturableSGD(params, lr=rate) if card else torch.optim.SGD(params, lr=lr)
+        return CapturableSGD(params, lr=rate, members=members) if card else \
+            torch.optim.SGD(params, lr=lr)
     if t in ("lamb", "fusedlamb"):
-        wd = optimizer_config.get("weight_decay")
-        return OptaxLAMB(params, rate, weight_decay=0.0 if wd is None else float(wd))
+        wd = 0.0 if wd is None else wd
+        return OptaxLAMB(params, rate, weight_decay=wd if torch.is_tensor(wd) else float(wd),
+                         members=members)
     if t in _OPTAX_RULES:
-        return _OPTAX_RULES[t](params, rate)
+        return _OPTAX_RULES[t](params, rate, members=members)
     raise NameError(f"The string used to identify the optimizer is NOT recognized: {opt_type}")
 
 
@@ -377,13 +480,17 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> 
     optimizer.load_state_dict(state_dict)
     with torch.no_grad():
         for group, own in zip(optimizer.param_groups, mine):
-            saved, rate = group["lr"], own["lr"]
+            saved = dict(group)
             group.clear()
             group.update(own)
-            if torch.is_tensor(rate):
-                rate.copy_(torch.as_tensor(saved, dtype=rate.dtype))
-            else:
-                group["lr"] = float(saved)
+            rate = own["lr"]
+            if not torch.is_tensor(rate):
+                group["lr"] = float(saved["lr"])
+            # device hyperparameters (the rate; a population's per-member
+            # rates and decays) take the saved values in place
+            for key, value in own.items():
+                if torch.is_tensor(value) and key in saved:
+                    value.copy_(torch.as_tensor(saved[key], dtype=value.dtype))
         for p, s in optimizer.state.items():
             old = held.get(id(p), {})
             for k, v in s.items():
@@ -444,6 +551,7 @@ class ReduceLROnPlateau:
 
 
 __all__ = [
+    "DECOUPLED_DECAY_DEFAULTS",
     "OPTAX_ADAMW_WEIGHT_DECAY",
     "CapturableAdam",
     "CapturableSGD",
@@ -453,6 +561,7 @@ __all__ = [
     "OptaxLAMB",
     "OptaxRMSProp",
     "ReduceLROnPlateau",
+    "ensure_injected_weight_decay",
     "get_learning_rate",
     "load_optimizer_state",
     "select_optimizer",

@@ -128,18 +128,18 @@ def freeze_conv_grads(model: torch.nn.Module) -> None:
 
 
 def cast_forward(model: torch.nn.Module, batch, compute_dtype: torch.dtype, train: bool,
-                 generator: torch.Generator | None = None, **hooks):
+                 generator: torch.Generator | None = None, tensors=None, **hooks):
     """The model's per-head outputs (with ``var_output``: ``(means,
     variances)``), as fp32, with its parameters and the batch's floating
     fields cast to ``compute_dtype`` and the running statistics left as
     they are; ``generator`` draws the dropout masks in train mode.
-    ``hooks`` go to the model's forward (the halo route's ``layer_hook``
-    and ``pool_reduce``)."""
-    params = {
-        n: (p.to(compute_dtype) if p.is_floating_point() else p)
-        for n, p in model.named_parameters()
-    }
-    buffers = dict(model.named_buffers())
+    ``tensors``: ``(parameters, buffers)`` by name in place of the model's
+    own (a population member's, ``train/population.py``). ``hooks`` go to
+    the model's forward (the halo route's ``layer_hook`` and
+    ``pool_reduce``)."""
+    own, buffers = (dict(model.named_parameters()), dict(model.named_buffers())) \
+        if tensors is None else tensors
+    params = {n: (p.to(compute_dtype) if p.is_floating_point() else p) for n, p in own.items()}
     c_batch = batch.map_floats(lambda t: t.to(compute_dtype))
     outputs = torch.func.functional_call(model, {**params, **buffers}, (c_batch,),
                                          {"train": train, "generator": generator, **hooks})
@@ -166,6 +166,36 @@ def make_train_step(compute_dtype: torch.dtype = torch.float32, loss_scale: floa
     def train_step(state: TrainState, batch) -> dict:
         tot, tasks = loss(state, batch)
         return optimizer_step(state, batch, tot, tasks, loss_scale)
+
+    return train_step
+
+
+def weighted_total(tasks, task_weights) -> torch.Tensor:
+    """The total loss of per-task losses under ``task_weights`` (a tensor,
+    or a sequence of floats), summed in head order as ``model.loss`` sums
+    them with the spec's weights."""
+    tot = 0.0
+    for ihead, task_loss in enumerate(tasks):
+        tot = tot + task_loss * task_weights[ihead]
+    return tot
+
+
+def make_weighted_train_step(compute_dtype: torch.dtype = torch.float32,
+                             loss_scale: float | None = None):
+    """Like :func:`make_train_step` with the task weights an argument:
+    ``(state, batch, task_weights) -> metrics``, ``task_weights`` a float32
+    ``[n_tasks]`` tensor on the model's device. A tensor, not constants of
+    the step: a captured step reads it at every replay, and a population
+    steps each member with its own row of an ``[N, n_tasks]`` stack. Weights
+    normalized as ``ModelSpec`` normalizes ``task_weights`` (``w /
+    sum|w|``) give the statically weighted step's bits."""
+    loss_scale = None if not loss_scale or float(loss_scale) == 1.0 else float(loss_scale)
+    loss = make_train_loss(compute_dtype)
+
+    def train_step(state: TrainState, batch, task_weights: torch.Tensor) -> dict:
+        _, tasks = loss(state, batch)
+        return optimizer_step(state, batch, weighted_total(tasks, task_weights), tasks,
+                              loss_scale)
 
     return train_step
 
@@ -254,7 +284,9 @@ __all__ = [
     "make_predict_step",
     "make_train_loss",
     "make_train_step",
+    "make_weighted_train_step",
     "optimizer_step",
     "resolve_loss_scale",
     "resolve_precision",
+    "weighted_total",
 ]

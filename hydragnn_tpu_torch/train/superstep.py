@@ -32,8 +32,15 @@ Contracts (``tests/test_torch_superstep.py`` on the CPU,
   batches, and the state after it is the state after training on them
   only, by construction.
 
-The JAX package's ``HYDRAGNN_SUPERSTEP`` override is not ported: K is
-``Training.steps_per_dispatch`` alone.
+``HYDRAGNN_SUPERSTEP`` overrides ``Training.steps_per_dispatch``, as in
+the JAX package.
+
+A population (``train/population.py``) composes with K > 1 unchanged: its
+step is one captured graph per bucket that advances all N members, and a
+block replays it once per batch, so one block advances N members x K
+steps. The JAX package selects the old state back after each fill step of
+a block with an ``[N]`` keep; the port's blocks have no fill steps, and the
+population step reverts a diverged member itself.
 
 Telemetry (``train/loop.py``): each block's host staging (its K batches
 from the prefetcher) is a ``stage_block`` span, each batch's wait a
@@ -48,9 +55,12 @@ from ..capture import Dispatch
 
 
 def resolve_steps_per_dispatch(training_cfg: dict) -> int:
-    """K: ``Training.steps_per_dispatch`` (unset, 0 or 1: one step per
-    dispatch)."""
-    return max(1, int(training_cfg.get("steps_per_dispatch", 1) or 1))
+    """K: ``HYDRAGNN_SUPERSTEP``, else ``Training.steps_per_dispatch``
+    (unset, 0 or 1: one step per dispatch)."""
+    from ..utils import flags
+
+    k = flags.get(flags.SUPERSTEP, default=int(training_cfg.get("steps_per_dispatch", 1) or 1))
+    return max(1, int(k or 1))
 
 
 class Superstep:

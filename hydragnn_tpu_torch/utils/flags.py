@@ -10,9 +10,11 @@ layouts (``HYDRAGNN_AUTO_PARALLEL``, ``HYDRAGNN_USE_FSDP``,
 ``HYDRAGNN_ELASTIC``, ``HYDRAGNN_WATCHDOG_DISPATCH_S``) and of the
 telemetry plane (``HYDRAGNN_TELEMETRY``, ``HYDRAGNN_TRACE_EVENTS``,
 ``HYDRAGNN_TRACE_PROPAGATE``, ``HYDRAGNN_LEDGER``, ``HYDRAGNN_TRACE_LEVEL``,
-``HYDRAGNN_COMPILE_SENTINEL``, with the JAX package's defaults). The JAX
-package's other overrides (prefetch, workers, supersteps, serving, the
-store) are not read by the port yet.
+``HYDRAGNN_COMPILE_SENTINEL``, with the JAX package's defaults), of
+population training (``HYDRAGNN_POPULATION``, ``HYDRAGNN_SUPERSTEP``) and
+of bulk screening (``HYDRAGNN_SCREEN_PREFETCH``, ``HYDRAGNN_SCREEN_TOPK``).
+The JAX package's other overrides (prefetch, workers, serving, the store)
+are not read by the port yet.
 """
 
 from __future__ import annotations
@@ -62,6 +64,24 @@ MASTER_PORT = _register(Flag(
     "HYDRAGNN_MASTER_PORT", "int", None,
     "Rendezvous port; default derived from the job id (reference :171-219)."))
 
+SUPERSTEP = _register(Flag(
+    "HYDRAGNN_SUPERSTEP", "int", None,
+    "Train steps per dispatch block (overrides Training.steps_per_dispatch; "
+    "unset/1 disables): the loader plans the epoch bucket-major in blocks "
+    "of K, and each batch of a block replays its bucket's captured step "
+    "(train/superstep.py). Per-batch placements and microbatched routes pin "
+    "K=1."))
+POPULATION = _register(Flag(
+    "HYDRAGNN_POPULATION", "int", None,
+    "Train N population members (HPO trials / deep-ensemble replicas) as "
+    "ONE step by vmapping the train step over a leading member axis "
+    "(train/population.py; overrides Training.population.size, unset/0/1 "
+    "disables). Composes with HYDRAGNN_SUPERSTEP: one block advances N "
+    "members x K steps. Members share the batch stream and differ in init "
+    "seed, lr, weight decay and loss weights (runtime tensors, not "
+    "constants of the captured step); a NaN/Inf member is reverted in the "
+    "step and reported 'diverged' without stalling the rest. Single process, "
+    "one device: no data-parallel group, edge sharding or pipeline."))
 NONFINITE_GUARD = _register(Flag(
     "HYDRAGNN_NONFINITE_GUARD", "bool", None,
     "Force the non-finite step guard on/off (overrides "
@@ -136,6 +156,19 @@ COMPILE_SENTINEL = _register(Flag(
     "after the warm-up epoch, 'strict' raises RecompileError; unset/0 "
     "disables."))
 
+# -- bulk screening (screen/) -------------------------------------------------
+SCREEN_PREFETCH = _register(Flag(
+    "HYDRAGNN_SCREEN_PREFETCH", "int", None,
+    "Blocks the bulk-screening executor stages ahead of the device "
+    "(overrides Screening.prefetch, default 2): a background thread "
+    "fetches and collates the next block(s) while the current one computes. "
+    "=0 runs fully synchronous; scores are identical either way."))
+SCREEN_TOPK = _register(Flag(
+    "HYDRAGNN_SCREEN_TOPK", "int", None,
+    "Ranked candidates a bulk screen keeps (overrides Screening.topk, "
+    "default 16). Ordering is (score desc, index asc): deterministic, so "
+    "an interrupted-and-resumed screen reports the bit-identical list."))
+
 FSDP_STRATEGIES = frozenset({"FULL_SHARD", "SHARD_GRAD_OP", "HYBRID_SHARD", "NO_SHARD"})
 
 
@@ -181,5 +214,6 @@ def describe() -> str:
 
 __all__ = ["AUTO_PARALLEL", "COMPILE_SENTINEL", "ELASTIC", "FAULT_PLAN", "FSDP_STRATEGIES",
            "FSDP_STRATEGY", "Flag", "HALO", "LEDGER", "MASTER_ADDR", "MASTER_PORT",
-           "NONFINITE_GUARD", "TELEMETRY", "TRACE_EVENTS", "TRACE_LEVEL", "TRACE_PROPAGATE",
-           "USE_FSDP", "WATCHDOG_DISPATCH_S", "describe", "fsdp_mode", "get"]
+           "NONFINITE_GUARD", "POPULATION", "SCREEN_PREFETCH", "SCREEN_TOPK", "SUPERSTEP",
+           "TELEMETRY", "TRACE_EVENTS", "TRACE_LEVEL", "TRACE_PROPAGATE", "USE_FSDP",
+           "WATCHDOG_DISPATCH_S", "describe", "fsdp_mode", "get"]
