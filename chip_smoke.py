@@ -533,7 +533,7 @@ VARIANT_VOI = {"node_branches": {"input_node_features": [0], "output_index": [0]
 # the stacks that gather node rows onto the edges (gather_rows, backward
 # B2) and sum the messages with B2: their segment sums per layer (the
 # others' neighbour sum is the gather-scatter kernel B1, GAT's aside)
-EDGE_SUM_STACKS = {"pna": 3, "pnaplus": 3, "cgcnn": 1}
+EDGE_SUM_STACKS = {"pna": 3, "pnaplus": 3, "cgcnn": 1, "egnn": 1}
 GAT_HEADS = 6  # the reference GAT stack's fixed head count
 # the CSR views a predict step of each model reads (GAT: its extended
 # receivers, self loops included), and the ones its backward adds (PAINN
@@ -560,7 +560,8 @@ QUANT_DENSE_CALLS = {"gin": 13, "gat": 13, "gps": 40, "sage": 13, "mfc": 5, "sch
                      "gat_edge": 17, "gps_pna_edge": 56, "gps_performer": 40,
                      "gin_nll": 13, "gat_ckpt": 13, "gfm_branches": 14, "mptrj_film": 25}
 KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum", "segment_softmax",
-           "masked_softmax", "cell_list", "quant_dense", "fp8_dense")
+           "segment_softmax_stats", "segment_softmax_normalise", "masked_softmax", "cell_list",
+           "quant_dense", "fp8_dense")
 # bench.py's oc20 row (bench_oc20: MLIP_CONFIG with radius 5.0 and
 # max_neighbours 40; fp32, since bf16 under a gradient of a gradient loses
 # force accuracy), the north-star workload of BASELINE.json
@@ -2242,6 +2243,74 @@ def geometric_kernel_phase(torch, seed: int, entries: list, failures: list,
     return times
 
 
+def split_softmax_kernel_phase(torch, batch, entries: list, failures: list,
+                               timing: bool = True) -> None:
+    """B3's split form (``segment_softmax_stats``, ``segment_softmax_normalise``:
+    the edge-sharded route's GAT softmax) at the qm9 top bucket's GAT layout,
+    fp32 and bf16: at one rank (the statistics combined as one rank combines
+    them) bit-equal to the fused B3, each entry within ``TOL`` of its plain
+    version (the maxima exactly); then each timed in fp32 beside its plain
+    version and its bound from ``cost(...)``, appended to ``entries`` (no
+    one-call PyTorch function computes either). Its shards of four are
+    held in :func:`parallel_kernel_checks`."""
+    from hydragnn_tpu_torch.ops import fused_softmax as fsm
+
+    dev = torch.device("cuda") if timing else torch.device("cpu")
+    gen = torch.Generator(device="cpu").manual_seed(2468)
+    b = batch.to(dev)
+    n, e = b.num_nodes, b.num_edges
+    _, loop_recv = b.self_loop_edges()
+    loop_idx = b.csr("loop_receivers") if timing else None
+    e_ext = loop_recv.shape[0]
+    e_mask = torch.cat([b.edge_mask, b.edge_mask.new_zeros(e_ext - e - n),
+                        b.edge_mask.new_ones(n)])
+    real = loop_recv != n - 1
+    log(f"segment_softmax split form (B3's stats and normalise entries) at the GAT layout "
+        f"[{e_ext},{GAT_HEADS}], N={n}")
+    errs = {"segment_softmax_stats": 0.0, "segment_softmax_normalise": 0.0}
+    x32 = torch.where(e_mask[:, None] > 0,
+                      torch.randn(e_ext, GAT_HEADS, generator=gen).to(dev) * 3.0, -1e9)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        x = x32.to(dtype)
+        m, sm = fsm.segment_softmax_stats(x, loop_recv, n, index=loop_idx)
+        shift, denom = fsm.combine_softmax_stats(m, sm)
+        got = fsm.segment_softmax_normalise(x, loop_recv, n, shift, denom, index=loop_idx)
+        fused = fsm.segment_softmax(x, loop_recv, n, index=loop_idx)
+        if timing and not torch.equal(_bits(torch, got), _bits(torch, fused)):
+            failures.append(f"segment_softmax split form {dname}: not the fused B3's bits")
+        pm, ps = fsm.plain_segment_softmax_stats(x, loop_recv, n)
+        if not torch.equal(m, pm):
+            failures.append(f"segment_softmax_stats {dname}: maxima differ from the plain "
+                            "version's")
+        errs["segment_softmax_stats"] = max(errs["segment_softmax_stats"], _compare(
+            torch, f"segment_softmax_stats {dname} sums", sm, ps, n - 1, "float32"))
+        errs["segment_softmax_normalise"] = max(errs["segment_softmax_normalise"], _compare(
+            torch, f"segment_softmax_normalise {dname}", got,
+            fsm.plain_segment_softmax_normalise(x, loop_recv, shift, denom), real, dname))
+    log("  at one rank the split form is the fused B3 bit for bit (fp32 and bf16)")
+    if not timing:
+        return
+    m, sm = fsm.segment_softmax_stats(x32, loop_recv, n, index=loop_idx)
+    shift, denom = fsm.combine_softmax_stats(m, sm)
+    for name, call, plain in (
+            ("segment_softmax_stats",
+             lambda: fsm.segment_softmax_stats(x32, loop_recv, n, index=loop_idx),
+             lambda: fsm.plain_segment_softmax_stats(x32, loop_recv, n)),
+            ("segment_softmax_normalise",
+             lambda: fsm.segment_softmax_normalise(x32, loop_recv, n, shift, denom,
+                                                   index=loop_idx),
+             lambda: fsm.plain_segment_softmax_normalise(x32, loop_recv, shift, denom))):
+        ops, nbytes = fsm.cost(name, rows=e_ext, cols=GAT_HEADS, segments=n)
+        k = dict(ms=graph_time_ms(torch, call), plain_ms=graph_time_ms(torch, plain),
+                 library_ms=None, ops=ops, bytes=nbytes,
+                 shape=f"logits[{e_ext},{GAT_HEADS}] f32, N={n} segments (GAT self-loop "
+                       f"layout), statistics [{n},{GAT_HEADS}] f32")
+        entries.append(_kernel_entry(name, "segment_softmax.cu",
+                                     "hydragnn_tpu/ops/fused_softmax.py:116", k, errs[name],
+                                     FP32_FLOPS))
+
+
 def edge_kernel_phase(torch, seed: int, entries: list, failures: list,
                       timing: bool = True) -> None:
     """B2 at the shapes edge features and the performer give it (the qm9
@@ -3692,6 +3761,8 @@ def cpu_route_calls():
     counts = dict.fromkeys(KERNELS, 0)
     saved = {(fs, "_segment_sum"): fs._segment_sum, (fs, "_gather_scatter"): fs._gather_scatter,
              (fsm, "_segment_softmax"): fsm._segment_softmax,
+             (fsm, "_segment_softmax_stats"): fsm._segment_softmax_stats,
+             (fsm, "_segment_softmax_normalise"): fsm._segment_softmax_normalise,
              (fsm, "_masked_softmax"): fsm._masked_softmax}
 
     def counted(attr, fn):
@@ -6435,8 +6506,9 @@ UPDATE_NOISE_GRAD = 1e-5
 UPDATE_DRAWS = 3
 # seconds the ranks of --parallel may take together before they are killed
 # (the data-parallel and large-graph routes take ~100 s; the tensor,
-# pipeline, superstep and elastic runs about as much again)
-PARALLEL_RANK_S = 480
+# pipeline, superstep and elastic runs about as much again; EDGE_ROUTES'
+# thirteen edge-sharded runs more)
+PARALLEL_RANK_S = 1200
 # FSDP's width: qm9.json's GIN at hidden 128, the narrowest width whose
 # conv weights (128 x 128) reach the FSDP rule's 2**14 entries and shard
 # (at qm9.json's 64 nothing does, and FSDP would be the replicated step)
@@ -6449,7 +6521,22 @@ LARGE_KINDS = {
     "gat": {"mpnn_type": "GAT", "dropout": 0.0},
     "gps_ring": {"global_attn_engine": "GPS", "global_attn_type": "ring",
                  "global_attn_heads": 4, "pe_dim": 4},
+    # the edge-sharded route's other stacks at qm9.json's widths
+    # with the stacks' knobs above (PAINN, PNAEq, MACE at hidden 32, as
+    # published); EGNN as qm9.json gives it (no coordinate updates)
+    **{k: STACKS[k] for k in ("sage", "mfc", "schnet", "pna", "pnaplus", "cgcnn")},
+    "egnn": {"mpnn_type": "EGNN"},
+    **GEOMETRIC,
+    # GAT with conv_checkpointing (LARGE_TRAINING) and qm9.json's attention
+    # dropout: the edge route draws each mask over the whole layout, so
+    # the ranks' masks are the one-device step's (E is a multiple of 4)
+    "gat_ckpt": {"mpnn_type": "GAT"},
 }
+# the Training keys of a large kind
+LARGE_TRAINING = {"gat_ckpt": {"conv_checkpointing": True}}
+
+
+_SUPERCELL_GRAPHS: dict = {}  # cells per axis -> (senders, receivers, edge_shifts)
 
 
 def supercell_samples(n: int, seed: int, cells: int | None = None, pe_dim: int = 0):
@@ -6473,7 +6560,15 @@ def supercell_samples(n: int, seed: int, cells: int | None = None, pe_dim: int =
         s = GraphSample(x=z, pos=pos.copy(), cell=cell, pbc=np.ones(3, bool),
                         graph_y=rng.normal(size=(1,)),
                         extras={"atomic_numbers": z[:, 0].copy()})
-        build_radius_graph(s, 3.0, max_neighbours=20)
+        # every supercell of a size has the same positions, so the same
+        # radius graph: built once per process (3.3 s on the host)
+        graph = _SUPERCELL_GRAPHS.get(cells)
+        if graph is None:
+            build_radius_graph(s, 3.0, max_neighbours=20)
+            _SUPERCELL_GRAPHS[cells] = (s.senders, s.receivers, s.edge_shifts)
+        else:
+            s.senders, s.receivers, s.edge_shifts = (g.copy() for g in graph)
+            s.edge_attr = np.zeros((s.senders.shape[0], 0), np.float32)
         if pe_dim:
             frac = 2 * np.pi * pos / (a * cells)
             feats = np.concatenate([np.cos(frac), np.sin(frac)], axis=1)[:, :pe_dim]
@@ -6481,6 +6576,19 @@ def supercell_samples(n: int, seed: int, cells: int | None = None, pe_dim: int =
             s.extras["rel_pe"] = np.abs(feats[s.senders] - feats[s.receivers]).astype(np.float32)
         out.append(s)
     return out
+
+
+def large_sample(cfg: dict, seed: int, pe_dim: int = 0) -> list:
+    """One supercell (``supercell_samples``) for an explicit step of a large
+    route's ``cfg``, with DimeNet's triplets attached as preprocessing
+    attaches them in ``run_training``."""
+    from hydragnn_tpu_torch.graphs.triplets import attach_triplets
+
+    sample = supercell_samples(1, seed, pe_dim=pe_dim)
+    if cfg["NeuralNetwork"]["Architecture"].get("mpnn_type") == "DimeNet":
+        for s in sample:
+            attach_triplets(s)
+    return sample
 
 
 def large_graph_config(route: str, kind: str = "gin", epochs: int = 1) -> dict:
@@ -6497,7 +6605,7 @@ def large_graph_config(route: str, kind: str = "gin", epochs: int = 1) -> dict:
         arch["edge_sharding"] = True
     training = cfg["NeuralNetwork"]["Training"]
     training.update(num_epoch=epochs, batch_size=1, precision="fp32", Checkpoint=False,
-                    EarlyStopping=False)
+                    EarlyStopping=False, **LARGE_TRAINING.get(kind, {}))
     return cfg
 
 
@@ -6660,7 +6768,7 @@ def large_route_run(torch, route: str, kind: str, seed: int, card: str,
         # validation or the test split empty, and the loop then skips both
         raise AssertionError(f"{tag}: validation and test ran; the launch gate counts none")
     _digests_agree(_param_digest(model))
-    sample = supercell_samples(1, seed + 1, pe_dim=pe_dim)
+    sample = large_sample(cfg, seed + 1, pe_dim)
     aug = update_config(copy.deepcopy(cfg), sample)
     host = collate(sample, compute_pad_spec(sample, 1))
     m = create_model_config(aug, device=device, seed=seed)
@@ -6676,6 +6784,11 @@ def large_route_run(torch, route: str, kind: str, seed: int, card: str,
         share = lg.put_large_batch(host, device=device)
         step = lg.make_edge_sharded_train_step(m)
         extra = {"local_edges": share.num_edges}
+        if host.idx_kj.shape[0]:
+            extra.update(triplets=int(host.idx_kj.shape[0]), local_triplets=share.idx_kj.shape[0])
+    if aug["NeuralNetwork"]["Training"].get("conv_checkpointing"):
+        extra["checkpointing"] = _checkpointed_grads_equal(torch, aug, m, st, share, seed, tag,
+                                                           device)
     losses = []
     for _ in range(PARALLEL_STEPS):
         losses.append(float(step(st, share)["loss"]))
@@ -6685,17 +6798,59 @@ def large_route_run(torch, route: str, kind: str, seed: int, card: str,
         f"{host.num_edges} edge slots): losses {losses}, parameters equal on every rank after "
         f"each; step {step_ms:.3f} ms; {extra}")
     return {"launches": launches, "losses": losses, "step_ms": step_ms, "history": history,
-            "steps": state.step, "evals": 0, "kind": kind,
+            "steps": state.step, "evals": 0, "kind": kind, "route": route,
             "layers": int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"]), **extra}
 
 
+def _checkpointed_grads_equal(torch, aug: dict, m, st, share, seed: int, tag: str,
+                              device: str = "cuda") -> str:
+    """One edge-sharded step of the checkpointed model ``m`` from a copy of
+    its state beside the same step of a twin without ``conv_checkpointing``
+    (its own copy of the state, the same generator state): every gradient,
+    parameter and running statistic bit-equal, the recompute having run in
+    the backward on autograd's device thread in the edge group. ``st`` is
+    left as it was."""
+    from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.parallel import large_graph as lg
+    from hydragnn_tpu_torch.train.step import create_train_state
+
+    plain_aug = copy.deepcopy(aug)
+    plain_aug["NeuralNetwork"]["Training"]["conv_checkpointing"] = False
+    runs = []
+    for cfg in (aug, plain_aug):
+        mm = create_model_config(cfg, device=device, seed=seed)
+        mm.load_state_dict(m.state_dict())
+        s2 = create_train_state(mm, cfg["NeuralNetwork"]["Training"]["Optimizer"], seed=seed)
+        s2.generator.set_state(st.generator.get_state())
+        lg.make_edge_sharded_train_step(mm)(s2, share)
+        runs.append((mm, {n: p.grad.clone() for n, p in mm.named_parameters()}))
+    (a, ga), (b, gb) = runs
+    diffs = [n for n in ga if not torch.equal(_bits(torch, ga[n]), _bits(torch, gb[n]))]
+    diffs += [n for n, t in a.state_dict().items()
+              if not torch.equal(_bits(torch, t), _bits(torch, b.state_dict()[n]))]
+    if diffs:
+        raise AssertionError(f"{tag}: the checkpointed step's gradients or state differ from "
+                             f"the step without checkpointing: {diffs[:8]}")
+    log(f"{tag} one checkpointed step bit-equal to the step without checkpointing "
+        f"(every gradient, parameter and running statistic)")
+    return "bit-equal"
+
+
 # the kernels the parallel routes run: B1 and its backward, B2 (GIN),
-# B3 (GAT under halo), B4 (GPS-GIN, data-parallel)
+# B3 (GAT under halo; its split form, GAT edge-sharded), B4 (GPS-GIN,
+# data-parallel)
 PARALLEL_KERNELS = ("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum",
-                    "segment_softmax", "masked_softmax")
+                    "segment_softmax", "segment_softmax_stats", "segment_softmax_normalise",
+                    "masked_softmax")
 
 PARALLEL_ROUTES = (("data", "gin"), ("data", "gps"), ("halo", "gin"), ("halo", "gat"),
                    ("edge", "gin"), ("edge", "gps_ring"))
+# the edge-sharded route of every other stack, and GAT with
+# conv_checkpointing: --parallel runs them after PARALLEL_ROUTES; the
+# default run holds GAT's at world 1 against the one-device step
+EDGE_ROUTES = tuple(("edge", k) for k in ("gat", "sage", "mfc", "schnet", "pna", "pnaplus",
+                                          "cgcnn", "egnn", "painn", "pnaeq", "mace", "dimenet",
+                                          "gat_ckpt"))
 
 
 def parallel_launches(run: dict) -> dict:
@@ -6703,7 +6858,9 @@ def parallel_launches(run: dict) -> dict:
     train steps times a train step's and its eval steps times a forward's
     (``launches_per_train_step``/``launches_per_forward``: the routes run
     the one-device layers on each rank's piece). GPS ``ring`` attention
-    replaces GPS's dense blocks, so it launches no masked softmax."""
+    replaces GPS's dense blocks, so it launches no masked softmax; GAT on
+    the edge-sharded route runs B3's split form, one stats and one
+    normalise launch where one device launches the fused B3 once."""
     kind = run["kind"]
     base = "gps" if kind == "gps_ring" else kind
     step = launches_per_train_step(base, run["layers"])
@@ -6711,6 +6868,10 @@ def parallel_launches(run: dict) -> dict:
     want = {k: run["steps"] * step[k] + run["evals"] * fwd[k] for k in step}
     if kind == "gps_ring":
         want["masked_softmax"] = 0
+    if run.get("route") == "edge":
+        for split in ("segment_softmax_stats", "segment_softmax_normalise"):
+            want[split] = want["segment_softmax"]
+        want["segment_softmax"] = 0
     return want
 
 
@@ -6728,12 +6889,14 @@ def check_parallel_launches(runs: dict) -> None:
 def parallel_kernel_checks(torch, seed: int, world: int = 4, device: str = "cuda") -> dict:
     """B1, its backward, B2 and B3 against their plain versions (``TOL``, as
     in phase 3; the pooling's one long segment against fp64, as phase 3's
-    long rows) at the large routes' shapes, at qm9.json's width 64 in
+    long rows; B3's split form on rank 0's edge shard) at the large routes'
+    shapes, at qm9.json's width 64 in
     fp32: the whole supercell (N = 16,008, E = 224,128: one card's piece),
     rank 0's edge shard of ``world`` (every node, E / world edges) and rank
     0's halo local view of ``world`` partitions (its own N_loc and E_loc).
     Returns each kernel's largest error."""
     from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
+    from hydragnn_tpu_torch.graphs.graph import loop_tail_mask
     from hydragnn_tpu_torch.ops import fused_scatter as fs
     from hydragnn_tpu_torch.ops import fused_softmax as fsm
     from hydragnn_tpu_torch.parallel import halo
@@ -6747,7 +6910,8 @@ def parallel_kernel_checks(torch, seed: int, world: int = 4, device: str = "cuda
              f"halo view 0 of {world}": halo.local_view(frame, 0, device).batch}
     gen = torch.Generator(device="cpu").manual_seed(4321)
     errs = dict.fromkeys(("gather_scatter_sum", "gather_scatter_sum_bwd", "segment_sum",
-                          "segment_softmax"), 0.0)
+                          "segment_softmax", "segment_softmax_stats",
+                          "segment_softmax_normalise"), 0.0)
 
     def check(name, label, got, want, rows):
         errs[name] = max(errs[name], _compare(torch, f"{name} {label}", got, want, rows,
@@ -6794,16 +6958,68 @@ def parallel_kernel_checks(torch, seed: int, world: int = 4, device: str = "cuda
         check("segment_softmax", f"{label} fp32 GAT layout ({e_ext} x {GAT_HEADS})",
               fsm.segment_softmax(logits, loop_recv, n, index=b.csr("loop_receivers")),
               fsm.plain_segment_softmax(logits, loop_recv, n), loop_recv != n - 1)
+        if label.startswith("edge shard"):
+            # B3's split form on rank 0's share of the whole layout (its
+            # edges and its block of the self loops), as the edge route runs
+            # it; the statistics' maxima exactly
+            shard = (world, 0)
+            _, s_recv = b.self_loop_edges(shard)
+            s_valid = torch.cat([mask, loop_tail_mask(e, n, *shard, device=mask.device)])
+            s_x = torch.where(s_valid[:, None] > 0,
+                              torch.randn(s_recv.shape[0], GAT_HEADS, generator=gen).to(device)
+                              * 3.0, -1e9)
+            s_idx = b.csr("loop_receivers", shard)
+            m, sm = fsm.segment_softmax_stats(s_x, s_recv, n, index=s_idx)
+            pm, ps = fsm.plain_segment_softmax_stats(s_x, s_recv, n)
+            if not torch.equal(m, pm):
+                raise AssertionError(f"segment_softmax_stats {label}: maxima differ from the "
+                                     "plain version's")
+            check("segment_softmax_stats", f"{label} fp32 sums of rank 0's share "
+                  f"({s_recv.shape[0]} x {GAT_HEADS})", sm, ps, n - 1)
+            shift, denom = fsm.combine_softmax_stats(m, sm)
+            check("segment_softmax_normalise", f"{label} fp32 rank 0's share",
+                  fsm.segment_softmax_normalise(s_x, s_recv, n, shift, denom, index=s_idx),
+                  fsm.plain_segment_softmax_normalise(s_x, s_recv, shift, denom),
+                  s_recv != n - 1)
+    # DimeNet's triplet mixing on rank 0's share: B1 reads the messages of
+    # every rank's edges (h [world E_l, C]) and writes this rank's E_l rows;
+    # its transposed launch writes all world E_l rows
+    from hydragnn_tpu_torch.graphs.triplets import attach_triplets
+
+    tri = [attach_triplets(copy.deepcopy(x)) for x in sample]
+    t_host = collate(tri, compute_pad_spec(tri, 1))
+    b = lg.edge_share(t_host, world, 0, device)
+    e_l = b.num_edges
+    e_g, t_l = e_l * world, b.idx_kj.shape[0]
+    log(f"kernels at DimeNet's triplet share 0 of {world}: {t_l} triplet slots of "
+        f"{t_host.idx_kj.shape[0]}, ji rows {e_l}, kj rows {e_g}")
+    h = torch.randn(e_g, 64, generator=gen).to(device)
+    w = (torch.randn(t_l, 64, generator=gen).to(device) * b.triplet_mask[:, None])
+    kj_idx = b.csr("idx_kj", (world, 0))
+    check("gather_scatter_sum", f"triplet share 0 of {world} fp32 C=64 weight per channel",
+          fs.gather_scatter_sum(h, b.idx_kj, b.idx_ji, e_l, weight=w, index=b.csr("idx_ji"),
+                                send_index=kj_idx),
+          fs.plain_gather_scatter_sum(h, b.idx_kj, b.idx_ji, e_l, w), e_l)
+    d = torch.randn(e_l, 64, generator=gen).to(device)
+    check("gather_scatter_sum_bwd", f"triplet share 0 of {world} fp32 C=64, kj rows {e_g}",
+          fs.gather_scatter_sum_bwd(d, b.idx_kj, b.idx_ji, e_g, w, send_index=kj_idx,
+                                    index=b.csr("idx_ji")),
+          fs.plain_gather_scatter_sum(d, b.idx_ji, b.idx_kj, e_g, w), e_g)
     return errs
 
 
 def parallel_paths(torch, seed: int, card: str, device: str = "cuda") -> dict:
     """Every route of ``PARALLEL_ROUTES`` through the live group, on this
-    rank; FSDP (HYDRAGNN_USE_FSDP) for the data route's GIN."""
+    rank, and at world > 1 ``EDGE_ROUTES`` and the tensor, pipeline and
+    superstep routes after them; FSDP (HYDRAGNN_USE_FSDP) for the data
+    route's GIN."""
     import os
 
+    from hydragnn_tpu_torch.parallel import comm
+
     out = {}
-    for route, kind in PARALLEL_ROUTES:
+    routes = PARALLEL_ROUTES + (EDGE_ROUTES if comm.world_of() > 1 else ())
+    for route, kind in routes:
         if route == "data":
             if kind == "gin":
                 os.environ["HYDRAGNN_USE_FSDP"] = "1"
@@ -6816,8 +7032,6 @@ def parallel_paths(torch, seed: int, card: str, device: str = "cuda") -> dict:
         else:
             out[f"{route} {kind}"] = large_route_run(torch, route, kind, seed, card,
                                                       device=device)
-    from hydragnn_tpu_torch.parallel import comm
-
     if comm.world_of() > 1:
         # this slice's routes; run_training refuses tensor and pipeline on
         # one rank (the default run drives them through the modules)
@@ -6841,7 +7055,7 @@ def _one_device_large_losses(torch, route: str, kind: str, seed: int,
 
     cfg = large_graph_config(route, kind)
     pe_dim = int(cfg["NeuralNetwork"]["Architecture"].get("pe_dim") or 0)
-    sample = supercell_samples(1, seed + 1, pe_dim=pe_dim)
+    sample = large_sample(cfg, seed + 1, pe_dim)
     aug = update_config(copy.deepcopy(cfg), sample)
     batch = collate(sample, compute_pad_spec(sample, 1)).to(device)
     m = create_model_config(aug, device=device, seed=seed)
@@ -8313,7 +8527,11 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
     the edge-sharded steps, GPS ring included), within ``PARALLEL_TOL`` for
     the halo route (its Morton order reorders the sums); FSDP at
     ``FSDP_HIDDEN``, where its parameters shard (one shard each at world 1,
-    through NCCL's reduce-scatter and all-gather). First, the kernels
+    through NCCL's reduce-scatter and all-gather); the edge-sharded GAT
+    (``EDGE_ROUTES``' first, B3's split form) and GAT with
+    ``conv_checkpointing`` bit for bit too, their launches counted and held
+    (a recompute that lost the edge group would launch the fused B3, not
+    the split form). First, the kernels
     against their plain versions at the large routes' shapes
     (:func:`parallel_kernel_checks`); then the tensor-parallel and pipelined
     steps at world 1 through the modules (:func:`world_one_routes`); last,
@@ -8325,6 +8543,7 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
     from hydragnn_tpu_torch.config import update_config
     from hydragnn_tpu_torch.graphs.batching import collate, compute_pad_spec
     from hydragnn_tpu_torch.models import create_model_config
+    from hydragnn_tpu_torch.ops import fused_scatter as fs
     from hydragnn_tpu_torch.parallel import halo
     from hydragnn_tpu_torch.parallel import large_graph as lg
     from hydragnn_tpu_torch.parallel.step import make_parallel_train_step, shard_state
@@ -8366,11 +8585,13 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
                     f"statistics, moments; hidden "
                     f"{aug['NeuralNetwork']['Architecture']['hidden_dim']}, "
                     f"{len(a.layout.shards)} sharded parameters)")
-        # the large routes' steps against the one-device eager step
-        for route, kind in PARALLEL_ROUTES[2:]:
+        # the large routes' steps against the one-device eager step; the
+        # edge-sharded GAT (B3's split form at one rank), with and without
+        # conv_checkpointing, among them, their launches counted
+        for route, kind in PARALLEL_ROUTES[2:] + (("edge", "gat"), ("edge", "gat_ckpt")):
             cfg = large_graph_config(route, kind)
             pe_dim = int(cfg["NeuralNetwork"]["Architecture"].get("pe_dim") or 0)
-            sample = supercell_samples(1, seed + 1, pe_dim=pe_dim)
+            sample = large_sample(cfg, seed + 1, pe_dim)
             aug = update_config(copy.deepcopy(cfg), sample)
             host = collate(sample, compute_pad_spec(sample, 1))
             opt = aug["NeuralNetwork"]["Training"]["Optimizer"]
@@ -8385,8 +8606,13 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
                 share, step = lg.put_large_batch(host, device="cuda"), \
                     lg.make_edge_sharded_train_step(m)
             dev = host.to("cuda")
+            launched = dict.fromkeys(KERNELS, 0)
             for i in range(PARALLEL_STEPS):
-                la, lb = step(a, share), one(b, dev)
+                before = dict(fs.LAUNCHES)
+                la = step(a, share)
+                for k in KERNELS:
+                    launched[k] += fs.LAUNCHES[k] - before[k]
+                lb = one(b, dev)
                 if route == "edge":
                     if not _same_tree(torch, la, lb) or _state_diffs(torch, a, b):
                         raise AssertionError(f"parallel edge {kind} x1: not the one-device "
@@ -8396,7 +8622,13 @@ def parallel_phase(torch, seed: int, card: str) -> dict:
                                          f"{float(la['loss'])} vs {float(lb['loss'])}")
             log(f"[{card}] [parallel {route} {kind} x1] {PARALLEL_STEPS} steps against the "
                 f"one-device step on the supercell: "
-                f"{'bit-equal' if route == 'edge' else 'losses within ' + str(PARALLEL_TOL)}")
+                f"{'bit-equal' if route == 'edge' else 'losses within ' + str(PARALLEL_TOL)}"
+                f"; launches {launched}")
+            if (route, kind) not in PARALLEL_ROUTES:
+                runs[f"{route} {kind} x1 steps"] = {
+                    "launches": launched, "steps": PARALLEL_STEPS, "evals": 0, "kind": kind,
+                    "route": route,
+                    "layers": int(aug["NeuralNetwork"]["Architecture"]["num_conv_layers"])}
     finally:
         dist.destroy_process_group()
     check_parallel_launches(runs)
@@ -8489,8 +8721,8 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 ranks.append(pickle.load(f))
     log(f"--parallel: {world} ranks ran in {time.perf_counter() - t0:.1f} s")
-    elastic = [r.pop("elastic") for r in ranks]
-    polls = [r.pop("poll") for r in ranks]
+    elastic = [r.pop("elastic", None) for r in ranks]
+    polls = [r.pop("poll", None) for r in ranks]
     for r in ranks:
         check_parallel_launches(r)
     parallel_kernel_checks(torch, seed, world)
@@ -8543,6 +8775,9 @@ def parallel_mode(torch, seed: int, dev: dict, world: int = 4) -> int:
             entry["sharded_parameters"] = r0["shards"]
         if "allreduce_ms" in r0:
             entry["allreduce_ms"] = r0["allreduce_ms"]
+        for key in ("local_edges", "triplets", "local_triplets", "checkpointing"):
+            if key in r0:
+                entry[key] = r0[key]
         if route == "halo":
             entry.update(halo_bytes=r0["halo_bytes"], replicated_bytes=r0["replicated_bytes"])
             if not r0["halo_bytes"] < r0["replicated_bytes"]:
@@ -9282,6 +9517,7 @@ def kernels_only(torch, seed: int, dev: dict) -> int:
     geometric_failures: list = []
     geometric_kernel_phase(torch, seed, entries, geometric_failures)
     edge_kernel_phase(torch, seed, entries, geometric_failures)
+    split_softmax_kernel_phase(torch, top, entries, geometric_failures)
     if geometric_failures:
         raise AssertionError(f"kernels not bit for bit: {geometric_failures}")
     cfg = mlip_config(MLIP_EPOCHS)  # augmented as run_training augments it
@@ -9370,6 +9606,7 @@ def main(argv=None) -> int:
         kernel_times.update(geometric_kernel_phase(torch, args.seed, entries,
                                                    geometric_failures))
         edge_kernel_phase(torch, args.seed, entries, geometric_failures)
+        split_softmax_kernel_phase(torch, top, entries, geometric_failures)
         if geometric_failures:
             raise AssertionError(f"kernels not bit for bit: {geometric_failures}")
         from hydragnn_tpu_torch.models import create_model_config

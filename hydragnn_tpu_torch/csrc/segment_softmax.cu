@@ -48,6 +48,14 @@
 //      itself, 63.6 (one SM's exps and divisions); one launch whose later
 //      blocks (by a ticket drawn at their start) normalise after waiting for
 //      the row's statistics, 12.3.
+//   The split form (segment_softmax_stats, segment_softmax_normalise; the
+//   edge-sharded route, where a row's entries lie on several ranks and every
+//   rank needs the row's max and sum before it normalises) runs the same two
+//   kernels as templates: the first writes every row's raw max and
+//   unclamped sum instead of outputs (a row of one piece from the warp's
+//   registers, a longer row from its combiner, in the orders above), the
+//   second normalises the pieces of every row from statistics the ranks
+//   combined (ops/fused_softmax.py::combine_softmax_stats).
 // No atomics on data and no waiting: every output and every statistic has one
 // writer and each sum one fixed order, so two launches on the same inputs
 // give the same bits, which the serving tier's bit-equality rests on.
@@ -179,6 +187,7 @@ __device__ __forceinline__ void store_heads(T* __restrict__ p, int hc,
 // denominator is clamped. A lane loads its first kStatLoads pieces' pairs in
 // one round and keeps them for both passes (the dummy row of a qm9 batch
 // has ~360 pieces). Lane 0 writes the statistics.
+template <bool STATS>
 __device__ __forceinline__ void combine_row_head(const float* __restrict__ piece_max,
                                                  const float* __restrict__ piece_sum,
                                                  float* __restrict__ row_shift,
@@ -198,7 +207,8 @@ __device__ __forceinline__ void combine_row_head(const float* __restrict__ piece
 #pragma unroll
   for (int u = 0; u < kStatLoads; ++u) m = fmaxf(m, mv[u]);
   for (int j = lane + kRound; j < nq; j += 32) m = fmaxf(m, __ldcg(pm + (long long)j * H));
-  const float shift = finite_or_zero(warp_max(m));
+  const float row_max = warp_max(m);
+  const float shift = finite_or_zero(row_max);
   float s = 0.0f;
 #pragma unroll
   for (int u = 0; u < kStatLoads; ++u)
@@ -210,16 +220,20 @@ __device__ __forceinline__ void combine_row_head(const float* __restrict__ piece
   }
   s = warp_sum(s);
   if (lane == 0) {
-    row_shift[(long long)r * H + h] = shift;
-    row_denom[(long long)r * H + h] = fmaxf(s, kDenomMin);
+    // the split form's statistics: the raw max and the unclamped sum
+    row_shift[(long long)r * H + h] = STATS ? row_max : shift;
+    row_denom[(long long)r * H + h] = STATS ? s : fmaxf(s, kDenomMin);
   }
 }
 
 // The first launch: one warp per piece (piece_row gives its row in one
 // load), one lane per entry holding all its heads; rows of several pieces
 // combined by the block that completes them (a ticket per row elects it and
-// is put back to 0).
-template <typename T, int VEC>
+// is put back to 0). With STATS (the split form's first entry) no output is
+// written: a row of one piece writes its raw max and its sum into
+// row_shift / row_denom, a row of several pieces its combined raw max and
+// unclamped sum, in the same order of operations.
+template <typename T, int VEC, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
                        const int* __restrict__ piece_ptr, const int* __restrict__ piece_row,
@@ -255,7 +269,12 @@ segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr
         const float m = warp_max(x);
         const float ex = live ? expf(x - finite_or_zero(m)) : 0.0f;
         const float s = warp_sum(ex);
-        if (np == 1) {
+        if (STATS && np == 1) {
+          if (lane == 0) {
+            row_shift[(long long)r * H + h0 + i] = m;
+            row_denom[(long long)r * H + h0 + i] = s;
+          }
+        } else if (np == 1) {
           y[i] = ex / fmaxf(s, kDenomMin);
         } else if (lane == 0) {
           // s is the sum of exp(x - finite_or_zero(m)) over the piece
@@ -263,7 +282,7 @@ segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr
           piece_sum[(long long)p * H + h0 + i] = s;
         }
       }
-      if (np == 1 && live) store_heads<VEC>(out + e * H + h0, hc, y);
+      if (!STATS && np == 1 && live) store_heads<VEC>(out + e * H + h0, hc, y);
     }
   }
 
@@ -291,15 +310,18 @@ segment_softmax_kernel(const T* __restrict__ logits, const int* __restrict__ ptr
     const int cr = s_row[k];  // block-uniform
     if (cr < 0) continue;
     for (int h = warp; h < H; h += kWarpsPerBlock)  // heads to warps
-      combine_row_head(piece_max, piece_sum, row_shift, row_denom, cr, s_p0[k], s_np[k], h, H,
-                       lane);
+      combine_row_head<STATS>(piece_max, piece_sum, row_shift, row_denom, cr, s_p0[k],
+                              s_np[k], h, H, lane);
     if (threadIdx.x == 0) tickets[cr] = 0;
   }
 }
 
 // The second launch: one warp per piece of a row of several pieces, exp(x -
-// M) / S from the row's statistics (the first launch wrote them).
-template <typename T, int VEC>
+// M) / S from the row's statistics (the first launch wrote them). With ALL
+// (the split form's second entry) one warp per piece of every row, from
+// statistics combined over the ranks: M taken as 0 where it is not finite,
+// S clamped at 1e-12 here (both idempotent on what the first launch wrote).
+template <typename T, int VEC, bool ALL>
 __global__ void __launch_bounds__(kThreads)
 softmax_normalise_kernel(const T* __restrict__ logits, const int* __restrict__ ptr,
                          const int* __restrict__ piece_ptr, const int* __restrict__ piece_row,
@@ -311,7 +333,7 @@ softmax_normalise_kernel(const T* __restrict__ logits, const int* __restrict__ p
   const int r = p < max_pieces ? piece_row[p] : num_rows;
   if (r >= num_rows) return;
   const int p0 = piece_ptr[r];
-  if (piece_ptr[r + 1] - p0 == 1) return;
+  if (!ALL && piece_ptr[r + 1] - p0 == 1) return;
   const int beg = ptr[r] + (p - p0) * kPiece;
   if (lane >= min(ptr[r + 1] - beg, kPiece)) return;
   const long long e = perm ? perm[beg + lane] : beg + lane;
@@ -322,7 +344,12 @@ softmax_normalise_kernel(const T* __restrict__ logits, const int* __restrict__ p
 #pragma unroll
     for (int i = 0; i < kHeadChunk; ++i) {
       const long long rh = (long long)r * H + h0 + i;
-      y[i] = i < hc ? expf(v[i] - row_shift[rh]) / row_denom[rh] : 0.0f;
+      if (ALL)
+        y[i] = i < hc ? expf(v[i] - finite_or_zero(row_shift[rh])) /
+                            fmaxf(row_denom[rh], kDenomMin)
+                      : 0.0f;
+      else
+        y[i] = i < hc ? expf(v[i] - row_shift[rh]) / row_denom[rh] : 0.0f;
     }
     store_heads<VEC>(out + e * H + h0, hc, y);
   }
@@ -348,14 +375,75 @@ int launch_segment_softmax_vec(const void* logits, const void* ptr, const void* 
   const int* pr = static_cast<const int*>(piece_row);
   const int* pm = static_cast<const int*>(perm);
   T* o = static_cast<T*>(out);
-  segment_softmax_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+  segment_softmax_kernel<T, VEC, false><<<blocks, kThreads, 0, s>>>(
       x, p, pp, pr, pm, o, piece_max, piece_sum, row_shift, row_denom,
       static_cast<int*>(tickets), num_rows, max_pieces, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  softmax_normalise_kernel<T, VEC><<<blocks, kThreads, 0, s>>>(
+  softmax_normalise_kernel<T, VEC, false><<<blocks, kThreads, 0, s>>>(
       x, p, pp, pr, pm, row_shift, row_denom, o, num_rows, max_pieces, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The split form's first entry: row_max and row_sum [num_rows, H] from the
+// pieces' statistics in scratch (2 max_pieces H floats).
+template <typename T, int VEC>
+int launch_softmax_stats_vec(const void* logits, const void* ptr, const void* piece_ptr,
+                             const void* piece_row, const void* perm, void* row_max,
+                             void* row_sum, void* scratch, void* tickets, int num_rows,
+                             int max_pieces, int H, cudaStream_t s) {
+  float* piece_max = static_cast<float*>(scratch);
+  float* piece_sum = piece_max + (long long)max_pieces * H;
+  const int blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  segment_softmax_kernel<T, VEC, true><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(logits), static_cast<const int*>(ptr),
+      static_cast<const int*>(piece_ptr), static_cast<const int*>(piece_row),
+      static_cast<const int*>(perm), nullptr, piece_max, piece_sum,
+      static_cast<float*>(row_max), static_cast<float*>(row_sum), static_cast<int*>(tickets),
+      num_rows, max_pieces, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split form's second entry: every entry from its row's statistics.
+template <typename T, int VEC>
+int launch_softmax_normalise_vec(const void* logits, const void* ptr, const void* piece_ptr,
+                                 const void* piece_row, const void* perm, const void* row_max,
+                                 const void* row_sum, void* out, int num_rows, int max_pieces,
+                                 int H, cudaStream_t s) {
+  const int blocks = (max_pieces + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  softmax_normalise_kernel<T, VEC, true><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(logits), static_cast<const int*>(ptr),
+      static_cast<const int*>(piece_ptr), static_cast<const int*>(piece_row),
+      static_cast<const int*>(perm), static_cast<const float*>(row_max),
+      static_cast<const float*>(row_sum), static_cast<T*>(out), num_rows, max_pieces, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_softmax_split(bool stats, const void* logits, const void* ptr,
+                         const void* piece_ptr, const void* piece_row, const void* perm,
+                         void* row_max, void* row_sum, void* scratch, void* tickets, void* out,
+                         int num_rows, int max_pieces, int piece, int H, void* stream) {
+  if (piece != kPiece) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the same vector width as the fused form for the same logits, so a
+  // piece's lanes load and add its heads as there
+  const bool vec = H % 2 == 0 && aligned(logits, 2 * sizeof(T)) &&
+                   (stats || aligned(out, 2 * sizeof(T)));
+  if (stats) {
+    if (vec)
+      return launch_softmax_stats_vec<T, 2>(logits, ptr, piece_ptr, piece_row, perm, row_max,
+                                            row_sum, scratch, tickets, num_rows, max_pieces, H,
+                                            s);
+    return launch_softmax_stats_vec<T, 1>(logits, ptr, piece_ptr, piece_row, perm, row_max,
+                                          row_sum, scratch, tickets, num_rows, max_pieces, H, s);
+  }
+  if (vec)
+    return launch_softmax_normalise_vec<T, 2>(logits, ptr, piece_ptr, piece_row, perm, row_max,
+                                              row_sum, out, num_rows, max_pieces, H, s);
+  return launch_softmax_normalise_vec<T, 1>(logits, ptr, piece_ptr, piece_row, perm, row_max,
+                                            row_sum, out, num_rows, max_pieces, H, s);
 }
 
 template <typename T>
@@ -516,6 +604,50 @@ extern "C" int segment_softmax_fwd(int dtype, const void* logits, const void* pt
     return launch_segment_softmax<__nv_bfloat16>(logits, ptr, piece_ptr, piece_row, perm, out,
                                                  scratch, tickets, num_rows, max_pieces, piece,
                                                  H, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split form of segment_softmax_fwd (rows whose entries are spread over
+// the ranks of the edge-sharded route). segment_softmax_stats writes, for
+// every row and head, row_max (the raw max, -inf for a row without entries)
+// and row_sum (the sum of exp(x - M), M taken as 0 where not finite,
+// unclamped), in the fused kernel's order: one piece's butterflies, then a
+// row's pieces by the same combiner. segment_softmax_normalise writes out =
+// exp(x - M) / max(S, 1e-12) for every entry, M taken as 0 where not
+// finite. With the statistics of one rank (M and S exp(0)) the two give
+// segment_softmax_fwd's bits. scratch: fp32 of 2 * max_pieces * H; tickets
+// as for segment_softmax_fwd.
+extern "C" int segment_softmax_stats(int dtype, const void* logits, const void* ptr,
+                                     const void* piece_ptr, const void* piece_row,
+                                     const void* perm, void* row_max, void* row_sum,
+                                     void* scratch, void* tickets, int num_rows,
+                                     int max_pieces, int piece, int H, void* stream) {
+  if (dtype == 0)
+    return launch_softmax_split<float>(true, logits, ptr, piece_ptr, piece_row, perm, row_max,
+                                       row_sum, scratch, tickets, nullptr, num_rows, max_pieces,
+                                       piece, H, stream);
+  if (dtype == 1)
+    return launch_softmax_split<__nv_bfloat16>(true, logits, ptr, piece_ptr, piece_row, perm,
+                                               row_max, row_sum, scratch, tickets, nullptr,
+                                               num_rows, max_pieces, piece, H, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int segment_softmax_normalise(int dtype, const void* logits, const void* ptr,
+                                         const void* piece_ptr, const void* piece_row,
+                                         const void* perm, const void* row_max,
+                                         const void* row_sum, void* out, int num_rows,
+                                         int max_pieces, int piece, int H, void* stream) {
+  if (dtype == 0)
+    return launch_softmax_split<float>(false, logits, ptr, piece_ptr, piece_row, perm,
+                                       const_cast<void*>(row_max), const_cast<void*>(row_sum),
+                                       nullptr, nullptr, out, num_rows, max_pieces, piece, H,
+                                       stream);
+  if (dtype == 1)
+    return launch_softmax_split<__nv_bfloat16>(false, logits, ptr, piece_ptr, piece_row, perm,
+                                               const_cast<void*>(row_max),
+                                               const_cast<void*>(row_sum), nullptr, nullptr,
+                                               out, num_rows, max_pieces, piece, H, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

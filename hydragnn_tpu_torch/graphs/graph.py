@@ -63,6 +63,53 @@ _SORTED_FLAG = {"receivers": "recv_sorted", "senders": "send_sorted", "batch": "
 _LOOP_FIELD = {"loop_senders": 0, "loop_receivers": 1}
 
 
+def loop_tail(num_edges: int, num_nodes: int, world: int = 1,
+              rank: int = 0) -> tuple[int, int, int]:
+    """GAT's extended layout after the edges: ``self_loop_pad`` masked slots
+    and ``num_nodes`` self loops, the tail, of ``T`` rows. Under edge
+    sharding (``world`` ranks of ``num_edges`` edges each: the whole batch
+    has ``world * num_edges``), the tail is cut into ``world`` blocks of
+    ``ceil(T / world)`` rows, the last padded with masked slots; returns
+    ``(slots, start, rows)``: the tail's alignment slots, this rank's first
+    tail row and its block's row count. One rank: ``(slots, 0, T)``."""
+    slots = self_loop_pad(num_edges * world)
+    rows = -(-(slots + num_nodes) // world)
+    return slots, rank * rows, rows
+
+
+def edge_space_rows(num_edges: int, num_nodes: int, num_triplets: int = 0, world: int = 1,
+                    rank: int = 0) -> frozenset:
+    """The leading sizes of a rank's edge-space tensors under edge sharding
+    (``world`` ranks of ``num_edges`` edges each): its edges, GAT's
+    extended layout over them (the edges and this rank's tail block,
+    :func:`loop_tail`) and, where there are any, its ``num_triplets``
+    triplets (DimeNet's)."""
+    rows = {num_edges, num_edges + loop_tail(num_edges, num_nodes, world, rank)[2]}
+    if num_triplets:
+        rows.add(num_triplets)
+    return frozenset(rows)
+
+
+def loop_tail_nodes(num_edges: int, num_nodes: int, world: int = 1, rank: int = 0,
+                    device=None) -> torch.Tensor:
+    """The node of each row of this rank's tail block (:func:`loop_tail`):
+    ``N - 1`` for an alignment or padding slot, ``v`` for node ``v``'s self
+    loop (int64)."""
+    slots, start, rows = loop_tail(num_edges, num_nodes, world, rank)
+    t = torch.arange(start, start + rows, device=device)
+    loop = (t >= slots) & (t < slots + num_nodes)
+    return torch.where(loop, t - slots, torch.full_like(t, num_nodes - 1))
+
+
+def loop_tail_mask(num_edges: int, num_nodes: int, world: int = 1, rank: int = 0,
+                   device=None) -> torch.Tensor:
+    """1.0 for this rank's tail rows that are self loops, 0.0 for its slots
+    (float32)."""
+    slots, start, rows = loop_tail(num_edges, num_nodes, world, rank)
+    t = torch.arange(start, start + rows, device=device)
+    return ((t >= slots) & (t < slots + num_nodes)).to(torch.float32)
+
+
 @dataclasses.dataclass
 class GraphBatch:
     """A batch of graphs padded to static shapes (tensors; shapes as in the
@@ -157,23 +204,32 @@ class GraphBatch:
         vec = self.edge_vectors()
         return torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True) + eps)
 
-    def self_loop_edges(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def self_loop_edges(self, shard: tuple[int, int] | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
         """GAT's extended edge layout, cached: ``(senders, receivers)`` of the
         real edges, then ``self_loop_pad(E)`` masked slots wired to the dummy
         node N-1, then one self loop per node (``arange(N)``), as the JAX
-        GAT builds it (its mask is 1, 0, 1 over the three sections)."""
-        loops = self._csr.get("self_loop_edges")
+        GAT builds it (its mask is 1, 0, 1 over the three sections).
+
+        ``shard = (world, rank)`` (the edge-sharded route; this batch holds
+        rank ``rank``'s block of ``world`` equal edge blocks): this rank's
+        share of the whole batch's layout, its own edges followed by its
+        block of the tail (:func:`loop_tail`), whose rows past the tail are
+        masked slots on N-1. One rank's share is the layout above."""
+        world, rank = shard if shard is not None else (1, 0)
+        key = "self_loop_edges" if world == 1 else f"self_loop_edges@{world}.{rank}"
+        loops = self._csr.get(key)
         if loops is None:
-            n, dev = self.num_nodes, self.senders.device
-            pad = torch.full((self_loop_pad(self.num_edges),), n - 1, dtype=self.senders.dtype,
-                             device=dev)
-            arange = torch.arange(n, dtype=self.senders.dtype, device=dev)
-            loops = (torch.cat([self.senders, pad, arange]),
-                     torch.cat([self.receivers, pad, arange]))
-            self._csr["self_loop_edges"] = loops
+            # cached for later steps, which may take gradients: built as
+            # ordinary tensors even under an inference-mode forward
+            with torch.inference_mode(False):
+                nodes = loop_tail_nodes(self.num_edges, self.num_nodes, world, rank,
+                                        device=self.senders.device).to(self.senders.dtype)
+                loops = (torch.cat([self.senders, nodes]), torch.cat([self.receivers, nodes]))
+            self._csr[key] = loops
         return loops
 
-    def csr(self, field: str) -> SegmentIndex:
+    def csr(self, field: str, shard: tuple[int, int] | None = None) -> SegmentIndex:
         """Cached row pointer (and sort permutation, unless collate
         certified the ids sorted) of ``receivers`` (N rows), ``senders``
         (N rows), ``batch`` (G rows), ``idx_ji`` / ``idx_kj`` (E rows:
@@ -182,9 +238,22 @@ class GraphBatch:
         rows: MACE's element embedding), or ``loop_receivers`` /
         ``loop_senders``, the ids of :meth:`self_loop_edges` (N rows, always
         argsorted: the self-loop section follows the real edges), for the
-        CSR kernels."""
-        idx = self._csr.get(field)
-        if idx is None:
+        CSR kernels. ``shard = (world, rank)`` (the edge-sharded route, world
+        above 1): the loop fields of this rank's share of the layout, and
+        ``idx_kj`` over the rows of every rank's edges (DimeNet's triplets
+        read them all)."""
+        sharded = shard is not None and shard[0] > 1 and field in ("idx_kj", *_LOOP_FIELD)
+        key = f"{field}@{shard[0]}.{shard[1]}" if sharded else field
+        idx = self._csr.get(key)
+        if idx is None and sharded:
+            with torch.inference_mode(False):
+                if field in _LOOP_FIELD:
+                    idx = segment_index(self.self_loop_edges(shard)[_LOOP_FIELD[field]],
+                                        self.num_nodes)
+                else:
+                    idx = segment_index(self.idx_kj, self.num_edges * shard[0])
+            self._csr[key] = idx
+        elif idx is None:
             if field in _LOOP_FIELD:
                 idx = segment_index(self.self_loop_edges()[_LOOP_FIELD[field]], self.num_nodes)
             elif field == "elements":
@@ -200,18 +269,18 @@ class GraphBatch:
             self._csr[field] = idx
         return idx
 
-    def views(self, forward: tuple[str, ...], backward: tuple[str, ...] = ()
-              ) -> tuple[SegmentIndex | None, ...]:
+    def views(self, forward: tuple[str, ...], backward: tuple[str, ...] = (),
+              shard: tuple[int, int] | None = None) -> tuple[SegmentIndex | None, ...]:
         """The :meth:`csr` views of ``forward`` and then ``backward``, in
         that order, for a layer on the card: ``None`` each on the CPU, whose
         sums take none, and ``None`` for the ``backward`` fields outside a
         gradient (``torch.is_grad_enabled()``), since those carry only the
-        backward of gathers."""
+        backward of gathers. ``shard``: as for :meth:`csr`."""
         if not self.senders.is_cuda:
             return (None,) * (len(forward) + len(backward))
         grad = torch.is_grad_enabled()
-        return (tuple(self.csr(f) for f in forward)
-                + tuple(self.csr(f) if grad else None for f in backward))
+        return (tuple(self.csr(f, shard) for f in forward)
+                + tuple(self.csr(f, shard) if grad else None for f in backward))
 
 
 class GraphSample:
@@ -312,4 +381,5 @@ class GraphSample:
         )
 
 
-__all__ = ["FIELDS", "NUM_ELEMENTS", "BatchMeta", "GraphBatch", "GraphSample"]
+__all__ = ["FIELDS", "NUM_ELEMENTS", "BatchMeta", "GraphBatch", "GraphSample", "loop_tail",
+           "loop_tail_mask", "loop_tail_nodes"]

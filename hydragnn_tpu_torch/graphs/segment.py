@@ -9,12 +9,16 @@ stay plain PyTorch, as the JAX package leaves them to XLA.
 
 Padding convention: padded elements carry the id of the trailing dummy
 segment, so real segments are unaffected; empty segments give 0, and so do
-max and min outputs that are not finite, as in the JAX package.
+max and min outputs that are not finite, as in the JAX package. The
+edge-sharded route takes the extremes with the identity kept
+(:func:`segment_extreme_raw`), reduces them over the ranks and only then
+applies that rule (:func:`zero_empty`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -52,21 +56,30 @@ def segment_count(segment_ids: torch.Tensor, num_segments: int,
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
-                 eps: float = 1e-12, index: SegmentIndex | None = None) -> torch.Tensor:
-    """Mean per segment; empty segments give zeros."""
+                 eps: float = 1e-12, index: SegmentIndex | None = None,
+                 combine: Callable[[torch.Tensor], torch.Tensor] | None = None
+                 ) -> torch.Tensor:
+    """Mean per segment; empty segments give zeros. ``combine``, where
+    given, maps the sums and the counts before the division (the
+    edge-sharded route's sum over the ranks, ``models/common.py``)."""
     total = segment_sum(data, segment_ids, num_segments, index)
     count = segment_count(segment_ids, num_segments)
+    if combine is not None:
+        total, count = combine(total), combine(count)
     count = torch.clamp(count, min=eps).to(total.dtype)
     return total / count.reshape((-1,) + (1,) * (total.dim() - 1))
 
 
 def segment_std(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
-                eps: float = 1e-5, index: SegmentIndex | None = None) -> torch.Tensor:
+                eps: float = 1e-5, index: SegmentIndex | None = None,
+                combine: Callable[[torch.Tensor], torch.Tensor] | None = None
+                ) -> torch.Tensor:
     """Biased standard deviation per segment, ``sqrt(max(E[x^2] - E[x]^2,
-    0) + eps)`` from two :func:`segment_mean` (two segment-sum launches);
-    PNA's ``std`` aggregator."""
-    mean = segment_mean(data, segment_ids, num_segments, index=index)
-    mean_sq = segment_mean(data * data, segment_ids, num_segments, index=index)
+    0) + eps)`` from two :func:`segment_mean` (two segment-sum launches;
+    ``combine`` as there); PNA's ``std`` aggregator."""
+    mean = segment_mean(data, segment_ids, num_segments, index=index, combine=combine)
+    mean_sq = segment_mean(data * data, segment_ids, num_segments, index=index,
+                           combine=combine)
     v = mean_sq - mean * mean
     # torch.maximum, not clamp: at a tie (a segment of equal messages
     # cancels to v = 0) its gradient is 1/2, as jnp.maximum's; clamp's is 1
@@ -74,36 +87,50 @@ def segment_std(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return torch.sqrt(var + eps)
 
 
-def _segment_extreme(data, segment_ids, num_segments, reduce, identity):
-    """The JAX package's rule (``graphs/segment.py::_zero_empty``): float
-    outputs that are not finite become 0 (empty segments, and segments that
-    met an inf or NaN), int outputs equal to the reduction's identity become
-    0. The reduction starts from the identity, as ``jax.ops.segment_max``'s
-    scatter does, so the gradient of a segment's extreme is split among the
-    tied entries only: from a zeroed output, ``scatter_reduce_`` would count
-    the output's own 0 among the ties of an extreme that is exactly 0."""
+_EXTREMES = {
+    "max": ("amax", lambda t: -math.inf if t.is_floating_point else torch.iinfo(t).min),
+    "min": ("amin", lambda t: math.inf if t.is_floating_point else torch.iinfo(t).max),
+}
+
+
+def segment_extreme_raw(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                        kind: str = "max") -> torch.Tensor:
+    """Max (``kind="max"``) or min per segment with the reduction's identity
+    left in place: an empty segment gives -inf for the max, +inf for the
+    min (the type's extreme for ints). The reduction starts from the
+    identity, as ``jax.ops.segment_max``'s scatter does, so the gradient of
+    a segment's extreme is split among the tied entries only: from a zeroed
+    output, ``scatter_reduce_`` would count the output's own 0 among the
+    ties of an extreme that is exactly 0. The edge-sharded route reduces
+    these over the ranks before :func:`zero_empty` (``models/common.py``)."""
+    reduce, identity = _EXTREMES[kind]
     out = torch.full((num_segments,) + tuple(data.shape[1:]), identity(data.dtype),
                      dtype=data.dtype, device=data.device)
     ids = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    out = out.scatter_reduce_(0, ids, data, reduce=reduce, include_self=False)
+    return out.scatter_reduce_(0, ids, data, reduce=reduce, include_self=False)
+
+
+def zero_empty(out: torch.Tensor, kind: str = "max") -> torch.Tensor:
+    """The JAX package's rule (``graphs/segment.py::_zero_empty``): float
+    outputs that are not finite become 0 (empty segments, and segments that
+    met an inf or NaN), int outputs equal to the reduction's identity become
+    0."""
     zero = torch.zeros_like(out)
     if out.is_floating_point():
         return torch.where(torch.isfinite(out), out, zero)
-    return torch.where(out == identity(out.dtype), zero, out)
+    return torch.where(out == _EXTREMES[kind][1](out.dtype), zero, out)
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 index: SegmentIndex | None = None) -> torch.Tensor:
     """Max per segment; empty segments and non-finite maxima give 0."""
-    return _segment_extreme(data, segment_ids, num_segments, "amax",
-                            lambda t: -math.inf if t.is_floating_point else torch.iinfo(t).min)
+    return zero_empty(segment_extreme_raw(data, segment_ids, num_segments, "max"), "max")
 
 
 def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                 index: SegmentIndex | None = None) -> torch.Tensor:
     """Min per segment; empty segments and non-finite minima give 0."""
-    return _segment_extreme(data, segment_ids, num_segments, "amin",
-                            lambda t: math.inf if t.is_floating_point else torch.iinfo(t).max)
+    return zero_empty(segment_extreme_raw(data, segment_ids, num_segments, "min"), "min")
 
 
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
@@ -140,10 +167,12 @@ def global_pool(kind: str, data: torch.Tensor, segment_ids: torch.Tensor,
 __all__ = [
     "global_pool",
     "segment_count",
+    "segment_extreme_raw",
     "segment_max",
     "segment_mean",
     "segment_min",
     "segment_softmax",
     "segment_std",
     "segment_sum",
+    "zero_empty",
 ]

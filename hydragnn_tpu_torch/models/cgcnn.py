@@ -19,9 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from .common import Dense, gather_ends
+from .common import Dense, edge_segment_sum, gather_ends
 
 
 class CGCNNConv(nn.Module):
@@ -51,8 +50,8 @@ class CGCNNConv(nn.Module):
         ends = gather_ends(inv, batch)
         z = torch.cat([*ends, batch.edge_attr] if self.edge_dim else ends, dim=-1)
         msg = torch.sigmoid(self.lin_f(z)) * F.softplus(self.lin_s(z)) * batch.edge_mask[:, None]
-        agg = segment.segment_sum(msg, batch.receivers, batch.num_nodes,
-                                  index=batch.csr("receivers") if inv.is_cuda else None)
+        agg = edge_segment_sum(msg, batch.receivers, batch.num_nodes,
+                               index=batch.csr("receivers") if inv.is_cuda else None)
         out = inv + agg
         proj = getattr(self, "proj", None)
         return (proj(out) if proj is not None else out), equiv

@@ -15,6 +15,12 @@ computes:
 layer (``Training.conv_checkpointing``): ``torch.utils.checkpoint`` with
 the dropout masks of the first pass replayed in the recompute and the
 running statistics moved once.
+
+The edge-space helpers (``edge_gather``, ``edge_segment_sum`` and its
+kin, ``edge_dropout``, ``edge_operand``, and ``Dense`` itself) are the one
+boundary of the edge-sharded route (``parallel/large_graph.py``): every
+stack reduces over edges through them, the one-device call bit for bit
+outside :func:`edge_sharded`.
 """
 
 from __future__ import annotations
@@ -96,6 +102,11 @@ _NO_GROUP = object()
 # every node, so :func:`neighbour_sum` sums its shard and then the ranks'
 # partial sums; unset, the batch's edges are all the edges
 _EDGE_GROUP: contextvars.ContextVar = contextvars.ContextVar("edge_group", default=_NO_GROUP)
+# with it, the leading sizes of this rank's edge-space tensors (its edges,
+# GAT's extended layout, DimeNet's triplets), none of them a node or graph
+# count: a parameter applied to a tensor of such rows is read on edge rows
+# (:func:`edge_operand`)
+_EDGE_ROWS: contextvars.ContextVar = contextvars.ContextVar("edge_rows", default=frozenset())
 
 # the pass of a checkpointed region (:func:`checkpointed`) this thread is
 # in: None outside one, ("record", masks) in its first pass, ("replay",
@@ -127,19 +138,28 @@ def checkpointed(fn: Callable, *args):
     here the recompute replays the first pass's dropout masks instead, and
     skips the running-statistics update of any batch norm inside, so the
     forward, the gradients and the state are bit-equal to ``fn`` without
-    checkpointing."""
+    checkpointing. Under :func:`edge_sharded` the recompute runs in the
+    first pass's edge group (and edge rows) too."""
     from torch.utils import checkpoint as ckpt
 
     masks: list = []
     passes = {"n": 0}
+    # the recompute runs in the backward, after the edge-sharded step's
+    # context has closed, and on the card on autograd's device thread,
+    # which carries no context variable: it sets the first pass's edge
+    # group itself, so its neighbour sums are the first pass's
+    group, rows = _EDGE_GROUP.get(), _EDGE_ROWS.get()
 
     def run(*a):
         first = passes["n"] == 0
         passes["n"] += 1
         token = _CHECKPOINT_PASS.set(("record", masks) if first else ("replay", iter(masks)))
+        edge_token, rows_token = _EDGE_GROUP.set(group), _EDGE_ROWS.set(rows)
         try:
             return fn(*a)
         finally:
+            _EDGE_ROWS.reset(rows_token)
+            _EDGE_GROUP.reset(edge_token)
             _CHECKPOINT_PASS.reset(token)
 
     with ckpt.set_checkpoint_early_stop(False):
@@ -213,7 +233,9 @@ class Dense(nn.Module):
     ``use_bias=False`` there is no ``bias`` parameter. Calls can be
     intercepted (:func:`intercept_dense`). Under ``torch.func.vmap`` (a
     population's members) the product is one ``F.linear`` per member
-    (:func:`member_exact`)."""
+    (:func:`member_exact`). Applied to this rank's edge rows under
+    :func:`edge_sharded`, its weight and bias enter the edge space
+    (:func:`edge_operand`)."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: torch.Generator | None = None, use_bias: bool = True):
@@ -231,8 +253,8 @@ class Dense(nn.Module):
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         if self.bias is not None:
             dtype = torch.promote_types(dtype, self.bias.dtype)
-        bias = self.bias.to(dtype) if self.bias is not None else None
-        return member_exact(F.linear, x.to(dtype), self.weight.to(dtype), bias)
+        bias = edge_operand(self.bias, x).to(dtype) if self.bias is not None else None
+        return member_exact(F.linear, x.to(dtype), edge_operand(self.weight, x).to(dtype), bias)
 
 
 class Dropout(nn.Module):
@@ -363,14 +385,215 @@ class MaskedBatchNorm(nn.Module):
 
 
 @contextlib.contextmanager
-def edge_sharded(group) -> Iterator[None]:
-    """Inside, :func:`neighbour_sum` treats the batch's edges as this
-    rank's shard of ``group``'s edges (the edge-sharded route)."""
-    token = _EDGE_GROUP.set(group)
+def edge_sharded(group, batch=None) -> Iterator[None]:
+    """Inside, the batch's edges (and DimeNet's triplets) are this rank's
+    shard of ``group``'s: the edge-space helpers below add the collectives
+    that make every node-level result whole on every rank (the
+    edge-sharded route). ``batch``, this rank's share
+    (``parallel/large_graph.py::edge_share``), names the edge rows on which
+    parameters are read (:func:`edge_operand`); without it none are."""
+    rows = frozenset()
+    if batch is not None:
+        from ..graphs.graph import edge_space_rows
+        from ..parallel.comm import rank_of, world_of
+
+        rows = edge_space_rows(batch.num_edges, batch.num_nodes, batch.idx_kj.shape[0],
+                               world_of(group), rank_of(group))
+        if rows & {batch.num_nodes, batch.num_graphs}:
+            raise ValueError(
+                f"edge_sharded: the share's edge rows {sorted(rows)} meet its node or graph "
+                f"count ({batch.num_nodes}, {batch.num_graphs}), so a layer's rows do not "
+                "tell edges from nodes; make the share with large_graph.edge_share")
+    token, rows_token = _EDGE_GROUP.set(group), _EDGE_ROWS.set(rows)
     try:
         yield
     finally:
+        _EDGE_ROWS.reset(rows_token)
         _EDGE_GROUP.reset(token)
+
+
+# -- edge space ----------------------------------------------------------------
+#
+# The boundary between the replicated node space and the sharded edge space
+# of the edge-sharded route, in one place. Each helper is the one-device call
+# bit for bit when no edge group is set. Under :func:`edge_sharded`:
+#
+# * node -> edge: a node tensor enters through ``comm.enter_replicated``
+#   at each gather, so its gradient sums the ranks' partial cotangents;
+# * parameters used on edge rows enter the same way at each use: a
+#   ``Dense`` applied to a tensor of this rank's edge rows, and the other
+#   parameters read on edges (GAT's attention vector, the Bessel basis's
+#   frequencies) through :func:`edge_operand`;
+# * edge -> node sums, counts and means: the numerators and the counts are
+#   summed over the ranks (``comm.exit_sum``) before any division;
+# * edge -> node max and min: the local extreme keeps the reduction's
+#   identity, the ranks' extremes are reduced, and only then do the
+#   non-finite results become 0;
+# * edge -> node softmax: B3's split form (``ops.fused_softmax``);
+# * edge -> edge (DimeNet's triplets read edges of every rank): the rows
+#   all-gathered (:func:`all_edge_rows`).
+
+
+def edge_shard() -> tuple[int, int] | None:
+    """``(world, rank)`` of the edge group inside :func:`edge_sharded`
+    (``(1, 0)`` when no process group is formed), ``None`` outside it."""
+    group = _EDGE_GROUP.get()
+    if group is _NO_GROUP:
+        return None
+    from ..parallel.comm import rank_of, world_of
+
+    return world_of(group), rank_of(group)
+
+
+def enter_edges(x: torch.Tensor) -> torch.Tensor:
+    """A replicated (node or parameter) tensor about to be read on this
+    rank's edges: the identity, whose backward sums the ranks' cotangents
+    under :func:`edge_sharded`."""
+    group = _EDGE_GROUP.get()
+    if group is _NO_GROUP:
+        return x
+    from ..parallel.comm import enter_replicated
+
+    return enter_replicated(x, group)
+
+
+def edge_operand(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A parameter ``p`` about to be applied to ``x``'s rows: entering the
+    edge space (:func:`enter_edges`) where ``x`` is a tensor of this rank's
+    edge rows under :func:`edge_sharded`, so its gradient sums the ranks'
+    partial ones; ``p`` itself otherwise."""
+    rows = _EDGE_ROWS.get()
+    if rows and x.dim() and x.shape[0] in rows:
+        return enter_edges(p)
+    return p
+
+
+def exit_edges(x: torch.Tensor) -> torch.Tensor:
+    """This rank's partial sum over its edges, made whole: the sum over the
+    ranks under :func:`edge_sharded` (backward: the identity)."""
+    group = _EDGE_GROUP.get()
+    if group is _NO_GROUP:
+        return x
+    from ..parallel.comm import exit_sum
+
+    return exit_sum(x, group)
+
+
+def all_edge_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows of every rank's edges, in rank order (``comm.gather_rows``,
+    behind an :func:`enter_edges` because the rows are read on this rank's
+    triplets: the gradient sums the ranks' cotangents, then keeps this
+    rank's block), under :func:`edge_sharded` over several ranks; ``x``
+    itself otherwise (one rank's rows are all the rows)."""
+    shard = edge_shard()
+    if shard is None or shard[0] == 1:
+        return x
+    from ..parallel.comm import gather_rows as gather_ranks
+
+    return enter_edges(gather_ranks(x, _EDGE_GROUP.get()))
+
+
+def edge_gather(x: torch.Tensor, ids: torch.Tensor, index=None) -> torch.Tensor:
+    """``x[ids]`` onto this rank's edges through ``gather_rows`` (backward:
+    the segment-sum kernel over ``index``), ``x`` entering the edge space
+    (:func:`enter_edges`)."""
+    from ..ops.fused_scatter import gather_rows
+
+    return gather_rows(enter_edges(x), ids, index)
+
+
+def edge_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                     index=None) -> torch.Tensor:
+    """``segment.segment_sum`` of this rank's edge rows, summed over the
+    ranks."""
+    from ..graphs import segment
+
+    return exit_edges(segment.segment_sum(data, segment_ids, num_segments, index))
+
+
+def edge_segment_count(segment_ids: torch.Tensor, num_segments: int,
+                       weights: torch.Tensor | None = None) -> torch.Tensor:
+    """``segment.segment_count`` of this rank's edges, summed over the
+    ranks."""
+    from ..graphs import segment
+
+    return exit_edges(segment.segment_count(segment_ids, num_segments, weights))
+
+
+def edge_segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                      index=None) -> torch.Tensor:
+    """``segment.segment_mean`` over every rank's edges: the sums and the
+    counts summed over the ranks, then divided."""
+    from ..graphs import segment
+
+    return segment.segment_mean(data, segment_ids, num_segments, index=index,
+                                combine=exit_edges)
+
+
+def edge_segment_std(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                     index=None) -> torch.Tensor:
+    """``segment.segment_std`` over every rank's edges, from the two means
+    of :func:`edge_segment_mean`."""
+    from ..graphs import segment
+
+    return segment.segment_std(data, segment_ids, num_segments, index=index,
+                               combine=exit_edges)
+
+
+def edge_segment_extreme(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                         kind: str = "max") -> torch.Tensor:
+    """``segment.segment_max`` (``kind="max"``) or ``segment_min`` over
+    every rank's edges: the local extreme with the identity (+-inf) left in
+    place, reduced over the ranks, then the non-finite results made 0. The
+    cotangent of a segment's extreme is split among its tied entries over
+    every rank, as one device splits it."""
+    from ..graphs import segment
+
+    group = _EDGE_GROUP.get()
+    if group is _NO_GROUP:
+        fn = segment.segment_max if kind == "max" else segment.segment_min
+        return fn(data, segment_ids, num_segments)
+    from ..parallel.comm import all_reduce_extreme
+
+    local = segment.segment_extreme_raw(data, segment_ids, num_segments, kind)
+    ties = torch.zeros_like(local).index_add_(
+        0, segment_ids.long(), (data.detach() == local.detach()[segment_ids.long()]).to(
+            local.dtype))
+    return segment.zero_empty(all_reduce_extreme(local, group, kind, ties), kind)
+
+
+def edge_segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                         index=None) -> torch.Tensor:
+    """``segment.segment_softmax`` over every rank's entries: B3's split
+    form under :func:`edge_sharded`, the fused form outside it."""
+    from ..graphs import segment
+
+    group = _EDGE_GROUP.get()
+    if group is _NO_GROUP:
+        return segment.segment_softmax(logits, segment_ids, num_segments, index)
+    from ..ops.fused_softmax import split_segment_softmax
+
+    flat = logits.reshape(logits.shape[0], -1)
+    return split_segment_softmax(flat, segment_ids, num_segments, index,
+                                 group).reshape(logits.shape)
+
+
+def edge_dropout(drop: "Dropout", x: torch.Tensor, train: bool, generator,
+                 total_rows: int | None, rows: torch.Tensor | None) -> torch.Tensor:
+    """``drop(x)`` for ``x`` this rank's rows of an edge tensor of
+    ``total_rows`` rows: every rank draws the mask over all the rows from
+    the shared generator (so it advances as on one device) and keeps the
+    rows ``rows`` of it (the global row of each of ``x``'s rows; -1 for a
+    padding row, whose mask is 0). ``rows`` None: ``x`` is all the rows."""
+    if rows is None or not train or drop.rate == 0.0 or drop.rate >= 1.0:
+        return drop(x, train, generator)
+    if generator is None:
+        raise ValueError("Dropout in train mode needs a torch.Generator (the train "
+                         "step's), as flax needs a 'dropout' rng")
+    keep_prob = 1.0 - drop.rate
+    keep = _keep_mask((total_rows,) + tuple(x.shape[1:]), keep_prob, generator, x.device)
+    keep = torch.cat([keep, keep.new_zeros((1,) + tuple(x.shape[1:]))])[rows]
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def neighbour_sum(inv: torch.Tensor, batch) -> torch.Tensor:
@@ -378,14 +601,11 @@ def neighbour_sum(inv: torch.Tensor, batch) -> torch.Tensor:
     kernel with the edge mask as the per-edge weight, over the batch's
     cached CSR views, the receivers' for the forward and the senders' for
     the gradient with respect to ``inv`` (built only where that gradient is
-    taken; conv layer 0's input needs none)."""
+    taken; conv layer 0's input needs none). Under :func:`edge_sharded`,
+    this rank's edges, then the sum over the ranks."""
     from ..ops.fused_scatter import gather_scatter_sum
 
-    group = _EDGE_GROUP.get()
-    if group is not _NO_GROUP:
-        from ..parallel.comm import enter_replicated
-
-        inv = enter_replicated(inv, group)
+    inv = enter_edges(inv)
     on_card = inv.is_cuda
     agg = gather_scatter_sum(
         inv, batch.senders, batch.receivers, batch.num_nodes,
@@ -394,26 +614,21 @@ def neighbour_sum(inv: torch.Tensor, batch) -> torch.Tensor:
         send_index=(batch.csr("senders")
                     if on_card and inv.requires_grad and torch.is_grad_enabled() else None),
     )
-    if group is not _NO_GROUP:
-        from ..parallel.comm import exit_sum
-
-        agg = exit_sum(agg, group)
-    return agg
+    return exit_edges(agg)
 
 
 def gather_ends(inv: torch.Tensor, batch) -> tuple[torch.Tensor, torch.Tensor]:
     """``(inv[receivers], inv[senders])`` through ``gather_rows``, whose
     backward is the segment-sum kernel over the batch's cached receivers'
     and senders' CSR views (the senders' built only where that gradient is
-    taken), not autograd's ``index_put_``."""
-    from ..ops.fused_scatter import gather_rows
-
+    taken), not autograd's ``index_put_``; each through
+    :func:`edge_gather`."""
     on_card = inv.is_cuda
     recv_idx = batch.csr("receivers") if on_card else None
     send_idx = (batch.csr("senders")
                 if on_card and inv.requires_grad and torch.is_grad_enabled() else None)
-    return (gather_rows(inv, batch.receivers, recv_idx),
-            gather_rows(inv, batch.senders, send_idx))
+    return (edge_gather(inv, batch.receivers, recv_idx),
+            edge_gather(inv, batch.senders, send_idx))
 
 
 def local_node_index(batch_ids: torch.Tensor, n_node: torch.Tensor,
@@ -447,17 +662,16 @@ def equivariant_coordinate_update(module: nn.Module, edge_feat: torch.Tensor,
     scalar gate ``{prefix}_mlp_out(relu({prefix}_mlp_0(edge_feat)))``,
     optionally tanh-bounded, times ``coord_diff``, clipped to +-100, masked,
     and averaged over each sender's edges (the sum through the segment-sum
-    kernel over the senders' CSR view ``send_index``). Returns the per-node
-    position delta ``[N, 3]``."""
-    from ..graphs import segment
-
+    kernel over the senders' CSR view ``send_index``; under
+    :func:`edge_sharded`, the sums and counts of every rank). Returns the
+    per-node position delta ``[N, 3]``."""
     gate = F.relu(getattr(module, f"{prefix}_mlp_0")(edge_feat))
     gate = getattr(module, f"{prefix}_mlp_out")(gate)
     if tanh_bound:
         gate = torch.tanh(gate)
     trans = torch.clamp(coord_diff * gate, -100.0, 100.0) * edge_mask[:, None]
-    agg = segment.segment_sum(trans, senders, num_nodes, index=send_index)
-    cnt = segment.segment_count(senders, num_nodes, weights=edge_mask)
+    agg = edge_segment_sum(trans, senders, num_nodes, index=send_index)
+    cnt = edge_segment_count(senders, num_nodes, weights=edge_mask)
     return agg / torch.clamp(cnt, min=1.0)[:, None]
 
 
@@ -553,7 +767,20 @@ __all__ = [
     "MLP",
     "MaskedBatchNorm",
     "coordinate_update_layers",
+    "all_edge_rows",
+    "edge_dropout",
+    "edge_gather",
+    "edge_operand",
+    "edge_segment_count",
+    "edge_segment_extreme",
+    "edge_segment_mean",
+    "edge_segment_softmax",
+    "edge_segment_std",
+    "edge_segment_sum",
+    "edge_shard",
+    "enter_edges",
     "equivariant_coordinate_update",
+    "exit_edges",
     "gather_ends",
     "get_activation",
     "get_loss",

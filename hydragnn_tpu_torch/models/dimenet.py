@@ -39,10 +39,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
 from ..ops.fused_scatter import gather_rows, gather_scatter_sum
-from .common import Dense
+from .common import Dense, all_edge_rows, edge_gather, edge_segment_sum, edge_shard
 from .radial import BesselBasis
 from .spherical import bessel_normalizers, spherical_basis, spherical_bessel_roots
 
@@ -93,10 +92,15 @@ class InteractionPPBlock(nn.Module):
         # triplet mixing: edge kj's message, weighted by the angular basis,
         # summed onto edge ji (one gather-scatter launch, a weight per
         # triplet and channel; pad triplets weigh 0). The basis is fp32 (its
-        # roots are), so a bf16 step mixes in fp32, as jnp promotes it
+        # roots are), so a bf16 step mixes in fp32, as jnp promotes it.
+        # Under edge sharding this rank's triplets feed its own ji edges
+        # and read kj edges of every rank: the messages of all edges,
+        # gathered (their gradient summed over the ranks, then each rank's
+        # block)
         weight = sbf_e * batch.triplet_mask[:, None]
         dtype = torch.promote_types(x_kj.dtype, weight.dtype)
-        x_kj = gather_scatter_sum(x_kj.to(dtype), batch.idx_kj, batch.idx_ji, batch.num_edges,
+        x_kj = all_edge_rows(x_kj.to(dtype))
+        x_kj = gather_scatter_sum(x_kj, batch.idx_kj, batch.idx_ji, batch.num_edges,
                                   weight=weight.to(dtype), index=ji_idx, send_index=kj_idx)
         h = x_ji + F.silu(self.lin_up(x_kj))
         for i in range(self.num_before_skip):
@@ -159,16 +163,20 @@ class DimeNetConv(nn.Module):
         # backward of the gathers by sender; the triplet views carry the
         # mixing (idx_ji) and its backward (idx_kj), which every layer takes
         # in training (lin_kj sits in front of the mixing)
+        shard = edge_shard()
         recv_idx, ji_idx, send_idx, kj_idx = batch.views(("receivers", "idx_ji"),
-                                                         ("senders", "idx_kj"))
+                                                         ("senders", "idx_kj"), shard)
 
         vec = batch.edge_vectors(recv_idx, send_idx)
         dist = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-18)
 
-        # the angle at the shared vertex j of each triplet (module docstring)
+        # the angle at the shared vertex j of each triplet (module docstring);
+        # under edge sharding its kj edge may be another rank's
         tm = batch.triplet_mask > 0
+        vec_all = all_edge_rows(vec)
+        dist_all = torch.sqrt(torch.sum(vec_all * vec_all, dim=-1) + 1e-18)
         pos_ji = gather_rows(vec, batch.idx_ji, ji_idx)
-        pos_kj = gather_rows(vec, batch.idx_kj, kj_idx)
+        pos_kj = gather_rows(vec_all, batch.idx_kj, kj_idx)
         pos_ki = pos_kj + pos_ji
         a = torch.where(tm, torch.sum(pos_ji * pos_ki, dim=-1), torch.ones_like(tm, dtype=vec.dtype))
         cr = torch.linalg.cross(pos_ji, pos_ki, dim=-1)
@@ -178,11 +186,11 @@ class DimeNetConv(nn.Module):
         angle = torch.atan2(b, a)
 
         rbf = self.rbf(dist)
-        sbf = spherical_basis(gather_rows(dist, batch.idx_kj, kj_idx), angle, self.sbf_roots,
+        sbf = spherical_basis(gather_rows(dist_all, batch.idx_kj, kj_idx), angle, self.sbf_roots,
                               self.sbf_norms, self.cutoff, self.envelope_exponent)
 
         h = self.lin_node(inv)
-        feats = [gather_rows(h, batch.senders, send_idx), gather_rows(h, batch.receivers, recv_idx),
+        feats = [edge_gather(h, batch.senders, send_idx), edge_gather(h, batch.receivers, recv_idx),
                  F.silu(self.emb_lin_rbf(rbf))]
         if self.edge_dim:
             feats.append(batch.edge_attr)
@@ -190,7 +198,7 @@ class DimeNetConv(nn.Module):
         x_edge = self.interaction(x_edge, rbf, sbf, batch, ji_idx, kj_idx)
 
         x_gated = self.out_lin_rbf(rbf) * x_edge * batch.edge_mask[:, None]
-        node_x = segment.segment_sum(x_gated, batch.receivers, batch.num_nodes, index=recv_idx)
+        node_x = edge_segment_sum(x_gated, batch.receivers, batch.num_nodes, index=recv_idx)
         node_x = F.silu(self.out_lin_0(self.out_lin_up(node_x)))
         return self.out_lin(node_x), equiv
 

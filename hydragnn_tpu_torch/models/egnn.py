@@ -28,10 +28,9 @@ import torch
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from ..ops.fused_scatter import gather_rows
-from .common import MLP, coordinate_update_layers, equivariant_coordinate_update
+from .common import (MLP, coordinate_update_layers, edge_gather, edge_segment_sum,
+                     equivariant_coordinate_update)
 
 
 class EGNNConv(nn.Module):
@@ -72,10 +71,10 @@ class EGNNConv(nn.Module):
         send_idx = batch.csr("senders") if on_card else None
         recv_idx = batch.csr("receivers") if on_card else None
 
-        vec = gather_rows(equiv, r, recv_idx) - gather_rows(equiv, s, send_idx) + batch.edge_shifts
+        vec = edge_gather(equiv, r, recv_idx) - edge_gather(equiv, s, send_idx) + batch.edge_shifts
         lengths = torch.sqrt(torch.sum(vec * vec, dim=-1, keepdim=True) + 1e-18)
         coord_diff = vec / (lengths + 1.0)  # normalize=True, eps=1.0
-        feats = [gather_rows(inv, s, send_idx), gather_rows(inv, r, recv_idx), lengths]
+        feats = [edge_gather(inv, s, send_idx), edge_gather(inv, r, recv_idx), lengths]
         if self.edge_dim:
             feats.append(batch.edge_attr)
         edge_in = torch.cat(feats, dim=-1)
@@ -84,7 +83,7 @@ class EGNNConv(nn.Module):
             equiv = equiv + equivariant_coordinate_update(
                 self, m, coord_diff, s, batch.edge_mask, n, tanh_bound=True,
                 prefix="coord_mlp", send_index=send_idx)
-        agg = segment.segment_sum(m * batch.edge_mask[:, None], s, n, index=send_idx)
+        agg = edge_segment_sum(m * batch.edge_mask[:, None], s, n, index=send_idx)
         h = self.node_mlp(torch.cat([inv, agg], dim=-1))
         return h, equiv
 

@@ -24,6 +24,17 @@ feature is the mean of its node's incoming real edges' (PyG's
 receiver with the segment-sum kernel (two launches a layer, as the JAX
 model recomputes them per layer), divided by the degree clamped at 1; the
 ``self_loop_pad`` slots get zeros.
+
+Under edge sharding (``models/common.py``'s edge-space helpers) each rank
+holds its block of the edges and its block of the layout's tail (the
+alignment slots of the whole batch's edge count and the self loops, cut
+into one block per rank: ``graphs/graph.py::loop_tail``). The softmax is
+B3's split form (each rank's per-receiver statistics, combined over the
+ranks, then the normalisation), the aggregation and the self loops' mean
+edge feature are summed over the ranks, and the attention dropout's mask is
+drawn over the whole layout, so every rank keeps the one-device step's
+mask rows. At one rank the layout, the softmax's bits and the mask are the
+one-device step's.
 """
 
 from __future__ import annotations
@@ -34,10 +45,10 @@ import torch
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
-from ..graphs.graph import GraphBatch
-from ..ops.fused_scatter import gather_rows
-from .common import Dense, Dropout, lecun_normal_, member_exact
+from ..graphs.graph import GraphBatch, loop_tail, loop_tail_mask
+from .common import (Dense, Dropout, edge_dropout, edge_gather, edge_operand,
+                     edge_segment_softmax, edge_segment_sum, edge_shard, enter_edges,
+                     lecun_normal_, member_exact)
 
 HEADS = 6  # the reference GAT stack hard-codes 6 attention heads
 NEGATIVE_SLOPE = 0.05
@@ -48,6 +59,7 @@ class GATConv(nn.Module):
     """Parameters ``lin_l``, ``lin_r`` (``in -> 6 * hidden``), ``att``
     ``[6, hidden]`` (flax's lecun-normal over its first axis) and, with edge
     features, ``lin_edge`` (``edge_dim -> 6 * hidden``)."""
+
 
     def __init__(self, spec: ModelSpec, layer: int, in_features: int,
                  out_dim: int | None = None, generator: torch.Generator | None = None):
@@ -72,14 +84,18 @@ class GATConv(nn.Module):
         n, f = batch.num_nodes, self.hidden
         x_l = self.lin_l(inv).reshape(n, HEADS, f)
         x_r = self.lin_r(inv).reshape(n, HEADS, f)
-        senders, receivers = batch.self_loop_edges()
-        sl_pad = senders.shape[0] - batch.num_edges - n
+        # under edge sharding over several ranks, this rank's share of the
+        # whole batch's layout: its edges and its block of the tail
+        shard = edge_shard() or (1, 0)
+        split = shard[0] > 1
+        senders, receivers = batch.self_loop_edges(shard)
         mask = batch.edge_mask
-        e_mask = torch.cat([mask, mask.new_zeros(sl_pad), mask.new_ones(n)])
+        e_mask = torch.cat([mask, loop_tail_mask(batch.num_edges, n, *shard,
+                                                 device=mask.device).to(mask.dtype)])
         on_card = inv.is_cuda
-        index = batch.csr("loop_receivers") if on_card else None
+        index = batch.csr("loop_receivers", shard) if on_card else None
         # the senders' view serves only the gradient of the gather
-        send_index = (batch.csr("loop_senders")
+        send_index = (batch.csr("loop_senders", shard)
                       if on_card and torch.is_grad_enabled() and x_l.requires_grad else None)
 
         # gather_rows, not x_l[senders]: autograd's backward of advanced
@@ -87,38 +103,64 @@ class GATConv(nn.Module):
         # duplicate ids one by one, and the dummy node N-1 sends ~11.5k
         # entries at the top QM9 bucket (a bf16 train step's backward took
         # 93.6 ms on an H100)
-        x_ls = gather_rows(x_l, senders, send_index)
-        z = x_ls + gather_rows(x_r, receivers, index)
+        x_ls = edge_gather(x_l, senders, send_index)
+        z = x_ls + edge_gather(x_r, receivers, index)
         if self.lin_edge is not None:
-            z = z + self.lin_edge(self._loop_edge_attr(batch, sl_pad)).reshape(-1, HEADS, f)
+            z = z + self.lin_edge(self._loop_edge_attr(batch, shard)).reshape(-1, HEADS, f)
         # jax.nn.leaky_relu: where(z >= 0, z, slope * z), whose gradient at
         # z = 0 is 1 (F.leaky_relu's is the slope; z is exactly 0 on every
         # edge between zero-feature nodes while the biases are 0)
         z = torch.where(z >= 0, z, NEGATIVE_SLOPE * z)
         dtype = torch.promote_types(z.dtype, self.att.dtype)  # as jnp.einsum promotes
         logits = member_exact(functools.partial(torch.einsum, "ehf,hf->eh"), z.to(dtype),
-                              self.att.to(dtype))
+                              edge_operand(self.att, z).to(dtype))
         logits = torch.where(e_mask[:, None] > 0, logits, MASK_FILL)
-        alpha = segment.segment_softmax(logits, receivers, n, index=index)
+        alpha = edge_segment_softmax(logits, receivers, n, index=index)
         alpha = alpha * e_mask[:, None]
-        alpha = self.attn_drop(alpha, train, generator)
+        total, rows = (self._global_rows(batch, shard, alpha.device)
+                       if split and train and self.attn_drop.rate > 0 else (None, None))
+        alpha = edge_dropout(self.attn_drop, alpha, train, generator, total, rows)
 
         msg = x_ls * alpha[:, :, None]
-        out = segment.segment_sum(msg, receivers, n, index=index)  # [N, heads, F]
+        out = edge_segment_sum(msg, receivers, n, index=index)  # [N, heads, F]
         out = out.reshape(n, HEADS * f) if self.concat else out.mean(dim=1)
         return out, equiv
 
     @staticmethod
-    def _loop_edge_attr(batch: GraphBatch, sl_pad: int) -> torch.Tensor:
+    def _global_rows(batch: GraphBatch, shard, device) -> tuple[int, torch.Tensor]:
+        """The whole batch's layout's row count, and each row of this rank's
+        share in it (its edges' block, then its tail block; -1 past the
+        tail): the attention dropout's mask is drawn over the whole
+        layout."""
+        world, rank = shard
+        e, n = batch.num_edges, batch.num_nodes
+        slots, start, rows = loop_tail(e, n, world, rank)
+        t = torch.arange(start, start + rows, device=device)
+        tail = torch.where(t < slots + n, world * e + t, torch.full_like(t, -1))
+        return (world * e + slots + n,
+                torch.cat([torch.arange(rank * e, (rank + 1) * e, device=device), tail]))
+
+    @staticmethod
+    def _loop_edge_attr(batch: GraphBatch, shard) -> torch.Tensor:
         """The extended layout's edge features: the real edges', zeros on
-        the ``sl_pad`` slots, and each node's mean incoming real edge
-        feature on its self loop."""
+        the alignment slots, and each node's mean incoming real edge feature
+        on its self loop (under edge sharding, the means over every rank's
+        edges, on this rank's share of the layout)."""
         n, ea, mask = batch.num_nodes, batch.edge_attr, batch.edge_mask
         index = batch.csr("receivers") if ea.is_cuda else None
-        ea_sum = segment.segment_sum(ea * mask[:, None], batch.receivers, n, index=index)
-        deg = segment.segment_sum(mask[:, None], batch.receivers, n, index=index)
+        ea_sum = edge_segment_sum(ea * mask[:, None], batch.receivers, n, index=index)
+        deg = edge_segment_sum(mask[:, None], batch.receivers, n, index=index)
         self_ea = ea_sum / torch.clamp(deg, min=1.0)
-        return torch.cat([ea, ea.new_zeros((sl_pad, ea.shape[1])), self_ea])
+        # this rank's tail block: its self loops are a contiguous run of
+        # nodes between alignment or padding slots (one rank: the slots,
+        # then every node)
+        slots, start, rows = loop_tail(batch.num_edges, n, *shard)
+        a = min(max(slots - start, 0), rows)
+        b = min(max(slots + n - start, 0), rows)
+        lo = start + a - slots
+        loops = enter_edges(self_ea)[lo:lo + b - a]
+        return torch.cat([ea, ea.new_zeros((a, ea.shape[1])), loops,
+                          ea.new_zeros((rows - b, ea.shape[1]))])
 
 
 __all__ = ["GATConv", "HEADS", "NEGATIVE_SLOPE"]

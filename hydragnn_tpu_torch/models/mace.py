@@ -47,10 +47,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import NUM_ELEMENTS, GraphBatch
 from ..ops.fused_scatter import gather_rows
-from .common import Dense, lecun_normal_
+from .common import Dense, edge_gather, edge_segment_sum, lecun_normal_
 from .harmonics import (coupling_paths, gaunt_buffers, gaunt_name, spherical_harmonics,
                         tensor_product)
 from .radial import BesselBasis, ChebyshevBasis, GaussianSmearing, polynomial_cutoff
@@ -225,12 +224,12 @@ class MACEConv(nn.Module):
             h = F.silu(getattr(self, f"radial_mlp_{i}")(h))
         path_w = self.radial_out(h).reshape(-1, len(self.paths), c)  # [E, P, C]
 
-        sender_feats = {l: gather_rows(f, batch.senders, send_idx) for l, f in feats.items()}
+        sender_feats = {l: edge_gather(f, batch.senders, send_idx) for l, f in feats.items()}
         sh = {l: y[l][:, :, None] for l in range(self.max_ell + 1)}
         em = batch.edge_mask[:, None, None]
         weights = {p: path_w[:, i, None, :] * em for i, p in enumerate(self.paths)}
         msgs = tensor_product(sender_feats, sh, node_ell, self._table, weights)
-        agg = {l: segment.segment_sum(m, batch.receivers, batch.num_nodes, index=recv_idx)
+        agg = {l: edge_segment_sum(m, batch.receivers, batch.num_nodes, index=recv_idx)
                / self.avg_nbr for l, m in msgs.items()}
         agg = self.linear_post(agg)
 

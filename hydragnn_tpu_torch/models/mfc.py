@@ -4,7 +4,8 @@ Duvenaud et al.).
 Counterpart of ``hydragnn_tpu/models/mfc.py``: ``h_i' = h_i W_root[d_i] +
 (sum_j h_j) W_nbr[d_i] + b[d_i]`` with a weight pair and a bias per
 in-degree ``d_i``, clamped to ``[0, max_neighbours]`` (10 when unset). The
-neighbour sum is the CSR gather-scatter kernel.
+neighbour sum is the CSR gather-scatter kernel; under edge sharding the sum
+and the degree are every rank's.
 
 The JAX package gathers the banks by degree (``w_root[deg]``, ``[N, in,
 hidden]``) and contracts per node. In PyTorch that gather would build a
@@ -23,9 +24,8 @@ import torch
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from .common import lecun_normal_, neighbour_sum
+from .common import edge_segment_count, lecun_normal_, neighbour_sum
 
 
 def degree_bank_product(x: torch.Tensor, onehot: torch.Tensor,
@@ -65,7 +65,7 @@ class MFCConv(nn.Module):
     def forward(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
                 train: bool = False, generator: torch.Generator | None = None):
         agg = neighbour_sum(inv, batch)
-        deg = segment.segment_count(batch.receivers, batch.num_nodes, weights=batch.edge_mask)
+        deg = edge_segment_count(batch.receivers, batch.num_nodes, weights=batch.edge_mask)
         deg_idx = torch.clamp(deg.to(torch.int64), 0, self.max_deg)
         # the one-hot as a comparison: nothing here waits for the host
         onehot = deg_idx[:, None] == torch.arange(self.max_deg + 1, device=deg_idx.device)

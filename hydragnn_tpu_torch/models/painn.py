@@ -34,10 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from ..ops.fused_scatter import gather_rows
-from .common import Dense
+from .common import Dense, edge_gather, edge_segment_sum
 from .radial import cosine_cutoff, sinc_expansion
 
 
@@ -67,14 +65,14 @@ class PainnMessage(nn.Module):
         if self.edge_dim:
             filter_w = filter_w * self.edge_filter_1(F.silu(self.edge_filter_0(batch.edge_attr)))
         scalar_out = self.scalar_mlp_1(F.silu(self.scalar_mlp_0(s)))
-        filter_out = filter_w * gather_rows(scalar_out, batch.receivers, recv_idx)
+        filter_out = filter_w * edge_gather(scalar_out, batch.receivers, recv_idx)
         gate_v, gate_edge, msg_s = torch.split(filter_out, self.node_size, dim=-1)
-        v_msg = (gather_rows(v, batch.receivers, recv_idx) * gate_v[:, None, :]
+        v_msg = (edge_gather(v, batch.receivers, recv_idx) * gate_v[:, None, :]
                  + gate_edge[:, None, :] * unit_vec[:, :, None])
         em = batch.edge_mask
         n = batch.num_nodes
-        ds = segment.segment_sum(msg_s * em[:, None], batch.senders, n, index=send_idx)
-        dv = segment.segment_sum(v_msg * em[:, None, None], batch.senders, n, index=send_idx)
+        ds = edge_segment_sum(msg_s * em[:, None], batch.senders, n, index=send_idx)
+        dv = edge_segment_sum(v_msg * em[:, None, None], batch.senders, n, index=send_idx)
         return s + ds, v + dv
 
 

@@ -21,10 +21,10 @@ import torch
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
 from ..ops.fused_scatter import SegmentIndex
-from .common import Dense, gather_ends
+from .common import (Dense, edge_segment_count, edge_segment_extreme, edge_segment_mean,
+                     edge_segment_std, gather_ends)
 
 AGGREGATORS = ("mean", "min", "max", "std")
 SCALERS = ("identity", "amplification", "attenuation", "linear")
@@ -67,13 +67,15 @@ def degree_scaled_aggregate(msg: torch.Tensor, receivers: torch.Tensor,
     clamped at 1 before the scalers (a node without edges would otherwise
     be attenuated by ``delta / log 1``). ``receivers`` are the ids the
     messages aggregate by (PNAEq's: the senders); ``index``: their CSR view
-    for the segment sums."""
-    deg = segment.segment_count(receivers, num_nodes, weights=edge_mask)
+    for the segment sums. Under edge sharding every statistic is every
+    rank's: the sums and counts summed before the divisions, the extremes
+    reduced before their non-finite results become 0."""
+    deg = edge_segment_count(receivers, num_nodes, weights=edge_mask)
     agg = torch.cat([
-        segment.segment_mean(msg * edge_mask[:, None], receivers, num_nodes, index=index),
-        segment.segment_min(msg, receivers, num_nodes),
-        segment.segment_max(msg, receivers, num_nodes),
-        segment.segment_std(msg, receivers, num_nodes, index=index),
+        edge_segment_mean(msg * edge_mask[:, None], receivers, num_nodes, index=index),
+        edge_segment_extreme(msg, receivers, num_nodes, "min"),
+        edge_segment_extreme(msg, receivers, num_nodes, "max"),
+        edge_segment_std(msg, receivers, num_nodes, index=index),
     ], dim=-1)
     deg_c = torch.clamp(deg, min=1.0)
     log_deg = torch.log(deg_c + 1.0)
@@ -93,6 +95,7 @@ class PNAConv(nn.Module):
     """Parameters ``pre_nn`` (``2 in + edge_dim -> in``: both ends' rows and
     the edge features), ``post_nn`` (``17 in -> hidden``: the input and its
     16 scaled aggregates) and ``lin``."""
+
 
     def __init__(self, spec: ModelSpec, layer: int, in_features: int,
                  out_dim: int | None = None, generator: torch.Generator | None = None):

@@ -26,10 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from ..ops.fused_scatter import gather_rows
-from .common import Dense
+from .common import Dense, edge_gather, edge_segment_sum
 from .painn import PainnUpdate, embed_outputs, output_embeddings
 from .pna import (AGGREGATORS, PNAEQ_SCALERS, avg_degree_linear, degree_scaled_aggregate,
                   log_degree_mean)
@@ -80,8 +78,8 @@ class PNAEqConv(nn.Module):
         unit_vec = vec / (dist[:, None] + 1e-9)
         rbf = self.rbf(dist)
 
-        feats = [gather_rows(inv, batch.senders, send_idx),
-                 gather_rows(inv, batch.receivers, recv_idx), torch.tanh(self.rbf_emb(rbf))]
+        feats = [edge_gather(inv, batch.senders, send_idx),
+                 edge_gather(inv, batch.receivers, recv_idx), torch.tanh(self.rbf_emb(rbf))]
         if self.edge_encoder is not None:
             feats.append(self.edge_encoder(batch.edge_attr))
         h = torch.cat(feats, dim=-1)
@@ -89,7 +87,7 @@ class PNAEqConv(nn.Module):
         m = self.scalar_mlp_2(F.silu(self.scalar_mlp_1(torch.tanh(m))))
         m = m * self.rbf_lin(rbf)
         gate_v, gate_edge, msg_s = torch.split(m, ns, dim=-1)
-        v_msg = (gather_rows(v, batch.receivers, recv_idx) * gate_v[:, None, :]
+        v_msg = (edge_gather(v, batch.receivers, recv_idx) * gate_v[:, None, :]
                  + gate_edge[:, None, :] * unit_vec[:, :, None])
 
         em = batch.edge_mask
@@ -97,8 +95,8 @@ class PNAEqConv(nn.Module):
                                       self.delta, avg_deg_lin=self.avg_deg_lin, index=send_idx,
                                       scalers=PNAEQ_SCALERS)
         delta_x = self.post_nn(torch.cat([inv, agg], dim=-1))
-        dv = segment.segment_sum(v_msg * em[:, None, None], batch.senders, batch.num_nodes,
-                                 index=send_idx)
+        dv = edge_segment_sum(v_msg * em[:, None, None], batch.senders, batch.num_nodes,
+                              index=send_idx)
         s, v = self.update(inv + delta_x, v + dv)
         return embed_outputs(self, s, v, self.last_layer)
 

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .common import edge_operand
+
 
 def _linspace_fp32(start: float, stop: float, num: int) -> np.ndarray:
     """``jnp.linspace(start, stop, num)``'s formula in float32: ``start *
@@ -102,7 +104,8 @@ class BesselBasis(nn.Module):
     def forward(self, dist: torch.Tensor) -> torch.Tensor:
         d = dist.reshape(-1) / self.cutoff
         env = polynomial_envelope(d, self.envelope_exponent)
-        return env[:, None] * torch.sin(self.freq[None, :] * d[:, None])
+        freq = edge_operand(self.freq, d)  # read on edge rows
+        return env[:, None] * torch.sin(freq[None, :] * d[:, None])
 
 
 def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:

@@ -4,6 +4,8 @@ Counterpart of ``hydragnn_tpu/models/sage.py``: ``lin_root(h_i) +
 lin_nbr(mean_j h_j)``. The neighbour sum is the CSR gather-scatter kernel
 with the edge mask as the per-edge weight, divided by the masked in-degree
 (clamped at 1e-12, so a node without edges gets 0). Positions pass through.
+Under edge sharding the sum and the degree are every rank's
+(``models/common.py``'s edge-space helpers).
 """
 
 from __future__ import annotations
@@ -12,9 +14,8 @@ import torch
 from torch import nn
 
 from ..config.schema import ModelSpec
-from ..graphs import segment
 from ..graphs.graph import GraphBatch
-from .common import Dense, neighbour_sum
+from .common import Dense, edge_segment_count, neighbour_sum
 
 
 class SAGEConv(nn.Module):
@@ -34,7 +35,7 @@ class SAGEConv(nn.Module):
     def forward(self, inv: torch.Tensor, equiv: torch.Tensor, batch: GraphBatch,
                 train: bool = False, generator: torch.Generator | None = None):
         total = neighbour_sum(inv, batch)
-        count = segment.segment_count(batch.receivers, batch.num_nodes, weights=batch.edge_mask)
+        count = edge_segment_count(batch.receivers, batch.num_nodes, weights=batch.edge_mask)
         agg = total / torch.clamp(count, min=1e-12).to(total.dtype)[:, None]
         return self.lin_root(inv) + self.lin_nbr(agg), equiv
 

@@ -28,8 +28,9 @@ from torch import nn
 
 from ..config.schema import ModelSpec
 from ..graphs.graph import GraphBatch
-from ..ops.fused_scatter import gather_rows, gather_scatter_sum
-from .common import Dense, coordinate_update_layers, equivariant_coordinate_update
+from ..ops.fused_scatter import gather_scatter_sum
+from .common import (Dense, coordinate_update_layers, edge_gather, enter_edges,
+                     equivariant_coordinate_update, exit_edges)
 from .radial import GaussianSmearing, cosine_cutoff, shifted_softplus
 
 
@@ -72,7 +73,7 @@ class SchNetConv(nn.Module):
         send_idx = (batch.csr("senders")
                     if on_card and (self.equivariant or torch.is_grad_enabled()) else None)
 
-        vec = gather_rows(equiv, r, recv_idx) - gather_rows(equiv, s, send_idx) + batch.edge_shifts
+        vec = edge_gather(equiv, r, recv_idx) - edge_gather(equiv, s, send_idx) + batch.edge_shifts
         dist = torch.sqrt(torch.sum(vec * vec, dim=-1) + 1e-12)
         rbf = self.smearing(dist)
         if self.edge_dim:
@@ -80,9 +81,10 @@ class SchNetConv(nn.Module):
         w = self.filter2(shifted_softplus(self.filter1(rbf)))
         w = w * cosine_cutoff(dist, self.cutoff)[:, None]
 
-        x = self.lin1(inv)
-        agg = gather_scatter_sum(x, s, r, n, weight=(w * batch.edge_mask[:, None]).to(x.dtype),
-                                 index=recv_idx, send_index=send_idx)
+        x = enter_edges(self.lin1(inv))
+        agg = exit_edges(gather_scatter_sum(x, s, r, n,
+                                            weight=(w * batch.edge_mask[:, None]).to(x.dtype),
+                                            index=recv_idx, send_index=send_idx))
         out = self.lin2(agg)
         if self.equivariant:
             coord_diff = vec / (dist[:, None] + 1.0)

@@ -38,6 +38,8 @@ SOURCES = {
     },
     "segment_softmax.cu": {
         "segment_softmax_fwd": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp],
+        "segment_softmax_stats": [_i32] + [_vp] * 9 + [_i32] * 4 + [_vp],
+        "segment_softmax_normalise": [_i32] + [_vp] * 8 + [_i32] * 4 + [_vp],
         "masked_softmax_fwd": [_i32, _vp, _vp, _vp, _i32, _i32, _i32, _vp],
     },
     "cell_list.cu": {

@@ -78,8 +78,8 @@ from ..telemetry.ledger import kernel_region
 # own), counts into that capture's record instead, which every replay of
 # the graph adds here (:func:`add_launches`).
 LAUNCHES = {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 0,
-            "segment_softmax": 0, "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
-            "fp8_dense": 0}
+            "segment_softmax": 0, "segment_softmax_stats": 0, "segment_softmax_normalise": 0,
+            "masked_softmax": 0, "cell_list": 0, "quant_dense": 0, "fp8_dense": 0}
 _LAUNCHES_LOCK = threading.Lock()
 _SINKS: dict = {}  # guarded-by: _LAUNCHES_LOCK; CUDA stream handle -> counts
 
@@ -438,6 +438,10 @@ class _GatherScatterSum(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         h, weight, senders, receivers, num_nodes, index, send_index, counter = inputs
         ctx.num_nodes = num_nodes
+        # the rows of h, which the transposed launch writes: the output's
+        # rows on one device; under edge sharding DimeNet's triplets read
+        # every rank's edges and write this rank's
+        ctx.h_rows = h.shape[0]
         ctx.index = index
         ctx.send_index = send_index
         ctx.counter = counter
@@ -471,10 +475,10 @@ class _GatherScatterSum(torch.autograd.Function):
             # the JAX package casts dout to h's dtype first (fused_scatter.py:306)
             g = dout.to(ctx.h_dtype)
             if ctx.counter == "gather_scatter_sum":
-                dh = gather_scatter_sum_bwd(g, senders, receivers, ctx.num_nodes, weight,
+                dh = gather_scatter_sum_bwd(g, senders, receivers, ctx.h_rows, weight,
                                             send_index=ctx.send_index, index=ctx.index)
             else:  # the transpose of the transposed application
-                dh = gather_scatter_sum(g, receivers, senders, ctx.num_nodes, weight,
+                dh = gather_scatter_sum(g, receivers, senders, ctx.h_rows, weight,
                                         index=ctx.send_index, send_index=ctx.index)
         if h is not None:
             acc = accumulate_dtype(h.dtype)

@@ -12,6 +12,15 @@ type, both without atomics:
   (:class:`~hydragnn_tpu_torch.ops.fused_scatter.SegmentIndex`: its piece
   table and per-row tickets), the same 32-entry pieces as the
   segment-reduction kernels, in two launches per call.
+* :func:`segment_softmax_stats` and :func:`segment_softmax_normalise` —
+  the segment softmax in split form, for segments whose entries are spread
+  over the ranks of the edge-sharded route: every row's per-column ``(M,
+  S)`` over this rank's entries (``M`` the raw max, -inf for a row without
+  entries here; ``S`` the sum of ``exp(x - M)``, ``M`` taken as 0 where not
+  finite), then, after the ranks' statistics are combined
+  (:func:`combine_softmax_stats`), ``exp(x - M) / max(S, 1e-12)`` over every
+  entry. Two launches of the same kernel source as the fused softmax; at
+  one rank they give its bits (:func:`split_segment_softmax`).
 * :func:`masked_softmax` — ``softmax(where(mask > 0, x, -1e9))`` over the
   last axis of ``[G, ..., m]`` logits with a per-graph mask ``[G, m]``
   (GPS's dense per-graph attention blocks; the Pallas
@@ -99,6 +108,51 @@ def plain_segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     return (ex / torch.clamp(denom, min=_DENOM_MIN)[ids]).to(logits.dtype)
 
 
+def _finite_or_zero(m: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
+def plain_segment_softmax_stats(logits: torch.Tensor, segment_ids: torch.Tensor,
+                                num_segments: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(M, S)``, each ``[num_segments, H]`` in fp32 (fp64 for fp64
+    logits): the raw segment max (-inf for an empty segment) and the sum of
+    ``exp(x - M)`` with ``M`` taken as 0 where not finite."""
+    x = logits.detach().to(accumulate_dtype(logits.dtype))
+    ids = segment_ids.long()
+    shape = (num_segments, x.shape[1])
+    seg_max = torch.full(shape, -float("inf"), dtype=x.dtype, device=x.device).scatter_reduce_(
+        0, ids[:, None].expand_as(x), x, reduce="amax", include_self=False)
+    ex = torch.exp(x - _finite_or_zero(seg_max)[ids])
+    denom = torch.zeros(shape, dtype=x.dtype, device=x.device).index_add_(0, ids, ex)
+    return seg_max, denom
+
+
+def plain_segment_softmax_normalise(logits: torch.Tensor, segment_ids: torch.Tensor,
+                                    seg_max: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
+    """``exp(x - M) / max(S, 1e-12)`` per entry from its segment's
+    statistics (``M`` taken as 0 where not finite), in fp32 (fp64 for fp64
+    logits), cast back to ``logits.dtype``."""
+    x = logits.detach().to(accumulate_dtype(logits.dtype))
+    ids = segment_ids.long()
+    ex = torch.exp(x - _finite_or_zero(seg_max.to(x.dtype))[ids])
+    return (ex / torch.clamp(denom.to(x.dtype), min=_DENOM_MIN)[ids]).to(logits.dtype)
+
+
+def combine_softmax_stats(seg_max: torch.Tensor, denom: torch.Tensor, reduce_max=None,
+                          reduce_sum=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ranks' statistics combined: ``M = max_r M_r`` (``reduce_max``),
+    taken as 0 where not finite, and ``S = sum_r S_r exp(M_r - M)``
+    (``reduce_sum``) over the ranks whose ``S_r > 0``, each ``M_r`` taken as
+    0 where not finite as its ``S_r`` was (the fused kernel's combiner of a
+    row's pieces). Without reducers, one rank's: ``M`` and ``S exp(0) = S``,
+    so the fused softmax's bits. Tensors, no autograd."""
+    m_all = seg_max if reduce_max is None else reduce_max(seg_max)
+    shift = _finite_or_zero(m_all)
+    part = torch.where(denom > 0, denom * torch.exp(_finite_or_zero(seg_max) - shift),
+                       torch.zeros_like(denom))
+    return shift, (part if reduce_sum is None else reduce_sum(part))
+
+
 def _graph_mask(mask: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``[G, m]`` mask broadcast over the middle axes of ``[G, ..., m]``."""
     return mask.reshape((mask.shape[0],) + (1,) * (logits.dim() - 2) + (mask.shape[1],))
@@ -118,22 +172,49 @@ def plain_masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tens
 
 
 def cost(kernel: str, *, rows: int, cols: int, itemsize: int = 4,
-         mask_bytes: int = 0) -> tuple[int, int]:
+         mask_bytes: int = 0, segments: int = 0) -> tuple[int, int]:
     """``(flops, bytes)`` of one call: the logits ``[rows, cols]`` read and
     the output written once (``itemsize`` bytes an entry), and a max,
     subtract, exp, add and divide per entry. ``segment_softmax``: ``rows``
     entries of ``cols`` heads and their int32 segment ids; ``masked_softmax``:
     ``rows`` rows of ``cols`` entries and the ``mask_bytes`` of the
-    one-byte-per-entry mask."""
+    one-byte-per-entry mask; ``segment_softmax_stats`` /
+    ``segment_softmax_normalise``: the split form's two entries over
+    ``rows`` entries and ``segments`` rows of statistics."""
     flops, logits = 5 * rows * cols, 2 * rows * cols * itemsize
     if kernel == "segment_softmax":
         return flops, logits + rows * 4
     if kernel == "masked_softmax":
         return flops, logits + mask_bytes
+    # the split form: the statistics [segments, cols] fp32, written by the
+    # first entry and read by the second; a max, subtract, exp and add per
+    # entry, then a subtract, exp and divide
+    stats = 2 * segments * cols * 4
+    if kernel == "segment_softmax_stats":
+        return 4 * rows * cols, rows * cols * itemsize + rows * 4 + stats
+    if kernel == "segment_softmax_normalise":
+        return 3 * rows * cols, logits + rows * 4 + stats
     raise ValueError(f"cost: unknown kernel {kernel!r}")
 
 
 # -- wrappers ----------------------------------------------------------------
+
+
+def _segment_args(name, logits, segment_ids, num_segments, index):
+    """A segment softmax entry's checks on the card (the fused form's and
+    the split form's); ``(dtype code, H, index)``, the index built where
+    none was given."""
+    _check_cuda(name, logits, segment_ids)
+    if logits.dim() != 2:
+        raise ValueError(f"{name}: logits must be [E, H], got {tuple(logits.shape)}")
+    code = _dtype_code(name, logits)
+    e, h = logits.shape
+    if segment_ids.shape[0] != e:
+        raise ValueError(f"{name}: {e} rows but {segment_ids.shape[0]} ids")
+    if index is None:
+        index = segment_index(segment_ids, num_segments)
+    _check_index(name, index, num_segments, e)
+    return code, h, index
 
 
 def _segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
@@ -153,16 +234,7 @@ def _segment_softmax_routed(logits, segment_ids, num_segments, index):
     name = "segment_softmax"
     if not _route(name, logits):
         return plain_segment_softmax(logits, segment_ids, num_segments)
-    _check_cuda(name, logits, segment_ids)
-    if logits.dim() != 2:
-        raise ValueError(f"{name}: logits must be [E, H], got {tuple(logits.shape)}")
-    code = _dtype_code(name, logits)
-    e, h = logits.shape
-    if segment_ids.shape[0] != e:
-        raise ValueError(f"{name}: {e} rows but {segment_ids.shape[0]} ids")
-    if index is None:
-        index = segment_index(segment_ids, num_segments)
-    _check_index(name, index, num_segments, e)
+    code, h, index = _segment_args(name, logits, segment_ids, num_segments, index)
     logits = logits.contiguous()
     out = torch.empty_like(logits)
     scratch = torch.empty(2 * (index.max_pieces + num_segments) * h, dtype=torch.float32,
@@ -179,6 +251,77 @@ def _segment_softmax_routed(logits, segment_ids, num_segments, index):
     _raise_on(name, status)
     _count_launch(name)
     return out
+
+
+def _segment_softmax_stats(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                           index: SegmentIndex | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first entry of the split form (no autograd); its :func:`cost`
+    goes to a counting ledger."""
+    name = "segment_softmax_stats"
+
+    def shapes():
+        return cost(name, rows=logits.shape[0], cols=logits.shape[1],
+                    itemsize=logits.element_size(), segments=num_segments)
+
+    with kernel_region(name, shapes):
+        if not _route(name, logits):
+            return plain_segment_softmax_stats(logits, segment_ids, num_segments)
+        code, h, index = _segment_args(name, logits, segment_ids, num_segments, index)
+        logits = logits.contiguous()
+        stats = torch.empty((2, num_segments, h), dtype=torch.float32, device=logits.device)
+        scratch = torch.empty(2 * index.max_pieces * h, dtype=torch.float32,
+                              device=logits.device)
+        from ._build import load
+
+        status = load().segment_softmax_stats(
+            code, logits.data_ptr(), index.ptr.data_ptr(), index.piece_ptr.data_ptr(),
+            index.piece_row.data_ptr(),
+            index.perm.data_ptr() if index.perm is not None else None,
+            stats[0].data_ptr(), stats[1].data_ptr(), scratch.data_ptr(),
+            index.tickets.data_ptr(), num_segments, index.max_pieces, PIECE_EDGES, h,
+            torch.cuda.current_stream(logits.device).cuda_stream,
+        )
+        _raise_on(name, status)
+        _count_launch(name)
+        return stats[0], stats[1]
+
+
+def _segment_softmax_normalise(logits: torch.Tensor, segment_ids: torch.Tensor,
+                               num_segments: int, shift: torch.Tensor, denom: torch.Tensor,
+                               index: SegmentIndex | None) -> torch.Tensor:
+    """The second entry of the split form (no autograd); its :func:`cost`
+    goes to a counting ledger."""
+    name = "segment_softmax_normalise"
+
+    def shapes():
+        return cost(name, rows=logits.shape[0], cols=logits.shape[1],
+                    itemsize=logits.element_size(), segments=num_segments)
+
+    with kernel_region(name, shapes):
+        if not _route(name, logits):
+            return plain_segment_softmax_normalise(logits, segment_ids, shift, denom)
+        code, h, index = _segment_args(name, logits, segment_ids, num_segments, index)
+        _check_cuda(name, logits, shift, denom)
+        if tuple(shift.shape) != (num_segments, h) or tuple(denom.shape) != (num_segments, h):
+            raise ValueError(f"{name}: statistics must be [{num_segments}, {h}], got "
+                             f"{tuple(shift.shape)} and {tuple(denom.shape)}")
+        logits = logits.contiguous()
+        shift = shift.to(torch.float32).contiguous()
+        denom = denom.to(torch.float32).contiguous()
+        out = torch.empty_like(logits)
+        from ._build import load
+
+        status = load().segment_softmax_normalise(
+            code, logits.data_ptr(), index.ptr.data_ptr(), index.piece_ptr.data_ptr(),
+            index.piece_row.data_ptr(),
+            index.perm.data_ptr() if index.perm is not None else None,
+            shift.data_ptr(), denom.data_ptr(), out.data_ptr(), num_segments,
+            index.max_pieces, PIECE_EDGES, h,
+            torch.cuda.current_stream(logits.device).cuda_stream,
+        )
+        _raise_on(name, status)
+        _count_launch(name)
+        return out
 
 
 def _masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -263,6 +406,46 @@ class _SegmentSoftmax(torch.autograd.Function):
         return ds.to(out.dtype), None, None, None
 
 
+class _SplitSegmentSoftmax(torch.autograd.Function):
+    """The segment softmax of this rank's entries of rows spread over a
+    process group's ranks: statistics, their combine over the ranks, the
+    normalisation. Its backward is the fused form's, with the segment sum
+    of ``s * dy`` summed over the ranks (``comm.exit_sum``) before it is
+    gathered back onto the entries."""
+
+    @staticmethod
+    def forward(logits, segment_ids, num_segments, index, group):
+        from ..parallel import comm
+
+        seg_max, denom = _segment_softmax_stats(logits, segment_ids, num_segments, index)
+        shift, denom = combine_softmax_stats(
+            seg_max, denom,
+            lambda t: comm.reduce_tensor(t, group, "max"),
+            lambda t: comm.reduce_tensor(t, group, "sum"))
+        return _segment_softmax_normalise(logits, segment_ids, num_segments, shift, denom,
+                                          index)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        logits, segment_ids, num_segments, index, group = inputs
+        ctx.num_segments = num_segments
+        ctx.index = index
+        ctx.group = group
+        ctx.save_for_backward(output, segment_ids)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from ..parallel.comm import exit_sum
+
+        out, segment_ids = ctx.saved_tensors
+        s = out.to(accumulate_dtype(out.dtype))
+        dy = dout.to(s.dtype)
+        t = exit_sum(fused_segment_sum(s * dy, segment_ids, ctx.num_segments, ctx.index),
+                     ctx.group)
+        ds = s * (dy - gather_rows(t, segment_ids, ctx.index))
+        return ds.to(out.dtype), None, None, None, None
+
+
 class _MaskedSoftmax(torch.autograd.Function):
     """``s = masked_softmax(x, mask)``; ``ds = s * (dy - sum_row(s * dy))`` in
     fp32 (fp64 for fp64), cast to the output's type (the JAX
@@ -303,6 +486,38 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segment
     return _SegmentSoftmax.apply(logits, segment_ids, num_segments, index)
 
 
+def split_segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                          index: SegmentIndex | None = None, group=None) -> torch.Tensor:
+    """:func:`segment_softmax` of this rank's entries when each segment's
+    entries are spread over ``group``'s ranks (the edge-sharded route):
+    :func:`segment_softmax_stats`, the ranks' statistics combined by one
+    all-reduce of the maxima and one of the rescaled sums
+    (:func:`combine_softmax_stats`), :func:`segment_softmax_normalise`.
+    With one rank it gives :func:`segment_softmax`'s bits, forward and
+    backward."""
+    return _SplitSegmentSoftmax.apply(logits, segment_ids, num_segments, index, group)
+
+
+def segment_softmax_stats(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                          index: SegmentIndex | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per segment and column of 2-D float ``logits`` ``[E, H]``: ``M``, the
+    raw max (-inf for a segment without entries), and ``S``, the sum of
+    ``exp(x - M)`` with ``M`` taken as 0 where not finite; fp32
+    ``[num_segments, H]`` each, summed in the fused kernel's order. Not
+    differentiable."""
+    return _segment_softmax_stats(logits, segment_ids, num_segments, index)
+
+
+def segment_softmax_normalise(logits: torch.Tensor, segment_ids: torch.Tensor,
+                              num_segments: int, seg_max: torch.Tensor, denom: torch.Tensor,
+                              index: SegmentIndex | None = None) -> torch.Tensor:
+    """``exp(x - M) / max(S, 1e-12)`` for every entry of ``logits`` from its
+    segment's statistics ``M``, ``S`` (``[num_segments, H]``; ``M`` taken as
+    0 where not finite), in ``logits.dtype``. Not differentiable."""
+    return _segment_softmax_normalise(logits, segment_ids, num_segments, seg_max, denom, index)
+
+
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """``softmax(where(mask > 0, logits, -1e9), axis=-1)`` of ``[G, ..., m]``
     float logits with the per-graph mask ``[G, m]``; differentiable in
@@ -313,10 +528,16 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "MASK_FILL",
     "SM_CERT_BLOCK",
+    "combine_softmax_stats",
     "cost",
     "masked_softmax",
     "plain_masked_softmax",
     "plain_segment_softmax",
+    "plain_segment_softmax_normalise",
+    "plain_segment_softmax_stats",
     "segment_softmax",
+    "segment_softmax_normalise",
+    "segment_softmax_stats",
     "self_loop_pad",
+    "split_segment_softmax",
 ]

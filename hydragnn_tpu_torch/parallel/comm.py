@@ -18,7 +18,13 @@ Each one is NCCL on the card and gloo on the CPU; none is a kernel.
   replicated tensor's gradient is whole on every rank; the exit sums the
   partial results forward and passes the (replicated) cotangent through;
 * :func:`gather_rows` all-gathers equal row blocks and hands each rank its
-  block of the (replicated) cotangent back;
+  block of the (replicated) cotangent back; behind an
+  :func:`enter_replicated` (DimeNet's triplets read edge rows of every
+  rank), the cotangent is summed over the ranks first;
+* :func:`all_reduce_extreme` is the max or min over the ranks, its
+  cotangent split among the ranks that hold the extreme as one device
+  splits it among tied entries; :func:`reduce_tensor` a reduction without
+  autograd (the split segment softmax's statistics);
 * :func:`enter_replicated` and :func:`gather_columns` are also Megatron's
   f/g pair around a column-parallel dense layer (the tensor-parallel route,
   ``parallel/tensor.py``): f, the identity forward and the all-reduce of
@@ -118,16 +124,35 @@ class _GatherColumns(torch.autograd.Function):
 
 class _AllReduceExtreme(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, op):
+    def forward(ctx, x, group, op, ties):
         out = x.contiguous().clone()
         dist.all_reduce(out, op=op, group=group)
-        ctx.save_for_backward(x, out)
+        ctx.group = group
+        ctx.save_for_backward(x, out, ties)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, out = ctx.saved_tensors
-        return g * (x == out).to(g.dtype), None, None
+        x, out, ties = ctx.saved_tensors
+        # each rank's share of the cotangent: its tied entries over every
+        # rank's (one device splits an extreme's gradient evenly among its
+        # tied entries); the total clamped at 1 where no rank holds it
+        # (non-finite entries), where the share is 0 too
+        share = torch.where(x == out, ties.to(g.dtype), torch.zeros_like(g))
+        total = torch.clamp(_sum(share, ctx.group), min=1.0)
+        return g * (share / total), None, None, None
+
+
+def reduce_tensor(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """A new tensor holding ``x`` reduced over the group's ranks (``op``
+    "sum" or "max"), without autograd; ``x`` when no group has been
+    formed."""
+    if not live():
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                    group=group)
+    return out
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -135,13 +160,19 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, group) if live() else x
 
 
-def all_reduce_extreme(x: torch.Tensor, group=None, kind: str = "max") -> torch.Tensor:
-    """Element-wise max (``kind="max"``) or min over the ranks; the
-    cotangent goes to the ranks that hold the extreme."""
+def all_reduce_extreme(x: torch.Tensor, group=None, kind: str = "max",
+                       ties: torch.Tensor | None = None) -> torch.Tensor:
+    """Element-wise max (``kind="max"``) or min over the ranks. The
+    cotangent goes to the ranks that hold the extreme, split among them in
+    proportion to ``ties`` (same shape as ``x``: how many of this rank's
+    entries each local extreme stands for, as a segment's max counts its
+    tied entries), so a cross-rank tie splits the gradient as one device
+    splits it among tied entries; without ``ties`` each holding rank counts
+    once."""
     if not live():
         return x
     op = dist.ReduceOp.MAX if kind == "max" else dist.ReduceOp.MIN
-    return _AllReduceExtreme.apply(x, group, op)
+    return _AllReduceExtreme.apply(x, group, op, torch.ones_like(x) if ties is None else ties)
 
 
 def enter_replicated(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -192,5 +223,5 @@ def sum_tensors(tensors: list[torch.Tensor], group=None) -> None:
 
 
 __all__ = ["all_reduce_extreme", "all_reduce_sum", "enter_replicated", "exit_sum",
-           "gather_columns", "gather_rows", "live", "rank_of", "send_recv", "sum_tensors",
-           "world_of"]
+           "gather_columns", "gather_rows", "live", "rank_of", "reduce_tensor", "send_recv",
+           "sum_tensors", "world_of"]

@@ -89,7 +89,8 @@ def _parallel_request(config: dict) -> dict:
     edge = bool(arch.get("edge_sharding"))
     if edge and str(arch.get("edge_sharding")).lower() in ("full", "nodes"):
         raise NotImplementedError("edge_sharding: 'full' (node fields sharded at rest) is not "
-                                  "ported (a later slice: parallelism)")
+                                  "ported; it comes with the next parallelism slice, beside "
+                                  "tensor parallelism of the stacks other than GIN")
     return {"halo": halo, "edge": edge, "fsdp": fsdp, "mode": par_mode}
 
 

@@ -275,8 +275,10 @@ def test_gin_train_step_launches_on_card(batch):
     metrics = step(state, b.to(dev))
     torch.cuda.synchronize()
     assert fs.LAUNCHES == {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 3,
-                           "segment_sum": 1, "segment_softmax": 0, "masked_softmax": 0,
-                           "cell_list": 0, "quant_dense": 0, "fp8_dense": 0}
+                           "segment_sum": 1, "segment_softmax": 0,
+                           "segment_softmax_stats": 0, "segment_softmax_normalise": 0,
+                           "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
+                           "fp8_dense": 0}
     assert bool(torch.isfinite(metrics["loss"]))
     assert all(p.grad is not None and p.grad.dtype == torch.float32
                for p in model.parameters())
@@ -426,18 +428,18 @@ def test_masked_softmax_backward_on_card():
 @pytest.mark.parametrize("arch,want", [
     ({"mpnn_type": "GAT"},
      {"gather_scatter_sum": 0, "gather_scatter_sum_bwd": 0, "segment_sum": 17,
-      "segment_softmax": 4, "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
-      "fp8_dense": 0}),
+      "segment_softmax": 4, "segment_softmax_stats": 0, "segment_softmax_normalise": 0,
+      "masked_softmax": 0, "cell_list": 0, "quant_dense": 0, "fp8_dense": 0}),
     ({"global_attn_engine": "GPS", "global_attn_heads": 4, "pe_dim": 4,
       "max_graph_nodes": 32},
      {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 4, "segment_sum": 1,
-      "segment_softmax": 0, "masked_softmax": 4, "cell_list": 0, "quant_dense": 0,
-      "fp8_dense": 0}),
+      "segment_softmax": 0, "segment_softmax_stats": 0, "segment_softmax_normalise": 0,
+      "masked_softmax": 4, "cell_list": 0, "quant_dense": 0, "fp8_dense": 0}),
     ({"global_attn_engine": "GPS", "global_attn_type": "performer", "global_attn_heads": 4,
       "pe_dim": 4, "max_graph_nodes": 32},
      {"gather_scatter_sum": 4, "gather_scatter_sum_bwd": 4, "segment_sum": 17,
-      "segment_softmax": 0, "masked_softmax": 0, "cell_list": 0, "quant_dense": 0,
-      "fp8_dense": 0}),
+      "segment_softmax": 0, "segment_softmax_stats": 0, "segment_softmax_normalise": 0,
+      "masked_softmax": 0, "cell_list": 0, "quant_dense": 0, "fp8_dense": 0}),
 ], ids=["GAT", "GPS-GIN", "GPS-performer"])
 def test_attention_train_step_launches_on_card(batch, arch, want):
     """One bf16 train step of the qm9.json GAT (4 softmaxes; 4 aggregations
@@ -1254,6 +1256,108 @@ def test_segment_softmax_launches_and_graph_replays_on_card():
         assert all(torch.equal(bits(torch, o), bits(torch, w)) for o, w in zip(out, want))
         assert not index.tickets.any()
     assert fs.LAUNCHES["segment_softmax"] == before + 2
+
+
+def _split_layouts(dev, where: str):
+    """GAT's extended layouts ``[(logits, receivers, index)]`` of ``where``:
+    the qm9 top bucket of GAT and of GAT-edge (``chip_smoke``'s kinds; one
+    rank), or the BCC supercell of ``chip_smoke --parallel`` as four edge
+    shards (each rank's share of the layout, ``edge_share`` and
+    ``self_loop_edges((4, r))``), with random logits, masked slots at -1e9
+    and the rank-1 shard's statistics included."""
+    import chip_smoke
+    from hydragnn_tpu_torch.graphs.graph import loop_tail_mask
+    from hydragnn_tpu_torch.parallel import large_graph as lg
+
+    gen = torch.Generator().manual_seed(61)
+    if where == "supercell_shards":
+        sample = chip_smoke.supercell_samples(1, 1)
+        host = collate(sample, compute_pad_spec(sample, 1))
+        shards = [((4, r), lg.edge_share(host, 4, r, dev)) for r in range(4)]
+    else:
+        _, top, _ = chip_smoke._top_batch("gat" if where == "qm9_top_gat" else "gat_edge", 0)
+        shards = [(None, top.to(dev))]
+    out = []
+    for shard, b in shards:
+        _, recv = b.self_loop_edges(shard)
+        tail = (loop_tail_mask(b.num_edges, b.num_nodes, *shard, device=dev) if shard
+                else torch.cat([b.edge_mask.new_zeros(recv.shape[0] - b.num_edges
+                                                      - b.num_nodes),
+                                b.edge_mask.new_ones(b.num_nodes)]))
+        valid = torch.cat([b.edge_mask, tail.to(b.edge_mask.dtype)])
+        x = torch.randn(recv.shape[0], 6, generator=gen).to(dev) * 3.0
+        out.append((torch.where(valid[:, None] > 0, x, -1e9), recv,
+                    b.csr("loop_receivers", shard), b.num_nodes))
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("where", ["qm9_top_gat", "qm9_top_gat_edge"])
+def test_split_segment_softmax_at_one_rank_is_b3_bit_for_bit_on_card(dtype, where):
+    """B3's split form at one rank: ``segment_softmax_stats``, the combine
+    of one rank's statistics, ``segment_softmax_normalise``: every entry
+    bit-equal to the fused B3 at the qm9 top bucket of GAT and GAT-edge;
+    one counted launch per entry; the statistics against their plain
+    version within TOL (the maxima exactly)."""
+    dev = _cuda_or_skip()
+    ((x, ids, index, n),) = _split_layouts(dev, where)
+    x = x.to(dtype)
+    before = dict(fs.LAUNCHES)
+    m, s = fsm.segment_softmax_stats(x, ids, n, index=index)
+    shift, denom = fsm.combine_softmax_stats(m, s)
+    got = fsm.segment_softmax_normalise(x, ids, n, shift, denom, index=index)
+    torch.cuda.synchronize()
+    assert fs.LAUNCHES["segment_softmax_stats"] == before["segment_softmax_stats"] + 1
+    assert fs.LAUNCHES["segment_softmax_normalise"] == before["segment_softmax_normalise"] + 1
+    fused = fsm.segment_softmax(x, ids, n, index=index)
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       fused.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    pm, ps = fsm.plain_segment_softmax_stats(x, ids, n)
+    assert torch.equal(m, pm)
+    torch.testing.assert_close(s, ps, **TOL[torch.float32])
+    assert not index.tickets.any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_split_segment_softmax_at_supercell_shards_of_four_on_card(dtype):
+    """B3's split form at the four edge shards of ``chip_smoke --parallel``'s
+    supercell: each shard's statistics and normalisation against their
+    plain versions within TOL, and the four shards' outputs, normalised
+    from the statistics combined over the shards, against the plain
+    one-device softmax of the whole layout (rows split so that most ranks
+    hold none of a row's entries)."""
+    dev = _cuda_or_skip()
+    shards = _split_layouts(dev, "supercell_shards")
+    stats, plain = [], []
+    for x, ids, index, n in shards:
+        x = x.to(dtype)
+        m, s = fsm.segment_softmax_stats(x, ids, n, index=index)
+        pm, ps = fsm.plain_segment_softmax_stats(x, ids, n)
+        assert torch.equal(m, pm)
+        torch.testing.assert_close(s, ps, **TOL[torch.float32])
+        stats.append((m, s))
+        plain.append((pm, ps))
+    ms = torch.stack([m for m, _ in stats])
+    m_all = ms.amax(0)
+    shift, denom = fsm.combine_softmax_stats(
+        ms, torch.stack([s for _, s in stats]), lambda t: t.amax(0), lambda t: t.sum(0))
+    got, want = [], []
+    for (x, ids, index, n) in shards:
+        x = x.to(dtype)
+        out = fsm.segment_softmax_normalise(x, ids, n, shift, denom, index=index)
+        torch.testing.assert_close(
+            out.float(), fsm.plain_segment_softmax_normalise(x, ids, shift, denom).float(),
+            **TOL[dtype])
+        got.append(out)
+        want.append(x)
+    assert bool(torch.isfinite(m_all).any())
+    # the whole layout on one device: the shards' entries one after another
+    x_all = torch.cat(want)
+    ids_all = torch.cat([ids for _, ids, _, _ in shards])
+    n = shards[0][3]
+    ref = fsm.plain_segment_softmax(x_all, ids_all, n)
+    real = ids_all != n - 1
+    torch.testing.assert_close(torch.cat(got)[real].float(), ref[real].float(), **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

@@ -207,18 +207,28 @@ def test_edge_share_splits_the_edges_contiguously(world):
 
 
 def test_edge_sharding_refusals():
+    """Every stack runs edge-sharded now (SAGE among them); what stays
+    refused: SyncBatchNorm (the JAX package's ValueError), the interatomic
+    potential (the JAX package's edge-sharded step has no force term) and
+    ``edge_sharding: "full"`` (the next parallelism slice)."""
     from hydragnn_tpu_torch.models import create_model_config
     from hydragnn_tpu_torch.parallel import large_graph as lg
+    from hydragnn_tpu_torch.run_training import _parallel_request
 
     _, _, aug, _ = _case()
     for override, error, what in (({"SyncBatchNorm": True}, ValueError, "SyncBatchNorm"),
-                                  ({"mpnn_type": "SAGE"}, NotImplementedError, "GIN"),
-                                  ({"conv_checkpointing": True}, NotImplementedError,
-                                   "conv_checkpointing")):
+                                  ({"mpnn_type": "SAGE"}, None, None),
+                                  ({"enable_interatomic_potential": True}, NotImplementedError,
+                                   "no force term")):
         cfg = copy.deepcopy(aug)
         cfg["NeuralNetwork"]["Architecture"].update(override)
-        if "conv_checkpointing" in override:
-            cfg["NeuralNetwork"]["Training"]["conv_checkpointing"] = True
         model = create_model_config(cfg, device="cpu")
+        if error is None:
+            lg.make_edge_sharded_train_step(model)
+            continue
         with pytest.raises(error, match=what):
             lg.make_edge_sharded_train_step(model)
+    cfg = copy.deepcopy(aug)
+    cfg["NeuralNetwork"]["Architecture"]["edge_sharding"] = "full"
+    with pytest.raises(NotImplementedError, match="next parallelism slice"):
+        _parallel_request(cfg)

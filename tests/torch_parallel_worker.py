@@ -202,6 +202,40 @@ def task_edge_primitives(inp: dict, rank: int) -> dict:
     return {"segment_sum": seg.numpy(), "conv": conv.detach().numpy(), "dh": h.grad.numpy()}
 
 
+def task_edge_extremes(inp: dict, rank: int) -> dict:
+    """``models.common.edge_segment_extreme`` (max and min) under
+    ``edge_sharded`` over this rank's contiguous half of the rows of
+    ``data``, and its gradient against the cotangent ``g``: the rows'
+    gradients of this rank."""
+    from hydragnn_tpu_torch.models.common import edge_segment_extreme, edge_sharded
+
+    e = inp["data"].shape[0] // 2
+    mine = slice(rank * e, (rank + 1) * e)
+    out = {}
+    for kind in ("max", "min"):
+        x = torch.tensor(inp["data"][mine], requires_grad=True)
+        with edge_sharded(None):
+            y = edge_segment_extreme(x, torch.tensor(inp["ids"][mine]), inp["n"], kind)
+        (y * torch.tensor(inp["g"])).sum().backward()
+        out[kind] = y.detach().numpy()
+        out[f"d{kind}"] = x.grad.numpy()
+    return out
+
+
+def task_split_softmax(inp: dict, rank: int) -> dict:
+    """``models.common.edge_segment_softmax`` (B3's split form) under
+    ``edge_sharded`` over this rank's rows ``inp["rows"][rank]``, and its
+    gradient against the cotangent ``g``."""
+    from hydragnn_tpu_torch.models.common import edge_segment_softmax, edge_sharded
+
+    mine = inp["rows"][rank]
+    x = torch.tensor(inp["logits"][mine], requires_grad=True)
+    with edge_sharded(None):
+        y = edge_segment_softmax(x, torch.tensor(inp["ids"][mine]), inp["n"])
+    (y * torch.tensor(inp["g"][mine])).sum().backward()
+    return {"out": y.detach().numpy(), "dx": x.grad.numpy()}
+
+
 def task_ring(inp: dict, rank: int) -> dict:
     """Ring attention of replicated projections and its gradients against
     the cotangent ``g``."""
